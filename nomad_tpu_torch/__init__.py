@@ -1,0 +1,20 @@
+"""nomad_tpu_torch: the PyTorch and CUDA port of nomad-tpu's placement solver.
+
+The JAX package ``nomad_tpu`` is the reference; this package reproduces its
+device path on an NVIDIA H100 and imports nothing from it (nor ``jax``).
+Slice 1 covers the wavefront placement path: a lane's packed arrays go in,
+the chosen node per placement comes out.
+
+    scheduler/util.py   deterministic node shuffle (splitmix64 Fisher-Yates)
+    tensor/pack.py      NodeMatrix / UsageState / SpreadInfo array tables
+    solver/binpack.py   lane NamedTuples, host precompute of the compact table
+    solver/wave.py      the two wave kernels' plain versions and wrappers
+    solver/service.py   PackedLane, pack_lane_arrays, placements
+    solver/batch.py     fuse_lanes / fuse_and_solve across evals
+    kernels.py          nvcc build, ctypes binding, launch counts
+    carry.py            lane_from_reference: reference lane tables -> PackedLane
+    csrc/               the hand-written CUDA kernels (sm_90a)
+
+Every entry point takes ``device``; left out, it is ``cuda``, and with no
+card that raises rather than running on the CPU.
+"""

@@ -1,0 +1,47 @@
+"""Carry a lane packed by the JAX package over into the port.
+
+``lane_from_reference`` takes the reference's lane tables -- NamedTuples
+of numpy arrays (NodeConst, NodeState, PlacementBatch) and the shuffle
+order -- reads them field by field, and builds the port's PackedLane, so
+that both packages solve the same inputs. It takes plain arrays and
+imports nothing of the reference.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+
+from .device import DeviceLike, default_dtype_name
+from .solver.binpack import NodeConst, NodeState, PlacementBatch
+from .solver.service import PackedLane
+
+
+def _read(cls, src, dtype):
+    """Build ``cls`` from the same-named fields of ``src``; floating fields
+    are cast to the lane dtype (the reference casts them at pack time)."""
+    vals = {}
+    for name in cls._fields:
+        if not hasattr(src, name):
+            continue                    # trailing defaults stay 0-size
+        arr = np.asarray(getattr(src, name))
+        if np.issubdtype(arr.dtype, np.floating):
+            arr = arr.astype(dtype)
+        vals[name] = arr
+    return cls(**vals)
+
+
+def lane_from_reference(const, init, batch, order, *,
+                        dtype_name: Optional[str] = None,
+                        spread_alg: bool = False,
+                        node_ids: Optional[Sequence[str]] = None,
+                        device: DeviceLike = None) -> PackedLane:
+    """The port's PackedLane for a reference lane's tables. ``dtype_name``
+    defaults by ``device`` (float64 on the CPU, float32 on the card)."""
+    dtype_name = default_dtype_name(device, dtype_name)
+    dt = np.dtype(dtype_name)
+    return PackedLane(
+        np.asarray(order, dtype=np.int64),
+        _read(NodeConst, const, dt), _read(NodeState, init, dt),
+        _read(PlacementBatch, batch, dt), dtype_name, bool(spread_alg),
+        node_ids=node_ids)

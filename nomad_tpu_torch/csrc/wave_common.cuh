@@ -1,0 +1,238 @@
+// Shared device code of the two wavefront kernels (wave_compact.cu,
+// wave_block.cu): slot state, the score terms, the block-wide prefix scan
+// and arg-best reduction, and the saturation shift/refill.
+//
+// Both kernels run one thread block per lane and one thread per slot of
+// the B-slot window buffer (B = 32 * NW, NW warps). Every per-slot
+// expression mirrors nomad_tpu/solver/binpack.py op for op, with the same
+// association, so scores agree with the plain PyTorch versions to the bit:
+// the sources are built with -fmad=false (no implicit a*b+c contraction;
+// the one fused multiply-add XLA emits is written as fma()) and
+// without fast math, and 10**x goes through pow/powf as torch.pow does.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace nt {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxSkip = 3;            // select.go maxSkip
+
+template <typename T> __device__ __forceinline__ T pow10(T x);
+template <> __device__ __forceinline__ float pow10<float>(float x) {
+  return powf(10.0f, x);
+}
+template <> __device__ __forceinline__ double pow10<double>(double x) {
+  return pow(10.0, x);
+}
+
+template <typename T> __device__ __forceinline__ T neg_inf();
+template <> __device__ __forceinline__ float neg_inf<float>() {
+  return -INFINITY;
+}
+template <> __device__ __forceinline__ double neg_inf<double>() {
+  return -(double)INFINITY;
+}
+
+template <typename T> __device__ __forceinline__ T vmax(T a, T b) {
+  return a > b ? a : b;
+}
+
+template <typename T> __device__ __forceinline__ T fma_(T a, T b, T c);
+template <> __device__ __forceinline__ float fma_<float>(float a, float b,
+                                                         float c) {
+  return fmaf(a, b, c);
+}
+template <> __device__ __forceinline__ double fma_<double>(double a,
+                                                           double b,
+                                                           double c) {
+  return fma(a, b, c);
+}
+
+// BestFit v3 / worst-fit fitness clipped to [0, 18]
+// (binpack.py _binpack_score before its division by 18)
+template <typename T>
+__device__ __forceinline__ T binpack_raw(T free_cpu, T free_mem,
+                                         bool spread_alg) {
+  T total = pow10<T>(free_cpu) + pow10<T>(free_mem);
+  T raw = spread_alg ? total - T(2) : T(20) - total;
+  raw = raw < T(0) ? T(0) : raw;
+  return raw > T(18) ? T(18) : raw;
+}
+
+// (raw / 18 + rest) / nscores as XLA lowers the reference: the division by
+// the constant is a multiply by its rounded reciprocal, fused with the add
+template <typename T>
+__device__ __forceinline__ T final_score(T raw, T rest, T nscores) {
+  return fma_<T>(raw, T(1) / T(18), rest) / nscores;
+}
+
+// anti-affinity: -(coll + 1) / max(count, 1) when coll > 0
+template <typename T>
+__device__ __forceinline__ T anti_term(T coll, T count) {
+  return coll > T(0) ? -(coll + T(1)) / vmax(count, T(1)) : T(0);
+}
+
+// One window slot: the compact-table row plus copies taken j.
+template <typename T> struct Slot {
+  T c, ucpu, umem, ccap, mcap, placed, aff, pos;
+  int j;
+};
+
+template <typename T>
+__device__ __forceinline__ void load_row(Slot<T>& s, const T* row) {
+  s.c = row[0]; s.ucpu = row[1]; s.umem = row[2]; s.ccap = row[3];
+  s.mcap = row[4]; s.placed = row[5]; s.aff = row[6]; s.pos = row[7];
+  s.j = 0;
+}
+
+// Head terms of the slot's next placement (the scan step's per-slot part)
+template <typename T> struct Head {
+  bool fit;
+  T binpack, coll, anti;        // binpack: clipped raw fitness
+};
+
+template <typename T>
+__device__ __forceinline__ Head<T> head_terms(const Slot<T>& s, T ask_cpu,
+                                              T ask_mem, T count,
+                                              bool spread_alg) {
+  Head<T> h;
+  h.fit = (T)s.j < s.c;                 // sentinel rows: c = 0
+  T jp1 = (T)(s.j + 1);
+  T new_cpu = s.ucpu + jp1 * ask_cpu;
+  T new_mem = s.umem + jp1 * ask_mem;
+  T free_cpu = T(1) - new_cpu / vmax(s.ccap, T(1e-9));
+  T free_mem = T(1) - new_mem / vmax(s.mcap, T(1e-9));
+  h.binpack = binpack_raw<T>(free_cpu, free_mem, spread_alg);
+  h.coll = s.placed + (T)s.j;
+  h.anti = anti_term<T>(h.coll, count);
+  return h;
+}
+
+// Inclusive block-wide prefix sum of v; total receives the block sum.
+// wsum is NW ints of shared memory. Every thread must call it.
+template <int NW>
+__device__ __forceinline__ int block_scan(int v, int& total, int* wsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    int n = __shfl_up_sync(kFull, v, off);
+    if (lane >= off) v += n;
+  }
+  if (NW == 1) {
+    total = __shfl_sync(kFull, v, 31);
+    return v;
+  }
+  if (lane == 31) wsum[warp] = v;
+  __syncthreads();
+  int add = 0, tot = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    int x = wsum[k];
+    if (k < warp) add += x;
+    tot += x;
+  }
+  __syncthreads();
+  total = tot;
+  return v + add;
+}
+
+// Selection key: yielded first, then higher score, then smaller window
+// order, then smaller slot index -- a strict total order, so any
+// reduction tree gives the same winner.
+template <typename T> struct Key {
+  T eff;
+  int order, idx, y;
+};
+
+template <typename T>
+__device__ __forceinline__ bool better(const Key<T>& a, const Key<T>& b) {
+  if (a.y != b.y) return a.y > b.y;
+  if (a.eff != b.eff) return a.eff > b.eff;
+  if (a.order != b.order) return a.order < b.order;
+  return a.idx < b.idx;
+}
+
+// Block-wide best key, returned to every thread. red is NW keys of shared
+// memory. Every thread must call it.
+template <typename T, int NW>
+__device__ __forceinline__ Key<T> block_best(Key<T> k, Key<T>* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Key<T> o;
+    o.eff = __shfl_xor_sync(kFull, k.eff, off);
+    o.order = __shfl_xor_sync(kFull, k.order, off);
+    o.idx = __shfl_xor_sync(kFull, k.idx, off);
+    o.y = __shfl_xor_sync(kFull, k.y, off);
+    if (better(o, k)) k = o;
+  }
+  if (NW == 1) return k;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = k;
+  __syncthreads();
+  Key<T> b = red[0];
+#pragma unroll
+  for (int q = 1; q < NW; ++q)
+    if (better(red[q], b)) b = red[q];
+  __syncthreads();
+  return b;
+}
+
+// The window emulation (select.go:38-77) from one scan of the packed
+// (low << 16 | fit) flags: skip_rank = cumsum(low), cumsum(skipped) =
+// min(skip_rank, MAX_SKIP), cumsum(counted) = cumsum(fit) - cumsum(skipped).
+struct Sel {
+  bool yielded;
+  int order;
+};
+
+template <int NW>
+__device__ __forceinline__ Sel select_slot(bool fit, bool low, int L,
+                                           int* wsum) {
+  int tot;
+  int incl = block_scan<NW>((low ? (1 << 16) : 0) | (fit ? 1 : 0), tot, wsum);
+  int skip_rank = incl >> 16;
+  int srank = min(skip_rank, kMaxSkip);
+  bool skipped = low && skip_rank <= kMaxSkip;
+  int cpos = (incl & 0xffff) - srank;
+  int total_counted = (tot & 0xffff) - min(tot >> 16, kMaxSkip);
+  bool window = fit && !skipped && cpos <= L;
+  int deficit = max(0, L - min(total_counted, L));
+  bool fallback = skipped && srank <= deficit;
+  Sel r;
+  r.yielded = window || fallback;
+  r.order = window ? cpos : L + srank;
+  return r;
+}
+
+// Saturation: shift the slots above w left by one and load compact row
+// min(cursor, C-1) into the last slot (binpack.py _wave_refill_shift).
+// svidx holds S spread value-index columns of B ints (S may be 0); stage
+// is B slots of shared memory. Every thread must call it.
+template <typename T, int NW>
+__device__ __forceinline__ void refill_shift(Slot<T>& s, int w,
+                                             const T* lane_compact, int C,
+                                             int W, int cursor,
+                                             Slot<T>* stage, int* svidx,
+                                             int S) {
+  constexpr int B = 32 * NW;
+  const int tid = threadIdx.x;
+  const T* row = lane_compact + (size_t)min(cursor, C - 1) * W;
+  stage[tid] = s;
+  __syncthreads();
+  if (tid == B - 1) {
+    load_row(s, row);
+  } else if (tid >= w) {
+    s = stage[tid + 1];
+  }
+  for (int q = 0; q < S; ++q) {
+    int* col = svidx + q * B;
+    int v = tid == B - 1 ? (int)row[8 + q]
+                         : (tid >= w ? col[tid + 1] : col[tid]);
+    __syncthreads();
+    col[tid] = v;
+  }
+  __syncthreads();
+}
+
+}  // namespace nt

@@ -1,0 +1,182 @@
+"""Build, load and launch the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, bound through ``ctypes``
+(no PyTorch headers, so a build takes seconds). The libraries go to
+``build/nomad_tpu_torch/<hash>/`` under the repository root, keyed by a
+hash of the sources and flags, so an edit rebuilds and an unchanged tree
+reuses the last build. Sources are built at first launch, all at once,
+one ``nvcc`` process per source; nothing is compiled at import.
+
+Numerics: ``-fmad=false`` keeps every ``a*b + c`` as a rounded multiply
+and a rounded add, as the plain PyTorch versions compute it; there is no
+``--use_fast_math``, and division and square root stay IEEE-rounded.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC = PKG_DIR / "csrc"
+BUILD_ROOT = PKG_DIR.parent / "build" / "nomad_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
+    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+class Kernel:
+    """One hand-written kernel: its source, the TPU program it replaces,
+    its C entry points per dtype, and ``launches``, a plain count of the
+    launches made through ``launch``."""
+
+    def __init__(self, name: str, source: str, replaces: str,
+                 symbols: Dict[torch.dtype, str], argtypes):
+        self.name = name
+        self.source = source            # file name under csrc/
+        self.replaces = replaces
+        self.symbols = symbols
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fns: Dict[torch.dtype, object] = {}
+
+    def _fn(self, dtype: torch.dtype):
+        fn = self._fns.get(dtype)
+        if fn is None:
+            lib = load()[self.source]
+            fn = getattr(lib, self.symbols[dtype])
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fns[dtype] = fn
+        return fn
+
+    def launch(self, dtype: torch.dtype, *tensors: torch.Tensor, **ints):
+        """Launch on the current stream with the tensors' device pointers
+        and the named int arguments (in the C function's order); raise if
+        the launch was refused."""
+        if dtype not in self.symbols:
+            raise TypeError(f"{self.name}: no kernel for {dtype}")
+        dev = tensors[0].device
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            args = [t.data_ptr() for t in tensors]
+            args += [int(v) for v in ints.values()]
+            rc = self._fn(dtype)(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name}: CUDA launch failed with "
+                               f"cudaError_t {rc}")
+        self.launches += 1
+
+
+WAVE_COMPACT = Kernel(
+    "wave_compact", "wave_compact.cu",
+    "nomad_tpu/solver/binpack.py:1572 _solve_wave_compact_impl",
+    {torch.float32: "nt_wave_compact_f32",
+     torch.float64: "nt_wave_compact_f64"},
+    # 9 inputs, 3 outputs, E C W S V B spread_alg, stream
+    [_P] * 12 + [_I] * 7 + [_P])
+
+WAVE_BLOCK = Kernel(
+    "wave_block", "wave_block.cu",
+    "nomad_tpu/solver/binpack.py:1806 _solve_wave_block_impl",
+    {torch.float32: "nt_wave_block_f32",
+     torch.float64: "nt_wave_block_f64"},
+    # 3 inputs, 3 outputs, E C W B spread_alg, stream
+    [_P] * 6 + [_I] * 5 + [_P])
+
+KERNELS = (WAVE_BLOCK, WAVE_COMPACT)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or PATH)")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+_LOCK = threading.Lock()
+_LIBS: Optional[Dict[str, ctypes.CDLL]] = None
+
+
+def build() -> Dict[str, object]:
+    """Compile every csrc/*.cu that is missing from the build directory,
+    one nvcc process per source, all started together. Returns
+    {"dir", "seconds", "built", "log"}; raises with nvcc's output if a
+    build fails."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for src in _sources():
+        lib = out_dir / (src.stem + ".so")
+        if lib.exists():
+            continue
+        tmp = out_dir / f"{src.stem}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(src)]
+        procs.append((src, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    failed = []
+    for src, lib, tmp, proc in procs:
+        text, _ = proc.communicate()
+        log.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+        else:
+            os.replace(tmp, lib)
+    if procs:
+        (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+    return {"dir": str(out_dir), "seconds": time.perf_counter() - t0,
+            "built": [p[0].name for p in procs], "log": "\n".join(log)}
+
+
+def load() -> Dict[str, ctypes.CDLL]:
+    """Build if needed and load every kernel library (once per process)."""
+    global _LIBS
+    with _LOCK:
+        if _LIBS is None:
+            build()
+            out_dir = build_dir()
+            _LIBS = {src.name: ctypes.CDLL(str(out_dir / (src.stem + ".so")))
+                     for src in _sources()}
+        return _LIBS

@@ -1,0 +1,186 @@
+"""Lane packing and result mapping (port of the array half of
+nomad_tpu/solver/service.py).
+
+``pack_lane_arrays`` builds one lane exactly as the reference's
+TpuPlacementService._pack_inner does once its struct walks are done: the
+eval's node shuffle, the shuffled NodeConst / NodeState tables and the
+uniform PlacementBatch. ``placements`` maps solved shuffled positions back
+to node indexes and ids. Port assignment through NetworkIndex and the
+TpuPlacement structs come with the structs slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..device import DeviceLike, default_dtype_name
+from ..scheduler.util import shuffled_order
+from .binpack import (
+    PlacementBatch, make_node_const, make_node_state, wavefront_buffer_size)
+
+
+class PackedLane:
+    """One (eval, task-group) batch marshalled for the solver: the unit
+    fuse_and_solve fuses across evals. Holds the numpy tables (shuffled
+    node order) and what placements() needs to map results back."""
+
+    __slots__ = ("order", "const", "init", "batch", "dtype_name",
+                 "spread_alg", "node_ids", "_wave")
+
+    def __init__(self, order, const, init, batch, dtype_name: str,
+                 spread_alg: bool, node_ids: Optional[Sequence[str]] = None):
+        self.order = order
+        self.const = const
+        self.init = init
+        self.batch = batch
+        self.dtype_name = dtype_name
+        self.spread_alg = spread_alg
+        self.node_ids = node_ids
+        self._wave = None
+
+    def wavefront_ok(self) -> bool:
+        """Can this lane take the wavefront path? Uniform asks over an
+        active prefix, a window that fits a slot buffer, and none of
+        distinct_property, devices or reserved cores. Spreads, affinities
+        and reschedule penalties are modelled."""
+        if self._wave is None:
+            self._wave = self._wavefront_check()
+        return self._wave
+
+    def _wavefront_check(self) -> bool:
+        c = self.const
+        if (c.dp_vidx.shape[0] or c.mhz_per_core.shape[0]
+                or c.dev_aff.shape[0]):
+            return False
+        b = self.batch
+        act = np.asarray(b.active)
+        n_act = int(act.sum())
+        if n_act == 0 or not act[:n_act].all():     # active must be prefix
+            return False
+        for arr in (b.ask_cpu, b.ask_mem, b.ask_disk, b.n_dyn_ports,
+                    b.has_static, b.limit, b.count):
+            v = np.asarray(arr)[:n_act]
+            if not (v == v[0]).all():
+                return False
+        return wavefront_buffer_size(
+            int(np.asarray(b.limit)[0])) is not None
+
+    def wavefront_B(self) -> Optional[int]:
+        """Slot-buffer width (lanes of different widths never fuse)."""
+        if not self.wavefront_ok():
+            return None
+        return wavefront_buffer_size(int(np.asarray(self.batch.limit)[0]))
+
+    def fuse_key(self) -> tuple:
+        """Lanes with equal keys fuse into one dispatch: every static table
+        shape except the placement axis (which pads), plus dtype, scoring
+        mode and slot width."""
+        return (self.const.cpu_cap.shape[0],          # n_pad
+                self.batch.ask_cores.shape[0] > 0,    # core-ask lanes
+                self.const.spread_vidx.shape[0],      # S
+                self.const.spread_desired.shape[1],   # V
+                self.const.dp_vidx.shape[0],          # Dp
+                self.init.dp_counts.shape[1] if
+                self.const.dp_vidx.shape[0] else 0,   # Vd
+                self.const.dev_aff.shape[:2],         # (R, Gd)
+                self.dtype_name, self.spread_alg,
+                self.wavefront_B())
+
+
+def _limit(n: int, count: int, has_affinities: bool,
+           has_spreads: bool) -> int:
+    """Scan-window limit of a service eval (reference: stack.go:82-95 log2
+    limit, :176-185 spread/affinity override). Batch mode's fixed limit
+    of 2 and the override's stickiness across an eval's task groups come
+    with the structs slice, together with the callers that need them."""
+    if has_affinities or has_spreads:
+        return count if count >= 100 else 100
+    limit = 2
+    if n > 1:
+        log_limit = int(math.ceil(math.log2(n)))
+        if log_limit > limit:
+            limit = log_limit
+    return limit
+
+
+def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
+                     ask: Tuple[float, float, float], count: int,
+                     n_places: int, eval_id: str, state_index: int,
+                     affinity: Optional[np.ndarray] = None,
+                     spread_info=None,
+                     penalty_node_ids: Optional[
+                         Sequence[Optional[str]]] = None,
+                     distinct_hosts: bool = False,
+                     distinct_job_level: bool = False,
+                     spread_alg: bool = False,
+                     dtype_name: Optional[str] = None,
+                     device: DeviceLike = None) -> PackedLane:
+    """Build one service-eval lane from node-axis arrays (original node
+    order, padded to matrix.n_pad): the shuffle for (eval_id,
+    state_index), the shuffled const/init tables and a uniform batch of
+    ``n_places`` placements asking ``ask`` = (cpu MHz, memory MB, disk
+    MB), with no static and no dynamic ports (port asks come with the
+    structs slice). ``penalty_node_ids`` names, per placement, a node to
+    penalize (the reschedule penalty) or None. ``dtype_name`` defaults by
+    ``device``: float64 on the CPU, float32 on the card."""
+    dtype_name = default_dtype_name(device, dtype_name)
+    dtype = np.dtype(dtype_name).type
+    n = matrix.n_real
+    n_pad = matrix.n_pad
+    order = shuffled_order(eval_id, state_index, n)
+    perm = np.concatenate([np.asarray(order, dtype=np.int64),
+                           np.arange(n, n_pad, dtype=np.int64)])
+    limit = _limit(n, count, affinity is not None, spread_info is not None)
+    const = make_node_const(matrix, feasible, affinity, distinct_hosts,
+                            spread_info, perm, dtype=dtype,
+                            distinct_job_level=distinct_job_level)
+    init = make_node_state(
+        usage, matrix, np.ones(n_pad, dtype=bool), perm,
+        spread_info.n_spreads if spread_info else 0,
+        spread_info.n_values if spread_info else 1,
+        spread_counts=(spread_info.initial_counts
+                       if spread_info else None), dtype=dtype)
+
+    P = int(n_places)
+    penalty = np.full(P, -1, dtype=np.int32)
+    if penalty_node_ids:
+        inv = np.empty(n_pad, dtype=np.int64)
+        inv[perm] = np.arange(n_pad)
+        id_to_pos = {nid: int(inv[i])
+                     for i, nid in enumerate(matrix.node_ids)}
+        for pi, nid in enumerate(penalty_node_ids):
+            if nid is not None:
+                pos = id_to_pos.get(nid)
+                if pos is not None:
+                    penalty[pi] = pos
+    ask_cpu, ask_mem, ask_disk = ask
+    batch = PlacementBatch(
+        ask_cpu=np.full(P, float(ask_cpu), dtype=dtype),
+        ask_mem=np.full(P, float(ask_mem), dtype=dtype),
+        ask_disk=np.full(P, float(ask_disk), dtype=dtype),
+        n_dyn_ports=np.zeros(P, dtype=np.int32),
+        has_static=np.zeros(P, dtype=bool),
+        limit=np.full(P, limit, dtype=np.int32),
+        count=np.full(P, count, dtype=np.int32),
+        penalty_idx=penalty,
+        active=np.ones(P, dtype=bool),
+        ask_cores=np.zeros(0, dtype=np.int32))
+    return PackedLane(order, const, init, batch, dtype_name, spread_alg,
+                      node_ids=matrix.node_ids)
+
+
+def placements(lane: PackedLane, chosen) -> Tuple[np.ndarray,
+                                                  List[Optional[str]]]:
+    """Map solved shuffled positions to (original node index per
+    placement, -1 where nothing was placed; node id or None)."""
+    pos = np.asarray(chosen, dtype=np.int64)
+    order = np.asarray(lane.order, dtype=np.int64)
+    idx = np.full(pos.shape, -1, dtype=np.int64)
+    placed = pos >= 0
+    idx[placed] = order[pos[placed]]
+    ids: List[Optional[str]] = [
+        (lane.node_ids[i] if i >= 0 and lane.node_ids is not None else None)
+        for i in idx.tolist()]
+    return idx, ids

@@ -1,0 +1,66 @@
+"""Node-axis array tables (port of the array parts of
+nomad_tpu/tensor/pack.py).
+
+Shapes are padded to bucket sizes so one kernel shape serves many fleet
+sizes. Building these from Node and Allocation structs (pack_nodes,
+pack_usage) waits for the structs slice; callers hand in arrays.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List
+
+import numpy as np
+
+DEFAULT_NODE_BUCKETS = (64, 256, 1024, 4096, 16384, 65536)
+
+
+def bucket_size(n: int, buckets=DEFAULT_NODE_BUCKETS) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return int(2 ** np.ceil(np.log2(max(n, 1))))
+
+
+@dataclass
+class NodeMatrix:
+    """Static per-eval node-axis tensors (padded to n_pad): capacity minus
+    agent-reserved resources, free dynamic ports, and the real-node mask."""
+
+    n_real: int
+    n_pad: int
+    node_ids: List[str]
+    cpu_cap: np.ndarray        # (n_pad,) float64
+    mem_cap: np.ndarray
+    disk_cap: np.ndarray
+    dyn_free: np.ndarray       # (n_pad,) int32 free ports in dynamic range
+    valid: np.ndarray          # (n_pad,) bool -- real node vs padding
+
+
+@dataclass
+class UsageState:
+    """Dynamic usage on the node axis: what proposed allocs consume."""
+
+    used_cpu: np.ndarray       # (n_pad,) float64
+    used_mem: np.ndarray
+    used_disk: np.ndarray
+    placed_jobtg: np.ndarray   # (n_pad,) int32 allocs of THIS job+tg per node
+    placed_job: np.ndarray     # (n_pad,) int32 allocs of THIS job (any tg)
+    dyn_used: np.ndarray       # (n_pad,) int32 dynamic-range ports in use
+
+
+@dataclass
+class SpreadInfo:
+    """Spread attributes as arrays: per spread, each node's value index into
+    a padded value table plus desired counts (reference: spread.go
+    computeSpreadInfo + propertyset.go)."""
+
+    n_spreads: int
+    value_index: np.ndarray    # (S, n_pad) int32; -1 = attribute missing
+    n_values: int              # V (padded distinct values across spreads)
+    desired: np.ndarray        # (S, V) float64; -1 = no explicit target
+    has_targets: np.ndarray    # (S,) bool
+    weights: np.ndarray        # (S,) float64
+    sum_weights: float
+    initial_counts: np.ndarray  # (S, V) int32 existing allocs per value
+    values: List[List[str]] = field(default_factory=list)

@@ -1,0 +1,140 @@
+"""Package boundaries of the port: it stands alone (no jax, nothing of
+nomad_tpu), runs on the card unless told otherwise, never falls back
+silently, and refuses what it has not ported yet."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from nomad_tpu_torch import kernels
+from nomad_tpu_torch.solver.batch import fuse_and_solve
+from nomad_tpu_torch.solver.service import pack_lane_arrays
+from nomad_tpu_torch.tensor.pack import NodeMatrix, UsageState
+
+# One intra-op thread: the port's CPU tensors are small, and the test
+# run already keeps one xdist worker busy per core.
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "nomad_tpu_torch"
+
+
+def test_import_loads_no_jax_and_nothing_of_the_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import nomad_tpu_torch\n"
+        "for m in pkgutil.walk_packages(nomad_tpu_torch.__path__,"
+        " 'nomad_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT) for p in PORT.rglob("*.py")]
+    + [Path("chip_smoke.py")]), ids=str)
+def test_no_file_of_the_port_imports_jax_or_the_reference(path):
+    roots = set(_imported_roots(ROOT / path))
+    assert not roots & {"jax", "jaxlib", "nomad_tpu"}, roots
+
+
+def _tiny_lane(device, count=6, **kw):
+    n, n_pad = 5, 64
+    matrix = NodeMatrix(
+        n_real=n, n_pad=n_pad, node_ids=[f"n{i}" for i in range(n)],
+        cpu_cap=np.r_[np.full(n, 4000.0), np.zeros(n_pad - n)],
+        mem_cap=np.r_[np.full(n, 8192.0), np.zeros(n_pad - n)],
+        disk_cap=np.r_[np.full(n, 102400.0), np.zeros(n_pad - n)],
+        dyn_free=np.full(n_pad, 100, dtype=np.int32),
+        valid=np.arange(n_pad) < n)
+    z = np.zeros(n_pad)
+    usage = UsageState(z, z, z, z.astype(np.int32), z.astype(np.int32),
+                       z.astype(np.int32))
+    return pack_lane_arrays(matrix, usage, np.ones(n_pad, dtype=bool),
+                            ask=(500.0, 256.0, 150.0), count=count,
+                            n_places=count,
+                            eval_id="tiny", state_index=1, device=device,
+                            **kw)
+
+
+def test_default_device_is_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    lane = _tiny_lane("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fuse_and_solve([lane])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _tiny_lane(None)
+    # the same lane solves when the caller asks for the CPU
+    chosen, _, _ = fuse_and_solve([lane], device="cpu")[0]
+    assert (chosen >= 0).all()
+
+
+def test_dtype_follows_device_unless_named():
+    assert _tiny_lane("cpu").dtype_name == "float64"
+    assert _tiny_lane("cpu", dtype_name="float32").dtype_name == "float32"
+    with pytest.raises(ValueError):
+        _tiny_lane("cpu", dtype_name="float16")
+
+
+def test_non_wave_groups_raise_not_implemented():
+    lane = _tiny_lane("cpu")
+    mixed = lane.batch._replace(
+        ask_cpu=np.array([500.0, 500.0, 700.0, 500.0, 500.0, 500.0]))
+    lane.batch, lane._wave = mixed, None
+    assert not lane.wavefront_ok()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fuse_and_solve([lane], device="cpu")
+    # an affinity lane's window is max(count, 100): 200 is wider than any
+    # slot buffer
+    wide = _tiny_lane("cpu", count=200,
+                      affinity=np.zeros(lane.const.cpu_cap.shape[0]))
+    assert int(wide.batch.limit[0]) == 200 and not wide.wavefront_ok()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fuse_and_solve([wide], device="cpu")
+
+
+def test_kernel_build_is_hermetic_and_ignored_by_git():
+    d = kernels.build_dir()
+    assert d.is_relative_to(ROOT / "build")
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    flags = " ".join(kernels.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-fmad=false" in flags and "fast_math" not in flags
+    sources = {p.name for p in kernels.CSRC.glob("*.cu")}
+    assert {k.source for k in kernels.KERNELS} <= sources
+    for k in kernels.KERNELS:
+        assert k.launches >= 0 and k.replaces.startswith("nomad_tpu/")
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """With no card, chip_smoke.py exits nonzero and prints no result --
+    from the repository and from a directory holding only the script."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, alone)):
+        r = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0
+        assert '"ok": true' not in r.stdout
