@@ -3,8 +3,9 @@
 ``lane_from_reference`` takes the reference's lane tables -- NamedTuples
 of numpy arrays (NodeConst, NodeState, PlacementBatch) and the shuffle
 order -- reads them field by field, and builds the port's PackedLane, so
-that both packages solve the same inputs. It takes plain arrays and
-imports nothing of the reference.
+that both packages solve the same inputs: the dense lanes'
+distinct_property, device and reserved-core tables ride along by name.
+It takes plain arrays and imports nothing of the reference.
 """
 from __future__ import annotations
 
@@ -35,9 +36,15 @@ def lane_from_reference(const, init, batch, order, *,
                         dtype_name: Optional[str] = None,
                         spread_alg: bool = False,
                         node_ids: Optional[Sequence[str]] = None,
+                        ptab=None,
                         device: DeviceLike = None) -> PackedLane:
     """The port's PackedLane for a reference lane's tables. ``dtype_name``
-    defaults by ``device`` (float64 on the CPU, float32 on the card)."""
+    defaults by ``device`` (float64 on the CPU, float32 on the card).
+    A lane with preemption tables (``ptab``) is refused: preemption is
+    not ported yet."""
+    if ptab is not None:
+        raise NotImplementedError(
+            "preemption lanes are not ported yet (ROADMAP Queue 1 item 8)")
     dtype_name = default_dtype_name(device, dtype_name)
     dt = np.dtype(dtype_name)
     return PackedLane(

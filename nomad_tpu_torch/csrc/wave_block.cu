@@ -196,22 +196,27 @@ int launch(const T* compact, const T* scal_f, const int* scal_i,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int nt_wave_block_f32(const float* compact, const float* scal_f,
-                                 const int* scal_i, long long* chosen,
-                                 float* scores, long long* n_yielded, int E,
-                                 int C, int W, int B, int spread_alg,
-                                 void* stream) {
-  return launch<float>(compact, scal_f, scal_i, chosen, scores, n_yielded,
-                       E, C, W, B, spread_alg, (cudaStream_t)stream);
+// The packed entry point (kernels.Kernel.launch): 3 inputs and 3 outputs
+// as device pointers, then E C W B spread_alg.
+template <typename T>
+int launch_packed(void* const* p, int n_ptrs, const int* d, int n_dims,
+                  cudaStream_t stream) {
+  if (n_ptrs != 6 || n_dims != 5) return (int)cudaErrorInvalidValue;
+  return launch<T>((const T*)p[0], (const T*)p[1], (const int*)p[2],
+                   (long long*)p[3], (T*)p[4], (long long*)p[5], d[0], d[1],
+                   d[2], d[3], d[4], stream);
 }
 
-extern "C" int nt_wave_block_f64(const double* compact,
-                                 const double* scal_f, const int* scal_i,
-                                 long long* chosen, double* scores,
-                                 long long* n_yielded, int E, int C, int W,
-                                 int B, int spread_alg, void* stream) {
-  return launch<double>(compact, scal_f, scal_i, chosen, scores, n_yielded,
-                        E, C, W, B, spread_alg, (cudaStream_t)stream);
+}  // namespace
+
+extern "C" int nt_wave_block_f32(void* const* ptrs, int n_ptrs,
+                                 const int* dims, int n_dims, void* stream) {
+  return launch_packed<float>(ptrs, n_ptrs, dims, n_dims,
+                              (cudaStream_t)stream);
+}
+
+extern "C" int nt_wave_block_f64(void* const* ptrs, int n_ptrs,
+                                 const int* dims, int n_dims, void* stream) {
+  return launch_packed<double>(ptrs, n_ptrs, dims, n_dims,
+                               (cudaStream_t)stream);
 }

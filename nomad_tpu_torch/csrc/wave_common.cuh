@@ -1,6 +1,8 @@
 // Shared device code of the two wavefront kernels (wave_compact.cu,
 // wave_block.cu): slot state, the score terms, the block-wide prefix scan
-// and arg-best reduction, and the saturation shift/refill.
+// and arg-best reduction, and the saturation shift/refill. The score
+// terms, the scan and the arg-best are also the dense and system
+// kernels' (dense_common.cuh).
 //
 // Both kernels run one thread block per lane and one thread per slot of
 // the B-slot window buffer (B = 32 * NW, NW warps). Every per-slot
@@ -111,13 +113,13 @@ __device__ __forceinline__ Head<T> head_terms(const Slot<T>& s, T ask_cpu,
 }
 
 // Inclusive block-wide prefix sum of v; total receives the block sum.
-// wsum is NW ints of shared memory. Every thread must call it.
-template <int NW>
-__device__ __forceinline__ int block_scan(int v, int& total, int* wsum) {
+// wsum is NW values of shared memory. Every thread must call it.
+template <int NW, typename V = int>
+__device__ __forceinline__ V block_scan(V v, V& total, V* wsum) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    int n = __shfl_up_sync(kFull, v, off);
+    V n = __shfl_up_sync(kFull, v, off);
     if (lane >= off) v += n;
   }
   if (NW == 1) {
@@ -126,10 +128,10 @@ __device__ __forceinline__ int block_scan(int v, int& total, int* wsum) {
   }
   if (lane == 31) wsum[warp] = v;
   __syncthreads();
-  int add = 0, tot = 0;
+  V add = 0, tot = 0;
 #pragma unroll
   for (int k = 0; k < NW; ++k) {
-    int x = wsum[k];
+    V x = wsum[k];
     if (k < warp) add += x;
     tot += x;
   }

@@ -249,30 +249,32 @@ int launch(const T* compact, const T* scal_f, const int* scal_i,
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-extern "C" int nt_wave_compact_f32(
-    const float* compact, const float* scal_f, const int* scal_i,
-    const int* pen, const int* sp_counts, const float* sp_desired,
-    const unsigned char* sp_has_targets, const float* sp_weights,
-    const float* sp_sum_weights, long long* chosen, float* scores,
-    long long* n_yielded, int E, int C, int W, int S, int V, int B,
-    int spread_alg, void* stream) {
-  return launch<float>(compact, scal_f, scal_i, pen, sp_counts, sp_desired,
-                       sp_has_targets, sp_weights, sp_sum_weights, chosen,
-                       scores, n_yielded, E, C, W, S, V, B, spread_alg,
-                       (cudaStream_t)stream);
+// The packed entry point (kernels.Kernel.launch): 9 inputs and 3 outputs
+// as device pointers, then E C W S V B spread_alg.
+template <typename T>
+int launch_packed(void* const* p, int n_ptrs, const int* d, int n_dims,
+                  cudaStream_t stream) {
+  if (n_ptrs != 12 || n_dims != 7) return (int)cudaErrorInvalidValue;
+  return launch<T>((const T*)p[0], (const T*)p[1], (const int*)p[2],
+                   (const int*)p[3], (const int*)p[4], (const T*)p[5],
+                   (const unsigned char*)p[6], (const T*)p[7],
+                   (const T*)p[8], (long long*)p[9], (T*)p[10],
+                   (long long*)p[11], d[0], d[1], d[2], d[3], d[4], d[5],
+                   d[6], stream);
 }
 
-extern "C" int nt_wave_compact_f64(
-    const double* compact, const double* scal_f, const int* scal_i,
-    const int* pen, const int* sp_counts, const double* sp_desired,
-    const unsigned char* sp_has_targets, const double* sp_weights,
-    const double* sp_sum_weights, long long* chosen, double* scores,
-    long long* n_yielded, int E, int C, int W, int S, int V, int B,
-    int spread_alg, void* stream) {
-  return launch<double>(compact, scal_f, scal_i, pen, sp_counts, sp_desired,
-                        sp_has_targets, sp_weights, sp_sum_weights, chosen,
-                        scores, n_yielded, E, C, W, S, V, B, spread_alg,
-                        (cudaStream_t)stream);
+}  // namespace
+
+extern "C" int nt_wave_compact_f32(void* const* ptrs, int n_ptrs,
+                                   const int* dims, int n_dims,
+                                   void* stream) {
+  return launch_packed<float>(ptrs, n_ptrs, dims, n_dims,
+                              (cudaStream_t)stream);
+}
+
+extern "C" int nt_wave_compact_f64(void* const* ptrs, int n_ptrs,
+                                   const int* dims, int n_dims,
+                                   void* stream) {
+  return launch_packed<double>(ptrs, n_ptrs, dims, n_dims,
+                               (cudaStream_t)stream);
 }

@@ -42,15 +42,19 @@ _I = ctypes.c_int
 class Kernel:
     """One hand-written kernel: its source, the TPU program it replaces,
     its C entry points per dtype, and ``launches``, a plain count of the
-    launches made through ``launch``."""
+    launches made through ``launch``.
+
+    Every entry point takes its tensors as one array of device pointers
+    and its ints as one int array, each in the C function's order, then
+    the stream: ``int fn(void* const* ptrs, int n_ptrs, const int* dims,
+    int n_dims, void* stream)``, returning a cudaError_t."""
 
     def __init__(self, name: str, source: str, replaces: str,
-                 symbols: Dict[torch.dtype, str], argtypes):
+                 symbols: Dict[torch.dtype, str]):
         self.name = name
         self.source = source            # file name under csrc/
         self.replaces = replaces
         self.symbols = symbols
-        self.argtypes = argtypes
         self.launches = 0
         self._fns: Dict[torch.dtype, object] = {}
 
@@ -59,23 +63,24 @@ class Kernel:
         if fn is None:
             lib = load()[self.source]
             fn = getattr(lib, self.symbols[dtype])
-            fn.argtypes = self.argtypes
+            fn.argtypes = [_P, _I, _P, _I, _P]
             fn.restype = ctypes.c_int
             self._fns[dtype] = fn
         return fn
 
-    def launch(self, dtype: torch.dtype, *tensors: torch.Tensor, **ints):
+    def launch(self, dtype: torch.dtype, tensors, ints):
         """Launch on the current stream with the tensors' device pointers
-        and the named int arguments (in the C function's order); raise if
-        the launch was refused."""
+        and the int arguments; raise if the launch was refused."""
         if dtype not in self.symbols:
             raise TypeError(f"{self.name}: no kernel for {dtype}")
         dev = tensors[0].device
+        ptrs = (ctypes.c_void_p * len(tensors))(
+            *[t.data_ptr() for t in tensors])
+        vals = (ctypes.c_int * len(ints))(*[int(v) for v in ints])
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            args = [t.data_ptr() for t in tensors]
-            args += [int(v) for v in ints.values()]
-            rc = self._fn(dtype)(*args, stream)
+            rc = self._fn(dtype)(ptrs, len(tensors), vals, len(ints),
+                                 stream)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with "
                                f"cudaError_t {rc}")
@@ -86,19 +91,27 @@ WAVE_COMPACT = Kernel(
     "wave_compact", "wave_compact.cu",
     "nomad_tpu/solver/binpack.py:1572 _solve_wave_compact_impl",
     {torch.float32: "nt_wave_compact_f32",
-     torch.float64: "nt_wave_compact_f64"},
-    # 9 inputs, 3 outputs, E C W S V B spread_alg, stream
-    [_P] * 12 + [_I] * 7 + [_P])
+     torch.float64: "nt_wave_compact_f64"})
 
 WAVE_BLOCK = Kernel(
     "wave_block", "wave_block.cu",
     "nomad_tpu/solver/binpack.py:1806 _solve_wave_block_impl",
     {torch.float32: "nt_wave_block_f32",
-     torch.float64: "nt_wave_block_f64"},
-    # 3 inputs, 3 outputs, E C W B spread_alg, stream
-    [_P] * 6 + [_I] * 5 + [_P])
+     torch.float64: "nt_wave_block_f64"})
 
-KERNELS = (WAVE_BLOCK, WAVE_COMPACT)
+DENSE_SCAN = Kernel(
+    "dense_scan", "dense_scan.cu",
+    "nomad_tpu/solver/binpack.py:652 _solve_placements_impl",
+    {torch.float32: "nt_dense_scan_f32",
+     torch.float64: "nt_dense_scan_f64"})
+
+SYSTEM_FIT = Kernel(
+    "system_fit", "system_fit.cu",
+    "nomad_tpu/solver/binpack.py:1341 _solve_system_impl",
+    {torch.float32: "nt_system_fit_f32",
+     torch.float64: "nt_system_fit_f64"})
+
+KERNELS = (WAVE_BLOCK, WAVE_COMPACT, DENSE_SCAN, SYSTEM_FIT)
 
 
 def reset_launches() -> None:

@@ -3,9 +3,12 @@ of nomad_tpu/solver/batch.py).
 
 Lanes with equal static shapes (PackedLane.fuse_key) stack along a
 leading eval axis padded to an E bucket, their placement axes padded to a
-common P bucket, and solve in one kernel launch. Padding lanes copy lane
-0 with ``active`` all False and place nothing. The barrier, the dispatch
-pipeline and the stack arena of the reference come with later slices.
+common P bucket, and solve in one kernel launch: a wavefront kernel for
+lanes that pass the wave gate, the dense scan for the rest. Padding lanes
+copy lane 0 with ``active`` all False and place nothing. Dense groups
+keep the tight E bucket, as in the reference: a padding lane costs the
+dense scan O(N * P). The barrier, the dispatch pipeline and the stack
+arena of the reference come with later slices.
 """
 from __future__ import annotations
 
@@ -104,16 +107,16 @@ def fuse_lanes(lanes: List[PackedLane]) -> List[_FusedGroup]:
 def solve_groups(lanes: List[PackedLane], groups: List[_FusedGroup],
                  device: DeviceLike = None
                  ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """Device half of fuse_and_solve: dispatch each fused group and map
-    results back to input-lane order. Only wave groups are ported;
-    solve_lane_fused raises for any other group rather than solving it
-    some other way."""
+    """Device half of fuse_and_solve: dispatch each fused group (wave
+    kernels or dense scan, as the group's gate says) and map results back
+    to input-lane order."""
     dev = resolve_device(device)
     results: List = [None] * len(lanes)
     for g in groups:
         chosen, scores, n_yielded = solve_lane_fused(
-            g.const, g.init, g.batch, spread_alg=g.spread_alg,
-            dtype_name=g.dtype_name, wave=g.wave, device=dev)
+            g.const, g.init, g.batch,
+            spread_alg=g.spread_alg, dtype_name=g.dtype_name, wave=g.wave,
+            device=dev)
         for j, li in enumerate(g.idxs):
             p_real = lanes[li].batch.ask_cpu.shape[0]
             results[li] = (chosen[j][:p_real].astype(np.int64),

@@ -67,8 +67,9 @@ class NodeState(NamedTuple):
 
 class NodeConst(NamedTuple):
     """Static per-eval node arrays, shaped (N,), plus spread tables. The
-    trailing distinct_property / device / core tables stay 0-size on every
-    lane this slice solves; they are carried so the wave gate can see them."""
+    trailing distinct_property / device / core tables are 0-size unless
+    the task group asks for them; a lane that carries any of them takes
+    the dense path (solver/dense.py)."""
 
     cpu_cap: np.ndarray
     mem_cap: np.ndarray
@@ -108,9 +109,14 @@ class WaveSpread(NamedTuple):
 def make_node_const(matrix, feasible: np.ndarray, affinity,
                     distinct_hosts: bool, spread_info, order: np.ndarray,
                     dtype=np.float32,
-                    distinct_job_level: bool = False) -> NodeConst:
+                    distinct_job_level: bool = False,
+                    distinct_property=None, devices=None,
+                    mhz_per_core: Optional[np.ndarray] = None) -> NodeConst:
     """Assemble NodeConst in shuffled order (order[i] = original index of
-    the node at shuffled position i)."""
+    the node at shuffled position i). ``distinct_property``
+    (DistinctPropertyInfo), ``devices`` (DeviceInfo) and ``mhz_per_core``
+    ((n_pad,) MHz per reservable core) are node-axis tables in original
+    node order; each is left 0-size when None."""
     n_pad = matrix.n_pad
     perm = np.asarray(order, dtype=np.int64)
     cpu = matrix.cpu_cap[perm].astype(dtype)
@@ -133,6 +139,20 @@ def make_node_const(matrix, feasible: np.ndarray, affinity,
         weights = np.zeros(0, dtype=dtype)
         sum_w = np.asarray(0.0, dtype=dtype)
         n_s = 0
+    dense = {}
+    if distinct_property is not None:
+        dense.update(
+            dp_vidx=np.asarray(distinct_property.value_index,
+                               dtype=np.int32)[:, perm],
+            dp_limit=np.asarray(distinct_property.limit, dtype=np.int32),
+            dp_tg_scope=np.asarray(distinct_property.tg_scope, dtype=bool))
+    if devices is not None:
+        dense.update(
+            dev_aff=np.asarray(devices.affinity)[:, :, perm].astype(dtype),
+            dev_count=np.asarray(devices.count, dtype=np.int32),
+            dev_sum_weight=np.asarray(devices.sum_weight, dtype=dtype))
+    if mhz_per_core is not None:
+        dense["mhz_per_core"] = np.asarray(mhz_per_core)[perm].astype(dtype)
     return NodeConst(
         cpu_cap=cpu, mem_cap=mem,
         disk_cap=disk, feasible=np.asarray(feas),
@@ -144,15 +164,28 @@ def make_node_const(matrix, feasible: np.ndarray, affinity,
         spread_has_targets=np.asarray(has_t),
         spread_weights=np.asarray(weights),
         spread_sum_weights=np.asarray(sum_w),
-        n_spreads=np.asarray(n_s, dtype=np.int32))
+        n_spreads=np.asarray(n_s, dtype=np.int32), **dense)
 
 
 def make_node_state(usage, matrix, static_ports_free: np.ndarray,
                     order: np.ndarray, n_spreads: int, n_values: int,
-                    spread_counts=None, dtype=np.float32) -> NodeState:
+                    spread_counts=None, dtype=np.float32,
+                    distinct_property=None, devices=None,
+                    cores_free: Optional[np.ndarray] = None) -> NodeState:
+    """Assemble NodeState in shuffled order; the dense tables as in
+    make_node_const (``cores_free``: (n_pad,) free reservable cores)."""
     perm = np.asarray(order, dtype=np.int64)
     counts = (spread_counts if spread_counts is not None
               else np.zeros((n_spreads, max(n_values, 1)), dtype=np.int32))
+    dense = {}
+    if distinct_property is not None:
+        dense["dp_counts"] = np.asarray(distinct_property.counts,
+                                        dtype=np.int32)
+    if devices is not None:
+        dense["dev_free"] = np.asarray(devices.free,
+                                       dtype=np.int32)[:, :, perm]
+    if cores_free is not None:
+        dense["cores_free"] = np.asarray(cores_free, dtype=np.int32)[perm]
     return NodeState(
         used_cpu=usage.used_cpu[perm].astype(dtype),
         used_mem=usage.used_mem[perm].astype(dtype),
@@ -161,7 +194,7 @@ def make_node_state(usage, matrix, static_ports_free: np.ndarray,
         placed_job=np.asarray(usage.placed_job[perm], dtype=np.int32),
         static_free=np.asarray(static_ports_free[perm]),
         dyn_avail=(matrix.dyn_free - usage.dyn_used)[perm].astype(np.int32),
-        spread_counts=np.asarray(counts))
+        spread_counts=np.asarray(counts), **dense)
 
 
 def wavefront_buffer_size(limit: int) -> Optional[int]:

@@ -1,0 +1,376 @@
+"""Dense greedy placement: the dense scan kernel, its plain PyTorch
+version, and the wrapper that picks between them (port of
+nomad_tpu/solver/binpack.py _solve_placements_impl with _scoring_parts,
+_select_window, _window_outputs, _spread_score and _commit_tables).
+
+Every placement step rescores all N nodes of a lane against the lane's
+current usage -- fit over cpu/mem/disk, dynamic and static ports,
+distinct_hosts, distinct_property counts, device groups and reserved
+cores; score = binpack + anti-affinity + reschedule penalty + affinity +
+spread + device affinity, divided by the number of terms present --
+selects within the LimitIterator/MaxScoreIterator window, and commits the
+winner into the carried NodeState. This is the path for lanes the
+wavefront gate refuses (service.PackedLane.wavefront_ok).
+
+The reference's FAST_T shortcut (binpack.py:432-438, :671-687) scores
+only the first 1,024 positions when they already hold ``limit`` counted
+options; its outcome is identical to the full pass. The plain version
+here always runs the full pass; the kernel walks the nodes in tiles and
+stops once ``limit`` options are counted, the same argument for any
+prefix.
+
+``dense_scan_plain`` is batched over the E lanes and loops over the P
+steps; the CUDA kernel (csrc/dense_scan.cu) runs one thread block per
+lane with the whole scan inside one launch. ``dense_scan`` takes the
+plain version only for CPU tensors; a CUDA tensor launches the kernel or
+raises.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..device import DeviceLike, default_dtype_name, resolve_device
+from .binpack import NodeConst, NodeState, PlacementBatch
+from .scoring import (
+    _anti, _binpack_raw, _fma, _score, _select, _spread_boost, _winner)
+
+
+class DenseOut(NamedTuple):
+    chosen: torch.Tensor        # (E, P) int64, -1 where nothing placed
+    scores: torch.Tensor        # (E, P) best yielded score, -inf if none
+    n_yielded: torch.Tensor     # (E, P) int64
+    state: NodeState            # the carried usage after the last step
+
+
+def _dev_terms(const, state, neg_inf):
+    """Device fit and score per node (feasible.go:1270 + device.go): every
+    request needs a group with enough free instances; the best such
+    group's affinity per request, summed over requests in order, over the
+    sum of weights. Returns (ok (E, N) bool, dev_score (E, N))."""
+    free = state.dev_free                              # (E, R, Gd, N)
+    ok_g = free >= const.dev_count[:, :, None, None]
+    any_g = ok_g.any(dim=2)                            # (E, R, N)
+    best = torch.where(ok_g, const.dev_aff, neg_inf).max(dim=2).values
+    sum_aff = torch.zeros_like(best[:, 0])
+    for r in range(best.shape[1]):
+        sum_aff = sum_aff + torch.where(any_g[:, r], best[:, r],
+                                        torch.zeros_like(best[:, r]))
+    sw = const.dev_sum_weight[:, None]
+    dev_score = torch.where(sw > 0, sum_aff / sw.clamp_min(1e-9),
+                            torch.zeros_like(sum_aff))
+    return any_g.all(dim=1), dev_score
+
+
+def _step_scores(const, state, b, spread_alg):
+    """One step's per-node fit and final score (binpack.py
+    _scoring_parts), (E, N) each. ``b`` holds the step's (E, 1) asks."""
+    dt = const.cpu_cap.dtype
+    E, N = const.cpu_cap.shape
+    dev = const.cpu_cap.device
+    has_cores = const.mhz_per_core.shape[-1] > 0
+    eff_cpu = (_fma(b["ask_cores"].to(dt), const.mhz_per_core, b["ask_cpu"])
+               if has_cores else b["ask_cpu"])
+    new_cpu = state.used_cpu + eff_cpu
+    new_mem = state.used_mem + b["ask_mem"]
+    new_disk = state.used_disk + b["ask_disk"]
+    distinct = torch.where(const.distinct_job_level[:, None],
+                           state.placed_job, state.placed)
+    feas = (const.feasible
+            & (state.dyn_avail >= b["n_dyn"])
+            & (state.static_free | ~b["has_static"])
+            & (~const.distinct_hosts[:, None] | (distinct == 0)))
+    ar = torch.arange(E, device=dev)[:, None]
+    for d in range(const.dp_vidx.shape[1]):
+        vidx = const.dp_vidx[:, d].long()
+        cnt = state.dp_counts[:, d][ar, vidx.clamp_min(0)]
+        feas = feas & (vidx >= 0) & (cnt < const.dp_limit[:, d:d + 1])
+    neg_inf = torch.tensor(-float("inf"), dtype=dt, device=dev)
+    R = const.dev_aff.shape[1]
+    if R:
+        dev_ok, dev_score = _dev_terms(const, state, neg_inf)
+        feas = feas & dev_ok
+    if has_cores:
+        feas = feas & (state.cores_free >= b["ask_cores"])
+    fit = (feas & (new_cpu <= const.cpu_cap) & (new_mem <= const.mem_cap)
+           & (new_disk <= const.disk_cap))
+
+    free_cpu = 1.0 - new_cpu / const.cpu_cap.clamp_min(1e-9)
+    free_mem = 1.0 - new_mem / const.mem_cap.clamp_min(1e-9)
+    # only fit nodes' scores reach an output; the others are left 0
+    # (skipping them keeps the CPU version's libm calls to the fit nodes)
+    idx = torch.nonzero(fit, as_tuple=True)
+    coll = state.placed[idx].to(dt)
+    count = b["count"].to(dt).expand(E, N)[idx]
+    anti = _anti(coll, count)
+    pen = torch.arange(N, device=dev)[None, :] == b["penalty"]
+    is_pen = pen[idx]
+    resched = torch.where(is_pen, -1.0, 0.0).to(dt)
+    aff = torch.where(const.has_affinity[:, None], const.affinity,
+                      torch.zeros_like(const.affinity))[idx]
+    spread = torch.zeros_like(coll)
+    S = const.spread_vidx.shape[1]
+    if S:
+        wfrac = (const.spread_weights
+                 / const.spread_sum_weights.clamp_min(1e-9)[:, None])
+        for s in range(S):
+            boost = _spread_boost(
+                const.spread_vidx[:, s].long(), state.spread_counts[:, s],
+                const.spread_desired[:, s],
+                const.spread_has_targets[:, s:s + 1], wfrac[:, s:s + 1])
+            spread = spread + boost[idx]
+    nscores = (1.0 + (coll > 0).to(dt) + is_pen.to(dt)
+               + (aff != 0.0).to(dt) + (spread != 0.0).to(dt))
+    other = ((anti + resched) + aff) + spread
+    if R:
+        nscores = nscores + (const.dev_sum_weight[:, None] > 0).to(
+            dt).expand(E, N)[idx]
+        other = other + dev_score[idx]
+    bp = _binpack_raw(free_cpu[idx], free_mem[idx], spread_alg)
+    final = torch.zeros((E, N), dtype=dt, device=dev)
+    final[idx] = _score(bp, other, nscores)
+    return fit, final
+
+
+def _commit(const, state, b, w, do):
+    """Commit each lane's winner ``w`` where ``do`` (binpack.py step's
+    scatter updates and _commit_tables), in place on ``state``."""
+    dt = const.cpu_cap.dtype
+    E = w.shape[0]
+    ar = torch.arange(E, device=w.device)
+    add_f = do.to(dt)
+    add_i = do.to(torch.int32)
+    if const.mhz_per_core.shape[-1]:
+        eff = _fma(b["ask_cores"][:, 0].to(dt), const.mhz_per_core[ar, w],
+                   b["ask_cpu"][:, 0])
+    else:
+        eff = b["ask_cpu"][:, 0]
+    state.used_cpu[ar, w] += add_f * eff
+    state.used_mem[ar, w] += add_f * b["ask_mem"][:, 0]
+    state.used_disk[ar, w] += add_f * b["ask_disk"][:, 0]
+    state.placed[ar, w] += add_i
+    state.placed_job[ar, w] += add_i
+    state.static_free[ar, w] &= ~(do & b["has_static"][:, 0])
+    state.dyn_avail[ar, w] -= add_i * b["n_dyn"][:, 0]
+    if const.mhz_per_core.shape[-1]:
+        state.cores_free[ar, w] -= add_i * b["ask_cores"][:, 0]
+    for vidx_all, counts in ((const.spread_vidx, state.spread_counts),
+                             (const.dp_vidx, state.dp_counts)):
+        for s in range(vidx_all.shape[1]):
+            v = vidx_all[ar, s, w].long()
+            counts[ar, s, v.clamp_min(0)] += (do & (v >= 0)).to(
+                torch.int32)
+    R = const.dev_aff.shape[1]
+    if R:
+        free_c = state.dev_free[ar, :, :, w]           # (E, R, Gd)
+        ok = free_c >= const.dev_count[:, :, None]
+        neg_inf = torch.tensor(-float("inf"), dtype=const.dev_aff.dtype,
+                               device=w.device)
+        aff_c = torch.where(ok, const.dev_aff[ar, :, :, w], neg_inf)
+        g_star = aff_c.argmax(dim=2)                   # (E, R) first max
+        for r in range(R):
+            state.dev_free[ar, r, g_star[:, r], w] -= (
+                add_i * const.dev_count[:, r])
+
+
+def dense_scan_plain(const: NodeConst, init: NodeState,
+                     batch: PlacementBatch, *, spread_alg: bool) -> DenseOut:
+    """Plain PyTorch version of the dense greedy scan over E stacked
+    lanes (every tensor carries a leading E axis): one Python step per
+    placement, the full node pass every step. ``init`` is not modified."""
+    state = NodeState(*(t.clone() for t in init))
+    E, P = batch.ask_cpu.shape
+    dt = const.cpu_cap.dtype
+    dev = const.cpu_cap.device
+    has_cores = const.mhz_per_core.shape[-1] > 0
+    neg_inf = torch.tensor(-float("inf"), dtype=dt, device=dev)
+    chosen = torch.full((E, P), -1, dtype=torch.long, device=dev)
+    scores = torch.empty((E, P), dtype=dt, device=dev)
+    n_yielded = torch.empty((E, P), dtype=torch.long, device=dev)
+    for i in range(P):
+        col = slice(i, i + 1)
+        b = dict(ask_cpu=batch.ask_cpu[:, col], ask_mem=batch.ask_mem[:, col],
+                 ask_disk=batch.ask_disk[:, col],
+                 n_dyn=batch.n_dyn_ports[:, col],
+                 has_static=batch.has_static[:, col],
+                 count=batch.count[:, col],
+                 penalty=batch.penalty_idx[:, col].long(),
+                 ask_cores=(batch.ask_cores[:, col] if has_cores else None))
+        fit, final = _step_scores(const, state, b, spread_alg)
+        _, yielded, order, ny = _select(final, fit,
+                                        batch.limit[:, col].long())
+        w, best = _winner(torch.where(yielded, final, neg_inf), yielded,
+                          order)
+        any_yield = ny > 0
+        do = batch.active[:, i] & any_yield
+        chosen[:, i] = torch.where(do, w, -1)
+        scores[:, i] = torch.where(any_yield, best, neg_inf)
+        n_yielded[:, i] = ny
+        _commit(const, state, b, w, do)
+    return DenseOut(chosen, scores, n_yielded, state)
+
+
+# --------------------------------------------------------------------------
+# The wrapper: the plain version for CPU tensors, the CUDA kernel for CUDA
+# tensors, an error for anything else.
+
+# (tree, field) order of the tensor pointers nt_dense_scan_* takes; the
+# kernel's host code unpacks them in this order (csrc/dense_scan.cu)
+DENSE_ARGS = (
+    ("const", "cpu_cap"), ("const", "mem_cap"), ("const", "disk_cap"),
+    ("const", "feasible"), ("const", "affinity"), ("const", "has_affinity"),
+    ("const", "distinct_hosts"), ("const", "distinct_job_level"),
+    ("const", "spread_vidx"), ("const", "spread_desired"),
+    ("const", "spread_has_targets"), ("const", "spread_weights"),
+    ("const", "spread_sum_weights"), ("const", "dp_vidx"),
+    ("const", "dp_limit"), ("const", "dev_aff"), ("const", "dev_count"),
+    ("const", "dev_sum_weight"), ("const", "mhz_per_core"),
+    ("batch", "ask_cpu"), ("batch", "ask_mem"), ("batch", "ask_disk"),
+    ("batch", "n_dyn_ports"), ("batch", "has_static"), ("batch", "limit"),
+    ("batch", "count"), ("batch", "penalty_idx"), ("batch", "active"),
+    ("batch", "ask_cores"),
+    ("state", "used_cpu"), ("state", "used_mem"), ("state", "used_disk"),
+    ("state", "placed"), ("state", "placed_job"), ("state", "static_free"),
+    ("state", "dyn_avail"), ("state", "spread_counts"),
+    ("state", "dp_counts"), ("state", "dev_free"), ("state", "cores_free"),
+)
+
+_INT_FIELDS = {"spread_vidx", "dp_vidx", "dp_limit", "dev_count",
+               "n_dyn_ports", "limit", "count", "penalty_idx", "ask_cores",
+               "placed", "placed_job", "dyn_avail", "spread_counts",
+               "dp_counts", "dev_free", "cores_free"}
+_BOOL_FIELDS = {"feasible", "has_affinity", "distinct_hosts",
+                "distinct_job_level", "spread_has_targets", "has_static",
+                "active", "static_free"}
+
+
+def _field_dtype(name, dt):
+    if name in _INT_FIELDS:
+        return torch.int32
+    if name in _BOOL_FIELDS:
+        return torch.bool
+    return dt
+
+
+def dense_dims(const, init, batch):
+    """(E, N, P, S, V, Dp, Vd, R, Gd, has_cores) of stacked lane tables,
+    after checking that every table agrees with them."""
+    E, N = const.cpu_cap.shape
+    P = batch.ask_cpu.shape[1]
+    S, V = init.spread_counts.shape[1:]
+    Dp = const.dp_vidx.shape[1] if const.dp_vidx.dim() == 3 else 0
+    Vd = init.dp_counts.shape[2] if Dp else 0
+    R = const.dev_aff.shape[1] if const.dev_aff.dim() == 4 else 0
+    Gd = const.dev_aff.shape[2] if R else 0
+    has_cores = const.mhz_per_core.dim() == 2 and const.mhz_per_core.shape[1]
+    want = {
+        "spread_vidx": (E, S, N), "spread_desired": (E, S, V),
+        "spread_has_targets": (E, S), "spread_weights": (E, S),
+        "spread_sum_weights": (E,), "has_affinity": (E,),
+        "distinct_hosts": (E,), "distinct_job_level": (E,),
+        "spread_counts": (E, S, V),
+    }
+    for f in ("cpu_cap", "mem_cap", "disk_cap", "feasible", "affinity"):
+        want[f] = (E, N)
+    for f in ("used_cpu", "used_mem", "used_disk", "placed", "placed_job",
+              "static_free", "dyn_avail"):
+        want[f] = (E, N)
+    for f in PlacementBatch._fields:
+        want[f] = (E, P)
+    if Dp:
+        want.update(dp_vidx=(E, Dp, N), dp_limit=(E, Dp),
+                    dp_counts=(E, Dp, Vd))
+    if R:
+        want.update(dev_aff=(E, R, Gd, N), dev_count=(E, R),
+                    dev_sum_weight=(E,), dev_free=(E, R, Gd, N))
+    if has_cores:
+        want.update(mhz_per_core=(E, N), cores_free=(E, N))
+    else:
+        want.pop("ask_cores")
+    trees = {"const": const, "state": init, "batch": batch}
+    for tree, f in DENSE_ARGS:
+        if f in want and tuple(getattr(trees[tree], f).shape) != want[f]:
+            raise ValueError(f"{tree}.{f} has shape "
+                             f"{tuple(getattr(trees[tree], f).shape)}, "
+                             f"expected {want[f]}")
+    return E, N, P, S, V, Dp, Vd, R, Gd, int(bool(has_cores))
+
+
+def dense_scan(const: NodeConst, init: NodeState, batch: PlacementBatch,
+               *, spread_alg: bool) -> DenseOut:
+    """Dense greedy scan over E stacked lanes of tensors on one device:
+    the plain version for CPU tensors, the dense_scan kernel for CUDA
+    tensors. ``init`` is not modified."""
+    dt = const.cpu_cap.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"cpu_cap dtype {dt} is not float32/float64")
+    dev = const.cpu_cap.device
+    trees = {"const": const, "state": init, "batch": batch}
+    for tree, f in DENSE_ARGS:
+        t = getattr(trees[tree], f)
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{tree}.{f} must be a torch.Tensor")
+        if t.device != dev:
+            raise ValueError(f"{tree}.{f} is on {t.device}, expected {dev}")
+        if t.numel() and t.dtype != _field_dtype(f, dt):
+            raise TypeError(f"{tree}.{f} has dtype {t.dtype}, expected "
+                            f"{_field_dtype(f, dt)}")
+    dims = dense_dims(const, init, batch)
+    if dev.type == "cpu":
+        return dense_scan_plain(const, init, batch, spread_alg=spread_alg)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    # the kernel indexes count tables with these: keep them in range
+    N, V, Vd = dims[1], dims[4], dims[6]
+    for name, t, hi in (("spread_vidx", const.spread_vidx, V),
+                        ("dp_vidx", const.dp_vidx, Vd),
+                        ("penalty_idx", batch.penalty_idx, N)):
+        if t.numel() and int(t.max()) >= hi:
+            raise ValueError(f"{name} holds an index >= {hi}")
+    E, P = dims[0], dims[2]
+    state = NodeState(*(t.clone().contiguous() for t in init))
+    trees["state"] = state
+    chosen = torch.empty((E, P), dtype=torch.int64, device=dev)
+    scores = torch.empty((E, P), dtype=dt, device=dev)
+    n_yielded = torch.empty((E, P), dtype=torch.int64, device=dev)
+    ptrs = [getattr(trees[tree], f).contiguous() for tree, f in DENSE_ARGS]
+    kernels.DENSE_SCAN.launch(
+        dt, ptrs + [chosen, scores, n_yielded],
+        list(dims) + [int(bool(spread_alg))])
+    return DenseOut(chosen, scores, n_yielded, state)
+
+
+def lane_tensors(const, init, batch, *, dtype_name: str,
+                 device: torch.device):
+    """Stacked numpy lane tables -> (NodeConst, NodeState, PlacementBatch)
+    of contiguous tensors on ``device``, each field in the dtype the
+    kernel takes (floating fields in the lane dtype). A lane with no core
+    asks keeps its 0-size ``ask_cores``."""
+    dt = getattr(torch, dtype_name)
+
+    def put(tree):
+        vals = []
+        for f in type(tree)._fields:
+            a = np.ascontiguousarray(np.asarray(getattr(tree, f)))
+            t = torch.from_numpy(a).to(device=device,
+                                       dtype=_field_dtype(f, dt))
+            vals.append(t)
+        return type(tree)(*vals)
+
+    return put(const), put(init), put(batch)
+
+
+def solve_placements(const, init, batch, *, spread_alg: bool,
+                     dtype_name=None, device: DeviceLike = None) -> DenseOut:
+    """Dense greedy solve of stacked (E, ...) numpy lane tables on
+    ``device`` (default ``cuda``; no card raises): the plain version on
+    the CPU, the dense_scan kernel on the card. Returns DenseOut of
+    tensors on that device."""
+    dev = resolve_device(device)
+    dtype_name = default_dtype_name(dev, dtype_name)
+    c, s, b = lane_tensors(const, init, batch, dtype_name=dtype_name,
+                           device=dev)
+    return dense_scan(c, s, b, spread_alg=spread_alg)

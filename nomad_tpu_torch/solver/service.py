@@ -3,10 +3,13 @@ nomad_tpu/solver/service.py).
 
 ``pack_lane_arrays`` builds one lane exactly as the reference's
 TpuPlacementService._pack_inner does once its struct walks are done: the
-eval's node shuffle, the shuffled NodeConst / NodeState tables and the
-uniform PlacementBatch. ``placements`` maps solved shuffled positions back
-to node indexes and ids. Port assignment through NetworkIndex and the
-TpuPlacement structs come with the structs slice.
+eval's node shuffle, the shuffled NodeConst / NodeState tables (with the
+distinct_property, device, reserved-core and port tables a dense lane
+needs) and the uniform PlacementBatch. ``placements`` maps solved
+shuffled positions back to node indexes and ids. ``solve_system_arrays``
+is the system-job entry point (TpuPlacementService.solve_system). Port
+assignment through NetworkIndex and the TpuPlacement structs come with
+the structs slice.
 """
 from __future__ import annotations
 
@@ -15,10 +18,11 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..device import DeviceLike, default_dtype_name
+from ..device import DeviceLike, default_dtype_name, resolve_device
 from ..scheduler.util import shuffled_order
 from .binpack import (
     PlacementBatch, make_node_const, make_node_state, wavefront_buffer_size)
+from .system import solve_system
 
 
 class PackedLane:
@@ -114,6 +118,12 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
                          Sequence[Optional[str]]] = None,
                      distinct_hosts: bool = False,
                      distinct_job_level: bool = False,
+                     distinct_property=None, devices=None,
+                     ask_cores: int = 0,
+                     mhz_per_core: Optional[np.ndarray] = None,
+                     cores_free: Optional[np.ndarray] = None,
+                     static_ports_free: Optional[np.ndarray] = None,
+                     n_dyn_ports: int = 0,
                      spread_alg: bool = False,
                      dtype_name: Optional[str] = None,
                      device: DeviceLike = None) -> PackedLane:
@@ -121,10 +131,15 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
     order, padded to matrix.n_pad): the shuffle for (eval_id,
     state_index), the shuffled const/init tables and a uniform batch of
     ``n_places`` placements asking ``ask`` = (cpu MHz, memory MB, disk
-    MB), with no static and no dynamic ports (port asks come with the
-    structs slice). ``penalty_node_ids`` names, per placement, a node to
-    penalize (the reschedule penalty) or None. ``dtype_name`` defaults by
-    ``device``: float64 on the CPU, float32 on the card."""
+    MB). ``penalty_node_ids`` names, per placement, a node to penalize
+    (the reschedule penalty) or None. Dense-lane options, each in
+    original node order: ``distinct_property`` (DistinctPropertyInfo),
+    ``devices`` (DeviceInfo), ``ask_cores`` reserved cores per placement
+    with ``mhz_per_core`` and ``cores_free`` per node (``ask[0]`` is then
+    the cpu of the tasks that reserve no cores), ``static_ports_free``
+    (per node: are the task group's static ports free; None = no static
+    ports asked) and ``n_dyn_ports`` dynamic ports asked. ``dtype_name``
+    defaults by ``device``: float64 on the CPU, float32 on the card."""
     dtype_name = default_dtype_name(device, dtype_name)
     dtype = np.dtype(dtype_name).type
     n = matrix.n_real
@@ -133,15 +148,26 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
     perm = np.concatenate([np.asarray(order, dtype=np.int64),
                            np.arange(n, n_pad, dtype=np.int64)])
     limit = _limit(n, count, affinity is not None, spread_info is not None)
+    if ask_cores and (mhz_per_core is None or cores_free is None):
+        raise ValueError("a reserved-core ask needs mhz_per_core and "
+                         "cores_free")
+    cores = bool(ask_cores)
     const = make_node_const(matrix, feasible, affinity, distinct_hosts,
                             spread_info, perm, dtype=dtype,
-                            distinct_job_level=distinct_job_level)
+                            distinct_job_level=distinct_job_level,
+                            distinct_property=distinct_property,
+                            devices=devices,
+                            mhz_per_core=mhz_per_core if cores else None)
     init = make_node_state(
-        usage, matrix, np.ones(n_pad, dtype=bool), perm,
+        usage, matrix,
+        (np.ones(n_pad, dtype=bool) if static_ports_free is None
+         else np.asarray(static_ports_free, dtype=bool)), perm,
         spread_info.n_spreads if spread_info else 0,
         spread_info.n_values if spread_info else 1,
         spread_counts=(spread_info.initial_counts
-                       if spread_info else None), dtype=dtype)
+                       if spread_info else None), dtype=dtype,
+        distinct_property=distinct_property, devices=devices,
+        cores_free=cores_free if cores else None)
 
     P = int(n_places)
     penalty = np.full(P, -1, dtype=np.int32)
@@ -160,13 +186,14 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
         ask_cpu=np.full(P, float(ask_cpu), dtype=dtype),
         ask_mem=np.full(P, float(ask_mem), dtype=dtype),
         ask_disk=np.full(P, float(ask_disk), dtype=dtype),
-        n_dyn_ports=np.zeros(P, dtype=np.int32),
-        has_static=np.zeros(P, dtype=bool),
+        n_dyn_ports=np.full(P, n_dyn_ports, dtype=np.int32),
+        has_static=np.full(P, static_ports_free is not None),
         limit=np.full(P, limit, dtype=np.int32),
         count=np.full(P, count, dtype=np.int32),
         penalty_idx=penalty,
         active=np.ones(P, dtype=bool),
-        ask_cores=np.zeros(0, dtype=np.int32))
+        ask_cores=(np.full(P, ask_cores, dtype=np.int32) if cores
+                   else np.zeros(0, dtype=np.int32)))
     return PackedLane(order, const, init, batch, dtype_name, spread_alg,
                       node_ids=matrix.node_ids)
 
@@ -184,3 +211,40 @@ def placements(lane: PackedLane, chosen) -> Tuple[np.ndarray,
         (lane.node_ids[i] if i >= 0 and lane.node_ids is not None else None)
         for i in idx.tolist()]
     return idx, ids
+
+
+def solve_system_arrays(matrix, usage, feasible: np.ndarray, *,
+                        ask: Tuple[float, float, float], eval_id: str,
+                        state_index: int, ask_cores: int = 0,
+                        mhz_per_core: Optional[np.ndarray] = None,
+                        cores_free: Optional[np.ndarray] = None,
+                        static_ports_free: Optional[np.ndarray] = None,
+                        n_dyn_ports: int = 0, spread_alg: bool = False,
+                        dtype_name: Optional[str] = None,
+                        device: DeviceLike = None
+                        ) -> Tuple[PackedLane, np.ndarray, np.ndarray]:
+    """One system eval over every node (reference:
+    TpuPlacementService.solve_system, service.py:375-417): pack one lane
+    from node-axis arrays as pack_lane_arrays does, fit and score every
+    node through solve_system on ``device`` (default ``cuda``), and map
+    the result back to node order. Returns (lane, chosen, scores) over
+    the real nodes in original order: chosen[k] is node k's shuffled
+    position where it fits, else -1 (``placements(lane, chosen)`` maps
+    it back to k and its id), scores[k] its binpack score."""
+    dev = resolve_device(device)
+    lane = pack_lane_arrays(
+        matrix, usage, feasible, ask=ask, count=1, n_places=1,
+        eval_id=eval_id, state_index=state_index, ask_cores=ask_cores,
+        mhz_per_core=mhz_per_core, cores_free=cores_free,
+        static_ports_free=static_ports_free, n_dyn_ports=n_dyn_ports,
+        spread_alg=spread_alg, dtype_name=dtype_name, device=dev)
+    fit, score = solve_system(lane.const, lane.init, lane.batch,
+                              spread_alg=spread_alg,
+                              dtype_name=lane.dtype_name, device=dev)
+    fit = fit.cpu().numpy()
+    score = score.cpu().numpy()
+    n = matrix.n_real
+    inv = np.empty(n, dtype=np.int64)
+    inv[np.asarray(lane.order, dtype=np.int64)] = np.arange(n)
+    chosen = np.where(fit[inv], inv, -1).astype(np.int64)
+    return lane, chosen, score[inv].astype(np.float64)

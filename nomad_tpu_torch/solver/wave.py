@@ -1,6 +1,7 @@
 """Wavefront placement: the two wave kernels, their plain PyTorch versions,
 and the lane solve that picks between them (port of the wave section of
-nomad_tpu/solver/binpack.py).
+nomad_tpu/solver/binpack.py). solve_lane_fused sends every other lane
+group to the dense scan (solver/dense.py).
 
 Every placement of a wave lane is the same task-group ask, so a node's
 score after j of its own placements is a closed form of j. The selection
@@ -27,9 +28,6 @@ CPU tensor; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
-import ctypes
-import ctypes.util
-import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -37,98 +35,12 @@ import torch
 
 from .. import kernels
 from ..device import DeviceLike, resolve_device
+from . import dense
 from .binpack import (
-    BINPACK_MAX, MAX_SKIP, SKIP_THRESHOLD, WAVE_K, WaveSpread,
-    _wave_p_bucket, wavefront_buffer_size, wavefront_compact_host)
-
-_BIG = 2 ** 31 - 1          # int32 max: the reference's "no order" value
-
-
-@functools.lru_cache(maxsize=1)
-def _libm():
-    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
-    for name, t in (("pow", ctypes.c_double), ("powf", ctypes.c_float)):
-        getattr(lib, name).argtypes = [t, t]
-        getattr(lib, name).restype = t
-    for name, t in (("fma", ctypes.c_double), ("fmaf", ctypes.c_float)):
-        getattr(lib, name).argtypes = [t, t, t]
-        getattr(lib, name).restype = t
-    return lib
-
-
-@functools.lru_cache(maxsize=1 << 18)
-def _libm_pow10(x: float, f64: bool) -> float:
-    lib = _libm()
-    return (lib.pow if f64 else lib.powf)(10.0, x)
-
-
-@functools.lru_cache(maxsize=1 << 18)
-def _libm_fma(a: float, b: float, c: float, f64: bool) -> float:
-    lib = _libm()
-    return (lib.fma if f64 else lib.fmaf)(a, b, c)
-
-
-def _host_map(fn, x: torch.Tensor, y: torch.Tensor = None):
-    """Apply a scalar libm function elementwise to one or two CPU tensors,
-    once per distinct input (slot values repeat from step to step)."""
-    a = x.numpy()
-    f64 = a.dtype == np.float64
-    if y is None:
-        key = a.ravel()
-    else:
-        # pairs as one complex value each, so a 1-D unique finds them
-        b = y.numpy().ravel()
-        key = a.ravel().astype(np.complex128) + 1j * b.astype(np.complex128)
-    uniq, inv = np.unique(key, return_inverse=True)
-    if y is None:
-        vals = [fn(float(v), f64) for v in uniq.tolist()]
-    else:
-        vals = [fn(v.real, v.imag, f64) for v in uniq.tolist()]
-    out = np.asarray(vals, dtype=a.dtype)
-    return torch.from_numpy(out[inv.ravel()].reshape(a.shape))
-
-
-def _pow10(x: torch.Tensor) -> torch.Tensor:
-    """10 ** x, elementwise. On the card this is torch.pow, which calls the
-    CUDA math library's pow/powf as the kernels do. On the CPU torch.pow
-    (SLEEF) rounds differently from libm in about 1.6% of inputs, while
-    the reference's XLA CPU lowering calls libm pow/powf; one ulp can flip
-    a near-tie between two nodes, so the CPU path calls libm."""
-    if x.device.type != "cpu":
-        return torch.pow(10.0, x)
-    return _host_map(_libm_pow10, x)
-
-
-def _binpack_raw(free_cpu, free_mem, spread_alg: bool):
-    """BestFit v3 / worst-fit fitness clipped to [0, BINPACK_MAX]
-    (reference: structs/funcs.go:236,263); _score normalizes it."""
-    total = _pow10(free_cpu) + _pow10(free_mem)
-    raw = total - 2.0 if spread_alg else 20.0 - total
-    return raw.clamp(0.0, BINPACK_MAX)
-
-
-def _score(bp_raw, rest, nscores):
-    """(bp_raw / BINPACK_MAX + rest) / nscores, evaluated as XLA lowers
-    the reference (rank.go:571 fitness/18): the division by the constant
-    becomes a multiply by its reciprocal rounded in the working dtype, and
-    that multiply and the add are one fused multiply-add (libm fma on the
-    CPU, torch.addcmul on the card, fma() in the kernels)."""
-    recip = torch.full((), 1.0, dtype=bp_raw.dtype,
-                       device=bp_raw.device) / BINPACK_MAX
-    if bp_raw.device.type == "cpu":
-        r = float(recip)
-        fused = _host_map(lambda x, y, f64: _libm_fma(x, r, y, f64),
-                          bp_raw.contiguous(),
-                          rest.expand_as(bp_raw).contiguous())
-    else:
-        fused = torch.addcmul(rest, bp_raw, recip)
-    return fused / nscores
-
-
-def _anti(coll, count):
-    """Job anti-affinity term: -(collisions + 1) / max(count, 1)."""
-    return torch.where(coll > 0, -(coll + 1.0) / count.clamp_min(1.0),
-                       torch.zeros_like(coll))
+    SKIP_THRESHOLD, WAVE_K, WaveSpread, _wave_p_bucket,
+    wavefront_buffer_size, wavefront_compact_host)
+from .scoring import (
+    _anti, _binpack_raw, _score, _select, _spread_boost, _winner, _BIG)
 
 
 def _slot_scores(slot, j, ask_cpu, ask_mem, count, spread_alg):
@@ -144,33 +56,6 @@ def _slot_scores(slot, j, ask_cpu, ask_mem, count, spread_alg):
     binpack = _binpack_raw(free_cpu, free_mem, spread_alg)
     coll = slot[..., 5] + j.to(dt)
     return fit, binpack, coll, _anti(coll, count), slot[..., 6]
-
-
-def _select(final, fit, L):
-    """The window emulation (select.go:38-77): up to MAX_SKIP low-score
-    skips, the first L counted options, skipped options as fallback for
-    the deficit. Returns (low, yielded, order, n_yielded), (E, B)."""
-    low = fit & (final <= SKIP_THRESHOLD)
-    skip_rank = torch.cumsum(low.long(), dim=1)
-    srank = skip_rank.clamp_max(MAX_SKIP)        # == cumsum(skipped)
-    skipped = low & (skip_rank <= MAX_SKIP)
-    cpos = torch.cumsum(fit.long(), dim=1) - srank   # == cumsum(counted)
-    counted = fit & ~skipped
-    window = counted & (cpos <= L)
-    deficit = (L - torch.minimum(cpos[:, -1:], L)).clamp_min(0)
-    fallback = skipped & (srank <= deficit)
-    yielded = window | fallback
-    order = torch.where(window, cpos, L + srank)
-    return low, yielded, order, yielded.sum(dim=1)
-
-
-def _winner(eff, yielded, order):
-    """Max score over yielded slots; ties go to the smallest window order
-    (orders are unique among yielded slots). Returns (w, best), (E,)."""
-    best = eff.max(dim=1).values
-    cand = yielded & (eff == best[:, None])
-    w = torch.where(cand, order, torch.full_like(order, _BIG)).argmin(dim=1)
-    return w, best
 
 
 def _refill_shift(compact, cursor, w, j, slot, gate):
@@ -196,44 +81,11 @@ def _refill_shift(compact, cursor, w, j, slot, gate):
 def _spread_total(slot, counts, sp, wfrac):
     """(E, B) sum over spreads of each slot's spread boost (spread.go
     SpreadIterator + evenSpreadScoreBoost), summed in spread order."""
-    E, B, _ = slot.shape
-    dt = slot.dtype
-    S = counts.shape[1]
-    ar = torch.arange(E, device=slot.device)[:, None]
-    total = torch.zeros((E, B), dtype=dt, device=slot.device)
-    for s in range(S):
-        vidx_f = slot[..., 8 + s]
-        missing = vidx_f < 0
-        safe = vidx_f.clamp_min(0.0).long()
-        cnts = counts[:, s]                               # (E, V)
-        current = cnts[ar, safe]                          # (E, B)
-        used = current + 1
-        des = sp.desired[:, s][ar, safe]
-        neg1 = torch.full_like(des, -1.0)
-        boost_t = torch.where(
-            des < 0.0, neg1,
-            torch.where(des == 0.0, neg1,
-                        (des - used.to(dt)) / des.clamp_min(1e-9)
-                        * wfrac[:, s:s + 1]))
-        present = cnts > 0
-        any_present = present.any(dim=1, keepdim=True)
-        min_c = torch.where(present, cnts,
-                            torch.full_like(cnts, _BIG)).min(
-                                dim=1, keepdim=True).values
-        max_c = torch.where(present, cnts, torch.zeros_like(cnts)).max(
-            dim=1, keepdim=True).values
-        min_f = min_c.to(dt)
-        max_f = max_c.to(dt)
-        cur_f = current.to(dt)
-        even = torch.where(
-            current != min_c,
-            torch.where(min_c == 0, neg1,
-                        (min_f - cur_f) / min_f.clamp_min(1e-9)),
-            torch.where(min_c == max_c, neg1,
-                        (max_f - min_f) / min_f.clamp_min(1e-9)))
-        boost_e = torch.where(any_present, even, torch.zeros_like(even))
-        per_node = torch.where(sp.has_targets[:, s:s + 1], boost_t, boost_e)
-        total = total + torch.where(missing, neg1, per_node)
+    total = torch.zeros(slot.shape[:2], dtype=slot.dtype, device=slot.device)
+    for s in range(counts.shape[1]):
+        total = total + _spread_boost(
+            slot[..., 8 + s].long(), counts[:, s], sp.desired[:, s],
+            sp.has_targets[:, s:s + 1], wfrac[:, s:s + 1])
     return total
 
 
@@ -491,9 +343,10 @@ def wave_compact(compact, scal_f, scal_i, pen, sp: WaveSpread, *,
     scores = torch.empty((E, P), dtype=dt, device=dev)
     n_yielded = torch.empty((E, P), dtype=torch.int64, device=dev)
     kernels.WAVE_COMPACT.launch(
-        dt, compact, scal_f, scal_i, pen, sp.counts, sp.desired,
-        sp.has_targets, sp.weights, sp.sum_weights, chosen, scores,
-        n_yielded, E=E, C=C, W=W, S=S, V=V, B=B, spread_alg=spread_alg)
+        dt, [compact, scal_f, scal_i, pen, sp.counts, sp.desired,
+             sp.has_targets, sp.weights, sp.sum_weights, chosen, scores,
+             n_yielded],
+        [E, C, W, S, V, B, int(bool(spread_alg))])
     return chosen, scores, n_yielded
 
 
@@ -510,8 +363,8 @@ def wave_block(compact, scal_f, scal_i, *, spread_alg: bool, B: int):
     scores = torch.empty((E, P), dtype=dt, device=dev)
     n_yielded = torch.empty((E, P), dtype=torch.int64, device=dev)
     kernels.WAVE_BLOCK.launch(
-        dt, compact, scal_f, scal_i, chosen, scores, n_yielded,
-        E=E, C=C, W=W, B=B, spread_alg=spread_alg)
+        dt, [compact, scal_f, scal_i, chosen, scores, n_yielded],
+        [E, C, W, B, int(bool(spread_alg))])
     return chosen, scores, n_yielded
 
 
@@ -611,13 +464,13 @@ def solve_lane_fused(const, init, batch, *, spread_alg: bool,
                      dtype_name: str, wave: bool = False,
                      device: DeviceLike = None):
     """Solve a stacked lane group; returns host numpy (chosen int64,
-    scores, n_yielded int64), each (E, P). Only the wave branch is
-    ported: any other group raises."""
-    if not wave:
-        raise NotImplementedError(
-            "lane is not wavefront-eligible (distinct_property, devices, "
-            "reserved cores, non-uniform asks or a window wider than 128 "
-            "slots): the dense greedy kernel is not ported yet (ROADMAP "
-            "Queue 1 item 5)")
-    return solve_lane_wave(const, init, batch, spread_alg=spread_alg,
-                           dtype_name=dtype_name, device=device)
+    scores, n_yielded int64), each (E, P). ``wave`` routes through the
+    wavefront kernels (the caller checked the gate), anything else
+    through the dense greedy scan (solver/dense.py)."""
+    if wave:
+        return solve_lane_wave(const, init, batch, spread_alg=spread_alg,
+                               dtype_name=dtype_name, device=device)
+    out = dense.solve_placements(const, init, batch, spread_alg=spread_alg,
+                                 dtype_name=dtype_name, device=device)
+    return (out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
+            out.n_yielded.cpu().numpy())

@@ -64,3 +64,30 @@ class SpreadInfo:
     sum_weights: float
     initial_counts: np.ndarray  # (S, V) int32 existing allocs per value
     values: List[List[str]] = field(default_factory=list)
+
+
+@dataclass
+class DistinctPropertyInfo:
+    """distinct_property constraints as arrays (reference:
+    solver/service.py _pack_distinct_property; feasible.go:661,
+    propertyset.go): per constraint d, each node's value index (-1 = the
+    attribute is missing, so the node is infeasible), the limit of allocs
+    per value, and the job's current alloc count per value."""
+
+    value_index: np.ndarray    # (Dp, n_pad) int32
+    limit: np.ndarray          # (Dp,) int32
+    tg_scope: np.ndarray       # (Dp,) bool: task-group-level constraint
+    counts: np.ndarray         # (Dp, Vd) int32
+
+
+@dataclass
+class DeviceInfo:
+    """Device requests as arrays (reference: solver/service.py
+    _pack_devices; feasible.go:1270, scheduler/device.go): per request r
+    and node device group g, the affinity score and the free instance
+    count (-1 = the group does not match the request)."""
+
+    affinity: np.ndarray       # (R, Gd, n_pad) float
+    count: np.ndarray          # (R,) int32 instances asked
+    sum_weight: float          # sum of |affinity weights| over requests
+    free: np.ndarray           # (R, Gd, n_pad) int32

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from nomad_tpu_torch import kernels
+from nomad_tpu_torch.carry import lane_from_reference
 from nomad_tpu_torch.solver.batch import fuse_and_solve
 from nomad_tpu_torch.solver.service import pack_lane_arrays
 from nomad_tpu_torch.tensor.pack import NodeMatrix, UsageState
@@ -96,21 +97,79 @@ def test_dtype_follows_device_unless_named():
         _tiny_lane("cpu", dtype_name="float16")
 
 
-def test_non_wave_groups_raise_not_implemented():
+def test_non_wave_groups_take_dense_and_preempt_raises():
+    """Lanes the wave gate refuses solve through the dense scan; only a
+    lane with preemption tables is refused, at the carry boundary, naming
+    its ROADMAP item."""
     lane = _tiny_lane("cpu")
     mixed = lane.batch._replace(
         ask_cpu=np.array([500.0, 500.0, 700.0, 500.0, 500.0, 500.0]))
     lane.batch, lane._wave = mixed, None
     assert not lane.wavefront_ok()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fuse_and_solve([lane], device="cpu")
+    chosen, _, _ = fuse_and_solve([lane], device="cpu")[0]
+    assert (chosen >= 0).all()
     # an affinity lane's window is max(count, 100): 200 is wider than any
     # slot buffer
     wide = _tiny_lane("cpu", count=200,
                       affinity=np.zeros(lane.const.cpu_cap.shape[0]))
     assert int(wide.batch.limit[0]) == 200 and not wide.wavefront_ok()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fuse_and_solve([wide], device="cpu")
+    chosen, _, _ = fuse_and_solve([wide], device="cpu")[0]
+    assert int((chosen >= 0).sum()) == 5 * 8     # 8 asks fill a 4000 MHz node
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        lane_from_reference(lane.const, lane.init, lane.batch, lane.order,
+                            ptab=lane.const, device="cpu")
+
+
+def test_every_kernel_is_registered_with_its_source_and_reference():
+    """The four ported kernels, each built from its own csrc/ source that
+    names the TPU program it replaces."""
+    names = {k.name: k for k in kernels.KERNELS}
+    assert set(names) == {"wave_block", "wave_compact", "dense_scan",
+                          "system_fit"}
+    for k in kernels.KERNELS:
+        src = (kernels.CSRC / k.source).read_text()
+        func = k.replaces.split()[-1]
+        assert func in src, (k.name, func)
+        assert set(k.symbols) == {torch.float32, torch.float64}
+    assert names["dense_scan"].replaces.startswith(
+        "nomad_tpu/solver/binpack.py:652 ")
+    assert names["system_fit"].replaces.startswith(
+        "nomad_tpu/solver/binpack.py:1341 ")
+
+
+def test_slice2_entry_points_default_to_cuda():
+    """The dense and system entry points run on the card unless told
+    otherwise, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from nomad_tpu_torch.solver import dense, system
+    from nomad_tpu_torch.solver.service import solve_system_arrays
+    lane = _tiny_lane("cpu")
+    n_pad = lane.const.cpu_cap.shape[0]
+    matrix = NodeMatrix(
+        n_real=5, n_pad=n_pad, node_ids=[f"n{i}" for i in range(5)],
+        cpu_cap=np.full(n_pad, 4000.0), mem_cap=np.full(n_pad, 8192.0),
+        disk_cap=np.full(n_pad, 102400.0),
+        dyn_free=np.full(n_pad, 100, dtype=np.int32),
+        valid=np.arange(n_pad) < 5)
+    z = np.zeros(n_pad)
+    zi = np.zeros(n_pad, dtype=np.int32)
+    usage = UsageState(z, z, z, zi, zi, zi)
+    feasible = np.ones(n_pad, dtype=bool)
+    kw = dict(ask=(500.0, 256.0, 150.0), eval_id="tiny", state_index=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_system_arrays(matrix, usage, feasible, **kw)
+    _, chosen, scores = solve_system_arrays(matrix, usage, feasible,
+                                            device="cpu", **kw)
+    np.testing.assert_array_equal(chosen >= 0, [True] * 5)
+    assert np.isfinite(scores).all()
+    stacked = [type(t)(*(np.asarray(a)[None] for a in t))
+               for t in (lane.const, lane.init, lane.batch)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dense.solve_placements(*stacked, spread_alg=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        system.solve_system(lane.const, lane.init, lane.batch,
+                            spread_alg=False)
 
 
 def test_kernel_build_is_hermetic_and_ignored_by_git():
