@@ -26,6 +26,14 @@ Phases (any failure raises and the script exits nonzero with no result):
                   then fuzz groups at N = 256, 1,024 and 4,096 (held
                   against the plain version, untimed);
                 - system_fit on the system eval's lane and 8 fuzz lanes;
+                - wave_preempt and dense_preempt on one fused group of
+                  E = 32 lanes each at N = 16,384, A = 16 (windowed at
+                  P_pad = 2048, dense at P_pad = 512): 16 packed tier-5
+                  lanes and 16 fuzz lanes (priority tiers, max_parallel,
+                  distinct_hosts, affinity, penalties, saturation, inert
+                  lanes), eviction rows and final state exactly too;
+                  then, untimed, wave_preempt at B = 128 and
+                  dense_preempt at N = 256, 1,024 and 4,096;
   4. slice   -- the wave main path: 10,000 nodes (bench.py's world), 32
                 evals x 2,000 placements packed with pack_lane_arrays and
                 solved by fuse_and_solve in float32 (the run-block
@@ -36,8 +44,17 @@ Phases (any failure raises and the script exits nonzero with no result):
                 reserved-core lane, through fuse_and_solve in float32
                 (three dense_scan launches);
   6. system  -- one system eval over the 10,000 nodes through
-                solve_system_arrays (the system_fit kernel).
-  Phases 4-6 reset the launch counts just before and read them just
+                solve_system_arrays (the system_fit kernel);
+  7. preempt -- the preemption main path (BASELINE tier 5 at full
+                width): the 10,000 nodes filled to 95% of their cpu by
+                priority 10-40 allocs, every other node with 2 or 4 GPUs;
+                32 evals x 2,000 placements of a priority-70 one-GPU job
+                (the windowed kernel) and 8 evals x 500 over fillers in
+                max_parallel-1 jobs (the dense one), through
+                fuse_and_solve in float32; checks the evictions too (no
+                node over capacity after them, none twice, none within
+                10 priority levels of the job, no GPU oversubscribed).
+  Phases 4-7 reset the launch counts just before and read them just
   after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
   to the plain versions on the same fused inputs.
@@ -1062,6 +1079,626 @@ def system_phase(np, torch, system, kernels, svc, world, seed):
                 solve_system_arrays_ms_all=times, fit=int(expect.sum()))
 
 
+# --------------------------------------------------------------------------
+# slice 3: preemption
+
+PREEMPT_A = 16                      # candidate axis: 15 fillers at most
+PREEMPT_PRIOS = (10, 20, 30, 40)    # the fillers' priority tiers
+PREEMPT_JOB_PRIO = 70
+PREEMPT_ASK = (1000.0, 256.0, 150.0)   # BASELINE tier 5's job, + 1 GPU
+PREEMPT_FILL = 0.95
+FILLER_CPU, FILLER_MEMS, FILLER_DISK = 500.0, (512.0, 1024.0), 150.0
+PW_EVALS, PW_PLACE = 32, 2_000      # the windowed group
+PD_EVALS, PD_PLACE = 8, 500         # the dense group (max_parallel 1)
+PD_JOB_ALLOCS = 10                  # fillers per job in the dense group
+PD_P_PAD = 512                      # _wave_p_bucket(PD_PLACE)
+PREEMPT_FEATURES = ("tiers", "maxp", "distinct", "job_level", "affinity",
+                    "penalties", "scarce", "devices", "inert")
+
+
+def pow2_at_least(np, x, floor):
+    return int(2 ** np.ceil(np.log2(max(x, floor))))
+
+
+def tier5_world(np, tp, world, seed, *, job_allocs=1, maxp=0):
+    """BASELINE tier 5 over the headline fleet (nomad_tpu/benchkit.py
+    run_tier_placements(5) with seed_utilization): every node filled to
+    95% of its cpu with 500-MHz allocs (3, 7 or 15 a node) at priorities
+    10/20/30/40, 512 or 1024 MB, 150 MB disk, none holding a GPU; every
+    other node has 2 or 4 GPUs. Fillers come in jobs of ``job_allocs``
+    allocs with migrate.max_parallel ``maxp``. Returns (usage,
+    PreemptInfo, DeviceInfo), all in original node order."""
+    matrix = world[0]
+    n, n_pad = matrix.n_real, matrix.n_pad
+    rng = np.random.default_rng(seed)
+    A = PREEMPT_A
+    k = np.where(matrix.valid,
+                 (matrix.cpu_cap * PREEMPT_FILL).astype(np.int64)
+                 // int(FILLER_CPU), 0)
+    valid = np.arange(A)[None, :] < k[:, None]
+    fid = np.cumsum(valid.ravel()).reshape(n_pad, A) - 1
+    n_groups = -(-int(valid.sum()) // job_allocs)
+    info = tp.PreemptInfo(
+        cpu=np.where(valid, FILLER_CPU, 0.0),
+        mem=np.where(valid, rng.choice(FILLER_MEMS, (n_pad, A)), 0.0),
+        disk=np.where(valid, FILLER_DISK, 0.0),
+        prio=np.where(valid, rng.choice(PREEMPT_PRIOS, (n_pad, A)),
+                      0).astype(np.int32),
+        maxp=np.where(valid, maxp, 0).astype(np.int32),
+        grp=np.where(valid, fid // job_allocs, -1).astype(np.int32),
+        valid=valid, job_prio=PREEMPT_JOB_PRIO,
+        counts=np.zeros(pow2_at_least(np, n_groups, 4), dtype=np.int32))
+    zi = np.zeros(n_pad, dtype=np.int32)
+    usage = tp.UsageState(info.cpu.sum(axis=1), info.mem.sum(axis=1),
+                          info.disk.sum(axis=1), zi, zi, zi)
+    i = np.arange(n_pad)
+    gpus = np.where((i < n) & (i % 2 == 0), rng.choice([2, 4], n_pad), -1)
+    devices = tp.DeviceInfo(affinity=np.zeros((1, 1, n_pad)),
+                            count=np.array([1], dtype=np.int32),
+                            sum_weight=0.0,
+                            free=gpus[None, None].astype(np.int32))
+    return usage, info, devices
+
+
+def tier5_lanes(np, tp, svc, world, dtype_name, *, n_lanes, n_place,
+                dense=False, seed=SEED):
+    """Tier-5 preemption lanes: the windowed kind (one filler per job), or
+    with ``dense`` the max_parallel kind (10-filler jobs, max_parallel 1),
+    which the wave gate refuses."""
+    matrix, _, feasible = world
+    usage, info, devices = tier5_world(
+        np, tp, world, seed, job_allocs=PD_JOB_ALLOCS if dense else 1,
+        maxp=1 if dense else 0)
+    kind = "dense" if dense else "wave"
+    return [svc.pack_lane_arrays(
+        matrix, usage, feasible, ask=PREEMPT_ASK, count=n_place,
+        n_places=n_place,
+        eval_id=f"tier5-{kind}-eval-{e:016d}", state_index=STATE_INDEX,
+        devices=devices, preemption=info, dtype_name=dtype_name,
+        device=DEVICE) for e in range(n_lanes)]
+
+
+def preempt_fuzz_tables(np, rng, *, n, n_pad, p, dtype, limit, features=(),
+                        A=8, G=8, n_active=None):
+    """One numpy-seeded preemption lane as five dicts of arrays named as
+    the NodeConst / NodeState / PlacementBatch / PreemptTables /
+    PreemptState fields (the tests build the reference's tuples from the
+    same dicts). Nodes are filled to 70-100% of their cpu by candidates
+    of 250-900 MHz; the ask is uniform (1000 MHz, 256 MB, 150 MB), as on
+    the windowed path. ``features`` switch on, by name: tiers (priorities
+    within 10 of the job's, so ineligible candidates, and invalid ones),
+    maxp (max_parallel 1-2 over G shared groups with prior counts),
+    distinct (distinct_hosts; job_level for the job-level form),
+    affinity, penalties, scarce (a dozen feasible nodes for many
+    placements: saturation and zombie shifts), devices (1-3 GPUs on half
+    the nodes), inert (no active placement: a padding lane)."""
+    f = set(features)
+    bad = f - set(PREEMPT_FEATURES)
+    if bad:
+        raise ValueError(f"unknown features {sorted(bad)}")
+    dt = np.dtype(dtype).type
+    valid_n = np.arange(n_pad) < n
+    cpu_cap = np.where(valid_n, rng.choice([2000.0, 4000.0, 8000.0], n_pad),
+                       0).astype(dt)
+    mem_cap = np.where(valid_n, rng.choice([4096.0, 8192.0], n_pad),
+                       0).astype(dt)
+    disk_cap = np.where(valid_n, 20000.0, 0).astype(dt)
+    ccpu = np.zeros((n_pad, A))
+    cmem = np.zeros((n_pad, A))
+    cdisk = np.zeros((n_pad, A))
+    budget = cpu_cap * rng.uniform(0.7, 1.0, n_pad)
+    used = np.zeros(n_pad)
+    for a in range(A):
+        c = rng.choice([250.0, 500.0, 700.0, 900.0], n_pad)
+        take = valid_n & (used + c <= budget)
+        ccpu[:, a] = np.where(take, c, 0.0)
+        cmem[:, a] = np.where(take, rng.choice([256.0, 512.0, 1024.0],
+                                               n_pad), 0.0)
+        cdisk[:, a] = np.where(take, rng.choice([0.0, 150.0], n_pad), 0.0)
+        used += ccpu[:, a]
+    held = ccpu > 0
+    prios = [10, 20, 30, 40, 65, 80] if "tiers" in f else [10, 20, 30, 40]
+    prio = np.where(held, rng.choice(prios, (n_pad, A)), 0).astype(np.int32)
+    valid = held & ((rng.random((n_pad, A)) > 0.1) if "tiers" in f
+                    else True)
+    if "maxp" in f:
+        maxp = np.where(held & (rng.random((n_pad, A)) < 0.6),
+                        rng.integers(1, 3, (n_pad, A)), 0)
+        counts = rng.integers(0, 3, G)
+    else:
+        maxp = np.zeros((n_pad, A))
+        counts = np.zeros(G)
+    grp = np.where(held, rng.integers(0, G, (n_pad, A)), -1)
+    feasible = valid_n & (rng.random(n_pad) > 0.1)
+    if "scarce" in f:
+        keep = np.zeros(n_pad, dtype=bool)
+        keep[rng.choice(n, size=min(12, n), replace=False)] = True
+        feasible &= keep
+    placed = np.where(rng.random(n_pad) < 0.1, 1, 0).astype(np.int32)
+    aff = np.zeros(n_pad, dtype=dt)
+    if "affinity" in f:
+        m = rng.random(n_pad) < 0.3
+        aff[m] = rng.choice([-0.5, 0.25, 0.5], int(m.sum()))
+    S = 0
+    const = dict(
+        cpu_cap=cpu_cap, mem_cap=mem_cap, disk_cap=disk_cap,
+        feasible=feasible, affinity=aff,
+        has_affinity=np.asarray("affinity" in f),
+        distinct_hosts=np.asarray("distinct" in f or "job_level" in f),
+        distinct_job_level=np.asarray("job_level" in f),
+        spread_vidx=np.zeros((S, n_pad), dtype=np.int32),
+        spread_desired=np.zeros((S, 1), dtype=dt),
+        spread_has_targets=np.zeros(S, dtype=bool),
+        spread_weights=np.zeros(S, dtype=dt),
+        spread_sum_weights=np.asarray(0.0, dtype=dt),
+        n_spreads=np.asarray(S, dtype=np.int32))
+    state = dict(
+        used_cpu=(used + np.where(placed > 0, 250.0, 0.0)).astype(dt),
+        used_mem=(cmem.sum(axis=1) + np.where(placed > 0, 256.0, 0.0)
+                  ).astype(dt),
+        used_disk=(cdisk.sum(axis=1) + 150.0 * placed).astype(dt),
+        placed=placed, placed_job=(placed + (rng.random(n_pad) < 0.05)
+                                   ).astype(np.int32),
+        static_free=np.ones(n_pad, dtype=bool),
+        dyn_avail=np.full(n_pad, 12001, dtype=np.int32),
+        spread_counts=np.zeros((S, 1), dtype=np.int32))
+    if "devices" in f:
+        free = np.where(valid_n & (rng.random(n_pad) < 0.5),
+                        rng.integers(1, 4, n_pad), -1)
+        const["dev_aff"] = np.zeros((1, 1, n_pad), dtype=dt)
+        const["dev_count"] = np.array([1], dtype=np.int32)
+        const["dev_sum_weight"] = np.asarray(0.0, dtype=dt)
+        state["dev_free"] = free[None, None].astype(np.int32)
+    pen = np.full(p, -1, dtype=np.int32)
+    if "penalties" in f:
+        hot = rng.random(p) < 0.3
+        pen[hot] = rng.integers(0, n, int(hot.sum()))
+    n_act = 0 if "inert" in f else (p if n_active is None else n_active)
+    batch = dict(
+        ask_cpu=np.full(p, PREEMPT_ASK[0], dtype=dt),
+        ask_mem=np.full(p, PREEMPT_ASK[1], dtype=dt),
+        ask_disk=np.full(p, PREEMPT_ASK[2], dtype=dt),
+        n_dyn_ports=np.zeros(p, dtype=np.int32),
+        has_static=np.zeros(p, dtype=bool),
+        limit=np.full(p, limit, dtype=np.int32),
+        count=np.full(p, int(rng.choice([1, 4, max(p, 1)])), dtype=np.int32),
+        penalty_idx=pen, active=np.arange(p) < n_act,
+        ask_cores=np.zeros(0, dtype=np.int32))
+    ptab = dict(
+        cpu=ccpu.astype(dt), mem=cmem.astype(dt), disk=cdisk.astype(dt),
+        prio=prio, maxp=maxp.astype(np.int32), grp=grp.astype(np.int32),
+        dyn_ports=np.zeros((n_pad, A), dtype=np.int32),
+        static_rel=np.zeros((n_pad, A), dtype=bool), valid=valid,
+        job_prio=np.asarray(PREEMPT_JOB_PRIO, dtype=np.int32))
+    pstate = dict(evicted=np.zeros((n_pad, A), dtype=bool),
+                  counts=counts.astype(np.int32))
+    return const, state, batch, ptab, pstate
+
+
+# Floating-point operations of the preemption kernels, counted from
+# csrc/wave_preempt.cu and csrc/preempt_common.cuh as above (each add,
+# sub, mul, div, min/max, compare, sqrt and exp one, an fma two):
+#   per slot and step of the windowed kernel: usage now 3 x (mul, add,
+#     sub, add) 12, distinct count 1, device countdown 2, feasibility 2,
+#     fit 3, coll 1, anti 5, nscores 5, other 2, the two max(cap) 2,
+#     free cpu/mem 4, binpack_raw 6, final (fma, div) 3, low 1,
+#     arg-best 1                                                 -> 48
+#   per (node, candidate) and round of the eviction search: the
+#     distance's three components (compare, sub, max, div) 12, dm*dm 1,
+#     two fma 4, sqrt 1, the penalty add 1, the argmin compare 1, the
+#     node's available sums 3                                    -> 23
+# The count takes, per placement that evicts, one search round over the
+# chosen node's A candidates (the least any search that finds the
+# eviction set needs), plus the windowed kernel's B slot heads per step
+# that places, or the dense kernel's fit check and score per yielded
+# node (DENSE_FIT_OPS, DENSE_SCORE_OPS); the rest depends on the data and
+# is left out, so the bound stays a lower one.
+WAVE_PREEMPT_SLOT_OPS, PREEMPT_CAND_OPS = 48, 23
+
+
+def tree_dicts(np, trees):
+    return [{f: np.asarray(getattr(t, f)) for f in type(t)._fields}
+            for t in trees]
+
+
+def pad_counts(np, counts, G):
+    out = np.zeros(G, dtype=np.int32)
+    out[:counts.shape[0]] = counts
+    return out
+
+
+def stack_preempt(np, bp, lanes):
+    """Five stacked (E, ...) trees from lanes given as five dicts each,
+    the group counts padded to the widest G."""
+    G = max(d[4]["counts"].shape[0] for d in lanes)
+    for d in lanes:
+        d[4]["counts"] = pad_counts(np, d[4]["counts"], G)
+    classes = (bp.NodeConst, bp.NodeState, bp.PlacementBatch,
+               bp.PreemptTables, bp.PreemptState)
+    return tuple(
+        cls(**{f: np.stack([np.asarray(d[k].get(f, cls._field_defaults.get(
+            f))) for d in lanes]) for f in cls._fields})
+        for k, cls in enumerate(classes))
+
+
+def packed_preempt_dicts(np, lane, p_pad):
+    const, init, batch = lane_dicts(np, lane, p_pad)
+    ptab, pinit = tree_dicts(np, (lane.ptab, lane.pinit))
+    return [const, init, batch, ptab, pinit]
+
+
+def preempt_group(np, bp, tp, svc, world, dtype_name, seed, *, dense):
+    """The kernel phase's fused group: 16 packed tier-5 lanes (the
+    windowed kind at 2,000 placements, or the max_parallel kind at 500)
+    and 16 numpy-seeded fuzz lanes over the same node axis (N = 16,384,
+    A = 16): priority tiers with ineligible candidates, max_parallel with
+    shared groups, distinct_hosts, affinity, reschedule penalties,
+    saturation (a dozen feasible nodes), and inert lanes. Every lane
+    asks for one GPU (the dense kernel's device tables must agree in
+    shape). Returns the five stacked trees."""
+    matrix = world[0]
+    P = PD_P_PAD if dense else P_PAD
+    packed = tier5_lanes(np, tp, svc, world, dtype_name,
+                         n_lanes=N_EVALS // 2,
+                         n_place=PD_PLACE if dense else PW_PLACE,
+                         dense=dense)
+    lanes = [packed_preempt_dicts(np, ln, P) for ln in packed]
+    rng = np.random.default_rng(seed)
+    sets = (("tiers", "penalties"), ("maxp", "tiers"),
+            ("distinct", "affinity"), ("job_level", "penalties"),
+            ("scarce",), ("tiers", "maxp", "affinity", "penalties"),
+            ("scarce", "distinct"), ("inert",))
+    k = 0
+    while len(lanes) < N_EVALS:
+        feats = sets[k % len(sets)] + ("devices",)
+        lanes.append(list(preempt_fuzz_tables(
+            np, rng, n=matrix.n_real, n_pad=matrix.n_pad, p=P,
+            dtype=dtype_name, limit=int(rng.choice([3, 5, 14, 20])),
+            features=feats, A=PREEMPT_A, G=64,
+            n_active=int(rng.integers(P // 4, P)))))
+        k += 1
+    return stack_preempt(np, bp, lanes)
+
+
+def compare_preempt(torch, name, got, want, dtype_name):
+    """compare() on the decisions and scores, plus the eviction rows
+    exactly."""
+    err = compare(torch, name, got[:3], want[:3], dtype_name)
+    if not torch.equal(got[3], want[3]):
+        bad = (got[3] != want[3]).any(dim=-1).nonzero()[:5].tolist()
+        raise AssertionError(f"{name}: evict rows differ at {bad}")
+    return err
+
+
+def wave_preempt_bound(np, inp, out, dtype_name):
+    """(bound_ms, bound_by, bytes, flops) of one windowed-preemption
+    launch: its inputs read once and outputs written once; the
+    operations this run's data needs (see WAVE_PREEMPT_SLOT_OPS)."""
+    nbytes = (inp.compact.nbytes + sum(a.nbytes for a in inp.cand.values())
+              + inp.scal_f.nbytes + inp.scal_i.nbytes + inp.pen.nbytes
+              + inp.counts0.nbytes + sum(t.nbytes for t in out))
+    chosen, rows = out[0], out[3]
+    A = rows.shape[-1]
+    flops = (int((chosen >= 0).sum()) * inp.B * WAVE_PREEMPT_SLOT_OPS
+             + int(rows.any(dim=-1).sum()) * A * PREEMPT_CAND_OPS)
+    return bound("wave_preempt", nbytes, flops, dtype_name) + (nbytes, flops)
+
+
+def dense_preempt_bound(np, trees, out, dtype_name):
+    """(bound_ms, bound_by, bytes, flops) of one dense preemption launch:
+    the tables read once, the outputs and final state written once; the
+    operations this run's data needs."""
+    nbytes = (tree_nbytes(trees) + sum(t.nbytes for t in out[:4])
+              + tree_nbytes((out.state, out.pstate)))
+    A = out.evict_rows.shape[-1]
+    flops = (int(out.n_yielded.sum()) * (DENSE_FIT_OPS + DENSE_SCORE_OPS)
+             + int(out.evict_rows.any(dim=-1).sum()) * A * PREEMPT_CAND_OPS)
+    return bound("dense_preempt", nbytes, flops, dtype_name) + (nbytes,
+                                                                flops)
+
+
+def preempt_kernel_phase(np, torch, bp, preempt, dense, svc, tp, world,
+                         seed):
+    """wave_preempt and dense_preempt x {float32, float64} on one fused
+    E = 32 group each at N = 16,384, A = 16 (preempt_group): the windowed
+    kernel at P_pad = 2,048, the dense one at P_pad = 512 (its plain
+    version rescores 16,384 nodes a step, so the comparison is cut to
+    the dense main path's P). Decisions, eviction rows and (dense) the
+    final state exactly; timed."""
+    results = []
+    dev = torch.device(DEVICE)
+    for dtype_name in ("float32", "float64"):
+        trees = preempt_group(np, bp, tp, svc, world, dtype_name, seed,
+                              dense=False)
+        inp = preempt.wave_preempt_inputs(*trees, dtype_name=dtype_name)
+        ten = preempt.wave_preempt_tensors(inp, dev)
+
+        def run_w(fn):
+            return fn(*ten, spread_alg=False, B=inp.B)
+
+        got, _ = time_once(torch, lambda: run_w(preempt.wave_preempt))
+        want, plain_ms = time_once(torch,
+                                   lambda: run_w(preempt.wave_preempt_plain))
+        tag = f"wave_preempt {dtype_name}"
+        err = compare_preempt(torch, tag, got, want, dtype_name)
+        ms = timed(torch, lambda: run_w(preempt.wave_preempt),
+                   KERNEL_REPEATS)
+        bound_ms, bound_by, nbytes, flops = wave_preempt_bound(
+            np, inp, want, dtype_name)
+        placed = int((want[0] >= 0).sum())
+        evicting = int(want[3].any(dim=-1).sum())
+        log(f"kernel {tag}: E={inp.compact.shape[0]} "
+            f"C={inp.compact.shape[1]} B={inp.B} A={PREEMPT_A} "
+            f"placed={placed} evicting={evicting} match=exact "
+            f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.1f} "
+            f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, {flops} "
+            f"flop)")
+        results.append(dict(
+            name="wave_preempt", dtype=dtype_name,
+            shape=list(inp.compact.shape) + [PREEMPT_A], placed=placed,
+            evicting=evicting, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+            flops=flops))
+
+        trees = preempt_group(np, bp, tp, svc, world, dtype_name, seed + 1,
+                              dense=True)
+        c, s, b = dense.lane_tensors(*trees[:3], dtype_name=dtype_name,
+                                     device=dev)
+        pt, ps = preempt.preempt_tensors(*trees[3:], dtype_name=dtype_name,
+                                         device=dev)
+
+        def run_d(fn):
+            return fn(c, s, b, pt, ps, spread_alg=False)
+
+        got, _ = time_once(torch, lambda: run_d(preempt.dense_preempt))
+        want, plain_ms = time_once(torch,
+                                   lambda: run_d(preempt.dense_preempt_plain))
+        tag = f"dense_preempt {dtype_name}"
+        err = compare_preempt(torch, tag, got, want, dtype_name)
+        for f, g, w in zip(type(got.state)._fields + ("evicted", "counts"),
+                           tuple(got.state) + tuple(got.pstate),
+                           tuple(want.state) + tuple(want.pstate)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{tag}: final state {f} differs")
+        ms = timed(torch, lambda: run_d(preempt.dense_preempt),
+                   KERNEL_REPEATS)
+        bound_ms, bound_by, nbytes, flops = dense_preempt_bound(
+            np, (c, s, b, pt, ps), want, dtype_name)
+        placed = int((want.chosen >= 0).sum())
+        evicting = int(want.evict_rows.any(dim=-1).sum())
+        log(f"kernel {tag}: E={c.cpu_cap.shape[0]} N={c.cpu_cap.shape[1]} "
+            f"P={b.ask_cpu.shape[1]} A={PREEMPT_A} placed={placed} "
+            f"evicting={evicting} match=exact max_abs_err={err:.3e} "
+            f"ms={ms:.4f} plain_ms={plain_ms:.1f} bound_ms={bound_ms:.6f} "
+            f"({bound_by}, {nbytes} B, {flops} flop)")
+        results.append(dict(
+            name="dense_preempt", dtype=dtype_name,
+            shape=[int(x) for x in (*c.cpu_cap.shape, b.ask_cpu.shape[1],
+                                    PREEMPT_A)],
+            placed=placed, evicting=evicting, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bytes=nbytes, flops=flops))
+        results += preempt_small_checks(np, torch, bp, preempt, dense,
+                                        dtype_name, seed + 2)
+    return results
+
+
+def preempt_small_checks(np, torch, bp, preempt, dense, dtype_name, seed):
+    """Untimed: the windowed kernel at its wide buffer (B = 128, the
+    limit-100 window of an affinity lane) and the dense one at the small
+    node buckets (N = 256 and 1,024, fewer nodes than one tile of its
+    walk) and a mid-size one (N = 4,096), 8 fuzz lanes each, held against
+    their plain versions."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)
+    sets = (("affinity",), ("tiers", "affinity", "penalties"),
+            ("distinct", "affinity"), ("scarce", "affinity"))
+    results = []
+    lanes = [list(preempt_fuzz_tables(
+        np, rng, n=4000, n_pad=4096, p=256, dtype=dtype_name, limit=100,
+        features=sets[k % len(sets)] + ("devices",), A=PREEMPT_A, G=64))
+        for k in range(8)]
+    inp = preempt.wave_preempt_inputs(*stack_preempt(np, bp, lanes),
+                                      dtype_name=dtype_name)
+    assert inp.B == 128, inp.B
+    ten = preempt.wave_preempt_tensors(inp, dev)
+    got = preempt.wave_preempt(*ten, spread_alg=False, B=inp.B)
+    want = preempt.wave_preempt_plain(*ten, spread_alg=False, B=inp.B)
+    tag = f"wave_preempt {dtype_name} B=128"
+    err = compare_preempt(torch, tag, got, want, dtype_name)
+    log(f"kernel {tag}: E=8 P=256 placed={int((want[0] >= 0).sum())} "
+        f"match=exact max_abs_err={err:.3e}")
+    results.append(dict(name="wave_preempt", dtype=dtype_name,
+                        world="fuzz B=128", max_abs_err=err))
+    for n, n_pad in ((200, 256), (1000, 1024), (4000, 4096)):
+        lanes = [list(preempt_fuzz_tables(
+            np, rng, n=n, n_pad=n_pad, p=64, dtype=dtype_name,
+            limit=int(rng.choice([3, 5, 14])),
+            features=(("tiers", "maxp", "penalties", "distinct", "scarce",
+                       "affinity", "job_level", "inert")[k],) + ("devices",),
+            A=PREEMPT_A, G=64)) for k in range(8)]
+        trees = stack_preempt(np, bp, lanes)
+        args = (dense.lane_tensors(*trees[:3], dtype_name=dtype_name,
+                                   device=dev)
+                + preempt.preempt_tensors(*trees[3:], dtype_name=dtype_name,
+                                          device=dev))
+        got = preempt.dense_preempt(*args, spread_alg=False)
+        want = preempt.dense_preempt_plain(*args, spread_alg=False)
+        tag = f"dense_preempt {dtype_name} N={n_pad}"
+        err = compare_preempt(torch, tag, got, want, dtype_name)
+        for f, g, w in zip(type(got.state)._fields + ("evicted", "counts"),
+                           tuple(got.state) + tuple(got.pstate),
+                           tuple(want.state) + tuple(want.pstate)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{tag}: final state {f} differs")
+        log(f"kernel {tag}: E=8 P=64 placed={int((want.chosen >= 0).sum())}"
+            f" match=exact max_abs_err={err:.3e}")
+        results.append(dict(name="dense_preempt", dtype=dtype_name,
+                            world=f"fuzz N={n_pad}", max_abs_err=err))
+    return results
+
+
+def check_preempt_lane(np, lane, chosen, rows, n_places):
+    """Every placement made, on a node with a free GPU; after its
+    evictions no node over capacity; no candidate evicted twice; every
+    evicted candidate at least 10 priority levels below the job."""
+    placed = chosen >= 0
+    assert int(placed.sum()) == n_places, (int(placed.sum()), n_places)
+    c, s, b, pt = lane.const, lane.init, lane.batch, lane.ptab
+    N, A = pt.cpu.shape
+    hits = np.zeros((N, A), dtype=np.int64)
+    np.add.at(hits, chosen[placed], rows[placed].astype(np.int64))
+    assert int(hits.max(initial=0)) <= 1, "a candidate evicted twice"
+    ev = hits > 0
+    assert bool(np.all(pt.valid[ev])) and bool(
+        np.all(pt.prio[ev] <= int(pt.job_prio) - 10)), "evicted too high"
+    k = np.bincount(chosen[placed], minlength=N)
+    for cap, used, cand, ask in (
+            (c.cpu_cap, s.used_cpu, pt.cpu, float(b.ask_cpu[0])),
+            (c.mem_cap, s.used_mem, pt.mem, float(b.ask_mem[0])),
+            (c.disk_cap, s.used_disk, pt.disk, float(b.ask_disk[0]))):
+        after = used + k * ask - np.where(ev, cand, 0.0).sum(axis=1)
+        assert bool(np.all(after[k > 0] <= cap[k > 0])), "over capacity"
+    gpus = s.dev_free[0].max(axis=0)
+    assert bool(np.all(k <= np.maximum(gpus, 0))), "a GPU oversubscribed"
+    assert bool(np.all(c.feasible[k > 0]))
+
+
+def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
+                        world):
+    """The main path of slice 3 at full width: the tier-5 world (10,000
+    nodes at 95% cpu from priority 10-40 fillers, every other node with 2
+    or 4 GPUs), 32 windowed evals x 2,000 placements of a priority-70,
+    1,000-MHz, one-GPU job plus 8 evals x 500 over fillers in
+    max_parallel-1 jobs (the dense preemption kernel), through
+    fuse_and_solve in float32."""
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    wl = tier5_lanes(np, tp, svc, world, "float32", n_lanes=PW_EVALS,
+                     n_place=PW_PLACE)
+    dl = tier5_lanes(np, tp, svc, world, "float32", n_lanes=PD_EVALS,
+                     n_place=PD_PLACE, dense=True)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    lanes = wl + dl
+    assert all(ln.wavefront_ok() for ln in wl), "windowed gate refused"
+    assert not any(ln.wavefront_ok() for ln in dl), "dense gate passed"
+
+    kernels.reset_launches()
+    res = batch.fuse_and_solve(lanes, device=DEVICE)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    log(f"preempt slice launches: {launches}")
+    assert launches["wave_preempt"] >= 1, launches
+    assert launches["dense_preempt"] >= 1, launches
+
+    for lane, (ch, sc, ny, rows) in zip(lanes, res):
+        check_preempt_lane(np, lane, ch, rows, lane.batch.ask_cpu.shape[0])
+        assert bool(np.all(np.isfinite(sc)))
+    total = sum(int((r[0] >= 0).sum()) for r in res)
+    assert total == PW_EVALS * PW_PLACE + PD_EVALS * PD_PLACE, total
+    evicting = sum(int(r[3].any(axis=1).sum()) for r in res)
+
+    # the same fused inputs through the plain versions on the card, and
+    # each kernel's own numbers at the main path's shape
+    kern = {}
+    for g in batch.fuse_lanes(lanes):
+        if g.wave:
+            inp = preempt.wave_preempt_inputs(g.const, g.init, g.batch,
+                                              g.ptab, g.pinit,
+                                              dtype_name="float32")
+            ten = preempt.wave_preempt_tensors(inp, dev)
+
+            def run(fn):
+                return fn(*ten, spread_alg=False, B=inp.B)
+
+            kfn, pfn, name = (preempt.wave_preempt,
+                              preempt.wave_preempt_plain, "wave_preempt")
+        else:
+            ten = (dense.lane_tensors(g.const, g.init, g.batch,
+                                      dtype_name="float32", device=dev)
+                   + preempt.preempt_tensors(g.ptab, g.pinit,
+                                             dtype_name="float32",
+                                             device=dev))
+
+            def run(fn):
+                return fn(*ten, spread_alg=False)
+
+            kfn, pfn, name = (preempt.dense_preempt,
+                              preempt.dense_preempt_plain, "dense_preempt")
+        want, plain_ms = time_once(torch, lambda: run(pfn))
+        for j, li in enumerate(g.idxs):
+            P = lanes[li].batch.ask_cpu.shape[0]
+            got = tuple(torch.from_numpy(np.asarray(x)).to(DEVICE)
+                        for x in res[li])
+            compare_preempt(torch, f"preempt slice lane {li}", got,
+                            tuple(w[j, :P] for w in want[:4]), "float32")
+        ms = timed(torch, lambda: run(kfn), KERNEL_REPEATS)
+        if g.wave:
+            bnd = wave_preempt_bound(np, inp, want, "float32")
+            shape = list(inp.compact.shape) + [PREEMPT_A]
+        else:
+            bnd = dense_preempt_bound(np, ten, want, "float32")
+            shape = [int(x) for x in (*ten[0].cpu_cap.shape,
+                                      ten[2].ask_cpu.shape[1], PREEMPT_A)]
+        kern[name] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bnd[0], bound_by=bnd[1], bytes=bnd[2],
+                          flops=bnd[3])
+        log(f"kernel {name} float32 main path: shape={shape} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.1f} bound_ms={bnd[0]:.6f} ({bnd[1]}, "
+            f"{bnd[2]} B, {bnd[3]} flop)")
+
+    # warm end-to-end time of the preemption dispatch, host clock
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        batch.fuse_and_solve(lanes, device=DEVICE)
+        times.append((time.perf_counter() - t1) * 1e3)
+    fuse_ms = statistics.median(times)
+    # where it goes (medians of 5, host clock with a synchronize after
+    # each device part): stacking the lanes, the windowed group's host
+    # precompute, shipping the tables, the kernels, fetching the results
+    parts = {"fuse_lanes": [], "wave_preempt_inputs": [], "to_device": [],
+             "kernels": [], "fetch": []}
+    for _ in range(5):
+        t1 = time.perf_counter()
+        groups = batch.fuse_lanes(lanes)
+        t2 = time.perf_counter()
+        inps = [preempt.wave_preempt_inputs(g.const, g.init, g.batch,
+                                            g.ptab, g.pinit,
+                                            dtype_name="float32")
+                if g.wave else None for g in groups]
+        t3 = time.perf_counter()
+        tens = [preempt.wave_preempt_tensors(inp, dev) if g.wave else
+                dense.lane_tensors(g.const, g.init, g.batch,
+                                   dtype_name="float32", device=dev)
+                + preempt.preempt_tensors(g.ptab, g.pinit,
+                                          dtype_name="float32", device=dev)
+                for g, inp in zip(groups, inps)]
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        outs = [preempt.wave_preempt(*t, spread_alg=False, B=inp.B)
+                if g.wave else preempt.dense_preempt(*t, spread_alg=False)
+                for g, t, inp in zip(groups, tens, inps)]
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        [[x.cpu().numpy() for x in o[:4]] for o in outs]
+        t6 = time.perf_counter()
+        for k, v in zip(parts, (t2 - t1, t3 - t2, t4 - t3, t5 - t4,
+                                t6 - t5)):
+            parts[k].append(v * 1e3)
+    parts = {k: statistics.median(v) for k, v in parts.items()}
+    log(f"preempt slice: {PW_EVALS} windowed evals x {PW_PLACE} + "
+        f"{PD_EVALS} dense evals x {PD_PLACE} placements x {N_NODES} nodes:"
+        f" all {total} placed ({evicting} with evictions), capacity / "
+        f"single eviction / priority floor / GPUs held, equal to the plain "
+        f"versions; pack_ms={pack_ms:.1f} fuse_and_solve_ms={fuse_ms:.2f} "
+        f"placements_per_s={total / (fuse_ms / 1e3):.0f}; breakdown ms: "
+        + " ".join(f"{k}={v:.2f}" for k, v in parts.items()))
+    return dict(launches=launches, fuse_and_solve_ms=fuse_ms,
+                fuse_and_solve_ms_all=times, breakdown_ms=parts,
+                pack_ms=pack_ms, placements=total, evicting=evicting,
+                placements_per_s=total / (fuse_ms / 1e3), kernels=kern)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1083,7 +1720,7 @@ def main(argv=None) -> int:
 
     from nomad_tpu_torch import kernels
     from nomad_tpu_torch.solver import batch, dense, service as svc, system
-    from nomad_tpu_torch.solver import binpack as bp, wave
+    from nomad_tpu_torch.solver import binpack as bp, preempt, wave
     from nomad_tpu_torch.tensor import pack as tp
 
     t_start = time.perf_counter()
@@ -1107,10 +1744,14 @@ def main(argv=None) -> int:
                                args.seed)
     kres += system_kernel_phase(np, torch, bp, dense, system, svc, world,
                                 args.seed)
+    kres += preempt_kernel_phase(np, torch, bp, preempt, dense, svc, tp,
+                                 world, args.seed)
     sres = slice_phase(np, torch, wave, kernels, svc, batch, tp, world)
     dres = dense_slice_phase(np, torch, dense, kernels, svc, batch, tp,
                              world)
     yres = system_phase(np, torch, system, kernels, svc, world, args.seed)
+    pres = preempt_slice_phase(np, torch, preempt, dense, kernels, svc,
+                               batch, tp, world)
 
     def pick(kname, **kw):
         return next(r for r in kres if r["name"] == kname
@@ -1123,7 +1764,9 @@ def main(argv=None) -> int:
     rows = ((kernels.WAVE_BLOCK, pick("wave_block", B=32), sres),
             (kernels.WAVE_COMPACT, pick("wave_compact", B=128), sres),
             (kernels.DENSE_SCAN, dres["kernel"], dres),
-            (kernels.SYSTEM_FIT, pick("system_fit", world="system"), yres))
+            (kernels.SYSTEM_FIT, pick("system_fit", world="system"), yres),
+            (kernels.WAVE_PREEMPT, pres["kernels"]["wave_preempt"], pres),
+            (kernels.DENSE_PREEMPT, pres["kernels"]["dense_preempt"], pres))
     line = {"kernels": []}
     for k, r, path in rows:
         line["kernels"].append(dict(
@@ -1138,6 +1781,7 @@ def main(argv=None) -> int:
             shape=" ".join(str(x) for x in r["shape"]) + " float32"))
     report = dict(card=card, device=name, seed=args.seed, kernels=kres,
                   slice=sres, dense_slice=dres, system=yres,
+                  preempt_slice=pres,
                   build_s=info["seconds"],
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")

@@ -3,19 +3,23 @@
 The JAX package ``nomad_tpu`` is the reference; this package reproduces its
 device path on an NVIDIA H100 and imports nothing from it (nor ``jax``).
 Slice 1 covers the wavefront placement path, slice 2 the dense greedy path
-(the lanes the wave gate refuses) and system jobs: a lane's packed arrays
-go in, the chosen node per placement comes out.
+(the lanes the wave gate refuses) and system jobs, slice 3 placement with
+preemption (windowed and dense eviction search): a lane's packed arrays
+go in, the chosen node per placement (and, with preemption, the allocs it
+evicts) comes out.
 
     scheduler/util.py   deterministic node shuffle (splitmix64 Fisher-Yates)
     tensor/pack.py      NodeMatrix / UsageState / SpreadInfo / distinct
-                        property / device array tables
+                        property / device / preemption array tables
     solver/binpack.py   lane NamedTuples, host precompute of the compact table
     solver/scoring.py   score and window helpers shared by all the paths
     solver/wave.py      the two wave kernels' plain versions and wrappers
     solver/dense.py     the dense scan kernel's plain version and wrapper
     solver/system.py    the system fit kernel's plain version and wrapper
+    solver/preempt.py   the two preemption kernels' plain versions and
+                        wrappers, and their lane solves
     solver/service.py   PackedLane, pack_lane_arrays, placements,
-                        solve_system_arrays
+                        evictions, solve_system_arrays
     solver/batch.py     fuse_lanes / fuse_and_solve across evals
     kernels.py          nvcc build, ctypes binding, launch counts
     carry.py            lane_from_reference: reference lane tables -> PackedLane

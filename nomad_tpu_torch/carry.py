@@ -4,7 +4,8 @@
 of numpy arrays (NodeConst, NodeState, PlacementBatch) and the shuffle
 order -- reads them field by field, and builds the port's PackedLane, so
 that both packages solve the same inputs: the dense lanes'
-distinct_property, device and reserved-core tables ride along by name.
+distinct_property, device and reserved-core tables and a preemption
+lane's PreemptTables / PreemptState ride along by name.
 It takes plain arrays and imports nothing of the reference.
 """
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .device import DeviceLike, default_dtype_name
-from .solver.binpack import NodeConst, NodeState, PlacementBatch
+from .solver.binpack import (
+    NodeConst, NodeState, PlacementBatch, PreemptState, PreemptTables)
 from .solver.service import PackedLane
 
 
@@ -36,19 +38,17 @@ def lane_from_reference(const, init, batch, order, *,
                         dtype_name: Optional[str] = None,
                         spread_alg: bool = False,
                         node_ids: Optional[Sequence[str]] = None,
-                        ptab=None,
+                        ptab=None, pinit=None,
                         device: DeviceLike = None) -> PackedLane:
-    """The port's PackedLane for a reference lane's tables. ``dtype_name``
-    defaults by ``device`` (float64 on the CPU, float32 on the card).
-    A lane with preemption tables (``ptab``) is refused: preemption is
-    not ported yet."""
-    if ptab is not None:
-        raise NotImplementedError(
-            "preemption lanes are not ported yet (ROADMAP Queue 1 item 8)")
+    """The port's PackedLane for a reference lane's tables; a preemption
+    lane passes its ``ptab`` and ``pinit`` too. ``dtype_name`` defaults
+    by ``device`` (float64 on the CPU, float32 on the card)."""
     dtype_name = default_dtype_name(device, dtype_name)
     dt = np.dtype(dtype_name)
     return PackedLane(
         np.asarray(order, dtype=np.int64),
         _read(NodeConst, const, dt), _read(NodeState, init, dt),
         _read(PlacementBatch, batch, dt), dtype_name, bool(spread_alg),
-        node_ids=node_ids)
+        node_ids=node_ids,
+        ptab=None if ptab is None else _read(PreemptTables, ptab, dt),
+        pinit=None if pinit is None else _read(PreemptState, pinit, dt))

@@ -111,7 +111,20 @@ SYSTEM_FIT = Kernel(
     {torch.float32: "nt_system_fit_f32",
      torch.float64: "nt_system_fit_f64"})
 
-KERNELS = (WAVE_BLOCK, WAVE_COMPACT, DENSE_SCAN, SYSTEM_FIT)
+WAVE_PREEMPT = Kernel(
+    "wave_preempt", "wave_preempt.cu",
+    "nomad_tpu/solver/binpack.py:2293 _solve_wave_preempt_impl",
+    {torch.float32: "nt_wave_preempt_f32",
+     torch.float64: "nt_wave_preempt_f64"})
+
+DENSE_PREEMPT = Kernel(
+    "dense_preempt", "dense_preempt.cu",
+    "nomad_tpu/solver/binpack.py:732 _solve_placements_preempt_impl",
+    {torch.float32: "nt_dense_preempt_f32",
+     torch.float64: "nt_dense_preempt_f64"})
+
+KERNELS = (WAVE_BLOCK, WAVE_COMPACT, DENSE_SCAN, SYSTEM_FIT, WAVE_PREEMPT,
+           DENSE_PREEMPT)
 
 
 def reset_launches() -> None:

@@ -4,7 +4,9 @@ of nomad_tpu/solver/batch.py).
 Lanes with equal static shapes (PackedLane.fuse_key) stack along a
 leading eval axis padded to an E bucket, their placement axes padded to a
 common P bucket, and solve in one kernel launch: a wavefront kernel for
-lanes that pass the wave gate, the dense scan for the rest. Padding lanes
+lanes that pass the wave gate, the dense scan for the rest; preemption
+lanes take the windowed or the dense preemption kernel, by the same
+gate. Padding lanes
 copy lane 0 with ``active`` all False and place nothing. Dense groups
 keep the tight E bucket, as in the reference: a padding lane costs the
 dense scan O(N * P). The barrier, the dispatch pipeline and the stack
@@ -12,7 +14,7 @@ arena of the reference come with later slices.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 
@@ -60,8 +62,9 @@ def _pad_placement_axis(batch, p_pad: int):
 class _FusedGroup:
     """One shape-compatible lane group, stacked and ready to dispatch."""
 
-    __slots__ = ("idxs", "const", "init", "batch", "e_real", "e_pad",
-                 "p_pad", "wave", "spread_alg", "dtype_name")
+    __slots__ = ("idxs", "const", "init", "batch", "ptab", "pinit",
+                 "e_real", "e_pad", "p_pad", "wave", "spread_alg",
+                 "dtype_name")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -88,8 +91,13 @@ def _fuse_group(lanes: List[PackedLane], idxs: List[int]) -> _FusedGroup:
     batch = stack(batches)
     # padding lanes must not place anything
     batch.active[e_real:] = False
+    ptab = pinit = None
+    if lane0.ptab is not None:
+        ptab = stack([ln.ptab for ln in rows])
+        pinit = stack([ln.pinit for ln in rows])
     return _FusedGroup(
-        idxs=list(idxs), const=const, init=init, batch=batch,
+        idxs=list(idxs), const=const, init=init, batch=batch, ptab=ptab,
+        pinit=pinit,
         e_real=e_real, e_pad=e_pad, p_pad=p_pad,
         wave=lane0.wavefront_ok(), spread_alg=lane0.spread_alg,
         dtype_name=lane0.dtype_name)
@@ -105,31 +113,33 @@ def fuse_lanes(lanes: List[PackedLane]) -> List[_FusedGroup]:
 
 
 def solve_groups(lanes: List[PackedLane], groups: List[_FusedGroup],
-                 device: DeviceLike = None
-                 ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+                 device: DeviceLike = None) -> List[tuple]:
     """Device half of fuse_and_solve: dispatch each fused group (wave
-    kernels or dense scan, as the group's gate says) and map results back
-    to input-lane order."""
+    kernels, dense scan or a preemption kernel, as the group's gate and
+    tables say) and map results back to input-lane order."""
     dev = resolve_device(device)
     results: List = [None] * len(lanes)
     for g in groups:
-        chosen, scores, n_yielded = solve_lane_fused(
-            g.const, g.init, g.batch,
+        out = solve_lane_fused(
+            g.const, g.init, g.batch, g.ptab, g.pinit,
             spread_alg=g.spread_alg, dtype_name=g.dtype_name, wave=g.wave,
             device=dev)
         for j, li in enumerate(g.idxs):
             p_real = lanes[li].batch.ask_cpu.shape[0]
-            results[li] = (chosen[j][:p_real].astype(np.int64),
-                           scores[j][:p_real],
-                           n_yielded[j][:p_real].astype(np.int64))
+            res = (out[0][j][:p_real].astype(np.int64), out[1][j][:p_real],
+                   out[2][j][:p_real].astype(np.int64))
+            if g.ptab is not None:
+                res += (out[3][j][:p_real],)
+            results[li] = res
     return results
 
 
 def fuse_and_solve(lanes: List[PackedLane], device: DeviceLike = None
-                   ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+                   ) -> List[tuple]:
     """Group lanes by static-shape signature, solve each group as ONE
     batched dispatch on ``device`` (default ``cuda``), and return per-lane
-    host numpy (chosen int64, scores, n_yielded int64) in input order.
+    host numpy (chosen int64, scores, n_yielded int64) in input order;
+    a preemption lane's tuple adds evict_rows (P, A) bool.
     Pinning the eval axis to a larger bucket (the reference's
     ``e_pad_hint``) comes with the solve barrier that sets it."""
     dev = resolve_device(device)

@@ -65,9 +65,12 @@ def _dev_terms(const, state, neg_inf):
     return any_g.all(dim=1), dev_score
 
 
-def _step_scores(const, state, b, spread_alg):
-    """One step's per-node fit and final score (binpack.py
-    _scoring_parts), (E, N) each. ``b`` holds the step's (E, 1) asks."""
+def _step_fit(const, state, b):
+    """One step's per-node fit (binpack.py _scoring_parts), (E, N) each:
+    (feas, fit, new_cpu, new_mem, new_disk, dev_score). ``feas`` is the
+    part no eviction can rescue (constraints, ports, distinct_hosts,
+    distinct_property, devices, cores); ``dev_score`` is None when the
+    lane asks for no devices. ``b`` holds the step's (E, 1) asks."""
     dt = const.cpu_cap.dtype
     E, N = const.cpu_cap.shape
     dev = const.cpu_cap.device
@@ -88,21 +91,26 @@ def _step_scores(const, state, b, spread_alg):
         vidx = const.dp_vidx[:, d].long()
         cnt = state.dp_counts[:, d][ar, vidx.clamp_min(0)]
         feas = feas & (vidx >= 0) & (cnt < const.dp_limit[:, d:d + 1])
-    neg_inf = torch.tensor(-float("inf"), dtype=dt, device=dev)
-    R = const.dev_aff.shape[1]
-    if R:
+    dev_score = None
+    if const.dev_aff.shape[1]:
+        neg_inf = torch.tensor(-float("inf"), dtype=dt, device=dev)
         dev_ok, dev_score = _dev_terms(const, state, neg_inf)
         feas = feas & dev_ok
     if has_cores:
         feas = feas & (state.cores_free >= b["ask_cores"])
     fit = (feas & (new_cpu <= const.cpu_cap) & (new_mem <= const.mem_cap)
            & (new_disk <= const.disk_cap))
+    return feas, fit, new_cpu, new_mem, new_disk, dev_score
 
-    free_cpu = 1.0 - new_cpu / const.cpu_cap.clamp_min(1e-9)
-    free_mem = 1.0 - new_mem / const.mem_cap.clamp_min(1e-9)
-    # only fit nodes' scores reach an output; the others are left 0
-    # (skipping them keeps the CPU version's libm calls to the fit nodes)
-    idx = torch.nonzero(fit, as_tuple=True)
+
+def _step_terms(const, state, b, idx, dev_score):
+    """The score terms other than binpack at the nodes ``idx`` (a
+    nonzero() tuple over (E, N)): (other, nscores), summed in the
+    reference's order ((anti + resched) + affinity) + spread [+ device
+    affinity]."""
+    dt = const.cpu_cap.dtype
+    E, N = const.cpu_cap.shape
+    dev = const.cpu_cap.device
     coll = state.placed[idx].to(dt)
     count = b["count"].to(dt).expand(E, N)[idx]
     anti = _anti(coll, count)
@@ -125,12 +133,30 @@ def _step_scores(const, state, b, spread_alg):
     nscores = (1.0 + (coll > 0).to(dt) + is_pen.to(dt)
                + (aff != 0.0).to(dt) + (spread != 0.0).to(dt))
     other = ((anti + resched) + aff) + spread
-    if R:
+    if dev_score is not None:
         nscores = nscores + (const.dev_sum_weight[:, None] > 0).to(
             dt).expand(E, N)[idx]
         other = other + dev_score[idx]
-    bp = _binpack_raw(free_cpu[idx], free_mem[idx], spread_alg)
-    final = torch.zeros((E, N), dtype=dt, device=dev)
+    return other, nscores
+
+
+def _free(new, cap):
+    """1 - new / max(cap, 1e-9): a node's free share after the ask."""
+    return 1.0 - new / cap.clamp_min(1e-9)
+
+
+def _step_scores(const, state, b, spread_alg):
+    """One step's per-node fit and final score (binpack.py
+    _scoring_parts), (E, N) each. ``b`` holds the step's (E, 1) asks."""
+    _, fit, new_cpu, new_mem, _, dev_score = _step_fit(const, state, b)
+    # only fit nodes' scores reach an output; the others are left 0
+    # (skipping them keeps the CPU version's libm calls to the fit nodes)
+    idx = torch.nonzero(fit, as_tuple=True)
+    other, nscores = _step_terms(const, state, b, idx, dev_score)
+    bp = _binpack_raw(_free(new_cpu, const.cpu_cap)[idx],
+                      _free(new_mem, const.mem_cap)[idx], spread_alg)
+    final = torch.zeros(fit.shape, dtype=new_cpu.dtype,
+                        device=new_cpu.device)
     final[idx] = _score(bp, other, nscores)
     return fit, final
 
@@ -157,6 +183,15 @@ def _commit(const, state, b, w, do):
     state.dyn_avail[ar, w] -= add_i * b["n_dyn"][:, 0]
     if const.mhz_per_core.shape[-1]:
         state.cores_free[ar, w] -= add_i * b["ask_cores"][:, 0]
+    _commit_tables(const, state, w, do)
+
+
+def _commit_tables(const, state, w, do):
+    """Commit the winner ``w``'s spread, distinct_property and device
+    tables where ``do`` (binpack.py _commit_tables), in place."""
+    E = w.shape[0]
+    ar = torch.arange(E, device=w.device)
+    add_i = do.to(torch.int32)
     for vidx_all, counts in ((const.spread_vidx, state.spread_counts),
                              (const.dp_vidx, state.dp_counts)):
         for s in range(vidx_all.shape[1]):

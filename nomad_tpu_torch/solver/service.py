@@ -5,8 +5,10 @@ nomad_tpu/solver/service.py).
 TpuPlacementService._pack_inner does once its struct walks are done: the
 eval's node shuffle, the shuffled NodeConst / NodeState tables (with the
 distinct_property, device, reserved-core and port tables a dense lane
-needs) and the uniform PlacementBatch. ``placements`` maps solved
-shuffled positions back to node indexes and ids. ``solve_system_arrays``
+needs, and a preemption lane's candidate tables) and the uniform
+PlacementBatch. ``placements`` maps solved shuffled positions back to
+node indexes and ids, ``evictions`` a preemption lane's eviction rows
+back to each chosen node's candidates. ``solve_system_arrays``
 is the system-job entry point (TpuPlacementService.solve_system). Port
 assignment through NetworkIndex and the TpuPlacement structs come with
 the structs slice.
@@ -21,20 +23,27 @@ import numpy as np
 from ..device import DeviceLike, default_dtype_name, resolve_device
 from ..scheduler.util import shuffled_order
 from .binpack import (
-    PlacementBatch, make_node_const, make_node_state, wavefront_buffer_size)
+    MAX_SKIP, WAVE_DEVICE_CAP_STEPS, PlacementBatch, PreemptState,
+    PreemptTables, make_node_const, make_node_state, wavefront_buffer_size)
 from .system import solve_system
 
 
 class PackedLane:
     """One (eval, task-group) batch marshalled for the solver: the unit
     fuse_and_solve fuses across evals. Holds the numpy tables (shuffled
-    node order) and what placements() needs to map results back."""
+    node order), a preemption lane's candidate tables (``ptab``) and
+    carried state (``pinit``), and what placements() needs to map
+    results back."""
 
     __slots__ = ("order", "const", "init", "batch", "dtype_name",
-                 "spread_alg", "node_ids", "_wave")
+                 "spread_alg", "node_ids", "ptab", "pinit", "_wave")
 
     def __init__(self, order, const, init, batch, dtype_name: str,
-                 spread_alg: bool, node_ids: Optional[Sequence[str]] = None):
+                 spread_alg: bool, node_ids: Optional[Sequence[str]] = None,
+                 ptab: Optional[PreemptTables] = None,
+                 pinit: Optional[PreemptState] = None):
+        if (ptab is None) != (pinit is None):
+            raise ValueError("a preemption lane needs both ptab and pinit")
         self.order = order
         self.const = const
         self.init = init
@@ -42,21 +51,44 @@ class PackedLane:
         self.dtype_name = dtype_name
         self.spread_alg = spread_alg
         self.node_ids = node_ids
+        self.ptab = ptab
+        self.pinit = pinit
         self._wave = None
 
     def wavefront_ok(self) -> bool:
         """Can this lane take the wavefront path? Uniform asks over an
-        active prefix, a window that fits a slot buffer, and none of
-        distinct_property, devices or reserved cores. Spreads, affinities
-        and reschedule penalties are modelled."""
+        active prefix, a window that fits a slot buffer, no
+        distinct_property and no reserved cores; devices only as a pure
+        capacity (_wave_devices_ok). Spreads, affinities and reschedule
+        penalties are modelled. A preemption lane takes the windowed
+        preemption kernel on top of that only with no spreads, no valid
+        candidate under a max_parallel limit, and room in the buffer for
+        the window beside the deferred zombie."""
         if self._wave is None:
             self._wave = self._wavefront_check()
         return self._wave
 
     def _wavefront_check(self) -> bool:
         c = self.const
-        if (c.dp_vidx.shape[0] or c.mhz_per_core.shape[0]
-                or c.dev_aff.shape[0]):
+        if self.ptab is not None:
+            # the slot kernel carries no spread columns
+            if c.spread_vidx.shape[0]:
+                return False
+            # max_parallel penalties tie the greedy's pick order to the
+            # evolving group counts, so a node's option status would not
+            # stay static outside the window: such lanes stay dense
+            if bool(np.any(np.asarray(self.ptab.maxp)[
+                    np.asarray(self.ptab.valid)] > 0)):
+                return False
+            # the deferred zombie holds one slot for a step: the window
+            # must fit beside it
+            lim = int(np.asarray(self.batch.limit)[0])
+            width = wavefront_buffer_size(lim)
+            if width is None or lim + MAX_SKIP + 1 > width:
+                return False
+        if c.dp_vidx.shape[0] or c.mhz_per_core.shape[0]:
+            return False
+        if c.dev_aff.shape[0] and not self._wave_devices_ok():
             return False
         b = self.batch
         act = np.asarray(b.active)
@@ -70,6 +102,25 @@ class PackedLane:
                 return False
         return wavefront_buffer_size(
             int(np.asarray(b.limit)[0])) is not None
+
+    def _wave_devices_ok(self) -> bool:
+        """A uniform device ask rides the wavefront as a pure capacity
+        dimension (binpack._wave_device_capacity) when the dense device
+        score vanishes (zero affinity weight) and the capacity replay is
+        bounded. A preemption lane whose evictable candidates hold
+        matching devices never gets here (the reference packs none)."""
+        c = self.const
+        if float(np.asarray(c.dev_sum_weight)) != 0.0:
+            return False
+        cnt = np.asarray(c.dev_count)
+        if cnt.size == 0 or (cnt <= 0).any():
+            return False
+        free = np.asarray(self.init.dev_free)
+        if free.size == 0:
+            return False
+        per_node = np.clip(free, 0, None).sum(axis=(0, 1))
+        return (int(per_node.max(initial=0)) // int(cnt.min())
+                < WAVE_DEVICE_CAP_STEPS)
 
     def wavefront_B(self) -> Optional[int]:
         """Slot-buffer width (lanes of different widths never fuse)."""
@@ -89,6 +140,9 @@ class PackedLane:
                 self.init.dp_counts.shape[1] if
                 self.const.dp_vidx.shape[0] else 0,   # Vd
                 self.const.dev_aff.shape[:2],         # (R, Gd)
+                self.ptab.cpu.shape[1] if self.ptab is not None else 0,
+                self.pinit.counts.shape[0] if self.pinit is not None
+                else 0,                               # A, G
                 self.dtype_name, self.spread_alg,
                 self.wavefront_B())
 
@@ -124,6 +178,7 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
                      cores_free: Optional[np.ndarray] = None,
                      static_ports_free: Optional[np.ndarray] = None,
                      n_dyn_ports: int = 0,
+                     preemption=None,
                      spread_alg: bool = False,
                      dtype_name: Optional[str] = None,
                      device: DeviceLike = None) -> PackedLane:
@@ -138,8 +193,12 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
     with ``mhz_per_core`` and ``cores_free`` per node (``ask[0]`` is then
     the cpu of the tasks that reserve no cores), ``static_ports_free``
     (per node: are the task group's static ports free; None = no static
-    ports asked) and ``n_dyn_ports`` dynamic ports asked. ``dtype_name``
-    defaults by ``device``: float64 on the CPU, float32 on the card."""
+    ports asked) and ``n_dyn_ports`` dynamic ports asked.
+    ``preemption`` (PreemptInfo, candidates in original node order) makes
+    a preemption lane: its tables are shuffled with the nodes. Preemption
+    lanes ask for no ports and no reserved cores (the reference routes
+    those to its host iterator). ``dtype_name`` defaults by ``device``:
+    float64 on the CPU, float32 on the card."""
     dtype_name = default_dtype_name(device, dtype_name)
     dtype = np.dtype(dtype_name).type
     n = matrix.n_real
@@ -194,8 +253,41 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
         active=np.ones(P, dtype=bool),
         ask_cores=(np.full(P, ask_cores, dtype=np.int32) if cores
                    else np.zeros(0, dtype=np.int32)))
+    ptab = pinit = None
+    if preemption is not None:
+        if n_dyn_ports or static_ports_free is not None or cores:
+            raise ValueError("a preemption lane asks for no ports and no "
+                             "reserved cores")
+        ptab, pinit = _preempt_tables(preemption, perm, dtype)
     return PackedLane(order, const, init, batch, dtype_name, spread_alg,
-                      node_ids=matrix.node_ids)
+                      node_ids=matrix.node_ids, ptab=ptab, pinit=pinit)
+
+
+def _preempt_tables(info, perm, dtype):
+    """PreemptTables / PreemptState in shuffled node order from a
+    PreemptInfo in original node order (dynamic ports and static-port
+    holds stay zero: preemption lanes ask for no ports)."""
+    A = np.asarray(info.cpu).shape[1]
+    shape = (perm.shape[0], A)
+
+    def rows(a, dt):
+        a = np.asarray(a)
+        if a.shape != shape:
+            raise ValueError(f"preemption table of shape {a.shape}, "
+                             f"expected {shape}")
+        return a[perm].astype(dt)
+
+    ptab = PreemptTables(
+        cpu=rows(info.cpu, dtype), mem=rows(info.mem, dtype),
+        disk=rows(info.disk, dtype), prio=rows(info.prio, np.int32),
+        maxp=rows(info.maxp, np.int32), grp=rows(info.grp, np.int32),
+        dyn_ports=np.zeros(shape, dtype=np.int32),
+        static_rel=np.zeros(shape, dtype=bool),
+        valid=rows(info.valid, bool),
+        job_prio=np.asarray(info.job_prio, dtype=np.int32))
+    pinit = PreemptState(evicted=np.zeros(shape, dtype=bool),
+                         counts=np.asarray(info.counts, dtype=np.int32))
+    return ptab, pinit
 
 
 def placements(lane: PackedLane, chosen) -> Tuple[np.ndarray,
@@ -211,6 +303,19 @@ def placements(lane: PackedLane, chosen) -> Tuple[np.ndarray,
         (lane.node_ids[i] if i >= 0 and lane.node_ids is not None else None)
         for i in idx.tolist()]
     return idx, ids
+
+
+def evictions(lane: PackedLane, chosen, evict_rows
+              ) -> List[Tuple[int, np.ndarray]]:
+    """Map a preemption lane's results back: per placement, (original
+    node index or -1, the candidate columns it evicts there). Columns
+    index the chosen node's row of the PreemptInfo tables, which keep
+    their column order through the shuffle."""
+    idx, _ = placements(lane, chosen)
+    rows = np.asarray(evict_rows, dtype=bool)
+    return [(int(n), np.nonzero(rows[k])[0] if n >= 0
+             else np.zeros(0, dtype=np.int64))
+            for k, n in enumerate(idx.tolist())]
 
 
 def solve_system_arrays(matrix, usage, feasible: np.ndarray, *,

@@ -1,7 +1,8 @@
 """Wavefront placement: the two wave kernels, their plain PyTorch versions,
 and the lane solve that picks between them (port of the wave section of
 nomad_tpu/solver/binpack.py). solve_lane_fused sends every other lane
-group to the dense scan (solver/dense.py).
+group to the dense scan (solver/dense.py), and preemption groups to the
+preemption kernels (solver/preempt.py).
 
 Every placement of a wave lane is the same task-group ask, so a node's
 score after j of its own placements is a closed form of j. The selection
@@ -35,7 +36,7 @@ import torch
 
 from .. import kernels
 from ..device import DeviceLike, resolve_device
-from . import dense
+from . import dense, preempt
 from .binpack import (
     SKIP_THRESHOLD, WAVE_K, WaveSpread, _wave_p_bucket,
     wavefront_buffer_size, wavefront_compact_host)
@@ -460,13 +461,26 @@ def solve_lane_wave(const, init, batch, *, spread_alg: bool,
             n_yielded[:, :P].cpu().numpy())
 
 
-def solve_lane_fused(const, init, batch, *, spread_alg: bool,
-                     dtype_name: str, wave: bool = False,
+def solve_lane_fused(const, init, batch, ptab=None, pinit=None, *,
+                     spread_alg: bool, dtype_name: str, wave: bool = False,
                      device: DeviceLike = None):
     """Solve a stacked lane group; returns host numpy (chosen int64,
-    scores, n_yielded int64), each (E, P). ``wave`` routes through the
-    wavefront kernels (the caller checked the gate), anything else
-    through the dense greedy scan (solver/dense.py)."""
+    scores, n_yielded int64), each (E, P), plus evict_rows (E, P, A) bool
+    for a preemption group (``ptab``/``pinit`` stacked). ``wave`` routes
+    through the wavefront kernels (the caller checked the gate), anything
+    else through the dense greedy scan (solver/dense.py); a preemption
+    group through the windowed or the dense preemption kernel
+    (solver/preempt.py)."""
+    if ptab is not None:
+        if wave:
+            return preempt.solve_lane_wave_preempt(
+                const, init, batch, ptab, pinit, spread_alg=spread_alg,
+                dtype_name=dtype_name, device=device)
+        out = preempt.solve_placements_preempt(
+            const, init, batch, ptab, pinit, spread_alg=spread_alg,
+            dtype_name=dtype_name, device=device)
+        return (out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
+                out.n_yielded.cpu().numpy(), out.evict_rows.cpu().numpy())
     if wave:
         return solve_lane_wave(const, init, batch, spread_alg=spread_alg,
                                dtype_name=dtype_name, device=device)

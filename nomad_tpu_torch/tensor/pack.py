@@ -1,5 +1,6 @@
 """Node-axis array tables (port of the array parts of
-nomad_tpu/tensor/pack.py).
+nomad_tpu/tensor/pack.py, and of the preemption candidate tables of
+nomad_tpu/solver/service.py).
 
 Shapes are padded to bucket sizes so one kernel shape serves many fleet
 sizes. Building these from Node and Allocation structs (pack_nodes,
@@ -91,3 +92,24 @@ class DeviceInfo:
     count: np.ndarray          # (R,) int32 instances asked
     sum_weight: float          # sum of |affinity weights| over requests
     free: np.ndarray           # (R, Gd, n_pad) int32
+
+
+@dataclass
+class PreemptInfo:
+    """A preemption lane's candidates as arrays in original node order
+    (reference: solver/service.py _pack_preemption): per node, every
+    proposed alloc is one candidate column, in proposed-alloc order; the
+    columns of a node past its allocs are padding (valid False, grp -1).
+    ``valid`` is False for the placing job's own allocs and terminal ones.
+    ``counts`` holds the evictions each (job, task group) already has in
+    the eval's plan; ``grp`` indexes it."""
+
+    cpu: np.ndarray            # (n_pad, A) MHz
+    mem: np.ndarray            # (n_pad, A) MB
+    disk: np.ndarray           # (n_pad, A) MB
+    prio: np.ndarray           # (n_pad, A) int32 job priority
+    maxp: np.ndarray           # (n_pad, A) int32 migrate.max_parallel
+    grp: np.ndarray            # (n_pad, A) int32 group index, -1 none
+    valid: np.ndarray          # (n_pad, A) bool eligible candidate
+    job_prio: int              # the placing job's priority
+    counts: np.ndarray         # (G,) int32

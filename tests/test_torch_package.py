@@ -1,6 +1,6 @@
 """Package boundaries of the port: it stands alone (no jax, nothing of
-nomad_tpu), runs on the card unless told otherwise, never falls back
-silently, and refuses what it has not ported yet."""
+nomad_tpu), runs on the card unless told otherwise, and never falls back
+silently."""
 import ast
 import subprocess
 import sys
@@ -11,10 +11,9 @@ import pytest
 import torch
 
 from nomad_tpu_torch import kernels
-from nomad_tpu_torch.carry import lane_from_reference
 from nomad_tpu_torch.solver.batch import fuse_and_solve
-from nomad_tpu_torch.solver.service import pack_lane_arrays
-from nomad_tpu_torch.tensor.pack import NodeMatrix, UsageState
+from nomad_tpu_torch.solver.service import evictions, pack_lane_arrays
+from nomad_tpu_torch.tensor.pack import NodeMatrix, PreemptInfo, UsageState
 
 # One intra-op thread: the port's CPU tensors are small, and the test
 # run already keeps one xdist worker busy per core.
@@ -40,6 +39,19 @@ def test_import_loads_no_jax_and_nothing_of_the_reference():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_preempt_module_loads_no_jax_and_nothing_of_the_reference():
+    code = (
+        "import sys\n"
+        "import nomad_tpu_torch.solver.preempt\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -58,15 +70,19 @@ def test_no_file_of_the_port_imports_jax_or_the_reference(path):
     assert not roots & {"jax", "jaxlib", "nomad_tpu"}, roots
 
 
-def _tiny_lane(device, count=6, **kw):
-    n, n_pad = 5, 64
-    matrix = NodeMatrix(
+def _tiny_matrix(n=5, n_pad=64):
+    return NodeMatrix(
         n_real=n, n_pad=n_pad, node_ids=[f"n{i}" for i in range(n)],
         cpu_cap=np.r_[np.full(n, 4000.0), np.zeros(n_pad - n)],
         mem_cap=np.r_[np.full(n, 8192.0), np.zeros(n_pad - n)],
         disk_cap=np.r_[np.full(n, 102400.0), np.zeros(n_pad - n)],
         dyn_free=np.full(n_pad, 100, dtype=np.int32),
         valid=np.arange(n_pad) < n)
+
+
+def _tiny_lane(device, count=6, **kw):
+    n_pad = 64
+    matrix = _tiny_matrix()
     z = np.zeros(n_pad)
     usage = UsageState(z, z, z, z.astype(np.int32), z.astype(np.int32),
                        z.astype(np.int32))
@@ -97,10 +113,9 @@ def test_dtype_follows_device_unless_named():
         _tiny_lane("cpu", dtype_name="float16")
 
 
-def test_non_wave_groups_take_dense_and_preempt_raises():
-    """Lanes the wave gate refuses solve through the dense scan; only a
-    lane with preemption tables is refused, at the carry boundary, naming
-    its ROADMAP item."""
+def test_non_wave_groups_take_dense_and_preempt_solves():
+    """Lanes the wave gate refuses solve through the dense scan, and a
+    lane with preemption tables solves through a preemption kernel."""
     lane = _tiny_lane("cpu")
     mixed = lane.batch._replace(
         ask_cpu=np.array([500.0, 500.0, 700.0, 500.0, 500.0, 500.0]))
@@ -115,17 +130,42 @@ def test_non_wave_groups_take_dense_and_preempt_raises():
     assert int(wide.batch.limit[0]) == 200 and not wide.wavefront_ok()
     chosen, _, _ = fuse_and_solve([wide], device="cpu")[0]
     assert int((chosen >= 0).sum()) == 5 * 8     # 8 asks fill a 4000 MHz node
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        lane_from_reference(lane.const, lane.init, lane.batch, lane.order,
-                            ptab=lane.const, device="cpu")
+    # every node holds one 3,800-MHz alloc of a priority-20 job: the
+    # priority-70 lane places only by evicting it
+    n_pad = lane.const.cpu_cap.shape[0]
+    A = 8
+    col0 = (np.arange(A) == 0)[None, :] & (np.arange(n_pad) < 5)[:, None]
+    info = PreemptInfo(
+        cpu=np.where(col0, 3800.0, 0.0), mem=np.where(col0, 512.0, 0.0),
+        disk=np.where(col0, 150.0, 0.0),
+        prio=np.where(col0, 20, 0).astype(np.int32),
+        maxp=np.zeros((n_pad, A), dtype=np.int32),
+        grp=np.where(col0, np.arange(n_pad)[:, None], -1).astype(np.int32),
+        valid=col0, job_prio=70, counts=np.zeros(64, dtype=np.int32))
+    full = UsageState(*(np.r_[np.full(5, v), np.zeros(n_pad - 5)]
+                        for v in (3800.0, 512.0, 150.0)),
+                      *(np.zeros(n_pad, dtype=np.int32),) * 3)
+    pre = pack_lane_arrays(
+        _tiny_matrix(), full,
+        np.ones(n_pad, dtype=bool), ask=(500.0, 256.0, 150.0), count=5,
+        n_places=5, eval_id="tiny", state_index=1, preemption=info,
+        device="cpu")
+    assert pre.ptab is not None and pre.wavefront_ok()
+    chosen, _, _, rows = fuse_and_solve([pre], device="cpu")[0]
+    assert (chosen >= 0).all() and rows[0].any()
+    # each eviction is the node's one candidate, and no node loses it twice
+    hit = [n for n, cols in evictions(pre, chosen, rows) if cols.size]
+    assert all(cols.tolist() == [0]
+               for _, cols in evictions(pre, chosen, rows) if cols.size)
+    assert len(hit) == len(set(hit)) >= 1
 
 
 def test_every_kernel_is_registered_with_its_source_and_reference():
-    """The four ported kernels, each built from its own csrc/ source that
+    """The six ported kernels, each built from its own csrc/ source that
     names the TPU program it replaces."""
     names = {k.name: k for k in kernels.KERNELS}
     assert set(names) == {"wave_block", "wave_compact", "dense_scan",
-                          "system_fit"}
+                          "system_fit", "wave_preempt", "dense_preempt"}
     for k in kernels.KERNELS:
         src = (kernels.CSRC / k.source).read_text()
         func = k.replaces.split()[-1]

@@ -301,9 +301,10 @@ def test_mixed_wave_and_dense_dispatch_matches_reference(dense_world,
         assert (chosen >= 0).sum() >= 10, kind
 
 
-def test_preemption_lane_still_raises(dense_world):
-    """A lane the reference packs with preemption tables is refused when
-    it is carried across, until preemption is ported."""
+def test_preemption_lane_matches_reference(dense_world):
+    """A lane the reference packs with preemption tables carries across
+    with them and solves as the reference's does: the same chosen,
+    n_yielded and eviction rows, on the same kernel."""
     by_kind, h, snap, nodes = dense_world
     job = mock.job(id="dense-slice-preempt")
     job.priority = 90
@@ -319,9 +320,17 @@ def test_preemption_lane_still_raises(dense_world):
                               preempt=True)
     lane = svc.pack(tg, places, nodes)
     assert lane is not None and lane.ptab is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        lane_from_reference(lane.const, lane.init, lane.batch, lane.order,
-                            ptab=lane.ptab, device="cpu")
+    port = lane_from_reference(lane.const, lane.init, lane.batch,
+                               lane.order, ptab=lane.ptab, pinit=lane.pinit,
+                               node_ids=lane.matrix.node_ids, device="cpu")
+    assert port.wavefront_ok() == lane.wavefront_ok()
+    (cw, sw, yw, ew), = ref_fuse_and_solve([lane])
+    (cg, sg, yg, eg), = fuse_and_solve([port], device="cpu")
+    np.testing.assert_array_equal(cg, cw)
+    np.testing.assert_array_equal(yg, yw)
+    np.testing.assert_array_equal(eg, ew)
+    np.testing.assert_allclose(sg, sw, rtol=1e-12)
+    assert (cg >= 0).all()
 
 
 def test_carry_keeps_dense_tables(dense_world):
