@@ -32,8 +32,8 @@ Phases (any failure raises and the script exits nonzero with no result):
                   lanes and 16 fuzz lanes (priority tiers, max_parallel,
                   distinct_hosts, affinity, penalties, saturation, inert
                   lanes), eviction rows and final state exactly too;
-                  then, untimed, wave_preempt at B = 128 and
-                  dense_preempt at N = 256, 1,024 and 4,096;
+                  then, untimed, wave_preempt at B = 128, both at
+                  A = 64, and dense_preempt at N = 256, 1,024 and 4,096;
   4. slice   -- the wave main path: 10,000 nodes (bench.py's world), 32
                 evals x 2,000 placements packed with pack_lane_arrays and
                 solved by fuse_and_solve in float32 (the run-block
@@ -1093,7 +1093,7 @@ PD_EVALS, PD_PLACE = 8, 500         # the dense group (max_parallel 1)
 PD_JOB_ALLOCS = 10                  # fillers per job in the dense group
 PD_P_PAD = 512                      # _wave_p_bucket(PD_PLACE)
 PREEMPT_FEATURES = ("tiers", "maxp", "distinct", "job_level", "affinity",
-                    "penalties", "scarce", "devices", "inert")
+                    "penalties", "scarce", "devices", "inert", "many")
 
 
 def pow2_at_least(np, x, floor):
@@ -1171,7 +1171,9 @@ def preempt_fuzz_tables(np, rng, *, n, n_pad, p, dtype, limit, features=(),
     distinct (distinct_hosts; job_level for the job-level form),
     affinity, penalties, scarce (a dozen feasible nodes for many
     placements: saturation and zombie shifts), devices (1-3 GPUs on half
-    the nodes), inert (no active placement: a padding lane)."""
+    the nodes), inert (no active placement: a padding lane), many
+    (candidates of 100-250 MHz, so a node fills up to ~80 columns and
+    every bit of a 64-wide candidate axis is used)."""
     f = set(features)
     bad = f - set(PREEMPT_FEATURES)
     if bad:
@@ -1188,8 +1190,10 @@ def preempt_fuzz_tables(np, rng, *, n, n_pad, p, dtype, limit, features=(),
     cdisk = np.zeros((n_pad, A))
     budget = cpu_cap * rng.uniform(0.7, 1.0, n_pad)
     used = np.zeros(n_pad)
+    sizes = ([100.0, 150.0, 250.0] if "many" in f
+             else [250.0, 500.0, 700.0, 900.0])
     for a in range(A):
-        c = rng.choice([250.0, 500.0, 700.0, 900.0], n_pad)
+        c = rng.choice(sizes, n_pad)
         take = valid_n & (used + c <= budget)
         ccpu[:, a] = np.where(take, c, 0.0)
         cmem[:, a] = np.where(take, rng.choice([256.0, 512.0, 1024.0],
@@ -1485,10 +1489,11 @@ def preempt_kernel_phase(np, torch, bp, preempt, dense, svc, tp, world,
 
 def preempt_small_checks(np, torch, bp, preempt, dense, dtype_name, seed):
     """Untimed: the windowed kernel at its wide buffer (B = 128, the
-    limit-100 window of an affinity lane) and the dense one at the small
-    node buckets (N = 256 and 1,024, fewer nodes than one tile of its
-    walk) and a mid-size one (N = 4,096), 8 fuzz lanes each, held against
-    their plain versions."""
+    limit-100 window of an affinity lane), both kernels at the widest
+    candidate axis they take (A = 64, N = 1,024), and the dense one at
+    the small node buckets (N = 256 and 1,024, fewer nodes than one tile
+    of its walk) and a mid-size one (N = 4,096), 8 fuzz lanes each, held
+    against their plain versions."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed)
     sets = (("affinity",), ("tiers", "affinity", "penalties"),
@@ -1510,13 +1515,30 @@ def preempt_small_checks(np, torch, bp, preempt, dense, dtype_name, seed):
         f"match=exact max_abs_err={err:.3e}")
     results.append(dict(name="wave_preempt", dtype=dtype_name,
                         world="fuzz B=128", max_abs_err=err))
-    for n, n_pad in ((200, 256), (1000, 1024), (4000, 4096)):
+    lanes = [list(preempt_fuzz_tables(
+        np, rng, n=1000, n_pad=1024, p=128, dtype=dtype_name, limit=14,
+        features=("many", "tiers", "penalties") + sets[k % len(sets)][:1],
+        A=64, G=64)) for k in range(8)]
+    inp = preempt.wave_preempt_inputs(*stack_preempt(np, bp, lanes),
+                                      dtype_name=dtype_name)
+    ten = preempt.wave_preempt_tensors(inp, dev)
+    got = preempt.wave_preempt(*ten, spread_alg=False, B=inp.B)
+    want = preempt.wave_preempt_plain(*ten, spread_alg=False, B=inp.B)
+    tag = f"wave_preempt {dtype_name} A=64"
+    err = compare_preempt(torch, tag, got, want, dtype_name)
+    log(f"kernel {tag}: E=8 P=128 placed={int((want[0] >= 0).sum())} "
+        f"match=exact max_abs_err={err:.3e}")
+    results.append(dict(name="wave_preempt", dtype=dtype_name,
+                        world="fuzz A=64", max_abs_err=err))
+    for n, n_pad, A in ((200, 256, PREEMPT_A), (1000, 1024, PREEMPT_A),
+                        (4000, 4096, PREEMPT_A), (1000, 1024, 64)):
+        many = ("many",) if A == 64 else ()
         lanes = [list(preempt_fuzz_tables(
             np, rng, n=n, n_pad=n_pad, p=64, dtype=dtype_name,
             limit=int(rng.choice([3, 5, 14])),
             features=(("tiers", "maxp", "penalties", "distinct", "scarce",
-                       "affinity", "job_level", "inert")[k],) + ("devices",),
-            A=PREEMPT_A, G=64)) for k in range(8)]
+                       "affinity", "job_level", "inert")[k],) + ("devices",)
+            + many, A=A, G=64)) for k in range(8)]
         trees = stack_preempt(np, bp, lanes)
         args = (dense.lane_tensors(*trees[:3], dtype_name=dtype_name,
                                    device=dev)
@@ -1524,7 +1546,7 @@ def preempt_small_checks(np, torch, bp, preempt, dense, dtype_name, seed):
                                           device=dev))
         got = preempt.dense_preempt(*args, spread_alg=False)
         want = preempt.dense_preempt_plain(*args, spread_alg=False)
-        tag = f"dense_preempt {dtype_name} N={n_pad}"
+        tag = f"dense_preempt {dtype_name} N={n_pad} A={A}"
         err = compare_preempt(torch, tag, got, want, dtype_name)
         for f, g, w in zip(type(got.state)._fields + ("evicted", "counts"),
                            tuple(got.state) + tuple(got.pstate),
@@ -1534,7 +1556,7 @@ def preempt_small_checks(np, torch, bp, preempt, dense, dtype_name, seed):
         log(f"kernel {tag}: E=8 P=64 placed={int((want.chosen >= 0).sum())}"
             f" match=exact max_abs_err={err:.3e}")
         results.append(dict(name="dense_preempt", dtype=dtype_name,
-                            world=f"fuzz N={n_pad}", max_abs_err=err))
+                            world=f"fuzz N={n_pad} A={A}", max_abs_err=err))
     return results
 
 

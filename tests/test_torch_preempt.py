@@ -353,6 +353,17 @@ def test_wide_window_lane_matches_reference(dtype_name):
 
 
 @pytest.mark.parametrize("dtype_name", DTYPES)
+def test_widest_candidate_axis_matches_reference(dtype_name):
+    """A = 64, the widest candidate axis the kernels take, with every
+    column in use (nodes of up to ~80 small allocs)."""
+    rlane, plane = _fuzz(37, ("many", "tiers", "penalties"), dtype_name,
+                         n=24, n_pad=32, p=10, A=64)
+    assert bool(plane[3].valid[:, 40:].any())
+    _check_wave(rlane, plane, dtype_name)
+    _check_dense(rlane, plane, dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", DTYPES)
 def test_batched_lanes_with_inert_padding(dtype_name):
     """A fused group: three real lanes and five inert padding replicas
     (active all False) solve as one batch, each real lane equal to the
