@@ -1374,29 +1374,111 @@ def compare_preempt(torch, name, got, want, dtype_name):
     return err
 
 
-def wave_preempt_bound(np, inp, out, dtype_name):
+def rows_nbytes(tables, n, rows):
+    """Bytes of ``tables`` (each with a leading lane axis) when ``rows``
+    node rows in all are read: a table with an axis of size ``n`` after
+    the lane axis counts rows / (lanes * n) of its bytes, any other table
+    all of them."""
+    total = 0
+    for t in tables:
+        shape = tuple(t.shape)
+        if len(shape) >= 2 and n in shape[1:]:
+            total += t.nbytes // (shape[0] * n) * rows
+        else:
+            total += t.nbytes
+    return total
+
+
+def distinct_groups(np, lane, grp, G):
+    """How many distinct (lane, group) pairs the arrays name (grp >= 0)."""
+    keep = grp >= 0
+    return int(np.unique(lane[keep].astype(np.int64) * G
+                         + grp[keep].astype(np.int64)).size)
+
+
+def wave_preempt_bound(np, preempt, inp, out, dtype_name):
     """(bound_ms, bound_by, bytes, flops) of one windowed-preemption
-    launch: its inputs read once and outputs written once; the
-    operations this run's data needs (see WAVE_PREEMPT_SLOT_OPS)."""
-    nbytes = (inp.compact.nbytes + sum(a.nbytes for a in inp.cand.values())
+    launch, counting what this run's data makes the function touch. The
+    window takes compact rows in order (the first B, then one per zombie
+    shift), so a lane reads every row up to that of the last node it
+    chose, and at least B; of each such row its compact entry and (A,)
+    candidates, and the group counts of its max_parallel candidates
+    (the penalty reads no count where maxp is 0). Plus the (E,) scalars
+    and (E, P) penalties read, the outputs written once; the operations
+    this run's data needs (see WAVE_PREEMPT_SLOT_OPS). Rows entered by
+    zombies never chosen are left out, so the bound stays a lower one."""
+    chosen = out[0].cpu().numpy()
+    E, C, _ = inp.compact.shape
+    pos = inp.compact[..., preempt.WPC_POS]
+    reach = np.full(E, inp.B, dtype=np.int64)
+    for e in range(E):
+        ch = chosen[e][chosen[e] >= 0]
+        if ch.size:
+            k = int((pos[e] >= 0).sum())   # option rows, ascending pos
+            reach[e] = max(inp.B, int(np.searchsorted(pos[e, :k],
+                                                      ch.max())) + 1)
+    grp, maxp = inp.cand["grp"], inp.cand["maxp"]
+    sel = ((np.arange(C)[None, :] < reach[:, None])[..., None]
+           & (maxp > 0))
+    lane = np.broadcast_to(np.arange(E)[:, None, None], grp.shape)
+    n_groups = distinct_groups(np, lane[sel], grp[sel],
+                               inp.counts0.shape[1])
+    nbytes = (rows_nbytes((inp.compact, *inp.cand.values()), C,
+                          int(reach.sum()))
               + inp.scal_f.nbytes + inp.scal_i.nbytes + inp.pen.nbytes
-              + inp.counts0.nbytes + sum(t.nbytes for t in out))
-    chosen, rows = out[0], out[3]
+              + 4 * n_groups + sum(t.nbytes for t in out))
+    rows = out[3]
     A = rows.shape[-1]
-    flops = (int((chosen >= 0).sum()) * inp.B * WAVE_PREEMPT_SLOT_OPS
+    flops = (int((out[0] >= 0).sum()) * inp.B * WAVE_PREEMPT_SLOT_OPS
              + int(rows.any(dim=-1).sum()) * A * PREEMPT_CAND_OPS)
     return bound("wave_preempt", nbytes, flops, dtype_name) + (nbytes, flops)
 
 
 def dense_preempt_bound(np, trees, out, dtype_name):
-    """(bound_ms, bound_by, bytes, flops) of one dense preemption launch:
-    the tables read once, the outputs and final state written once; the
-    operations this run's data needs."""
-    nbytes = (tree_nbytes(trees) + sum(t.nbytes for t in out[:4])
-              + tree_nbytes((out.state, out.pstate)))
+    """(bound_ms, bound_by, bytes, flops) of one dense preemption launch,
+    counting what this run's data makes the function touch. Each step's
+    window walk starts at node 0 and must look at every node before the
+    limit-th option, so a lane reads its node rows up to the last node it
+    chose (and at least as many as a window held), and all N where a
+    step yielded fewer than its limit; the candidate rows (and evicted
+    entries) of the nodes it evicted on, and the group counts of their
+    max_parallel candidates. Plus the
+    placement batch read; the outputs, the state rows of the nodes
+    chosen, the evicted entries set and the group counts bumped written
+    once; the operations this run's data needs. Nodes searched but never
+    chosen are left out, so the bound stays a lower one."""
+    const, init, batch, ptab, pinit = trees
+    E, N = const.cpu_cap.shape
+    G = pinit.counts.shape[1]
+    chosen = out.chosen.cpu().numpy()
+    rows = out.evict_rows.cpu().numpy()
+    short = (out.n_yielded < batch.limit.long()).any(dim=1).cpu().numpy()
+    held = out.n_yielded.max(dim=1).values.cpu().numpy()
+    reach = np.where(short, N, np.maximum(chosen.max(axis=1) + 1, held))
+    lane = np.broadcast_to(np.arange(E)[:, None], chosen.shape)
+    placed = chosen >= 0
+    won = np.unique(lane[placed] * N + chosen[placed])
+    ev = rows.any(axis=-1)
+    ev_nodes = np.unique(lane[ev] * N + chosen[ev])
+    grp = ptab.grp.cpu().numpy()
+    maxp = ptab.maxp.cpu().numpy()
+    we, wn = ev_nodes // N, ev_nodes % N
+    sel = maxp[we, wn] > 0
+    read_groups = distinct_groups(
+        np, np.broadcast_to(we[:, None], sel.shape)[sel],
+        grp[we, wn][sel], G)
+    e_i, i_i, a_i = np.nonzero(rows)
+    bumped = distinct_groups(np, e_i, grp[e_i, chosen[e_i, i_i], a_i], G)
+    nbytes = (rows_nbytes((*const, *init), N, int(reach.sum()))
+              + tree_nbytes((batch,))
+              + rows_nbytes((*ptab, pinit.evicted), N, ev_nodes.size)
+              + 4 * read_groups
+              + sum(t.nbytes for t in out[:4])
+              + rows_nbytes(out.state, N, won.size)
+              + int(rows.sum()) + 4 * bumped)
     A = out.evict_rows.shape[-1]
     flops = (int(out.n_yielded.sum()) * (DENSE_FIT_OPS + DENSE_SCORE_OPS)
-             + int(out.evict_rows.any(dim=-1).sum()) * A * PREEMPT_CAND_OPS)
+             + int(ev.sum()) * A * PREEMPT_CAND_OPS)
     return bound("dense_preempt", nbytes, flops, dtype_name) + (nbytes,
                                                                 flops)
 
@@ -1428,7 +1510,7 @@ def preempt_kernel_phase(np, torch, bp, preempt, dense, svc, tp, world,
         ms = timed(torch, lambda: run_w(preempt.wave_preempt),
                    KERNEL_REPEATS)
         bound_ms, bound_by, nbytes, flops = wave_preempt_bound(
-            np, inp, want, dtype_name)
+            np, preempt, inp, want, dtype_name)
         placed = int((want[0] >= 0).sum())
         evicting = int(want[3].any(dim=-1).sum())
         log(f"kernel {tag}: E={inp.compact.shape[0]} "
@@ -1655,7 +1737,7 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
                             tuple(w[j, :P] for w in want[:4]), "float32")
         ms = timed(torch, lambda: run(kfn), KERNEL_REPEATS)
         if g.wave:
-            bnd = wave_preempt_bound(np, inp, want, "float32")
+            bnd = wave_preempt_bound(np, preempt, inp, want, "float32")
             shape = list(inp.compact.shape) + [PREEMPT_A]
         else:
             bnd = dense_preempt_bound(np, ten, want, "float32")

@@ -16,11 +16,11 @@
 // a node that fails only the latter runs the eviction search over its A
 // candidates (preempt_common.cuh, one thread per node, candidate sets as
 // 64-bit masks), the fit2 recheck, and scores its post-eviction binpack
-// plus the logistic preemption term. After the arg-best, thread 0 runs
-// the winner's search again (its inputs have not changed) for the
-// eviction row and freed resources, and commits: usage less the freed
-// resources, ports released, the spread / distinct_property / device
-// tables, the evicted mask and the per-group counts. As in the
+// plus the logistic preemption term. After the arg-best, thread 0
+// rescores the winner (its inputs have not changed), whose one search
+// gives the eviction row and freed resources, and commits: usage less the
+// freed resources, ports released, the spread / distinct_property /
+// device tables, the evicted mask and the per-group counts. As in the
 // reference, the freed resources come off the winner's usage whenever
 // the window chose a preempting node, active step or not.
 //
@@ -81,12 +81,13 @@ __device__ __forceinline__ SearchRes<T> node_search(
 
 // Option status of node n and its final score when it is an option:
 // plain fit, or fit once the search's evictions free enough
-// (_score_and_select_preempt). pre tells which.
+// (_score_and_select_preempt). pre tells which; when it is set, r holds
+// the search.
 template <typename T>
 __device__ __forceinline__ bool score_node_preempt(
     const DenseArgs<T>& A, const PreemptArgs<T>& Q, const Off& o, int e,
     const Ask<T>& a, int n, const SpreadStats<T>& st, T& final,
-    bool& pre) {
+    bool& pre, SearchRes<T>& r) {
   T dev_score;
   bool dev_present;
   pre = false;
@@ -107,7 +108,7 @@ __device__ __forceinline__ bool score_node_preempt(
     final = final_score<T>(bp, other, nscores);
     return true;
   }
-  const SearchRes<T> r = node_search<T>(A, Q, o, e, a, n);
+  r = node_search<T>(A, Q, o, e, a, n);
   if (!r.met) return false;
   const T new_c = ucpu + eff_cpu, new_m = umem + a.mem, new_d = udisk + a.disk;
   // fit2: the full-usage recheck after the evictions (rank.go:541)
@@ -143,7 +144,8 @@ dense_preempt_kernel(const DenseArgs<T> A, const PreemptArgs<T> Q) {
         A.N, a.limit,
         [&](int n, T& fin) {
           bool pre;
-          return score_node_preempt<T>(A, Q, o, e, a, n, st, fin, pre);
+          SearchRes<T> r;
+          return score_node_preempt<T>(A, Q, o, e, a, n, st, fin, pre, r);
         },
         sh, ny);
     if (tid == 0) {
@@ -159,10 +161,10 @@ dense_preempt_kernel(const DenseArgs<T> A, const PreemptArgs<T> Q) {
         // was the winner a preempting option? (its state is unchanged)
         T fin;
         bool pre;
-        score_node_preempt<T>(A, Q, o, e, a, w, st, fin, pre);
+        SearchRes<T> r;
+        score_node_preempt<T>(A, Q, o, e, a, w, st, fin, pre, r);
         T fc = T(0), fm = T(0), fd = T(0);
         if (pre) {
-          const SearchRes<T> r = node_search<T>(A, Q, o, e, a, w);
           fc = r.freed_c;
           fm = r.freed_m;
           fd = r.freed_d;

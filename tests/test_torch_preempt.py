@@ -469,3 +469,68 @@ def test_preemption_kernels_are_registered():
         assert "preempt_common.cuh" in src and k.replaces.split()[-1] in src
     common = (kernels.CSRC / "preempt_common.cuh").read_text()
     assert f"kMaxA = {preempt.MAX_A}" in common
+
+
+# --------------------------------------------------------------------------
+# chip_smoke's bounds of the two kernels
+
+def _pad_nodes(tree, n, n_to):
+    """``tree`` with every axis of size ``n`` zero-padded to ``n_to``
+    (the added nodes infeasible, with no capacity or candidates)."""
+    def pad(a):
+        a = np.asarray(a)
+        widths = [(0, n_to - n if d == n else 0) for d in a.shape]
+        return np.pad(a, widths) if a.ndim else a
+    return type(tree)(*(pad(a) for a in tree))
+
+
+def test_dense_preempt_bound_counts_rows_the_window_reaches():
+    """The dense bound counts the node rows each lane's window walk must
+    reach, not whole tables: padding the node axis far past the window
+    changes no decision and leaves the bound's bytes as they were, while
+    the whole tables grow eightfold."""
+    _, plane = _fuzz(7, ("tiers", "maxp"), "float32", limit=3)
+    outs, bounds, whole = [], [], []
+    for n_to in (64, 512):
+        trees = _stack([tuple(_pad_nodes(t, 64, n_to) for t in plane)] * 2)
+        ten = (preempt.dense.lane_tensors(*trees[:3], dtype_name="float32",
+                                          device="cpu")
+               + preempt.preempt_tensors(*trees[3:], dtype_name="float32",
+                                         device="cpu"))
+        out = preempt.dense_preempt_plain(*ten, spread_alg=False)
+        outs.append(out)
+        bounds.append(chip_smoke.dense_preempt_bound(np, ten, out,
+                                                     "float32"))
+        whole.append(chip_smoke.tree_nbytes(ten))
+    assert bool(outs[0].evict_rows.any())
+    assert not bool((outs[0].n_yielded < 3).any())
+    for a, b in zip(outs[0][:4], outs[1][:4]):
+        assert torch.equal(a, b)
+    assert bounds[0][2:] == bounds[1][2:]
+    assert whole[1] > 7 * whole[0] > 7 * bounds[0][2]
+
+
+def test_wave_preempt_bound_counts_rows_up_to_the_last_choice():
+    """The windowed bound counts the compact and candidate rows up to the
+    row of the last node chosen (at least the B first), the scalars,
+    penalties, max_parallel group counts and outputs, and no more."""
+    _, plane = _fuzz(11, ("distinct",), "float32", n=96, n_pad=128, p=40,
+                     limit=3)
+    inp = preempt.wave_preempt_inputs(*_stack([plane]),
+                                      dtype_name="float32")
+    out = preempt.wave_preempt_plain(
+        *preempt.wave_preempt_tensors(inp, torch.device("cpu")),
+        spread_alg=False, B=inp.B)
+    chosen = out[0][0].numpy()
+    pos = inp.compact[0, :, port_bp.WPC_POS]
+    last = max(int(np.nonzero(pos == c)[0][0]) for c in chosen if c >= 0)
+    assert last >= inp.B        # one node a placement: past the B first
+    rows = last + 1
+    assert rows < inp.compact.shape[1]
+    assert not (inp.cand["maxp"] > 0).any()
+    want = (inp.compact[:, :rows].nbytes
+            + sum(v[:, :rows].nbytes for v in inp.cand.values())
+            + inp.scal_f.nbytes + inp.scal_i.nbytes + inp.pen.nbytes
+            + sum(t.nbytes for t in out))
+    assert chip_smoke.wave_preempt_bound(np, preempt, inp, out,
+                                         "float32")[2] == want
