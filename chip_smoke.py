@@ -34,6 +34,11 @@ Phases (any failure raises and the script exits nonzero with no result):
                   lanes), eviction rows and final state exactly too;
                   then, untimed, wave_preempt at B = 128, both at
                   A = 64, and dense_preempt at N = 256, 1,024 and 4,096;
+                - lp_relax (float32 only, as the reference's LP) at
+                  L_pad in {8, 128, 256} x N in {256, 16,384, 65,536},
+                  48 steps, on seeded fuzz with and without
+                  oversubscription: X and mu bit for bit; timed at
+                  L_pad 128, N 16,384;
   4. slice   -- the wave main path: 10,000 nodes (bench.py's world), 32
                 evals x 2,000 placements packed with pack_lane_arrays and
                 solved by fuse_and_solve in float32 (the run-block
@@ -53,8 +58,18 @@ Phases (any failure raises and the script exits nonzero with no result):
                 max_parallel-1 jobs (the dense one), through
                 fuse_and_solve in float32; checks the evictions too (no
                 node over capacity after them, none twice, none within
-                10 priority levels of the job, no GPU oversubscribed).
-  Phases 4-7 reset the launch counts just before and read them just
+                10 priority levels of the job, no GPU oversubscribed);
+  8. lpq     -- the LP tier's main path (bench.py time_lpq's shape): 128
+                evals x 8 placements of mock.job over the 10,000 nodes,
+                packed with pack_lane_arrays and driven through
+                LpqBarrier by 128 threads in float32 (one lp_relax
+                launch, L_pad 128), then each eval's second task group
+                on the same ledger (126 LP lanes, a spread lane and a
+                static-port lane through fuse_and_solve and the
+                cross-lane fixpoint); results equal to a rerun with the
+                plain LP on the card; prints the warm dispatch's
+                breakdown and lpq_stats().
+  Phases 4-8 reset the launch counts just before and read them just
   after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
   to the plain versions on the same fused inputs.
@@ -66,6 +81,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1803,6 +1819,303 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
                 placements_per_s=total / (fuse_ms / 1e3), kernels=kern)
 
 
+# --------------------------------------------------------------------------
+# slice 4: the whole-queue LP tier
+
+LP_STEPS = 48                       # lpq_steps()'s default
+LP_LS, LP_NS = (8, 128, 256), (256, 16_384, 65_536)
+LP_TIMED = (128, 16_384)            # the main path's L_pad and N
+LPQ_EVALS, LPQ_PLACE = 128, 8       # bench.py time_lpq's headline batch
+# Floating-point operations the relaxation needs, counted from
+# lp_relax_plain (csrc/lp_relax.cu does the same ones, some twice): each
+# add, sub, mul, div, max, compare and exp one, an fma two.
+#   per (lane, node) and step: price (mul, 2 fma) 5, V - price 1,
+#     / temp 1, row max 1, - max 1, exp 1, row sum 1, / sum 1,
+#     * pcount 1, load (3 fma) 6                                 -> 19
+#   per node and step: mu's three (load - free, * 0.5, max(free, 1),
+#     /, +, max 0) 18
+#   per (lane, node) in the final pass: price 5, V - price 1, * 50 1,
+#     max 1, - max 1, exp 1, sum 1, / sum 1                     -> 12
+LP_CELL_OPS, LP_NODE_OPS, LP_FINAL_OPS = 19, 18, 12
+
+
+def lp_fuzz_inputs(np, rng, L, N, *, over):
+    """Seeded relaxation inputs (V, feas, ask, pcount, free, active),
+    numpy, float32: the last two lanes inactive padding, lane 1 with no
+    feasible node, about a quarter of the nodes with no free cpu, and
+    with ``over`` a queue asking for more than the fleet holds, so the
+    prices rise."""
+    f32 = np.float32
+    nl = L - 2
+    feas = np.zeros((L, N), dtype=bool)
+    feas[:nl] = rng.random((nl, N)) < 0.6
+    feas[1] = False
+    V = np.full((L, N), -1e9, dtype=f32)
+    V[:nl] = np.where(feas[:nl], rng.uniform(-0.5, 1.0, (nl, N)), -1e9)
+    ask = np.zeros((L, 3), dtype=f32)
+    ask[:nl] = rng.choice([250.0, 500.0, 1000.0], (nl, 3))
+    pcount = np.zeros(L, dtype=f32)
+    pcount[:nl] = rng.integers(1, 60 if over else 4, nl)
+    active = np.zeros(L, dtype=bool)
+    active[:nl] = True
+    scale = 0.05 if over else 1.0
+    free = np.stack([rng.choice([0.0, 900.0, 2000.0, 4000.0], N) * scale,
+                     rng.choice([0.0, 1000.0, 4096.0], N) * scale,
+                     rng.choice([0.0, 5000.0], N)], axis=1).astype(f32)
+    return V, feas, ask, pcount, free, active
+
+
+def lp_bound(L, N, steps):
+    """(bound_ms, bound_by, bytes, flops) of one relaxation: every input
+    read once, X and mu written once; the operations above."""
+    nbytes = (L * N * (4 + 1) + L * (12 + 4 + 1) + N * 12 + steps * 4
+              + L * N * 4 + N * 12)
+    flops = (steps * (L * N * LP_CELL_OPS + N * LP_NODE_OPS)
+             + L * N * LP_FINAL_OPS)
+    return bound("lp_relax", nbytes, flops, "float32") + (nbytes, flops)
+
+
+def compare_lp(torch, name, got, want):
+    """X and mu bit for bit."""
+    for tag, g, w in zip(("X", "mu"), got, want):
+        gi, wi = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(gi, wi):
+            bad = (gi != wi).nonzero()[:5].tolist()
+            raise AssertionError(f"{name}: {tag} differs at {bad}")
+    return 0.0
+
+
+def lp_kernel_phase(np, torch, lpq, seed):
+    """lp_relax against lp_relax_plain on the card, X and mu bit for bit,
+    at L_pad in {8, 128, 256} x N in {256, 16,384, 65,536}, 48 steps, on
+    seeded fuzz with and without oversubscription; the kernel timed at
+    the main path's L_pad = 128, N = 16,384."""
+    results = []
+    temps = torch.from_numpy(lpq.lp_temperatures(LP_STEPS)).to(DEVICE)
+    for i, (L, N) in enumerate((L, N) for L in LP_LS for N in LP_NS):
+        for over in (False, True):
+            rng = np.random.default_rng(seed + 40 + 2 * i + over)
+            ins = [torch.from_numpy(a).to(DEVICE)
+                   for a in lp_fuzz_inputs(np, rng, L, N, over=over)]
+            ins.append(temps)
+            got, _ = time_once(torch, lambda: lpq.lp_relax(*ins))
+            want, plain_ms = time_once(torch,
+                                       lambda: lpq.lp_relax_plain(*ins))
+            tag = f"lp_relax L={L} N={N} over={over}"
+            err = compare_lp(torch, tag, got, want)
+            row = dict(name="lp_relax", dtype="float32", shape=[L, N],
+                       over=over, max_abs_err=err, plain_ms=plain_ms,
+                       mu_max=float(want[1].max()))
+            if (L, N) == LP_TIMED and not over:
+                row["ms"] = timed(torch, lambda: lpq.lp_relax(*ins),
+                                  KERNEL_REPEATS)
+                (row["bound_ms"], row["bound_by"], row["bytes"],
+                 row["flops"]) = lp_bound(L, N, LP_STEPS)
+            log(f"kernel {tag}: match=bit-exact mu_max={row['mu_max']:.4g} "
+                f"plain_ms={plain_ms:.1f}"
+                + (f" ms={row['ms']:.4f} bound_ms={row['bound_ms']:.6f} "
+                   f"({row['bound_by']}, {row['bytes']} B, {row['flops']} "
+                   f"flop)" if "ms" in row else ""))
+            results.append(row)
+    return results
+
+
+def lpq_gen1_lanes(np, svc, world):
+    """Generation 1: one task group of 8 mock.job placements for each of
+    the 128 evals, every lane packed from the empty fleet."""
+    matrix, usage, feasible = world
+    return [svc.pack_lane_arrays(
+        matrix, usage, feasible, ask=ASK, count=LPQ_PLACE,
+        n_places=LPQ_PLACE, eval_id=f"lpq-eval-{k:06d}",
+        state_index=STATE_INDEX, device=DEVICE) for k in range(LPQ_EVALS)]
+
+
+def lpq_gen2_lane(np, tp, svc, world, k, lane1, res1):
+    """Generation 2: eval k's second task group, packed with the eval's
+    own first-generation placements in its usage (the plan overlay;
+    other evals' commits reach it through the barrier's ledger). Evals
+    0-125 ask as before (LP lanes); eval 126's group spreads over racks
+    and zones, eval 127's asks for a static port (both LP-ineligible:
+    fuse_and_solve and the cross-lane fixpoint)."""
+    matrix, usage, feasible = world
+    idx, _ = svc.placements(lane1, res1[0])
+    used = [np.array(a, dtype=np.float64)
+            for a in (usage.used_cpu, usage.used_mem, usage.used_disk)]
+    placed_job = np.array(usage.placed_job, copy=True)
+    for n in idx[idx >= 0]:
+        for u, a in zip(used, ASK):
+            u[n] += a
+        placed_job[n] += 1
+    own = tp.UsageState(*used, np.zeros_like(usage.placed_jobtg),
+                        placed_job, usage.dyn_used)
+    kw = {}
+    if k == LPQ_EVALS - 2:
+        kw["spread_info"] = spread_info(np, tp, matrix, LPQ_PLACE)
+    elif k == LPQ_EVALS - 1:
+        kw["static_ports_free"] = np.ones(matrix.n_pad, dtype=bool)
+    return svc.pack_lane_arrays(
+        matrix, own, feasible, ask=ASK, count=LPQ_PLACE,
+        n_places=LPQ_PLACE, eval_id=f"lpq-eval-{k:06d}",
+        state_index=STATE_INDEX, device=DEVICE, **kw)
+
+
+def lpq_slice_phase(np, torch, lpq, kernels, svc, tp, world):
+    """The main path of slice 4 at full width (bench.py time_lpq's
+    shape): 128 evals x 8 placements over the 10,000-node world, driven
+    through LpqBarrier by 128 threads in float32 (one generation, one
+    lp_relax launch at L_pad 128), then each eval's second task group on
+    the same ledger: 126 LP lanes, a spread lane and a static-port lane
+    (fuse_and_solve and the fixpoint)."""
+    matrix = world[0]
+    t0 = time.perf_counter()
+    gen1 = lpq_gen1_lanes(np, svc, world)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    assert all(lpq.lp_lane_eligible(ln) for ln in gen1)
+
+    # record each dispatch the barrier makes: its lanes in arrival order,
+    # its results and its lp_relax launches
+    calls = []
+    real_solve = lpq.solve_queue
+
+    def recording(lanes, ledger, device=None):
+        n0 = kernels.LP_RELAX.launches
+        res = real_solve(lanes, ledger, device=device)
+        calls.append((list(lanes), res, kernels.LP_RELAX.launches - n0))
+        return res
+
+    barrier = lpq.LpqBarrier(LPQ_EVALS, device=DEVICE)
+    out = [None] * LPQ_EVALS
+
+    def work(k):
+        try:
+            res1 = barrier.solve(gen1[k])
+            lane2 = lpq_gen2_lane(np, tp, svc, world, k, gen1[k], res1)
+            out[k] = (res1, lane2, barrier.solve(lane2))
+        except Exception as e:  # noqa: BLE001 -- re-raised below
+            out[k] = e
+        finally:
+            barrier.done()
+
+    threads = [threading.Thread(target=work, args=(k,))
+               for k in range(LPQ_EVALS)]
+    lpq.solve_queue = recording
+    try:
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        run_ms = (time.perf_counter() - t1) * 1e3
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+    finally:
+        lpq.solve_queue = real_solve
+    stats = lpq.lpq_stats()
+    for r in out:
+        if isinstance(r, Exception):
+            raise r
+    log(f"lpq slice launches: {launches}; per dispatch: "
+        f"{[(len(c[0]), c[2]) for c in calls]}")
+    assert [(len(c[0]), c[2]) for c in calls] == [(LPQ_EVALS, 1)] * 2
+    assert launches["lp_relax"] == 2, launches
+    gen2 = calls[1][0]
+    assert sum(lpq.lp_lane_eligible(ln) for ln in gen2) == LPQ_EVALS - 2
+
+    # every placement made, and no node over capacity across both
+    # generations
+    used = np.zeros((3, matrix.n_pad))
+    total = 0
+    for lanes, res, _ in calls:
+        for lane, (ch, sc, ny) in zip(lanes, res):
+            assert ch.dtype == np.int64 and ny.dtype == np.int64
+            assert bool((ch >= 0).all()), "a placement was not made"
+            assert bool(np.all(np.isfinite(sc)))
+            idx, _ = svc.placements(lane, ch)
+            for r, a in enumerate(ASK):
+                np.add.at(used[r], idx, a)
+            total += ch.shape[0]
+    assert total == 2 * LPQ_EVALS * LPQ_PLACE, total
+    caps = (matrix.cpu_cap, matrix.mem_cap, matrix.disk_cap)
+    for r, cap in enumerate(caps):
+        assert bool(np.all(used[r] <= cap)), "a node is over capacity"
+    nodes_used = int((used[0] > 0).sum())
+
+    # a rerun of both dispatches with the plain LP on the card, same
+    # lanes in the same order, fresh ledger: the same results and ledger
+    lpq.lp_relax, real_relax = lpq.lp_relax_plain, lpq.lp_relax
+    try:
+        ledger = {}
+        for lanes, res, _ in calls:
+            want = lpq.solve_queue(lanes, ledger, device=DEVICE)
+            for j, (g, w) in enumerate(zip(res, want)):
+                for a, b in zip(g, w):
+                    if not np.array_equal(a, b):
+                        raise AssertionError(
+                            f"lpq slice lane {j}: differs from the plain "
+                            "LP's rerun")
+    finally:
+        lpq.lp_relax = real_relax
+    assert ledger == barrier._ledger, "ledger differs from the plain rerun"
+
+    # the kernel on the main path's own relaxation inputs (the first
+    # generation's), against one call of the plain version
+    seen = []
+
+    def keep(*a):
+        seen.append(a)
+        return real_relax(*a)
+
+    lpq.lp_relax = keep
+    try:
+        lpq._solve_lp_group(gen1, {}, device=DEVICE)
+    finally:
+        lpq.lp_relax = real_relax
+    ins = seen[0]
+    L, N = ins[0].shape
+    got, _ = time_once(torch, lambda: lpq.lp_relax(*ins))
+    want, plain_ms = time_once(torch, lambda: lpq.lp_relax_plain(*ins))
+    compare_lp(torch, "lp_relax main path", got, want)
+    ms = timed(torch, lambda: lpq.lp_relax(*ins), KERNEL_REPEATS)
+    bnd = lp_bound(L, N, ins[6].shape[0])
+    kern = dict(shape=[L, N], ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], bytes=bnd[2], flops=bnd[3])
+    log(f"kernel lp_relax float32 main path: L={L} N={N} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.1f} bound_ms={bnd[0]:.6f} ({bnd[1]}, "
+        f"{bnd[2]} B, {bnd[3]} flop)")
+
+    # warm time of the first generation's dispatch (solve_queue, fresh
+    # ledger), host clock, and where it goes: the phases of
+    # _solve_lp_group (views and values; the LP: inputs to the card,
+    # kernel, fetch; rounding and repair; quality comparison; score
+    # follow), medians of 5
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        lpq.solve_queue(gen1, {}, device=DEVICE)
+        times.append((time.perf_counter() - t1) * 1e3)
+    solve_ms = statistics.median(times)
+    runs = []
+    for _ in range(5):
+        t = {}
+        lpq._solve_lp_group(gen1, {}, device=DEVICE, timings=t)
+        runs.append(t)
+    parts = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    placed = LPQ_EVALS * LPQ_PLACE
+    log(f"lpq slice: {LPQ_EVALS} evals x {LPQ_PLACE} placements x "
+        f"{N_NODES} nodes, two generations through LpqBarrier: all "
+        f"{total} placed on {nodes_used} nodes, no node over capacity, "
+        f"equal to the plain LP's rerun; barrier run {run_ms:.1f} ms; "
+        f"pack_ms={pack_ms:.1f} (generation 1) solve_queue_ms={solve_ms:.2f}"
+        f" placements_per_s={placed / (solve_ms / 1e3):.0f}; breakdown ms: "
+        + " ".join(f"{k}={v:.2f}" for k, v in parts.items()))
+    log(f"lpq_stats: {json.dumps(stats)}")
+    return dict(launches=launches, solve_queue_ms=solve_ms,
+                solve_queue_ms_all=times, breakdown_ms=parts,
+                pack_ms=pack_ms, barrier_run_ms=run_ms, placements=total,
+                nodes_used=nodes_used, stats=stats, kernel=kern,
+                placements_per_s=placed / (solve_ms / 1e3))
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1824,7 +2137,7 @@ def main(argv=None) -> int:
 
     from nomad_tpu_torch import kernels
     from nomad_tpu_torch.solver import batch, dense, service as svc, system
-    from nomad_tpu_torch.solver import binpack as bp, preempt, wave
+    from nomad_tpu_torch.solver import binpack as bp, lpq, preempt, wave
     from nomad_tpu_torch.tensor import pack as tp
 
     t_start = time.perf_counter()
@@ -1850,12 +2163,14 @@ def main(argv=None) -> int:
                                 args.seed)
     kres += preempt_kernel_phase(np, torch, bp, preempt, dense, svc, tp,
                                  world, args.seed)
+    kres += lp_kernel_phase(np, torch, lpq, args.seed)
     sres = slice_phase(np, torch, wave, kernels, svc, batch, tp, world)
     dres = dense_slice_phase(np, torch, dense, kernels, svc, batch, tp,
                              world)
     yres = system_phase(np, torch, system, kernels, svc, world, args.seed)
     pres = preempt_slice_phase(np, torch, preempt, dense, kernels, svc,
                                batch, tp, world)
+    qres = lpq_slice_phase(np, torch, lpq, kernels, svc, tp, world)
 
     def pick(kname, **kw):
         return next(r for r in kres if r["name"] == kname
@@ -1870,7 +2185,8 @@ def main(argv=None) -> int:
             (kernels.DENSE_SCAN, dres["kernel"], dres),
             (kernels.SYSTEM_FIT, pick("system_fit", world="system"), yres),
             (kernels.WAVE_PREEMPT, pres["kernels"]["wave_preempt"], pres),
-            (kernels.DENSE_PREEMPT, pres["kernels"]["dense_preempt"], pres))
+            (kernels.DENSE_PREEMPT, pres["kernels"]["dense_preempt"], pres),
+            (kernels.LP_RELAX, qres["kernel"], qres))
     line = {"kernels": []}
     for k, r, path in rows:
         line["kernels"].append(dict(
@@ -1885,7 +2201,7 @@ def main(argv=None) -> int:
             shape=" ".join(str(x) for x in r["shape"]) + " float32"))
     report = dict(card=card, device=name, seed=args.seed, kernels=kres,
                   slice=sres, dense_slice=dres, system=yres,
-                  preempt_slice=pres,
+                  preempt_slice=pres, lpq_slice=qres,
                   build_s=info["seconds"],
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")

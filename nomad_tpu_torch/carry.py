@@ -38,11 +38,15 @@ def lane_from_reference(const, init, batch, order, *,
                         dtype_name: Optional[str] = None,
                         spread_alg: bool = False,
                         node_ids: Optional[Sequence[str]] = None,
-                        ptab=None, pinit=None,
+                        ptab=None, pinit=None, matrix=None,
+                        plan_priority: int = 50,
+                        plan_has_stops: bool = False,
                         device: DeviceLike = None) -> PackedLane:
     """The port's PackedLane for a reference lane's tables; a preemption
-    lane passes its ``ptab`` and ``pinit`` too. ``dtype_name`` defaults
-    by ``device`` (float64 on the CPU, float32 on the card)."""
+    lane passes its ``ptab`` and ``pinit`` too. ``matrix`` (a port
+    NodeMatrix), ``plan_priority`` and ``plan_has_stops`` carry what the
+    LP tier and the cross-lane fixpoint read. ``dtype_name`` defaults by
+    ``device`` (float64 on the CPU, float32 on the card)."""
     dtype_name = default_dtype_name(device, dtype_name)
     dt = np.dtype(dtype_name)
     return PackedLane(
@@ -51,4 +55,6 @@ def lane_from_reference(const, init, batch, order, *,
         _read(PlacementBatch, batch, dt), dtype_name, bool(spread_alg),
         node_ids=node_ids,
         ptab=None if ptab is None else _read(PreemptTables, ptab, dt),
-        pinit=None if pinit is None else _read(PreemptState, pinit, dt))
+        pinit=None if pinit is None else _read(PreemptState, pinit, dt),
+        matrix=matrix, plan_priority=plan_priority,
+        plan_has_stops=plan_has_stops)

@@ -123,8 +123,16 @@ DENSE_PREEMPT = Kernel(
     {torch.float32: "nt_dense_preempt_f32",
      torch.float64: "nt_dense_preempt_f64"})
 
+# The reference's LP is float32 on every backend (lpq.py builds its
+# inputs and its dual prices in float32 whatever the lane dtype), so this
+# kernel has a float32 build only.
+LP_RELAX = Kernel(
+    "lp_relax", "lp_relax.cu",
+    "nomad_tpu/solver/lpq.py:215 _lp_solve_body",
+    {torch.float32: "nt_lp_relax_f32"})
+
 KERNELS = (WAVE_BLOCK, WAVE_COMPACT, DENSE_SCAN, SYSTEM_FIT, WAVE_PREEMPT,
-           DENSE_PREEMPT)
+           DENSE_PREEMPT, LP_RELAX)
 
 
 def reset_launches() -> None:

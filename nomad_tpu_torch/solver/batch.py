@@ -9,11 +9,18 @@ lanes take the windowed or the dense preemption kernel, by the same
 gate. Padding lanes
 copy lane 0 with ``active`` all False and place nothing. Dense groups
 keep the tight E bucket, as in the reference: a padding lane costs the
-dense scan O(N * P). The barrier, the dispatch pipeline and the stack
-arena of the reference come with later slices.
+dense scan O(N * P). ``_cross_lane_fixpoint`` settles conflicts between
+the lanes of one generation against a node-id-keyed capacity ledger (the
+LP tier runs it after its greedy dispatch). The solve barrier, the
+dispatch pipeline and the stack arena of the reference come with later
+slices.
+
+Knob (read at each use):
+  NOMAD_TPU_TORCH_BATCH_FIXPOINT   0 turns the cross-lane fixpoint off
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List
 
 import numpy as np
@@ -144,3 +151,154 @@ def fuse_and_solve(lanes: List[PackedLane], device: DeviceLike = None
     ``e_pad_hint``) comes with the solve barrier that sets it."""
     dev = resolve_device(device)
     return solve_groups(lanes, fuse_lanes(lanes), device=dev)
+
+
+def _cross_lane_fixpoint(lanes: List[PackedLane], results: List,
+                         ledger: Dict[str, list],
+                         device: DeviceLike = None) -> None:
+    """Resolve conflicts between the lanes of one generation before their
+    plans are submitted: walk lanes in plan-priority order (ties in input
+    order), charge each placement against the shared per-node ledger
+    (node id -> [free cpu, mem, disk, dynamic ports], persisting across a
+    batch's generations), and re-solve only the overflowing placements
+    of wave lanes against the accumulated usage, on ``device``.
+
+    Lanes the wave kernel cannot re-solve (preemption tables, static
+    ports, a plan that already stops or preempts allocs, lanes the wave
+    gate refuses) only consume ledger capacity; their conflicts are left
+    to the plan applier. ``results`` is edited in place."""
+    if os.environ.get("NOMAD_TPU_TORCH_BATCH_FIXPOINT", "1") == "0":
+        return
+    if len(lanes) < 2 and not ledger:
+        return
+
+    order_idx = sorted(range(len(lanes)),
+                       key=lambda i: (-lanes[i].plan_priority, i))
+
+    def charge(lane, free, pi):
+        """Charge placement pi to the ledger entry ``free`` if it fits."""
+        b = lane.batch
+        need = (float(b.ask_cpu[pi]), float(b.ask_mem[pi]),
+                float(b.ask_disk[pi]), int(b.n_dyn_ports[pi]))
+        if (free[0] >= need[0] and free[1] >= need[1]
+                and free[2] >= need[2] and free[3] >= need[3]):
+            free[0] -= need[0]
+            free[1] -= need[1]
+            free[2] -= need[2]
+            free[3] -= need[3]
+            return True
+        return False
+
+    def entry(lane, pos, nid):
+        f = ledger.get(nid)
+        if f is None:
+            c, s = lane.const, lane.init
+            f = [float(c.cpu_cap[pos]) - float(s.used_cpu[pos]),
+                 float(c.mem_cap[pos]) - float(s.used_mem[pos]),
+                 float(c.disk_cap[pos]) - float(s.used_disk[pos]),
+                 int(s.dyn_avail[pos])]
+            ledger[nid] = f
+        return f
+
+    for i in order_idx:
+        lane, res = lanes[i], results[i]
+        if res is None:
+            continue
+        chosen = res[0]
+        active = np.asarray(lane.batch.active)
+        # consumer-only lanes are never re-solved: preemption tables and
+        # static ports need the applier's exact checks, and a plan that
+        # stops or preempts allocs frees capacity only if it commits
+        resolvable = (lane.ptab is None and lane.wavefront_ok()
+                      and not bool(np.asarray(lane.batch.has_static)[:1]
+                                   .any())
+                      and not lane.plan_has_stops)
+        order = np.asarray(lane.order)
+        conflicted: List[int] = []
+        accepted_own: List[int] = []
+        for pi in range(chosen.shape[0]):
+            pos = int(chosen[pi])
+            if pos < 0 or pos >= order.shape[0] or not active[pi]:
+                continue
+            nid = lane.node_ids[order[pos]]
+            if charge(lane, entry(lane, pos, nid), pi):
+                accepted_own.append(pos)
+            elif resolvable:
+                conflicted.append(pi)
+            # else: left for the applier; its capacity is not charged
+        if conflicted:
+            results[i] = _resolve_lane_conflicts(
+                lane, res, conflicted, accepted_own, ledger, entry, charge,
+                device)
+
+
+def _resolve_lane_conflicts(lane, res, conflicted, accepted_own, ledger,
+                            entry, charge, device):
+    """Re-solve ``conflicted`` placements of one wave lane against the
+    ledger's accumulated usage; returns the merged result tuple."""
+    chosen = np.array(res[0], copy=True)
+    scores = np.array(res[1], copy=True)
+    n_yielded = np.array(res[2], copy=True)
+    const, init = lane.const, lane.init
+    order = np.asarray(lane.order)
+    n = order.shape[0]
+    pos_of = {lane.node_ids[order[p]]: p for p in range(n)}
+
+    used_cpu = np.array(init.used_cpu, copy=True)
+    used_mem = np.array(init.used_mem, copy=True)
+    used_disk = np.array(init.used_disk, copy=True)
+    dyn_avail = np.array(init.dyn_avail, copy=True)
+    for nid, f in ledger.items():
+        p = pos_of.get(nid)
+        if p is None:
+            continue
+        # this lane's view of the node from the joint ledger (caps are
+        # the same in every lane, so cap - free is the joint usage)
+        used_cpu[p] = float(const.cpu_cap[p]) - f[0]
+        used_mem[p] = float(const.mem_cap[p]) - f[1]
+        used_disk[p] = float(const.disk_cap[p]) - f[2]
+        dyn_avail[p] = f[3]
+    placed = np.array(init.placed, copy=True)
+    placed_job = np.array(init.placed_job, copy=True)
+    spread_counts = np.array(init.spread_counts, copy=True)
+    S = spread_counts.shape[0] if spread_counts.ndim else 0
+    for pos in accepted_own:
+        placed[pos] += 1
+        placed_job[pos] += 1
+        for s in range(S):
+            v = int(const.spread_vidx[s, pos])
+            if v >= 0:
+                spread_counts[s, v] += 1
+    new_init = init._replace(
+        used_cpu=used_cpu, used_mem=used_mem, used_disk=used_disk,
+        dyn_avail=dyn_avail, placed=placed, placed_job=placed_job,
+        spread_counts=spread_counts)
+
+    idx = np.asarray(conflicted, dtype=np.int64)
+    sub_batch = type(lane.batch)(*(
+        np.asarray(a)[idx] if np.asarray(a).shape[:1] == (chosen.shape[0],)
+        else np.asarray(a) for a in lane.batch))
+
+    def one(tree):
+        return type(tree)(*(np.asarray(a)[None] for a in tree))
+
+    c2, s2, y2 = solve_lane_fused(
+        one(const), one(new_init), one(sub_batch),
+        spread_alg=lane.spread_alg, dtype_name=lane.dtype_name, wave=True,
+        device=device)
+    # merge only successful re-solves: a -1 means the ledger saw no
+    # capacity, but the ledger can be pessimistic (a consumer-only lane's
+    # charge is never refunded), so keep the original choice and let the
+    # applier decide
+    for k, pi in enumerate(conflicted):
+        pos = int(c2[0, k])
+        if pos < 0:
+            continue
+        chosen[pi] = pos
+        scores[pi] = s2[0, k]
+        n_yielded[pi] = y2[0, k]
+        # charge the fresh choice (solved against the ledger's usage, so
+        # it fits; charging records it for later lanes)
+        nid = lane.node_ids[order[pos]]
+        charge(lane, entry(lane, pos, nid), pi)
+    return (chosen, scores, n_yielded)

@@ -33,15 +33,21 @@ class PackedLane:
     fuse_and_solve fuses across evals. Holds the numpy tables (shuffled
     node order), a preemption lane's candidate tables (``ptab``) and
     carried state (``pinit``), and what placements() needs to map
-    results back."""
+    results back. ``matrix`` is the NodeMatrix the lane was packed from:
+    its identity is the node universe the LP tier groups lanes by.
+    ``plan_priority`` and ``plan_has_stops`` are the two facts of the
+    eval's plan the cross-lane fixpoint reads: its priority, and whether
+    it already stops or preempts allocs."""
 
     __slots__ = ("order", "const", "init", "batch", "dtype_name",
-                 "spread_alg", "node_ids", "ptab", "pinit", "_wave")
+                 "spread_alg", "node_ids", "ptab", "pinit", "matrix",
+                 "plan_priority", "plan_has_stops", "_wave")
 
     def __init__(self, order, const, init, batch, dtype_name: str,
                  spread_alg: bool, node_ids: Optional[Sequence[str]] = None,
                  ptab: Optional[PreemptTables] = None,
-                 pinit: Optional[PreemptState] = None):
+                 pinit: Optional[PreemptState] = None, matrix=None,
+                 plan_priority: int = 50, plan_has_stops: bool = False):
         if (ptab is None) != (pinit is None):
             raise ValueError("a preemption lane needs both ptab and pinit")
         self.order = order
@@ -53,6 +59,9 @@ class PackedLane:
         self.node_ids = node_ids
         self.ptab = ptab
         self.pinit = pinit
+        self.matrix = matrix
+        self.plan_priority = int(plan_priority)
+        self.plan_has_stops = bool(plan_has_stops)
         self._wave = None
 
     def wavefront_ok(self) -> bool:
@@ -180,6 +189,8 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
                      n_dyn_ports: int = 0,
                      preemption=None,
                      spread_alg: bool = False,
+                     plan_priority: int = 50,
+                     plan_has_stops: bool = False,
                      dtype_name: Optional[str] = None,
                      device: DeviceLike = None) -> PackedLane:
     """Build one service-eval lane from node-axis arrays (original node
@@ -197,8 +208,11 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
     ``preemption`` (PreemptInfo, candidates in original node order) makes
     a preemption lane: its tables are shuffled with the nodes. Preemption
     lanes ask for no ports and no reserved cores (the reference routes
-    those to its host iterator). ``dtype_name`` defaults by ``device``:
-    float64 on the CPU, float32 on the card."""
+    those to its host iterator). ``plan_priority`` (the eval's plan
+    priority, the job's) and ``plan_has_stops`` (the plan already stops
+    or preempts allocs) are what the cross-lane fixpoint reads.
+    ``dtype_name`` defaults by ``device``: float64 on the CPU, float32 on
+    the card."""
     dtype_name = default_dtype_name(device, dtype_name)
     dtype = np.dtype(dtype_name).type
     n = matrix.n_real
@@ -260,7 +274,9 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
                              "reserved cores")
         ptab, pinit = _preempt_tables(preemption, perm, dtype)
     return PackedLane(order, const, init, batch, dtype_name, spread_alg,
-                      node_ids=matrix.node_ids, ptab=ptab, pinit=pinit)
+                      node_ids=matrix.node_ids, ptab=ptab, pinit=pinit,
+                      matrix=matrix, plan_priority=plan_priority,
+                      plan_has_stops=plan_has_stops)
 
 
 def _preempt_tables(info, perm, dtype):
