@@ -1888,35 +1888,35 @@ def compare_lp(torch, name, got, want):
 def lp_kernel_phase(np, torch, lpq, seed):
     """lp_relax against lp_relax_plain on the card, X and mu bit for bit,
     at L_pad in {8, 128, 256} x N in {256, 16,384, 65,536}, 48 steps, on
-    seeded fuzz with and without oversubscription; the kernel timed at
-    the main path's L_pad = 128, N = 16,384."""
+    seeded fuzz, oversubscribed at every other shape (so at every L_pad
+    and every N); the kernel timed at the main path's L_pad = 128,
+    N = 16,384."""
     results = []
     temps = torch.from_numpy(lpq.lp_temperatures(LP_STEPS)).to(DEVICE)
     for i, (L, N) in enumerate((L, N) for L in LP_LS for N in LP_NS):
-        for over in (False, True):
-            rng = np.random.default_rng(seed + 40 + 2 * i + over)
-            ins = [torch.from_numpy(a).to(DEVICE)
-                   for a in lp_fuzz_inputs(np, rng, L, N, over=over)]
-            ins.append(temps)
-            got, _ = time_once(torch, lambda: lpq.lp_relax(*ins))
-            want, plain_ms = time_once(torch,
-                                       lambda: lpq.lp_relax_plain(*ins))
-            tag = f"lp_relax L={L} N={N} over={over}"
-            err = compare_lp(torch, tag, got, want)
-            row = dict(name="lp_relax", dtype="float32", shape=[L, N],
-                       over=over, max_abs_err=err, plain_ms=plain_ms,
-                       mu_max=float(want[1].max()))
-            if (L, N) == LP_TIMED and not over:
-                row["ms"] = timed(torch, lambda: lpq.lp_relax(*ins),
-                                  KERNEL_REPEATS)
-                (row["bound_ms"], row["bound_by"], row["bytes"],
-                 row["flops"]) = lp_bound(L, N, LP_STEPS)
-            log(f"kernel {tag}: match=bit-exact mu_max={row['mu_max']:.4g} "
-                f"plain_ms={plain_ms:.1f}"
-                + (f" ms={row['ms']:.4f} bound_ms={row['bound_ms']:.6f} "
-                   f"({row['bound_by']}, {row['bytes']} B, {row['flops']} "
-                   f"flop)" if "ms" in row else ""))
-            results.append(row)
+        over = bool(i % 2)
+        rng = np.random.default_rng(seed + 40 + i)
+        ins = [torch.from_numpy(a).to(DEVICE)
+               for a in lp_fuzz_inputs(np, rng, L, N, over=over)]
+        ins.append(temps)
+        got, _ = time_once(torch, lambda: lpq.lp_relax(*ins))
+        want, plain_ms = time_once(torch, lambda: lpq.lp_relax_plain(*ins))
+        tag = f"lp_relax L={L} N={N} over={over}"
+        err = compare_lp(torch, tag, got, want)
+        row = dict(name="lp_relax", dtype="float32", shape=[L, N],
+                   over=over, max_abs_err=err, plain_ms=plain_ms,
+                   mu_max=float(want[1].max()))
+        if (L, N) == LP_TIMED:
+            row["ms"] = timed(torch, lambda: lpq.lp_relax(*ins),
+                              KERNEL_REPEATS)
+            (row["bound_ms"], row["bound_by"], row["bytes"],
+             row["flops"]) = lp_bound(L, N, LP_STEPS)
+        log(f"kernel {tag}: match=bit-exact mu_max={row['mu_max']:.4g} "
+            f"plain_ms={plain_ms:.1f}"
+            + (f" ms={row['ms']:.4f} bound_ms={row['bound_ms']:.6f} "
+               f"({row['bound_by']}, {row['bytes']} B, {row['flops']} "
+               f"flop)" if "ms" in row else ""))
+        results.append(row)
     return results
 
 
@@ -2087,15 +2087,15 @@ def lpq_slice_phase(np, torch, lpq, kernels, svc, tp, world):
     # ledger), host clock, and where it goes: the phases of
     # _solve_lp_group (views and values; the LP: inputs to the card,
     # kernel, fetch; rounding and repair; quality comparison; score
-    # follow), medians of 5
+    # follow), medians of 3
     times = []
-    for _ in range(5):
+    for _ in range(3):
         t1 = time.perf_counter()
         lpq.solve_queue(gen1, {}, device=DEVICE)
         times.append((time.perf_counter() - t1) * 1e3)
     solve_ms = statistics.median(times)
     runs = []
-    for _ in range(5):
+    for _ in range(3):
         t = {}
         lpq._solve_lp_group(gen1, {}, device=DEVICE, timings=t)
         runs.append(t)

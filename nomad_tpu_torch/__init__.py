@@ -4,9 +4,10 @@ The JAX package ``nomad_tpu`` is the reference; this package reproduces its
 device path on an NVIDIA H100 and imports nothing from it (nor ``jax``).
 Slice 1 covers the wavefront placement path, slice 2 the dense greedy path
 (the lanes the wave gate refuses) and system jobs, slice 3 placement with
-preemption (windowed and dense eviction search): a lane's packed arrays
-go in, the chosen node per placement (and, with preemption, the allocs it
-evicts) comes out.
+preemption (windowed and dense eviction search), slice 4 the whole-queue
+LP tier and the cross-lane fixpoint: a lane's packed arrays go in, the
+chosen node per placement (and, with preemption, the allocs it evicts)
+comes out.
 
     scheduler/util.py   deterministic node shuffle (splitmix64 Fisher-Yates)
     tensor/pack.py      NodeMatrix / UsageState / SpreadInfo / distinct
@@ -20,7 +21,10 @@ evicts) comes out.
                         wrappers, and their lane solves
     solver/service.py   PackedLane, pack_lane_arrays, placements,
                         evictions, solve_system_arrays
-    solver/batch.py     fuse_lanes / fuse_and_solve across evals
+    solver/batch.py     fuse_lanes / fuse_and_solve across evals, the
+                        cross-lane fixpoint
+    solver/lpq.py       the LP relaxation's plain version and wrapper,
+                        rounding and repair, solve_queue, LpqBarrier
     kernels.py          nvcc build, ctypes binding, launch counts
     carry.py            lane_from_reference: reference lane tables -> PackedLane
     csrc/               the hand-written CUDA kernels (sm_90a)

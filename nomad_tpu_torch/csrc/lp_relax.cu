@@ -26,15 +26,18 @@
 //   (b) lp_node_step, one thread per node: for each lane in order,
 //       recompute X[l, n] with the ops of (a), accumulate its load, then
 //       update its own mu (no other thread touches it).
-// A final (a) at temp 0.02 and lp_write_x write X. With the init pass
-// that is 2 * steps + 2 kernels per call, counted as one launch.
+// A final (a) at temp 0.02 and lp_write_x write X. With lp_init (the
+// lanes' any-feasible flags, mu = 0) that is 2 * steps + 3 kernels per
+// call, counted as one launch.
 //
-// Bound: each pass reads V (4 B) and feas (1 B) per (lane, node), which
-// stay in the 50 MB L2 at the headline shape (L 128, N 16,384: 10.5 MB),
-// and does ~30 floating-point operations per (lane, node); the card's
-// floor is the operations (~6e3 per node and step at L = 128). The
-// launches, ~100 dependent ones, and the one block per lane of (a) are
-// what this simple first version pays for.
+// Bound: the function needs ~19 floating-point operations per (lane,
+// node) and step (chip_smoke.py LP_CELL_OPS), against ~5 bytes per (lane,
+// node) read once, so the operations bound it; V (4 B) and feas (1 B),
+// which every pass reads again, stay in the 50 MB L2 at the headline
+// shape (L 128, N 16,384: 10.5 MB). What this simple first version pays
+// for instead: ~100 dependent launches, the logits computed three times
+// a step, one block per lane in (a) and a loop of dependent L2 loads per
+// thread in (b).
 #include <cuda_runtime.h>
 #include <math.h>
 

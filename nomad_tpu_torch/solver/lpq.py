@@ -283,12 +283,15 @@ def lp_relax_plain(V, feas, ask, pcount, free, active, temps
     return _x_at(V, feas, any_f, live, ask, mu), mu
 
 
-def lp_check(V, feas, ask, pcount, free, active, temps) -> Tuple[int, int]:
+def _lp_check(V, feas, ask, pcount, free, active, temps) -> Tuple[int, int]:
     """Check the relaxation's inputs; returns (L, N). L is a lane bucket
     (_l_bucket's), N a power of two from 64 to N_MAX, every tensor
     float32 (bool masks) and on one device."""
     if not isinstance(V, torch.Tensor) or V.dim() != 2:
         raise ValueError("V must be an (L, N) torch.Tensor")
+    if not isinstance(temps, torch.Tensor) or temps.dim() != 1 \
+            or temps.shape[0] < 1:
+        raise ValueError("temps must be a non-empty (steps,) torch.Tensor")
     dev = V.device
     L, N = V.shape
     if _l_bucket(L) != L:
@@ -314,17 +317,15 @@ def lp_check(V, feas, ask, pcount, free, active, temps) -> Tuple[int, int]:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-    if temps.shape[0] < 1:
-        raise ValueError("temps is empty")
     return L, N
 
 
 def lp_relax(V, feas, ask, pcount, free, active, temps
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The LP relaxation on the inputs' device: the plain version for CPU
-    tensors, the lp_relax kernel (one launch: 2 * steps + 1 passes) for
-    CUDA tensors. Returns (X (L, N), mu (N, 3)) float32."""
-    L, N = lp_check(V, feas, ask, pcount, free, active, temps)
+    tensors, the lp_relax kernel (one launch: 2 * steps + 3 passes on the
+    current stream) for CUDA tensors. Returns (X (L, N), mu (N, 3)) float32."""
+    L, N = _lp_check(V, feas, ask, pcount, free, active, temps)
     dev = V.device
     if dev.type == "cpu":
         return lp_relax_plain(V, feas, ask, pcount, free, active, temps)

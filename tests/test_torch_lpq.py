@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from nomad_tpu import mock
 from nomad_tpu.scheduler import Harness
 from nomad_tpu.scheduler.context import EvalContext
@@ -48,9 +49,6 @@ from nomad_tpu_torch.tensor.pack import NodeMatrix, PreemptInfo, UsageState
 # run already keeps one xdist worker busy per core.
 torch.set_num_threads(1)
 
-F32 = np.float32
-
-
 @pytest.fixture(autouse=True)
 def single_device_reference(monkeypatch):
     monkeypatch.setenv("NOMAD_TPU_MESH", "0")
@@ -65,27 +63,12 @@ def single_device_reference(monkeypatch):
 # 1. the relaxation: plain version vs the JAX program
 
 def _lp_case(seed, L, N, *, over):
-    """Seeded LP inputs: the last two lanes are inactive padding, lane 1
-    has no feasible node, ~1/4 of the nodes have zero free cpu, and
-    ``over`` asks for more than the fleet holds so the prices rise."""
-    rng = np.random.default_rng(seed)
-    nl = L - 2
-    feas = np.zeros((L, N), dtype=bool)
-    feas[:nl] = rng.random((nl, N)) < 0.6
-    feas[1] = False
-    V = np.full((L, N), -1e9, dtype=F32)
-    V[:nl] = np.where(feas[:nl], rng.uniform(-0.5, 1.0, (nl, N)), -1e9)
-    ask = np.zeros((L, 3), dtype=F32)
-    ask[:nl] = rng.choice([250.0, 500.0, 1000.0], (nl, 3))
-    pcount = np.zeros(L, dtype=F32)
-    pcount[:nl] = rng.integers(1, 60 if over else 4, nl)
-    active = np.zeros(L, dtype=bool)
-    active[:nl] = True
-    scale = 0.05 if over else 1.0
-    free = np.stack([rng.choice([0.0, 900.0, 2000.0, 4000.0], N) * scale,
-                     rng.choice([0.0, 1000.0, 4096.0], N) * scale,
-                     rng.choice([0.0, 5000.0], N)], axis=1).astype(F32)
-    return V, feas, ask, pcount, free, active
+    """chip_smoke's generator (the inputs the kernel is held to on the
+    card): the last two lanes inactive padding, lane 1 with no feasible
+    node, nodes with no free cpu, and with ``over`` a queue asking for
+    more than the fleet holds, so the prices rise."""
+    return chip_smoke.lp_fuzz_inputs(np, np.random.default_rng(seed), L, N,
+                                     over=over)
 
 
 @pytest.mark.parametrize("steps", [4, 48])

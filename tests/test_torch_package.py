@@ -52,6 +52,34 @@ def test_preempt_module_loads_no_jax_and_nothing_of_the_reference():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_lpq_module_loads_no_jax_and_nothing_of_the_reference():
+    code = (
+        "import sys\n"
+        "import nomad_tpu_torch.solver.lpq\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_every_port_env_knob_is_documented():
+    """Each NOMAD_TPU_TORCH_* variable the port reads is named in the
+    README's port section."""
+    import re
+    readme = (ROOT / "README.md").read_text()
+    knobs = set()
+    for path in list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        knobs |= set(re.findall(r"NOMAD_TPU_TORCH_[A-Z0-9_]+",
+                                path.read_text()))
+    assert {"NOMAD_TPU_TORCH_LPQ_STEPS", "NOMAD_TPU_TORCH_LPQ_COMPARE",
+            "NOMAD_TPU_TORCH_BATCH_FIXPOINT"} <= knobs
+    missing = sorted(k for k in knobs if k not in readme)
+    assert not missing, missing
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -161,20 +189,31 @@ def test_non_wave_groups_take_dense_and_preempt_solves():
 
 
 def test_every_kernel_is_registered_with_its_source_and_reference():
-    """The six ported kernels, each built from its own csrc/ source that
-    names the TPU program it replaces."""
+    """The seven ported kernels, each built from its own csrc/ source that
+    names the TPU program it replaces and exports its entry points. The
+    LP relaxation is float32 only, as the reference's LP is on every
+    backend; the others take both dtypes."""
     names = {k.name: k for k in kernels.KERNELS}
     assert set(names) == {"wave_block", "wave_compact", "dense_scan",
-                          "system_fit", "wave_preempt", "dense_preempt"}
+                          "system_fit", "wave_preempt", "dense_preempt",
+                          "lp_relax"}
     for k in kernels.KERNELS:
         src = (kernels.CSRC / k.source).read_text()
         func = k.replaces.split()[-1]
         assert func in src, (k.name, func)
-        assert set(k.symbols) == {torch.float32, torch.float64}
+        want = ({torch.float32} if k is kernels.LP_RELAX
+                else {torch.float32, torch.float64})
+        assert set(k.symbols) == want
+        for sym in k.symbols.values():
+            assert f'extern "C" int {sym}(' in src, sym
     assert names["dense_scan"].replaces.startswith(
         "nomad_tpu/solver/binpack.py:652 ")
     assert names["system_fit"].replaces.startswith(
         "nomad_tpu/solver/binpack.py:1341 ")
+    assert kernels.LP_RELAX.replaces == (
+        "nomad_tpu/solver/lpq.py:215 _lp_solve_body")
+    with pytest.raises(TypeError, match="no kernel"):
+        kernels.LP_RELAX.launch(torch.float64, [torch.zeros(1)], [])
 
 
 def test_slice2_entry_points_default_to_cuda():
