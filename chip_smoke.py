@@ -39,6 +39,11 @@ Phases (any failure raises and the script exits nonzero with no result):
                   48 steps, on seeded fuzz with and without
                   oversubscription: X and mu bit for bit; timed at
                   L_pad 128, N 16,384;
+                - delta_scatter as bytes (no float compare) over bool,
+                  float32 and float64 tables from 4 KiB to the dense
+                  headline's largest stacked table (8 MiB) and update
+                  buckets from 8 to 65,536, with duplicate padding,
+                  -0.0, infinities and NaN payloads; its base untouched;
   4. slice   -- the wave main path: 10,000 nodes (bench.py's world), 32
                 evals x 2,000 placements packed with pack_lane_arrays and
                 solved by fuse_and_solve in float32 (the run-block
@@ -69,7 +74,24 @@ Phases (any failure raises and the script exits nonzero with no result):
                 cross-lane fixpoint); results equal to a rerun with the
                 plain LP on the card; prints the warm dispatch's
                 breakdown and lpq_stats().
-  Phases 4-8 reset the launch counts just before and read them just
+  9. residency -- the dense main path (phase 5's lanes) over four
+                generations of a port StateStore's alloc-delta journal:
+                g1 cold (installs), g2 the same tables at a newer index
+                (content hits, chain reuses), g3 lane 0's first 50
+                placements charged into its usage under one journal
+                entry (a promotion through delta_scatter), g4 a write
+                with no change pairs (gaps, wholesale); per generation
+                the outcome counts, bytes shipped, scatter launches and
+                dispatch ms; decisions equal to the same generations
+                with NOMAD_TPU_TORCH_DELTA_STREAM=0 and cold; after g3
+                and g4 every chain buffer equal to its host shadow; the
+                scatter timed at g3's shape beside torch.index_put; the
+                wave headline dispatched twice (its compact tables hit);
+ 10. wavefront -- solve_wavefront at 32 uniform lanes x 2,000 placements
+                x 16,384 node slots (B = 32), float32 and float64: the
+                kernel against wavefront_plain on the card and against
+                the wave_block route's decisions; timed.
+  Phases 4-10 reset the launch counts just before and read them just
   after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
   to the plain versions on the same fused inputs.
@@ -1023,17 +1045,19 @@ def dense_slice_phase(np, torch, dense, kernels, svc, batch, tp, world):
         times.append((time.perf_counter() - t1) * 1e3)
     fuse_ms = statistics.median(times)
     # where it goes (medians of 5, host clock with a synchronize after
-    # each device part): stacking the lanes, shipping the tables, the
-    # kernels, fetching the results
+    # each device part): stacking the lanes, shipping the tables (the
+    # fused transport through the resident set: the const buffers are
+    # content hits, the rest ship as stacked buffers), the kernels,
+    # fetching the results
     parts = {"fuse_lanes": [], "to_device": [], "kernels": [], "fetch": []}
     dev = torch.device(DEVICE)
     for _ in range(5):
         t1 = time.perf_counter()
         groups = batch.fuse_lanes(lanes)
         t2 = time.perf_counter()
-        tens = [dense.lane_tensors(g.const, g.init, g.batch,
-                                   dtype_name=g.dtype_name, device=dev)
-                for g in groups]
+        tens = [dense.fused_tensors(
+            (g.const, g.init, g.batch), (dense.lane_casts(g.dtype_name),) * 3,
+            device=dev)[0] for g in groups]
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         outs = [dense.dense_scan(*t, spread_alg=False) for t in tens]
@@ -2116,6 +2140,443 @@ def lpq_slice_phase(np, torch, lpq, kernels, svc, tp, world):
                 placements_per_s=placed / (solve_ms / 1e3))
 
 
+# --------------------------------------------------------------------------
+# slice 5: device residency (the resident buffer set, the version chain and
+# the delta scatter) and the in-kernel wavefront
+
+# the dense headline's largest stacked table: the const tree's four
+# (E, N) float32 fields (cpu/mem/disk caps, affinity) at E = 32, N = 16,384
+DENSE_TABLE_BYTES = 4 * 32 * 16_384 * 4
+SCATTER_BYTES = (4_096, 65_536, 1 << 20, DENSE_TABLE_BYTES)
+SCATTER_BUCKETS = (8, 64, 4_096, 65_536)
+G3_PLACED = 50                      # placements charged in generation 3
+
+
+class JournalAlloc:
+    """What the alloc-delta journal's readers need of an allocation."""
+
+    def __init__(self, aid, node_id):
+        self.id = aid
+        self.node_id = node_id
+
+
+def scatter_case(np, torch, resident, rng, dt, m, k):
+    """A (buf, idx, vals) scatter input on the card: a random table of m
+    elements of dt and k - k // 4 distinct updates padded to k by
+    _pad_updates (duplicate indices), with -0.0, infinities and NaNs of
+    distinct payloads in the table and in the updates."""
+    n_upd = max(1, k - k // 4)
+    if dt == np.bool_:
+        buf = rng.random(m) < 0.5
+        vals = rng.random(n_upd) < 0.5
+    else:
+        buf = rng.standard_normal(m).astype(dt)
+        vals = rng.standard_normal(n_upd).astype(dt)
+        bits = np.dtype("u%d" % np.dtype(dt).itemsize)
+        nan = np.array([np.nan], dtype=dt).view(bits)[0]
+        special = np.array([-0.0, np.inf, -np.inf], dtype=dt)
+        buf[:3] = special
+        buf.view(bits)[3:5] = [nan | 1, nan | 5]
+        vals[:min(3, n_upd)] = special[:min(3, n_upd)]
+        vals.view(bits)[-1] = nan | 7
+    idx = rng.choice(m, n_upd, replace=False)
+    idx_p, vals_p, bucket = resident._pad_updates(idx, vals)
+    assert bucket == max(8, k)
+    dev = torch.device(DEVICE)
+    return (torch.from_numpy(buf).to(dev), torch.from_numpy(idx_p).to(dev),
+            torch.from_numpy(vals_p).to(dev))
+
+
+def bits_equal(torch, a, b):
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    w = bits[a.element_size()]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(w), b.view(w)))
+
+
+def scatter_kernel_phase(np, torch, resident, seed):
+    """delta_scatter against delta_scatter_plain on the card, as bytes:
+    1-, 4- and 8-byte dtypes (bool, float32, float64), tables from 4 KiB
+    to the dense headline's largest stacked table, update buckets from 8
+    to 65,536; the base must be left as it was."""
+    rng = np.random.default_rng(seed + 5)
+    cases = 0
+    for dt in (np.bool_, np.float32, np.float64):
+        s = np.dtype(dt).itemsize
+        for nbytes in SCATTER_BYTES:
+            m = nbytes // s
+            for k in SCATTER_BUCKETS:
+                if k > m:
+                    continue
+                buf, idx, vals = scatter_case(np, torch, resident, rng, dt,
+                                              m, k)
+                keep = buf.clone()
+                got = resident.delta_scatter(buf, idx, vals)
+                want = resident.delta_scatter_plain(buf, idx, vals)
+                tag = f"delta_scatter {np.dtype(dt).name} M={m} k={k}"
+                if not bits_equal(torch, got, want):
+                    raise AssertionError(f"{tag}: bytes differ")
+                if not bits_equal(torch, buf, keep):
+                    raise AssertionError(f"{tag}: the base was written")
+                cases += 1
+    log(f"kernel delta_scatter: {cases} cases (bool/float32/float64, "
+        f"{SCATTER_BYTES[0]} B to {SCATTER_BYTES[-1]} B tables, buckets "
+        f"{SCATTER_BUCKETS[0]}..{SCATTER_BUCKETS[-1]}) equal to the plain "
+        "version as bytes, bases untouched")
+    return [dict(name="delta_scatter", dtype="float32", cases=cases,
+                 max_abs_err=0.0)]
+
+
+def scatter_timing(np, torch, resident, seed, m, k, dtype_name):
+    """The scatter at the main path's shape (m elements, a k-update
+    bucket): kernel and plain version by CUDA events (median of
+    KERNEL_REPEATS), one torch.index_put of the same function, and the
+    bound: the table read and written once, the k (index, value) pairs
+    read once."""
+    dt = np.dtype(dtype_name).type
+    rng = np.random.default_rng(seed + 6)
+    buf, idx, vals = scatter_case(np, torch, resident, rng, dt, m, k)
+    got = resident.delta_scatter(buf, idx, vals)
+    want = resident.delta_scatter_plain(buf, idx, vals)
+    assert bits_equal(torch, got, want)
+    ms = timed(torch, lambda: resident.delta_scatter(buf, idx, vals),
+               KERNEL_REPEATS)
+    plain_ms = timed(torch, lambda: resident.delta_scatter_plain(
+        buf, idx, vals), KERNEL_REPEATS)
+    lib, library_ms = time_once(torch, lambda: torch.index_put(
+        buf, (idx.long(),), vals))
+    assert bits_equal(torch, lib, want)
+    s = np.dtype(dt).itemsize
+    nbytes = 2 * m * s + k * (4 + s)
+    bound_ms, bound_by = bound("delta_scatter", nbytes, 0, "float32")
+    log(f"kernel delta_scatter {dtype_name} main path: M={m} k={k} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(index_put)="
+        f"{library_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}, "
+        f"{nbytes} B)")
+    return dict(shape=[m, k], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+
+
+def chain_matches_shadows(np, resident):
+    """Every chain slot's device buffer equals its frozen host shadow, byte
+    for byte."""
+    n = 0
+    for buf, shadow in resident.chain_entries():
+        got = buf.cpu().numpy()
+        assert got.dtype == shadow.dtype and got.shape == shadow.shape
+        if not (got.reshape(-1).view(np.uint8)
+                == shadow.reshape(-1).view(np.uint8)).all():
+            raise AssertionError("a chain buffer differs from its shadow")
+        n += 1
+    return n
+
+
+def run_generations(np, torch, batch, kernels, resident, store_cls, lanes,
+                    charge, *, cold=False, on_scatter=None):
+    """The dense headline dispatch over four journal generations of one
+    port StateStore: g1 cold; g2 the same tables at a newer index (one
+    covered write); g3 lane 0 charged with ``charge`` (shuffled positions
+    of its first G3_PLACED placements) under one journal entry of
+    G3_PLACED (None, alloc) pairs; g4 a write with no change pairs (a
+    gap). ``cold`` resets the resident set before every generation.
+    Returns per-generation (results, record)."""
+    store = store_cls()
+    for i in range(N_NODES):
+        store.upsert_node(JournalAlloc(lanes[0].node_ids[i], None))
+    lanes = [ln for ln in lanes]
+    base = lanes[0].init
+    out = []
+    for gen in range(1, 5):
+        if gen == 2:
+            store.upsert_allocs([JournalAlloc("g2-alloc", lanes[0].node_ids[0])])
+        elif gen == 3:
+            pos = charge
+            init = type(base)(*(np.array(a) for a in base))
+            for f, a in zip(("used_cpu", "used_mem", "used_disk"), ASK):
+                np.add.at(getattr(init, f), pos, np.float32(a))
+            lanes[0] = svc_copy(lanes[0], init)
+            order = lanes[0].order
+            store.upsert_allocs([JournalAlloc(
+                f"g3-alloc-{k}", lanes[0].node_ids[int(order[p])])
+                for k, p in enumerate(pos)])
+        elif gen == 4:
+            store.replace_allocs(store.allocs())
+        token = store.latest_index()
+        for ln in lanes:
+            ln.delta_src = (store, token)
+            ln.table_version = store.table_index("nodes")
+        if cold:
+            resident._reset_for_tests()
+        before = resident.stats()
+        launches0 = kernels.DELTA_SCATTER.launches
+        t0 = time.perf_counter()
+        res = batch.fuse_and_solve(lanes, device=DEVICE)
+        ms = (time.perf_counter() - t0) * 1e3
+        after = resident.stats()
+        rec = {k: after[k] - before[k] for k in (
+            "hits", "misses", "bytes_shipped_total", "delta_promotions",
+            "delta_reuses", "delta_gap_fallbacks", "delta_size_fallbacks")}
+        rec["installs"] = max(0, after["chain_entries"]
+                              - (0 if cold else before["chain_entries"]))
+        rec["scatter_launches"] = kernels.DELTA_SCATTER.launches - launches0
+        rec["dispatch_ms"] = ms
+        rec["token"] = token
+        if gen >= 3 and not cold:
+            rec["chain_buffers_checked"] = chain_matches_shadows(np, resident)
+        out.append((res, rec))
+    return out
+
+
+def svc_copy(lane, init):
+    """A PackedLane like ``lane`` with usage tables ``init``."""
+    import copy
+    new = copy.copy(lane)
+    new.init = init
+    return new
+
+
+def same_results(np, a, b, what):
+    for k, (x, y) in enumerate(zip(a, b)):
+        for u, v in zip(x, y):
+            if not np.array_equal(u, v):
+                raise AssertionError(f"{what}: lane {k} differs")
+
+
+def residency_phase(np, torch, batch, dense, kernels, resident, store_cls,
+                    svc, tp, world):
+    """The dense headline dispatch (32 spread lanes + the distinct_property
+    and reserved-core lanes, float32) over four journal generations,
+    install -> reuse/hit -> promote -> gap, then the same generations with
+    NOMAD_TPU_TORCH_DELTA_STREAM=0 and cold (the set reset before each):
+    decisions equal; after g3 and g4 every chain buffer equals its
+    shadow. Then the wave headline dispatched twice: its compact tables'
+    hits on the second."""
+    import os
+    lanes = slice2_lanes(np, tp, svc, world, "float32", n_spread=N_EVALS)
+    g0 = batch.fuse_lanes(lanes)[0]
+    stacked, _, _ = dense._fuse_trees((dense._packed_const(g0.const),
+                                       g0.init, g0.batch))
+    assert max(a.nbytes for a in stacked) == DENSE_TABLE_BYTES
+    # g3's charge: lane 0's first placements, read from a plain dispatch
+    first = batch.fuse_and_solve(lanes, device=DEVICE)[0][0]
+    charge = first[:G3_PLACED][first[:G3_PLACED] >= 0]
+    assert charge.size == G3_PLACED
+
+    shapes = []
+    orig = resident.delta_scatter
+
+    def record(buf, idx, vals):
+        shapes.append((buf.numel(), idx.numel(), str(buf.dtype)))
+        return orig(buf, idx, vals)
+
+    resident._reset_for_tests()
+    kernels.reset_launches()
+    resident.delta_scatter = record
+    try:
+        gens = run_generations(np, torch, batch, kernels, resident,
+                               store_cls, lanes, charge)
+    finally:
+        resident.delta_scatter = orig
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    recs = [r for _, r in gens]
+    for g, r in enumerate(recs, 1):
+        log(f"residency g{g}: " + " ".join(
+            f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in r.items()))
+    log(f"residency launches: {launches}; scatter shapes {shapes}")
+    # g1 installs every slot; the two E = 1 groups (distinct_property,
+    # reserved cores) share slot keys (tag, dtype, shape, occurrence), so
+    # the second may already reuse or advance the first's slot
+    assert recs[0]["installs"] > 0 and recs[0]["delta_gap_fallbacks"] == 0
+    assert recs[1]["delta_reuses"] > 0 and recs[1]["hits"] > 0
+    assert recs[1]["delta_promotions"] == 0
+    assert recs[2]["delta_promotions"] > 0 and recs[2]["scatter_launches"] > 0
+    assert recs[3]["delta_gap_fallbacks"] > 0
+    assert launches["delta_scatter"] == recs[2]["scatter_launches"]
+    for res, _ in gens:
+        for lane, (ch, sc, ny) in zip(lanes, res):
+            check_dense_lane(np, lane, ch, lane.batch.ask_cpu.shape[0])
+            assert bool(np.all(np.isfinite(sc)))
+
+    saved = os.environ.get("NOMAD_TPU_TORCH_DELTA_STREAM")
+    os.environ["NOMAD_TPU_TORCH_DELTA_STREAM"] = "0"
+    try:
+        resident._reset_for_tests()
+        off = run_generations(np, torch, batch, kernels, resident,
+                              store_cls, lanes, charge)
+    finally:
+        if saved is None:
+            os.environ.pop("NOMAD_TPU_TORCH_DELTA_STREAM")
+        else:
+            os.environ["NOMAD_TPU_TORCH_DELTA_STREAM"] = saved
+    cold = run_generations(np, torch, batch, kernels, resident, store_cls,
+                           lanes, charge, cold=True)
+    for g in range(4):
+        same_results(np, gens[g][0], off[g][0], f"kill switch g{g + 1}")
+        same_results(np, gens[g][0], cold[g][0], f"cold g{g + 1}")
+    assert all(r["delta_promotions"] == r["delta_reuses"] == 0
+               for _, r in off)
+
+    # where a warm dispatch's time goes at g4's token (every slot reused,
+    # the const tree a content hit): host stacking, the fused transport,
+    # the kernels, the fetch (host clock, medians of 5)
+    dev = torch.device(DEVICE)
+    parts = {"fuse_lanes": [], "to_device": [], "kernels": [], "fetch": []}
+    warm_bytes = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        groups = batch.fuse_lanes(lanes)
+        t2 = time.perf_counter()
+        tens = []
+        shipped = 0
+        for g in groups:
+            trees, b = dense.fused_tensors(
+                (g.const, g.init, g.batch),
+                (dense.lane_casts(g.dtype_name),) * 3, device=dev,
+                cache_version=g.cache_version, delta_src=g.delta_src)
+            tens.append(trees)
+            shipped += b
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        outs = [dense.dense_scan(*t, spread_alg=False) for t in tens]
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        [[x.cpu().numpy() for x in o[:3]] for o in outs]
+        t5 = time.perf_counter()
+        for k, v in zip(parts, (t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            parts[k].append(v * 1e3)
+        warm_bytes.append(shipped)
+    parts = {k: statistics.median(v) for k, v in parts.items()}
+    log("residency warm dispatch (g4 token) breakdown ms: "
+        + " ".join(f"{k}={v:.3f}" for k, v in parts.items())
+        + f"; bytes shipped {warm_bytes[-1]}")
+    # the host work inside to_device for the 32-lane spread group (host
+    # clock, medians of 5): stacking its fields into the fused buffers,
+    # fingerprinting the const buffers, diffing the others against their
+    # shadows, and copying every buffer to the card
+    g = batch.fuse_lanes(lanes)[0]
+    trees = (dense._packed_const(g.const), g.init, g.batch)
+    stacked, _, keys = dense._fuse_trees(trees)
+    shadows = [a.copy() for a in stacked]
+
+    def host_ms(fn):
+        ts = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(ts)
+
+    to_device_parts = dict(
+        stack=host_ms(lambda: dense._fuse_trees(trees)),
+        fingerprint=host_ms(lambda: [resident._fingerprint(a) for a, k in
+                                     zip(stacked, keys) if k[0] == 0]),
+        diff=host_ms(lambda: [resident._bitwise_changed(a, b) for a, b, k
+                              in zip(stacked, shadows, keys) if k[0] != 0]),
+        copy=host_ms(lambda: [resident._put(a, dev) for a in stacked]))
+    log("residency to_device host parts (spread group, "
+        f"{sum(a.nbytes for a in stacked)} B in {len(stacked)} buffers) "
+        "ms: " + " ".join(f"{k}={v:.3f}" for k, v in
+                          to_device_parts.items()))
+
+    # the wave headline twice: the compact tables hit the second time
+    head = pack_lanes(np, tp, svc, world, "float32", kind="plain",
+                      n_lanes=N_EVALS)
+    batch.fuse_and_solve(head, device=DEVICE)
+    before = resident.stats()
+    batch.fuse_and_solve(head, device=DEVICE)
+    after = resident.stats()
+    wave_hits = after["hits"] - before["hits"]
+    wave_bytes = after["bytes_shipped_total"] - before["bytes_shipped_total"]
+    log(f"wave headline second dispatch: compact-table hits={wave_hits} "
+        f"bytes shipped={wave_bytes}")
+    assert wave_hits > 0
+    m, k, dt = shapes[0]
+    return dict(launches=launches, generations=recs,
+                kill_switch=[r for _, r in off], cold=[r for _, r in cold],
+                warm_breakdown_ms=parts, warm_bytes=warm_bytes[-1],
+                to_device_parts_ms=to_device_parts,
+                wave_second_hits=wave_hits, wave_second_bytes=wave_bytes,
+                scatter_shapes=shapes, main_shape=(m, k, dt))
+
+
+# Floating-point operations of the in-kernel wavefront's prep pass per
+# node, counted from csrc/wavefront.cu as above (each add, sub, mul, div,
+# min/max, compare and floor one, an fma two): three cap_dim (sub, max,
+# div, floor 4; five fits, each an fma and a compare, 15; the ask test 1)
+# = 60, and the min over them 2 -> 62. The step loop is
+# wave_compact's (COMPACT_HEAD_OPS per slot and placing step).
+WAVEFRONT_PREP_OPS = 62
+
+
+def wavefront_phase(np, torch, wave, dense, batch, kernels, svc, tp, world):
+    """solve_wavefront at the headline shape (32 uniform lanes x 2,000
+    placements, N = 16,384, B = 32) in float32 and float64: the kernel
+    against wavefront_plain on the card (decisions exactly, scores within
+    RTOL) and against the wave_block route's decisions on the same lanes;
+    timed by CUDA events; the float32 run through the entry point with
+    the launch counts reset is the main-path run."""
+    results = []
+    main = None
+    dev = torch.device(DEVICE)
+    for dtype_name in ("float32", "float64"):
+        lanes = pack_lanes(np, tp, svc, world, dtype_name, kind="plain",
+                           n_lanes=N_EVALS)
+        trees = tuple(type(t0)(*(np.stack([np.asarray(a) for a in xs])
+                                 for xs in zip(*[getattr(ln, k)
+                                                 for ln in lanes])))
+                      for k, t0 in (("const", lanes[0].const),
+                                    ("init", lanes[0].init),
+                                    ("batch", lanes[0].batch)))
+        if dtype_name == "float32":
+            kernels.reset_launches()
+            got_np = wave.solve_wavefront(*trees, dtype_name=dtype_name,
+                                          device=DEVICE)
+            main = {k.name: k.launches for k in kernels.KERNELS}
+            log(f"wavefront launches: {main}")
+            assert main["wavefront"] >= 1, main
+        (c, s, b), _ = dense.fused_tensors(
+            trees, (dense.lane_casts(dtype_name),) * 3, device=dev)
+        got, _ = time_once(torch, lambda: wave.wavefront(
+            c, s, b, spread_alg=False))
+        want, plain_ms = time_once(torch, lambda: wave.wavefront_plain(
+            c, s, b, spread_alg=False))
+        tag = f"wavefront {dtype_name}"
+        err = compare(torch, tag, got, want, dtype_name)
+        if dtype_name == "float32":
+            assert np.array_equal(got_np[0], got[0].cpu().numpy())
+        blk = batch.fuse_and_solve(lanes, device=DEVICE)
+        for e, (ch, _, ny) in enumerate(blk):
+            if not (np.array_equal(ch, got[0][e].cpu().numpy())
+                    and np.array_equal(ny, got[2][e].cpu().numpy())):
+                raise AssertionError(f"{tag}: lane {e} differs from the "
+                                     "wave_block route")
+        ms = timed(torch, lambda: wave.wavefront(c, s, b, spread_alg=False),
+                   KERNEL_REPEATS)
+        E, N = c.cpu_cap.shape
+        P = b.ask_cpu.shape[1]
+        ins = sum(getattr({"const": c, "state": s, "batch": b}[t], f).nbytes
+                  for t, f in wave.WAVEFRONT_ARGS)
+        itemsize = c.cpu_cap.element_size()
+        scratch = E * ((P + wave.WAVE_B) * 8 + 3) * itemsize + E * 2 * 4
+        nbytes = ins + scratch + sum(t.nbytes for t in got)
+        steps = int((want[0] >= 0).sum())
+        flops = (E * N * WAVEFRONT_PREP_OPS
+                 + steps * wave.WAVE_B * COMPACT_HEAD_OPS)
+        bound_ms, bound_by = bound("wavefront", nbytes, flops, dtype_name)
+        log(f"kernel {tag}: E={E} N={N} P={P} placed={steps} match=exact "
+            f"(plain and wave_block) max_abs_err={err:.3e} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.1f} bound_ms={bound_ms:.6f} ({bound_by}, "
+            f"{nbytes} B, {flops} flop)")
+        results.append(dict(
+            name="wavefront", dtype=dtype_name, shape=[E, N, P],
+            placed=steps, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+            flops=flops))
+    return results, dict(launches=main)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2138,6 +2599,8 @@ def main(argv=None) -> int:
     from nomad_tpu_torch import kernels
     from nomad_tpu_torch.solver import batch, dense, service as svc, system
     from nomad_tpu_torch.solver import binpack as bp, lpq, preempt, wave
+    from nomad_tpu_torch.solver import resident
+    from nomad_tpu_torch.state.store import StateStore
     from nomad_tpu_torch.tensor import pack as tp
 
     t_start = time.perf_counter()
@@ -2156,21 +2619,45 @@ def main(argv=None) -> int:
             log("  " + line.strip())
 
     world = headline_world(np, tp)
-    kres = kernel_phase(np, torch, bp, wave, kernels, svc, tp, world)
-    kres += dense_kernel_phase(np, torch, bp, dense, svc, tp, world,
-                               args.seed)
-    kres += system_kernel_phase(np, torch, bp, dense, system, svc, world,
-                                args.seed)
-    kres += preempt_kernel_phase(np, torch, bp, preempt, dense, svc, tp,
-                                 world, args.seed)
-    kres += lp_kernel_phase(np, torch, lpq, args.seed)
-    sres = slice_phase(np, torch, wave, kernels, svc, batch, tp, world)
-    dres = dense_slice_phase(np, torch, dense, kernels, svc, batch, tp,
-                             world)
-    yres = system_phase(np, torch, system, kernels, svc, world, args.seed)
-    pres = preempt_slice_phase(np, torch, preempt, dense, kernels, svc,
-                               batch, tp, world)
-    qres = lpq_slice_phase(np, torch, lpq, kernels, svc, tp, world)
+    phase_s = {}
+
+    def phase(name, fn, *a):
+        t1 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t1
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    kres = phase("wave kernels", kernel_phase, np, torch, bp, wave, kernels,
+                 svc, tp, world)
+    kres += phase("dense kernel", dense_kernel_phase, np, torch, bp, dense,
+                  svc, tp, world, args.seed)
+    kres += phase("system kernel", system_kernel_phase, np, torch, bp,
+                  dense, system, svc, world, args.seed)
+    kres += phase("preemption kernels", preempt_kernel_phase, np, torch, bp,
+                  preempt, dense, svc, tp, world, args.seed)
+    kres += phase("lp kernel", lp_kernel_phase, np, torch, lpq, args.seed)
+    kres += phase("scatter kernel", scatter_kernel_phase, np, torch,
+                  resident, args.seed)
+    sres = phase("wave slice", slice_phase, np, torch, wave, kernels, svc,
+                 batch, tp, world)
+    dres = phase("dense slice", dense_slice_phase, np, torch, dense,
+                 kernels, svc, batch, tp, world)
+    yres = phase("system", system_phase, np, torch, system, kernels, svc,
+                 world, args.seed)
+    pres = phase("preemption slice", preempt_slice_phase, np, torch,
+                 preempt, dense, kernels, svc, batch, tp, world)
+    qres = phase("lp tier", lpq_slice_phase, np, torch, lpq, kernels, svc,
+                 tp, world)
+    rres = phase("residency", residency_phase, np, torch, batch, dense,
+                 kernels, resident, StateStore, svc, tp, world)
+    m, k, sdt = rres["main_shape"]
+    rres["kernel"] = phase("scatter timing", scatter_timing, np, torch,
+                           resident, args.seed, m, k,
+                           sdt.replace("torch.", ""))
+    wres, wpath = phase("wavefront", wavefront_phase, np, torch, wave,
+                        dense, batch, kernels, svc, tp, world)
+    kres += wres
 
     def pick(kname, **kw):
         return next(r for r in kres if r["name"] == kname
@@ -2186,7 +2673,9 @@ def main(argv=None) -> int:
             (kernels.SYSTEM_FIT, pick("system_fit", world="system"), yres),
             (kernels.WAVE_PREEMPT, pres["kernels"]["wave_preempt"], pres),
             (kernels.DENSE_PREEMPT, pres["kernels"]["dense_preempt"], pres),
-            (kernels.LP_RELAX, qres["kernel"], qres))
+            (kernels.LP_RELAX, qres["kernel"], qres),
+            (kernels.DELTA_SCATTER, rres["kernel"], rres),
+            (kernels.WAVEFRONT, pick("wavefront"), wpath))
     line = {"kernels": []}
     for k, r, path in rows:
         line["kernels"].append(dict(
@@ -2197,12 +2686,13 @@ def main(argv=None) -> int:
             max_abs_err=max(x["max_abs_err"] for x in kres
                             if x["name"] == k.name),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None,
+            bound_by=r["bound_by"], library_ms=r.get("library_ms"),
             shape=" ".join(str(x) for x in r["shape"]) + " float32"))
     report = dict(card=card, device=name, seed=args.seed, kernels=kres,
                   slice=sres, dense_slice=dres, system=yres,
-                  preempt_slice=pres, lpq_slice=qres,
-                  build_s=info["seconds"],
+                  preempt_slice=pres, lpq_slice=qres, residency=rres,
+                  wavefront=wpath,
+                  build_s=info["seconds"], phase_s=phase_s,
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")
     log("report: " + json.dumps(report))

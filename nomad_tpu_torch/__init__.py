@@ -5,17 +5,26 @@ device path on an NVIDIA H100 and imports nothing from it (nor ``jax``).
 Slice 1 covers the wavefront placement path, slice 2 the dense greedy path
 (the lanes the wave gate refuses) and system jobs, slice 3 placement with
 preemption (windowed and dense eviction search), slice 4 the whole-queue
-LP tier and the cross-lane fixpoint: a lane's packed arrays go in, the
-chosen node per placement (and, with preemption, the allocs it evicts)
-comes out.
+LP tier and the cross-lane fixpoint, slice 5 device residency (every
+dispatch's tables ship through a content-keyed resident buffer set on
+the card, advanced by journal-covered deltas) and the in-kernel
+wavefront: a lane's packed arrays go in, the chosen node per placement
+(and, with preemption, the allocs it evicts) comes out.
 
     scheduler/util.py   deterministic node shuffle (splitmix64 Fisher-Yates)
     tensor/pack.py      NodeMatrix / UsageState / SpreadInfo / distinct
-                        property / device / preemption array tables
+                        property / device / preemption array tables,
+                        journal_touched_nodes
+    state/store.py      StateStore's index bookkeeping and alloc-delta
+                        journal (alloc_deltas_since)
     solver/binpack.py   lane NamedTuples, host precompute of the compact table
     solver/scoring.py   score and window helpers shared by all the paths
-    solver/wave.py      the two wave kernels' plain versions and wrappers
-    solver/dense.py     the dense scan kernel's plain version and wrapper
+    solver/wave.py      the two wave kernels' plain versions and wrappers,
+                        the in-kernel wavefront (solve_wavefront)
+    solver/dense.py     the dense scan kernel's plain version and wrapper,
+                        the fused transport (fused_tensors)
+    solver/resident.py  the resident buffer set (device_put_cached), the
+                        version chain and the delta scatter
     solver/system.py    the system fit kernel's plain version and wrapper
     solver/preempt.py   the two preemption kernels' plain versions and
                         wrappers, and their lane solves

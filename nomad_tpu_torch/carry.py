@@ -41,12 +41,16 @@ def lane_from_reference(const, init, batch, order, *,
                         ptab=None, pinit=None, matrix=None,
                         plan_priority: int = 50,
                         plan_has_stops: bool = False,
+                        table_version: Optional[int] = None,
+                        delta_src=None,
                         device: DeviceLike = None) -> PackedLane:
     """The port's PackedLane for a reference lane's tables; a preemption
     lane passes its ``ptab`` and ``pinit`` too. ``matrix`` (a port
     NodeMatrix), ``plan_priority`` and ``plan_has_stops`` carry what the
-    LP tier and the cross-lane fixpoint read. ``dtype_name`` defaults by
-    ``device`` (float64 on the CPU, float32 on the card)."""
+    LP tier and the cross-lane fixpoint read; ``table_version`` and
+    ``delta_src`` (the reference lane's own, a (store, index) pair) what
+    the resident buffer set reads. ``dtype_name`` defaults by ``device``
+    (float64 on the CPU, float32 on the card)."""
     dtype_name = default_dtype_name(device, dtype_name)
     dt = np.dtype(dtype_name)
     return PackedLane(
@@ -57,4 +61,5 @@ def lane_from_reference(const, init, batch, order, *,
         ptab=None if ptab is None else _read(PreemptTables, ptab, dt),
         pinit=None if pinit is None else _read(PreemptState, pinit, dt),
         matrix=matrix, plan_priority=plan_priority,
-        plan_has_stops=plan_has_stops)
+        plan_has_stops=plan_has_stops, table_version=table_version,
+        delta_src=delta_src)

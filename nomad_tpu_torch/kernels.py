@@ -131,8 +131,27 @@ LP_RELAX = Kernel(
     "nomad_tpu/solver/lpq.py:215 _lp_solve_body",
     {torch.float32: "nt_lp_relax_f32"})
 
+# The delta scatter moves raw bits: one entry point per element size,
+# shared by every dtype of that size.
+DELTA_SCATTER = Kernel(
+    "delta_scatter", "delta_scatter.cu",
+    "nomad_tpu/solver/constcache.py:249 _delta_scatter_program",
+    {torch.bool: "nt_delta_scatter_1", torch.uint8: "nt_delta_scatter_1",
+     torch.int8: "nt_delta_scatter_1", torch.int16: "nt_delta_scatter_2",
+     torch.float16: "nt_delta_scatter_2",
+     torch.bfloat16: "nt_delta_scatter_2",
+     torch.int32: "nt_delta_scatter_4", torch.float32: "nt_delta_scatter_4",
+     torch.int64: "nt_delta_scatter_8",
+     torch.float64: "nt_delta_scatter_8"})
+
+WAVEFRONT = Kernel(
+    "wavefront", "wavefront.cu",
+    "nomad_tpu/solver/binpack.py:1154 _solve_wavefront_impl",
+    {torch.float32: "nt_wavefront_f32",
+     torch.float64: "nt_wavefront_f64"})
+
 KERNELS = (WAVE_BLOCK, WAVE_COMPACT, DENSE_SCAN, SYSTEM_FIT, WAVE_PREEMPT,
-           DENSE_PREEMPT, LP_RELAX)
+           DENSE_PREEMPT, LP_RELAX, DELTA_SCATTER, WAVEFRONT)
 
 
 def reset_launches() -> None:

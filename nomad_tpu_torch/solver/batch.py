@@ -71,7 +71,7 @@ class _FusedGroup:
 
     __slots__ = ("idxs", "const", "init", "batch", "ptab", "pinit",
                  "e_real", "e_pad", "p_pad", "wave", "spread_alg",
-                 "dtype_name")
+                 "dtype_name", "cache_version", "delta_src")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -107,7 +107,8 @@ def _fuse_group(lanes: List[PackedLane], idxs: List[int]) -> _FusedGroup:
         pinit=pinit,
         e_real=e_real, e_pad=e_pad, p_pad=p_pad,
         wave=lane0.wavefront_ok(), spread_alg=lane0.spread_alg,
-        dtype_name=lane0.dtype_name)
+        dtype_name=lane0.dtype_name, cache_version=lane0.table_version,
+        delta_src=lane0.delta_src)
 
 
 def fuse_lanes(lanes: List[PackedLane]) -> List[_FusedGroup]:
@@ -123,14 +124,17 @@ def solve_groups(lanes: List[PackedLane], groups: List[_FusedGroup],
                  device: DeviceLike = None) -> List[tuple]:
     """Device half of fuse_and_solve: dispatch each fused group (wave
     kernels, dense scan or a preemption kernel, as the group's gate and
-    tables say) and map results back to input-lane order."""
+    tables say; its tables through the resident buffer set, with the
+    first lane's table_version and delta_src) and map results back to
+    input-lane order."""
     dev = resolve_device(device)
     results: List = [None] * len(lanes)
     for g in groups:
         out = solve_lane_fused(
             g.const, g.init, g.batch, g.ptab, g.pinit,
             spread_alg=g.spread_alg, dtype_name=g.dtype_name, wave=g.wave,
-            device=dev)
+            device=dev, cache_version=g.cache_version,
+            delta_src=g.delta_src)
         for j, li in enumerate(g.idxs):
             p_real = lanes[li].batch.ask_cpu.shape[0]
             res = (out[0][j][:p_real].astype(np.int64), out[1][j][:p_real],

@@ -34,6 +34,7 @@ import torch
 
 from .. import kernels
 from ..device import DeviceLike, default_dtype_name, resolve_device
+from . import resident
 from .binpack import NodeConst, NodeState, PlacementBatch
 from .scoring import (
     _anti, _binpack_raw, _fma, _score, _select, _spread_boost, _winner)
@@ -398,14 +399,111 @@ def lane_tensors(const, init, batch, *, dtype_name: str,
     return put(const), put(init), put(batch)
 
 
+# --------------------------------------------------------------------------
+# Fused transport (binpack.py _fuse_trees and solve_lane_fused's put):
+# a dispatch's lane trees ship as a handful of stacked buffers, one per
+# (tree, dtype, shape) group, through the resident buffer set; the
+# kernels read views of them.
+
+# tree-group name of each tree handed to _fuse_trees, by position
+_FUSE_TREE_NAMES = ("const", "init", "batch", "ptab", "pinit")
+
+# the lane fields the dense kernels read (the others ride the transport
+# as the packer built them)
+_DENSE_READ = frozenset(f for _, f in DENSE_ARGS)
+
+
+def _packed_const(const):
+    """``const`` as the packer emits it: a lane with no device asks keeps
+    dev_sum_weight at its float32 default whatever the lane dtype (the
+    reference's packer does; lane_from_reference casts it to the lane
+    dtype). The transport ships that, so its stacked buffers -- and the
+    resident set's slot keys -- are the reference's."""
+    if np.asarray(const.dev_aff).size == 0:
+        w = np.asarray(const.dev_sum_weight)
+        if w.dtype != np.float32 and not w.any():
+            return const._replace(dev_sum_weight=w.astype(np.float32))
+    return const
+
+
+def _fuse_trees(trees):
+    """Group the trees' non-empty leaves by (tree index, dtype, shape) in
+    field order. Returns (stacked buffers, per-leaf meta, group keys);
+    a meta is ("zero", shape, dtype str) for a 0-size leaf or ("buf",
+    group key, row). Keying by the tree index keeps the const tree's
+    leaves in buffers of their own, so the content cache can keep them
+    resident while the usage and batch buffers change every dispatch."""
+    metas = []
+    groups: dict = {}
+    for ti, tree in enumerate(trees):
+        for leaf in tree:
+            arr = np.asarray(leaf)
+            if arr.size == 0:
+                metas.append(("zero", arr.shape, arr.dtype.str))
+                continue
+            key = (ti, arr.dtype.str, arr.shape)
+            rows = groups.setdefault(key, [])
+            metas.append(("buf", key, len(rows)))
+            rows.append(arr)
+    group_keys = tuple(groups.keys())
+    stacked = [np.stack(groups[k]) for k in group_keys]
+    return stacked, tuple(metas), group_keys
+
+
+def fused_tensors(trees, casts, *, device: torch.device,
+                  cache_version=None, delta_src=None):
+    """Ship stacked numpy lane trees (NamedTuples with a leading eval
+    axis; const first) to ``device`` through the resident buffer set and
+    rebuild them as tensors: views of the shipped buffers, cast on the
+    device where ``casts[tree index](field)`` names another dtype (None
+    keeps the shipped one). Only the const tree's buffers may enter the
+    content cache. Returns (rebuilt trees, bytes shipped)."""
+    trees = (_packed_const(trees[0]),) + tuple(trees[1:])
+    stacked, metas, group_keys = _fuse_trees(trees)
+    buffers, shipped = resident.device_put_cached(
+        stacked, device=device, version=cache_version,
+        cacheable=[k[0] == 0 for k in group_keys],
+        tags=[_FUSE_TREE_NAMES[k[0]] for k in group_keys],
+        delta_src=delta_src)
+    gpos = {k: i for i, k in enumerate(group_keys)}
+    out = []
+    it = iter(metas)
+    for ti, tree in enumerate(trees):
+        vals = []
+        for f in type(tree)._fields:
+            m = next(it)
+            if m[0] == "zero":
+                t = torch.from_numpy(np.zeros(m[1], dtype=np.dtype(m[2])))
+                t = t.to(device)
+            else:
+                t = buffers[gpos[m[1]]][m[2]]
+            want = casts[ti](f)
+            if want is not None and t.dtype != want:
+                t = t.to(want)
+            vals.append(t)
+        out.append(type(tree)(*vals))
+    return tuple(out), shipped
+
+
+def lane_casts(dtype_name: str):
+    """The dense kernels' dtype of each lane field they read."""
+    dt = getattr(torch, dtype_name)
+    return lambda f: _field_dtype(f, dt) if f in _DENSE_READ else None
+
+
 def solve_placements(const, init, batch, *, spread_alg: bool,
-                     dtype_name=None, device: DeviceLike = None) -> DenseOut:
+                     dtype_name=None, device: DeviceLike = None,
+                     cache_version=None, delta_src=None) -> DenseOut:
     """Dense greedy solve of stacked (E, ...) numpy lane tables on
-    ``device`` (default ``cuda``; no card raises): the plain version on
-    the CPU, the dense_scan kernel on the card. Returns DenseOut of
-    tensors on that device."""
+    ``device`` (default ``cuda``; no card raises): the tables ship through
+    the fused transport (``cache_version`` and ``delta_src`` as in
+    resident.device_put_cached), then the plain version runs on the CPU,
+    the dense_scan kernel on the card. Returns DenseOut of tensors on
+    that device."""
     dev = resolve_device(device)
     dtype_name = default_dtype_name(dev, dtype_name)
-    c, s, b = lane_tensors(const, init, batch, dtype_name=dtype_name,
-                           device=dev)
+    cast = lane_casts(dtype_name)
+    (c, s, b), _ = fused_tensors((const, init, batch), (cast,) * 3,
+                                 device=dev, cache_version=cache_version,
+                                 delta_src=delta_src)
     return dense_scan(c, s, b, spread_alg=spread_alg)

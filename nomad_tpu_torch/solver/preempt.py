@@ -47,7 +47,7 @@ import torch
 
 from .. import kernels
 from ..device import DeviceLike, default_dtype_name, resolve_device
-from . import dense
+from . import dense, resident
 from .binpack import (
     MAX_PARALLEL_PENALTY, WPC_AFF, WPC_CAND, WPC_CC, WPC_CD, WPC_CDEV,
     WPC_CM, WPC_FEAS, WPC_NCOLS, WPC_PLACED, WPC_PLACED_JOB, WPC_POS,
@@ -667,15 +667,21 @@ def preempt_tensors(ptab, pinit, *, dtype_name: str, device: torch.device):
 
 def solve_placements_preempt(const, init, batch, ptab, pinit, *,
                              spread_alg: bool, dtype_name=None,
-                             device: DeviceLike = None) -> DensePreemptOut:
+                             device: DeviceLike = None, cache_version=None,
+                             delta_src=None) -> DensePreemptOut:
     """Dense preemption solve of stacked (E, ...) numpy lane tables on
-    ``device`` (default ``cuda``; no card raises). Returns
+    ``device`` (default ``cuda``; no card raises), the five trees shipped
+    through the fused transport (dense.fused_tensors). Returns
     DensePreemptOut of tensors on that device."""
     dev = resolve_device(device)
     dtype_name = default_dtype_name(dev, dtype_name)
-    c, s, b = dense.lane_tensors(const, init, batch, dtype_name=dtype_name,
-                                 device=dev)
-    pt, ps = preempt_tensors(ptab, pinit, dtype_name=dtype_name, device=dev)
+    dt = getattr(torch, dtype_name)
+    lane = dense.lane_casts(dtype_name)
+    pinit_dt = {"evicted": torch.bool, "counts": torch.int32}
+    (c, s, b, pt, ps), _ = dense.fused_tensors(
+        (const, init, batch, ptab, pinit),
+        (lane, lane, lane, lambda f: _ptab_dtype(f, dt), pinit_dt.get),
+        device=dev, cache_version=cache_version, delta_src=delta_src)
     return dense_preempt(c, s, b, pt, ps, spread_alg=spread_alg)
 
 
@@ -737,20 +743,26 @@ def wave_preempt_inputs(const, init, batch, ptab, pinit, *,
         counts0=np.stack([p[5] for p in packs]), B=B, P=P)
 
 
-def wave_preempt_tensors(inp: WavePreemptInputs, device: torch.device):
-    """Ship one windowed-preemption dispatch's inputs to ``device``:
-    (compact, cand, scal_f, scal_i, pen, counts0) tensors."""
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return (put(inp.compact), {k: put(v) for k, v in inp.cand.items()},
-            put(inp.scal_f), put(inp.scal_i), put(inp.pen),
-            put(inp.counts0))
+def wave_preempt_tensors(inp: WavePreemptInputs, device: torch.device, *,
+                         cache_version=None, delta_src=None):
+    """Ship one windowed-preemption dispatch's inputs to ``device``
+    through the resident buffer set, tagged ``compact_preempt`` (the
+    candidate tables in sorted key order, as the reference flattens
+    them): (compact, cand, scal_f, scal_i, pen, counts0) tensors."""
+    keys = sorted(inp.cand)
+    arrays = [inp.compact, *(inp.cand[k] for k in keys), inp.scal_f,
+              inp.scal_i, inp.pen, inp.counts0]
+    bufs, _ = resident.device_put_cached(
+        arrays, device=device, version=cache_version,
+        tags=["compact_preempt"] * len(arrays), delta_src=delta_src)
+    n = len(keys)
+    return (bufs[0], dict(zip(keys, bufs[1:1 + n])), *bufs[1 + n:])
 
 
 def solve_lane_wave_preempt(const, init, batch, ptab, pinit, *,
                             spread_alg: bool, dtype_name: str,
-                            device: DeviceLike = None):
+                            device: DeviceLike = None, cache_version=None,
+                            delta_src=None):
     """Windowed preemption solve of a stacked lane group (leading eval
     axis): host precompute, one compact transfer, one kernel launch.
     Returns host numpy (chosen int64, scores, n_yielded int64) (E, P) and
@@ -760,7 +772,9 @@ def solve_lane_wave_preempt(const, init, batch, ptab, pinit, *,
     inp = wave_preempt_inputs(const, init, batch, ptab, pinit,
                               dtype_name=dtype_name)
     chosen, scores, n_yielded, evict_rows = wave_preempt(
-        *wave_preempt_tensors(inp, dev), spread_alg=spread_alg, B=inp.B)
+        *wave_preempt_tensors(inp, dev, cache_version=cache_version,
+                              delta_src=delta_src),
+        spread_alg=spread_alg, B=inp.B)
     P = inp.P
     return (chosen[:, :P].cpu().numpy(), scores[:, :P].cpu().numpy(),
             n_yielded[:, :P].cpu().numpy(), evict_rows[:, :P].cpu().numpy())

@@ -1,0 +1,610 @@
+"""Device residency: content-keyed resident buffers, the journal-fed
+version chain and the delta scatter (port of nomad_tpu/solver/
+constcache.py without its per-shard pool).
+
+Every dispatch ships its input tables through ``device_put_cached``.
+
+  * The content cache. An array's fingerprint (BLAKE2b over dtype, shape
+    and bytes) is looked up; a hit reuses the resident device buffer and
+    ships nothing, a miss copies the array to the device and keeps the
+    copy, tagged with the caller's ``version`` (the node table's index,
+    for hygiene: a node-table write drops older entries). Arrays below
+    the min-bytes floor always ship fresh. LRU bounds on entries and
+    bytes cap what stays resident.
+  * The version chain. With a ``delta_src`` = (store, token), an array
+    that misses the content cache goes through ``chain_apply``: each
+    dispatch-tree slot (tag, dtype, shape, occurrence) keeps the device
+    buffer it shipped last time and a frozen host shadow of its content.
+    When the store's alloc-delta journal covers the span since that
+    buffer's version, only the bitwise-changed elements ship, and
+    ``delta_scatter`` writes them into a new copy of the resident buffer
+    on the device (``promote``); identical content ships nothing
+    (``reuse``). A first sight installs wholesale (``install``); an
+    uncovered span (``gap``) or a diff at least DELTA_MAX_FRAC of the
+    table (``size``) re-ships wholesale and is counted.
+
+The scatter never writes into its base buffer: the base may still sit in
+the content cache under its old fingerprint, or be read by a dispatch in
+flight. It moves raw bits (one entry point per element size), so -0.0
+and NaN payloads survive exactly as a wholesale copy would carry them.
+``delta_scatter`` takes the plain version only for a CPU tensor; a CUDA
+tensor launches the kernel (csrc/delta_scatter.cu) or raises.
+
+Knobs (read at each use):
+  NOMAD_TPU_TORCH_CONST_CACHE            0 ships every array wholesale
+                                         (kill switch)
+  NOMAD_TPU_TORCH_CONST_CACHE_ENTRIES    content-cache entries (64)
+  NOMAD_TPU_TORCH_CONST_CACHE_MB         content-cache MiB (256)
+  NOMAD_TPU_TORCH_CONST_CACHE_MIN_BYTES  arrays below this always ship
+                                         (4096)
+  NOMAD_TPU_TORCH_DELTA_STREAM           0 turns the version chain off
+                                         (kill switch)
+  NOMAD_TPU_TORCH_DELTA_CHAIN_MB         chain pool MiB (64)
+  NOMAD_TPU_TORCH_DELTA_MAX_FRAC         largest delta payload, as a
+                                         share of the table (0.25)
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import threading
+import time
+import warnings
+from collections import OrderedDict
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..device import DeviceLike, resolve_device
+
+_LOCK = threading.Lock()
+_CACHE: "OrderedDict[tuple, _Entry]" = OrderedDict()
+# one entry per dispatch-tree slot, not per content: the buffer it
+# shipped last generation and the frozen host shadow of that content
+_CHAIN: "OrderedDict[tuple, _ChainEntry]" = OrderedDict()
+_STATS = {
+    "hits": 0,
+    "misses": 0,
+    "bytes_shipped_total": 0,
+    "bytes_saved_total": 0,
+    "invalidations": 0,
+    "evictions": 0,
+    "resident_bytes": 0,
+    # the chain: promotions scatter a delta, reuses ship nothing,
+    # fallbacks re-ship wholesale over a live entry (gap = span not
+    # covered by the journal, size = diff payload over DELTA_MAX_FRAC)
+    "delta_promotions": 0,
+    "delta_reuses": 0,
+    "delta_fallbacks": 0,
+    "delta_gap_fallbacks": 0,
+    "delta_size_fallbacks": 0,
+    "delta_bytes_total": 0,
+    "delta_touched_nodes_last": 0,
+    "chain_resident_bytes": 0,
+}
+
+
+class _Entry:
+    __slots__ = ("buf", "nbytes", "version", "created_at", "hits")
+
+    def __init__(self, buf, nbytes: int, version: Optional[int]):
+        self.buf = buf              # the resident tensor
+        self.nbytes = nbytes
+        self.version = version      # node-table index (hygiene only)
+        self.created_at = time.time()
+        self.hits = 0
+
+
+class _ChainEntry:
+    __slots__ = ("buf", "host", "nbytes", "version", "base_version",
+                 "deltas_applied", "created_at", "hits")
+
+    def __init__(self, buf, host: np.ndarray, nbytes: int,
+                 version: Optional[int]):
+        self.buf = buf              # device buffer at ``version``
+        self.host = host            # frozen host shadow (the diff base)
+        self.nbytes = nbytes
+        self.version = version      # store index the buffer is at: the
+        #                             journal coverage check reads it
+        self.base_version = version  # version of the last wholesale put
+        self.deltas_applied = 0      # scatters since that put
+        self.created_at = time.time()
+        self.hits = 0
+
+
+def enabled() -> bool:
+    return os.environ.get("NOMAD_TPU_TORCH_CONST_CACHE", "1") != "0"
+
+
+def delta_stream_enabled() -> bool:
+    """The version chain's switch; it rides the cache's (no resident
+    buffers, nothing to delta against)."""
+    return (enabled()
+            and os.environ.get("NOMAD_TPU_TORCH_DELTA_STREAM", "1") != "0")
+
+
+def _max_entries() -> int:
+    try:
+        return max(1, int(os.environ.get(
+            "NOMAD_TPU_TORCH_CONST_CACHE_ENTRIES", "64")))
+    except ValueError:
+        return 64
+
+
+def _max_bytes() -> int:
+    try:
+        return max(1, int(float(os.environ.get(
+            "NOMAD_TPU_TORCH_CONST_CACHE_MB", "256")) * 1024 * 1024))
+    except ValueError:
+        return 256 * 1024 * 1024
+
+
+def _min_bytes() -> int:
+    try:
+        return int(os.environ.get("NOMAD_TPU_TORCH_CONST_CACHE_MIN_BYTES",
+                                  "4096"))
+    except ValueError:
+        return 4096
+
+
+def _chain_max_bytes() -> int:
+    try:
+        return max(1, int(float(os.environ.get(
+            "NOMAD_TPU_TORCH_DELTA_CHAIN_MB", "64")) * 1024 * 1024))
+    except ValueError:
+        return 64 * 1024 * 1024
+
+
+def _delta_max_frac() -> float:
+    try:
+        return float(os.environ.get("NOMAD_TPU_TORCH_DELTA_MAX_FRAC",
+                                    "0.25"))
+    except ValueError:
+        return 0.25
+
+
+def _fingerprint(arr: np.ndarray) -> bytes:
+    h = hashlib.blake2b(digest_size=16)
+    h.update(str((arr.dtype.str, arr.shape)).encode())
+    h.update(np.ascontiguousarray(arr).data)
+    return h.digest()
+
+
+def _bitwise_changed(old: np.ndarray, new: np.ndarray) -> np.ndarray:
+    """Flat indices of the elements whose bytes differ. Not ``!=`` on the
+    values: -0.0 equals +0.0 and NaN never equals itself, but a promoted
+    buffer must hold exactly the bytes a wholesale copy would. Elements
+    of 1, 2, 4 or 8 bytes compare as unsigned integers of that width
+    (equal integers, equal bytes); others byte by byte."""
+    it = old.dtype.itemsize
+    a = old.reshape((-1,))
+    b = new.reshape((-1,))
+    if it in (1, 2, 4, 8):
+        bits = np.dtype("u%d" % it)
+        return np.flatnonzero(a.view(bits) != b.view(bits))
+    a = a.view(np.uint8).reshape(-1, it)
+    b = b.view(np.uint8).reshape(-1, it)
+    return np.flatnonzero((a != b).any(axis=1))
+
+
+def _pad_updates(idx: np.ndarray, vals: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Pad (idx, vals) to the next power-of-two bucket (at least 8) by
+    repeating slot 0: duplicate writes carry the same value, so the
+    padded scatter is bit for bit the unpadded one."""
+    n = int(idx.size)
+    bucket = max(8, 1 << (n - 1).bit_length())
+    pad = bucket - n
+    idx_p = np.concatenate([idx, np.full(pad, idx[0], idx.dtype)])
+    vals_p = np.concatenate([vals, np.repeat(vals[:1], pad)])
+    return np.ascontiguousarray(idx_p, dtype=np.int32), \
+        np.ascontiguousarray(vals_p), bucket
+
+
+# --------------------------------------------------------------------------
+# The delta scatter: out = a copy of buf with out.flat[idx] = vals.
+
+# integer dtype of each element size: the scatter moves raw bits
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def delta_scatter_plain(buf: torch.Tensor, idx: torch.Tensor,
+                        vals: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: a new tensor equal to ``buf`` with
+    ``out.flat[idx[i]] = vals[i]``, written through an integer view so
+    every bit pattern survives. Indices outside [0, buf.numel()) are
+    dropped, as the reference's scatter drops them."""
+    bits = _BITS[buf.element_size()]
+    flat = buf.reshape(-1).view(bits)
+    out = flat.clone()
+    i = idx.reshape(-1).long()
+    keep = (i >= 0) & (i < flat.numel())
+    out[i[keep]] = vals.reshape(-1).view(bits)[keep]
+    return out.view(buf.dtype).view(buf.shape)
+
+
+def delta_scatter(buf: torch.Tensor, idx: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """A new tensor equal to ``buf`` with ``out.flat[idx] = vals``; ``buf``
+    is never written. ``idx`` is (k,) int32, ``vals`` (k,) of buf's dtype.
+    The plain version for CPU tensors, the delta_scatter kernel for CUDA
+    tensors."""
+    for name, t in (("buf", buf), ("idx", idx), ("vals", vals)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.device != buf.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{buf.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if idx.dtype != torch.int32 or idx.dim() != 1:
+        raise TypeError("idx must be a 1-D int32 tensor")
+    if vals.dtype != buf.dtype or vals.shape != idx.shape:
+        raise TypeError(f"vals must be ({idx.shape[0]},) {buf.dtype}")
+    if buf.element_size() not in _BITS:
+        raise TypeError(f"no scatter for {buf.element_size()}-byte "
+                        "elements")
+    M = buf.numel()
+    if M >= 1 << 31:
+        raise ValueError("the scatter addresses fewer than 2^31 elements")
+    dev = buf.device
+    if dev.type == "cpu":
+        return delta_scatter_plain(buf, idx, vals)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty_like(buf, memory_format=torch.contiguous_format)
+    kernels.DELTA_SCATTER.launch(buf.dtype, [buf, idx, vals, out],
+                                 [M, idx.shape[0]])
+    return out
+
+
+# --------------------------------------------------------------------------
+# Transfers.
+
+def _host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A tensor over ``arr``'s memory (read-only arrays included: every
+    caller copies it before anything could write)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # non-writable
+        return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def _put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Wholesale host->device copy; on the CPU a tensor that owns its own
+    copy (never an alias of a frozen shadow)."""
+    t = _host_tensor(arr)
+    if device.type == "cpu":
+        return t.clone()
+    return t.to(device)
+
+
+def _scatter_single(buf, idx_p: np.ndarray, vals_p: np.ndarray):
+    """Ship the padded (idx, vals) payload and scatter it into a copy of
+    ``buf`` on buf's device."""
+    dev = buf.device
+    return delta_scatter(buf.reshape(-1), _put(idx_p, dev),
+                         _put(vals_p, dev)).view(buf.shape)
+
+
+def _evict_chain_over_bounds_locked() -> None:
+    max_b = _chain_max_bytes()
+    while _CHAIN and _STATS["chain_resident_bytes"] > max_b:
+        _, ent = _CHAIN.popitem(last=False)
+        _STATS["chain_resident_bytes"] -= ent.nbytes
+        _STATS["evictions"] += 1
+
+
+def chain_apply(key: tuple, arr: np.ndarray, store, token: Optional[int],
+                put_fn):
+    """Version-chain transfer of one array: reuse or delta-update the
+    buffer this slot shipped last time. Returns (buffer, bytes_shipped,
+    outcome), outcome one of install / reuse / promote / gap / size (see
+    the module docstring). ``store.alloc_deltas_since(entry.version,
+    upto=token)`` must report the span covered; the update itself is the
+    bitwise host diff between the frozen shadow and ``arr``.
+
+    Locking: never call this under ``_LOCK``. ``alloc_deltas_since``
+    takes the store's lock, which nests outside ``_LOCK`` (the store's
+    write hook calls note_table_write under it), so the entry is claimed
+    under ``_LOCK``, evaluated here and reinstalled under ``_LOCK``; a
+    concurrent claimant of the same slot installs wholesale and the last
+    writer wins. ``put_fn(arr)`` is the wholesale upload; ``arr`` becomes
+    the frozen shadow (callers pass fresh transport outputs)."""
+    from ..tensor.pack import journal_touched_nodes
+
+    nbytes = int(arr.nbytes)
+    shadow = arr
+    # the shadow is a promise about the resident buffer's content
+    shadow.setflags(write=False)
+    with _LOCK:
+        ce = _CHAIN.pop(key, None)
+        if ce is not None:
+            _STATS["chain_resident_bytes"] -= ce.nbytes
+
+    outcome = "install"
+    payload = 0
+    buf = None
+    if ce is not None:
+        covered = False
+        pairs: list = []
+        if (store is not None and token is not None
+                and ce.version is not None):
+            try:
+                covered, pairs = store.alloc_deltas_since(
+                    ce.version, upto=token)
+            except Exception:
+                # a journal that cannot answer cannot vouch: a counted
+                # gap, the wholesale upload below
+                covered = False
+        if not covered or ce.nbytes != nbytes \
+                or ce.host.dtype != shadow.dtype:
+            outcome = "gap"
+        else:
+            if pairs:
+                with _LOCK:
+                    _STATS["delta_touched_nodes_last"] = len(
+                        journal_touched_nodes(pairs))
+            idx = _bitwise_changed(ce.host, shadow)
+            if idx.size == 0:
+                outcome = "reuse"
+                buf = ce.buf
+            elif shadow.size >= (1 << 31):
+                outcome = "gap"   # int32 indices cannot address it
+            else:
+                idx_p, vals_p, bucket = _pad_updates(
+                    idx, shadow.reshape((-1,))[idx])
+                # int32 indices and the values
+                payload = bucket * (4 + shadow.dtype.itemsize)
+                if payload >= _delta_max_frac() * nbytes:
+                    outcome = "size"
+                    payload = 0
+                else:
+                    outcome = "promote"
+                    buf = _scatter_single(ce.buf, idx_p, vals_p)
+    if buf is None:                       # install / gap / size
+        buf = put_fn(shadow)
+    shipped = payload if outcome in ("reuse", "promote") else nbytes
+
+    with _LOCK:
+        if outcome in ("reuse", "promote"):
+            ne = ce
+            ne.buf = buf
+            ne.version = token
+            ne.hits += 1
+            if outcome == "promote":
+                ne.host = shadow
+                ne.deltas_applied += 1
+        else:
+            ne = _ChainEntry(buf, shadow, nbytes, token)
+        if key in _CHAIN:
+            # a concurrent claimant reinstalled first; last writer wins
+            prev = _CHAIN.pop(key)
+            _STATS["chain_resident_bytes"] -= prev.nbytes
+        _CHAIN[key] = ne
+        _STATS["chain_resident_bytes"] += nbytes
+        if outcome == "promote":
+            _STATS["delta_promotions"] += 1
+            _STATS["delta_bytes_total"] += payload
+        elif outcome == "reuse":
+            _STATS["delta_reuses"] += 1
+        elif outcome != "install":
+            _STATS["delta_fallbacks"] += 1
+            _STATS["delta_%s_fallbacks" % outcome] += 1
+        _evict_chain_over_bounds_locked()
+    return buf, shipped, outcome
+
+
+def device_put_cached(arrays: Sequence[np.ndarray],
+                      device: DeviceLike = None,
+                      version: Optional[int] = None,
+                      cacheable: Optional[Sequence[bool]] = None,
+                      tags: Optional[Sequence[str]] = None,
+                      delta_src=None) -> Tuple[List[torch.Tensor], int]:
+    """Copy ``arrays`` to ``device`` (default ``cuda``), reusing resident
+    buffers for repeated content. Returns (tensors, bytes_shipped).
+    ``version`` tags new entries with the node table's index;
+    ``cacheable`` masks which arrays may enter the content cache (the
+    fused transport marks only the const tree's buffers); ``tags`` name
+    each array's tree group (the chain's slot keys). ``delta_src`` =
+    (store, token) routes arrays that miss the content cache through the
+    version chain. Cacheable arrays are frozen (``write=False``): their
+    fingerprint is a promise about their content. The returned tensors
+    are shared with the cache: callers must not write into them."""
+    dev = resolve_device(device)
+    where = str(dev)
+
+    def tag_of(i: int) -> str:
+        return tags[i] if tags is not None else "untagged"
+
+    def put(a):
+        return _put(a, dev)
+
+    arrays = [np.asarray(a) for a in arrays]
+    if not enabled():
+        shipped = sum(a.nbytes for a in arrays)
+        return [put(a) for a in arrays], shipped
+
+    store = token = None
+    if delta_src is not None and delta_stream_enabled():
+        store, token = delta_src
+        if token is None or not hasattr(store, "alloc_deltas_since"):
+            store = token = None
+    chain_on = store is not None
+
+    min_b = _min_bytes()
+    buffers: List = [None] * len(arrays)
+    miss_idx: List[int] = []
+    miss_keys: List[Optional[tuple]] = []
+    chain_jobs: List[Tuple[int, tuple, Optional[tuple]]] = []
+    occ: dict = {}
+    shipped = 0
+    hits = misses = saved = 0
+    with _LOCK:
+        for i, arr in enumerate(arrays):
+            if arr.nbytes < min_b:
+                miss_idx.append(i)
+                miss_keys.append(None)          # shipped, never cached
+                shipped += arr.nbytes
+                continue
+            ck = None
+            if cacheable is None or cacheable[i]:
+                ck = (_fingerprint(arr), where)
+                arr.setflags(write=False)
+                ent = _CACHE.get(ck)
+                if ent is not None:
+                    _CACHE.move_to_end(ck)
+                    ent.hits += 1
+                    buffers[i] = ent.buf
+                    hits += 1
+                    saved += ent.nbytes
+                    continue
+                misses += 1
+            if chain_on:
+                # slot key: tree group, dtype, shape and occurrence within
+                # this call -- stable across generations, because the
+                # transports emit their trees in a fixed order
+                sig = (tag_of(i), arr.dtype.str, arr.shape)
+                k = occ.get(sig, 0)
+                occ[sig] = k + 1
+                chain_jobs.append((i, sig + (k, where), ck))
+            else:
+                miss_idx.append(i)
+                miss_keys.append(ck)
+                shipped += arr.nbytes
+    if miss_idx:
+        puts = [put(arrays[i]) for i in miss_idx]
+        with _LOCK:
+            for j, i in enumerate(miss_idx):
+                buffers[i] = puts[j]
+                ck = miss_keys[j]
+                if ck is None:
+                    continue
+                _CACHE[ck] = _Entry(puts[j], arrays[i].nbytes, version)
+                _STATS["resident_bytes"] += arrays[i].nbytes
+            _evict_over_bounds_locked()
+    if chain_jobs:
+        cache_adds: List[Tuple[int, tuple]] = []
+        for (i, key, ck) in chain_jobs:
+            buf, ship_i, outcome = chain_apply(key, arrays[i], store,
+                                               token, put_fn=put)
+            buffers[i] = buf
+            shipped += ship_i
+            if outcome in ("reuse", "promote"):
+                saved += arrays[i].nbytes - ship_i
+            if ck is not None:
+                cache_adds.append((i, ck))
+        if cache_adds:
+            # the promoted (or installed) buffer enters the content cache
+            # under the new content's fingerprint
+            with _LOCK:
+                for (i, ck) in cache_adds:
+                    if ck not in _CACHE:
+                        _CACHE[ck] = _Entry(buffers[i], arrays[i].nbytes,
+                                            version)
+                        _STATS["resident_bytes"] += arrays[i].nbytes
+                _evict_over_bounds_locked()
+    with _LOCK:
+        _STATS["hits"] += hits
+        _STATS["misses"] += misses
+        _STATS["bytes_shipped_total"] += shipped
+        _STATS["bytes_saved_total"] += saved
+    return buffers, shipped
+
+
+def _evict_over_bounds_locked() -> None:
+    max_e, max_b = _max_entries(), _max_bytes()
+    while _CACHE and (len(_CACHE) > max_e
+                      or _STATS["resident_bytes"] > max_b):
+        _, ent = _CACHE.popitem(last=False)
+        _STATS["resident_bytes"] -= ent.nbytes
+        _STATS["evictions"] += 1
+
+
+def residency() -> List[dict]:
+    """One row per resident buffer: content-cache entries (bytes, upload
+    version, age, hits) and chain slots (with their last wholesale
+    version and the deltas applied since)."""
+    now = time.time()
+    with _LOCK:
+        rows = [{"id": ck[0].hex()[:12], "bytes": ent.nbytes,
+                 "version": ent.version,
+                 "age_s": round(now - ent.created_at, 1),
+                 "hits": ent.hits}
+                for ck, ent in _CACHE.items()]
+        rows.extend(
+            {"id": "chain:%s/%s/%s#%d" % (key[0], key[1],
+                                          "x".join(map(str, key[2])),
+                                          key[3]),
+             "bytes": ent.nbytes, "version": ent.version,
+             "base_version": ent.base_version,
+             "deltas_applied": ent.deltas_applied,
+             "age_s": round(now - ent.created_at, 1),
+             "hits": ent.hits}
+            for key, ent in _CHAIN.items())
+        return rows
+
+
+def chain_entries() -> list:
+    """(device buffer, frozen host shadow) of every chain slot."""
+    with _LOCK:
+        return [(ce.buf, ce.host) for ce in _CHAIN.values()]
+
+
+def note_table_write(tables, table_index: int, delta=None) -> None:
+    """The state store's write hook: only node-table writes concern the
+    content cache."""
+    if "nodes" in tables:
+        note_node_table_write(table_index)
+
+
+def note_node_table_write(table_index: int) -> None:
+    """Drop content-cache entries uploaded under an older node table.
+    Correctness never depends on it (content keys validate themselves);
+    it frees dead fleet versions before LRU pressure would. The chain
+    survives: the journal's coverage check decides whether an old slot
+    can still be advanced."""
+    if not _CACHE:
+        return
+    with _LOCK:
+        stale = [ck for ck, ent in _CACHE.items()
+                 if ent.version is not None and ent.version < table_index]
+        for ck in stale:
+            ent = _CACHE.pop(ck)
+            _STATS["resident_bytes"] -= ent.nbytes
+        if stale:
+            _STATS["invalidations"] += 1
+
+
+def invalidate_all(reason: str = "") -> None:
+    """Drop every resident buffer (the dispatch guard's breaker calls this
+    on a trip and on recovery: buffers that crossed a failed transport
+    are not trusted). ``reason`` is for the caller's log."""
+    del reason
+    with _LOCK:
+        had = bool(_CACHE) or bool(_CHAIN)
+        _CACHE.clear()
+        _CHAIN.clear()
+        _STATS["resident_bytes"] = 0
+        _STATS["chain_resident_bytes"] = 0
+        if had:
+            _STATS["invalidations"] += 1
+
+
+def stats() -> dict:
+    with _LOCK:
+        out = dict(_STATS)
+        out["entries"] = len(_CACHE)
+        out["chain_entries"] = len(_CHAIN)
+    out["enabled"] = enabled()
+    out["delta_stream_enabled"] = delta_stream_enabled()
+    return out
+
+
+def _reset_for_tests() -> None:
+    with _LOCK:
+        _CACHE.clear()
+        _CHAIN.clear()
+        for k in _STATS:
+            _STATS[k] = 0

@@ -37,17 +37,22 @@ class PackedLane:
     its identity is the node universe the LP tier groups lanes by.
     ``plan_priority`` and ``plan_has_stops`` are the two facts of the
     eval's plan the cross-lane fixpoint reads: its priority, and whether
-    it already stops or preempts allocs."""
+    it already stops or preempts allocs. ``table_version`` (the packing
+    snapshot's node-table index) and ``delta_src`` (the state store
+    holding the alloc-delta journal and the snapshot's index) are what
+    the resident buffer set reads (solver/resident.py)."""
 
     __slots__ = ("order", "const", "init", "batch", "dtype_name",
                  "spread_alg", "node_ids", "ptab", "pinit", "matrix",
-                 "plan_priority", "plan_has_stops", "_wave")
+                 "plan_priority", "plan_has_stops", "table_version",
+                 "delta_src", "_wave")
 
     def __init__(self, order, const, init, batch, dtype_name: str,
                  spread_alg: bool, node_ids: Optional[Sequence[str]] = None,
                  ptab: Optional[PreemptTables] = None,
                  pinit: Optional[PreemptState] = None, matrix=None,
-                 plan_priority: int = 50, plan_has_stops: bool = False):
+                 plan_priority: int = 50, plan_has_stops: bool = False,
+                 table_version: Optional[int] = None, delta_src=None):
         if (ptab is None) != (pinit is None):
             raise ValueError("a preemption lane needs both ptab and pinit")
         self.order = order
@@ -62,6 +67,8 @@ class PackedLane:
         self.matrix = matrix
         self.plan_priority = int(plan_priority)
         self.plan_has_stops = bool(plan_has_stops)
+        self.table_version = table_version
+        self.delta_src = delta_src
         self._wave = None
 
     def wavefront_ok(self) -> bool:
@@ -191,6 +198,8 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
                      spread_alg: bool = False,
                      plan_priority: int = 50,
                      plan_has_stops: bool = False,
+                     table_version: Optional[int] = None,
+                     delta_src=None,
                      dtype_name: Optional[str] = None,
                      device: DeviceLike = None) -> PackedLane:
     """Build one service-eval lane from node-axis arrays (original node
@@ -210,8 +219,9 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
     lanes ask for no ports and no reserved cores (the reference routes
     those to its host iterator). ``plan_priority`` (the eval's plan
     priority, the job's) and ``plan_has_stops`` (the plan already stops
-    or preempts allocs) are what the cross-lane fixpoint reads.
-    ``dtype_name`` defaults by ``device``: float64 on the CPU, float32 on
+    or preempts allocs) are what the cross-lane fixpoint reads;
+    ``table_version`` and ``delta_src`` (a (store, index) pair) what the
+    resident buffer set reads. ``dtype_name`` defaults by ``device``: float64 on the CPU, float32 on
     the card."""
     dtype_name = default_dtype_name(device, dtype_name)
     dtype = np.dtype(dtype_name).type
@@ -276,7 +286,8 @@ def pack_lane_arrays(matrix, usage, feasible: np.ndarray, *,
     return PackedLane(order, const, init, batch, dtype_name, spread_alg,
                       node_ids=matrix.node_ids, ptab=ptab, pinit=pinit,
                       matrix=matrix, plan_priority=plan_priority,
-                      plan_has_stops=plan_has_stops)
+                      plan_has_stops=plan_has_stops,
+                      table_version=table_version, delta_src=delta_src)
 
 
 def _preempt_tables(info, perm, dtype):

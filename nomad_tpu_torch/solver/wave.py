@@ -35,13 +35,15 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..device import DeviceLike, resolve_device
-from . import dense, preempt
+from ..device import DeviceLike, default_dtype_name, resolve_device
+from . import dense, preempt, resident
 from .binpack import (
-    SKIP_THRESHOLD, WAVE_K, WaveSpread, _wave_p_bucket,
-    wavefront_buffer_size, wavefront_compact_host)
+    SKIP_THRESHOLD, WAVE_B, WAVE_K, NodeConst, NodeState, PlacementBatch,
+    WaveSpread, _wave_p_bucket, wavefront_buffer_size,
+    wavefront_compact_host)
 from .scoring import (
-    _anti, _binpack_raw, _score, _select, _spread_boost, _winner, _BIG)
+    _anti, _binpack_raw, _fma, _score, _select, _spread_boost, _winner,
+    _BIG)
 
 
 def _slot_scores(slot, j, ask_cpu, ask_mem, count, spread_alg):
@@ -425,20 +427,24 @@ def wave_inputs(const, init, batch, *, dtype_name: str) -> WaveInputs:
         pen=pen, sp=sp, B=B, use_block=use_block, P=P)
 
 
-def wave_tensors(inp: WaveInputs, device: torch.device):
-    """Ship one stacked wave dispatch's inputs to ``device``: (compact,
-    scal_f, scal_i, pen, WaveSpread) tensors."""
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+def wave_tensors(inp: WaveInputs, device: torch.device, *,
+                 cache_version=None, delta_src=None):
+    """Ship one stacked wave dispatch's inputs to ``device`` through the
+    resident buffer set, tagged ``compact``: (compact, scal_f, scal_i,
+    pen, WaveSpread) tensors."""
+    arrays = [inp.compact, inp.scal_f, inp.scal_i, inp.pen, *inp.sp]
+    bufs, _ = resident.device_put_cached(
+        arrays, device=device, version=cache_version,
+        tags=["compact"] * len(arrays), delta_src=delta_src)
+    return (*bufs[:4], WaveSpread(*bufs[4:]))
 
-    return (put(inp.compact), put(inp.scal_f), put(inp.scal_i),
-            put(inp.pen), WaveSpread(*(put(a) for a in inp.sp)))
 
-
-def run_wave(inp: WaveInputs, *, spread_alg: bool, device: torch.device):
+def run_wave(inp: WaveInputs, *, spread_alg: bool, device: torch.device,
+             cache_version=None, delta_src=None):
     """Run the kernel the gate chose on ``device``. Returns device tensors
     (chosen, scores, n_yielded), each (E, P_pad)."""
-    compact, scal_f, scal_i, pen, sp = wave_tensors(inp, device)
+    compact, scal_f, scal_i, pen, sp = wave_tensors(
+        inp, device, cache_version=cache_version, delta_src=delta_src)
     if inp.use_block:
         return wave_block(compact, scal_f, scal_i, spread_alg=spread_alg,
                           B=inp.B)
@@ -447,15 +453,17 @@ def run_wave(inp: WaveInputs, *, spread_alg: bool, device: torch.device):
 
 
 def solve_lane_wave(const, init, batch, *, spread_alg: bool,
-                    dtype_name: str, device: DeviceLike = None):
+                    dtype_name: str, device: DeviceLike = None,
+                    cache_version=None, delta_src=None):
     """Wavefront solve of a stacked lane group (leading eval axis) with
     host precompute + one compact transfer; returns host numpy (chosen
     int64, scores, n_yielded int64), each (E, P). Callers guarantee the
     lanes passed the wave gate."""
     dev = resolve_device(device)
     inp = wave_inputs(const, init, batch, dtype_name=dtype_name)
-    chosen, scores, n_yielded = run_wave(inp, spread_alg=spread_alg,
-                                         device=dev)
+    chosen, scores, n_yielded = run_wave(
+        inp, spread_alg=spread_alg, device=dev,
+        cache_version=cache_version, delta_src=delta_src)
     P = inp.P
     return (chosen[:, :P].cpu().numpy(), scores[:, :P].cpu().numpy(),
             n_yielded[:, :P].cpu().numpy())
@@ -463,28 +471,218 @@ def solve_lane_wave(const, init, batch, *, spread_alg: bool,
 
 def solve_lane_fused(const, init, batch, ptab=None, pinit=None, *,
                      spread_alg: bool, dtype_name: str, wave: bool = False,
-                     device: DeviceLike = None):
+                     device: DeviceLike = None, cache_version=None,
+                     delta_src=None):
     """Solve a stacked lane group; returns host numpy (chosen int64,
     scores, n_yielded int64), each (E, P), plus evict_rows (E, P, A) bool
     for a preemption group (``ptab``/``pinit`` stacked). ``wave`` routes
     through the wavefront kernels (the caller checked the gate), anything
     else through the dense greedy scan (solver/dense.py); a preemption
     group through the windowed or the dense preemption kernel
-    (solver/preempt.py)."""
+    (solver/preempt.py). Every route ships its tables through the
+    resident buffer set (solver/resident.py): ``cache_version`` is the
+    packing snapshot's node-table index, ``delta_src`` its (store, index)
+    pair for the version chain."""
+    kw = dict(spread_alg=spread_alg, dtype_name=dtype_name, device=device,
+              cache_version=cache_version, delta_src=delta_src)
     if ptab is not None:
         if wave:
             return preempt.solve_lane_wave_preempt(
-                const, init, batch, ptab, pinit, spread_alg=spread_alg,
-                dtype_name=dtype_name, device=device)
+                const, init, batch, ptab, pinit, **kw)
         out = preempt.solve_placements_preempt(
-            const, init, batch, ptab, pinit, spread_alg=spread_alg,
-            dtype_name=dtype_name, device=device)
+            const, init, batch, ptab, pinit, **kw)
         return (out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
                 out.n_yielded.cpu().numpy(), out.evict_rows.cpu().numpy())
     if wave:
-        return solve_lane_wave(const, init, batch, spread_alg=spread_alg,
-                               dtype_name=dtype_name, device=device)
-    out = dense.solve_placements(const, init, batch, spread_alg=spread_alg,
-                                 dtype_name=dtype_name, device=device)
+        return solve_lane_wave(const, init, batch, **kw)
+    out = dense.solve_placements(const, init, batch, **kw)
     return (out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
             out.n_yielded.cpu().numpy())
+
+
+# --------------------------------------------------------------------------
+# The in-kernel wavefront (binpack.py _solve_wavefront_impl): capacities,
+# fit order and compact table computed on the device from the dense lane
+# tables, then the per-placement step with no spread columns, B = WAVE_B.
+
+# (tree, field) order of the tensor pointers nt_wavefront_* takes
+# (csrc/wavefront.cu unpacks them in this order)
+WAVEFRONT_ARGS = (
+    ("const", "cpu_cap"), ("const", "mem_cap"), ("const", "disk_cap"),
+    ("const", "feasible"), ("const", "affinity"), ("const", "has_affinity"),
+    ("const", "distinct_hosts"), ("const", "distinct_job_level"),
+    ("state", "used_cpu"), ("state", "used_mem"), ("state", "used_disk"),
+    ("state", "placed"), ("state", "placed_job"), ("state", "static_free"),
+    ("state", "dyn_avail"),
+    ("batch", "ask_cpu"), ("batch", "ask_mem"), ("batch", "ask_disk"),
+    ("batch", "n_dyn_ports"), ("batch", "has_static"), ("batch", "limit"),
+    ("batch", "count"), ("batch", "active"), ("batch", "penalty_idx"),
+)
+
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _sat_i32(q):
+    """XLA's float -> int32 conversion of floored values: NaN gives 0, out
+    of range saturates (a plain .to(torch.int32) wraps instead)."""
+    qd = torch.nan_to_num(q.to(torch.float64), nan=0.0)
+    return qd.clamp(_I32_MIN, _I32_MAX).to(torch.int32)
+
+
+def _cap_dim(used0, cap, ask):
+    """c = max m >= 0 with used0 + m * ask <= cap, per node: the float
+    quotient, then the reference's +-2 integer correction (binpack.py
+    cap_dim). The predicate's multiply-add is one fma, as XLA's lowering
+    fuses it; int32 throughout, wrapping as XLA's int32 adds do."""
+    q = _sat_i32(torch.floor((cap - used0) / ask.clamp_min(1e-9)))
+
+    def fits(m):
+        return _fma(m.to(used0.dtype), ask, used0) <= cap
+
+    q = torch.where(fits(q), q, q - 1)
+    q = torch.where(fits(q), q, q - 1)
+    q = q.clamp_min(0)
+    q = torch.where(fits(q + 1), q + 1, q)
+    q = torch.where(fits(q + 1), q + 1, q)
+    q = torch.where(fits(q), q, torch.zeros_like(q))
+    return torch.where(ask > 0, q, torch.full_like(q, 2 ** 30))
+
+
+def wavefront_tables(const, init, batch, B: int = WAVE_B):
+    """The device-side precompute of the in-kernel wavefront over E
+    stacked lanes of tensors: (compact (E, P + B, 8), scal_f (E, 3),
+    scal_i (E, 2) int32), the compact table's columns those of
+    wave_compact's [c, used_cpu, used_mem, cpu_cap, mem_cap, placed,
+    affinity, pos]. Rows past a lane's last fit node repeat node N-1's
+    row with c = 0 and pos = N."""
+    dt = const.cpu_cap.dtype
+    E, N = const.cpu_cap.shape
+    P = batch.ask_cpu.shape[1]
+    C = P + B
+    dev = const.cpu_cap.device
+    ask_cpu, ask_mem = batch.ask_cpu[:, :1], batch.ask_mem[:, :1]
+    ask_disk = batch.ask_disk[:, :1]
+    n_dyn = batch.n_dyn_ports[:, :1]
+    c = torch.minimum(_cap_dim(init.used_cpu, const.cpu_cap, ask_cpu),
+                      _cap_dim(init.used_mem, const.mem_cap, ask_mem))
+    c = torch.minimum(c, _cap_dim(init.used_disk, const.disk_cap, ask_disk))
+    dyn = torch.div(init.dyn_avail, n_dyn.clamp_min(1), rounding_mode="floor")
+    c = torch.minimum(c, torch.where(n_dyn > 0, dyn,
+                                     torch.full_like(dyn, 2 ** 30)))
+    one = torch.ones_like(c)
+    zero = torch.zeros_like(c)
+    c = torch.where(batch.has_static[:, :1],
+                    torch.minimum(c, torch.where(init.static_free, one,
+                                                 zero)), c)
+    distinct0 = torch.where(const.distinct_job_level[:, None],
+                            init.placed_job, init.placed)
+    c = torch.where(const.distinct_hosts[:, None],
+                    torch.minimum(c, torch.where(distinct0 > 0, zero, one)),
+                    c)
+    c = torch.where(const.feasible, c, zero).clamp(0, P)
+    aff = torch.where(const.has_affinity[:, None], const.affinity,
+                      torch.zeros_like(const.affinity))
+
+    # the first C fit nodes of each lane in shuffled order; N = none
+    tak = c > 0
+    kpos = torch.cumsum(tak.to(torch.int64), dim=1) - 1
+    slot = torch.where(tak & (kpos < C), kpos, C)
+    pos = torch.full((E, C + 1), N, dtype=torch.int64, device=dev)
+    ar = torch.arange(N, device=dev).expand(E, N)
+    pos.scatter_(1, slot, ar)
+    pos = pos[:, :C]
+    safe = pos.clamp_max(N - 1)
+    cols = (c.to(dt), init.used_cpu, init.used_mem, const.cpu_cap,
+            const.mem_cap, init.placed.to(dt), aff)
+    compact = torch.stack([torch.gather(x, 1, safe) for x in cols]
+                          + [pos.to(dt)], dim=2)
+    compact[..., 0] = torch.where(pos < N, compact[..., 0],
+                                  torch.zeros_like(compact[..., 0]))
+    scal_f = torch.stack([batch.ask_cpu[:, 0], batch.ask_mem[:, 0],
+                          batch.count[:, 0].to(dt)], dim=1)
+    scal_i = torch.stack([batch.limit[:, 0].to(torch.int32),
+                          batch.active.sum(dim=1).to(torch.int32)], dim=1)
+    return compact.contiguous(), scal_f, scal_i
+
+
+def wavefront_plain(const: NodeConst, init: NodeState,
+                    batch: PlacementBatch, *, spread_alg: bool):
+    """Plain PyTorch version of the in-kernel wavefront over E stacked
+    lanes: wavefront_tables, then the per-placement step
+    (wave_compact_plain with no spread columns). Returns (chosen int64,
+    scores, n_yielded int64), each (E, P)."""
+    compact, scal_f, scal_i = wavefront_tables(const, init, batch)
+    E = compact.shape[0]
+    dt, dev = compact.dtype, compact.device
+    sp = WaveSpread(
+        counts=torch.zeros((E, 0, 1), dtype=torch.int32, device=dev),
+        desired=torch.zeros((E, 0, 1), dtype=dt, device=dev),
+        has_targets=torch.zeros((E, 0), dtype=torch.bool, device=dev),
+        weights=torch.zeros((E, 0), dtype=dt, device=dev),
+        sum_weights=torch.zeros(E, dtype=dt, device=dev))
+    return wave_compact_plain(compact, scal_f, scal_i,
+                              batch.penalty_idx.to(torch.int32), sp,
+                              spread_alg=spread_alg, B=WAVE_B)
+
+
+def wavefront(const: NodeConst, init: NodeState, batch: PlacementBatch, *,
+              spread_alg: bool):
+    """In-kernel wavefront over E stacked lanes of tensors on one device:
+    the plain version for CPU tensors, the wavefront kernel for CUDA
+    tensors. Returns (chosen int64, scores, n_yielded int64), (E, P)."""
+    dt = const.cpu_cap.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"cpu_cap dtype {dt} is not float32/float64")
+    dev = const.cpu_cap.device
+    E, N = const.cpu_cap.shape
+    P = batch.ask_cpu.shape[1]
+    trees = {"const": const, "state": init, "batch": batch}
+    shapes = {"const": (E, N), "state": (E, N), "batch": (E, P)}
+    for tree, f in WAVEFRONT_ARGS:
+        t = getattr(trees[tree], f)
+        shape = ((E,) if f in ("has_affinity", "distinct_hosts",
+                               "distinct_job_level") else shapes[tree])
+        _check(f"{tree}.{f}", t, dense._field_dtype(f, dt), len(shape), dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{tree}.{f} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    if N < 1 or P < 1:
+        raise ValueError("the wavefront needs N >= 1 and P >= 1")
+    if dev.type == "cpu":
+        return wavefront_plain(const, init, batch, spread_alg=spread_alg)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    C = P + WAVE_B
+    compact = torch.empty((E, C, 8), dtype=dt, device=dev)
+    scal_f = torch.empty((E, 3), dtype=dt, device=dev)
+    scal_i = torch.empty((E, 2), dtype=torch.int32, device=dev)
+    chosen = torch.empty((E, P), dtype=torch.int64, device=dev)
+    scores = torch.empty((E, P), dtype=dt, device=dev)
+    n_yielded = torch.empty((E, P), dtype=torch.int64, device=dev)
+    kernels.WAVEFRONT.launch(
+        dt, [getattr(trees[tree], f) for tree, f in WAVEFRONT_ARGS]
+        + [compact, scal_f, scal_i, chosen, scores, n_yielded],
+        [E, N, P, int(bool(spread_alg))])
+    return chosen, scores, n_yielded
+
+
+def solve_wavefront(const, init, batch, *, spread_alg: bool = False,
+                    dtype_name=None, device: DeviceLike = None):
+    """The in-kernel wavefront entry point (binpack.py solve_wavefront) on
+    numpy lane tables: one lane ((N,) tables) or a stacked group (a
+    leading eval axis), shipped through the fused transport to ``device``
+    (default ``cuda``; no card raises). Returns host numpy (chosen int32,
+    scores, n_yielded int32), (P,) or (E, P)."""
+    dev = resolve_device(device)
+    dtype_name = default_dtype_name(dev, dtype_name)
+    single = np.asarray(const.cpu_cap).ndim == 1
+    if single:
+        const, init, batch = (type(t)(*(np.asarray(a)[None] for a in t))
+                              for t in (const, init, batch))
+    cast = dense.lane_casts(dtype_name)
+    (c, s, b), _ = dense.fused_tensors((const, init, batch), (cast,) * 3,
+                                       device=dev)
+    chosen, scores, n_yielded = wavefront(c, s, b, spread_alg=spread_alg)
+    out = (chosen.to(torch.int32).cpu().numpy(), scores.cpu().numpy(),
+           n_yielded.to(torch.int32).cpu().numpy())
+    return tuple(x[0] for x in out) if single else out

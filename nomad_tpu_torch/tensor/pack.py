@@ -113,3 +113,19 @@ class PreemptInfo:
     valid: np.ndarray          # (n_pad, A) bool eligible candidate
     job_prio: int              # the placing job's priority
     counts: np.ndarray         # (G,) int32
+
+
+def journal_touched_nodes(pairs) -> set:
+    """The node ids an alloc-delta journal span touches (both ends of a
+    move: the node an alloc left and the node it landed on). The
+    resident chain reports it beside the elements it scatters; the
+    scatter's update set itself is the bitwise diff of the tables, since
+    under the per-eval shuffle journal rows do not map to fixed table
+    rows."""
+    touched: set = set()
+    for old, new in pairs:
+        for a in (old, new):
+            nid = getattr(a, "node_id", None)
+            if nid:
+                touched.add(nid)
+    return touched

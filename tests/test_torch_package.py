@@ -65,6 +65,22 @@ def test_lpq_module_loads_no_jax_and_nothing_of_the_reference():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["nomad_tpu_torch.solver.resident",
+                                    "nomad_tpu_torch.state.store"])
+def test_residency_modules_load_no_jax_and_nothing_of_the_reference(
+        module):
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_every_port_env_knob_is_documented():
     """Each NOMAD_TPU_TORCH_* variable the port reads is named in the
     README's port section."""
@@ -75,7 +91,13 @@ def test_every_port_env_knob_is_documented():
         knobs |= set(re.findall(r"NOMAD_TPU_TORCH_[A-Z0-9_]+",
                                 path.read_text()))
     assert {"NOMAD_TPU_TORCH_LPQ_STEPS", "NOMAD_TPU_TORCH_LPQ_COMPARE",
-            "NOMAD_TPU_TORCH_BATCH_FIXPOINT"} <= knobs
+            "NOMAD_TPU_TORCH_BATCH_FIXPOINT", "NOMAD_TPU_TORCH_CONST_CACHE",
+            "NOMAD_TPU_TORCH_CONST_CACHE_ENTRIES",
+            "NOMAD_TPU_TORCH_CONST_CACHE_MB",
+            "NOMAD_TPU_TORCH_CONST_CACHE_MIN_BYTES",
+            "NOMAD_TPU_TORCH_DELTA_STREAM", "NOMAD_TPU_TORCH_DELTA_CHAIN_MB",
+            "NOMAD_TPU_TORCH_DELTA_MAX_FRAC",
+            "NOMAD_TPU_TORCH_DELTA_JOURNAL"} <= knobs
     missing = sorted(k for k in knobs if k not in readme)
     assert not missing, missing
 
@@ -189,21 +211,30 @@ def test_non_wave_groups_take_dense_and_preempt_solves():
 
 
 def test_every_kernel_is_registered_with_its_source_and_reference():
-    """The seven ported kernels, each built from its own csrc/ source that
+    """The nine ported kernels, each built from its own csrc/ source that
     names the TPU program it replaces and exports its entry points. The
     LP relaxation is float32 only, as the reference's LP is on every
-    backend; the others take both dtypes."""
+    backend; the delta scatter moves raw bits, one entry point per
+    element size for every dtype of that size; the others take both
+    float dtypes."""
     names = {k.name: k for k in kernels.KERNELS}
     assert set(names) == {"wave_block", "wave_compact", "dense_scan",
                           "system_fit", "wave_preempt", "dense_preempt",
-                          "lp_relax"}
+                          "lp_relax", "delta_scatter", "wavefront"}
     for k in kernels.KERNELS:
         src = (kernels.CSRC / k.source).read_text()
         func = k.replaces.split()[-1]
         assert func in src, (k.name, func)
-        want = ({torch.float32} if k is kernels.LP_RELAX
-                else {torch.float32, torch.float64})
-        assert set(k.symbols) == want
+        if k is kernels.DELTA_SCATTER:
+            for dt, sym in k.symbols.items():
+                size = torch.empty(0, dtype=dt).element_size()
+                assert sym == f"nt_delta_scatter_{size}", (dt, sym)
+            assert {torch.bool, torch.int32, torch.float32, torch.int64,
+                    torch.float64} <= set(k.symbols)
+        else:
+            want = ({torch.float32} if k is kernels.LP_RELAX
+                    else {torch.float32, torch.float64})
+            assert set(k.symbols) == want
         for sym in k.symbols.values():
             assert f'extern "C" int {sym}(' in src, sym
     assert names["dense_scan"].replaces.startswith(
