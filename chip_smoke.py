@@ -2271,19 +2271,19 @@ def chain_matches_shadows(np, resident):
     return n
 
 
-def run_generations(np, torch, batch, kernels, resident, store_cls, lanes,
-                    charge, *, cold=False, on_scatter=None):
+def run_generations(np, batch, kernels, resident, store_cls, lanes, charge,
+                    *, cold=False):
     """The dense headline dispatch over four journal generations of one
     port StateStore: g1 cold; g2 the same tables at a newer index (one
     covered write); g3 lane 0 charged with ``charge`` (shuffled positions
     of its first G3_PLACED placements) under one journal entry of
     G3_PLACED (None, alloc) pairs; g4 a write with no change pairs (a
     gap). ``cold`` resets the resident set before every generation.
-    Returns per-generation (results, record)."""
+    Returns per-generation (results, record, the lanes dispatched)."""
     store = store_cls()
     for i in range(N_NODES):
         store.upsert_node(JournalAlloc(lanes[0].node_ids[i], None))
-    lanes = [ln for ln in lanes]
+    lanes = list(lanes)
     base = lanes[0].init
     out = []
     for gen in range(1, 5):
@@ -2294,7 +2294,7 @@ def run_generations(np, torch, batch, kernels, resident, store_cls, lanes,
             init = type(base)(*(np.array(a) for a in base))
             for f, a in zip(("used_cpu", "used_mem", "used_disk"), ASK):
                 np.add.at(getattr(init, f), pos, np.float32(a))
-            lanes[0] = svc_copy(lanes[0], init)
+            lanes[0] = lane_with_init(lanes[0], init)
             order = lanes[0].order
             store.upsert_allocs([JournalAlloc(
                 f"g3-alloc-{k}", lanes[0].node_ids[int(order[p])])
@@ -2323,11 +2323,11 @@ def run_generations(np, torch, batch, kernels, resident, store_cls, lanes,
         rec["token"] = token
         if gen >= 3 and not cold:
             rec["chain_buffers_checked"] = chain_matches_shadows(np, resident)
-        out.append((res, rec))
+        out.append((res, rec, list(lanes)))
     return out
 
 
-def svc_copy(lane, init):
+def lane_with_init(lane, init):
     """A PackedLane like ``lane`` with usage tables ``init``."""
     import copy
     new = copy.copy(lane)
@@ -2373,12 +2373,12 @@ def residency_phase(np, torch, batch, dense, kernels, resident, store_cls,
     kernels.reset_launches()
     resident.delta_scatter = record
     try:
-        gens = run_generations(np, torch, batch, kernels, resident,
+        gens = run_generations(np, batch, kernels, resident,
                                store_cls, lanes, charge)
     finally:
         resident.delta_scatter = orig
     launches = {k.name: k.launches for k in kernels.KERNELS}
-    recs = [r for _, r in gens]
+    recs = [r for _, r, _ in gens]
     for g, r in enumerate(recs, 1):
         log(f"residency g{g}: " + " ".join(
             f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
@@ -2393,8 +2393,8 @@ def residency_phase(np, torch, batch, dense, kernels, resident, store_cls,
     assert recs[2]["delta_promotions"] > 0 and recs[2]["scatter_launches"] > 0
     assert recs[3]["delta_gap_fallbacks"] > 0
     assert launches["delta_scatter"] == recs[2]["scatter_launches"]
-    for res, _ in gens:
-        for lane, (ch, sc, ny) in zip(lanes, res):
+    for res, _, dispatched in gens:
+        for lane, (ch, sc, ny) in zip(dispatched, res):
             check_dense_lane(np, lane, ch, lane.batch.ask_cpu.shape[0])
             assert bool(np.all(np.isfinite(sc)))
 
@@ -2402,20 +2402,20 @@ def residency_phase(np, torch, batch, dense, kernels, resident, store_cls,
     os.environ["NOMAD_TPU_TORCH_DELTA_STREAM"] = "0"
     try:
         resident._reset_for_tests()
-        off = run_generations(np, torch, batch, kernels, resident,
+        off = run_generations(np, batch, kernels, resident,
                               store_cls, lanes, charge)
     finally:
         if saved is None:
             os.environ.pop("NOMAD_TPU_TORCH_DELTA_STREAM")
         else:
             os.environ["NOMAD_TPU_TORCH_DELTA_STREAM"] = saved
-    cold = run_generations(np, torch, batch, kernels, resident, store_cls,
+    cold = run_generations(np, batch, kernels, resident, store_cls,
                            lanes, charge, cold=True)
     for g in range(4):
         same_results(np, gens[g][0], off[g][0], f"kill switch g{g + 1}")
         same_results(np, gens[g][0], cold[g][0], f"cold g{g + 1}")
     assert all(r["delta_promotions"] == r["delta_reuses"] == 0
-               for _, r in off)
+               for _, r, _ in off)
 
     # where a warm dispatch's time goes at g4's token (every slot reused,
     # the const tree a content hit): host stacking, the fused transport,
@@ -2494,7 +2494,8 @@ def residency_phase(np, torch, batch, dense, kernels, resident, store_cls,
     assert wave_hits > 0
     m, k, dt = shapes[0]
     return dict(launches=launches, generations=recs,
-                kill_switch=[r for _, r in off], cold=[r for _, r in cold],
+                kill_switch=[r for _, r, _ in off],
+                cold=[r for _, r, _ in cold],
                 warm_breakdown_ms=parts, warm_bytes=warm_bytes[-1],
                 to_device_parts_ms=to_device_parts,
                 wave_second_hits=wave_hits, wave_second_bytes=wave_bytes,
