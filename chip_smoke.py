@@ -1057,7 +1057,8 @@ def dense_slice_phase(np, torch, dense, kernels, svc, batch, tp, world):
         t2 = time.perf_counter()
         tens = [dense.fused_tensors(
             (g.const, g.init, g.batch), (dense.lane_casts(g.dtype_name),) * 3,
-            device=dev)[0] for g in groups]
+            device=dev, cache_version=g.cache_version,
+            delta_src=g.delta_src)[0] for g in groups]
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         outs = [dense.dense_scan(*t, spread_alg=False) for t in tens]
@@ -1568,10 +1569,8 @@ def preempt_kernel_phase(np, torch, bp, preempt, dense, svc, tp, world,
 
         trees = preempt_group(np, bp, tp, svc, world, dtype_name, seed + 1,
                               dense=True)
-        c, s, b = dense.lane_tensors(*trees[:3], dtype_name=dtype_name,
-                                     device=dev)
-        pt, ps = preempt.preempt_tensors(*trees[3:], dtype_name=dtype_name,
-                                         device=dev)
+        (c, s, b, pt, ps), _ = dense.fused_tensors(
+            trees, preempt.preempt_casts(dtype_name), device=dev)
 
         def run_d(fn):
             return fn(c, s, b, pt, ps, spread_alg=False)
@@ -1662,10 +1661,8 @@ def preempt_small_checks(np, torch, bp, preempt, dense, dtype_name, seed):
                        "affinity", "job_level", "inert")[k],) + ("devices",)
             + many, A=A, G=64)) for k in range(8)]
         trees = stack_preempt(np, bp, lanes)
-        args = (dense.lane_tensors(*trees[:3], dtype_name=dtype_name,
-                                   device=dev)
-                + preempt.preempt_tensors(*trees[3:], dtype_name=dtype_name,
-                                          device=dev))
+        args, _ = dense.fused_tensors(
+            trees, preempt.preempt_casts(dtype_name), device=dev)
         got = preempt.dense_preempt(*args, spread_alg=False)
         want = preempt.dense_preempt_plain(*args, spread_alg=False)
         tag = f"dense_preempt {dtype_name} N={n_pad} A={A}"
@@ -1757,11 +1754,10 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
             kfn, pfn, name = (preempt.wave_preempt,
                               preempt.wave_preempt_plain, "wave_preempt")
         else:
-            ten = (dense.lane_tensors(g.const, g.init, g.batch,
-                                      dtype_name="float32", device=dev)
-                   + preempt.preempt_tensors(g.ptab, g.pinit,
-                                             dtype_name="float32",
-                                             device=dev))
+            ten, _ = dense.fused_tensors(
+                (g.const, g.init, g.batch, g.ptab, g.pinit),
+                preempt.preempt_casts("float32"), device=dev,
+                cache_version=g.cache_version, delta_src=g.delta_src)
 
             def run(fn):
                 return fn(*ten, spread_alg=False)
@@ -1811,11 +1807,13 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
                                             dtype_name="float32")
                 if g.wave else None for g in groups]
         t3 = time.perf_counter()
-        tens = [preempt.wave_preempt_tensors(inp, dev) if g.wave else
-                dense.lane_tensors(g.const, g.init, g.batch,
-                                   dtype_name="float32", device=dev)
-                + preempt.preempt_tensors(g.ptab, g.pinit,
-                                          dtype_name="float32", device=dev)
+        tens = [preempt.wave_preempt_tensors(
+                    inp, dev, cache_version=g.cache_version,
+                    delta_src=g.delta_src) if g.wave else
+                dense.fused_tensors(
+                    (g.const, g.init, g.batch, g.ptab, g.pinit),
+                    preempt.preempt_casts("float32"), device=dev,
+                    cache_version=g.cache_version, delta_src=g.delta_src)[0]
                 for g, inp in zip(groups, inps)]
         torch.cuda.synchronize()
         t4 = time.perf_counter()
@@ -2354,8 +2352,7 @@ def residency_phase(np, torch, batch, dense, kernels, resident, store_cls,
     import os
     lanes = slice2_lanes(np, tp, svc, world, "float32", n_spread=N_EVALS)
     g0 = batch.fuse_lanes(lanes)[0]
-    stacked, _, _ = dense._fuse_trees((dense._packed_const(g0.const),
-                                       g0.init, g0.batch))
+    stacked, _, _ = dense._fuse_trees((g0.const, g0.init, g0.batch))
     assert max(a.nbytes for a in stacked) == DENSE_TABLE_BYTES
     # g3's charge: lane 0's first placements, read from a plain dispatch
     first = batch.fuse_and_solve(lanes, device=DEVICE)[0][0]
@@ -2455,7 +2452,7 @@ def residency_phase(np, torch, batch, dense, kernels, resident, store_cls,
     # fingerprinting the const buffers, diffing the others against their
     # shadows, and copying every buffer to the card
     g = batch.fuse_lanes(lanes)[0]
-    trees = (dense._packed_const(g.const), g.init, g.batch)
+    trees = (g.const, g.init, g.batch)
     stacked, _, keys = dense._fuse_trees(trees)
     shadows = [a.copy() for a in stacked]
 
@@ -2511,6 +2508,52 @@ def residency_phase(np, torch, batch, dense, kernels, resident, store_cls,
 WAVEFRONT_PREP_OPS = 62
 
 
+def wavefront_bound(np, wave, trees, out, dtype_name):
+    """(bound_ms, bound_by, bytes, flops) of one wavefront launch, counting
+    what this run's data makes the function read. The fit order takes
+    nodes in shuffled order, so a lane reads its node rows up to the last
+    node it chose, and all N where an active step yielded fewer than its
+    limit (no fit node was left to find). Of each such row: the three
+    capacities, the three usages, the feasibility mask and the placed
+    count, and a flagged table only where its flag asks for it (affinity
+    with has_affinity, placed_job with distinct_hosts at job level,
+    dyn_avail with dynamic ports, static_free with static ports). Of the
+    batch, the uniform asks, ports, limit and count once a lane, the
+    active and penalty rows whole; the lane flags; the outputs written
+    once. The compact table and lane scalars the kernel builds are its
+    own scratch, not counted; rows that entered the window but were never
+    chosen are left out, so the bound stays a lower one."""
+    c, s, b = trees
+    chosen, _, n_yielded = (t.cpu().numpy() for t in out)
+    E, N = c.cpu_cap.shape
+    act = b.active.cpu().numpy()
+    short = ((n_yielded < b.limit.cpu().numpy()) & act).any(axis=1)
+    reach = np.where(short, N, chosen.max(axis=1, initial=-1) + 1)
+
+    def on(t):
+        return t.cpu().numpy().astype(bool)
+
+    row = sum(t.element_size() for t in (
+        c.cpu_cap, c.mem_cap, c.disk_cap, c.feasible, s.used_cpu,
+        s.used_mem, s.used_disk, s.placed))
+    row = (row + on(c.has_affinity) * c.affinity.element_size()
+           + (on(c.distinct_hosts) & on(c.distinct_job_level))
+           * s.placed_job.element_size()
+           + (b.n_dyn_ports[:, 0].cpu().numpy() > 0)
+           * s.dyn_avail.element_size()
+           + on(b.has_static[:, 0]) * s.static_free.element_size())
+    once = sum(t.element_size() for t in (
+        c.has_affinity, c.distinct_hosts, c.distinct_job_level, b.ask_cpu,
+        b.ask_mem, b.ask_disk, b.n_dyn_ports, b.has_static, b.limit,
+        b.count))
+    nbytes = (int((row * reach).sum()) + E * once + b.active.nbytes
+              + b.penalty_idx.nbytes + sum(t.nbytes for t in out))
+    steps = int((chosen >= 0).sum())
+    flops = (int(reach.sum()) * WAVEFRONT_PREP_OPS
+             + steps * wave.WAVE_B * COMPACT_HEAD_OPS)
+    return (*bound("wavefront", nbytes, flops, dtype_name), nbytes, flops)
+
+
 def wavefront_phase(np, torch, wave, dense, batch, kernels, svc, tp, world):
     """solve_wavefront at the headline shape (32 uniform lanes x 2,000
     placements, N = 16,384, B = 32) in float32 and float64: the kernel
@@ -2557,15 +2600,9 @@ def wavefront_phase(np, torch, wave, dense, batch, kernels, svc, tp, world):
                    KERNEL_REPEATS)
         E, N = c.cpu_cap.shape
         P = b.ask_cpu.shape[1]
-        ins = sum(getattr({"const": c, "state": s, "batch": b}[t], f).nbytes
-                  for t, f in wave.WAVEFRONT_ARGS)
-        itemsize = c.cpu_cap.element_size()
-        scratch = E * ((P + wave.WAVE_B) * 8 + 3) * itemsize + E * 2 * 4
-        nbytes = ins + scratch + sum(t.nbytes for t in got)
         steps = int((want[0] >= 0).sum())
-        flops = (E * N * WAVEFRONT_PREP_OPS
-                 + steps * wave.WAVE_B * COMPACT_HEAD_OPS)
-        bound_ms, bound_by = bound("wavefront", nbytes, flops, dtype_name)
+        bound_ms, bound_by, nbytes, flops = wavefront_bound(
+            np, wave, (c, s, b), want, dtype_name)
         log(f"kernel {tag}: E={E} N={N} P={P} placed={steps} match=exact "
             f"(plain and wave_block) max_abs_err={err:.3e} ms={ms:.4f} "
             f"plain_ms={plain_ms:.1f} bound_ms={bound_ms:.6f} ({bound_by}, "

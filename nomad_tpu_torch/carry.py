@@ -53,9 +53,14 @@ def lane_from_reference(const, init, batch, order, *,
     (float64 on the CPU, float32 on the card)."""
     dtype_name = default_dtype_name(device, dtype_name)
     dt = np.dtype(dtype_name)
+    pc = _read(NodeConst, const, dt)
+    if pc.dev_aff.size == 0 and hasattr(const, "dev_sum_weight"):
+        # with no device asks the packer leaves dev_sum_weight at its
+        # float32 default whatever the lane dtype (make_node_const)
+        pc = pc._replace(dev_sum_weight=np.asarray(const.dev_sum_weight))
     return PackedLane(
         np.asarray(order, dtype=np.int64),
-        _read(NodeConst, const, dt), _read(NodeState, init, dt),
+        pc, _read(NodeState, init, dt),
         _read(PlacementBatch, batch, dt), dtype_name, bool(spread_alg),
         node_ids=node_ids,
         ptab=None if ptab is None else _read(PreemptTables, ptab, dt),

@@ -413,19 +413,6 @@ _FUSE_TREE_NAMES = ("const", "init", "batch", "ptab", "pinit")
 _DENSE_READ = frozenset(f for _, f in DENSE_ARGS)
 
 
-def _packed_const(const):
-    """``const`` as the packer emits it: a lane with no device asks keeps
-    dev_sum_weight at its float32 default whatever the lane dtype (the
-    reference's packer does; lane_from_reference casts it to the lane
-    dtype). The transport ships that, so its stacked buffers -- and the
-    resident set's slot keys -- are the reference's."""
-    if np.asarray(const.dev_aff).size == 0:
-        w = np.asarray(const.dev_sum_weight)
-        if w.dtype != np.float32 and not w.any():
-            return const._replace(dev_sum_weight=w.astype(np.float32))
-    return const
-
-
 def _fuse_trees(trees):
     """Group the trees' non-empty leaves by (tree index, dtype, shape) in
     field order. Returns (stacked buffers, per-leaf meta, group keys);
@@ -458,7 +445,6 @@ def fused_tensors(trees, casts, *, device: torch.device,
     device where ``casts[tree index](field)`` names another dtype (None
     keeps the shipped one). Only the const tree's buffers may enter the
     content cache. Returns (rebuilt trees, bytes shipped)."""
-    trees = (_packed_const(trees[0]),) + tuple(trees[1:])
     stacked, metas, group_keys = _fuse_trees(trees)
     buffers, shipped = resident.device_put_cached(
         stacked, device=device, version=cache_version,

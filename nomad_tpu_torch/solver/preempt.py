@@ -650,19 +650,14 @@ def wave_preempt(compact, cand, scal_f, scal_i, pen, counts0, *,
 # --------------------------------------------------------------------------
 # Lane solves over stacked numpy tables.
 
-def preempt_tensors(ptab, pinit, *, dtype_name: str, device: torch.device):
-    """Stacked numpy PreemptTables / PreemptState -> contiguous tensors on
-    ``device`` in the dtypes the kernels take."""
+def preempt_casts(dtype_name: str):
+    """The dense preemption kernel's dtype of each field of the five
+    trees (const, init, batch, ptab, pinit) that dense.fused_tensors
+    ships."""
     dt = getattr(torch, dtype_name)
-
-    def put(a, t):
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(a))).to(
-            device=device, dtype=t)
-
-    return (PreemptTables(*(put(getattr(ptab, f), _ptab_dtype(f, dt))
-                            for f in PreemptTables._fields)),
-            PreemptState(put(pinit.evicted, torch.bool),
-                         put(pinit.counts, torch.int32)))
+    lane = dense.lane_casts(dtype_name)
+    pinit = {"evicted": torch.bool, "counts": torch.int32}
+    return (lane, lane, lane, lambda f: _ptab_dtype(f, dt), pinit.get)
 
 
 def solve_placements_preempt(const, init, batch, ptab, pinit, *,
@@ -675,12 +670,8 @@ def solve_placements_preempt(const, init, batch, ptab, pinit, *,
     DensePreemptOut of tensors on that device."""
     dev = resolve_device(device)
     dtype_name = default_dtype_name(dev, dtype_name)
-    dt = getattr(torch, dtype_name)
-    lane = dense.lane_casts(dtype_name)
-    pinit_dt = {"evicted": torch.bool, "counts": torch.int32}
     (c, s, b, pt, ps), _ = dense.fused_tensors(
-        (const, init, batch, ptab, pinit),
-        (lane, lane, lane, lambda f: _ptab_dtype(f, dt), pinit_dt.get),
+        (const, init, batch, ptab, pinit), preempt_casts(dtype_name),
         device=dev, cache_version=cache_version, delta_src=delta_src)
     return dense_preempt(c, s, b, pt, ps, spread_alg=spread_alg)
 

@@ -416,13 +416,19 @@ def test_inactive_step_after_a_preempting_winner_frees_like_reference():
 # --------------------------------------------------------------------------
 # wrappers
 
+def _fused(trees, dtype_name):
+    """Stacked numpy (const, init, batch, ptab, pinit) as tensors on the
+    CPU, shipped through the fused transport as solve_placements_preempt
+    ships them."""
+    ten, _ = preempt.dense.fused_tensors(
+        trees, preempt.preempt_casts(dtype_name), device=torch.device("cpu"))
+    return ten
+
+
 def test_wrappers_check_their_inputs():
     (_, _, _, _, _), plane = _fuzz(3, ("tiers",), "float64")
     dtype_name = "float64"
-    c, s, b, pt, ps = (preempt.dense.lane_tensors(
-        *_stack([plane])[:3], dtype_name=dtype_name, device="cpu")
-        + preempt.preempt_tensors(*_stack([plane])[3:],
-                                  dtype_name=dtype_name, device="cpu"))
+    c, s, b, pt, ps = _fused(_stack([plane]), dtype_name)
     good = preempt.dense_preempt(c, s, b, pt, ps, spread_alg=False)
     assert good.evict_rows.shape == (1, 12, 8)
     with pytest.raises(TypeError, match="dtype"):
@@ -493,10 +499,7 @@ def test_dense_preempt_bound_counts_rows_the_window_reaches():
     outs, bounds, whole = [], [], []
     for n_to in (64, 512):
         trees = _stack([tuple(_pad_nodes(t, 64, n_to) for t in plane)] * 2)
-        ten = (preempt.dense.lane_tensors(*trees[:3], dtype_name="float32",
-                                          device="cpu")
-               + preempt.preempt_tensors(*trees[3:], dtype_name="float32",
-                                         device="cpu"))
+        ten = _fused(trees, "float32")
         out = preempt.dense_preempt_plain(*ten, spread_alg=False)
         outs.append(out)
         bounds.append(chip_smoke.dense_preempt_bound(np, ten, out,

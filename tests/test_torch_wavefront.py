@@ -321,3 +321,74 @@ def test_wavefront_capacity_predicate_is_one_fma(dtype_name):
     np.testing.assert_array_equal(got[2], want[2])
     placed = (want[0] >= 0).sum(axis=1)
     assert (placed != np.minimum(unfused, P)).any()
+
+
+# --------------------------------------------------------------------------
+# chip_smoke's bound of the kernel
+
+def _bound_of(const, init, batch, dtype_name="float64"):
+    """One reference lane through the fused transport onto the CPU, its
+    wavefront output, chip_smoke's bound of it and the whole input
+    tables' bytes."""
+    import chip_smoke
+    from nomad_tpu_torch.solver import dense
+    trees = tuple(_stack([_port(t, cls)]) for t, cls in (
+        (const, bp.NodeConst), (init, bp.NodeState),
+        (batch, bp.PlacementBatch)))
+    ten, _ = dense.fused_tensors(trees, (dense.lane_casts(dtype_name),) * 3,
+                                 device=torch.device("cpu"))
+    out = wave.wavefront(*ten, spread_alg=False)
+    bnd = chip_smoke.wavefront_bound(np, wave, ten, out, dtype_name)
+    return out, bnd[2], sum(t.nbytes for tree in ten for t in tree)
+
+
+def _pad_nodes(tree, n, n_to):
+    """``tree`` with every axis of size ``n`` zero-padded to ``n_to`` (the
+    added nodes infeasible, with no capacity)."""
+    def pad(a):
+        a = np.asarray(a)
+        widths = [(0, n_to - n if d == n else 0) for d in a.shape]
+        return np.pad(a, widths) if a.ndim else a
+    return type(tree)(*(pad(a) for a in tree))
+
+
+def test_wavefront_bound_counts_rows_up_to_the_last_choice():
+    """The bound counts each lane's node rows up to the last node chosen,
+    not whole tables and not the kernel's own compact table: padding the
+    node axis eightfold changes no decision and leaves the bytes as they
+    were, while the whole tables grow."""
+    c, s, b = _world(random.Random(5), n=40, p=10, limit=6)
+    outs, nbytes, whole = [], [], []
+    for n_to in (40, 320):
+        out, nb, wh = _bound_of(*(_pad_nodes(t, 40, n_to) for t in (c, s, b)))
+        outs.append(out)
+        nbytes.append(nb)
+        whole.append(wh)
+    assert bool((outs[0][2] == 6).all())       # no step yielded short
+    for x, y in zip(outs[0], outs[1]):
+        assert torch.equal(x, y)
+    assert nbytes[0] == nbytes[1] < whole[0]
+    assert whole[1] > 5 * whole[0]
+
+
+def test_wavefront_bound_counts_flagged_tables_only_with_their_flag():
+    """dyn_avail counts only where the lanes ask dynamic ports, placed_job
+    only under distinct_hosts at job level: one 4-byte entry per node row
+    reached, with the decisions unchanged."""
+    c, s, b = _world(random.Random(6), n=40, p=10, limit=6)
+    base, nb0, _ = _bound_of(c, s, b)
+    reach = int(base[0].max()) + 1
+    ports = _bound_of(c, s._replace(dyn_avail=np.full(40, 1000, np.int32)),
+                      b._replace(n_dyn_ports=np.ones(10, np.int32)))
+    job_only = _bound_of(c._replace(distinct_job_level=np.asarray(True)),
+                         s, b)
+    assert torch.equal(ports[0][0], base[0])
+    assert ports[1] == nb0 + 4 * reach
+    assert torch.equal(job_only[0][0], base[0]) and job_only[1] == nb0
+    c_dh = c._replace(distinct_hosts=np.asarray(True))
+    s_dh = s._replace(placed_job=np.asarray(s.placed))
+    tg, nb_tg, _ = _bound_of(c_dh, s_dh, b)
+    jl, nb_jl, _ = _bound_of(
+        c_dh._replace(distinct_job_level=np.asarray(True)), s_dh, b)
+    assert torch.equal(tg[0], jl[0])
+    assert nb_jl == nb_tg + 4 * (int(tg[0].max()) + 1)
