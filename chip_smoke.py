@@ -91,7 +91,28 @@ Phases (any failure raises and the script exits nonzero with no result):
                 x 16,384 node slots (B = 32), float32 and float64: the
                 kernel against wavefront_plain on the card and against
                 the wave_block route's decisions; timed.
-  Phases 4-10 reset the launch counts just before and read them just
+ 11. mesh     -- the mesh route on a grid of 4 cells, every cell cuda:0
+                (one process drives them; on several cards each cell
+                would be its own card): the dense slice (phase 5's lanes,
+                float32 and float64) through fuse_and_solve(device=[cuda]
+                * 4), pick_mesh giving (4, 1) for the 32 spread lanes (a
+                dense_scan per eval row) and (1, 4) for the
+                distinct_property and reserved-core lanes (the
+                node-sharded step, dense_shard); the 32-lane group on the
+                forced grids (2, 2) and (1, 4); dense_shard against its
+                plain phases on the card (the E = 1 groups, timed, and
+                fuzz groups over every dense feature); the wave headline
+                eval-sharded (a wave_block per cell); one LP generation
+                through solve_queue on (4, 1) and a forced (2, 2), and
+                lp_shard at L 128 x N 16,384 against lp_relax and its
+                plain phases (X and mu bit for bit, timed); phase 9's
+                four generations through the grid's per-shard pool and
+                version chain (g3 promotes through coord_scatter; chain
+                buffers equal to their shadows; per-cell counters), and
+                coord_scatter against its plain version at g3's shape,
+                timed. Every grid's decisions equal the one-card route's
+                bit for bit.
+  Phases 4-11 reset the launch counts just before and read them just
   after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
   to the plain versions on the same fused inputs.
@@ -2270,14 +2291,16 @@ def chain_matches_shadows(np, resident):
 
 
 def run_generations(np, batch, kernels, resident, store_cls, lanes, charge,
-                    *, cold=False):
+                    *, cold=False, device=None):
     """The dense headline dispatch over four journal generations of one
     port StateStore: g1 cold; g2 the same tables at a newer index (one
     covered write); g3 lane 0 charged with ``charge`` (shuffled positions
     of its first G3_PLACED placements) under one journal entry of
     G3_PLACED (None, alloc) pairs; g4 a write with no change pairs (a
-    gap). ``cold`` resets the resident set before every generation.
-    Returns per-generation (results, record, the lanes dispatched)."""
+    gap). ``cold`` resets the resident set before every generation;
+    ``device`` (default DEVICE) may be a list of cells (the mesh route,
+    whose usage tables the coordinate scatter promotes). Returns
+    per-generation (results, record, the lanes dispatched)."""
     store = store_cls()
     for i in range(N_NODES):
         store.upsert_node(JournalAlloc(lanes[0].node_ids[i], None))
@@ -2306,9 +2329,10 @@ def run_generations(np, batch, kernels, resident, store_cls, lanes, charge,
         if cold:
             resident._reset_for_tests()
         before = resident.stats()
-        launches0 = kernels.DELTA_SCATTER.launches
+        launches0 = (kernels.DELTA_SCATTER.launches
+                     + kernels.COORD_SCATTER.launches)
         t0 = time.perf_counter()
-        res = batch.fuse_and_solve(lanes, device=DEVICE)
+        res = batch.fuse_and_solve(lanes, device=device or DEVICE)
         ms = (time.perf_counter() - t0) * 1e3
         after = resident.stats()
         rec = {k: after[k] - before[k] for k in (
@@ -2316,7 +2340,9 @@ def run_generations(np, batch, kernels, resident, store_cls, lanes, charge,
             "delta_reuses", "delta_gap_fallbacks", "delta_size_fallbacks")}
         rec["installs"] = max(0, after["chain_entries"]
                               - (0 if cold else before["chain_entries"]))
-        rec["scatter_launches"] = kernels.DELTA_SCATTER.launches - launches0
+        rec["scatter_launches"] = (kernels.DELTA_SCATTER.launches
+                                   + kernels.COORD_SCATTER.launches
+                                   - launches0)
         rec["dispatch_ms"] = ms
         rec["token"] = token
         if gen >= 3 and not cold:
@@ -2615,6 +2641,404 @@ def wavefront_phase(np, torch, wave, dense, batch, kernels, svc, tp, world):
     return results, dict(launches=main)
 
 
+# --------------------------------------------------------------------------
+# The mesh route (slice 6): a grid of MESH_CELLS cells, every cell cuda:0.
+
+MESH_CELLS = 4
+MESH_FUZZ_N, MESH_FUZZ_P = 1_024, 64   # fuzz groups held against the plain
+# dense_shard phases (E = 8, every dense feature) on each 4-cell grid with
+# more than one node column
+
+
+def same_outputs(np, got, want, what):
+    """Host (chosen, scores, n_yielded) equal bit for bit."""
+    for k, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.dtype != w.dtype or g.shape != w.shape or \
+                g.tobytes() != w.tobytes():
+            raise AssertionError(f"{what}: output {k} differs")
+
+
+def shard_rows(mesh, dense, grid, trees, *, spread_alg, dtype_name):
+    """Fresh ShardCells of a stacked numpy group over ``grid``."""
+    s = mesh.shard_solver_inputs(grid, *trees)
+    cast = dense.lane_casts(dtype_name)
+    return [[dense.ShardCell(*(mesh._cell_tree(t, i, j, cast)
+                               for t in (s.const, s.init, s.batch)),
+                             j=j, n_par=grid.n_par, spread_alg=spread_alg)
+             for j in range(grid.n_par)] for i in range(grid.e_par)]
+
+
+def rows_outputs(np, rows):
+    return tuple(np.concatenate([getattr(r[0], f).cpu().numpy()
+                                 for r in rows])
+                 for f in ("chosen", "scores", "n_yielded"))
+
+
+def shard_plain_phase(dense):
+    return lambda c, phase, step: dense._SHARD_PLAIN[phase](c, step)
+
+
+def mesh_dense_check(np, torch, mesh, dense, grid, trees, *, spread_alg,
+                     dtype_name, want, what, timing=False):
+    """dense_shard on ``grid`` against its plain phases on the card and
+    against ``want`` (the one-card route's host outputs), bit for bit;
+    returns (ms, plain_ms) when ``timing`` (CUDA events around the whole
+    host-driven step loop: the orchestration is part of the time)."""
+    kw = dict(spread_alg=spread_alg, dtype_name=dtype_name)
+    rows = shard_rows(mesh, dense, grid, trees, **kw)
+    _, ms = time_once(torch, lambda: mesh.run_node_sharded(rows))
+    got = rows_outputs(np, rows)
+    prow = shard_rows(mesh, dense, grid, trees, **kw)
+    _, plain_ms = time_once(torch, lambda: mesh.run_node_sharded(
+        prow, phase_fn=shard_plain_phase(dense)))
+    same_outputs(np, got, rows_outputs(np, prow),
+                 f"{what}: kernel vs plain phases")
+    same_outputs(np, got, want, f"{what}: grid vs one card")
+    return (ms, plain_ms) if timing else None
+
+
+def mesh_dense_phase(np, torch, batch, dense, mesh, kernels, svc, tp, world,
+                     seed):
+    """The dense slice over a 4-cell grid of cuda:0, both dtypes:
+    fuse_and_solve(device=[cuda] * 4) picks (4, 1) for the 32 spread lanes
+    (a dense_scan per eval row) and (1, 4) for the distinct_property and
+    reserved-core lanes (the node-sharded step, dense_shard), each lane
+    equal to the one-card route bit for bit; then the 32-lane group on
+    the forced grids (2, 2) and (1, 4); dense_shard against its plain
+    phases on the card at the main path's E = 1 groups and on fuzz
+    groups."""
+    cells = [DEVICE] * MESH_CELLS
+    out = {"kernels": []}
+    for dtn in ("float32", "float64"):
+        lanes = slice2_lanes(np, tp, svc, world, dtn, n_spread=N_EVALS)
+        one = batch.fuse_and_solve(lanes, device=DEVICE)
+        picked = []
+        real_pick = mesh.pick_mesh
+
+        def pick(e, n, devices):
+            grid = real_pick(e, n, devices)
+            picked.append((e, grid.shape if grid is not None else None))
+            return grid
+
+        mesh.pick_mesh = pick
+        try:
+            kernels.reset_launches()
+            mesh._reset_for_tests()
+            t0 = time.perf_counter()
+            got = batch.fuse_and_solve(lanes, device=cells)
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k.name: k.launches for k in kernels.KERNELS}
+        finally:
+            mesh.pick_mesh = real_pick
+        stats = mesh.mesh_stats()
+        log(f"mesh dense slice {dtn}: grids {picked}; launches {launches};"
+            f" mesh {stats}; fuse_and_solve_ms={ms:.1f} (host clock, "
+            f"{MESH_CELLS} cells of one card: per-step orchestration, not "
+            "multi-card speed)")
+        assert sorted(picked) == sorted([(N_EVALS, (4, 1)), (1, (1, 4)),
+                                         (1, (1, 4))]), picked
+        assert launches["dense_shard"] > 0 and launches["dense_scan"] == 4
+        for k, (g, w) in enumerate(zip(got, one)):
+            same_outputs(np, g, w, f"mesh dense slice {dtn} lane {k}")
+        if dtn == "float32":
+            out.update(launches=launches, fuse_and_solve_ms=ms,
+                       grids=picked, mesh_stats=stats)
+        one_ms = statistics.median(
+            time_once(torch, lambda: batch.fuse_and_solve(
+                lanes, device=DEVICE))[1] for _ in range(3))
+        out[f"one_card_ms_{dtn}"] = one_ms
+        groups = batch.fuse_lanes(lanes)
+        try:
+            for g in groups:
+                trees = (g.const, g.init, g.batch)
+                want = [x[:, :] for x in dense.solve_placements(
+                    *trees, spread_alg=g.spread_alg, dtype_name=dtn,
+                    device=DEVICE)[:3]]
+                want = tuple(x.cpu().numpy() for x in want)
+                if len(g.idxs) == N_EVALS:
+                    for shape in ((2, 2), (1, 4)):
+                        grid = mesh.make_mesh(cells, eval_parallel=shape[0])
+                        res, gms = time_once(torch, lambda: mesh.mesh_solve(
+                            grid, *trees, spread_alg=g.spread_alg,
+                            dtype_name=dtn))
+                        same_outputs(np, res, want,
+                                     f"mesh {shape} 32-lane group {dtn}")
+                        log(f"mesh dense {dtn} 32 lanes on {shape}: equal "
+                            f"to one card; mesh_solve ms={gms:.1f} (CUDA "
+                            "events around the host-driven loop)")
+                        out[f"forced_{shape[0]}x{shape[1]}_ms_{dtn}"] = gms
+                    continue
+                # an E = 1 group of the main path on (1, 4): the kernel
+                # against its plain phases, timed
+                grid = mesh.make_mesh(cells, eval_parallel=1)
+                ms_k, plain_ms = mesh_dense_check(
+                    np, torch, mesh, dense, grid, trees,
+                    spread_alg=g.spread_alg, dtype_name=dtn, want=want,
+                    what=f"dense_shard lane {g.idxs} {dtn}", timing=True)
+                c, st, b = dense.lane_tensors(*trees, dtype_name=dtn,
+                                              device=torch.device(DEVICE))
+                ref = dense.dense_scan(c, st, b, spread_alg=g.spread_alg)
+                bound_ms, bound_by, nbytes, flops = dense_bound(
+                    torch, c, st, b, ref, dtn)
+                row = dict(name="dense_shard", dtype=dtn,
+                           shape=[1, int(c.cpu_cap.shape[1]),
+                                  int(b.ask_cpu.shape[1]), 1, 4],
+                           ms=ms_k, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, bytes=nbytes, flops=flops,
+                           max_abs_err=0.0,
+                           lane="distinct_property" if g.const.dp_vidx.shape[1]
+                           else "reserved_cores")
+                log(f"kernel dense_shard {dtn} {row['lane']} on (1, 4): "
+                    f"N={row['shape'][1]} P={row['shape'][2]} "
+                    f"ms={ms_k:.2f} plain_ms={plain_ms:.1f} "
+                    f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, "
+                    f"{flops} flop); equal to plain and one card")
+                out["kernels"].append(row)
+        finally:
+            batch.release_groups(groups)
+        # fuzz groups over every dense feature on both node-sharded grids
+        rng = np.random.default_rng(seed + 60)
+        fl = []
+        for _ in range(8):
+            c, st, b = dense_fuzz_tables(
+                np, rng, n=MESH_FUZZ_N - 24, n_pad=MESH_FUZZ_N,
+                p=MESH_FUZZ_P, dtype=dtn, limit=6,
+                features=DENSE_FEATURES[1:])
+            fl.append((c, st, b))
+        from nomad_tpu_torch.solver import binpack as pbp
+        trees = tuple(cls(**{f: np.stack([ln[k][f] for ln in fl])
+                             for f in cls._fields})
+                      for k, cls in enumerate((pbp.NodeConst, pbp.NodeState,
+                                               pbp.PlacementBatch)))
+        want = tuple(x.cpu().numpy() for x in dense.solve_placements(
+            *trees, spread_alg=False, dtype_name=dtn, device=DEVICE)[:3])
+        for e_par in (2, 1):
+            grid = mesh.make_mesh(cells, eval_parallel=e_par)
+            mesh_dense_check(np, torch, mesh, dense, grid, trees,
+                             spread_alg=False, dtype_name=dtn, want=want,
+                             what=f"dense_shard fuzz {grid.shape} {dtn}")
+        log(f"kernel dense_shard {dtn} fuzz E=8 N={MESH_FUZZ_N} "
+            f"P={MESH_FUZZ_P} on (2, 2) and (1, 4): equal to the plain "
+            "phases and to one card")
+    return out
+
+
+def mesh_wave_phase(np, batch, mesh, kernels, svc, tp, world):
+    """The wave slice's 32-lane headline group, its eval axis split over
+    4 cells (each runs wave_block on 8 lanes), equal to the one-card
+    route."""
+    cells = [DEVICE] * MESH_CELLS
+    head = pack_lanes(np, tp, svc, world, "float32", kind="plain",
+                      n_lanes=N_EVALS)
+    one = batch.fuse_and_solve(head, device=DEVICE)
+    kernels.reset_launches()
+    mesh._reset_for_tests()
+    t0 = time.perf_counter()
+    got = batch.fuse_and_solve(head, device=cells)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    stats = mesh.mesh_stats()
+    assert launches["wave_block"] == MESH_CELLS, launches
+    assert stats["eval_sharded_dispatches"] == 1, stats
+    for k, (g, w) in enumerate(zip(got, one)):
+        same_outputs(np, g, w, f"mesh wave lane {k}")
+    log(f"mesh wave slice: 32 lanes over {MESH_CELLS} cells equal to one "
+        f"card; launches {launches}; fuse_and_solve_ms={ms:.1f}")
+    return dict(launches=launches, fuse_and_solve_ms=ms, mesh_stats=stats)
+
+
+def mesh_lp_phase(np, torch, lpq, mesh, kernels, svc, world, seed):
+    """One LP generation (128 evals x 8) through solve_queue over 4 cells:
+    pick_mesh gives (4, 1); then (2, 2) forced; the generation's X and mu
+    bit for bit the one-card lp_relax's, and the results equal. Then lp_shard at the main path's shape (L 128, N
+    16,384, fuzz): X and mu bit for bit against lp_relax on one card and
+    against its plain phases on the card, on (4, 1) and (2, 2); timed on
+    (4, 1)."""
+    cells = [DEVICE] * MESH_CELLS
+    gen1 = lpq_gen1_lanes(np, svc, world)
+    # the generation's X and mu, as each route returns them
+    seen = {}
+    real_relax, real_mesh_lpq = lpq.lp_relax, mesh.mesh_lpq
+
+    def keep(tag, fn):
+        def run(*a):
+            out = fn(*a)
+            seen[tag] = out
+            return out
+        return run
+
+    lpq.lp_relax = keep("one", real_relax)
+    mesh.mesh_lpq = keep("grid", real_mesh_lpq)
+    real_pick = mesh.pick_mesh
+    try:
+        one = lpq.solve_queue(gen1, {}, device=DEVICE)
+        kernels.reset_launches()
+        mesh._reset_for_tests()
+        t0 = time.perf_counter()
+        got = lpq.solve_queue(gen1, {}, device=cells)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        stats = mesh.mesh_stats()
+        compare_lp(torch, "mesh lp generation (4, 1)", seen["grid"],
+                   seen["one"])
+        mesh.pick_mesh = lambda e, n, devices: mesh.make_mesh(devices, 2)
+        forced = lpq.solve_queue(gen1, {}, device=cells)
+        compare_lp(torch, "mesh lp generation (2, 2)", seen["grid"],
+                   seen["one"])
+    finally:
+        lpq.lp_relax, mesh.mesh_lpq = real_relax, real_mesh_lpq
+        mesh.pick_mesh = real_pick
+    assert launches["lp_shard"] > 0 and launches["lp_relax"] == 0, launches
+    assert stats["lpq_dispatches"] == 1, stats
+    for k, (g, w) in enumerate(zip(got, one)):
+        same_outputs(np, g, w, f"mesh lp lane {k}")
+    for k, (g, w) in enumerate(zip(forced, one)):
+        same_outputs(np, g, w, f"mesh lp (2, 2) lane {k}")
+    log(f"mesh lp tier: {LPQ_EVALS} evals on (4, 1) and (2, 2) equal to "
+        f"one card; launches {launches}; solve_queue_ms={ms:.1f}")
+
+    L, N = LP_TIMED
+    rng = np.random.default_rng(seed + 70)
+    arrays = lp_fuzz_inputs(np, rng, L, N, over=True)
+    temps = lpq.lp_temperatures(LP_STEPS)
+    ins = [torch.from_numpy(a).to(DEVICE) for a in arrays]
+    ins.append(torch.from_numpy(temps).to(DEVICE))
+    want = lpq.lp_relax(*ins)
+    row = None
+    for e_par in (4, 2):
+        grid = mesh.make_mesh(cells, eval_parallel=e_par)
+        s_in, _ = mesh.shard_lpq_inputs(grid, *arrays)
+        got_k, k_ms = time_once(torch, lambda: mesh.mesh_lpq(grid, s_in,
+                                                             temps))
+        compare_lp(torch, f"lp_shard {grid.shape} vs lp_relax", got_k, want)
+        if e_par == 4:
+            k_ms = timed(torch, lambda: mesh.mesh_lpq(grid, s_in, temps), 5)
+            real = lpq.lp_shard_phase
+            lpq.lp_shard_phase = lambda c, ph, t: lpq._lp_shard_plain(c, ph,
+                                                                      t)
+            try:
+                got_p, plain_ms = time_once(
+                    torch, lambda: mesh.mesh_lpq(grid, s_in, temps))
+            finally:
+                lpq.lp_shard_phase = real
+            compare_lp(torch, "lp_shard plain phases vs lp_relax", got_p,
+                       want)
+            bound_ms, bound_by, nbytes, flops = lp_bound(L, N, LP_STEPS)
+            row = dict(name="lp_shard", dtype="float32",
+                       shape=[L, N, 4, 1], ms=k_ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                       flops=flops, max_abs_err=0.0)
+            log(f"kernel lp_shard (4, 1) L={L} N={N}: bit-exact vs lp_relax"
+                f" and the plain phases; ms={k_ms:.2f} plain_ms="
+                f"{plain_ms:.1f} bound_ms={bound_ms:.6f} ({bound_by})")
+    return dict(launches=launches, solve_queue_ms=ms, mesh_stats=stats,
+                kernel=row)
+
+
+def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
+                         store_cls, svc, tp, world, seed):
+    """The residency phase's four generations (the dense slice, float32)
+    through the grid: the per-cell resident pool and the grid's version
+    chain, g3's promotion through the coordinate scatter; decisions equal
+    to the one-card generations, every chain buffer equal to its shadow;
+    then coord_scatter against its plain version at g3's shape, timed."""
+    cells = [DEVICE] * MESH_CELLS
+    lanes = slice2_lanes(np, tp, svc, world, "float32", n_spread=N_EVALS)
+    first = batch.fuse_and_solve(lanes, device=DEVICE)[0][0]
+    charge = first[:G3_PLACED][first[:G3_PLACED] >= 0]
+    resident._reset_for_tests()
+    one = run_generations(np, batch, kernels, resident, store_cls, lanes,
+                          charge)
+    shapes = []
+    orig = resident.coord_scatter
+
+    def record(part, coords, vals, start):  # noqa: E306
+        shapes.append((tuple(part.shape), int(coords.shape[1]),
+                       str(part.dtype), tuple(start)))
+        return orig(part, coords, vals, start)
+
+    resident._reset_for_tests()
+    kernels.reset_launches()
+    resident.coord_scatter = record
+    try:
+        gens = run_generations(np, batch, kernels, resident, store_cls,
+                               lanes, charge, device=cells)
+    finally:
+        resident.coord_scatter = orig
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    recs = [r for _, r, _ in gens]
+    for g, r in enumerate(recs, 1):
+        log(f"mesh residency g{g}: " + " ".join(
+            f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in r.items()))
+    st = resident.stats()
+    per_cell: dict = {}
+    for row in resident.residency():
+        if "cell" in row:
+            c = per_cell.setdefault(row["cell"], [0, 0])
+            c[0] += 1
+            c[1] += row["bytes"]
+    log(f"mesh residency launches {launches}; coord scatter shapes "
+        f"{sorted(set(shapes))}; per-shard pool: entries="
+        f"{st['shard_entries']} bytes={st['shard_resident_bytes']} hwm="
+        f"{st['shard_resident_hwm']}; per cell (entries, bytes): "
+        f"{per_cell}")
+    assert recs[2]["delta_promotions"] > 0 and recs[2]["scatter_launches"] > 0
+    assert launches["coord_scatter"] > 0 and launches["delta_scatter"] == 0
+    assert recs[3]["delta_gap_fallbacks"] > 0
+    assert recs[2]["chain_buffers_checked"] > 0
+    for g in range(4):
+        same_results(np, gens[g][0], one[g][0], f"mesh residency g{g + 1}")
+
+    # the scatter at g3's shape: a (4, 1) grid's usage table and its
+    # bucket, against the plain version; the bound per cell is its slice
+    # read and written once plus the whole replicated payload read once
+    usage = [x for x in shapes if len(x[0]) == 2 and x[2] == "torch.float32"]
+    part_shape, k = max(usage, key=lambda x: x[0][0] * x[0][1])[:2]
+    E, n = part_shape[0] * MESH_CELLS, part_shape[1]
+    grid = mesh.make_mesh(cells, eval_parallel=MESH_CELLS)
+    rng = np.random.default_rng(seed + 80)
+    base = rng.standard_normal((E, n)).astype(np.float32)
+    sh = mesh.put_by_spec(base, mesh.EN, grid)
+    idx = rng.choice(base.size, k - k // 4, replace=False)
+    idx_p, vals_p, bucket = resident._pad_updates(
+        idx, base.reshape(-1)[idx] + np.float32(1))
+    assert bucket == k
+    coords = np.ascontiguousarray(np.stack(np.unravel_index(
+        idx_p.astype(np.int64), base.shape)).astype(np.int32))
+    cut = mesh.cuts(base.shape, mesh.EN, grid)
+    ins = [(sh.parts[q], resident._put(coords, d), resident._put(vals_p, d),
+            [x.start for x in ix]) for q, d, ix in cut]
+
+    def run(fn):
+        return [fn(*a) for a in ins]
+
+    got = run(resident.coord_scatter)
+    want = run(resident.coord_scatter_plain)
+    for gpart, wpart in zip(got, want):
+        assert bits_equal(torch, gpart, wpart)
+    full = base.copy()
+    full.reshape(-1)[idx_p] = vals_p
+    assert np.array_equal(torch.cat([x.cpu() for x in got]).numpy(), full)
+    ms = timed(torch, lambda: run(resident.coord_scatter), KERNEL_REPEATS)
+    plain_ms = timed(torch, lambda: run(resident.coord_scatter_plain),
+                     KERNEL_REPEATS)
+    nbytes = sum(2 * a[0].numel() * 4 + k * (4 * 2 + 4) for a in ins)
+    bound_ms, bound_by = bound("coord_scatter", nbytes, 0, "float32")
+    log(f"kernel coord_scatter float32 (4, 1) table ({E}, {n}) k={k}: "
+        f"bytes equal to the plain version; ms={ms:.4f} (4 cells) "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}, "
+        f"{nbytes} B)")
+    kernel = dict(name="coord_scatter", dtype="float32", shape=[E, n, k],
+                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, bytes=nbytes, max_abs_err=0.0)
+    return dict(launches=launches, generations=recs, per_cell=per_cell,
+                shard_entries=st["shard_entries"],
+                shard_resident_bytes=st["shard_resident_bytes"],
+                scatter_shapes=sorted(set(shapes)), kernel=kernel)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2637,6 +3061,7 @@ def main(argv=None) -> int:
     from nomad_tpu_torch import kernels
     from nomad_tpu_torch.solver import batch, dense, service as svc, system
     from nomad_tpu_torch.solver import binpack as bp, lpq, preempt, wave
+    from nomad_tpu_torch.parallel import mesh
     from nomad_tpu_torch.solver import resident
     from nomad_tpu_torch.state.store import StateStore
     from nomad_tpu_torch.tensor import pack as tp
@@ -2696,6 +3121,16 @@ def main(argv=None) -> int:
     wres, wpath = phase("wavefront", wavefront_phase, np, torch, wave,
                         dense, batch, kernels, svc, tp, world)
     kres += wres
+    mdres = phase("mesh dense", mesh_dense_phase, np, torch, batch, dense,
+                  mesh, kernels, svc, tp, world, args.seed)
+    mwres = phase("mesh wave", mesh_wave_phase, np, batch, mesh, kernels,
+                  svc, tp, world)
+    mlres = phase("mesh lp", mesh_lp_phase, np, torch, lpq, mesh, kernels,
+                  svc, world, args.seed)
+    mrres = phase("mesh residency", mesh_residency_phase, np, torch, batch,
+                  mesh, kernels, resident, StateStore, svc, tp, world,
+                  args.seed)
+    kres += mdres["kernels"] + [mlres["kernel"], mrres["kernel"]]
 
     def pick(kname, **kw):
         return next(r for r in kres if r["name"] == kname
@@ -2713,7 +3148,11 @@ def main(argv=None) -> int:
             (kernels.DENSE_PREEMPT, pres["kernels"]["dense_preempt"], pres),
             (kernels.LP_RELAX, qres["kernel"], qres),
             (kernels.DELTA_SCATTER, rres["kernel"], rres),
-            (kernels.WAVEFRONT, pick("wavefront"), wpath))
+            (kernels.WAVEFRONT, pick("wavefront"), wpath),
+            (kernels.DENSE_SHARD, pick("dense_shard",
+                                       lane="distinct_property"), mdres),
+            (kernels.COORD_SCATTER, mrres["kernel"], mrres),
+            (kernels.LP_SHARD, mlres["kernel"], mlres))
     line = {"kernels": []}
     for k, r, path in rows:
         line["kernels"].append(dict(
@@ -2729,7 +3168,8 @@ def main(argv=None) -> int:
     report = dict(card=card, device=name, seed=args.seed, kernels=kres,
                   slice=sres, dense_slice=dres, system=yres,
                   preempt_slice=pres, lpq_slice=qres, residency=rres,
-                  wavefront=wpath,
+                  wavefront=wpath, mesh_dense=mdres, mesh_wave=mwres,
+                  mesh_lp=mlres, mesh_residency=mrres,
                   build_s=info["seconds"], phase_s=phase_s,
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")

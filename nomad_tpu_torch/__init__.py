@@ -8,8 +8,10 @@ preemption (windowed and dense eviction search), slice 4 the whole-queue
 LP tier and the cross-lane fixpoint, slice 5 device residency (every
 dispatch's tables ship through a content-keyed resident buffer set on
 the card, advanced by journal-covered deltas) and the in-kernel
-wavefront: a lane's packed arrays go in, the chosen node per placement
-(and, with preemption, the allocs it evicts) comes out.
+wavefront, slice 6 the mesh route (a dispatch sharded over an (evals,
+nodes) grid of cells) and the stack arena: a lane's packed arrays go
+in, the chosen node per placement (and, with preemption, the allocs it
+evicts) comes out.
 
     scheduler/util.py   deterministic node shuffle (splitmix64 Fisher-Yates)
     tensor/pack.py      NodeMatrix / UsageState / SpreadInfo / distinct
@@ -31,7 +33,10 @@ wavefront: a lane's packed arrays go in, the chosen node per placement
     solver/service.py   PackedLane, pack_lane_arrays, placements,
                         evictions, solve_system_arrays
     solver/batch.py     fuse_lanes / fuse_and_solve across evals, the
-                        cross-lane fixpoint
+                        stack arena, the cross-lane fixpoint
+    parallel/mesh.py    grids of cells, the spec table, the sharded
+                        transports, mesh_solve / mesh_lpq /
+                        mesh_delta_scatter
     solver/lpq.py       the LP relaxation's plain version and wrapper,
                         rounding and repair, solve_queue, LpqBarrier
     kernels.py          nvcc build, ctypes binding, launch counts

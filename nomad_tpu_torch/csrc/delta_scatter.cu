@@ -20,6 +20,15 @@
 //
 // Bound: the copy reads and writes the M elements once and the apply reads
 // the k (idx, vals) pairs: (2 M s + k (4 + s)) bytes at 3.35 TB/s.
+//
+// The coordinate entry points (nt_coord_scatter_*) replace
+// nomad_tpu/parallel/mesh.py::mesh_delta_scatter_fn, the same promotion
+// of a table sharded over an (evals, nodes) grid: each cell's slice (up to
+// 4 axes, beginning at `start` in the whole table) is copied, then every
+// update whose coordinates (coords[ndim, k], whole-table, replicated to
+// every cell) fall inside the slice is written at its local position; the
+// others belong to other cells. Per cell the bound is (2 M_cell s +
+// k (4 ndim + s)) bytes: every cell reads the whole replicated payload.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,6 +87,55 @@ int launch(const U* buf, const int* idx, const U* vals, U* out, long long m,
   return (int)cudaGetLastError();
 }
 
+struct Dims4 {
+  long long v[4];
+};
+
+template <typename U>
+__global__ void __launch_bounds__(kThreads)
+coord_apply_kernel(const int* __restrict__ coords,
+                   const U* __restrict__ vals, U* __restrict__ out,
+                   int ndim, int k, Dims4 shape, Dims4 start) {
+  const int u = blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= k) return;
+  long long flat = 0;
+  for (int d = 0; d < ndim; ++d) {
+    const long long c = (long long)coords[(size_t)d * k + u] - start.v[d];
+    if (c < 0 || c >= shape.v[d]) return;        // another cell's update
+    flat = flat * shape.v[d] + c;
+  }
+  out[flat] = vals[u];
+}
+
+// The coordinate entry point: part coords vals out as device pointers,
+// then ndim k, the slice's shape (4 ints, 1 past ndim) and its start in
+// the whole table (4 ints, 0 past ndim).
+template <typename U>
+int launch_coords(void* const* p, int n_ptrs, const int* d, int n_dims,
+                  cudaStream_t stream) {
+  if (n_ptrs != 4 || n_dims != 10) return (int)cudaErrorInvalidValue;
+  const int ndim = d[0], k = d[1];
+  if (ndim < 1 || ndim > 4 || k < 0) return (int)cudaErrorInvalidValue;
+  Dims4 shape, start;
+  long long m = 1;
+  for (int i = 0; i < 4; ++i) {
+    shape.v[i] = d[2 + i];
+    start.v[i] = d[6 + i];
+    if (shape.v[i] < 0 || (i >= ndim && shape.v[i] != 1))
+      return (int)cudaErrorInvalidValue;
+    m *= shape.v[i];
+  }
+  const U* part = (const U*)p[0];
+  U* out = (U*)p[3];
+  // the copy (and nothing else) through the flat scatter's launcher
+  int rc = launch<U>(part, nullptr, nullptr, out, m, 0, stream);
+  if (rc != 0 || k == 0) return rc;
+  coord_apply_kernel<U><<<(k + kThreads - 1) / kThreads, kThreads, 0,
+                          stream>>>((const int*)p[1], (const U*)p[2], out,
+                                    ndim, k, shape, start);
+  return (int)cudaGetLastError();
+}
+
 // The packed entry point (kernels.Kernel.launch): buf idx vals out as
 // device pointers, then M k.
 template <typename U>
@@ -115,5 +173,33 @@ extern "C" int nt_delta_scatter_8(void* const* ptrs, int n_ptrs,
                                   const int* dims, int n_dims,
                                   void* stream) {
   return launch_packed<unsigned long long>(ptrs, n_ptrs, dims, n_dims,
+                                           (cudaStream_t)stream);
+}
+
+extern "C" int nt_coord_scatter_1(void* const* ptrs, int n_ptrs,
+                                  const int* dims, int n_dims,
+                                  void* stream) {
+  return launch_coords<uint8_t>(ptrs, n_ptrs, dims, n_dims,
+                                (cudaStream_t)stream);
+}
+
+extern "C" int nt_coord_scatter_2(void* const* ptrs, int n_ptrs,
+                                  const int* dims, int n_dims,
+                                  void* stream) {
+  return launch_coords<uint16_t>(ptrs, n_ptrs, dims, n_dims,
+                                 (cudaStream_t)stream);
+}
+
+extern "C" int nt_coord_scatter_4(void* const* ptrs, int n_ptrs,
+                                  const int* dims, int n_dims,
+                                  void* stream) {
+  return launch_coords<uint32_t>(ptrs, n_ptrs, dims, n_dims,
+                                 (cudaStream_t)stream);
+}
+
+extern "C" int nt_coord_scatter_8(void* const* ptrs, int n_ptrs,
+                                  const int* dims, int n_dims,
+                                  void* stream) {
+  return launch_coords<unsigned long long>(ptrs, n_ptrs, dims, n_dims,
                                            (cudaStream_t)stream);
 }

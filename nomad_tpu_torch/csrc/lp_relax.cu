@@ -94,10 +94,10 @@ __global__ void lp_init(const LpArgs A) {
     A.mu[i] = 0.0f;
 }
 
-__global__ void lp_row_stats(const LpArgs A, int t) {
+__global__ void lp_row_stats(const LpArgs A, int t, int l0) {
   extern __shared__ float part[];         // N / 32 window sums
   __shared__ float red[kRowThreads];
-  const int l = blockIdx.x, tid = threadIdx.x;
+  const int l = l0 + blockIdx.x, tid = threadIdx.x;
   const float* mu = A.mu;
   float m = -INFINITY;
   for (int n = tid; n < A.N; n += blockDim.x)
@@ -165,10 +165,11 @@ __global__ void lp_node_step(const LpArgs A, int t) {
   }
 }
 
-__global__ void lp_write_x(const LpArgs A) {
+// X of lanes [l0, l0 + count), written from X[0] on.
+__global__ void lp_write_x(const LpArgs A, int l0, int count) {
   const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= (size_t)A.L * A.N) return;
-  const int l = (int)(k / A.N), n = (int)(k % A.N);
+  if (k >= (size_t)count * A.N) return;
+  const int l = l0 + (int)(k / A.N), n = (int)(k % A.N);
   const float* mu = A.mu;
   const float e = expf(logit_at(A, l, n, -1, mu[3 * n], mu[3 * n + 1],
                                 mu[3 * n + 2]) - A.rmax[l]);
@@ -204,16 +205,69 @@ int launch(void* const* p, int n_ptrs, const int* d, int n_dims,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   for (int t = 0; t < a.steps; ++t) {
-    lp_row_stats<<<a.L, kRowThreads, shmem, stream>>>(a, t);
+    lp_row_stats<<<a.L, kRowThreads, shmem, stream>>>(a, t, 0);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     lp_node_step<<<node_blocks, kNodeThreads, 0, stream>>>(a, t);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  lp_row_stats<<<a.L, kRowThreads, shmem, stream>>>(a, -1);
+  lp_row_stats<<<a.L, kRowThreads, shmem, stream>>>(a, -1, 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const size_t total = (size_t)a.L * a.N;
   lp_write_x<<<(unsigned)((total + kRowThreads - 1) / kRowThreads),
-               kRowThreads, 0, stream>>>(a);
+               kRowThreads, 0, stream>>>(a, 0, a.L);
+  return (int)cudaGetLastError();
+}
+
+// The lane-sharded relaxation (nomad_tpu/parallel/mesh.py::mesh_lpq_fn;
+// parallel/mesh.py mesh_lpq drives it): one cell's phase per launch, the
+// cell holding V and feas whole, its lanes [l0, l1), X of those lanes
+// only, and its own mu and (L,) row statistics. Phase 0 is lp_init over
+// every lane; 1 is lp_row_stats over [l0, l1) at step t (t < 0 the final
+// pass); the host then copies every row's statistics into every cell in
+// lane order; 2 is lp_node_step over all lanes at step t, so mu is the
+// one-launch kernel's on every cell; 3 writes the final X of [l0, l1).
+// The same operations in the same order as the one-launch kernel, so X
+// and mu are its bits on every grid. Bound: the one-launch kernel's
+// (operations), but every cell repeats the node step over all lanes,
+// so a grid of c cells on one card does c times that pass's work, and a
+// step costs 2 launches per cell plus 2 (e_par - 1) copies per cell;
+// this first version accepts both for exactness without atomics.
+constexpr int kShardDims = 7;   // L N steps phase t l0 l1
+
+int launch_shard(void* const* p, int n_ptrs, const int* d, int n_dims,
+                 cudaStream_t stream) {
+  if (n_ptrs != kTables + kOutputs || n_dims != kShardDims)
+    return (int)cudaErrorInvalidValue;
+  LpArgs a;
+  int k = 0;
+  a.V = (const float*)p[k++]; a.feas = (const u8*)p[k++];
+  a.ask = (const float*)p[k++]; a.pcount = (const float*)p[k++];
+  a.free_ = (const float*)p[k++]; a.active = (const u8*)p[k++];
+  a.temps = (const float*)p[k++];
+  a.X = (float*)p[k++]; a.mu = (float*)p[k++]; a.any_f = (int*)p[k++];
+  a.rmax = (float*)p[k++]; a.rsum = (float*)p[k++];
+  a.L = d[0]; a.N = d[1]; a.steps = d[2];
+  const int phase = d[3], t = d[4], l0 = d[5], l1 = d[6];
+  if (a.L <= 0 || a.steps <= 0 || a.N < 2 * kWin || (a.N & (a.N - 1)) ||
+      a.N > kWin * kWin * kRowThreads || l0 < 0 || l1 <= l0 || l1 > a.L ||
+      t >= a.steps)
+    return (int)cudaErrorInvalidValue;
+  const size_t shmem = (size_t)(a.N / kWin) * sizeof(float);
+  if (phase == 0) {
+    lp_init<<<a.L, kRowThreads, 0, stream>>>(a);
+  } else if (phase == 1) {
+    lp_row_stats<<<l1 - l0, kRowThreads, shmem, stream>>>(a, t, l0);
+  } else if (phase == 2) {
+    if (t < 0) return (int)cudaErrorInvalidValue;
+    lp_node_step<<<(unsigned)((a.N + kNodeThreads - 1) / kNodeThreads),
+                   kNodeThreads, 0, stream>>>(a, t);
+  } else if (phase == 3) {
+    const size_t total = (size_t)(l1 - l0) * a.N;
+    lp_write_x<<<(unsigned)((total + kRowThreads - 1) / kRowThreads),
+                 kRowThreads, 0, stream>>>(a, l0, l1 - l0);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -222,4 +276,9 @@ int launch(void* const* p, int n_ptrs, const int* d, int n_dims,
 extern "C" int nt_lp_relax_f32(void* const* ptrs, int n_ptrs,
                                const int* dims, int n_dims, void* stream) {
   return launch(ptrs, n_ptrs, dims, n_dims, (cudaStream_t)stream);
+}
+
+extern "C" int nt_lp_shard_f32(void* const* ptrs, int n_ptrs,
+                               const int* dims, int n_dims, void* stream) {
+  return launch_shard(ptrs, n_ptrs, dims, n_dims, (cudaStream_t)stream);
 }

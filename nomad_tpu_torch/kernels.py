@@ -131,18 +131,20 @@ LP_RELAX = Kernel(
     "nomad_tpu/solver/lpq.py:215 _lp_solve_body",
     {torch.float32: "nt_lp_relax_f32"})
 
-# The delta scatter moves raw bits: one entry point per element size,
-# shared by every dtype of that size.
+def _by_size(prefix: str) -> Dict[torch.dtype, str]:
+    """A raw-bits kernel's entry points: one per element size, shared by
+    every dtype of that size."""
+    return {dt: f"{prefix}_{torch.empty(0, dtype=dt).element_size()}"
+            for dt in (torch.bool, torch.uint8, torch.int8, torch.int16,
+                       torch.float16, torch.bfloat16, torch.int32,
+                       torch.float32, torch.int64, torch.float64)}
+
+
+# The delta scatter moves raw bits: one entry point per element size.
 DELTA_SCATTER = Kernel(
     "delta_scatter", "delta_scatter.cu",
     "nomad_tpu/solver/constcache.py:249 _delta_scatter_program",
-    {torch.bool: "nt_delta_scatter_1", torch.uint8: "nt_delta_scatter_1",
-     torch.int8: "nt_delta_scatter_1", torch.int16: "nt_delta_scatter_2",
-     torch.float16: "nt_delta_scatter_2",
-     torch.bfloat16: "nt_delta_scatter_2",
-     torch.int32: "nt_delta_scatter_4", torch.float32: "nt_delta_scatter_4",
-     torch.int64: "nt_delta_scatter_8",
-     torch.float64: "nt_delta_scatter_8"})
+    _by_size("nt_delta_scatter"))
 
 WAVEFRONT = Kernel(
     "wavefront", "wavefront.cu",
@@ -150,8 +152,28 @@ WAVEFRONT = Kernel(
     {torch.float32: "nt_wavefront_f32",
      torch.float64: "nt_wavefront_f64"})
 
+# The mesh programs (nomad_tpu/parallel/mesh.py). The node-sharded dense
+# step and the lane-sharded LP take their phase as their first int: one
+# launch is one phase of one cell.
+DENSE_SHARD = Kernel(
+    "dense_shard", "dense_shard.cu",
+    "nomad_tpu/parallel/mesh.py:251 mesh_solve_fn",
+    {torch.float32: "nt_dense_shard_f32",
+     torch.float64: "nt_dense_shard_f64"})
+
+COORD_SCATTER = Kernel(
+    "coord_scatter", "delta_scatter.cu",
+    "nomad_tpu/parallel/mesh.py:279 mesh_delta_scatter_fn",
+    _by_size("nt_coord_scatter"))
+
+LP_SHARD = Kernel(
+    "lp_shard", "lp_relax.cu",
+    "nomad_tpu/parallel/mesh.py:452 mesh_lpq_fn",
+    {torch.float32: "nt_lp_shard_f32"})
+
 KERNELS = (WAVE_BLOCK, WAVE_COMPACT, DENSE_SCAN, SYSTEM_FIT, WAVE_PREEMPT,
-           DENSE_PREEMPT, LP_RELAX, DELTA_SCATTER, WAVEFRONT)
+           DENSE_PREEMPT, LP_RELAX, DELTA_SCATTER, WAVEFRONT, DENSE_SHARD,
+           COORD_SCATTER, LP_SHARD)
 
 
 def reset_launches() -> None:

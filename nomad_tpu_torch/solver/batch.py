@@ -1,33 +1,58 @@
 """Fuse many evals' lanes into one dispatch (port of the lane-fusion half
-of nomad_tpu/solver/batch.py).
+of nomad_tpu/solver/batch.py, with its stack arena and its mesh route).
 
 Lanes with equal static shapes (PackedLane.fuse_key) stack along a
 leading eval axis padded to an E bucket, their placement axes padded to a
 common P bucket, and solve in one kernel launch: a wavefront kernel for
 lanes that pass the wave gate, the dense scan for the rest; preemption
 lanes take the windowed or the dense preemption kernel, by the same
-gate. Padding lanes
-copy lane 0 with ``active`` all False and place nothing. Dense groups
-keep the tight E bucket, as in the reference: a padding lane costs the
-dense scan O(N * P). ``_cross_lane_fixpoint`` settles conflicts between
-the lanes of one generation against a node-id-keyed capacity ledger (the
-LP tier runs it after its greedy dispatch). The solve barrier, the
-dispatch pipeline and the stack arena of the reference come with later
-slices.
+gate. Dense groups keep the tight E bucket, as in the reference: a
+padding lane costs the dense scan O(N * P); ``e_pad_hint`` pins wave
+groups to a wider bucket.
 
-Knob (read at each use):
-  NOMAD_TPU_TORCH_BATCH_FIXPOINT   0 turns the cross-lane fixpoint off
+The stacked buffers come from the stack arena: a bounded pool of host
+buffers keyed by the group's fuse key and (E, P) shape, filled in place
+and returned to the pool after the dispatch. Padding rows hold some
+valid lane (inactive, their results discarded): a fresh entry copies
+lane 0 into them, and a reused entry leaves an earlier generation's lanes
+there (``pad_fills_skipped``), exactly as the reference's arena does, so
+the stacked tables and the resident set's counters match the
+reference's at every group size. Pooled entries are frozen
+(``write=False``) while they sit in the free list.
+
+With several cells (``device`` a list; by default every CUDA card), a
+dense group shards over the (evals, nodes) grid ``parallel.mesh.pick_mesh``
+chooses, and wave and windowed-preemption groups split their eval axis
+over the cells (parallel/mesh.py); dense preemption groups stay on the
+first cell. ``_cross_lane_fixpoint`` settles conflicts between the lanes
+of one generation against a node-id-keyed capacity ledger (the LP tier
+runs it after its greedy dispatch). The solve barrier and the dispatch
+pipeline of the reference come with a later slice.
+
+Knobs (read at each use):
+  NOMAD_TPU_TORCH_BATCH_FIXPOINT     0 turns the cross-lane fixpoint off
+  NOMAD_TPU_TORCH_PACK_ARENA         0 stacks into fresh buffers every
+                                     generation (kill switch)
+  NOMAD_TPU_TORCH_PACK_ARENA_ENTRIES free arena entries kept (8)
+  NOMAD_TPU_TORCH_PACK_ARENA_MB      free arena MiB kept (512)
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+import threading
+from collections import OrderedDict
+from typing import Dict, List, Sequence, Union
 
 import numpy as np
+import torch
 
 from ..device import DeviceLike, resolve_device
+from ..parallel import mesh
 from .service import PackedLane
 from .wave import solve_lane_fused
+
+# one device, or a list of cells (a device may appear more than once)
+CellsLike = Union[DeviceLike, Sequence[DeviceLike]]
 
 # pad the fused eval axis to these sizes so one kernel shape serves many
 # batch sizes
@@ -66,95 +91,331 @@ def _pad_placement_axis(batch, p_pad: int):
                    else grow(batch.ask_cores)))
 
 
+# --------------------------------------------------------------------------
+# The stack arena (reference batch.py _StackArena).
+
+def _arena_enabled() -> bool:
+    return os.environ.get("NOMAD_TPU_TORCH_PACK_ARENA", "1") != "0"
+
+
+def _arena_max_entries() -> int:
+    try:
+        return max(1, int(os.environ.get(
+            "NOMAD_TPU_TORCH_PACK_ARENA_ENTRIES", "8")))
+    except ValueError:
+        return 8
+
+
+def _arena_max_bytes() -> int:
+    try:
+        return max(1, int(float(os.environ.get(
+            "NOMAD_TPU_TORCH_PACK_ARENA_MB", "512")) * 1024 * 1024))
+    except ValueError:
+        return 512 * 1024 * 1024
+
+
+class _ArenaEntry:
+    __slots__ = ("key", "trees", "nbytes", "pad_valid", "pooled")
+
+    def __init__(self, key, trees, nbytes: int):
+        self.key = key
+        self.trees = trees          # tree name -> list of np arrays
+        self.nbytes = nbytes
+        self.pad_valid = False      # padding rows hold valid lane data
+        self.pooled = True
+
+
+class _StackArena:
+    """Bounded pool of reusable stacked host buffers, keyed by fused group
+    shape. Thread-safe: concurrent generations check out distinct
+    entries; an exhausted pool allocates fresh (never blocks)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._free: "OrderedDict[int, _ArenaEntry]" = OrderedDict()
+        self._seq = 0
+        self._free_bytes = 0
+        self._in_use = 0
+        self._stats = {"reuses": 0, "allocs": 0, "evictions": 0,
+                       "pad_fills_skipped": 0}
+
+    @staticmethod
+    def _set_writeable(ent, flag: bool) -> None:
+        """Pooled buffers are frozen while they sit in the free list: a
+        generation writing into a buffer it already released raises
+        instead of corrupting a lane another checkout reads."""
+        for arrs in ent.trees.values():
+            for a in arrs:
+                a.setflags(write=flag)
+
+    @staticmethod
+    def _specs_match(ent, specs) -> bool:
+        for name, fields in specs.items():
+            arrs = ent.trees.get(name)
+            if arrs is None or len(arrs) != len(fields):
+                return False
+            for a, (shape, dtype) in zip(arrs, fields):
+                if a.shape != shape or a.dtype != dtype:
+                    return False
+        return True
+
+    def acquire(self, key, specs):
+        """specs: tree name -> list of (shape, dtype). Returns (entry,
+        reused)."""
+        if _arena_enabled():
+            with self._lock:
+                for tok, ent in self._free.items():
+                    if ent.key == key and self._specs_match(ent, specs):
+                        del self._free[tok]
+                        self._free_bytes -= ent.nbytes
+                        self._in_use += 1
+                        self._stats["reuses"] += 1
+                        self._set_writeable(ent, True)
+                        return ent, True
+        trees = {}
+        nbytes = 0
+        for name, fields in specs.items():
+            arrs = []
+            for shape, dtype in fields:
+                a = np.empty(shape, dtype=dtype)
+                nbytes += a.nbytes
+                arrs.append(a)
+            trees[name] = arrs
+        ent = _ArenaEntry(key, trees, nbytes)
+        with self._lock:
+            self._stats["allocs"] += 1
+            if _arena_enabled():
+                self._in_use += 1
+            else:
+                ent.pooled = False
+        return ent, False
+
+    def release(self, ent) -> None:
+        if not ent.pooled:
+            return
+        with self._lock:
+            self._in_use -= 1
+            if not _arena_enabled():
+                return
+            self._set_writeable(ent, False)
+            self._seq += 1
+            self._free[self._seq] = ent
+            self._free_bytes += ent.nbytes
+            max_e, max_b = _arena_max_entries(), _arena_max_bytes()
+            while self._free and (len(self._free) > max_e
+                                  or self._free_bytes > max_b):
+                _, old = self._free.popitem(last=False)
+                self._free_bytes -= old.nbytes
+                self._stats["evictions"] += 1
+
+    def note_pad_skip(self, n: int = 1) -> None:
+        with self._lock:
+            self._stats["pad_fills_skipped"] += n
+
+    def clear(self, reason: str = "") -> None:
+        del reason
+        with self._lock:
+            self._free.clear()
+            self._free_bytes = 0
+
+    def state(self) -> dict:
+        with self._lock:
+            out = dict(self._stats)
+            out["entries"] = len(self._free)
+            out["in_use"] = self._in_use
+            out["resident_bytes"] = self._free_bytes
+        out["enabled"] = _arena_enabled()
+        return out
+
+
+_ARENA = _StackArena()
+
+
+def arena_state() -> dict:
+    """The arena's counters: reuses, allocs, evictions, pad_fills_skipped,
+    free entries, entries in use, free bytes, and whether it is on."""
+    return _ARENA.state()
+
+
+def arena_clear(reason: str = "") -> None:
+    """Drop the pooled (free) buffers; entries in use are untouched."""
+    _ARENA.clear(reason)
+
+
 class _FusedGroup:
-    """One shape-compatible lane group, stacked and ready to dispatch."""
+    """One shape-compatible lane group, stacked into arena buffers and
+    ready to dispatch."""
 
     __slots__ = ("idxs", "const", "init", "batch", "ptab", "pinit",
-                 "e_real", "e_pad", "p_pad", "wave", "spread_alg",
-                 "dtype_name", "cache_version", "delta_src")
+                 "A", "e_real", "e_pad", "p_pad", "wave", "spread_alg",
+                 "dtype_name", "cache_version", "delta_src", "entry",
+                 "arena_reused")
 
     def __init__(self, **kw):
         for k in self.__slots__:
             setattr(self, k, kw.get(k))
 
 
-def _fuse_group(lanes: List[PackedLane], idxs: List[int]) -> _FusedGroup:
-    """Stack one group's lanes into (E, ...) tables; padding rows copy
-    lane 0 and are marked inactive."""
+def _fuse_group(lanes: List[PackedLane], idxs: List[int], key: tuple,
+                e_pad_hint: int) -> _FusedGroup:
+    """Stack one group's lanes into arena-backed (E, ...) buffers, filling
+    lanes in place; a reused entry keeps the padding rows an earlier
+    generation left (they hold valid lanes, masked inactive)."""
     lane0 = lanes[idxs[0]]
+    A = 1 if lane0.ptab is not None else 0
     e_real = len(idxs)
     e_pad = _e_bucket(e_real)
+    if e_pad_hint and lane0.wavefront_ok():
+        e_pad = max(e_pad, _e_bucket(min(e_pad_hint, E_BUCKETS[-1])))
     p_pad = max(32, _e_bucket(max(
         lanes[i].batch.ask_cpu.shape[0] for i in idxs)))
-    rows = [lanes[i] for i in idxs] + [lane0] * (e_pad - e_real)
-    batches = [_pad_placement_axis(ln.batch, p_pad) for ln in rows]
+    padded = {i: _pad_placement_axis(lanes[i].batch, p_pad) for i in idxs}
+    srcs = {"const": lambda i: lanes[i].const,
+            "init": lambda i: lanes[i].init,
+            "batch": lambda i: padded[i]}
+    if A > 0:
+        srcs["ptab"] = lambda i: lanes[i].ptab
+        srcs["pinit"] = lambda i: lanes[i].pinit
+    specs = {}
+    for name, src in srcs.items():
+        specs[name] = [((e_pad,) + np.asarray(f).shape, np.asarray(f).dtype)
+                       for f in src(idxs[0])]
+    entry, reused = _ARENA.acquire((key, e_pad, p_pad), specs)
 
-    def stack(trees):
-        return type(trees[0])(*(np.stack([np.asarray(f) for f in fields])
-                                for fields in zip(*trees)))
+    skip_pad = entry.pad_valid
+    if skip_pad and e_pad > e_real:
+        _ARENA.note_pad_skip()
+    for name, src in srcs.items():
+        dsts = entry.trees[name]
+        for f_i, dst in enumerate(dsts):
+            for j, li in enumerate(idxs):
+                dst[j] = np.asarray(src(li)[f_i])
+            if not skip_pad:
+                # a fresh buffer's padding rows need some valid lane; once
+                # filled they stay valid (earlier generations' rows are
+                # real lanes whose results are discarded)
+                for j in range(e_real, e_pad):
+                    dst[j] = dst[0]
+    entry.pad_valid = True
 
-    const = stack([ln.const for ln in rows])
-    init = stack([ln.init for ln in rows])
-    batch = stack(batches)
-    # padding lanes must not place anything
+    const = type(lane0.const)(*entry.trees["const"])
+    init = type(lane0.init)(*entry.trees["init"])
+    batch = type(lane0.batch)(*entry.trees["batch"])
+    # padding lanes (and stale rows of a wider earlier generation) must
+    # not place anything
     batch.active[e_real:] = False
-    ptab = pinit = None
-    if lane0.ptab is not None:
-        ptab = stack([ln.ptab for ln in rows])
-        pinit = stack([ln.pinit for ln in rows])
+    ptab = type(lane0.ptab)(*entry.trees["ptab"]) if A > 0 else None
+    pinit = type(lane0.pinit)(*entry.trees["pinit"]) if A > 0 else None
     return _FusedGroup(
         idxs=list(idxs), const=const, init=init, batch=batch, ptab=ptab,
-        pinit=pinit,
-        e_real=e_real, e_pad=e_pad, p_pad=p_pad,
+        pinit=pinit, A=A, e_real=e_real, e_pad=e_pad, p_pad=p_pad,
         wave=lane0.wavefront_ok(), spread_alg=lane0.spread_alg,
         dtype_name=lane0.dtype_name, cache_version=lane0.table_version,
-        delta_src=lane0.delta_src)
+        delta_src=lane0.delta_src, entry=entry, arena_reused=reused)
 
 
-def fuse_lanes(lanes: List[PackedLane]) -> List[_FusedGroup]:
+def fuse_lanes(lanes: List[PackedLane], e_pad_hint: int = 0
+               ) -> List[_FusedGroup]:
     """Host half of fuse_and_solve: group lanes by static-shape signature
-    and stack each group. No device work."""
+    and stack each group into arena buffers. No device work. The caller
+    returns each group's entry with ``release_groups`` (solve_groups
+    does) once nothing reads its buffers."""
     groups: Dict[tuple, List[int]] = {}
     for i, lane in enumerate(lanes):
         groups.setdefault(lane.fuse_key(), []).append(i)
-    return [_fuse_group(lanes, idxs) for idxs in groups.values()]
+    return [_fuse_group(lanes, idxs, key, e_pad_hint)
+            for key, idxs in groups.items()]
+
+
+def release_groups(groups: List[_FusedGroup]) -> None:
+    """Return the groups' arena entries to the pool."""
+    for g in groups:
+        if g.entry is not None:
+            _ARENA.release(g.entry)
+            g.entry = None
+
+
+def resolve_cells(device: CellsLike = None) -> List[torch.device]:
+    """The cells a dispatch may use: every CUDA card by default (no card
+    raises), else the one device or the list of devices given. A device
+    may appear several times: each appearance is one cell of a grid."""
+    if device is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n == 0:
+            resolve_device(None)          # raises: no card
+        return [torch.device("cuda", i) for i in range(n)]
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("an empty list of cells")
+        return [resolve_device(d) for d in device]
+    return [resolve_device(device)]
+
+
+def _dispatch(g: _FusedGroup, cells: List[torch.device], use_mesh: bool):
+    """One fused group's solve (reference batch.py _dispatch): a dense
+    group over the (evals, nodes) grid pick_mesh chooses for its shapes,
+    a wave or windowed-preemption group split on its eval axis over the
+    cells (when the cells divide it), a dense preemption group and every
+    group without a grid on the first cell."""
+    kw = dict(spread_alg=g.spread_alg, dtype_name=g.dtype_name,
+              cache_version=g.cache_version, delta_src=g.delta_src)
+    multi = use_mesh and len(cells) > 1
+    if g.ptab is not None:
+        return solve_lane_fused(
+            g.const, g.init, g.batch, g.ptab, g.pinit, wave=g.wave,
+            device=cells if (g.wave and multi) else cells[0], **kw)
+    if g.wave:
+        return solve_lane_fused(g.const, g.init, g.batch, wave=True,
+                                device=cells if multi else cells[0], **kw)
+    E, N = np.asarray(g.const.cpu_cap).shape
+    grid = mesh.pick_mesh(E, N, cells) if multi else None
+    if grid is not None:
+        return mesh.mesh_solve(grid, g.const, g.init, g.batch, **kw)
+    return solve_lane_fused(g.const, g.init, g.batch, device=cells[0], **kw)
 
 
 def solve_groups(lanes: List[PackedLane], groups: List[_FusedGroup],
-                 device: DeviceLike = None) -> List[tuple]:
+                 device: CellsLike = None, use_mesh: bool = True
+                 ) -> List[tuple]:
     """Device half of fuse_and_solve: dispatch each fused group (wave
     kernels, dense scan or a preemption kernel, as the group's gate and
-    tables say; its tables through the resident buffer set, with the
-    first lane's table_version and delta_src) and map results back to
-    input-lane order."""
-    dev = resolve_device(device)
+    tables say; over a grid of cells where ``_dispatch`` finds one; its
+    tables through the resident buffer set, with the first lane's
+    table_version and delta_src), map results back to input-lane order,
+    and return the groups' arena entries to the pool."""
+    cells = resolve_cells(device)
     results: List = [None] * len(lanes)
-    for g in groups:
-        out = solve_lane_fused(
-            g.const, g.init, g.batch, g.ptab, g.pinit,
-            spread_alg=g.spread_alg, dtype_name=g.dtype_name, wave=g.wave,
-            device=dev, cache_version=g.cache_version,
-            delta_src=g.delta_src)
-        for j, li in enumerate(g.idxs):
-            p_real = lanes[li].batch.ask_cpu.shape[0]
-            res = (out[0][j][:p_real].astype(np.int64), out[1][j][:p_real],
-                   out[2][j][:p_real].astype(np.int64))
-            if g.ptab is not None:
-                res += (out[3][j][:p_real],)
-            results[li] = res
+    try:
+        for g in groups:
+            out = _dispatch(g, cells, use_mesh)
+            for j, li in enumerate(g.idxs):
+                p_real = lanes[li].batch.ask_cpu.shape[0]
+                res = (np.asarray(out[0][j][:p_real]).astype(np.int64),
+                       np.asarray(out[1][j][:p_real]),
+                       np.asarray(out[2][j][:p_real]).astype(np.int64))
+                if g.ptab is not None:
+                    res += (np.asarray(out[3][j][:p_real]),)
+                results[li] = res
+    finally:
+        # results are on the host (or the dispatch failed): nothing reads
+        # the host buffers when the next generation refills them
+        release_groups(groups)
     return results
 
 
-def fuse_and_solve(lanes: List[PackedLane], device: DeviceLike = None
+def fuse_and_solve(lanes: List[PackedLane], device: CellsLike = None,
+                   use_mesh: bool = True, e_pad_hint: int = 0
                    ) -> List[tuple]:
     """Group lanes by static-shape signature, solve each group as ONE
-    batched dispatch on ``device`` (default ``cuda``), and return per-lane
-    host numpy (chosen int64, scores, n_yielded int64) in input order;
-    a preemption lane's tuple adds evict_rows (P, A) bool.
-    Pinning the eval axis to a larger bucket (the reference's
-    ``e_pad_hint``) comes with the solve barrier that sets it."""
-    dev = resolve_device(device)
-    return solve_groups(lanes, fuse_lanes(lanes), device=dev)
+    batched dispatch, and return per-lane host numpy (chosen int64,
+    scores, n_yielded int64) in input order; a preemption lane's tuple
+    adds evict_rows (P, A) bool. ``device`` is one device or a list of
+    cells (default: every CUDA card; with one card there is no grid).
+    ``use_mesh`` False keeps every group on the first cell;
+    ``e_pad_hint`` pins wave groups' eval axis to at least that bucket."""
+    cells = resolve_cells(device)
+    return solve_groups(lanes, fuse_lanes(lanes, e_pad_hint),
+                        device=cells, use_mesh=use_mesh)
 
 
 def _cross_lane_fixpoint(lanes: List[PackedLane], results: List,

@@ -37,7 +37,8 @@ from ..device import DeviceLike, default_dtype_name, resolve_device
 from . import resident
 from .binpack import NodeConst, NodeState, PlacementBatch
 from .scoring import (
-    _anti, _binpack_raw, _fma, _score, _select, _spread_boost, _winner)
+    MAX_SKIP, SKIP_THRESHOLD, _BIG, _anti, _binpack_raw, _fma, _score,
+    _select, _spread_boost, _winner)
 
 
 class DenseOut(NamedTuple):
@@ -165,6 +166,12 @@ def _step_scores(const, state, b, spread_alg):
 def _commit(const, state, b, w, do):
     """Commit each lane's winner ``w`` where ``do`` (binpack.py step's
     scatter updates and _commit_tables), in place on ``state``."""
+    _commit_usage(const, state, b, w, do)
+    _commit_tables(const, state, w, do)
+
+
+def _commit_usage(const, state, b, w, do):
+    """The winner's usage, placed counts, ports and cores, in place."""
     dt = const.cpu_cap.dtype
     E = w.shape[0]
     ar = torch.arange(E, device=w.device)
@@ -184,32 +191,67 @@ def _commit(const, state, b, w, do):
     state.dyn_avail[ar, w] -= add_i * b["n_dyn"][:, 0]
     if const.mhz_per_core.shape[-1]:
         state.cores_free[ar, w] -= add_i * b["ask_cores"][:, 0]
-    _commit_tables(const, state, w, do)
 
 
 def _commit_tables(const, state, w, do):
     """Commit the winner ``w``'s spread, distinct_property and device
     tables where ``do`` (binpack.py _commit_tables), in place."""
+    _commit_counts(state, _vidx_at(const.spread_vidx, w),
+                   _vidx_at(const.dp_vidx, w), do)
+    _commit_devices(const, state, w, do)
+
+
+def _vidx_at(vidx, w):
+    """(E, K) value indices of each lane's node ``w`` in an (E, K, N)
+    table ((E, 0) when the table has none)."""
+    E = w.shape[0]
+    if vidx.dim() != 3 or vidx.shape[1] == 0:
+        return torch.zeros((E, 0), dtype=torch.int32, device=w.device)
+    return vidx[torch.arange(E, device=w.device), :, w]
+
+
+def _commit_counts(state, sp_v, dp_v, do):
+    """Add one to the spread and distinct_property counts of the value
+    indices ``sp_v`` (E, S) and ``dp_v`` (E, Dp) where ``do``."""
+    E = do.shape[0]
+    ar = torch.arange(E, device=do.device)
+    for vals, counts in ((sp_v, state.spread_counts),
+                         (dp_v, state.dp_counts)):
+        for s in range(vals.shape[1]):
+            v = vals[:, s].long()
+            counts[ar, s, v.clamp_min(0)] += (do & (v >= 0)).to(torch.int32)
+
+
+def _commit_devices(const, state, w, do):
+    """Take the winner's device instances from the group with the first
+    maximal affinity among those with room, per request, where ``do``."""
+    R = const.dev_aff.shape[1] if const.dev_aff.dim() == 4 else 0
+    if not R:
+        return
     E = w.shape[0]
     ar = torch.arange(E, device=w.device)
     add_i = do.to(torch.int32)
-    for vidx_all, counts in ((const.spread_vidx, state.spread_counts),
-                             (const.dp_vidx, state.dp_counts)):
-        for s in range(vidx_all.shape[1]):
-            v = vidx_all[ar, s, w].long()
-            counts[ar, s, v.clamp_min(0)] += (do & (v >= 0)).to(
-                torch.int32)
-    R = const.dev_aff.shape[1]
-    if R:
-        free_c = state.dev_free[ar, :, :, w]           # (E, R, Gd)
-        ok = free_c >= const.dev_count[:, :, None]
-        neg_inf = torch.tensor(-float("inf"), dtype=const.dev_aff.dtype,
-                               device=w.device)
-        aff_c = torch.where(ok, const.dev_aff[ar, :, :, w], neg_inf)
-        g_star = aff_c.argmax(dim=2)                   # (E, R) first max
-        for r in range(R):
-            state.dev_free[ar, r, g_star[:, r], w] -= (
-                add_i * const.dev_count[:, r])
+    free_c = state.dev_free[ar, :, :, w]               # (E, R, Gd)
+    ok = free_c >= const.dev_count[:, :, None]
+    neg_inf = torch.tensor(-float("inf"), dtype=const.dev_aff.dtype,
+                           device=w.device)
+    aff_c = torch.where(ok, const.dev_aff[ar, :, :, w], neg_inf)
+    g_star = aff_c.argmax(dim=2)                       # (E, R) first max
+    for r in range(R):
+        state.dev_free[ar, r, g_star[:, r], w] -= (
+            add_i * const.dev_count[:, r])
+
+
+def _step_asks(batch, i, has_cores):
+    """Step i's asks, (E, 1) each (the scan's ``b``)."""
+    col = slice(i, i + 1)
+    return dict(ask_cpu=batch.ask_cpu[:, col], ask_mem=batch.ask_mem[:, col],
+                ask_disk=batch.ask_disk[:, col],
+                n_dyn=batch.n_dyn_ports[:, col],
+                has_static=batch.has_static[:, col],
+                count=batch.count[:, col],
+                penalty=batch.penalty_idx[:, col].long(),
+                ask_cores=(batch.ask_cores[:, col] if has_cores else None))
 
 
 def dense_scan_plain(const: NodeConst, init: NodeState,
@@ -228,13 +270,7 @@ def dense_scan_plain(const: NodeConst, init: NodeState,
     n_yielded = torch.empty((E, P), dtype=torch.long, device=dev)
     for i in range(P):
         col = slice(i, i + 1)
-        b = dict(ask_cpu=batch.ask_cpu[:, col], ask_mem=batch.ask_mem[:, col],
-                 ask_disk=batch.ask_disk[:, col],
-                 n_dyn=batch.n_dyn_ports[:, col],
-                 has_static=batch.has_static[:, col],
-                 count=batch.count[:, col],
-                 penalty=batch.penalty_idx[:, col].long(),
-                 ask_cores=(batch.ask_cores[:, col] if has_cores else None))
+        b = _step_asks(batch, i, has_cores)
         fit, final = _step_scores(const, state, b, spread_alg)
         _, yielded, order, ny = _select(final, fit,
                                         batch.limit[:, col].long())
@@ -493,3 +529,172 @@ def solve_placements(const, init, batch, *, spread_alg: bool,
                                  device=dev, cache_version=cache_version,
                                  delta_src=delta_src)
     return dense_scan(c, s, b, spread_alg=spread_alg)
+
+
+# --------------------------------------------------------------------------
+# The node-sharded step (parallel/mesh.py mesh_solve over a grid with more
+# than one node cell; port of the dense program under mesh_solve_fn). A
+# cell holds E_c lanes and a contiguous run of Ns nodes in window order
+# (the lanes' shuffled order), starting at n0. Each placement step is
+# three phases, each one launch of csrc/dense_shard.cu per cell on the
+# card (the plain version here for CPU tensors), with the host copying
+# the cells' counts and records between the cells of an evals row:
+#   count  -- score the cell's nodes (fin, flags) and count its fit and
+#             low nodes per lane into cnt[j];
+#   select -- with every cell's counts (the exclusive prefix over the
+#             cells before it and the totals), mark the cell's yielded
+#             nodes and their window order, and write the lane's record
+#             rec[j]: the best (score, order, node) and the number
+#             yielded, with the best node's spread and distinct_property
+#             value indices;
+#   commit -- with every cell's record, the winner (the largest score,
+#             the smallest order on ties) and n_yielded (the sum of the
+#             cells' counts); the outputs; the owning cell commits usage,
+#             ports, cores and devices at the node; every cell adds the
+#             published value indices to its copy of the counts.
+# Nothing is summed across cells but integers, so every grid gives the
+# one-card scan's bits.
+
+SHARD_COUNT, SHARD_SELECT, SHARD_COMMIT = 0, 1, 2
+_NONE = 2 ** 31 - 1          # a record's order and node when none yields
+
+
+def _eff_words(dt) -> int:
+    return 2 if dt == torch.float64 else 1
+
+
+class ShardCell:
+    """One cell of the node-sharded scan: its lane tables (node-axis
+    tables cut to its slice; the state a private copy it updates in
+    place), its scratch, the exchange buffers every cell of its row holds
+    (cnt (n_par, E_c, 2) and rec (n_par, E_c, W) int32, slot j its own)
+    and its copy of the outputs."""
+
+    __slots__ = ("const", "state", "batch", "j", "n_par", "n0", "dims",
+                 "spread_alg", "fin", "flags", "cnt", "rec", "chosen",
+                 "scores", "n_yielded", "ptrs")
+
+    def __init__(self, const, init, batch, *, j: int, n_par: int,
+                 spread_alg: bool):
+        self.const, self.batch = const, batch
+        self.state = NodeState(*(t.clone().contiguous() for t in init))
+        self.dims = dense_dims(const, self.state, batch)
+        E, N, P, S, _, Dp = self.dims[:6]
+        dt, dev = const.cpu_cap.dtype, const.cpu_cap.device
+        self.j, self.n_par, self.n0 = j, n_par, j * N
+        self.spread_alg = bool(spread_alg)
+        W = _eff_words(dt) + 3 + S + Dp
+        self.fin = torch.zeros((E, N), dtype=dt, device=dev)
+        self.flags = torch.zeros((E, N), dtype=torch.uint8, device=dev)
+        self.cnt = torch.zeros((n_par, E, 2), dtype=torch.int32, device=dev)
+        self.rec = torch.zeros((n_par, E, W), dtype=torch.int32, device=dev)
+        self.chosen = torch.full((E, P), -1, dtype=torch.int64, device=dev)
+        self.scores = torch.empty((E, P), dtype=dt, device=dev)
+        self.n_yielded = torch.empty((E, P), dtype=torch.int64, device=dev)
+        trees = {"const": const, "state": self.state, "batch": batch}
+        # the kernel's pointer list, in DENSE_ARGS order then the outputs
+        # and the scratch (built once: every phase takes the same one)
+        self.ptrs = [getattr(trees[tree], f).contiguous()
+                     for tree, f in DENSE_ARGS] + [
+            self.chosen, self.scores, self.n_yielded, self.fin, self.flags,
+            self.cnt, self.rec]
+
+
+def _shard_count_plain(c: ShardCell, i: int) -> None:
+    has_cores = bool(c.dims[9])
+    b = _step_asks(c.batch, i, has_cores)
+    b["penalty"] = b["penalty"] - c.n0      # the cell's own node numbers
+    fit, final = _step_scores(c.const, c.state, b, c.spread_alg)
+    low = fit & (final <= SKIP_THRESHOLD)
+    c.fin.copy_(final)
+    c.flags.copy_(fit.to(torch.uint8) | (low.to(torch.uint8) << 1))
+    c.cnt[c.j, :, 0] = fit.sum(dim=1).to(torch.int32)
+    c.cnt[c.j, :, 1] = low.sum(dim=1).to(torch.int32)
+
+
+def _shard_select_plain(c: ShardCell, i: int) -> None:
+    E, N, _, S, _, Dp = c.dims[:6]
+    dt = c.fin.dtype
+    fit = (c.flags & 1).bool()
+    low = (c.flags & 2).bool()
+    cnt = c.cnt.long()
+    pre = cnt[:c.j].sum(dim=0)                          # (E, 2)
+    tot = cnt.sum(dim=0)
+    L = c.batch.limit[:, i:i + 1].long()
+    skip_rank = pre[:, 1:2] + torch.cumsum(low.long(), dim=1)
+    srank = skip_rank.clamp_max(MAX_SKIP)
+    skipped = low & (skip_rank <= MAX_SKIP)
+    cpos = pre[:, 0:1] + torch.cumsum(fit.long(), dim=1) - srank
+    window = fit & ~skipped & (cpos <= L)
+    tot_counted = tot[:, 0:1] - tot[:, 1:2].clamp_max(MAX_SKIP)
+    deficit = (L - torch.minimum(tot_counted, L)).clamp_min(0)
+    yielded = window | (skipped & (srank <= deficit))
+    order = torch.where(window, cpos, L + srank)
+    neg_inf = torch.tensor(-float("inf"), dtype=dt, device=c.fin.device)
+    w, best = _winner(torch.where(yielded, c.fin, neg_inf), yielded, order)
+    has = yielded.any(dim=1)
+    ar = torch.arange(E, device=w.device)
+    none = torch.full_like(w, _NONE)
+    ew = _eff_words(dt)
+    rec = c.rec[c.j]
+    rec[:, :ew] = best.contiguous().view(torch.int32).reshape(E, ew)
+    rec[:, ew] = torch.where(has, order[ar, w], none).to(torch.int32)
+    rec[:, ew + 1] = torch.where(has, w, none).to(torch.int32)
+    rec[:, ew + 2] = yielded.sum(dim=1).to(torch.int32)
+    if S:
+        rec[:, ew + 3:ew + 3 + S] = torch.where(
+            has[:, None], _vidx_at(c.const.spread_vidx, w), -1)
+    if Dp:
+        rec[:, ew + 3 + S:ew + 3 + S + Dp] = torch.where(
+            has[:, None], _vidx_at(c.const.dp_vidx, w), -1)
+
+
+def _shard_commit_plain(c: ShardCell, i: int) -> None:
+    E, N, _, S, _, Dp = c.dims[:6]
+    dt = c.fin.dtype
+    ew = _eff_words(dt)
+    rec = c.rec
+    eff = rec[:, :, :ew].contiguous().view(dt).reshape(c.n_par, E)
+    order = rec[:, :, ew].long()
+    idx = rec[:, :, ew + 1].long()
+    has = order != _NONE
+    neg_inf = torch.tensor(-float("inf"), dtype=dt, device=eff.device)
+    best = torch.where(has, eff, neg_inf).max(dim=0).values
+    cand = has & (eff == best[None])
+    jw = torch.where(cand, order, torch.full_like(order, _BIG)).argmin(dim=0)
+    ar = torch.arange(E, device=eff.device)
+    ny = rec[:, :, ew + 2].long().sum(dim=0)
+    any_yield = ny > 0
+    w_loc = idx[jw, ar]
+    do = c.batch.active[:, i] & any_yield
+    c.chosen[:, i] = torch.where(do, jw * N + w_loc, -1)
+    c.scores[:, i] = torch.where(any_yield, best, neg_inf)
+    c.n_yielded[:, i] = ny
+    own = do & (jw == c.j)
+    w_own = torch.where(own, w_loc, 0)
+    b = _step_asks(c.batch, i, bool(c.dims[9]))
+    _commit_usage(c.const, c.state, b, w_own, own)
+    _commit_devices(c.const, c.state, w_own, own)
+    pub = rec[jw, ar]                                   # (E, W)
+    _commit_counts(c.state, pub[:, ew + 3:ew + 3 + S],
+                   pub[:, ew + 3 + S:ew + 3 + S + Dp], do)
+
+
+_SHARD_PLAIN = {SHARD_COUNT: _shard_count_plain,
+                SHARD_SELECT: _shard_select_plain,
+                SHARD_COMMIT: _shard_commit_plain}
+
+
+def shard_phase(c: ShardCell, phase: int, i: int) -> None:
+    """Run one phase of placement step ``i`` on cell ``c``: the plain
+    version for CPU tensors, one dense_shard launch for CUDA tensors."""
+    dev = c.fin.device
+    if dev.type == "cpu":
+        _SHARD_PLAIN[phase](c, i)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    kernels.DENSE_SHARD.launch(
+        c.fin.dtype, c.ptrs,
+        list(c.dims) + [int(c.spread_alg), phase, i, c.j, c.n_par,
+                        c.rec.shape[2]])

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike
 from .binpack import BINPACK_MAX
 from .scoring import _EXP32, _libm
 from .service import PackedLane
@@ -244,21 +244,51 @@ def _tree_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _x_at(V, feas, any_f, live, ask, mu, *, temp=None):
-    """X at one temperature: the masked softmax of (V - price) / temp
-    over each lane's feasible nodes (a row with none is uniform before
-    ``live`` zeroes it); ``temp`` None is the final pass (times 1/0.02)."""
+def _logits(V, feas, any_f, ask, mu, temp=None):
+    """The logits (V - price) / temp over each lane's feasible nodes (-inf
+    elsewhere; 0 on a lane with none); ``temp`` None is the final pass
+    (times 1/0.02)."""
     price = _fma32(ask[:, 2:3], mu[None, :, 2],
                    _fma32(ask[:, 1:2], mu[None, :, 1],
                           _ftz(ask[:, 0:1] * mu[None, :, 0])))
     d = _ftz(V - price)
     logit = _ftz(d * float(T_FINAL_INV) if temp is None else d / temp)
     logit = torch.where(feas, logit, torch.full_like(logit, float("-inf")))
-    logit = torch.where(any_f, logit, torch.zeros_like(logit))
+    return torch.where(any_f, logit, torch.zeros_like(logit))
+
+
+def _row_stats(logit):
+    """Each row's max (L, 1) and the sum of exp(logit - max) (L,)."""
     mx = logit.amax(dim=1, keepdim=True)
-    e = _exp32(_ftz(logit - mx))
-    X = _ftz(e / _tree_sum(e)[:, None])
+    return mx, _tree_sum(_exp32(_ftz(logit - mx)))
+
+
+def _x_from(logit, mx, ssum, live):
+    """The masked softmax from the rows' statistics."""
+    X = _ftz(_exp32(_ftz(logit - mx)) / ssum[:, None])
     return torch.where(live, X, torch.zeros_like(X))
+
+
+def _x_at(V, feas, any_f, live, ask, mu, *, temp=None):
+    """X at one temperature: the masked softmax of (V - price) / temp
+    over each lane's feasible nodes (a row with none is uniform before
+    ``live`` zeroes it); ``temp`` None is the final pass (times 1/0.02)."""
+    logit = _logits(V, feas, any_f, ask, mu, temp)
+    mx, ssum = _row_stats(logit)
+    return _x_from(logit, mx, ssum, live)
+
+
+def _mu_step(X, pcount, ask, free, cap, mu):
+    """One dual-price step: the load as an fma chain over the lanes in
+    order, then mu = max(0, mu + 0.5 * (load - free) / cap)."""
+    zero = torch.zeros_like(mu)
+    Xp = _ftz(X * pcount[:, None])
+    load = zero
+    for lane in range(Xp.shape[0]):
+        load = _fma32(Xp[lane][:, None], ask[lane][None, :], load)
+    step = _ftz(_ftz(_ftz(load - free) * ETA) / cap)
+    m = _ftz(mu + step)
+    return torch.where(m > 0, m, zero)
 
 
 def lp_relax_plain(V, feas, ask, pcount, free, active, temps
@@ -270,16 +300,9 @@ def lp_relax_plain(V, feas, ask, pcount, free, active, temps
     any_f = feas.any(dim=1, keepdim=True)
     live = any_f & active[:, None]
     mu = torch.zeros_like(free)
-    zero = torch.zeros_like(mu)
     for t in range(temps.shape[0]):
         X = _x_at(V, feas, any_f, live, ask, mu, temp=temps[t])
-        Xp = _ftz(X * pcount[:, None])
-        load = zero
-        for lane in range(Xp.shape[0]):
-            load = _fma32(Xp[lane][:, None], ask[lane][None, :], load)
-        step = _ftz(_ftz(_ftz(load - free) * ETA) / cap)
-        m = _ftz(mu + step)
-        mu = torch.where(m > 0, m, zero)
+        mu = _mu_step(X, pcount, ask, free, cap, mu)
     return _x_at(V, feas, any_f, live, ask, mu), mu
 
 
@@ -342,6 +365,86 @@ def lp_relax(V, feas, ask, pcount, free, active, temps
                             ins + [X, mu, any_f, rmax, rsum],
                             [L, N, temps.shape[0]])
     return X, mu
+
+
+# ---------------------------------------------------------------------------
+# The lane-sharded relaxation (parallel/mesh.py mesh_lpq): one cell holds
+# V and feas whole (gathered once), its lanes [l0, l1), and its own copy
+# of mu and of every lane's row statistics. Four phases, each one launch
+# of the lp_shard entry point on the card (the plain version here for CPU
+# tensors): init (any-feasible flags, mu = 0), rows (the cell's lanes'
+# (max, sum) at step t, t < 0 the final pass), nodes (step t's X from the
+# gathered statistics for every lane, the load over the lanes in order,
+# the mu update), write_x (the final X of the cell's lanes, from the
+# statistics of the final pass: rows at t = -1).
+
+LP_INIT, LP_ROWS, LP_NODES, LP_WRITE_X = 0, 1, 2, 3
+
+
+class LpShardCell:
+    """One cell of the lane-sharded relaxation."""
+
+    __slots__ = ("V", "feas", "ask", "pcount", "free", "active", "temps",
+                 "l0", "l1", "X", "mu", "any_f", "rmax", "rsum")
+
+    def __init__(self, V, feas, ask, pcount, free, active, temps, *,
+                 l0: int, l1: int):
+        L, N = _lp_check(V, feas, ask, pcount, free, active, temps)
+        if not 0 <= l0 < l1 <= L:
+            raise ValueError(f"lanes [{l0}, {l1}) outside [0, {L})")
+        self.V, self.feas, self.ask, self.pcount = V, feas, ask, pcount
+        self.free, self.active, self.temps = free, active, temps
+        self.l0, self.l1 = l0, l1
+        dev = V.device
+        self.X = torch.empty((l1 - l0, N), dtype=torch.float32, device=dev)
+        self.mu = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+        self.any_f = torch.zeros(L, dtype=torch.int32, device=dev)
+        self.rmax = torch.zeros(L, dtype=torch.float32, device=dev)
+        self.rsum = torch.zeros(L, dtype=torch.float32, device=dev)
+
+
+def _lp_shard_plain(c: LpShardCell, phase: int, t: int) -> None:
+    if phase == LP_INIT:
+        c.any_f.copy_(c.feas.any(dim=1).to(torch.int32))
+        c.mu.zero_()
+        return
+    any_f = c.any_f.bool()[:, None]
+    live = any_f & c.active[:, None]
+    temp = None if t < 0 else c.temps[t]
+    if phase == LP_NODES:
+        logit = _logits(c.V, c.feas, any_f, c.ask, c.mu, temp)
+        X = _x_from(logit, c.rmax[:, None], c.rsum, live)
+        c.mu.copy_(_mu_step(X, c.pcount, c.ask, c.free,
+                            c.free.clamp_min(1.0), c.mu))
+        return
+    rs = slice(c.l0, c.l1)
+    if phase == LP_WRITE_X:
+        temp = None
+    logit = _logits(c.V[rs], c.feas[rs], any_f[rs], c.ask[rs], c.mu, temp)
+    if phase == LP_ROWS:
+        mx, ssum = _row_stats(logit)
+        c.rmax[rs] = mx[:, 0]
+        c.rsum[rs] = ssum
+    else:
+        c.X.copy_(_x_from(logit, c.rmax[rs, None], c.rsum[rs], live[rs]))
+
+
+def lp_shard_phase(c: LpShardCell, phase: int, t: int) -> None:
+    """Run one phase of the lane-sharded relaxation on cell ``c``: the
+    plain version for CPU tensors, one lp_shard launch for CUDA
+    tensors."""
+    dev = c.V.device
+    if dev.type == "cpu":
+        _lp_shard_plain(c, phase, t)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    L, N = c.V.shape
+    ins = [x.contiguous() for x in (c.V, c.feas, c.ask, c.pcount, c.free,
+                                    c.active, c.temps)]
+    kernels.LP_SHARD.launch(
+        torch.float32, ins + [c.X, c.mu, c.any_f, c.rmax, c.rsum],
+        [L, N, c.temps.shape[0], phase, t, c.l0, c.l1])
 
 
 # ---------------------------------------------------------------------------
@@ -463,17 +566,19 @@ def _frag_and_pack(cap_cpu, cap_mem, used_cpu, used_mem
 
 
 def solve_queue(lanes: List[PackedLane], ledger: Dict[str, list],
-                device: DeviceLike = None) -> List[tuple]:
-    """Solve one barrier generation on ``device`` (default ``cuda``): the
+                device=None) -> List[tuple]:
+    """Solve one barrier generation on ``device`` (one device or a list of
+    cells; default every CUDA card, no card raises): the
     largest group of LP-eligible lanes sharing one NodeMatrix through the
     joint relaxation, everything else through the greedy fused dispatch
     and the cross-lane fixpoint, both against ``ledger`` (node id ->
     [free cpu, mem, disk, dynamic ports]). Returns per-lane (chosen,
     scores, n_yielded) in input order, in each lane's shuffled
     coordinates."""
-    from .batch import _cross_lane_fixpoint, fuse_and_solve
+    from .batch import _cross_lane_fixpoint, fuse_and_solve, resolve_cells
 
-    dev = resolve_device(device)
+    cells = resolve_cells(device)
+    dev = cells[0]
     results: List = [None] * len(lanes)
     # group LP-eligible lanes by node universe (matrix identity); the
     # largest group solves jointly, the rest ride the greedy path
@@ -485,7 +590,7 @@ def solve_queue(lanes: List[PackedLane], ledger: Dict[str, list],
 
     if lp_idx:
         lp_results = _solve_lp_group([lanes[i] for i in lp_idx], ledger,
-                                     device=dev)
+                                     device=cells)
         _stat("solves")
         _stat("lanes_total", len(lp_idx))
         for i, res in zip(lp_idx, lp_results):
@@ -494,7 +599,7 @@ def solve_queue(lanes: List[PackedLane], ledger: Dict[str, list],
     greedy_idx = [i for i in range(len(lanes)) if results[i] is None]
     if greedy_idx:
         sub = [lanes[i] for i in greedy_idx]
-        sub_res = fuse_and_solve(sub, device=dev)
+        sub_res = fuse_and_solve(sub, device=cells)
         # charge greedy placements against the ledger the LP committed
         # into, resolving residual conflicts of wave lanes
         _cross_lane_fixpoint(sub, sub_res, ledger, device=dev)
@@ -526,14 +631,17 @@ def _lp_inputs(views: List[_LaneView], free: np.ndarray):
 
 
 def _solve_lp_group(lanes: List[PackedLane], ledger: Dict[str, list],
-                    device: DeviceLike = None,
+                    device=None,
                     timings: Optional[Dict[str, float]] = None
                     ) -> List[tuple]:
     """Solve one group of LP-eligible lanes over one NodeMatrix: assemble
     values and free capacity (the ledger overrides it), relax on
     ``device``, round by largest remainder, repair every placement
     against the shared ledger, publish the committed capacity into the
-    ledger. ``timings``, when given, receives host-clock ms per phase."""
+    ledger. ``timings``, when given, receives host-clock ms per phase.
+    ``device`` may be a list of cells: the relaxation then runs over the
+    grid parallel.mesh.pick_mesh chooses for (L_pad, N) (lanes on evals),
+    or on the first cell when there is none."""
     for lane in lanes:
         if lane.ptab is not None:
             raise NotImplementedError(
@@ -541,7 +649,9 @@ def _solve_lp_group(lanes: List[PackedLane], ledger: Dict[str, list],
                 "Preemptor over Allocation structs in its repair pass, "
                 "which comes with the structs slice (ROADMAP Queue 1 item "
                 "14)")
-    dev = resolve_device(device)
+    from .batch import resolve_cells
+    cells = resolve_cells(device)
+    dev = cells[0]
     clock = [time.perf_counter()]
 
     def lap(name):
@@ -580,8 +690,16 @@ def _solve_lp_group(lanes: List[PackedLane], ledger: Dict[str, list],
     L = len(views)
     arrays = _lp_inputs(views, free)
     temps = lp_temperatures(lpq_steps())
-    X_dev, mu_dev = lp_relax(*(torch.from_numpy(a).to(dev)
-                               for a in arrays + (temps,)))
+    grid = None
+    if len(cells) > 1:
+        from ..parallel import mesh
+        grid = mesh.pick_mesh(arrays[0].shape[0], arrays[0].shape[1], cells)
+    if grid is not None:
+        s_in, _ = mesh.shard_lpq_inputs(grid, *arrays)
+        X_dev, mu_dev = mesh.mesh_lpq(grid, s_in, temps)
+    else:
+        X_dev, mu_dev = lp_relax(*(torch.from_numpy(a).to(dev)
+                                   for a in arrays + (temps,)))
     X = X_dev[:L].cpu().numpy().astype(np.float64)
     mu = mu_dev.cpu().numpy().astype(np.float64)            # (N, 3)
     lap("lp")

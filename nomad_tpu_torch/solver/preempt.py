@@ -752,20 +752,39 @@ def wave_preempt_tensors(inp: WavePreemptInputs, device: torch.device, *,
 
 def solve_lane_wave_preempt(const, init, batch, ptab, pinit, *,
                             spread_alg: bool, dtype_name: str,
-                            device: DeviceLike = None, cache_version=None,
+                            device=None, cache_version=None,
                             delta_src=None):
     """Windowed preemption solve of a stacked lane group (leading eval
     axis): host precompute, one compact transfer, one kernel launch.
     Returns host numpy (chosen int64, scores, n_yielded int64) (E, P) and
     evict_rows (E, P, A) bool. Callers guarantee the lanes passed the
-    wave gate."""
-    dev = resolve_device(device)
+    wave gate. ``device`` may be a list of cells: when they divide the
+    eval axis, each cell runs the kernel on its lanes (tables shipped
+    fresh, parallel/mesh.py shard_eval_axis), else the first cell runs
+    them all."""
+    from .wave import eval_cells, first_cell
     inp = wave_preempt_inputs(const, init, batch, ptab, pinit,
                               dtype_name=dtype_name)
-    chosen, scores, n_yielded, evict_rows = wave_preempt(
-        *wave_preempt_tensors(inp, dev, cache_version=cache_version,
-                              delta_src=delta_src),
-        spread_alg=spread_alg, B=inp.B)
     P = inp.P
-    return (chosen[:, :P].cpu().numpy(), scores[:, :P].cpu().numpy(),
-            n_yielded[:, :P].cpu().numpy(), evict_rows[:, :P].cpu().numpy())
+    cells = eval_cells(device, inp.compact.shape[0])
+    if cells is None:
+        dev = resolve_device(first_cell(device))
+        outs = [wave_preempt(
+            *wave_preempt_tensors(inp, dev, cache_version=cache_version,
+                                  delta_src=delta_src),
+            spread_alg=spread_alg, B=inp.B)]
+    else:
+        from ..parallel import mesh
+        keys = sorted(inp.cand)
+        arrays = [inp.compact, *(inp.cand[k] for k in keys), inp.scal_f,
+                  inp.scal_i, inp.pen, inp.counts0]
+        per_cell, _ = mesh.shard_eval_axis(arrays, cells,
+                                           tag="compact_preempt")
+        n = len(keys)
+        outs = [wave_preempt(b[0], dict(zip(keys, b[1:1 + n])),
+                             *b[1 + n:], spread_alg=spread_alg, B=inp.B)
+                for b in per_cell]
+    chosen, scores, n_yielded, evict_rows = (
+        np.concatenate([o[k][:, :P].cpu().numpy() for o in outs])
+        for k in range(4))
+    return chosen, scores, n_yielded, evict_rows

@@ -1,6 +1,6 @@
 """Device residency: content-keyed resident buffers, the journal-fed
-version chain and the delta scatter (port of nomad_tpu/solver/
-constcache.py without its per-shard pool).
+version chain, the delta scatter and the per-shard pool of the mesh
+route (port of nomad_tpu/solver/constcache.py).
 
 Every dispatch ships its input tables through ``device_put_cached``.
 
@@ -23,6 +23,13 @@ Every dispatch ships its input tables through ``device_put_cached``.
     uncovered span (``gap``) or a diff at least DELTA_MAX_FRAC of the
     table (``size``) re-ships wholesale and is counted.
 
+  * The per-shard pool (``device_put_sharded_cached``). A table cut over
+    a grid of cells (parallel/mesh.py) keeps one resident buffer per
+    (slice content, cell): the key is the slice's fingerprint plus the
+    cell's place in the grid and its device, so two cells on one card
+    stay two entries, and a node-table write re-uploads only the cells
+    whose slice changed. Its own entry bound; the MiB bound is shared.
+
 The scatter never writes into its base buffer: the base may still sit in
 the content cache under its old fingerprint, or be read by a dispatch in
 flight. It moves raw bits (one entry point per element size), so -0.0
@@ -37,6 +44,7 @@ Knobs (read at each use):
   NOMAD_TPU_TORCH_CONST_CACHE_MB         content-cache MiB (256)
   NOMAD_TPU_TORCH_CONST_CACHE_MIN_BYTES  arrays below this always ship
                                          (4096)
+  NOMAD_TPU_TORCH_CONST_CACHE_SHARD_ENTRIES  per-shard pool entries (512)
   NOMAD_TPU_TORCH_DELTA_STREAM           0 turns the version chain off
                                          (kill switch)
   NOMAD_TPU_TORCH_DELTA_CHAIN_MB         chain pool MiB (64)
@@ -61,6 +69,8 @@ from ..device import DeviceLike, resolve_device
 
 _LOCK = threading.Lock()
 _CACHE: "OrderedDict[tuple, _Entry]" = OrderedDict()
+# the per-shard pool: (slice fingerprint, cell place, device) -> entry
+_SHARD_CACHE: "OrderedDict[tuple, _Entry]" = OrderedDict()
 # one entry per dispatch-tree slot, not per content: the buffer it
 # shipped last generation and the frozen host shadow of that content
 _CHAIN: "OrderedDict[tuple, _ChainEntry]" = OrderedDict()
@@ -72,6 +82,8 @@ _STATS = {
     "invalidations": 0,
     "evictions": 0,
     "resident_bytes": 0,
+    "shard_resident_bytes": 0,
+    "shard_resident_hwm": 0,
     # the chain: promotions scatter a delta, reuses ship nothing,
     # fallbacks re-ship wholesale over a live entry (gap = span not
     # covered by the journal, size = diff payload over DELTA_MAX_FRAC)
@@ -147,6 +159,14 @@ def _min_bytes() -> int:
                                   "4096"))
     except ValueError:
         return 4096
+
+
+def _max_shard_entries() -> int:
+    try:
+        return max(1, int(os.environ.get(
+            "NOMAD_TPU_TORCH_CONST_CACHE_SHARD_ENTRIES", "512")))
+    except ValueError:
+        return 512
 
 
 def _chain_max_bytes() -> int:
@@ -260,6 +280,73 @@ def delta_scatter(buf: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def coord_scatter_plain(part: torch.Tensor, coords: torch.Tensor,
+                        vals: torch.Tensor, start: Sequence[int]
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of the coordinate scatter into one cell's
+    slice of a sharded table (parallel/mesh.py mesh_delta_scatter): a
+    new tensor equal to ``part`` with ``out[c - start] = vals[i]`` for
+    every update i whose coordinates c = coords[:, i] (in the whole
+    table) fall inside the slice that begins at ``start``; the others
+    belong to other cells and are dropped. Raw bits, as delta_scatter."""
+    bits = _BITS[part.element_size()]
+    out = part.reshape(-1).view(bits).clone()
+    st = torch.tensor([int(x) for x in start], dtype=torch.long,
+                      device=part.device)[:, None]
+    dims = torch.tensor(list(part.shape), dtype=torch.long,
+                        device=part.device)[:, None]
+    local = coords.long() - st
+    keep = ((local >= 0) & (local < dims)).all(dim=0)
+    flat = torch.zeros(local.shape[1], dtype=torch.long, device=part.device)
+    for d in range(local.shape[0]):
+        flat = flat * int(part.shape[d]) + local[d]
+    out[flat[keep]] = vals.reshape(-1).view(bits)[keep]
+    return out.view(part.dtype).view(part.shape)
+
+
+def coord_scatter(part: torch.Tensor, coords: torch.Tensor,
+                  vals: torch.Tensor, start: Sequence[int]) -> torch.Tensor:
+    """The coordinate scatter into one cell's slice (see
+    coord_scatter_plain); ``part`` is never written. ``coords`` is
+    (ndim, k) int32 with ndim = part.dim() <= 4, ``vals`` (k,) of part's
+    dtype, ``start`` the slice's first coordinate per axis. The plain
+    version for CPU tensors, the coordinate entry points of the
+    delta_scatter source for CUDA tensors."""
+    for name, t in (("part", part), ("coords", coords), ("vals", vals)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.device != part.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{part.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    ndim = part.dim()
+    if not 1 <= ndim <= 4 or len(start) != ndim:
+        raise ValueError("the coordinate scatter takes 1 to 4 axes and "
+                         "one start per axis")
+    if coords.dtype != torch.int32 or tuple(coords.shape[:1]) != (ndim,) \
+            or coords.dim() != 2:
+        raise TypeError(f"coords must be ({ndim}, k) int32")
+    if vals.dtype != part.dtype or tuple(vals.shape) != (coords.shape[1],):
+        raise TypeError(f"vals must be ({coords.shape[1]},) {part.dtype}")
+    if part.element_size() not in _BITS:
+        raise TypeError(f"no scatter for {part.element_size()}-byte "
+                        "elements")
+    if part.numel() >= 1 << 31:
+        raise ValueError("the scatter addresses fewer than 2^31 elements")
+    dev = part.device
+    if dev.type == "cpu":
+        return coord_scatter_plain(part, coords, vals, start)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty_like(part, memory_format=torch.contiguous_format)
+    shape4 = list(part.shape) + [1] * (4 - ndim)
+    start4 = [int(x) for x in start] + [0] * (4 - ndim)
+    kernels.COORD_SCATTER.launch(part.dtype, [part, coords, vals, out],
+                                 [ndim, coords.shape[1]] + shape4 + start4)
+    return out
+
+
 # --------------------------------------------------------------------------
 # Transfers.
 
@@ -297,7 +384,8 @@ def _evict_chain_over_bounds_locked() -> None:
 
 
 def chain_apply(key: tuple, arr: np.ndarray, store, token: Optional[int],
-                put_fn):
+                put_fn, scatter=None, idx_width: int = 4,
+                copy_shadow: bool = False):
     """Version-chain transfer of one array: reuse or delta-update the
     buffer this slot shipped last time. Returns (buffer, bytes_shipped,
     outcome), outcome one of install / reuse / promote / gap / size (see
@@ -311,11 +399,16 @@ def chain_apply(key: tuple, arr: np.ndarray, store, token: Optional[int],
     under ``_LOCK``, evaluated here and reinstalled under ``_LOCK``; a
     concurrent claimant of the same slot installs wholesale and the last
     writer wins. ``put_fn(arr)`` is the wholesale upload; ``arr`` becomes
-    the frozen shadow (callers pass fresh transport outputs)."""
+    the frozen shadow (callers pass fresh transport outputs), or a copy
+    of it with ``copy_shadow`` (the mesh route's tables are views of
+    arena buffers the next generation refills). ``scatter(buf, shape,
+    idx_p, vals_p)`` replaces the flat single-buffer scatter (the mesh
+    route's coordinate scatter), ``idx_width`` its bytes per update
+    index (4 * ndim for coordinates)."""
     from ..tensor.pack import journal_touched_nodes
 
     nbytes = int(arr.nbytes)
-    shadow = arr
+    shadow = np.array(arr, copy=True) if copy_shadow else arr
     # the shadow is a promise about the resident buffer's content
     shadow.setflags(write=False)
     with _LOCK:
@@ -355,14 +448,17 @@ def chain_apply(key: tuple, arr: np.ndarray, store, token: Optional[int],
             else:
                 idx_p, vals_p, bucket = _pad_updates(
                     idx, shadow.reshape((-1,))[idx])
-                # int32 indices and the values
-                payload = bucket * (4 + shadow.dtype.itemsize)
+                # int32 indices (or coordinates) and the values
+                payload = bucket * (idx_width + shadow.dtype.itemsize)
                 if payload >= _delta_max_frac() * nbytes:
                     outcome = "size"
                     payload = 0
                 else:
                     outcome = "promote"
-                    buf = _scatter_single(ce.buf, idx_p, vals_p)
+                    if scatter is None:
+                        buf = _scatter_single(ce.buf, idx_p, vals_p)
+                    else:
+                        buf = scatter(ce.buf, shadow.shape, idx_p, vals_p)
     if buf is None:                       # install / gap / size
         buf = put_fn(shadow)
     shipped = payload if outcome in ("reuse", "promote") else nbytes
@@ -513,6 +609,85 @@ def device_put_cached(arrays: Sequence[np.ndarray],
     return buffers, shipped
 
 
+def _evict_shard_over_bounds_locked() -> None:
+    max_e, max_b = _max_shard_entries(), _max_bytes()
+    while _SHARD_CACHE and (len(_SHARD_CACHE) > max_e
+                            or _STATS["shard_resident_bytes"] > max_b):
+        _, ent = _SHARD_CACHE.popitem(last=False)
+        _STATS["shard_resident_bytes"] -= ent.nbytes
+        _STATS["evictions"] += 1
+
+
+def device_put_sharded_cached(arrays: Sequence[np.ndarray], cuts,
+                              version: Optional[int] = None,
+                              fallback_put=None):
+    """Per-shard content-keyed transfer (reference constcache.py
+    device_put_sharded_cached): ``cuts[i]`` lists array i's cells in
+    grid order as (place, device, index) -- index the tuple of slices
+    that cell holds. Each distinct slice is fingerprinted once; each cell
+    reuses its resident buffer for that content or ships the slice and
+    keeps it. Arrays below the min-bytes floor, and every array with the
+    cache off, go through ``fallback_put(i)`` (the caller's whole-array
+    put by spec) and count their whole bytes as shipped. Returns (per
+    array the list of per-cell tensors, bytes shipped)."""
+    arrays = [np.asarray(a) for a in arrays]
+    min_b = _min_bytes()
+    use_cache = enabled()
+    parts_out: List = [None] * len(arrays)
+    shipped = hits = misses = saved = 0
+    miss_puts = []
+    with _LOCK:
+        for i, arr in enumerate(arrays):
+            if not use_cache or arr.nbytes < min_b:
+                continue                     # the fallback, below
+            parts: List = [None] * len(cuts[i])
+            fp_by_slice: dict = {}
+            for j, (place, dev, idx) in enumerate(cuts[i]):
+                skey = tuple((s.start, s.stop, s.step) for s in idx)
+                fp = fp_by_slice.get(skey)
+                part = None
+                if fp is None:
+                    part = np.ascontiguousarray(arr[idx])
+                    fp = _fingerprint(part)
+                    fp_by_slice[skey] = fp
+                key = (fp, int(place), str(dev))
+                ent = _SHARD_CACHE.get(key)
+                if ent is not None:
+                    _SHARD_CACHE.move_to_end(key)
+                    ent.hits += 1
+                    parts[j] = ent.buf
+                    hits += 1
+                    saved += ent.nbytes
+                else:
+                    if part is None:
+                        part = np.ascontiguousarray(arr[idx])
+                    miss_puts.append((i, j, dev, part, key))
+                    misses += 1
+                    shipped += part.nbytes
+            parts_out[i] = parts
+    # uploads outside the lock
+    bufs = [_put(part, dev) for (_i, _j, dev, part, _k) in miss_puts]
+    if miss_puts:
+        with _LOCK:
+            for (i, j, _dev, part, key), buf in zip(miss_puts, bufs):
+                parts_out[i][j] = buf
+                _SHARD_CACHE[key] = _Entry(buf, part.nbytes, version)
+                _STATS["shard_resident_bytes"] += part.nbytes
+            _evict_shard_over_bounds_locked()
+    for i, parts in enumerate(parts_out):
+        if parts is None:
+            parts_out[i] = fallback_put(i)
+            shipped += arrays[i].nbytes
+    with _LOCK:
+        _STATS["hits"] += hits
+        _STATS["misses"] += misses
+        _STATS["bytes_shipped_total"] += shipped
+        _STATS["bytes_saved_total"] += saved
+        _STATS["shard_resident_hwm"] = max(_STATS["shard_resident_hwm"],
+                                           _STATS["shard_resident_bytes"])
+    return parts_out, shipped
+
+
 def _evict_over_bounds_locked() -> None:
     max_e, max_b = _max_entries(), _max_bytes()
     while _CACHE and (len(_CACHE) > max_e
@@ -524,8 +699,9 @@ def _evict_over_bounds_locked() -> None:
 
 def residency() -> List[dict]:
     """One row per resident buffer: content-cache entries (bytes, upload
-    version, age, hits) and chain slots (with their last wholesale
-    version and the deltas applied since)."""
+    version, age, hits), chain slots (with their last wholesale version
+    and the deltas applied since) and per-shard entries (with their
+    cell's place in the grid and its device)."""
     now = time.time()
     with _LOCK:
         rows = [{"id": ck[0].hex()[:12], "bytes": ent.nbytes,
@@ -543,6 +719,12 @@ def residency() -> List[dict]:
              "age_s": round(now - ent.created_at, 1),
              "hits": ent.hits}
             for key, ent in _CHAIN.items())
+        rows.extend(
+            {"id": "shard:%s@%d" % (key[0].hex()[:12], key[1]),
+             "bytes": ent.nbytes, "version": ent.version, "cell": key[1],
+             "device": key[2], "age_s": round(now - ent.created_at, 1),
+             "hits": ent.hits}
+            for key, ent in _SHARD_CACHE.items())
         return rows
 
 
@@ -565,7 +747,7 @@ def note_node_table_write(table_index: int) -> None:
     it frees dead fleet versions before LRU pressure would. The chain
     survives: the journal's coverage check decides whether an old slot
     can still be advanced."""
-    if not _CACHE:
+    if not _CACHE and not _SHARD_CACHE:
         return
     with _LOCK:
         stale = [ck for ck, ent in _CACHE.items()
@@ -573,7 +755,12 @@ def note_node_table_write(table_index: int) -> None:
         for ck in stale:
             ent = _CACHE.pop(ck)
             _STATS["resident_bytes"] -= ent.nbytes
-        if stale:
+        stale_s = [k for k, ent in _SHARD_CACHE.items()
+                   if ent.version is not None and ent.version < table_index]
+        for k in stale_s:
+            ent = _SHARD_CACHE.pop(k)
+            _STATS["shard_resident_bytes"] -= ent.nbytes
+        if stale or stale_s:
             _STATS["invalidations"] += 1
 
 
@@ -583,10 +770,12 @@ def invalidate_all(reason: str = "") -> None:
     are not trusted). ``reason`` is for the caller's log."""
     del reason
     with _LOCK:
-        had = bool(_CACHE) or bool(_CHAIN)
+        had = bool(_CACHE) or bool(_SHARD_CACHE) or bool(_CHAIN)
         _CACHE.clear()
+        _SHARD_CACHE.clear()
         _CHAIN.clear()
         _STATS["resident_bytes"] = 0
+        _STATS["shard_resident_bytes"] = 0
         _STATS["chain_resident_bytes"] = 0
         if had:
             _STATS["invalidations"] += 1
@@ -596,6 +785,7 @@ def stats() -> dict:
     with _LOCK:
         out = dict(_STATS)
         out["entries"] = len(_CACHE)
+        out["shard_entries"] = len(_SHARD_CACHE)
         out["chain_entries"] = len(_CHAIN)
     out["enabled"] = enabled()
     out["delta_stream_enabled"] = delta_stream_enabled()
@@ -605,6 +795,7 @@ def stats() -> dict:
 def _reset_for_tests() -> None:
     with _LOCK:
         _CACHE.clear()
+        _SHARD_CACHE.clear()
         _CHAIN.clear()
         for k in _STATS:
             _STATS[k] = 0

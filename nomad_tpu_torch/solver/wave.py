@@ -439,12 +439,8 @@ def wave_tensors(inp: WaveInputs, device: torch.device, *,
     return (*bufs[:4], WaveSpread(*bufs[4:]))
 
 
-def run_wave(inp: WaveInputs, *, spread_alg: bool, device: torch.device,
-             cache_version=None, delta_src=None):
-    """Run the kernel the gate chose on ``device``. Returns device tensors
-    (chosen, scores, n_yielded), each (E, P_pad)."""
-    compact, scal_f, scal_i, pen, sp = wave_tensors(
-        inp, device, cache_version=cache_version, delta_src=delta_src)
+def _wave_kernel(inp: WaveInputs, compact, scal_f, scal_i, pen, sp, *,
+                 spread_alg: bool):
     if inp.use_block:
         return wave_block(compact, scal_f, scal_i, spread_alg=spread_alg,
                           B=inp.B)
@@ -452,49 +448,92 @@ def run_wave(inp: WaveInputs, *, spread_alg: bool, device: torch.device,
                         spread_alg=spread_alg, B=inp.B)
 
 
+def run_wave(inp: WaveInputs, *, spread_alg: bool, device: torch.device,
+             cache_version=None, delta_src=None):
+    """Run the kernel the gate chose on ``device``. Returns device tensors
+    (chosen, scores, n_yielded), each (E, P_pad)."""
+    compact, scal_f, scal_i, pen, sp = wave_tensors(
+        inp, device, cache_version=cache_version, delta_src=delta_src)
+    return _wave_kernel(inp, compact, scal_f, scal_i, pen, sp,
+                        spread_alg=spread_alg)
+
+
+def eval_cells(device, e_dim: int):
+    """The cells an eval-sharded dispatch splits over (the reference's
+    _put_eval_sharded gate): ``device`` a list of more than one cell that
+    divides the fused eval axis, with the mesh switched on; else None,
+    and the dispatch runs on one device."""
+    if not isinstance(device, (list, tuple)) or len(device) < 2:
+        return None
+    from ..parallel import mesh
+    if not mesh.mesh_enabled() or e_dim % len(device):
+        return None
+    return [resolve_device(d) for d in device]
+
+
+def first_cell(device):
+    """One device: ``device`` itself, or the first of a list of cells."""
+    return device[0] if isinstance(device, (list, tuple)) else device
+
+
 def solve_lane_wave(const, init, batch, *, spread_alg: bool,
-                    dtype_name: str, device: DeviceLike = None,
+                    dtype_name: str, device=None,
                     cache_version=None, delta_src=None):
     """Wavefront solve of a stacked lane group (leading eval axis) with
     host precompute + one compact transfer; returns host numpy (chosen
     int64, scores, n_yielded int64), each (E, P). Callers guarantee the
-    lanes passed the wave gate."""
-    dev = resolve_device(device)
+    lanes passed the wave gate. ``device`` may be a list of cells: when
+    they divide the eval axis, each cell runs the kernel on its lanes
+    (tables shipped fresh, parallel/mesh.py shard_eval_axis), else the
+    first cell runs them all."""
     inp = wave_inputs(const, init, batch, dtype_name=dtype_name)
-    chosen, scores, n_yielded = run_wave(
-        inp, spread_alg=spread_alg, device=dev,
-        cache_version=cache_version, delta_src=delta_src)
     P = inp.P
-    return (chosen[:, :P].cpu().numpy(), scores[:, :P].cpu().numpy(),
-            n_yielded[:, :P].cpu().numpy())
+    cells = eval_cells(device, inp.compact.shape[0])
+    if cells is None:
+        dev = resolve_device(first_cell(device))
+        chosen, scores, n_yielded = run_wave(
+            inp, spread_alg=spread_alg, device=dev,
+            cache_version=cache_version, delta_src=delta_src)
+        return (chosen[:, :P].cpu().numpy(), scores[:, :P].cpu().numpy(),
+                n_yielded[:, :P].cpu().numpy())
+    from ..parallel import mesh
+    arrays = [inp.compact, inp.scal_f, inp.scal_i, inp.pen, *inp.sp]
+    per_cell, _ = mesh.shard_eval_axis(arrays, cells, tag="compact")
+    outs = [_wave_kernel(inp, *b[:4], WaveSpread(*b[4:]),
+                         spread_alg=spread_alg) for b in per_cell]
+    return tuple(np.concatenate([o[k][:, :P].cpu().numpy() for o in outs])
+                 for k in range(3))
 
 
 def solve_lane_fused(const, init, batch, ptab=None, pinit=None, *,
                      spread_alg: bool, dtype_name: str, wave: bool = False,
-                     device: DeviceLike = None, cache_version=None,
-                     delta_src=None):
+                     device=None, cache_version=None, delta_src=None):
     """Solve a stacked lane group; returns host numpy (chosen int64,
     scores, n_yielded int64), each (E, P), plus evict_rows (E, P, A) bool
     for a preemption group (``ptab``/``pinit`` stacked). ``wave`` routes
     through the wavefront kernels (the caller checked the gate), anything
     else through the dense greedy scan (solver/dense.py); a preemption
     group through the windowed or the dense preemption kernel
-    (solver/preempt.py). Every route ships its tables through the
-    resident buffer set (solver/resident.py): ``cache_version`` is the
-    packing snapshot's node-table index, ``delta_src`` its (store, index)
-    pair for the version chain."""
+    (solver/preempt.py). Every one-device route ships its tables through
+    the resident buffer set (solver/resident.py): ``cache_version`` is
+    the packing snapshot's node-table index, ``delta_src`` its (store,
+    index) pair for the version chain. ``device`` may be a list of cells:
+    the wave routes split their eval axis over them (solve_lane_wave),
+    the dense routes run on the first."""
     kw = dict(spread_alg=spread_alg, dtype_name=dtype_name, device=device,
               cache_version=cache_version, delta_src=delta_src)
     if ptab is not None:
         if wave:
             return preempt.solve_lane_wave_preempt(
                 const, init, batch, ptab, pinit, **kw)
+        kw["device"] = first_cell(device)
         out = preempt.solve_placements_preempt(
             const, init, batch, ptab, pinit, **kw)
         return (out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
                 out.n_yielded.cpu().numpy(), out.evict_rows.cpu().numpy())
     if wave:
         return solve_lane_wave(const, init, batch, **kw)
+    kw["device"] = first_cell(device)
     out = dense.solve_placements(const, init, batch, **kw)
     return (out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
             out.n_yielded.cpu().numpy())

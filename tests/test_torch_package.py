@@ -211,28 +211,33 @@ def test_non_wave_groups_take_dense_and_preempt_solves():
 
 
 def test_every_kernel_is_registered_with_its_source_and_reference():
-    """The nine ported kernels, each built from its own csrc/ source that
-    names the TPU program it replaces and exports its entry points. The
-    LP relaxation is float32 only, as the reference's LP is on every
-    backend; the delta scatter moves raw bits, one entry point per
-    element size for every dtype of that size; the others take both
-    float dtypes."""
+    """The twelve ported kernels, each built from a csrc/ source that
+    names the TPU program it replaces and exports its entry points (the
+    mesh programs' coordinate scatter and lane-sharded LP live beside
+    their one-card versions). The LP relaxation is float32 only, as the
+    reference's LP is on every backend; the two scatters move raw bits,
+    one entry point per element size for every dtype of that size; the
+    others take both float dtypes."""
     names = {k.name: k for k in kernels.KERNELS}
     assert set(names) == {"wave_block", "wave_compact", "dense_scan",
                           "system_fit", "wave_preempt", "dense_preempt",
-                          "lp_relax", "delta_scatter", "wavefront"}
+                          "lp_relax", "delta_scatter", "wavefront",
+                          "dense_shard", "coord_scatter", "lp_shard"}
     for k in kernels.KERNELS:
         src = (kernels.CSRC / k.source).read_text()
         func = k.replaces.split()[-1]
         assert func in src, (k.name, func)
-        if k is kernels.DELTA_SCATTER:
+        if k in (kernels.DELTA_SCATTER, kernels.COORD_SCATTER):
+            prefix = ("nt_delta_scatter" if k is kernels.DELTA_SCATTER
+                      else "nt_coord_scatter")
             for dt, sym in k.symbols.items():
                 size = torch.empty(0, dtype=dt).element_size()
-                assert sym == f"nt_delta_scatter_{size}", (dt, sym)
+                assert sym == f"{prefix}_{size}", (dt, sym)
             assert {torch.bool, torch.int32, torch.float32, torch.int64,
                     torch.float64} <= set(k.symbols)
         else:
-            want = ({torch.float32} if k is kernels.LP_RELAX
+            want = ({torch.float32} if k in (kernels.LP_RELAX,
+                                             kernels.LP_SHARD)
                     else {torch.float32, torch.float64})
             assert set(k.symbols) == want
         for sym in k.symbols.values():
@@ -243,6 +248,8 @@ def test_every_kernel_is_registered_with_its_source_and_reference():
         "nomad_tpu/solver/binpack.py:1341 ")
     assert kernels.LP_RELAX.replaces == (
         "nomad_tpu/solver/lpq.py:215 _lp_solve_body")
+    assert kernels.DENSE_SHARD.replaces == (
+        "nomad_tpu/parallel/mesh.py:251 mesh_solve_fn")
     with pytest.raises(TypeError, match="no kernel"):
         kernels.LP_RELAX.launch(torch.float64, [torch.zeros(1)], [])
 

@@ -708,10 +708,13 @@ def _carry(lanes):
 
 
 def _dispatch_both(ref_lanes):
-    """Every fused group once through each package's solve_lane_fused."""
+    """Every fused group once through each package's solve_lane_fused,
+    the arena entries returned to both pools afterwards (group sizes off
+    the E buckets: tests/test_torch_arena.py)."""
+    from nomad_tpu.solver.batch import _ARENA as ref_arena
     from nomad_tpu.solver.batch import fuse_lanes as ref_fuse_lanes
     from nomad_tpu.solver.binpack import solve_lane_fused as ref_solve
-    from nomad_tpu_torch.solver.batch import fuse_lanes
+    from nomad_tpu_torch.solver.batch import fuse_lanes, release_groups
     from nomad_tpu_torch.solver.wave import solve_lane_fused
 
     ref_groups = ref_fuse_lanes(ref_lanes)
@@ -719,7 +722,6 @@ def _dispatch_both(ref_lanes):
     assert [g.idxs for g in ref_groups] == [g.idxs for g in port_groups]
     outs = []
     for rg, pg in zip(ref_groups, port_groups):
-        assert rg.e_pad == rg.e_real    # no arena padding rows
         want = ref_solve(rg.const, rg.init, rg.batch, rg.ptab, rg.pinit,
                          spread_alg=rg.spread_alg, dtype_name=rg.dtype_name,
                          batched=True, wave=rg.wave,
@@ -731,6 +733,9 @@ def _dispatch_both(ref_lanes):
                                device="cpu", cache_version=pg.cache_version,
                                delta_src=pg.delta_src)
         outs.append((want, got))
+    for rg in ref_groups:
+        ref_arena.release(rg.entry)
+    release_groups(port_groups)
     return outs
 
 
