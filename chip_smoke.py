@@ -823,40 +823,62 @@ def compare_dense(torch, name, got, want, dtype_name):
     return err
 
 
-def dense_kernel_phase(np, torch, bp, dense, svc, tp, world, seed):
+# Lane counts of the cluster checks: the launcher's cluster size C is the
+# largest power of two <= 16 with E * C <= 132 whose E clusters can all
+# be resident (csrc/dense_common.cuh choose_cluster): 16 at E = 1 and 8,
+# 4 at E = 32, 2 at E = 64, 1 at E = 80 -- less where the card cannot
+# hold that many clusters of that size at once.
+CLUSTER_LANES = (1, 8, 32, 64, 80)
+
+
+DENSE_FUZZ_SETS = (
+    ("targets", "dp", "devices", "cores", "ports", "penalties"),
+    ("spreads", "dp", "devices", "cores", "distinct", "low_score"),
+    ("targets", "dp", "devices", "cores", "distinct", "job_level",
+     "affinity"),
+    ("spreads", "dp", "devices", "cores", "nonuniform", "scarce"),
+)
+
+
+def dense_mixed_group(np, bp, svc, tp, world, dtype_name, rng):
+    """The dense kernel phase's fused group (numpy trees): N_EVALS / 2
+    packed spread lanes and as many fuzz lanes over DENSE_FUZZ_SETS."""
+    matrix = world[0]
+    dt = np.dtype(dtype_name).type
+    dicts = [widen(np, *lane_dicts(np, ln, P_PAD), dt) for ln in
+             pack_lanes(np, tp, svc, world, dtype_name, kind="dense_spread",
+                        n_lanes=N_EVALS // 2)]
+    k = 0
+    while len(dicts) < N_EVALS:
+        c, s, b = dense_fuzz_tables(
+            np, rng, n=matrix.n_real, n_pad=matrix.n_pad, p=P_PAD,
+            dtype=dtype_name, limit=int(rng.choice([14, 100, 2000])),
+            features=DENSE_FUZZ_SETS[k % len(DENSE_FUZZ_SETS)],
+            n_active=int(rng.integers(200, 1500)))
+        dicts.append(widen(np, c, s, b, dt))
+        k += 1
+    return dense_group(np, bp, dicts)
+
+
+def dense_kernel_phase(np, torch, bp, dense, kernels, svc, tp, world, seed):
     """dense_scan x {float32, float64} on one fused group of E = 32 lanes
     at N = 16,384, P_pad = 2,048: 16 packed spread lanes (count 2,000)
     and 16 numpy-seeded fuzz lanes at fewer active placements, covering
     ports, distinct_hosts (job and group level), distinct_property,
     devices with affinity, reserved cores, penalties, non-uniform asks,
-    capacity exhaustion and skip-threshold crossings. Then, untimed, 8
-    fuzz lanes at the small node buckets (N = 256 and 1,024, fewer nodes
-    than one tile of the kernel's walk) and a mid-size one (N = 4,096)."""
+    capacity exhaustion and skip-threshold crossings. Then, untimed, fuzz
+    groups of every lane count in CLUSTER_LANES (so every cluster size
+    the launcher picks) at the small node buckets (N = 256 and 1,024,
+    where a block's share of the nodes is less than one round) and a
+    mid-size one (N = 4,096), with limits 3 to 2,000 (above the node
+    count: the walk never stops early)."""
     results = []
-    matrix = world[0]
-    fuzz_sets = (
-        ("targets", "dp", "devices", "cores", "ports", "penalties"),
-        ("spreads", "dp", "devices", "cores", "distinct", "low_score"),
-        ("targets", "dp", "devices", "cores", "distinct", "job_level",
-         "affinity"),
-        ("spreads", "dp", "devices", "cores", "nonuniform", "scarce"),
-    )
+    fuzz_sets = DENSE_FUZZ_SETS
     for dtype_name in ("float32", "float64"):
         dt = np.dtype(dtype_name).type
         rng = np.random.default_rng(seed)
-        dicts = [widen(np, *lane_dicts(np, ln, P_PAD), dt) for ln in
-                 pack_lanes(np, tp, svc, world, dtype_name,
-                            kind="dense_spread", n_lanes=N_EVALS // 2)]
-        k = 0
-        while len(dicts) < N_EVALS:
-            feats = fuzz_sets[k % len(fuzz_sets)]
-            c, s, b = dense_fuzz_tables(
-                np, rng, n=matrix.n_real, n_pad=matrix.n_pad, p=P_PAD,
-                dtype=dtype_name, limit=int(rng.choice([14, 100, 2000])),
-                features=feats, n_active=int(rng.integers(200, 1500)))
-            dicts.append(widen(np, c, s, b, dt))
-            k += 1
-        const, init, batch = dense_group(np, bp, dicts)
+        const, init, batch = dense_mixed_group(np, bp, svc, tp, world,
+                                               dtype_name, rng)
         c, s, b = dense.lane_tensors(const, init, batch,
                                      dtype_name=dtype_name,
                                      device=torch.device(DEVICE))
@@ -865,6 +887,7 @@ def dense_kernel_phase(np, torch, bp, dense, svc, tp, world, seed):
             return fn(c, s, b, spread_alg=False)
 
         got, _ = time_once(torch, lambda: run(dense.dense_scan))
+        C = kernels.DENSE_SCAN.last_cluster()
         want, plain_ms = time_once(torch, lambda: run(dense.dense_scan_plain))
         tag = f"dense_scan {dtype_name}"
         err = compare_dense(torch, tag, got, want, dtype_name)
@@ -873,32 +896,39 @@ def dense_kernel_phase(np, torch, bp, dense, svc, tp, world, seed):
             torch, c, s, b, want, dtype_name)
         placed = int((want.chosen >= 0).sum())
         log(f"kernel {tag}: E={c.cpu_cap.shape[0]} N={c.cpu_cap.shape[1]} "
-            f"P={b.ask_cpu.shape[1]} placed={placed} match=exact "
+            f"P={b.ask_cpu.shape[1]} C={C} placed={placed} match=exact "
             f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.1f} "
             f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, {flops} flop)")
         results.append(dict(
             name="dense_scan", dtype=dtype_name,
             shape=[int(x) for x in (*c.cpu_cap.shape, b.ask_cpu.shape[1])],
-            placed=placed, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops))
-        for n, n_pad in ((200, 256), (1000, 1024), (4000, 4096)):
-            dicts = [widen(np, *dense_fuzz_tables(
-                np, rng, n=n, n_pad=n_pad, p=256, dtype=dtype_name,
-                limit=int(rng.choice([3, 14, 100])),
-                features=fuzz_sets[k % len(fuzz_sets)]), dt)
-                for k in range(8)]
-            small = dense.lane_tensors(*dense_group(np, bp, dicts),
-                                       dtype_name=dtype_name,
-                                       device=torch.device(DEVICE))
-            got = dense.dense_scan(*small, spread_alg=False)
-            want = dense.dense_scan_plain(*small, spread_alg=False)
-            tag = f"dense_scan {dtype_name} N={n_pad}"
-            err = compare_dense(torch, tag, got, want, dtype_name)
-            log(f"kernel {tag}: E=8 P=256 "
-                f"placed={int((want.chosen >= 0).sum())} match=exact "
-                f"max_abs_err={err:.3e}")
-            results.append(dict(name="dense_scan", dtype=dtype_name,
-                                world=f"fuzz N={n_pad}", max_abs_err=err))
+            cluster=C, placed=placed, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bytes=nbytes, flops=flops))
+        for E in CLUSTER_LANES:
+            sizes = (((200, 256), (1000, 1024), (4000, 4096)) if E <= 8
+                     else ((200, 256), (1000, 1024)))
+            for n, n_pad in sizes:
+                dicts = [widen(np, *dense_fuzz_tables(
+                    np, rng, n=n, n_pad=n_pad, p=256 if E <= 8 else 96,
+                    dtype=dtype_name,
+                    limit=int(rng.choice([3, 14, 100, 2000])),
+                    features=fuzz_sets[k % len(fuzz_sets)]), dt)
+                    for k in range(E)]
+                small = dense.lane_tensors(*dense_group(np, bp, dicts),
+                                           dtype_name=dtype_name,
+                                           device=torch.device(DEVICE))
+                got = dense.dense_scan(*small, spread_alg=False)
+                C = kernels.DENSE_SCAN.last_cluster()
+                want = dense.dense_scan_plain(*small, spread_alg=False)
+                tag = f"dense_scan {dtype_name} E={E} N={n_pad}"
+                err = compare_dense(torch, tag, got, want, dtype_name)
+                log(f"kernel {tag}: C={C} P={small[2].ask_cpu.shape[1]} "
+                    f"placed={int((want.chosen >= 0).sum())} match=exact "
+                    f"max_abs_err={err:.3e}")
+                results.append(dict(name="dense_scan", dtype=dtype_name,
+                                    world=f"fuzz E={E} N={n_pad}",
+                                    cluster=C, max_abs_err=err))
     return results
 
 
@@ -1028,6 +1058,7 @@ def dense_slice_phase(np, torch, dense, kernels, svc, batch, tp, world):
     # kernel's own numbers at the main path's shape come from the largest
     # group (the 32 spread lanes)
     kernel = None
+    clusters = {}
     for g in batch.fuse_lanes(lanes):
         c, s, b = dense.lane_tensors(g.const, g.init, g.batch,
                                      dtype_name=g.dtype_name,
@@ -1036,6 +1067,10 @@ def dense_slice_phase(np, torch, dense, kernels, svc, batch, tp, world):
         def run(fn):
             return fn(c, s, b, spread_alg=g.spread_alg)
 
+        run(dense.dense_scan)
+        clusters[f"E={len(g.idxs)} lanes {g.idxs[0]}.."] = C = \
+            kernels.DENSE_SCAN.last_cluster()
+        assert C > 1, f"dense_scan ran unclustered (C={C})"
         want, plain_ms = time_once(torch, lambda: run(dense.dense_scan_plain))
         for j, li in enumerate(g.idxs):
             P = lanes[li].batch.ask_cpu.shape[0]
@@ -1050,7 +1085,7 @@ def dense_slice_phase(np, torch, dense, kernels, svc, batch, tp, world):
             kernel = dict(
                 shape=[int(x) for x in (*c.cpu_cap.shape,
                                         b.ask_cpu.shape[1])],
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                cluster=C, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bytes=nbytes, flops=flops)
             log(f"kernel dense_scan float32 main path: E={c.cpu_cap.shape[0]}"
                 f" N={c.cpu_cap.shape[1]} P={b.ask_cpu.shape[1]} "
@@ -1058,6 +1093,7 @@ def dense_slice_phase(np, torch, dense, kernels, svc, batch, tp, world):
                 f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, "
                 f"{flops} flop)")
 
+    log(f"dense slice cluster sizes: {clusters}")
     # warm end-to-end time of the dense dispatch, host clock
     times = []
     for _ in range(5):
@@ -1102,7 +1138,8 @@ def dense_slice_phase(np, torch, dense, kernels, svc, batch, tp, world):
                 fuse_and_solve_ms_all=times, breakdown_ms=parts,
                 pack_ms=pack_ms, placements=total,
                 placements_per_s=total / (fuse_ms / 1e3),
-                groups=len(batch.fuse_lanes(lanes)), kernel=kernel)
+                groups=len(batch.fuse_lanes(lanes)), kernel=kernel,
+                clusters=clusters)
 
 
 def system_phase(np, torch, system, kernels, svc, world, seed):
@@ -1545,8 +1582,8 @@ def dense_preempt_bound(np, trees, out, dtype_name):
                                                                 flops)
 
 
-def preempt_kernel_phase(np, torch, bp, preempt, dense, svc, tp, world,
-                         seed):
+def preempt_kernel_phase(np, torch, bp, preempt, dense, kernels, svc, tp,
+                         world, seed):
     """wave_preempt and dense_preempt x {float32, float64} on one fused
     E = 32 group each at N = 16,384, A = 16 (preempt_group): the windowed
     kernel at P_pad = 2,048, the dense one at P_pad = 512 (its plain
@@ -1597,6 +1634,7 @@ def preempt_kernel_phase(np, torch, bp, preempt, dense, svc, tp, world,
             return fn(c, s, b, pt, ps, spread_alg=False)
 
         got, _ = time_once(torch, lambda: run_d(preempt.dense_preempt))
+        C = kernels.DENSE_PREEMPT.last_cluster()
         want, plain_ms = time_once(torch,
                                    lambda: run_d(preempt.dense_preempt_plain))
         tag = f"dense_preempt {dtype_name}"
@@ -1613,7 +1651,7 @@ def preempt_kernel_phase(np, torch, bp, preempt, dense, svc, tp, world,
         placed = int((want.chosen >= 0).sum())
         evicting = int(want.evict_rows.any(dim=-1).sum())
         log(f"kernel {tag}: E={c.cpu_cap.shape[0]} N={c.cpu_cap.shape[1]} "
-            f"P={b.ask_cpu.shape[1]} A={PREEMPT_A} placed={placed} "
+            f"P={b.ask_cpu.shape[1]} A={PREEMPT_A} C={C} placed={placed} "
             f"evicting={evicting} match=exact max_abs_err={err:.3e} "
             f"ms={ms:.4f} plain_ms={plain_ms:.1f} bound_ms={bound_ms:.6f} "
             f"({bound_by}, {nbytes} B, {flops} flop)")
@@ -1621,21 +1659,23 @@ def preempt_kernel_phase(np, torch, bp, preempt, dense, svc, tp, world,
             name="dense_preempt", dtype=dtype_name,
             shape=[int(x) for x in (*c.cpu_cap.shape, b.ask_cpu.shape[1],
                                     PREEMPT_A)],
-            placed=placed, evicting=evicting, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            cluster=C, placed=placed, evicting=evicting, max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             bytes=nbytes, flops=flops))
         results += preempt_small_checks(np, torch, bp, preempt, dense,
-                                        dtype_name, seed + 2)
+                                        kernels, dtype_name, seed + 2)
     return results
 
 
-def preempt_small_checks(np, torch, bp, preempt, dense, dtype_name, seed):
+def preempt_small_checks(np, torch, bp, preempt, dense, kernels,
+                         dtype_name, seed):
     """Untimed: the windowed kernel at its wide buffer (B = 128, the
     limit-100 window of an affinity lane), both kernels at the widest
     candidate axis they take (A = 64, N = 1,024), and the dense one at
-    the small node buckets (N = 256 and 1,024, fewer nodes than one tile
-    of its walk) and a mid-size one (N = 4,096), 8 fuzz lanes each, held
-    against their plain versions."""
+    every lane count of CLUSTER_LANES (every cluster size the launcher
+    picks) at the small node buckets (N = 256 and 1,024) and, with 8
+    lanes, a mid-size one (N = 4,096), limits 3 to 2,000 (above the node
+    count), held against their plain versions."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed)
     sets = (("affinity",), ("tiers", "affinity", "penalties"),
@@ -1672,31 +1712,43 @@ def preempt_small_checks(np, torch, bp, preempt, dense, dtype_name, seed):
         f"match=exact max_abs_err={err:.3e}")
     results.append(dict(name="wave_preempt", dtype=dtype_name,
                         world="fuzz A=64", max_abs_err=err))
-    for n, n_pad, A in ((200, 256, PREEMPT_A), (1000, 1024, PREEMPT_A),
-                        (4000, 4096, PREEMPT_A), (1000, 1024, 64)):
+    cases = [(E, n, n_pad, A, 64) for E in CLUSTER_LANES
+             for n, n_pad, A in (
+                 ((200, 256, PREEMPT_A), (1000, 1024, PREEMPT_A),
+                  (4000, 4096, PREEMPT_A), (1000, 1024, 64)) if E == 8
+                 else ((200, 256, PREEMPT_A), (1000, 1024, PREEMPT_A),
+                       (1000, 1024, 64)) if E == 32
+                 else ((200, 256, PREEMPT_A), (1000, 1024, PREEMPT_A)))]
+    # group counts too large for a block's shared memory: one block a
+    # lane (C = 1) owns them in global memory
+    cases.append((8, 200, 256, PREEMPT_A, 1 << 16))
+    for E, n, n_pad, A, G in cases:
         many = ("many",) if A == 64 else ()
         lanes = [list(preempt_fuzz_tables(
-            np, rng, n=n, n_pad=n_pad, p=64, dtype=dtype_name,
-            limit=int(rng.choice([3, 5, 14])),
+            np, rng, n=n, n_pad=n_pad, p=64 if E <= 8 else 32,
+            dtype=dtype_name, limit=int(rng.choice([3, 5, 14, 2000])),
             features=(("tiers", "maxp", "penalties", "distinct", "scarce",
-                       "affinity", "job_level", "inert")[k],) + ("devices",)
-            + many, A=A, G=64)) for k in range(8)]
+                       "affinity", "job_level", "inert")[k % 8],)
+            + ("devices",) + many, A=A, G=G)) for k in range(E)]
         trees = stack_preempt(np, bp, lanes)
         args, _ = dense.fused_tensors(
             trees, preempt.preempt_casts(dtype_name), device=dev)
         got = preempt.dense_preempt(*args, spread_alg=False)
+        C = kernels.DENSE_PREEMPT.last_cluster()
         want = preempt.dense_preempt_plain(*args, spread_alg=False)
-        tag = f"dense_preempt {dtype_name} N={n_pad} A={A}"
+        tag = f"dense_preempt {dtype_name} E={E} N={n_pad} A={A} G={G}"
         err = compare_preempt(torch, tag, got, want, dtype_name)
         for f, g, w in zip(type(got.state)._fields + ("evicted", "counts"),
                            tuple(got.state) + tuple(got.pstate),
                            tuple(want.state) + tuple(want.pstate)):
             if not torch.equal(g, w):
                 raise AssertionError(f"{tag}: final state {f} differs")
-        log(f"kernel {tag}: E=8 P=64 placed={int((want.chosen >= 0).sum())}"
-            f" match=exact max_abs_err={err:.3e}")
+        log(f"kernel {tag}: C={C} P={args[2].ask_cpu.shape[1]} "
+            f"placed={int((want.chosen >= 0).sum())} match=exact "
+            f"max_abs_err={err:.3e}")
         results.append(dict(name="dense_preempt", dtype=dtype_name,
-                            world=f"fuzz N={n_pad} A={A}", max_abs_err=err))
+                            world=f"fuzz E={E} N={n_pad} A={A} G={G}",
+                            cluster=C, max_abs_err=err))
     return results
 
 
@@ -1793,6 +1845,7 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
             compare_preempt(torch, f"preempt slice lane {li}", got,
                             tuple(w[j, :P] for w in want[:4]), "float32")
         ms = timed(torch, lambda: run(kfn), KERNEL_REPEATS)
+        C = None
         if g.wave:
             bnd = wave_preempt_bound(np, preempt, inp, want, "float32")
             shape = list(inp.compact.shape) + [PREEMPT_A]
@@ -1800,7 +1853,10 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
             bnd = dense_preempt_bound(np, ten, want, "float32")
             shape = [int(x) for x in (*ten[0].cpu_cap.shape,
                                       ten[2].ask_cpu.shape[1], PREEMPT_A)]
-        kern[name] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
+            C = kernels.DENSE_PREEMPT.last_cluster()
+            log(f"preempt slice dense group: cluster size C={C}")
+            assert C > 1, f"dense_preempt ran unclustered (C={C})"
+        kern[name] = dict(shape=shape, cluster=C, ms=ms, plain_ms=plain_ms,
                           bound_ms=bnd[0], bound_by=bnd[1], bytes=bnd[2],
                           flops=bnd[3])
         log(f"kernel {name} float32 main path: shape={shape} ms={ms:.4f} "
@@ -3039,11 +3095,266 @@ def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
                 scatter_shapes=sorted(set(shapes)), kernel=kernel)
 
 
+# --------------------------------------------------------------------------
+# A/B timing of the dense kernels (python3 chip_smoke.py --ab TAG=DIR ...):
+# each DIR's dense_scan.cu and dense_preempt.cu (DIR "repo" is
+# nomad_tpu_torch/csrc) built into build/ab/lib/TAG and launched through
+# the port's wrappers on the main paths' own groups, in turns (first to
+# last, then last to first), every output equal to the first variant's.
+# A variant built with -DNT_STEP_CLOCKS (--ab-clocks) must export
+# nt_step_clocks(unsigned long long out[16], int reset): lane 0's
+# clock64() totals per step section (csrc/dense_common.cuh NT_CLK), read
+# after one launch.
+
+AB_SOURCES = {"dense_scan": "dense_scan.cu",
+              "dense_preempt": "dense_preempt.cu"}
+AB_REPEATS = 10
+AB_TILE = 2048                      # the one-block walk's tile (parent)
+# the sections' names: the parent's one-block walk had a per-step
+# statistics pass (0), a block scan per tile (2) and thread 0's rescore
+# of the winner (9); the cluster walk's 2 is the count exchange, and its
+# "tiles" are rounds
+AB_SECTIONS = ("stats", "score", "scan", "mark", "best", "commit",
+               "total", "steps", "tiles", "rescore")
+
+
+def ab_build(kernels, tag, csrc, defines):
+    """Build the dense kernels of ``csrc`` (one nvcc each, together) and
+    return ({name: Kernel}, {name: ctypes lib})."""
+    import ctypes
+    out = ROOT / "build" / "ab" / "lib" / tag
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, src in AB_SOURCES.items():
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *defines, "-I",
+               str(csrc), "-o", str(out / f"{name}.so"), str(csrc / src)]
+        procs.append((name, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    ks, libs = {}, {}
+    for name, proc in procs:
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"ab {tag}: nvcc failed for {name}:\n{text}")
+        for line in text.splitlines():
+            if "registers" in line or "smem" in line:
+                log(f"  ab {tag} {name}: {line.strip()}")
+        lib = ctypes.CDLL(str(out / f"{name}.so"))
+        proto = getattr(kernels, name.upper())
+        cls = (ab_trimmed(kernels) if name == "dense_scan" and "l_max"
+               not in (csrc / "dense_scan.cu").read_text()
+               else kernels.Kernel)
+        k = cls(name, proto.source, proto.replaces, proto.symbols,
+                proto.cluster_symbol)
+        k.bind(lib)
+        ks[name], libs[name] = k, lib
+    return ks, libs
+
+
+def ab_trimmed(kernels):
+    """The Kernel class of a dense_scan built before its largest-limit
+    argument: the same launch without that last int."""
+    class Trimmed(kernels.Kernel):
+        def launch(self, dtype, tensors, ints):
+            super().launch(dtype, tensors, list(ints)[:-1])
+
+    return Trimmed
+
+
+def ab_clocks(torch, lib, run):
+    """Lane 0's section totals over one launch of ``run``."""
+    import ctypes
+    buf = (ctypes.c_ulonglong * 16)()
+    fn = lib.nt_step_clocks
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    torch.cuda.synchronize()
+    assert fn(buf, 1) == 0
+    run()
+    torch.cuda.synchronize()
+    assert fn(buf, 1) == 0
+    return dict(zip(AB_SECTIONS, [int(x) for x in buf]))
+
+
+def ab_close_positions(np, torch, dense, preempt, run_plain):
+    """Run a plain version and record, per step and lane, the walk
+    position (0-based) of the node that brings the counted options to the
+    step's limit (N where the step never gets there)."""
+    from nomad_tpu_torch.solver import scoring
+    rec = []
+
+    def spy(final, fit, L):
+        low = fit & (final <= scoring.SKIP_THRESHOLD)
+        skipped = low & (torch.cumsum(low.long(), dim=1) <= scoring.MAX_SKIP)
+        cc = torch.cumsum((fit & ~skipped).long(), dim=1)
+        hit = cc >= L
+        N = fit.shape[1]
+        rec.append(torch.where(hit.any(dim=1),
+                               hit.to(torch.uint8).argmax(dim=1),
+                               torch.full_like(cc[:, 0], N)).cpu())
+        return scoring._select(final, fit, L)
+
+    saved = dense._select, preempt._select
+    dense._select = preempt._select = spy
+    try:
+        want = run_plain()
+    finally:
+        dense._select, preempt._select = saved
+    close = torch.stack(rec, dim=1).numpy()          # (E, P)
+    return want, close
+
+
+def ab_summary(np, close, N):
+    reach = np.minimum(close + 1, N)
+    walked = np.minimum(-(-reach // AB_TILE) * AB_TILE, N)
+    return dict(
+        steps=int(close.size), never_close=float((close >= N).mean()),
+        close_mean=float(reach.mean()),
+        close_p50=float(np.percentile(reach, 50)),
+        close_p90=float(np.percentile(reach, 90)),
+        close_max=int(reach.max()), tile_walk_mean=float(walked.mean()),
+        walk_over_close=float(walked.sum() / reach.sum()))
+
+
+def ab_cases(np, torch, bp, batch, dense, preempt, svc, tp, world):
+    """The main paths' dense groups as tensors on the card: the dense
+    slice's spread group (E 32), distinct_property and reserved-core
+    lanes (E 1 each), and the preemption slice's dense group (E 8); then
+    the kernel phases' mixed float32 groups (E 32 each)."""
+    dev = torch.device(DEVICE)
+    lanes = slice2_lanes(np, tp, svc, world, "float32", n_spread=N_EVALS)
+    names = {N_EVALS: "distinct_property", N_EVALS + 1: "reserved_cores"}
+    cases = []
+    for g in batch.fuse_lanes(lanes):
+        ten, _ = dense.fused_tensors(
+            (g.const, g.init, g.batch), (dense.lane_casts(g.dtype_name),) * 3,
+            device=dev)
+        name = "spread" if len(g.idxs) > 1 else names[g.idxs[0]]
+        cases.append((name, "dense_scan", ten, g.spread_alg))
+    dl = tier5_lanes(np, tp, svc, world, "float32", n_lanes=PD_EVALS,
+                     n_place=PD_PLACE, dense=True)
+    for g in batch.fuse_lanes(dl):
+        ten, _ = dense.fused_tensors(
+            (g.const, g.init, g.batch, g.ptab, g.pinit),
+            preempt.preempt_casts("float32"), device=dev)
+        cases.append(("tier5_dense", "dense_preempt", ten, g.spread_alg))
+    # off the main paths: the kernel phases' mixed groups, whose fuzz
+    # lanes include windows that never close (scarce capacity)
+    trees = dense_mixed_group(np, bp, svc, tp, world, "float32",
+                              np.random.default_rng(SEED))
+    cases.append(("mixed_dense", "dense_scan", dense.lane_tensors(
+        *trees, dtype_name="float32", device=dev), False))
+    trees = preempt_group(np, bp, tp, svc, world, "float32", SEED + 1,
+                          dense=True)
+    ten, _ = dense.fused_tensors(trees, preempt.preempt_casts("float32"),
+                                 device=dev)
+    cases.append(("mixed_preempt", "dense_preempt", ten, False))
+    return cases
+
+
+def ab_phase(np, torch, kernels, bp, batch, dense, preempt, svc, tp,
+             variants, clocks):
+    """Time every variant on every case in turns; the clock variants'
+    step breakdowns; the window-close positions from the plain versions."""
+    world = headline_world(np, tp)
+    built = {}
+    for tag, csrc, defines in variants + clocks:
+        built[tag] = ab_build(kernels, tag, csrc, defines)
+    out = {}
+    for name, kname, ten, salg in ab_cases(np, torch, bp, batch, dense,
+                                           preempt, svc, tp, world):
+        fn = dense.dense_scan if kname == "dense_scan" else \
+            preempt.dense_preempt
+        pfn = dense.dense_scan_plain if kname == "dense_scan" else \
+            preempt.dense_preempt_plain
+
+        def run():
+            return fn(*ten, spread_alg=salg)
+
+        def use(tag):
+            setattr(kernels, kname.upper(), built[tag][0][kname])
+
+        E, N = ten[0].cpu_cap.shape
+        P = ten[2].ask_cpu.shape[1]
+        want, close = ab_close_positions(
+            np, torch, dense, preempt, lambda: pfn(*ten, spread_alg=salg))
+        row = dict(kernel=kname, E=int(E), N=int(N), P=int(P),
+                   close=ab_summary(np, close, int(N)), ms={}, turns=[])
+        order = [t for t, _, _ in variants]
+        for tag in order + order[::-1]:
+            use(tag)
+            got = run()
+            for f, g, w in zip(got._fields, got, want):
+                same = (all(torch.equal(x, y) for x, y in zip(g, w))
+                        if isinstance(g, tuple) else torch.equal(g, w))
+                if not same:
+                    raise AssertionError(f"ab {tag} {name}: {f} differs "
+                                         "from the plain version")
+            ms = timed(torch, run, AB_REPEATS)
+            row["turns"].append((tag, ms))
+            k = built[tag][0][kname]
+            if hasattr(k.lib(), str(k.cluster_symbol)):
+                row.setdefault("cluster", {})[tag] = k.last_cluster()
+        for tag in order:
+            row["ms"][tag] = statistics.median(
+                ms for t, ms in row["turns"] if t == tag)
+        row["clocks"] = {}
+        for tag, _, _ in clocks:
+            use(tag)
+            c = ab_clocks(torch, built[tag][1][kname], run)
+            k = built[tag][0][kname]
+            if hasattr(k.lib(), str(k.cluster_symbol)):
+                c["cluster"] = k.last_cluster()
+            row["clocks"][tag] = c
+        log(f"ab {name} ({kname}) E={E} N={N} P={P}: "
+            + " ".join(f"{t}={m:.4f}" for t, m in row["ms"].items())
+            + f" ms; cluster {row.get('cluster')}; close {row['close']}")
+        for tag, c in row["clocks"].items():
+            tot = max(c["total"], 1)
+            log(f"  clocks {tag}: C={c.get('cluster')} steps={c['steps']} "
+                f"rounds={c['tiles']} "
+                + " ".join(f"{k}={c[k] / tot:.3f}" for k in AB_SECTIONS[:6]
+                           + ("rescore",)))
+        out[name] = row
+    return out
+
+
+def ab_main(args, torch, np):
+    from nomad_tpu_torch import kernels
+    from nomad_tpu_torch.solver import batch, dense, preempt, service as svc
+    from nomad_tpu_torch.solver import binpack as bp
+    from nomad_tpu_torch.tensor import pack as tp
+
+    def spec(s, defines):
+        tag, d = s.split("=", 1)
+        csrc = ROOT / "nomad_tpu_torch" / "csrc" if d == "repo" else (
+            ROOT / d)
+        return tag, csrc.resolve(), defines
+
+    card = card_line()
+    log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    res = ab_phase(np, torch, kernels, bp, batch, dense, preempt, svc, tp,
+                   [spec(s, ()) for s in args.ab],
+                   [spec(s, ("-DNT_STEP_CLOCKS",)) for s in args.ab_clocks])
+    log("ab: " + json.dumps(dict(card=card, cases=res)))
+    print(card, flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=SEED,
                     help="seed of the numpy fuzz lanes (default %(default)s)")
+    ap.add_argument("--ab", action="append", default=[],
+                    metavar="TAG=DIR",
+                    help="A/B mode: time the dense kernels built from DIR "
+                    "(under the repository; 'repo' for the port's csrc) "
+                    "on the main paths' groups, in turns; repeatable")
+    ap.add_argument("--ab-clocks", action="append", default=[],
+                    metavar="TAG=DIR",
+                    help="A/B mode: a DIR built with -DNT_STEP_CLOCKS whose "
+                    "step sections are read after one launch")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3057,6 +3368,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import numpy as np
+
+    if args.ab or args.ab_clocks:
+        return ab_main(args, torch, np)
 
     from nomad_tpu_torch import kernels
     from nomad_tpu_torch.solver import batch, dense, service as svc, system
@@ -3078,7 +3392,8 @@ def main(argv=None) -> int:
     log(f"build: {info['seconds']:.1f} s, built {info['built']} "
         f"into {info['dir']}")
     for line in info["log"].splitlines():
-        if "registers" in line or line.startswith("=="):
+        if ("registers" in line or line.startswith("==")
+                or "Compiling entry function" in line):
             log("  " + line.strip())
 
     world = headline_world(np, tp)
@@ -3094,11 +3409,11 @@ def main(argv=None) -> int:
     kres = phase("wave kernels", kernel_phase, np, torch, bp, wave, kernels,
                  svc, tp, world)
     kres += phase("dense kernel", dense_kernel_phase, np, torch, bp, dense,
-                  svc, tp, world, args.seed)
+                  kernels, svc, tp, world, args.seed)
     kres += phase("system kernel", system_kernel_phase, np, torch, bp,
                   dense, system, svc, world, args.seed)
     kres += phase("preemption kernels", preempt_kernel_phase, np, torch, bp,
-                  preempt, dense, svc, tp, world, args.seed)
+                  preempt, dense, kernels, svc, tp, world, args.seed)
     kres += phase("lp kernel", lp_kernel_phase, np, torch, lpq, args.seed)
     kres += phase("scatter kernel", scatter_kernel_phase, np, torch,
                   resident, args.seed)
@@ -3164,7 +3479,8 @@ def main(argv=None) -> int:
                             if x["name"] == k.name),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r.get("library_ms"),
-            shape=" ".join(str(x) for x in r["shape"]) + " float32"))
+            shape=" ".join(str(x) for x in r["shape"]) + " float32",
+            **({"cluster": r["cluster"]} if r.get("cluster") else {})))
     report = dict(card=card, device=name, seed=args.seed, kernels=kres,
                   slice=sres, dense_slice=dres, system=yres,
                   preempt_slice=pres, lpq_slice=qres, residency=rres,

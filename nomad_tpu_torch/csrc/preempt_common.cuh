@@ -1,7 +1,9 @@
 // The eviction search shared by the two preemption kernels
 // (wave_preempt.cu, dense_preempt.cu): one node's or window slot's
 // greedy eviction search, filterSuperset and net priority, and the
-// preemption score.
+// preemption score; on one thread (preempt_search) or shared by a group
+// of 16 or 32 lanes (preempt_search_group, dense_preempt.cu on large
+// clusters).
 //
 // Mirrors nomad_tpu/solver/binpack.py::_preempt_search_core op for op
 // (the plain PyTorch version is solver/preempt.py _search_rows), for one
@@ -198,6 +200,215 @@ __device__ SearchRes<T> preempt_search(const CandRow<T>& c, int A,
       mx = vmax(mx, p);
       sp = sp + p;
     }
+  r.freed_c = fc;
+  r.freed_m = fm;
+  r.freed_d = fd;
+  r.net_prio = mx > T(0) ? mx + sp / vmax(mx, T(1e-9)) : T(0);
+  return r;
+}
+
+// The same search for one row shared by a group of W lanes (W = 16 for
+// A <= 16, else 32; the group aligned within its warp): lane gl holds
+// candidates gl and gl + W (J = 64 / W slots at most, A <= 64), loaded
+// coalesced once. Each greedy round evaluates the candidates' distances
+// in parallel (the same expression as preempt_search) and picks by a
+// shuffle arg-min with the same tie rule (the lowest index); the
+// priority floor is a shuffle min. The sums of the picks, filterSuperset
+// and the freed resources and net priority run in candidate order on
+// every lane (the values broadcast by shuffles), so the float results
+// are preempt_search's bit for bit, identical on every lane. load_cands
+// reads the row's (A,) columns from global memory (valid and evicted
+// too) and the group counts of the max_parallel penalty.
+template <int W>
+__device__ __forceinline__ unsigned group_mask() {
+  return W == 32 ? kFull : (0xffffu << (threadIdx.x & 16));
+}
+
+template <int W, typename V>
+__device__ __forceinline__ V group_bcast(const V* x, int a) {
+  // x[0] holds candidate gl, x[1] candidate gl + W
+  const V val = (W == 32 && a >= W) ? x[1] : x[0];
+  return __shfl_sync(group_mask<W>(), val, a % W, W);
+}
+
+// A group's candidate registers: lane gl's candidates gl and gl + W,
+// and the row's candidate masks (valid now, eligible).
+template <typename T, int W> struct CandRegs {
+  static constexpr int J = W == 32 ? 2 : 1;
+  T cpu[J], mem[J], disk[J], pen[J];
+  int prio[J];
+  u64 valid_now, eligible;
+};
+
+template <typename T, int W>
+__device__ __forceinline__ CandRegs<T, W> load_cands(
+    const CandRow<T>& c, int A, const unsigned char* valid,
+    const unsigned char* evicted, int job_prio, const int* counts) {
+  constexpr int J = CandRegs<T, W>::J;
+  const unsigned gm = group_mask<W>();
+  const int gl = threadIdx.x & (W - 1);
+  const int gbase = (threadIdx.x & 31) & ~(W - 1);
+  const unsigned wbits = W == 32 ? kFull : 0xffffu;
+  CandRegs<T, W> r;
+  r.valid_now = 0;
+  r.eligible = 0;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int a = gl + W * j;
+    const bool in = a < A;
+    r.cpu[j] = in ? c.cpu[a] : T(0);
+    r.mem[j] = in ? c.mem[a] : T(0);
+    r.disk[j] = in ? c.disk[a] : T(0);
+    r.prio[j] = in ? c.prio[a] : 0;
+    r.pen[j] = in ? maxp_penalty<T>(c, a, counts) : T(0);
+    const bool vn = in && valid[a] && !evicted[a];
+    const bool el = vn && job_prio - r.prio[j] >= 10;
+    r.valid_now |= (u64)((__ballot_sync(gm, vn) >> gbase) & wbits) << (W * j);
+    r.eligible |= (u64)((__ballot_sync(gm, el) >> gbase) & wbits) << (W * j);
+  }
+  return r;
+}
+
+template <typename T, int W>
+__device__ __forceinline__ SearchRes<T> preempt_search_group(
+    const CandRegs<T, W>& cr, int A, T cap_c, T cap_m, T cap_d, T ask_c,
+    T ask_m, T ask_d) {
+  constexpr int J = CandRegs<T, W>::J;
+  const unsigned gm = group_mask<W>();
+  const int gl = threadIdx.x & (W - 1);
+  const T *cpu = cr.cpu, *mem = cr.mem, *disk = cr.disk, *pen = cr.pen;
+  const int* prio = cr.prio;
+  const u64 valid_now = cr.valid_now, eligible = cr.eligible;
+  T d0[J];
+  // the host Preemptor subtracts only the candidates' usage
+  T sc = T(0), sm = T(0), sd = T(0);
+  for (int a = 0; a < A; ++a) {
+    const T x = group_bcast<W>(cpu, a), y = group_bcast<W>(mem, a),
+            z = group_bcast<W>(disk, a);
+    if (valid_now & bit(a)) {
+      sc = sc + x;
+      sm = sm + y;
+      sd = sd + z;
+    }
+  }
+  const T avail_c0 = cap_c - sc, avail_m0 = cap_m - sm,
+          avail_d0 = cap_d - sd;
+  T av_c = avail_c0, av_m = avail_m0, av_d = avail_d0;
+  T ne_c = ask_c, ne_m = ask_m, ne_d = ask_d;
+  u64 picked = 0;
+  for (int it = 0; it < A; ++it) {
+    // the first pick is unconditional (allMet starts False)
+    const bool met = av_c >= ask_c && av_m >= ask_m && av_d >= ask_d &&
+                     picked != 0;
+    const u64 cand = eligible & ~picked;
+    if (met || cand == 0) break;        // the rest of the rounds no-op
+    // ascending priority groups: only the lowest remaining priority
+    int cur = INT_MAX;
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      if (cand & bit(gl + W * j)) cur = min(cur, prio[j]);
+#pragma unroll
+    for (int off = W / 2; off > 0; off >>= 1)
+      cur = min(cur, __shfl_xor_sync(gm, cur, off, W));
+    // the first minimum of distance + penalty (host order on ties)
+    int pick = INT_MAX;
+    T best = T(0);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int a = gl + W * j;
+      if (!(cand & bit(a)) || prio[j] != cur) continue;
+      const T key = distance<T>(ne_c, ne_m, ne_d, cpu[j], mem[j], disk[j]) +
+                    pen[j];
+      if (pick == INT_MAX || key < best) {
+        pick = a;
+        best = key;
+      }
+    }
+#pragma unroll
+    for (int off = W / 2; off > 0; off >>= 1) {
+      const T ob = __shfl_xor_sync(gm, best, off, W);
+      const int op = __shfl_xor_sync(gm, pick, off, W);
+      if (op != INT_MAX &&
+          (pick == INT_MAX || ob < best || (ob == best && op < pick))) {
+        pick = op;
+        best = ob;
+      }
+    }
+    picked |= bit(pick);
+    const T pc = group_bcast<W>(cpu, pick), pm = group_bcast<W>(mem, pick),
+            pd = group_bcast<W>(disk, pick);
+    av_c = av_c + pc;
+    av_m = av_m + pm;
+    av_d = av_d + pd;
+    ne_c = ne_c - pc;
+    ne_m = ne_m - pm;
+    ne_d = ne_d - pd;
+  }
+  SearchRes<T> r;
+  r.met = av_c >= ask_c && av_m >= ask_m && av_d >= ask_d && picked != 0;
+
+  // filterSuperset: the picks in descending distance to the ask (ties in
+  // candidate order) until they cover it; else the first pick alone
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    d0[j] = distance<T>(ask_c, ask_m, ask_d, cpu[j], mem[j], disk[j]);
+  u64 rem = picked, evict = 0;
+  T cc = avail_c0, cm = avail_m0, cd = avail_d0;
+  int first = -1;
+  bool covered = false;
+  while (rem) {
+    int sel = INT_MAX;
+    T bd = T(0);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int a = gl + W * j;
+      if (!(rem & bit(a))) continue;
+      if (sel == INT_MAX || d0[j] > bd) {
+        sel = a;
+        bd = d0[j];
+      }
+    }
+#pragma unroll
+    for (int off = W / 2; off > 0; off >>= 1) {
+      const T ob = __shfl_xor_sync(gm, bd, off, W);
+      const int os = __shfl_xor_sync(gm, sel, off, W);
+      if (os != INT_MAX &&
+          (sel == INT_MAX || ob > bd || (ob == bd && os < sel))) {
+        sel = os;
+        bd = ob;
+      }
+    }
+    rem &= ~bit(sel);
+    if (first < 0) first = sel;
+    evict |= bit(sel);
+    cc = cc + group_bcast<W>(cpu, sel);
+    cm = cm + group_bcast<W>(mem, sel);
+    cd = cd + group_bcast<W>(disk, sel);
+    if (cc >= ask_c && cm >= ask_m && cd >= ask_d) {
+      covered = true;
+      break;
+    }
+  }
+  if (!covered) evict = first >= 0 ? bit(first) : 0;
+  r.evict = evict;
+
+  // freed resources and netPriority, in candidate order
+  const u64 all = A == 64 ? ~0ull : bit(A) - 1;
+  T fc = T(0), fm = T(0), fd = T(0), sp = T(0);
+  T mx = evict == all ? neg_inf<T>() : T(0);
+  for (int a = 0; a < A; ++a) {
+    const T x = group_bcast<W>(cpu, a), y = group_bcast<W>(mem, a),
+            z = group_bcast<W>(disk, a);
+    const int pr = group_bcast<W>(prio, a);
+    if (evict & bit(a)) {
+      fc = fc + x;
+      fm = fm + y;
+      fd = fd + z;
+      const T pp = (T)pr;
+      mx = vmax(mx, pp);
+      sp = sp + pp;
+    }
+  }
   r.freed_c = fc;
   r.freed_m = fm;
   r.freed_d = fd;

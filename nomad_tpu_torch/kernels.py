@@ -50,19 +50,39 @@ class Kernel:
     int n_dims, void* stream)``, returning a cudaError_t."""
 
     def __init__(self, name: str, source: str, replaces: str,
-                 symbols: Dict[torch.dtype, str]):
+                 symbols: Dict[torch.dtype, str],
+                 cluster_symbol: Optional[str] = None):
         self.name = name
         self.source = source            # file name under csrc/
         self.replaces = replaces
         self.symbols = symbols
+        # a cluster kernel's ``int fn(void)``: the thread-block cluster
+        # size its last launch used
+        self.cluster_symbol = cluster_symbol
         self.launches = 0
         self._fns: Dict[torch.dtype, object] = {}
+        self._lib = None
+
+    def bind(self, lib: ctypes.CDLL) -> None:
+        """Launch from ``lib`` (a build of another source tree, for A/B
+        timing) instead of the package's own build."""
+        self._lib = lib
+        self._fns = {}
+
+    def lib(self):
+        return self._lib if self._lib is not None else load()[self.source]
+
+    def last_cluster(self) -> int:
+        """The cluster size of the kernel's last launch (0 before any)."""
+        fn = getattr(self.lib(), self.cluster_symbol)
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        return int(fn())
 
     def _fn(self, dtype: torch.dtype):
         fn = self._fns.get(dtype)
         if fn is None:
-            lib = load()[self.source]
-            fn = getattr(lib, self.symbols[dtype])
+            fn = getattr(self.lib(), self.symbols[dtype])
             fn.argtypes = [_P, _I, _P, _I, _P]
             fn.restype = ctypes.c_int
             self._fns[dtype] = fn
@@ -103,7 +123,7 @@ DENSE_SCAN = Kernel(
     "dense_scan", "dense_scan.cu",
     "nomad_tpu/solver/binpack.py:652 _solve_placements_impl",
     {torch.float32: "nt_dense_scan_f32",
-     torch.float64: "nt_dense_scan_f64"})
+     torch.float64: "nt_dense_scan_f64"}, "nt_dense_scan_cluster")
 
 SYSTEM_FIT = Kernel(
     "system_fit", "system_fit.cu",
@@ -121,7 +141,7 @@ DENSE_PREEMPT = Kernel(
     "dense_preempt", "dense_preempt.cu",
     "nomad_tpu/solver/binpack.py:732 _solve_placements_preempt_impl",
     {torch.float32: "nt_dense_preempt_f32",
-     torch.float64: "nt_dense_preempt_f64"})
+     torch.float64: "nt_dense_preempt_f64"}, "nt_dense_preempt_cluster")
 
 # The reference's LP is float32 on every backend (lpq.py builds its
 # inputs and its dual prices in float32 whatever the lane dtype), so this

@@ -15,13 +15,15 @@ wavefront gate refuses (service.PackedLane.wavefront_ok).
 The reference's FAST_T shortcut (binpack.py:432-438, :671-687) scores
 only the first 1,024 positions when they already hold ``limit`` counted
 options; its outcome is identical to the full pass. The plain version
-here always runs the full pass; the kernel walks the nodes in tiles and
+here always runs the full pass; the kernel walks the nodes in rounds and
 stops once ``limit`` options are counted, the same argument for any
 prefix.
 
 ``dense_scan_plain`` is batched over the E lanes and loops over the P
-steps; the CUDA kernel (csrc/dense_scan.cu) runs one thread block per
-lane with the whole scan inside one launch. ``dense_scan`` takes the
+steps; the CUDA kernel (csrc/dense_scan.cu) runs one thread-block
+cluster per lane with the whole scan inside one launch, each step's walk
+split over the cluster's blocks (tests/test_torch_dense_cluster.py
+models that split on the CPU). ``dense_scan`` takes the
 plain version only for CPU tensors; a CUDA tensor launches the kernel or
 raises.
 """
@@ -409,9 +411,11 @@ def dense_scan(const: NodeConst, init: NodeState, batch: PlacementBatch,
     scores = torch.empty((E, P), dtype=dt, device=dev)
     n_yielded = torch.empty((E, P), dtype=torch.int64, device=dev)
     ptrs = [getattr(trees[tree], f).contiguous() for tree, f in DENSE_ARGS]
+    # the largest limit sizes the kernel's rounds (csrc/dense_scan.cu)
+    l_max = int(batch.limit.max()) if batch.limit.numel() else 0
     kernels.DENSE_SCAN.launch(
         dt, ptrs + [chosen, scores, n_yielded],
-        list(dims) + [int(bool(spread_alg))])
+        list(dims) + [int(bool(spread_alg)), l_max])
     return DenseOut(chosen, scores, n_yielded, state)
 
 

@@ -196,6 +196,120 @@ class DensePreemptOut(NamedTuple):
     pstate: PreemptState        # evicted (E, N, A), counts (E, G)
 
 
+class PreemptStep(NamedTuple):
+    """One dense preemption step's per-node options, (E, N) each unless
+    noted: fit (plain or preempting), the final score of fit nodes,
+    which fit only through evictions, and those nodes' freed resources
+    and eviction rows (E, N, A)."""
+    fit: torch.Tensor
+    final: torch.Tensor
+    fit_p: torch.Tensor
+    freed_c: torch.Tensor
+    freed_m: torch.Tensor
+    freed_d: torch.Tensor
+    evict: torch.Tensor
+
+
+def _preempt_step(const, state, b, ptab, evicted, counts, spread_alg):
+    """Score one step of dense preemption (_score_and_select_preempt):
+    the plain fit, and where only the resources fail, the eviction search
+    (run only on those nodes; no other node's search reaches an output),
+    the fit2 recheck and the preempting score. ``b`` holds the step's
+    (E, 1) asks."""
+    E, N, A = ptab.cpu.shape
+    dt = const.cpu_cap.dtype
+    dev = const.cpu_cap.device
+    feas, fit, new_cpu, new_mem, new_disk, dev_score = dense._step_fit(
+        const, state, b)
+    se, sn = torch.nonzero(feas & ~fit, as_tuple=True)
+    fit_p = torch.zeros_like(fit)
+    freed_c = torch.zeros((E, N), dtype=dt, device=dev)
+    freed_m = torch.zeros_like(freed_c)
+    freed_d = torch.zeros_like(freed_c)
+    net = torch.zeros_like(freed_c)
+    evict = torch.zeros((E, N, A), dtype=torch.bool, device=dev)
+    if se.numel():
+        eligible_prio = (ptab.job_prio[se, None] - ptab.prio[se, sn]) >= 10
+        valid_now = ptab.valid[se, sn] & ~evicted[se, sn]
+        grp = ptab.grp[se, sn].long()
+        n_pre = torch.where(grp >= 0,
+                            counts[se[:, None], grp.clamp_min(0)],
+                            torch.zeros_like(grp))
+        r = _search_rows(
+            ptab.cpu[se, sn], ptab.mem[se, sn], ptab.disk[se, sn],
+            ptab.prio[se, sn],
+            _maxp_penalty(ptab.maxp[se, sn], n_pre, dt), valid_now,
+            valid_now & eligible_prio, const.cpu_cap[se, sn],
+            const.mem_cap[se, sn], const.disk_cap[se, sn],
+            b["ask_cpu"][se, 0], b["ask_mem"][se, 0], b["ask_disk"][se, 0])
+        # fit2: the full-usage recheck after the evictions (rank.go:541)
+        fit2 = ((new_cpu[se, sn] - r.freed_c <= const.cpu_cap[se, sn])
+                & (new_mem[se, sn] - r.freed_m <= const.mem_cap[se, sn])
+                & (new_disk[se, sn] - r.freed_d <= const.disk_cap[se, sn]))
+        fit_p[se, sn] = r.met & fit2
+        freed_c[se, sn] = r.freed_c
+        freed_m[se, sn] = r.freed_m
+        freed_d[se, sn] = r.freed_d
+        net[se, sn] = r.net_prio
+        evict[se, sn] = r.evict
+    fit_c = fit | fit_p
+    idx = torch.nonzero(fit_c, as_tuple=True)
+    other, nscores = dense._step_terms(const, state, b, idx, dev_score)
+    pre = fit_p[idx]
+    fc = torch.where(fit_p, new_cpu - freed_c, new_cpu)
+    fm = torch.where(fit_p, new_mem - freed_m, new_mem)
+    bp = _binpack_raw(dense._free(fc, const.cpu_cap)[idx],
+                      dense._free(fm, const.mem_cap)[idx], spread_alg)
+    vals = _score(bp, other, nscores)
+    if bool(pre.any()):
+        vals[pre] = _score_preempt(bp[pre], other[pre],
+                                   _preempt_score(net[idx][pre]),
+                                   nscores[pre])
+    final = torch.zeros((E, N), dtype=dt, device=dev)
+    final[idx] = vals
+    return PreemptStep(fit_c, final, fit_p, freed_c, freed_m, freed_d,
+                       evict)
+
+
+def _preempt_commit(const, state, b, ptab, evicted, counts, step, w, do,
+                    any_yield):
+    """Commit each lane's window winner ``w`` in place: usage less the
+    freed resources where the winner preempts (whether or not the step
+    is active, as the reference does), ports released, the placement
+    where ``do``, the spread / distinct_property / device tables, the
+    evicted mask and the group counts. Returns the step's eviction rows
+    (E, A)."""
+    E = w.shape[0]
+    dt = const.cpu_cap.dtype
+    ar = torch.arange(E, device=w.device)
+    zero = torch.zeros((), dtype=dt, device=w.device)
+    was_pre = any_yield & step.fit_p[ar, w]
+    row = step.evict[ar, w] & (was_pre & do)[:, None]
+    fr = [torch.where(was_pre, f[ar, w], zero)
+          for f in (step.freed_c, step.freed_m, step.freed_d)]
+    add_f = do.to(dt)
+    add_i = do.to(torch.int32)
+    dyn_back = torch.where(row, ptab.dyn_ports[ar, w],
+                           torch.zeros_like(ptab.dyn_ports[ar, w])).sum(
+                               dim=1).to(torch.int32)
+    static_back = (row & ptab.static_rel[ar, w]).any(dim=1)
+    state.used_cpu[ar, w] += add_f * b["ask_cpu"][:, 0] - fr[0]
+    state.used_mem[ar, w] += add_f * b["ask_mem"][:, 0] - fr[1]
+    state.used_disk[ar, w] += add_f * b["ask_disk"][:, 0] - fr[2]
+    state.placed[ar, w] += add_i
+    state.placed_job[ar, w] += add_i
+    state.static_free[ar, w] = ((state.static_free[ar, w] | static_back)
+                                & ~(do & b["has_static"][:, 0]))
+    state.dyn_avail[ar, w] += dyn_back - add_i * b["n_dyn"][:, 0]
+    dense._commit_tables(const, state, w, do)
+    evicted[ar, w] |= row
+    grp_w = ptab.grp[ar, w].long()                    # (E, A)
+    bump = row & (grp_w >= 0)
+    for a in range(grp_w.shape[1]):
+        counts[ar, grp_w[:, a].clamp_min(0)] += bump[:, a].to(torch.int32)
+    return row
+
+
 def dense_preempt_plain(const: NodeConst, init: NodeState,
                         batch: PlacementBatch, ptab: PreemptTables,
                         pinit: PreemptState, *,
@@ -215,114 +329,31 @@ def dense_preempt_plain(const: NodeConst, init: NodeState,
     evicted = pinit.evicted.clone()
     counts = pinit.counts.clone()
     E, P = batch.ask_cpu.shape
-    N, A = ptab.cpu.shape[1:]
+    A = ptab.cpu.shape[2]
     dt = const.cpu_cap.dtype
     dev = const.cpu_cap.device
     has_cores = const.mhz_per_core.shape[-1] > 0
     neg_inf = torch.tensor(-float("inf"), dtype=dt, device=dev)
-    zero = torch.zeros((), dtype=dt, device=dev)
-    ar = torch.arange(E, device=dev)
-    eligible_prio = (ptab.job_prio[:, None, None] - ptab.prio) >= 10
     chosen = torch.full((E, P), -1, dtype=torch.long, device=dev)
     scores = torch.empty((E, P), dtype=dt, device=dev)
     n_yielded = torch.empty((E, P), dtype=torch.long, device=dev)
     evict_rows = torch.zeros((E, P, A), dtype=torch.bool, device=dev)
     for i in range(P):
         col = slice(i, i + 1)
-        b = dict(ask_cpu=batch.ask_cpu[:, col], ask_mem=batch.ask_mem[:, col],
-                 ask_disk=batch.ask_disk[:, col],
-                 n_dyn=batch.n_dyn_ports[:, col],
-                 has_static=batch.has_static[:, col],
-                 count=batch.count[:, col],
-                 penalty=batch.penalty_idx[:, col].long(),
-                 ask_cores=(batch.ask_cores[:, col] if has_cores else None))
-        feas, fit, new_cpu, new_mem, new_disk, dev_score = dense._step_fit(
-            const, state, b)
-        # the search, on the nodes where it can matter
-        se, sn = torch.nonzero(feas & ~fit, as_tuple=True)
-        fit_p = torch.zeros_like(fit)
-        freed_c = torch.zeros((E, N), dtype=dt, device=dev)
-        freed_m = torch.zeros_like(freed_c)
-        freed_d = torch.zeros_like(freed_c)
-        net = torch.zeros_like(freed_c)
-        evict = torch.zeros((E, N, A), dtype=torch.bool, device=dev)
-        if se.numel():
-            valid_now = ptab.valid[se, sn] & ~evicted[se, sn]
-            grp = ptab.grp[se, sn].long()
-            n_pre = torch.where(grp >= 0,
-                                counts[se[:, None], grp.clamp_min(0)],
-                                torch.zeros_like(grp))
-            r = _search_rows(
-                ptab.cpu[se, sn], ptab.mem[se, sn], ptab.disk[se, sn],
-                ptab.prio[se, sn],
-                _maxp_penalty(ptab.maxp[se, sn], n_pre, dt), valid_now,
-                valid_now & eligible_prio[se, sn], const.cpu_cap[se, sn],
-                const.mem_cap[se, sn], const.disk_cap[se, sn],
-                b["ask_cpu"][se, 0], b["ask_mem"][se, 0],
-                b["ask_disk"][se, 0])
-            # fit2: the full-usage recheck after the evictions (rank.go:541)
-            fit2 = ((new_cpu[se, sn] - r.freed_c <= const.cpu_cap[se, sn])
-                    & (new_mem[se, sn] - r.freed_m <= const.mem_cap[se, sn])
-                    & (new_disk[se, sn] - r.freed_d
-                       <= const.disk_cap[se, sn]))
-            fit_p[se, sn] = r.met & fit2
-            freed_c[se, sn] = r.freed_c
-            freed_m[se, sn] = r.freed_m
-            freed_d[se, sn] = r.freed_d
-            net[se, sn] = r.net_prio
-            evict[se, sn] = r.evict
-        fit_c = fit | fit_p
-        idx = torch.nonzero(fit_c, as_tuple=True)
-        other, nscores = dense._step_terms(const, state, b, idx, dev_score)
-        pre = fit_p[idx]
-        fc = torch.where(fit_p, new_cpu - freed_c, new_cpu)
-        fm = torch.where(fit_p, new_mem - freed_m, new_mem)
-        bp = _binpack_raw(dense._free(fc, const.cpu_cap)[idx],
-                          dense._free(fm, const.mem_cap)[idx], spread_alg)
-        vals = _score(bp, other, nscores)
-        if bool(pre.any()):
-            vals[pre] = _score_preempt(bp[pre], other[pre],
-                                       _preempt_score(net[idx][pre]),
-                                       nscores[pre])
-        final = torch.zeros((E, N), dtype=dt, device=dev)
-        final[idx] = vals
-        _, yielded, order, ny = _select(final, fit_c,
+        b = dense._step_asks(batch, i, has_cores)
+        step = _preempt_step(const, state, b, ptab, evicted, counts,
+                             spread_alg)
+        _, yielded, order, ny = _select(step.final, step.fit,
                                         batch.limit[:, col].long())
-        w, best = _winner(torch.where(yielded, final, neg_inf), yielded,
-                          order)
+        w, best = _winner(torch.where(yielded, step.final, neg_inf),
+                          yielded, order)
         any_yield = ny > 0
         do = batch.active[:, i] & any_yield
         chosen[:, i] = torch.where(do, w, -1)
         scores[:, i] = torch.where(any_yield, best, neg_inf)
         n_yielded[:, i] = ny
-        # the winner's eviction row and freed resources; the freed ones
-        # are gated by the window's choice, not by ``active``
-        was_pre = any_yield & fit_p[ar, w]
-        row = evict[ar, w] & (was_pre & do)[:, None]
-        evict_rows[:, i] = row
-        fr = [torch.where(was_pre, f[ar, w], zero)
-              for f in (freed_c, freed_m, freed_d)]
-        add_f = do.to(dt)
-        add_i = do.to(torch.int32)
-        dyn_back = torch.where(row, ptab.dyn_ports[ar, w],
-                               torch.zeros_like(ptab.dyn_ports[ar, w])).sum(
-                                   dim=1).to(torch.int32)
-        static_back = (row & ptab.static_rel[ar, w]).any(dim=1)
-        state.used_cpu[ar, w] += add_f * b["ask_cpu"][:, 0] - fr[0]
-        state.used_mem[ar, w] += add_f * b["ask_mem"][:, 0] - fr[1]
-        state.used_disk[ar, w] += add_f * b["ask_disk"][:, 0] - fr[2]
-        state.placed[ar, w] += add_i
-        state.placed_job[ar, w] += add_i
-        state.static_free[ar, w] = ((state.static_free[ar, w] | static_back)
-                                    & ~(do & b["has_static"][:, 0]))
-        state.dyn_avail[ar, w] += dyn_back - add_i * b["n_dyn"][:, 0]
-        dense._commit_tables(const, state, w, do)
-        evicted[ar, w] |= row
-        grp_w = ptab.grp[ar, w].long()                    # (E, A)
-        bump = row & (grp_w >= 0)
-        for a in range(A):
-            counts[ar, grp_w[:, a].clamp_min(0)] += bump[:, a].to(
-                torch.int32)
+        evict_rows[:, i] = _preempt_commit(const, state, b, ptab, evicted,
+                                           counts, step, w, do, any_yield)
     return DensePreemptOut(chosen, scores, n_yielded, evict_rows, state,
                            PreemptState(evicted, counts))
 
