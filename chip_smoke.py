@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port's placement paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --ab TAG=DIR ... [--ab-clocks TAG=DIR ...]
+                          [--ab-kernels NAME,...]   (A/B timing; below)
 
 Phases (any failure raises and the script exits nonzero with no result):
 
@@ -1473,6 +1475,47 @@ def compare_preempt(torch, name, got, want, dtype_name):
     return err
 
 
+def same_bits(torch, name, got, want):
+    """Raise unless two tensors hold the same bits."""
+    if got.dtype.is_floating_point:
+        bits = {2: torch.int16, 4: torch.int32,
+                8: torch.int64}[got.element_size()]
+        got, want = got.view(bits), want.view(bits)
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()[:5].tolist()
+        raise AssertionError(f"{name}: differs at {bad}")
+
+
+def wave_preempt_final_counts(torch, preempt, ten, out):
+    """The (E, G) group counts after the last step that a windowed run's
+    eviction rows imply: counts0 plus one for each evicted candidate's
+    group (the commit's bumps). A chosen node's compact row is the one
+    holding its position (unique among a lane's option rows)."""
+    compact, cand, counts0 = ten[0], ten[1], ten[5]
+    counts = counts0.long().clone()
+    e_i, i_i = out[3].any(dim=-1).nonzero(as_tuple=True)
+    pos = compact[e_i, :, preempt.WPC_POS]
+    r = (pos == out[0][e_i, i_i].to(pos.dtype)[:, None]).int().argmax(dim=1)
+    grp = cand["grp"][e_i, r].long()
+    take = out[3][e_i, i_i] & (grp >= 0)
+    lane = e_i[:, None].expand_as(grp)
+    counts.index_put_((lane[take], grp[take]),
+                      torch.ones_like(grp[take]), accumulate=True)
+    return counts.to(torch.int32)
+
+
+def check_wave_preempt(torch, preempt, name, ten, B, want):
+    """One more launch of the windowed kernel on ``ten``: every output
+    equal to the plain version's ``want`` bit for bit, and its group
+    counts after the last step equal to those the eviction rows imply."""
+    got = preempt.wave_preempt_launch(*ten, spread_alg=False, B=B)
+    for f, g, w in zip(("chosen", "scores", "n_yielded", "evict_rows"),
+                       got, want):
+        same_bits(torch, f"{name} {f}", g, w)
+    same_bits(torch, f"{name} counts", got[4],
+              wave_preempt_final_counts(torch, preempt, ten, want))
+
+
 def rows_nbytes(tables, n, rows):
     """Bytes of ``tables`` (each with a leading lane axis) when ``rows``
     node rows in all are read: a table with an axis of size ``n`` after
@@ -1589,7 +1632,9 @@ def preempt_kernel_phase(np, torch, bp, preempt, dense, kernels, svc, tp,
     kernel at P_pad = 2,048, the dense one at P_pad = 512 (its plain
     version rescores 16,384 nodes a step, so the comparison is cut to
     the dense main path's P). Decisions, eviction rows and (dense) the
-    final state exactly; timed."""
+    final state exactly (the windowed kernel's scores and group counts
+    too, as bits); timed. Then, untimed, 8 of the preemption slice's
+    windowed tier-5 lanes in float64."""
     results = []
     dev = torch.device(DEVICE)
     for dtype_name in ("float32", "float64"):
@@ -1606,6 +1651,7 @@ def preempt_kernel_phase(np, torch, bp, preempt, dense, kernels, svc, tp,
                                    lambda: run_w(preempt.wave_preempt_plain))
         tag = f"wave_preempt {dtype_name}"
         err = compare_preempt(torch, tag, got, want, dtype_name)
+        check_wave_preempt(torch, preempt, tag, ten, inp.B, want)
         ms = timed(torch, lambda: run_w(preempt.wave_preempt),
                    KERNEL_REPEATS)
         bound_ms, bound_by, nbytes, flops = wave_preempt_bound(
@@ -1664,7 +1710,40 @@ def preempt_kernel_phase(np, torch, bp, preempt, dense, kernels, svc, tp,
             bytes=nbytes, flops=flops))
         results += preempt_small_checks(np, torch, bp, preempt, dense,
                                         kernels, dtype_name, seed + 2)
+    # the preemption slice's windowed tier-5 lanes in float64 (the slice
+    # holds its group in float32), 8 of its 32 to keep the plain
+    # version's time down
+    packed = tier5_lanes(np, tp, svc, world, "float64", n_lanes=8,
+                         n_place=PW_PLACE)
+    inp = preempt.wave_preempt_inputs(
+        *stack_preempt(np, bp, [packed_preempt_dicts(np, ln, P_PAD)
+                                for ln in packed]), dtype_name="float64")
+    ten = preempt.wave_preempt_tensors(inp, dev)
+    want = preempt.wave_preempt_plain(*ten, spread_alg=False, B=inp.B)
+    tag = "wave_preempt float64 tier-5 lanes"
+    check_wave_preempt(torch, preempt, tag, ten, inp.B, want)
+    log(f"kernel {tag}: E=8 C={inp.compact.shape[1]} B={inp.B} "
+        f"placed={int((want[0] >= 0).sum())} match=bit-exact")
+    results.append(dict(name="wave_preempt", dtype="float64",
+                        world="tier-5 lanes", max_abs_err=0.0))
     return results
+
+
+def wave_preempt_small_lanes(np, rng, dtype_name):
+    """The windowed kernel's wide-buffer and wide-candidate worlds, 8
+    fuzz lanes each: B = 128 (the limit-100 window of affinity lanes,
+    N = 4,096, P = 256) and A = 64 (N = 1,024, P = 128, limit 14)."""
+    sets = (("affinity",), ("tiers", "affinity", "penalties"),
+            ("distinct", "affinity"), ("scarce", "affinity"))
+    wide = [list(preempt_fuzz_tables(
+        np, rng, n=4000, n_pad=4096, p=256, dtype=dtype_name, limit=100,
+        features=sets[k % len(sets)] + ("devices",), A=PREEMPT_A, G=64))
+        for k in range(8)]
+    many = [list(preempt_fuzz_tables(
+        np, rng, n=1000, n_pad=1024, p=128, dtype=dtype_name, limit=14,
+        features=("many", "tiers", "penalties") + sets[k % len(sets)][:1],
+        A=64, G=64)) for k in range(8)]
+    return (("B=128", wide), ("A=64", many))
 
 
 def preempt_small_checks(np, torch, bp, preempt, dense, kernels,
@@ -1678,40 +1757,22 @@ def preempt_small_checks(np, torch, bp, preempt, dense, kernels,
     count), held against their plain versions."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed)
-    sets = (("affinity",), ("tiers", "affinity", "penalties"),
-            ("distinct", "affinity"), ("scarce", "affinity"))
     results = []
-    lanes = [list(preempt_fuzz_tables(
-        np, rng, n=4000, n_pad=4096, p=256, dtype=dtype_name, limit=100,
-        features=sets[k % len(sets)] + ("devices",), A=PREEMPT_A, G=64))
-        for k in range(8)]
-    inp = preempt.wave_preempt_inputs(*stack_preempt(np, bp, lanes),
-                                      dtype_name=dtype_name)
-    assert inp.B == 128, inp.B
-    ten = preempt.wave_preempt_tensors(inp, dev)
-    got = preempt.wave_preempt(*ten, spread_alg=False, B=inp.B)
-    want = preempt.wave_preempt_plain(*ten, spread_alg=False, B=inp.B)
-    tag = f"wave_preempt {dtype_name} B=128"
-    err = compare_preempt(torch, tag, got, want, dtype_name)
-    log(f"kernel {tag}: E=8 P=256 placed={int((want[0] >= 0).sum())} "
-        f"match=exact max_abs_err={err:.3e}")
-    results.append(dict(name="wave_preempt", dtype=dtype_name,
-                        world="fuzz B=128", max_abs_err=err))
-    lanes = [list(preempt_fuzz_tables(
-        np, rng, n=1000, n_pad=1024, p=128, dtype=dtype_name, limit=14,
-        features=("many", "tiers", "penalties") + sets[k % len(sets)][:1],
-        A=64, G=64)) for k in range(8)]
-    inp = preempt.wave_preempt_inputs(*stack_preempt(np, bp, lanes),
-                                      dtype_name=dtype_name)
-    ten = preempt.wave_preempt_tensors(inp, dev)
-    got = preempt.wave_preempt(*ten, spread_alg=False, B=inp.B)
-    want = preempt.wave_preempt_plain(*ten, spread_alg=False, B=inp.B)
-    tag = f"wave_preempt {dtype_name} A=64"
-    err = compare_preempt(torch, tag, got, want, dtype_name)
-    log(f"kernel {tag}: E=8 P=128 placed={int((want[0] >= 0).sum())} "
-        f"match=exact max_abs_err={err:.3e}")
-    results.append(dict(name="wave_preempt", dtype=dtype_name,
-                        world="fuzz A=64", max_abs_err=err))
+    for world, lanes in wave_preempt_small_lanes(np, rng, dtype_name):
+        inp = preempt.wave_preempt_inputs(*stack_preempt(np, bp, lanes),
+                                          dtype_name=dtype_name)
+        assert inp.B == (128 if world == "B=128" else 32), inp.B
+        ten = preempt.wave_preempt_tensors(inp, dev)
+        got = preempt.wave_preempt(*ten, spread_alg=False, B=inp.B)
+        want = preempt.wave_preempt_plain(*ten, spread_alg=False, B=inp.B)
+        tag = f"wave_preempt {dtype_name} {world}"
+        err = compare_preempt(torch, tag, got, want, dtype_name)
+        check_wave_preempt(torch, preempt, tag, ten, inp.B, want)
+        log(f"kernel {tag}: E=8 P={want[0].shape[1]} "
+            f"placed={int((want[0] >= 0).sum())} match=exact "
+            f"max_abs_err={err:.3e}")
+        results.append(dict(name="wave_preempt", dtype=dtype_name,
+                            world=f"fuzz {world}", max_abs_err=err))
     cases = [(E, n, n_pad, A, 64) for E in CLUSTER_LANES
              for n, n_pad, A in (
                  ((200, 256, PREEMPT_A), (1000, 1024, PREEMPT_A),
@@ -1847,6 +1908,8 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
         ms = timed(torch, lambda: run(kfn), KERNEL_REPEATS)
         C = None
         if g.wave:
+            check_wave_preempt(torch, preempt, "preempt slice windowed "
+                               "group", ten, inp.B, want)
             bnd = wave_preempt_bound(np, preempt, inp, want, "float32")
             shape = list(inp.compact.shape) + [PREEMPT_A]
         else:
@@ -3096,38 +3159,51 @@ def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
 
 
 # --------------------------------------------------------------------------
-# A/B timing of the dense kernels (python3 chip_smoke.py --ab TAG=DIR ...):
-# each DIR's dense_scan.cu and dense_preempt.cu (DIR "repo" is
-# nomad_tpu_torch/csrc) built into build/ab/lib/TAG and launched through
-# the port's wrappers on the main paths' own groups, in turns (first to
-# last, then last to first), every output equal to the first variant's.
-# A variant built with -DNT_STEP_CLOCKS (--ab-clocks) must export
-# nt_step_clocks(unsigned long long out[16], int reset): lane 0's
-# clock64() totals per step section (csrc/dense_common.cuh NT_CLK), read
-# after one launch.
+# A/B timing of the redesigned kernels (python3 chip_smoke.py --ab TAG=DIR
+# ... [--ab-kernels NAME,...]): each DIR's sources of AB_SOURCES (DIR
+# "repo" is nomad_tpu_torch/csrc) built into build/ab/lib/TAG and launched
+# through the port's wrappers on the main paths' own inputs, in turns
+# (first to last, then last to first), every output equal to the plain
+# version's. A variant built with -DNT_STEP_CLOCKS (--ab-clocks) exports
+# nt_step_clocks(unsigned long long out[16], int reset) where its kernel
+# stamps step sections: lane 0's clock64() totals per section
+# (csrc/wave_common.cuh NT_CLK), read after one launch.
 
 AB_SOURCES = {"dense_scan": "dense_scan.cu",
-              "dense_preempt": "dense_preempt.cu"}
+              "dense_preempt": "dense_preempt.cu",
+              "wave_preempt": "wave_preempt.cu",
+              "lp_relax": "lp_relax.cu"}
 AB_REPEATS = 10
-AB_TILE = 2048                      # the one-block walk's tile (parent)
-# the sections' names: the parent's one-block walk had a per-step
-# statistics pass (0), a block scan per tile (2) and thread 0's rescore
-# of the winner (9); the cluster walk's 2 is the count exchange, and its
-# "tiles" are rounds
-AB_SECTIONS = ("stats", "score", "scan", "mark", "best", "commit",
-               "total", "steps", "tiles", "rescore")
+AB_TILE = 2048                      # the older one-block walk's tile
+# the sections' names: the dense kernels' (the older one-block walk
+# had a per-step statistics pass (0), a block scan per tile (2) and
+# thread 0's rescore of the winner (9); the cluster walk's 2 is the
+# count exchange, and its "tiles" are rounds), wave_preempt's, whose
+# "steps" leave out frozen steps and whose "searches" counts the
+# eviction searches run, and lp_relax's (block 0's phases and its waits
+# at the grid barriers after them, then its row phase's own passes)
+AB_SECTIONS = {
+    "dense": ("stats", "score", "scan", "mark", "best", "commit", "total",
+              "steps", "tiles", "rescore"),
+    "wave_preempt": ("usage", "search", "score", "scan", "best", "commit",
+                     "shift", "total", "steps", "searches"),
+    "lp_relax": ("start", "rows", "rows_sync", "nodes", "nodes_sync",
+                 "final", "total", "steps", "logits", "max", "windows",
+                 "tree", "x"),
+}
 
 
-def ab_build(kernels, tag, csrc, defines):
-    """Build the dense kernels of ``csrc`` (one nvcc each, together) and
-    return ({name: Kernel}, {name: ctypes lib})."""
+def ab_build(kernels, tag, csrc, defines, names):
+    """Build the kernels ``names`` of ``csrc`` (one nvcc each, together)
+    and return ({name: Kernel}, {name: ctypes lib})."""
     import ctypes
     out = ROOT / "build" / "ab" / "lib" / tag
     out.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name, src in AB_SOURCES.items():
+    for name in names:
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *defines, "-I",
-               str(csrc), "-o", str(out / f"{name}.so"), str(csrc / src)]
+               str(csrc), "-o", str(out / f"{name}.so"),
+               str(csrc / AB_SOURCES[name])]
         procs.append((name, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -3161,7 +3237,7 @@ def ab_trimmed(kernels):
     return Trimmed
 
 
-def ab_clocks(torch, lib, run):
+def ab_clocks(torch, lib, run, names):
     """Lane 0's section totals over one launch of ``run``."""
     import ctypes
     buf = (ctypes.c_ulonglong * 16)()
@@ -3173,7 +3249,7 @@ def ab_clocks(torch, lib, run):
     run()
     torch.cuda.synchronize()
     assert fn(buf, 1) == 0
-    return dict(zip(AB_SECTIONS, [int(x) for x in buf]))
+    return dict(zip(names, [int(x) for x in buf]))
 
 
 def ab_close_positions(np, torch, dense, preempt, run_plain):
@@ -3216,7 +3292,32 @@ def ab_summary(np, close, N):
         walk_over_close=float(walked.sum() / reach.sum()))
 
 
-def ab_cases(np, torch, bp, batch, dense, preempt, svc, tp, world):
+def ab_same(torch, name, fields, got, want):
+    """Raise unless every output equals the plain version's, as bits."""
+    for f, g, w in zip(fields, got, want):
+        for x, y in (zip(g, w) if isinstance(g, tuple) else ((g, w),)):
+            same_bits(torch, f"ab {name}: {f}", x, y)
+
+
+def ab_dense_case(np, torch, dense, preempt, name, kname, ten, salg):
+    fn, pfn = ((dense.dense_scan, dense.dense_scan_plain)
+               if kname == "dense_scan" else
+               (preempt.dense_preempt, preempt.dense_preempt_plain))
+    E, N = ten[0].cpu_cap.shape
+    P = ten[2].ask_cpu.shape[1]
+
+    def want():
+        w, close = ab_close_positions(
+            np, torch, dense, preempt, lambda: pfn(*ten, spread_alg=salg))
+        return w, dict(close=ab_summary(np, close, int(N)))
+
+    return dict(name=name, kernel=kname, shape=dict(E=int(E), N=int(N),
+                                                    P=int(P)),
+                run=lambda: fn(*ten, spread_alg=salg), want=want,
+                same=lambda g, w: ab_same(torch, name, g._fields, g, w))
+
+
+def ab_dense_cases(np, torch, bp, batch, dense, preempt, svc, tp, world):
     """The main paths' dense groups as tensors on the card: the dense
     slice's spread group (E 32), distinct_property and reserved-core
     lanes (E 1 each), and the preemption slice's dense group (E 8); then
@@ -3249,81 +3350,146 @@ def ab_cases(np, torch, bp, batch, dense, preempt, svc, tp, world):
     ten, _ = dense.fused_tensors(trees, preempt.preempt_casts("float32"),
                                  device=dev)
     cases.append(("mixed_preempt", "dense_preempt", ten, False))
-    return cases
+    return [ab_dense_case(np, torch, dense, preempt, *c) for c in cases]
 
 
-def ab_phase(np, torch, kernels, bp, batch, dense, preempt, svc, tp,
-             variants, clocks):
-    """Time every variant on every case in turns; the clock variants'
-    step breakdowns; the window-close positions from the plain versions."""
-    world = headline_world(np, tp)
-    built = {}
-    for tag, csrc, defines in variants + clocks:
-        built[tag] = ab_build(kernels, tag, csrc, defines)
+def ab_wave_preempt_case(torch, preempt, name, inp):
+    ten = preempt.wave_preempt_tensors(inp, torch.device(DEVICE))
+    E, C, _ = inp.compact.shape
+    fields = ("chosen", "scores", "n_yielded", "evict_rows")
+    return dict(
+        name=name, kernel="wave_preempt",
+        shape=dict(E=int(E), C=int(C), B=int(inp.B),
+                   A=int(inp.cand["cpu"].shape[-1])),
+        run=lambda: preempt.wave_preempt(*ten, spread_alg=False, B=inp.B),
+        want=lambda: (preempt.wave_preempt_plain(*ten, spread_alg=False,
+                                                 B=inp.B), {}),
+        same=lambda g, w: ab_same(torch, name, fields, g, w))
+
+
+def ab_wave_preempt_cases(np, torch, bp, batch, preempt, svc, tp, world):
+    """The preemption slice's windowed tier-5 group (E 32, 2,000
+    placements, B 32, A 16); off the main path the kernel phase's mixed
+    group (16 tier-5 + 16 fuzz lanes with max_parallel groups) and its
+    B = 128 and A = 64 fuzz groups."""
+    lanes = tier5_lanes(np, tp, svc, world, "float32", n_lanes=PW_EVALS,
+                        n_place=PW_PLACE)
+    (g,) = batch.fuse_lanes(lanes)
+    assert g.wave, "the tier-5 windowed group did not take the wave route"
+    cases = [("tier5_wave", preempt.wave_preempt_inputs(
+        g.const, g.init, g.batch, g.ptab, g.pinit, dtype_name="float32"))]
+    trees = preempt_group(np, bp, tp, svc, world, "float32", SEED,
+                          dense=False)
+    cases.append(("mixed_wave", preempt.wave_preempt_inputs(
+        *trees, dtype_name="float32")))
+    for tag, lanes in wave_preempt_small_lanes(
+            np, np.random.default_rng(SEED + 2), "float32"):
+        cases.append((f"fuzz_{tag}", preempt.wave_preempt_inputs(
+            *stack_preempt(np, bp, lanes), dtype_name="float32")))
+    return [ab_wave_preempt_case(torch, preempt, *c) for c in cases]
+
+
+def ab_lp_case(torch, lpq, name, ins):
+    L, N = ins[0].shape
+    return dict(name=name, kernel="lp_relax",
+                shape=dict(L=int(L), N=int(N), steps=int(ins[6].shape[0])),
+                run=lambda: lpq.lp_relax(*ins),
+                want=lambda: (lpq.lp_relax_plain(*ins), {}),
+                same=lambda g, w: compare_lp(torch, f"ab {name}", g, w))
+
+
+def ab_lp_cases(np, torch, lpq, svc, world):
+    """The LP tier's first generation's relaxation inputs (L_pad 128 x
+    N 16,384 x 48 steps, captured from _solve_lp_group), and an
+    oversubscribed fuzz case at L_pad 256 x N 65,536."""
+    seen = []
+    real = lpq.lp_relax
+
+    def keep(*a):
+        seen.append(a)
+        return lpq.lp_relax_plain(*a)
+
+    lpq.lp_relax = keep
+    try:
+        lpq._solve_lp_group(lpq_gen1_lanes(np, svc, world), {},
+                            device=DEVICE)
+    finally:
+        lpq.lp_relax = real
+    temps = torch.from_numpy(lpq.lp_temperatures(LP_STEPS)).to(DEVICE)
+    rng = np.random.default_rng(SEED + 40 + 8)
+    ins = [torch.from_numpy(a).to(DEVICE)
+           for a in lp_fuzz_inputs(np, rng, 256, 65_536, over=True)]
+    return [ab_lp_case(torch, lpq, "lp_tier", seen[0]),
+            ab_lp_case(torch, lpq, "lp_fuzz_over", ins + [temps])]
+
+
+def ab_phase(np, torch, kernels, cases, built):
+    """Time every variant on every case in turns, each output equal to
+    the plain version's; the clock variants' step sections."""
+    variants = [t for t, (_, clk) in built.items() if not clk]
     out = {}
-    for name, kname, ten, salg in ab_cases(np, torch, bp, batch, dense,
-                                           preempt, svc, tp, world):
-        fn = dense.dense_scan if kname == "dense_scan" else \
-            preempt.dense_preempt
-        pfn = dense.dense_scan_plain if kname == "dense_scan" else \
-            preempt.dense_preempt_plain
-
-        def run():
-            return fn(*ten, spread_alg=salg)
+    for case in cases:
+        name, kname, run = case["name"], case["kernel"], case["run"]
+        proto = getattr(kernels, kname.upper())
 
         def use(tag):
-            setattr(kernels, kname.upper(), built[tag][0][kname])
+            setattr(kernels, kname.upper(), built[tag][0][0][kname])
 
-        E, N = ten[0].cpu_cap.shape
-        P = ten[2].ask_cpu.shape[1]
-        want, close = ab_close_positions(
-            np, torch, dense, preempt, lambda: pfn(*ten, spread_alg=salg))
-        row = dict(kernel=kname, E=int(E), N=int(N), P=int(P),
-                   close=ab_summary(np, close, int(N)), ms={}, turns=[])
-        order = [t for t, _, _ in variants]
-        for tag in order + order[::-1]:
+        log(f"ab {name} ({kname}): the plain version, then the turns")
+        want, info = case["want"]()
+        row = dict(kernel=kname, **case["shape"], **info, ms={}, turns=[])
+        for tag in variants + variants[::-1]:
             use(tag)
-            got = run()
-            for f, g, w in zip(got._fields, got, want):
-                same = (all(torch.equal(x, y) for x, y in zip(g, w))
-                        if isinstance(g, tuple) else torch.equal(g, w))
-                if not same:
-                    raise AssertionError(f"ab {tag} {name}: {f} differs "
-                                         "from the plain version")
+            case["same"](run(), want)
             ms = timed(torch, run, AB_REPEATS)
             row["turns"].append((tag, ms))
-            k = built[tag][0][kname]
-            if hasattr(k.lib(), str(k.cluster_symbol)):
+            k = built[tag][0][0][kname]
+            if k.cluster_symbol and hasattr(k.lib(), k.cluster_symbol):
                 row.setdefault("cluster", {})[tag] = k.last_cluster()
-        for tag in order:
+        for tag in variants:
             row["ms"][tag] = statistics.median(
                 ms for t, ms in row["turns"] if t == tag)
         row["clocks"] = {}
-        for tag, _, _ in clocks:
+        sections = AB_SECTIONS.get(kname, AB_SECTIONS["dense"])
+        for tag, ((ks, libs), clk) in built.items():
+            if not clk or not hasattr(libs[kname], "nt_step_clocks"):
+                continue
             use(tag)
-            c = ab_clocks(torch, built[tag][1][kname], run)
-            k = built[tag][0][kname]
-            if hasattr(k.lib(), str(k.cluster_symbol)):
+            c = ab_clocks(torch, libs[kname], run, sections)
+            k = ks[kname]
+            if k.cluster_symbol and hasattr(k.lib(), k.cluster_symbol):
                 c["cluster"] = k.last_cluster()
             row["clocks"][tag] = c
-        log(f"ab {name} ({kname}) E={E} N={N} P={P}: "
+        setattr(kernels, kname.upper(), proto)
+        log(f"ab {name} ({kname}) {case['shape']}: "
             + " ".join(f"{t}={m:.4f}" for t, m in row["ms"].items())
-            + f" ms; cluster {row.get('cluster')}; close {row['close']}")
+            + f" ms; cluster {row.get('cluster')}"
+            + (f"; close {row['close']}" if "close" in row else ""))
         for tag, c in row["clocks"].items():
             tot = max(c["total"], 1)
+            shown = [k for k in sections if k not in ("total", "steps",
+                                                      "tiles", "searches")]
             log(f"  clocks {tag}: C={c.get('cluster')} steps={c['steps']} "
-                f"rounds={c['tiles']} "
-                + " ".join(f"{k}={c[k] / tot:.3f}" for k in AB_SECTIONS[:6]
-                           + ("rescore",)))
+                + (f"rounds={c['tiles']} " if "tiles" in c else "")
+                + (f"searches={c['searches']} " if "searches" in c else "")
+                + " ".join(f"{k}={c[k] / tot:.3f}" for k in shown))
         out[name] = row
     return out
 
 
 def ab_main(args, torch, np):
     from nomad_tpu_torch import kernels
-    from nomad_tpu_torch.solver import batch, dense, preempt, service as svc
+    from nomad_tpu_torch.solver import batch, dense, lpq, preempt
+    from nomad_tpu_torch.solver import service as svc
     from nomad_tpu_torch.solver import binpack as bp
     from nomad_tpu_torch.tensor import pack as tp
+
+    names = (args.ab_kernels.split(",") if args.ab_kernels
+             else list(AB_SOURCES))
+    bad = set(names) - set(AB_SOURCES)
+    if bad:
+        raise SystemExit(f"--ab-kernels: unknown {sorted(bad)}; "
+                         f"choose from {sorted(AB_SOURCES)}")
 
     def spec(s, defines):
         tag, d = s.split("=", 1)
@@ -3333,9 +3499,25 @@ def ab_main(args, torch, np):
 
     card = card_line()
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
-    res = ab_phase(np, torch, kernels, bp, batch, dense, preempt, svc, tp,
-                   [spec(s, ()) for s in args.ab],
-                   [spec(s, ("-DNT_STEP_CLOCKS",)) for s in args.ab_clocks])
+    built = {}
+    for tag, csrc, defines in ([spec(s, ()) for s in args.ab]
+                               + [spec(s, ("-DNT_STEP_CLOCKS",))
+                                  for s in args.ab_clocks]):
+        built[tag] = (ab_build(kernels, tag, csrc, defines, names),
+                      bool(defines))
+    world = headline_world(np, tp)
+    log("ab: building the cases")
+    cases = []
+    if {"dense_scan", "dense_preempt"} & set(names):
+        cases += [c for c in ab_dense_cases(np, torch, bp, batch, dense,
+                                            preempt, svc, tp, world)
+                  if c["kernel"] in names]
+    if "wave_preempt" in names:
+        cases += ab_wave_preempt_cases(np, torch, bp, batch, preempt, svc,
+                                       tp, world)
+    if "lp_relax" in names:
+        cases += ab_lp_cases(np, torch, lpq, svc, world)
+    res = ab_phase(np, torch, kernels, cases, built)
     log("ab: " + json.dumps(dict(card=card, cases=res)))
     print(card, flush=True)
     return 0
@@ -3348,13 +3530,17 @@ def main(argv=None) -> int:
                     help="seed of the numpy fuzz lanes (default %(default)s)")
     ap.add_argument("--ab", action="append", default=[],
                     metavar="TAG=DIR",
-                    help="A/B mode: time the dense kernels built from DIR "
-                    "(under the repository; 'repo' for the port's csrc) "
+                    help="A/B mode: time the redesigned kernels built from "
+                    "DIR (under the repository; 'repo' for the port's csrc) "
                     "on the main paths' groups, in turns; repeatable")
     ap.add_argument("--ab-clocks", action="append", default=[],
                     metavar="TAG=DIR",
                     help="A/B mode: a DIR built with -DNT_STEP_CLOCKS whose "
                     "step sections are read after one launch")
+    ap.add_argument("--ab-kernels", default="",
+                    metavar="NAME,...",
+                    help="A/B mode: the kernels to time (default all of "
+                    + ", ".join(AB_SOURCES) + ")")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():

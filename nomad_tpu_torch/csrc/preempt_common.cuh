@@ -84,12 +84,13 @@ template <typename T> struct SearchRes {
 };
 
 // The max_parallel penalty of candidate a from its group's evictions so
-// far in this eval (counts, the lane's (G,) table).
+// far in this eval (counts, the lane's (G,) table; read only for a
+// candidate under a max_parallel limit).
 template <typename T>
 __device__ __forceinline__ T maxp_penalty(const CandRow<T>& c, int a,
                                           const int* counts) {
   const int g = c.grp[a], mp = c.maxp[a];
-  const int n_pre = g >= 0 ? counts[g] : 0;
+  const int n_pre = g >= 0 && mp > 0 ? counts[g] : 0;
   return (mp > 0 && n_pre >= mp)
              ? (T)(n_pre + 1 - mp) * T(kMaxParallelPenalty)
              : T(0);
@@ -212,13 +213,13 @@ __device__ SearchRes<T> preempt_search(const CandRow<T>& c, int A,
 // candidates gl and gl + W (J = 64 / W slots at most, A <= 64), loaded
 // coalesced once. Each greedy round evaluates the candidates' distances
 // in parallel (the same expression as preempt_search) and picks by a
-// shuffle arg-min with the same tie rule (the lowest index); the
-// priority floor is a shuffle min. The sums of the picks, filterSuperset
+// group arg-min with the same tie rule (the lowest index); the
+// priority floor is a group min. The sums of the picks, filterSuperset
 // and the freed resources and net priority run in candidate order on
 // every lane (the values broadcast by shuffles), so the float results
 // are preempt_search's bit for bit, identical on every lane. load_cands
-// reads the row's (A,) columns from global memory (valid and evicted
-// too) and the group counts of the max_parallel penalty.
+// reads the row's (A,) columns (valid and evicted too) and the group
+// counts of the max_parallel penalty; load_cand_cols takes the masks.
 template <int W>
 __device__ __forceinline__ unsigned group_mask() {
   return W == 32 ? kFull : (0xffffu << (threadIdx.x & 16));
@@ -231,6 +232,38 @@ __device__ __forceinline__ V group_bcast(const V* x, int a) {
   return __shfl_sync(group_mask<W>(), val, a % W, W);
 }
 
+// The group's best (key, index) pair, returned as its index on every
+// lane: the least key (MAX: the greatest), ties to the lowest index; a
+// lane with index INT_MAX holds none. Keys are never negative or NaN
+// (distances plus penalties), so in float their bits order as unsigned
+// integers and two warp reductions find the pair; in double shuffles.
+template <typename T, int W, bool MAX>
+__device__ __forceinline__ int group_arg_best(T key, int idx) {
+  const unsigned gm = group_mask<W>();
+  if constexpr (sizeof(T) == 4) {
+    // bits + 1, so that 0 marks a lane with none when taking the max
+    const unsigned kb = __float_as_uint(key) + 1u;
+    const unsigned best =
+        MAX ? __reduce_max_sync(gm, idx == INT_MAX ? 0u : kb)
+            : __reduce_min_sync(gm, idx == INT_MAX ? ~0u : kb);
+    return (int)__reduce_min_sync(
+        gm, idx != INT_MAX && kb == best ? (unsigned)idx : ~0u);
+  } else {
+#pragma unroll
+    for (int off = W / 2; off > 0; off >>= 1) {
+      const T ok = __shfl_xor_sync(gm, key, off, W);
+      const int oi = __shfl_xor_sync(gm, idx, off, W);
+      if (oi != INT_MAX &&
+          (idx == INT_MAX || (MAX ? ok > key : ok < key) ||
+           (ok == key && oi < idx))) {
+        idx = oi;
+        key = ok;
+      }
+    }
+    return idx;
+  }
+}
+
 // A group's candidate registers: lane gl's candidates gl and gl + W,
 // and the row's candidate masks (valid now, eligible).
 template <typename T, int W> struct CandRegs {
@@ -240,18 +273,18 @@ template <typename T, int W> struct CandRegs {
   u64 valid_now, eligible;
 };
 
+// The group's registers of a row whose candidate masks the caller
+// holds (valid now, eligible): the columns read once, and the
+// max_parallel penalties from the lane's group counts.
 template <typename T, int W>
-__device__ __forceinline__ CandRegs<T, W> load_cands(
-    const CandRow<T>& c, int A, const unsigned char* valid,
-    const unsigned char* evicted, int job_prio, const int* counts) {
+__device__ __forceinline__ CandRegs<T, W> load_cand_cols(
+    const CandRow<T>& c, int A, u64 valid_now, u64 eligible,
+    const int* counts) {
   constexpr int J = CandRegs<T, W>::J;
-  const unsigned gm = group_mask<W>();
   const int gl = threadIdx.x & (W - 1);
-  const int gbase = (threadIdx.x & 31) & ~(W - 1);
-  const unsigned wbits = W == 32 ? kFull : 0xffffu;
   CandRegs<T, W> r;
-  r.valid_now = 0;
-  r.eligible = 0;
+  r.valid_now = valid_now;
+  r.eligible = eligible;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int a = gl + W * j;
@@ -261,12 +294,31 @@ __device__ __forceinline__ CandRegs<T, W> load_cands(
     r.disk[j] = in ? c.disk[a] : T(0);
     r.prio[j] = in ? c.prio[a] : 0;
     r.pen[j] = in ? maxp_penalty<T>(c, a, counts) : T(0);
-    const bool vn = in && valid[a] && !evicted[a];
-    const bool el = vn && job_prio - r.prio[j] >= 10;
-    r.valid_now |= (u64)((__ballot_sync(gm, vn) >> gbase) & wbits) << (W * j);
-    r.eligible |= (u64)((__ballot_sync(gm, el) >> gbase) & wbits) << (W * j);
   }
   return r;
+}
+
+// The same from the row's valid and evicted bytes: the masks by ballot.
+template <typename T, int W>
+__device__ __forceinline__ CandRegs<T, W> load_cands(
+    const CandRow<T>& c, int A, const unsigned char* valid,
+    const unsigned char* evicted, int job_prio, const int* counts) {
+  constexpr int J = CandRegs<T, W>::J;
+  const unsigned gm = group_mask<W>();
+  const int gl = threadIdx.x & (W - 1);
+  const int gbase = (threadIdx.x & 31) & ~(W - 1);
+  const unsigned wbits = W == 32 ? kFull : 0xffffu;
+  u64 valid_now = 0, eligible = 0;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int a = gl + W * j;
+    const bool in = a < A;
+    const bool vn = in && valid[a] && !evicted[a];
+    const bool el = vn && job_prio - c.prio[a] >= 10;
+    valid_now |= (u64)((__ballot_sync(gm, vn) >> gbase) & wbits) << (W * j);
+    eligible |= (u64)((__ballot_sync(gm, el) >> gbase) & wbits) << (W * j);
+  }
+  return load_cand_cols<T, W>(c, A, valid_now, eligible, counts);
 }
 
 template <typename T, int W>
@@ -280,16 +332,14 @@ __device__ __forceinline__ SearchRes<T> preempt_search_group(
   const int* prio = cr.prio;
   const u64 valid_now = cr.valid_now, eligible = cr.eligible;
   T d0[J];
-  // the host Preemptor subtracts only the candidates' usage
+  // the host Preemptor subtracts only the candidates' usage (summed in
+  // candidate order over the valid ones)
   T sc = T(0), sm = T(0), sd = T(0);
-  for (int a = 0; a < A; ++a) {
-    const T x = group_bcast<W>(cpu, a), y = group_bcast<W>(mem, a),
-            z = group_bcast<W>(disk, a);
-    if (valid_now & bit(a)) {
-      sc = sc + x;
-      sm = sm + y;
-      sd = sd + z;
-    }
+  for (u64 m = valid_now; m; m &= m - 1) {
+    const int a = __ffsll((long long)m) - 1;
+    sc = sc + group_bcast<W>(cpu, a);
+    sm = sm + group_bcast<W>(mem, a);
+    sd = sd + group_bcast<W>(disk, a);
   }
   const T avail_c0 = cap_c - sc, avail_m0 = cap_m - sm,
           avail_d0 = cap_d - sd;
@@ -307,9 +357,7 @@ __device__ __forceinline__ SearchRes<T> preempt_search_group(
 #pragma unroll
     for (int j = 0; j < J; ++j)
       if (cand & bit(gl + W * j)) cur = min(cur, prio[j]);
-#pragma unroll
-    for (int off = W / 2; off > 0; off >>= 1)
-      cur = min(cur, __shfl_xor_sync(gm, cur, off, W));
+    cur = __reduce_min_sync(gm, cur);
     // the first minimum of distance + penalty (host order on ties)
     int pick = INT_MAX;
     T best = T(0);
@@ -324,16 +372,7 @@ __device__ __forceinline__ SearchRes<T> preempt_search_group(
         best = key;
       }
     }
-#pragma unroll
-    for (int off = W / 2; off > 0; off >>= 1) {
-      const T ob = __shfl_xor_sync(gm, best, off, W);
-      const int op = __shfl_xor_sync(gm, pick, off, W);
-      if (op != INT_MAX &&
-          (pick == INT_MAX || ob < best || (ob == best && op < pick))) {
-        pick = op;
-        best = ob;
-      }
-    }
+    pick = group_arg_best<T, W, false>(best, pick);
     picked |= bit(pick);
     const T pc = group_bcast<W>(cpu, pick), pm = group_bcast<W>(mem, pick),
             pd = group_bcast<W>(disk, pick);
@@ -368,16 +407,7 @@ __device__ __forceinline__ SearchRes<T> preempt_search_group(
         bd = d0[j];
       }
     }
-#pragma unroll
-    for (int off = W / 2; off > 0; off >>= 1) {
-      const T ob = __shfl_xor_sync(gm, bd, off, W);
-      const int os = __shfl_xor_sync(gm, sel, off, W);
-      if (os != INT_MAX &&
-          (sel == INT_MAX || ob > bd || (ob == bd && os < sel))) {
-        sel = os;
-        bd = ob;
-      }
-    }
+    sel = group_arg_best<T, W, true>(bd, sel);
     rem &= ~bit(sel);
     if (first < 0) first = sel;
     evict |= bit(sel);
@@ -392,22 +422,19 @@ __device__ __forceinline__ SearchRes<T> preempt_search_group(
   if (!covered) evict = first >= 0 ? bit(first) : 0;
   r.evict = evict;
 
-  // freed resources and netPriority, in candidate order
+  // freed resources and netPriority, in candidate order (the evicted
+  // candidates only: the same sums)
   const u64 all = A == 64 ? ~0ull : bit(A) - 1;
   T fc = T(0), fm = T(0), fd = T(0), sp = T(0);
   T mx = evict == all ? neg_inf<T>() : T(0);
-  for (int a = 0; a < A; ++a) {
-    const T x = group_bcast<W>(cpu, a), y = group_bcast<W>(mem, a),
-            z = group_bcast<W>(disk, a);
-    const int pr = group_bcast<W>(prio, a);
-    if (evict & bit(a)) {
-      fc = fc + x;
-      fm = fm + y;
-      fd = fd + z;
-      const T pp = (T)pr;
-      mx = vmax(mx, pp);
-      sp = sp + pp;
-    }
+  for (u64 m = evict; m; m &= m - 1) {
+    const int a = __ffsll((long long)m) - 1;
+    fc = fc + group_bcast<W>(cpu, a);
+    fm = fm + group_bcast<W>(mem, a);
+    fd = fd + group_bcast<W>(disk, a);
+    const T pp = (T)group_bcast<W>(prio, a);
+    mx = vmax(mx, pp);
+    sp = sp + pp;
   }
   r.freed_c = fc;
   r.freed_m = fm;

@@ -24,6 +24,51 @@ namespace nt {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSkip = 3;            // select.go maxSkip
 
+// Step sections of lane 0's first block, in clock64() cycles, for a
+// build with -DNT_STEP_CLOCKS (chip_smoke.py --ab-clocks): each kernel
+// that stamps names its sections (dense_scan.cu / dense_preempt.cu:
+// 1 scoring, 2 count exchange (the cluster barrier's wait included),
+// 3 marking, 4 the winner (block and cluster reductions, the record
+// exchange), 5 commit; 6 the whole scan, 7 steps, 8 rounds;
+// wave_preempt.cu and lp_relax.cu their own). nt_step_clocks reads
+// them. Without the flag the stamps compile to nothing.
+#ifdef NT_STEP_CLOCKS
+__device__ unsigned long long nt_clk[16];
+__device__ __forceinline__ bool nt_clk_on() {
+  return blockIdx.x == 0 && threadIdx.x == 0;
+}
+#define NT_T0() unsigned long long nt_t = clock64()
+#define NT_RESET() nt_t = clock64()
+#define NT_CLK(i)                                  \
+  do {                                             \
+    if (nt::nt_clk_on()) {                         \
+      const unsigned long long nt_n = clock64();   \
+      nt::nt_clk[i] += nt_n - nt_t;                \
+      nt_t = nt_n;                                 \
+    }                                              \
+  } while (0)
+#define NT_CNT(i, v)                               \
+  do {                                             \
+    if (nt::nt_clk_on()) nt::nt_clk[i] += (v);     \
+  } while (0)
+#define NT_STEP_CLOCKS_EXPORT                                             \
+  extern "C" int nt_step_clocks(unsigned long long* out, int reset) {     \
+    cudaError_t e = cudaMemcpyFromSymbol(out, nt::nt_clk,                 \
+                                         sizeof(nt::nt_clk));             \
+    if (e == cudaSuccess && reset) {                                      \
+      static const unsigned long long z[16] = {0};                        \
+      e = cudaMemcpyToSymbol(nt::nt_clk, z, sizeof(z));                   \
+    }                                                                     \
+    return (int)e;                                                        \
+  }
+#else
+#define NT_T0() do {} while (0)
+#define NT_RESET() do {} while (0)
+#define NT_CLK(i) do {} while (0)
+#define NT_CNT(i, v) do {} while (0)
+#define NT_STEP_CLOCKS_EXPORT
+#endif
+
 template <typename T> __device__ __forceinline__ T pow10(T x);
 template <> __device__ __forceinline__ float pow10<float>(float x) {
   return powf(10.0f, x);

@@ -665,9 +665,21 @@ def wave_preempt(compact, cand, scal_f, scal_i, pen, counts0, *,
     if dev.type == "cpu":
         return wave_preempt_plain(compact, cand, scal_f, scal_i, pen,
                                   counts0, spread_alg=spread_alg, B=B)
+    return wave_preempt_launch(compact, cand, scal_f, scal_i, pen, counts0,
+                               spread_alg=spread_alg, B=B)[:4]
+
+
+def wave_preempt_launch(compact, cand, scal_f, scal_i, pen, counts0, *,
+                        spread_alg: bool, B: int):
+    """One launch of the wave_preempt kernel on inputs wave_preempt has
+    checked: its outputs and the (E, G) group counts after the last step
+    (the kernel bumps a copy of counts0)."""
+    dt, dev = compact.dtype, compact.device
+    E, C, _ = compact.shape
+    A, G, P = cand["cpu"].shape[-1], counts0.shape[-1], C - B
     ins = [t.contiguous() for t in (compact, *(cand[k] for k in WPC_CAND),
                                     scal_f, scal_i, pen)]
-    counts = counts0.clone().contiguous()       # the kernel bumps it
+    counts = counts0.clone().contiguous()
     chosen = torch.empty((E, P), dtype=torch.int64, device=dev)
     scores = torch.empty((E, P), dtype=dt, device=dev)
     n_yielded = torch.empty((E, P), dtype=torch.int64, device=dev)
@@ -675,7 +687,7 @@ def wave_preempt(compact, cand, scal_f, scal_i, pen, counts0, *,
     kernels.WAVE_PREEMPT.launch(
         dt, ins + [counts, chosen, scores, n_yielded, evict_rows],
         [E, C, A, G, B, int(bool(spread_alg))])
-    return chosen, scores, n_yielded, evict_rows
+    return chosen, scores, n_yielded, evict_rows, counts
 
 
 # --------------------------------------------------------------------------
