@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --ab TAG=DIR ... [--ab-clocks TAG=DIR ...]
-                          [--ab-kernels NAME,...]   (A/B timing; below)
+                          [--ab-kernels NAME,...] [--ab-max-spreads S]
+                          (A/B timing; below)
 
 Phases (any failure raises and the script exits nonzero with no result):
 
@@ -20,6 +21,10 @@ Phases (any failure raises and the script exits nonzero with no result):
                   packed headline lanes plus numpy-seeded fuzz lanes that
                   saturate and cross the skip threshold (the compact
                   kernel also with spreads and reschedule penalties);
+                  then wave_compact's edge groups (WAVE_LIMIT_GROUPS:
+                  3, 16 and 17 spreads, and spreads over 16,384 values,
+                  fuzz lanes at P_pad = 512); every output equal to the
+                  plain version's bits;
                 - dense_scan on one fused group of E = 32 lanes at
                   N = 16,384, P_pad = 2048: 16 packed spread lanes
                   (count 2,000) and 16 fuzz lanes over ports,
@@ -50,7 +55,8 @@ Phases (any failure raises and the script exits nonzero with no result):
                 evals x 2,000 placements packed with pack_lane_arrays and
                 solved by fuse_and_solve in float32 (the run-block
                 kernel), then a spread lane and a penalty lane (the
-                compact kernel);
+                compact kernel, each launch also timed at its own
+                shape); outputs equal to the plain versions' bits;
   5. dense   -- the dense main path: 32 spread evals x 2,000 placements
                 (window 2,000), a distinct_property lane and a
                 reserved-core lane, through fuse_and_solve in float32
@@ -91,8 +97,8 @@ Phases (any failure raises and the script exits nonzero with no result):
                 wave headline dispatched twice (its compact tables hit);
  10. wavefront -- solve_wavefront at 32 uniform lanes x 2,000 placements
                 x 16,384 node slots (B = 32), float32 and float64: the
-                kernel against wavefront_plain on the card and against
-                the wave_block route's decisions; timed.
+                kernel against wavefront_plain on the card (bits) and
+                against the wave_block route's decisions; timed.
  11. mesh     -- the mesh route on a grid of 4 cells, every cell cuda:0
                 (one process drives them; on several cards each cell
                 would be its own card): the dense slice (phase 5's lanes,
@@ -265,14 +271,15 @@ def fuzz_lane(np, rng, C, B, S, V, dt):
     return cm, scal_f, n_active
 
 
-def kernel_inputs(np, bp, lanes, *, B, S, penalties, dt, seed):
-    """E = 32 lanes at P_pad = 2048: the packed lanes first, numpy-seeded
-    fuzz lanes after them; penalties on every third lane when asked."""
-    P_pad = P_PAD
+def kernel_inputs(np, bp, lanes, *, B, S, penalties, dt, seed, P_pad=None,
+                  V=10):
+    """E = 32 lanes at P_pad (P_PAD unless given): the packed lanes first,
+    numpy-seeded fuzz lanes after them (V spread values); penalties on
+    every third lane when asked."""
+    P_pad = P_pad or P_PAD
     C = P_pad + B
     rng = np.random.default_rng(seed)
     cms, sfs, sis, pens, sps = [], [], [], [], []
-    V = 10
     for ln in lanes:
         cm, sf, si, pen, sp = bp.wavefront_compact_host(
             ln.const, ln.init, ln.batch, np.dtype(dt).name, p_pad=P_pad,
@@ -486,88 +493,149 @@ def bound(name, nbytes, flops, dtype_name):
 # conversions are not counted, so the bound stays a lower one.
 #   head_terms (wave_common.cuh): fit 1, new cpu/mem 2+2, free cpu/mem
 #     3+3, binpack_raw 6 (2 pow, add, sub, 2 clamps), coll 1, anti 5 = 23
-#   run-block head (wave_block.cu head_state): + nsc 4, anti+aff 1,
-#     final_score 3 (fma, div), low 1 = 32; + 1 compare in each of the
-#     two arg-best reductions (winner, runner-up)              -> 34
-#   run-block stream value (one per warp lane per run): jq 1, valid 1,
+#     (HEAD_OPS; a slot's head changes only when its j does, so the
+#     kernels cache it: wave_warp.cuh)
+#   run-block decision, per slot: low 1, one compare in each of the two
+#     arg-best reductions (winner, runner-up)                      -> 3
+#   run-block stream value (one per warp lane per run; lane 31 scores the
+#     next refill row's head with the same expressions): jq 1, valid 1,
 #     jp1 1, free cpu/mem 5+5, binpack_raw 6, coll 1, anti 5, nsc 4,
-#     final 4, win_q 3, cross 1                                  -> 37
-#   per-placement step (wave_compact.cu): head_terms 23, penalty 1,
-#     nscores 6, final (3 adds, fma, div) 6, low 1, arg-best 1  -> 38
+#     final 4, win_q 3, cross 1                                    -> 37
+#   per-placement step (wave_warp.cuh), per slot: penalty 1, nscores 6,
+#     final (3 adds, fma, div) 6, low 1, arg-best 1               -> 15;
+#     and the winner's new head, HEAD_OPS, once a placing step
 #   per spread: the even form's boost (sub, max, div) and its sum 4
 #     (the target form takes 7; the lower count keeps a lower bound)
-BLOCK_HEAD_OPS, STREAM_OPS, COMPACT_HEAD_OPS, SPREAD_OPS = 34, 37, 38, 4
+HEAD_OPS, BLOCK_SLOT_OPS, STREAM_OPS, COMPACT_SLOT_OPS, SPREAD_OPS = (
+    23, 3, 37, 15, 4)
+
+
+def wave_groups(np, torch, bp, svc, tp, world, dtype_name):
+    """The kernel phase's four wave groups (E = 32, P_pad = 2048) as
+    tensors on the card: (kname, B, S, (compact, scal_f, scal_i, pen),
+    spread tables). wave_block at B = 32 (headline lanes) and 128
+    (affinity lanes), wave_compact at B = 32 (penalty lanes, S = 0) and
+    128 (spread lanes, S = 2), each topped up with fuzz lanes."""
+    dt = np.dtype(dtype_name).type
+    half, quarter = N_EVALS // 2, N_EVALS // 4
+    head = pack_lanes(np, tp, svc, world, dtype_name, kind="plain",
+                      n_lanes=half)
+    aff = pack_lanes(np, tp, svc, world, dtype_name, kind="affinity",
+                     n_lanes=half)
+    spread = pack_lanes(np, tp, svc, world, dtype_name, kind="spread",
+                        n_lanes=quarter)
+    pen = pack_lanes(np, tp, svc, world, dtype_name, kind="penalty",
+                     n_lanes=quarter)
+    groups = []
+    for B in (32, 128):
+        for kname in ("wave_block", "wave_compact"):
+            if kname == "wave_block":
+                lanes, S, penalties = (head if B == 32 else aff), 0, False
+            else:
+                lanes = pen if B == 32 else spread
+                S, penalties = (0 if B == 32 else 2), True
+            cm, sf, si, pn, sp = kernel_inputs(
+                np, bp, lanes, B=B, S=S, penalties=penalties, dt=dt,
+                seed=SEED + B + S)
+            dev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+                        for a in (cm, sf, si, pn))
+            spd = bp.WaveSpread(*(torch.from_numpy(
+                np.ascontiguousarray(a)).to(DEVICE) for a in sp))
+            groups.append((kname, B, S, dev, spd))
+    return groups
+
+
+# (B, S, V) of the kernel phase's wave_compact groups at the edges of the
+# kernel's forms, fuzz lanes at P_pad = 512: 3 and 16 spreads (value
+# indexes in registers, past the S <= 2 form), 17 (one spread's index read
+# from the compact row), and one or two spreads over a per-node attribute
+# of the headline's 16,384 nodes (the desired counts beside the counts in
+# shared memory for one, read from global memory for two)
+WAVE_LIMIT_GROUPS = ((128, 3, 10), (128, 16, 10), (128, 17, 10),
+                     (32, 17, 10), (128, 1, 16_384), (128, 2, 16_384))
+LIMIT_P_PAD = 512
+
+
+def wave_limit_groups(np, torch, bp, dtype_name, *, max_v=None):
+    """WAVE_LIMIT_GROUPS as wave_groups' tuples (those with V <= max_v
+    when given)."""
+    dt = np.dtype(dtype_name).type
+    groups = []
+    for B, S, V in WAVE_LIMIT_GROUPS:
+        if max_v is not None and V > max_v:
+            continue
+        cm, sf, si, pn, sp = kernel_inputs(
+            np, bp, [], B=B, S=S, penalties=True, dt=dt,
+            seed=SEED + 7 * B + S + V, P_pad=LIMIT_P_PAD, V=V)
+        dev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+                    for a in (cm, sf, si, pn))
+        spd = bp.WaveSpread(*(torch.from_numpy(
+            np.ascontiguousarray(a)).to(DEVICE) for a in sp))
+        groups.append(("wave_compact", B, S, dev, spd))
+    return groups
+
+
+def wave_call(wave, kname, dev, spd, B, *, plain=False):
+    """A zero-argument call of a wave kernel (or its plain version) on
+    one group's tensors."""
+    if kname == "wave_block":
+        fn = wave.wave_block_plain if plain else wave.wave_block
+        return lambda: fn(dev[0], dev[1], dev[2], spread_alg=False, B=B)
+    fn = wave.wave_compact_plain if plain else wave.wave_compact
+    return lambda: fn(dev[0], dev[1], dev[2], dev[3], spd, spread_alg=False,
+                      B=B)
+
+
+def wave_bound(kname, dev, spd, got, want, B, S, dtype_name):
+    """(bound_ms, bound_by, bytes, flops) of one wave kernel launch:
+    inputs read once, outputs written once; the operations this data
+    needs (steps that place something, or for the run-block kernel at
+    least one run decision per change of chosen node)."""
+    nbytes = (sum(t.nbytes for t in dev[:3]) + sum(t.nbytes for t in got))
+    if kname == "wave_compact":
+        nbytes += dev[3].nbytes + sum(t.nbytes for t in spd)
+        steps = int((want[0] >= 0).sum())
+        flops = steps * (B * (COMPACT_SLOT_OPS + S * SPREAD_OPS)
+                         + HEAD_OPS)
+    else:
+        ch = want[0]
+        runs = int(((ch[:, 1:] != ch[:, :-1]) & (ch[:, 1:] >= 0)).sum()
+                   + (ch[:, 0] >= 0).sum())
+        flops = runs * (B * BLOCK_SLOT_OPS + 32 * STREAM_OPS)
+    return (*bound(kname, nbytes, flops, dtype_name), nbytes, flops)
 
 
 def kernel_phase(np, torch, bp, wave, kernels, svc, tp, world):
     results = []
     for dtype_name in ("float32", "float64"):
-        dt = np.dtype(dtype_name).type
-        half, quarter = N_EVALS // 2, N_EVALS // 4
-        head = pack_lanes(np, tp, svc, world, dtype_name, kind="plain",
-                          n_lanes=half)
-        aff = pack_lanes(np, tp, svc, world, dtype_name, kind="affinity",
-                         n_lanes=half)
-        spread = pack_lanes(np, tp, svc, world, dtype_name, kind="spread",
-                            n_lanes=quarter)
-        pen = pack_lanes(np, tp, svc, world, dtype_name, kind="penalty",
-                         n_lanes=quarter)
-        for B in (32, 128):
-            for kname in ("wave_block", "wave_compact"):
-                if kname == "wave_block":
-                    lanes, S, penalties = (head if B == 32 else aff), 0, False
-                else:
-                    lanes = pen if B == 32 else spread
-                    S, penalties = (0 if B == 32 else 2), True
-                cm, sf, si, pn, sp = kernel_inputs(
-                    np, bp, lanes, B=B, S=S, penalties=penalties, dt=dt,
-                    seed=SEED + B + S)
-                dev = [torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
-                       for a in (cm, sf, si, pn)]
-                spd = bp.WaveSpread(*(torch.from_numpy(
-                    np.ascontiguousarray(a)).to(DEVICE) for a in sp))
-                if kname == "wave_block":
-                    def run(fn):
-                        return fn(dev[0], dev[1], dev[2], spread_alg=False,
-                                  B=B)
-                    kern, plain = wave.wave_block, wave.wave_block_plain
-                else:
-                    def run(fn):
-                        return fn(dev[0], dev[1], dev[2], dev[3], spd,
-                                  spread_alg=False, B=B)
-                    kern, plain = wave.wave_compact, wave.wave_compact_plain
-                got, _ = time_once(torch, lambda: run(kern))
-                want, plain_ms = time_once(torch, lambda: run(plain))
-                tag = f"{kname} {dtype_name} B={B} S={S}"
-                err = compare(torch, tag, got, want, dtype_name)
-                ms = timed(torch, lambda: run(kern), KERNEL_REPEATS)
-                # bound: inputs read once, outputs written once; the
-                # operations this data needs (steps that place something,
-                # or for the run-block kernel at least one run decision
-                # per change of chosen node)
-                nbytes = (sum(t.nbytes for t in dev[:3])
-                          + sum(t.nbytes for t in got))
-                if kname == "wave_compact":
-                    nbytes += dev[3].nbytes + sum(t.nbytes for t in spd)
-                    steps = int((want[0] >= 0).sum())
-                    flops = steps * B * (COMPACT_HEAD_OPS + S * SPREAD_OPS)
-                else:
-                    ch = want[0]
-                    runs = int(((ch[:, 1:] != ch[:, :-1]) & (ch[:, 1:] >= 0))
-                               .sum() + (ch[:, 0] >= 0).sum())
-                    flops = runs * (B * BLOCK_HEAD_OPS + 32 * STREAM_OPS)
-                bound_ms, bound_by = bound(kname, nbytes, flops, dtype_name)
-                placed = int((want[0] >= 0).sum())
-                log(f"kernel {tag}: E={cm.shape[0]} C={cm.shape[1]} "
-                    f"placed={placed} match=exact max_abs_err={err:.3e} "
-                    f"ms={ms:.4f} plain_ms={plain_ms:.1f} "
-                    f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, "
-                    f"{flops} flop)")
-                results.append(dict(
-                    name=kname, dtype=dtype_name, B=B, S=S,
-                    shape=list(cm.shape), placed=placed, max_abs_err=err,
-                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, bytes=nbytes, flops=flops))
+        for kname, B, S, dev, spd in (
+                wave_groups(np, torch, bp, svc, tp, world, dtype_name)
+                + wave_limit_groups(np, torch, bp, dtype_name)):
+            run = wave_call(wave, kname, dev, spd, B)
+            got, _ = time_once(torch, run)
+            want, plain_ms = time_once(
+                torch, wave_call(wave, kname, dev, spd, B, plain=True))
+            V = int(spd.counts.shape[-1])
+            tag = f"{kname} {dtype_name} B={B} S={S}" + (
+                f" V={V}" if S else "")
+            err = compare(torch, tag, got, want, dtype_name)
+            for f, g, w in zip(("chosen", "scores", "n_yielded"), got, want):
+                same_bits(torch, f"{tag} {f}", g, w)
+            ms = timed(torch, run, KERNEL_REPEATS)
+            bound_ms, bound_by, nbytes, flops = wave_bound(
+                kname, dev, spd, got, want, B, S, dtype_name)
+            placed = int((want[0] >= 0).sum())
+            shape = list(dev[0].shape)
+            log(f"kernel {tag}: E={shape[0]} C={shape[1]} "
+                f"placed={placed} match=bits max_abs_err={err:.3e} "
+                f"ms={ms:.4f} plain_ms={plain_ms:.1f} "
+                f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, "
+                f"{flops} flop)")
+            results.append(dict(
+                name=kname, dtype=dtype_name, B=B, S=S, V=V, shape=shape,
+                placed=placed, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                flops=flops))
     return results
 
 
@@ -612,26 +680,48 @@ def slice_phase(np, torch, wave, kernels, svc, batch, tp, world):
     total = sum(int((r[0] >= 0).sum()) for r in res_head)
     assert total == N_EVALS * N_PLACE, total
 
-    # the same fused inputs through the plain versions on the card
+    # the same fused inputs through the plain versions on the card; the
+    # compact kernel's two launches (the spread lane and the penalty
+    # lane) timed at their own shapes, CUDA events, medians of
+    # KERNEL_REPEATS
+    main_launches = []
     for lanes, res in ((head, res_head), (extra, res_extra)):
         for g in batch.fuse_lanes(lanes):
             inp = wave.wave_inputs(g.const, g.init, g.batch,
                                    dtype_name=g.dtype_name)
             cm, sf, si, pn, sp = wave.wave_tensors(inp, torch.device(DEVICE))
-            if inp.use_block:
-                want = wave.wave_block_plain(cm, sf, si,
-                                             spread_alg=g.spread_alg,
-                                             B=inp.B)
-            else:
-                want = wave.wave_compact_plain(cm, sf, si, pn, sp,
-                                               spread_alg=g.spread_alg,
-                                               B=inp.B)
+            assert not g.spread_alg
+            kname = "wave_block" if inp.use_block else "wave_compact"
+            dev = (cm, sf, si, pn)
+            want, plain_ms = time_once(
+                torch, wave_call(wave, kname, dev, sp, inp.B, plain=True))
+            run = wave_call(wave, kname, dev, sp, inp.B)
+            got_k = run()
+            for f, gk, w in zip(("chosen", "scores", "n_yielded"), got_k,
+                                want):
+                same_bits(torch, f"slice {kname} {f}", gk, w)
             for j, li in enumerate(g.idxs):
                 P = lanes[li].batch.ask_cpu.shape[0]
                 got = tuple(torch.from_numpy(np.asarray(x)).to(DEVICE)
                             for x in res[li])
-                compare(torch, f"slice lane {li}", got,
-                        tuple(w[j, :P] for w in want), "float32")
+                for f, gl, w in zip(("chosen", "scores", "n_yielded"), got,
+                                    want):
+                    same_bits(torch, f"slice lane {li} {f}", gl, w[j, :P])
+            if kname == "wave_compact":
+                S = cm.shape[2] - 8
+                ms = timed(torch, run, KERNEL_REPEATS)
+                bound_ms, bound_by, nbytes, flops = wave_bound(
+                    kname, dev, sp, got_k, want, inp.B, S, "float32")
+                lane = "spread" if S else "penalty"
+                log(f"slice wave_compact {lane} lane: E={cm.shape[0]} "
+                    f"C={cm.shape[1]} B={inp.B} S={S} ms={ms:.4f} "
+                    f"plain_ms={plain_ms:.1f} bound_ms={bound_ms:.6f} "
+                    f"({bound_by}, {nbytes} B, {flops} flop)")
+                main_launches.append(dict(
+                    name=kname, lane=lane, dtype="float32", B=inp.B, S=S,
+                    shape=list(cm.shape), max_abs_err=0.0, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, bytes=nbytes, flops=flops))
 
     # warm end-to-end time of the headline dispatch (host precompute,
     # transfer, kernel, fetch), host clock; results are on the host
@@ -664,7 +754,8 @@ def slice_phase(np, torch, wave, kernels, svc, batch, tp, world):
         f"versions; pack_ms={pack_ms:.1f} fuse_and_solve_ms={fuse_ms:.2f} "
         f"placements_per_s={total / (fuse_ms / 1e3):.0f}; breakdown ms: "
         + " ".join(f"{k}={v:.2f}" for k, v in parts.items()))
-    return dict(launches=launches, fuse_and_solve_ms=fuse_ms,
+    return dict(launches=launches, main_launches=main_launches,
+                fuse_and_solve_ms=fuse_ms,
                 fuse_and_solve_ms_all=times, breakdown_ms=parts,
                 pack_ms=pack_ms, placements=total,
                 placements_per_s=total / (fuse_ms / 1e3),
@@ -2649,7 +2740,8 @@ def residency_phase(np, torch, batch, dense, kernels, resident, store_cls,
 # min/max, compare and floor one, an fma two): three cap_dim (sub, max,
 # div, floor 4; five fits, each an fma and a compare, 15; the ask test 1)
 # = 60, and the min over them 2 -> 62. The step loop is
-# wave_compact's (COMPACT_HEAD_OPS per slot and placing step).
+# wave_compact's (COMPACT_SLOT_OPS per slot and placing step, and
+# HEAD_OPS for the winner's new head).
 WAVEFRONT_PREP_OPS = 62
 
 
@@ -2695,8 +2787,17 @@ def wavefront_bound(np, wave, trees, out, dtype_name):
               + b.penalty_idx.nbytes + sum(t.nbytes for t in out))
     steps = int((chosen >= 0).sum())
     flops = (int(reach.sum()) * WAVEFRONT_PREP_OPS
-             + steps * wave.WAVE_B * COMPACT_HEAD_OPS)
+             + steps * (wave.WAVE_B * COMPACT_SLOT_OPS + HEAD_OPS))
     return (*bound("wavefront", nbytes, flops, dtype_name), nbytes, flops)
+
+
+def wavefront_trees(np, lanes):
+    """The lanes' (const, init, batch) tables stacked over a lane axis."""
+    return tuple(type(t0)(*(np.stack([np.asarray(a) for a in xs])
+                            for xs in zip(*[getattr(ln, k) for ln in lanes])))
+                 for k, t0 in (("const", lanes[0].const),
+                               ("init", lanes[0].init),
+                               ("batch", lanes[0].batch)))
 
 
 def wavefront_phase(np, torch, wave, dense, batch, kernels, svc, tp, world):
@@ -2712,12 +2813,7 @@ def wavefront_phase(np, torch, wave, dense, batch, kernels, svc, tp, world):
     for dtype_name in ("float32", "float64"):
         lanes = pack_lanes(np, tp, svc, world, dtype_name, kind="plain",
                            n_lanes=N_EVALS)
-        trees = tuple(type(t0)(*(np.stack([np.asarray(a) for a in xs])
-                                 for xs in zip(*[getattr(ln, k)
-                                                 for ln in lanes])))
-                      for k, t0 in (("const", lanes[0].const),
-                                    ("init", lanes[0].init),
-                                    ("batch", lanes[0].batch)))
+        trees = wavefront_trees(np, lanes)
         if dtype_name == "float32":
             kernels.reset_launches()
             got_np = wave.solve_wavefront(*trees, dtype_name=dtype_name,
@@ -2733,6 +2829,8 @@ def wavefront_phase(np, torch, wave, dense, batch, kernels, svc, tp, world):
             c, s, b, spread_alg=False))
         tag = f"wavefront {dtype_name}"
         err = compare(torch, tag, got, want, dtype_name)
+        for f, g, w in zip(("chosen", "scores", "n_yielded"), got, want):
+            same_bits(torch, f"{tag} {f}", g, w)
         if dtype_name == "float32":
             assert np.array_equal(got_np[0], got[0].cpu().numpy())
         blk = batch.fuse_and_solve(lanes, device=DEVICE)
@@ -2748,7 +2846,7 @@ def wavefront_phase(np, torch, wave, dense, batch, kernels, svc, tp, world):
         steps = int((want[0] >= 0).sum())
         bound_ms, bound_by, nbytes, flops = wavefront_bound(
             np, wave, (c, s, b), want, dtype_name)
-        log(f"kernel {tag}: E={E} N={N} P={P} placed={steps} match=exact "
+        log(f"kernel {tag}: E={E} N={N} P={P} placed={steps} match=bits "
             f"(plain and wave_block) max_abs_err={err:.3e} ms={ms:.4f} "
             f"plain_ms={plain_ms:.1f} bound_ms={bound_ms:.6f} ({bound_by}, "
             f"{nbytes} B, {flops} flop)")
@@ -3172,10 +3270,21 @@ def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
 AB_SOURCES = {"dense_scan": "dense_scan.cu",
               "dense_preempt": "dense_preempt.cu",
               "wave_preempt": "wave_preempt.cu",
-              "lp_relax": "lp_relax.cu"}
+              "lp_relax": "lp_relax.cu",
+              "wave_block": "wave_block.cu",
+              "wave_compact": "wave_compact.cu",
+              "wavefront": "wavefront.cu"}
+WAVE_KERNELS = ("wave_block", "wave_compact", "wavefront")
 AB_REPEATS = 10
 AB_TILE = 2048                      # the older one-block walk's tile
-# the sections' names: the dense kernels' (the older one-block walk
+# the sections' names: the wave kernels' (wave_warp.cuh's step loop,
+# wave_block.cu's run decision: score the slots, the window scan, the
+# arg-best (row 1: and the runner-up), commit (row 1: the winner's
+# stream, the run length and its stores; row 2: the hand-off to the head
+# warp), the saturation shift, the refill row; "steps" counts steps
+# scored (row 1: run decisions), "refills" saturations; row 2's head
+# warp: "hwait" waiting for a commit, "hwork" scoring heads), the dense
+# kernels' (the older one-block walk
 # had a per-step statistics pass (0), a block scan per tile (2) and
 # thread 0's rescore of the winner (9); the cluster walk's 2 is the
 # count exchange, and its "tiles" are rounds), wave_preempt's, whose
@@ -3183,6 +3292,8 @@ AB_TILE = 2048                      # the older one-block walk's tile
 # eviction searches run, and lp_relax's (block 0's phases and its waits
 # at the grid barriers after them, then its row phase's own passes)
 AB_SECTIONS = {
+    "wave": ("score", "scan", "best", "commit", "shift", "refill", "total",
+             "steps", "refills", "hwait", "hwork"),
     "dense": ("stats", "score", "scan", "mark", "best", "commit", "total",
               "steps", "tiles", "rescore"),
     "wave_preempt": ("usage", "search", "score", "scan", "best", "commit",
@@ -3423,6 +3534,65 @@ def ab_lp_cases(np, torch, lpq, svc, world):
             ab_lp_case(torch, lpq, "lp_fuzz_over", ins + [temps])]
 
 
+def ab_wave_case(torch, name, kname, shape, run, plain):
+    fields = ("chosen", "scores", "n_yielded")
+    return dict(name=name, kernel=kname, shape=shape, run=run,
+                want=lambda: (plain(), {}),
+                same=lambda g, w: ab_same(torch, name, fields, g, w))
+
+
+def ab_wave_cases(np, torch, bp, batch, dense, wave, svc, tp, world, names):
+    """The wave slice's headline group (E 32 x 2,000, B 32: row 1's
+    main-path launch), its spread-lane and penalty-lane groups (row 2's
+    two main-path launches), the kernel phase's four float32 groups and
+    its edge groups over 10 spread values, and the wavefront phase's 32
+    lanes x 2,000 x 16,384 (row 10)."""
+    dev = torch.device(DEVICE)
+    cases = []
+    head = pack_lanes(np, tp, svc, world, "float32", kind="plain",
+                      n_lanes=N_EVALS)
+    extra = (pack_lanes(np, tp, svc, world, "float32", kind="spread",
+                        n_lanes=1)
+             + pack_lanes(np, tp, svc, world, "float32", kind="penalty",
+                          n_lanes=1))
+    for lanes, tags in ((head, ("headline",)),
+                        (extra, ("spread_lane", "penalty_lane"))):
+        for g, tag in zip(batch.fuse_lanes(lanes), tags):
+            inp = wave.wave_inputs(g.const, g.init, g.batch,
+                                   dtype_name="float32")
+            cm, sf, si, pn, sp = wave.wave_tensors(inp, dev)
+            kname = "wave_block" if inp.use_block else "wave_compact"
+            shape = dict(E=int(cm.shape[0]), C=int(cm.shape[1]), B=inp.B,
+                         S=int(cm.shape[2]) - 8)
+            cases.append(ab_wave_case(
+                torch, tag, kname, shape,
+                wave_call(wave, kname, (cm, sf, si, pn), sp, inp.B),
+                wave_call(wave, kname, (cm, sf, si, pn), sp, inp.B,
+                          plain=True)))
+    for kname, B, S, ten, spd in (
+            wave_groups(np, torch, bp, svc, tp, world, "float32")
+            + wave_limit_groups(np, torch, bp, "float32", max_v=10)):
+        kind = "block" if kname == "wave_block" else "compact"
+        P = int(ten[0].shape[1]) - B
+        cases.append(ab_wave_case(
+            torch, f"kernel_{kind}_B{B}_S{S}"
+            + (f"_P{P}" if P != P_PAD else ""), kname,
+            dict(E=int(ten[0].shape[0]), C=int(ten[0].shape[1]), B=B, S=S),
+            wave_call(wave, kname, ten, spd, B),
+            wave_call(wave, kname, ten, spd, B, plain=True)))
+    if "wavefront" in names:
+        trees = wavefront_trees(np, head)
+        (c, s, b), _ = dense.fused_tensors(
+            trees, (dense.lane_casts("float32"),) * 3, device=dev)
+        E, N = c.cpu_cap.shape
+        cases.append(ab_wave_case(
+            torch, "wavefront", "wavefront",
+            dict(E=int(E), N=int(N), P=int(b.ask_cpu.shape[1]), B=32),
+            lambda: wave.wavefront(c, s, b, spread_alg=False),
+            lambda: wave.wavefront_plain(c, s, b, spread_alg=False)))
+    return [c for c in cases if c["kernel"] in names]
+
+
 def ab_phase(np, torch, kernels, cases, built):
     """Time every variant on every case in turns, each output equal to
     the plain version's; the clock variants' step sections."""
@@ -3450,7 +3620,8 @@ def ab_phase(np, torch, kernels, cases, built):
             row["ms"][tag] = statistics.median(
                 ms for t, ms in row["turns"] if t == tag)
         row["clocks"] = {}
-        sections = AB_SECTIONS.get(kname, AB_SECTIONS["dense"])
+        sections = AB_SECTIONS.get(kname, AB_SECTIONS[
+            "wave" if kname in WAVE_KERNELS else "dense"])
         for tag, ((ks, libs), clk) in built.items():
             if not clk or not hasattr(libs[kname], "nt_step_clocks"):
                 continue
@@ -3467,11 +3638,13 @@ def ab_phase(np, torch, kernels, cases, built):
             + (f"; close {row['close']}" if "close" in row else ""))
         for tag, c in row["clocks"].items():
             tot = max(c["total"], 1)
-            shown = [k for k in sections if k not in ("total", "steps",
-                                                      "tiles", "searches")]
+            shown = [k for k in sections if k not in (
+                "total", "steps", "tiles", "searches", "refills", "hwait",
+                "hwork")]
             log(f"  clocks {tag}: C={c.get('cluster')} steps={c['steps']} "
                 + (f"rounds={c['tiles']} " if "tiles" in c else "")
                 + (f"searches={c['searches']} " if "searches" in c else "")
+                + (f"refills={c['refills']} " if "refills" in c else "")
                 + " ".join(f"{k}={c[k] / tot:.3f}" for k in shown))
         out[name] = row
     return out
@@ -3479,7 +3652,7 @@ def ab_phase(np, torch, kernels, cases, built):
 
 def ab_main(args, torch, np):
     from nomad_tpu_torch import kernels
-    from nomad_tpu_torch.solver import batch, dense, lpq, preempt
+    from nomad_tpu_torch.solver import batch, dense, lpq, preempt, wave
     from nomad_tpu_torch.solver import service as svc
     from nomad_tpu_torch.solver import binpack as bp
     from nomad_tpu_torch.tensor import pack as tp
@@ -3517,6 +3690,12 @@ def ab_main(args, torch, np):
                                        tp, world)
     if "lp_relax" in names:
         cases += ab_lp_cases(np, torch, lpq, svc, world)
+    if set(WAVE_KERNELS) & set(names):
+        cases += ab_wave_cases(np, torch, bp, batch, dense, wave, svc, tp,
+                               world, names)
+    if args.ab_max_spreads is not None:
+        cases = [c for c in cases
+                 if c["shape"].get("S", 0) <= args.ab_max_spreads]
     res = ab_phase(np, torch, kernels, cases, built)
     log("ab: " + json.dumps(dict(card=card, cases=res)))
     print(card, flush=True)
@@ -3541,6 +3720,10 @@ def main(argv=None) -> int:
                     metavar="NAME,...",
                     help="A/B mode: the kernels to time (default all of "
                     + ", ".join(AB_SOURCES) + ")")
+    ap.add_argument("--ab-max-spreads", type=int, default=None,
+                    metavar="S",
+                    help="A/B mode: only the cases with at most S spreads "
+                    "(a tree whose kernel takes fewer)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3642,7 +3825,8 @@ def main(argv=None) -> int:
     # dense kernel on the main path's own spread group), and its launches
     # in the main-path run of its own path
     rows = ((kernels.WAVE_BLOCK, pick("wave_block", B=32), sres),
-            (kernels.WAVE_COMPACT, pick("wave_compact", B=128), sres),
+            (kernels.WAVE_COMPACT, next(r for r in sres["main_launches"]
+                                        if r["lane"] == "spread"), sres),
             (kernels.DENSE_SCAN, dres["kernel"], dres),
             (kernels.SYSTEM_FIT, pick("system_fit", world="system"), yres),
             (kernels.WAVE_PREEMPT, pres["kernels"]["wave_preempt"], pres),

@@ -4,49 +4,91 @@
 // _spread_boosts), the XLA program jitted in _wave_compact_program and
 // vmapped over the E lanes of a fused dispatch.
 //
-// Design: the step loop is wave_compact_kernel in wave_common.cuh (shared
+// Design: the step loop is wave_compact_kernel in wave_warp.cuh (shared
 // with the in-kernel wavefront, wavefront.cu); this file launches it over
-// host-built compact tables. One thread block per lane (grid = E), one
-// thread per window slot (B = 32 or 128). A slot's compact row and copies-taken count j live in
-// registers; spread counts (S, V), desired (S, V) and the slots' spread
-// value indexes (S, B) live in shared memory. Each placement step scores
-// every slot, runs one block prefix scan over packed (low, fit) flags for
-// the window emulation, one __syncthreads_count for n_yielded and one
-// butterfly arg-best for the winner; the winner's thread bumps j and its
-// spread counts; saturation shifts the slots left through shared memory
-// and refills the last slot from global memory. Once a step places
-// nothing the lane's state is frozen: later steps without a penalty repeat
-// its output, steps with one are scored again (the penalty moves scores).
+// host-built compact tables (grid = E): one thread per window slot, one
+// step warp per lane at B = 32 and four at B = 128, plus a head warp.
+// Each step scores every slot from its cached head terms, finds the
+// window with two ballots and the winner with two redux.sync in each
+// warp (at B = 128 the warps add their counts, then their best slots,
+// through shared memory: two named barriers a step), and takes the
+// winner's new head from the head warp, which scores each slot's head at
+// its next j one commit ahead. No step waits on a load: penalties arrive
+// a chunk of 32 steps ahead, the next refill row one refill ahead, and
+// outputs leave 32 steps a store. Spread value indexes ride in the
+// slots' registers (the first kMaxSpreads; the rest are read from the
+// slot's compact row); the spread counts sit in shared memory, one copy,
+// and the desired counts beside them where both fit (else target spreads
+// read them through the read-only cache, so any V whose counts fit runs:
+// ~55,000 values for one spread). One warp holding all 128 slots (four a
+// thread) was slower on the spread lanes, whose score is four slots of
+// divisions a thread (PERF.md).
 //
-// Bound: a lane's P steps form one dependency chain, each step a few
-// block barriers long, so the kernel is latency-bound on that chain; its
-// bytes (the compact table once, the outputs once) would take about a
-// microsecond at 3.35 TB/s.
-#include "wave_common.cuh"
+// Bound: a lane's P steps form one dependency chain (the score's
+// division, ballots, redux, and the commit's hand-off to the head warp,
+// whose head is two powf and three divisions), so the kernel is
+// latency-bound on that chain; its bytes (the compact table once, the
+// outputs once) would take about a microsecond at 3.35 TB/s.
+#include "wave_warp.cuh"
 
 namespace {
 
 using namespace nt;
 
-template <typename T, int NW>
-int launch_nw(const T* compact, const T* scal_f, const int* scal_i,
-              const int* pen, const int* sp_counts, const T* sp_desired,
-              const unsigned char* sp_has_targets, const T* sp_weights,
-              const T* sp_sum_weights, long long* chosen, T* scores,
-              long long* n_yielded, int E, int C, int W, int S, int V,
-              int spread_alg, cudaStream_t stream) {
-  const size_t smem = dyn_smem<T>(S, V, 32 * NW);
-  auto kern = wave_compact_kernel<T, NW>;
+template <typename T, int NW, int SM>
+int launch_w(const T* compact, const T* scal_f, const int* scal_i,
+             const int* pen, const int* sp_counts, const T* sp_desired,
+             const unsigned char* sp_has_targets, const T* sp_weights,
+             const T* sp_sum_weights, long long* chosen, T* scores,
+             long long* n_yielded, int E, int C, int W, int S, int V,
+             int spread_alg, cudaStream_t stream) {
+  auto kern = wave_compact_kernel<T, NW, SM>;
+  // the desired counts join the counts in shared memory where both fit
+  // beside the kernel's static tables; else they are read from global
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kern);
+  int dev = 0, optin = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int desired_smem =
+      fa.sharedSizeBytes + dyn_smem<T>(S, V, true) <= (size_t)optin;
+  const size_t smem = dyn_smem<T>(S, V, desired_smem);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
+    err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kern<<<E, 32 * NW, smem, stream>>>(
+  kern<<<E, step_threads(NW), smem, stream>>>(
       compact, scal_f, scal_i, pen, sp_counts, sp_desired, sp_has_targets,
       sp_weights, sp_sum_weights, chosen, scores, n_yielded, C, W, S, V,
-      spread_alg);
+      spread_alg, desired_smem);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int NW>
+int launch_s(const T* compact, const T* scal_f, const int* scal_i,
+             const int* pen, const int* sp_counts, const T* sp_desired,
+             const unsigned char* sp_has_targets, const T* sp_weights,
+             const T* sp_sum_weights, long long* chosen, T* scores,
+             long long* n_yielded, int E, int C, int W, int S, int V,
+             int spread_alg, cudaStream_t stream) {
+  if (S == 0)
+    return launch_w<T, NW, 0>(compact, scal_f, scal_i, pen, sp_counts,
+                             sp_desired, sp_has_targets, sp_weights,
+                             sp_sum_weights, chosen, scores, n_yielded, E,
+                             C, W, S, V, spread_alg, stream);
+  if (S <= 2)                 // faster than the 16-wide form here (PERF.md)
+    return launch_w<T, NW, 2>(compact, scal_f, scal_i, pen, sp_counts,
+                             sp_desired, sp_has_targets, sp_weights,
+                             sp_sum_weights, chosen, scores, n_yielded, E,
+                             C, W, S, V, spread_alg, stream);
+  return launch_w<T, NW, kMaxSpreads>(
+      compact, scal_f, scal_i, pen, sp_counts, sp_desired, sp_has_targets,
+      sp_weights, sp_sum_weights, chosen, scores, n_yielded, E, C, W, S, V,
+      spread_alg, stream);
 }
 
 template <typename T>
@@ -59,15 +101,15 @@ int launch(const T* compact, const T* scal_f, const int* scal_i,
   if (E <= 0) return 0;
   if (W != 8 + S || C <= B) return (int)cudaErrorInvalidValue;
   if (B == 32)
-    return launch_nw<T, 1>(compact, scal_f, scal_i, pen, sp_counts,
-                           sp_desired, sp_has_targets, sp_weights,
-                           sp_sum_weights, chosen, scores, n_yielded, E, C,
-                           W, S, V, spread_alg, stream);
+    return launch_s<T, 1>(compact, scal_f, scal_i, pen, sp_counts,
+                          sp_desired, sp_has_targets, sp_weights,
+                          sp_sum_weights, chosen, scores, n_yielded, E, C,
+                          W, S, V, spread_alg, stream);
   if (B == 128)
-    return launch_nw<T, 4>(compact, scal_f, scal_i, pen, sp_counts,
-                           sp_desired, sp_has_targets, sp_weights,
-                           sp_sum_weights, chosen, scores, n_yielded, E, C,
-                           W, S, V, spread_alg, stream);
+    return launch_s<T, 4>(compact, scal_f, scal_i, pen, sp_counts,
+                          sp_desired, sp_has_targets, sp_weights,
+                          sp_sum_weights, chosen, scores, n_yielded, E, C,
+                          W, S, V, spread_alg, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -86,6 +128,8 @@ int launch_packed(void* const* p, int n_ptrs, const int* d, int n_dims,
 }
 
 }  // namespace
+
+NT_STEP_CLOCKS_EXPORT
 
 extern "C" int nt_wave_compact_f32(void* const* ptrs, int n_ptrs,
                                    const int* dims, int n_dims,

@@ -19,8 +19,9 @@
 //      used_mem, cpu_cap, mem_cap, placed, affinity, pos], and the rows
 //      past the last fit node repeat node N-1's row with c = 0, pos = N.
 //      Thread 0 writes the lane scalars (asks, count, limit, n_active).
-//   2. steps -- wave_compact_kernel (wave_common.cuh) over those tables,
-//      the step loop the per-placement wave kernel runs.
+//   2. steps -- wave_compact_kernel (wave_warp.cuh) over those tables,
+//      the step loop the per-placement wave kernel runs (a step warp
+//      and a head warp a lane).
 //
 // Integer and float semantics follow XLA's lowering of the reference:
 // floor(q) -> int32 saturates (NaN -> 0), int32 adds wrap, the
@@ -28,9 +29,9 @@
 // used0 + m * ask is one fused multiply-add.
 //
 // Bound: the prep pass reads the node tables once and writes the compact
-// table; the step loop is a dependency chain of P block-synchronous steps
+// table; the step loop is a dependency chain of P warp-synchronous steps
 // (latency-bound, as wave_compact is).
-#include "wave_common.cuh"
+#include "wave_warp.cuh"
 
 namespace {
 
@@ -224,13 +225,15 @@ int launch_packed(void* const* p, int n_ptrs, const int* d, int n_dims,
       in, compact, scal_f, scal_i, N, P);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  wave_compact_kernel<T, 1><<<E, kB, 0, stream>>>(
+  wave_compact_kernel<T, 1><<<E, step_threads(1), 0, stream>>>(
       compact, scal_f, scal_i, pen, nullptr, nullptr, nullptr, nullptr,
-      nullptr, chosen, scores, n_yielded, P + kB, 8, 0, 1, spread_alg);
+      nullptr, chosen, scores, n_yielded, P + kB, 8, 0, 1, spread_alg, 0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+NT_STEP_CLOCKS_EXPORT
 
 extern "C" int nt_wavefront_f32(void* const* ptrs, int n_ptrs,
                                 const int* dims, int n_dims, void* stream) {
