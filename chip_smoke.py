@@ -51,6 +51,13 @@ Phases (any failure raises and the script exits nonzero with no result):
                   headline's largest stacked table (8 MiB) and update
                   buckets from 8 to 65,536, with duplicate padding,
                   -0.0, infinities and NaN payloads; its base untouched;
+                - the launch floor: system_fit at E 1 x N 32 and
+                  delta_scatter at M 16 x k 8, each against its plain
+                  version;
+                every row is timed twice: its call (median of 20 calls
+                between CUDA events, the wrapper's host part included)
+                and, where the wrapper makes no host sync, its device
+                time (device_ms: 20 calls enqueued behind a spin);
   4. slice   -- the wave main path: 10,000 nodes (bench.py's world), 32
                 evals x 2,000 placements packed with pack_lane_arrays and
                 solved by fuse_and_solve in float32 (the run-block
@@ -93,8 +100,9 @@ Phases (any failure raises and the script exits nonzero with no result):
                 dispatch ms; decisions equal to the same generations
                 with NOMAD_TPU_TORCH_DELTA_STREAM=0 and cold; after g3
                 and g4 every chain buffer equal to its host shadow; the
-                scatter timed at g3's shape beside torch.index_put; the
-                wave headline dispatched twice (its compact tables hit);
+                scatter timed at g3's shape beside torch.index_put (warm)
+                and with its staged upload (_scatter_single); the wave
+                headline dispatched twice (its compact tables hit);
  10. wavefront -- solve_wavefront at 32 uniform lanes x 2,000 placements
                 x 16,384 node slots (B = 32), float32 and float64: the
                 kernel against wavefront_plain on the card (bits) and
@@ -457,6 +465,87 @@ def timed(torch, fn, repeats):
                              for _ in range(repeats))
 
 
+_SPIN = {}
+
+
+def spin_cycles_per_ms(torch):
+    """The cycles torch.cuda._sleep spins a millisecond (timed once)."""
+    if "rate" not in _SPIN:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        torch.cuda._sleep(20_000_000)
+        b.record()
+        b.synchronize()
+        _SPIN["rate"] = 20_000_000 / a.elapsed_time(b)
+    return _SPIN["rate"]
+
+
+def enqueue(torch, fn, repeats):
+    """Call fn ``repeats`` times with PyTorch's warnings on synchronizing
+    CUDA operations turned on; returns the host ms taken, or None if a
+    sync was warned of (read after the calls: a failure inside fn raises
+    as it would anywhere)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            for _ in range(repeats):
+                fn()
+            host = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    if any("synchroniz" in str(w.message).lower() for w in caught):
+        return None
+    return host
+
+
+def device_ms(torch, fn, repeats=KERNEL_REPEATS):
+    """Device ms a call of fn, the host's part hidden: a spin queued on
+    the stream (torch.cuda._sleep), an event, ``repeats`` calls enqueued
+    back to back, an event, the span over ``repeats``. The spin is sized
+    from one probe call's host time so the whole enqueue ends before it
+    does (checked; one retry with a longer spin). None where the host
+    waits on the device meanwhile (a read-back, a synchronous copy, an
+    .item(), or more launches than the stream queues): the call time is
+    then all the card can show."""
+    fn()
+    torch.cuda.synchronize()
+    probe = enqueue(torch, fn, 1)
+    torch.cuda.synchronize()
+    if probe is None:
+        return None
+    rate = spin_cycles_per_ms(torch)
+    spin = max(2.0, 3.0 * repeats * probe)
+    for _ in range(2):
+        s0 = torch.cuda.Event(enable_timing=True)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s0.record()
+        torch.cuda._sleep(int(spin * rate))
+        a.record()
+        if enqueue(torch, fn, repeats) is None:
+            torch.cuda.synchronize()
+            return None
+        host = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        if host < s0.elapsed_time(a):
+            return a.elapsed_time(b) / repeats
+        spin = 2.0 * host
+    return None
+
+
+def call_and_device(torch, fn, repeats=KERNEL_REPEATS):
+    """(call ms: median of warm calls between CUDA events, host time
+    included; device ms as device_ms)."""
+    return timed(torch, fn, repeats), device_ms(torch, fn, repeats)
+
+
 def compare(torch, name, got, want, dtype_name):
     """Decisions exactly, scores within the stated rtol; returns the max
     absolute score difference over finite positions."""
@@ -622,6 +711,7 @@ def kernel_phase(np, torch, bp, wave, kernels, svc, tp, world):
             for f, g, w in zip(("chosen", "scores", "n_yielded"), got, want):
                 same_bits(torch, f"{tag} {f}", g, w)
             ms = timed(torch, run, KERNEL_REPEATS)
+            dms = device_ms(torch, run) if dtype_name == "float32" else None
             bound_ms, bound_by, nbytes, flops = wave_bound(
                 kname, dev, spd, got, want, B, S, dtype_name)
             placed = int((want[0] >= 0).sum())
@@ -633,9 +723,9 @@ def kernel_phase(np, torch, bp, wave, kernels, svc, tp, world):
                 f"{flops} flop)")
             results.append(dict(
                 name=kname, dtype=dtype_name, B=B, S=S, V=V, shape=shape,
-                placed=placed, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                flops=flops))
+                placed=placed, max_abs_err=err, ms=ms, device_ms=dms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops))
     return results
 
 
@@ -709,7 +799,7 @@ def slice_phase(np, torch, wave, kernels, svc, batch, tp, world):
                     same_bits(torch, f"slice lane {li} {f}", gl, w[j, :P])
             if kname == "wave_compact":
                 S = cm.shape[2] - 8
-                ms = timed(torch, run, KERNEL_REPEATS)
+                ms, dms = call_and_device(torch, run)
                 bound_ms, bound_by, nbytes, flops = wave_bound(
                     kname, dev, sp, got_k, want, inp.B, S, "float32")
                 lane = "spread" if S else "penalty"
@@ -720,7 +810,7 @@ def slice_phase(np, torch, wave, kernels, svc, batch, tp, world):
                 main_launches.append(dict(
                     name=kname, lane=lane, dtype="float32", B=inp.B, S=S,
                     shape=list(cm.shape), max_abs_err=0.0, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms,
+                    device_ms=dms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by=bound_by, bytes=nbytes, flops=flops))
 
     # warm end-to-end time of the headline dispatch (host precompute,
@@ -1075,7 +1165,7 @@ def system_kernel_phase(np, torch, bp, dense, system, svc, world, seed):
                 tol = RTOL[dtype_name] * want[1].abs()
                 if bool(((got[1] - want[1]).abs() > tol).any()):
                     raise AssertionError(f"{name}: scores beyond rtol")
-            ms = timed(torch, lambda: run(system.system_fit), KERNEL_REPEATS)
+            ms, dms = call_and_device(torch, lambda: run(system.system_fit))
             nbytes = (sum(getattr(t, f).nbytes for t, f in (
                 (c, "cpu_cap"), (c, "mem_cap"), (c, "disk_cap"),
                 (c, "feasible"), (c, "mhz_per_core"), (s, "used_cpu"),
@@ -1089,13 +1179,13 @@ def system_kernel_phase(np, torch, bp, dense, system, svc, world, seed):
             n_fit = int(want[0].sum())
             log(f"kernel {name}: E={c.cpu_cap.shape[0]} "
                 f"N={c.cpu_cap.shape[1]} fit={n_fit} match=exact "
-                f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.2f}"
-                f" bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, "
-                f"{flops} flop)")
+                f"max_abs_err={err:.3e} ms={ms:.4f} device_ms={dms} "
+                f"plain_ms={plain_ms:.2f} bound_ms={bound_ms:.6f} "
+                f"({bound_by}, {nbytes} B, {flops} flop)")
             results.append(dict(
                 name="system_fit", dtype=dtype_name, world=tag,
                 shape=[int(x) for x in c.cpu_cap.shape], fit=n_fit,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                 flops=flops))
     return results
@@ -1172,14 +1262,15 @@ def dense_slice_phase(np, torch, dense, kernels, svc, batch, tp, world):
             compare(torch, f"dense slice lane {li}", got,
                     tuple(w[j, :P] for w in want[:3]), "float32")
         if len(g.idxs) == N_EVALS:
-            ms = timed(torch, lambda: run(dense.dense_scan), KERNEL_REPEATS)
+            ms, dms = call_and_device(torch, lambda: run(dense.dense_scan))
             bound_ms, bound_by, nbytes, flops = dense_bound(
                 torch, c, s, b, want, "float32")
             kernel = dict(
                 shape=[int(x) for x in (*c.cpu_cap.shape,
                                         b.ask_cpu.shape[1])],
-                cluster=C, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bytes=nbytes, flops=flops)
+                cluster=C, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                flops=flops)
             log(f"kernel dense_scan float32 main path: E={c.cpu_cap.shape[0]}"
                 f" N={c.cpu_cap.shape[1]} P={b.ask_cpu.shape[1]} "
                 f"ms={ms:.4f} plain_ms={plain_ms:.1f} "
@@ -1996,7 +2087,7 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
                         for x in res[li])
             compare_preempt(torch, f"preempt slice lane {li}", got,
                             tuple(w[j, :P] for w in want[:4]), "float32")
-        ms = timed(torch, lambda: run(kfn), KERNEL_REPEATS)
+        ms, dms = call_and_device(torch, lambda: run(kfn))
         C = None
         if g.wave:
             check_wave_preempt(torch, preempt, "preempt slice windowed "
@@ -2010,9 +2101,9 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
             C = kernels.DENSE_PREEMPT.last_cluster()
             log(f"preempt slice dense group: cluster size C={C}")
             assert C > 1, f"dense_preempt ran unclustered (C={C})"
-        kern[name] = dict(shape=shape, cluster=C, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bnd[0], bound_by=bnd[1], bytes=bnd[2],
-                          flops=bnd[3])
+        kern[name] = dict(shape=shape, cluster=C, ms=ms, device_ms=dms,
+                          plain_ms=plain_ms, bound_ms=bnd[0],
+                          bound_by=bnd[1], bytes=bnd[2], flops=bnd[3])
         log(f"kernel {name} float32 main path: shape={shape} ms={ms:.4f} "
             f"plain_ms={plain_ms:.1f} bound_ms={bnd[0]:.6f} ({bnd[1]}, "
             f"{bnd[2]} B, {bnd[3]} flop)")
@@ -2328,10 +2419,11 @@ def lpq_slice_phase(np, torch, lpq, kernels, svc, tp, world):
     got, _ = time_once(torch, lambda: lpq.lp_relax(*ins))
     want, plain_ms = time_once(torch, lambda: lpq.lp_relax_plain(*ins))
     compare_lp(torch, "lp_relax main path", got, want)
-    ms = timed(torch, lambda: lpq.lp_relax(*ins), KERNEL_REPEATS)
+    ms, dms = call_and_device(torch, lambda: lpq.lp_relax(*ins))
     bnd = lp_bound(L, N, ins[6].shape[0])
-    kern = dict(shape=[L, N], ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
-                bound_by=bnd[1], bytes=bnd[2], flops=bnd[3])
+    kern = dict(shape=[L, N], ms=ms, device_ms=dms, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], bytes=bnd[2],
+                flops=bnd[3])
     log(f"kernel lp_relax float32 main path: L={L} N={N} ms={ms:.4f} "
         f"plain_ms={plain_ms:.1f} bound_ms={bnd[0]:.6f} ({bnd[1]}, "
         f"{bnd[2]} B, {bnd[3]} flop)")
@@ -2458,32 +2550,81 @@ def scatter_kernel_phase(np, torch, resident, seed):
 
 def scatter_timing(np, torch, resident, seed, m, k, dtype_name):
     """The scatter at the main path's shape (m elements, a k-update
-    bucket): kernel and plain version by CUDA events (median of
-    KERNEL_REPEATS), one torch.index_put of the same function, and the
-    bound: the table read and written once, the k (index, value) pairs
-    read once."""
+    bucket): the kernel, the plain version and one torch.index_put of the
+    same function (int32 indices, as the kernel takes them), each as a
+    warm median of KERNEL_REPEATS calls between CUDA events and, where no
+    host sync, its device time (device_ms); the promotion as the version
+    chain runs it (resident._scatter_single: the payload's one upload,
+    then the kernel); and the bound: the table read and written once, the
+    k (index, value) pairs read once."""
     dt = np.dtype(dtype_name).type
     rng = np.random.default_rng(seed + 6)
     buf, idx, vals = scatter_case(np, torch, resident, rng, dt, m, k)
     got = resident.delta_scatter(buf, idx, vals)
     want = resident.delta_scatter_plain(buf, idx, vals)
     assert bits_equal(torch, got, want)
-    ms = timed(torch, lambda: resident.delta_scatter(buf, idx, vals),
-               KERNEL_REPEATS)
+    ms, dms = call_and_device(
+        torch, lambda: resident.delta_scatter(buf, idx, vals))
     plain_ms = timed(torch, lambda: resident.delta_scatter_plain(
         buf, idx, vals), KERNEL_REPEATS)
-    lib, library_ms = time_once(torch, lambda: torch.index_put(
-        buf, (idx.long(),), vals))
+    lib = torch.index_put(buf, (idx,), vals)
     assert bits_equal(torch, lib, want)
+    library_ms, library_dms = call_and_device(
+        torch, lambda: torch.index_put(buf, (idx,), vals))
+    idx_p, vals_p = idx.cpu().numpy(), vals.cpu().numpy()
+    prom = resident._scatter_single(buf, idx_p, vals_p)
+    assert bits_equal(torch, prom, want)
+    promote_ms, promote_dms = call_and_device(
+        torch, lambda: resident._scatter_single(buf, idx_p, vals_p))
     s = np.dtype(dt).itemsize
     nbytes = 2 * m * s + k * (4 + s)
     bound_ms, bound_by = bound("delta_scatter", nbytes, 0, "float32")
     log(f"kernel delta_scatter {dtype_name} main path: M={m} k={k} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(index_put)="
-        f"{library_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}, "
+        f"ms={ms:.4f} device_ms={dms} plain_ms={plain_ms:.4f} "
+        f"library_ms(index_put)={library_ms:.4f} library_device_ms="
+        f"{library_dms} promote(upload+scatter) ms={promote_ms:.4f} "
+        f"device_ms={promote_dms} bound_ms={bound_ms:.6f} ({bound_by}, "
         f"{nbytes} B)")
-    return dict(shape=[m, k], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(shape=[m, k], ms=ms, device_ms=dms, plain_ms=plain_ms,
+                library_ms=library_ms, library_device_ms=library_dms,
+                promote_ms=promote_ms, promote_device_ms=promote_dms,
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+
+
+LAUNCH_FLOOR = dict(system_fit=(1, 32), delta_scatter=(16, 8))
+
+
+def launch_floor_phase(np, torch, bp, dense, system, resident, seed):
+    """The launch floor: row 4's kernel at E 1 x N 32 and row 8's at
+    M 16 x k 8 (float32), each against its plain version, call ms and
+    device ms (device_ms: launches back to back behind a spin)."""
+    rng = np.random.default_rng(seed + 9)
+    E, N = LAUNCH_FLOOR["system_fit"]
+    lane = dense_fuzz_tables(np, rng, n=N, n_pad=N, p=1, dtype="float32",
+                             limit=2, features=("cores", "ports"))
+    c, s, b = dense.lane_tensors(*dense_group(np, bp, [lane]),
+                                 dtype_name="float32",
+                                 device=torch.device(DEVICE))
+    got = system.system_fit(c, s, b, spread_alg=False)
+    want = system.system_fit_plain(c, s, b, spread_alg=False)
+    same_bits(torch, "launch floor system_fit fit", got[0], want[0])
+    same_bits(torch, "launch floor system_fit score", got[1], want[1])
+    out = {}
+    ms, dms = call_and_device(
+        torch, lambda: system.system_fit(c, s, b, spread_alg=False))
+    out["system_fit"] = dict(shape=[E, N], ms=ms, device_ms=dms)
+    m, k = LAUNCH_FLOOR["delta_scatter"]
+    buf, idx, vals = scatter_case(np, torch, resident, rng, np.float32, m, k)
+    got = resident.delta_scatter(buf, idx, vals)
+    assert bits_equal(torch, got, resident.delta_scatter_plain(buf, idx,
+                                                                vals))
+    ms, dms = call_and_device(
+        torch, lambda: resident.delta_scatter(buf, idx, vals))
+    out["delta_scatter"] = dict(shape=[m, k], ms=ms, device_ms=dms)
+    log("launch floor (float32): " + "; ".join(
+        f"{n} {r['shape']} call ms={r['ms']:.4f} device ms={r['device_ms']}"
+        for n, r in out.items()))
+    return out
 
 
 def chain_matches_shadows(np, resident):
@@ -2841,6 +2982,8 @@ def wavefront_phase(np, torch, wave, dense, batch, kernels, svc, tp, world):
                                      "wave_block route")
         ms = timed(torch, lambda: wave.wavefront(c, s, b, spread_alg=False),
                    KERNEL_REPEATS)
+        dms = device_ms(torch, lambda: wave.wavefront(
+            c, s, b, spread_alg=False)) if dtype_name == "float32" else None
         E, N = c.cpu_cap.shape
         P = b.ask_cpu.shape[1]
         steps = int((want[0] >= 0).sum())
@@ -2852,9 +2995,9 @@ def wavefront_phase(np, torch, wave, dense, batch, kernels, svc, tp, world):
             f"{nbytes} B, {flops} flop)")
         results.append(dict(
             name="wavefront", dtype=dtype_name, shape=[E, N, P],
-            placed=steps, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-            flops=flops))
+            placed=steps, max_abs_err=err, ms=ms, device_ms=dms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bytes=nbytes, flops=flops))
     return results, dict(launches=main)
 
 
@@ -2900,8 +3043,9 @@ def mesh_dense_check(np, torch, mesh, dense, grid, trees, *, spread_alg,
                      dtype_name, want, what, timing=False):
     """dense_shard on ``grid`` against its plain phases on the card and
     against ``want`` (the one-card route's host outputs), bit for bit;
-    returns (ms, plain_ms) when ``timing`` (CUDA events around the whole
-    host-driven step loop: the orchestration is part of the time)."""
+    returns (ms, plain_ms, device ms or None) when ``timing`` (CUDA
+    events around the whole host-driven step loop: the orchestration is
+    part of the time; the device ms in float32 only)."""
     kw = dict(spread_alg=spread_alg, dtype_name=dtype_name)
     rows = shard_rows(mesh, dense, grid, trees, **kw)
     _, ms = time_once(torch, lambda: mesh.run_node_sharded(rows))
@@ -2912,7 +3056,15 @@ def mesh_dense_check(np, torch, mesh, dense, grid, trees, *, spread_alg,
     same_outputs(np, got, rows_outputs(np, prow),
                  f"{what}: kernel vs plain phases")
     same_outputs(np, got, want, f"{what}: grid vs one card")
-    return (ms, plain_ms) if timing else None
+    if not timing:
+        return None
+    if dtype_name != "float32":
+        return ms, plain_ms, None
+    # the device time over fresh cells (a run advances its cells' state)
+    fresh = iter([shard_rows(mesh, dense, grid, trees, **kw)
+                  for _ in range(8)])
+    dms = device_ms(torch, lambda: mesh.run_node_sharded(next(fresh)), 2)
+    return ms, plain_ms, dms
 
 
 def mesh_dense_phase(np, torch, batch, dense, mesh, kernels, svc, tp, world,
@@ -2989,7 +3141,7 @@ def mesh_dense_phase(np, torch, batch, dense, mesh, kernels, svc, tp, world,
                 # an E = 1 group of the main path on (1, 4): the kernel
                 # against its plain phases, timed
                 grid = mesh.make_mesh(cells, eval_parallel=1)
-                ms_k, plain_ms = mesh_dense_check(
+                ms_k, plain_ms, dms = mesh_dense_check(
                     np, torch, mesh, dense, grid, trees,
                     spread_alg=g.spread_alg, dtype_name=dtn, want=want,
                     what=f"dense_shard lane {g.idxs} {dtn}", timing=True)
@@ -3001,9 +3153,9 @@ def mesh_dense_phase(np, torch, batch, dense, mesh, kernels, svc, tp, world,
                 row = dict(name="dense_shard", dtype=dtn,
                            shape=[1, int(c.cpu_cap.shape[1]),
                                   int(b.ask_cpu.shape[1]), 1, 4],
-                           ms=ms_k, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, bytes=nbytes, flops=flops,
-                           max_abs_err=0.0,
+                           ms=ms_k, device_ms=dms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           bytes=nbytes, flops=flops, max_abs_err=0.0,
                            lane="distinct_property" if g.const.dp_vidx.shape[1]
                            else "reserved_cores")
                 log(f"kernel dense_shard {dtn} {row['lane']} on (1, 4): "
@@ -3131,6 +3283,8 @@ def mesh_lp_phase(np, torch, lpq, mesh, kernels, svc, world, seed):
         compare_lp(torch, f"lp_shard {grid.shape} vs lp_relax", got_k, want)
         if e_par == 4:
             k_ms = timed(torch, lambda: mesh.mesh_lpq(grid, s_in, temps), 5)
+            k_dms = device_ms(torch, lambda: mesh.mesh_lpq(grid, s_in,
+                                                           temps), 3)
             real = lpq.lp_shard_phase
             lpq.lp_shard_phase = lambda c, ph, t: lpq._lp_shard_plain(c, ph,
                                                                       t)
@@ -3143,7 +3297,8 @@ def mesh_lp_phase(np, torch, lpq, mesh, kernels, svc, world, seed):
                        want)
             bound_ms, bound_by, nbytes, flops = lp_bound(L, N, LP_STEPS)
             row = dict(name="lp_shard", dtype="float32",
-                       shape=[L, N, 4, 1], ms=k_ms, plain_ms=plain_ms,
+                       shape=[L, N, 4, 1], ms=k_ms, device_ms=k_dms,
+                       plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                        flops=flops, max_abs_err=0.0)
             log(f"kernel lp_shard (4, 1) L={L} N={N}: bit-exact vs lp_relax"
@@ -3238,7 +3393,7 @@ def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
     full = base.copy()
     full.reshape(-1)[idx_p] = vals_p
     assert np.array_equal(torch.cat([x.cpu() for x in got]).numpy(), full)
-    ms = timed(torch, lambda: run(resident.coord_scatter), KERNEL_REPEATS)
+    ms, dms = call_and_device(torch, lambda: run(resident.coord_scatter))
     plain_ms = timed(torch, lambda: run(resident.coord_scatter_plain),
                      KERNEL_REPEATS)
     nbytes = sum(2 * a[0].numel() * 4 + k * (4 * 2 + 4) for a in ins)
@@ -3248,7 +3403,7 @@ def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
         f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}, "
         f"{nbytes} B)")
     kernel = dict(name="coord_scatter", dtype="float32", shape=[E, n, k],
-                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  ms=ms, device_ms=dms, plain_ms=plain_ms, bound_ms=bound_ms,
                   bound_by=bound_by, bytes=nbytes, max_abs_err=0.0)
     return dict(launches=launches, generations=recs, per_cell=per_cell,
                 shard_entries=st["shard_entries"],
@@ -3273,8 +3428,15 @@ AB_SOURCES = {"dense_scan": "dense_scan.cu",
               "lp_relax": "lp_relax.cu",
               "wave_block": "wave_block.cu",
               "wave_compact": "wave_compact.cu",
-              "wavefront": "wavefront.cu"}
+              "wavefront": "wavefront.cu",
+              "system_fit": "system_fit.cu",
+              "delta_scatter": "delta_scatter.cu"}
 WAVE_KERNELS = ("wave_block", "wave_compact", "wavefront")
+# kernels whose A/B runs each variant's own package (its wrapper and the
+# host code around the kernel, imported from the tree that holds DIR as
+# its nomad_tpu_torch/csrc), so call time and device time both compare
+PACKAGED = ("system_fit", "delta_scatter")
+SCATTER_G3 = (1_572_864, 256)       # the residency path's g3 scatter
 AB_REPEATS = 10
 AB_TILE = 2048                      # the older one-block walk's tile
 # the sections' names: the wave kernels' (wave_warp.cuh's step loop,
@@ -3650,6 +3812,273 @@ def ab_phase(np, torch, kernels, cases, built):
     return out
 
 
+def ab_package(tag, csrc):
+    """The port package beside ``csrc`` (a tree's nomad_tpu_torch/csrc):
+    the repository's own for its csrc, else imported as ab_pkg_<tag>.
+    Returns a namespace of its kernels, system, service and resident
+    modules."""
+    import importlib
+    import importlib.util
+    from types import SimpleNamespace
+    pkg_dir = csrc.parent
+    mods = ("kernels", "solver.system", "solver.service", "solver.resident")
+    if pkg_dir == (ROOT / "nomad_tpu_torch").resolve():
+        name = "nomad_tpu_torch"
+    else:
+        if csrc.name != "csrc" or not (pkg_dir / "kernels.py").is_file():
+            raise SystemExit(f"--ab {tag}: {PACKAGED} need DIR to be a "
+                             "tree's nomad_tpu_torch/csrc (its package "
+                             "beside it)")
+        name = f"ab_pkg_{tag}"
+        spec = importlib.util.spec_from_file_location(
+            name, pkg_dir / "__init__.py",
+            submodule_search_locations=[str(pkg_dir)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    got = [importlib.import_module(f"{name}.{m}") for m in mods]
+    return SimpleNamespace(**dict(zip(("kernels", "system", "service",
+                                       "resident"), got)))
+
+
+def ab_case(name, kname, shape, make, want, same):
+    """A packaged case: ``make(pkg)`` returns the call to time, run with
+    that package's wrapper and host code."""
+    return dict(name=name, kernel=kname, shape=shape, make=make, want=want,
+                same=same)
+
+
+class CoveringStore:
+    """A journal that covers every span with no change pairs."""
+
+    def alloc_deltas_since(self, version, upto=None):
+        return True, []
+
+
+def ab_system_cases(np, torch, bp, dense, system, svc, world):
+    """Row 4: system_fit on the system eval's lane (E 1, N 16,384) and
+    on the 8 fuzz lanes (cores, ports, scarce), float32 and float64; and
+    the system phase's solve_system_arrays (float32: pack, upload, fit,
+    read back)."""
+    dev = torch.device(DEVICE)
+    matrix, usage, _ = world
+    feas, ports_free = system_world(np, world, SEED)
+    cases = []
+    for dtype_name in ("float32", "float64"):
+        lane = svc.pack_lane_arrays(
+            matrix, usage, feas, ask=SYSTEM_ASK, count=1, n_places=1,
+            eval_id="system-bench-eval-0000000000000000",
+            state_index=STATE_INDEX, static_ports_free=ports_free,
+            n_dyn_ports=1, dtype_name=dtype_name, device=DEVICE)
+        rng = np.random.default_rng(SEED + 1)
+        fuzz = [dense_fuzz_tables(np, rng, n=matrix.n_real,
+                                  n_pad=matrix.n_pad, p=1,
+                                  dtype=dtype_name, limit=2,
+                                  features=("cores", "ports", "scarce"))
+                for _ in range(8)]
+        for tag, tables in (
+                ("system_lane", dense_group(np, bp,
+                                            [lane_dicts(np, lane, 1)])),
+                ("fuzz8", dense_group(np, bp, fuzz))):
+            c, st, b = dense.lane_tensors(*tables, dtype_name=dtype_name,
+                                          device=dev)
+            name = f"{tag}_{dtype_name}"
+            cases.append(ab_case(
+                name, "system_fit",
+                dict(E=int(c.cpu_cap.shape[0]), N=int(c.cpu_cap.shape[1])),
+                lambda pkg, c=c, st=st, b=b: (
+                    lambda: pkg.system.system_fit(c, st, b,
+                                                  spread_alg=False)),
+                lambda c=c, st=st, b=b: system.system_fit_plain(
+                    c, st, b, spread_alg=False),
+                lambda g, w, name=name: ab_same(
+                    torch, name, ("fit", "score"), g, w)))
+    kw = dict(ask=SYSTEM_ASK, eval_id="system-bench-eval-0000000000000000",
+              state_index=STATE_INDEX, static_ports_free=ports_free,
+              n_dyn_ports=1, dtype_name="float32", device=DEVICE)
+
+    def want():
+        # the same call with the plain version on the card
+        real = system.system_fit_tables
+
+        def plain(tables, *, spread_alg):
+            fit, score = system.system_fit_plain(
+                *system._trees_of(tables), spread_alg=spread_alg)
+            return torch.cat([score.reshape(-1).view(torch.uint8),
+                              fit.reshape(-1).view(torch.uint8)])
+
+        system.system_fit_tables = plain
+        try:
+            return svc.solve_system_arrays(matrix, usage, feas, **kw)
+        finally:
+            system.system_fit_tables = real
+
+    def same(g, w):
+        for what, x, y in (("chosen", g[1], w[1]), ("scores", g[2], w[2])):
+            if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+                raise AssertionError(f"ab solve_system_arrays: {what} "
+                                     "differs from the plain version's")
+
+    cases.append(ab_case(
+        "solve_system_arrays", "system_fit",
+        dict(E=1, N=int(matrix.n_pad)),
+        lambda pkg: (lambda: pkg.service.solve_system_arrays(
+            matrix, usage, feas, **kw)), want, same))
+    # the launch floor's shape
+    E, N = LAUNCH_FLOOR["system_fit"]
+    lane = dense_fuzz_tables(np, np.random.default_rng(SEED + 9), n=N,
+                             n_pad=N, p=1, dtype="float32", limit=2,
+                             features=("cores", "ports"))
+    c, st, b = dense.lane_tensors(*dense_group(np, bp, [lane]),
+                                  dtype_name="float32", device=dev)
+    cases.append(ab_case(
+        "floor_system_float32", "system_fit", dict(E=E, N=N),
+        lambda pkg: (lambda: pkg.system.system_fit(c, st, b,
+                                                   spread_alg=False)),
+        lambda: system.system_fit_plain(c, st, b, spread_alg=False),
+        lambda g, w: ab_same(torch, "floor_system_float32",
+                             ("fit", "score"), g, w)))
+    return cases
+
+
+def ab_scatter_cases(np, torch, resident):
+    """Row 8: the scatter at g3's shape (M 1,572,864, k 256) in bool,
+    float32 and float64; at k = 25% of M (distinct, unpadded); from an
+    unaligned view (the table starting at element 1 of its buffer); the
+    promotion as the chain runs it (_scatter_single: the payload's
+    upload, then the kernel); and the g3 promotion through chain_apply
+    (the host diff, the upload and the kernel; two usage tables 150
+    elements apart, promoted in turn)."""
+    dev = torch.device(DEVICE)
+    M, k = SCATTER_G3
+    rng = np.random.default_rng(SEED + 60)
+    cases = []
+
+    def flat(name, buf, idx, vals):
+        return ab_case(
+            name, "delta_scatter", dict(M=int(buf.numel()),
+                                        k=int(idx.numel())),
+            lambda pkg: (lambda: pkg.resident.delta_scatter(buf, idx,
+                                                            vals)),
+            lambda: resident.delta_scatter_plain(buf, idx, vals),
+            lambda g, w, name=name: ab_bits(torch, name, g, w))
+
+    for dt in (np.bool_, np.float32, np.float64):
+        cases.append(flat(f"g3_{np.dtype(dt).name}",
+                          *scatter_case(np, torch, resident, rng, dt, M, k)))
+    cases.append(flat("floor_scatter_float32", *scatter_case(
+        np, torch, resident, rng, np.float32,
+        *LAUNCH_FLOOR["delta_scatter"])))
+    big = M // 4
+    idx = torch.from_numpy(rng.choice(M, big, replace=False).astype(
+        np.int32)).to(dev)
+    vals = torch.from_numpy(rng.standard_normal(big).astype(
+        np.float32)).to(dev)
+    cases.append(flat("k_quarter_float32",
+                      torch.from_numpy(rng.standard_normal(M).astype(
+                          np.float32)).to(dev), idx, vals))
+    buf, idx, vals = scatter_case(np, torch, resident, rng, np.float32,
+                                  M + 1, k)
+    view = buf[1:]                      # index M falls out and is dropped
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    cases.append(flat("unaligned_float32", view, idx, vals))
+    buf, idx, vals = scatter_case(np, torch, resident, rng, np.float32, M,
+                                  k)
+    idx_p, vals_p = idx.cpu().numpy(), vals.cpu().numpy()
+    cases.append(ab_case(
+        "promote_upload_float32", "delta_scatter", dict(M=M, k=k),
+        lambda pkg: (lambda: pkg.resident._scatter_single(buf, idx_p,
+                                                          vals_p)),
+        lambda: resident.delta_scatter_plain(buf, idx, vals),
+        lambda g, w: ab_bits(torch, "promote_upload_float32", g, w)))
+
+    usage = rng.standard_normal((3, M // 3)).astype(np.float32)
+    moved = usage.copy()
+    pos = rng.choice(M // 3, G3_PLACED, replace=False)
+    for f, a in enumerate(ASK):
+        moved[f, pos] += np.float32(a)
+    tables = (usage, moved)
+    store = CoveringStore()
+
+    def chain(pkg):
+        r = pkg.resident
+        r._reset_for_tests()
+        key = ("ab-g3", "float32", usage.shape, 0)
+        state = {"token": 1}
+
+        def put(a):
+            return r._put(a, dev)
+
+        r.chain_apply(key, tables[0], store, 1, put)
+
+        def run():
+            state["token"] += 1
+            arr = tables[(state["token"] - 1) % 2]
+            buf, shipped, outcome = r.chain_apply(key, arr, store,
+                                                  state["token"], put)
+            assert outcome == "promote" and shipped == k * 8, (
+                outcome, shipped)
+            return buf, arr
+
+        return run
+
+    def chain_same(g, w):
+        got = g[0].cpu().numpy()
+        if got.tobytes() != g[1].tobytes():
+            raise AssertionError("ab chain_g3_float32: the promoted buffer "
+                                 "differs from its table")
+
+    cases.append(ab_case("chain_g3_float32", "delta_scatter",
+                         dict(M=M, k=k), chain, lambda: None, chain_same))
+    return cases
+
+
+def ab_bits(torch, name, got, want):
+    if not bits_equal(torch, got, want):
+        raise AssertionError(f"ab {name}: bytes differ from the plain "
+                             "version's")
+
+
+def ab_packaged_phase(torch, cases, built, pkgs):
+    """Each packaged case in turns (first to last, then last to first):
+    the variant's package with its kernel bound to the variant's build;
+    every output equal to the plain version's; call ms (median of
+    AB_REPEATS between CUDA events) and device ms (device_ms; None where
+    the call makes the host wait on the device)."""
+    variants = [t for t, (_, clk) in built.items() if not clk]
+    out = {}
+    for case in cases:
+        name, kname = case["name"], case["kernel"]
+        log(f"ab {name} ({kname}): the plain version, then the turns")
+        want = case["want"]()
+        row = dict(kernel=kname, **case["shape"], ms={}, device_ms={},
+                   turns=[])
+        for tag in variants + variants[::-1]:
+            pkg = pkgs[tag]
+            attr = kname.upper()
+            proto = getattr(pkg.kernels, attr)
+            setattr(pkg.kernels, attr, built[tag][0][0][kname])
+            try:
+                run = case["make"](pkg)
+                case["same"](run(), want)
+                ms = timed(torch, run, AB_REPEATS)
+                dms = device_ms(torch, run, AB_REPEATS)
+            finally:
+                setattr(pkg.kernels, attr, proto)
+            row["turns"].append((tag, ms, dms))
+        for tag in variants:
+            row["ms"][tag] = statistics.median(
+                ms for t, ms, _ in row["turns"] if t == tag)
+            d = [x for t, _, x in row["turns"] if t == tag and x is not None]
+            row["device_ms"][tag] = statistics.median(d) if d else None
+        log(f"ab {name} ({kname}) {case['shape']}: call "
+            + " ".join(f"{t}={m:.4f}" for t, m in row["ms"].items())
+            + " ms; device " + " ".join(
+                f"{t}={m}" for t, m in row["device_ms"].items()) + " ms")
+        out[name] = row
+    return out
+
+
 def ab_main(args, torch, np):
     from nomad_tpu_torch import kernels
     from nomad_tpu_torch.solver import batch, dense, lpq, preempt, wave
@@ -3680,6 +4109,16 @@ def ab_main(args, torch, np):
                       bool(defines))
     world = headline_world(np, tp)
     log("ab: building the cases")
+    packaged = []
+    if set(PACKAGED) & set(names):
+        from nomad_tpu_torch.solver import resident, system
+        pkgs = {tag: ab_package(tag, csrc)
+                for tag, csrc, _ in (spec(x, ()) for x in args.ab)}
+        if "system_fit" in names:
+            packaged += ab_system_cases(np, torch, bp, dense, system, svc,
+                                        world)
+        if "delta_scatter" in names:
+            packaged += ab_scatter_cases(np, torch, resident)
     cases = []
     if {"dense_scan", "dense_preempt"} & set(names):
         cases += [c for c in ab_dense_cases(np, torch, bp, batch, dense,
@@ -3697,6 +4136,8 @@ def ab_main(args, torch, np):
         cases = [c for c in cases
                  if c["shape"].get("S", 0) <= args.ab_max_spreads]
     res = ab_phase(np, torch, kernels, cases, built)
+    if packaged:
+        res.update(ab_packaged_phase(torch, packaged, built, pkgs))
     log("ab: " + json.dumps(dict(card=card, cases=res)))
     print(card, flush=True)
     return 0
@@ -3786,6 +4227,8 @@ def main(argv=None) -> int:
     kres += phase("lp kernel", lp_kernel_phase, np, torch, lpq, args.seed)
     kres += phase("scatter kernel", scatter_kernel_phase, np, torch,
                   resident, args.seed)
+    floor = phase("launch floor", launch_floor_phase, np, torch, bp, dense,
+                  system, resident, args.seed)
     sres = phase("wave slice", slice_phase, np, torch, wave, kernels, svc,
                  batch, tp, world)
     dres = phase("dense slice", dense_slice_phase, np, torch, dense,
@@ -3847,11 +4290,15 @@ def main(argv=None) -> int:
             launches=path["launches"][k.name],
             max_abs_err=max(x["max_abs_err"] for x in kres
                             if x["name"] == k.name),
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            ms=r["ms"], device_ms=r.get("device_ms"),
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r.get("library_ms"),
             shape=" ".join(str(x) for x in r["shape"]) + " float32",
+            **({"launch_floor_device_ms": floor[k.name]["device_ms"]}
+               if k.name in floor else {}),
             **({"cluster": r["cluster"]} if r.get("cluster") else {})))
     report = dict(card=card, device=name, seed=args.seed, kernels=kres,
+                  launch_floor=floor,
                   slice=sres, dense_slice=dres, system=yres,
                   preempt_slice=pres, lpq_slice=qres, residency=rres,
                   wavefront=wpath, mesh_dense=mdres, mesh_wave=mwres,

@@ -9,17 +9,33 @@
 // The scatter moves raw bits, so there is one entry point per element size
 // (1, 2, 4 and 8 bytes) and no float load or store anywhere: -0.0 and NaN
 // payloads reach the output exactly as a wholesale copy would carry them.
-// Two kernels, launched back to back on the caller's stream:
-//   1. copy  -- buf to out, 16 bytes per thread per iteration when both
-//               pointers are 16-byte aligned (a grid-stride loop), the
-//               tail (and unaligned buffers) element by element;
-//   2. apply -- one thread per update. The update count is padded to a
-//               power of two by repeating slot 0, so duplicate indices
-//               carry identical values and their racing writes agree.
 // Indices outside [0, M) are dropped, as the reference's scatter drops them.
 //
-// Bound: the copy reads and writes the M elements once and the apply reads
-// the k (idx, vals) pairs: (2 M s + k (4 + s)) bytes at 3.35 TB/s.
+// Bound: the copy reads and writes the M elements once and the updates read
+// the k (idx, vals) pairs: (2 M s + k (4 + s)) bytes at 3.35 TB/s, 3.8 us
+// for the residency path's 6.29 MB usage table.
+//
+// Design: one launch either way. The table is cut into chunks of kThreads
+// x kInFlight units: 16-byte words when buf and out are both 16-byte
+// aligned (the tail past the last whole word goes element by element with
+// the last chunk), else elements. A thread issues its kInFlight loads of
+// a chunk before their stores, neighbouring threads on neighbouring units.
+//   * scatter_local (few updates): a block per chunk copies it, then
+//     writes every update whose index lands in the chunk's elements. Each
+//     block reads all k indices (no order is assumed), so the launcher
+//     takes this form only while those reads past the first block's come
+//     to at most a kLocalShare-th of the table's bytes: the residency
+//     path's g3 (k 256 over 6.29 MB) is one. No grid-wide barrier.
+//   * scatter_persistent (many updates, up to the chain's 25% of M): one
+//     cooperative launch, every block resident at once
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count, at
+//     most kBlocksPerSm a SM, no more than the work needs); the blocks
+//     copy the chunks, one grid.sync() puts every copy before any update,
+//     then the updates go grid-stride.
+// An update count padded by repeating slot 0 (solver/resident.py
+// _pad_updates) gives duplicate indices identical values, so their racing
+// writes agree. So the promotion is one launch, not a copy kernel and an
+// update kernel.
 //
 // The coordinate entry points (nt_coord_scatter_*) replace
 // nomad_tpu/parallel/mesh.py::mesh_delta_scatter_fn, the same promotion
@@ -29,6 +45,8 @@
 // every cell) fall inside the slice is written at its local position; the
 // others belong to other cells. Per cell the bound is (2 M_cell s +
 // k (4 ndim + s)) bytes: every cell reads the whole replicated payload.
+// They keep their two launches (copy_kernel, then coord_apply_kernel).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,35 +73,183 @@ copy_kernel(const U* __restrict__ src, U* __restrict__ dst, long long m,
   for (long long i = done + t0; i < m; i += stride) dst[i] = src[i];
 }
 
+// The copy alone, as two launches' first half always was: the coordinate
+// scatter's first launch.
 template <typename U>
-__global__ void __launch_bounds__(kThreads)
-apply_kernel(const int* __restrict__ idx, const U* __restrict__ vals,
-             U* __restrict__ out, int k, long long m) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
-  const int j = idx[i];
-  if (j >= 0 && (long long)j < m) out[j] = vals[i];
+int launch_copy(const U* buf, U* out, long long m, cudaStream_t stream) {
+  if (m <= 0) return m < 0 ? (int)cudaErrorInvalidValue : 0;
+  const int vec = ((reinterpret_cast<uintptr_t>(buf) |
+                    reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const long long units = vec ? (m * (long long)sizeof(U) + 15) / 16 : m;
+  long long blocks = (units + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  copy_kernel<U><<<(int)blocks, kThreads, 0, stream>>>(buf, out, m, vec);
+  return (int)cudaGetLastError();
 }
 
+namespace cg = cooperative_groups;
+
+constexpr int kInFlight = 4;        // loads a thread issues before stores
+constexpr int kBlocksPerSm = 2;     // the cooperative form's grid, per SM
+// the block-local form reads every update once a block: taken while the
+// reads past the first block's cost at most a kLocalShare-th of the
+// table's bytes
+constexpr int kLocalShare = 4;
+
+// Units (16-byte words or elements) [lo, hi) from src to dst by one
+// block: kInFlight loads a thread, then their stores, neighbouring
+// threads on neighbouring units.
+template <typename W>
+__device__ __forceinline__ void copy_chunk(const W* __restrict__ src,
+                                           W* __restrict__ dst,
+                                           long long lo, long long hi) {
+  for (long long base = lo + threadIdx.x; base < hi;
+       base += (long long)kInFlight * blockDim.x) {
+    W w[kInFlight];
+#pragma unroll
+    for (int j = 0; j < kInFlight; ++j) {
+      const long long i = base + (long long)j * blockDim.x;
+      if (i < hi) w[j] = src[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kInFlight; ++j) {
+      const long long i = base + (long long)j * blockDim.x;
+      if (i < hi) dst[i] = w[j];
+    }
+  }
+}
+
+// The table's partition into per-block chunks: block b owns units
+// [b * chunk, (b + 1) * chunk) of the aligned words (vec) or of the
+// elements, and the elements those cover; the last block also owns the
+// tail past the last whole word. Returns the block's element range.
+template <typename U>
+__device__ __forceinline__ void copy_block(const U* __restrict__ src,
+                                           U* __restrict__ dst,
+                                           long long m, int vec,
+                                           long long chunk, long long b,
+                                           long long nblocks,
+                                           long long& elo, long long& ehi) {
+  const long long per = vec ? 16 / (long long)sizeof(U) : 1;
+  const long long units = vec ? m / per : m;
+  const long long lo = b * chunk;
+  const long long hi = lo + chunk < units ? lo + chunk : units;
+  if (vec)
+    copy_chunk<uint4>(reinterpret_cast<const uint4*>(src),
+                      reinterpret_cast<uint4*>(dst), lo, hi);
+  else
+    copy_chunk<U>(src, dst, lo, hi);
+  elo = lo * per;
+  ehi = hi * per;
+  if (b == nblocks - 1) {
+    copy_chunk<U>(src, dst, ehi, m);      // the tail past the last word
+    ehi = m;
+  }
+}
+
+// The block-local form, for few updates: each block copies its chunk,
+// then writes the updates that land in it (every block reads all k
+// indices; no order among them is assumed). No grid-wide barrier.
+template <typename U>
+__global__ void __launch_bounds__(kThreads)
+scatter_local(const U* __restrict__ src, const int* __restrict__ idx,
+              const U* __restrict__ vals, U* __restrict__ dst, long long m,
+              int k, int vec, long long chunk) {
+  long long elo, ehi;
+  copy_block<U>(src, dst, m, vec, chunk, blockIdx.x, gridDim.x, elo, ehi);
+  __syncthreads();
+  for (int u = threadIdx.x; u < k; u += blockDim.x) {
+    const int j = __ldg(idx + u);
+    if (j >= elo && j < ehi) dst[j] = __ldg(vals + u);
+  }
+}
+
+// The cooperative form, for many updates: every block resident at once;
+// each copies its chunks, one grid.sync(), then the updates grid-stride.
+template <typename U>
+__global__ void __launch_bounds__(kThreads)
+scatter_persistent(const U* __restrict__ src, const int* __restrict__ idx,
+                   const U* __restrict__ vals, U* __restrict__ dst,
+                   long long m, int k, int vec, long long chunk,
+                   long long nchunks) {
+  cg::grid_group grid = cg::this_grid();
+  long long elo, ehi;
+  for (long long b = blockIdx.x; b < nchunks; b += gridDim.x)
+    copy_block<U>(src, dst, m, vec, chunk, b, nchunks, elo, ehi);
+  __threadfence();
+  grid.sync();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       u < k; u += stride) {
+    const int j = __ldg(idx + u);
+    if (j >= 0 && (long long)j < m) dst[j] = __ldg(vals + u);
+  }
+}
+
+// Per device: its SM count and, per element size, the blocks of
+// scatter_persistent an SM holds at once (read once)
+struct Occupancy {
+  int sms, per_sm;
+};
+
+template <typename U>
+int occupancy(Occupancy* o) {
+  static Occupancy cache[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (cache[dev].sms == 0) {
+    Occupancy c;
+    if ((err = cudaDeviceGetAttribute(&c.sms,
+                                      cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &c.per_sm, scatter_persistent<U>, kThreads, 0)) != cudaSuccess)
+      return (int)err;
+    if (c.per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    cache[dev] = c;
+  }
+  *o = cache[dev];
+  return 0;
+}
+
+// One launch: the table in chunks of kThreads x kInFlight units (16-byte
+// words when buf and out are both 16-byte aligned, else elements), the
+// block-local form when the other blocks' reads of all k indices cost at
+// most a kLocalShare-th of the table's bytes, else the cooperative form.
 template <typename U>
 int launch(const U* buf, const int* idx, const U* vals, U* out, long long m,
            int k, cudaStream_t stream) {
   if (m < 0 || k < 0) return (int)cudaErrorInvalidValue;
-  if (m > 0) {
-    const int vec = ((reinterpret_cast<uintptr_t>(buf) |
-                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-    const long long units =
-        vec ? (m * (long long)sizeof(U) + 15) / 16 : m;
-    long long blocks = (units + kThreads - 1) / kThreads;
-    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    copy_kernel<U><<<(int)blocks, kThreads, 0, stream>>>(buf, out, m, vec);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  if (m == 0) return 0;                 // every update is out of range
+  int vec = ((reinterpret_cast<uintptr_t>(buf) |
+              reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const long long units = vec ? m * (long long)sizeof(U) / 16 : m;
+  long long chunk = (long long)kThreads * kInFlight;
+  long long nchunks = units > 0 ? (units + chunk - 1) / chunk : 1;
+  if (4 * (long long)k * (nchunks - 1) * kLocalShare <=
+      m * (long long)sizeof(U)) {
+    scatter_local<U><<<(unsigned)nchunks, kThreads, 0, stream>>>(
+        buf, idx, vals, out, m, k, vec, chunk);
+    return (int)cudaGetLastError();
   }
-  if (k > 0) {
-    apply_kernel<U><<<(k + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-        idx, vals, out, k, m);
-  }
+  Occupancy o;
+  int rc = occupancy<U>(&o);
+  if (rc != 0) return rc;
+  // enough blocks for the chunks or for one update a thread; never more
+  // than are resident at once
+  long long blocks = nchunks;
+  const long long upd = ((long long)k + kThreads - 1) / kThreads;
+  if (upd > blocks) blocks = upd;
+  const long long cap =
+      (long long)o.sms * (o.per_sm < kBlocksPerSm ? o.per_sm : kBlocksPerSm);
+  if (blocks > cap) blocks = cap;
+  void* args[] = {&buf, &idx, &vals, &out, &m, &k, &vec, &chunk, &nchunks};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)scatter_persistent<U>, (unsigned)blocks, kThreads, args,
+      0, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -127,8 +293,7 @@ int launch_coords(void* const* p, int n_ptrs, const int* d, int n_dims,
   }
   const U* part = (const U*)p[0];
   U* out = (U*)p[3];
-  // the copy (and nothing else) through the flat scatter's launcher
-  int rc = launch<U>(part, nullptr, nullptr, out, m, 0, stream);
+  int rc = launch_copy<U>(part, out, m, stream);
   if (rc != 0 || k == 0) return rc;
   coord_apply_kernel<U><<<(k + kThreads - 1) / kThreads, kThreads, 0,
                           stream>>>((const int*)p[1], (const U*)p[2], out,

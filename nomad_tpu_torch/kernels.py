@@ -90,12 +90,14 @@ class Kernel:
 
     def launch(self, dtype: torch.dtype, tensors, ints):
         """Launch on the current stream with the tensors' device pointers
-        and the int arguments; raise if the launch was refused."""
+        (an int in ``tensors`` is taken as a device pointer already; the
+        first entry must be a tensor) and the int arguments; raise if the
+        launch was refused."""
         if dtype not in self.symbols:
             raise TypeError(f"{self.name}: no kernel for {dtype}")
         dev = tensors[0].device
         ptrs = (ctypes.c_void_p * len(tensors))(
-            *[t.data_ptr() for t in tensors])
+            *[t if type(t) is int else t.data_ptr() for t in tensors])
         vals = (ctypes.c_int * len(ints))(*[int(v) for v in ints])
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream

@@ -367,12 +367,33 @@ def _put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def _stage_payload(idx_p: np.ndarray, vals_p: np.ndarray, pinned: bool):
+    """The padded (idx, vals) payload in one host buffer: the int32
+    indices, then the values' bytes from the next 16-byte boundary.
+    Returns (uint8 tensor, offset of the values). ``pinned`` takes the
+    buffer from PyTorch's page-locked host allocator, which hands a block
+    out again only after the asynchronous copies that read it have run,
+    so no later call rewrites a payload still in flight."""
+    n_idx = int(idx_p.nbytes)
+    off = -(-n_idx // 16) * 16
+    host = torch.empty(off + int(vals_p.nbytes), dtype=torch.uint8,
+                       pin_memory=pinned)
+    h = host.numpy()
+    h[:n_idx] = np.ascontiguousarray(idx_p, dtype=np.int32).view(np.uint8)
+    h[off:] = np.ascontiguousarray(vals_p).reshape(-1).view(np.uint8)
+    return host, off
+
+
 def _scatter_single(buf, idx_p: np.ndarray, vals_p: np.ndarray):
-    """Ship the padded (idx, vals) payload and scatter it into a copy of
-    ``buf`` on buf's device."""
+    """Ship the padded (idx, vals) payload in one host->device copy (as
+    the reference's one device_put of both) and scatter it into a copy
+    of ``buf`` on buf's device."""
     dev = buf.device
-    return delta_scatter(buf.reshape(-1), _put(idx_p, dev),
-                         _put(vals_p, dev)).view(buf.shape)
+    host, off = _stage_payload(idx_p, vals_p, pinned=dev.type == "cuda")
+    pay = host.to(dev, non_blocking=True) if dev.type == "cuda" else host
+    n = int(idx_p.size)
+    return delta_scatter(buf.reshape(-1), pay[:4 * n].view(torch.int32),
+                         pay[off:].view(buf.dtype)).view(buf.shape)
 
 
 def _evict_chain_over_bounds_locked() -> None:

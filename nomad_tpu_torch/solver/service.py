@@ -25,7 +25,7 @@ from ..scheduler.util import shuffled_order
 from .binpack import (
     MAX_SKIP, WAVE_DEVICE_CAP_STEPS, PlacementBatch, PreemptState,
     PreemptTables, make_node_const, make_node_state, wavefront_buffer_size)
-from .system import solve_system
+from .system import packed_views, solve_system_packed
 
 
 class PackedLane:
@@ -358,11 +358,12 @@ def solve_system_arrays(matrix, usage, feasible: np.ndarray, *,
     """One system eval over every node (reference:
     TpuPlacementService.solve_system, service.py:375-417): pack one lane
     from node-axis arrays as pack_lane_arrays does, fit and score every
-    node through solve_system on ``device`` (default ``cuda``), and map
-    the result back to node order. Returns (lane, chosen, scores) over
-    the real nodes in original order: chosen[k] is node k's shuffled
-    position where it fits, else -1 (``placements(lane, chosen)`` maps
-    it back to k and its id), scores[k] its binpack score."""
+    node through solve_system_packed on ``device`` (default ``cuda``),
+    and map the result back to node order. Returns (lane, chosen,
+    scores) over the real nodes in original order: chosen[k] is node k's
+    shuffled position where it fits, else -1 (``placements(lane,
+    chosen)`` maps it back to k and its id), scores[k] its binpack
+    score."""
     dev = resolve_device(device)
     lane = pack_lane_arrays(
         matrix, usage, feasible, ask=ask, count=1, n_places=1,
@@ -370,11 +371,11 @@ def solve_system_arrays(matrix, usage, feasible: np.ndarray, *,
         mhz_per_core=mhz_per_core, cores_free=cores_free,
         static_ports_free=static_ports_free, n_dyn_ports=n_dyn_ports,
         spread_alg=spread_alg, dtype_name=dtype_name, device=dev)
-    fit, score = solve_system(lane.const, lane.init, lane.batch,
-                              spread_alg=spread_alg,
-                              dtype_name=lane.dtype_name, device=dev)
-    fit = fit.cpu().numpy()
-    score = score.cpu().numpy()
+    # one upload, one launch, and fit and score back in one copy
+    out, N, dt = solve_system_packed(lane.const, lane.init, lane.batch,
+                                     spread_alg=spread_alg,
+                                     dtype_name=lane.dtype_name, device=dev)
+    fit, score = (t[0].numpy() for t in packed_views(out.cpu(), 1, N, dt))
     n = matrix.n_real
     inv = np.empty(n, dtype=np.int64)
     inv[np.asarray(lane.order, dtype=np.int64)] = np.arange(n)

@@ -834,3 +834,53 @@ def test_kill_switches_keep_decisions(gen_world, monkeypatch):
     st = resident.stats()
     assert st["entries"] == st["chain_entries"] == 0
     assert st["bytes_shipped_total"] == 0
+
+
+def test_promotions_ship_one_staged_payload_each(gen_world, monkeypatch):
+    """Each promotion ships its padded (idx, vals) payload as one staged
+    buffer (one host->device copy on a card): the payloads equal, in
+    order, the ones the reference's _scatter_single ships in its one
+    device_put, and the counters equal the reference's."""
+    h, nodes, filler, lanes = gen_world
+    import copy
+    lanes = [copy.copy(ln) for ln in lanes]
+    for ln in lanes:
+        ln.init = type(ln.init)(*(np.array(a) for a in ln.init))
+    store = h.state
+    staged, shipped = [], []
+    real_stage, real_ref = resident._stage_payload, constcache._scatter_single
+
+    def stage(idx_p, vals_p, pinned):
+        host_buf, off = real_stage(idx_p, vals_p, pinned)
+        n = idx_p.size
+        staged.append((host_buf[:4 * n].view(torch.int32).numpy().copy(),
+                       host_buf[off:].numpy().copy()))
+        return host_buf, off
+
+    def ref_scatter(buf, shape, dtype_str, idx_p, vals_p):
+        shipped.append((np.array(idx_p),
+                        np.ascontiguousarray(vals_p).view(np.uint8).copy()))
+        return real_ref(buf, shape, dtype_str, idx_p, vals_p)
+
+    monkeypatch.setattr(resident, "_stage_payload", stage)
+    monkeypatch.setattr(constcache, "_scatter_single", ref_scatter)
+    _set_token(lanes, store)
+    for gen in range(3):
+        if gen:
+            k = 20 + gen
+            store.upsert_allocs([mock.alloc_for(filler, nodes[k],
+                                                index=960 + gen)])
+            _set_token(lanes, store)
+            for li in (0, 2):
+                _charge(lanes, li, [k], (100.0, 64.0, 150.0))
+        _assert_outputs_equal(_dispatch_both(lanes))
+        want, got = constcache.stats(), resident.stats()
+        for key in STAT_KEYS:
+            assert got[key] == want[key], (key, got[key], want[key], gen)
+        assert len(staged) == got["delta_promotions"]
+    assert len(staged) == len(shipped) > 0
+    for (idx, vals), (ridx, rvals) in zip(staged, shipped):
+        np.testing.assert_array_equal(idx, ridx)
+        np.testing.assert_array_equal(vals, rvals)
+    for buf, shadow in resident.chain_entries():
+        assert same_bytes(host(buf), shadow)
