@@ -128,10 +128,33 @@ Phases (any failure raises and the script exits nonzero with no result):
                 coord_scatter against its plain version at g3's shape,
                 timed. Every grid's decisions equal the one-card route's
                 bit for bit.
-  Phases 4-11 reset the launch counts just before and read them just
+ 12. dispatch -- the dispatch layer at full width (32 eval threads a
+                barrier, e_pad_hint 32, float32): the guard's CUDA init
+                probe passes with the breaker closed; SolveBarrier at depth
+                1 and 2 on phase 4's 32 headline lanes, phase 5's dense
+                groups and phase 7's 32 windowed tier-5 lanes, and one
+                LpqBarrier generation of 32 LP lanes, each equal bit for
+                bit to fuse_and_solve plus the cross-lane fixpoint (or
+                solve_queue) called directly; 8 barriers of the 32
+                headline lanes at once at depth 1 and at depth 2 (median
+                of 3: wall time until every result is in, each lane's
+                wait, the pipeline's prepare stages and most dispatches in
+                flight, launches; decisions equal); then a fault drill: a
+                hang at solver.dispatch under a 0.5 s deadline gives every
+                waiter DispatchFailed("timeout") and trips the breaker
+                (threshold 2), which drops the resident set and the arena;
+                with solver.probe held and then cleared, the breaker closes
+                through the real subprocess probe (it loads the kernel
+                library and launches the delta scatter) and the headline
+                barrier gives the same bits from a fresh upload. Fails if a
+                dispatch of the main-path steps timed out or raised, or if
+                the breaker is not closed at the end.
+  Phases 4-12 reset the launch counts just before and read them just
   after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
-  to the plain versions on the same fused inputs.
+  to the plain versions on the same fused inputs. The kernels line's
+  ``barrier_launches`` are phase 12's: its depth-2 barrier generation of
+  each input and its LpqBarrier generation.
 
 Prints a full JSON report line, the card line, a {"kernels": [...]} line,
 and last the contract line {"ok": true, "device": {...}}.
@@ -3412,6 +3435,337 @@ def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
 
 
 # --------------------------------------------------------------------------
+# slice 11: the dispatch layer (the guard's deadline and breaker, the solve
+# barrier and its pipeline)
+
+DISPATCH_BARRIERS = 8               # barriers of N_EVALS lanes (step 3)
+DISPATCH_REPEATS = 3                # runs of step 3 at each depth
+DRILL_DEADLINE_S = 0.5              # the fault drill's watchdog deadline
+DRILL_ENV = {"NOMAD_TPU_TORCH_DISPATCH_TIMEOUT": str(DRILL_DEADLINE_S),
+             "NOMAD_TPU_TORCH_BREAKER_THRESHOLD": "2",
+             "NOMAD_TPU_TORCH_BREAKER_BACKOFF": "0.2",
+             "NOMAD_TPU_TORCH_BREAKER_BACKOFF_MAX": "1.0",
+             "NOMAD_TPU_TORCH_BREAKER_PROBE_TIMEOUT": "120"}
+
+
+def wait_until(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(1e-4)
+
+
+def arrived(barrier, k):
+    """Has the barrier's k-th lane of its open generation arrived?"""
+    with barrier._cv:
+        return len(barrier._waiting) >= k
+
+
+def run_barriers(batch, barriers, lanes, *, in_order=True):
+    """Drive ``barriers`` (each with one thread per lane of ``lanes``) at
+    once and return (outcomes per barrier, each lane's wait ms, the wall
+    ms until every outcome was in, the most pipelined dispatches seen in
+    flight). ``in_order``: threads start round-robin over the barriers,
+    each after its barrier's previous lane arrived, so every generation
+    holds its lanes in input order (the fixpoint breaks priority ties by
+    arrival order) and compares with the direct solve of ``lanes``."""
+    n = len(lanes)
+    outs = [[None] * n for _ in barriers]
+    waits = [[None] * n for _ in barriers]
+
+    def work(b, i):
+        t0 = time.perf_counter()
+        try:
+            outs[b][i] = barriers[b].solve(lanes[i])
+        except Exception as e:  # noqa: BLE001 -- the caller reads it
+            outs[b][i] = e
+        finally:
+            waits[b][i] = (time.perf_counter() - t0) * 1e3
+
+    peak = [0]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], batch.pipeline_state()["in_flight"])
+            time.sleep(2e-4)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    threads = []
+    t0 = time.perf_counter()
+    try:
+        for i in range(n):
+            for b, bar in enumerate(barriers):
+                t = threading.Thread(target=work, args=(b, i), daemon=True)
+                t.start()
+                threads.append(t)
+                if in_order and i < n - 1:
+                    wait_until(lambda: arrived(bar, i + 1), 60,
+                               f"lane {i} at barrier {b}")
+        for t in threads:
+            t.join(600)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        stop.set()
+        sampler.join(10)
+    assert not any(t.is_alive() for t in threads), "a waiter wedged"
+    return outs, waits, wall_ms, peak[0]
+
+
+def direct_solve(batch, lanes):
+    """What a barrier generation must give: fuse_and_solve plus the
+    cross-lane fixpoint on a fresh ledger, called directly."""
+    res = batch.fuse_and_solve(lanes, device=DEVICE, e_pad_hint=N_EVALS)
+    batch._cross_lane_fixpoint(lanes, res, {}, device=DEVICE)
+    return res
+
+
+def outcomes_ok(np, outs, want, what):
+    for b, res in enumerate(outs):
+        for r in res:
+            if isinstance(r, Exception):
+                raise AssertionError(f"{what}: barrier {b} raised") from r
+        same_results(np, res, want, f"{what} barrier {b}")
+
+
+def dispatch_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
+                   tp, world, card):
+    """The dispatch layer at full width (10,000 nodes padded to 16,384,
+    float32, 32 eval threads a barrier, e_pad_hint 32):
+      1. the guard: the CUDA init probe passes, the breaker is closed;
+      2. SolveBarrier at depth 1 and at depth 2 on the headline's 32 wave
+         lanes, the dense slice's three groups and the tier-5 windowed
+         lanes, each equal to fuse_and_solve plus the fixpoint called
+         directly, bit for bit; one LpqBarrier generation under the
+         deadline equal to solve_queue;
+      3. 8 barriers of the 32 headline lanes at once, at depth 1 and at
+         depth 2, 3 runs each: wall time until every result is in, each
+         lane's barrier wait, the prepare stages the pipeline ran, the most
+         dispatches in flight, the launches; decisions equal at both
+         depths and to the direct solve;
+      4. the fault drill: a hang at solver.dispatch under a 0.5 s deadline
+         and a threshold of 2 gives every waiter DispatchFailed("timeout")
+         and trips the breaker (resident set and arena empty); solver.probe
+         holds it open; once both faults clear, the real subprocess probe
+         closes it (resident set and arena empty again) and the headline
+         barrier gives step 2's bits from a fresh upload.
+    Fails if a main-path dispatch of steps 1-3 timed out or raised, or if
+    the breaker is not closed at the end."""
+    import os
+    from nomad_tpu_torch.faultinject import faults
+
+    # 1. the guard
+    assert guard.backend_available() is True, guard.state()
+    st0 = guard.state()
+    assert st0["checked"] and st0["ok"], st0
+    assert st0["breaker"]["state"] == guard.BREAKER_CLOSED, st0["breaker"]
+    log(f"dispatch layer [{card}]: guard checked={st0['checked']} "
+        f"ok={st0['ok']} breaker={st0['breaker']['state']} "
+        f"dispatch so far {st0['dispatch']}")
+
+    # 2. barriers against the direct solve
+    t0 = time.perf_counter()
+    head = pack_lanes(np, tp, svc, world, "float32", kind="plain",
+                      n_lanes=N_EVALS)
+    dense_lanes = slice2_lanes(np, tp, svc, world, "float32",
+                               n_spread=N_EVALS)
+    windowed = tier5_lanes(np, tp, svc, world, "float32", n_lanes=PW_EVALS,
+                           n_place=PW_PLACE)
+    matrix, usage, feasible = world
+    lp_lanes = [svc.pack_lane_arrays(
+        matrix, usage, feasible, ask=ASK, count=LPQ_PLACE,
+        n_places=LPQ_PLACE, eval_id=f"lpq-eval-{k:06d}",
+        state_index=STATE_INDEX, device=DEVICE) for k in range(N_EVALS)]
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    inputs = (("wave headline", head), ("dense slice", dense_lanes),
+              ("tier-5 windowed", windowed))
+    wants, checks, barrier_launches = {}, [], {}
+    for what, lanes in inputs:
+        t1 = time.perf_counter()
+        want = direct_solve(batch, lanes)
+        direct_ms = (time.perf_counter() - t1) * 1e3
+        wants[what] = want
+        for depth in (1, 2):
+            bar = batch.SolveBarrier(len(lanes), depth=depth,
+                                     e_pad_hint=N_EVALS, device=DEVICE)
+            kernels.reset_launches()
+            outs, waits, wall_ms, _ = run_barriers(batch, [bar], lanes)
+            launches = {k.name: k.launches for k in kernels.KERNELS
+                        if k.launches}
+            outcomes_ok(np, outs, want, f"{what} depth {depth}")
+            if depth == 2:
+                for k, v in launches.items():
+                    barrier_launches[k] = barrier_launches.get(k, 0) + v
+            checks.append(dict(input=what, lanes=len(lanes), depth=depth,
+                               wall_ms=wall_ms, direct_ms=direct_ms,
+                               wait_ms_median=statistics.median(waits[0]),
+                               launches=launches))
+            log(f"dispatch layer [{card}]: {what} ({len(lanes)} lanes) "
+                f"through SolveBarrier depth {depth}: equal to the direct "
+                f"solve bit for bit; wall {wall_ms:.2f} ms (direct "
+                f"{direct_ms:.2f} ms), median lane wait "
+                f"{statistics.median(waits[0]):.2f} ms; launches {launches}")
+    for lane, res in zip(head, wants["wave headline"]):
+        check_capacity(np, lane, res[0], lane.batch.ask_cpu.shape[0])
+        assert bool(np.all(np.isfinite(res[1])))
+    for lane, res in zip(windowed, wants["tier-5 windowed"]):
+        check_preempt_lane(np, lane, res[0], res[3],
+                           lane.batch.ask_cpu.shape[0])
+    t1 = time.perf_counter()
+    lp_want = lpq.solve_queue(lp_lanes, {}, device=DEVICE)
+    lp_direct_ms = (time.perf_counter() - t1) * 1e3
+    lbar = lpq.LpqBarrier(len(lp_lanes), device=DEVICE)
+    kernels.reset_launches()
+    outs, waits, lp_wall_ms, _ = run_barriers(batch, [lbar], lp_lanes)
+    lp_launches = {k.name: k.launches for k in kernels.KERNELS
+                   if k.launches}
+    outcomes_ok(np, outs, lp_want, "LpqBarrier")
+    assert lp_launches.get("lp_relax") == 1, lp_launches
+    for k, v in lp_launches.items():
+        barrier_launches[k] = barrier_launches.get(k, 0) + v
+    log(f"dispatch layer [{card}]: LpqBarrier ({len(lp_lanes)} lanes x "
+        f"{LPQ_PLACE}) under the deadline: equal to solve_queue; wall "
+        f"{lp_wall_ms:.2f} ms (direct {lp_direct_ms:.2f} ms); launches "
+        f"{lp_launches}")
+
+    # 3. pipelining: 8 barriers of the headline lanes at once
+    runs = {1: [], 2: []}
+    for _ in range(DISPATCH_REPEATS):
+        for depth in (1, 2):
+            bars = [batch.SolveBarrier(N_EVALS, depth=depth,
+                                       e_pad_hint=N_EVALS, device=DEVICE)
+                    for _ in range(DISPATCH_BARRIERS)]
+            staged0 = batch.pipeline_state()["staged_total"]
+            kernels.reset_launches()
+            outs, waits, wall_ms, peak = run_barriers(batch, bars, head)
+            launches = {k.name: k.launches for k in kernels.KERNELS
+                        if k.launches}
+            staged = batch.pipeline_state()["staged_total"] - staged0
+            outcomes_ok(np, outs, wants["wave headline"],
+                        f"8 barriers depth {depth}")
+            flat = [w for ws in waits for w in ws]
+            runs[depth].append(dict(
+                wall_ms=wall_ms, wait_ms_median=statistics.median(flat),
+                wait_ms_max=max(flat), staged_total=staged,
+                peak_in_flight=peak, launches=launches))
+    pipeline = {}
+    for depth, rs in runs.items():
+        med = sorted(rs, key=lambda r: r["wall_ms"])[len(rs) // 2]
+        pipeline[depth] = dict(med, wall_ms_all=[r["wall_ms"] for r in rs])
+        log(f"dispatch layer [{card}]: {DISPATCH_BARRIERS} barriers x "
+            f"{N_EVALS} lanes at depth {depth}: wall until every result "
+            f"{med['wall_ms']:.2f} ms (median of {len(rs)}: "
+            f"{[round(r['wall_ms'], 2) for r in rs]}); lane wait median "
+            f"{med['wait_ms_median']:.2f} ms, max {med['wait_ms_max']:.2f} "
+            f"ms; staged_total {med['staged_total']}; most in flight "
+            f"{med['peak_in_flight']}; launches {med['launches']}; "
+            "decisions equal to the direct solve")
+    st1 = guard.state()
+    main_timeouts = st1["dispatch"]["timeout"] - st0["dispatch"]["timeout"]
+    main_errors = st1["dispatch"]["error"] - st0["dispatch"]["error"]
+    if main_timeouts or main_errors:
+        raise AssertionError(f"main-path dispatches failed: "
+                             f"{main_timeouts} timeouts, {main_errors} "
+                             "errors")
+
+    # 4. the fault drill
+    saved = {k: os.environ.get(k) for k in DRILL_ENV}
+    os.environ.update(DRILL_ENV)
+    trips0 = st1["breaker"]["trips"]
+    try:
+        faults.arm("solver.probe", "error")
+        faults.arm("solver.dispatch", "hang")
+        half = N_EVALS // 2
+        halves = [head[:half], head[half:]]
+        bars = [batch.SolveBarrier(half, depth=2, e_pad_hint=N_EVALS,
+                                   device=DEVICE) for _ in halves]
+        outcomes = [[None] * half for _ in halves]
+
+        def drill(b, i):
+            try:
+                outcomes[b][i] = bars[b].solve(halves[b][i])
+            except Exception as e:  # noqa: BLE001 -- read below
+                outcomes[b][i] = e
+
+        threads = [threading.Thread(target=drill, args=(b, i), daemon=True)
+                   for b in range(2) for i in range(half)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        drill_ms = (time.perf_counter() - t1) * 1e3
+        assert not any(t.is_alive() for t in threads), "a waiter wedged"
+        kinds = {getattr(o, "kind", type(o).__name__)
+                 for out in outcomes for o in out}
+        assert kinds == {"timeout"}, kinds
+        assert all(isinstance(o, guard.DispatchFailed)
+                   for out in outcomes for o in out)
+        bst = guard.breaker_state()
+        assert bst["state"] != guard.BREAKER_CLOSED, bst
+        assert bst["trips"] == trips0 + 1, bst
+        rs, ar = resident.stats(), batch.arena_state()
+        assert rs["entries"] == 0 and rs["chain_entries"] == 0, rs
+        assert ar["entries"] == 0, ar
+        log(f"dispatch layer [{card}]: hang at solver.dispatch, deadline "
+            f"{DRILL_DEADLINE_S} s, threshold 2: all {N_EVALS} waiters got "
+            f"DispatchFailed('timeout') in {drill_ms:.1f} ms; breaker "
+            f"{bst['state']} (trips {bst['trips']}); resident entries "
+            f"{rs['entries']}, arena free entries {ar['entries']}")
+        # the hang ends: the abandoned runners finish their dispatches
+        faults.disarm("solver.dispatch")
+        wait_until(lambda: not any(
+            t.name == "dispatch-solver.batch" for t in threading.enumerate()),
+            120, "the abandoned dispatch threads")
+        # the probe fault clears: the real subprocess probe closes it
+        faults.disarm("solver.probe")
+        t1 = time.perf_counter()
+        wait_until(lambda: guard.breaker_state()["state"]
+                   == guard.BREAKER_CLOSED, 300, "the breaker to close")
+        recover_s = time.perf_counter() - t1
+        bst = guard.breaker_state()
+        probe = bst["last_probe"]
+        sub = probe["report"].get("subprocess") or {}
+        assert probe["ok"] and sub.get("devices", 0) >= 1, probe
+        rs, ar = resident.stats(), batch.arena_state()
+        assert rs["entries"] == 0 and rs["chain_entries"] == 0, rs
+        assert ar["entries"] == 0, ar
+        log(f"dispatch layer [{card}]: breaker closed {recover_s:.2f} s "
+            f"after the probe fault cleared, through the subprocess probe "
+            f"{sub}; recoveries {bst['recoveries']}; resident entries "
+            f"{rs['entries']}, arena free entries {ar['entries']}")
+    finally:
+        faults.disarm_all()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    misses0 = resident.stats()["misses"]
+    bar = batch.SolveBarrier(N_EVALS, depth=2, e_pad_hint=N_EVALS,
+                             device=DEVICE)
+    outs, _, rerun_ms, _ = run_barriers(batch, [bar], head)
+    outcomes_ok(np, outs, wants["wave headline"], "after recovery")
+    fresh = resident.stats()["misses"] - misses0
+    assert fresh > 0, "no fresh upload after the recovery"
+    st2 = guard.state()
+    assert st2["breaker"]["state"] == guard.BREAKER_CLOSED, st2["breaker"]
+    log(f"dispatch layer [{card}]: the headline barrier after recovery: "
+        f"step 2's bits, {fresh} fresh uploads, wall {rerun_ms:.2f} ms; "
+        f"dispatch counts {st2['dispatch']}; breaker "
+        f"{st2['breaker']['state']}")
+    return dict(pack_ms=pack_ms, checks=checks, lpq=dict(
+        wall_ms=lp_wall_ms, direct_ms=lp_direct_ms, launches=lp_launches),
+        pipeline=pipeline, barrier_launches=barrier_launches,
+        drill=dict(ms=drill_ms, recover_s=recover_s, probe=sub,
+                   trips=bst["trips"], recoveries=bst["recoveries"]),
+        fresh_uploads=fresh, dispatch=st2["dispatch"],
+        main_timeouts=main_timeouts, main_errors=main_errors)
+
+
+# --------------------------------------------------------------------------
 # A/B timing of the redesigned kernels (python3 chip_smoke.py --ab TAG=DIR
 # ... [--ab-kernels NAME,...]): each DIR's sources of AB_SOURCES (DIR
 # "repo" is nomad_tpu_torch/csrc) built into build/ab/lib/TAG and launched
@@ -4184,6 +4538,7 @@ def main(argv=None) -> int:
 
     from nomad_tpu_torch import kernels
     from nomad_tpu_torch.solver import batch, dense, service as svc, system
+    from nomad_tpu_torch.solver import guard
     from nomad_tpu_torch.solver import binpack as bp, lpq, preempt, wave
     from nomad_tpu_torch.parallel import mesh
     from nomad_tpu_torch.solver import resident
@@ -4258,6 +4613,8 @@ def main(argv=None) -> int:
                   mesh, kernels, resident, StateStore, svc, tp, world,
                   args.seed)
     kres += mdres["kernels"] + [mlres["kernel"], mrres["kernel"]]
+    dlres = phase("dispatch layer", dispatch_phase, np, torch, batch, guard,
+                  lpq, kernels, resident, svc, tp, world, card)
 
     def pick(kname, **kw):
         return next(r for r in kres if r["name"] == kname
@@ -4288,6 +4645,7 @@ def main(argv=None) -> int:
             source=f"nomad_tpu_torch/csrc/{k.source}",
             replaces=k.replaces.split()[0],
             launches=path["launches"][k.name],
+            barrier_launches=dlres["barrier_launches"].get(k.name, 0),
             max_abs_err=max(x["max_abs_err"] for x in kres
                             if x["name"] == k.name),
             ms=r["ms"], device_ms=r.get("device_ms"),
@@ -4302,7 +4660,7 @@ def main(argv=None) -> int:
                   slice=sres, dense_slice=dres, system=yres,
                   preempt_slice=pres, lpq_slice=qres, residency=rres,
                   wavefront=wpath, mesh_dense=mdres, mesh_wave=mwres,
-                  mesh_lp=mlres, mesh_residency=mrres,
+                  mesh_lp=mlres, mesh_residency=mrres, dispatch=dlres,
                   build_s=info["seconds"], phase_s=phase_s,
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")

@@ -9,9 +9,10 @@ LP tier and the cross-lane fixpoint, slice 5 device residency (every
 dispatch's tables ship through a content-keyed resident buffer set on
 the card, advanced by journal-covered deltas) and the in-kernel
 wavefront, slice 6 the mesh route (a dispatch sharded over an (evals,
-nodes) grid of cells) and the stack arena: a lane's packed arrays go
-in, the chosen node per placement (and, with preemption, the allocs it
-evicts) comes out.
+nodes) grid of cells) and the stack arena, slice 11 the dispatch layer
+(the solve barrier and its pipeline under the dispatch guard's deadline
+and circuit breaker): a lane's packed arrays go in, the chosen node per
+placement (and, with preemption, the allocs it evicts) comes out.
 
     scheduler/util.py   deterministic node shuffle (splitmix64 Fisher-Yates)
     tensor/pack.py      NodeMatrix / UsageState / SpreadInfo / distinct
@@ -31,9 +32,13 @@ evicts) comes out.
     solver/preempt.py   the two preemption kernels' plain versions and
                         wrappers, and their lane solves
     solver/service.py   PackedLane, pack_lane_arrays, placements,
-                        evictions, solve_system_arrays
+                        evictions, dispatch_lane, solve_system_arrays
     solver/batch.py     fuse_lanes / fuse_and_solve across evals, the
-                        stack arena, the cross-lane fixpoint
+                        stack arena, the cross-lane fixpoint,
+                        SolveBarrier and the dispatch pipeline
+    solver/guard.py     the dispatch guard: init probe, watchdog
+                        deadline (run_dispatch), circuit breaker
+    faultinject.py      named fault points (error / delay / hang)
     parallel/mesh.py    grids of cells, the spec table, the sharded
                         transports, mesh_solve / mesh_lpq /
                         mesh_delta_scatter

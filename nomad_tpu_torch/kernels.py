@@ -41,8 +41,9 @@ _I = ctypes.c_int
 
 class Kernel:
     """One hand-written kernel: its source, the TPU program it replaces,
-    its C entry points per dtype, and ``launches``, a plain count of the
-    launches made through ``launch``.
+    its C entry points per dtype, and ``launches``, the count of the
+    launches made through ``launch`` (exact under concurrent dispatches:
+    ``count_launch`` bumps it under a lock).
 
     Every entry point takes its tensors as one array of device pointers
     and its ints as one int array, each in the C function's order, then
@@ -60,6 +61,7 @@ class Kernel:
         # size its last launch used
         self.cluster_symbol = cluster_symbol
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._fns: Dict[torch.dtype, object] = {}
         self._lib = None
 
@@ -88,6 +90,16 @@ class Kernel:
             self._fns[dtype] = fn
         return fn
 
+    def count_launch(self) -> None:
+        """Add one launch to ``launches``; pipelined dispatches launch
+        from several threads at once, and ``+=`` alone can lose one."""
+        with self._count_lock:
+            self.launches += 1
+
+    def reset_count(self) -> None:
+        with self._count_lock:
+            self.launches = 0
+
     def launch(self, dtype: torch.dtype, tensors, ints):
         """Launch on the current stream with the tensors' device pointers
         (an int in ``tensors`` is taken as a device pointer already; the
@@ -106,7 +118,7 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with "
                                f"cudaError_t {rc}")
-        self.launches += 1
+        self.count_launch()
 
 
 WAVE_COMPACT = Kernel(
@@ -200,7 +212,7 @@ KERNELS = (WAVE_BLOCK, WAVE_COMPACT, DENSE_SCAN, SYSTEM_FIT, WAVE_PREEMPT,
 
 def reset_launches() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.reset_count()
 
 
 def _nvcc() -> str:

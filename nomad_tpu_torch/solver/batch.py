@@ -26,8 +26,18 @@ chooses, and wave and windowed-preemption groups split their eval axis
 over the cells (parallel/mesh.py); dense preemption groups stay on the
 first cell. ``_cross_lane_fixpoint`` settles conflicts between the lanes
 of one generation against a node-id-keyed capacity ledger (the LP tier
-runs it after its greedy dispatch). The solve barrier and the dispatch
-pipeline of the reference come with a later slice.
+runs it after its greedy dispatch).
+
+``SolveBarrier`` is the rendezvous of one batch of eval threads: each
+thread hands in its lane and blocks; when every participant has arrived
+or finished, the generation's lanes fuse into one dispatch under the
+dispatch guard's watchdog (solver/guard.py), then the fixpoint, and each
+thread wakes with its lane's result, or with the DispatchFailed every
+participant of a failed generation gets. At depth 1 the last arriver
+dispatches; at depth > 1 the generation goes to the process-wide
+dispatch pipeline, whose intake thread stacks it into arena buffers
+while up to ``depth`` earlier generations are in flight, and results
+are delivered in generation order.
 
 Knobs (read at each use):
   NOMAD_TPU_TORCH_BATCH_FIXPOINT     0 turns the cross-lane fixpoint off
@@ -35,21 +45,38 @@ Knobs (read at each use):
                                      generation (kill switch)
   NOMAD_TPU_TORCH_PACK_ARENA_ENTRIES free arena entries kept (8)
   NOMAD_TPU_TORCH_PACK_ARENA_MB      free arena MiB kept (512)
+  NOMAD_TPU_TORCH_DISPATCH_DEPTH     fused dispatches in flight across the
+                                     process (2; 1 is the kill switch:
+                                     the last arriver dispatches)
+  NOMAD_TPU_TORCH_DISPATCH_TIMEOUT   the watchdog deadline of each
+                                     dispatch, seconds (30; guard.py)
+  NOMAD_TPU_TORCH_BREAKER_THRESHOLD  consecutive failed dispatches that
+                                     trip the breaker (3; guard.py, with
+                                     NOMAD_TPU_TORCH_BREAKER_BACKOFF,
+                                     _BACKOFF_MAX, _PROBE_TIMEOUT)
 """
 from __future__ import annotations
 
+import functools
+import logging
 import os
+import queue
 import threading
+import time
 from collections import OrderedDict
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..device import DeviceLike, resolve_device
 from ..parallel import mesh
+from .guard import dispatch_deadline_s, run_dispatch
 from .service import PackedLane
 from .wave import solve_lane_fused
+
+_log = logging.getLogger(__name__)
 
 # one device, or a list of cells (a device may appear more than once)
 CellsLike = Union[DeviceLike, Sequence[DeviceLike]]
@@ -64,6 +91,115 @@ def _e_bucket(e: int) -> int:
         if e <= b:
             return b
     return int(2 ** np.ceil(np.log2(e)))
+
+
+# Safety valve: if a straggler thread neither finishes nor reaches the
+# barrier within this window (a bug, not a normal state), dispatch without
+# it rather than wedge every blocked eval.
+BARRIER_TIMEOUT_S = 10.0
+
+
+def dispatch_depth() -> int:
+    """Fused dispatches in flight across the process
+    (NOMAD_TPU_TORCH_DISPATCH_DEPTH, default 2). Depth 1 is the kill
+    switch: every barrier dispatches on its last-arriving thread. Depth
+    > 1 routes dispatches through the pipeline, so one generation's host
+    stacking overlaps another's device work."""
+    try:
+        d = int(os.environ.get("NOMAD_TPU_TORCH_DISPATCH_DEPTH", "2"))
+    except ValueError:
+        return 1
+    return max(1, min(d, 32))
+
+
+class _DispatchPipeline:
+    """Process-wide dispatch executor: a FIFO intake thread runs each
+    job's prepare stage, then starts one in-flight thread per job, never
+    more than ``depth`` at once. Jobs of every barrier share the bound."""
+
+    def __init__(self, depth: int):
+        self.depth = depth
+        self._sem = threading.Semaphore(depth)
+        self._q: "queue.Queue" = queue.Queue()
+        self._in_flight = 0
+        self._staged = 0
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(
+            target=self._intake, daemon=True,
+            name="solver-dispatch-pipeline")
+        self._thread.start()
+
+    def submit(self, job, prepare=None) -> None:
+        """``prepare`` (optional) is the job's host staging, the arena
+        fill of its generation: the intake thread runs it BEFORE waiting
+        for a dispatch slot, so generation g+1's stacking overlaps
+        generation g's dispatch instead of holding a slot."""
+        self._q.put((job, prepare))
+
+    def stop(self) -> None:
+        self._q.put(None)
+
+    def counts(self) -> Tuple[int, int]:
+        """(dispatches in flight, prepare stages run)."""
+        with self._lock:
+            return self._in_flight, self._staged
+
+    def _intake(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            job, prepare = item
+            if prepare is not None:
+                try:
+                    prepare()
+                    with self._lock:
+                        self._staged += 1
+                except Exception:  # noqa: BLE001 -- staging is best
+                    # effort: the job re-derives (and fails under its
+                    # watchdog)
+                    _log.exception("dispatch prepare stage failed")
+            # the depth slot is released by the job's thread
+            self._sem.acquire()
+            with self._lock:
+                self._in_flight += 1
+            threading.Thread(target=self._run_job, args=(job,),
+                             daemon=True,
+                             name="solver-dispatch-inflight").start()
+
+    def _run_job(self, job) -> None:
+        try:
+            job()
+        except Exception:  # noqa: BLE001 -- jobs wake their own waiters;
+            _log.exception("dispatch job failed")   # this is a backstop
+        finally:
+            with self._lock:
+                self._in_flight -= 1
+            self._sem.release()
+
+
+_PIPELINE: Optional[_DispatchPipeline] = None
+_PIPELINE_LOCK = threading.Lock()
+
+
+def _get_pipeline(depth: int) -> _DispatchPipeline:
+    global _PIPELINE
+    with _PIPELINE_LOCK:
+        if _PIPELINE is None or _PIPELINE.depth != depth:
+            if _PIPELINE is not None:
+                _PIPELINE.stop()
+            _PIPELINE = _DispatchPipeline(depth)
+        return _PIPELINE
+
+
+def pipeline_state() -> dict:
+    """The pipeline's depth knob, its dispatches in flight, the prepare
+    stages it ran, and whether it exists."""
+    with _PIPELINE_LOCK:
+        pipe = _PIPELINE
+    in_flight, staged = pipe.counts() if pipe is not None else (0, 0)
+    return {"depth": dispatch_depth(), "in_flight": in_flight,
+            "staged_total": staged, "active": pipe is not None}
 
 
 def _pad_placement_axis(batch, p_pad: int):
@@ -190,12 +326,15 @@ class _StackArena:
                 ent.pooled = False
         return ent, False
 
-    def release(self, ent) -> None:
+    def release(self, ent, pool: bool = True) -> None:
+        """Check ``ent`` back in; ``pool`` False drops it instead of
+        keeping it in the free list (the stacking of a failed dispatch:
+        nothing derived before a failure outlives the breaker's clear)."""
         if not ent.pooled:
             return
         with self._lock:
             self._in_use -= 1
-            if not _arena_enabled():
+            if not (pool and _arena_enabled()):
                 return
             self._set_writeable(ent, False)
             self._seq += 1
@@ -323,15 +462,22 @@ def fuse_lanes(lanes: List[PackedLane], e_pad_hint: int = 0
     groups: Dict[tuple, List[int]] = {}
     for i, lane in enumerate(lanes):
         groups.setdefault(lane.fuse_key(), []).append(i)
-    return [_fuse_group(lanes, idxs, key, e_pad_hint)
-            for key, idxs in groups.items()]
+    out: List[_FusedGroup] = []
+    try:
+        for key, idxs in groups.items():
+            out.append(_fuse_group(lanes, idxs, key, e_pad_hint))
+    except BaseException:
+        release_groups(out)         # no caller will see these entries
+        raise
+    return out
 
 
-def release_groups(groups: List[_FusedGroup]) -> None:
-    """Return the groups' arena entries to the pool."""
+def release_groups(groups: List[_FusedGroup], pool: bool = True) -> None:
+    """Return the groups' arena entries to the pool (``pool`` False:
+    check them in without pooling them)."""
     for g in groups:
         if g.entry is not None:
-            _ARENA.release(g.entry)
+            _ARENA.release(g.entry, pool=pool)
             g.entry = None
 
 
@@ -349,6 +495,16 @@ def resolve_cells(device: CellsLike = None) -> List[torch.device]:
             raise ValueError("an empty list of cells")
         return [resolve_device(d) for d in device]
     return [resolve_device(device)]
+
+
+def dispatch_cell(cells: List[torch.device]) -> torch.device:
+    """The device a dispatch's watchdog thread enters: the first cell,
+    with the constructing thread's current card for a bare ``cuda`` (a
+    new thread starts on card 0)."""
+    c = cells[0]
+    if c.type == "cuda" and c.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return c
 
 
 def _dispatch(g: _FusedGroup, cells: List[torch.device], use_mesh: bool):
@@ -383,9 +539,9 @@ def solve_groups(lanes: List[PackedLane], groups: List[_FusedGroup],
     tables through the resident buffer set, with the first lane's
     table_version and delta_src), map results back to input-lane order,
     and return the groups' arena entries to the pool."""
-    cells = resolve_cells(device)
     results: List = [None] * len(lanes)
     try:
+        cells = resolve_cells(device)
         for g in groups:
             out = _dispatch(g, cells, use_mesh)
             for j, li in enumerate(g.idxs):
@@ -404,18 +560,23 @@ def solve_groups(lanes: List[PackedLane], groups: List[_FusedGroup],
 
 
 def fuse_and_solve(lanes: List[PackedLane], device: CellsLike = None,
-                   use_mesh: bool = True, e_pad_hint: int = 0
-                   ) -> List[tuple]:
+                   use_mesh: bool = True, e_pad_hint: int = 0,
+                   staged: Optional[dict] = None) -> List[tuple]:
     """Group lanes by static-shape signature, solve each group as ONE
     batched dispatch, and return per-lane host numpy (chosen int64,
     scores, n_yielded int64) in input order; a preemption lane's tuple
     adds evict_rows (P, A) bool. ``device`` is one device or a list of
     cells (default: every CUDA card; with one card there is no grid).
     ``use_mesh`` False keeps every group on the first cell;
-    ``e_pad_hint`` pins wave groups' eval axis to at least that bucket."""
+    ``e_pad_hint`` pins wave groups' eval axis to at least that bucket.
+    ``staged`` may carry ``"groups"``, the lanes already stacked by the
+    pipeline's prepare stage: taken out of the dict (so exactly one
+    holder returns their arena entries), else the lanes stack here."""
     cells = resolve_cells(device)
-    return solve_groups(lanes, fuse_lanes(lanes, e_pad_hint),
-                        device=cells, use_mesh=use_mesh)
+    groups = staged.pop("groups", None) if staged else None
+    if groups is None:
+        groups = fuse_lanes(lanes, e_pad_hint)
+    return solve_groups(lanes, groups, device=cells, use_mesh=use_mesh)
 
 
 def _cross_lane_fixpoint(lanes: List[PackedLane], results: List,
@@ -567,3 +728,228 @@ def _resolve_lane_conflicts(lane, res, conflicted, accepted_own, ledger,
         nid = lane.node_ids[order[pos]]
         charge(lane, entry(lane, pos, nid), pi)
     return (chosen, scores, n_yielded)
+
+
+# --------------------------------------------------------------------------
+# The solve barrier (reference batch.py SolveBarrier)
+
+class SolveBarrier:
+    """Rendezvous point for one batch of eval threads.
+
+    Threads call solve() (blocking) or done() (on exit). When arrivals +
+    finished == participants the batch dispatches:
+
+      - depth 1 (NOMAD_TPU_TORCH_DISPATCH_DEPTH=1, the kill switch): the
+        LAST thread to arrive runs the fused dispatch and the fixpoint
+        for everyone under one watchdog deadline and wakes them;
+      - depth > 1 (default): the generation goes to the process-wide
+        dispatch pipeline and the arriving thread joins the waiters. Up
+        to ``depth`` fused dispatches run in flight, each under its OWN
+        watchdog; completions apply in GENERATION ORDER, so the
+        fixpoint's ledger charges generation g before g+1 even when
+        g+1's device work ends first.
+
+    ``device`` is the cells of every dispatch, as for fuse_and_solve
+    (default: every CUDA card). They are resolved here, so a machine
+    with no card raises at construction, never as a DispatchFailed
+    under the watchdog; for a CUDA cell the kernel library is built or
+    loaded here too, so no build runs under a dispatch deadline."""
+
+    def __init__(self, participants: int, use_mesh: bool = True,
+                 e_pad_hint: int = 0, depth: Optional[int] = None,
+                 plan_group_hint=None, device: CellsLike = None):
+        self._cells = resolve_cells(device)
+        self._enter = dispatch_cell(self._cells)
+        if any(c.type == "cuda" for c in self._cells):
+            kernels.load()
+        self._cv = threading.Condition()
+        self._participants = participants
+        self._finished = 0
+        self._waiting: List[Tuple[PackedLane, dict]] = []
+        self._use_mesh = use_mesh
+        self._generation = 0
+        self._depth = dispatch_depth() if depth is None else max(1, depth)
+        # called with the lane count each time a generation's results are
+        # delivered: each of those evals is about to submit a plan, so
+        # the plan applier can commit the generation as one group
+        self._plan_group_hint = plan_group_hint
+        # generation-ordered completion for the pipelined mode
+        self._complete_cv = threading.Condition()
+        self._next_complete = 1
+        # pin wave groups' eval axis to the configured width, not the
+        # momentary batch size
+        self._e_pad_hint = e_pad_hint or participants
+        # the cross-lane fixpoint's per-node capacity ledger; persists
+        # across this batch's generations
+        self._ledger: Dict[str, list] = {}
+
+    def done(self) -> None:
+        """The thread finished its eval (no more solves coming)."""
+        with self._cv:
+            self._finished += 1
+            if self._ready_locked():
+                self._dispatch_locked()
+
+    def solve(self, lane: PackedLane):
+        """Block until the batch dispatches; returns this lane's result
+        tuple (as fuse_and_solve's). A failed dispatch raises its
+        DispatchFailed in EVERY participating thread."""
+        cell: dict = {}
+        with self._cv:
+            self._waiting.append((lane, cell))
+            if self._ready_locked():
+                self._dispatch_locked()
+            while "result" not in cell and "error" not in cell:
+                gen = self._generation
+                if not self._cv.wait(timeout=BARRIER_TIMEOUT_S):
+                    # straggler safety valve: if OUR lane is still queued
+                    # (no dispatch took it), dispatch what we have. Either
+                    # way the cell is re-checked under the condition
+                    # variable: a generation in flight may still be about
+                    # to fill it.
+                    if (self._generation == gen
+                            and any(c is cell for _, c in self._waiting)):
+                        self._dispatch_locked()
+            if "error" in cell:
+                raise cell["error"]
+            return cell["result"]
+
+    def _ready_locked(self) -> bool:
+        return bool(self._waiting
+                    and len(self._waiting) + self._finished
+                    >= self._participants)
+
+    def _fixpoint_needed(self, lanes) -> bool:
+        """The fixpoint's own early-return conditions: a second watchdog
+        is paid only when it can work."""
+        return (os.environ.get("NOMAD_TPU_TORCH_BATCH_FIXPOINT", "1") != "0"
+                and (len(lanes) >= 2 or bool(self._ledger)))
+
+    def _dispatch_locked(self) -> None:
+        batch = self._waiting
+        self._waiting = []
+        self._generation += 1
+        gen = self._generation
+        lanes = [lane for lane, _ in batch]
+
+        if self._depth > 1:
+            # hand the generation to the pipeline; the caller falls back
+            # into its wait loop and is woken by the completion. The
+            # prepare stage stacks the lanes into arena buffers on the
+            # intake thread before a dispatch slot frees up.
+            staged: dict = {}
+            e_pad_hint = self._e_pad_hint
+
+            def _prepare():
+                staged["groups"] = fuse_lanes(lanes, e_pad_hint=e_pad_hint)
+
+            _get_pipeline(self._depth).submit(
+                functools.partial(self._dispatch_job, gen, batch, lanes,
+                                  staged),
+                prepare=_prepare)
+            return
+
+        def solve_batch():
+            results = fuse_and_solve(lanes, device=self._cells,
+                                     use_mesh=self._use_mesh,
+                                     e_pad_hint=self._e_pad_hint)
+            _cross_lane_fixpoint(lanes, results, self._ledger,
+                                 device=self._cells[0])
+            return results
+
+        try:
+            # the fused dispatch and the fixpoint's re-solves run under
+            # the watchdog: a wedged card fails EVERY waiter with
+            # DispatchFailed instead of stranding the batch
+            results = run_dispatch(solve_batch, label="solver.batch",
+                                   device=self._enter)
+            for (_, cell), res in zip(batch, results):
+                cell["result"] = res
+        except Exception as e:  # noqa: BLE001 -- waiters must not strand
+            for _, cell in batch:
+                cell["error"] = e
+        finally:
+            self._hint_plan_group(len(batch))
+            with self._complete_cv:
+                self._next_complete = gen + 1
+            self._cv.notify_all()
+
+    def _dispatch_job(self, gen: int, batch, lanes, staged: dict) -> None:
+        """One in-flight generation, on a pipeline thread: the fused
+        dispatch under its own watchdog, then the generation-ordered
+        fixpoint and wake-up. Every cell gets exactly one result or
+        error, whatever raises where. ``staged`` holds the groups the
+        intake thread stacked, until fuse_and_solve takes them."""
+        results = None
+        err: Optional[Exception] = None
+        try:
+            results = run_dispatch(
+                lambda: fuse_and_solve(
+                    lanes, device=self._cells, use_mesh=self._use_mesh,
+                    e_pad_hint=self._e_pad_hint, staged=staged),
+                label="solver.batch", device=self._enter)
+        except Exception as e:  # noqa: BLE001 -- waiters must not strand
+            err = e
+        finally:
+            # groups nobody took (a failure before fuse_and_solve, or a
+            # watchdog that gave up first; an abandoned runner then finds
+            # none and stacks its own) are checked in here, once, and
+            # not pooled: the dispatch failed
+            left = staged.pop("groups", None)
+            if left is not None:
+                release_groups(left, pool=False)
+        # ordered completion: generation g's ledger charges land before
+        # g+1's. A started job always finishes (the watchdog bounds it),
+        # so the wait ends; the deadline is a last-resort anti-wedge.
+        deadline = time.monotonic() + max(
+            60.0, 2.0 * _barrier_order_timeout())
+        with self._complete_cv:
+            while self._next_complete != gen:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    _log.error("dispatch generation %d gave up waiting for "
+                               "generation %d; proceeding out of order",
+                               gen, self._next_complete)
+                    break
+                self._complete_cv.wait(remaining)
+        try:
+            if err is None and self._fixpoint_needed(lanes):
+                try:
+                    run_dispatch(
+                        lambda: _cross_lane_fixpoint(
+                            lanes, results, self._ledger,
+                            device=self._cells[0]),
+                        label="solver.batch.fixpoint",
+                        device=self._enter)
+                except Exception as e:  # noqa: BLE001 -- same contract
+                    err = e
+        finally:
+            self._hint_plan_group(len(batch))
+            with self._cv:
+                for i, (_, cell) in enumerate(batch):
+                    if err is not None:
+                        cell["error"] = err
+                    else:
+                        cell["result"] = results[i]
+                self._cv.notify_all()
+            with self._complete_cv:
+                if self._next_complete == gen:
+                    self._next_complete = gen + 1
+                self._complete_cv.notify_all()
+
+    def _hint_plan_group(self, n: int) -> None:
+        hint = self._plan_group_hint
+        if hint is None or n <= 0:
+            return
+        try:
+            hint(n)
+        except Exception:  # noqa: BLE001 -- advisory only
+            pass
+
+
+def _barrier_order_timeout() -> float:
+    """How long a pipelined generation waits for its predecessor before
+    going on out of order (predecessors are watchdog-bounded, so this
+    fires only on a bug)."""
+    d = dispatch_deadline_s()
+    return d if d > 0 else 30.0

@@ -36,7 +36,8 @@ kernel follows it, so the two agree to the bit on the card:
 
 Lanes with preemption tables need the host Preemptor over Allocation
 structs in the repair pass; they raise NotImplementedError until the
-structs slice brings it. The guard's dispatch deadline, tracer spans,
+structs slice brings it. ``LpqBarrier`` runs each generation under the
+dispatch guard's watchdog deadline (solver/guard.py); tracer spans,
 ``metrics`` counters and the scheduler hook come with their slices.
 
 Knobs (read at each use):
@@ -56,6 +57,7 @@ import torch
 from .. import kernels
 from ..device import DeviceLike
 from .binpack import BINPACK_MAX
+from .guard import run_dispatch
 from .scoring import _EXP32, _libm
 from .service import PackedLane
 
@@ -844,12 +846,21 @@ class LpqBarrier:
     arriver dispatches the whole generation through solve_queue.
     Multi-task-group evals rendezvous once per task group (generations),
     sharing one free-capacity ledger so later generations see earlier
-    commitments. A dispatch error reaches every waiter of its
-    generation. The dispatch deadline of the reference's guard comes with
-    the guard slice (ROADMAP Queue 1 item 3)."""
+    commitments. Each generation's solve_queue runs under the dispatch
+    guard's watchdog (``run_dispatch(label="solver.lpq")``): a timeout or
+    an error reaches every waiter of its generation as DispatchFailed.
+    ``device`` (one device or a list of cells, default every CUDA card)
+    is resolved here, and a CUDA cell's kernel library is built or
+    loaded here, outside every deadline."""
 
     def __init__(self, participants: int, plan_group_hint=None,
                  device: DeviceLike = None):
+        from .batch import dispatch_cell, resolve_cells
+
+        self._cells = resolve_cells(device)
+        self._enter = dispatch_cell(self._cells)
+        if any(c.type == "cuda" for c in self._cells):
+            kernels.load()
         self._cv = threading.Condition()
         self._participants = participants
         self._finished = 0
@@ -857,7 +868,6 @@ class LpqBarrier:
         self._generation = 0
         self._plan_group_hint = plan_group_hint
         self._ledger: Dict[str, list] = {}
-        self._device = device
 
     def done(self) -> None:
         with self._cv:
@@ -894,7 +904,9 @@ class LpqBarrier:
         self._generation += 1
         lanes = [lane for lane, _ in batch]
         try:
-            results = solve_queue(lanes, self._ledger, device=self._device)
+            results = run_dispatch(
+                lambda: solve_queue(lanes, self._ledger, device=self._cells),
+                label="solver.lpq", device=self._enter)
             for (_, cell), res in zip(batch, results):
                 cell["result"] = res
         except Exception as e:  # noqa: BLE001 -- waiters must not strand

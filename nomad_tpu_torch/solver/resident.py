@@ -598,6 +598,11 @@ def device_put_cached(arrays: Sequence[np.ndarray],
                 ck = miss_keys[j]
                 if ck is None:
                     continue
+                # a concurrent dispatch may have installed the same
+                # content since the lookup: replace it, counted once
+                old = _CACHE.pop(ck, None)
+                if old is not None:
+                    _STATS["resident_bytes"] -= old.nbytes
                 _CACHE[ck] = _Entry(puts[j], arrays[i].nbytes, version)
                 _STATS["resident_bytes"] += arrays[i].nbytes
             _evict_over_bounds_locked()

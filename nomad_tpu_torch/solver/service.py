@@ -8,8 +8,9 @@ distinct_property, device, reserved-core and port tables a dense lane
 needs, and a preemption lane's candidate tables) and the uniform
 PlacementBatch. ``placements`` maps solved shuffled positions back to
 node indexes and ids, ``evictions`` a preemption lane's eviction rows
-back to each chosen node's candidates. ``solve_system_arrays``
-is the system-job entry point (TpuPlacementService.solve_system). Port
+back to each chosen node's candidates. ``dispatch_lane`` solves one
+lane in its own dispatch; ``solve_system_arrays`` is the system-job
+entry point (TpuPlacementService.solve_system). Port
 assignment through NetworkIndex and the TpuPlacement structs come with
 the structs slice.
 """
@@ -343,6 +344,28 @@ def evictions(lane: PackedLane, chosen, evict_rows
     return [(int(n), np.nonzero(rows[k])[0] if n >= 0
              else np.zeros(0, dtype=np.int64))
             for k, n in enumerate(idx.tolist())]
+
+
+def dispatch_lane(lane: PackedLane, device: DeviceLike = None):
+    """Solve ONE lane in its own dispatch (reference service.py
+    dispatch_lane): through wave.solve_lane_fused on ``device`` (default
+    ``cuda``), routed by the lane's own wave gate, its tables through the
+    resident buffer set. Returns host numpy (chosen int64, scores,
+    n_yielded int64), each (P,), plus evict_rows (P, A) bool for a
+    preemption lane. The batched path fuses many lanes through
+    solver/batch.py instead."""
+    from .wave import solve_lane_fused
+
+    def one(tree):
+        return type(tree)(*(np.asarray(a)[None] for a in tree))
+
+    pre = () if lane.ptab is None else (one(lane.ptab), one(lane.pinit))
+    out = solve_lane_fused(
+        one(lane.const), one(lane.init), one(lane.batch), *pre,
+        spread_alg=lane.spread_alg, dtype_name=lane.dtype_name,
+        wave=lane.wavefront_ok(), device=device,
+        cache_version=lane.table_version, delta_src=lane.delta_src)
+    return tuple(np.asarray(o)[0] for o in out)
 
 
 def solve_system_arrays(matrix, usage, feasible: np.ndarray, *,

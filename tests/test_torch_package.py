@@ -81,6 +81,23 @@ def test_residency_modules_load_no_jax_and_nothing_of_the_reference(
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["nomad_tpu_torch.faultinject",
+                                    "nomad_tpu_torch.solver.guard",
+                                    "nomad_tpu_torch.solver.batch"])
+def test_dispatch_layer_modules_load_no_jax_and_nothing_of_the_reference(
+        module):
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_every_port_env_knob_is_documented():
     """Each NOMAD_TPU_TORCH_* variable the port reads is named in the
     README's port section."""
@@ -97,7 +114,16 @@ def test_every_port_env_knob_is_documented():
             "NOMAD_TPU_TORCH_CONST_CACHE_MIN_BYTES",
             "NOMAD_TPU_TORCH_DELTA_STREAM", "NOMAD_TPU_TORCH_DELTA_CHAIN_MB",
             "NOMAD_TPU_TORCH_DELTA_MAX_FRAC",
-            "NOMAD_TPU_TORCH_DELTA_JOURNAL"} <= knobs
+            "NOMAD_TPU_TORCH_DELTA_JOURNAL",
+            "NOMAD_TPU_TORCH_DISPATCH_DEPTH",
+            "NOMAD_TPU_TORCH_DISPATCH_TIMEOUT",
+            "NOMAD_TPU_TORCH_BREAKER_THRESHOLD",
+            "NOMAD_TPU_TORCH_BREAKER_BACKOFF",
+            "NOMAD_TPU_TORCH_BREAKER_BACKOFF_MAX",
+            "NOMAD_TPU_TORCH_BREAKER_PROBE_TIMEOUT",
+            "NOMAD_TPU_TORCH_REPROBE_TIMEOUT",
+            "NOMAD_TPU_TORCH_BACKEND_TIMEOUT",
+            "NOMAD_TPU_TORCH_FAULT_INJECT"} <= knobs
     missing = sorted(k for k in knobs if k not in readme)
     assert not missing, missing
 
