@@ -149,12 +149,44 @@ Phases (any failure raises and the script exits nonzero with no result):
                 barrier gives the same bits from a fresh upload. Fails if a
                 dispatch of the main-path steps timed out or raised, or if
                 the breaker is not closed at the end.
-  Phases 4-12 reset the launch counts just before and read them just
+ 13. structs  -- the port's Node, Job and Allocation structs in, placements
+                out, through TpuPlacementService and the SolveBarrier hook
+                (batch.make_solve_hook) in float32: the headline as 10,000
+                Node structs in a port StateStore and 32 mock.job evals x
+                2,000 on 32 eval threads, two generations (the first's
+                placements written to the store as Allocations between
+                them: the second packs with its usage base caught up
+                through the journal); every struct lane equal bit for bit
+                to pack_lane_arrays' lane from phase 4's arrays (the second
+                generation's usage a fresh pack_usage fold), every
+                placement equal to those array lanes' through a barrier;
+                then one barrier of 8 two-group spread evals (dense; the
+                second group packs against the first's placements at the
+                same node order), a distinct_property lane with a dynamic
+                port, a reserved-core lane, a wave spread lane and a
+                reschedule-penalty lane (cores within the node's
+                reservable set, ports in its dynamic range); one system
+                job through solve_system (equal to solve_system_arrays);
+                8 preemption evals x 500 over the fleet 95% full of
+                priority 10-40 allocs of other jobs (every eviction on the
+                chosen node, of another job, 10 or more priority levels
+                below). The dense and preemption lanes too equal, bit for
+                bit, their lanes from arrays (the distinct_property, core,
+                penalty and candidate tables built from the same
+                snapshot), and their results, eviction rows included,
+                those array lanes' through barriers of their own. Prints pack and materialize host ms per eval
+                (median, max), each generation's wall time, placements per
+                second, pack_cache_stats() and the resident chain's
+                outcomes; no hook falls back to the host and no dispatch
+                fails.
+  Phases 4-13 reset the launch counts just before and read them just
   after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
   to the plain versions on the same fused inputs. The kernels line's
   ``barrier_launches`` are phase 12's: its depth-2 barrier generation of
-  each input and its LpqBarrier generation.
+  each input and its LpqBarrier generation; its ``structs_launches`` are
+  phase 13's struct routes (the array routes its checks compare with run
+  outside the count).
 
 Prints a full JSON report line, the card line, a {"kernels": [...]} line,
 and last the contract line {"ok": true, "device": {...}}.
@@ -3766,6 +3798,841 @@ def dispatch_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
 
 
 # --------------------------------------------------------------------------
+# phase 13: the structs slice -- Node, Job and Allocation structs in,
+# placements out, through TpuPlacementService and the SolveBarrier hook
+
+STRUCT_G2_PLACE = 600               # a second-generation eval's count
+STRUCT_SERIAL_EVALS = 4             # evals re-packed alone for host ms
+STRUCT_DENSE_EVALS = 8              # two-task-group spread evals
+STRUCT_WAVE_SPREAD, STRUCT_PENALTY = 80, 60   # wave_compact lanes' counts
+STRUCT_PREEMPT_EVALS, STRUCT_PREEMPT_PLACE = 8, 500
+STRUCT_PREEMPT_ASK = (1000, 256, 150)
+STRUCT_FILLER_JOBS = 25             # filler jobs a priority tier
+
+
+def struct_fleet(pmock, n):
+    """The headline fleet as Node structs (headline_world's arrays):
+    bench-node-%06d, cpu 2000/4000/8000 MHz over 4/8/16 cores and memory
+    4096/8192/16384 MB by i % 3, 100 GiB of disk, no reserved
+    resources, the default dynamic port range (12,001 free ports);
+    meta.rack = i % 10 and meta.zone = (i // 7) % 3 are the spreads'
+    and the distinct_property lane's attributes."""
+    nodes = []
+    for i in range(n):
+        node = pmock.node(id=f"bench-node-{i:06d}",
+                          name=f"bench-node-{i:06d}")
+        cpu = node.node_resources.cpu
+        cpu.cpu_shares = (2000, 4000, 8000)[i % 3]
+        cpu.total_core_count = (4, 8, 16)[i % 3]
+        cpu.reservable_cores = list(range(cpu.total_core_count))
+        node.node_resources.memory.memory_mb = (4096, 8192, 16384)[i % 3]
+        node.meta = {"rack": str(i % 10), "zone": str((i // 7) % 3)}
+        node.compute_class()
+        nodes.append(node)
+    return nodes
+
+
+def timed_service_class(svc):
+    """TpuPlacementService keeping, for each pack and materialize, the
+    host ms on the wall clock (``pack_ms``, ``mat_ms``: with many eval
+    threads under one interpreter lock, the others' work is in it) and
+    on the calling thread's CPU clock (``pack_cpu_ms``, ``mat_cpu_ms``:
+    the eval's own work), the lanes it packed and the solver results it
+    materialized."""
+    class TimedService(svc.TpuPlacementService):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.lanes, self.results = [], []
+            self.pack_ms, self.mat_ms = [], []
+            self.pack_cpu_ms, self.mat_cpu_ms = [], []
+
+        def pack(self, *a):
+            c0 = time.thread_time()
+            lane = super().pack(*a)
+            self.pack_cpu_ms.append((time.thread_time() - c0) * 1e3)
+            self.lanes.append(lane)
+            self.pack_ms.append(self.last_pack[0])
+            return lane
+
+        def materialize(self, lane, *res):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            out = super().materialize(lane, *res)
+            self.mat_cpu_ms.append((time.thread_time() - c0) * 1e3)
+            self.mat_ms.append((time.perf_counter() - t0) * 1e3)
+            self.results.append(res)
+            return out
+    return TimedService
+
+
+class InOrderBarrier:
+    """A SolveBarrier whose lanes arrive in their threads' ``turn`` order
+    (thread-local), so each generation holds its lanes in eval order,
+    as run_barriers(in_order=True) arranges for array lanes."""
+
+    def __init__(self, barrier):
+        self.barrier = barrier
+        self.local = threading.local()
+
+    def solve(self, lane):
+        k = self.local.turn
+        wait_until(lambda: arrived(self.barrier, k), 600, f"eval {k}")
+        return self.barrier.solve(lane)
+
+
+def alloc_of(st, place, job, tg, eval_id):
+    """The allocation a scheduler makes of one solved placement."""
+    res = place.resources_prebuilt or st.AllocatedResources(
+        tasks=place.task_resources,
+        shared=place.alloc_resources or st.AllocatedSharedResources(
+            disk_mb=tg.ephemeral_disk.size_mb))
+    return st.Allocation(
+        id=st.generate_uuid(), namespace=job.namespace, eval_id=eval_id,
+        name=place.place.name, node_id=place.node.id,
+        node_name=place.node.name, job_id=job.id, job=job,
+        task_group=tg.name, allocated_resources=res,
+        client_status=st.ALLOC_CLIENT_RUNNING, job_version=job.version)
+
+
+def drive_struct_evals(batch, guard, mods, service_cls, snap, evals,
+                       barrier):
+    """One thread per eval, in eval order at the barrier. ``evals`` holds
+    (eval id, job, service keywords, penalty node per place or None).
+    Each thread asks guard.dispatch_allowed() (the scheduler's breaker
+    check), builds its EvalContext and TimedService, and calls the solve
+    hook for each task group of its job in turn; a group's placements
+    enter the plan as allocations before the next group packs (the
+    last group's are left to the caller). Returns ([(service,
+    [placements per group], [allocs])], wall ms)."""
+    st, ctx_cls, place_cls = mods
+    ordered = InOrderBarrier(barrier)
+    hook = batch.make_solve_hook(ordered)
+    ready = snap.ready_nodes_in_pool("default")
+    out = [None] * len(evals)
+
+    def work(k):
+        eval_id, job, kw, penalties = evals[k]
+        ordered.local.turn = k
+        try:
+            assert guard.dispatch_allowed(), "the breaker is open"
+            plan = st.Plan(eval_id=eval_id, job=job, priority=job.priority)
+            s = service_cls(ctx_cls(snap, plan), job, False, False, **kw)
+            per_tg, allocs = [], []
+            for g, tg in enumerate(job.task_groups):
+                places = [place_cls(name=f"{job.id}.{tg.name}[{i}]",
+                                    task_group=tg) for i in range(tg.count)]
+                pen = ([{p} if p else set() for p in penalties]
+                       if penalties else None)
+                placed = hook(s, tg, places, ready, pen)
+                assert placed is not None, f"{eval_id}: host fallback"
+                per_tg.append(placed)
+                if g == len(job.task_groups) - 1:
+                    break
+                for p in placed:
+                    if p.node is not None:
+                        a = alloc_of(st, p, job, tg, eval_id)
+                        plan.append_alloc(a)
+                        allocs.append(a)
+            out[k] = (s, per_tg, allocs)
+        except BaseException as e:  # noqa: BLE001 -- raised below
+            out[k] = e
+        finally:
+            barrier.done()
+
+    threads = [threading.Thread(target=work, args=(k,), daemon=True)
+               for k in range(len(evals))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(1200)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    assert not any(t.is_alive() for t in threads), "an eval thread wedged"
+    for k, o in enumerate(out):
+        if isinstance(o, BaseException):
+            raise AssertionError(f"eval {evals[k][0]} failed") from o
+    return out, wall_ms
+
+
+def same_lane(np, a, b, what):
+    """Two PackedLanes' tables equal bit for bit (order, const, init,
+    batch, ptab, pinit: dtype, shape and bytes)."""
+    assert np.array_equal(np.asarray(a.order), np.asarray(b.order)), what
+    for name in ("const", "init", "batch", "ptab", "pinit"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert (x is None) == (y is None), (what, name)
+        if x is None:
+            continue
+        for f in type(x)._fields:
+            u, v = np.asarray(getattr(x, f)), np.asarray(getattr(y, f))
+            assert (u.dtype == v.dtype and u.shape == v.shape
+                    and u.tobytes() == v.tobytes()), (what, name, f)
+
+
+def check_struct_capacity(np, matrix, used0, placements, ask):
+    """No node over capacity: the usage before the generation plus every
+    placement's ask (original node order)."""
+    pos_of = {nid: i for i, nid in enumerate(matrix.node_ids)}
+    pos = np.array([pos_of[p.node.id] for p in placements
+                    if p.node is not None], dtype=np.int64)
+    k = np.bincount(pos, minlength=matrix.n_pad)
+    for cap, used, a in zip((matrix.cpu_cap, matrix.mem_cap,
+                             matrix.disk_cap), used0, ask):
+        assert bool(np.all(used + k * a <= cap)), "over capacity"
+
+
+def ms_stats(xs):
+    return dict(median=statistics.median(xs), max=max(xs), n=len(xs))
+
+
+def struct_usage(np, tp, matrix, snap, nodes, job_id="", tg_name=""):
+    """A fresh pack_usage fold of the snapshot's live allocs."""
+    prop = {n.id: [a for a in snap.allocs_by_node(n.id)
+                   if not a.client_terminal_status()] for n in nodes}
+    return tp.pack_usage(matrix, prop, job_id, tg_name, "default", nodes)
+
+
+def first_seen(np, keys, order, n_pad):
+    """Per original position, the number of ``keys[i]`` in the order the
+    eval's shuffle ``order`` first meets it (-1 on padding): how the
+    placement service numbers distinct_property values."""
+    num, out = {}, np.full(n_pad, -1, dtype=np.int32)
+    for i in order:
+        out[i] = num.setdefault(keys[i], len(num))
+    return out
+
+
+def plain_preempt_rows(np, nodes, snap, n_pad):
+    """Every node's live allocs as candidate columns (original node
+    order, store order within a node, PREEMPT_A columns): MHz, MB, disk
+    MB, job priority, migrate max_parallel, a (namespace, job, group) key
+    id (-1 pad), the job id and, per node, the allocs themselves; built
+    once for every preemption eval."""
+    A = PREEMPT_A
+    rows = {k: np.zeros((n_pad, A)) for k in ("cpu", "mem", "disk")}
+    rows.update(prio=np.zeros((n_pad, A), dtype=np.int32),
+                maxp=np.zeros((n_pad, A), dtype=np.int32),
+                key=np.full((n_pad, A), -1, dtype=np.int64))
+    rows["job"] = np.full((n_pad, A), "", dtype=object)
+    rows["allocs"] = []
+    keys = {}
+    for i, node in enumerate(nodes):
+        live = [a for a in snap.allocs_by_node(node.id)
+                if not a.terminal_status()]
+        assert len(live) <= A, len(live)
+        rows["allocs"].append(live)
+        for c, a in enumerate(live):
+            cr = a.allocated_resources.comparable()
+            rows["cpu"][i, c] = cr.cpu_shares
+            rows["mem"][i, c] = cr.memory_mb
+            rows["disk"][i, c] = cr.disk_mb
+            rows["prio"][i, c] = a.job.priority
+            atg = a.job.lookup_task_group(a.task_group)
+            rows["maxp"][i, c] = (atg.migrate.max_parallel
+                                  if atg.migrate is not None else 0)
+            rows["key"][i, c] = keys.setdefault(
+                (a.namespace, a.job_id, a.task_group), len(keys))
+            rows["job"][i, c] = a.job_id
+    return rows
+
+
+def plain_preempt_info(np, tp, rows, job, order, n):
+    """A preemption eval's PreemptInfo from ``rows``: candidate groups
+    numbered in the eval's shuffled first-seen order (row by row, column
+    by column), the eval's own job's allocs invalid, no evictions in
+    its plan yet."""
+    n_pad, A = rows["key"].shape
+    perm = np.r_[np.asarray(order, dtype=np.int64), np.arange(n, n_pad)]
+    flat = rows["key"][perm].ravel()
+    seen = flat[flat >= 0]
+    uniq, first = np.unique(seen, return_index=True)
+    lut = np.full(max(int(rows["key"].max()) + 1, 1), -1, dtype=np.int32)
+    lut[uniq[np.argsort(first)]] = np.arange(uniq.size, dtype=np.int32)
+    key = rows["key"]
+    filled = key >= 0
+    G = int(2 ** np.ceil(np.log2(max(uniq.size, 4))))
+    return tp.PreemptInfo(
+        cpu=rows["cpu"], mem=rows["mem"], disk=rows["disk"],
+        prio=rows["prio"], maxp=rows["maxp"],
+        grp=np.where(filled, lut[np.maximum(key, 0)], -1).astype(np.int32),
+        valid=filled & (rows["job"] != job.id), job_prio=job.priority,
+        counts=np.zeros(G, dtype=np.int32))
+
+
+def usage_of(tp, fresh):
+    """A pack_usage fold as the six-field UsageState the array route
+    takes (no port bitmap)."""
+    return tp.UsageState(fresh.used_cpu, fresh.used_mem, fresh.used_disk,
+                         fresh.placed_jobtg, fresh.placed_job,
+                         fresh.dyn_used)
+
+
+def same_as_array_route(np, batch, svc, gens, struct_res, barrier_kw, what):
+    """Solve the array lanes of each barrier generation in ``gens`` (lists
+    of (eval index, group index, lane), in arrival order) through a
+    SolveBarrier of their own and require every result, eviction rows
+    included, and every placement's node equal the struct route's.
+    Returns the array route's barrier wall ms."""
+    wall = 0.0
+    for g, gen in enumerate(gens):
+        lanes = [lane for _, _, lane in gen]
+        outs, _, ms, _ = run_barriers(
+            batch, [batch.SolveBarrier(len(lanes), device=DEVICE,
+                                       **barrier_kw)], lanes)
+        wall += ms
+        for r in outs[0]:
+            if isinstance(r, Exception):
+                raise AssertionError(f"{what}: array generation {g}") from r
+        same_results(np, [struct_res[e][0].results[t] for e, t, _ in gen],
+                     outs[0], f"{what} generation {g}")
+        for (e, t, lane), r in zip(gen, outs[0]):
+            _, ids = svc.placements(lane, r[0])
+            assert ids == [p.node.id if p.node is not None else None
+                           for p in struct_res[e][1][t]], (what, e, t)
+    return wall
+
+
+def structs_phase(np, torch, batch, guard, kernels, svc, tp, world, card):
+    """The structs slice (phase 13): the port's Node, Job and Allocation
+    structs in, placements out, through TpuPlacementService and the
+    SolveBarrier hook (batch.make_solve_hook), float32 on the card:
+      1. the headline (32 service evals x 2,000 placements of mock.job
+         over the 10,000 nodes as Node structs in a port StateStore), two
+         generations: the first's placements are written to the store as
+         Allocations (32 journaled writes), then 32 new evals x 600 (what
+         the fleet's remaining cpu holds) pack against the new snapshot
+         (the usage base caught up through the journal). Pack and
+         materialize are also timed alone, for the first 4 evals again. Every struct
+         lane equals the lane pack_lane_arrays builds from the arrays
+         (headline_world; the second generation's usage a fresh
+         pack_usage fold) for the same eval id and index, bit for bit;
+         every placement equals that lane's through a SolveBarrier of
+         array lanes; every placement holds the ask and no node is over
+         capacity;
+      2. dense and wave_compact lanes from structs, one barrier, with the
+         headline's allocs deleted again: 8
+         two-group spread evals (count 2,000 each, the dense scan; the
+         second group packs against the first's placements in its plan,
+         at the same snapshot and node order), a distinct_property lane
+         (${meta.rack} limit 25, 200 placements, a dynamic port each) and
+         a reserved-core lane (2 cores, 200 placements), a wave spread
+         lane (count 80) and a reschedule-penalty lane (count 60);
+         checks capacity, cores and the distinct_property limit per
+         lane, cores within the node's reservable set, ports in its
+         dynamic range; every lane equals, bit for bit, the lane
+         pack_lane_arrays builds from arrays (the spreads, the
+         distinct_property values in the eval's shuffled first-seen
+         order, the cores, the penalties; a second group's usage a
+         pack_usage fold of the first group's allocs), and every
+         result that lane's through a SolveBarrier of array lanes in
+         the same two generations;
+      3. one system job over the fleet through solve_system, equal to
+         solve_system_arrays on the same snapshot's usage;
+      4. preemption: the fleet in a second store, 95% of every node's cpu
+         held by priority 10-40 allocs of other jobs (A = 16), 8 evals x
+         500 of a priority-70 job (preempt=True, no device asks) through
+         the barrier; every preempted alloc is on the chosen node, 10 or
+         more priority levels below and of another job, none evicted
+         twice in an eval, no node over capacity after the evictions;
+         every lane equals the array lane whose PreemptInfo is built
+         from the same snapshot's allocs, every result (eviction rows
+         included) that lane's through a SolveBarrier of array lanes,
+         and every placement's preempted allocs are the candidates its
+         eviction row names.
+    Launch counts are read around each struct route alone (``launches``:
+    the kernels line's structs_launches); the array routes that the
+    checks compare with run outside them. No hook may fall back to the
+    host, and no dispatch may fail or time out."""
+    import copy
+    from nomad_tpu_torch import mock as pmock
+    from nomad_tpu_torch import structs as st
+    from nomad_tpu_torch.scheduler.context import EvalContext
+    from nomad_tpu_torch.scheduler.reconcile import AllocPlaceResult
+    from nomad_tpu_torch.scheduler.util import shuffled_order
+    from nomad_tpu_torch.state.store import StateStore
+
+    st.reseed_ids(SEED)
+    mods = (st, EvalContext, AllocPlaceResult)
+    Timed = timed_service_class(svc)
+    kw = {"device": DEVICE, "dtype": "float32"}
+    matrix, zero_usage, feasible = world
+    g0 = guard.state()
+
+    t0 = time.perf_counter()
+    nodes = struct_fleet(pmock, N_NODES)
+    store = StateStore()
+    for node in nodes:
+        store.upsert_node(node)
+    fleet_s = time.perf_counter() - t0
+    tp.reset_pack_caches()
+    launches = {k.name: 0 for k in kernels.KERNELS}
+
+    def counted(fn):
+        kernels.reset_launches()
+        out = fn()
+        for k in kernels.KERNELS:
+            launches[k.name] += k.launches
+        return out
+
+    def summary(name, res, wall_ms, n_placed):
+        out = dict(evals=len(res), placements=n_placed, wall_ms=wall_ms,
+                   placements_per_s=n_placed / (wall_ms / 1e3))
+        for key in ("pack_ms", "pack_cpu_ms", "mat_ms", "mat_cpu_ms"):
+            out[key] = ms_stats([x for s, _, _ in res
+                                 for x in getattr(s, key)])
+        log(f"structs {name} [{card}]: {len(res)} evals, {n_placed} "
+            f"placements, wall {wall_ms:.1f} ms, "
+            f"{out['placements_per_s']:.0f} placements/s; ms per eval "
+            "(median / max), wall clock and thread CPU: pack "
+            f"{out['pack_ms']['median']:.2f} / {out['pack_ms']['max']:.2f}"
+            f", cpu {out['pack_cpu_ms']['median']:.2f} / "
+            f"{out['pack_cpu_ms']['max']:.2f}; materialize "
+            f"{out['mat_ms']['median']:.2f} / {out['mat_ms']['max']:.2f}"
+            f", cpu {out['mat_cpu_ms']['median']:.2f} / "
+            f"{out['mat_cpu_ms']['max']:.2f}")
+        return out
+
+    # -- 1. the headline, two generations ------------------------------
+    report = {"fleet_s": fleet_s}
+    used0 = (zero_usage.used_cpu, zero_usage.used_mem, zero_usage.used_disk)
+    usage = zero_usage
+    for g, count in ((1, N_PLACE), (2, STRUCT_G2_PLACE)):
+        jobs = []
+        for e in range(N_EVALS):
+            j = pmock.job(id=f"struct-g{g}-job-{e:02d}")
+            j.task_groups[0].count = count
+            store.upsert_job(j)
+            jobs.append(j)
+        snap = store.snapshot()
+        evals = [(f"struct-bench-eval-g{g}-{e:016d}", jobs[e], kw, None)
+                 for e in range(N_EVALS)]
+        barrier = batch.SolveBarrier(N_EVALS, e_pad_hint=N_EVALS,
+                                     device=DEVICE)
+        res, wall_ms = counted(lambda: drive_struct_evals(
+            batch, guard, mods, Timed, snap, evals, barrier))
+        placed = [p for _, per_tg, _ in res for p in per_tg[0]]
+        n_placed = sum(p.node is not None for p in placed)
+        assert n_placed == N_EVALS * count, n_placed
+        for p in placed:
+            assert p.task_resources["web"].cpu_shares == ASK[0]
+            assert p.task_resources["web"].memory_mb == ASK[1]
+            assert p.alloc_resources.disk_mb == ASK[2]
+        check_struct_capacity(np, matrix, used0, placed, ASK)
+        # the same evals as array lanes: equal tables, equal placements
+        arr = [svc.pack_lane_arrays(
+            matrix, usage, feasible, ask=ASK, count=count,
+            n_places=count, eval_id=evals[e][0],
+            state_index=snap.latest_index(), dtype_name="float32",
+            device=DEVICE) for e in range(N_EVALS)]
+        for e, (s, _, _) in enumerate(res):
+            same_lane(np, s.lanes[0], arr[e], f"g{g} eval {e}")
+        outs, _, arr_wall, _ = run_barriers(
+            batch, [batch.SolveBarrier(N_EVALS, e_pad_hint=N_EVALS,
+                                       device=DEVICE)], arr)
+        same_results(np, [s.results[0][:3] for s, _, _ in res], outs[0],
+                     f"structs headline g{g}")
+        for e, (s, per_tg, _) in enumerate(res):
+            _, ids = svc.placements(arr[e], outs[0][e][0])
+            assert ids == [p.node.id if p.node is not None else None
+                           for p in per_tg[0]], f"g{g} eval {e}"
+        gen = summary(f"headline g{g}", res, wall_ms, n_placed)
+        gen["array_wall_ms"] = arr_wall
+        gen["pack_cache"] = tp.pack_cache_stats()
+        # the host ms of pack and materialize with no other eval thread
+        # running: the first evals again, one at a time, on the same
+        # snapshot (every memo warm) and results
+        alone = Timed(EvalContext(snap, st.Plan(
+            eval_id=evals[0][0], job=jobs[0])), jobs[0], False, False,
+            **kw)
+        for e in range(STRUCT_SERIAL_EVALS):
+            alone.ctx.plan = st.Plan(eval_id=evals[e][0], job=jobs[e])
+            alone.job = jobs[e]
+            tg = jobs[e].task_groups[0]
+            places = [AllocPlaceResult(name=f"{jobs[e].id}.web[{i}]",
+                                       task_group=tg) for i in range(count)]
+            lane = alone.pack(tg, places, snap.ready_nodes_in_pool(
+                "default"), None)
+            alone.materialize(lane, *res[e][0].results[0])
+        gen["alone"] = dict(pack_ms=ms_stats(alone.pack_ms),
+                            mat_ms=ms_stats(alone.mat_ms))
+        log(f"structs headline g{g} [{card}]: pack cache "
+            f"{gen['pack_cache']}; the array lanes' barrier wall "
+            f"{arr_wall:.1f} ms; {STRUCT_SERIAL_EVALS} evals alone: pack "
+            f"ms median {gen['alone']['pack_ms']['median']:.2f}, "
+            f"materialize {gen['alone']['mat_ms']['median']:.2f}")
+        report[f"headline_g{g}"] = gen
+        if g == 2:
+            st2 = gen["pack_cache"]
+            assert st2["usage_base_delta_hits"] >= 1, st2
+            base = res[0][0].lanes[0].matrix._usage_base
+            assert base[1] == snap.latest_index()
+            for a, b in zip((base[2]["used_cpu"], base[2]["used_mem"],
+                             base[2]["used_disk"]), used0):
+                assert np.array_equal(a, b), "usage base != fresh fold"
+            break
+        # the first generation's placements become the store's allocs
+        t1 = time.perf_counter()
+        g1_allocs = [alloc_of(st, p, jobs[e], jobs[e].task_groups[0],
+                              evals[e][0])
+                     for e, (_, per_tg, _) in enumerate(res)
+                     for p in per_tg[0]]
+        t2 = time.perf_counter()
+        for e in range(N_EVALS):
+            store.upsert_allocs(g1_allocs[e * count:(e + 1) * count])
+        report["write_g1"] = dict(build_ms=(t2 - t1) * 1e3,
+                                  upsert_ms=(time.perf_counter() - t2) * 1e3)
+        g1_ids = [a.id for a in g1_allocs]
+        snap_w = store.snapshot()
+        fresh = struct_usage(np, tp, matrix, snap_w, nodes)
+        usage = tp.UsageState(fresh.used_cpu, fresh.used_mem,
+                              fresh.used_disk, fresh.placed_jobtg,
+                              fresh.placed_job, fresh.dyn_used)
+        used0 = (fresh.used_cpu, fresh.used_mem, fresh.used_disk)
+        log(f"structs headline [{card}]: {len(g1_allocs)} Allocations "
+            f"built in {report['write_g1']['build_ms']:.1f} ms, written "
+            f"in {N_EVALS} journaled writes in "
+            f"{report['write_g1']['upsert_ms']:.1f} ms")
+
+    # -- 2. dense and wave_compact lanes from structs ------------------
+    # on the emptied fleet again (one journaled write)
+    store.delete_allocs(g1_ids)
+    def spread_tg(tg, name, count):
+        tg = copy.deepcopy(tg)
+        tg.name, tg.count = name, count
+        tg.spreads = [st.Spread(attribute="${meta.rack}", weight=50),
+                      st.Spread(attribute="${meta.zone}", weight=50,
+                                spread_target=[
+                                    st.SpreadTarget("0", 50),
+                                    st.SpreadTarget("1", 30),
+                                    st.SpreadTarget("2", 20)])]
+        return tg
+
+    evals = []
+    for e in range(STRUCT_DENSE_EVALS):
+        j = pmock.job(id=f"struct-dense-job-{e:02d}")
+        tg0 = j.task_groups[0]
+        j.task_groups = [spread_tg(tg0, "web", N_PLACE),
+                         spread_tg(tg0, "api", N_PLACE)]
+        evals.append((f"struct-dense-eval-{e:04d}", j, kw, None))
+    dpj = pmock.job(id="struct-distinct-property")
+    dpj.task_groups[0].count = DP_PLACE
+    dpj.task_groups[0].constraints = [st.Constraint(
+        l_target="${meta.rack}", r_target=str(DP_LIMIT),
+        operand="distinct_property")]
+    dpj.task_groups[0].networks = [st.NetworkResource(
+        dynamic_ports=[st.Port(label="http")])]
+    evals.append(("struct-dense-eval-distinct-prop", dpj, kw, None))
+    cj = pmock.job(id="struct-reserved-cores")
+    cj.task_groups[0].count = CORES_PLACE
+    cj.task_groups[0].tasks[0].resources.cores = CORES_ASK
+    evals.append(("struct-dense-eval-reserved-cores", cj, kw, None))
+    wj = pmock.job(id="struct-wave-spread")
+    wj.task_groups[0] = spread_tg(wj.task_groups[0], "web",
+                                  STRUCT_WAVE_SPREAD)
+    evals.append(("struct-wave-eval-spread", wj, kw, None))
+    pj = pmock.job(id="struct-wave-penalty")
+    pj.task_groups[0].count = STRUCT_PENALTY
+    evals.append(("struct-wave-eval-penalty", pj, kw,
+                  [nodes[(37 * k) % N_NODES].id if k % 3 == 0 else None
+                   for k in range(STRUCT_PENALTY)]))
+    for _, j, _, _ in evals:
+        store.upsert_job(j)
+    snap = store.snapshot()
+    fresh = struct_usage(np, tp, matrix, snap, nodes)
+    used_d = (fresh.used_cpu, fresh.used_mem, fresh.used_disk)
+    barrier = batch.SolveBarrier(len(evals), device=DEVICE)
+    before = dict(guard.state()["resident"])
+    res, wall_ms = counted(lambda: drive_struct_evals(
+        batch, guard, mods, Timed, snap, evals, barrier))
+    after = guard.state()["resident"]
+    chain = {k: after[k] - before.get(k, 0) for k in
+             ("delta_promotions", "delta_reuses", "delta_fallbacks",
+              "delta_size_fallbacks", "delta_gap_fallbacks", "hits",
+              "misses")}
+    n_placed = 0
+    for (s, per_tg, _), (_, job, _, _) in zip(res, evals):
+        for lane, r, placed in zip(s.lanes, s.results, per_tg):
+            n = lane.batch.ask_cpu.shape[0]
+            if lane.wavefront_ok():
+                check_capacity_lane(np, lane, r[0], n)
+            else:
+                check_dense_lane(np, lane, r[0], n)
+            n_placed += sum(p.node is not None for p in placed)
+            cores_of = {}
+            ports_of = {}
+            for p in placed:
+                nr = p.node.node_resources
+                tr = p.task_resources["web"] if p.task_resources else None
+                if tr is not None and tr.reserved_cores:
+                    assert len(tr.reserved_cores) == CORES_ASK
+                    assert set(tr.reserved_cores) <= set(
+                        nr.cpu.reservable_cores)
+                    held = cores_of.setdefault(p.node.id, set())
+                    assert not held & set(tr.reserved_cores), "core twice"
+                    held.update(tr.reserved_cores)
+                    assert tr.cpu_shares == (nr.cpu.cpu_shares
+                                             // nr.cpu.total_core_count
+                                             * CORES_ASK)
+                if job is dpj:
+                    (pm,) = p.alloc_resources.ports
+                    assert (nr.min_dynamic_port <= pm.value
+                            <= nr.max_dynamic_port), pm
+                    held = ports_of.setdefault(p.node.id, set())
+                    assert pm.value not in held, "port twice"
+                    held.add(pm.value)
+        if job is cj:
+            assert cores_of, "no reserved cores came back"
+        if job is dpj:
+            assert ports_of, "no ports came back"
+    # the same lanes from arrays: each eval's first group in the first
+    # barrier generation, the spread evals' second groups (their usage
+    # a pack_usage fold of the first group's allocs) in the second
+    n_nodes, n_pad = matrix.n_real, matrix.n_pad
+    index = snap.latest_index()
+    usage_d = usage_of(tp, fresh)
+    cores = np.zeros(n_pad, dtype=np.int32)
+    mhz = np.zeros(n_pad)
+    for i, node in enumerate(nodes):
+        c = node.node_resources.cpu
+        cores[i] = len(set(c.reservable_cores)
+                       - set(node.reserved_resources.cores))
+        mhz[i] = c.cpu_shares // c.total_core_count
+    gens = [[], []]
+    for e, ((eval_id, job, _, pen), (_, _, g1)) in enumerate(
+            zip(evals, res)):
+        tg = job.task_groups[0]
+        base = dict(feasible=feasible, ask=ASK, count=tg.count,
+                    n_places=tg.count, eval_id=eval_id, state_index=index,
+                    penalty_node_ids=pen, plan_priority=job.priority,
+                    dtype_name="float32", device=DEVICE)
+        if tg.spreads:
+            base["spread_info"] = spread_info(np, tp, matrix, tg.count)
+        if job is dpj:
+            order = shuffled_order(eval_id, index, n_nodes)
+            racks = [node.meta["rack"] for node in nodes]
+            base.update(n_dyn_ports=1, distinct_property=(
+                tp.DistinctPropertyInfo(
+                    value_index=first_seen(np, racks, order, n_pad)[None],
+                    limit=np.array([DP_LIMIT]), tg_scope=np.array([True]),
+                    counts=np.zeros((1, 16), np.int32))))
+        if job is cj:
+            base.update(ask=(0.0, ASK[1], ASK[2]), ask_cores=CORES_ASK,
+                        mhz_per_core=mhz, cores_free=cores)
+        gens[0].append((e, 0, svc.pack_lane_arrays(matrix, usage_d,
+                                                   **base)))
+        if len(job.task_groups) == 2:
+            prop = {}
+            for a in g1:
+                prop.setdefault(a.node_id, []).append(a)
+            usage_2 = usage_of(tp, tp.pack_usage(
+                matrix, prop, job.id, job.task_groups[1].name, "default",
+                nodes))
+            gens[1].append((e, 1, svc.pack_lane_arrays(matrix, usage_2,
+                                                       **base)))
+    for gen in gens:
+        for e, t, lane in gen:
+            same_lane(np, res[e][0].lanes[t], lane, f"dense eval {e} tg {t}")
+    arr_wall = same_as_array_route(np, batch, svc, gens, res, {},
+                                   "structs dense")
+    dense = summary("dense and wave_compact", res, wall_ms, n_placed)
+    dense["chain"] = chain
+    dense["array_wall_ms"] = arr_wall
+    log(f"structs dense [{card}]: the resident chain across the two "
+        f"spread groups: {chain}")
+    report["dense"] = dense
+
+    # -- 3. a system job through solve_system --------------------------
+    sj = pmock.system_job(id="struct-system")
+    stg = sj.task_groups[0]
+    stg.tasks[0].resources.cpu = int(SYSTEM_ASK[0])
+    stg.tasks[0].resources.memory_mb = int(SYSTEM_ASK[1])
+    stg.ephemeral_disk.size_mb = int(SYSTEM_ASK[2])
+    store.upsert_job(sj)
+    snap = store.snapshot()
+    ready = snap.ready_nodes_in_pool("default")
+    sys_eval = "struct-system-eval-0001"
+    s = Timed(EvalContext(snap, st.Plan(eval_id=sys_eval, job=sj,
+                                        priority=sj.priority)),
+              sj, False, False, **kw)
+    assert guard.dispatch_allowed()
+    t1 = time.perf_counter()
+    placed = counted(lambda: s.solve_system(stg, ready))
+    sys_ms = (time.perf_counter() - t1) * 1e3
+    assert placed is not None and len(placed) == N_NODES
+    fresh = struct_usage(np, tp, matrix, snap, nodes, sj.id, stg.name)
+    _, chosen, scores = svc.solve_system_arrays(
+        matrix, fresh, feasible, ask=SYSTEM_ASK, eval_id=sys_eval,
+        state_index=snap.latest_index(), dtype_name="float32",
+        device=DEVICE)
+    same_lane(np, s.lanes[0], svc.pack_lane_arrays(
+        matrix, fresh, feasible, ask=SYSTEM_ASK, count=1,
+        n_places=N_NODES, eval_id=sys_eval,
+        state_index=snap.latest_index(), dtype_name="float32",
+        device=DEVICE), "system")
+    want, got = s.results[0], (chosen, scores)
+    assert np.array_equal(want[0], got[0]), "system chosen"
+    assert np.array_equal(want[1], got[1]), "system scores"
+    n_sys = sum(p.node is not None for p in placed)
+    assert n_sys > 0
+    for k, p in enumerate(placed):
+        if p.node is not None:
+            assert p.node.id == nodes[k].id
+    report["system"] = dict(placements=n_sys, ms=sys_ms,
+                            pack_ms=s.pack_ms[0], mat_ms=s.mat_ms[0])
+    log(f"structs system [{card}]: {n_sys} of {N_NODES} nodes, "
+        f"{sys_ms:.1f} ms structs in to placements out (pack "
+        f"{s.pack_ms[0]:.2f} ms, materialize {s.mat_ms[0]:.2f} ms)")
+
+    # -- 4. preemption --------------------------------------------------
+    rng = np.random.default_rng(SEED)
+    pstore = StateStore()
+    for node in nodes:
+        pstore.upsert_node(node)
+    fillers = {p: [] for p in PREEMPT_PRIOS}
+    for p in PREEMPT_PRIOS:
+        for k in range(STRUCT_FILLER_JOBS):
+            fj = pmock.job(id=f"struct-filler-p{p}-{k:02d}", priority=p)
+            fj.task_groups[0].tasks[0].resources.cpu = 500
+            pstore.upsert_job(fj)
+            fillers[p].append(fj)
+    shared = {m: st.AllocatedResources(
+        tasks={"web": st.AllocatedTaskResources(cpu_shares=500,
+                                                memory_mb=m)},
+        shared=st.AllocatedSharedResources(disk_mb=150))
+        for m in (512, 1024)}
+    allocs = []
+    for i, node in enumerate(nodes):
+        target = int(node.node_resources.cpu.cpu_shares * PREEMPT_FILL)
+        for k in range(target // 500):
+            prio = PREEMPT_PRIOS[int(rng.integers(len(PREEMPT_PRIOS)))]
+            fj = fillers[prio][(i + k) % STRUCT_FILLER_JOBS]
+            allocs.append(st.Allocation(
+                id=f"struct-fill-{i:06d}-{k:02d}", eval_id="fill",
+                name=f"{fj.id}.web[{i * 16 + k}]", node_id=node.id,
+                job_id=fj.id, job=fj, task_group="web",
+                allocated_resources=shared[512 if rng.integers(2)
+                                           else 1024],
+                client_status=st.ALLOC_CLIENT_RUNNING))
+    pstore.upsert_allocs(allocs)
+    evals = []
+    for e in range(STRUCT_PREEMPT_EVALS):
+        j = pmock.job(id=f"struct-preempt-job-{e:02d}",
+                      priority=PREEMPT_JOB_PRIO)
+        tg = j.task_groups[0]
+        tg.count = STRUCT_PREEMPT_PLACE
+        tg.tasks[0].resources.cpu = STRUCT_PREEMPT_ASK[0]
+        tg.tasks[0].resources.memory_mb = STRUCT_PREEMPT_ASK[1]
+        tg.ephemeral_disk.size_mb = STRUCT_PREEMPT_ASK[2]
+        pstore.upsert_job(j)
+        evals.append((f"struct-preempt-eval-{e:04d}", j,
+                      dict(kw, preempt=True), None))
+    psnap = pstore.snapshot()
+    base = tp.fold_usage_base(matrix, nodes, psnap.allocs_by_node,
+                              with_ports=False)
+    barrier = batch.SolveBarrier(len(evals), e_pad_hint=len(evals),
+                                 device=DEVICE)
+    res, wall_ms = counted(lambda: drive_struct_evals(
+        batch, guard, mods, Timed, psnap, evals, barrier))
+    n_placed = n_evicted = 0
+    pos_of = {nid: i for i, nid in enumerate(matrix.node_ids)}
+    for (s, per_tg, _), (_, job, _, _) in zip(res, evals):
+        lane = s.lanes[0]
+        assert lane.ptab is not None and lane.ptab.cpu.shape[1] == \
+            PREEMPT_A, lane.ptab.cpu.shape
+        used = np.stack([base["used_cpu"], base["used_mem"],
+                         base["used_disk"]]).copy()
+        seen = set()
+        for p in per_tg[0]:
+            if p.node is None:
+                continue
+            n_placed += 1
+            b = pos_of[p.node.id]
+            used[:, b] += STRUCT_PREEMPT_ASK
+            for a in p.preempted_allocs or ():
+                assert a.node_id == p.node.id, "evicted elsewhere"
+                assert job.priority - a.job.priority >= 10, "priority"
+                assert a.job_id != job.id, "own job evicted"
+                assert a.id not in seen, "evicted twice"
+                seen.add(a.id)
+                cr = a.allocated_resources.comparable()
+                used[:, b] -= (cr.cpu_shares, cr.memory_mb, cr.disk_mb)
+        n_evicted += len(seen)
+        cap = np.stack([matrix.cpu_cap, matrix.mem_cap, matrix.disk_cap])
+        assert bool((used <= cap).all()), "over capacity after evictions"
+    assert n_placed == STRUCT_PREEMPT_EVALS * STRUCT_PREEMPT_PLACE
+    assert n_evicted > 0
+    # the same lanes from arrays: the candidates of the same snapshot,
+    # one barrier generation, eviction rows included
+    rows = plain_preempt_rows(np, nodes, psnap, matrix.n_pad)
+    usage_p = usage_of(tp, struct_usage(np, tp, matrix, psnap, nodes))
+    index = psnap.latest_index()
+    gen = []
+    for e, (eval_id, job, _, _) in enumerate(evals):
+        order = shuffled_order(eval_id, index, matrix.n_real)
+        lane = svc.pack_lane_arrays(
+            matrix, usage_p, feasible, ask=STRUCT_PREEMPT_ASK,
+            count=STRUCT_PREEMPT_PLACE, n_places=STRUCT_PREEMPT_PLACE,
+            eval_id=eval_id, state_index=index, order=order,
+            preemption=plain_preempt_info(np, tp, rows, job, order,
+                                          matrix.n_real),
+            plan_priority=job.priority, dtype_name="float32",
+            device=DEVICE)
+        same_lane(np, res[e][0].lanes[0], lane, f"preemption eval {e}")
+        gen.append((e, 0, lane))
+    arr_wall = same_as_array_route(np, batch, svc, [gen], res,
+                                   {"e_pad_hint": len(evals)},
+                                   "structs preemption")
+    # the allocs each placement preempts are the candidates its eviction
+    # row names on its node
+    for e, _, lane in gen:
+        r = res[e][0].results[0]
+        for p, (b, cols) in zip(res[e][1][0],
+                                svc.evictions(lane, r[0], r[3])):
+            want = [rows["allocs"][b][c].id for c in cols] if b >= 0 else []
+            assert [a.id for a in p.preempted_allocs or ()] == want, e
+    pre = summary("preemption", res, wall_ms, n_placed)
+    pre["array_wall_ms"] = arr_wall
+    pre["evicted"] = n_evicted
+    pre["allocs"] = len(allocs)
+    report["preempt"] = pre
+    log(f"structs preemption [{card}]: {len(allocs)} filler allocs, "
+        f"{n_evicted} evicted")
+
+    g1 = guard.state()
+    report["host_fallbacks"] = (g1["host_fallback_dispatches"]
+                                - g0["host_fallback_dispatches"])
+    report["failed_dispatches"] = {
+        k: g1["dispatch"][k] - g0["dispatch"][k]
+        for k in ("timeout", "error")}
+    assert report["host_fallbacks"] == 0, report["host_fallbacks"]
+    assert not any(report["failed_dispatches"].values()), \
+        report["failed_dispatches"]
+    report["pack_cache"] = tp.pack_cache_stats()
+    report["launches"] = launches
+    log(f"structs [{card}]: launches {launches}; pack cache "
+        f"{report['pack_cache']}")
+    for kname in ("wave_block", "wave_compact", "dense_scan", "system_fit",
+                  "wave_preempt"):
+        assert launches[kname] >= 1, (kname, launches)
+    return report
+
+
+def check_capacity_lane(np, lane, chosen, n_places):
+    """A wave lane's placements: every one made, every node within its
+    capacity (the lane's own asks over its initial usage)."""
+    placed = chosen >= 0
+    assert int(placed.sum()) == n_places, (int(placed.sum()), n_places)
+    pos, k = np.unique(chosen[placed], return_counts=True)
+    c, s, b = lane.const, lane.init, lane.batch
+    for cap, used, ask in ((c.cpu_cap, s.used_cpu, b.ask_cpu[0]),
+                           (c.mem_cap, s.used_mem, b.ask_mem[0]),
+                           (c.disk_cap, s.used_disk, b.ask_disk[0])):
+        assert bool(np.all(used[pos] + k * float(ask) <= cap[pos])), \
+            "over capacity"
+    assert bool(np.all(c.feasible[pos]))
+
+
+
+# --------------------------------------------------------------------------
 # A/B timing of the redesigned kernels (python3 chip_smoke.py --ab TAG=DIR
 # ... [--ab-kernels NAME,...]): each DIR's sources of AB_SOURCES (DIR
 # "repo" is nomad_tpu_torch/csrc) built into build/ab/lib/TAG and launched
@@ -4615,6 +5482,8 @@ def main(argv=None) -> int:
     kres += mdres["kernels"] + [mlres["kernel"], mrres["kernel"]]
     dlres = phase("dispatch layer", dispatch_phase, np, torch, batch, guard,
                   lpq, kernels, resident, svc, tp, world, card)
+    stres = phase("structs", structs_phase, np, torch, batch, guard,
+                  kernels, svc, tp, world, card)
 
     def pick(kname, **kw):
         return next(r for r in kres if r["name"] == kname
@@ -4646,6 +5515,7 @@ def main(argv=None) -> int:
             replaces=k.replaces.split()[0],
             launches=path["launches"][k.name],
             barrier_launches=dlres["barrier_launches"].get(k.name, 0),
+            structs_launches=stres["launches"].get(k.name, 0),
             max_abs_err=max(x["max_abs_err"] for x in kres
                             if x["name"] == k.name),
             ms=r["ms"], device_ms=r.get("device_ms"),
@@ -4661,6 +5531,7 @@ def main(argv=None) -> int:
                   preempt_slice=pres, lpq_slice=qres, residency=rres,
                   wavefront=wpath, mesh_dense=mdres, mesh_wave=mwres,
                   mesh_lp=mlres, mesh_residency=mrres, dispatch=dlres,
+                  structs=stres,
                   build_s=info["seconds"], phase_s=phase_s,
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")

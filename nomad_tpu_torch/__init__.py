@@ -11,15 +11,28 @@ the card, advanced by journal-covered deltas) and the in-kernel
 wavefront, slice 6 the mesh route (a dispatch sharded over an (evals,
 nodes) grid of cells) and the stack arena, slice 11 the dispatch layer
 (the solve barrier and its pipeline under the dispatch guard's deadline
-and circuit breaker): a lane's packed arrays go in, the chosen node per
-placement (and, with preemption, the allocs it evicts) comes out.
+and circuit breaker), slice 12 the structs: an eval's Node, Job and
+Allocation structs go in (or a lane's packed arrays), and placements come
+out: the node per placement, its task resources, reserved cores, device
+instances and ports, and the allocs it preempts.
 
-    scheduler/util.py   deterministic node shuffle (splitmix64 Fisher-Yates)
+    structs/            resources, ports (NetworkIndex), Node, Job,
+                        Allocation, Evaluation, Plan, the scheduler
+                        configuration, allocs_fit
+    mock.py             canned structs
+    state/store.py      StateStore and StateSnapshot: nodes, jobs,
+                        allocs, the scheduler configuration, the index
+                        bookkeeping and the alloc-delta journal
+    scheduler/          EvalContext (context.py), the feasibility
+                        checkers (feasible.py), the DeviceAllocator and
+                        select_reserved_cores (rank.py), the Preemptor
+                        (preemption.py), AllocPlaceResult (reconcile.py),
+                        the node shuffle and resolve_target (util.py)
     tensor/pack.py      NodeMatrix / UsageState / SpreadInfo / distinct
-                        property / device / preemption array tables,
+                        property / device / preemption tables, built from
+                        structs (pack_nodes, pack_usage, pack_feasibility,
+                        ...) with the matrix-keyed memos,
                         journal_touched_nodes
-    state/store.py      StateStore's index bookkeeping and alloc-delta
-                        journal (alloc_deltas_since)
     solver/binpack.py   lane NamedTuples, host precompute of the compact table
     solver/scoring.py   score and window helpers shared by all the paths
     solver/wave.py      the two wave kernels' plain versions and wrappers,
@@ -31,11 +44,14 @@ placement (and, with preemption, the allocs it evicts) comes out.
     solver/system.py    the system fit kernel's plain version and wrapper
     solver/preempt.py   the two preemption kernels' plain versions and
                         wrappers, and their lane solves
-    solver/service.py   PackedLane, pack_lane_arrays, placements,
-                        evictions, dispatch_lane, solve_system_arrays
+    solver/service.py   TpuPlacementService (pack, materialize, solve,
+                        solve_system), TpuPlacement, PackedLane,
+                        pack_lane_arrays, placements, evictions,
+                        dispatch_lane, solve_system_arrays
     solver/batch.py     fuse_lanes / fuse_and_solve across evals, the
                         stack arena, the cross-lane fixpoint,
-                        SolveBarrier and the dispatch pipeline
+                        SolveBarrier and the dispatch pipeline,
+                        make_solve_hook
     solver/guard.py     the dispatch guard: init probe, watchdog
                         deadline (run_dispatch), circuit breaker
     faultinject.py      named fault points (error / delay / hang)
@@ -45,7 +61,9 @@ placement (and, with preemption, the allocs it evicts) comes out.
     solver/lpq.py       the LP relaxation's plain version and wrapper,
                         rounding and repair, solve_queue, LpqBarrier
     kernels.py          nvcc build, ctypes binding, launch counts
-    carry.py            lane_from_reference: reference lane tables -> PackedLane
+    carry.py            lane_from_reference, struct_from_reference,
+                        store_from_reference: reference lanes, structs
+                        and snapshots -> the port's
     csrc/               the hand-written CUDA kernels (sm_90a)
 
 Every entry point takes ``device``; left out, it is ``cuda``, and with no

@@ -1,4 +1,4 @@
-"""Carry a lane packed by the JAX package over into the port.
+"""Carry state of the JAX package over into the port.
 
 ``lane_from_reference`` takes the reference's lane tables -- NamedTuples
 of numpy arrays (NodeConst, NodeState, PlacementBatch) and the shuffle
@@ -6,11 +6,20 @@ order -- reads them field by field, and builds the port's PackedLane, so
 that both packages solve the same inputs: the dense lanes'
 distinct_property, device and reserved-core tables and a preemption
 lane's PreemptTables / PreemptState ride along by name.
-It takes plain arrays and imports nothing of the reference.
+
+``struct_from_reference`` maps a reference struct (a dataclass, and the
+lists, dicts, sets and scalars it holds) onto the port struct of the
+same class name, field by field; ``store_from_reference`` builds a port
+StateStore holding a reference snapshot's nodes, jobs, allocations and
+scheduler configuration, at the snapshot's index.
+
+Everything here reads attributes by name and imports nothing of the
+reference.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -68,3 +77,134 @@ def lane_from_reference(const, init, batch, order, *,
         matrix=matrix, plan_priority=plan_priority,
         plan_has_stops=plan_has_stops, table_version=table_version,
         delta_src=delta_src)
+
+
+def _port_classes() -> Dict[str, type]:
+    """Every dataclass of the port's structs by class name, with the
+    placement ask."""
+    from . import structs
+    from .scheduler.reconcile import AllocPlaceResult
+    from .structs import alloc, config, job, network, node, resources
+    out: Dict[str, type] = {}
+    for mod in (resources, network, node, job, alloc, config, structs):
+        for name, val in vars(mod).items():
+            if isinstance(val, type) and dataclasses.is_dataclass(val):
+                out[name] = val
+    out["AllocPlaceResult"] = AllocPlaceResult
+    return out
+
+
+_SCALARS = (type(None), bool, int, float, complex, str, bytes)
+
+
+def struct_from_reference(obj, memo: Optional[dict] = None,
+                          classes: Optional[Dict[str, type]] = None):
+    """The port struct for a reference struct: each dataclass instance
+    becomes an instance of the class of the same name in ``classes``
+    (default: the port's structs), field by field; lists, tuples,
+    dicts, sets and frozensets are rebuilt around their carried items;
+    scalars pass as they are. An object seen before (``memo``, keyed by
+    ``id()``; pass one dict to several calls to share it) maps to the
+    same carried object, so what the source shares stays shared. An
+    object that defers its content (``__nomad_hydrate__``) is carried
+    as what it hydrates to. Raises TypeError for a class ``classes``
+    lacks."""
+    if memo is None:
+        memo = {}
+    if classes is None:
+        classes = _port_classes()
+    return _carry(obj, memo, classes)
+
+
+def _carry(obj, memo: dict, classes: Dict[str, type]):
+    if isinstance(obj, _SCALARS):
+        return obj
+    hit = memo.get(id(obj))
+    if hit is not None:
+        return hit[1]
+    if isinstance(obj, list):
+        out = []
+        memo[id(obj)] = (obj, out)
+        out.extend(_carry(x, memo, classes) for x in obj)
+        return out
+    if isinstance(obj, dict):
+        out = {}
+        memo[id(obj)] = (obj, out)
+        for k, v in obj.items():
+            out[_carry(k, memo, classes)] = _carry(v, memo, classes)
+        return out
+    if isinstance(obj, (tuple, set, frozenset)):
+        out = type(obj)(_carry(x, memo, classes) for x in obj)
+        memo[id(obj)] = (obj, out)
+        return out
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = classes.get(type(obj).__name__)
+        if cls is None:
+            raise TypeError(f"no port struct named {type(obj).__name__}")
+        out = cls.__new__(cls)
+        memo[id(obj)] = (obj, out)
+        for f in dataclasses.fields(cls):
+            if hasattr(obj, f.name):
+                val = _carry(getattr(obj, f.name), memo, classes)
+            elif f.default is not dataclasses.MISSING:
+                val = f.default
+            elif f.default_factory is not dataclasses.MISSING:
+                val = f.default_factory()
+            else:
+                raise TypeError(f"{type(obj).__name__} lacks {f.name}")
+            object.__setattr__(out, f.name, val)
+        return out
+    hydrate = getattr(obj, "__nomad_hydrate__", None)
+    if hydrate is not None:
+        out = _carry(hydrate(), memo, classes)
+        memo[id(obj)] = (obj, out)
+        return out
+    raise TypeError(f"cannot carry a {type(obj).__name__}")
+
+
+def store_from_reference(snapshot, memo: Optional[dict] = None):
+    """A port StateStore holding what a reference snapshot (or live
+    store) holds: its nodes, jobs and allocations in the snapshot's
+    order (each node's and each job's allocations in the order the
+    snapshot lists them), and its scheduler configuration; at the
+    snapshot's latest_index() and node-table index, with an empty
+    journal. ``memo`` is struct_from_reference's."""
+    from .state.store import StateStore
+
+    if memo is None:
+        memo = {}
+    classes = _port_classes()
+
+    def carry(x):
+        return _carry(x, memo, classes)
+
+    store = StateStore()
+    index = int(snapshot.latest_index())
+    node_index = getattr(snapshot, "node_table_index", None)
+    if node_index is None:
+        node_index = snapshot.table_index("nodes")
+    with store._lock:
+        for n in snapshot.nodes():
+            store._nodes[n.id] = carry(n)
+        for j in snapshot.jobs():
+            store._jobs[(j.namespace, j.id)] = carry(j)
+        allocs = snapshot.allocs()
+        for a in allocs:
+            store._allocs[a.id] = carry(a)
+        for nid in store._nodes:
+            ids = [a.id for a in snapshot.allocs_by_node(nid)]
+            if ids:
+                store._allocs_by_node[nid] = dict.fromkeys(ids)
+        for key in store._jobs:
+            ids = [a.id for a in snapshot.allocs_by_job(*key)]
+            if ids:
+                store._allocs_by_job[key] = dict.fromkeys(ids)
+        for a in allocs:
+            store._allocs_by_node.setdefault(a.node_id, {}).setdefault(a.id)
+            store._allocs_by_job.setdefault(
+                (a.namespace, a.job_id), {}).setdefault(a.id)
+        store._scheduler_config = carry(snapshot.scheduler_config())
+        store._index = index
+        store._table_index = {"nodes": int(node_index), "allocs": index,
+                              "jobs": index, "scheduler_config": index}
+    return store

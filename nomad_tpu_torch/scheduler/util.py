@@ -1,8 +1,10 @@
-"""Deterministic node shuffle (port of nomad_tpu/scheduler/util.py).
+"""Deterministic node shuffle and target resolution (port of
+nomad_tpu/scheduler/util.py).
 
 The shuffle decides tie-breaks between equal-score nodes, so its order must
 match the reference bit for bit: same seeding contract (last 8 bytes of the
 eval ID XOR the refresh index) and the same splitmix64 Fisher-Yates.
+``resolve_target`` resolves a ``${...}`` interpolation against a node.
 """
 from __future__ import annotations
 
@@ -39,3 +41,33 @@ def shuffled_order(eval_id: str, index: int, n: int) -> List[int]:
         j = out % (i + 1)
         order[i], order[j] = order[j], order[i]
     return order
+
+
+def resolve_target(target: str, node):
+    """Resolve an interpolation target like ${attr.kernel.name} against a
+    node (reference: feasible.go resolveTarget). Returns (value, found)."""
+    if not target.startswith("${"):
+        # raw values are returned as-is (constraint RTarget side)
+        return target, True
+    inner = target[2:-1] if target.endswith("}") else target[2:]
+    if inner == "node.unique.id":
+        return node.id, True
+    if inner == "node.datacenter":
+        return node.datacenter, True
+    if inner == "node.unique.name":
+        return node.name, True
+    if inner == "node.class":
+        return node.node_class, True
+    if inner == "node.pool":
+        return node.node_pool, True
+    if inner.startswith("attr."):
+        key = inner[len("attr."):]
+        if key in node.attributes:
+            return node.attributes[key], True
+        return "", False
+    if inner.startswith("meta."):
+        key = inner[len("meta."):]
+        if key in node.meta:
+            return node.meta[key], True
+        return "", False
+    return "", False

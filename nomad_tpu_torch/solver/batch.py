@@ -37,7 +37,9 @@ participant of a failed generation gets. At depth 1 the last arriver
 dispatches; at depth > 1 the generation goes to the process-wide
 dispatch pipeline, whose intake thread stacks it into arena buffers
 while up to ``depth`` earlier generations are in flight, and results
-are delivered in generation order.
+are delivered in generation order. ``make_solve_hook`` is what a
+scheduler calls in place of TpuPlacementService.solve: pack on the eval's
+thread, solve at the barrier, materialize on the eval's thread.
 
 Knobs (read at each use):
   NOMAD_TPU_TORCH_BATCH_FIXPOINT     0 turns the cross-lane fixpoint off
@@ -953,3 +955,25 @@ def _barrier_order_timeout() -> float:
     fires only on a bug)."""
     d = dispatch_deadline_s()
     return d if d > 0 else 30.0
+
+
+def make_solve_hook(barrier: SolveBarrier):
+    """The hook a scheduler calls instead of service.solve(service, tg,
+    places, nodes, penalties): pack on the calling thread, solve at the
+    barrier, materialize on the calling thread. Returns the
+    TpuPlacements, or None when the task group is not eligible or the
+    generation's dispatch failed (the failure is counted as a host
+    fallback, and the caller's host path places the task group)."""
+    from .guard import DispatchFailed, note_host_fallback
+
+    def hook(service, tg, places, nodes, penalties):
+        lane = service.pack(tg, places, nodes, penalties)
+        if lane is None:
+            return None
+        try:
+            res = barrier.solve(lane)
+        except DispatchFailed:
+            note_host_fallback()
+            return None
+        return service.materialize(lane, *res)
+    return hook

@@ -256,13 +256,17 @@ def run_dispatch(fn, label: str = "solver.dispatch",
 
 
 def _invalidate_pack_layer(reason: str) -> None:
-    """Drop the resident buffer set and the stack arena's pooled buffers
-    on a breaker edge: nothing that crossed a failed transport is
-    trusted past it. Looked up through sys.modules, so the guard imports
-    neither module."""
+    """Drop the resident buffer set, the stack arena's pooled buffers and
+    the pack caches' node matrices on a breaker edge: nothing that
+    crossed a failed transport is trusted past it, and the host tables
+    are derived afresh. Looked up through sys.modules, so the guard
+    imports none of those modules."""
     rs = sys.modules.get("nomad_tpu_torch.solver.resident")
     if rs is not None:
         rs.invalidate_all(reason)
+    tp = sys.modules.get("nomad_tpu_torch.tensor.pack")
+    if tp is not None:
+        tp.invalidate_pack_caches(reason)
     bt = sys.modules.get("nomad_tpu_torch.solver.batch")
     if bt is not None:
         bt.arena_clear(reason)

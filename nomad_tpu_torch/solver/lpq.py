@@ -34,9 +34,11 @@ kernel follows it, so the two agree to the bit on the card:
     runtime does; on the card neither (torch.exp, no flushing), as in the
     kernel.
 
-Lanes with preemption tables need the host Preemptor over Allocation
-structs in the repair pass; they raise NotImplementedError until the
-structs slice brings it. ``LpqBarrier`` runs each generation under the
+A lane with preemption tables that does not fit its rounded node
+evicts in the repair pass through the host Preemptor
+(scheduler/preemption.py) over the Allocation structs the lane was
+packed from (``_try_preempt``); its result carries the eviction rows.
+``LpqBarrier`` runs each generation under the
 dispatch guard's watchdog deadline (solver/guard.py); tracer spans,
 ``metrics`` counters and the scheduler hook come with their slices.
 
@@ -69,8 +71,9 @@ LPQ_BARRIER_TIMEOUT_S = 10.0
 # batch sizes.
 _L_BUCKETS = (8, 16, 32, 64, 128, 256)
 
-# Negative-value weight for preemption (the reference folds eviction need
-# into V with it; preemption lanes wait for the structs slice here).
+# Negative-value weight for preemption: a preemption lane's nodes that
+# fit only after evictions enter V at this weight times the normalized
+# eviction need (_lane_values).
 _PREEMPT_VALUE_PENALTY = 0.5
 
 T_HI, T_LO, ETA = 0.25, 0.02, 0.5
@@ -136,8 +139,8 @@ def _reset_for_tests() -> None:
 
 def lp_lane_eligible(lane: PackedLane) -> bool:
     """Does the joint LP model everything this lane asks for: pure
-    cpu/mem/disk binpack plus job anti-affinity (preemption lanes too,
-    as in the reference; they raise in _solve_lp_group). Ports, devices,
+    cpu/mem/disk binpack plus job anti-affinity, preemption lanes too
+    (their repair evicts through the host Preemptor). Ports, devices,
     cores, spreads, affinities, distinct_* and reschedule penalties solve
     on the greedy fused path within the same generation."""
     c, b = lane.const, lane.batch
@@ -457,7 +460,8 @@ class _LaneView:
     order, with everything rounding, repair and scoring need."""
 
     __slots__ = ("lane", "inv", "feas", "feas_fit", "used", "placed",
-                 "placed0", "ask", "count", "P", "V", "n_yield")
+                 "placed0", "ask", "count", "P", "relief", "relief_ok",
+                 "V", "n_yield")
 
     def __init__(self, lane: PackedLane):
         self.lane = lane
@@ -485,13 +489,30 @@ class _LaneView:
                                float(np.asarray(b.ask_disk)[0])])
         self.count = max(float(np.asarray(b.count)[0]), 1.0)
         self.P = int(np.asarray(b.ask_cpu).shape[0])
+        # a preemption lane: what evicting every eligible candidate (a
+        # valid row at least 10 priority levels below the job) would
+        # free per node, (3, N)
+        self.relief = None
+        self.relief_ok = None
+        if lane.ptab is not None:
+            pt = lane.ptab
+            elig = (np.asarray(pt.valid)
+                    & (int(np.asarray(pt.job_prio))
+                       - np.asarray(pt.prio) >= 10))
+            self.relief = np.stack([
+                (np.asarray(pt.cpu) * elig).sum(axis=1)[inv],
+                (np.asarray(pt.mem) * elig).sum(axis=1)[inv],
+                (np.asarray(pt.disk) * elig).sum(axis=1)[inv],
+            ]).astype(np.float64)
 
 
 def _lane_values(view: _LaneView, cap: np.ndarray, spread_alg: bool
                  ) -> None:
     """Fill view.V / view.feas_fit: the host oracle's initial score per
     node (binpack BestFit-v3 + job anti-affinity), -1e9 where the ask
-    does not fit."""
+    does not fit; a preemption lane's nodes that fit only after
+    evictions are feasible at a negative value term, the normalized
+    eviction need."""
     ask = view.ask
     new = view.used + ask[:, None]                          # (3, N)
     free_frac_cpu = 1.0 - new[0] / np.maximum(cap[0], 1e-9)
@@ -502,7 +523,17 @@ def _lane_values(view: _LaneView, cap: np.ndarray, spread_alg: bool
     coll = view.placed > 0
     anti = np.where(coll, -(view.placed + 1.0) / view.count, 0.0)
     V = (binpack + anti) / (1.0 + coll.astype(np.float64))
-    view.feas_fit = view.feas & (new <= cap).all(axis=0)
+    fit_alone = view.feas & (new <= cap).all(axis=0)
+    if view.relief is None:
+        view.feas_fit = fit_alone
+    else:
+        with_relief = view.feas & (new <= cap + view.relief).all(axis=0)
+        view.relief_ok = with_relief & ~fit_alone
+        view.feas_fit = fit_alone | with_relief
+        need = np.clip(new - cap, 0.0, None) / np.maximum(
+            ask[:, None], 1e-9)
+        V = V - _PREEMPT_VALUE_PENALTY * np.where(
+            view.relief_ok, need.sum(axis=0), 0.0)
     view.V = np.where(view.feas_fit, V, -1e9)
     view.n_yield = int(view.feas_fit.sum())
 
@@ -565,6 +596,51 @@ def _frag_and_pack(cap_cpu, cap_mem, used_cpu, used_mem
     else:
         pack = 0.0
     return frag, pack
+
+
+def _try_preempt(view: _LaneView, b: int, free: np.ndarray,
+                 evicted_ids: set, evicted_so_far: List) -> Optional[List]:
+    """The host Preemptor (scheduler/preemption.py) on canonical node b
+    over the lane's candidates not yet evicted in this generation: the
+    eviction set, when the ask fits the shared ledger afterwards, else
+    None."""
+    from ..scheduler.preemption import Preemptor
+    from ..structs import (
+        AllocatedResources, AllocatedSharedResources, AllocatedTaskResources)
+
+    lane = view.lane
+    if lane.cand_allocs is None:
+        return None
+    pos = int(view.inv[b])
+    A = np.asarray(lane.ptab.valid).shape[1]
+    cands = [a for a in lane.cand_allocs[pos][:A]
+             if a.id not in evicted_ids]
+    if not cands:
+        return None
+    svc = lane.service
+    tg = lane.tg
+    ask_res = AllocatedResources(
+        tasks={t.name: AllocatedTaskResources(
+            cpu_shares=t.resources.cpu, memory_mb=t.resources.memory_mb)
+            for t in tg.tasks},
+        shared=AllocatedSharedResources(disk_mb=tg.ephemeral_disk.size_mb))
+    preemptor = Preemptor(svc.job.priority, svc.ctx,
+                          (svc.job.namespace, svc.job.id))
+    preemptor.set_node(lane.nodes[b])
+    preemptor.set_preemptions(evicted_so_far)
+    preemptor.set_candidates(cands)
+    evicted = preemptor.preempt_for_task_group(ask_res)
+    if not evicted:
+        return None
+    freed = np.zeros(3)
+    for a in evicted:
+        cr = a.allocated_resources.comparable()
+        freed += (cr.cpu_shares, cr.memory_mb, cr.disk_mb)
+    # verify against the shared ledger: other lanes may have landed on b
+    # in this generation
+    if not (view.ask <= free[:, b] + freed + 1e-9).all():
+        return None
+    return evicted
 
 
 def solve_queue(lanes: List[PackedLane], ledger: Dict[str, list],
@@ -644,13 +720,6 @@ def _solve_lp_group(lanes: List[PackedLane], ledger: Dict[str, list],
     ``device`` may be a list of cells: the relaxation then runs over the
     grid parallel.mesh.pick_mesh chooses for (L_pad, N) (lanes on evals),
     or on the first cell when there is none."""
-    for lane in lanes:
-        if lane.ptab is not None:
-            raise NotImplementedError(
-                "an LP lane with preemption tables needs the host "
-                "Preemptor over Allocation structs in its repair pass, "
-                "which comes with the structs slice (ROADMAP Queue 1 item "
-                "14)")
     from .batch import resolve_cells
     cells = resolve_cells(device)
     dev = cells[0]
@@ -731,28 +800,74 @@ def _solve_lp_group(lanes: List[PackedLane], ledger: Dict[str, list],
         assigned.append(chosen)
 
     # -- repair: charge every placement against the shared ledger -------
+    # a preemption lane's placement that does not fit evicts through the
+    # host Preemptor (a lane packed from structs carries its candidates)
     free_r = free.copy()
+    evicted_ids: set = set()
+    evicted_so_far: List = []
     chosen_out = [np.full(v.P, -1, dtype=np.int64) for v in views]
-    n_repair = n_fail = 0
+    evict_out = [
+        (np.zeros((v.P, np.asarray(v.lane.ptab.valid).shape[1]),
+                  dtype=bool) if v.lane.ptab is not None else None)
+        for v in views]
+    n_repair = n_fail = n_evict = 0
+
+    def commit(v, li, p, b, evicted=None):
+        nonlocal n_evict
+        free_r[:, b] -= v.ask
+        if evicted:
+            freed = np.zeros(3)
+            cands = v.lane.cand_allocs[int(v.inv[b])]
+            for a in evicted:
+                cr = a.allocated_resources.comparable()
+                freed += (cr.cpu_shares, cr.memory_mb, cr.disk_mb)
+                evicted_ids.add(a.id)
+                evicted_so_far.append(a)
+                for a_i, cand in enumerate(cands):
+                    if cand.id == a.id:
+                        evict_out[li][p, a_i] = True
+                        break
+            free_r[:, b] += freed
+            n_evict += len(evicted)
+        v.placed[b] += 1
+        chosen_out[li][p] = b
+
     for li, v in enumerate(views):
         for p in range(v.P):
             b = int(assigned[li][p])
-            if not (b >= 0 and (v.ask <= free_r[:, b] + 1e-9).all()):
-                # rounded node infeasible at commit time: place by the
-                # greedy rule -- best host score minus LP congestion
-                # price, over verified remaining capacity
-                n_repair += 1
-                fits = v.feas_fit & (free_r + 1e-9 >= v.ask[:, None]).all(
-                    axis=0)
-                if not fits.any():
-                    n_fail += 1     # nothing fits anywhere: blocked
+            if b >= 0 and (v.ask <= free_r[:, b] + 1e-9).all():
+                commit(v, li, p, b)
+                continue
+            if b >= 0 and v.relief_ok is not None and v.relief_ok[b]:
+                evicted = _try_preempt(v, b, free_r, evicted_ids,
+                                       evicted_so_far)
+                if evicted:
+                    commit(v, li, p, b, evicted)
                     continue
+            # rounded node infeasible at commit time: place by the
+            # greedy rule -- best host score minus LP congestion price,
+            # over verified remaining capacity
+            n_repair += 1
+            fits = v.feas_fit & (free_r + 1e-9 >= v.ask[:, None]).all(
+                axis=0)
+            if fits.any():
                 price = mu @ v.ask                          # (N,)
                 score = np.where(fits, v.V - price, -np.inf)
-                b = int(np.argmax(score))
-            free_r[:, b] -= v.ask
-            v.placed[b] += 1
-            chosen_out[li][p] = b
+                commit(v, li, p, int(np.argmax(score)))
+                continue
+            if v.relief_ok is not None:
+                relievable = np.flatnonzero(v.relief_ok)
+                placed_ok = False
+                for b2 in relievable[np.argsort(-v.V[relievable])][:8]:
+                    evicted = _try_preempt(v, int(b2), free_r,
+                                           evicted_ids, evicted_so_far)
+                    if evicted:
+                        commit(v, li, p, int(b2), evicted)
+                        placed_ok = True
+                        break
+                if placed_ok:
+                    continue
+            n_fail += 1     # nothing fits anywhere: blocked
 
     # publish the committed capacity into the cross-generation ledger
     touched = np.flatnonzero((free_r != free).any(axis=0))
@@ -770,6 +885,7 @@ def _solve_lp_group(lanes: List[PackedLane], ledger: Dict[str, list],
     _stat("placements", n_placed)
     _stat("repairs", n_repair)
     _stat("failed", n_fail)
+    _stat("preempt_evictions", n_evict)
     lap("round_repair")
 
     # -- batch-level quality: LP vs a greedy replay of the same queue ---
@@ -788,7 +904,10 @@ def _solve_lp_group(lanes: List[PackedLane], ledger: Dict[str, list],
                                v.inv[np.clip(chosen_out[li], 0, None)],
                                -1).astype(np.int64)
         n_yielded = np.full(v.P, max(v.n_yield, 1), dtype=np.int64)
-        out.append((chosen_shuf, scores, n_yielded))
+        if evict_out[li] is not None:
+            out.append((chosen_shuf, scores, n_yielded, evict_out[li]))
+        else:
+            out.append((chosen_shuf, scores, n_yielded))
     lap("follow")
     return out
 

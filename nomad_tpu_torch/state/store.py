@@ -1,19 +1,28 @@
-"""The alloc-delta journal of the state store (port of the journal half
-of nomad_tpu/state/store.py StateStore).
+"""The state store (port of nomad_tpu/state/store.py StateStore and
+StateSnapshot): nodes, jobs, allocations and the scheduler
+configuration, point-in-time snapshots, and the alloc-delta journal.
 
-Every logical write advances one raft-style index; a write to the allocs
-table also appends ``(index, pairs)`` to a bounded journal, where
-``pairs`` is the write's list of ``(old_alloc | None, new_alloc | None)``
-change pairs, or None for a write that carries no structured delta (an
-explicit coverage gap). ``alloc_deltas_since(index, upto)`` answers
-whether the journal covers the span ``(index, upto]`` and with which
-pairs: the device-resident version chain (solver/resident.py
-chain_apply) admits a delta promotion only over a covered span.
+Every logical write advances one raft-style index exactly as the
+reference's ``_bump`` does (``upsert_node`` one, ``upsert_job`` one,
+``upsert_allocs`` one, ``set_scheduler_config`` one): the eval's node
+shuffle is seeded by (eval id, latest_index), so a world written in the
+same order lands on the same index and packs the same permutation.
 
-Allocations are opaque here: a write needs only their ``id`` (and the
-journal's readers their ``node_id``). The structs slice grows this class
-into the full store (nodes, jobs, evals, snapshots) around the same
-journal.
+A write to the allocs table also appends ``(index, pairs)`` to a bounded
+journal, where ``pairs`` is the write's list of ``(old_alloc | None,
+new_alloc | None)`` change pairs, or None for a write that carries no
+structured delta (an explicit coverage gap). ``alloc_deltas_since(index,
+upto)`` answers whether the journal covers the span ``(index, upto]``
+and with which pairs: the device-resident version chain
+(solver/resident.py chain_apply) and the placement service's usage
+catch-up (solver/service.py _catch_up_usage_base) advance only over a
+covered span.
+
+Writes replace objects and never mutate them in place, so a snapshot
+shares the store's objects safely. Every mapping keeps insertion order:
+candidate rows and dense argmin ties follow it. The journal's readers
+need only an allocation's ``id`` and ``node_id``; the other fields
+(namespace, job id, indices) are read where present.
 
 Knob (read when a store is built):
   NOMAD_TPU_TORCH_DELTA_JOURNAL   journal capacity in writes (default
@@ -24,8 +33,12 @@ from __future__ import annotations
 import os
 import sys
 import threading
+import time
 from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
+
+from ..structs import SchedulerConfiguration
+from ..structs.job import JOB_STATUS_DEAD, JOB_STATUS_PENDING
 
 
 def _delta_journal_cap() -> int:
@@ -39,17 +52,104 @@ def _delta_journal_cap() -> int:
         return 128
 
 
+def _job_key(alloc) -> Tuple[str, str]:
+    return (getattr(alloc, "namespace", "default"),
+            getattr(alloc, "job_id", ""))
+
+
+class StateSnapshot:
+    """An immutable point-in-time view (reference: StateSnapshot). It
+    shares the store's objects and exposes the store as ``_store`` (the
+    alloc-delta journal the placement service and the resident buffer
+    set read)."""
+
+    def __init__(self, store: "StateStore"):
+        with store._lock:
+            self.index = store._index
+            self.node_table_index = store._table_index.get("nodes", 1)
+            self._nodes = dict(store._nodes)
+            self._jobs = dict(store._jobs)
+            self._allocs = dict(store._allocs)
+            self._allocs_by_node = {k: dict(v) for k, v in
+                                    store._allocs_by_node.items()}
+            self._allocs_by_job = {k: dict(v) for k, v in
+                                   store._allocs_by_job.items()}
+            self._scheduler_config = store._scheduler_config
+            self._store = store
+
+    def latest_index(self) -> int:
+        return self.index
+
+    def node_by_id(self, node_id: str):
+        return self._nodes.get(node_id)
+
+    def nodes(self) -> list:
+        return list(self._nodes.values())
+
+    def ready_nodes_in_pool(self, pool: str = "all") -> list:
+        """The ready nodes of a pool ("" or "all": every pool), memoized
+        per snapshot with their id tuple (nodes_pack_key)."""
+        return self._ready_memoized(("pool", pool))[0]
+
+    def _ready_memoized(self, key):
+        memo = self.__dict__.setdefault("_ready_memo", {})
+        ent = memo.get(key)
+        if ent is None:
+            pool = key[1]
+            out = [n for n in self._nodes.values() if n.ready()
+                   and (pool in ("", "all") or n.node_pool == pool)]
+            ent = memo.setdefault(key, (out, tuple(n.id for n in out)))
+            self.__dict__.setdefault("_ready_by_id", {})[id(ent[0])] = \
+                ent[1]
+        return ent
+
+    def nodes_pack_key(self, nodes):
+        """The node-id tuple of a list this snapshot's ready memo handed
+        out (matched by identity), else None."""
+        by_id = self.__dict__.get("_ready_by_id")
+        return by_id.get(id(nodes)) if by_id else None
+
+    def job_by_id(self, namespace: str, job_id: str):
+        return self._jobs.get((namespace, job_id))
+
+    def jobs(self) -> list:
+        return list(self._jobs.values())
+
+    def alloc_by_id(self, alloc_id: str):
+        return self._allocs.get(alloc_id)
+
+    def allocs(self) -> list:
+        return list(self._allocs.values())
+
+    def allocs_by_node(self, node_id: str) -> list:
+        return [self._allocs[i] for i in self._allocs_by_node.get(node_id, ())
+                if i in self._allocs]
+
+    def allocs_by_job(self, namespace: str, job_id: str,
+                      anyCreateIndex: bool = True) -> list:
+        return [self._allocs[i]
+                for i in self._allocs_by_job.get((namespace, job_id), ())
+                if i in self._allocs]
+
+    def scheduler_config(self) -> SchedulerConfiguration:
+        return self._scheduler_config
+
+
 class StateStore:
-    """Index bookkeeping and the bounded alloc-delta journal. A new store
-    is at index 1 with every table at 1 and an empty journal, as the
-    reference store is."""
+    """The live, writable store. A new store is at index 1 with every
+    table at 1 and an empty journal, as the reference store is."""
 
     def __init__(self):
         self._lock = threading.RLock()
         self._index = 1
         self._table_index: Dict[str, int] = {}      # absent = 1
-        self._allocs: Dict[str, object] = {}
         self._nodes: Dict[str, object] = {}
+        self._jobs: Dict[Tuple[str, str], object] = {}
+        self._allocs: Dict[str, object] = {}
+        self._allocs_by_node: Dict[str, Dict[str, None]] = {}
+        self._allocs_by_job: Dict[Tuple[str, str], Dict[str, None]] = {}
+        self._scheduler_config = SchedulerConfiguration()
+        self._snap_cache: Optional[StateSnapshot] = None
         # (index, pairs | None) per alloc-table write, oldest first
         self._alloc_deltas: deque = deque(maxlen=_delta_journal_cap())
         self.delta_journal_overflow = 0
@@ -70,6 +170,7 @@ class StateStore:
             self._index += 1
             for t in tables:
                 self._table_index[t] = self._index
+            self._snap_cache = None
             if "allocs" in tables:
                 self._alloc_deltas.append((self._index, delta))
             idx = self._index
@@ -78,12 +179,14 @@ class StateStore:
 
     @staticmethod
     def _notify_write_hooks(tables, index: int, delta) -> None:
-        """Tell the resident buffer set of the write, if it is loaded (a
-        store used without the solver never imports it)."""
-        m = sys.modules.get("nomad_tpu_torch.solver.resident")
-        hook = getattr(m, "note_table_write", None)
-        if hook is not None:
-            hook(tables, index, delta)
+        """Tell the resident buffer set and the pack caches of the write,
+        where they are loaded (a store used without the solver never
+        imports them)."""
+        for name in ("nomad_tpu_torch.solver.resident",
+                     "nomad_tpu_torch.tensor.pack"):
+            hook = getattr(sys.modules.get(name), "note_table_write", None)
+            if hook is not None:
+                hook(tables, index, delta)
 
     def alloc_deltas_since(self, index: int, upto: Optional[int] = None
                            ) -> Tuple[bool, list]:
@@ -111,21 +214,87 @@ class StateStore:
                 pairs.extend(delta)
             return True, pairs
 
+    def snapshot(self) -> StateSnapshot:
+        """One snapshot per index: any write starts a new one."""
+        with self._lock:
+            if self._snap_cache is None:
+                self._snap_cache = StateSnapshot(self)
+            return self._snap_cache
+
     # -- writes ---------------------------------------------------------
     def upsert_node(self, node) -> int:
-        """Register or replace a node (keyed by ``node.id``)."""
+        """Register or replace a node (keyed by ``node.id``). A
+        re-registration keeps the operator's drain and eligibility; a
+        node without a computed class gets one."""
         with self._lock:
+            existing = self._nodes.get(node.id)
+            if hasattr(node, "modify_index"):
+                if existing is not None:
+                    node.create_index = existing.create_index
+                    if node.drain_strategy is None:
+                        if existing.drain_strategy is not None:
+                            node.drain_strategy = existing.drain_strategy
+                        if existing.scheduling_eligibility:
+                            node.scheduling_eligibility = \
+                                existing.scheduling_eligibility
+                else:
+                    node.create_index = self._index + 1
+                node.modify_index = self._index + 1
+                if not node.computed_class:
+                    node.compute_class()
             self._nodes[node.id] = node
             return self._bump("nodes")
+
+    def upsert_job(self, job) -> int:
+        """Register or replace a job (keyed by namespace and id): a
+        replacement is the next version."""
+        with self._lock:
+            key = (job.namespace, job.id)
+            existing = self._jobs.get(key)
+            if existing is not None:
+                job.create_index = existing.create_index
+                job.version = existing.version + 1
+            else:
+                job.create_index = self._index + 1
+                job.version = 0
+            job.modify_index = self._index + 1
+            job.job_modify_index = self._index + 1
+            if job.status != JOB_STATUS_DEAD:
+                job.status = JOB_STATUS_PENDING
+            self._jobs[key] = job
+            return self._bump("jobs", "job_versions")
+
+    def set_scheduler_config(self, cfg: SchedulerConfiguration) -> int:
+        with self._lock:
+            cfg.modify_index = self._index + 1
+            self._scheduler_config = cfg
+            return self._bump("scheduler_config")
 
     def upsert_allocs(self, allocs: Iterable) -> int:
         """Insert or replace allocations (keyed by ``alloc.id``); the
         write journals one (existing | None, alloc) pair per alloc."""
         with self._lock:
+            now = time.time()
             pairs: List[tuple] = []
             for alloc in allocs:
-                pairs.append((self._allocs.get(alloc.id), alloc))
+                existing = self._allocs.get(alloc.id)
+                if hasattr(alloc, "modify_index"):
+                    if existing is not None:
+                        alloc.create_index = existing.create_index
+                        alloc.create_time = existing.create_time
+                    else:
+                        alloc.create_index = self._index + 1
+                        alloc.create_time = now
+                    alloc.modify_index = self._index + 1
+                    alloc.modify_time = now
+                    if alloc.job is None and existing is not None:
+                        alloc.job = existing.job
+                pairs.append((existing, alloc))
                 self._allocs[alloc.id] = alloc
+                self._allocs_by_node.setdefault(
+                    alloc.node_id, {})[alloc.id] = None
+                self._allocs_by_job.setdefault(
+                    _job_key(alloc), {})[alloc.id] = None
             return self._bump("allocs", delta=pairs)
 
     def delete_allocs(self, alloc_ids: Iterable[str]) -> int:
@@ -136,6 +305,8 @@ class StateStore:
                 a = self._allocs.pop(aid, None)
                 if a is not None:
                     pairs.append((a, None))
+                    self._allocs_by_node.get(a.node_id, {}).pop(aid, None)
+                    self._allocs_by_job.get(_job_key(a), {}).pop(aid, None)
             return self._bump("allocs", delta=pairs)
 
     def replace_allocs(self, allocs: Iterable) -> int:
@@ -143,9 +314,16 @@ class StateStore:
         does: no change-pair set exists, so the write journals an
         explicit coverage gap (delta None)."""
         with self._lock:
-            self._allocs = {a.id: a for a in allocs}
+            self._allocs = {}
+            self._allocs_by_node = {}
+            self._allocs_by_job = {}
+            for a in allocs:
+                self._allocs[a.id] = a
+                self._allocs_by_node.setdefault(a.node_id, {})[a.id] = None
+                self._allocs_by_job.setdefault(_job_key(a), {})[a.id] = None
             return self._bump("allocs")
 
+    # -- reads: the scheduler reads a snapshot --------------------------
     def allocs(self) -> list:
         with self._lock:
             return list(self._allocs.values())

@@ -1,0 +1,47 @@
+"""The data model the placement service reads (port of the scheduling
+half of nomad_tpu/structs/): resources, ports, nodes, jobs, allocations,
+evaluations, plans and the scheduler configuration. Class and field
+names equal the reference's, so carry.struct_from_reference can map a
+reference struct onto its port class by name."""
+from .resources import (  # noqa: F401
+    AllocatedDeviceResource, AllocatedPortMapping, AllocatedResources,
+    AllocatedSharedResources, AllocatedTaskResources, ComparableResources,
+    DeviceRequest, NetworkResource, NodeCpuResources, NodeDeviceResource,
+    NodeDiskResources, NodeMemoryResources, NodeReservedResources,
+    NodeResources, Port, Resources,
+    DEFAULT_MIN_DYNAMIC_PORT, DEFAULT_MAX_DYNAMIC_PORT,
+)
+from .job import (  # noqa: F401
+    Affinity, Constraint, EphemeralDisk, Job, LogConfig, MigrateStrategy,
+    ReschedulePolicy, RestartPolicy, Service, Spread, SpreadTarget, Task,
+    TaskGroup, UpdateStrategy, VolumeRequest, generate_uuid, reseed_ids,
+    JOB_TYPE_SERVICE, JOB_TYPE_BATCH, JOB_TYPE_SYSTEM, JOB_TYPE_SYSBATCH,
+    JOB_STATUS_PENDING, JOB_STATUS_RUNNING, JOB_STATUS_DEAD,
+    JOB_DEFAULT_PRIORITY, JOB_MAX_PRIORITY,
+    CONSTRAINT_DISTINCT_HOSTS, CONSTRAINT_DISTINCT_PROPERTY, CONSTRAINT_REGEX,
+    CONSTRAINT_VERSION, CONSTRAINT_SEMVER, CONSTRAINT_SET_CONTAINS,
+    CONSTRAINT_SET_CONTAINS_ALL, CONSTRAINT_SET_CONTAINS_ANY,
+    CONSTRAINT_ATTR_IS_SET, CONSTRAINT_ATTR_IS_NOT_SET,
+    DEFAULT_NAMESPACE, DEFAULT_NODE_POOL,
+)
+from .node import (  # noqa: F401
+    ClientHostVolumeConfig, DrainStrategy, DriverInfo, Node, NodePool,
+    NODE_STATUS_INIT, NODE_STATUS_READY, NODE_STATUS_DOWN,
+    NODE_STATUS_DISCONNECTED, NODE_SCHED_ELIGIBLE, NODE_SCHED_INELIGIBLE,
+)
+from .alloc import (  # noqa: F401
+    AllocDeploymentStatus, AllocMetric, Allocation, Deployment,
+    DeploymentState, DeploymentStatusUpdate, DesiredTransition, Evaluation,
+    NetworkStatus, Plan, RescheduleEvent, RescheduleTracker,
+    ALLOC_DESIRED_RUN, ALLOC_DESIRED_STOP, ALLOC_DESIRED_EVICT,
+    ALLOC_CLIENT_PENDING, ALLOC_CLIENT_RUNNING, ALLOC_CLIENT_COMPLETE,
+    ALLOC_CLIENT_FAILED, ALLOC_CLIENT_LOST, ALLOC_CLIENT_UNKNOWN,
+    EVAL_STATUS_PENDING, TRIGGER_JOB_REGISTER,
+)
+from .network import NetworkIndex, PortBitmap, AssignedPorts  # noqa: F401
+from .funcs import allocs_fit, devices_fit  # noqa: F401
+from .config import (  # noqa: F401
+    PreemptionConfig, SchedulerConfiguration,
+    SCHED_ALG_BINPACK, SCHED_ALG_SPREAD, SCHED_ALG_TPU_BINPACK,
+    SCHED_ALG_TPU_LPQ, SCHED_ALG_TPU_SPREAD,
+)

@@ -16,7 +16,8 @@ package on the CPU.
     LP-ineligible lanes (spread, static port, penalty) riding
     fuse_and_solve and the fixpoint.
   * _cross_lane_fixpoint against the reference's, LpqBarrier with
-    threads, and the preemption lane that raises.
+    threads, and preemption lanes packed from structs, whose repair
+    evicts through the port's Preemptor.
 
 Every reference solve is pinned to the single-device program
 (NOMAD_TPU_MESH=0; conftest gives the reference eight virtual devices).
@@ -42,8 +43,7 @@ from nomad_tpu.structs import (
 
 from nomad_tpu_torch.carry import lane_from_reference
 from nomad_tpu_torch.solver import batch, lpq
-from nomad_tpu_torch.solver.service import pack_lane_arrays
-from nomad_tpu_torch.tensor.pack import NodeMatrix, PreemptInfo, UsageState
+from nomad_tpu_torch.tensor.pack import NodeMatrix
 
 # One intra-op thread: the port's CPU tensors are small, and the test
 # run already keeps one xdist worker busy per core.
@@ -495,35 +495,93 @@ def test_barrier_ledger_persists_across_generations():
 
 
 # --------------------------------------------------------------------------
-# 6. preemption lanes wait for the structs slice
+# 6. preemption lanes, packed from structs
 
 def test_lp_eligible_preemption_lane_raises():
-    n, n_pad, A = 5, 64, 4
-    matrix = NodeMatrix(
-        n_real=n, n_pad=n_pad, node_ids=[f"n{i}" for i in range(n)],
-        cpu_cap=np.r_[np.full(n, 4000.0), np.zeros(n_pad - n)],
-        mem_cap=np.r_[np.full(n, 8192.0), np.zeros(n_pad - n)],
-        disk_cap=np.r_[np.full(n, 102400.0), np.zeros(n_pad - n)],
-        dyn_free=np.full(n_pad, 100, dtype=np.int32),
-        valid=np.arange(n_pad) < n)
-    z = np.zeros(n_pad)
-    zi = np.zeros(n_pad, dtype=np.int32)
-    col0 = (np.arange(A) == 0)[None, :] & (np.arange(n_pad) < n)[:, None]
-    info = PreemptInfo(
-        cpu=np.where(col0, 3800.0, 0.0), mem=np.where(col0, 512.0, 0.0),
-        disk=np.where(col0, 150.0, 0.0),
-        prio=np.where(col0, 20, 0).astype(np.int32),
-        maxp=np.zeros((n_pad, A), dtype=np.int32),
-        grp=np.where(col0, 0, -1).astype(np.int32), valid=col0,
-        job_prio=70, counts=np.zeros(1, dtype=np.int32))
-    lane = pack_lane_arrays(
-        matrix, UsageState(z, z, z, zi, zi, zi), np.ones(n_pad, dtype=bool),
-        ask=(500.0, 256.0, 150.0), count=3, n_places=3, eval_id="pre",
-        state_index=1, preemption=info, device="cpu")
-    assert lane.ptab is not None and lpq.lp_lane_eligible(lane)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        lpq.solve_queue([lane], {}, device="cpu")
-    assert lpq.lpq_stats()["solves"] == 0
+    """Preemption lanes no longer raise: lanes packed from structs (the
+    reference's TpuPlacementService, and the port's on the carried
+    snapshot) solve through the LP tier, whose repair evicts with the
+    port's Preemptor; chosen nodes, eviction rows and evicted alloc ids
+    equal the reference's solve_queue."""
+    import itertools
+    import random
+
+    from nomad_tpu.scheduler.context import EvalContext as RefContext
+    from nomad_tpu.scheduler.reconcile import AllocPlaceResult as RefPlace
+    from nomad_tpu.solver import service as ref_service
+    from nomad_tpu.structs import ALLOC_CLIENT_RUNNING, Plan as RefPlan
+    from nomad_tpu_torch.carry import (
+        store_from_reference, struct_from_reference)
+    from nomad_tpu_torch.scheduler.context import EvalContext as PortContext
+    from nomad_tpu_torch.solver.service import (
+        TpuPlacementService as PortService)
+    from tests.test_torch_service import assert_lanes_equal
+
+    rng = random.Random(3)
+    mock._counter = itertools.count()
+    h = Harness()
+    nodes = []
+    for i in range(6):
+        node = mock.node()
+        node.id = f"lp-node-{i:02d}"
+        h.state.upsert_node(node)
+        nodes.append(node)
+        for k in range(2):
+            j = mock.job(priority=rng.choice([10, 20, 30]))
+            j.id = f"lp-filler-{i}-{k}"
+            j.task_groups[0].tasks[0].resources.cpu = 1800
+            j.task_groups[0].tasks[0].resources.memory_mb = 512
+            h.state.upsert_job(j)
+            a = mock.alloc_for(j, node, index=k)
+            a.client_status = ALLOC_CLIENT_RUNNING
+            h.state.upsert_allocs([a])
+    snap = h.state.snapshot()
+    ready = snap.ready_nodes_in_pool("default")
+    ref_lanes, port_lanes = [], []
+    memo = {}
+    store = store_from_reference(snap, memo)
+    psnap = store.snapshot()
+    pready = struct_from_reference(ready, memo)
+    for e in range(3):
+        job = mock.job(priority=70)
+        job.id = f"lp-job-{e}"
+        job.task_groups[0].count = 2 + e
+        job.task_groups[0].tasks[0].resources.cpu = 1000
+        job.task_groups[0].tasks[0].resources.memory_mb = 256
+        tg = job.task_groups[0]
+        plan = RefPlan(eval_id=f"lp-preempt-eval-{e:04d}", job=job,
+                       priority=70)
+        rsvc = ref_service.TpuPlacementService(
+            RefContext(snap, plan), job, False, False, dtype="float64",
+            preempt=True)
+        places = [RefPlace(name=f"{job.id}.web[{i}]", task_group=tg)
+                  for i in range(tg.count)]
+        rl = rsvc.pack(tg, places, ready)
+        pm = dict(memo)
+        pjob = struct_from_reference(job, pm)
+        psvc = PortService(
+            PortContext(psnap, struct_from_reference(plan, pm)), pjob,
+            False, False, preempt=True, device="cpu")
+        pl = psvc.pack(pjob.task_groups[0], struct_from_reference(places, pm),
+                       pready)
+        assert_lanes_equal(rl, pl)
+        assert lpq.lp_lane_eligible(pl) and ref_lpq.lp_lane_eligible(rl)
+        ref_lanes.append(rl)
+        port_lanes.append(pl)
+    want = ref_lpq.solve_queue(ref_lanes, {})
+    got = lpq.solve_queue(port_lanes, {}, device="cpu")
+    n_evicted = 0
+    for rl, pl, w, g in zip(ref_lanes, port_lanes, want, got):
+        assert len(w) == len(g) == 4
+        assert np.array_equal(w[0], g[0])
+        assert np.array_equal(w[3], g[3])
+        wm = rl.service.materialize(rl, *w)
+        gm = pl.service.materialize(pl, *g)
+        assert [[a.id for a in p.preempted_allocs or ()] for p in wm] == \
+            [[a.id for a in p.preempted_allocs or ()] for p in gm]
+        n_evicted += sum(len(p.preempted_allocs or ()) for p in gm)
+    assert n_evicted > 0
+    assert lpq.lpq_stats()["preempt_evictions"] == n_evicted
 
 
 def test_solve_queue_defaults_to_cuda():

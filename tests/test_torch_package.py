@@ -98,6 +98,46 @@ def test_dispatch_layer_modules_load_no_jax_and_nothing_of_the_reference(
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["nomad_tpu_torch.structs",
+                                    "nomad_tpu_torch.mock",
+                                    "nomad_tpu_torch.carry",
+                                    "nomad_tpu_torch.scheduler.context",
+                                    "nomad_tpu_torch.scheduler.feasible",
+                                    "nomad_tpu_torch.scheduler.preemption",
+                                    "nomad_tpu_torch.scheduler.rank",
+                                    "nomad_tpu_torch.tensor.pack",
+                                    "nomad_tpu_torch.solver.service"])
+def test_struct_modules_load_no_jax_and_nothing_of_the_reference(module):
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_placement_service_defaults_to_cuda():
+    """TpuPlacementService resolves its device when built: with no card
+    the default (cuda) raises, and nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.scheduler.context import EvalContext
+    from nomad_tpu_torch.solver.service import TpuPlacementService
+    from nomad_tpu_torch.state.store import StateStore
+    from nomad_tpu_torch.structs import Plan
+    job = mock.job()
+    ctx = EvalContext(StateStore().snapshot(), Plan(job=job))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TpuPlacementService(ctx, job, False, False)
+    assert TpuPlacementService(ctx, job, False, False,
+                               device="cpu").dtype == "float64"
+
+
 def test_every_port_env_knob_is_documented():
     """Each NOMAD_TPU_TORCH_* variable the port reads is named in the
     README's port section."""
