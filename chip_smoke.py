@@ -15,7 +15,10 @@ Phases (any failure raises and the script exits nonzero with no result):
                 exactly, scores within rtol 1e-12 (float64) / 1e-6
                 (float32; both versions run the same IEEE operations in
                 the same order, so they are expected to agree to the
-                bit)) and timed, in float32 and float64:
+                bit)) and timed, in float32 and float64 (float64 at short
+                windows: the plain versions step on the host side once a
+                placement row, so float64's groups are small; float32
+                keeps the shapes below):
                 - wave_block / wave_compact x B in {32, 128} at the
                   headline dispatch shape (E = 32 lanes, P_pad = 2048):
                   packed headline lanes plus numpy-seeded fuzz lanes that
@@ -24,23 +27,28 @@ Phases (any failure raises and the script exits nonzero with no result):
                   then wave_compact's edge groups (WAVE_LIMIT_GROUPS:
                   3, 16 and 17 spreads, and spreads over 16,384 values,
                   fuzz lanes at P_pad = 512); every output equal to the
-                  plain version's bits;
+                  plain version's bits; float64: WAVE_F64_GROUPS (every
+                  form of both kernels on fuzz lanes at P_pad = 512);
                 - dense_scan on one fused group of E = 32 lanes at
                   N = 16,384, P_pad = 2048: 16 packed spread lanes
                   (count 2,000) and 16 fuzz lanes over ports,
                   distinct_hosts, distinct_property, devices, reserved
                   cores, penalties, non-uniform asks and exhaustion;
                   then fuzz groups at N = 256, 1,024 and 4,096 (held
-                  against the plain version, untimed);
+                  against the plain version, untimed); float64: the same
+                  fuzz groups;
                 - system_fit on the system eval's lane and 8 fuzz lanes;
                 - wave_preempt and dense_preempt on one fused group of
                   E = 32 lanes each at N = 16,384, A = 16 (windowed at
                   P_pad = 2048, dense at P_pad = 512): 16 packed tier-5
-                  lanes and 16 fuzz lanes (priority tiers, max_parallel,
-                  distinct_hosts, affinity, penalties, saturation, inert
-                  lanes), eviction rows and final state exactly too;
-                  then, untimed, wave_preempt at B = 128, both at
-                  A = 64, and dense_preempt at N = 256, 1,024 and 4,096;
+                  lanes and 16 fuzz lanes
+                  (priority tiers, max_parallel, distinct_hosts,
+                  affinity, penalties, saturation, inert lanes), eviction
+                  rows and final state exactly too; then, untimed,
+                  wave_preempt at B = 128, both at A = 64, and
+                  dense_preempt at N = 256, 1,024 and 4,096; float64:
+                  the untimed worlds up to 8 lanes and 8 windowed tier-5
+                  lanes of 500 at P_pad = 512;
                 - lp_relax (float32 only, as the reference's LP) at
                   L_pad in {8, 128, 256} x N in {256, 16,384, 65,536},
                   48 steps, on seeded fuzz with and without
@@ -179,24 +187,49 @@ Phases (any failure raises and the script exits nonzero with no result):
                 second, pack_cache_stats() and the resident chain's
                 outcomes; no hook falls back to the host and no dispatch
                 fails.
-  Phases 4-13 reset the launch counts just before and read them just
+ 14. scheduler -- Evaluations in, committed plans out, through the port's
+                Harness and its GenericScheduler / SystemScheduler (the
+                reconciler, the stacks, the breaker check, submit_plan
+                through upsert_plan_results) on one thread an eval with
+                the SolveBarrier hook or the LP tier's, float32: phase
+                13's fleet with 32 mock.job evals x 2,000, then the same
+                jobs scaled to 2,600 (the reconciler reads 2,000 allocs
+                each and places 600; the usage base caught up through
+                the commits' journal); a system job; a mixed barrier of
+                two-group spread jobs (the second groups promote through
+                the delta scatter), a distinct_property job, a
+                reserved-core job and a reschedule with penalties; a
+                sticky disk's reschedule through the host stack (the one
+                host-stack place; no eval falls back and no dispatch
+                fails); 8 preemption evals x 500 over the tier-5
+                store; 32 tpu-lpq evals x 8. Every lane and committed
+                placement (node, normalized-score bits, evictions) equals
+                the direct hook route's, solve_system's or a direct
+                LpqBarrier's on the same snapshot and eval ids; prints
+                each step's wall time, placements per second and the
+                reconcile / pack / barrier wait / materialize /
+                submit_plan split per eval.
+  Phases 4-14 reset the launch counts just before and read them just
   after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
   to the plain versions on the same fused inputs. The kernels line's
   ``barrier_launches`` are phase 12's: its depth-2 barrier generation of
   each input and its LpqBarrier generation; its ``structs_launches`` are
   phase 13's struct routes (the array routes its checks compare with run
-  outside the count).
+  outside the count); its ``scheduler_launches`` phase 14's scheduler
+  routes (the direct routes outside the count).
 
 Prints a full JSON report line, the card line, a {"kernels": [...]} line,
 and last the contract line {"ok": true, "device": {...}}.
 """
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import threading
 import time
+from typing import NamedTuple, Optional
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -216,8 +249,13 @@ KERNEL_REPEATS = 20
 DEVICE = "cuda"
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A progress line, stamped with the seconds since the script
+    started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *a, flush=True)
 
 
 def card_line():
@@ -700,22 +738,38 @@ WAVE_LIMIT_GROUPS = ((128, 3, 10), (128, 16, 10), (128, 17, 10),
 LIMIT_P_PAD = 512
 
 
-def wave_limit_groups(np, torch, bp, dtype_name, *, max_v=None):
-    """WAVE_LIMIT_GROUPS as wave_groups' tuples (those with V <= max_v
-    when given)."""
+# float64's wave groups: each form of both wave kernels on fuzz lanes at
+# the limit groups' window (P_pad 512), (kname, B, S, V). The plain
+# versions step once per compact row, so the headline shape's 2,080-2,176
+# rows cost about 4x the host time of these 640; float32 keeps the
+# headline shape and every limit group.
+WAVE_F64_GROUPS = (("wave_block", 32, 0, 10), ("wave_compact", 32, 0, 10),
+                   ("wave_block", 128, 0, 10), ("wave_compact", 128, 2, 10),
+                   ("wave_compact", 128, 3, 10),
+                   ("wave_compact", 128, 1, 16_384),
+                   ("wave_compact", 128, 2, 16_384))
+
+
+def wave_limit_groups(np, torch, bp, dtype_name, *, max_v=None,
+                      specs=None):
+    """WAVE_LIMIT_GROUPS (or ``specs``: (kname, B, S, V)) as wave_groups'
+    tuples, fuzz lanes at P_pad LIMIT_P_PAD (those with V <= max_v when
+    given)."""
     dt = np.dtype(dtype_name).type
     groups = []
-    for B, S, V in WAVE_LIMIT_GROUPS:
+    if specs is None:
+        specs = [("wave_compact", B, S, V) for B, S, V in WAVE_LIMIT_GROUPS]
+    for kname, B, S, V in specs:
         if max_v is not None and V > max_v:
             continue
         cm, sf, si, pn, sp = kernel_inputs(
-            np, bp, [], B=B, S=S, penalties=True, dt=dt,
+            np, bp, [], B=B, S=S, penalties=kname == "wave_compact", dt=dt,
             seed=SEED + 7 * B + S + V, P_pad=LIMIT_P_PAD, V=V)
         dev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
                     for a in (cm, sf, si, pn))
         spd = bp.WaveSpread(*(torch.from_numpy(
             np.ascontiguousarray(a)).to(DEVICE) for a in sp))
-        groups.append(("wave_compact", B, S, dev, spd))
+        groups.append((kname, B, S, dev, spd))
     return groups
 
 
@@ -750,11 +804,16 @@ def wave_bound(kname, dev, spd, got, want, B, S, dtype_name):
 
 
 def kernel_phase(np, torch, bp, wave, kernels, svc, tp, world):
+    """wave_block and wave_compact against their plain versions, as bits:
+    float32 on wave_groups (the headline shape) and every limit group,
+    float64 on WAVE_F64_GROUPS; timed."""
     results = []
     for dtype_name in ("float32", "float64"):
-        for kname, B, S, dev, spd in (
-                wave_groups(np, torch, bp, svc, tp, world, dtype_name)
-                + wave_limit_groups(np, torch, bp, dtype_name)):
+        groups = (wave_groups(np, torch, bp, svc, tp, world, dtype_name)
+                  + wave_limit_groups(np, torch, bp, dtype_name)
+                  if dtype_name == "float32" else wave_limit_groups(
+                      np, torch, bp, dtype_name, specs=WAVE_F64_GROUPS))
+        for kname, B, S, dev, spd in groups:
             run = wave_call(wave, kname, dev, spd, B)
             got, _ = time_once(torch, run)
             want, plain_ms = time_once(
@@ -1099,9 +1158,9 @@ def dense_mixed_group(np, bp, svc, tp, world, dtype_name, rng):
 
 
 def dense_kernel_phase(np, torch, bp, dense, kernels, svc, tp, world, seed):
-    """dense_scan x {float32, float64} on one fused group of E = 32 lanes
-    at N = 16,384, P_pad = 2,048: 16 packed spread lanes (count 2,000)
-    and 16 numpy-seeded fuzz lanes at fewer active placements, covering
+    """dense_scan in float32 on one fused group of E = 32 lanes at
+    N = 16,384, P_pad = 2,048: 16 packed spread lanes (count 2,000) and
+    16 numpy-seeded fuzz lanes at fewer active placements, covering
     ports, distinct_hosts (job and group level), distinct_property,
     devices with affinity, reserved cores, penalties, non-uniform asks,
     capacity exhaustion and skip-threshold crossings. Then, untimed, fuzz
@@ -1109,65 +1168,80 @@ def dense_kernel_phase(np, torch, bp, dense, kernels, svc, tp, world, seed):
     the launcher picks) at the small node buckets (N = 256 and 1,024,
     where a block's share of the nodes is less than one round) and a
     mid-size one (N = 4,096), with limits 3 to 2,000 (above the node
-    count: the walk never stops early)."""
+    count: the walk never stops early). float64: the same fuzz
+    groups."""
     results = []
-    fuzz_sets = DENSE_FUZZ_SETS
     for dtype_name in ("float32", "float64"):
-        dt = np.dtype(dtype_name).type
         rng = np.random.default_rng(seed)
-        const, init, batch = dense_mixed_group(np, bp, svc, tp, world,
-                                               dtype_name, rng)
-        c, s, b = dense.lane_tensors(const, init, batch,
-                                     dtype_name=dtype_name,
-                                     device=torch.device(DEVICE))
+        if dtype_name == "float32":
+            # the 32-lane group at P 2,048 in float32 only: the plain
+            # scan rescores every node a step
+            const, init, batch = dense_mixed_group(np, bp, svc, tp, world,
+                                                   dtype_name, rng)
+            c, s, b = dense.lane_tensors(const, init, batch,
+                                         dtype_name=dtype_name,
+                                         device=torch.device(DEVICE))
 
-        def run(fn):
-            return fn(c, s, b, spread_alg=False)
+            def run(fn):
+                return fn(c, s, b, spread_alg=False)
 
-        got, _ = time_once(torch, lambda: run(dense.dense_scan))
-        C = kernels.DENSE_SCAN.last_cluster()
-        want, plain_ms = time_once(torch, lambda: run(dense.dense_scan_plain))
-        tag = f"dense_scan {dtype_name}"
-        err = compare_dense(torch, tag, got, want, dtype_name)
-        ms = timed(torch, lambda: run(dense.dense_scan), KERNEL_REPEATS)
-        bound_ms, bound_by, nbytes, flops = dense_bound(
-            torch, c, s, b, want, dtype_name)
-        placed = int((want.chosen >= 0).sum())
-        log(f"kernel {tag}: E={c.cpu_cap.shape[0]} N={c.cpu_cap.shape[1]} "
-            f"P={b.ask_cpu.shape[1]} C={C} placed={placed} match=exact "
-            f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.1f} "
-            f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, {flops} flop)")
-        results.append(dict(
-            name="dense_scan", dtype=dtype_name,
-            shape=[int(x) for x in (*c.cpu_cap.shape, b.ask_cpu.shape[1])],
-            cluster=C, placed=placed, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            bytes=nbytes, flops=flops))
+            got, _ = time_once(torch, lambda: run(dense.dense_scan))
+            C = kernels.DENSE_SCAN.last_cluster()
+            want, plain_ms = time_once(
+                torch, lambda: run(dense.dense_scan_plain))
+            tag = f"dense_scan {dtype_name}"
+            err = compare_dense(torch, tag, got, want, dtype_name)
+            ms = timed(torch, lambda: run(dense.dense_scan),
+                       KERNEL_REPEATS)
+            bound_ms, bound_by, nbytes, flops = dense_bound(
+                torch, c, s, b, want, dtype_name)
+            placed = int((want.chosen >= 0).sum())
+            log(f"kernel {tag}: E={c.cpu_cap.shape[0]} "
+                f"N={c.cpu_cap.shape[1]} P={b.ask_cpu.shape[1]} C={C} "
+                f"placed={placed} match=exact max_abs_err={err:.3e} "
+                f"ms={ms:.4f} plain_ms={plain_ms:.1f} "
+                f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, "
+                f"{flops} flop)")
+            results.append(dict(
+                name="dense_scan", dtype=dtype_name,
+                shape=[int(x) for x in (*c.cpu_cap.shape,
+                                        b.ask_cpu.shape[1])],
+                cluster=C, placed=placed, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops))
         for E in CLUSTER_LANES:
             sizes = (((200, 256), (1000, 1024), (4000, 4096)) if E <= 8
                      else ((200, 256), (1000, 1024)))
             for n, n_pad in sizes:
-                dicts = [widen(np, *dense_fuzz_tables(
-                    np, rng, n=n, n_pad=n_pad, p=256 if E <= 8 else 96,
-                    dtype=dtype_name,
-                    limit=int(rng.choice([3, 14, 100, 2000])),
-                    features=fuzz_sets[k % len(fuzz_sets)]), dt)
-                    for k in range(E)]
-                small = dense.lane_tensors(*dense_group(np, bp, dicts),
-                                           dtype_name=dtype_name,
-                                           device=torch.device(DEVICE))
-                got = dense.dense_scan(*small, spread_alg=False)
-                C = kernels.DENSE_SCAN.last_cluster()
-                want = dense.dense_scan_plain(*small, spread_alg=False)
-                tag = f"dense_scan {dtype_name} E={E} N={n_pad}"
-                err = compare_dense(torch, tag, got, want, dtype_name)
-                log(f"kernel {tag}: C={C} P={small[2].ask_cpu.shape[1]} "
-                    f"placed={int((want.chosen >= 0).sum())} match=exact "
-                    f"max_abs_err={err:.3e}")
-                results.append(dict(name="dense_scan", dtype=dtype_name,
-                                    world=f"fuzz E={E} N={n_pad}",
-                                    cluster=C, max_abs_err=err))
+                results.append(dense_fuzz_check(
+                    np, torch, bp, dense, kernels, rng, dtype_name, E, n,
+                    n_pad))
     return results
+
+
+def dense_fuzz_check(np, torch, bp, dense, kernels, rng, dtype_name, E, n,
+                     n_pad):
+    """dense_scan on a fuzz group of E lanes (DENSE_FUZZ_SETS) at n nodes
+    padded to n_pad, limits 3 to 2,000, against its plain version."""
+    dt = np.dtype(dtype_name).type
+    fuzz_sets = DENSE_FUZZ_SETS
+    dicts = [widen(np, *dense_fuzz_tables(
+        np, rng, n=n, n_pad=n_pad, p=256 if E <= 8 else 96,
+        dtype=dtype_name, limit=int(rng.choice([3, 14, 100, 2000])),
+        features=fuzz_sets[k % len(fuzz_sets)]), dt) for k in range(E)]
+    small = dense.lane_tensors(*dense_group(np, bp, dicts),
+                               dtype_name=dtype_name,
+                               device=torch.device(DEVICE))
+    got = dense.dense_scan(*small, spread_alg=False)
+    C = kernels.DENSE_SCAN.last_cluster()
+    want = dense.dense_scan_plain(*small, spread_alg=False)
+    tag = f"dense_scan {dtype_name} E={E} N={n_pad}"
+    err = compare_dense(torch, tag, got, want, dtype_name)
+    log(f"kernel {tag}: C={C} P={small[2].ask_cpu.shape[1]} "
+        f"placed={int((want.chosen >= 0).sum())} match=exact "
+        f"max_abs_err={err:.3e}")
+    return dict(name="dense_scan", dtype=dtype_name,
+                world=f"fuzz E={E} N={n_pad}", cluster=C, max_abs_err=err)
 
 
 def system_world(np, world, seed):
@@ -1671,13 +1745,14 @@ def packed_preempt_dicts(np, lane, p_pad):
 
 def preempt_group(np, bp, tp, svc, world, dtype_name, seed, *, dense):
     """The kernel phase's fused group: 16 packed tier-5 lanes (the
-    windowed kind at 2,000 placements, or the max_parallel kind at 500)
-    and 16 numpy-seeded fuzz lanes over the same node axis (N = 16,384,
-    A = 16): priority tiers with ineligible candidates, max_parallel with
-    shared groups, distinct_hosts, affinity, reschedule penalties,
-    saturation (a dozen feasible nodes), and inert lanes. Every lane
-    asks for one GPU (the dense kernel's device tables must agree in
-    shape). Returns the five stacked trees."""
+    windowed kind at 2,000 placements, P_pad 2,048, or with ``dense``
+    the max_parallel kind at 500, P_pad 512) and 16 numpy-seeded fuzz
+    lanes over the same node axis (N = 16,384, A = 16): priority tiers
+    with ineligible candidates, max_parallel with shared groups,
+    distinct_hosts, affinity, reschedule penalties, saturation (a dozen
+    feasible nodes), and inert lanes. Every lane asks for one GPU (the
+    dense kernel's device tables must agree in shape). Returns the five
+    stacked trees."""
     matrix = world[0]
     P = PD_P_PAD if dense else P_PAD
     packed = tier5_lanes(np, tp, svc, world, dtype_name,
@@ -1864,17 +1939,26 @@ def dense_preempt_bound(np, trees, out, dtype_name):
 
 def preempt_kernel_phase(np, torch, bp, preempt, dense, kernels, svc, tp,
                          world, seed):
-    """wave_preempt and dense_preempt x {float32, float64} on one fused
-    E = 32 group each at N = 16,384, A = 16 (preempt_group): the windowed
-    kernel at P_pad = 2,048, the dense one at P_pad = 512 (its plain
-    version rescores 16,384 nodes a step, so the comparison is cut to
-    the dense main path's P). Decisions, eviction rows and (dense) the
-    final state exactly (the windowed kernel's scores and group counts
-    too, as bits); timed. Then, untimed, 8 of the preemption slice's
-    windowed tier-5 lanes in float64."""
+    """wave_preempt and dense_preempt in float32 on one fused E = 32
+    group each at N = 16,384, A = 16 (preempt_group: the windowed kernel
+    at P_pad = 2,048, the dense one at P_pad = 512, since its plain
+    version rescores 16,384 nodes a step), then preempt_small_checks.
+    Decisions,
+    eviction rows and (dense) the final state exactly (the windowed
+    kernel's scores and group counts too, as bits); timed. float64:
+    preempt_small_checks at up to 8 lanes, and, untimed, 8 windowed
+    tier-5 lanes of 500 placements."""
     results = []
     dev = torch.device(DEVICE)
     for dtype_name in ("float32", "float64"):
+        if dtype_name == "float64":
+            # float64: the small worlds (each plain step searches every
+            # candidate of every node of every lane on the host side of
+            # the comparison), the 32-lane groups are float32's
+            results += preempt_small_checks(np, torch, bp, preempt, dense,
+                                            kernels, dtype_name, seed + 2,
+                                            max_lanes=8)
+            continue
         trees = preempt_group(np, bp, tp, svc, world, dtype_name, seed,
                               dense=False)
         inp = preempt.wave_preempt_inputs(*trees, dtype_name=dtype_name)
@@ -1947,13 +2031,13 @@ def preempt_kernel_phase(np, torch, bp, preempt, dense, kernels, svc, tp,
             bytes=nbytes, flops=flops))
         results += preempt_small_checks(np, torch, bp, preempt, dense,
                                         kernels, dtype_name, seed + 2)
-    # the preemption slice's windowed tier-5 lanes in float64 (the slice
-    # holds its group in float32), 8 of its 32 to keep the plain
-    # version's time down
+    # windowed tier-5 lanes in float64 (the slice holds its group in
+    # float32): 8 lanes of 500 placements at P_pad 512, to keep the plain
+    # version's steps down
     packed = tier5_lanes(np, tp, svc, world, "float64", n_lanes=8,
-                         n_place=PW_PLACE)
+                         n_place=PD_PLACE)
     inp = preempt.wave_preempt_inputs(
-        *stack_preempt(np, bp, [packed_preempt_dicts(np, ln, P_PAD)
+        *stack_preempt(np, bp, [packed_preempt_dicts(np, ln, PD_P_PAD)
                                 for ln in packed]), dtype_name="float64")
     ten = preempt.wave_preempt_tensors(inp, dev)
     want = preempt.wave_preempt_plain(*ten, spread_alg=False, B=inp.B)
@@ -1984,14 +2068,15 @@ def wave_preempt_small_lanes(np, rng, dtype_name):
 
 
 def preempt_small_checks(np, torch, bp, preempt, dense, kernels,
-                         dtype_name, seed):
+                         dtype_name, seed, max_lanes=None):
     """Untimed: the windowed kernel at its wide buffer (B = 128, the
     limit-100 window of an affinity lane), both kernels at the widest
     candidate axis they take (A = 64, N = 1,024), and the dense one at
-    every lane count of CLUSTER_LANES (every cluster size the launcher
-    picks) at the small node buckets (N = 256 and 1,024) and, with 8
-    lanes, a mid-size one (N = 4,096), limits 3 to 2,000 (above the node
-    count), held against their plain versions."""
+    every lane count of CLUSTER_LANES (up to ``max_lanes`` when given;
+    every cluster size the launcher picks) at the small node buckets
+    (N = 256 and 1,024) and, with 8 lanes, a mid-size one (N = 4,096),
+    limits 3 to 2,000 (above the node count), held against their plain
+    versions."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed)
     results = []
@@ -2011,6 +2096,7 @@ def preempt_small_checks(np, torch, bp, preempt, dense, kernels,
         results.append(dict(name="wave_preempt", dtype=dtype_name,
                             world=f"fuzz {world}", max_abs_err=err))
     cases = [(E, n, n_pad, A, 64) for E in CLUSTER_LANES
+             if max_lanes is None or E <= max_lanes
              for n, n_pad, A in (
                  ((200, 256, PREEMPT_A), (1000, 1024, PREEMPT_A),
                   (4000, 4096, PREEMPT_A), (1000, 1024, 64)) if E == 8
@@ -3130,8 +3216,8 @@ def mesh_dense_phase(np, torch, batch, dense, mesh, kernels, svc, tp, world,
     reserved-core lanes (the node-sharded step, dense_shard), each lane
     equal to the one-card route bit for bit; then the 32-lane group on
     the forced grids (2, 2) and (1, 4); dense_shard against its plain
-    phases on the card at the main path's E = 1 groups and on fuzz
-    groups."""
+    phases on the card at the main path's E = 1 groups (float32, timed)
+    and on fuzz groups (both dtypes)."""
     cells = [DEVICE] * MESH_CELLS
     out = {"kernels": []}
     for dtn in ("float32", "float64"):
@@ -3192,6 +3278,10 @@ def mesh_dense_phase(np, torch, batch, dense, mesh, kernels, svc, tp, world,
                             f"to one card; mesh_solve ms={gms:.1f} (CUDA "
                             "events around the host-driven loop)")
                         out[f"forced_{shape[0]}x{shape[1]}_ms_{dtn}"] = gms
+                    continue
+                if dtn == "float64":
+                    # float64's E = 1 groups: equal to one card (above);
+                    # its plain-phase check is on the fuzz groups below
                     continue
                 # an E = 1 group of the main path on (1, 4): the kernel
                 # against its plain phases, timed
@@ -3873,6 +3963,10 @@ class InOrderBarrier:
         self.barrier = barrier
         self.local = threading.local()
 
+    @property
+    def cells(self):
+        return self.barrier.cells
+
     def solve(self, lane):
         k = self.local.turn
         wait_until(lambda: arrived(self.barrier, k), 600, f"eval {k}")
@@ -3893,16 +3987,28 @@ def alloc_of(st, place, job, tg, eval_id):
         client_status=st.ALLOC_CLIENT_RUNNING, job_version=job.version)
 
 
-def drive_struct_evals(batch, guard, mods, service_cls, snap, evals,
-                       barrier):
-    """One thread per eval, in eval order at the barrier. ``evals`` holds
-    (eval id, job, service keywords, penalty node per place or None).
-    Each thread asks guard.dispatch_allowed() (the scheduler's breaker
-    check), builds its EvalContext and TimedService, and calls the solve
-    hook for each task group of its job in turn; a group's placements
-    enter the plan as allocations before the next group packs (the
-    last group's are left to the caller). Returns ([(service,
-    [placements per group], [allocs])], wall ms)."""
+class StructEval(NamedTuple):
+    """One eval of the direct hook route: its id, job, service keywords,
+    the penalty node of each place (or None), the place names (None: a
+    task group's places are its count's names 0 .. count - 1) and the
+    allocs its plan stops."""
+    eval_id: str
+    job: object
+    kw: dict
+    penalties: Optional[list] = None
+    names: Optional[list] = None
+    stops: tuple = ()
+
+
+def drive_struct_evals(batch, mods, service_cls, snap, evals, barrier):
+    """The direct hook route: one thread per eval (``evals``: StructEval),
+    in eval order at the barrier, below any scheduler (no breaker check,
+    no reconciler). Each thread builds its
+    EvalContext and TimedService and calls the solve hook for each task
+    group of its job in turn; a group's placements enter the plan as
+    allocations before the next group packs (the last group's are left
+    to the caller). Returns ([(service, [placements per group],
+    [allocs])], wall ms)."""
     st, ctx_cls, place_cls = mods
     ordered = InOrderBarrier(barrier)
     hook = batch.make_solve_hook(ordered)
@@ -3910,16 +4016,18 @@ def drive_struct_evals(batch, guard, mods, service_cls, snap, evals,
     out = [None] * len(evals)
 
     def work(k):
-        eval_id, job, kw, penalties = evals[k]
+        eval_id, job, kw, penalties, names, stops = evals[k]
         ordered.local.turn = k
         try:
-            assert guard.dispatch_allowed(), "the breaker is open"
             plan = st.Plan(eval_id=eval_id, job=job, priority=job.priority)
+            for a in stops:
+                plan.append_stopped_alloc(a, "stop")
             s = service_cls(ctx_cls(snap, plan), job, False, False, **kw)
             per_tg, allocs = [], []
             for g, tg in enumerate(job.task_groups):
-                places = [place_cls(name=f"{job.id}.{tg.name}[{i}]",
-                                    task_group=tg) for i in range(tg.count)]
+                places = [place_cls(name=n, task_group=tg) for n in (
+                    names or [f"{job.id}.{tg.name}[{i}]"
+                              for i in range(tg.count)])]
                 pen = ([{p} if p else set() for p in penalties]
                        if penalties else None)
                 placed = hook(s, tg, places, ready, pen)
@@ -3949,7 +4057,7 @@ def drive_struct_evals(batch, guard, mods, service_cls, snap, evals,
     assert not any(t.is_alive() for t in threads), "an eval thread wedged"
     for k, o in enumerate(out):
         if isinstance(o, BaseException):
-            raise AssertionError(f"eval {evals[k][0]} failed") from o
+            raise AssertionError(f"eval {evals[k].eval_id} failed") from o
     return out, wall_ms
 
 
@@ -4091,6 +4199,45 @@ def same_as_array_route(np, batch, svc, gens, struct_res, barrier_kw, what):
     return wall
 
 
+def struct_preempt_store(np, st, pmock, store_cls, nodes):
+    """A port StateStore over ``nodes`` whose every node is 95% full of
+    cpu (PREEMPT_FILL) with 500 MHz allocs (512 or 1,024 MB, 150 MB
+    disk) of STRUCT_FILLER_JOBS priority-10, 20, 30 and 40 jobs each,
+    drawn from the seed (at most PREEMPT_A a node). Returns (store, the
+    filler allocs)."""
+    rng = np.random.default_rng(SEED)
+    store = store_cls()
+    for node in nodes:
+        store.upsert_node(node)
+    fillers = {p: [] for p in PREEMPT_PRIOS}
+    for p in PREEMPT_PRIOS:
+        for k in range(STRUCT_FILLER_JOBS):
+            fj = pmock.job(id=f"struct-filler-p{p}-{k:02d}", priority=p)
+            fj.task_groups[0].tasks[0].resources.cpu = 500
+            store.upsert_job(fj)
+            fillers[p].append(fj)
+    shared = {m: st.AllocatedResources(
+        tasks={"web": st.AllocatedTaskResources(cpu_shares=500,
+                                                memory_mb=m)},
+        shared=st.AllocatedSharedResources(disk_mb=150))
+        for m in (512, 1024)}
+    allocs = []
+    for i, node in enumerate(nodes):
+        target = int(node.node_resources.cpu.cpu_shares * PREEMPT_FILL)
+        for k in range(target // 500):
+            prio = PREEMPT_PRIOS[int(rng.integers(len(PREEMPT_PRIOS)))]
+            fj = fillers[prio][(i + k) % STRUCT_FILLER_JOBS]
+            allocs.append(st.Allocation(
+                id=f"struct-fill-{i:06d}-{k:02d}", eval_id="fill",
+                name=f"{fj.id}.web[{i * 16 + k}]", node_id=node.id,
+                job_id=fj.id, job=fj, task_group="web",
+                allocated_resources=shared[512 if rng.integers(2)
+                                           else 1024],
+                client_status=st.ALLOC_CLIENT_RUNNING))
+    store.upsert_allocs(allocs)
+    return store, allocs
+
+
 def structs_phase(np, torch, batch, guard, kernels, svc, tp, world, card):
     """The structs slice (phase 13): the port's Node, Job and Allocation
     structs in, placements out, through TpuPlacementService and the
@@ -4203,12 +4350,12 @@ def structs_phase(np, torch, batch, guard, kernels, svc, tp, world, card):
             store.upsert_job(j)
             jobs.append(j)
         snap = store.snapshot()
-        evals = [(f"struct-bench-eval-g{g}-{e:016d}", jobs[e], kw, None)
-                 for e in range(N_EVALS)]
+        evals = [StructEval(f"struct-bench-eval-g{g}-{e:016d}", jobs[e],
+                            kw) for e in range(N_EVALS)]
         barrier = batch.SolveBarrier(N_EVALS, e_pad_hint=N_EVALS,
                                      device=DEVICE)
         res, wall_ms = counted(lambda: drive_struct_evals(
-            batch, guard, mods, Timed, snap, evals, barrier))
+            batch, mods, Timed, snap, evals, barrier))
         placed = [p for _, per_tg, _ in res for p in per_tg[0]]
         n_placed = sum(p.node is not None for p in placed)
         assert n_placed == N_EVALS * count, n_placed
@@ -4312,7 +4459,7 @@ def structs_phase(np, torch, batch, guard, kernels, svc, tp, world, card):
         tg0 = j.task_groups[0]
         j.task_groups = [spread_tg(tg0, "web", N_PLACE),
                          spread_tg(tg0, "api", N_PLACE)]
-        evals.append((f"struct-dense-eval-{e:04d}", j, kw, None))
+        evals.append(StructEval(f"struct-dense-eval-{e:04d}", j, kw))
     dpj = pmock.job(id="struct-distinct-property")
     dpj.task_groups[0].count = DP_PLACE
     dpj.task_groups[0].constraints = [st.Constraint(
@@ -4320,36 +4467,38 @@ def structs_phase(np, torch, batch, guard, kernels, svc, tp, world, card):
         operand="distinct_property")]
     dpj.task_groups[0].networks = [st.NetworkResource(
         dynamic_ports=[st.Port(label="http")])]
-    evals.append(("struct-dense-eval-distinct-prop", dpj, kw, None))
+    evals.append(StructEval("struct-dense-eval-distinct-prop", dpj, kw))
     cj = pmock.job(id="struct-reserved-cores")
     cj.task_groups[0].count = CORES_PLACE
     cj.task_groups[0].tasks[0].resources.cores = CORES_ASK
-    evals.append(("struct-dense-eval-reserved-cores", cj, kw, None))
+    evals.append(StructEval("struct-dense-eval-reserved-cores", cj, kw))
     wj = pmock.job(id="struct-wave-spread")
     wj.task_groups[0] = spread_tg(wj.task_groups[0], "web",
                                   STRUCT_WAVE_SPREAD)
-    evals.append(("struct-wave-eval-spread", wj, kw, None))
+    evals.append(StructEval("struct-wave-eval-spread", wj, kw))
     pj = pmock.job(id="struct-wave-penalty")
     pj.task_groups[0].count = STRUCT_PENALTY
-    evals.append(("struct-wave-eval-penalty", pj, kw,
-                  [nodes[(37 * k) % N_NODES].id if k % 3 == 0 else None
-                   for k in range(STRUCT_PENALTY)]))
-    for _, j, _, _ in evals:
-        store.upsert_job(j)
+    evals.append(StructEval(
+        "struct-wave-eval-penalty", pj, kw,
+        [nodes[(37 * k) % N_NODES].id if k % 3 == 0 else None
+         for k in range(STRUCT_PENALTY)]))
+    for ev in evals:
+        store.upsert_job(ev.job)
     snap = store.snapshot()
     fresh = struct_usage(np, tp, matrix, snap, nodes)
     used_d = (fresh.used_cpu, fresh.used_mem, fresh.used_disk)
     barrier = batch.SolveBarrier(len(evals), device=DEVICE)
     before = dict(guard.state()["resident"])
     res, wall_ms = counted(lambda: drive_struct_evals(
-        batch, guard, mods, Timed, snap, evals, barrier))
+        batch, mods, Timed, snap, evals, barrier))
     after = guard.state()["resident"]
     chain = {k: after[k] - before.get(k, 0) for k in
              ("delta_promotions", "delta_reuses", "delta_fallbacks",
               "delta_size_fallbacks", "delta_gap_fallbacks", "hits",
               "misses")}
     n_placed = 0
-    for (s, per_tg, _), (_, job, _, _) in zip(res, evals):
+    for (s, per_tg, _), ev in zip(res, evals):
+        job = ev.job
         for lane, r, placed in zip(s.lanes, s.results, per_tg):
             n = lane.batch.ask_cpu.shape[0]
             if lane.wavefront_ok():
@@ -4397,8 +4546,8 @@ def structs_phase(np, torch, batch, guard, kernels, svc, tp, world, card):
                        - set(node.reserved_resources.cores))
         mhz[i] = c.cpu_shares // c.total_core_count
     gens = [[], []]
-    for e, ((eval_id, job, _, pen), (_, _, g1)) in enumerate(
-            zip(evals, res)):
+    for e, (ev, (_, _, g1)) in enumerate(zip(evals, res)):
+        eval_id, job, pen = ev.eval_id, ev.job, ev.penalties
         tg = job.task_groups[0]
         base = dict(feasible=feasible, ask=ASK, count=tg.count,
                     n_places=tg.count, eval_id=eval_id, state_index=index,
@@ -4453,7 +4602,6 @@ def structs_phase(np, torch, batch, guard, kernels, svc, tp, world, card):
     s = Timed(EvalContext(snap, st.Plan(eval_id=sys_eval, job=sj,
                                         priority=sj.priority)),
               sj, False, False, **kw)
-    assert guard.dispatch_allowed()
     t1 = time.perf_counter()
     placed = counted(lambda: s.solve_system(stg, ready))
     sys_ms = (time.perf_counter() - t1) * 1e3
@@ -4483,36 +4631,7 @@ def structs_phase(np, torch, batch, guard, kernels, svc, tp, world, card):
         f"{s.pack_ms[0]:.2f} ms, materialize {s.mat_ms[0]:.2f} ms)")
 
     # -- 4. preemption --------------------------------------------------
-    rng = np.random.default_rng(SEED)
-    pstore = StateStore()
-    for node in nodes:
-        pstore.upsert_node(node)
-    fillers = {p: [] for p in PREEMPT_PRIOS}
-    for p in PREEMPT_PRIOS:
-        for k in range(STRUCT_FILLER_JOBS):
-            fj = pmock.job(id=f"struct-filler-p{p}-{k:02d}", priority=p)
-            fj.task_groups[0].tasks[0].resources.cpu = 500
-            pstore.upsert_job(fj)
-            fillers[p].append(fj)
-    shared = {m: st.AllocatedResources(
-        tasks={"web": st.AllocatedTaskResources(cpu_shares=500,
-                                                memory_mb=m)},
-        shared=st.AllocatedSharedResources(disk_mb=150))
-        for m in (512, 1024)}
-    allocs = []
-    for i, node in enumerate(nodes):
-        target = int(node.node_resources.cpu.cpu_shares * PREEMPT_FILL)
-        for k in range(target // 500):
-            prio = PREEMPT_PRIOS[int(rng.integers(len(PREEMPT_PRIOS)))]
-            fj = fillers[prio][(i + k) % STRUCT_FILLER_JOBS]
-            allocs.append(st.Allocation(
-                id=f"struct-fill-{i:06d}-{k:02d}", eval_id="fill",
-                name=f"{fj.id}.web[{i * 16 + k}]", node_id=node.id,
-                job_id=fj.id, job=fj, task_group="web",
-                allocated_resources=shared[512 if rng.integers(2)
-                                           else 1024],
-                client_status=st.ALLOC_CLIENT_RUNNING))
-    pstore.upsert_allocs(allocs)
+    pstore, allocs = struct_preempt_store(np, st, pmock, StateStore, nodes)
     evals = []
     for e in range(STRUCT_PREEMPT_EVALS):
         j = pmock.job(id=f"struct-preempt-job-{e:02d}",
@@ -4523,18 +4642,19 @@ def structs_phase(np, torch, batch, guard, kernels, svc, tp, world, card):
         tg.tasks[0].resources.memory_mb = STRUCT_PREEMPT_ASK[1]
         tg.ephemeral_disk.size_mb = STRUCT_PREEMPT_ASK[2]
         pstore.upsert_job(j)
-        evals.append((f"struct-preempt-eval-{e:04d}", j,
-                      dict(kw, preempt=True), None))
+        evals.append(StructEval(f"struct-preempt-eval-{e:04d}", j,
+                                dict(kw, preempt=True)))
     psnap = pstore.snapshot()
     base = tp.fold_usage_base(matrix, nodes, psnap.allocs_by_node,
                               with_ports=False)
     barrier = batch.SolveBarrier(len(evals), e_pad_hint=len(evals),
                                  device=DEVICE)
     res, wall_ms = counted(lambda: drive_struct_evals(
-        batch, guard, mods, Timed, psnap, evals, barrier))
+        batch, mods, Timed, psnap, evals, barrier))
     n_placed = n_evicted = 0
     pos_of = {nid: i for i, nid in enumerate(matrix.node_ids)}
-    for (s, per_tg, _), (_, job, _, _) in zip(res, evals):
+    for (s, per_tg, _), ev in zip(res, evals):
+        job = ev.job
         lane = s.lanes[0]
         assert lane.ptab is not None and lane.ptab.cpu.shape[1] == \
             PREEMPT_A, lane.ptab.cpu.shape
@@ -4566,7 +4686,8 @@ def structs_phase(np, torch, batch, guard, kernels, svc, tp, world, card):
     usage_p = usage_of(tp, struct_usage(np, tp, matrix, psnap, nodes))
     index = psnap.latest_index()
     gen = []
-    for e, (eval_id, job, _, _) in enumerate(evals):
+    for e, ev in enumerate(evals):
+        eval_id, job = ev.eval_id, ev.job
         order = shuffled_order(eval_id, index, matrix.n_real)
         lane = svc.pack_lane_arrays(
             matrix, usage_p, feasible, ask=STRUCT_PREEMPT_ASK,
@@ -4612,6 +4733,650 @@ def structs_phase(np, torch, batch, guard, kernels, svc, tp, world, card):
         f"{report['pack_cache']}")
     for kname in ("wave_block", "wave_compact", "dense_scan", "system_fit",
                   "wave_preempt"):
+        assert launches[kname] >= 1, (kname, launches)
+    return report
+
+
+# --------------------------------------------------------------------------
+# phase 14: the scheduler -- an Evaluation in, a committed plan out,
+# through the port's Harness and its GenericScheduler / SystemScheduler,
+# the placement service and the barrier hooks
+
+SCHED_G2_COUNT = N_PLACE + STRUCT_G2_PLACE   # the headline jobs scaled
+SCHED_SPREAD_JOBS, SCHED_SPREAD_COUNT = 4, 500   # two-group spread jobs
+SCHED_PENALTY_COUNT, SCHED_PENALTY_FAILED = 60, 20
+SCHED_STICKY_COUNT = 4
+SCHED_LPQ_EVALS, SCHED_LPQ_PLACE = 32, 8
+SCHED_SECTIONS = ("reconcile", "pack", "pack_cpu", "wait", "materialize",
+                  "submit_plan", "eval")
+
+
+class SchedRoute:
+    """The scheduler route's instruments, on the host clock, per eval:
+    the reconciler (AllocReconciler.compute), pack and materialize
+    (phase 13's TimedService, swapped in for TpuPlacementService while
+    the route runs), the barrier wait (``ordered``), submit_plan (the
+    Harness) and the whole eval (Harness.process). ``services`` holds
+    each eval's TimedService by eval id."""
+
+    def __init__(self, svc, generic, harness_cls):
+        route = self
+        self.ms = {k: [] for k in SCHED_SECTIONS}
+        self.services = {}
+        self._svc, self._generic = svc, generic
+
+        class Service(timed_service_class(svc)):
+            def __init__(self, ctx, *a, **kw):
+                super().__init__(ctx, *a, **kw)
+                route.services[ctx.plan.eval_id] = self
+
+        class Reconciler(generic.AllocReconciler):
+            def compute(self):
+                t0 = time.perf_counter()
+                out = super().compute()
+                route.ms["reconcile"].append(
+                    (time.perf_counter() - t0) * 1e3)
+                return out
+
+        class TimedHarness(harness_cls):
+            def submit_plan(self, plan):
+                t0 = time.perf_counter()
+                out = super().submit_plan(plan)
+                route.ms["submit_plan"].append(
+                    (time.perf_counter() - t0) * 1e3)
+                return out
+
+        self.Service, self.Reconciler = Service, Reconciler
+        self.Harness = TimedHarness
+        self._saved = None
+
+    def __enter__(self):
+        self._saved = (self._svc.TpuPlacementService,
+                       self._generic.AllocReconciler)
+        self._svc.TpuPlacementService = self.Service
+        self._generic.AllocReconciler = self.Reconciler
+        return self
+
+    def __exit__(self, *exc):
+        (self._svc.TpuPlacementService,
+         self._generic.AllocReconciler) = self._saved
+
+    def reset(self):
+        for v in self.ms.values():
+            v.clear()
+        self.services.clear()
+
+    def ordered(self, barrier):
+        """An InOrderBarrier over ``barrier`` whose solves are timed."""
+        route = self
+
+        class Ordered(InOrderBarrier):
+            def solve(self, lane):
+                t0 = time.perf_counter()
+                try:
+                    return super().solve(lane)
+                finally:
+                    route.ms["wait"].append(
+                        (time.perf_counter() - t0) * 1e3)
+        return Ordered(barrier)
+
+    def sections(self):
+        out = {}
+        for k, xs in self.ms.items():
+            if k in ("pack", "pack_cpu", "materialize"):
+                key = {"pack": "pack_ms", "pack_cpu": "pack_cpu_ms",
+                       "materialize": "mat_ms"}[k]
+                xs = [x for sv in self.services.values()
+                      for x in getattr(sv, key)]
+            if xs:
+                out[k] = dict(ms_stats(xs), sum=sum(xs))
+        return out
+
+
+def sched_eval(st, job, eval_id, trigger=None):
+    return st.Evaluation(
+        id=eval_id, namespace=job.namespace, priority=job.priority,
+        type=job.type, job_id=job.id, status=st.EVAL_STATUS_PENDING,
+        triggered_by=trigger or st.TRIGGER_JOB_REGISTER)
+
+
+def drive_scheduler(route, harness, kind, evals, ordered=None, hook=None):
+    """One thread per eval, each running harness.process(kind, ev) on the
+    card (with ``hook`` as its solve hook, arriving at ``ordered`` in
+    eval order). Every eval must return no error. Returns the wall ms,
+    Evaluation in to plan committed."""
+    out = [None] * len(evals)
+
+    def work(k):
+        if ordered is not None:
+            ordered.local.turn = k
+        kw = {"device": DEVICE}
+        if hook is not None:
+            kw["solve_hook"] = hook
+        t0 = time.perf_counter()
+        try:
+            out[k] = harness.process(kind, evals[k], **kw)
+        except BaseException as e:  # noqa: BLE001 -- raised below
+            out[k] = e
+        finally:
+            route.ms["eval"].append((time.perf_counter() - t0) * 1e3)
+            if ordered is not None:
+                ordered.barrier.done()
+
+    threads = [threading.Thread(target=work, args=(k,), daemon=True)
+               for k in range(len(evals))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(1200)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    assert not any(t.is_alive() for t in threads), "an eval thread wedged"
+    for ev, o in zip(evals, out):
+        if isinstance(o, BaseException):
+            raise AssertionError(f"eval {ev.id} raised") from o
+        assert o is None, (ev.id, o)
+    return wall_ms
+
+
+def committed(harness, eval_ids, rows=False):
+    """Per eval id: {alloc name: (node id, normalized-score bits,
+    [ids of the allocs it preempts])} over the eval's plans (with
+    ``rows``, a list of (alloc name, node id, score bits) in plan
+    order: a system job's allocs share one name), and the eval's last
+    update."""
+    if rows:
+        out = {e: [] for e in eval_ids}
+        for plan in harness.plans:
+            if plan.eval_id in out:
+                out[plan.eval_id] += [
+                    (a.name, nid, struct_score_bits(
+                        a.metrics.scores[f"{nid}.normalized-score"]))
+                    for nid, allocs in plan.node_allocation.items()
+                    for a in allocs]
+        return out, {ev.id: ev for ev in harness.evals if ev.id in out}
+    out = {e: {} for e in eval_ids}
+    for plan in harness.plans:
+        if plan.eval_id not in out:
+            continue
+        evicts = {}
+        for allocs in plan.node_preemptions.values():
+            for a in allocs:
+                evicts.setdefault(a.preempted_by_allocation, []).append(a.id)
+        for nid, allocs in plan.node_allocation.items():
+            for a in allocs:
+                score = a.metrics.scores.get(f"{nid}.normalized-score")
+                out[plan.eval_id][a.name] = (
+                    nid, None if score is None else
+                    struct_score_bits(score), evicts.get(a.id, []))
+    last = {ev.id: ev for ev in harness.evals if ev.id in out}
+    return out, last
+
+
+def struct_score_bits(x):
+    """A score's float64 bytes (bit-for-bit comparison)."""
+    return struct.pack("<d", float(x))
+
+
+def direct_map(res, evals):
+    """The direct route's placements in committed()'s form."""
+    out = {}
+    for ev, (_, per_tg, _) in zip(evals, res):
+        m = out.setdefault(ev.eval_id, {})
+        for placed in per_tg:
+            for p in placed:
+                if p.node is not None:
+                    m[p.place.name] = (p.node.id, struct_score_bits(p.score),
+                                       [a.id for a in
+                                        p.preempted_allocs or ()])
+    return out
+
+
+def same_as_direct(np, route, res, evals, got, what):
+    """The scheduler route's lanes equal the direct route's bit for bit,
+    and so do its committed placements, scores and evictions."""
+    want = direct_map(res, evals)
+    for ev, (s, _, _) in zip(evals, res):
+        eval_id = ev.eval_id
+        mine = route.services[eval_id]
+        assert len(mine.lanes) == len(s.lanes), (what, eval_id)
+        for t, (a, b) in enumerate(zip(mine.lanes, s.lanes)):
+            same_lane(np, a, b, f"{what} {eval_id} tg {t}")
+        assert got[eval_id] == want[eval_id], (what, eval_id)
+
+
+def check_complete(last, evals):
+    """Every eval complete; a job-register eval with 0 queued (a
+    reschedule's places are not counted as queued, as upstream's
+    reconciler counts them, so its committed ones take it below 0)."""
+    for ev in evals:
+        upd = last[ev.id]
+        assert upd.status == "complete", (ev.id, upd.status,
+                                          upd.status_description)
+        if ev.triggered_by == "job-register":
+            assert all(v == 0 for v in upd.queued_allocations.values()), \
+                (ev.id, upd.queued_allocations)
+
+
+def scheduler_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
+                    card):
+    """The scheduler (phase 14): Evaluations in, committed plans out,
+    through the port's Harness (scheduler/harness.py) and its
+    GenericScheduler or SystemScheduler, each eval on its own thread
+    with the SolveBarrier hook (batch.make_solve_hook) or the LP tier's
+    (lpq.make_lpq_hook), float32 on the card; the reconciler, the
+    stack, the breaker check and submit_plan (upsert_plan_results) all
+    run. Each step is held against phase 13's direct hook route (or
+    solve_system, or LpqBarrier) on the same eval ids and snapshot:
+      1. the headline, generation 1: phase 13's fleet (10,000 Node
+         structs) in a port StateStore with tpu-binpack, 32 mock.job
+         service evals x 2,000 (job-register) -- every eval complete
+         with 0 queued, 64,000 allocs committed, every lane and every
+         placement (alloc name -> node, normalized-score bits) equal to
+         the direct route's;
+      2. generation 2: the same 32 jobs scaled to 2,600 in the store
+         (the same version: the reconciler reads each job's 2,000 allocs
+         and places 600 more, names 2,000-2,599); the usage base caught
+         up through the journal the 32 commits wrote, equal to a fresh
+         fold; no node over capacity after the commits;
+      3. a system job through SystemScheduler (the system fit) over the
+         filled fleet, system preemption off (a full node fails, as in
+         tests/test_system_tpu.py): its placements and scores equal
+         solve_system's;
+      4. the mixed barrier, on a fresh store over the fleet: a penalty
+         job (60) and a sticky-disk job (4) placed through the solo
+         dispatch, then 20 and 1 of their allocs failed; the sticky
+         job's reschedule falls back to the host stack (GenericStack)
+         onto its node: the guard's count of host-stack places rises
+         by 1 (its count of host-fallback evals stays 0 in the phase);
+         then one barrier of 4 two-group spread jobs (500 each group:
+         dense, the second group promotes through the delta scatter), a
+         distinct_property job with a dynamic port, a reserved-core job
+         and the penalty job's reschedule (20 places, each with its
+         failed node as the penalty: the compact kernel); equal to the
+         direct route with the same places and plan stops;
+      5. preemption: phase 13's tier-5 store (83,328 priority 10-40
+         allocs) with service preemption on, 8 x 500 priority-70 evals;
+         placements and eviction rows equal the direct route's;
+      6. the LP tier: 32 tpu-lpq evals x 8 through make_lpq_hook and
+         one LpqBarrier; every result equal to a fresh LpqBarrier's on
+         the same lanes, and the committed placements to them.
+    Launch counts are read around the scheduler routes alone
+    (``launches``: the kernels line's scheduler_launches); the host
+    fallback count rises by exactly 1 over the phase, and no dispatch
+    fails."""
+    import copy
+    from nomad_tpu_torch import mock as pmock
+    from nomad_tpu_torch import structs as st
+    from nomad_tpu_torch.scheduler import generic
+    from nomad_tpu_torch.scheduler.context import EvalContext
+    from nomad_tpu_torch.scheduler.harness import Harness
+    from nomad_tpu_torch.scheduler.reconcile import AllocPlaceResult
+    from nomad_tpu_torch.state.store import StateStore
+
+    st.reseed_ids(SEED + 14)
+    mods = (st, EvalContext, AllocPlaceResult)
+    Timed = timed_service_class(svc)
+    # the schedulers' dtype is the device's default (float32 on the card),
+    # and so is the direct route's
+    kw = {"device": DEVICE}
+    matrix, _zero, _feasible = world
+    g0 = guard.state()
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    report = {}
+
+    def counted(fn):
+        kernels.reset_launches()
+        try:
+            return fn()
+        finally:
+            for k in kernels.KERNELS:
+                launches[k.name] += k.launches
+
+    def fleet_store(cfg):
+        store = StateStore()
+        for node in nodes:
+            store.upsert_node(node)
+        store.set_scheduler_config(cfg)
+        return store
+
+    def summary(name, route, wall_ms, n_placed, evals):
+        sec = route.sections()
+        out = dict(evals=len(evals), placements=n_placed, wall_ms=wall_ms,
+                   placements_per_s=n_placed / (wall_ms / 1e3),
+                   sections=sec)
+        log(f"scheduler {name} [{card}]: {len(evals)} evals, {n_placed} "
+            f"placements committed, wall {wall_ms:.1f} ms (Evaluation in "
+            f"to plan committed), {out['placements_per_s']:.0f} "
+            "placements/s; ms per eval, median / max / sum: "
+            + "; ".join(f"{k} {v['median']:.2f} / {v['max']:.2f} / "
+                        f"{v['sum']:.1f}" for k, v in sec.items()))
+        return out
+
+    nodes = struct_fleet(pmock, N_NODES)
+    tp.reset_pack_caches()
+    route = SchedRoute(svc, generic, Harness)
+    with route:
+        # -- 1-2. the headline, two generations ------------------------
+        # (system preemption off: the system job's full nodes fail
+        # instead of evicting through the host stack)
+        store = fleet_store(st.SchedulerConfiguration(
+            scheduler_algorithm=st.SCHED_ALG_TPU_BINPACK,
+            preemption_config=st.PreemptionConfig(
+                system_scheduler_enabled=False)))
+        h = route.Harness(store)
+        jobs = []
+        for e in range(N_EVALS):
+            j = pmock.job(id=f"sched-job-{e:02d}")
+            j.task_groups[0].count = N_PLACE
+            store.upsert_job(j)
+            jobs.append(j)
+        for g, count in ((1, N_PLACE), (2, SCHED_G2_COUNT)):
+            if g == 2:
+                # scaled in the store at the same version: the g1 allocs
+                # stay current and the reconciler places the rest
+                for j in jobs:
+                    j.task_groups[0].count = count
+            snap = store.snapshot()
+            evals = [sched_eval(st, j, f"sched-bench-eval-g{g}-{e:016d}")
+                     for e, j in enumerate(jobs)]
+            route.reset()
+            barrier = batch.SolveBarrier(N_EVALS, e_pad_hint=N_EVALS,
+                                         device=DEVICE)
+            ordered = route.ordered(barrier)
+            wall_ms = counted(lambda: drive_scheduler(
+                route, h, "service", evals, ordered,
+                batch.make_solve_hook(ordered)))
+            got, last = committed(h, [ev.id for ev in evals])
+            check_complete(last, evals)
+            new = count - (N_PLACE if g == 2 else 0)
+            for ev, j in zip(evals, jobs):
+                assert route.services[ev.id].ctx.state is snap
+                names = {f"{j.id}.web[{i}]" for i in range(count - new,
+                                                           count)}
+                assert set(got[ev.id]) == names, (ev.id, len(got[ev.id]))
+            n_placed = sum(len(m) for m in got.values())
+            assert n_placed == N_EVALS * new, n_placed
+            live = [a for j in jobs
+                    for a in store.allocs_by_job(j.namespace, j.id)]
+            assert len(live) == N_EVALS * count, len(live)
+            gen = summary(f"headline g{g}", route, wall_ms, n_placed,
+                          evals)
+            gen["pack_cache"] = tp.pack_cache_stats()
+            # the direct hook route on the same snapshot and eval ids
+            dev = [StructEval(ev.id, j, kw, names=[
+                f"{j.id}.web[{i}]" for i in range(count - new, count)])
+                   for ev, j in zip(evals, jobs)]
+            res, gen["direct_wall_ms"] = drive_struct_evals(
+                batch, mods, Timed, snap, dev, batch.SolveBarrier(
+                    N_EVALS, e_pad_hint=N_EVALS, device=DEVICE))
+            same_as_direct(np, route, res, dev, got, f"headline g{g}")
+            if g == 2:
+                assert gen["pack_cache"]["usage_base_delta_hits"] >= 1
+                base = route.services[evals[0].id].lanes[0] \
+                    .matrix._usage_base
+                assert base[1] == snap.latest_index()
+                fresh = struct_usage(np, tp, matrix, snap, nodes)
+                for a, b in zip((base[2]["used_cpu"], base[2]["used_mem"],
+                                 base[2]["used_disk"]),
+                                (fresh.used_cpu, fresh.used_mem,
+                                 fresh.used_disk)):
+                    assert np.array_equal(a, b), "usage base != fresh fold"
+            report[f"headline_g{g}"] = gen
+        after = struct_usage(np, tp, matrix, store.snapshot(), nodes)
+        for cap, used in ((matrix.cpu_cap, after.used_cpu),
+                          (matrix.mem_cap, after.used_mem),
+                          (matrix.disk_cap, after.used_disk)):
+            assert bool(np.all(used <= cap)), "over capacity"
+
+        # -- 3. a system job through SystemScheduler -------------------
+        sj = pmock.system_job(id="sched-system")
+        stg = sj.task_groups[0]
+        stg.tasks[0].resources.cpu = int(SYSTEM_ASK[0])
+        stg.tasks[0].resources.memory_mb = int(SYSTEM_ASK[1])
+        stg.ephemeral_disk.size_mb = int(SYSTEM_ASK[2])
+        store.upsert_job(sj)
+        snap = store.snapshot()
+        ev = sched_eval(st, sj, "sched-system-eval-0001")
+        route.reset()
+        wall_ms = counted(lambda: drive_scheduler(route, h, "system", [ev]))
+        got, last = committed(h, [ev.id], rows=True)
+        check_complete(last, [ev])
+        by_node = {nid: score for _, nid, score in got[ev.id]}
+        ds = Timed(EvalContext(snap, st.Plan(
+            eval_id=ev.id, job=sj, priority=sj.priority)), sj, False,
+            False, **kw)
+        direct = ds.solve_system(stg, snap.ready_nodes_in_pool(
+            sj.node_pool))
+        want = {p.node.id: struct_score_bits(p.score) for p in direct
+                if p.node is not None}
+        assert by_node == want and len(got[ev.id]) == len(by_node)
+        assert len(want) > 0
+        same_lane(np, route.services[ev.id].lanes[0], ds.lanes[0], "system")
+        same_results(np, route.services[ev.id].results, ds.results,
+                     "system")
+        report["system"] = dict(summary("system", route, wall_ms,
+                                        len(want), [ev]),
+                                failed_nodes=N_NODES - len(want))
+
+        # -- 4. the mixed barrier, and a sticky disk's host fallback ---
+        mstore = fleet_store(st.SchedulerConfiguration(
+            scheduler_algorithm=st.SCHED_ALG_TPU_BINPACK))
+        mh = route.Harness(mstore)
+        penalty_job = pmock.job(id="sched-penalty")
+        penalty_job.task_groups[0].count = SCHED_PENALTY_COUNT
+        sticky_job = pmock.job(id="sched-sticky")
+        sticky_job.task_groups[0].count = SCHED_STICKY_COUNT
+        sticky_job.task_groups[0].ephemeral_disk.sticky = True
+        first = []
+        for j in (penalty_job, sticky_job):
+            mstore.upsert_job(j)
+            first.append(sched_eval(st, j, f"sched-first-{j.id}"))
+        route.reset()
+        counted(lambda: drive_scheduler(route, mh, "service", first))
+        check_complete(committed(mh, [e.id for e in first])[1], first)
+
+        def fail(allocs):
+            out = []
+            for a in allocs:
+                b = copy.copy(a)
+                b.client_status = st.ALLOC_CLIENT_FAILED
+                b.client_terminal_time = time.time() - 3600
+                out.append(b)
+            mstore.upsert_allocs(out)
+            return out
+        failed = fail(mstore.allocs_by_job(
+            "default", penalty_job.id)[:SCHED_PENALTY_FAILED])
+        sticky_failed = fail(mstore.allocs_by_job(
+            "default", sticky_job.id)[1:2])[0]
+
+        # the sticky place: the host stack, back onto its node
+        fb0 = guard.state()["placements_host_fallback"]
+        ev = sched_eval(st, sticky_job, "sched-sticky-resched",
+                        st.TRIGGER_RETRY_FAILED_ALLOC)
+        route.reset()
+        counted(lambda: drive_scheduler(route, mh, "service", [ev]))
+        got, last = committed(mh, [ev.id])
+        check_complete(last, [ev])
+        (name, (nid, _, _)), = got[ev.id].items()
+        assert name == sticky_failed.name and nid == sticky_failed.node_id
+        assert not route.services[ev.id].lanes, "the sticky place packed"
+        fell_back = guard.state()["placements_host_fallback"] - fb0
+        assert fell_back == 1, fell_back
+        sticky_rep = dict(host_places=fell_back,
+                          eval_ms=route.ms["eval"][0])
+
+        mixed = []
+        for e in range(SCHED_SPREAD_JOBS):
+            j = pmock.job(id=f"sched-spread-{e:02d}")
+            tg0 = j.task_groups[0]
+            j.task_groups = []
+            for name in ("web", "api"):
+                tg = copy.deepcopy(tg0)
+                tg.name, tg.count = name, SCHED_SPREAD_COUNT
+                tg.spreads = [st.Spread(attribute="${meta.rack}", weight=50),
+                              st.Spread(attribute="${meta.zone}", weight=50,
+                                        spread_target=[
+                                            st.SpreadTarget("0", 50),
+                                            st.SpreadTarget("1", 30),
+                                            st.SpreadTarget("2", 20)])]
+                j.task_groups.append(tg)
+            mixed.append(j)
+        dpj = pmock.job(id="sched-distinct-property")
+        dpj.task_groups[0].count = DP_PLACE
+        dpj.task_groups[0].constraints = [st.Constraint(
+            l_target="${meta.rack}", r_target=str(DP_LIMIT),
+            operand="distinct_property")]
+        dpj.task_groups[0].networks = [st.NetworkResource(
+            dynamic_ports=[st.Port(label="http")])]
+        cj = pmock.job(id="sched-reserved-cores")
+        cj.task_groups[0].count = CORES_PLACE
+        cj.task_groups[0].tasks[0].resources.cores = CORES_ASK
+        mixed += [dpj, cj]
+        for j in mixed:
+            mstore.upsert_job(j)
+        evals = [sched_eval(st, j, f"sched-mixed-eval-{k:02d}")
+                 for k, j in enumerate(mixed)]
+        evals.append(sched_eval(st, penalty_job, "sched-mixed-eval-resched",
+                                st.TRIGGER_RETRY_FAILED_ALLOC))
+        msnap = mstore.snapshot()
+        route.reset()
+        barrier = batch.SolveBarrier(len(evals), device=DEVICE)
+        ordered = route.ordered(barrier)
+        wall_ms = counted(lambda: drive_scheduler(
+            route, mh, "service", evals, ordered,
+            batch.make_solve_hook(ordered)))
+        ids = [e.id for e in evals]
+        got, last = committed(mh, ids)
+        check_complete(last, evals)
+        n_placed = sum(len(m) for m in got.values())
+        assert n_placed == (SCHED_SPREAD_JOBS * 2 * SCHED_SPREAD_COUNT
+                            + DP_PLACE + CORES_PLACE
+                            + SCHED_PENALTY_FAILED), n_placed
+        resched = got[evals[-1].id]
+        assert sorted(resched) == sorted(a.name for a in failed)
+        dev = [StructEval(ev.id, j, kw) for ev, j in zip(evals, mixed)]
+        dev.append(StructEval(evals[-1].id, penalty_job, kw,
+                              [a.node_id for a in failed],
+                              names=[a.name for a in failed],
+                              stops=failed))
+        res, direct_ms = drive_struct_evals(
+            batch, mods, Timed, msnap, dev,
+            batch.SolveBarrier(len(dev), device=DEVICE))
+        same_as_direct(np, route, res, dev, got, "mixed")
+        mixed_rep = summary("mixed barrier", route, wall_ms, n_placed,
+                            evals)
+        mixed_rep["direct_wall_ms"] = direct_ms
+        report["mixed"] = mixed_rep
+        report["sticky"] = sticky_rep
+
+        # -- 5. preemption ---------------------------------------------
+        pstore, fill = struct_preempt_store(np, st, pmock, StateStore, nodes)
+        pstore.set_scheduler_config(st.SchedulerConfiguration(
+            scheduler_algorithm=st.SCHED_ALG_TPU_BINPACK,
+            preemption_config=st.PreemptionConfig(
+                service_scheduler_enabled=True)))
+        ph = route.Harness(pstore)
+        pjobs = []
+        for e in range(STRUCT_PREEMPT_EVALS):
+            j = pmock.job(id=f"sched-preempt-job-{e:02d}",
+                          priority=PREEMPT_JOB_PRIO)
+            tg = j.task_groups[0]
+            tg.count = STRUCT_PREEMPT_PLACE
+            tg.tasks[0].resources.cpu = STRUCT_PREEMPT_ASK[0]
+            tg.tasks[0].resources.memory_mb = STRUCT_PREEMPT_ASK[1]
+            tg.ephemeral_disk.size_mb = STRUCT_PREEMPT_ASK[2]
+            pstore.upsert_job(j)
+            pjobs.append(j)
+        psnap = pstore.snapshot()
+        evals = [sched_eval(st, j, f"sched-preempt-eval-{e:04d}")
+                 for e, j in enumerate(pjobs)]
+        route.reset()
+        barrier = batch.SolveBarrier(len(evals), e_pad_hint=len(evals),
+                                     device=DEVICE)
+        ordered = route.ordered(barrier)
+        wall_ms = counted(lambda: drive_scheduler(
+            route, ph, "service", evals, ordered,
+            batch.make_solve_hook(ordered)))
+        got, last = committed(ph, [e.id for e in evals])
+        check_complete(last, evals)
+        n_placed = sum(len(m) for m in got.values())
+        n_evicted = sum(len(v[2]) for m in got.values()
+                        for v in m.values())
+        assert n_placed == STRUCT_PREEMPT_EVALS * STRUCT_PREEMPT_PLACE
+        assert n_evicted > 0
+        dev = [StructEval(ev.id, j, dict(kw, preempt=True))
+               for ev, j in zip(evals, pjobs)]
+        res, direct_ms = drive_struct_evals(
+            batch, mods, Timed, psnap, dev, batch.SolveBarrier(
+                len(dev), e_pad_hint=len(dev), device=DEVICE))
+        same_as_direct(np, route, res, dev, got, "preemption")
+        pre = summary("preemption", route, wall_ms, n_placed, evals)
+        pre.update(direct_wall_ms=direct_ms, evicted=n_evicted,
+                   allocs=len(fill))
+        report["preempt"] = pre
+
+        # -- 6. the LP tier --------------------------------------------
+        lstore = fleet_store(st.SchedulerConfiguration(
+            scheduler_algorithm=st.SCHED_ALG_TPU_LPQ))
+        lh = route.Harness(lstore)
+        ljobs = []
+        for e in range(SCHED_LPQ_EVALS):
+            j = pmock.job(id=f"sched-lpq-job-{e:02d}")
+            j.task_groups[0].count = SCHED_LPQ_PLACE
+            lstore.upsert_job(j)
+            ljobs.append(j)
+        evals = [sched_eval(st, j, f"sched-lpq-eval-{e:04d}")
+                 for e, j in enumerate(ljobs)]
+        route.reset()
+        barrier = lpq.LpqBarrier(len(evals), device=DEVICE)
+        ordered = route.ordered(barrier)
+        wall_ms = counted(lambda: drive_scheduler(
+            route, lh, "tpu-lpq", evals, ordered,
+            lpq.make_lpq_hook(ordered)))
+        got, last = committed(lh, [e.id for e in evals])
+        check_complete(last, evals)
+        lanes = [route.services[ev.id].lanes[0] for ev in evals]
+        assert all(lpq.lp_lane_eligible(lane) for lane in lanes)
+        outs, _, direct_ms, _ = run_barriers(
+            batch, [lpq.LpqBarrier(len(lanes), device=DEVICE)], lanes)
+        for r in outs[0]:
+            if isinstance(r, Exception):
+                raise AssertionError("direct LpqBarrier raised") from r
+        same_results(np, [route.services[ev.id].results[0]
+                          for ev in evals], outs[0], "scheduler lp tier")
+        n_placed = 0
+        for ev, lane, r in zip(evals, lanes, outs[0]):
+            _, node_ids = svc.placements(lane, r[0])
+            want = {p.name: nid for p, nid in zip(lane.places, node_ids)
+                    if nid is not None}
+            assert {k: v[0] for k, v in got[ev.id].items()} == want, ev.id
+            n_placed += len(want)
+        assert n_placed > 0
+        lp = summary("lp tier", route, wall_ms, n_placed, evals)
+        lp["direct_wall_ms"] = direct_ms
+        report["lpq"] = lp
+
+    g1 = guard.state()
+    report["host_fallbacks"] = (g1["host_fallback_dispatches"]
+                                - g0["host_fallback_dispatches"])
+    report["host_places"] = (g1["placements_host_fallback"]
+                             - g0["placements_host_fallback"])
+    report["failed_dispatches"] = {
+        k: g1["dispatch"][k] - g0["dispatch"][k]
+        for k in ("timeout", "error")}
+    assert report["host_fallbacks"] == 0, report["host_fallbacks"]
+    assert report["host_places"] == 1, report["host_places"]
+    assert not any(report["failed_dispatches"].values()), \
+        report["failed_dispatches"]
+    report["pack_cache"] = tp.pack_cache_stats()
+    report["launches"] = launches
+    log(f"scheduler [{card}]: launches {launches}; host-fallback evals "
+        f"{report['host_fallbacks']}; host-stack places "
+        f"{report['host_places']} (the sticky place); pack cache "
+        f"{report['pack_cache']}")
+    for kname in ("wave_block", "wave_compact", "dense_scan", "system_fit",
+                  "wave_preempt", "lp_relax", "delta_scatter"):
         assert launches[kname] >= 1, (kname, launches)
     return report
 
@@ -5484,6 +6249,8 @@ def main(argv=None) -> int:
                   lpq, kernels, resident, svc, tp, world, card)
     stres = phase("structs", structs_phase, np, torch, batch, guard,
                   kernels, svc, tp, world, card)
+    scres = phase("scheduler", scheduler_phase, np, torch, batch, guard,
+                  lpq, kernels, svc, tp, world, card)
 
     def pick(kname, **kw):
         return next(r for r in kres if r["name"] == kname
@@ -5516,6 +6283,7 @@ def main(argv=None) -> int:
             launches=path["launches"][k.name],
             barrier_launches=dlres["barrier_launches"].get(k.name, 0),
             structs_launches=stres["launches"].get(k.name, 0),
+            scheduler_launches=scres["launches"].get(k.name, 0),
             max_abs_err=max(x["max_abs_err"] for x in kres
                             if x["name"] == k.name),
             ms=r["ms"], device_ms=r.get("device_ms"),
@@ -5531,11 +6299,11 @@ def main(argv=None) -> int:
                   preempt_slice=pres, lpq_slice=qres, residency=rres,
                   wavefront=wpath, mesh_dense=mdres, mesh_wave=mwres,
                   mesh_lp=mlres, mesh_residency=mrres, dispatch=dlres,
-                  structs=stres,
+                  structs=stres, scheduler=scres,
                   build_s=info["seconds"], phase_s=phase_s,
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")
-    log("report: " + json.dumps(report))
+    print("report: " + json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

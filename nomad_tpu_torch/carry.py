@@ -164,11 +164,11 @@ def _carry(obj, memo: dict, classes: Dict[str, type]):
 
 def store_from_reference(snapshot, memo: Optional[dict] = None):
     """A port StateStore holding what a reference snapshot (or live
-    store) holds: its nodes, jobs and allocations in the snapshot's
-    order (each node's and each job's allocations in the order the
-    snapshot lists them), and its scheduler configuration; at the
-    snapshot's latest_index() and node-table index, with an empty
-    journal. ``memo`` is struct_from_reference's."""
+    store) holds: its nodes, jobs, evaluations, allocations and
+    deployments in the snapshot's order (each node's and each job's
+    allocations in the order the snapshot lists them), and its scheduler
+    configuration; at the snapshot's latest_index() and node-table
+    index, with an empty journal. ``memo`` is struct_from_reference's."""
     from .state.store import StateStore
 
     if memo is None:
@@ -188,6 +188,13 @@ def store_from_reference(snapshot, memo: Optional[dict] = None):
             store._nodes[n.id] = carry(n)
         for j in snapshot.jobs():
             store._jobs[(j.namespace, j.id)] = carry(j)
+        # a reference snapshot lists its evals only as a table
+        evals = (snapshot.evals() if hasattr(snapshot, "evals")
+                 else list(getattr(snapshot, "_evals", {}).values()))
+        for ev in evals:
+            store._evals[ev.id] = carry(ev)
+        for d in snapshot.deployments():
+            store._deployments[d.id] = carry(d)
         allocs = snapshot.allocs()
         for a in allocs:
             store._allocs[a.id] = carry(a)
@@ -206,5 +213,7 @@ def store_from_reference(snapshot, memo: Optional[dict] = None):
         store._scheduler_config = carry(snapshot.scheduler_config())
         store._index = index
         store._table_index = {"nodes": int(node_index), "allocs": index,
-                              "jobs": index, "scheduler_config": index}
+                              "jobs": index, "evals": index,
+                              "deployments": index,
+                              "scheduler_config": index}
     return store

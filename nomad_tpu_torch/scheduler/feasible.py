@@ -1,10 +1,12 @@
-"""Feasibility checks over one node (port of the checkers of
-nomad_tpu/scheduler/feasible.py; upstream: scheduler/feasible.go):
-check_constraint (:833) with its operand set, ConstraintChecker (:760),
-DriverChecker (:476), DeviceChecker (:1270), HostVolumeChecker (:148)
-and NetworkChecker (:379). tensor/pack.py pack_feasibility runs them
-once per computed node class; the iterators come with the scheduler
-slice.
+"""Feasibility checks and iterators (port of nomad_tpu/scheduler/
+feasible.py; upstream: scheduler/feasible.go): check_constraint (:833)
+with its operand set, ConstraintChecker (:760), DriverChecker (:476),
+DeviceChecker (:1270), HostVolumeChecker (:148), CSIVolumeChecker
+(:230) and NetworkChecker (:379); the iterators StaticIterator (:60),
+FeasibilityWrapper with computed-class memoization (:1126),
+DistinctHostsIterator (:555) and DistinctPropertyIterator (:661).
+tensor/pack.py pack_feasibility runs the checkers once per computed node
+class; the placement stacks (stack.py) chain the iterators.
 """
 from __future__ import annotations
 
@@ -13,19 +15,70 @@ import re
 from typing import Dict, List, Optional, Set
 
 from ..structs import (
-    Constraint, Node, TaskGroup,
+    Constraint, Job, Node, TaskGroup,
     CONSTRAINT_ATTR_IS_NOT_SET, CONSTRAINT_ATTR_IS_SET,
     CONSTRAINT_DISTINCT_HOSTS, CONSTRAINT_DISTINCT_PROPERTY,
     CONSTRAINT_REGEX, CONSTRAINT_SEMVER, CONSTRAINT_SET_CONTAINS,
     CONSTRAINT_SET_CONTAINS_ALL, CONSTRAINT_SET_CONTAINS_ANY,
     CONSTRAINT_VERSION,
 )
-from .context import EvalContext
+from .context import (
+    ELIGIBILITY_ESCAPED, ELIGIBILITY_INELIGIBLE, ELIGIBILITY_UNKNOWN,
+    EvalContext,
+)
 from .util import resolve_target
 
 FILTER_CONSTRAINT_HOST_VOLUMES = "missing compatible host volumes"
 FILTER_CONSTRAINT_DRIVERS = "missing drivers"
 FILTER_CONSTRAINT_DEVICES = "missing devices"
+FILTER_CONSTRAINT_CSI_VOLUMES = \
+    "CSI volume has exhausted its available writer claims"
+FILTER_CONSTRAINT_CSI_PLUGINS = "CSI plugin is missing or unhealthy"
+
+
+class FeasibleIterator:
+    """Iterator protocol: next() -> Node | None, reset()."""
+
+    def next(self) -> Optional[Node]:
+        raise NotImplementedError
+
+    def reset(self) -> None:
+        raise NotImplementedError
+
+
+class StaticIterator(FeasibleIterator):
+    """Returns nodes in a fixed order (upstream: feasible.go:60)."""
+
+    def __init__(self, ctx: EvalContext, nodes: List[Node]):
+        self.ctx = ctx
+        self.nodes = list(nodes)
+        self.offset = 0
+        self.seen = 0
+
+    def next(self) -> Optional[Node]:
+        if self.offset == len(self.nodes) or self.seen == len(self.nodes):
+            return None
+        n = self.nodes[self.offset]
+        self.offset += 1
+        self.seen += 1
+        self.ctx.metrics.nodes_evaluated += 1
+        return n
+
+    def reset(self) -> None:
+        self.offset = 0
+        self.seen = 0
+
+    def set_nodes(self, nodes: List[Node]) -> None:
+        self.nodes = list(nodes)
+        self.offset = 0
+        self.seen = 0
+
+
+def new_random_iterator(ctx: EvalContext, nodes: List[Node]) -> StaticIterator:
+    """A StaticIterator over shuffled nodes (upstream: feasible.go:129
+    NewRandomIterator); GenericStack.set_nodes shuffles, seeded by the
+    eval id."""
+    return StaticIterator(ctx, nodes)
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +360,65 @@ class HostVolumeChecker:
         return True
 
 
+def plugin_healthy(info) -> bool:
+    """A node's csi_node_plugins entry (a dict, or an object with
+    ``healthy``) reads as healthy; None means the plugin is absent."""
+    if info is None:
+        return False
+    if isinstance(info, dict):
+        return bool(info.get("healthy", True))
+    return bool(getattr(info, "healthy", True))
+
+
+class CSIVolumeChecker:
+    """The volume exists, is schedulable and claimable, and the node runs
+    a healthy instance of its plugin (upstream: feasible.go:230). A
+    state without CSI volumes filters every node that asks for one."""
+
+    def __init__(self, ctx: EvalContext):
+        self.ctx = ctx
+        self.namespace = "default"
+        self.volumes: Dict[str, object] = {}
+
+    def set_namespace(self, namespace: str) -> None:
+        self.namespace = namespace
+
+    def set_volumes(self, alloc_name: str, volumes: Dict[str, object]) -> None:
+        self.volumes = {}
+        for name, req in (volumes or {}).items():
+            if req.type != "csi":
+                continue
+            self.volumes[name] = (req.source_for(alloc_name), req.read_only)
+
+    def feasible(self, node: Node) -> bool:
+        if not self.volumes:
+            return True
+        snap = self.ctx.state
+        for name, (source, read_only) in self.volumes.items():
+            vol = (snap.csi_volume_by_id(self.namespace, source)
+                   if hasattr(snap, "csi_volume_by_id") else None)
+            if vol is None or not vol.schedulable:
+                self.ctx.metrics.filter_node(
+                    node.computed_class, FILTER_CONSTRAINT_CSI_VOLUMES)
+                return False
+            mode = "read" if read_only else "write"
+            # claims held by this node's allocs do not block placing
+            # onto the same node again
+            if not vol.claim_ok(mode):
+                holders = set(c.node_id for c in vol.write_claims.values())
+                holders |= set(c.node_id for c in vol.read_claims.values())
+                if holders != {node.id}:
+                    self.ctx.metrics.filter_node(
+                        node.computed_class, FILTER_CONSTRAINT_CSI_VOLUMES)
+                    return False
+            if not plugin_healthy(
+                    (node.csi_node_plugins or {}).get(vol.plugin_id)):
+                self.ctx.metrics.filter_node(
+                    node.computed_class, FILTER_CONSTRAINT_CSI_PLUGINS)
+                return False
+        return True
+
+
 class NetworkChecker:
     """Does the node expose the asked host networks / network mode?
     (reference: feasible.go:379)"""
@@ -349,3 +461,193 @@ class NetworkChecker:
                     f"missing host network {sorted(missing)[0]!r} for port")
                 return False
         return True
+
+
+# ---------------------------------------------------------------------------
+# Wrapper + distinct iterators
+# ---------------------------------------------------------------------------
+
+class FeasibilityWrapper(FeasibleIterator):
+    """Runs the job-level then the task-group-level checkers, memoized
+    per computed node class, then the availability checkers on every
+    node (upstream: feasible.go:1126)."""
+
+    def __init__(self, ctx: EvalContext, source: FeasibleIterator,
+                 job_checkers: list, tg_checkers: list,
+                 avail_checkers: list):
+        self.ctx = ctx
+        self.source = source
+        self.job_checkers = job_checkers
+        self.tg_checkers = tg_checkers
+        self.avail_checkers = avail_checkers   # per alloc, never cached
+        self.tg_name = ""
+
+    def set_task_group(self, tg_name: str) -> None:
+        self.tg_name = tg_name
+
+    def reset(self) -> None:
+        self.source.reset()
+
+    def next(self) -> Optional[Node]:
+        elig = self.ctx.eligibility()
+        while True:
+            node = self.source.next()
+            if node is None:
+                return None
+            cls = node.computed_class
+
+            job_status = elig.job_status(cls)
+            if job_status == ELIGIBILITY_INELIGIBLE:
+                self.ctx.metrics.filter_node(cls, "")
+                continue
+            if job_status in (ELIGIBILITY_ESCAPED, ELIGIBILITY_UNKNOWN):
+                ok = all(c.feasible(node) for c in self.job_checkers)
+                if job_status == ELIGIBILITY_UNKNOWN:
+                    elig.set_job_eligibility(ok, cls)
+                if not ok:
+                    continue
+
+            tg_status = elig.task_group_status(self.tg_name, cls)
+            if tg_status == ELIGIBILITY_INELIGIBLE:
+                self.ctx.metrics.filter_node(cls, "")
+                continue
+            if tg_status in (ELIGIBILITY_ESCAPED, ELIGIBILITY_UNKNOWN):
+                ok = all(c.feasible(node) for c in self.tg_checkers)
+                if tg_status == ELIGIBILITY_UNKNOWN:
+                    elig.set_task_group_eligibility(ok, self.tg_name, cls)
+                if not ok:
+                    continue
+
+            if not all(c.feasible(node) for c in self.avail_checkers):
+                continue
+            return node
+
+
+class DistinctHostsIterator(FeasibleIterator):
+    """Filters the nodes that already hold an alloc of this job (or task
+    group) under distinct_hosts (upstream: feasible.go:555)."""
+
+    def __init__(self, ctx: EvalContext, source: FeasibleIterator):
+        self.ctx = ctx
+        self.source = source
+        self.tg = None
+        self.job = None
+        self.tg_distinct = False
+        self.job_distinct = False
+
+    def set_task_group(self, tg: TaskGroup) -> None:
+        self.tg = tg
+        self.tg_distinct = self._has_distinct(tg.constraints)
+
+    def set_job(self, job: Job) -> None:
+        self.job = job
+        self.job_distinct = self._has_distinct(job.constraints)
+
+    @staticmethod
+    def _has_distinct(constraints) -> bool:
+        return any(c.operand == CONSTRAINT_DISTINCT_HOSTS and
+                   str(c.r_target).lower() not in ("false",)
+                   for c in constraints or [])
+
+    def next(self) -> Optional[Node]:
+        while True:
+            node = self.source.next()
+            if node is None or not (self.tg_distinct or self.job_distinct):
+                return node
+            if self._satisfies(node):
+                return node
+            self.ctx.metrics.filter_node(
+                node.computed_class, CONSTRAINT_DISTINCT_HOSTS)
+
+    def _satisfies(self, node: Node) -> bool:
+        for alloc in self.ctx.proposed_allocs(node.id):
+            job_collision = alloc.job_id == self.job.id and \
+                alloc.namespace == self.job.namespace
+            task_collision = alloc.task_group == self.tg.name
+            if self.job_distinct and job_collision:
+                return False
+            if self.tg_distinct and job_collision and task_collision:
+                return False
+        return True
+
+    def reset(self) -> None:
+        self.source.reset()
+
+
+class DistinctPropertyIterator(FeasibleIterator):
+    """distinct_property: at most r_target (default 1) of the job's (or
+    task group's) allocs per value of the attribute, plan placements in,
+    plan stops out (upstream: feasible.go:661, propertyset.go)."""
+
+    def __init__(self, ctx: EvalContext, source: FeasibleIterator):
+        self.ctx = ctx
+        self.source = source
+        self.job = None
+        self.tg = None
+        self.job_property_sets: list = []
+        self.tg_property_sets: list = []
+
+    def set_job(self, job: Job) -> None:
+        self.job = job
+        self.job_property_sets = [
+            c for c in job.constraints
+            if c.operand == CONSTRAINT_DISTINCT_PROPERTY]
+
+    def set_task_group(self, tg: TaskGroup) -> None:
+        self.tg = tg
+        self.tg_property_sets = [
+            c for c in tg.constraints
+            if c.operand == CONSTRAINT_DISTINCT_PROPERTY]
+
+    @staticmethod
+    def _count_limit(c: Constraint) -> int:
+        try:
+            return max(1, int(c.r_target)) if c.r_target else 1
+        except ValueError:
+            return 1
+
+    def next(self) -> Optional[Node]:
+        while True:
+            node = self.source.next()
+            if node is None:
+                return None
+            if not self.job_property_sets and not self.tg_property_sets:
+                return node
+            if self._satisfies(node):
+                return node
+            self.ctx.metrics.filter_node(
+                node.computed_class, CONSTRAINT_DISTINCT_PROPERTY)
+
+    def _satisfies(self, node: Node) -> bool:
+        allocs = [a for a in self.ctx.state.allocs_by_job(
+            self.job.namespace, self.job.id) if not a.terminal_status()]
+        removed = set()
+        for na in self.ctx.plan.node_update.values():
+            removed.update(a.id for a in na)
+        allocs = [a for a in allocs if a.id not in removed]
+        for na in self.ctx.plan.node_allocation.values():
+            allocs.extend(na)
+
+        for scope, csets in (("job", self.job_property_sets),
+                             ("tg", self.tg_property_sets)):
+            for c in csets:
+                val, ok = resolve_target(c.l_target, node)
+                if not ok:
+                    return False
+                limit = self._count_limit(c)
+                used = 0
+                for alloc in allocs:
+                    if scope == "tg" and alloc.task_group != self.tg.name:
+                        continue
+                    other = self.ctx.state.node_by_id(alloc.node_id)
+                    if other is None:
+                        continue
+                    oval, ook = resolve_target(c.l_target, other)
+                    if ook and str(oval) == str(val):
+                        used += 1
+                if used >= limit:
+                    return False
+        return True
+
+    def reset(self) -> None:
+        self.source.reset()

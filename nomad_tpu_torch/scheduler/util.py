@@ -1,5 +1,6 @@
-"""Deterministic node shuffle and target resolution (port of
-nomad_tpu/scheduler/util.py).
+"""Scheduler utilities (port of nomad_tpu/scheduler/util.py; upstream:
+scheduler/util.go): the deterministic node shuffle, tainted nodes, the
+retry loop and its progress test, alloc names, and target resolution.
 
 The shuffle decides tie-breaks between equal-score nodes, so its order must
 match the reference bit for bit: same seeding contract (last 8 bytes of the
@@ -8,7 +9,9 @@ eval ID XOR the refresh index) and the same splitmix64 Fisher-Yates.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
+
+from ..structs import NODE_STATUS_DISCONNECTED, NODE_STATUS_DOWN
 
 MASK64 = (1 << 64) - 1
 
@@ -29,6 +32,17 @@ def shuffle_seed(eval_id: str, index: int) -> int:
     raw = eval_id.encode()[-8:].rjust(8, b"\0")
     seed = int.from_bytes(raw, "big") ^ (index & MASK64)
     return seed & MASK64
+
+
+def shuffle_nodes(plan, index: int, nodes: list) -> None:
+    """In-place deterministic Fisher-Yates of ``nodes``, seeded by the
+    plan's eval id and ``index`` (upstream: util.go shuffleNodes); the
+    same permutation as shuffled_order."""
+    state = shuffle_seed(plan.eval_id, index)
+    for i in range(len(nodes) - 1, 0, -1):
+        state, out = splitmix64(state)
+        j = out % (i + 1)
+        nodes[i], nodes[j] = nodes[j], nodes[i]
 
 
 def shuffled_order(eval_id: str, index: int, n: int) -> List[int]:
@@ -71,3 +85,50 @@ def resolve_target(target: str, node):
             return node.meta[key], True
         return "", False
     return "", False
+
+
+def tainted_nodes(state, allocs) -> Dict[str, Optional[object]]:
+    """Node id -> node for the allocs' nodes that are down, draining or
+    disconnected, and -> None for those no longer registered
+    (upstream: util.go taintedNodes)."""
+    out: Dict[str, Optional[object]] = {}
+    for alloc in allocs:
+        if alloc.node_id in out:
+            continue
+        node = state.node_by_id(alloc.node_id)
+        if node is None:
+            out[alloc.node_id] = None
+        elif (node.status in (NODE_STATUS_DOWN, NODE_STATUS_DISCONNECTED)
+              or node.drain):
+            out[alloc.node_id] = node
+    return out
+
+
+def retry_max(max_attempts: int, cb, reset_cb=None):
+    """Call ``cb`` (returning (done, err)) until it is done, at most
+    ``max_attempts`` times in a row without progress (``reset_cb``
+    true restarts the count); returns None, or the SetStatusError of the
+    exhausted attempts (upstream: util.go retryMax)."""
+    attempts = 0
+    while attempts < max_attempts:
+        done, _err = cb()
+        if done:
+            return None
+        if reset_cb is not None and reset_cb():
+            attempts = 0
+        else:
+            attempts += 1
+    from .generic import SetStatusError
+    return SetStatusError(f"maximum attempts reached ({max_attempts})")
+
+
+def progress_made(result) -> bool:
+    """Did a plan's application commit anything? (upstream: util.go
+    progressMade)"""
+    return result is not None and bool(
+        result.node_update or result.node_allocation
+        or result.deployment is not None or result.deployment_updates)
+
+
+def alloc_name(job_id: str, tg_name: str, idx: int) -> str:
+    return f"{job_id}.{tg_name}[{idx}]"

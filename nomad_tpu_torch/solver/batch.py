@@ -785,6 +785,11 @@ class SolveBarrier:
         # across this batch's generations
         self._ledger: Dict[str, list] = {}
 
+    @property
+    def cells(self):
+        """The devices every dispatch of this barrier runs on."""
+        return self._cells
+
     def done(self) -> None:
         """The thread finished its eval (no more solves coming)."""
         with self._cv:
@@ -961,10 +966,12 @@ def make_solve_hook(barrier: SolveBarrier):
     """The hook a scheduler calls instead of service.solve(service, tg,
     places, nodes, penalties): pack on the calling thread, solve at the
     barrier, materialize on the calling thread. Returns the
-    TpuPlacements, or None when the task group is not eligible or the
-    generation's dispatch failed (the failure is counted as a host
-    fallback, and the caller's host path places the task group)."""
-    from .guard import DispatchFailed, note_host_fallback
+    TpuPlacements, or None when the task group is not eligible or, on
+    CPU cells, the generation's dispatch failed (the failure is counted
+    as a host fallback, and the caller's host path places the task
+    group). On a card the DispatchFailed reaches the caller."""
+    from .guard import DispatchFailed, host_fallback_allowed, \
+        note_host_fallback
 
     def hook(service, tg, places, nodes, penalties):
         lane = service.pack(tg, places, nodes, penalties)
@@ -973,6 +980,8 @@ def make_solve_hook(barrier: SolveBarrier):
         try:
             res = barrier.solve(lane)
         except DispatchFailed:
+            if not host_fallback_allowed(barrier.cells):
+                raise
             note_host_fallback()
             return None
         return service.materialize(lane, *res)

@@ -26,10 +26,12 @@ launches one kernel, bounded by ``NOMAD_TPU_TORCH_BREAKER_PROBE_TIMEOUT``,
 else ``NOMAD_TPU_TORCH_REPROBE_TIMEOUT``) and closes it when a probe
 passes. Both edges drop the resident buffer set and the stack arena.
 
-The guard answers; it picks no device. Whether an eval whose dispatch
-failed goes to the host oracle is its solve hook's decision: nothing here
-turns a failed CUDA dispatch into a CPU or plain-version result.
-Counters (dispatch ok / timeout / error, host fallbacks, trips and
+The guard answers; it picks no device, and nothing here turns a failed
+CUDA dispatch into a CPU or plain-version result. Only an eval bound for
+the CPU may go to the host stack when its dispatch is refused or fails
+(``host_fallback_allowed``); for a card, ``DispatchFailed`` reaches the
+scheduler's caller. Counters (dispatch ok / timeout / error, host
+fallbacks per eval, host-stack places under a tpu-* algorithm, trips and
 recoveries) are in ``state()``.
 """
 from __future__ import annotations
@@ -67,8 +69,8 @@ _PROBE = {"done": None, "result": None}    # threading.Event / dict
 
 _COUNT_LOCK = threading.Lock()
 _COUNTS = {"dispatch_ok": 0, "dispatch_timeout": 0, "dispatch_error": 0,
-           "host_fallback_dispatches": 0, "backend_unavailable": 0,
-           "backend_recovered": 0}
+           "host_fallback_dispatches": 0, "placements_host_fallback": 0,
+           "backend_unavailable": 0, "backend_recovered": 0}
 
 BREAKER_CLOSED = "closed"
 BREAKER_OPEN = "open"
@@ -89,9 +91,9 @@ _BREAKER = {
 }
 
 
-def _count(name: str) -> None:
+def _count(name: str, n: int = 1) -> None:
     with _COUNT_LOCK:
-        _COUNTS[name] += 1
+        _COUNTS[name] += n
 
 
 def _device_type(device) -> str:
@@ -175,6 +177,34 @@ def note_host_fallback() -> None:
     _count("host_fallback_dispatches")
 
 
+def note_host_placements(n: int = 1) -> None:
+    """Record ``n`` places the host stack made under a tpu-* algorithm
+    (the reference's ``nomad.scheduler.placements_host_fallback``): what
+    the device path does not model, such as a sticky disk's
+    reschedule."""
+    _count("placements_host_fallback", n)
+
+
+def host_fallback_allowed(device=None) -> bool:
+    """May an eval whose dispatch to ``device`` was refused (init down,
+    breaker open) or failed (``DispatchFailed``) be placed by the host
+    stack? Only on the CPU. For a card the refusal or failure is raised
+    to the scheduler's caller, so no kernel failure is hidden behind a
+    host placement."""
+    return _device_type(device) == "cpu"
+
+
+def refuse_dispatch(device=None) -> None:
+    """Raise DispatchFailed("refused") for an eval bound for ``device``
+    that may not dispatch now (the caller has checked
+    dispatch_allowed): on a card the eval fails rather than go to the
+    host stack."""
+    b = breaker_state()
+    raise DispatchFailed(
+        "refused", f"dispatch to {_device_type(device)} refused: init "
+        f"{'ok' if _STATE['ok'] else 'down'}, breaker {b['state']}")
+
+
 # ----------------------------------------------------------------------
 # Deadline-bounded dispatch
 
@@ -184,7 +214,7 @@ class DispatchFailed(RuntimeError):
 
     def __init__(self, kind: str, msg: str):
         super().__init__(msg)
-        self.kind = kind            # "timeout" | "error"
+        self.kind = kind            # "timeout" | "error" | "refused"
 
 
 def dispatch_deadline_s() -> float:
@@ -544,6 +574,7 @@ def state() -> dict:
         counts = dict(_COUNTS)
     snap["backend_unavailable_total"] = counts["backend_unavailable"]
     snap["host_fallback_dispatches"] = counts["host_fallback_dispatches"]
+    snap["placements_host_fallback"] = counts["placements_host_fallback"]
     snap["recovered_total"] = counts["backend_recovered"]
     snap["breaker"] = breaker
     snap["dispatch"] = {"ok": counts["dispatch_ok"],

@@ -39,8 +39,9 @@ evicts in the repair pass through the host Preemptor
 (scheduler/preemption.py) over the Allocation structs the lane was
 packed from (``_try_preempt``); its result carries the eviction rows.
 ``LpqBarrier`` runs each generation under the
-dispatch guard's watchdog deadline (solver/guard.py); tracer spans,
-``metrics`` counters and the scheduler hook come with their slices.
+dispatch guard's watchdog deadline (solver/guard.py), and
+``make_lpq_hook`` is the ``tpu-lpq`` scheduler's solve hook; tracer
+spans, ``metrics`` counters and the shadow audit come with telemetry.
 
 Knobs (read at each use):
   NOMAD_TPU_TORCH_LPQ_STEPS     annealing/dual-ascent iterations (48, >= 4)
@@ -988,6 +989,11 @@ class LpqBarrier:
         self._plan_group_hint = plan_group_hint
         self._ledger: Dict[str, list] = {}
 
+    @property
+    def cells(self):
+        """The devices every dispatch of this barrier runs on."""
+        return self._cells
+
     def done(self) -> None:
         with self._cv:
             self._finished += 1
@@ -1039,3 +1045,29 @@ class LpqBarrier:
                 except Exception:  # noqa: BLE001 -- advisory only
                     pass
             self._cv.notify_all()
+
+
+def make_lpq_hook(barrier: LpqBarrier):
+    """The solve hook the LP tier's GenericSchedulers call instead of
+    service.solve (reference lpq.py:882): pack on the calling thread,
+    solve the whole queue at the barrier, materialize on the calling
+    thread. Returns the TpuPlacements, or None when the task group is not
+    eligible or, on CPU cells, the generation's dispatch failed (counted
+    as a host fallback; the caller's host stack then places the task
+    group). On a card the DispatchFailed reaches the caller."""
+    from .guard import DispatchFailed, host_fallback_allowed, \
+        note_host_fallback
+
+    def hook(service, tg, places, nodes, penalties):
+        lane = service.pack(tg, places, nodes, penalties)
+        if lane is None:
+            return None
+        try:
+            res = barrier.solve(lane)
+        except DispatchFailed:
+            if not host_fallback_allowed(barrier.cells):
+                raise
+            note_host_fallback()
+            return None
+        return service.materialize(lane, *res)
+    return hook

@@ -539,9 +539,10 @@ class TpuPlacementService:
     def solve(self, tg, places, nodes, penalty_nodes_per_place=None
               ) -> Optional[List[TpuPlacement]]:
         """The solo dispatch: one TpuPlacement per place (node None
-        where it failed), or None when the task group is not eligible or
-        the dispatch failed under the guard (the caller's host path then
-        places it)."""
+        where it failed), or None when the task group is not eligible or,
+        on the CPU, the dispatch failed under the guard (the caller's
+        host path then places it). On a card the DispatchFailed reaches
+        the caller."""
         from . import guard
 
         lane = self.pack(tg, places, nodes, penalty_nodes_per_place)
@@ -552,6 +553,8 @@ class TpuPlacementService:
                 lambda: dispatch_lane(lane, device=self.device),
                 label="solver.dispatch_solo", device=self.device)
         except guard.DispatchFailed:
+            if not guard.host_fallback_allowed(self.device):
+                raise
             guard.note_host_fallback()
             return None
         return self.materialize(lane, *out)
@@ -560,7 +563,8 @@ class TpuPlacementService:
         """A system job: one independent fit and score per node (no
         window, no distinct_hosts, binpack score only). One TpuPlacement
         per node (node None where infeasible), or None when ineligible
-        or the dispatch failed under the guard."""
+        or, on the CPU, the dispatch failed under the guard (on a card
+        the DispatchFailed reaches the caller)."""
         from . import guard
         from ..scheduler.reconcile import AllocPlaceResult
 
@@ -577,6 +581,8 @@ class TpuPlacementService:
                 lambda: _system_fit(lane, n, self.device),
                 label="solver.dispatch.system", device=self.device)
         except guard.DispatchFailed:
+            if not guard.host_fallback_allowed(self.device):
+                raise
             guard.note_host_fallback()
             return None
         return self.materialize(lane, chosen, scores,

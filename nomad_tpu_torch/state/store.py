@@ -1,12 +1,14 @@
 """The state store (port of nomad_tpu/state/store.py StateStore and
-StateSnapshot): nodes, jobs, allocations and the scheduler
-configuration, point-in-time snapshots, and the alloc-delta journal.
+StateSnapshot): nodes, jobs, evaluations, allocations, deployments and
+the scheduler configuration, point-in-time snapshots, the plan-result
+commit and the alloc-delta journal.
 
 Every logical write advances one raft-style index exactly as the
 reference's ``_bump`` does (``upsert_node`` one, ``upsert_job`` one,
-``upsert_allocs`` one, ``set_scheduler_config`` one): the eval's node
-shuffle is seeded by (eval id, latest_index), so a world written in the
-same order lands on the same index and packs the same permutation.
+``upsert_evals`` one, ``upsert_allocs`` one, ``upsert_deployment`` one,
+``upsert_plan_results`` one, ``set_scheduler_config`` one): the eval's
+node shuffle is seeded by (eval id, latest_index), so a world written in
+the same order lands on the same index and packs the same permutation.
 
 A write to the allocs table also appends ``(index, pairs)`` to a bounded
 journal, where ``pairs`` is the write's list of ``(old_alloc | None,
@@ -30,6 +32,7 @@ Knob (read when a store is built):
 """
 from __future__ import annotations
 
+import copy
 import os
 import sys
 import threading
@@ -70,6 +73,7 @@ class StateSnapshot:
             self._nodes = dict(store._nodes)
             self._jobs = dict(store._jobs)
             self._allocs = dict(store._allocs)
+            self._deployments = dict(store._deployments)
             self._allocs_by_node = {k: dict(v) for k, v in
                                     store._allocs_by_node.items()}
             self._allocs_by_job = {k: dict(v) for k, v in
@@ -95,13 +99,25 @@ class StateSnapshot:
         memo = self.__dict__.setdefault("_ready_memo", {})
         ent = memo.get(key)
         if ent is None:
-            pool = key[1]
-            out = [n for n in self._nodes.values() if n.ready()
-                   and (pool in ("", "all") or n.node_pool == pool)]
+            if key[0] == "pool":
+                pool = key[1]
+                out = [n for n in self._nodes.values() if n.ready()
+                       and (pool in ("", "all") or n.node_pool == pool)]
+            else:                       # ("dcs", pool, frozenset(dcs))
+                base = self._ready_memoized(("pool", key[1]))[0]
+                dcs = key[2]
+                out = (base if "*" in dcs else
+                       [n for n in base if n.datacenter in dcs])
             ent = memo.setdefault(key, (out, tuple(n.id for n in out)))
             self.__dict__.setdefault("_ready_by_id", {})[id(ent[0])] = \
                 ent[1]
         return ent
+
+    def ready_nodes_in_pool_dcs(self, pool: str, dcs: frozenset) -> list:
+        """ready_nodes_in_pool with the job's datacenter filter ("*" in
+        ``dcs``: every datacenter), memoized per snapshot in the same
+        order, so the evals of one barrier generation share one list."""
+        return self._ready_memoized(("dcs", pool, dcs))[0]
 
     def nodes_pack_key(self, nodes):
         """The node-id tuple of a list this snapshot's ready memo handed
@@ -131,6 +147,18 @@ class StateSnapshot:
                 for i in self._allocs_by_job.get((namespace, job_id), ())
                 if i in self._allocs]
 
+    def deployments(self) -> list:
+        return list(self._deployments.values())
+
+    def latest_deployment_by_job(self, namespace: str, job_id: str):
+        """The job's deployment with the highest create index."""
+        best = None
+        for d in self._deployments.values():
+            if d.namespace == namespace and d.job_id == job_id:
+                if best is None or d.create_index > best.create_index:
+                    best = d
+        return best
+
     def scheduler_config(self) -> SchedulerConfiguration:
         return self._scheduler_config
 
@@ -145,7 +173,9 @@ class StateStore:
         self._table_index: Dict[str, int] = {}      # absent = 1
         self._nodes: Dict[str, object] = {}
         self._jobs: Dict[Tuple[str, str], object] = {}
+        self._evals: Dict[str, object] = {}
         self._allocs: Dict[str, object] = {}
+        self._deployments: Dict[str, object] = {}
         self._allocs_by_node: Dict[str, Dict[str, None]] = {}
         self._allocs_by_job: Dict[Tuple[str, str], Dict[str, None]] = {}
         self._scheduler_config = SchedulerConfiguration()
@@ -270,32 +300,122 @@ class StateStore:
             self._scheduler_config = cfg
             return self._bump("scheduler_config")
 
+    def upsert_evals(self, evals: Iterable) -> int:
+        """Insert or replace evaluations (keyed by ``ev.id``)."""
+        now = time.time()
+        with self._lock:
+            for ev in evals:
+                existing = self._evals.get(ev.id)
+                if existing is not None:
+                    ev.create_index = existing.create_index
+                    ev.create_time = existing.create_time
+                else:
+                    ev.create_index = self._index + 1
+                    ev.create_time = now
+                ev.modify_index = self._index + 1
+                ev.modify_time = now
+                self._evals[ev.id] = ev
+            return self._bump("evals")
+
     def upsert_allocs(self, allocs: Iterable) -> int:
         """Insert or replace allocations (keyed by ``alloc.id``); the
         write journals one (existing | None, alloc) pair per alloc."""
         with self._lock:
-            now = time.time()
-            pairs: List[tuple] = []
-            for alloc in allocs:
-                existing = self._allocs.get(alloc.id)
-                if hasattr(alloc, "modify_index"):
-                    if existing is not None:
-                        alloc.create_index = existing.create_index
-                        alloc.create_time = existing.create_time
-                    else:
-                        alloc.create_index = self._index + 1
-                        alloc.create_time = now
-                    alloc.modify_index = self._index + 1
-                    alloc.modify_time = now
-                    if alloc.job is None and existing is not None:
-                        alloc.job = existing.job
-                pairs.append((existing, alloc))
-                self._allocs[alloc.id] = alloc
-                self._allocs_by_node.setdefault(
-                    alloc.node_id, {})[alloc.id] = None
-                self._allocs_by_job.setdefault(
-                    _job_key(alloc), {})[alloc.id] = None
+            pairs = self._insert_allocs_locked(allocs)
             return self._bump("allocs", delta=pairs)
+
+    def _insert_allocs_locked(self, allocs: Iterable) -> List[tuple]:
+        """Insert or replace ``allocs`` and index them; returns the
+        write's (existing | None, alloc) pairs. No index bump here."""
+        now = time.time()
+        pairs: List[tuple] = []
+        for alloc in allocs:
+            existing = self._allocs.get(alloc.id)
+            if hasattr(alloc, "modify_index"):
+                if existing is not None:
+                    alloc.create_index = existing.create_index
+                    alloc.create_time = existing.create_time
+                else:
+                    alloc.create_index = self._index + 1
+                    alloc.create_time = now
+                alloc.modify_index = self._index + 1
+                alloc.modify_time = now
+                if alloc.job is None and existing is not None:
+                    alloc.job = existing.job
+            pairs.append((existing, alloc))
+            self._allocs[alloc.id] = alloc
+            self._allocs_by_node.setdefault(
+                alloc.node_id, {})[alloc.id] = None
+            self._allocs_by_job.setdefault(
+                _job_key(alloc), {})[alloc.id] = None
+        return pairs
+
+    def upsert_deployment(self, deployment) -> int:
+        """Insert or replace a deployment (keyed by ``deployment.id``)."""
+        with self._lock:
+            self._upsert_deployment_locked(deployment)
+            return self._bump("deployments")
+
+    def _upsert_deployment_locked(self, deployment) -> None:
+        existing = self._deployments.get(deployment.id)
+        if existing is not None:
+            deployment.create_index = existing.create_index
+        else:
+            deployment.create_index = self._index + 1
+        deployment.modify_index = self._index + 1
+        self._deployments[deployment.id] = deployment
+
+    def upsert_plan_results(self, result, eval_updates=None) -> int:
+        """Commit a plan result in one logical write (reference:
+        state_store.go UpsertPlanResults): each stop and preemption is
+        merged onto a copy of the stored alloc (desired status and
+        description, preempting alloc, client status and follow-up eval
+        where set), the placements are inserted, the plan's deployment
+        and its status updates land, and ``eval_updates`` replace their
+        evals. The write journals the merged stops' and the placements'
+        (old, new) pairs, as upsert_allocs does, so a usage base catches
+        up across it. Sets and returns ``result.alloc_index``."""
+        with self._lock:
+            idx = self._index + 1
+            pairs: List[tuple] = []
+            for group in (result.node_update, result.node_preemptions):
+                for allocs in group.values():
+                    for stop in allocs:
+                        existing = self._allocs.get(stop.id)
+                        if existing is None:
+                            continue
+                        alloc = copy.copy(existing)
+                        alloc.desired_status = stop.desired_status
+                        alloc.desired_description = stop.desired_description
+                        alloc.preempted_by_allocation = \
+                            stop.preempted_by_allocation
+                        if stop.client_status:
+                            alloc.client_status = stop.client_status
+                        if stop.followup_eval_id:
+                            alloc.followup_eval_id = stop.followup_eval_id
+                        alloc.modify_index = idx
+                        alloc.modify_time = time.time()
+                        self._allocs[alloc.id] = alloc
+                        pairs.append((existing, alloc))
+            if result.deployment is not None:
+                self._upsert_deployment_locked(result.deployment)
+            for du in result.deployment_updates:
+                d = self._deployments.get(du.deployment_id)
+                if d is not None:
+                    nd = copy.copy(d)
+                    nd.status = du.status
+                    nd.status_description = du.status_description
+                    nd.modify_index = idx
+                    self._deployments[nd.id] = nd
+            for ev in eval_updates or ():
+                ev.modify_index = idx
+                self._evals[ev.id] = ev
+            pairs.extend(self._insert_allocs_locked(
+                [a for allocs in result.node_allocation.values()
+                 for a in allocs]))
+            idx = self._bump("allocs", "deployments", "evals", delta=pairs)
+            result.alloc_index = idx
+            return idx
 
     def delete_allocs(self, alloc_ids: Iterable[str]) -> int:
         """Remove allocations; journals (alloc, None) per removed one."""
@@ -327,3 +447,25 @@ class StateStore:
     def allocs(self) -> list:
         with self._lock:
             return list(self._allocs.values())
+
+    def allocs_by_job(self, namespace: str, job_id: str) -> list:
+        return self.snapshot().allocs_by_job(namespace, job_id)
+
+    def eval_by_id(self, eval_id: str):
+        with self._lock:
+            return self._evals.get(eval_id)
+
+    def evals(self) -> list:
+        with self._lock:
+            return list(self._evals.values())
+
+    def deployment_by_id(self, deployment_id: str):
+        with self._lock:
+            return self._deployments.get(deployment_id)
+
+    def latest_deployment_by_job(self, namespace: str, job_id: str):
+        return self.snapshot().latest_deployment_by_job(namespace, job_id)
+
+    def scheduler_config(self) -> SchedulerConfiguration:
+        with self._lock:
+            return self._scheduler_config

@@ -1,8 +1,9 @@
-"""The data model the placement service reads (port of the scheduling
-half of nomad_tpu/structs/): resources, ports, nodes, jobs, allocations,
-evaluations, plans and the scheduler configuration. Class and field
-names equal the reference's, so carry.struct_from_reference can map a
-reference struct onto its port class by name."""
+"""The data model the scheduler and the placement service read (port of
+the scheduling half of nomad_tpu/structs/): resources, ports, nodes,
+jobs, allocations, evaluations, deployments, plans, plan results and the
+scheduler configuration. Class and field names equal the reference's,
+so carry.struct_from_reference can map a reference struct onto its port
+class by name."""
 from .resources import (  # noqa: F401
     AllocatedDeviceResource, AllocatedPortMapping, AllocatedResources,
     AllocatedSharedResources, AllocatedTaskResources, ComparableResources,
@@ -36,10 +37,23 @@ from .alloc import (  # noqa: F401
     ALLOC_DESIRED_RUN, ALLOC_DESIRED_STOP, ALLOC_DESIRED_EVICT,
     ALLOC_CLIENT_PENDING, ALLOC_CLIENT_RUNNING, ALLOC_CLIENT_COMPLETE,
     ALLOC_CLIENT_FAILED, ALLOC_CLIENT_LOST, ALLOC_CLIENT_UNKNOWN,
-    EVAL_STATUS_PENDING, TRIGGER_JOB_REGISTER,
+    EVAL_STATUS_BLOCKED, EVAL_STATUS_PENDING, EVAL_STATUS_COMPLETE,
+    EVAL_STATUS_FAILED, EVAL_STATUS_CANCELLED,
+    TRIGGER_JOB_REGISTER, TRIGGER_JOB_DEREGISTER, TRIGGER_PERIODIC_JOB,
+    TRIGGER_NODE_DRAIN, TRIGGER_NODE_UPDATE, TRIGGER_ALLOC_STOP,
+    TRIGGER_SCHEDULED, TRIGGER_ROLLING_UPDATE, TRIGGER_DEPLOYMENT_WATCHER,
+    TRIGGER_FAILED_FOLLOW_UP, TRIGGER_MAX_DISCONNECT_TIMEOUT,
+    TRIGGER_RECONNECT, TRIGGER_RETRY_FAILED_ALLOC, TRIGGER_QUEUED_ALLOCS,
+    TRIGGER_PREEMPTION, TRIGGER_SCALING,
+    DEPLOYMENT_STATUS_RUNNING, DEPLOYMENT_STATUS_PAUSED,
+    DEPLOYMENT_STATUS_FAILED, DEPLOYMENT_STATUS_SUCCESSFUL,
+    DEPLOYMENT_STATUS_CANCELLED, PlanResult,
 )
 from .network import NetworkIndex, PortBitmap, AssignedPorts  # noqa: F401
-from .funcs import allocs_fit, devices_fit  # noqa: F401
+from .funcs import (  # noqa: F401
+    allocs_fit, devices_fit, compute_free_percentage, score_fit_binpack,
+    score_fit_spread, BINPACK_MAX_FIT_SCORE,
+)
 from .config import (  # noqa: F401
     PreemptionConfig, SchedulerConfiguration,
     SCHED_ALG_BINPACK, SCHED_ALG_SPREAD, SCHED_ALG_TPU_BINPACK,

@@ -136,6 +136,45 @@ class AllocMetric:
     def score_node(self, node_id: str, name: str, score: float) -> None:
         self.scores[f"{node_id}.{name}"] = score
 
+    def copy(self) -> "AllocMetric":
+        """A copy of every container (each field is a scalar, a flat
+        dict, or a list of flat dicts)."""
+        return AllocMetric(
+            nodes_evaluated=self.nodes_evaluated,
+            nodes_filtered=self.nodes_filtered,
+            nodes_in_pool=self.nodes_in_pool,
+            nodes_available=dict(self.nodes_available),
+            class_filtered=dict(self.class_filtered),
+            constraint_filtered=dict(self.constraint_filtered),
+            nodes_exhausted=self.nodes_exhausted,
+            class_exhausted=dict(self.class_exhausted),
+            dimension_exhausted=dict(self.dimension_exhausted),
+            quota_exhausted=list(self.quota_exhausted),
+            scores=dict(self.scores),
+            score_meta=[dict(m) for m in self.score_meta],
+            allocation_time_ns=self.allocation_time_ns,
+            coalesced_failures=self.coalesced_failures)
+
+    def copy_for_alloc(self) -> "AllocMetric":
+        """The copy a placed alloc carries: the aggregate containers are
+        shared with the eval's base metric (nothing mutates a placed
+        alloc's metrics after scheduling), only ``scores`` is fresh."""
+        return AllocMetric(
+            nodes_evaluated=self.nodes_evaluated,
+            nodes_filtered=self.nodes_filtered,
+            nodes_in_pool=self.nodes_in_pool,
+            nodes_available=self.nodes_available,
+            class_filtered=self.class_filtered,
+            constraint_filtered=self.constraint_filtered,
+            nodes_exhausted=self.nodes_exhausted,
+            class_exhausted=self.class_exhausted,
+            dimension_exhausted=self.dimension_exhausted,
+            quota_exhausted=self.quota_exhausted,
+            scores=dict(self.scores),
+            score_meta=self.score_meta,
+            allocation_time_ns=self.allocation_time_ns,
+            coalesced_failures=self.coalesced_failures)
+
 
 @dataclass
 class NetworkStatus:
@@ -214,6 +253,21 @@ class Allocation:
             return False
         tg = self.job.lookup_task_group(self.task_group)
         return tg is not None and tg.ephemeral_disk.migrate
+
+    def copy(self) -> "Allocation":
+        import copy as _copy
+        return _copy.deepcopy(self)
+
+    def copy_skip_job(self) -> "Allocation":
+        """A deep copy sharing the job."""
+        job = self.job
+        self.job = None
+        try:
+            c = self.copy()
+        finally:
+            self.job = job
+        c.job = job
+        return c
 
 
 @dataclass
@@ -335,6 +389,10 @@ class Evaluation:
     def should_block(self) -> bool:
         return self.status == EVAL_STATUS_BLOCKED
 
+    def copy(self) -> "Evaluation":
+        import copy as _copy
+        return _copy.deepcopy(self)
+
 
 @dataclass
 class Plan:
@@ -393,3 +451,28 @@ class Plan:
     def is_no_op(self) -> bool:
         return (not self.node_update and not self.node_allocation
                 and not self.deployment and not self.deployment_updates)
+
+
+@dataclass
+class PlanResult:
+    """What the plan applier committed (reference: structs.PlanResult)."""
+
+    node_update: Dict[str, List[Allocation]] = field(default_factory=dict)
+    node_allocation: Dict[str, List[Allocation]] = field(default_factory=dict)
+    node_preemptions: Dict[str, List[Allocation]] = field(default_factory=dict)
+    deployment: Optional[Deployment] = None
+    deployment_updates: List[DeploymentStatusUpdate] = field(default_factory=list)
+    refresh_index: int = 0
+    alloc_index: int = 0
+    rejected_nodes: List[str] = field(default_factory=list)
+
+    def full_commit(self, plan: Plan):
+        """(fully committed?, expected, actual) placements
+        (reference: PlanResult.FullCommit)."""
+        expected = sum(len(v) for v in plan.node_allocation.values())
+        actual = sum(len(v) for v in self.node_allocation.values())
+        return expected == actual, expected, actual
+
+    def is_no_op(self) -> bool:
+        return (not self.node_update and not self.node_allocation
+                and not self.deployment_updates and self.deployment is None)

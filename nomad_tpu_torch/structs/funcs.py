@@ -2,15 +2,26 @@
 nomad/structs/funcs.go):
   - allocs_fit          (funcs.go:141 AllocsFit)
   - devices_fit         (devices.go DeviceAccounter)
+  - score_fit_binpack   (funcs.go:236 ScoreFitBinPack, BestFit v3:
+                         score = 20 - (10^freeCpuPct + 10^freeRamPct),
+                         clamp [0, 18])
+  - score_fit_spread    (funcs.go:263 ScoreFitSpread, worst fit:
+                         score = (10^freeCpuPct + 10^freeRamPct) - 2,
+                         clamp [0, 18])
+The host scorers are float64 math on the host; the kernels compute the
+same expressions over the node axis.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 from .alloc import Allocation
 from .network import NetworkIndex
 from .node import Node
 from .resources import ComparableResources
+
+BINPACK_MAX_FIT_SCORE = 18.0
 
 def allocs_fit(node: Node, allocs: List[Allocation],
                net_idx: Optional[NetworkIndex] = None,
@@ -91,3 +102,47 @@ def devices_fit(node: Node, allocs: List[Allocation]) -> Tuple[bool, str]:
         if used_n > caps.get(key, 0):
             return False, "device oversubscribed"
     return True, ""
+
+
+def compute_free_percentage(node: Node, util: ComparableResources
+                            ) -> Tuple[float, float]:
+    """(free cpu share, free memory share) after the node's reserved
+    resources (reference: funcs.go computeFreePercentage). A node with
+    no capacity gives NaN, which both scorers clamp to 0."""
+    node_cpu = float(node.node_resources.cpu.cpu_shares
+                     - node.reserved_resources.cpu_shares)
+    node_mem = float(node.node_resources.memory.memory_mb
+                     - node.reserved_resources.memory_mb)
+    if node_cpu <= 0.0 or node_mem <= 0.0:
+        return math.nan, math.nan
+    free_cpu = 1.0 - (float(util.cpu_shares) / node_cpu)
+    free_ram = 1.0 - (float(util.memory_mb) / node_mem)
+    return free_cpu, free_ram
+
+
+def score_fit_binpack(node: Node, util: ComparableResources) -> float:
+    """BestFit v3: 18 at full use, 0 when empty."""
+    free_cpu, free_ram = compute_free_percentage(node, util)
+    if math.isnan(free_cpu):
+        return 0.0
+    total = math.pow(10.0, free_cpu) + math.pow(10.0, free_ram)
+    score = 20.0 - total
+    if score > BINPACK_MAX_FIT_SCORE:
+        score = BINPACK_MAX_FIT_SCORE
+    elif score < 0.0:
+        score = 0.0
+    return score
+
+
+def score_fit_spread(node: Node, util: ComparableResources) -> float:
+    """Worst fit: the binpack score turned around."""
+    free_cpu, free_ram = compute_free_percentage(node, util)
+    if math.isnan(free_cpu):
+        return 0.0
+    total = math.pow(10.0, free_cpu) + math.pow(10.0, free_ram)
+    score = total - 2.0
+    if score > BINPACK_MAX_FIT_SCORE:
+        score = BINPACK_MAX_FIT_SCORE
+    elif score < 0.0:
+        score = 0.0
+    return score

@@ -362,3 +362,9 @@ class Job:
             if tg.name == name:
                 return tg
         return None
+
+    def stopped(self) -> bool:
+        return self.stop
+
+    def ns_id(self):
+        return (self.namespace, self.id)

@@ -380,3 +380,62 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("module", ["nomad_tpu_torch.scheduler.generic",
+                                    "nomad_tpu_torch.scheduler.reconcile",
+                                    "nomad_tpu_torch.scheduler.stack",
+                                    "nomad_tpu_torch.scheduler.select",
+                                    "nomad_tpu_torch.scheduler.spread",
+                                    "nomad_tpu_torch.scheduler.system",
+                                    "nomad_tpu_torch.scheduler.factory",
+                                    "nomad_tpu_torch.scheduler.harness",
+                                    "nomad_tpu_torch.scheduler.util"])
+def test_scheduler_modules_load_no_jax_and_nothing_of_the_reference(
+        module):
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _scheduler_world(kind, alg):
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.scheduler.harness import Harness
+    from nomad_tpu_torch.structs import SchedulerConfiguration
+    h = Harness()
+    h.state.set_scheduler_config(
+        SchedulerConfiguration(scheduler_algorithm=alg))
+    for _ in range(3):
+        h.state.upsert_node(mock.node())
+    job = mock.system_job() if kind == "system" else mock.job()
+    job.task_groups[0].count = 2
+    h.state.upsert_job(job)
+    ev = mock.evaluation(job_id=job.id, type=job.type)
+    return h, ev
+
+
+@pytest.mark.parametrize("kind", ["service", "batch", "tpu-lpq", "system",
+                                  "sysbatch"])
+def test_scheduler_route_defaults_to_cuda_and_raises_without_a_card(kind):
+    """The port's Harness and schedulers dispatch to the card unless told
+    otherwise: a tpu-* eval with no card raises (nothing carries on on
+    the CPU, and nothing is committed); the same eval places with
+    device="cpu", and a host algorithm never asks for the card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    alg = "tpu-lpq" if kind == "tpu-lpq" else "tpu-binpack"
+    h, ev = _scheduler_world(kind, alg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        h.process(kind, ev)
+    assert not h.plans and not h.state.allocs()
+    assert h.process(kind, ev, device="cpu") is None
+    assert h.evals[-1].status == "complete" and h.state.allocs()
+    h, ev = _scheduler_world(kind, "binpack")
+    assert h.process(kind, ev) is None and h.state.allocs()
