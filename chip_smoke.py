@@ -144,8 +144,8 @@ Phases (any failure raises and the script exits nonzero with no result):
                 LpqBarrier generation of 32 LP lanes, each equal bit for
                 bit to fuse_and_solve plus the cross-lane fixpoint (or
                 solve_queue) called directly; 8 barriers of the 32
-                headline lanes at once at depth 1 and at depth 2 (median
-                of 3: wall time until every result is in, each lane's
+                headline lanes at once at depth 1 and at depth 2 (one
+                run each: wall time until every result is in, each lane's
                 wait, the pipeline's prepare stages and most dispatches in
                 flight, launches; decisions equal); then a fault drill: a
                 hang at solver.dispatch under a 0.5 s deadline gives every
@@ -209,7 +209,29 @@ Phases (any failure raises and the script exits nonzero with no result):
                 each step's wall time, placements per second and the
                 reconcile / pack / barrier wait / materialize /
                 submit_plan split per eval.
-  Phases 4-14 reset the launch counts just before and read them just
+ 15. server  -- a job's eval in, verified and committed placements out,
+                through the port's Server (server/core.py) on the card,
+                float32, width 32: phase 13's fleet and 32 mock.job
+                evals x 2,000 written and enqueued in one call, so one
+                BatchWorker dequeues them into one SolveBarrier, and the
+                plan applier verifies every plan against the latest
+                state and group-commits node-disjoint ones; 0 plans
+                rejected, no node over capacity, every placement (node,
+                normalized-score bits) equal to phase 14's Harness route
+                on a store built by the same writes; then tpu-lpq through
+                apply_scheduler_config and a leadership restart (one
+                batch worker): 32 evals x 8 through one LpqBarrier, equal
+                to a direct LpqBarrier on the same lanes; a system job
+                through register_job, equal to solve_system on the
+                scheduler's snapshot; the blocked drill (one node with
+                room for one alloc, two jobs in one batch, the loser
+                blocked until register_node adds a node). Prints each
+                step's wall time (evals written to the last plan
+                committed), placements per second, per eval the wait for
+                the index, the scheduler and submit_plan, the applier's
+                verify and commit ms, group sizes, rejections and
+                cross-worker serializations, acks and nacks.
+  Phases 4-15 reset the launch counts just before and read them just
   after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
   to the plain versions on the same fused inputs. The kernels line's
@@ -217,7 +239,9 @@ Phases (any failure raises and the script exits nonzero with no result):
   each input and its LpqBarrier generation; its ``structs_launches`` are
   phase 13's struct routes (the array routes its checks compare with run
   outside the count); its ``scheduler_launches`` phase 14's scheduler
-  routes (the direct routes outside the count).
+  routes (the direct routes outside the count); its ``server_launches``
+  phase 15's server runs (the Harness and direct routes its checks
+  compare with run outside the count).
 
 Prints a full JSON report line, the card line, a {"kernels": [...]} line,
 and last the contract line {"ok": true, "device": {...}}.
@@ -1939,15 +1963,14 @@ def dense_preempt_bound(np, trees, out, dtype_name):
 
 def preempt_kernel_phase(np, torch, bp, preempt, dense, kernels, svc, tp,
                          world, seed):
-    """wave_preempt and dense_preempt in float32 on one fused E = 32
-    group each at N = 16,384, A = 16 (preempt_group: the windowed kernel
-    at P_pad = 2,048, the dense one at P_pad = 512, since its plain
-    version rescores 16,384 nodes a step), then preempt_small_checks.
-    Decisions,
-    eviction rows and (dense) the final state exactly (the windowed
-    kernel's scores and group counts too, as bits); timed. float64:
-    preempt_small_checks at up to 8 lanes, and, untimed, 8 windowed
-    tier-5 lanes of 500 placements."""
+    """dense_preempt in float32 on one fused E = 32 group at N = 16,384,
+    P_pad = 512, A = 16 (preempt_group; the plain version rescores
+    16,384 nodes a step): decisions, eviction rows and the final state
+    exactly; timed. The windowed kernel's E = 32 group at the main
+    path's shape is held in the preemption slice. Then
+    preempt_small_checks (the windowed kernel's scores and group counts
+    as bits too). float64: preempt_small_checks at up to 8 lanes, and,
+    untimed, 8 windowed tier-5 lanes of 500 placements."""
     results = []
     dev = torch.device(DEVICE)
     for dtype_name in ("float32", "float64"):
@@ -1959,39 +1982,8 @@ def preempt_kernel_phase(np, torch, bp, preempt, dense, kernels, svc, tp,
                                             kernels, dtype_name, seed + 2,
                                             max_lanes=8)
             continue
-        trees = preempt_group(np, bp, tp, svc, world, dtype_name, seed,
-                              dense=False)
-        inp = preempt.wave_preempt_inputs(*trees, dtype_name=dtype_name)
-        ten = preempt.wave_preempt_tensors(inp, dev)
-
-        def run_w(fn):
-            return fn(*ten, spread_alg=False, B=inp.B)
-
-        got, _ = time_once(torch, lambda: run_w(preempt.wave_preempt))
-        want, plain_ms = time_once(torch,
-                                   lambda: run_w(preempt.wave_preempt_plain))
-        tag = f"wave_preempt {dtype_name}"
-        err = compare_preempt(torch, tag, got, want, dtype_name)
-        check_wave_preempt(torch, preempt, tag, ten, inp.B, want)
-        ms = timed(torch, lambda: run_w(preempt.wave_preempt),
-                   KERNEL_REPEATS)
-        bound_ms, bound_by, nbytes, flops = wave_preempt_bound(
-            np, preempt, inp, want, dtype_name)
-        placed = int((want[0] >= 0).sum())
-        evicting = int(want[3].any(dim=-1).sum())
-        log(f"kernel {tag}: E={inp.compact.shape[0]} "
-            f"C={inp.compact.shape[1]} B={inp.B} A={PREEMPT_A} "
-            f"placed={placed} evicting={evicting} match=exact "
-            f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.1f} "
-            f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, {flops} "
-            f"flop)")
-        results.append(dict(
-            name="wave_preempt", dtype=dtype_name,
-            shape=list(inp.compact.shape) + [PREEMPT_A], placed=placed,
-            evicting=evicting, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-            flops=flops))
-
+        # the windowed kernel's E = 32 group at the main path's shape is
+        # the preemption slice's own (the kernels line's row 5)
         trees = preempt_group(np, bp, tp, svc, world, dtype_name, seed + 1,
                               dense=True)
         (c, s, b, pt, ps), _ = dense.fused_tensors(
@@ -2074,9 +2066,10 @@ def preempt_small_checks(np, torch, bp, preempt, dense, kernels,
     candidate axis they take (A = 64, N = 1,024), and the dense one at
     every lane count of CLUSTER_LANES (up to ``max_lanes`` when given;
     every cluster size the launcher picks) at the small node buckets
-    (N = 256 and 1,024) and, with 8 lanes, a mid-size one (N = 4,096),
-    limits 3 to 2,000 (above the node count), held against their plain
-    versions."""
+    (N = 256 and, up to 32 lanes and at the most lanes, 1,024: one
+    block over 1,024 nodes where C is 1 or 2) and, with 8 lanes, a mid-size
+    one (N = 4,096), limits 3 to 2,000 (above the node count), held
+    against their plain versions."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed)
     results = []
@@ -2102,6 +2095,7 @@ def preempt_small_checks(np, torch, bp, preempt, dense, kernels,
                   (4000, 4096, PREEMPT_A), (1000, 1024, 64)) if E == 8
                  else ((200, 256, PREEMPT_A), (1000, 1024, PREEMPT_A),
                        (1000, 1024, 64)) if E == 32
+                 else ((200, 256, PREEMPT_A),) if 32 < E < max(CLUSTER_LANES)
                  else ((200, 256, PREEMPT_A), (1000, 1024, PREEMPT_A)))]
     # group counts too large for a block's shared memory: one block a
     # lane (C = 1) owns them in global memory
@@ -3561,7 +3555,7 @@ def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
 # barrier and its pipeline)
 
 DISPATCH_BARRIERS = 8               # barriers of N_EVALS lanes (step 3)
-DISPATCH_REPEATS = 3                # runs of step 3 at each depth
+DISPATCH_REPEATS = 1                # runs of step 3 at each depth
 DRILL_DEADLINE_S = 0.5              # the fault drill's watchdog deadline
 DRILL_ENV = {"NOMAD_TPU_TORCH_DISPATCH_TIMEOUT": str(DRILL_DEADLINE_S),
              "NOMAD_TPU_TORCH_BREAKER_THRESHOLD": "2",
@@ -5381,6 +5375,523 @@ def scheduler_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
     return report
 
 
+# --------------------------------------------------------------------------
+# phase 15: the server -- a registered job in, verified and committed
+# placements out, through the port's Server: EvalBroker, BatchWorker,
+# GenericScheduler, SolveBarrier, the kernels, materialize, the Planner's
+# verify and group commit, the StateStore
+
+SERVER_WIDTH = 32                    # the batch workers' width
+SERVER_LPQ_EVALS, SERVER_LPQ_PLACE = 32, 8
+SERVER_SETTLE_S = 600
+
+
+class ServerRoute:
+    """The server route's instruments, on the host clock: per eval the
+    wait for the store's index (block_until), the whole invoke
+    (invoke_scheduler) and submit_plan (queue wait, verify and commit);
+    the applier's verify (_evaluate_plan: the pre-pass and the per-node
+    checks) and commits (_commit_one, _commit_group: their ms, plans and
+    end time); the broker's acks and nacks. With ``order`` (eval id ->
+    turn) the barrier hooks (batch.make_solve_hook, lpq.make_lpq_hook)
+    hand each eval's lane to its barrier in turn order, as phase 14's
+    InOrderBarrier does, so a generation holds its lanes in eval order
+    and compares with the Harness route's. Installed on enter, restored
+    on exit: enter it before the server starts, as a worker binds its
+    barrier hook when it enters a dequeue."""
+
+    PER_EVAL = ("wait_for_index", "invoke", "submit_plan")
+    KEYS = ("verify", "commit")
+
+    def __init__(self, server, worker_mod, batch, lpq):
+        self.server, self.worker_mod = server, worker_mod
+        self.batch, self.lpq = batch, lpq
+        self.order = {}
+        self.local = threading.local()
+        self.reset()
+
+    COUNTERS = ("batches_committed", "plans_rejected",
+                "cross_worker_serialized")
+
+    def reset(self):
+        self.ms = {k: [] for k in self.KEYS}
+        self.per = {k: {} for k in self.PER_EVAL}
+        self.groups, self.commit_end = [], []
+        self.acks = self.nacks = 0
+        self.counters0 = {k: getattr(self.server.planner, k)
+                          for k in self.COUNTERS}
+
+    def _timed(self, key, fn, after=None):
+        route = self
+
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+            finally:
+                t1 = time.perf_counter()
+                route.ms[key].append((t1 - t0) * 1e3)
+            if after is not None:
+                after(a, t1)
+            return out
+        return run
+
+    def _per_eval(self, key, fn):
+        """``fn`` timed into the eval its thread runs (set by the timed
+        invoke_scheduler), summed per eval id: a commit wakes many
+        waiters at once, so the evals' calls end in no fixed order."""
+        route = self
+
+        def run(*a, **kw):
+            if key == "invoke":
+                route.local.eval_id = a[1].id
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                eid = getattr(route.local, "eval_id", None)
+                if eid is not None:
+                    per = route.per[key]
+                    per[eid] = per.get(eid, 0.0) + ms
+                if key == "invoke":
+                    route.local.eval_id = None
+        return run
+
+    def _ordered(self, make):
+        route = self
+
+        def make_hook(barrier):
+            ob = InOrderBarrier(barrier)
+            inner = make(ob)
+
+            def hook(service, *a):
+                ob.local.turn = route.order[service.ctx.plan.eval_id]
+                return inner(service, *a)
+            return hook
+        return make_hook
+
+    def __enter__(self):
+        s, w, p = self.server, self.worker_mod, self.server.planner
+        b = s.broker
+        self._saved = (w.invoke_scheduler, w.WorkerPlanner.submit_plan,
+                       self.batch.make_solve_hook, self.lpq.make_lpq_hook)
+        w.invoke_scheduler = self._per_eval("invoke", w.invoke_scheduler)
+        w.WorkerPlanner.submit_plan = self._per_eval(
+            "submit_plan", w.WorkerPlanner.submit_plan)
+        self.batch.make_solve_hook = self._ordered(self.batch.make_solve_hook)
+        self.lpq.make_lpq_hook = self._ordered(self.lpq.make_lpq_hook)
+        s.state.block_until = self._per_eval("wait_for_index",
+                                             s.state.block_until)
+        p._evaluate_plan = self._timed("verify", p._evaluate_plan)
+        p._commit_one = self._timed(
+            "commit", p._commit_one,
+            lambda a, t: (self.groups.append(1), self.commit_end.append(t)))
+        p._commit_group = self._timed(
+            "commit", p._commit_group,
+            lambda a, t: (self.groups.append(len(a[0])),
+                          self.commit_end.append(t)))
+        ack, nack = b.ack, b.nack
+
+        def counted_ack(*a):
+            self.acks += 1
+            return ack(*a)
+
+        def counted_nack(*a):
+            self.nacks += 1
+            return nack(*a)
+        b.ack, b.nack = counted_ack, counted_nack
+        return self
+
+    def __exit__(self, *exc):
+        w = self.worker_mod
+        (w.invoke_scheduler, w.WorkerPlanner.submit_plan,
+         self.batch.make_solve_hook, self.lpq.make_lpq_hook) = self._saved
+        for obj, names in ((self.server.state, ("block_until",)),
+                           (self.server.planner, ("_evaluate_plan",
+                                                  "_commit_one",
+                                                  "_commit_group")),
+                           (self.server.broker, ("ack", "nack"))):
+            for name in names:
+                obj.__dict__.pop(name, None)
+
+    def summary(self, name, card, t0, n_placed, n_evals, sched):
+        """The step's numbers: wall ms from the evals' write to the last
+        commit, placements/s, per eval wait-for-index / scheduler (the
+        invoke less those two) / submit_plan, the applier's split, acks
+        and nacks, and phase 14's pack and materialize sections."""
+        wall_ms = (max(self.commit_end) - t0) * 1e3
+        ms, per = self.ms, self.per
+        sched_ms = [inv - per["wait_for_index"].get(e, 0.0)
+                    - per["submit_plan"].get(e, 0.0)
+                    for e, inv in per["invoke"].items()]
+        planner = self.server.planner
+        out = dict(evals=n_evals, placements=n_placed, wall_ms=wall_ms,
+                   placements_per_s=n_placed / (wall_ms / 1e3),
+                   per_eval={k: dict(ms_stats(v), sum=sum(v)) for k, v in
+                             (("wait_for_index",
+                               list(per["wait_for_index"].values())),
+                              ("scheduler", sched_ms),
+                              ("submit_plan",
+                               list(per["submit_plan"].values()))) if v},
+                   applier=dict(
+                       verify_ms=sum(ms["verify"]),
+                       verify_per_plan=(ms_stats(ms["verify"])
+                                        if ms["verify"] else None),
+                       commit_ms=sum(ms["commit"]),
+                       commits=len(ms["commit"]), group_sizes=self.groups,
+                       **{k: getattr(planner, k) - self.counters0[k]
+                          for k in self.COUNTERS}),
+                   acked=self.acks, nacked=self.nacks,
+                   sections=sched.sections())
+        a = out["applier"]
+        log(f"server {name} [{card}]: {n_evals} evals, {n_placed} "
+            f"placements committed, wall {wall_ms:.1f} ms (evals written "
+            f"to the last plan committed), {out['placements_per_s']:.0f} "
+            "placements/s; ms per eval, median / max / sum: "
+            + "; ".join(f"{k} {v['median']:.2f} / {v['max']:.2f} / "
+                        f"{v['sum']:.1f}"
+                        for k, v in out["per_eval"].items())
+            + f"; applier: verify {a['verify_ms']:.1f} ms over "
+            f"{len(ms['verify'])} plans, commit {a['commit_ms']:.1f} ms in "
+            f"{a['commits']} commits (plans a commit {self.groups}), "
+            f"batches_committed {a['batches_committed']}, plans_rejected "
+            f"{a['plans_rejected']}, cross-worker serializations "
+            f"{a['cross_worker_serialized']}; acked {self.acks}, nacked "
+            f"{self.nacks}; sections "
+            + "; ".join(f"{k} {v['median']:.2f} / {v['max']:.2f}"
+                        for k, v in out["sections"].items()))
+        return out
+
+
+def server_allocs(store, eval_ids):
+    """Per eval id: {alloc name: (node id, normalized-score bits, [])} of
+    the store's live allocs (committed()'s form)."""
+    out = {e: {} for e in eval_ids}
+    for a in store.allocs():
+        if a.eval_id in out and not a.terminal_status():
+            out[a.eval_id][a.name] = (
+                a.node_id, struct_score_bits(
+                    a.metrics.scores[f"{a.node_id}.normalized-score"]), [])
+    return out
+
+
+def settle(server, eval_ids, what, extra=None):
+    """Wait (SERVER_SETTLE_S at most) until every eval left pending and
+    the broker holds nothing ready or leased."""
+    def done():
+        st = server.broker.stats()
+        if st["total_ready"] or st["total_unacked"]:
+            return False
+        if any(server.state.eval_by_id(e).status == "pending"
+               for e in eval_ids):
+            return False
+        return extra is None or extra()
+    wait_until(done, SERVER_SETTLE_S, what)
+
+
+def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
+                 card):
+    """The server (phase 15): the port's Server (server/core.py) on the
+    card, float32, tpu-binpack, its store holding phase 13's fleet;
+    every step held against another route on the same store writes:
+      1. the headline: 32 mock.job service jobs x 2,000, their 32 evals
+         written and enqueued in one call, so one BatchWorker (width 32)
+         dequeues all of them into one SolveBarrier; every eval complete
+         and 64,000 allocs committed by the plan applier (verified
+         against the latest state, group-committed), no plan rejected
+         (the barrier's fixpoint settled every conflict), no node over
+         capacity; placements (alloc name -> node, normalized-score
+         bits) equal to phase 14's Harness route on a store built by
+         the same writes in the same order (the index seeds the
+         shuffle);
+      2. the LP tier: apply_scheduler_config to tpu-lpq and a leadership
+         restart (one batch worker); 32 evals x 8 through _run_lpq_batch
+         and one LpqBarrier, equal to a direct LpqBarrier on the same
+         lanes;
+      3. a system job through register_job: its eval through the worker
+         to SystemScheduler (the system fit), equal to solve_system on
+         the snapshot the scheduler read;
+      4. the blocked drill: a one-node store with room for one alloc,
+         two jobs in one batch: one placed, the other's eval blocked;
+         register_node adds a node, BlockedEvals.unblock releases the
+         eval and it is placed; no node over capacity.
+    A generation's lanes reach its barrier in eval order (ServerRoute),
+    so the fixpoint breaks ties as the compared route does. Launch
+    counts are read around the server's runs alone (``launches``: the
+    kernels line's server_launches); no eval falls back to the host and
+    no dispatch fails."""
+    import copy
+    from nomad_tpu_torch import mock as pmock
+    from nomad_tpu_torch import structs as st
+    from nomad_tpu_torch.scheduler import generic
+    from nomad_tpu_torch.scheduler.context import EvalContext
+    from nomad_tpu_torch.scheduler.harness import Harness
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.server import worker as worker_mod
+    from nomad_tpu_torch.state.store import StateStore
+
+    st.reseed_ids(SEED + 15)
+    Timed = timed_service_class(svc)
+    matrix = world[0]
+    g0 = guard.state()
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    report = {}
+    nodes = struct_fleet(pmock, N_NODES)
+
+    def cfg(alg):
+        # system preemption off: the system job's full nodes fail, as in
+        # phase 14
+        return st.SchedulerConfiguration(
+            scheduler_algorithm=alg, preemption_config=st.PreemptionConfig(
+                system_scheduler_enabled=False))
+
+    def make_jobs(prefix, n, count):
+        jobs = []
+        for e in range(n):
+            j = pmock.job(id=f"{prefix}-{e:02d}")
+            j.task_groups[0].count = count
+            jobs.append(j)
+        return jobs
+
+    def fleet_store(jobs):
+        store = StateStore()
+        for node in nodes:
+            store.upsert_node(node)
+        store.set_scheduler_config(cfg(st.SCHED_ALG_TPU_BINPACK))
+        for j in jobs:
+            store.upsert_job(j)
+        return store
+
+    def count_launches():
+        for k in kernels.KERNELS:
+            launches[k.name] += k.launches
+
+    def run(route, server, evals, n_allocs, what):
+        """Write and enqueue ``evals`` in one call, wait until they settle
+        with ``n_allocs`` live allocs of theirs; the launches in between
+        are counted. Returns the time of the write."""
+        ids = [ev.id for ev in evals]
+        route.order = {e: k for k, e in enumerate(ids)}
+        route.reset()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        server.state.upsert_evals(evals)
+        server.broker.enqueue_all(evals)
+        settle(server, ids, what, lambda: sum(
+            len(m) for m in server_allocs(server.state, ids).values())
+            >= n_allocs)
+        count_launches()
+        return t0
+
+    t_phase = time.perf_counter()
+    tp.reset_pack_caches()
+    sched = SchedRoute(svc, generic, Harness)
+    jobs = make_jobs("srv-job", N_EVALS, N_PLACE)
+    store = fleet_store(jobs)
+    server = Server(state=store, device=DEVICE, batch_width=SERVER_WIDTH)
+    try:
+        # the instruments go in before the workers start: a worker binds
+        # its barrier hook when it enters a dequeue
+        with sched, ServerRoute(server, worker_mod, batch, lpq) as route:
+            server.start()
+            assert len(server.workers) == 2
+            # -- 1. the headline ----------------------------------------
+            evals = [sched_eval(st, j, f"srv-eval-{e:016d}")
+                     for e, j in enumerate(jobs)]
+            ids = [ev.id for ev in evals]
+            sched.reset()
+            t0 = run(route, server, evals, N_EVALS * N_PLACE, "headline")
+            got = server_allocs(store, ids)
+            for ev, j in zip(evals, jobs):
+                upd = store.eval_by_id(ev.id)
+                assert upd.status == "complete", (ev.id, upd.status)
+                assert all(v == 0 for v in upd.queued_allocations.values())
+                assert set(got[ev.id]) == {f"{j.id}.web[{i}]"
+                                           for i in range(N_PLACE)}
+            n_placed = sum(len(m) for m in got.values())
+            assert n_placed == N_EVALS * N_PLACE, n_placed
+            assert route.nacks == 0 and route.acks == N_EVALS
+            head = route.summary("headline", card, t0, n_placed, N_EVALS,
+                                 sched)
+            assert head["applier"]["plans_rejected"] == 0
+            after = struct_usage(np, tp, matrix, store.snapshot(), nodes)
+            for cap, used in ((matrix.cpu_cap, after.used_cpu),
+                              (matrix.mem_cap, after.used_mem),
+                              (matrix.disk_cap, after.used_disk)):
+                assert bool(np.all(used <= cap)), "over capacity"
+            # -- 2. the LP tier -----------------------------------------
+            server.apply_scheduler_config(cfg(st.SCHED_ALG_TPU_LPQ))
+            server.revoke_leadership()
+            server.establish_leadership()
+            assert len(server.workers) == 1
+            ljobs = make_jobs("srv-lpq-job", SERVER_LPQ_EVALS,
+                              SERVER_LPQ_PLACE)
+            for j in ljobs:
+                store.upsert_job(j)
+            levals = [sched_eval(st, j, f"srv-lpq-eval-{e:04d}")
+                      for e, j in enumerate(ljobs)]
+            sched.reset()
+            t0 = run(route, server, levals, 1, "lp tier")
+            lane_of = {ev.id: sched.services[ev.id].lanes[0]
+                       for ev in levals}
+            lanes = [lane_of[ev.id] for ev in levals]
+            assert all(lpq.lp_lane_eligible(lane) for lane in lanes)
+            wait_until(lambda: server.workers[0].batches_processed >= 1,
+                       SERVER_SETTLE_S, "the LP batch joined")
+            outs, _, direct_ms, _ = run_barriers(
+                batch, [lpq.LpqBarrier(len(lanes), device=DEVICE)], lanes)
+            for r in outs[0]:
+                if isinstance(r, Exception):
+                    raise AssertionError("direct LpqBarrier raised") from r
+            same_results(np, [sched.services[ev.id].results[0]
+                              for ev in levals], outs[0], "server lp tier")
+            lgot = server_allocs(store, [ev.id for ev in levals])
+            n_lp = 0
+            for ev, lane, r in zip(levals, lanes, outs[0]):
+                _, node_ids = svc.placements(lane, r[0])
+                want = {p.name: nid for p, nid in zip(lane.places, node_ids)
+                        if nid is not None}
+                assert {k: v[0] for k, v in lgot[ev.id].items()} == want
+                n_lp += len(want)
+            assert n_lp > 0
+            lp = route.summary("lp tier", card, t0, n_lp, SERVER_LPQ_EVALS,
+                               sched)
+            lp["direct_wall_ms"] = direct_ms
+            # -- 3. a system job through register_job -------------------
+            server.apply_scheduler_config(cfg(st.SCHED_ALG_TPU_BINPACK))
+            sj = pmock.system_job(id="srv-system")
+            stg = sj.task_groups[0]
+            stg.tasks[0].resources.cpu = int(SYSTEM_ASK[0])
+            stg.tasks[0].resources.memory_mb = int(SYSTEM_ASK[1])
+            stg.ephemeral_disk.size_mb = int(SYSTEM_ASK[2])
+            sched.reset()
+            route.reset()
+            route.order = {}
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            sev = server.register_job(sj)
+            settle(server, [sev.id], "system job")
+            count_launches()
+            sgot = server_allocs(store, [sev.id])[sev.id]
+            snap = sched.services[sev.id].ctx.state
+            ds = Timed(EvalContext(snap, st.Plan(
+                eval_id=sev.id, job=sj, priority=sj.priority)), sj, False,
+                False, device=DEVICE)
+            direct = ds.solve_system(stg, snap.ready_nodes_in_pool(
+                sj.node_pool))
+            want = {p.node.id: struct_score_bits(p.score) for p in direct
+                    if p.node is not None}
+            by_node = {}
+            for a in store.allocs_by_job(sj.namespace, sj.id):
+                by_node[a.node_id] = struct_score_bits(
+                    a.metrics.scores[f"{a.node_id}.normalized-score"])
+            assert by_node == want and len(want) > 0
+            assert len(sgot) == 1            # one alloc name, every node
+            same_results(np, sched.services[sev.id].results, ds.results,
+                         "server system")
+            system = route.summary("system", card, t0, len(want), 1, sched)
+            system["failed_nodes"] = N_NODES - len(want)
+        # the compared route: phase 14's Harness on a store built by the
+        # same writes (outside the launch count)
+        hjobs = make_jobs("srv-job", N_EVALS, N_PLACE)
+        hstore = fleet_store(hjobs)
+        hevals = [sched_eval(st, j, ev.id) for ev, j in zip(evals, hjobs)]
+        hstore.upsert_evals(hevals)
+        h = Harness(hstore)
+        with sched:
+            barrier = batch.SolveBarrier(N_EVALS, e_pad_hint=SERVER_WIDTH,
+                                         device=DEVICE)
+            ordered = sched.ordered(barrier)
+            harness_ms = drive_scheduler(sched, h, "service", hevals,
+                                         ordered,
+                                         batch.make_solve_hook(ordered))
+        hgot, _ = committed(h, ids)
+        diff = {e: sum(hgot[e].get(n) != v for n, v in got[e].items())
+                for e in ids}
+        assert hgot == got, ("server placements != the Harness route's",
+                             {e: d for e, d in diff.items() if d})
+        head["harness_wall_ms"] = harness_ms
+        report.update(headline=head, lpq=lp, system=system)
+    finally:
+        server.shutdown()
+
+    # -- 4. the blocked drill ---------------------------------------------
+    bstore = StateStore()
+    bstore.set_scheduler_config(cfg(st.SCHED_ALG_TPU_BINPACK))
+    small = pmock.node(id="srv-blocked-node-0")
+    small.node_resources.cpu.cpu_shares = 600
+    small.node_resources.memory.memory_mb = 400
+    small.compute_class()
+    bserver = Server(state=bstore, device=DEVICE, batch_width=4)
+    bserver.start()
+    try:
+        bserver.register_node(small)
+        bjobs = make_jobs("srv-blocked-job", 2, 1)
+        for j in bjobs:
+            bstore.upsert_job(j)
+        bevals = [sched_eval(st, j, f"srv-blocked-eval-{e}")
+                  for e, j in enumerate(bjobs)]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        bstore.upsert_evals(bevals)
+        bserver.broker.enqueue_all(bevals)
+        settle(bserver, [e.id for e in bevals], "blocked drill",
+               lambda: bserver.blocked_evals.stats()["total_blocked"] == 1)
+        placed = [a for a in bstore.allocs() if not a.terminal_status()]
+        assert len(placed) == 1 and placed[0].node_id == small.id
+        big = pmock.node(id="srv-blocked-node-1")
+        big.compute_class()
+        bserver.register_node(big)
+        wait_until(lambda: len([a for a in bstore.allocs()
+                                if not a.terminal_status()]) == 2
+                   and bserver.blocked_evals.stats()["total_blocked"] == 0
+                   and not bserver.broker.stats()["total_unacked"],
+                   SERVER_SETTLE_S, "the blocked eval placed")
+        count_launches()
+        blocked_ms = (time.perf_counter() - t0) * 1e3
+        for node in (small, big):
+            used = [0, 0]
+            for a in bstore.allocs_by_node(node.id):
+                if not a.terminal_status():
+                    cr = a.allocated_resources.comparable()
+                    used[0] += cr.cpu_shares
+                    used[1] += cr.memory_mb
+            assert used[0] <= node.node_resources.cpu.cpu_shares
+            assert used[1] <= node.node_resources.memory.memory_mb
+        statuses = sorted(e.status for j in bjobs
+                          for e in bstore.evals_by_job(j.namespace, j.id))
+        report["blocked"] = dict(wall_ms=blocked_ms, evals=statuses,
+                                 on_new_node=sum(
+                                     a.node_id == big.id
+                                     for a in bstore.allocs()))
+        log(f"server blocked drill [{card}]: {statuses}, "
+            f"{blocked_ms:.1f} ms to both placed")
+    finally:
+        bserver.shutdown()
+    left = [t.name for t in threading.enumerate() if t.is_alive()
+            and t.name.startswith(("batch-worker-", "batch-eval-",
+                                   "lpq-eval-", "plan-", "eval-broker-"))]
+    assert not left, left
+
+    g1 = guard.state()
+    report["host_fallbacks"] = (g1["host_fallback_dispatches"]
+                                - g0["host_fallback_dispatches"])
+    report["failed_dispatches"] = {
+        k: g1["dispatch"][k] - g0["dispatch"][k]
+        for k in ("timeout", "error")}
+    assert report["host_fallbacks"] == 0, report["host_fallbacks"]
+    assert not any(report["failed_dispatches"].values()), \
+        report["failed_dispatches"]
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"server [{card}]: launches {launches}; phase "
+        f"{report['seconds']:.1f} s")
+    for kname in ("wave_block", "system_fit", "lp_relax"):
+        assert launches[kname] >= 1, (kname, launches)
+    return report
+
+
 def check_capacity_lane(np, lane, chosen, n_places):
     """A wave lane's placements: every one made, every node within its
     capacity (the lane's own asks over its initial usage)."""
@@ -6251,6 +6762,8 @@ def main(argv=None) -> int:
                   kernels, svc, tp, world, card)
     scres = phase("scheduler", scheduler_phase, np, torch, batch, guard,
                   lpq, kernels, svc, tp, world, card)
+    svres = phase("server", server_phase, np, torch, batch, guard, lpq,
+                  kernels, svc, tp, world, card)
 
     def pick(kname, **kw):
         return next(r for r in kres if r["name"] == kname
@@ -6284,6 +6797,7 @@ def main(argv=None) -> int:
             barrier_launches=dlres["barrier_launches"].get(k.name, 0),
             structs_launches=stres["launches"].get(k.name, 0),
             scheduler_launches=scres["launches"].get(k.name, 0),
+            server_launches=svres["launches"].get(k.name, 0),
             max_abs_err=max(x["max_abs_err"] for x in kres
                             if x["name"] == k.name),
             ms=r["ms"], device_ms=r.get("device_ms"),
@@ -6299,7 +6813,7 @@ def main(argv=None) -> int:
                   preempt_slice=pres, lpq_slice=qres, residency=rres,
                   wavefront=wpath, mesh_dense=mdres, mesh_wave=mwres,
                   mesh_lp=mlres, mesh_residency=mrres, dispatch=dlres,
-                  structs=stres, scheduler=scres,
+                  structs=stres, scheduler=scres, server=svres,
                   build_s=info["seconds"], phase_s=phase_s,
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")

@@ -10,8 +10,9 @@ lane's PreemptTables / PreemptState ride along by name.
 ``struct_from_reference`` maps a reference struct (a dataclass, and the
 lists, dicts, sets and scalars it holds) onto the port struct of the
 same class name, field by field; ``store_from_reference`` builds a port
-StateStore holding a reference snapshot's nodes, jobs, allocations and
-scheduler configuration, at the snapshot's index.
+StateStore holding a reference snapshot's nodes, jobs, allocations,
+namespaces, node pools and scheduler configuration, at the snapshot's
+index, with the alloc table rebuilt from them.
 
 Everything here reads attributes by name and imports nothing of the
 reference.
@@ -166,9 +167,12 @@ def store_from_reference(snapshot, memo: Optional[dict] = None):
     """A port StateStore holding what a reference snapshot (or live
     store) holds: its nodes, jobs, evaluations, allocations and
     deployments in the snapshot's order (each node's and each job's
-    allocations in the order the snapshot lists them), and its scheduler
-    configuration; at the snapshot's latest_index() and node-table
-    index, with an empty journal. ``memo`` is struct_from_reference's."""
+    allocations in the order the snapshot lists them), its namespaces
+    and node pools (a snapshot's are read from its live store), and its
+    scheduler configuration; at the snapshot's latest_index() and
+    node-table index, with an empty journal and the alloc table rebuilt
+    (nodes registered in the snapshot's order, then the allocations).
+    ``memo`` is struct_from_reference's."""
     from .state.store import StateStore
 
     if memo is None:
@@ -210,6 +214,14 @@ def store_from_reference(snapshot, memo: Optional[dict] = None):
             store._allocs_by_node.setdefault(a.node_id, {}).setdefault(a.id)
             store._allocs_by_job.setdefault(
                 (a.namespace, a.job_id), {}).setdefault(a.id)
+        live = getattr(snapshot, "_store", snapshot)
+        for ns in getattr(live, "namespaces", list)():
+            store._namespaces[ns.name] = carry(ns)
+        for pool in getattr(live, "node_pools", list)():
+            store._node_pools[pool.name] = carry(pool)
+        for n in store._nodes.values():
+            store.alloc_table.register_node(n)
+        store.alloc_table.upsert_many(list(store._allocs.values()))
         store._scheduler_config = carry(snapshot.scheduler_config())
         store._index = index
         store._table_index = {"nodes": int(node_index), "allocs": index,

@@ -12,6 +12,17 @@ Points fired by the port:
                     watchdog, so a hang exercises the timeout path
   solver.probe      solver/guard.py -- the breaker's recovery probe; an
                     armed fault keeps the breaker open
+  broker.dequeue    server/broker.py dequeue / dequeue_batch -- stalls or
+                    fails the eval feed
+  worker.invoke     server/worker.py invoke_scheduler -- an error takes
+                    the orderly nack path
+  worker.crash      server/worker.py -- an error kills the worker thread
+                    after the lease was minted (WorkerCrash), leaving the
+                    eval to the broker's nack-timeout redelivery
+  plan.apply        server/plan_apply.py Planner.apply -- an error nacks
+                    the submitting eval
+  plan.commit       state/store.py apply_plan_results_batch -- fires
+                    before each plan's writes; the group splits around it
 
 Actions: ``error`` raises InjectedFault; ``delay`` sleeps ``delay_s``
 then continues; ``hang`` blocks until the fault is disarmed (bounded by
@@ -39,6 +50,11 @@ ACTIONS = ("error", "delay", "hang")
 POINTS = (
     "solver.dispatch",      # solver/guard.py run_dispatch (in the watchdog)
     "solver.probe",         # solver/guard.py _breaker_probe
+    "broker.dequeue",       # server/broker.py dequeue, dequeue_batch
+    "worker.invoke",        # server/worker.py invoke_scheduler
+    "worker.crash",         # server/worker.py _fire_crash_point
+    "plan.apply",           # server/plan_apply.py Planner.apply
+    "plan.commit",          # state/store.py apply_plan_results_batch
 )
 
 _log = logging.getLogger(__name__)

@@ -44,8 +44,14 @@ dispatch guard's watchdog deadline (solver/guard.py), and
 spans, ``metrics`` counters and the shadow audit come with telemetry.
 
 Knobs (read at each use):
-  NOMAD_TPU_TORCH_LPQ_STEPS     annealing/dual-ascent iterations (48, >= 4)
-  NOMAD_TPU_TORCH_LPQ_COMPARE   0 skips the greedy-replay quality comparison
+  NOMAD_TPU_TORCH_LPQ            0 turns the tier off: tpu-lpq evals take
+                                 the greedy tier (lpq_active)
+  NOMAD_TPU_TORCH_LPQ_BATCH      evals the server's LP worker drains into
+                                 one generation (128, >= 1)
+  NOMAD_TPU_TORCH_LPQ_GATHER_MS  how long that drain keeps gathering
+                                 arrivals (20 ms)
+  NOMAD_TPU_TORCH_LPQ_STEPS      annealing/dual-ascent iterations (48, >= 4)
+  NOMAD_TPU_TORCH_LPQ_COMPARE    0 skips the greedy-replay quality comparison
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ import torch
 
 from .. import kernels
 from ..device import DeviceLike
+from ..structs.config import SCHED_ALG_TPU_LPQ
 from .binpack import BINPACK_MAX
 from .guard import run_dispatch
 from .scoring import _EXP32, _libm
@@ -83,6 +90,39 @@ T_FINAL_INV = np.float32(1.0) / np.float32(T_LO)
 # the kernel's per-row scratch holds N / 32 window sums in shared memory
 N_MAX = 1 << 18
 _F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def lpq_enabled() -> bool:
+    """NOMAD_TPU_TORCH_LPQ=0 is the kill switch: the greedy tier runs
+    even when the scheduler algorithm selects tpu-lpq (reference
+    lpq.py:93)."""
+    return os.environ.get("NOMAD_TPU_TORCH_LPQ", "1") != "0"
+
+
+def lpq_batch_width() -> int:
+    try:
+        return max(1, int(os.environ.get("NOMAD_TPU_TORCH_LPQ_BATCH",
+                                         "128")))
+    except ValueError:
+        return 128
+
+
+def lpq_gather_s() -> float:
+    try:
+        return max(0.0, float(os.environ.get(
+            "NOMAD_TPU_TORCH_LPQ_GATHER_MS", "20")) / 1e3)
+    except ValueError:
+        return 0.02
+
+
+def lpq_active(state) -> bool:
+    """Is the LP tier selected (the scheduler configuration's algorithm
+    is tpu-lpq) and not switched off? (reference lpq.py:122)"""
+    if not lpq_enabled():
+        return False
+    cfg = getattr(state, "scheduler_config", None)
+    cfg = cfg() if cfg is not None else None
+    return cfg is not None and cfg.scheduler_algorithm == SCHED_ALG_TPU_LPQ
 
 
 def lpq_steps() -> int:

@@ -1,9 +1,9 @@
 """The data model the scheduler and the placement service read (port of
 the scheduling half of nomad_tpu/structs/): resources, ports, nodes,
-jobs, allocations, evaluations, deployments, plans, plan results and the
-scheduler configuration. Class and field names equal the reference's,
-so carry.struct_from_reference can map a reference struct onto its port
-class by name."""
+jobs, allocations, evaluations, deployments, plans, plan results, the
+scheduler configuration and namespaces. Class and field names equal the
+reference's, so carry.struct_from_reference can map a reference struct
+onto its port class by name."""
 from .resources import (  # noqa: F401
     AllocatedDeviceResource, AllocatedPortMapping, AllocatedResources,
     AllocatedSharedResources, AllocatedTaskResources, ComparableResources,
@@ -55,7 +55,8 @@ from .funcs import (  # noqa: F401
     score_fit_spread, BINPACK_MAX_FIT_SCORE,
 )
 from .config import (  # noqa: F401
-    PreemptionConfig, SchedulerConfiguration,
+    Namespace, NamespaceNodePoolConfiguration, PreemptionConfig,
+    SchedulerConfiguration,
     SCHED_ALG_BINPACK, SCHED_ALG_SPREAD, SCHED_ALG_TPU_BINPACK,
     SCHED_ALG_TPU_LPQ, SCHED_ALG_TPU_SPREAD,
 )

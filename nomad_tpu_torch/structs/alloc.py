@@ -465,6 +465,10 @@ class PlanResult:
     refresh_index: int = 0
     alloc_index: int = 0
     rejected_nodes: List[str] = field(default_factory=list)
+    # set by a group commit: the plan applier already swept the blocked
+    # evals once for the whole group, so the server skips its per-plan
+    # sweep
+    batch_unblocked: bool = False
 
     def full_commit(self, plan: Plan):
         """(fully committed?, expected, actual) placements

@@ -1,6 +1,7 @@
 """Runtime scheduler configuration (port of nomad_tpu/structs/config.py;
 upstream: nomad/structs/operator.go SchedulerConfiguration, read per eval
-at scheduler/stack.go:292 and rank.go:192).
+at scheduler/stack.go:292 and rank.go:192), and the namespace with its
+node-pool rules (upstream: structs/namespace.go).
 
 ``tpu-binpack`` / ``tpu-spread`` are binpack / spread semantics with the
 inner loop run by the solver (on the port: the H100's kernels);
@@ -9,6 +10,7 @@ inner loop run by the solver (on the port: the H100's kernels);
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Dict
 
 SCHED_ALG_BINPACK = "binpack"
 SCHED_ALG_SPREAD = "spread"
@@ -56,3 +58,35 @@ class SchedulerConfiguration:
         return self.scheduler_algorithm in (SCHED_ALG_TPU_BINPACK,
                                             SCHED_ALG_TPU_SPREAD,
                                             SCHED_ALG_TPU_LPQ)
+
+
+@dataclass
+class NamespaceNodePoolConfiguration:
+    """Which node pools a namespace's jobs may target
+    (upstream: structs/namespace.go NamespaceNodePoolConfiguration)."""
+
+    default: str = ""                 # "" = no override
+    allowed: list = field(default_factory=list)   # empty = all allowed
+    denied: list = field(default_factory=list)
+
+    def allows(self, pool: str) -> bool:
+        if pool in self.denied:
+            return False
+        if self.allowed and pool not in self.allowed:
+            return False
+        return True
+
+
+@dataclass
+class Namespace:
+    """Multi-tenancy boundary: every job, alloc and eval is namespaced
+    (upstream: structs.Namespace)."""
+
+    name: str = "default"
+    description: str = ""
+    quota: str = ""
+    meta: Dict[str, str] = field(default_factory=dict)
+    node_pool_configuration: NamespaceNodePoolConfiguration = field(
+        default_factory=NamespaceNodePoolConfiguration)
+    create_index: int = 0
+    modify_index: int = 0

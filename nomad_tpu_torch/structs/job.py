@@ -366,5 +366,11 @@ class Job:
     def stopped(self) -> bool:
         return self.stop
 
+    def is_periodic(self) -> bool:
+        return self.periodic is not None
+
+    def is_parameterized(self) -> bool:
+        return self.parameterized is not None and not self.dispatched
+
     def ns_id(self):
         return (self.namespace, self.id)

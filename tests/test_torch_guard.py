@@ -317,7 +317,9 @@ def test_fault_registry_actions_and_env(monkeypatch):
                   for f in snap) == [
         ("solver.dispatch", "hang", 0.0, None),
         ("solver.probe", "delay", 0.5, 3)]
-    assert set(faultinject.POINTS) == {"solver.dispatch", "solver.probe"}
+    assert set(faultinject.POINTS) == {
+        "solver.dispatch", "solver.probe", "broker.dequeue",
+        "worker.invoke", "worker.crash", "plan.apply", "plan.commit"}
 
 
 # ----------------------------------------------------------------------

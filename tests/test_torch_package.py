@@ -439,3 +439,58 @@ def test_scheduler_route_defaults_to_cuda_and_raises_without_a_card(kind):
     assert h.evals[-1].status == "complete" and h.state.allocs()
     h, ev = _scheduler_world(kind, "binpack")
     assert h.process(kind, ev) is None and h.state.allocs()
+
+
+@pytest.mark.parametrize("module", [
+    "nomad_tpu_torch.state.alloc_table", "nomad_tpu_torch.server",
+    "nomad_tpu_torch.server.broker", "nomad_tpu_torch.server.plan_apply",
+    "nomad_tpu_torch.server.admission", "nomad_tpu_torch.server.worker",
+    "nomad_tpu_torch.server.core"])
+def test_server_modules_load_no_jax_and_nothing_of_the_reference(module):
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _server_threads(before):
+    """The live server threads not in ``before`` (an earlier test file
+    may leave its own behind)."""
+    import threading
+    prefixes = ("batch-worker-", "scheduler-worker-", "batch-eval-",
+                "lpq-eval-", "plan-", "eval-broker-")
+    return [t.name for t in threading.enumerate()
+            if t.is_alive() and t not in before
+            and t.name.startswith(prefixes)]
+
+
+def test_server_defaults_to_cuda_and_raises_at_start_without_a_card():
+    """Server() keeps the caller's device (None: cuda) and resolves it at
+    start: with no card start raises, no worker starts, and nothing is
+    scheduled on the CPU; device="cpu" runs."""
+    import threading
+    from nomad_tpu_torch.server import Server
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    before = set(threading.enumerate())
+    server = Server()
+    try:
+        assert server.device is None
+        with pytest.raises(RuntimeError, match="CUDA"):
+            server.start()
+        assert not server.workers and not server.is_leader()
+    finally:
+        server.shutdown()
+    server = Server(device="cpu", num_workers=2)
+    try:
+        server.start()
+        assert server.device == torch.device("cpu") and server.workers
+    finally:
+        server.shutdown()
+    assert not _server_threads(before), _server_threads(before)
