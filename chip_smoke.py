@@ -231,7 +231,30 @@ Phases (any failure raises and the script exits nonzero with no result):
                 the index, the scheduler and submit_plan, the applier's
                 verify and commit ms, group sizes, rejections and
                 cross-worker serializations, acks and nacks.
-  Phases 4-15 reset the launch counts just before and read them just
+ 16. telemetry -- the metrics registry, the eval-scoped tracer, the
+                transfer ledger and the quality observatory on the card,
+                through the port's Server and phase 13's fleet: a warm
+                round of 32 mock.job evals x 2,000, every job
+                deregistered, the stops acknowledged complete through
+                update_allocs_from_client, then a measured round of 32
+                new jobs: 64,000 placed, 0 rejected, placements_tpu
+                64,000 and placements_host_fallback 0, the observatory's
+                accounting equal to a recount, the ledger's parity 0 and
+                its shipped bytes equal to resident.stats()'s, every
+                eval's trace (all kept) holding broker.wait through
+                plan.commit from more than one thread, the fused
+                dispatch with 32 lanes; the shadow audit replaying 4
+                simple jobs x 200 of the kernels' solves on the host
+                (decision mismatches 0, score drift within 1e-3), and
+                the quality.skew drill latching its alert; a failed
+                acknowledgement's alloc-failure reschedule through
+                wave_compact; the measured round again on fresh stores
+                with the three kill switches off and on in turn, the
+                placements equal bit for bit. Prints the slowest eval's
+                waterfall, the saturation report's busy shares, the
+                ledger's fields, transfer fit and residency, and each
+                cost round's wall time and placements/s.
+  Phases 4-16 reset the launch counts just before and read them just
   after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
   to the plain versions on the same fused inputs. The kernels line's
@@ -241,12 +264,15 @@ Phases (any failure raises and the script exits nonzero with no result):
   outside the count); its ``scheduler_launches`` phase 14's scheduler
   routes (the direct routes outside the count); its ``server_launches``
   phase 15's server runs (the Harness and direct routes its checks
-  compare with run outside the count).
+  compare with run outside the count); its ``telemetry_launches`` phase
+  16's warm and measured rounds, audit jobs and reschedule (its cost
+  rounds outside the count).
 
 Prints a full JSON report line, the card line, a {"kernels": [...]} line,
 and last the contract line {"ok": true, "device": {...}}.
 """
 import json
+import os
 import statistics
 import struct
 import subprocess
@@ -5892,6 +5918,497 @@ def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
     return report
 
 
+TEL_AUDIT_JOBS, TEL_AUDIT_PLACE = 4, 200    # the audit's simple jobs
+TEL_COST_ROUNDS = 2                  # measured rounds per switch setting
+TEL_CUT_AT_S = 750.0                 # past this, one cost round of each
+TEL_SPANS = ("broker.wait", "worker.wait_for_index", "worker.invoke",
+             "solver.pack", "solver.barrier", "solver.fuse_dispatch",
+             "solver.materialize", "plan.submit", "plan.evaluate",
+             "plan.commit")
+TEL_SWITCHES = ("NOMAD_TPU_TORCH_TRACE", "NOMAD_TPU_TORCH_XFEROBS",
+                "NOMAD_TPU_TORCH_QUALITY")
+
+
+class EnvPatch:
+    """Set environment variables for a block and restore them after."""
+
+    def __init__(self, **env):
+        self.env, self.saved = env, {}
+
+    def __enter__(self):
+        for k, v in self.env.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def telemetry_reset(metrics, tracer, xferobs, observatory):
+    metrics.reset()
+    tracer._reset_for_tests()
+    xferobs._reset_for_tests()
+    observatory._reset_for_tests()
+
+
+def waterfall(tr):
+    """The trace's spans by start: (name, thread, start ms from the
+    trace's first span, ms)."""
+    spans = sorted(tr["spans"], key=lambda s: s["t0"])
+    t0 = spans[0]["t0"] if spans else 0.0
+    return [(s["name"], s["thread"], round((s["t0"] - t0) * 1e3, 3),
+             s["dur_ms"]) for s in spans]
+
+
+def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
+                    tp, world, card, t_start):
+    """The telemetry layer (phase 16): the reference's headline protocol
+    on a port Server with the metrics registry, the tracer (every eval's
+    trace kept), the transfer ledger and the quality observatory on:
+      1. a warm round of N_EVALS mock.job evals x N_PLACE, every job
+         deregistered, every stop waited for and acknowledged complete
+         through update_allocs_from_client (capacity frees only there),
+         then the measured round of N_EVALS new jobs: all placed, 0 plans
+         rejected, placements_tpu = N_EVALS x N_PLACE and
+         placements_host_fallback = 0 over the round, the observatory's
+         delta-kept accounting equal to a recount (parity_mismatch 0),
+         the ledger's parity 0 (and its per-shard parity, the mesh phases
+         having run) and its shipped bytes equal to resident.stats()'s
+         over the round, and every measured eval's trace holding the ten
+         spans of TEL_SPANS from more than one thread, its fused dispatch
+         with N_EVALS lanes;
+      2. the shadow audit on the card: NOMAD_TPU_TORCH_QUALITY_AUDIT_SAMPLE
+         = 1 and TEL_AUDIT_JOBS simple jobs x TEL_AUDIT_PLACE: every
+         kernel solve replayed on the host, decision mismatches 0 and
+         score drift within the tolerance (1e-3); then quality.skew armed
+         and as many jobs again: the alert latches after ALERT_AFTER
+         (3) violating audits;
+      3. a failed acknowledgement: one audit alloc acknowledged failed
+         (its job reschedules at once) enqueues an alloc-failure eval,
+         whose lane carries the penalty and launches wave_compact;
+      4. the cost: the measured round alone on a fresh fleet store, with
+         the three kill switches off and on in turn (TEL_COST_ROUNDS of
+         each; one of each once the script's clock has passed
+         TEL_CUT_AT_S), placements and normalized-score bits equal in
+         every round; wall ms (evals written to the last commit) and
+         placements/s printed for each, and the difference of the means.
+    Prints the slowest measured eval's waterfall, the saturation report's
+    busy shares, the ledger's bench fields, its transfer fit and the
+    residency report's top rows, and the chrome trace's span count.
+    Launch counts are read around steps 1-3 (``launches``: the kernels
+    line's telemetry_launches)."""
+    import copy
+    from nomad_tpu_torch import mock as pmock
+    from nomad_tpu_torch import structs as st
+    from nomad_tpu_torch.faultinject import faults
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.server import worker as worker_mod
+    from nomad_tpu_torch.server.quality import observatory
+    from nomad_tpu_torch.server.telemetry import metrics
+    from nomad_tpu_torch.server.tracing import tracer
+    from nomad_tpu_torch.solver import xferobs
+    from nomad_tpu_torch.state.store import StateStore
+
+    t_phase = time.perf_counter()
+    report = {}
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    g0 = guard.state()
+    # phase 15's server sampled its own evals for the audit: let their
+    # replays end before this phase's audit starts from a clean state
+    assert observatory.audit.wait_idle(timeout=600.0)
+    # the mesh phases ran with the ledger on: their per-shard rows agree
+    report["mesh_shard_parity"] = xferobs.shard_parity()
+    assert report["mesh_shard_parity"] == 0, report["mesh_shard_parity"]
+    nodes = struct_fleet(pmock, N_NODES)
+    cfg = st.SchedulerConfiguration(
+        scheduler_algorithm=st.SCHED_ALG_TPU_BINPACK)
+
+    def fleet_store(jobs):
+        store = StateStore()
+        for node in nodes:
+            store.upsert_node(node)
+        store.set_scheduler_config(cfg)
+        for j in jobs:
+            store.upsert_job(j)
+        return store
+
+    def make_jobs(prefix, n, count, now=False):
+        jobs = []
+        for e in range(n):
+            j = pmock.job(id=f"{prefix}-{e:02d}")
+            j.task_groups[0].count = count
+            if now:                  # a failed alloc reschedules at once
+                j.task_groups[0].reschedule_policy = st.ReschedulePolicy(
+                    attempts=2, interval_s=600, delay_s=0,
+                    delay_function="constant", unlimited=False)
+            jobs.append(j)
+        return jobs
+
+    def count_launches():
+        for k in kernels.KERNELS:
+            launches[k.name] += k.launches
+
+    def counters():
+        return metrics.snapshot()["counters"]
+
+    def run(route, server, evals, n_allocs, what):
+        """Write and enqueue ``evals`` in one call and wait until their
+        ``n_allocs`` allocs are live; returns (t0, t_end) on the host
+        clock (t_end: the last commit when the route saw one)."""
+        ids = [ev.id for ev in evals]
+        if route is not None:
+            route.order = {e: k for k, e in enumerate(ids)}
+            route.reset()
+        t0 = time.perf_counter()
+        server.state.upsert_evals(evals)
+        server.broker.enqueue_all(evals)
+        settle(server, ids, what, lambda: sum(
+            len(m) for m in server_allocs(server.state, ids).values())
+            >= n_allocs)
+        t1 = (max(route.commit_end) if route is not None
+              and route.commit_end else time.perf_counter())
+        return t0, t1
+
+    def register_each(server, jobs, what):
+        """One job at a time, each settled before the next: every
+        generation holds one lane, so no fixpoint re-solve moves a
+        placement the audit's single-lane replay would not make."""
+        for j in jobs:
+            ev = server.register_job(j)
+            settle(server, [ev.id], what, lambda e=ev: len(server_allocs(
+                server.state, [e.id])[e.id]) >= j.task_groups[0].count)
+
+    # every eval's trace kept; the audit waits for step 2's single-lane
+    # generations (a fused generation's fixpoint may move a placement the
+    # single-lane replay cannot see)
+    with EnvPatch(NOMAD_TPU_TORCH_TRACE_SAMPLE="1",
+                  NOMAD_TPU_TORCH_QUALITY_AUDIT_SAMPLE="0"):
+        telemetry_reset(metrics, tracer, xferobs, observatory)
+        tp.reset_pack_caches()
+        warm = make_jobs("tel-warm", N_EVALS, N_PLACE)
+        store = fleet_store(warm)
+        server = Server(state=store, device=DEVICE, batch_width=SERVER_WIDTH)
+        try:
+            with ServerRoute(server, worker_mod, batch, lpq) as route:
+                server.start()
+                assert observatory.active and store._quality_hook is not None
+                kernels.reset_launches()
+                # -- 1. warm round, drain, acknowledgement, measured round
+                t0, t1 = run(route, server,
+                             [sched_eval(st, j, f"tel-warm-eval-{e:016d}")
+                              for e, j in enumerate(warm)],
+                             N_EVALS * N_PLACE, "warm round")
+                report["warm_wall_ms"] = (t1 - t0) * 1e3
+                t_drain = time.perf_counter()
+                dereg = [server.deregister_job(j.namespace, j.id)
+                         for j in warm]
+                settle(server, [e.id for e in dereg], "deregistered",
+                       lambda: not any(a.desired_status == "run"
+                                       for a in store.allocs()))
+                t_ack = time.perf_counter()
+                acks = []
+                for a in store.allocs():
+                    upd = copy.copy(a)
+                    upd.client_status = st.ALLOC_CLIENT_COMPLETE
+                    upd.client_terminal_time = time.time()
+                    acks.append(upd)
+                server.update_allocs_from_client(acks)
+                t_acked = time.perf_counter()
+                assert all(a.client_terminal_status()
+                           for a in store.allocs())
+                assert all(j.status == "dead" for j in store.jobs())
+                report["drain"] = dict(
+                    stop_ms=(t_ack - t_drain) * 1e3,
+                    ack_ms=(t_acked - t_ack) * 1e3, acked=len(acks))
+                mismatch = observatory.parity_mismatch()
+                report["parity_mismatch_after_churn"] = mismatch
+                assert mismatch == 0, mismatch
+                jobs = make_jobs("tel-job", N_EVALS, N_PLACE)
+                for j in jobs:
+                    store.upsert_job(j)
+                evals = [sched_eval(st, j, f"tel-eval-{e:016d}")
+                         for e, j in enumerate(jobs)]
+                ids = [ev.id for ev in evals]
+                c0 = counters()
+                x0 = xferobs.state()
+                r0 = resident.stats()
+                rej0 = server.planner.plans_rejected
+                t0, t1 = run(route, server, evals, N_EVALS * N_PLACE,
+                             "measured round")
+                c1 = counters()
+                x1 = xferobs.state()
+                r1 = resident.stats()
+                n_placed = sum(len(m) for m in
+                               server_allocs(store, ids).values())
+                assert n_placed == N_EVALS * N_PLACE, n_placed
+                assert server.planner.plans_rejected == rej0
+
+                def delta(name):
+                    return c1.get(name, 0) - c0.get(name, 0)
+                head = dict(
+                    placements=n_placed, wall_ms=(t1 - t0) * 1e3,
+                    placements_tpu=delta("nomad.scheduler.placements_tpu"),
+                    placements_host_fallback=delta(
+                        "nomad.scheduler.placements_host_fallback"),
+                    dispatch_bytes=delta("nomad.solver.dispatch_bytes_total"),
+                    const_cache_hit=delta("nomad.solver.const_cache_hit"),
+                    const_cache_miss=delta("nomad.solver.const_cache_miss"),
+                    ledger_shipped=(x1["shipped_bytes_total"]
+                                    - x0["shipped_bytes_total"]),
+                    ledger_resident=(x1["resident_bytes_total"]
+                                     - x0["resident_bytes_total"]),
+                    ledger_fetched=(x1["fetched_bytes_total"]
+                                    - x0["fetched_bytes_total"]),
+                    resident_shipped=(r1["bytes_shipped_total"]
+                                      - r0["bytes_shipped_total"]),
+                    ledger_parity=xferobs.parity(),
+                    shard_parity=xferobs.shard_parity())
+                head["placements_per_s"] = n_placed / (head["wall_ms"] / 1e3)
+                assert head["placements_tpu"] == N_EVALS * N_PLACE, head
+                assert head["placements_host_fallback"] == 0, head
+                assert head["ledger_parity"] == 0, head
+                assert head["shard_parity"] == 0, head
+                assert head["ledger_shipped"] == head["resident_shipped"] \
+                    == head["dispatch_bytes"], head
+                mismatch = observatory.parity_mismatch()
+                assert mismatch == 0, mismatch
+                # every measured eval's trace, retained (sample 1)
+                per_eval = {}
+                for eid in ids:
+                    tr = tracer.get(eid)
+                    assert tr is not None and tr["status"] == "complete", \
+                        (eid, tr and tr["status"])
+                    names = {s["name"] for s in tr["spans"]}
+                    missing = [n for n in TEL_SPANS if n not in names]
+                    assert not missing, (eid, missing)
+                    threads = {s["thread"] for s in tr["spans"]}
+                    assert len(threads) > 1, (eid, threads)
+                    fuse = [s for s in tr["spans"]
+                            if s["name"] == "solver.fuse_dispatch"]
+                    assert any(s["tags"]["lanes"] == N_EVALS
+                               for s in fuse), (eid, fuse)
+                    per_eval[eid] = tr
+                # each span's ms over the measured evals (summed within
+                # an eval), and the eval's time outside every span of
+                # its own thread's invoke (alloc building, plan assembly)
+                by_span = {}
+                for tr in per_eval.values():
+                    sums = {}
+                    for sp in tr["spans"]:
+                        sums[sp["name"]] = sums.get(sp["name"], 0.0) + \
+                            sp["dur_ms"]
+                    for n, v in sums.items():
+                        by_span.setdefault(n, []).append(v)
+                head["span_ms"] = {n: dict(ms_stats(v), evals=len(v))
+                                   for n, v in sorted(by_span.items())}
+                slow_id = max(ids, key=lambda e: per_eval[e]["dur_ms"])
+                head["slowest_eval"] = dict(
+                    eval_id=slow_id, dur_ms=per_eval[slow_id]["dur_ms"],
+                    waterfall=waterfall(per_eval[slow_id]))
+                head["trace_spans_median"] = statistics.median(
+                    len(per_eval[e]["spans"]) for e in ids)
+                report["measured"] = head
+                log(f"telemetry measured round [{card}]: {n_placed} "
+                    f"placed, wall {head['wall_ms']:.1f} ms, "
+                    f"{head['placements_per_s']:.0f} placements/s; "
+                    f"placements_tpu {head['placements_tpu']}, host "
+                    f"fallback {head['placements_host_fallback']}; ledger "
+                    f"shipped {head['ledger_shipped']} B (resident set "
+                    f"{head['resident_shipped']} B), resident "
+                    f"{head['ledger_resident']} B, fetched "
+                    f"{head['ledger_fetched']} B, parity "
+                    f"{head['ledger_parity']}")
+            # -- 2. the shadow audit on the card, and the skew drill ------
+            # an idle worker re-binds its barrier hook once a dequeue
+            # times out (0.5 s): after 1 s none holds the route's
+            time.sleep(1.0)
+            with EnvPatch(NOMAD_TPU_TORCH_QUALITY_AUDIT_SAMPLE="1"):
+                ajobs = make_jobs("tel-audit", TEL_AUDIT_JOBS,
+                                  TEL_AUDIT_PLACE, now=True)
+                register_each(server, ajobs, "audit jobs")
+                assert observatory.audit.wait_idle(timeout=120.0)
+                audit = observatory.audit.report()
+                mine = [r for r in observatory.audit.results().values()
+                        if r["job_id"].startswith("tel-audit-")]
+                audited = len(mine)
+                assert audited == TEL_AUDIT_JOBS == audit["audited"], audit
+                assert audit["decision_mismatch_total"] == 0, audit
+                assert audit["score_drift_max"] <= audit["drift_tol"], audit
+                assert audit["alert"] is None, audit
+                report["audit"] = dict(
+                    audited=audited, skipped=audit["skipped_complex"],
+                    places=sum(r["places"] for r in mine),
+                    score_drift_max=audit["score_drift_max"],
+                    decision_mismatch_total=audit["decision_mismatch_total"],
+                    drift_tol=audit["drift_tol"])
+                faults.arm("quality.skew", "error")
+                try:
+                    sjobs = make_jobs("tel-skew", TEL_AUDIT_JOBS,
+                                      TEL_AUDIT_PLACE)
+                    register_each(server, sjobs, "skew jobs")
+                    assert observatory.audit.wait_idle(timeout=120.0)
+                finally:
+                    faults.disarm("quality.skew")
+                drill = observatory.audit.report()
+                assert drill["alert"] is not None, drill
+                assert drill["alert"]["reason"] == "score_drift", drill
+                assert drill["alert"]["at_audit"] == audit["audited"] + \
+                    drill["alert_after"], drill
+                report["skew_drill"] = dict(alert=drill["alert"],
+                                            alert_after=drill["alert_after"])
+                log(f"telemetry audit [{card}]: {audited} kernel solves "
+                    "replayed on the host, decision mismatches "
+                    f"{audit['decision_mismatch_total']}, score drift max "
+                    f"{audit['score_drift_max']:.3g} (tol "
+                    f"{audit['drift_tol']}); skew drill alert "
+                    f"{drill['alert']}")
+            # -- 3. a failed acknowledgement reschedules -------------------
+            victim = sorted(store.allocs_by_job("default", ajobs[0].id),
+                            key=lambda a: a.name)[0]
+            upd = copy.copy(victim)
+            upd.client_status = st.ALLOC_CLIENT_FAILED
+            upd.client_terminal_time = time.time()
+            compact0 = kernels.WAVE_COMPACT.launches
+            server.update_allocs_from_client([upd])
+            fails = [e for e in store.evals_by_job("default", ajobs[0].id)
+                     if e.triggered_by == "alloc-failure"]
+            assert len(fails) == 1, fails
+            settle(server, [fails[0].id], "alloc-failure reschedule",
+                   lambda: any(a.previous_allocation == victim.id
+                               for a in store.allocs_by_job(
+                                   "default", ajobs[0].id)))
+            repl = [a for a in store.allocs_by_job("default", ajobs[0].id)
+                    if a.previous_allocation == victim.id]
+            assert len(repl) == 1 and repl[0].node_id != victim.node_id
+            assert kernels.WAVE_COMPACT.launches > compact0, \
+                "the reschedule lane did not launch wave_compact"
+            count_launches()
+            report["reschedule"] = dict(
+                eval_id=fails[0].id, node=repl[0].node_id,
+                wave_compact_launches=kernels.WAVE_COMPACT.launches
+                - compact0)
+            # -- what the layer shows ---------------------------------------
+            sat = observatory.saturation.report()
+            report["saturation"] = dict(
+                bottleneck=sat["bottleneck"],
+                busy_pct={k: v["busy_pct"]
+                          for k, v in sat["stages"].items()},
+                share_pct={k: v["share_of_recorded_pct"]
+                           for k, v in sat["stages"].items()})
+            xs = xferobs.state()
+            report["xferobs"] = dict(
+                bench_fields=xferobs.bench_fields(), tunnel=xs["tunnel"],
+                groups=xs["groups"], fetches=xs["fetches"],
+                residency_top=xs["residency"].get("top", [])[:5],
+                residency=({k: v for k, v in xs["residency"].items()
+                            if k != "top"}))
+            report["quality"] = observatory.bench_fields()
+            doc = tracer.chrome_trace()
+            report["chrome_trace"] = dict(
+                traces=len([e for e in doc["traceEvents"]
+                            if e["ph"] == "M"]),
+                spans=len([e for e in doc["traceEvents"]
+                           if e["ph"] == "X"]),
+                counter_events=len(xferobs.counter_events()))
+            report["tracer"] = tracer.stats()
+        finally:
+            faults.disarm_all()
+            server.shutdown()
+        assert store._quality_hook is None and not observatory.active
+        slow = report["measured"]["slowest_eval"]
+        log(f"telemetry slowest measured eval [{card}]: {slow['eval_id']} "
+            f"{slow['dur_ms']:.1f} ms; waterfall (span, thread, start ms, "
+            "ms; events of no duration left out): "
+            + "; ".join(f"{n} {t} {s:.1f} {d:.1f}"
+                        for n, t, s, d in slow["waterfall"] if d > 0))
+        log(f"telemetry spans over the measured evals [{card}] (ms a "
+            "span, summed within an eval: median / max): "
+            + "; ".join(f"{n} {v['median']:.1f} / {v['max']:.1f}"
+                        for n, v in report["measured"]["span_ms"].items()
+                        if v["max"] > 0))
+        log(f"telemetry saturation [{card}]: bottleneck "
+            f"{report['saturation']['bottleneck']}; busy % "
+            + ", ".join(f"{k} {v}" for k, v in
+                        report["saturation"]["busy_pct"].items()))
+        log(f"telemetry ledger [{card}]: {report['xferobs']['bench_fields']}"
+            f"; transfer fit {report['xferobs']['tunnel']}; residency "
+            f"{report['xferobs']['residency']}; top "
+            f"{report['xferobs']['residency_top']}")
+        log(f"telemetry chrome trace: {report['chrome_trace']}")
+
+    # -- 4. the cost of the layer on the measured round --------------------
+    n_rounds = TEL_COST_ROUNDS
+    if time.perf_counter() - t_start > TEL_CUT_AT_S:
+        n_rounds = 1
+    cost = {"on": [], "off": []}
+    placed = []
+    order = ["off", "on"] * n_rounds
+    for setting in order:
+        env = {k: ("0" if setting == "off" else "1") for k in TEL_SWITCHES}
+        with EnvPatch(**env):
+            telemetry_reset(metrics, tracer, xferobs, observatory)
+            tp.reset_pack_caches()
+            jobs = make_jobs("tel-job", N_EVALS, N_PLACE)
+            cstore = fleet_store(jobs)
+            cserver = Server(state=cstore, device=DEVICE,
+                             batch_width=SERVER_WIDTH)
+            try:
+                with ServerRoute(cserver, worker_mod, batch, lpq) as route:
+                    cserver.start()
+                    assert (cstore._quality_hook is None) == \
+                        (setting == "off")
+                    evals = [sched_eval(st, j, f"tel-eval-{e:016d}")
+                             for e, j in enumerate(jobs)]
+                    t0, t1 = run(route, cserver, evals, N_EVALS * N_PLACE,
+                                 f"cost round ({setting})")
+                    got = server_allocs(cstore, [ev.id for ev in evals])
+                    if setting == "off":
+                        assert tracer.stats()["retained"] == 0
+                        assert xferobs.state() == {"enabled": False}
+            finally:
+                cserver.shutdown()
+            # an "on" round's sampled audits replay in the background:
+            # let them end before the next round's clock starts
+            assert observatory.audit.wait_idle(timeout=600.0)
+        wall = (t1 - t0) * 1e3
+        cost[setting].append(dict(wall_ms=wall, placements_per_s=(
+            N_EVALS * N_PLACE) / (wall / 1e3)))
+        placed.append(got)
+        log(f"telemetry cost round [{card}]: switches {setting}, wall "
+            f"{wall:.1f} ms, {N_EVALS * N_PLACE / (wall / 1e3):.0f} "
+            "placements/s")
+    assert all(p == placed[0] for p in placed[1:]), \
+        "placements differ between kill-switch settings"
+    mean = {k: statistics.mean(r["wall_ms"] for r in v)
+            for k, v in cost.items()}
+    report["cost"] = dict(rounds=cost, order=order,
+                          mean_wall_ms=mean,
+                          on_minus_off_ms=mean["on"] - mean["off"],
+                          on_over_off=mean["on"] / mean["off"])
+    log(f"telemetry cost [{card}]: mean wall on {mean['on']:.1f} ms, off "
+        f"{mean['off']:.1f} ms, on - off {mean['on'] - mean['off']:.1f} ms "
+        f"({100 * (mean['on'] / mean['off'] - 1):.1f} %); placements equal "
+        "bit for bit in every round")
+    g1 = guard.state()
+    report["host_fallbacks"] = (g1["host_fallback_dispatches"]
+                                - g0["host_fallback_dispatches"])
+    assert report["host_fallbacks"] == 0, report["host_fallbacks"]
+    assert not any(g1["dispatch"][k] - g0["dispatch"][k]
+                   for k in ("timeout", "error"))
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"telemetry [{card}]: launches {launches}; phase "
+        f"{report['seconds']:.1f} s")
+    for kname in ("wave_block", "wave_compact"):
+        assert launches[kname] >= 1, (kname, launches)
+    return report
+
+
 def check_capacity_lane(np, lane, chosen, n_places):
     """A wave lane's placements: every one made, every node within its
     capacity (the lane's own asks over its initial usage)."""
@@ -6764,6 +7281,8 @@ def main(argv=None) -> int:
                   lpq, kernels, svc, tp, world, card)
     svres = phase("server", server_phase, np, torch, batch, guard, lpq,
                   kernels, svc, tp, world, card)
+    tlres = phase("telemetry", telemetry_phase, np, torch, batch, guard,
+                  lpq, kernels, resident, svc, tp, world, card, t_start)
 
     def pick(kname, **kw):
         return next(r for r in kres if r["name"] == kname
@@ -6798,6 +7317,7 @@ def main(argv=None) -> int:
             structs_launches=stres["launches"].get(k.name, 0),
             scheduler_launches=scres["launches"].get(k.name, 0),
             server_launches=svres["launches"].get(k.name, 0),
+            telemetry_launches=tlres["launches"].get(k.name, 0),
             max_abs_err=max(x["max_abs_err"] for x in kres
                             if x["name"] == k.name),
             ms=r["ms"], device_ms=r.get("device_ms"),
@@ -6814,6 +7334,7 @@ def main(argv=None) -> int:
                   wavefront=wpath, mesh_dense=mdres, mesh_wave=mwres,
                   mesh_lp=mlres, mesh_residency=mrres, dispatch=dlres,
                   structs=stres, scheduler=scres, server=svres,
+                  telemetry=tlres,
                   build_s=info["seconds"], phase_s=phase_s,
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")

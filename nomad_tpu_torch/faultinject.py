@@ -23,6 +23,9 @@ Points fired by the port:
                     the submitting eval
   plan.commit       state/store.py apply_plan_results_batch -- fires
                     before each plan's writes; the group splits around it
+  quality.skew      server/quality.py shadow-audit capture -- an armed
+                    error skews the captured scores, as solver drift
+                    would, so the audit's alert can be drilled
 
 Actions: ``error`` raises InjectedFault; ``delay`` sleeps ``delay_s``
 then continues; ``hang`` blocks until the fault is disarmed (bounded by
@@ -55,6 +58,7 @@ POINTS = (
     "worker.crash",         # server/worker.py _fire_crash_point
     "plan.apply",           # server/plan_apply.py Planner.apply
     "plan.commit",          # state/store.py apply_plan_results_batch
+    "quality.skew",         # server/quality.py shadow-audit capture
 )
 
 _log = logging.getLogger(__name__)

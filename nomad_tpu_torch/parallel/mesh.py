@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..solver import dense, lpq, resident
+from ..solver import dense, lpq, resident, xferobs
 
 _LOCK = threading.Lock()
 _STATS = {"dense_dispatches": 0, "node_sharded_steps": 0,
@@ -311,12 +311,24 @@ class ShardedInputs(NamedTuple):
     shipped: int        # bytes that crossed to the cells
 
 
+def _note_rows(group: str, leaves, specs, grid: Grid) -> None:
+    """The ledger's per-cell rows of a tree cut by ``specs``."""
+    resident.note_cell_rows(group, [
+        (a, [idx for _k, _d, idx in cuts(np.shape(a), sp, grid)])
+        for a, sp in zip(leaves, specs)])
+
+
 def _put_fresh(group: str, tree, grid: Grid):
     specs = SPEC_GROUPS[group](tree)
     leaves = [np.asarray(a) for a in tree]
+    total = sum(a.nbytes for a in leaves)
+    if xferobs.enabled():
+        xferobs.note_payload(group, total)
+        _note_rows(group, leaves, specs, grid)
+    resident.note_dispatch_bytes(total)
     out = type(tree)(*(put_by_spec(a, sp, grid)
                        for a, sp in zip(leaves, specs)))
-    return out, sum(a.nbytes for a in leaves)
+    return out, total
 
 
 def _put_chain(group: str, tree, grid: Grid, delta_src):
@@ -342,21 +354,27 @@ def _put_chain(group: str, tree, grid: Grid, delta_src):
     specs = SPEC_GROUPS[group](tree)
     min_b = resident._min_bytes()
     bufs = []
-    shipped = 0
+    shipped = small_total = 0
     for j, (leaf, spec) in enumerate(zip(tree, specs)):
         arr = np.asarray(leaf)
         if arr.nbytes < min_b:
             # small leaves are the delta traffic: ship them by spec
             bufs.append(put_by_spec(arr, spec, grid))
             shipped += arr.nbytes
+            small_total += arr.nbytes
             continue
         buf, ship_j, _outcome = resident.chain_apply(
             (group, arr.dtype.str, arr.shape, j, grid.key), arr, store,
             token, put_fn=lambda a, _s=spec: put_by_spec(a, _s, grid),
             scatter=scatter, idx_width=4 * max(1, arr.ndim),
-            copy_shadow=True)
+            copy_shadow=True, tag=group)
         bufs.append(buf)
         shipped += ship_j
+    if xferobs.enabled():
+        if small_total:
+            xferobs.note_payload(group, small_total)
+        _note_rows(group, [np.asarray(a) for a in tree], specs, grid)
+    resident.note_dispatch_bytes(shipped)
     return type(tree)(*bufs), shipped
 
 
@@ -388,6 +406,10 @@ def shard_lpq_inputs(grid: Grid, V, feas, ask, pcount, free, active):
     specs = SPEC_GROUPS["lpq_in"](tree)
     out = tuple(put_by_spec(a, sp, grid) for a, sp in zip(tree, specs))
     total = sum(np.asarray(a).nbytes for a in tree)
+    if xferobs.enabled():
+        xferobs.note_payload("lpq", total)
+        _note_rows("lpq", tree, specs, grid)
+    resident.note_dispatch_bytes(total)
     _stat("bytes_shipped_total", total)
     return out, total
 
@@ -401,6 +423,8 @@ def shard_eval_axis(arrays: Sequence[np.ndarray], cells: Sequence,
     specs = SPEC_GROUPS[tag](arrays)
     sh = [put_by_spec(a, sp, grid) for a, sp in zip(arrays, specs)]
     total = sum(np.asarray(a).nbytes for a in arrays)
+    resident.note_dispatch_bytes(total)
+    xferobs.note_payload(tag, total)
     _stat("bytes_shipped_total", total)
     _stat("eval_sharded_dispatches")
     return [[t.parts[k] for t in sh] for k in range(len(grid.cells))], total

@@ -19,6 +19,8 @@ import time as _time
 from typing import Dict, List, Optional, Set
 
 from ..device import DeviceLike, resolve_device
+from ..server.telemetry import metrics as _tm
+from ..server.tracing import tracer
 from ..solver.guard import (
     dispatch_allowed, host_fallback_allowed, note_host_fallback,
     note_host_placements, refuse_dispatch)
@@ -255,7 +257,9 @@ class GenericScheduler:
         if tpu_alg:
             places = self._compute_placements_tpu(places)
         if places:
-            self._place_host(places, self._deployment_id(), tpu_alg)
+            with tracer.span("sched.feasibility_rank",
+                             places=len(places), tpu_carveout=tpu_alg):
+                self._place_host(places, self._deployment_id(), tpu_alg)
         if self.failed_tg_allocs and not self.batch:
             self._queue_blocked_eval()
         return True
@@ -264,7 +268,9 @@ class GenericScheduler:
                     deployment_id: str, tpu_alg: bool) -> None:
         """The host stack, one place at a time. Under a tpu-* algorithm
         the places it makes are counted by the guard as host-stack
-        places (note_host_placements)."""
+        places (note_host_placements); each place is also counted in the
+        metrics registry, as ``nomad.scheduler.placements_host_fallback``
+        under a tpu-* algorithm and ``placements_host`` otherwise."""
         made = 0
         for place in places:
             tg = place.task_group
@@ -290,6 +296,8 @@ class GenericScheduler:
                 self._note_failed(tg.name, self.ctx.metrics.copy())
                 continue
             made += 1
+            _tm.incr("nomad.scheduler.placements_host_fallback" if tpu_alg
+                     else "nomad.scheduler.placements_host")
 
             resources = AllocatedResources(
                 tasks=dict(option.task_resources),
@@ -409,14 +417,20 @@ class GenericScheduler:
                 {p.previous_alloc.node_id} if (p.reschedule and
                                                p.previous_alloc) else set()
                 for p in tg_places]
-            if self.solve_hook is not None:
-                solved = self.solve_hook(service, tg, tg_places,
-                                         base_nodes, penalties)
-            else:
-                solved = service.solve(tg, tg_places, base_nodes, penalties)
+            with tracer.span("solver.solve_tg", tg=tg.name,
+                             places=len(tg_places),
+                             batched=self.solve_hook is not None) as sp_:
+                if self.solve_hook is not None:
+                    solved = self.solve_hook(service, tg, tg_places,
+                                             base_nodes, penalties)
+                else:
+                    solved = service.solve(tg, tg_places, base_nodes,
+                                           penalties)
+                sp_.tag(host_fallback=solved is None)
             if solved is None:
                 fallback.extend(tg_places)
                 continue
+            n_solved = 0
             for sp in solved:
                 if sp.node is None:
                     m = self.ctx.metrics.copy()
@@ -424,6 +438,10 @@ class GenericScheduler:
                     self._note_failed(tg.name, m)
                     continue
                 self._append_solved_alloc(sp, deployment_id)
+                n_solved += 1
+            if n_solved:
+                # one bump per task group, not per placement
+                _tm.incr("nomad.scheduler.placements_tpu", n_solved)
         return fallback
 
     def _append_solved_alloc(self, sp, deployment_id: str) -> None:

@@ -8,6 +8,7 @@ from __future__ import annotations
 import threading
 from typing import List, Optional, Tuple
 
+from ..server.tracing import tracer
 from ..state.store import StateStore
 from ..structs import Evaluation, Plan, PlanResult
 from .factory import new_scheduler
@@ -77,4 +78,17 @@ class Harness:
             sched = factory_name_or_fn(snap, self)
         else:
             sched = new_scheduler(factory_name_or_fn, snap, self, **kwargs)
-        return sched.process(ev)
+        # the eval's trace, as the server's workers open one
+        ctx = tracer.begin(ev.id, job=ev.job_id, lane=ev.type,
+                           trigger=ev.triggered_by, source="harness")
+        err = None
+        try:
+            with tracer.activate(ctx), \
+                    tracer.span("harness.process", ctx=ctx):
+                return sched.process(ev)
+        except Exception as e:
+            err = f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            tracer.end(ev.id, status="failed" if err else "complete",
+                       error=err)

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 from ..device import DeviceLike, resolve_device
+from ..server.telemetry import metrics as _tm
 from ..structs import (
     AllocatedResources, AllocatedSharedResources, Allocation, Evaluation,
     Node, Plan, generate_uuid,
@@ -309,4 +310,9 @@ class SystemScheduler:
             self.ctx, self.job, batch_mode=self.sysbatch,
             spread_alg=cfg.scheduler_algorithm == SCHED_ALG_TPU_SPREAD,
             device=self.device)
-        return service.solve_system(tg, to_place), True
+        solved = service.solve_system(tg, to_place)
+        if solved is not None:
+            n = sum(1 for sp in solved if sp.node is not None)
+            if n:
+                _tm.incr("nomad.scheduler.placements_tpu", n)
+        return solved, True

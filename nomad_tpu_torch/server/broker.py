@@ -26,6 +26,8 @@ import time
 from typing import Dict, List, Optional, Set, Tuple
 
 from ..faultinject import faults
+from .telemetry import metrics
+from .tracing import tracer
 from ..structs import (
     Evaluation, EVAL_STATUS_PENDING, TRIGGER_QUEUED_ALLOCS,
 )
@@ -81,6 +83,7 @@ class EvalBroker:
         # strikes count delivery-limit exhaustions per eval id
         self._quarantine: Dict[str, dict] = {}
         self._poison_strikes: Dict[str, int] = {}
+        self._enqueued_at: Dict[str, float] = {}    # eval id -> ready time
         self._seq = 0
         self._timer_thread: Optional[threading.Thread] = None
         self._shutdown = False
@@ -99,6 +102,7 @@ class EvalBroker:
                 self._delayed = []
                 self._quarantine.clear()
                 self._poison_strikes.clear()
+                self._enqueued_at.clear()
             self._lock.notify_all()
         if enabled and not was:
             self._start_delayed_watcher()
@@ -199,6 +203,8 @@ class EvalBroker:
                 heapq.heappush(self._delayed, (release, self._seq, ev))
                 deferred += 1
             self._lock.notify_all()
+        if deferred:
+            metrics.incr("nomad.broker.storm_deferred", deferred)
 
     def _process_enqueue(self, ev: Evaluation) -> None:
         if not self.enabled:
@@ -231,12 +237,14 @@ class EvalBroker:
             heapq.heappush(self._delayed,
                            (time.time() + self.shed_delay_s,
                             self._seq, ev))
+            metrics.incr("nomad.broker.shed_deferred")
             return
         self._seq += 1
         sched = ev.type
         self._ready.setdefault(sched, [])
         heapq.heappush(self._ready[sched], (-ev.priority, self._seq, ev))
         self._evals.setdefault(ev.id, 0)
+        self._enqueued_at.setdefault(ev.id, time.time())
 
     # ------------------------------------------------------------------
     def dequeue(self, schedulers: List[str], timeout: Optional[float] = None
@@ -287,6 +295,17 @@ class EvalBroker:
         token = f"token-{ev.id}-{self._evals.get(ev.id, 0)}"
         self._evals[ev.id] = self._evals.get(ev.id, 0) + 1
         self._unack[ev.id] = (ev, token, time.time() + self.nack_timeout)
+        t_ready = self._enqueued_at.pop(ev.id, None)
+        if t_ready is not None:
+            wait_s = time.time() - t_ready
+            metrics.sample_ms("nomad.broker.eval_wait", wait_s * 1e3)
+            # the eval's trace starts here: the wait span is recorded
+            # after the fact from the enqueue time
+            ctx = tracer.begin(ev.id, job=ev.job_id, lane=ev.type,
+                               trigger=ev.triggered_by,
+                               priority=ev.priority)
+            tracer.record("broker.wait", t_ready, wait_s * 1e3, ctx=ctx,
+                          deliveries=self._evals.get(ev.id, 0))
         return ev, token
 
     def dequeue_batch(self, schedulers: List[str], max_k: int,
@@ -367,6 +386,8 @@ class EvalBroker:
                 if remaining <= 0:
                     break
                 self._lock.wait(min(remaining, 0.05))
+        if gathered:
+            metrics.incr("nomad.broker.lpq_gathered", gathered)
         return out
 
     def _check_nack_timeouts_locked(self) -> None:
@@ -407,6 +428,8 @@ class EvalBroker:
         self._quarantine[ev.id] = {"eval": ev, "strikes": strikes,
                                    "at": time.time()}
         self._evals.pop(ev.id, None)
+        self._enqueued_at.pop(ev.id, None)
+        metrics.incr("nomad.broker.eval_quarantined")
         _log.error("eval=%s job=%s quarantined after %d exhausted "
                    "delivery cycles (%d leases each); release it with "
                    "release_quarantined", ev.id, ev.job_id, strikes,
@@ -448,6 +471,8 @@ class EvalBroker:
                 released.append(eid)
             if released:
                 self._lock.notify_all()
+        if released:
+            metrics.incr("nomad.broker.quarantine_released", len(released))
         return released
 
     # ------------------------------------------------------------------

@@ -32,7 +32,7 @@ from ..device import DeviceLike, resolve_device
 from ..state.store import StateStore
 from ..structs import (
     Evaluation, Job, Node, NodePool, Plan, PlanResult, generate_uuid,
-    EVAL_STATUS_BLOCKED, EVAL_STATUS_COMPLETE, EVAL_STATUS_PENDING,
+    ALLOC_CLIENT_FAILED, EVAL_STATUS_BLOCKED, EVAL_STATUS_COMPLETE, EVAL_STATUS_PENDING,
     JOB_STATUS_DEAD, JOB_STATUS_RUNNING, JOB_TYPE_SYSTEM,
     NODE_STATUS_DISCONNECTED, NODE_STATUS_DOWN, NODE_STATUS_READY,
     TRIGGER_JOB_DEREGISTER, TRIGGER_JOB_REGISTER, TRIGGER_NODE_UPDATE,
@@ -40,6 +40,7 @@ from ..structs import (
 from .admission import AdmissionPipeline
 from .broker import BlockedEvals, EvalBroker
 from .plan_apply import Planner
+from .quality import observatory
 from .worker import BatchWorker, Worker
 
 _log = logging.getLogger(__name__)
@@ -83,6 +84,9 @@ class Server:
         # full collections, the same gen-0 and gen-1 behavior.
         _, g1, _ = gc.get_threshold()
         gc.set_threshold(700, g1, 1000)
+        # the quality observatory binds the store's write hook and the
+        # tracer's span sink; a no-op under NOMAD_TPU_TORCH_QUALITY=0
+        observatory.attach(self.state)
         self.establish_leadership()
 
     def establish_leadership(self) -> None:
@@ -157,6 +161,7 @@ class Server:
     def shutdown(self) -> None:
         """(reference :579) Stop the workers, the broker's watcher and
         the applier's threads, each waited for within a deadline."""
+        observatory.detach(self.state)
         with self._leader_lock:
             self._leader_active.clear()
             self._stop_workers()
@@ -321,6 +326,38 @@ class Server:
         if evals:
             self.state.upsert_evals(evals)
             self.broker.enqueue_storm(evals)
+
+    def update_allocs_from_client(self, allocs) -> None:
+        """(reference :1309; upstream: node_endpoint.go:1322 UpdateAlloc)
+        A client's alloc status updates: the store takes them (capacity a
+        stopped alloc held frees only here, when its client says it is
+        terminal), the jobs' statuses are refreshed, and a failed alloc
+        of a live job enqueues one ``alloc-failure`` eval for its job,
+        whose reschedule places with the node penalty. The port's store
+        keeps no service catalog, so there is none to clear."""
+        self.state.update_allocs_from_client(allocs)
+        for key in {(a.namespace, a.job_id) for a in allocs}:
+            self._refresh_job_status(*key)
+        evals = []
+        seen = set()
+        for a in allocs:
+            if a.client_status != ALLOC_CLIENT_FAILED:
+                continue
+            stored = self.state.alloc_by_id(a.id)
+            if stored is None or (stored.namespace, stored.job_id) in seen:
+                continue
+            job = self.state.job_by_id(stored.namespace, stored.job_id)
+            if job is None or job.stop:
+                continue
+            seen.add((stored.namespace, stored.job_id))
+            evals.append(Evaluation(
+                id=generate_uuid(), namespace=stored.namespace,
+                priority=job.priority, type=job.type,
+                triggered_by="alloc-failure", job_id=job.id,
+                status=EVAL_STATUS_PENDING))
+        if evals:
+            self.state.upsert_evals(evals)
+            self.broker.enqueue_all(evals)
 
     # ------------------------------------------------------------------
     # worker callbacks (reference :1344-1406)

@@ -30,6 +30,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..faultinject import faults
+from .quality import observatory
+from .telemetry import metrics
+from .tracing import tracer
 from ..structs import (
     Allocation, Evaluation, Plan, PlanResult, allocs_fit,
     NODE_STATUS_DISCONNECTED, NODE_STATUS_DOWN, NODE_STATUS_READY,
@@ -182,15 +185,19 @@ class _Pending:
     """One queued plan submission moving through the pipeline."""
 
     __slots__ = ("plan", "eval_updates", "event", "result", "error",
-                 "seq", "worker", "conflict_retries")
+                 "seq", "trace_ctx", "worker", "conflict_retries")
 
-    def __init__(self, plan, eval_updates, seq, worker=None):
+    def __init__(self, plan, eval_updates, seq, trace_ctx=None,
+                 worker=None):
         self.plan = plan
         self.eval_updates = eval_updates
         self.event = threading.Event()
         self.result: Optional[PlanResult] = None
         self.error: Optional[BaseException] = None
         self.seq = seq
+        # the submitting eval thread's trace ctx, carried so the
+        # dispatcher's and committer's spans land in its trace
+        self.trace_ctx = trace_ctx
         # submitting worker identity (thread name): distinguishes
         # same-worker batch conflicts from CROSS-worker contention in
         # _select_group's serialization accounting
@@ -305,7 +312,7 @@ class Planner:
             # cross-worker counter must only tally POOL contention, not
             # ad-hoc applier callers
             pending = _Pending(plan, eval_updates, self._seq,
-                               worker=worker)
+                               trace_ctx=tracer.current(), worker=worker)
             heapq.heappush(self._heap,
                            (-plan.priority, pending.seq, pending))
             if self._expect_n > 0:
@@ -313,6 +320,7 @@ class Planner:
                 # the drain keeps holding while the generation streams in
                 self._expect_n -= 1
                 self._expect_rolling = time.monotonic() + _batch_window_s()
+            metrics.sample("nomad.plan.queue_depth", float(len(self._heap)))
             self._cv.notify()
         # bounded re-check: the dispatcher resolves every pending entry,
         # success or failure, but a wedged commit should park us
@@ -463,6 +471,7 @@ class Planner:
                     # that RE-conflicts arms the escalating bounded
                     # backoff, giving the in-flight commit time to land.
                     self.cross_worker_serialized += 1
+                    metrics.incr("nomad.plan.cross_worker_serialized")
                     if it.conflict_retries >= 2:
                         self._conflict_streak += 1
                         hold = min(XWORKER_BACKOFF_S
@@ -471,6 +480,7 @@ class Planner:
                         self._backoff_until = time.monotonic() + hold
                 else:
                     self.batch_conflict_serialized += 1
+                    metrics.incr("nomad.plan.batch_conflict_serialized")
                 return group, items[k:]
             if arr is not None:
                 claimed[arr] = True
@@ -486,10 +496,17 @@ class Planner:
         then submit ONE grouped commit asynchronously. Returns the new
         in-flight tuple. The caller already reduced ``items`` to a
         pairwise-disjoint group."""
+        metrics.sample("nomad.plan.batch_size", float(len(items)))
         snapshot = self.state.snapshot()
         overlaid = (_OverlaySnapshot(snapshot, inflight[1])
                     if inflight is not None else snapshot)
-        results = [self._evaluate_plan(overlaid, it.plan) for it in items]
+        results = []
+        for it in items:
+            with metrics.measure("nomad.plan.evaluate"), \
+                    tracer.span("plan.evaluate", ctx=it.trace_ctx,
+                                overlay=inflight is not None,
+                                nodes=len(it.plan.node_allocation)):
+                results.append(self._evaluate_plan(overlaid, it.plan))
 
         # serialize commits: wait for the previous one (its replication
         # overlapped this verification, which is the whole point)
@@ -504,8 +521,13 @@ class Planner:
                 # landed -- freed-capacity assumptions may be wrong:
                 # re-verify the whole group clean
                 fresh = self.state.snapshot()
-                results = [self._evaluate_plan(fresh, it.plan)
-                           for it in items]
+                results = []
+                for it in items:
+                    with metrics.measure("nomad.plan.evaluate"), \
+                            tracer.span("plan.evaluate",
+                                        ctx=it.trace_ctx,
+                                        overlay=False, reverify=True):
+                        results.append(self._evaluate_plan(fresh, it.plan))
 
         # bad-node hits are recorded ONCE, for the result that actually
         # decides the plan (a discarded overlay pass must not count)
@@ -513,9 +535,14 @@ class Planner:
         for it, result in zip(items, results):
             for node_id in result.rejected_nodes:
                 self.bad_nodes.add(node_id)
+            # rejected placements never reach the alloc-delta journal:
+            # the quality observatory's churn learns of them here
+            observatory.note_rejected(len(result.rejected_nodes))
             if result.is_no_op() and not it.plan.is_no_op():
                 result.refresh_index = self.state.latest_index()
                 self.plans_rejected += 1
+                tracer.event("plan.rejected", ctx=it.trace_ctx,
+                             rejected=len(result.rejected_nodes))
                 it.resolve(result=result)
             else:
                 commit_items.append((it, result))
@@ -534,8 +561,12 @@ class Planner:
         """The single-plan commit (also the batch-of-one path and every
         commit under NOMAD_TPU_TORCH_PLAN_BATCH=0)."""
         try:
-            index = self.state.upsert_plan_results(result,
-                                                   item.eval_updates)
+            with metrics.measure("nomad.plan.commit"), \
+                    tracer.span("plan.commit", ctx=item.trace_ctx,
+                                batch=1,
+                                rejected=len(result.rejected_nodes)):
+                index = self.state.upsert_plan_results(result,
+                                                       item.eval_updates)
         except BaseException as e:  # noqa: BLE001 -- waiter must wake
             item.resolve(error=e)
             raise
@@ -553,9 +584,17 @@ class Planner:
         staging failures (the plan.commit chaos point) resolve only
         their own waiter. Either failure mode poisons the overlay (the
         raised exception) so the next cycle re-verifies clean."""
+        gctx = tracer.group([it.trace_ctx for it, _ in commit_items])
         entries = [(r, it.eval_updates) for it, r in commit_items]
         try:
-            index, outcomes = self.state.apply_plan_results_batch(entries)
+            with metrics.measure("nomad.plan.commit"), \
+                    tracer.activate(gctx), \
+                    tracer.span("plan.commit", ctx=gctx,
+                                batch=len(commit_items),
+                                rejected=sum(len(r.rejected_nodes)
+                                             for _, r in commit_items)):
+                index, outcomes = self.state.apply_plan_results_batch(
+                    entries)
         except BaseException:  # noqa: BLE001 -- split the batch
             for it, r in commit_items:
                 if it.event.is_set():

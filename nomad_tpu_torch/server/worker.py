@@ -20,6 +20,8 @@ from typing import List, Optional, Tuple
 from ..faultinject import InjectedFault, faults
 from ..scheduler.factory import new_scheduler
 from ..structs import Evaluation, Plan, PlanResult, EVAL_STATUS_BLOCKED
+from .telemetry import metrics
+from .tracing import tracer
 
 _log = logging.getLogger(__name__)
 
@@ -68,10 +70,19 @@ class WorkerPlanner:
         # exactly-once placement belongs to the outstanding delivery
         if self.eval_id and not self.server.broker.token_outstanding(
                 self.eval_id, self.eval_token):
+            metrics.incr("nomad.plan.stale_token_rejected")
             raise StaleEvalToken(
                 f"eval {self.eval_id} lease {self.eval_token} is no "
                 f"longer outstanding; plan rejected")
-        result = self.server.planner.apply(plan, worker=self.worker_name)
+        # nomad.plan.submit: the whole submission, the wait at the
+        # serialized applier included
+        with metrics.measure("nomad.plan.submit"), \
+                tracer.span("plan.submit") as sp:
+            result = self.server.planner.apply(plan,
+                                               worker=self.worker_name)
+            sp.tag(allocs=sum(len(v)
+                              for v in result.node_allocation.values()),
+                   rejected=len(result.rejected_nodes))
         new_state = None
         if result.rejected_nodes or (result.is_no_op()
                                      and not plan.is_no_op()):
@@ -105,20 +116,30 @@ def invoke_scheduler(server, ev: Evaluation, token: str, solve_hook=None,
     evals (the LP tier passes "tpu-lpq"); ``worker_name`` names the
     owning pool worker for the applier's cross-worker accounting."""
     faults.fire("worker.invoke")    # chaos: raise -> nack -> requeue
-    server.state.block_until(ev.modify_index - 1, timeout=2.0)
-    snapshot = server.state.snapshot()
-    planner = WorkerPlanner(server, token, eval_id=ev.id,
-                            worker_name=worker_name)
-    sched_type = ev.type if ev.type in SCHEDULERS else "service"
-    kwargs = {"device": server.device}
-    name = sched_type
-    if sched_type in ("service", "batch"):
-        if solve_hook is not None:
-            kwargs["solve_hook"] = solve_hook
-        if sched_factory is not None:
-            name = sched_factory
-            kwargs["batch"] = sched_type == "batch"
-    new_scheduler(name, snapshot, planner, **kwargs).process(ev)
+    ctx = tracer.begin(ev.id, job=ev.job_id, lane=ev.type,
+                       trigger=ev.triggered_by)
+    with tracer.activate(ctx):
+        with metrics.measure("nomad.worker.wait_for_index"), \
+                tracer.span("worker.wait_for_index", ctx=ctx,
+                            min_index=ev.modify_index - 1):
+            server.state.block_until(ev.modify_index - 1, timeout=2.0)
+        snapshot = server.state.snapshot()
+        planner = WorkerPlanner(server, token, eval_id=ev.id,
+                                worker_name=worker_name)
+        sched_type = ev.type if ev.type in SCHEDULERS else "service"
+        kwargs = {"device": server.device}
+        name = sched_type
+        if sched_type in ("service", "batch"):
+            if solve_hook is not None:
+                kwargs["solve_hook"] = solve_hook
+            if sched_factory is not None:
+                name = sched_factory
+                kwargs["batch"] = sched_type == "batch"
+        sched = new_scheduler(name, snapshot, planner, **kwargs)
+        with metrics.measure(
+                f"nomad.worker.invoke_scheduler_{sched_type}"), \
+                tracer.span("worker.invoke", ctx=ctx, sched=sched_type):
+            sched.process(ev)
 
 
 class Worker(threading.Thread):
@@ -157,8 +178,11 @@ class Worker(threading.Thread):
                 invoke_scheduler(self.server, ev, token,
                                  worker_name=self.name)
                 self.server.broker.ack(ev.id, token)
-            except Exception:  # noqa: BLE001 -- nacked for redelivery
+                tracer.end(ev.id, status="complete")
+            except Exception as e:  # noqa: BLE001 -- nacked for redelivery
                 self.server.broker.nack(ev.id, token)
+                tracer.end(ev.id, status="nacked",
+                           error=f"{type(e).__name__}: {e}")
                 _log.exception("eval=%s job=%s scheduler invoke failed; "
                                "nacked for redelivery", ev.id, ev.job_id)
             self.evals_processed += 1
@@ -213,6 +237,7 @@ class BatchWorker(threading.Thread):
         # of the leased batch is orphaned at once (no eval thread was
         # started, so no barrier waits on a dead participant)
         _fire_crash_point()
+        metrics.sample("nomad.worker.batch_width", float(len(batch)))
         barrier = SolveBarrier(len(batch), e_pad_hint=self.width,
                                plan_group_hint=self.server.planner
                                .expect_plans,
@@ -235,6 +260,7 @@ class BatchWorker(threading.Thread):
         if not batch:
             return
         _fire_crash_point()
+        metrics.sample("nomad.worker.lpq_batch_width", float(len(batch)))
         barrier = LpqBarrier(len(batch),
                              plan_group_hint=self.server.planner.expect_plans,
                              device=self.server.device)
@@ -268,8 +294,11 @@ class BatchWorker(threading.Thread):
                              sched_factory=sched_factory,
                              worker_name=self.name)
             self.server.broker.ack(ev.id, token)
-        except Exception:  # noqa: BLE001 -- nacked for redelivery
+            tracer.end(ev.id, status="complete")
+        except Exception as e:  # noqa: BLE001 -- nacked for redelivery
             self.server.broker.nack(ev.id, token)
+            tracer.end(ev.id, status="nacked",
+                       error=f"{type(e).__name__}: {e}")
             _log.exception("eval=%s job=%s batch-eval invoke failed; "
                            "nacked for redelivery", ev.id, ev.job_id)
         finally:

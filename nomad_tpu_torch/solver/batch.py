@@ -74,6 +74,10 @@ import torch
 from .. import kernels
 from ..device import DeviceLike, resolve_device
 from ..parallel import mesh
+from ..server.quality import observatory
+from ..server.telemetry import metrics
+from ..server.tracing import tracer
+from . import xferobs
 from .guard import dispatch_deadline_s, run_dispatch
 from .service import PackedLane
 from .wave import solve_lane_fused
@@ -410,6 +414,8 @@ def _fuse_group(lanes: List[PackedLane], idxs: List[int], key: tuple,
         e_pad = max(e_pad, _e_bucket(min(e_pad_hint, E_BUCKETS[-1])))
     p_pad = max(32, _e_bucket(max(
         lanes[i].batch.ask_cpu.shape[0] for i in idxs)))
+    # a gauge: this is a lane count, not a time
+    metrics.sample("nomad.solver.batch_lanes", float(e_real))
     padded = {i: _pad_placement_axis(lanes[i].batch, p_pad) for i in idxs}
     srcs = {"const": lambda i: lanes[i].const,
             "init": lambda i: lanes[i].init,
@@ -422,6 +428,8 @@ def _fuse_group(lanes: List[PackedLane], idxs: List[int], key: tuple,
         specs[name] = [((e_pad,) + np.asarray(f).shape, np.asarray(f).dtype)
                        for f in src(idxs[0])]
     entry, reused = _ARENA.acquire((key, e_pad, p_pad), specs)
+    metrics.incr("nomad.solver.pack_arena_reuse" if reused
+                 else "nomad.solver.pack_arena_alloc")
 
     skip_pad = entry.pad_valid
     if skip_pad and e_pad > e_real:
@@ -519,16 +527,23 @@ def _dispatch(g: _FusedGroup, cells: List[torch.device], use_mesh: bool):
               cache_version=g.cache_version, delta_src=g.delta_src)
     multi = use_mesh and len(cells) > 1
     if g.ptab is not None:
+        if g.wave:
+            metrics.incr("nomad.solver.wavefront_preempt_dispatches")
         return solve_lane_fused(
             g.const, g.init, g.batch, g.ptab, g.pinit, wave=g.wave,
             device=cells if (g.wave and multi) else cells[0], **kw)
     if g.wave:
+        metrics.incr("nomad.solver.wavefront_dispatches")
         return solve_lane_fused(g.const, g.init, g.batch, wave=True,
                                 device=cells if multi else cells[0], **kw)
+    metrics.incr("nomad.solver.dense_dispatches")
     E, N = np.asarray(g.const.cpu_cap).shape
     grid = mesh.pick_mesh(E, N, cells) if multi else None
     if grid is not None:
-        return mesh.mesh_solve(grid, g.const, g.init, g.batch, **kw)
+        metrics.incr("nomad.solver.mesh_dispatches")
+        out = mesh.mesh_solve(grid, g.const, g.init, g.batch, **kw)
+        xferobs.note_fetch(xferobs.tree_nbytes(out), "mesh")
+        return out
     return solve_lane_fused(g.const, g.init, g.batch, device=cells[0], **kw)
 
 
@@ -545,7 +560,37 @@ def solve_groups(lanes: List[PackedLane], groups: List[_FusedGroup],
     try:
         cells = resolve_cells(device)
         for g in groups:
-            out = _dispatch(g, cells, use_mesh)
+            t0_wall = time.time()
+            t0 = time.perf_counter()
+            # the transfer ledger's record of this generation: the
+            # transports' payload notes land in it, and its (bytes, ms)
+            # pair feeds the transfer fit. Every route returns host
+            # numpy, so the timed region ends after the read-back (no
+            # extra synchronize). The finally folds the record's notes
+            # into the ledger on error paths too.
+            if xferobs.enabled():
+                xferobs.begin_dispatch(
+                    E=g.e_pad, e_real=g.e_real, P=g.p_pad,
+                    wave=bool(g.wave), A=g.A,
+                    in_flight=pipeline_state()["in_flight"])
+            try:
+                out = _dispatch(g, cells, use_mesh)
+            finally:
+                dt_ms = (time.perf_counter() - t0) * 1e3
+                xferobs.end_dispatch(dt_ms, t0_wall)
+            metrics.sample_ms("nomad.solver.dispatch", dt_ms)
+            tracer.record("solver.dispatch", t0_wall, dt_ms,
+                          E=g.e_pad, e_real=g.e_real, P=g.p_pad,
+                          wave=bool(g.wave), A=g.A,
+                          arena_reused=bool(g.arena_reused),
+                          slow_compile=dt_ms > 1000.0)
+            if dt_ms > 1000.0:
+                # over a second (the reference's compile threshold; the
+                # port builds its kernels before any barrier, so here it
+                # is host work): say which variant
+                metrics.incr("nomad.solver.dispatch_slow")
+                _log.warning("slow dispatch %.0fms (E=%d P=%d wave=%s "
+                             "A=%d)", dt_ms, g.e_pad, g.p_pad, g.wave, g.A)
             for j, li in enumerate(g.idxs):
                 p_real = lanes[li].batch.ask_cpu.shape[0]
                 res = (np.asarray(out[0][j][:p_real]).astype(np.int64),
@@ -655,6 +700,8 @@ def _cross_lane_fixpoint(lanes: List[PackedLane], results: List,
                 conflicted.append(pi)
             # else: left for the applier; its capacity is not charged
         if conflicted:
+            metrics.incr("nomad.solver.fixpoint_conflicts", len(conflicted))
+            metrics.incr("nomad.solver.fixpoint_dispatches")
             results[i] = _resolve_lane_conflicts(
                 lane, res, conflicted, accepted_own, ledger, entry, charge,
                 device)
@@ -801,7 +848,11 @@ class SolveBarrier:
         """Block until the batch dispatches; returns this lane's result
         tuple (as fuse_and_solve's). A failed dispatch raises its
         DispatchFailed in EVERY participating thread."""
-        cell: dict = {}
+        # the eval thread's trace ctx rides the cell, so the dispatch (on
+        # a pipeline thread at depth > 1) records into every
+        # participating eval's trace
+        cell: dict = {"trace_ctx": tracer.current()}
+        t_arrive = time.time()
         with self._cv:
             self._waiting.append((lane, cell))
             if self._ready_locked():
@@ -818,7 +869,12 @@ class SolveBarrier:
                             and any(c is cell for _, c in self._waiting)):
                         self._dispatch_locked()
             if "error" in cell:
+                tracer.record("solver.barrier", t_arrive,
+                              (time.time() - t_arrive) * 1e3,
+                              outcome="error")
                 raise cell["error"]
+            tracer.record("solver.barrier", t_arrive,
+                          (time.time() - t_arrive) * 1e3, outcome="ok")
             return cell["result"]
 
     def _ready_locked(self) -> bool:
@@ -864,12 +920,23 @@ class SolveBarrier:
                                  device=self._cells[0])
             return results
 
+        # group ctx over every waiting eval: the fused dispatch's spans
+        # belong to each of them
+        gctx = tracer.group([c.get("trace_ctx") for _, c in batch])
         try:
             # the fused dispatch and the fixpoint's re-solves run under
             # the watchdog: a wedged card fails EVERY waiter with
             # DispatchFailed instead of stranding the batch
-            results = run_dispatch(solve_batch, label="solver.batch",
-                                   device=self._enter)
+            xfer_tok = xferobs.mark()
+            with tracer.activate(gctx), \
+                    tracer.span("solver.fuse_dispatch", ctx=gctx,
+                                generation=gen, lanes=len(lanes),
+                                depth=1) as sp:
+                results = run_dispatch(solve_batch, label="solver.batch",
+                                       device=self._enter)
+                # shipped / resident bytes and the transfer fit's
+                # predicted vs actual ms of this generation
+                sp.tag(**xferobs.span_tags(xfer_tok))
             for (_, cell), res in zip(batch, results):
                 cell["result"] = res
         except Exception as e:  # noqa: BLE001 -- waiters must not strand
@@ -889,12 +956,25 @@ class SolveBarrier:
         intake thread stacked, until fuse_and_solve takes them."""
         results = None
         err: Optional[Exception] = None
+        # this runs on a pipeline thread: the group ctx (every eval fused
+        # into this generation) rides the batch's cells
+        gctx = tracer.group([c.get("trace_ctx") for _, c in batch])
         try:
-            results = run_dispatch(
-                lambda: fuse_and_solve(
-                    lanes, device=self._cells, use_mesh=self._use_mesh,
-                    e_pad_hint=self._e_pad_hint, staged=staged),
-                label="solver.batch", device=self._enter)
+            xfer_tok = xferobs.mark()
+            with tracer.activate(gctx), \
+                    tracer.span("solver.fuse_dispatch", ctx=gctx,
+                                generation=gen, lanes=len(lanes),
+                                depth=self._depth,
+                                staged="groups" in staged,
+                                in_flight=pipeline_state()["in_flight"]
+                                ) as sp:
+                results = run_dispatch(
+                    lambda: fuse_and_solve(
+                        lanes, device=self._cells,
+                        use_mesh=self._use_mesh,
+                        e_pad_hint=self._e_pad_hint, staged=staged),
+                    label="solver.batch", device=self._enter)
+                sp.tag(**xferobs.span_tags(xfer_tok))
         except Exception as e:  # noqa: BLE001 -- waiters must not strand
             err = e
         finally:
@@ -910,7 +990,8 @@ class SolveBarrier:
         # so the wait ends; the deadline is a last-resort anti-wedge.
         deadline = time.monotonic() + max(
             60.0, 2.0 * _barrier_order_timeout())
-        with self._complete_cv:
+        with tracer.span("solver.order_wait", ctx=gctx, generation=gen), \
+                self._complete_cv:
             while self._next_complete != gen:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
@@ -922,12 +1003,15 @@ class SolveBarrier:
         try:
             if err is None and self._fixpoint_needed(lanes):
                 try:
-                    run_dispatch(
-                        lambda: _cross_lane_fixpoint(
-                            lanes, results, self._ledger,
-                            device=self._cells[0]),
-                        label="solver.batch.fixpoint",
-                        device=self._enter)
+                    with tracer.activate(gctx), \
+                            tracer.span("solver.fixpoint", ctx=gctx,
+                                        generation=gen):
+                        run_dispatch(
+                            lambda: _cross_lane_fixpoint(
+                                lanes, results, self._ledger,
+                                device=self._cells[0]),
+                            label="solver.batch.fixpoint",
+                            device=self._enter)
                 except Exception as e:  # noqa: BLE001 -- same contract
                     err = e
         finally:
@@ -974,7 +1058,8 @@ def make_solve_hook(barrier: SolveBarrier):
         note_host_fallback
 
     def hook(service, tg, places, nodes, penalties):
-        lane = service.pack(tg, places, nodes, penalties)
+        with tracer.span("solver.pack", tg=tg.name, places=len(places)):
+            lane = service.pack(tg, places, nodes, penalties)
         if lane is None:
             return None
         try:
@@ -984,5 +1069,9 @@ def make_solve_hook(barrier: SolveBarrier):
                 raise
             note_host_fallback()
             return None
-        return service.materialize(lane, *res)
+        # the shadow audit's sampled capture of this lane's result
+        # (server/quality.py), replayed on the host in the background
+        observatory.maybe_capture_audit(lane, res[0], res[1])
+        with tracer.span("solver.materialize", tg=tg.name):
+            return service.materialize(lane, *res)
     return hook

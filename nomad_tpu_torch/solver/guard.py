@@ -48,6 +48,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..faultinject import faults
+from ..server.telemetry import metrics
+from ..server.tracing import tracer
 
 _log = logging.getLogger(__name__)
 ROOT = Path(__file__).resolve().parents[2]
@@ -91,9 +93,18 @@ _BREAKER = {
 }
 
 
+# the counts the metrics registry also carries, as nomad.solver.<name>
+# (placements_host_fallback is the scheduler's series: scheduler/generic.py)
+_SOLVER_SERIES = frozenset(("dispatch_ok", "dispatch_timeout",
+                            "dispatch_error", "host_fallback_dispatches",
+                            "backend_unavailable", "backend_recovered"))
+
+
 def _count(name: str, n: int = 1) -> None:
     with _COUNT_LOCK:
         _COUNTS[name] += n
+    if name in _SOLVER_SERIES:
+        metrics.incr("nomad.solver." + name, n)
 
 
 def _device_type(device) -> str:
@@ -173,8 +184,11 @@ def dispatch_allowed(device=None) -> bool:
 
 def note_host_fallback() -> None:
     """Record one eval that went to the host oracle because the guard
-    or the breaker is down (a silent fallback must still be counted)."""
+    or the breaker is down (a silent fallback must still be counted),
+    and pin the fallback on the eval's trace."""
     _count("host_fallback_dispatches")
+    tracer.mark_degraded("host_fallback", breaker=_BREAKER["state"],
+                         backend_ok=_STATE["ok"])
 
 
 def note_host_placements(n: int = 1) -> None:
@@ -241,16 +255,21 @@ def run_dispatch(fn, label: str = "solver.dispatch",
     _BREAKER["platform"] = dev.type
     box: dict = {}
     done = threading.Event()
+    # the runner is a fresh thread: the caller's eval (or group) trace
+    # ctx travels with it, or every span under the watchdog is lost
+    trace_ctx = tracer.current()
+    eval_tag = ",".join(tracer.current_ids()) or "-"
 
     def runner() -> None:
         try:
-            if dev.type == "cuda" and dev.index is not None:
-                with torch.cuda.device(dev):
+            with tracer.activate(trace_ctx):
+                if dev.type == "cuda" and dev.index is not None:
+                    with torch.cuda.device(dev):
+                        faults.fire("solver.dispatch")
+                        box["result"] = fn()
+                else:
                     faults.fire("solver.dispatch")
                     box["result"] = fn()
-            else:
-                faults.fire("solver.dispatch")
-                box["result"] = fn()
         except BaseException as e:  # noqa: BLE001 -- reported to caller
             box["error"] = e
         finally:
@@ -264,15 +283,20 @@ def run_dispatch(fn, label: str = "solver.dispatch",
         if not done.wait(timeout):
             _count("dispatch_timeout")
             record_dispatch_failure("timeout")
-            _log.error("%s exceeded its %.1f s deadline (dispatch thread "
-                       "abandoned)", label, timeout)
+            tracer.mark_degraded("watchdog_timeout", ctx=trace_ctx,
+                                 label=label, deadline_s=timeout)
+            _log.error("eval=%s %s exceeded its %.1f s deadline (dispatch "
+                       "thread abandoned)", eval_tag, label, timeout)
             raise DispatchFailed(
                 "timeout", f"{label} exceeded {timeout:.1f}s deadline")
     if "error" in box:
         _count("dispatch_error")
         record_dispatch_failure("error")
         err = box["error"]
-        _log.error("%s failed (%s: %s)", label, type(err).__name__, err)
+        tracer.mark_degraded("dispatch_error", ctx=trace_ctx, label=label,
+                             error=type(err).__name__)
+        _log.error("eval=%s %s failed (%s: %s)", eval_tag, label,
+                   type(err).__name__, err)
         raise DispatchFailed(
             "error", f"{label} failed: {type(err).__name__}: {err}"
         ) from err
@@ -333,7 +357,12 @@ def _trip_locked(kind: str) -> None:
     epoch = _BREAKER["epoch"]
     wake = threading.Event()       # fresh per thread: a stale set() from
     _BREAKER["wake"] = wake        # an earlier reset must not skip a wait
+    metrics.incr("nomad.solver.breaker_trips")
     _invalidate_pack_layer("breaker trip")
+    # every eval in flight is degraded, not just the dispatch that
+    # tripped the breaker: stamp every active trace
+    tracer.broadcast_event("breaker.trip",
+                           degraded_reason="breaker_open", kind=kind)
     _log.error("dispatch breaker OPEN after %d consecutive %ss; recovery "
                "probing starts", _BREAKER["consecutive_failures"], kind)
     threading.Thread(target=_run_recovery, args=(epoch, wake), daemon=True,
@@ -379,6 +408,7 @@ def _close_breaker_locked(why: str) -> None:
     _BREAKER["state"] = BREAKER_CLOSED
     _BREAKER["consecutive_failures"] = 0
     _BREAKER["recoveries"] += 1
+    metrics.incr("nomad.solver.breaker_recoveries")
     # buffers uploaded before the recovery are not trusted across it
     _invalidate_pack_layer("breaker recovery")
     _log.warning("dispatch breaker CLOSED (%s)", why)

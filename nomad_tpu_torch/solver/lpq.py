@@ -65,7 +65,11 @@ import torch
 
 from .. import kernels
 from ..device import DeviceLike
+from ..server.quality import observatory
+from ..server.telemetry import metrics
+from ..server.tracing import tracer
 from ..structs.config import SCHED_ALG_TPU_LPQ
+from . import resident, xferobs
 from .binpack import BINPACK_MAX
 from .guard import run_dispatch
 from .scoring import _EXP32, _libm
@@ -708,8 +712,13 @@ def solve_queue(lanes: List[PackedLane], ledger: Dict[str, list],
     lp_idx: List[int] = max(groups.values(), key=len) if groups else []
 
     if lp_idx:
+        t0 = time.perf_counter()
         lp_results = _solve_lp_group([lanes[i] for i in lp_idx], ledger,
                                      device=cells)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        metrics.sample_ms("nomad.lpq.solve_ms", dt_ms)
+        metrics.incr("nomad.lpq.solves")
+        metrics.sample("nomad.lpq.lanes_per_solve", float(len(lp_idx)))
         _stat("solves")
         _stat("lanes_total", len(lp_idx))
         for i, res in zip(lp_idx, lp_results):
@@ -722,6 +731,7 @@ def solve_queue(lanes: List[PackedLane], ledger: Dict[str, list],
         # charge greedy placements against the ledger the LP committed
         # into, resolving residual conflicts of wave lanes
         _cross_lane_fixpoint(sub, sub_res, ledger, device=dev)
+        metrics.incr("nomad.lpq.greedy_lanes", len(sub))
         _stat("greedy_lanes", len(sub))
         for i, res in zip(greedy_idx, sub_res):
             results[i] = res
@@ -807,13 +817,22 @@ def _solve_lp_group(lanes: List[PackedLane], ledger: Dict[str, list],
         from ..parallel import mesh
         grid = mesh.pick_mesh(arrays[0].shape[0], arrays[0].shape[1], cells)
     if grid is not None:
+        metrics.incr("nomad.lpq.mesh_dispatches")
         s_in, _ = mesh.shard_lpq_inputs(grid, *arrays)
         X_dev, mu_dev = mesh.mesh_lpq(grid, s_in, temps)
     else:
+        # the LP views ship fresh (they change every solve): the ledger's
+        # lpq group, as the grid route's inputs
+        total = sum(int(a.nbytes) for a in arrays + (temps,))
+        xferobs.note_payload("lpq", total)
+        resident.note_dispatch_bytes(total)
         X_dev, mu_dev = lp_relax(*(torch.from_numpy(a).to(dev)
                                    for a in arrays + (temps,)))
-    X = X_dev[:L].cpu().numpy().astype(np.float64)
-    mu = mu_dev.cpu().numpy().astype(np.float64)            # (N, 3)
+    X = X_dev[:L].cpu().numpy()
+    mu = mu_dev.cpu().numpy()
+    xferobs.note_fetch(int(X.nbytes) + int(mu.nbytes), "lpq")
+    X = X.astype(np.float64)
+    mu = mu.astype(np.float64)                               # (N, 3)
     lap("lp")
 
     # -- round: per-lane integral counts by largest remainder -----------
@@ -923,6 +942,13 @@ def _solve_lp_group(lanes: List[PackedLane], ledger: Dict[str, list],
             f[0], f[1], f[2] = free_r[0, b], free_r[1, b], free_r[2, b]
 
     n_placed = sum(int((c >= 0).sum()) for c in chosen_out)
+    metrics.incr("nomad.lpq.placements", max(n_placed, 0))
+    if n_repair:
+        metrics.incr("nomad.lpq.repairs", n_repair)
+    if n_fail:
+        metrics.incr("nomad.lpq.failed", n_fail)
+    if n_evict:
+        metrics.incr("nomad.lpq.preempt_evictions", n_evict)
     _stat("placements", n_placed)
     _stat("repairs", n_repair)
     _stat("failed", n_fail)
@@ -993,8 +1019,12 @@ def _compare_quality(views, cap, free0, chosen_out, spread_alg: bool
         cap[0][valid], cap[1][valid], used_lp[0][valid], used_lp[1][valid])
     frag_g, pack_g = _frag_and_pack(
         cap[0][valid], cap[1][valid], used_g[0][valid], used_g[1][valid])
-    _stat_set("quality_delta", round(pack_lp - pack_g, 6))
-    _stat_set("frag_delta", round(frag_lp - frag_g, 6))
+    q_delta = pack_lp - pack_g          # higher: the LP packs tighter
+    f_delta = frag_lp - frag_g          # lower: the LP fragments less
+    metrics.sample("nomad.lpq.quality_delta", q_delta)
+    metrics.sample("nomad.lpq.frag_delta", f_delta)
+    _stat_set("quality_delta", round(q_delta, 6))
+    _stat_set("frag_delta", round(f_delta, 6))
 
 
 # ---------------------------------------------------------------------------
@@ -1041,7 +1071,10 @@ class LpqBarrier:
                 self._dispatch_locked()
 
     def solve(self, lane: PackedLane):
-        cell: dict = {}
+        # the trace handoff, as SolveBarrier's: the dispatching thread
+        # records the generation's spans into every waiter's trace
+        cell: dict = {"trace_ctx": tracer.current()}
+        t_arrive = time.time()
         with self._cv:
             self._waiting.append((lane, cell))
             if self._ready_locked():
@@ -1055,7 +1088,13 @@ class LpqBarrier:
                             and any(c is cell for _, c in self._waiting)):
                         self._dispatch_locked()
             if "error" in cell:
+                tracer.record("solver.barrier", t_arrive,
+                              (time.time() - t_arrive) * 1e3,
+                              outcome="error", tier="lpq")
                 raise cell["error"]
+            tracer.record("solver.barrier", t_arrive,
+                          (time.time() - t_arrive) * 1e3, outcome="ok",
+                          tier="lpq")
             return cell["result"]
 
     def _ready_locked(self) -> bool:
@@ -1067,11 +1106,17 @@ class LpqBarrier:
         batch = self._waiting
         self._waiting = []
         self._generation += 1
+        gen = self._generation
         lanes = [lane for lane, _ in batch]
+        gctx = tracer.group([c.get("trace_ctx") for _, c in batch])
         try:
-            results = run_dispatch(
-                lambda: solve_queue(lanes, self._ledger, device=self._cells),
-                label="solver.lpq", device=self._enter)
+            with tracer.activate(gctx), \
+                    tracer.span("solver.lpq_dispatch", ctx=gctx,
+                                generation=gen, lanes=len(lanes)):
+                results = run_dispatch(
+                    lambda: solve_queue(lanes, self._ledger,
+                                        device=self._cells),
+                    label="solver.lpq", device=self._enter)
             for (_, cell), res in zip(batch, results):
                 cell["result"] = res
         except Exception as e:  # noqa: BLE001 -- waiters must not strand
@@ -1099,7 +1144,8 @@ def make_lpq_hook(barrier: LpqBarrier):
         note_host_fallback
 
     def hook(service, tg, places, nodes, penalties):
-        lane = service.pack(tg, places, nodes, penalties)
+        with tracer.span("solver.pack", tg=tg.name, places=len(places)):
+            lane = service.pack(tg, places, nodes, penalties)
         if lane is None:
             return None
         try:
@@ -1109,5 +1155,11 @@ def make_lpq_hook(barrier: LpqBarrier):
                 raise
             note_host_fallback()
             return None
-        return service.materialize(lane, *res)
+        # the shadow audit: LP decisions are meant to diverge from the
+        # greedy replay (the tier's point), so ``lpq`` keeps score drift
+        # gating and counts the divergence apart
+        observatory.maybe_capture_audit(lane, res[0], res[1],
+                                        lpq=lp_lane_eligible(lane))
+        with tracer.span("solver.materialize", tg=tg.name):
+            return service.materialize(lane, *res)
     return hook

@@ -2,7 +2,11 @@
 version chain, the delta scatter and the per-shard pool of the mesh
 route (port of nomad_tpu/solver/constcache.py).
 
-Every dispatch ships its input tables through ``device_put_cached``.
+Every dispatch ships its input tables through ``device_put_cached``,
+and every copy to the card is counted: ``note_dispatch_bytes`` feeds the
+``nomad.solver.dispatch_bytes`` series and the transfer ledger's mirror
+(solver/xferobs.py), and each array is attributed to its tree group in
+the ledger, shipped or resident.
 
   * The content cache. An array's fingerprint (BLAKE2b over dtype, shape
     and bytes) is looked up; a hit reuses the resident device buffer and
@@ -66,6 +70,9 @@ import torch
 
 from .. import kernels
 from ..device import DeviceLike, resolve_device
+from ..server.telemetry import metrics
+from ..server.tracing import tracer
+from . import xferobs
 
 _LOCK = threading.Lock()
 _CACHE: "OrderedDict[tuple, _Entry]" = OrderedDict()
@@ -406,7 +413,7 @@ def _evict_chain_over_bounds_locked() -> None:
 
 def chain_apply(key: tuple, arr: np.ndarray, store, token: Optional[int],
                 put_fn, scatter=None, idx_width: int = 4,
-                copy_shadow: bool = False):
+                copy_shadow: bool = False, tag: Optional[str] = None):
     """Version-chain transfer of one array: reuse or delta-update the
     buffer this slot shipped last time. Returns (buffer, bytes_shipped,
     outcome), outcome one of install / reuse / promote / gap / size (see
@@ -425,7 +432,10 @@ def chain_apply(key: tuple, arr: np.ndarray, store, token: Optional[int],
     arena buffers the next generation refills). ``scatter(buf, shape,
     idx_p, vals_p)`` replaces the flat single-buffer scatter (the mesh
     route's coordinate scatter), ``idx_width`` its bytes per update
-    index (4 * ndim for coordinates)."""
+    index (4 * ndim for coordinates). ``tag`` is the array's tree group
+    in the transfer ledger (default ``key[0]``): a reused or promoted
+    table counts as resident bytes and its delta payload ships under
+    ``delta``; a wholesale outcome ships under the tag."""
     from ..tensor.pack import journal_touched_nodes
 
     nbytes = int(arr.nbytes)
@@ -510,6 +520,22 @@ def chain_apply(key: tuple, arr: np.ndarray, store, token: Optional[int],
             _STATS["delta_fallbacks"] += 1
             _STATS["delta_%s_fallbacks" % outcome] += 1
         _evict_chain_over_bounds_locked()
+    # ledger attribution outside _LOCK (the ledger has its own lock)
+    if xferobs.enabled():
+        tag = tag if tag is not None else str(key[0])
+        if outcome in ("reuse", "promote"):
+            xferobs.note_payload(tag, nbytes, resident=True)
+            if payload:
+                xferobs.note_payload("delta", payload)
+        else:
+            xferobs.note_payload(tag, nbytes)
+    if outcome == "promote":
+        metrics.incr("nomad.solver.delta_promotions")
+        metrics.sample("nomad.solver.delta_bytes", float(payload))
+    elif outcome == "reuse":
+        metrics.incr("nomad.solver.delta_reuses")
+    elif outcome != "install":
+        metrics.incr("nomad.solver.delta_fallbacks")
     return buf, shipped, outcome
 
 
@@ -541,6 +567,9 @@ def device_put_cached(arrays: Sequence[np.ndarray],
     arrays = [np.asarray(a) for a in arrays]
     if not enabled():
         shipped = sum(a.nbytes for a in arrays)
+        for i, a in enumerate(arrays):
+            xferobs.note_payload(tag_of(i), a.nbytes)
+        note_dispatch_bytes(shipped)
         return [put(a) for a in arrays], shipped
 
     store = token = None
@@ -558,6 +587,7 @@ def device_put_cached(arrays: Sequence[np.ndarray],
     occ: dict = {}
     shipped = 0
     hits = misses = saved = 0
+    hit_idx: List[int] = []
     with _LOCK:
         for i, arr in enumerate(arrays):
             if arr.nbytes < min_b:
@@ -576,6 +606,7 @@ def device_put_cached(arrays: Sequence[np.ndarray],
                     buffers[i] = ent.buf
                     hits += 1
                     saved += ent.nbytes
+                    hit_idx.append(i)
                     continue
                 misses += 1
             if chain_on:
@@ -610,7 +641,8 @@ def device_put_cached(arrays: Sequence[np.ndarray],
         cache_adds: List[Tuple[int, tuple]] = []
         for (i, key, ck) in chain_jobs:
             buf, ship_i, outcome = chain_apply(key, arrays[i], store,
-                                               token, put_fn=put)
+                                               token, put_fn=put,
+                                               tag=tag_of(i))
             buffers[i] = buf
             shipped += ship_i
             if outcome in ("reuse", "promote"):
@@ -632,6 +664,24 @@ def device_put_cached(arrays: Sequence[np.ndarray],
         _STATS["misses"] += misses
         _STATS["bytes_shipped_total"] += shipped
         _STATS["bytes_saved_total"] += saved
+        resident_now = _STATS["resident_bytes"]
+    # ledger attribution outside _LOCK: hit bytes are resident, every
+    # array in miss_idx crossed to the device (chain slots were
+    # attributed in chain_apply)
+    for i in hit_idx:
+        xferobs.note_payload(tag_of(i), arrays[i].nbytes, resident=True)
+    for i in miss_idx:
+        xferobs.note_payload(tag_of(i), arrays[i].nbytes)
+    xferobs.note_resident_level(resident_now)
+    if hits:
+        metrics.incr("nomad.solver.const_cache_hit", hits)
+    if misses:
+        metrics.incr("nomad.solver.const_cache_miss", misses)
+    note_dispatch_bytes(shipped)
+    # per-eval attribution: a cold transfer explains its own latency
+    # (the group ctx fans the event out to every fused lane)
+    tracer.event("solver.constcache", hits=hits, misses=misses,
+                 bytes_shipped=shipped, bytes_saved=saved)
     return buffers, shipped
 
 
@@ -646,7 +696,7 @@ def _evict_shard_over_bounds_locked() -> None:
 
 def device_put_sharded_cached(arrays: Sequence[np.ndarray], cuts,
                               version: Optional[int] = None,
-                              fallback_put=None):
+                              fallback_put=None, group: str = "mesh_const"):
     """Per-shard content-keyed transfer (reference constcache.py
     device_put_sharded_cached): ``cuts[i]`` lists array i's cells in
     grid order as (place, device, index) -- index the tuple of slices
@@ -655,12 +705,14 @@ def device_put_sharded_cached(arrays: Sequence[np.ndarray], cuts,
     keeps it. Arrays below the min-bytes floor, and every array with the
     cache off, go through ``fallback_put(i)`` (the caller's whole-array
     put by spec) and count their whole bytes as shipped. Returns (per
-    array the list of per-cell tensors, bytes shipped)."""
+    array the list of per-cell tensors, bytes shipped). The ledger takes
+    the bytes under ``group`` (hits resident, the rest shipped) and one
+    declared / actual row per cell."""
     arrays = [np.asarray(a) for a in arrays]
     min_b = _min_bytes()
     use_cache = enabled()
     parts_out: List = [None] * len(arrays)
-    shipped = hits = misses = saved = 0
+    shipped = hits = misses = saved = hit_bytes = 0
     miss_puts = []
     with _LOCK:
         for i, arr in enumerate(arrays):
@@ -684,6 +736,7 @@ def device_put_sharded_cached(arrays: Sequence[np.ndarray], cuts,
                     parts[j] = ent.buf
                     hits += 1
                     saved += ent.nbytes
+                    hit_bytes += ent.nbytes
                 else:
                     if part is None:
                         part = np.ascontiguousarray(arr[idx])
@@ -700,10 +753,10 @@ def device_put_sharded_cached(arrays: Sequence[np.ndarray], cuts,
                 _SHARD_CACHE[key] = _Entry(buf, part.nbytes, version)
                 _STATS["shard_resident_bytes"] += part.nbytes
             _evict_shard_over_bounds_locked()
-    for i, parts in enumerate(parts_out):
-        if parts is None:
-            parts_out[i] = fallback_put(i)
-            shipped += arrays[i].nbytes
+    fresh_idx = [i for i, parts in enumerate(parts_out) if parts is None]
+    for i in fresh_idx:
+        parts_out[i] = fallback_put(i)
+        shipped += arrays[i].nbytes
     with _LOCK:
         _STATS["hits"] += hits
         _STATS["misses"] += misses
@@ -711,7 +764,60 @@ def device_put_sharded_cached(arrays: Sequence[np.ndarray], cuts,
         _STATS["bytes_saved_total"] += saved
         _STATS["shard_resident_hwm"] = max(_STATS["shard_resident_hwm"],
                                            _STATS["shard_resident_bytes"])
+        shard_resident_now = _STATS["shard_resident_bytes"]
+        shard_hwm = _STATS["shard_resident_hwm"]
+        resident_now = _STATS["resident_bytes"] + shard_resident_now
+    if xferobs.enabled():
+        if hit_bytes:
+            xferobs.note_payload(group, hit_bytes, resident=True)
+        fresh_bytes = sum(arrays[i].nbytes for i in fresh_idx)
+        miss_bytes = sum(p.nbytes for (_i, _j, _d, p, _k) in miss_puts)
+        if fresh_bytes or miss_bytes:
+            xferobs.note_payload(group, fresh_bytes + miss_bytes)
+        note_cell_rows(group, [(a, [c[2] for c in cut])
+                               for a, cut in zip(arrays, cuts)])
+        xferobs.note_resident_level(resident_now)
+    metrics.sample("nomad.solver.const_cache_shard_resident_bytes",
+                   float(shard_resident_now))
+    metrics.sample("nomad.solver.const_cache_shard_resident_hwm",
+                   float(shard_hwm))
+    if hits:
+        metrics.incr("nomad.solver.const_cache_hit", hits)
+    if misses:
+        metrics.incr("nomad.solver.const_cache_miss", misses)
+    note_dispatch_bytes(shipped)
+    tracer.event("solver.constcache_sharded", hits=hits, misses=misses,
+                 bytes_shipped=shipped, bytes_saved=saved)
     return parts_out, shipped
+
+
+def note_cell_rows(group: str, tables) -> None:
+    """One declared / actual row per cell in the transfer ledger for a
+    tree cut over a grid: ``tables`` lists (array, per-cell index
+    tuples in grid order). Declared is the cut's slice shape times the
+    element size, actual the bytes of the slice the cell holds."""
+    per_cell: dict = {}
+    for arr, idxs in tables:
+        arr = np.asarray(arr)
+        for k, idx in enumerate(idxs):
+            shape = [len(range(*s.indices(n))) for s, n in
+                     zip(idx, arr.shape)] + list(arr.shape[len(idx):])
+            declared = int(np.prod(shape, dtype=np.int64)) * arr.itemsize
+            row = per_cell.setdefault(k, [0, 0])
+            row[0] += declared
+            row[1] += int(arr[idx].nbytes)
+    for k in sorted(per_cell):
+        xferobs.note_shard_bytes(group, f"d{k}", *per_cell[k])
+
+
+def note_dispatch_bytes(n: int) -> None:
+    """Record one dispatch's host->device payload (the bytes that crossed
+    after resident hits): the ``nomad.solver.dispatch_bytes`` series, its
+    running total, and the transfer ledger's mirror, which the ledger's
+    tagged decomposition must equal (``xferobs.parity()``)."""
+    metrics.sample("nomad.solver.dispatch_bytes", float(n))
+    metrics.incr("nomad.solver.dispatch_bytes_total", int(n))
+    xferobs.note_shipped(int(n))
 
 
 def _evict_over_bounds_locked() -> None:
@@ -788,6 +894,10 @@ def note_node_table_write(table_index: int) -> None:
             _STATS["shard_resident_bytes"] -= ent.nbytes
         if stale or stale_s:
             _STATS["invalidations"] += 1
+        resident_now = (_STATS["resident_bytes"]
+                        + _STATS["shard_resident_bytes"])
+    if stale or stale_s:
+        xferobs.note_resident_level(resident_now)
 
 
 def invalidate_all(reason: str = "") -> None:
@@ -805,6 +915,8 @@ def invalidate_all(reason: str = "") -> None:
         _STATS["chain_resident_bytes"] = 0
         if had:
             _STATS["invalidations"] += 1
+    if had:
+        xferobs.note_resident_level(0)
 
 
 def stats() -> dict:

@@ -40,6 +40,10 @@ from ..tensor.pack import (
 from .binpack import (
     MAX_SKIP, WAVE_DEVICE_CAP_STEPS, PlacementBatch, PreemptState,
     PreemptTables, make_node_const, make_node_state, wavefront_buffer_size)
+from ..server.quality import observatory
+from ..server.telemetry import metrics
+from ..server.tracing import tracer
+from . import xferobs
 from .system import packed_views, solve_system_packed
 
 
@@ -396,11 +400,18 @@ def dispatch_lane(lane: PackedLane, device: DeviceLike = None):
     def one(tree):
         return type(tree)(*(np.asarray(a)[None] for a in tree))
 
+    wave = lane.wavefront_ok()
+    if lane.ptab is not None:
+        metrics.incr("nomad.solver.wavefront_preempt_dispatches" if wave
+                     else "nomad.solver.dense_dispatches")
+    else:
+        metrics.incr("nomad.solver.wavefront_dispatches" if wave
+                     else "nomad.solver.dense_dispatches")
     pre = () if lane.ptab is None else (one(lane.ptab), one(lane.pinit))
     out = solve_lane_fused(
         one(lane.const), one(lane.init), one(lane.batch), *pre,
         spread_alg=lane.spread_alg, dtype_name=lane.dtype_name,
-        wave=lane.wavefront_ok(), device=device,
+        wave=wave, device=device,
         cache_version=lane.table_version, delta_src=lane.delta_src)
     return tuple(np.asarray(o)[0] for o in out)
 
@@ -446,7 +457,9 @@ def _system_fit(lane: PackedLane, n: int, device) -> Tuple[np.ndarray,
                                      spread_alg=lane.spread_alg,
                                      dtype_name=lane.dtype_name,
                                      device=device)
-    fit, score = (t[0].numpy() for t in packed_views(out.cpu(), 1, N, dt))
+    host = out.cpu()
+    xferobs.note_fetch(xferobs.tree_nbytes(host), "system")
+    fit, score = (t[0].numpy() for t in packed_views(host, 1, N, dt))
     inv = np.empty(n, dtype=np.int64)
     inv[np.asarray(lane.order, dtype=np.int64)] = np.arange(n)
     chosen = np.where(fit[inv], inv, -1).astype(np.int64)
@@ -545,19 +558,24 @@ class TpuPlacementService:
         the caller."""
         from . import guard
 
-        lane = self.pack(tg, places, nodes, penalty_nodes_per_place)
+        with tracer.span("solver.pack", tg=tg.name, places=len(places)):
+            lane = self.pack(tg, places, nodes, penalty_nodes_per_place)
         if lane is None:
             return None
         try:
-            out = guard.run_dispatch(
-                lambda: dispatch_lane(lane, device=self.device),
-                label="solver.dispatch_solo", device=self.device)
+            with tracer.span("solver.dispatch_solo", tg=tg.name):
+                out = guard.run_dispatch(
+                    lambda: dispatch_lane(lane, device=self.device),
+                    label="solver.dispatch_solo", device=self.device)
         except guard.DispatchFailed:
             if not guard.host_fallback_allowed(self.device):
                 raise
             guard.note_host_fallback()
             return None
-        return self.materialize(lane, *out)
+        # the shadow audit's sampled capture (server/quality.py)
+        observatory.maybe_capture_audit(lane, out[0], out[1])
+        with tracer.span("solver.materialize", tg=tg.name):
+            return self.materialize(lane, *out)
 
     def solve_system(self, tg, nodes) -> Optional[List[TpuPlacement]]:
         """A system job: one independent fit and score per node (no
@@ -596,8 +614,16 @@ class TpuPlacementService:
         mark = begin_pack_window()
         t0 = time.perf_counter()
         lane = self._pack_inner(tg, places, nodes, penalty_nodes_per_place)
+        dt_ms = (time.perf_counter() - t0) * 1e3
         hits, misses = end_pack_window(mark)
-        self.last_pack = ((time.perf_counter() - t0) * 1e3, hits, misses)
+        self.last_pack = (dt_ms, hits, misses)
+        metrics.sample_ms("nomad.solver.pack_ms", dt_ms)
+        if hits:
+            metrics.incr("nomad.solver.pack_cache_hit", hits)
+        if misses:
+            metrics.incr("nomad.solver.pack_cache_miss", misses)
+        tracer.event("solver.pack_cache", tg=tg.name, ms=round(dt_ms, 3),
+                     hits=hits, misses=misses, eligible=lane is not None)
         return lane
 
     def _pack_inner(self, tg, places, nodes, penalty_nodes_per_place=None

@@ -19,6 +19,7 @@ import torch
 
 from .. import kernels
 from ..device import DeviceLike, default_dtype_name, resolve_device
+from . import resident, xferobs
 from .binpack import BINPACK_MAX, NodeConst, NodeState, PlacementBatch
 from .dense import _field_dtype
 from .scoring import _binpack_raw, _fma
@@ -223,6 +224,9 @@ def system_tables(const, init, batch, *, dtype_name: str,
     for a, off in zip(arrs, offs):
         h[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
     buf = host.to(device, non_blocking=True) if cuda else host
+    # the one upload is the system group's payload in the transfer ledger
+    xferobs.note_payload("system", size)
+    resident.note_dispatch_bytes(size)
     want = {"f": dt, "i": torch.int32, "b": torch.bool}
     return [buf[off:off + a.nbytes].view(want[kind]).view(a.shape)
             for (_, _, kind, _), a, off in zip(_TABLE, arrs, offs)]

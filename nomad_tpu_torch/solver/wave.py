@@ -36,7 +36,7 @@ import torch
 
 from .. import kernels
 from ..device import DeviceLike, default_dtype_name, resolve_device
-from . import dense, preempt, resident
+from . import dense, preempt, resident, xferobs
 from .binpack import (
     SKIP_THRESHOLD, WAVE_B, WAVE_K, NodeConst, NodeState, PlacementBatch,
     WaveSpread, _wave_p_bucket, wavefront_buffer_size,
@@ -524,19 +524,26 @@ def solve_lane_fused(const, init, batch, ptab=None, pinit=None, *,
               cache_version=cache_version, delta_src=delta_src)
     if ptab is not None:
         if wave:
-            return preempt.solve_lane_wave_preempt(
-                const, init, batch, ptab, pinit, **kw)
+            return _fetched(preempt.solve_lane_wave_preempt(
+                const, init, batch, ptab, pinit, **kw), "wave_preempt")
         kw["device"] = first_cell(device)
         out = preempt.solve_placements_preempt(
             const, init, batch, ptab, pinit, **kw)
-        return (out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
-                out.n_yielded.cpu().numpy(), out.evict_rows.cpu().numpy())
+        return _fetched((out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
+                         out.n_yielded.cpu().numpy(),
+                         out.evict_rows.cpu().numpy()), "fused_preempt")
     if wave:
-        return solve_lane_wave(const, init, batch, **kw)
+        return _fetched(solve_lane_wave(const, init, batch, **kw), "wave")
     kw["device"] = first_cell(device)
     out = dense.solve_placements(const, init, batch, **kw)
-    return (out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
-            out.n_yielded.cpu().numpy())
+    return _fetched((out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
+                     out.n_yielded.cpu().numpy()), "fused")
+
+
+def _fetched(out: tuple, tag: str) -> tuple:
+    """Count a route's read-back in the transfer ledger under ``tag``."""
+    xferobs.note_fetch(xferobs.tree_nbytes(out), tag)
+    return out
 
 
 # --------------------------------------------------------------------------

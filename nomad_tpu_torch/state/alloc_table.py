@@ -70,6 +70,10 @@ class AllocTable:
             self.n_nodes += 1
         return slot
 
+    def node_ids(self) -> list:
+        """The registered nodes' ids, in slot order."""
+        return list(self._slot_of_node)
+
     def node_slot_of(self, node_id: str) -> int:
         """(reference :216) -1 for a node the table never saw."""
         return self._slot_of_node.get(node_id, -1)

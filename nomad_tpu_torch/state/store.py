@@ -46,6 +46,7 @@ from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from ..faultinject import faults
+from ..server.telemetry import metrics
 from ..structs import Namespace, NodePool, SchedulerConfiguration
 from ..structs.job import JOB_STATUS_DEAD, JOB_STATUS_PENDING
 from .alloc_table import AllocTable
@@ -54,7 +55,8 @@ from .alloc_table import AllocTable
 def _delta_journal_cap() -> int:
     """Alloc-delta journal capacity (entries, one per alloc-table write).
     A span longer than the journal is uncoverable and forces its readers
-    to a wholesale rebuild (counted in ``delta_journal_overflow``)."""
+    to a wholesale rebuild (counted in ``delta_journal_overflow`` and the
+    ``nomad.state.delta_journal_overflow`` series)."""
     try:
         return max(8, int(os.environ.get("NOMAD_TPU_TORCH_DELTA_JOURNAL",
                                          "128")))
@@ -207,6 +209,11 @@ class StateStore:
         self._alloc_deltas: deque = deque(maxlen=_delta_journal_cap())
         self.delta_journal_overflow = 0
         self.alloc_table = AllocTable()
+        # the quality observatory's hook (server/quality.py), set by its
+        # attach: it receives every write's tables and delta pairs beside
+        # the module-level hooks. None (never attached, or
+        # NOMAD_TPU_TORCH_QUALITY=0) is the prior path bit for bit.
+        self._quality_hook = None
 
     def latest_index(self) -> int:
         with self._lock:
@@ -244,6 +251,9 @@ class StateStore:
             if "allocs" in tables:
                 self._alloc_deltas.append((self._index, delta))
             idx = self._index
+            hook = self._quality_hook
+            if hook is not None:
+                hook(tables, idx, delta)
             self._notify_write_hooks(tables, idx, delta)
             self._watch_cond.notify_all()
             return idx
@@ -276,6 +286,7 @@ class StateStore:
             if index < oldest - 1:
                 # the journal wrapped past the reader's base index
                 self.delta_journal_overflow += 1
+                metrics.incr("nomad.state.delta_journal_overflow")
                 return False, pairs
             for idx, delta in self._alloc_deltas:
                 if idx <= index or idx > hi:
@@ -429,6 +440,58 @@ class StateStore:
                 _job_key(alloc), {})[alloc.id] = None
         self.alloc_table.upsert_many(_table_rows(allocs))
         return pairs
+
+    def update_allocs_from_client(self, allocs: Iterable) -> int:
+        """Client status updates (reference :877; upstream: state
+        UpdateAllocsFromClient): each known alloc takes the update's
+        client status, description, task states, network status,
+        deployment status and terminal time, in a new copy; the write
+        journals one (stored, updated) pair per alloc. Unknown ids are
+        skipped."""
+        with self._lock:
+            pairs = []
+            now = time.time()
+            for updated in allocs:
+                existing = self._allocs.get(updated.id)
+                if existing is None:
+                    continue
+                alloc = copy.copy(existing)
+                alloc.client_status = updated.client_status
+                alloc.client_description = updated.client_description
+                alloc.task_states = dict(updated.task_states)
+                alloc.network_status = updated.network_status
+                if updated.deployment_status is not None:
+                    alloc.deployment_status = updated.deployment_status
+                if updated.client_terminal_time:
+                    alloc.client_terminal_time = updated.client_terminal_time
+                alloc.modify_index = self._index + 1
+                alloc.modify_time = now
+                self._allocs[alloc.id] = alloc
+                pairs.append((existing, alloc))
+                self.alloc_table.upsert(alloc)
+            return self._bump("allocs", delta=pairs)
+
+    def quality_usage_by_node(self) -> Dict[str, tuple]:
+        """Per-node-id live (cpu, mem, disk) under the scheduler's
+        liveness filter (client-terminal allocs left out), recounted
+        from the allocs under the store lock: an accounting independent
+        of the quality observatory's delta-kept one, for its parity
+        checks. Every node of the alloc table has a row (zeros where
+        nothing lives), as in the reference's fold."""
+        with self._lock:
+            out: Dict[str, list] = {
+                nid: [0.0, 0.0, 0.0]
+                for nid in self.alloc_table.node_ids()}
+            for a in self._allocs.values():
+                e = out.get(a.node_id)
+                if e is None or not hasattr(a, "allocated_resources") \
+                        or a.client_terminal_status():
+                    continue
+                cr = a.allocated_resources.comparable()
+                e[0] += cr.cpu_shares
+                e[1] += cr.memory_mb
+                e[2] += cr.disk_mb
+            return {nid: tuple(v) for nid, v in out.items()}
 
     def upsert_deployment(self, deployment) -> int:
         """Insert or replace a deployment (keyed by ``deployment.id``)."""

@@ -319,7 +319,8 @@ def test_fault_registry_actions_and_env(monkeypatch):
         ("solver.probe", "delay", 0.5, 3)]
     assert set(faultinject.POINTS) == {
         "solver.dispatch", "solver.probe", "broker.dequeue",
-        "worker.invoke", "worker.crash", "plan.apply", "plan.commit"}
+        "worker.invoke", "worker.crash", "plan.apply", "plan.commit",
+        "quality.skew"}
 
 
 # ----------------------------------------------------------------------

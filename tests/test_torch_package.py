@@ -163,7 +163,15 @@ def test_every_port_env_knob_is_documented():
             "NOMAD_TPU_TORCH_BREAKER_PROBE_TIMEOUT",
             "NOMAD_TPU_TORCH_REPROBE_TIMEOUT",
             "NOMAD_TPU_TORCH_BACKEND_TIMEOUT",
-            "NOMAD_TPU_TORCH_FAULT_INJECT"} <= knobs
+            "NOMAD_TPU_TORCH_FAULT_INJECT", "NOMAD_TPU_TORCH_TRACE",
+            "NOMAD_TPU_TORCH_TRACE_SAMPLE", "NOMAD_TPU_TORCH_TRACE_SLOW_MS",
+            "NOMAD_TPU_TORCH_TRACE_CAP", "NOMAD_TPU_TORCH_TRACE_MB",
+            "NOMAD_TPU_TORCH_TRACE_MAX_SPANS", "NOMAD_TPU_TORCH_XFEROBS",
+            "NOMAD_TPU_TORCH_XFEROBS_RING", "NOMAD_TPU_TORCH_QUALITY",
+            "NOMAD_TPU_TORCH_QUALITY_AUDIT_SAMPLE",
+            "NOMAD_TPU_TORCH_QUALITY_AUDIT_PLACES",
+            "NOMAD_TPU_TORCH_QUALITY_DRIFT_TOL",
+            "NOMAD_TPU_TORCH_QUALITY_ALERT_AFTER"} <= knobs
     missing = sorted(k for k in knobs if k not in readme)
     assert not missing, missing
 
@@ -494,3 +502,24 @@ def test_server_defaults_to_cuda_and_raises_at_start_without_a_card():
     finally:
         server.shutdown()
     assert not _server_threads(before), _server_threads(before)
+
+
+@pytest.mark.parametrize("module", [
+    "nomad_tpu_torch.server.telemetry", "nomad_tpu_torch.server.tracing",
+    "nomad_tpu_torch.solver.xferobs", "nomad_tpu_torch.server.quality"])
+def test_telemetry_modules_load_no_jax_and_nothing_of_the_reference(
+        module):
+    """The telemetry layer's four modules, each loaded alone, pull in
+    torch, numpy and the port only; the registry and the tracer load
+    without the server (the solver's modules import them)."""
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "srv = 'nomad_tpu_torch.server.core' in sys.modules\n"
+        "print(bad, srv)\n"
+        "sys.exit(1 if bad or srv else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
