@@ -26,9 +26,9 @@ Phases (any failure raises and the script exits nonzero with no result):
                   kernel also with spreads and reschedule penalties);
                   then wave_compact's edge groups (WAVE_LIMIT_GROUPS:
                   3, 16 and 17 spreads, and spreads over 16,384 values,
-                  fuzz lanes at P_pad = 512); every output equal to the
+                  fuzz lanes at P_pad = 256); every output equal to the
                   plain version's bits; float64: WAVE_F64_GROUPS (every
-                  form of both kernels on fuzz lanes at P_pad = 512);
+                  form of both kernels on fuzz lanes at P_pad = 256);
                 - dense_scan on one fused group of E = 32 lanes at
                   N = 16,384, P_pad = 2048: 16 packed spread lanes
                   (count 2,000) and 16 fuzz lanes over ports,
@@ -122,14 +122,20 @@ Phases (any failure raises and the script exits nonzero with no result):
                 * 4), pick_mesh giving (4, 1) for the 32 spread lanes (a
                 dense_scan per eval row) and (1, 4) for the
                 distinct_property and reserved-core lanes (the
-                node-sharded step, dense_shard); the 32-lane group on the
-                forced grids (2, 2) and (1, 4); dense_shard against its
-                plain phases on the card (the E = 1 groups, timed, and
-                fuzz groups over every dense feature); the wave headline
-                eval-sharded (a wave_block per cell); one LP generation
-                through solve_queue on (4, 1) and a forced (2, 2), and
-                lp_shard at L 128 x N 16,384 against lp_relax and its
-                plain phases (X and mu bit for bit, timed); phase 9's
+                node-sharded scan: one persistent dense_shard launch per
+                card per dispatch, 2 in each dtype's slice); the 32-lane
+                group on the forced grids (2, 2) and (1, 4); dense_shard
+                against its plain phases on the card (the E = 1 groups,
+                timed beside dense_scan on the same lane, and fuzz groups
+                over every dense feature), and with the exchange in
+                pinned host memory; the wave headline eval-sharded (a
+                wave_block per cell); one LP generation through
+                solve_queue on (4, 1) (one lp_shard launch) and a forced
+                (2, 2), and lp_shard at L 128 x N 16,384 against
+                lp_relax, its plain phases and the host-memory exchange
+                (X and mu bit for bit, timed beside lp_relax); the wait
+                drill: each kernel launched for one cell of a two-cell
+                group with a 50 ms budget must raise; phase 9's
                 four generations through the grid's per-shard pool and
                 version chain (g3 promotes through coord_scatter; chain
                 buffers equal to their shadows; per-cell counters), and
@@ -243,8 +249,8 @@ Phases (any failure raises and the script exits nonzero with no result):
                 its shipped bytes equal to resident.stats()'s, every
                 eval's trace (all kept) holding broker.wait through
                 plan.commit from more than one thread, the fused
-                dispatch with 32 lanes; the shadow audit replaying 4
-                simple jobs x 200 of the kernels' solves on the host
+                dispatch with 32 lanes; the shadow audit replaying a
+                simple job x 100 of the kernels' solves on the host
                 (decision mismatches 0, score drift within 1e-3), and
                 the quality.skew drill latching its alert; a failed
                 acknowledgement's alloc-failure reschedule through
@@ -778,20 +784,20 @@ def wave_groups(np, torch, bp, svc, tp, world, dtype_name):
 
 
 # (B, S, V) of the kernel phase's wave_compact groups at the edges of the
-# kernel's forms, fuzz lanes at P_pad = 512: 3 and 16 spreads (value
+# kernel's forms, fuzz lanes at P_pad = 256: 3 and 16 spreads (value
 # indexes in registers, past the S <= 2 form), 17 (one spread's index read
 # from the compact row), and one or two spreads over a per-node attribute
 # of the headline's 16,384 nodes (the desired counts beside the counts in
 # shared memory for one, read from global memory for two)
 WAVE_LIMIT_GROUPS = ((128, 3, 10), (128, 16, 10), (128, 17, 10),
                      (32, 17, 10), (128, 1, 16_384), (128, 2, 16_384))
-LIMIT_P_PAD = 512
+LIMIT_P_PAD = 256
 
 
 # float64's wave groups: each form of both wave kernels on fuzz lanes at
-# the limit groups' window (P_pad 512), (kname, B, S, V). The plain
+# the limit groups' window (P_pad 256), (kname, B, S, V). The plain
 # versions step once per compact row, so the headline shape's 2,080-2,176
-# rows cost about 4x the host time of these 640; float32 keeps the
+# rows cost about 6x the host time of these 288-384; float32 keeps the
 # headline shape and every limit group.
 WAVE_F64_GROUPS = (("wave_block", 32, 0, 10), ("wave_compact", 32, 0, 10),
                    ("wave_block", 128, 0, 10), ("wave_compact", 128, 2, 10),
@@ -1276,7 +1282,7 @@ def dense_fuzz_check(np, torch, bp, dense, kernels, rng, dtype_name, E, n,
     dt = np.dtype(dtype_name).type
     fuzz_sets = DENSE_FUZZ_SETS
     dicts = [widen(np, *dense_fuzz_tables(
-        np, rng, n=n, n_pad=n_pad, p=256 if E <= 8 else 96,
+        np, rng, n=n, n_pad=n_pad, p=128 if E <= 8 else 64,
         dtype=dtype_name, limit=int(rng.choice([3, 14, 100, 2000])),
         features=fuzz_sets[k % len(fuzz_sets)]), dt) for k in range(E)]
     small = dense.lane_tensors(*dense_group(np, bp, dicts),
@@ -2071,15 +2077,15 @@ def preempt_kernel_phase(np, torch, bp, preempt, dense, kernels, svc, tp,
 def wave_preempt_small_lanes(np, rng, dtype_name):
     """The windowed kernel's wide-buffer and wide-candidate worlds, 8
     fuzz lanes each: B = 128 (the limit-100 window of affinity lanes,
-    N = 4,096, P = 256) and A = 64 (N = 1,024, P = 128, limit 14)."""
+    N = 4,096, P = 128) and A = 64 (N = 1,024, P = 64, limit 14)."""
     sets = (("affinity",), ("tiers", "affinity", "penalties"),
             ("distinct", "affinity"), ("scarce", "affinity"))
     wide = [list(preempt_fuzz_tables(
-        np, rng, n=4000, n_pad=4096, p=256, dtype=dtype_name, limit=100,
+        np, rng, n=4000, n_pad=4096, p=128, dtype=dtype_name, limit=100,
         features=sets[k % len(sets)] + ("devices",), A=PREEMPT_A, G=64))
         for k in range(8)]
     many = [list(preempt_fuzz_tables(
-        np, rng, n=1000, n_pad=1024, p=128, dtype=dtype_name, limit=14,
+        np, rng, n=1000, n_pad=1024, p=64, dtype=dtype_name, limit=14,
         features=("many", "tiers", "penalties") + sets[k % len(sets)][:1],
         A=64, G=64)) for k in range(8)]
     return (("B=128", wide), ("A=64", many))
@@ -2129,7 +2135,7 @@ def preempt_small_checks(np, torch, bp, preempt, dense, kernels,
     for E, n, n_pad, A, G in cases:
         many = ("many",) if A == 64 else ()
         lanes = [list(preempt_fuzz_tables(
-            np, rng, n=n, n_pad=n_pad, p=64 if E <= 8 else 32,
+            np, rng, n=n, n_pad=n_pad, p=32 if E <= 8 else 16,
             dtype=dtype_name, limit=int(rng.choice([3, 5, 14, 2000])),
             features=(("tiers", "maxp", "penalties", "distinct", "scarce",
                        "affinity", "job_level", "inert")[k % 8],)
@@ -2271,17 +2277,17 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
 
     # warm end-to-end time of the preemption dispatch, host clock
     times = []
-    for _ in range(5):
+    for _ in range(3):
         t1 = time.perf_counter()
         batch.fuse_and_solve(lanes, device=DEVICE)
         times.append((time.perf_counter() - t1) * 1e3)
     fuse_ms = statistics.median(times)
-    # where it goes (medians of 5, host clock with a synchronize after
+    # where it goes (medians of 3, host clock with a synchronize after
     # each device part): stacking the lanes, the windowed group's host
     # precompute, shipping the tables, the kernels, fetching the results
     parts = {"fuse_lanes": [], "wave_preempt_inputs": [], "to_device": [],
              "kernels": [], "fetch": []}
-    for _ in range(5):
+    for _ in range(3):
         t1 = time.perf_counter()
         groups = batch.fuse_lanes(lanes)
         t2 = time.perf_counter()
@@ -2593,19 +2599,15 @@ def lpq_slice_phase(np, torch, lpq, kernels, svc, tp, world):
     # ledger), host clock, and where it goes: the phases of
     # _solve_lp_group (views and values; the LP: inputs to the card,
     # kernel, fetch; rounding and repair; quality comparison; score
-    # follow), medians of 3
+    # follow): the dispatch a median of 3, the split of one more run
     times = []
     for _ in range(3):
         t1 = time.perf_counter()
         lpq.solve_queue(gen1, {}, device=DEVICE)
         times.append((time.perf_counter() - t1) * 1e3)
     solve_ms = statistics.median(times)
-    runs = []
-    for _ in range(3):
-        t = {}
-        lpq._solve_lp_group(gen1, {}, device=DEVICE, timings=t)
-        runs.append(t)
-    parts = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    parts = {}
+    lpq._solve_lp_group(gen1, {}, device=DEVICE, timings=parts)
     placed = LPQ_EVALS * LPQ_PLACE
     log(f"lpq slice: {LPQ_EVALS} evals x {LPQ_PLACE} placements x "
         f"{N_NODES} nodes, two generations through LpqBarrier: all "
@@ -3169,6 +3171,7 @@ MESH_CELLS = 4
 MESH_FUZZ_N, MESH_FUZZ_P = 1_024, 64   # fuzz groups held against the plain
 # dense_shard phases (E = 8, every dense feature) on each 4-cell grid with
 # more than one node column
+MESH_DRILL_BUDGET_S = 0.05             # the wait drill's budget
 
 
 def same_outputs(np, got, want, what):
@@ -3180,14 +3183,14 @@ def same_outputs(np, got, want, what):
             raise AssertionError(f"{what}: output {k} differs")
 
 
-def shard_rows(mesh, dense, grid, trees, *, spread_alg, dtype_name):
-    """Fresh ShardCells of a stacked numpy group over ``grid``."""
+def shard_rows(mesh, dense, grid, trees, *, spread_alg, dtype_name,
+               host_exchange=False):
+    """Fresh ShardCells of a stacked numpy group over ``grid``, each
+    evals row sharing its exchange area."""
     s = mesh.shard_solver_inputs(grid, *trees)
-    cast = dense.lane_casts(dtype_name)
-    return [[dense.ShardCell(*(mesh._cell_tree(t, i, j, cast)
-                               for t in (s.const, s.init, s.batch)),
-                             j=j, n_par=grid.n_par, spread_alg=spread_alg)
-             for j in range(grid.n_par)] for i in range(grid.e_par)]
+    return mesh.shard_cells(grid, s, dense.lane_casts(dtype_name),
+                            spread_alg=spread_alg,
+                            host_exchange=host_exchange)
 
 
 def rows_outputs(np, rows):
@@ -3196,36 +3199,94 @@ def rows_outputs(np, rows):
                  for f in ("chosen", "scores", "n_yielded"))
 
 
-def shard_plain_phase(dense):
-    return lambda c, phase, step: dense._SHARD_PLAIN[phase](c, step)
+def run_shard_kernel(np, mesh, rows, host_exchange=False):
+    """The persistent dense_shard launch over ``rows`` (one per card):
+    its outputs, then its error word read."""
+    from nomad_tpu_torch.solver import exchange
+    err = mesh.run_persistent(rows, host_exchange=host_exchange)
+    out = rows_outputs(np, rows)
+    exchange.check(err)
+    return out
 
 
 def mesh_dense_check(np, torch, mesh, dense, grid, trees, *, spread_alg,
-                     dtype_name, want, what, timing=False):
-    """dense_shard on ``grid`` against its plain phases on the card and
-    against ``want`` (the one-card route's host outputs), bit for bit;
-    returns (ms, plain_ms, device ms or None) when ``timing`` (CUDA
-    events around the whole host-driven step loop: the orchestration is
-    part of the time; the device ms in float32 only)."""
+                     dtype_name, want, what, timing=False, host=False):
+    """dense_shard on ``grid`` (one persistent launch) against its plain
+    phases on the card (mesh.run_node_sharded, the same exchange area
+    read in place) and against ``want`` (the one-card route's host
+    outputs), bit for bit; with ``host`` once more with every exchange
+    area in pinned host memory. Returns (ms, plain_ms, device ms) when
+    ``timing``: ms between CUDA events around the wrapper (the device
+    table and the launch; host part included), device ms of the launch
+    alone over fresh cells (a run advances its cells' state)."""
+    from nomad_tpu_torch.solver import exchange
     kw = dict(spread_alg=spread_alg, dtype_name=dtype_name)
     rows = shard_rows(mesh, dense, grid, trees, **kw)
-    _, ms = time_once(torch, lambda: mesh.run_node_sharded(rows))
+    err, ms = time_once(torch, lambda: mesh.run_persistent(rows))
     got = rows_outputs(np, rows)
+    exchange.check(err)
     prow = shard_rows(mesh, dense, grid, trees, **kw)
-    _, plain_ms = time_once(torch, lambda: mesh.run_node_sharded(
-        prow, phase_fn=shard_plain_phase(dense)))
+    _, plain_ms = time_once(torch, lambda: mesh.run_node_sharded(prow))
     same_outputs(np, got, rows_outputs(np, prow),
                  f"{what}: kernel vs plain phases")
     same_outputs(np, got, want, f"{what}: grid vs one card")
+    if host:
+        same_outputs(np, run_shard_kernel(np, mesh, shard_rows(
+            mesh, dense, grid, trees, host_exchange=True, **kw),
+            host_exchange=True), want,
+            f"{what}: host-memory exchange vs one card")
     if not timing:
         return None
-    if dtype_name != "float32":
-        return ms, plain_ms, None
-    # the device time over fresh cells (a run advances its cells' state)
     fresh = iter([shard_rows(mesh, dense, grid, trees, **kw)
                   for _ in range(8)])
-    dms = device_ms(torch, lambda: mesh.run_node_sharded(next(fresh)), 2)
+    dms = device_ms(torch, lambda: mesh.run_persistent(next(fresh)), 2)
     return ms, plain_ms, dms
+
+
+def mesh_drill(np, torch, dense, lpq, mesh, seed):
+    """A two-cell group launched for one cell alone, each kernel, with a
+    budget of MESH_DRILL_BUDGET_S: the lone cell's wait runs out, writes
+    the error word and leaves; reading the result raises
+    ExchangeTimeout. Returns each drill's ms to the raise."""
+    from nomad_tpu_torch.solver import exchange
+    from nomad_tpu_torch.solver import binpack as pbp
+    out = {}
+    rng = np.random.default_rng(seed + 80)
+    fl = [dense_fuzz_tables(np, rng, n=MESH_FUZZ_N - 24, n_pad=MESH_FUZZ_N,
+                            p=MESH_FUZZ_P, dtype="float32", limit=6,
+                            features=DENSE_FEATURES[1:]) for _ in range(2)]
+    trees = tuple(cls(**{f: np.stack([ln[k][f] for ln in fl])
+                         for f in cls._fields})
+                  for k, cls in enumerate((pbp.NodeConst, pbp.NodeState,
+                                           pbp.PlacementBatch)))
+    grid = mesh.make_mesh([DEVICE] * 2, eval_parallel=1)
+    rows = shard_rows(mesh, dense, grid, trees, spread_alg=False,
+                      dtype_name="float32")
+    arrays = lp_fuzz_inputs(np, rng, 16, 256, over=True)
+    lgrid = mesh.make_mesh([DEVICE] * 2, eval_parallel=2)
+    s_in, _ = mesh.shard_lpq_inputs(lgrid, *arrays)
+    lrows = mesh.lpq_cells(lgrid, s_in, lpq.lp_temperatures(8))
+    for name, run, cell in (
+            ("dense_shard", lambda: dense.dense_shard(
+                [rows[0][0]], budget_s=MESH_DRILL_BUDGET_S), rows[0][0]),
+            ("lp_shard", lambda: lpq.lp_shard(
+                [lrows[0][0]], budget_s=MESH_DRILL_BUDGET_S), lrows[0][0])):
+        t0 = time.perf_counter()
+        try:
+            # the plain step loops refuse the lone cell at once; the kernel's
+            # wait runs out and the read of its error word raises
+            err = run()
+            (cell.chosen if name == "dense_shard" else cell.X).cpu()
+            exchange.check(err)
+        except exchange.ExchangeTimeout as e:
+            out[name] = (time.perf_counter() - t0) * 1e3
+            log(f"mesh drill {name}: a two-cell group launched for one "
+                f"cell alone raised after {out[name]:.1f} ms (budget "
+                f"{MESH_DRILL_BUDGET_S * 1e3:.0f} ms): {e}")
+            continue
+        raise AssertionError(f"mesh drill {name}: the lone cell's wait "
+                             "did not raise")
+    return out
 
 
 def mesh_dense_phase(np, torch, batch, dense, mesh, kernels, svc, tp, world,
@@ -3233,11 +3294,14 @@ def mesh_dense_phase(np, torch, batch, dense, mesh, kernels, svc, tp, world,
     """The dense slice over a 4-cell grid of cuda:0, both dtypes:
     fuse_and_solve(device=[cuda] * 4) picks (4, 1) for the 32 spread lanes
     (a dense_scan per eval row) and (1, 4) for the distinct_property and
-    reserved-core lanes (the node-sharded step, dense_shard), each lane
-    equal to the one-card route bit for bit; then the 32-lane group on
-    the forced grids (2, 2) and (1, 4); dense_shard against its plain
-    phases on the card at the main path's E = 1 groups (float32, timed)
-    and on fuzz groups (both dtypes)."""
+    reserved-core lanes (the node-sharded scan: one persistent dense_shard
+    launch each, 2 in all), each lane equal to the one-card route bit for
+    bit; then the 32-lane group on the forced grids (2, 2) and (1, 4);
+    dense_shard against its plain phases on the card at the main path's
+    E = 1 groups (float32, timed beside dense_scan on the same lane on
+    one card; the distinct_property lane once more with the exchange in
+    pinned host memory) and on fuzz groups (both dtypes; float64's (2, 2)
+    group also in host memory)."""
     cells = [DEVICE] * MESH_CELLS
     out = {"kernels": []}
     for dtn in ("float32", "float64"):
@@ -3264,11 +3328,12 @@ def mesh_dense_phase(np, torch, batch, dense, mesh, kernels, svc, tp, world,
         stats = mesh.mesh_stats()
         log(f"mesh dense slice {dtn}: grids {picked}; launches {launches};"
             f" mesh {stats}; fuse_and_solve_ms={ms:.1f} (host clock, "
-            f"{MESH_CELLS} cells of one card: per-step orchestration, not "
-            "multi-card speed)")
+            f"{MESH_CELLS} cells of one card, not multi-card speed)")
         assert sorted(picked) == sorted([(N_EVALS, (4, 1)), (1, (1, 4)),
                                          (1, (1, 4))]), picked
-        assert launches["dense_shard"] > 0 and launches["dense_scan"] == 4
+        # one persistent launch per card per node-sharded dispatch
+        assert launches["dense_shard"] == 2 and launches["dense_scan"] == 4
+        assert stats["persistent_launches"] == 2, stats
         for k, (g, w) in enumerate(zip(got, one)):
             same_outputs(np, g, w, f"mesh dense slice {dtn} lane {k}")
         if dtn == "float32":
@@ -3296,7 +3361,8 @@ def mesh_dense_phase(np, torch, batch, dense, mesh, kernels, svc, tp, world,
                                      f"mesh {shape} 32-lane group {dtn}")
                         log(f"mesh dense {dtn} 32 lanes on {shape}: equal "
                             f"to one card; mesh_solve ms={gms:.1f} (CUDA "
-                            "events around the host-driven loop)")
+                            "events around the call: inputs shipped, one "
+                            "launch)")
                         out[f"forced_{shape[0]}x{shape[1]}_ms_{dtn}"] = gms
                     continue
                 if dtn == "float64":
@@ -3305,29 +3371,40 @@ def mesh_dense_phase(np, torch, batch, dense, mesh, kernels, svc, tp, world,
                     continue
                 # an E = 1 group of the main path on (1, 4): the kernel
                 # against its plain phases, timed
+                lane = ("distinct_property" if g.const.dp_vidx.shape[1]
+                        else "reserved_cores")
                 grid = mesh.make_mesh(cells, eval_parallel=1)
                 ms_k, plain_ms, dms = mesh_dense_check(
                     np, torch, mesh, dense, grid, trees,
                     spread_alg=g.spread_alg, dtype_name=dtn, want=want,
-                    what=f"dense_shard lane {g.idxs} {dtn}", timing=True)
+                    what=f"dense_shard lane {g.idxs} {dtn}", timing=True,
+                    host=lane == "distinct_property")
+                C = kernels.DENSE_SHARD.last_cluster()
                 c, st, b = dense.lane_tensors(*trees, dtype_name=dtn,
                                               device=torch.device(DEVICE))
                 ref = dense.dense_scan(c, st, b, spread_alg=g.spread_alg)
                 bound_ms, bound_by, nbytes, flops = dense_bound(
                     torch, c, st, b, ref, dtn)
+                # the same lane through dense_scan on one card (the aim's
+                # yardstick; each call rescans the lane from its tables)
+                one_lane_ms = timed(torch, lambda: dense.dense_scan(
+                    c, st, b, spread_alg=g.spread_alg), 5)
                 row = dict(name="dense_shard", dtype=dtn,
                            shape=[1, int(c.cpu_cap.shape[1]),
                                   int(b.ask_cpu.shape[1]), 1, 4],
                            ms=ms_k, device_ms=dms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
                            bytes=nbytes, flops=flops, max_abs_err=0.0,
-                           lane="distinct_property" if g.const.dp_vidx.shape[1]
-                           else "reserved_cores")
+                           cluster=C, one_card_dense_scan_ms=one_lane_ms,
+                           lane=lane)
                 log(f"kernel dense_shard {dtn} {row['lane']} on (1, 4): "
-                    f"N={row['shape'][1]} P={row['shape'][2]} "
-                    f"ms={ms_k:.2f} plain_ms={plain_ms:.1f} "
-                    f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes} B, "
-                    f"{flops} flop); equal to plain and one card")
+                    f"N={row['shape'][1]} P={row['shape'][2]} C={C} "
+                    f"ms={ms_k:.3f} device_ms={dms} plain_ms="
+                    f"{plain_ms:.1f} bound_ms={bound_ms:.6f} ({bound_by}, "
+                    f"{nbytes} B, {flops} flop); dense_scan on one card "
+                    f"{one_lane_ms:.3f} ms; equal to plain and one card"
+                    + ("; and with the exchange in host memory"
+                       if lane == "distinct_property" else ""))
                 out["kernels"].append(row)
         finally:
             batch.release_groups(groups)
@@ -3351,10 +3428,13 @@ def mesh_dense_phase(np, torch, batch, dense, mesh, kernels, svc, tp, world,
             grid = mesh.make_mesh(cells, eval_parallel=e_par)
             mesh_dense_check(np, torch, mesh, dense, grid, trees,
                              spread_alg=False, dtype_name=dtn, want=want,
-                             what=f"dense_shard fuzz {grid.shape} {dtn}")
+                             what=f"dense_shard fuzz {grid.shape} {dtn}",
+                             host=dtn == "float64" and e_par == 2)
         log(f"kernel dense_shard {dtn} fuzz E=8 N={MESH_FUZZ_N} "
             f"P={MESH_FUZZ_P} on (2, 2) and (1, 4): equal to the plain "
-            "phases and to one card")
+            "phases and to one card"
+            + ("; (2, 2) with the exchange in host memory too"
+               if dtn == "float64" else ""))
     return out
 
 
@@ -3384,11 +3464,15 @@ def mesh_wave_phase(np, batch, mesh, kernels, svc, tp, world):
 
 def mesh_lp_phase(np, torch, lpq, mesh, kernels, svc, world, seed):
     """One LP generation (128 evals x 8) through solve_queue over 4 cells:
-    pick_mesh gives (4, 1); then (2, 2) forced; the generation's X and mu
-    bit for bit the one-card lp_relax's, and the results equal. Then lp_shard at the main path's shape (L 128, N
-    16,384, fuzz): X and mu bit for bit against lp_relax on one card and
-    against its plain phases on the card, on (4, 1) and (2, 2); timed on
-    (4, 1)."""
+    pick_mesh gives (4, 1), one persistent lp_shard launch; then (2, 2)
+    forced; the generation's X and mu bit for bit the one-card lp_relax's,
+    and the results equal. Then lp_shard at the main path's shape (L 128,
+    N 16,384, fuzz): X and mu bit for bit against lp_relax on one card and
+    against its plain phases on the card (mesh.run_lpq_cells), on (4, 1)
+    and (2, 2); (4, 1) once more with the exchange in pinned host memory;
+    timed on (4, 1) (the call: mesh_lpq; the device: the launch alone on
+    its cells) beside lp_relax on one card."""
+    from nomad_tpu_torch.solver import exchange
     cells = [DEVICE] * MESH_CELLS
     gen1 = lpq_gen1_lanes(np, svc, world)
     # the generation's X and mu, as each route returns them
@@ -3423,14 +3507,23 @@ def mesh_lp_phase(np, torch, lpq, mesh, kernels, svc, world, seed):
     finally:
         lpq.lp_relax, mesh.mesh_lpq = real_relax, real_mesh_lpq
         mesh.pick_mesh = real_pick
-    assert launches["lp_shard"] > 0 and launches["lp_relax"] == 0, launches
+    # one persistent launch for the LP generation
+    assert launches["lp_shard"] == 1 and launches["lp_relax"] == 0, launches
     assert stats["lpq_dispatches"] == 1, stats
+    assert stats["persistent_launches"] == 1, stats
     for k, (g, w) in enumerate(zip(got, one)):
         same_outputs(np, g, w, f"mesh lp lane {k}")
     for k, (g, w) in enumerate(zip(forced, one)):
         same_outputs(np, g, w, f"mesh lp (2, 2) lane {k}")
     log(f"mesh lp tier: {LPQ_EVALS} evals on (4, 1) and (2, 2) equal to "
-        f"one card; launches {launches}; solve_queue_ms={ms:.1f}")
+        f"one card; launches {launches}; mesh {stats}; "
+        f"solve_queue_ms={ms:.1f}")
+
+    def grid_lpq(grid, s_in, temps, **kw):
+        X, mu = mesh.mesh_lpq(grid, s_in, temps, **kw)
+        torch.cuda.synchronize()
+        exchange.check(getattr(X, "exchange_error", None))
+        return X, mu
 
     L, N = LP_TIMED
     rng = np.random.default_rng(seed + 70)
@@ -3443,32 +3536,40 @@ def mesh_lp_phase(np, torch, lpq, mesh, kernels, svc, world, seed):
     for e_par in (4, 2):
         grid = mesh.make_mesh(cells, eval_parallel=e_par)
         s_in, _ = mesh.shard_lpq_inputs(grid, *arrays)
-        got_k, k_ms = time_once(torch, lambda: mesh.mesh_lpq(grid, s_in,
-                                                             temps))
+        got_k, k_ms = time_once(torch, lambda: grid_lpq(grid, s_in, temps))
         compare_lp(torch, f"lp_shard {grid.shape} vs lp_relax", got_k, want)
-        if e_par == 4:
-            k_ms = timed(torch, lambda: mesh.mesh_lpq(grid, s_in, temps), 5)
-            k_dms = device_ms(torch, lambda: mesh.mesh_lpq(grid, s_in,
-                                                           temps), 3)
-            real = lpq.lp_shard_phase
-            lpq.lp_shard_phase = lambda c, ph, t: lpq._lp_shard_plain(c, ph,
-                                                                      t)
-            try:
-                got_p, plain_ms = time_once(
-                    torch, lambda: mesh.mesh_lpq(grid, s_in, temps))
-            finally:
-                lpq.lp_shard_phase = real
-            compare_lp(torch, "lp_shard plain phases vs lp_relax", got_p,
-                       want)
-            bound_ms, bound_by, nbytes, flops = lp_bound(L, N, LP_STEPS)
-            row = dict(name="lp_shard", dtype="float32",
-                       shape=[L, N, 4, 1], ms=k_ms, device_ms=k_dms,
-                       plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                       flops=flops, max_abs_err=0.0)
-            log(f"kernel lp_shard (4, 1) L={L} N={N}: bit-exact vs lp_relax"
-                f" and the plain phases; ms={k_ms:.2f} plain_ms="
-                f"{plain_ms:.1f} bound_ms={bound_ms:.6f} ({bound_by})")
+        if e_par != 4:
+            continue
+        k_ms = timed(torch, lambda: mesh.mesh_lpq(grid, s_in, temps), 5)
+        # the launch alone, on cells built once (the anneal carries no
+        # state from a run to the next)
+        lcells = [c for r in mesh.lpq_cells(grid, s_in, temps) for c in r]
+        err = lpq.lp_shard(lcells)
+        torch.cuda.synchronize()
+        exchange.check(err)
+        compare_lp(torch, "lp_shard launch alone vs lp_relax",
+                   (lcells[0].X, lcells[0].mu),
+                   (want[0][:L // e_par], want[1]))
+        k_dms = device_ms(torch, lambda: lpq.lp_shard(lcells), 5)
+        compare_lp(torch, "lp_shard host-memory exchange vs lp_relax",
+                   grid_lpq(grid, s_in, temps, host_exchange=True), want)
+        prow = mesh.lpq_cells(grid, s_in, temps)
+        _, plain_ms = time_once(
+            torch, lambda: mesh.run_lpq_cells(prow))
+        compare_lp(torch, "lp_shard plain phases vs lp_relax",
+                   (torch.cat([r[0].X for r in prow]), prow[0][0].mu), want)
+        one_ms = timed(torch, lambda: lpq.lp_relax(*ins), 5)
+        bound_ms, bound_by, nbytes, flops = lp_bound(L, N, LP_STEPS)
+        row = dict(name="lp_shard", dtype="float32",
+                   shape=[L, N, 4, 1], ms=k_ms, device_ms=k_dms,
+                   plain_ms=plain_ms, one_card_lp_relax_ms=one_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   flops=flops, max_abs_err=0.0)
+        log(f"kernel lp_shard (4, 1) L={L} N={N}: bit-exact vs lp_relax,"
+            f" the plain phases and the host-memory exchange; ms={k_ms:.3f}"
+            f" device_ms={k_dms} plain_ms={plain_ms:.1f} bound_ms="
+            f"{bound_ms:.6f} ({bound_by}); lp_relax on one card "
+            f"{one_ms:.3f} ms")
     return dict(launches=launches, solve_queue_ms=ms, mesh_stats=stats,
                 kernel=row)
 
@@ -5918,9 +6019,10 @@ def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
     return report
 
 
-TEL_AUDIT_JOBS, TEL_AUDIT_PLACE = 4, 200    # the audit's simple jobs
-TEL_COST_ROUNDS = 2                  # measured rounds per switch setting
-TEL_CUT_AT_S = 750.0                 # past this, one cost round of each
+TEL_AUDIT_JOBS, TEL_AUDIT_PLACE = 1, 100    # the audit's simple jobs
+TEL_SKEW_JOBS = 3                    # the skew drill's: the alert's default
+                                     # threshold (QUALITY_ALERT_AFTER)
+TEL_COST_ROUNDS = 1                  # measured rounds per switch setting
 TEL_SPANS = ("broker.wait", "worker.wait_for_index", "worker.invoke",
              "solver.pack", "solver.barrier", "solver.fuse_dispatch",
              "solver.materialize", "plan.submit", "plan.evaluate",
@@ -5986,15 +6088,14 @@ def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
          = 1 and TEL_AUDIT_JOBS simple jobs x TEL_AUDIT_PLACE: every
          kernel solve replayed on the host, decision mismatches 0 and
          score drift within the tolerance (1e-3); then quality.skew armed
-         and as many jobs again: the alert latches after ALERT_AFTER
+         and TEL_SKEW_JOBS jobs: the alert latches after ALERT_AFTER
          (3) violating audits;
       3. a failed acknowledgement: one audit alloc acknowledged failed
          (its job reschedules at once) enqueues an alloc-failure eval,
          whose lane carries the penalty and launches wave_compact;
       4. the cost: the measured round alone on a fresh fleet store, with
          the three kill switches off and on in turn (TEL_COST_ROUNDS of
-         each; one of each once the script's clock has passed
-         TEL_CUT_AT_S), placements and normalized-score bits equal in
+         each), placements and normalized-score bits equal in
          every round; wall ms (evals written to the last commit) and
          placements/s printed for each, and the difference of the means.
     Prints the slowest measured eval's waterfall, the saturation report's
@@ -6248,7 +6349,7 @@ def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
                     drift_tol=audit["drift_tol"])
                 faults.arm("quality.skew", "error")
                 try:
-                    sjobs = make_jobs("tel-skew", TEL_AUDIT_JOBS,
+                    sjobs = make_jobs("tel-skew", TEL_SKEW_JOBS,
                                       TEL_AUDIT_PLACE)
                     register_each(server, sjobs, "skew jobs")
                     assert observatory.audit.wait_idle(timeout=120.0)
@@ -6342,12 +6443,9 @@ def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
         log(f"telemetry chrome trace: {report['chrome_trace']}")
 
     # -- 4. the cost of the layer on the measured round --------------------
-    n_rounds = TEL_COST_ROUNDS
-    if time.perf_counter() - t_start > TEL_CUT_AT_S:
-        n_rounds = 1
     cost = {"on": [], "off": []}
     placed = []
-    order = ["off", "on"] * n_rounds
+    order = ["off", "on"] * TEL_COST_ROUNDS
     for setting in order:
         env = {k: ("0" if setting == "off" else "1") for k in TEL_SWITCHES}
         with EnvPatch(**env):
@@ -6444,12 +6542,14 @@ AB_SOURCES = {"dense_scan": "dense_scan.cu",
               "wave_compact": "wave_compact.cu",
               "wavefront": "wavefront.cu",
               "system_fit": "system_fit.cu",
-              "delta_scatter": "delta_scatter.cu"}
+              "delta_scatter": "delta_scatter.cu",
+              "dense_shard": "dense_shard.cu",
+              "lp_shard": "lp_relax.cu"}
 WAVE_KERNELS = ("wave_block", "wave_compact", "wavefront")
 # kernels whose A/B runs each variant's own package (its wrapper and the
 # host code around the kernel, imported from the tree that holds DIR as
 # its nomad_tpu_torch/csrc), so call time and device time both compare
-PACKAGED = ("system_fit", "delta_scatter")
+PACKAGED = ("system_fit", "delta_scatter", "dense_shard", "lp_shard")
 SCATTER_G3 = (1_572_864, 256)       # the residency path's g3 scatter
 AB_REPEATS = 10
 AB_TILE = 2048                      # the older one-block walk's tile
@@ -6476,6 +6576,13 @@ AB_SECTIONS = {
                      "shift", "total", "steps", "searches"),
     "lp_relax": ("start", "rows", "rows_sync", "nodes", "nodes_sync",
                  "final", "total", "steps", "logits", "max", "windows",
+                 "tree", "x"),
+    # the persistent mesh kernels' first unit's block 0 (dense_shard.cu,
+    # lp_relax.cu lp_shard_kernel), read per step
+    "dense_shard": ("-", "score", "count_x", "mark", "record_x", "commit",
+                    "total", "steps"),
+    "lp_shard": ("start", "rows", "rows_sync", "exchange", "nodes",
+                 "nodes_sync", "total", "steps", "logits", "max", "windows",
                  "tree", "x"),
 }
 
@@ -6835,7 +6942,8 @@ def ab_package(tag, csrc):
     import importlib.util
     from types import SimpleNamespace
     pkg_dir = csrc.parent
-    mods = ("kernels", "solver.system", "solver.service", "solver.resident")
+    mods = ("kernels", "solver.system", "solver.service", "solver.resident",
+            "parallel.mesh")
     if pkg_dir == (ROOT / "nomad_tpu_torch").resolve():
         name = "nomad_tpu_torch"
     else:
@@ -6852,14 +6960,90 @@ def ab_package(tag, csrc):
         spec.loader.exec_module(mod)
     got = [importlib.import_module(f"{name}.{m}") for m in mods]
     return SimpleNamespace(**dict(zip(("kernels", "system", "service",
-                                       "resident"), got)))
+                                       "resident", "mesh"), got)))
 
 
-def ab_case(name, kname, shape, make, want, same):
+def ab_case(name, kname, shape, make, want, same, repeats=None):
     """A packaged case: ``make(pkg)`` returns the call to time, run with
-    that package's wrapper and host code."""
+    that package's wrapper and host code (``repeats`` warm calls a turn,
+    AB_REPEATS by default)."""
     return dict(name=name, kernel=kname, shape=shape, make=make, want=want,
-                same=same)
+                same=same, repeats=repeats or AB_REPEATS)
+
+
+def ab_mesh_cases(np, torch, batch, dense, lpq, svc, tp, world, names):
+    """Rows 9a and 9c through each variant's mesh route on 4 cells of the
+    card (its mesh_solve / mesh_lpq: inputs shipped, the kernel or the
+    host-driven step loop, results read): the dense slice's
+    distinct_property and reserved-core lanes on (1, 4) (the main path's
+    E = 1 groups), its 32 spread lanes on the forced grids (1, 4) and
+    (2, 2) (3 calls a turn: the host-driven loop takes seconds), and the
+    LP tier's L 128 x N 16,384 relaxation on (4, 1); float32, every
+    output equal to the one-card route's."""
+    from nomad_tpu_torch.solver import exchange
+    cells = [DEVICE] * MESH_CELLS
+    cases = []
+    if "dense_shard" in names:
+        lanes = slice2_lanes(np, tp, svc, world, "float32",
+                             n_spread=N_EVALS)
+        groups = batch.fuse_lanes(lanes)
+        try:
+            for g in groups:
+                trees = tuple(type(t)(*(np.array(a) for a in t))
+                              for t in (g.const, g.init, g.batch))
+                want = tuple(x.cpu().numpy() for x in dense.solve_placements(
+                    *trees, spread_alg=g.spread_alg, dtype_name="float32",
+                    device=DEVICE)[:3])
+                if len(g.idxs) == N_EVALS:
+                    shapes = ((1, 4), (2, 2))
+                    lane = "32 spread lanes"
+                else:
+                    shapes = ((1, 4),)
+                    lane = ("distinct_property" if g.const.dp_vidx.shape[1]
+                            else "reserved_cores")
+
+                for shape in shapes:
+                    def make(pkg, _t=trees, _s=shape, _a=g.spread_alg):
+                        grid = pkg.mesh.make_mesh(cells,
+                                                  eval_parallel=_s[0])
+                        return lambda: pkg.mesh.mesh_solve(
+                            grid, *_t, spread_alg=_a, dtype_name="float32")
+
+                    cases.append(ab_case(
+                        f"mesh dense {lane} {shape}", "dense_shard",
+                        dict(lane=lane, grid=list(shape),
+                             E=int(trees[0].cpu_cap.shape[0]),
+                             N=int(trees[0].cpu_cap.shape[1]),
+                             P=int(trees[2].ask_cpu.shape[1])),
+                        make, lambda _w=want: _w,
+                        lambda got, want, _n=lane: same_outputs(
+                            np, got, want, f"ab mesh dense {_n}"),
+                        repeats=3 if len(g.idxs) == N_EVALS else None))
+        finally:
+            batch.release_groups(groups)
+    if "lp_shard" in names:
+        L, N = LP_TIMED
+        arrays = lp_fuzz_inputs(np, np.random.default_rng(SEED + 70), L, N,
+                                over=True)
+        temps = lpq.lp_temperatures(LP_STEPS)
+        ins = [torch.from_numpy(a).to(DEVICE) for a in arrays]
+        ins.append(torch.from_numpy(temps).to(DEVICE))
+        want = lpq.lp_relax(*ins)
+
+        def make(pkg):
+            grid = pkg.mesh.make_mesh(cells, eval_parallel=MESH_CELLS)
+            s_in, _ = pkg.mesh.shard_lpq_inputs(grid, *arrays)
+            return lambda: pkg.mesh.mesh_lpq(grid, s_in, temps)
+
+        def same(got, want):
+            compare_lp(torch, "ab mesh lp", got, want)
+            exchange.check(getattr(got[0], "exchange_error", None))
+
+        cases.append(ab_case(
+            "mesh lp (4, 1)", "lp_shard",
+            dict(L=L, N=N, steps=LP_STEPS, grid=[MESH_CELLS, 1]),
+            make, lambda: want, same))
+    return cases
 
 
 class CoveringStore:
@@ -7058,8 +7242,11 @@ def ab_packaged_phase(torch, cases, built, pkgs):
     the variant's package with its kernel bound to the variant's build;
     every output equal to the plain version's; call ms (median of
     AB_REPEATS between CUDA events) and device ms (device_ms; None where
-    the call makes the host wait on the device)."""
+    the call makes the host wait on the device). A clock variant's step
+    sections (µs a step, at the rate torch.cuda._sleep spins) over one
+    call, where its kernel stamps them (AB_SECTIONS)."""
     variants = [t for t, (_, clk) in built.items() if not clk]
+    clk_tags = [t for t, (_, clk) in built.items() if clk]
     out = {}
     for case in cases:
         name, kname = case["name"], case["kernel"]
@@ -7075,8 +7262,8 @@ def ab_packaged_phase(torch, cases, built, pkgs):
             try:
                 run = case["make"](pkg)
                 case["same"](run(), want)
-                ms = timed(torch, run, AB_REPEATS)
-                dms = device_ms(torch, run, AB_REPEATS)
+                ms = timed(torch, run, case["repeats"])
+                dms = device_ms(torch, run, case["repeats"])
             finally:
                 setattr(pkg.kernels, attr, proto)
             row["turns"].append((tag, ms, dms))
@@ -7089,6 +7276,30 @@ def ab_packaged_phase(torch, cases, built, pkgs):
             + " ".join(f"{t}={m:.4f}" for t, m in row["ms"].items())
             + " ms; device " + " ".join(
                 f"{t}={m}" for t, m in row["device_ms"].items()) + " ms")
+        sections = AB_SECTIONS.get(kname)
+        for tag in clk_tags if sections else ():
+            lib = built[tag][0][1][kname]
+            if not hasattr(lib, "nt_step_clocks"):
+                continue
+            pkg = pkgs[tag]
+            attr = kname.upper()
+            proto = getattr(pkg.kernels, attr)
+            setattr(pkg.kernels, attr, built[tag][0][0][kname])
+            try:
+                run = case["make"](pkg)
+                run()
+                c = ab_clocks(torch, lib, run, sections)
+            finally:
+                setattr(pkg.kernels, attr, proto)
+            per_us = spin_cycles_per_ms(torch) / 1e3
+            steps = max(c["steps"], 1)
+            row.setdefault("clocks", {})[tag] = dict(
+                steps=c["steps"], **{k: c[k] / steps / per_us
+                                     for k in sections
+                                     if k not in ("-", "total", "steps")})
+            log(f"  clocks {tag} (us a step, first unit's block 0): "
+                + " ".join(f"{k}={v:.2f}" for k, v in
+                           row["clocks"][tag].items()))
         out[name] = row
     return out
 
@@ -7127,12 +7338,15 @@ def ab_main(args, torch, np):
     if set(PACKAGED) & set(names):
         from nomad_tpu_torch.solver import resident, system
         pkgs = {tag: ab_package(tag, csrc)
-                for tag, csrc, _ in (spec(x, ()) for x in args.ab)}
+                for tag, csrc, _ in (spec(x, ())
+                                     for x in args.ab + args.ab_clocks)}
         if "system_fit" in names:
             packaged += ab_system_cases(np, torch, bp, dense, system, svc,
                                         world)
         if "delta_scatter" in names:
             packaged += ab_scatter_cases(np, torch, resident)
+        packaged += ab_mesh_cases(np, torch, batch, dense, lpq, svc, tp,
+                                  world, names)
     cases = []
     if {"dense_scan", "dense_preempt"} & set(names):
         cases += [c for c in ab_dense_cases(np, torch, bp, batch, dense,
@@ -7269,6 +7483,8 @@ def main(argv=None) -> int:
                   svc, tp, world)
     mlres = phase("mesh lp", mesh_lp_phase, np, torch, lpq, mesh, kernels,
                   svc, world, args.seed)
+    mlres["drill_ms"] = phase("mesh drill", mesh_drill, np, torch, dense,
+                              lpq, mesh, args.seed)
     mrres = phase("mesh residency", mesh_residency_phase, np, torch, batch,
                   mesh, kernels, resident, StateStore, svc, tp, world,
                   args.seed)

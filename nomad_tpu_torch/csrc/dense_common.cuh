@@ -138,12 +138,12 @@ constexpr int kDenseDims = 11;     // E N P S V Dp Vd R Gd has_cores
                                    // spread_alg
 
 // Unpack the DENSE_ARGS tables from the packed pointer array p (the
-// launch convention of kernels.Kernel.launch), then chosen, scores and
-// n_yielded, and the kDenseDims ints from d; k is left after the last
-// pointer read.
+// launch convention of kernels.Kernel.launch, or a row of the node-sharded
+// scan's device table of cells), then chosen, scores and n_yielded, and
+// the kDenseDims ints from d; k is left after the last pointer read.
 template <typename T>
-__host__ void unpack_dense(DenseArgs<T>& a, void* const* p, int& k,
-                           const int* d) {
+__host__ __device__ void unpack_dense(DenseArgs<T>& a, void* const* p,
+                                      int& k, const int* d) {
   a.cpu_cap = (const T*)p[k++]; a.mem_cap = (const T*)p[k++];
   a.disk_cap = (const T*)p[k++]; a.feasible = (const u8*)p[k++];
   a.affinity = (const T*)p[k++]; a.has_affinity = (const u8*)p[k++];

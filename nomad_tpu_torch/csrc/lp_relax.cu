@@ -59,14 +59,15 @@
 
 #include <algorithm>
 
+#include "mesh_exchange.cuh"
 #include "wave_common.cuh"            // NT_CLK step sections
 
 namespace {
 
+using namespace nt;
+
 typedef unsigned char u8;
 
-constexpr int kRowThreads = 256;
-constexpr int kNodeThreads = 128;
 constexpr int kWin = 32;                // XLA's CPU reduce-window width
 constexpr float kFinalInv = 1.0f / 0.02f;
 
@@ -85,117 +86,6 @@ struct LpArgs {
   float* rsum;              // (L,) scratch: row sum of exp(logit - max)
   int L, N, steps;
 };
-
-// The logit of (lane, node) as lp_relax_plain's _x_at computes it; `t`
-// < 0 is the final pass.
-__device__ __forceinline__ float logit_at(const LpArgs& A, int l, int n,
-                                          int t, float m0, float m1,
-                                          float m2) {
-  const float* a = A.ask + 3 * l;
-  const float price = fmaf(a[2], m2, fmaf(a[1], m1, a[0] * m0));
-  const size_t k = (size_t)l * A.N + n;
-  const float d = A.V[k] - price;
-  float lg = t < 0 ? d * kFinalInv : d / A.temps[t];
-  lg = A.feas[k] ? lg : -INFINITY;
-  return A.any_f[l] ? lg : 0.0f;
-}
-
-__global__ void lp_init(const LpArgs A) {
-  const int l = blockIdx.x;
-  int any = 0;
-  for (int n = threadIdx.x; n < A.N; n += blockDim.x)
-    any |= A.feas[(size_t)l * A.N + n] != 0;
-  any = __syncthreads_or(any);
-  if (threadIdx.x == 0) A.any_f[l] = any;
-  // block l zeroes its share of mu
-  const int per = (3 * A.N + gridDim.x - 1) / gridDim.x;
-  for (int i = l * per + threadIdx.x; i < min(3 * A.N, (l + 1) * per);
-       i += blockDim.x)
-    A.mu[i] = 0.0f;
-}
-
-__global__ void lp_row_stats(const LpArgs A, int t, int l0) {
-  extern __shared__ float part[];         // N / 32 window sums
-  __shared__ float red[kRowThreads];
-  const int l = l0 + blockIdx.x, tid = threadIdx.x;
-  const float* mu = A.mu;
-  float m = -INFINITY;
-  for (int n = tid; n < A.N; n += blockDim.x)
-    m = fmaxf(m, logit_at(A, l, n, t, mu[3 * n], mu[3 * n + 1],
-                          mu[3 * n + 2]));
-  red[tid] = m;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] = fmaxf(red[tid], red[tid + s]);
-    __syncthreads();
-  }
-  const float mx = red[0];
-  // level 1: each window of 32 consecutive nodes summed in order from 0
-  const int nw = A.N / kWin;
-  for (int w = tid; w < nw; w += blockDim.x) {
-    float acc = 0.0f;
-    for (int j = 0; j < kWin; ++j) {
-      const int n = w * kWin + j;
-      acc = acc + expf(logit_at(A, l, n, t, mu[3 * n], mu[3 * n + 1],
-                                mu[3 * n + 2]) - mx);
-    }
-    part[w] = acc;
-  }
-  __syncthreads();
-  // further levels while more than 32 partial sums remain (at most one
-  // window per thread: N <= 32 * 32 * kRowThreads, checked at launch)
-  int m_cnt = nw;
-  while (m_cnt > kWin) {
-    const int nw2 = m_cnt / kWin;
-    float acc = 0.0f;
-    if (tid < nw2)
-      for (int j = 0; j < kWin; ++j) acc = acc + part[tid * kWin + j];
-    __syncthreads();
-    if (tid < nw2) part[tid] = acc;
-    __syncthreads();
-    m_cnt = nw2;
-  }
-  if (tid == 0) {
-    float acc = 0.0f;
-    for (int j = 0; j < m_cnt; ++j) acc = acc + part[j];
-    A.rmax[l] = mx;
-    A.rsum[l] = acc;
-  }
-}
-
-__global__ void lp_node_step(const LpArgs A, int t) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= A.N) return;
-  float m[3] = {A.mu[3 * n], A.mu[3 * n + 1], A.mu[3 * n + 2]};
-  float load[3] = {0.0f, 0.0f, 0.0f};
-  for (int l = 0; l < A.L; ++l) {
-    const float e = expf(logit_at(A, l, n, t, m[0], m[1], m[2]) -
-                         A.rmax[l]);
-    float x = e / A.rsum[l];
-    x = (A.any_f[l] && A.active[l]) ? x : 0.0f;
-    const float xp = x * A.pcount[l];
-    const float* a = A.ask + 3 * l;
-    for (int r = 0; r < 3; ++r) load[r] = fmaf(xp, a[r], load[r]);
-  }
-  for (int r = 0; r < 3; ++r) {
-    const float fr = A.free_[3 * n + r];
-    const float step = (load[r] - fr) * 0.5f / fmaxf(fr, 1.0f);
-    const float v = m[r] + step;
-    A.mu[3 * n + r] = v > 0.0f ? v : 0.0f;
-  }
-}
-
-// X of lanes [l0, l0 + count), written from X[0] on.
-__global__ void lp_write_x(const LpArgs A, int l0, int count) {
-  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= (size_t)count * A.N) return;
-  const int l = l0 + (int)(k / A.N), n = (int)(k % A.N);
-  const float* mu = A.mu;
-  const float e = expf(logit_at(A, l, n, -1, mu[3 * n], mu[3 * n + 1],
-                                mu[3 * n + 2]) - A.rmax[l]);
-  const float x = e / A.rsum[l];
-  A.X[k] = (A.any_f[l] && A.active[l]) ? x : 0.0f;
-}
 
 // ---------------------------------------------------------------------------
 // The persistent kernel.
@@ -341,39 +231,53 @@ __device__ void row_pass(const LpArgs& A, int l, int t, float* es,
   NT_CLK(12);
 }
 
+// The one-launch kernel's tile loader: x * pcount of lane l at nodes n
+// .. n + 3, as the row phase left it in the X buffer.
+struct XLoad {
+  const float* X;
+  int N;
+  __device__ __forceinline__ void begin(int, int) const {}
+  __device__ __forceinline__ float4 operator()(int l, int n) const {
+    return __ldcg(reinterpret_cast<const float4*>(X + (size_t)l * N + n));
+  }
+};
+
 // The nodes of tile `tile` at one step: the load over the lanes in
 // order, then mu (in the (3, N) layout). ask_s holds the lanes' asks;
-// tile_s kTileL x kTileN.
+// tile_s kTileL x kTileN; load(l, n) gives x * pcount of lane l at nodes
+// n .. n + 3 (load.begin(n_base, TN) first, before the tile's first
+// block barrier).
+template <typename Load>
 __device__ void node_pass(const LpArgs& A, int tile, const float* ask_s,
-                          float* tile_s) {
+                          float* tile_s, const Load& load) {
   const int tid = threadIdx.x, N = A.N, L = A.L;
   const int TN = min(kTileN, N);
   const int n_base = tile * TN;
   const bool chain = tid < 3 * TN;
   const int r = tid / TN, j = tid % TN;       // resource, node in tile
-  float load = 0.0f;
+  float load_r = 0.0f;
   const int q4 = TN / 4;                      // float4s in a tile row
+  load.begin(n_base, TN);
   for (int l0 = 0; l0 < L; l0 += kTileL) {
     const int nl = min(kTileL, L - l0);
     __syncthreads();
     for (int i = tid; i < nl * q4; i += blockDim.x) {
       const int li = i / q4, c4 = i % q4;
-      const float4 x = __ldcg(reinterpret_cast<const float4*>(
-          A.X + (size_t)(l0 + li) * N + n_base) + c4);
-      reinterpret_cast<float4*>(tile_s + li * TN)[c4] = x;
+      reinterpret_cast<float4*>(tile_s + li * TN)[c4] =
+          load(l0 + li, n_base + 4 * c4);
     }
     __syncthreads();
     if (chain) {
       // the loads run ahead of the fma chain
 #pragma unroll 16
       for (int li = 0; li < nl; ++li)
-        load = fmaf(tile_s[li * TN + j], ask_s[3 * (l0 + li) + r], load);
+        load_r = fmaf(tile_s[li * TN + j], ask_s[3 * (l0 + li) + r], load_r);
     }
   }
   if (chain) {
     const int n = n_base + j;
     const float fr = A.free_[3 * n + r];
-    const float step = (load - fr) * 0.5f / fmaxf(fr, 1.0f);
+    const float step = (load_r - fr) * 0.5f / fmaxf(fr, 1.0f);
     const float v = __ldcg(A.mu + (size_t)r * N + n) + step;
     __stcg(A.mu + (size_t)r * N + n, v > 0.0f ? v : 0.0f);
   }
@@ -419,7 +323,7 @@ lp_persistent(const LpArgs A) {
     grid.sync();
     NT_CLK(2);
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-      node_pass(A, tile, ask_s, tile_s);
+      node_pass(A, tile, ask_s, tile_s, XLoad{A.X, N});
     NT_CLK(3);
     __threadfence();
     grid.sync();
@@ -497,56 +401,299 @@ int launch(void* const* p, int n_ptrs, const int* d, int n_dims,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
 // The lane-sharded relaxation (nomad_tpu/parallel/mesh.py::mesh_lpq_fn;
-// parallel/mesh.py mesh_lpq drives it): one cell's phase per launch, the
-// cell holding V and feas whole, its lanes [l0, l1), X of those lanes
-// only, and its own mu and (L,) row statistics. Phase 0 is lp_init over
-// every lane; 1 is lp_row_stats over [l0, l1) at step t (t < 0 the final
-// pass); the host then copies every row's statistics into every cell in
-// lane order; 2 is lp_node_step over all lanes at step t, so mu is the
-// one-launch kernel's on every cell; 3 writes the final X of [l0, l1).
-// The same operations in the same order as the one-launch kernel, so X
-// and mu are its bits on every grid. Bound: the one-launch kernel's
-// (operations), but every cell repeats the node step over all lanes,
-// so a grid of c cells on one card does c times that pass's work, and a
-// step costs 2 launches per cell plus 2 (e_par - 1) copies per cell;
-// this first version accepts both for exactness without atomics.
-constexpr int kShardDims = 7;   // L N steps phase t l0 l1
+// parallel/mesh.py mesh_lpq drives it through solver/lpq.py lp_shard).
+//
+// One cooperative launch per card covers every cell of the grid on that
+// card, `bpc` blocks a cell (the launcher splits the card's resident
+// blocks evenly over its cells). A cell holds V and feas whole, its lanes [l0, l1),
+// X of those lanes, its own mu ((3, N) scratch, the (N, 3) output at the
+// end) and any-feasible flags; the cells of one nodes column form an
+// exchange group (mesh_exchange.cuh) whose area holds every lane's row
+// statistics by step parity. A step:
+//   1. the cell's blocks run row_pass over its lanes (the one-launch
+//      kernel's row phase), writing the lanes' (max, sum) into the
+//      group's slots of this step's parity;
+//   2. a barrier of the cell's blocks only (a counter in device memory,
+//      bounded like every wait), then block 0 publishes the step;
+//   3. every block waits for its group's cells and reads every lane's
+//      statistics into shared memory;
+//   4. the cell's blocks run node_pass over all N nodes with a tile
+//      loader that computes x * pcount of every lane, in lane order, from
+//      the statistics (the one-launch kernel's row phase's expressions),
+//      into the cell's own mu; then the cell's barrier again.
+// It ends with row_pass at the final temperature over the cell's lanes
+// (X) and mu moved to its (N, 3) output. Built with -DNT_STEP_CLOCKS,
+// the first cell's block 0 stamps: 0 the start, 1 its rows, 2 the
+// cell's barrier after them, 3 the exchange, 4 its node tiles, 5 the
+// barrier after them; 6 the launch, 7 steps (row_pass its own 8-12). No barrier spans two cells, so
+// the cells of one card and of several cards run the same code; the same
+// operations in the same order as the one-launch kernel, so X and mu are
+// its bits on every grid.
+//
+// Bound: the one-launch kernel's (operations: ~19 per (lane, node) and
+// step), but every cell runs the node pass over all L lanes, so c cells
+// on one card do c times that pass's work (its exp and divisions) on a
+// c-th of the SMs, and a step waits for the slowest cell of its group.
+
+// A cell's row of the device table: V feas ask pcount free active temps,
+// X (its lanes), mu (3, N) scratch, any_f scratch, mu (N, 3) out, its
+// group's exchange area, its barrier counter; then l0, l1, its index in
+// its group and its place in the grid.
+constexpr int kLpCellWords = 17;
+
+struct LpShardLaunch {
+  const long long* cells;       // (n_cells, kLpCellWords)
+  int* err;                     // kErrWords
+  int L, N, steps, G, bpc, budget;
+};
+
+struct LpCell {
+  LpArgs A;
+  float* mu_out;
+  unsigned *area, *ctr;
+  int l0, l1, gi, place;
+};
+
+// x * pcount of lane l at nodes n .. n + 3 from the group's statistics,
+// with row_pass's expressions; begin() stages the tile's mu. The lanes'
+// asks, pcounts and flags (bit 0 any feasible node, bit 1 live) come
+// from shared memory.
+struct StatLoad {
+  const LpArgs* A;
+  const float *ask_s, *s_rmax, *s_rsum, *s_pc;
+  const int* s_flag;
+  float* s_mu;                  // 3 x TN
+  float temp;
+  int TN;
+  __device__ __forceinline__ void begin(int n_base, int) const {
+    for (int i = threadIdx.x; i < 3 * TN; i += blockDim.x)
+      s_mu[i] = __ldcg(A->mu + (size_t)(i / TN) * A->N + n_base + i % TN);
+  }
+  __device__ __forceinline__ float4 operator()(int l, int n) const {
+    const size_t row = (size_t)l * A->N;
+    const float a0 = ask_s[3 * l], a1 = ask_s[3 * l + 1],
+                a2 = ask_s[3 * l + 2];
+    const bool anyf = s_flag[l] & 1, live = s_flag[l] & 2;
+    const float pc = s_pc[l], mx = s_rmax[l], rs = s_rsum[l];
+    const float4 v4 = __ldg(reinterpret_cast<const float4*>(A->V + row + n));
+    const uchar4 f4 = *reinterpret_cast<const uchar4*>(A->feas + row + n);
+    const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+    const unsigned char ff[4] = {f4.x, f4.y, f4.z, f4.w};
+    float out[4];
+    const int jn0 = n % TN;     // n is a multiple of 4, as TN is
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int jn = jn0 + q;
+      const float price = fmaf(a2, s_mu[2 * TN + jn],
+                               fmaf(a1, s_mu[TN + jn], a0 * s_mu[jn]));
+      const float d = vv[q] - price;
+      float lg = d / temp;
+      lg = ff[q] ? lg : -INFINITY;
+      lg = anyf ? lg : 0.0f;
+      const float e = expf(lg - mx);
+      float x = e == 0.0f ? 0.0f : e / rs;
+      x = live ? x : 0.0f;
+      out[q] = x * pc;
+    }
+    return make_float4(out[0], out[1], out[2], out[3]);
+  }
+};
+
+// A barrier of one cell's blocks: a monotone counter in device memory
+// (target = the barrier's number times the cell's blocks), waited on
+// within the budget. False when the budget ran out or another unit set
+// the error word; every thread of the block must call it. The fence is
+// the card's: the cell's blocks share it, and block 0 publishes the
+// step with a system-scope release, which carries to the group's other
+// cards every write its acquire of the counter observed.
+__device__ bool cell_sync(unsigned* ctr, unsigned target, const Waiter& w,
+                          int step) {
+  int ok = 1;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(ctr, 1u);
+    if (ld_acquire_gpu(ctr) < target) {
+      const long long t0 = clock64();
+      for (;;) {
+        __nanosleep(64);
+        if (ld_acquire_gpu(ctr) >= target) break;
+        if (error_set(w)) {
+          ok = 0;
+          break;
+        }
+        if (((clock64() - t0) >> 10) > w.budget) {
+          record_error(w, kErrCellSync, step, -1);
+          ok = 0;
+          break;
+        }
+      }
+    }
+  }
+  return __syncthreads_and(ok) != 0;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+lp_shard_kernel(const LpShardLaunch P) {
+  const int k = blockIdx.x / P.bpc, b = blockIdx.x % P.bpc;
+  const int tid = threadIdx.x, L = P.L, N = P.N, bpc = P.bpc;
+  __shared__ LpCell cs;
+  __shared__ float red[kThreads / 32];
+  __shared__ float bc[2];
+  extern __shared__ __align__(16) float sm[];
+  if (tid == 0) {
+    const long long* row = P.cells + (size_t)k * kLpCellWords;
+    LpArgs& a = cs.A;
+    a.V = (const float*)row[0]; a.feas = (const u8*)row[1];
+    a.ask = (const float*)row[2]; a.pcount = (const float*)row[3];
+    a.free_ = (const float*)row[4]; a.active = (const u8*)row[5];
+    a.temps = (const float*)row[6];
+    cs.l0 = (int)row[13]; cs.l1 = (int)row[14];
+    cs.gi = (int)row[15]; cs.place = (int)row[16];
+    // row_pass writes row l at X + l * N: the cell's X holds [l0, l1)
+    a.X = (float*)row[7] - (size_t)cs.l0 * N;
+    a.mu = (float*)row[8]; a.any_f = (int*)row[9];
+    cs.mu_out = (float*)row[10];
+    cs.area = (unsigned*)row[11]; cs.ctr = (unsigned*)row[12];
+    a.L = L; a.N = N; a.steps = P.steps;
+  }
+  __syncthreads();
+  const LpArgs& A = cs.A;
+  float* tile_s = sm;
+  float* es = sm;
+  const int seg = min(N, kSeg);
+  float* part = sm + max(kTileL * kTileN, pad32(seg));     // N / 32
+  float* ask_s = part + pad32(N / kWin);                    // 3 L
+  float* s_rmax = ask_s + 3 * L;                            // L
+  float* s_rsum = s_rmax + L;                               // L
+  float* s_pc = s_rsum + L;                                 // L
+  int* s_flag = reinterpret_cast<int*>(s_pc + L);           // L
+  float* s_mu = reinterpret_cast<float*>(s_flag + L);       // 3 kTileN
+  const Waiter wt{P.err, (long long)P.budget, cs.place};
+  float* stats = reinterpret_cast<float*>(cs.area);
+  unsigned* seq = cs.area + lp_seq_off(0, L);
+  unsigned gen = 0;
+  for (int i = tid; i < 3 * L; i += blockDim.x) ask_s[i] = A.ask[i];
+  // the start: every lane's any-feasible flag, mu = 0
+  for (int l = b; l < L; l += bpc) {
+    int any = 0;
+    for (int n = tid; n < N; n += blockDim.x)
+      any |= A.feas[(size_t)l * N + n] != 0;
+    any = __syncthreads_or(any);
+    if (tid == 0) A.any_f[l] = any;
+  }
+  for (size_t i = (size_t)b * kThreads + tid; i < (size_t)3 * N;
+       i += (size_t)bpc * kThreads)
+    A.mu[i] = 0.0f;
+  NT_T0();
+  NT_CNT(6, 0ull - clock64());
+  if (!cell_sync(cs.ctr, ++gen * bpc, wt, -1)) return;
+  // the lanes' pcounts and flags, for every step's node pass
+  for (int l = tid; l < L; l += blockDim.x) {
+    const bool anyf = __ldcg(A.any_f + l) != 0;
+    s_pc[l] = A.pcount[l];
+    s_flag[l] = (anyf ? 1 : 0) | (anyf && A.active[l] ? 2 : 0);
+  }
+  __syncthreads();
+  NT_CLK(0);
+  const int TN = min(kTileN, N), tiles = N / TN;
+  for (int t = 0; t < P.steps; ++t) {
+    const int par = t & 1;
+    float* rmax = stats + lp_stat_off(par, 0, L);
+    float* rsum = stats + lp_stat_off(par, 1, L);
+    if (tid == 0) {
+      cs.A.rmax = rmax;
+      cs.A.rsum = rsum;
+    }
+    __syncthreads();
+    // 1-2. the cell's lanes' statistics, then publish the step
+    for (int l = cs.l0 + b; l < cs.l1; l += bpc)
+      row_pass(A, l, t, es, part, red, bc);
+    NT_CLK(1);
+    if (!cell_sync(cs.ctr, ++gen * bpc, wt, t)) return;
+    NT_CLK(2);
+    const unsigned tgt = (unsigned)(t * kLpPoints + 1);
+    if (b == 0 && tid == 0) st_release_sys(seq + cs.gi, tgt);
+    // 3. the group's statistics
+    bool ok = true;
+    if (tid < P.G && tid != cs.gi)
+      ok = wait_seq(seq + tid, tgt, wt, kErrStats, t, -1);
+    if (!__syncthreads_and(ok)) return;
+    for (int l = tid; l < L; l += blockDim.x) {
+      s_rmax[l] = ld_strong(rmax + l);
+      s_rsum[l] = ld_strong(rsum + l);
+    }
+    __syncthreads();
+    NT_CLK(3);
+    // 4. the load over every lane in order, into the cell's mu
+    const StatLoad ld{&A, ask_s, s_rmax, s_rsum, s_pc, s_flag, s_mu,
+                      A.temps[t], TN};
+    for (int tile = b; tile < tiles; tile += bpc)
+      node_pass(A, tile, ask_s, tile_s, ld);
+    NT_CLK(4);
+    if (!cell_sync(cs.ctr, ++gen * bpc, wt, t)) return;
+    NT_CLK(5);
+  }
+  // the final pass over the cell's lanes (X), its statistics into the
+  // slots of the parity after the last step's
+  if (tid == 0) {
+    cs.A.rmax = stats + lp_stat_off(P.steps & 1, 0, L);
+    cs.A.rsum = stats + lp_stat_off(P.steps & 1, 1, L);
+  }
+  __syncthreads();
+  for (int l = cs.l0 + b; l < cs.l1; l += bpc)
+    row_pass(A, l, -1, es, part, red, bc);
+  // mu from the (3, N) scratch to the (N, 3) output
+  for (size_t i = (size_t)b * kThreads + tid; i < (size_t)3 * N;
+       i += (size_t)bpc * kThreads)
+    cs.mu_out[3 * (i % N) + i / N] = __ldcg(A.mu + i);
+  NT_CNT(6, clock64());
+  NT_CNT(7, P.steps);
+}
+
+constexpr int kShardDims = 6;   // L N steps G n_cells budget
 
 int launch_shard(void* const* p, int n_ptrs, const int* d, int n_dims,
                  cudaStream_t stream) {
-  if (n_ptrs != kTables + kOutputs || n_dims != kShardDims)
+  if (n_ptrs != 2 || n_dims != kShardDims) return (int)cudaErrorInvalidValue;
+  LpShardLaunch P;
+  P.cells = (const long long*)p[0];
+  P.err = (int*)p[1];
+  P.L = d[0]; P.N = d[1]; P.steps = d[2]; P.G = d[3];
+  const int n_cells = d[4];
+  P.budget = d[5];
+  if (P.L <= 0 || P.steps <= 0 || P.N < 2 * kWin || (P.N & (P.N - 1)) ||
+      P.N > kWin * kWin * kThreads || P.G < 1 || P.G > 32 ||
+      P.L % P.G || n_cells < 1 || P.budget <= 0)
     return (int)cudaErrorInvalidValue;
-  LpArgs a;
-  int k = 0;
-  a.V = (const float*)p[k++]; a.feas = (const u8*)p[k++];
-  a.ask = (const float*)p[k++]; a.pcount = (const float*)p[k++];
-  a.free_ = (const float*)p[k++]; a.active = (const u8*)p[k++];
-  a.temps = (const float*)p[k++];
-  a.X = (float*)p[k++]; a.mu = (float*)p[k++]; a.any_f = (int*)p[k++];
-  a.rmax = (float*)p[k++]; a.rsum = (float*)p[k++];
-  a.L = d[0]; a.N = d[1]; a.steps = d[2];
-  const int phase = d[3], t = d[4], l0 = d[5], l1 = d[6];
-  if (a.L <= 0 || a.steps <= 0 || a.N < 2 * kWin || (a.N & (a.N - 1)) ||
-      a.N > kWin * kWin * kRowThreads || l0 < 0 || l1 <= l0 || l1 > a.L ||
-      t >= a.steps)
-    return (int)cudaErrorInvalidValue;
-  const size_t shmem = (size_t)(a.N / kWin) * sizeof(float);
-  if (phase == 0) {
-    lp_init<<<a.L, kRowThreads, 0, stream>>>(a);
-  } else if (phase == 1) {
-    lp_row_stats<<<l1 - l0, kRowThreads, shmem, stream>>>(a, t, l0);
-  } else if (phase == 2) {
-    if (t < 0) return (int)cudaErrorInvalidValue;
-    lp_node_step<<<(unsigned)((a.N + kNodeThreads - 1) / kNodeThreads),
-                   kNodeThreads, 0, stream>>>(a, t);
-  } else if (phase == 3) {
-    const size_t total = (size_t)(l1 - l0) * a.N;
-    lp_write_x<<<(unsigned)((total + kRowThreads - 1) / kRowThreads),
-                 kRowThreads, 0, stream>>>(a, l0, l1 - l0);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const int seg = P.N < kSeg ? P.N : kSeg;
+  const int nwin = P.N / kWin;
+  const size_t shmem = sizeof(float) *
+      (std::max(kTileL * kTileN, seg + seg / 32) + nwin + nwin / 32 +
+       7 * (size_t)P.L + 3 * kTileN);
+  cudaError_t err = cudaFuncSetAttribute(
+      lp_shard_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shmem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, lp_shard_kernel, kThreads, shmem)) != cudaSuccess)
+    return (int)err;
+  // every block resident at once, the card's blocks split evenly over
+  // its cells; no more than a cell's lanes or tiles need
+  const int tiles = P.N / (P.N < kTileN ? P.N : kTileN);
+  P.bpc = std::min(sms * per_sm / n_cells, std::max(P.L / P.G, tiles));
+  if (P.bpc < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&P};
+  err = cudaLaunchCooperativeKernel((const void*)lp_shard_kernel,
+                                    n_cells * P.bpc, kThreads, args, shmem,
+                                    stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

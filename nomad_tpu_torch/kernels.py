@@ -187,13 +187,14 @@ WAVEFRONT = Kernel(
      torch.float64: "nt_wavefront_f64"})
 
 # The mesh programs (nomad_tpu/parallel/mesh.py). The node-sharded dense
-# step and the lane-sharded LP take their phase as their first int: one
-# launch is one phase of one cell.
+# scan and the lane-sharded LP are persistent: one launch runs every step
+# of every cell of the grid on one card (solver/exchange.py launch), the
+# cells meeting through flagged slots (csrc/mesh_exchange.cuh).
 DENSE_SHARD = Kernel(
     "dense_shard", "dense_shard.cu",
     "nomad_tpu/parallel/mesh.py:251 mesh_solve_fn",
     {torch.float32: "nt_dense_shard_f32",
-     torch.float64: "nt_dense_shard_f64"})
+     torch.float64: "nt_dense_shard_f64"}, "nt_dense_shard_cluster")
 
 COORD_SCATTER = Kernel(
     "coord_scatter", "delta_scatter.cu",

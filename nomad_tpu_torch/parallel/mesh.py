@@ -20,16 +20,22 @@ several cards each cell can be its own card; the code is the same.
     scatter), batch fresh.
   * ``mesh_solve`` runs the dense scan: each eval row launches the
     one-card dense_scan on its lanes when the grid has one node column,
-    else the node-sharded step (solver/dense.py ShardCell, three phases a
-    step).
-  * ``mesh_lpq`` runs the LP relaxation with lanes on ``evals``;
-    ``shard_eval_axis`` splits the wave transports' eval axis.
+    else the node-sharded scan (solver/dense.py ShardCell): on the card
+    one persistent dense_shard launch per card runs every step of every
+    cell there, the cells of an evals row meeting through flagged slots
+    in their row's exchange area (solver/exchange.py,
+    csrc/mesh_exchange.cuh); on the CPU the plain phases read and write
+    the same area;
+  * ``mesh_lpq`` runs the LP relaxation with lanes on ``evals``, one
+    cooperative lp_shard launch per card, the cells of a nodes column
+    meeting the same way; ``shard_eval_axis`` splits the wave
+    transports' eval axis.
 
-Between cells, data moves only as copies into per-cell gather buffers in
-cell order (``Tensor.copy_``; across cards PyTorch orders such a copy
-after both devices' current streams with events). Nothing is summed
-across cells but integers, so every grid gives the one-card route's
-bits.
+A group's area lives on its card when its cells share one, else in
+pinned host memory, which every card maps (``host_exchange`` forces the
+host form on one card). Between cells the host copies only the LP's
+gather of V and feas and the results; nothing is summed across cells but
+integers, so every grid gives the one-card route's bits.
 
 Knob (read at each use):
   NOMAD_TPU_TORCH_MESH   0 refuses every grid: each solve runs on one
@@ -45,12 +51,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..solver import dense, lpq, resident, xferobs
+from ..solver import dense, exchange, lpq, resident, xferobs
 
 _LOCK = threading.Lock()
 _STATS = {"dense_dispatches": 0, "node_sharded_steps": 0,
           "lpq_dispatches": 0, "eval_sharded_dispatches": 0,
-          "exchange_copies": 0, "bytes_shipped_total": 0}
+          "persistent_launches": 0, "exchange_copies": 0,
+          "bytes_shipped_total": 0}
 
 
 def _stat(name: str, n: int = 1) -> None:
@@ -60,7 +67,9 @@ def _stat(name: str, n: int = 1) -> None:
 
 def mesh_stats() -> dict:
     """Counts of the mesh route: dispatches per kind, node-sharded steps,
-    copies between cells, and the bytes its transports shipped."""
+    persistent launches (one per card per node-sharded or LP dispatch),
+    the copies the host still makes between cells (the LP's gather of V
+    and feas), and the bytes its transports shipped."""
     with _LOCK:
         return dict(_STATS)
 
@@ -444,127 +453,158 @@ def _cell_tree(tree, i: int, j: int, cast):
     return type(tree)(*vals)
 
 
-def _exchange(rows, name: str) -> None:
-    """Copy each cell's own slot of buffer ``name`` into every other cell
-    of its evals row (the gather, in cell order)."""
-    n = 0
+def _route(cells) -> str:
+    kinds = {c.type for c in cells}
+    if kinds == {"cuda"}:
+        return "cuda"
+    if kinds == {"cpu"}:
+        return "cpu"
+    raise ValueError(f"a grid over {sorted(kinds)} cells: the mesh kernels "
+                     "run on cards, the plain route on the CPU")
+
+
+def shard_cells(grid: Grid, s: ShardedInputs, cast, *, spread_alg: bool,
+                host_exchange: bool = False):
+    """The ShardCells of a node-sharded dispatch: per evals row, its cells
+    in node order, sharing the row's exchange area (on the row's card, or
+    in pinned host memory: exchange.host_form)."""
+    rows = []
+    for i in range(grid.e_par):
+        row_devs = [grid.cell(i, j) for j in range(grid.n_par)]
+        area = None
+        row = []
+        for j in range(grid.n_par):
+            c = dense.ShardCell(*(_cell_tree(t, i, j, cast)
+                                  for t in (s.const, s.init, s.batch)),
+                                j=j, n_par=grid.n_par, spread_alg=spread_alg,
+                                area=area, place=i * grid.n_par + j)
+            if area is None:
+                area = exchange.zeros(
+                    exchange.shard_area_words(grid.n_par, c.dims[0],
+                                              c.words),
+                    row_devs[0], exchange.host_form(row_devs, host_exchange))
+                c.bind_area(area)
+            row.append(c)
+        rows.append(row)
+    return rows
+
+
+def run_node_sharded(rows) -> None:
+    """The plain node-sharded scan over ``rows`` (per evals row, its
+    ShardCells in node order) on the cells' devices: per placement step
+    the three phases on every cell, reading and writing the row's
+    exchange area in place (a row built without one gets one:
+    dense.share_area)."""
     for row in rows:
-        for dst in row:
-            for src in row:
-                if src is not dst:
-                    getattr(dst, name)[src.j].copy_(
-                        getattr(src, name)[src.j], non_blocking=True)
-                    n += 1
-    _stat("exchange_copies", n)
+        dense.share_area(row)
+    dense.shard_steps_plain([c for row in rows for c in row])
+    _stat("node_sharded_steps", rows[0][0].chosen.shape[1])
 
 
-def run_node_sharded(rows, phase_fn=None) -> None:
-    """Drive the node-sharded scan over ``rows`` (per evals row, its
-    ShardCells in node order): per placement step the three phases on
-    every cell, each followed by the copies of its exchange buffer.
-    ``phase_fn(cell, phase, step)`` runs a phase (dense.shard_phase: the
-    kernel on the card)."""
-    phase_fn = phase_fn or dense.shard_phase
-    P = rows[0][0].chosen.shape[1]
-    for step in range(P):
-        for phase, name in ((dense.SHARD_COUNT, "cnt"),
-                            (dense.SHARD_SELECT, "rec"),
-                            (dense.SHARD_COMMIT, None)):
-            for row in rows:
-                for c in row:
-                    phase_fn(c, phase, step)
-            if name is not None:
-                _exchange(rows, name)
-    _stat("node_sharded_steps", P)
+def _launch_per_card(cells, devs, launch_of, host_exchange: bool):
+    """One persistent launch per card over ``cells`` (``devs`` their
+    devices; ``launch_of(cells_on_card, err)`` gives exchange.launch's
+    (device, fn)). Returns the dispatch's error word, for
+    exchange.check."""
+    err = exchange.error_word(devs[0],
+                              exchange.host_form(devs, host_exchange))
+    by_dev = {}
+    for c, d in zip(cells, devs):
+        by_dev.setdefault(str(d), []).append(c)
+    exchange.launch([launch_of(cs, err) for cs in by_dev.values()],
+                    hold=exchange.pinned([c.area for c in cells] + [err]))
+    _stat("persistent_launches", len(by_dev))
+    return err
+
+
+def run_persistent(rows, *, host_exchange: bool = False, budget_s=None):
+    """The node-sharded scan over ``rows`` on the card: one dense_shard
+    launch per card, covering every cell on it (exchange.launch).
+    Returns the dispatch's error word, for exchange.check."""
+    cells = [c for row in rows for c in row]
+    err = _launch_per_card(
+        cells, [c.fin.device for c in cells],
+        lambda cs, e: dense.shard_launch(cs, e, budget_s), host_exchange)
+    _stat("node_sharded_steps", rows[0][0].chosen.shape[1])
+    return err
 
 
 def mesh_solve(grid: Grid, const, init, batch, *, spread_alg: bool,
-               dtype_name: str, cache_version=None, delta_src=None):
+               dtype_name: str, cache_version=None, delta_src=None,
+               host_exchange: bool = False):
     """Dense greedy solve of stacked (E, ...) numpy lane tables over
     ``grid``: with one node column each eval row runs the dense scan on
     its lanes (the dense_scan kernel on the card), else the node-sharded
-    step runs its three phases a step on every cell. Returns host numpy
+    scan: one persistent dense_shard launch per card (the plain phases
+    on the CPU). ``host_exchange`` keeps every exchange area in pinned
+    host memory even where the cells share a card. Returns host numpy
     (chosen int64, scores, n_yielded int64), each (E, P), gathered in
-    cell order; the trailing state stays on the cells."""
+    cell order; the trailing state stays on the cells. Raises
+    exchange.ExchangeTimeout if a wait of the kernel ran out its
+    budget."""
     s = shard_solver_inputs(grid, const, init, batch,
                             version=cache_version, delta_src=delta_src)
     cast = dense.lane_casts(dtype_name)
     _stat("dense_dispatches")
-
-    def trees(i, j):
-        return (_cell_tree(s.const, i, j, cast),
-                _cell_tree(s.init, i, j, cast),
-                _cell_tree(s.batch, i, j, cast))
-
+    err = None
     if grid.n_par == 1:
         outs = []
         for i in range(grid.e_par):
-            o = dense.dense_scan(*trees(i, 0), spread_alg=spread_alg)
+            o = dense.dense_scan(*(_cell_tree(t, i, 0, cast)
+                                   for t in (s.const, s.init, s.batch)),
+                                 spread_alg=spread_alg)
             outs.append((o.chosen, o.scores, o.n_yielded))
     else:
-        rows = [[dense.ShardCell(*trees(i, j), j=j, n_par=grid.n_par,
-                                 spread_alg=spread_alg)
-                 for j in range(grid.n_par)] for i in range(grid.e_par)]
-        run_node_sharded(rows)
+        rows = shard_cells(grid, s, cast, spread_alg=spread_alg,
+                           host_exchange=host_exchange)
+        if _route(grid.cells) == "cuda":
+            err = run_persistent(rows, host_exchange=host_exchange)
+        else:
+            run_node_sharded(rows)
         outs = [(r[0].chosen, r[0].scores, r[0].n_yielded) for r in rows]
-    return tuple(np.concatenate([o[k].cpu().numpy() for o in outs])
-                 for k in range(3))
+    res = tuple(np.concatenate([o[k].cpu().numpy() for o in outs])
+                for k in range(3))
+    exchange.check(err)
+    return res
 
 
 # --------------------------------------------------------------------------
 # The LP relaxation over a grid (reference mesh_lpq_fn).
 
-def run_lpq_cells(rows, steps: int, phase_fn=None) -> None:
-    """Drive the lane-sharded relaxation over ``rows`` (per evals row,
-    its LpShardCells): init, per step every cell's rows phase, the copies
-    of every row's statistics into every cell in lane order, every
-    cell's nodes phase; then the final rows and write_x phases.
-    ``phase_fn(cell, phase, t)`` runs a phase (lpq.lp_shard_phase: the
-    kernel on the card)."""
-    phase_fn = phase_fn or lpq.lp_shard_phase
-    cells = [c for row in rows for c in row]
-
-    def gather_stats():
-        n = 0
-        for i, row in enumerate(rows):
-            for j, dst in enumerate(row):
-                for i2, src_row in enumerate(rows):
-                    if i2 == i:
-                        continue
-                    src = src_row[j]
-                    rs = slice(src.l0, src.l1)
-                    dst.rmax[rs].copy_(src.rmax[rs], non_blocking=True)
-                    dst.rsum[rs].copy_(src.rsum[rs], non_blocking=True)
-                    n += 2
-        _stat("exchange_copies", n)
-
-    for c in cells:
-        phase_fn(c, lpq.LP_INIT, 0)
-    for t in range(steps):
-        for c in cells:
-            phase_fn(c, lpq.LP_ROWS, t)
-        gather_stats()
-        for c in cells:
-            phase_fn(c, lpq.LP_NODES, t)
-    for c in cells:
-        phase_fn(c, lpq.LP_ROWS, -1)
-        phase_fn(c, lpq.LP_WRITE_X, -1)
+def run_lpq_cells(rows) -> None:
+    """The plain lane-sharded relaxation over ``rows`` (per evals row,
+    its LpShardCells) on the cells' devices: init, per step every cell's
+    rows phase then every cell's nodes phase, reading the group's
+    statistics in place (the cells of a nodes column share one area; a
+    column built without one gets one here), then the final rows and
+    write_x phases."""
+    for j in range(len(rows[0])):
+        col = [row[j] for row in rows]
+        if not all(c.area is col[0].area for c in col):
+            devs = [c.V.device for c in col]
+            area = exchange.zeros(
+                exchange.lp_area_words(len(col), col[0].V.shape[0]),
+                devs[0], exchange.host_form(devs))
+            for c in col:
+                c.bind_area(area)
+    lpq.lp_shard_steps_plain([c for row in rows for c in row])
 
 
-def mesh_lpq(grid: Grid, s_in, temps: np.ndarray):
-    """The LP relaxation with lanes on ``evals``: ``s_in`` the six tables
-    of shard_lpq_inputs, ``temps`` the (steps,) float32 temperatures.
-    Every cell gathers V and feas whole once, then each step computes
-    its lanes' row statistics (max, sum), gathers every row's into lane
-    order, and runs the node step over all lanes in order: the one-card
-    kernel's operations in its order, so X and mu are its bits. Returns
-    (X (L, N), mu (N, 3)) float32 on the first cell's device."""
+def lpq_cells(grid: Grid, s_in, temps: np.ndarray, *,
+              host_exchange: bool = False):
+    """The LpShardCells of an LP dispatch, per evals row: each gathers V
+    and feas whole (host copies between cells, counted), holds its row's
+    lanes, and shares its nodes column's exchange area."""
     V, feas, ask, pcount, free, active = s_in
     L, N = V.shape
     Lc = L // grid.e_par
-    steps = int(temps.shape[0])
-    _stat("lpq_dispatches")
-    rows = []
+    areas = []
+    for j in range(grid.n_par):
+        devs = [grid.cell(i, j) for i in range(grid.e_par)]
+        areas.append(exchange.zeros(exchange.lp_area_words(grid.e_par, L),
+                                    devs[0],
+                                    exchange.host_form(devs, host_exchange)))
+    rows, copies = [], 0
     for i in range(grid.e_par):
         row = []
         for j in range(grid.n_par):
@@ -575,12 +615,42 @@ def mesh_lpq(grid: Grid, s_in, temps: np.ndarray):
                 rs = slice(i2 * Lc, (i2 + 1) * Lc)
                 Vf[rs].copy_(V.part(i2, j), non_blocking=True)
                 Ff[rs].copy_(feas.part(i2, j), non_blocking=True)
+                copies += 2 if i2 != i else 0
             row.append(lpq.LpShardCell(
                 Vf, Ff, ask.part(i, j), pcount.part(i, j), free.part(i, j),
                 active.part(i, j), resident._put(temps, dev),
-                l0=i * Lc, l1=(i + 1) * Lc))
+                l0=i * Lc, l1=(i + 1) * Lc, area=areas[j], gi=i,
+                G=grid.e_par, place=i * grid.n_par + j))
         rows.append(row)
-    run_lpq_cells(rows, steps)
+    _stat("exchange_copies", copies)
+    return rows
+
+
+def mesh_lpq(grid: Grid, s_in, temps: np.ndarray, *,
+             host_exchange: bool = False):
+    """The LP relaxation with lanes on ``evals``: ``s_in`` the six tables
+    of shard_lpq_inputs, ``temps`` the (steps,) float32 temperatures.
+    Every cell gathers V and feas whole once, then each step computes
+    its lanes' row statistics (max, sum), publishes them to its nodes
+    column, and runs the node step over all lanes in order from the
+    group's statistics: the one-card kernel's operations in its order,
+    so X and mu are its bits. On the card one cooperative lp_shard launch
+    per card runs every cell there (the plain phases on the CPU);
+    ``host_exchange`` keeps the areas in pinned host memory. Returns (X
+    (L, N), mu (N, 3)) float32 on the first cell's device; on the card X
+    carries the dispatch's error word as ``X.exchange_error``: the caller
+    runs exchange.check on it after reading X and mu back."""
+    _stat("lpq_dispatches")
+    rows = lpq_cells(grid, s_in, temps, host_exchange=host_exchange)
+    cells = [c for row in rows for c in row]
+    err = None
+    if _route(grid.cells) == "cuda":
+        err = _launch_per_card(cells, [c.V.device for c in cells],
+                               lpq.lp_shard_launch, host_exchange)
+    else:
+        run_lpq_cells(rows)
     dev0 = grid.cell(0, 0)
     X = torch.cat([row[0].X.to(dev0) for row in rows])
+    if err is not None:
+        X.exchange_error = err
     return X, rows[0][0].mu

@@ -36,7 +36,7 @@ import torch
 
 from .. import kernels
 from ..device import DeviceLike, default_dtype_name, resolve_device
-from . import resident
+from . import exchange, resident
 from .binpack import NodeConst, NodeState, PlacementBatch
 from .scoring import (
     MAX_SKIP, SKIP_THRESHOLD, _BIG, _anti, _binpack_raw, _fma, _score,
@@ -536,19 +536,22 @@ def solve_placements(const, init, batch, *, spread_alg: bool,
 
 
 # --------------------------------------------------------------------------
-# The node-sharded step (parallel/mesh.py mesh_solve over a grid with more
+# The node-sharded scan (parallel/mesh.py mesh_solve over a grid with more
 # than one node cell; port of the dense program under mesh_solve_fn). A
 # cell holds E_c lanes and a contiguous run of Ns nodes in window order
-# (the lanes' shuffled order), starting at n0. Each placement step is
-# three phases, each one launch of csrc/dense_shard.cu per cell on the
-# card (the plain version here for CPU tensors), with the host copying
-# the cells' counts and records between the cells of an evals row:
+# (the lanes' shuffled order), starting at n0. On the card the whole scan
+# of every cell of a card is one persistent launch (``dense_shard``,
+# csrc/dense_shard.cu); the plain version is three phases a step, which
+# read and write the same exchange area the kernel does: the cells of an
+# evals row share one area (solver/exchange.py shard_views), each cell
+# writing only its own slots of the step's parity, so no copies move
+# between cells:
 #   count  -- score the cell's nodes (fin, flags) and count its fit and
-#             low nodes per lane into cnt[j];
+#             low nodes per lane into cnt[par, j];
 #   select -- with every cell's counts (the exclusive prefix over the
 #             cells before it and the totals), mark the cell's yielded
 #             nodes and their window order, and write the lane's record
-#             rec[j]: the best (score, order, node) and the number
+#             rec[par, j]: the best (score, order, node) and the number
 #             yielded, with the best node's spread and distinct_property
 #             value indices;
 #   commit -- with every cell's record, the winner (the largest score,
@@ -570,38 +573,73 @@ def _eff_words(dt) -> int:
 class ShardCell:
     """One cell of the node-sharded scan: its lane tables (node-axis
     tables cut to its slice; the state a private copy it updates in
-    place), its scratch, the exchange buffers every cell of its row holds
-    (cnt (n_par, E_c, 2) and rec (n_par, E_c, W) int32, slot j its own)
-    and its copy of the outputs."""
+    place), its scratch, its copy of the outputs, and its row's exchange
+    area: cnt (PARITIES, n_par, E_c, 2) and rec (PARITIES, n_par, E_c, W)
+    int32 views shared by every cell of the row (slot j its own), with
+    the sequence words the kernel publishes. ``area`` is the row's
+    (exchange.shard_area_words long); without one the cell gets its own
+    until ``share_area`` joins its row. ``place`` is the cell's place in
+    the grid, for the kernel's error word."""
 
     __slots__ = ("const", "state", "batch", "j", "n_par", "n0", "dims",
-                 "spread_alg", "fin", "flags", "cnt", "rec", "chosen",
-                 "scores", "n_yielded", "ptrs")
+                 "spread_alg", "fin", "flags", "area", "cnt", "rec", "seq",
+                 "chosen", "scores", "n_yielded", "ptrs", "place")
 
     def __init__(self, const, init, batch, *, j: int, n_par: int,
-                 spread_alg: bool):
+                 spread_alg: bool, area=None, place: int = 0):
         self.const, self.batch = const, batch
         self.state = NodeState(*(t.clone().contiguous() for t in init))
         self.dims = dense_dims(const, self.state, batch)
-        E, N, P, S, _, Dp = self.dims[:6]
+        E, N, P = self.dims[:3]
         dt, dev = const.cpu_cap.dtype, const.cpu_cap.device
         self.j, self.n_par, self.n0 = j, n_par, j * N
         self.spread_alg = bool(spread_alg)
-        W = _eff_words(dt) + 3 + S + Dp
+        self.place = int(place)
         self.fin = torch.zeros((E, N), dtype=dt, device=dev)
         self.flags = torch.zeros((E, N), dtype=torch.uint8, device=dev)
-        self.cnt = torch.zeros((n_par, E, 2), dtype=torch.int32, device=dev)
-        self.rec = torch.zeros((n_par, E, W), dtype=torch.int32, device=dev)
         self.chosen = torch.full((E, P), -1, dtype=torch.int64, device=dev)
         self.scores = torch.empty((E, P), dtype=dt, device=dev)
         self.n_yielded = torch.empty((E, P), dtype=torch.int64, device=dev)
         trees = {"const": const, "state": self.state, "batch": batch}
-        # the kernel's pointer list, in DENSE_ARGS order then the outputs
-        # and the scratch (built once: every phase takes the same one)
+        # the kernel's pointer row, in DENSE_ARGS order then the outputs
+        # and the score scratch (the area and the ints follow in ptr_row;
+        # the flags are the plain phases' alone)
         self.ptrs = [getattr(trees[tree], f).contiguous()
                      for tree, f in DENSE_ARGS] + [
-            self.chosen, self.scores, self.n_yielded, self.fin, self.flags,
-            self.cnt, self.rec]
+            self.chosen, self.scores, self.n_yielded, self.fin]
+        self.bind_area(area if area is not None else exchange.zeros(
+            exchange.shard_area_words(n_par, E, self.words), dev, False))
+
+    @property
+    def words(self) -> int:
+        """W, the int32 words of a record."""
+        S, Dp = self.dims[3], self.dims[5]
+        return _eff_words(self.fin.dtype) + 3 + S + Dp
+
+    def bind_area(self, area: torch.Tensor) -> None:
+        self.area = area
+        self.cnt, self.rec, self.seq = exchange.shard_views(
+            area, self.n_par, self.dims[0], self.words)
+
+    def ptr_row(self):
+        """The cell's row of the kernel's device table."""
+        return [t.data_ptr() for t in self.ptrs] + [
+            self.area.data_ptr(), self.j, self.place]
+
+
+def share_area(row) -> None:
+    """Give the cells of an evals row one exchange area if they do not
+    share one yet (cells built without an area): on their card, or in
+    pinned host memory when they span cards."""
+    if all(c.area is row[0].area for c in row):
+        return
+    c0 = row[0]
+    devs = [c.fin.device for c in row]
+    area = exchange.zeros(
+        exchange.shard_area_words(c0.n_par, c0.dims[0], c0.words),
+        devs[0], exchange.host_form(devs))
+    for c in row:
+        c.bind_area(area)
 
 
 def _shard_count_plain(c: ShardCell, i: int) -> None:
@@ -612,16 +650,18 @@ def _shard_count_plain(c: ShardCell, i: int) -> None:
     low = fit & (final <= SKIP_THRESHOLD)
     c.fin.copy_(final)
     c.flags.copy_(fit.to(torch.uint8) | (low.to(torch.uint8) << 1))
-    c.cnt[c.j, :, 0] = fit.sum(dim=1).to(torch.int32)
-    c.cnt[c.j, :, 1] = low.sum(dim=1).to(torch.int32)
+    cnt = c.cnt[i % exchange.PARITIES, c.j]
+    cnt[:, 0] = fit.sum(dim=1).to(torch.int32)
+    cnt[:, 1] = low.sum(dim=1).to(torch.int32)
 
 
 def _shard_select_plain(c: ShardCell, i: int) -> None:
     E, N, _, S, _, Dp = c.dims[:6]
     dt = c.fin.dtype
+    par = i % exchange.PARITIES
     fit = (c.flags & 1).bool()
     low = (c.flags & 2).bool()
-    cnt = c.cnt.long()
+    cnt = c.cnt[par].long()
     pre = cnt[:c.j].sum(dim=0)                          # (E, 2)
     tot = cnt.sum(dim=0)
     L = c.batch.limit[:, i:i + 1].long()
@@ -640,7 +680,7 @@ def _shard_select_plain(c: ShardCell, i: int) -> None:
     ar = torch.arange(E, device=w.device)
     none = torch.full_like(w, _NONE)
     ew = _eff_words(dt)
-    rec = c.rec[c.j]
+    rec = c.rec[par, c.j]
     rec[:, :ew] = best.contiguous().view(torch.int32).reshape(E, ew)
     rec[:, ew] = torch.where(has, order[ar, w], none).to(torch.int32)
     rec[:, ew + 1] = torch.where(has, w, none).to(torch.int32)
@@ -657,8 +697,9 @@ def _shard_commit_plain(c: ShardCell, i: int) -> None:
     E, N, _, S, _, Dp = c.dims[:6]
     dt = c.fin.dtype
     ew = _eff_words(dt)
-    rec = c.rec
-    eff = rec[:, :, :ew].contiguous().view(dt).reshape(c.n_par, E)
+    rec = c.rec[i % exchange.PARITIES]
+    eff = rec[:, :, :ew].clone(memory_format=torch.contiguous_format).view(
+        dt).reshape(c.n_par, E)
     order = rec[:, :, ew].long()
     idx = rec[:, :, ew + 1].long()
     has = order != _NONE
@@ -689,16 +730,68 @@ _SHARD_PLAIN = {SHARD_COUNT: _shard_count_plain,
                 SHARD_COMMIT: _shard_commit_plain}
 
 
-def shard_phase(c: ShardCell, phase: int, i: int) -> None:
-    """Run one phase of placement step ``i`` on cell ``c``: the plain
-    version for CPU tensors, one dense_shard launch for CUDA tensors."""
-    dev = c.fin.device
-    if dev.type == "cpu":
-        _SHARD_PLAIN[phase](c, i)
-        return
+def shard_steps_plain(cells) -> None:
+    """The plain scan over ``cells`` on their device, in step order: each
+    step's three phases on every cell, a phase on all cells before the
+    next (the card runs the whole scan in one dense_shard launch). Every
+    exchange group (the cells sharing an area) must be whole: a missing
+    peer's slots would stay empty, where the kernel's wait would run out
+    its budget, so this raises exchange.ExchangeTimeout as the kernel's
+    caller would."""
+    groups = {}
+    for c in cells:
+        groups.setdefault(id(c.area), []).append(c)
+    for g in groups.values():
+        have = sorted(c.j for c in g)
+        if have != list(range(g[0].n_par)):
+            missing = sorted(set(range(g[0].n_par)) - set(have))
+            raise exchange.ExchangeTimeout(1, 0, g[0].place, -1) from \
+                ValueError(f"cells {missing} of the group are not in the "
+                           "launch")
+    P = cells[0].chosen.shape[1]
+    for step in range(P):
+        for phase in (SHARD_COUNT, SHARD_SELECT, SHARD_COMMIT):
+            for c in cells:
+                _SHARD_PLAIN[phase](c, step)
+
+
+def shard_launch(cells, err, budget_s=None):
+    """(device, fn): one dense_shard launch (csrc/dense_shard.cu) that
+    runs every step of every cell in ``cells`` (CUDA ShardCells on one
+    card, of one dispatch), for exchange.launch. ``err`` the dispatch's
+    error word, ``budget_s`` each wait's budget."""
+    c0 = cells[0]
+    dev = c0.fin.device
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    kernels.DENSE_SHARD.launch(
-        c.fin.dtype, c.ptrs,
-        list(c.dims) + [int(c.spread_alg), phase, i, c.j, c.n_par,
-                        c.rec.shape[2]])
+        raise ValueError(f"dense_shard launches on a card, not {dev}")
+    for c in cells:
+        if c.fin.device != dev or c.dims != c0.dims or \
+                c.fin.dtype != c0.fin.dtype or c.n_par != c0.n_par or \
+                c.spread_alg != c0.spread_alg:
+            raise ValueError("dense_shard: cells must share one device, "
+                             "their lane dims, dtype, n_par and algorithm")
+    table = exchange.cell_table([c.ptr_row() for c in cells], dev)
+    dims = list(c0.dims) + [int(c0.spread_alg), c0.n_par, c0.words,
+                            len(cells), exchange.budget_units(budget_s)]
+    return dev, lambda: kernels.DENSE_SHARD.launch(
+        c0.fin.dtype, [table, err], dims)
+
+
+def dense_shard(cells, err=None, *, budget_s=None):
+    """The node-sharded scan of ``cells`` (ShardCells on one device).
+    CPU tensors: the plain phases in step order (``shard_steps_plain``;
+    whole exchange groups only). CUDA tensors: one dense_shard launch on
+    the card's mesh stream (``shard_launch``; any cells of a dispatch's
+    grid: the rest run in other launches); ``err`` the dispatch's error
+    word (a new one in the card's memory by default). Returns the error
+    word: exchange.check(err) after reading the results raises if a wait
+    ran out its budget."""
+    dev = cells[0].fin.device
+    if dev.type == "cpu":
+        shard_steps_plain(cells)
+        return err
+    if err is None:
+        err = exchange.error_word(dev, False)
+    exchange.launch([shard_launch(cells, err, budget_s)],
+                    hold=exchange.pinned([c.area for c in cells] + [err]))
+    return err

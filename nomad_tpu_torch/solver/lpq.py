@@ -69,7 +69,7 @@ from ..server.quality import observatory
 from ..server.telemetry import metrics
 from ..server.tracing import tracer
 from ..structs.config import SCHED_ALG_TPU_LPQ
-from . import resident, xferobs
+from . import exchange, resident, xferobs
 from .binpack import BINPACK_MAX
 from .guard import run_dispatch
 from .scoring import _EXP32, _libm
@@ -419,38 +419,60 @@ def lp_relax(V, feas, ask, pcount, free, active, temps
 
 # ---------------------------------------------------------------------------
 # The lane-sharded relaxation (parallel/mesh.py mesh_lpq): one cell holds
-# V and feas whole (gathered once), its lanes [l0, l1), and its own copy
-# of mu and of every lane's row statistics. Four phases, each one launch
-# of the lp_shard entry point on the card (the plain version here for CPU
-# tensors): init (any-feasible flags, mu = 0), rows (the cell's lanes'
-# (max, sum) at step t, t < 0 the final pass), nodes (step t's X from the
-# gathered statistics for every lane, the load over the lanes in order,
-# the mu update), write_x (the final X of the cell's lanes, from the
-# statistics of the final pass: rows at t = -1).
+# V and feas whole (gathered once), its lanes [l0, l1), and its own mu.
+# The cells of one nodes column form an exchange group: they share one
+# area (solver/exchange.py lp_views) holding every lane's row statistics
+# (max, sum) by step parity, each cell writing only its own lanes'. On the
+# card the whole anneal of every cell of a card is one cooperative launch
+# (``lp_shard``, csrc/lp_relax.cu nt_lp_shard_f32); the plain version is
+# four phases over the same area: init (any-feasible flags, mu = 0), rows
+# (the cell's lanes' statistics at step t into the slots of t's parity;
+# t < 0 the final pass, into the parity after the last step's), nodes
+# (step t's X for every lane from the group's statistics, the load over
+# the lanes in order, the mu update), write_x (the final X of the cell's
+# lanes).
 
 LP_INIT, LP_ROWS, LP_NODES, LP_WRITE_X = 0, 1, 2, 3
 
 
 class LpShardCell:
-    """One cell of the lane-sharded relaxation."""
+    """One cell of the lane-sharded relaxation: ``area`` its group's
+    (exchange.lp_area_words(G, L) long; without one the cell gets its
+    own), ``gi`` its index among the group's G cells, ``place`` its place
+    in the grid (for the kernel's error word)."""
 
     __slots__ = ("V", "feas", "ask", "pcount", "free", "active", "temps",
-                 "l0", "l1", "X", "mu", "any_f", "rmax", "rsum")
+                 "l0", "l1", "X", "mu", "any_f", "area", "rmax", "rsum",
+                 "seq", "gi", "G", "place")
 
     def __init__(self, V, feas, ask, pcount, free, active, temps, *,
-                 l0: int, l1: int):
+                 l0: int, l1: int, area=None, gi: int = 0, G: int = 1,
+                 place: int = 0):
         L, N = _lp_check(V, feas, ask, pcount, free, active, temps)
         if not 0 <= l0 < l1 <= L:
             raise ValueError(f"lanes [{l0}, {l1}) outside [0, {L})")
+        if not 0 <= gi < G:
+            raise ValueError(f"cell {gi} outside a group of {G}")
         self.V, self.feas, self.ask, self.pcount = V, feas, ask, pcount
         self.free, self.active, self.temps = free, active, temps
-        self.l0, self.l1 = l0, l1
+        self.l0, self.l1, self.gi, self.G = l0, l1, gi, G
+        self.place = int(place)
         dev = V.device
         self.X = torch.empty((l1 - l0, N), dtype=torch.float32, device=dev)
         self.mu = torch.zeros((N, 3), dtype=torch.float32, device=dev)
         self.any_f = torch.zeros(L, dtype=torch.int32, device=dev)
-        self.rmax = torch.zeros(L, dtype=torch.float32, device=dev)
-        self.rsum = torch.zeros(L, dtype=torch.float32, device=dev)
+        self.bind_area(area if area is not None else exchange.zeros(
+            exchange.lp_area_words(G, L), dev, False))
+
+    def bind_area(self, area: torch.Tensor) -> None:
+        self.area = area
+        stats, self.seq = exchange.lp_views(area, self.G, self.V.shape[0])
+        self.rmax, self.rsum = stats[:, 0], stats[:, 1]     # (PARITIES, L)
+
+    def parity(self, t: int) -> int:
+        """The slots of step t; the final pass (t < 0) takes the parity
+        after the last step's."""
+        return (t if t >= 0 else self.temps.shape[0]) % exchange.PARITIES
 
 
 def _lp_shard_plain(c: LpShardCell, phase: int, t: int) -> None:
@@ -461,9 +483,10 @@ def _lp_shard_plain(c: LpShardCell, phase: int, t: int) -> None:
     any_f = c.any_f.bool()[:, None]
     live = any_f & c.active[:, None]
     temp = None if t < 0 else c.temps[t]
+    par = c.parity(t)
     if phase == LP_NODES:
         logit = _logits(c.V, c.feas, any_f, c.ask, c.mu, temp)
-        X = _x_from(logit, c.rmax[:, None], c.rsum, live)
+        X = _x_from(logit, c.rmax[par, :, None], c.rsum[par], live)
         c.mu.copy_(_mu_step(X, c.pcount, c.ask, c.free,
                             c.free.clamp_min(1.0), c.mu))
         return
@@ -473,28 +496,97 @@ def _lp_shard_plain(c: LpShardCell, phase: int, t: int) -> None:
     logit = _logits(c.V[rs], c.feas[rs], any_f[rs], c.ask[rs], c.mu, temp)
     if phase == LP_ROWS:
         mx, ssum = _row_stats(logit)
-        c.rmax[rs] = mx[:, 0]
-        c.rsum[rs] = ssum
+        c.rmax[par, rs] = mx[:, 0]
+        c.rsum[par, rs] = ssum
     else:
-        c.X.copy_(_x_from(logit, c.rmax[rs, None], c.rsum[rs], live[rs]))
+        c.X.copy_(_x_from(logit, c.rmax[par, rs, None], c.rsum[par, rs],
+                          live[rs]))
 
 
-def lp_shard_phase(c: LpShardCell, phase: int, t: int) -> None:
-    """Run one phase of the lane-sharded relaxation on cell ``c``: the
-    plain version for CPU tensors, one lp_shard launch for CUDA
-    tensors."""
-    dev = c.V.device
-    if dev.type == "cpu":
-        _lp_shard_plain(c, phase, t)
-        return
+def lp_shard_steps_plain(cells) -> None:
+    """The plain anneal over ``cells`` on their device: init, per step
+    every cell's rows phase then every cell's nodes phase, then the final
+    rows and write_x (the card runs the whole anneal in one lp_shard
+    launch).
+    Every exchange group (the cells sharing an area) must be whole, or
+    this raises exchange.ExchangeTimeout as the kernel's caller would."""
+    groups = {}
+    for c in cells:
+        groups.setdefault(id(c.area), []).append(c)
+    for g in groups.values():
+        have = sorted(c.gi for c in g)
+        if have != list(range(g[0].G)):
+            missing = sorted(set(range(g[0].G)) - set(have))
+            raise exchange.ExchangeTimeout(3, 0, g[0].place, -1) from \
+                ValueError(f"cells {missing} of the group are not in the "
+                           "launch")
+    for c in cells:
+        _lp_shard_plain(c, LP_INIT, 0)
+    for t in range(int(cells[0].temps.shape[0])):
+        for c in cells:
+            _lp_shard_plain(c, LP_ROWS, t)
+        for c in cells:
+            _lp_shard_plain(c, LP_NODES, t)
+    for c in cells:
+        _lp_shard_plain(c, LP_ROWS, -1)
+        _lp_shard_plain(c, LP_WRITE_X, -1)
+
+
+def lp_shard_launch(cells, err, budget_s=None):
+    """(device, fn): one lp_shard launch (csrc/lp_relax.cu
+    nt_lp_shard_f32, cooperative) that runs the whole anneal of every
+    cell in ``cells`` (CUDA LpShardCells on one card, of one dispatch),
+    for exchange.launch. ``err`` the dispatch's error word, ``budget_s``
+    each wait's budget."""
+    c0 = cells[0]
+    dev = c0.V.device
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    L, N = c.V.shape
-    ins = [x.contiguous() for x in (c.V, c.feas, c.ask, c.pcount, c.free,
-                                    c.active, c.temps)]
-    kernels.LP_SHARD.launch(
-        torch.float32, ins + [c.X, c.mu, c.any_f, c.rmax, c.rsum],
-        [L, N, c.temps.shape[0], phase, t, c.l0, c.l1])
+        raise ValueError(f"lp_shard launches on a card, not {dev}")
+    L, N = c0.V.shape
+    steps = int(c0.temps.shape[0])
+    rows, scratch = [], []
+    for c in cells:
+        if c.V.device != dev or tuple(c.V.shape) != (L, N) or \
+                int(c.temps.shape[0]) != steps or c.G != c0.G or \
+                c.l1 - c.l0 != L // c.G:
+            raise ValueError("lp_shard: cells must share one device, L, "
+                             "N, steps and their group size, L / G lanes "
+                             "each")
+        # the (3, N) mu the kernel carries and the cell's barrier
+        # counter: allocated on the caller's stream, which waits for the
+        # launch before it reuses them, so they live until it is enqueued
+        mu3 = torch.empty((3, N), dtype=torch.float32, device=dev)
+        ctr = torch.zeros(1, dtype=torch.int32, device=dev)
+        ts = [c.V, c.feas, c.ask, c.pcount, c.free, c.active, c.temps,
+              c.X, mu3, c.any_f, c.mu, c.area, ctr]
+        if not all(t.is_contiguous() for t in ts):
+            raise ValueError("lp_shard: every table must be contiguous")
+        scratch += [mu3, ctr]
+        rows.append([t.data_ptr() for t in ts]
+                    + [c.l0, c.l1, c.gi, c.place])
+    table = exchange.cell_table(rows, dev)
+    dims = [L, N, steps, c0.G, len(cells), exchange.budget_units(budget_s)]
+    return dev, lambda _keep=scratch: kernels.LP_SHARD.launch(
+        torch.float32, [table, err], dims)
+
+
+def lp_shard(cells, err=None, *, budget_s=None):
+    """The lane-sharded anneal of ``cells`` (LpShardCells on one device).
+    CPU tensors: the plain phases (``lp_shard_steps_plain``; whole groups
+    only). CUDA tensors: one lp_shard launch on the card's mesh stream
+    (``lp_shard_launch``); ``err`` the dispatch's error word (a new one
+    in the card's memory by default). Returns the error word:
+    exchange.check(err) after reading the results raises if a wait ran
+    out its budget."""
+    dev = cells[0].V.device
+    if dev.type == "cpu":
+        lp_shard_steps_plain(cells)
+        return err
+    if err is None:
+        err = exchange.error_word(dev, False)
+    exchange.launch([lp_shard_launch(cells, err, budget_s)],
+                    hold=exchange.pinned([c.area for c in cells] + [err]))
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -830,6 +922,8 @@ def _solve_lp_group(lanes: List[PackedLane], ledger: Dict[str, list],
                                    for a in arrays + (temps,)))
     X = X_dev[:L].cpu().numpy()
     mu = mu_dev.cpu().numpy()
+    # a mesh dispatch's error word, read where its results came back
+    exchange.check(getattr(X_dev, "exchange_error", None))
     xferobs.note_fetch(int(X.nbytes) + int(mu.nbytes), "lpq")
     X = X.astype(np.float64)
     mu = mu.astype(np.float64)                               # (N, 3)

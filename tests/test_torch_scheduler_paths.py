@@ -19,6 +19,7 @@ from nomad_tpu import mock
 from nomad_tpu.scheduler import Harness as RefHarness
 from nomad_tpu.server.telemetry import metrics as ref_metrics
 from nomad_tpu.faultinject import faults as ref_faults
+from nomad_tpu.solver import batch as ref_batch
 from nomad_tpu.solver import guard as ref_guard
 from nomad_tpu.structs import (
     Constraint, SchedulerConfiguration, ALLOC_CLIENT_COMPLETE,
@@ -491,7 +492,7 @@ def test_system_host_stack_places_under_a_tpu_algorithm_are_counted():
 # --------------------------------------------------------------------------
 # a failed dispatch: the host stack on the CPU, the caller's error on a card
 
-def test_failed_dispatch_on_the_cpu_goes_to_the_host_stack():
+def test_failed_dispatch_on_the_cpu_goes_to_the_host_stack(monkeypatch):
     """With the solver.dispatch fault armed in both packages, the
     barrier's generation fails; on CPU cells the hook counts one host
     fallback and the host stack places the task group, in both packages,
@@ -500,6 +501,18 @@ def test_failed_dispatch_on_the_cpu_goes_to_the_host_stack():
     ref_before = ref_guard.state()["host_fallback_dispatches"]
     ref_places = _ref_host_places()
     before = guard.state()
+    # the reference's pipelined generation stages its arena buffers
+    # (fuse_lanes on the intake thread); its dispatch fails before
+    # solve_groups, whose finally would release them
+    staged = []
+    real_fuse = ref_batch.fuse_lanes
+
+    def recording(*a, **kw):
+        groups = real_fuse(*a, **kw)
+        staged.extend(groups)
+        return groups
+
+    monkeypatch.setattr(ref_batch, "fuse_lanes", recording)
     faults.arm("solver.dispatch", "error")
     ref_faults.arm("solver.dispatch", "error")
     try:
@@ -508,6 +521,13 @@ def test_failed_dispatch_on_the_cpu_goes_to_the_host_stack():
     finally:
         faults.disarm_all()
         ref_faults.disarm_all()
+        # drain the failed generation: release the arena entries it left
+        # acquired, so the next test on this worker reads the reference
+        # arena's in_use as the port's (ROADMAP Queue 3, *reference*)
+        for g in staged:
+            if g.entry is not None:
+                ref_batch._ARENA.release(g.entry)
+                g.entry = None
     assert r is None and p is None and placed_nodes(ph)
     assert_same_runs(rh, ph)
     assert route.port_solves == 1
