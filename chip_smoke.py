@@ -114,7 +114,15 @@ Phases (any failure raises and the script exits nonzero with no result):
  10. wavefront -- solve_wavefront at 32 uniform lanes x 2,000 placements
                 x 16,384 node slots (B = 32), float32 and float64: the
                 kernel against wavefront_plain on the card (bits) and
-                against the wave_block route's decisions; timed.
+                against the wave_block route's decisions; timed; and a
+                mixed group (6 headline lanes, the penalty lane and a
+                lane whose one penalty lies past its active prefix: the
+                run-block and per-placement step loops in one launch)
+                and fuzz groups at the prep's edges (one cluster block,
+                N off the round size, P above N, fit nodes so scarce the
+                walk takes several rounds; lanes with no fit node, every
+                node fit, a saturating cast) against wavefront_plain as
+                bits in both dtypes.
  11. mesh     -- the mesh route on a grid of 4 cells, every cell cuda:0
                 (one process drives them; on several cards each cell
                 would be its own card): the dense slice (phase 5's lanes,
@@ -137,11 +145,13 @@ Phases (any failure raises and the script exits nonzero with no result):
                 drill: each kernel launched for one cell of a two-cell
                 group with a 50 ms budget must raise; phase 9's
                 four generations through the grid's per-shard pool and
-                version chain (g3 promotes through coord_scatter; chain
-                buffers equal to their shadows; per-cell counters), and
-                coord_scatter against its plain version at g3's shape,
-                timed. Every grid's decisions equal the one-card route's
-                bit for bit.
+                version chain (g3 promotes through coord_scatter: one
+                payload upload and one launch for the card's 4 cells a
+                promoted leaf; chain buffers equal to their shadows;
+                per-cell counters), and coord_scatter against its plain
+                version at g3's shape, timed, beside the whole
+                mesh_delta_scatter from the host payload. Every grid's
+                decisions equal the one-card route's bit for bit.
  12. dispatch -- the dispatch layer at full width (32 eval threads a
                 barrier, e_pad_hint 32, float32): the guard's CUDA init
                 probe passes with the breaker closed; SolveBarrier at depth
@@ -3104,16 +3114,138 @@ def wavefront_trees(np, lanes):
                                ("batch", lanes[0].batch)))
 
 
+WAVEFRONT_MIXED_HEAD = 6            # headline lanes of the mixed group
+WAVEFRONT_LATE_ACTIVE = 1_000       # the late-penalty lane's least prefix
+
+
+def pad_batch(np, batch, P):
+    """``batch`` with its placement rows padded to P: row 0's asks, limit
+    and count repeated, the added rows inactive and without a penalty."""
+    P0 = np.asarray(batch.ask_cpu).shape[0]
+
+    def pad(f, a):
+        a = np.asarray(a)
+        if a.shape[:1] != (P0,) or P0 == P:
+            return a
+        fill = {"active": False, "penalty_idx": -1}.get(f, a[0])
+        return np.concatenate([a, np.full((P - P0,) + a.shape[1:], fill,
+                                          dtype=a.dtype)])
+
+    return type(batch)(*(pad(f, a) for f, a in zip(batch._fields, batch)))
+
+
+def wavefront_mixed_trees(np, tp, svc, world, dtype_name, late):
+    """A group that sends lanes down both of the wavefront's step forms in
+    one launch: WAVEFRONT_MIXED_HEAD penalty-free headline lanes (the
+    run-block loop), the penalty lane (60 placements, every third with a
+    penalty; padded to the headline's P with inactive rows) and headline
+    lane WAVEFRONT_MIXED_HEAD active for its first n_active placements,
+    whose one penalty lies past them (the per-placement loop: a penalty
+    past n_active still moves the scores the lane reports there), on
+    node position pos; late = (n_active, pos), the step of its full run
+    where pos goes on winning with a rising score and that node."""
+    from types import SimpleNamespace
+    head = pack_lanes(np, tp, svc, world, dtype_name, kind="plain",
+                      n_lanes=WAVEFRONT_MIXED_HEAD + 1)
+    pen = pack_lanes(np, tp, svc, world, dtype_name, kind="penalty",
+                     n_lanes=1)[0]
+    P = np.asarray(head[0].batch.ask_cpu).shape[0]
+    n_active, pos = late
+    last = head[-1].batch
+    act = np.zeros(P, dtype=bool)
+    act[:n_active] = True
+    pidx = np.full(P, -1, dtype=np.int32)
+    pidx[n_active + P // 4] = pos
+    lanes = head[:-1] + [
+        SimpleNamespace(const=pen.const, init=pen.init,
+                        batch=pad_batch(np, pen.batch, P)),
+        SimpleNamespace(const=head[-1].const, init=head[-1].init,
+                        batch=last._replace(active=act, penalty_idx=pidx))]
+    return wavefront_trees(np, lanes)
+
+
+# Edge groups of the wavefront's prep: (E, N, P, feasible share) -- one
+# cluster block (N < 512), N off the round size, P above N (rows past
+# the fleet), and fit nodes so scarce the walk takes several rounds.
+WAVEFRONT_EDGE_GROUPS = ((4, 100, 40, 0.85), (4, 1_000, 300, 0.85),
+                         (3, 600, 700, 0.85), (4, 9_000, 64, 0.004))
+
+
+def wavefront_fuzz_trees(np, torch, rng, E, N, P, feas, dtype_name, dev):
+    """E numpy-seeded lanes over every feature the in-kernel wavefront
+    models (non-integer asks, ports, distinct_hosts, affinity,
+    penalties, infeasible nodes, seeded usage; lane 0 with no fit node,
+    lane 1 with every node fit and no penalty, a saturating-cast lane
+    where E > 3), as (const, init, batch) of tensors on ``dev``: only
+    the fields the wavefront reads."""
+    from types import SimpleNamespace
+    dt = np.dtype(dtype_name)
+    cap = rng.choice([2000.0, 4000.0, 8000.0], (E, N))
+    used = rng.integers(0, 4, (E, N)) * rng.choice([250.0, 500.0], (E, N))
+    ok = rng.random((E, N)) < feas
+    ok[0] = False
+    ok[1] = True
+    aff = np.where(rng.random((E, N)) < 0.5,
+                   rng.choice([-1.0, -0.5, 0.25, 0.5, 1.0], (E, N)), 0.0)
+    placed = np.where(rng.random((E, N)) < 0.2, rng.integers(1, 4, (E, N)),
+                      0)
+    ask_cpu = rng.choice([99.5, 333.3, 500.0, 1500.25], E)
+    if E > 3:
+        # XLA's saturating cast: (cap - used) / ask past 2^31 on every
+        # third node of lane 3
+        cap[3, ::3] = 1e12
+        used[3] = 0.0
+        ask_cpu[3] = 1e-3
+    pen = np.where(rng.random((E, P)) < 0.1, rng.integers(0, N, (E, P)), -1)
+    pen[1] = -1
+    row = lambda v: np.repeat(np.asarray(v)[:, None], P, axis=1)  # noqa
+    dyn = rng.choice([0, 0, 3, 9], E)
+    dyn[1] = 0
+    const = dict(cpu_cap=cap.astype(dt),
+                 mem_cap=rng.choice([4096.0, 8192.0, 16384.0],
+                                    (E, N)).astype(dt),
+                 disk_cap=np.full((E, N), 90 * 1024.0, dt), feasible=ok,
+                 affinity=aff.astype(dt),
+                 has_affinity=rng.random(E) < 0.5,
+                 distinct_hosts=np.arange(E) % 4 == 2,
+                 distinct_job_level=rng.random(E) < 0.5)
+    init = dict(used_cpu=used.astype(dt),
+                used_mem=(rng.integers(0, 4, (E, N)) * 512.0).astype(dt),
+                used_disk=(rng.integers(0, 3, (E, N)) * 150.0).astype(dt),
+                placed=placed.astype(np.int32),
+                placed_job=(placed + rng.integers(0, 2, (E, N))).astype(
+                    np.int32),
+                static_free=rng.random((E, N)) > 0.3,
+                dyn_avail=rng.integers(-2, 40, (E, N)).astype(np.int32))
+    act = np.ones((E, P), dtype=bool)
+    act[2, P // 2:] = False
+    batch = dict(ask_cpu=row(ask_cpu).astype(dt),
+                 ask_mem=row(rng.choice([128.0, 511.7, 2048.0], E)).astype(
+                     dt),
+                 ask_disk=np.full((E, P), 300.0, dt),
+                 n_dyn_ports=row(dyn).astype(np.int32),
+                 has_static=row(np.arange(E) % 4 == 3),
+                 limit=row(rng.choice([2, 4, 9, 28], E)).astype(np.int32),
+                 count=row(rng.choice([1, 3, P], E)).astype(np.int32),
+                 penalty_idx=pen.astype(np.int32), active=act)
+    return tuple(SimpleNamespace(**{k: torch.from_numpy(
+        np.ascontiguousarray(v)).to(dev) for k, v in t.items()})
+        for t in (const, init, batch))
+
+
 def wavefront_phase(np, torch, wave, dense, batch, kernels, svc, tp, world):
     """solve_wavefront at the headline shape (32 uniform lanes x 2,000
     placements, N = 16,384, B = 32) in float32 and float64: the kernel
-    against wavefront_plain on the card (decisions exactly, scores within
-    RTOL) and against the wave_block route's decisions on the same lanes;
+    against wavefront_plain on the card (decisions exactly, scores as
+    bits) and against the wave_block route's decisions on the same lanes;
     timed by CUDA events; the float32 run through the entry point with
-    the launch counts reset is the main-path run."""
+    the launch counts reset is the main-path run. Then the mixed group
+    (wavefront_mixed_trees: both step forms in one launch) against
+    wavefront_plain as bits in both dtypes."""
     results = []
     main = None
     dev = torch.device(DEVICE)
+    late = {}
     for dtype_name in ("float32", "float64"):
         lanes = pack_lanes(np, tp, svc, world, dtype_name, kind="plain",
                            n_lanes=N_EVALS)
@@ -3161,6 +3293,45 @@ def wavefront_phase(np, torch, wave, dense, batch, kernels, svc, tp, world):
             placed=steps, max_abs_err=err, ms=ms, device_ms=dms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             bytes=nbytes, flops=flops))
+        # a step where the chosen node goes on winning with a rising
+        # score: penalizing it there must move the best score
+        ch = want[0][WAVEFRONT_MIXED_HEAD].cpu().numpy()
+        sc = want[1][WAVEFRONT_MIXED_HEAD].cpu().numpy()
+        t = next(t for t in range(WAVEFRONT_LATE_ACTIVE, P - 1)
+                 if ch[t] >= 0 and ch[t] == ch[t - 1] and sc[t] > sc[t - 1])
+        late[dtype_name] = (t, int(ch[t]))
+    for dtype_name in ("float32", "float64"):
+        trees = wavefront_mixed_trees(np, tp, svc, world, dtype_name,
+                                      late[dtype_name])
+        (c, s, b), _ = dense.fused_tensors(
+            trees, (dense.lane_casts(dtype_name),) * 3, device=dev)
+        got = wave.wavefront(c, s, b, spread_alg=False)
+        want = wave.wavefront_plain(c, s, b, spread_alg=False)
+        tag = f"wavefront mixed {dtype_name}"
+        err = compare(torch, tag, got, want, dtype_name)
+        for f, g, w in zip(("chosen", "scores", "n_yielded"), got, want):
+            same_bits(torch, f"{tag} {f}", g, w)
+        # the late penalty moves the score the frozen lane reports there
+        sc = want[1][-1].cpu()
+        t = late[dtype_name][0] + b.ask_cpu.shape[1] // 4
+        assert sc[t] != sc[t - 1] and sc[t + 1] == sc[t - 1], (
+            float(sc[t - 1]), float(sc[t]), float(sc[t + 1]))
+        log(f"{tag}: E={c.cpu_cap.shape[0]} (the last two with penalties) "
+            f"bits equal to the plain version; max_abs_err={err:.3e}")
+        results.append(dict(name="wavefront", dtype=dtype_name,
+                            group="mixed", max_abs_err=err))
+        rng = np.random.default_rng(SEED + 17)
+        for E, N, P, feas in WAVEFRONT_EDGE_GROUPS:
+            c, s, b = wavefront_fuzz_trees(np, torch, rng, E, N, P, feas,
+                                           dtype_name, dev)
+            got = wave.wavefront(c, s, b, spread_alg=False)
+            want = wave.wavefront_plain(c, s, b, spread_alg=False)
+            tag = f"wavefront edge E={E} N={N} P={P} {dtype_name}"
+            for f, g, w in zip(("chosen", "scores", "n_yielded"), got,
+                               want):
+                same_bits(torch, f"{tag} {f}", g, w)
+        log(f"wavefront edge groups {WAVEFRONT_EDGE_GROUPS} {dtype_name}: "
+            "bits equal to the plain version")
     return results, dict(launches=main)
 
 
@@ -3589,21 +3760,24 @@ def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
     one = run_generations(np, batch, kernels, resident, store_cls, lanes,
                           charge)
     shapes = []
-    orig = resident.coord_scatter
+    calls = []
+    orig = resident.coord_scatter_cells
 
-    def record(part, coords, vals, start):  # noqa: E306
-        shapes.append((tuple(part.shape), int(coords.shape[1]),
-                       str(part.dtype), tuple(start)))
-        return orig(part, coords, vals, start)
+    def record(parts, payload, starts):  # noqa: E306
+        calls.append(len(parts))
+        for part, start in zip(parts, starts):
+            shapes.append((tuple(part.shape), int(payload[0].shape[1]),
+                           str(part.dtype), tuple(start)))
+        return orig(parts, payload, starts)
 
     resident._reset_for_tests()
     kernels.reset_launches()
-    resident.coord_scatter = record
+    resident.coord_scatter_cells = record
     try:
         gens = run_generations(np, batch, kernels, resident, store_cls,
                                lanes, charge, device=cells)
     finally:
-        resident.coord_scatter = orig
+        resident.coord_scatter_cells = orig
     launches = {k.name: k.launches for k in kernels.KERNELS}
     recs = [r for _, r, _ in gens]
     for g, r in enumerate(recs, 1):
@@ -3623,7 +3797,10 @@ def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
         f"{st['shard_resident_hwm']}; per cell (entries, bytes): "
         f"{per_cell}")
     assert recs[2]["delta_promotions"] > 0 and recs[2]["scatter_launches"] > 0
-    assert launches["coord_scatter"] > 0 and launches["delta_scatter"] == 0
+    # one launch a promoted leaf for all the cells of the card
+    assert calls and all(n == MESH_CELLS for n in calls), calls
+    assert launches["coord_scatter"] == len(calls), (launches, calls)
+    assert launches["delta_scatter"] == 0
     assert recs[3]["delta_gap_fallbacks"] > 0
     assert recs[2]["chain_buffers_checked"] > 0
     for g in range(4):
@@ -3646,31 +3823,40 @@ def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
     coords = np.ascontiguousarray(np.stack(np.unravel_index(
         idx_p.astype(np.int64), base.shape)).astype(np.int32))
     cut = mesh.cuts(base.shape, mesh.EN, grid)
-    ins = [(sh.parts[q], resident._put(coords, d), resident._put(vals_p, d),
-            [x.start for x in ix]) for q, d, ix in cut]
+    parts = [sh.parts[q] for q, _d, _ix in cut]
+    starts = [[x.start for x in ix] for _q, _d, ix in cut]
+    payload = resident.put_coord_payload(coords, vals_p, torch.device(DEVICE))
 
     def run(fn):
-        return [fn(*a) for a in ins]
+        return fn(parts, payload, starts)
 
-    got = run(resident.coord_scatter)
-    want = run(resident.coord_scatter_plain)
+    got = run(resident.coord_scatter_cells)
+    want = run(resident.coord_scatter_cells_plain)
     for gpart, wpart in zip(got, want):
         assert bits_equal(torch, gpart, wpart)
     full = base.copy()
     full.reshape(-1)[idx_p] = vals_p
     assert np.array_equal(torch.cat([x.cpu() for x in got]).numpy(), full)
-    ms, dms = call_and_device(torch, lambda: run(resident.coord_scatter))
-    plain_ms = timed(torch, lambda: run(resident.coord_scatter_plain),
+    ms, dms = call_and_device(torch, lambda: run(resident.coord_scatter_cells))
+    plain_ms = timed(torch, lambda: run(resident.coord_scatter_cells_plain),
                      KERNEL_REPEATS)
-    nbytes = sum(2 * a[0].numel() * 4 + k * (4 * 2 + 4) for a in ins)
+    # the grid's whole promotion from the host payload: the upload, then
+    # the launch
+    whole = mesh.mesh_delta_scatter(sh, coords, vals_p)
+    assert np.array_equal(whole.cpu().numpy(), full)
+    whole_ms, whole_dms = call_and_device(
+        torch, lambda: mesh.mesh_delta_scatter(sh, coords, vals_p))
+    nbytes = sum(2 * x.numel() * 4 + k * (4 * 2 + 4) for x in parts)
     bound_ms, bound_by = bound("coord_scatter", nbytes, 0, "float32")
     log(f"kernel coord_scatter float32 (4, 1) table ({E}, {n}) k={k}: "
-        f"bytes equal to the plain version; ms={ms:.4f} (4 cells) "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}, "
-        f"{nbytes} B)")
+        f"bytes equal to the plain version; ms={ms:.4f} device_ms={dms} "
+        f"(4 cells, one launch) plain_ms={plain_ms:.4f} bound_ms="
+        f"{bound_ms:.6f} ({bound_by}, {nbytes} B); mesh_delta_scatter from "
+        f"the host payload ms={whole_ms:.4f} device_ms={whole_dms}")
     kernel = dict(name="coord_scatter", dtype="float32", shape=[E, n, k],
                   ms=ms, device_ms=dms, plain_ms=plain_ms, bound_ms=bound_ms,
-                  bound_by=bound_by, bytes=nbytes, max_abs_err=0.0)
+                  bound_by=bound_by, bytes=nbytes, max_abs_err=0.0,
+                  whole_ms=whole_ms, whole_device_ms=whole_dms)
     return dict(launches=launches, generations=recs, per_cell=per_cell,
                 shard_entries=st["shard_entries"],
                 shard_resident_bytes=st["shard_resident_bytes"],
@@ -6532,7 +6718,12 @@ def check_capacity_lane(np, lane, chosen, n_places):
 # version's. A variant built with -DNT_STEP_CLOCKS (--ab-clocks) exports
 # nt_step_clocks(unsigned long long out[16], int reset) where its kernel
 # stamps step sections: lane 0's clock64() totals per section
-# (csrc/wave_common.cuh NT_CLK), read after one launch.
+# (csrc/wave_common.cuh NT_CLK), read after one launch. The wavefront's
+# case also takes each variant's device ms and each of its kernels'
+# device ms a call (kernel_split: the prep and the step loop apart);
+# coord_scatter's cases run each variant's package (PACKAGED): the card's
+# 4 cells with the payload already there, and the whole
+# mesh_delta_scatter from the host payload.
 
 AB_SOURCES = {"dense_scan": "dense_scan.cu",
               "dense_preempt": "dense_preempt.cu",
@@ -6544,12 +6735,15 @@ AB_SOURCES = {"dense_scan": "dense_scan.cu",
               "system_fit": "system_fit.cu",
               "delta_scatter": "delta_scatter.cu",
               "dense_shard": "dense_shard.cu",
+              "coord_scatter": "delta_scatter.cu",
               "lp_shard": "lp_relax.cu"}
 WAVE_KERNELS = ("wave_block", "wave_compact", "wavefront")
 # kernels whose A/B runs each variant's own package (its wrapper and the
 # host code around the kernel, imported from the tree that holds DIR as
 # its nomad_tpu_torch/csrc), so call time and device time both compare
-PACKAGED = ("system_fit", "delta_scatter", "dense_shard", "lp_shard")
+PACKAGED = ("system_fit", "delta_scatter", "dense_shard", "lp_shard",
+            "coord_scatter")
+MESH_G3 = ((32, 16_384), 64)        # the mesh residency g3 leaf, its bucket
 SCATTER_G3 = (1_572_864, 256)       # the residency path's g3 scatter
 AB_REPEATS = 10
 AB_TILE = 2048                      # the older one-block walk's tile
@@ -6817,11 +7011,36 @@ def ab_lp_cases(np, torch, lpq, svc, world):
             ab_lp_case(torch, lpq, "lp_fuzz_over", ins + [temps])]
 
 
-def ab_wave_case(torch, name, kname, shape, run, plain):
+def ab_wave_case(torch, name, kname, shape, run, plain, split=False):
+    """A wave case; ``split`` adds device ms and each CUDA kernel's
+    device time a call (kernel_split) to every variant's turns."""
     fields = ("chosen", "scores", "n_yielded")
     return dict(name=name, kernel=kname, shape=shape, run=run,
-                want=lambda: (plain(), {}),
+                want=lambda: (plain(), {}), split=split,
                 same=lambda g, w: ab_same(torch, name, fields, g, w))
+
+
+def kernel_split(torch, run, repeats=AB_REPEATS):
+    """{CUDA kernel name: device ms a call} over ``repeats`` warm calls of
+    ``run``, from torch.profiler's CUPTI trace; {"error": ...} where the
+    profiler fails, {} where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                run()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            us = (getattr(ev, "self_device_time_total", 0)
+                  or getattr(ev, "self_cuda_time_total", 0))
+            if us > 0:
+                out[ev.key[:120]] = us / 1e3 / repeats
+        return out
+    except Exception as exc:            # a measurement, not the port
+        return {"error": repr(exc)[:200]}
 
 
 def ab_wave_cases(np, torch, bp, batch, dense, wave, svc, tp, world, names):
@@ -6872,7 +7091,8 @@ def ab_wave_cases(np, torch, bp, batch, dense, wave, svc, tp, world, names):
             torch, "wavefront", "wavefront",
             dict(E=int(E), N=int(N), P=int(b.ask_cpu.shape[1]), B=32),
             lambda: wave.wavefront(c, s, b, spread_alg=False),
-            lambda: wave.wavefront_plain(c, s, b, spread_alg=False)))
+            lambda: wave.wavefront_plain(c, s, b, spread_alg=False),
+            split=True))
     return [c for c in cases if c["kernel"] in names]
 
 
@@ -6902,6 +7122,18 @@ def ab_phase(np, torch, kernels, cases, built):
         for tag in variants:
             row["ms"][tag] = statistics.median(
                 ms for t, ms in row["turns"] if t == tag)
+        if case.get("split"):
+            row["device_ms"], row["split"] = {}, {}
+            for tag in variants + variants[::-1]:
+                use(tag)
+                row["device_ms"].setdefault(tag, []).append(
+                    device_ms(torch, run, AB_REPEATS))
+            for tag in variants:
+                use(tag)
+                row["split"][tag] = kernel_split(torch, run)
+                log(f"  split {tag}: device "
+                    f"{row['device_ms'][tag]} ms; kernels (ms a call) "
+                    + json.dumps(row["split"][tag]))
         row["clocks"] = {}
         sections = AB_SECTIONS.get(kname, AB_SECTIONS[
             "wave" if kname in WAVE_KERNELS else "dense"])
@@ -6924,7 +7156,9 @@ def ab_phase(np, torch, kernels, cases, built):
             shown = [k for k in sections if k not in (
                 "total", "steps", "tiles", "searches", "refills", "hwait",
                 "hwork")]
+            c["total_ms"] = c["total"] / spin_cycles_per_ms(torch)
             log(f"  clocks {tag}: C={c.get('cluster')} steps={c['steps']} "
+                f"total_ms={c['total_ms']:.4f} "
                 + (f"rounds={c['tiles']} " if "tiles" in c else "")
                 + (f"searches={c['searches']} " if "searches" in c else "")
                 + (f"refills={c['refills']} " if "refills" in c else "")
@@ -7231,6 +7465,53 @@ def ab_scatter_cases(np, torch, resident):
     return cases
 
 
+def ab_coord_cases(np, torch, mesh, resident):
+    """Row 9b at the mesh residency g3's shape (a (32, 16,384) float32
+    usage table on (4, 1), 4 cells of the card, a bucket of 64 updates):
+    the card's cells with the payload already there (the per-card entry
+    point where the variant has one, else the per-cell scatter), and the
+    whole mesh_delta_scatter from the host payload, uploads included."""
+    (E, n), k = MESH_G3
+    cells = [DEVICE] * MESH_CELLS
+    grid = mesh.make_mesh(cells, eval_parallel=MESH_CELLS)
+    rng = np.random.default_rng(SEED + 81)
+    base = rng.standard_normal((E, n)).astype(np.float32)
+    sh = mesh.put_by_spec(base, mesh.EN, grid)
+    idx = rng.choice(base.size, k - k // 4, replace=False)
+    idx_p, vals_p, bucket = resident._pad_updates(
+        idx, base.reshape(-1)[idx] + np.float32(1))
+    assert bucket == k
+    coords = np.ascontiguousarray(np.stack(np.unravel_index(
+        idx_p.astype(np.int64), base.shape)).astype(np.int32))
+    full = base.copy()
+    full.reshape(-1)[idx_p] = vals_p
+    want = torch.from_numpy(full)
+    cut = mesh.cuts(base.shape, mesh.EN, grid)
+    parts = [sh.parts[q] for q, _d, _ix in cut]
+    starts = [[x.start for x in ix] for _q, _d, ix in cut]
+    pay = resident.put_coord_payload(coords, vals_p, torch.device(DEVICE))
+
+    def cells_call(pkg):
+        r = pkg.resident
+        if hasattr(r, "coord_scatter_cells"):
+            return lambda: r.coord_scatter_cells(parts, pay, starts)
+        return lambda: [r.coord_scatter(x, pay[0], pay[1], st)
+                        for x, st in zip(parts, starts)]
+
+    def same(got, w):
+        got = got.parts if hasattr(got, "parts") else got
+        if not bits_equal(torch, torch.cat([x.cpu() for x in got]), w):
+            raise AssertionError("ab coord_scatter: bytes differ from the "
+                                 "plain version's")
+
+    shape = dict(E=E, N=n, k=k, grid=[MESH_CELLS, 1])
+    return [ab_case("coord_g3_cells", "coord_scatter", shape, cells_call,
+                    lambda: want, same),
+            ab_case("coord_g3_whole", "coord_scatter", shape,
+                    lambda pkg: (lambda: pkg.mesh.mesh_delta_scatter(
+                        sh, coords, vals_p)), lambda: want, same)]
+
+
 def ab_bits(torch, name, got, want):
     if not bits_equal(torch, got, want):
         raise AssertionError(f"ab {name}: bytes differ from the plain "
@@ -7345,6 +7626,9 @@ def ab_main(args, torch, np):
                                         world)
         if "delta_scatter" in names:
             packaged += ab_scatter_cases(np, torch, resident)
+        if "coord_scatter" in names:
+            from nomad_tpu_torch.parallel import mesh
+            packaged += ab_coord_cases(np, torch, mesh, resident)
         packaged += ab_mesh_cases(np, torch, batch, dense, lpq, svc, tp,
                                   world, names)
     cases = []

@@ -39,53 +39,28 @@
 //
 // The coordinate entry points (nt_coord_scatter_*) replace
 // nomad_tpu/parallel/mesh.py::mesh_delta_scatter_fn, the same promotion
-// of a table sharded over an (evals, nodes) grid: each cell's slice (up to
-// 4 axes, beginning at `start` in the whole table) is copied, then every
-// update whose coordinates (coords[ndim, k], whole-table, replicated to
-// every cell) fall inside the slice is written at its local position; the
-// others belong to other cells. Per cell the bound is (2 M_cell s +
-// k (4 ndim + s)) bytes: every cell reads the whole replicated payload.
-// They keep their two launches (copy_kernel, then coord_apply_kernel).
+// of a table sharded over an (evals, nodes) grid: each cell's slice (up
+// to 4 axes, beginning at `start` in the whole table) is copied, and
+// every update whose coordinates (coords[ndim, k], whole-table,
+// replicated to every cell) fall inside the slice is written at its
+// local position; the others belong to other cells. One launch writes
+// every cell of one card (up to kMaxCells): the block-local form over
+// all of them, each block copying a chunk of one cell's slice, then
+// writing the updates that land in that chunk; no second kernel and no
+// grid-wide barrier. The payload reaches the card once for all its cells
+// (solver/resident.py put_coord_payload). Bound, per card: (2 M_cell s
+// n_cells + k (4 ndim + s)) bytes, each slice read and written once and
+// the payload read once. The older form made two launches a cell (a
+// copy kernel, then an update kernel) after two pageable uploads a cell.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;      // H100 SXM: 132 SMs
-
-template <typename U>
-__global__ void __launch_bounds__(kThreads)
-copy_kernel(const U* __restrict__ src, U* __restrict__ dst, long long m,
-            int vec) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long done = 0;
-  if (vec) {
-    // whole 16-byte words first
-    const long long n16 = (m * (long long)sizeof(U)) / 16;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (long long i = t0; i < n16; i += stride) d4[i] = s4[i];
-    done = n16 * 16 / (long long)sizeof(U);
-  }
-  for (long long i = done + t0; i < m; i += stride) dst[i] = src[i];
-}
-
-// The copy alone, as two launches' first half always was: the coordinate
-// scatter's first launch.
-template <typename U>
-int launch_copy(const U* buf, U* out, long long m, cudaStream_t stream) {
-  if (m <= 0) return m < 0 ? (int)cudaErrorInvalidValue : 0;
-  const int vec = ((reinterpret_cast<uintptr_t>(buf) |
-                    reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  const long long units = vec ? (m * (long long)sizeof(U) + 15) / 16 : m;
-  long long blocks = (units + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  copy_kernel<U><<<(int)blocks, kThreads, 0, stream>>>(buf, out, m, vec);
-  return (int)cudaGetLastError();
-}
 
 namespace cg = cooperative_groups;
 
@@ -253,51 +228,96 @@ int launch(const U* buf, const int* idx, const U* vals, U* out, long long m,
   return (int)cudaGetLastError();
 }
 
+// The coordinate form: every cell of one card in one launch.
+constexpr int kMaxCells = 32;
+
 struct Dims4 {
   long long v[4];
 };
 
+template <typename U> struct Cells {
+  const U* src[kMaxCells];
+  U* dst[kMaxCells];
+  Dims4 start[kMaxCells];
+};
+
+// Block b: cell b / per_cell, chunk b % per_cell of its slice (m
+// elements of shape `shape`); the copy, then the updates landing there.
 template <typename U>
 __global__ void __launch_bounds__(kThreads)
-coord_apply_kernel(const int* __restrict__ coords,
-                   const U* __restrict__ vals, U* __restrict__ out,
-                   int ndim, int k, Dims4 shape, Dims4 start) {
-  const int u = blockIdx.x * blockDim.x + threadIdx.x;
-  if (u >= k) return;
-  long long flat = 0;
-  for (int d = 0; d < ndim; ++d) {
-    const long long c = (long long)coords[(size_t)d * k + u] - start.v[d];
-    if (c < 0 || c >= shape.v[d]) return;        // another cell's update
-    flat = flat * shape.v[d] + c;
+coord_cells_kernel(const __grid_constant__ Cells<U> cells,
+                   const int* __restrict__ coords,
+                   const U* __restrict__ vals, int ndim, int k, Dims4 shape,
+                   long long m, int vec, long long chunk, long long per_cell) {
+  const long long cell = (long long)blockIdx.x / per_cell;
+  const long long b = (long long)blockIdx.x - cell * per_cell;
+  U* dst = cells.dst[cell];
+  long long elo, ehi;
+  copy_block<U>(cells.src[cell], dst, m, vec, chunk, b, per_cell, elo, ehi);
+  __syncthreads();
+  const Dims4& st = cells.start[cell];
+  for (int u = threadIdx.x; u < k; u += blockDim.x) {
+    long long flat = 0;
+    bool in = true;
+    for (int d = 0; d < ndim; ++d) {
+      const long long c =
+          (long long)__ldg(coords + (size_t)d * k + u) - st.v[d];
+      in = in && c >= 0 && c < shape.v[d];
+      flat = flat * shape.v[d] + c;
+    }
+    if (in && flat >= elo && flat < ehi) dst[flat] = __ldg(vals + u);
   }
-  out[flat] = vals[u];
 }
 
-// The coordinate entry point: part coords vals out as device pointers,
-// then ndim k, the slice's shape (4 ints, 1 past ndim) and its start in
-// the whole table (4 ints, 0 past ndim).
+// The coordinate entry point: coords vals, then the n cells' slices and
+// their outputs as device pointers; then ndim k n, the slices' shape (4
+// ints, 1 past ndim) and each cell's start in the whole table (4 ints a
+// cell, 0 past ndim). Chunks of kThreads x kInFlight units (16-byte
+// words when every slice and output is 16-byte aligned, else elements),
+// made larger when the updates are many, so that the reads of all k
+// updates past one block a cell stay within a kLocalShare-th of the
+// slices' bytes.
 template <typename U>
 int launch_coords(void* const* p, int n_ptrs, const int* d, int n_dims,
                   cudaStream_t stream) {
-  if (n_ptrs != 4 || n_dims != 10) return (int)cudaErrorInvalidValue;
-  const int ndim = d[0], k = d[1];
-  if (ndim < 1 || ndim > 4 || k < 0) return (int)cudaErrorInvalidValue;
-  Dims4 shape, start;
+  if (n_dims < 3) return (int)cudaErrorInvalidValue;
+  const int ndim = d[0], k = d[1], n = d[2];
+  if (ndim < 1 || ndim > 4 || k < 0 || n < 1 || n > kMaxCells ||
+      n_ptrs != 2 + 2 * n || n_dims != 7 + 4 * n)
+    return (int)cudaErrorInvalidValue;
+  Dims4 shape;
   long long m = 1;
   for (int i = 0; i < 4; ++i) {
-    shape.v[i] = d[2 + i];
-    start.v[i] = d[6 + i];
+    shape.v[i] = d[3 + i];
     if (shape.v[i] < 0 || (i >= ndim && shape.v[i] != 1))
       return (int)cudaErrorInvalidValue;
     m *= shape.v[i];
   }
-  const U* part = (const U*)p[0];
-  U* out = (U*)p[3];
-  int rc = launch_copy<U>(part, out, m, stream);
-  if (rc != 0 || k == 0) return rc;
-  coord_apply_kernel<U><<<(k + kThreads - 1) / kThreads, kThreads, 0,
-                          stream>>>((const int*)p[1], (const U*)p[2], out,
-                                    ndim, k, shape, start);
+  if (m == 0) return 0;                 // empty slices: nothing to write
+  Cells<U> cells;
+  uintptr_t align = 0;
+  for (int c = 0; c < n; ++c) {
+    cells.src[c] = (const U*)p[2 + c];
+    cells.dst[c] = (U*)p[2 + n + c];
+    align |= reinterpret_cast<uintptr_t>(cells.src[c]) |
+             reinterpret_cast<uintptr_t>(cells.dst[c]);
+    for (int i = 0; i < 4; ++i) cells.start[c].v[i] = d[7 + 4 * c + i];
+  }
+  const int vec = (align & 15) == 0;
+  const long long units = vec ? m * (long long)sizeof(U) / 16 : m;
+  long long chunk = (long long)kThreads * kInFlight;
+  long long per_cell = units > 0 ? (units + chunk - 1) / chunk : 1;
+  if (k > 0) {
+    const long long upd = 4LL * ndim * k * kLocalShare;
+    const long long most = n + n * m * (long long)sizeof(U) / upd;
+    if (n * per_cell > most) {
+      per_cell = std::max(1LL, most / n);
+      chunk = units > 0 ? (units + per_cell - 1) / per_cell : chunk;
+    }
+  }
+  coord_cells_kernel<U><<<(unsigned)(n * per_cell), kThreads, 0, stream>>>(
+      cells, (const int*)p[0], (const U*)p[1], ndim, k, shape, m, vec, chunk,
+      per_cell);
   return (int)cudaGetLastError();
 }
 

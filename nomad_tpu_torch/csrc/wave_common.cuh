@@ -1,10 +1,9 @@
 // Shared device code of the window kernels: slot state, the score
-// terms, the block-wide prefix scan and arg-best reduction and the
-// block-wide saturation shift/refill (the dense, system and windowed
-// preemption kernels' building blocks: dense_common.cuh,
-// preempt_common.cuh), and the step clocks. The wave kernels'
-// warp-synchronous step (wave_block.cu, wave_compact.cu, wavefront.cu)
-// is in wave_warp.cuh.
+// terms, the block-wide prefix scan, arg-best reduction and window
+// selection (the dense, system and windowed preemption kernels' building
+// blocks: dense_common.cuh, preempt_common.cuh), and the step clocks.
+// The wave kernels' warp-synchronous step (wave_block.cu,
+// wave_compact.cu, wavefront.cu) is in wave_warp.cuh.
 //
 // The block helpers run one thread per slot of a B-slot window buffer
 // (B = 32 * NW, NW warps). Every per-slot
@@ -259,36 +258,6 @@ __device__ __forceinline__ Sel select_slot(bool fit, bool low, int L,
   r.yielded = window || fallback;
   r.order = window ? cpos : L + srank;
   return r;
-}
-
-// Saturation: shift the slots above w left by one and load compact row
-// min(cursor, C-1) into the last slot (binpack.py _wave_refill_shift).
-// svidx holds S spread value-index columns of B ints (S may be 0); stage
-// is B slots of shared memory. Every thread must call it.
-template <typename T, int NW>
-__device__ __forceinline__ void refill_shift(Slot<T>& s, int w,
-                                             const T* lane_compact, int C,
-                                             int W, int cursor,
-                                             Slot<T>* stage, int* svidx,
-                                             int S) {
-  constexpr int B = 32 * NW;
-  const int tid = threadIdx.x;
-  const T* row = lane_compact + (size_t)min(cursor, C - 1) * W;
-  stage[tid] = s;
-  __syncthreads();
-  if (tid == B - 1) {
-    load_row(s, row);
-  } else if (tid >= w) {
-    s = stage[tid + 1];
-  }
-  for (int q = 0; q < S; ++q) {
-    int* col = svidx + q * B;
-    int v = tid == B - 1 ? (int)row[8 + q]
-                         : (tid >= w ? col[tid + 1] : col[tid]);
-    __syncthreads();
-    col[tid] = v;
-  }
-  __syncthreads();
 }
 
 }  // namespace nt

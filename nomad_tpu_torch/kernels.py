@@ -189,7 +189,8 @@ WAVEFRONT = Kernel(
 # The mesh programs (nomad_tpu/parallel/mesh.py). The node-sharded dense
 # scan and the lane-sharded LP are persistent: one launch runs every step
 # of every cell of the grid on one card (solver/exchange.py launch), the
-# cells meeting through flagged slots (csrc/mesh_exchange.cuh).
+# cells meeting through flagged slots (csrc/mesh_exchange.cuh). The
+# coordinate scatter writes every cell of one card in one launch.
 DENSE_SHARD = Kernel(
     "dense_shard", "dense_shard.cu",
     "nomad_tpu/parallel/mesh.py:251 mesh_solve_fn",

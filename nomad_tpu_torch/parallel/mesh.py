@@ -284,30 +284,39 @@ def put_by_spec(arr: np.ndarray, spec, grid: Grid) -> Sharded:
 # --------------------------------------------------------------------------
 # The coordinate scatter (reference mesh_delta_scatter_fn): the version
 # chain's promotion of a sharded table. The host unravels the flat diff
-# indices into per-axis coordinates; (coords, vals) go to every cell, and
-# each cell writes into a copy of its slice the updates that land there.
+# indices into per-axis coordinates; (coords, vals) go to every device
+# once, and each cell writes into a copy of its slice the updates that
+# land there, all the cells of a device in one call.
 
 def _scatter_cells(buf: Sharded, coords: np.ndarray, vals: np.ndarray,
                    fn) -> Sharded:
-    parts = []
+    by_dev: dict = {}
     for k, dev, idx in cuts(buf.shape, buf.spec, buf.grid):
-        parts.append(fn(buf.parts[k], resident._put(coords, dev),
-                        resident._put(vals, dev), [s.start for s in idx]))
+        by_dev.setdefault(dev, []).append((k, [s.start for s in idx]))
+    parts = [None] * len(buf.parts)
+    for dev, cells in by_dev.items():
+        outs = fn([buf.parts[k] for k, _ in cells],
+                  resident.put_coord_payload(coords, vals, dev),
+                  [st for _, st in cells])
+        for (k, _), out in zip(cells, outs):
+            parts[k] = out
     return Sharded(buf.grid, buf.spec, buf.shape, parts)
 
 
 def mesh_delta_scatter(buf: Sharded, coords: np.ndarray,
                        vals: np.ndarray) -> Sharded:
     """A new sharded table equal to ``buf`` with ``out[coords[:, i]] =
-    vals[i]``; ``coords`` (ndim, k) int32 in whole-table coordinates. Each
-    cell runs resident.coord_scatter (the kernel on the card)."""
-    return _scatter_cells(buf, coords, vals, resident.coord_scatter)
+    vals[i]``; ``coords`` (ndim, k) int32 in whole-table coordinates. Per
+    device: one payload upload, then resident.coord_scatter_cells over its
+    cells (one launch on a card)."""
+    return _scatter_cells(buf, coords, vals, resident.coord_scatter_cells)
 
 
 def mesh_delta_scatter_plain(buf: Sharded, coords: np.ndarray,
                              vals: np.ndarray) -> Sharded:
     """The plain version of mesh_delta_scatter, on the cells' devices."""
-    return _scatter_cells(buf, coords, vals, resident.coord_scatter_plain)
+    return _scatter_cells(buf, coords, vals,
+                          resident.coord_scatter_cells_plain)
 
 
 # --------------------------------------------------------------------------

@@ -311,47 +311,76 @@ def coord_scatter_plain(part: torch.Tensor, coords: torch.Tensor,
     return out.view(part.dtype).view(part.shape)
 
 
-def coord_scatter(part: torch.Tensor, coords: torch.Tensor,
-                  vals: torch.Tensor, start: Sequence[int]) -> torch.Tensor:
-    """The coordinate scatter into one cell's slice (see
-    coord_scatter_plain); ``part`` is never written. ``coords`` is
-    (ndim, k) int32 with ndim = part.dim() <= 4, ``vals`` (k,) of part's
-    dtype, ``start`` the slice's first coordinate per axis. The plain
-    version for CPU tensors, the coordinate entry points of the
-    delta_scatter source for CUDA tensors."""
-    for name, t in (("part", part), ("coords", coords), ("vals", vals)):
+def coord_scatter_cells_plain(parts: Sequence[torch.Tensor], payload,
+                              starts: Sequence[Sequence[int]]) -> list:
+    """Plain version of coord_scatter_cells: coord_scatter_plain on each
+    cell in turn."""
+    coords, vals = payload
+    return [coord_scatter_plain(p, coords, vals, st)
+            for p, st in zip(parts, starts)]
+
+
+_MAX_CELLS = 32                     # csrc/delta_scatter.cu kMaxCells
+
+
+def coord_scatter_cells(parts: Sequence[torch.Tensor], payload,
+                        starts: Sequence[Sequence[int]]) -> list:
+    """The coordinate scatter into every cell of one device (see
+    coord_scatter_plain): a new tensor per cell, ``parts`` never written.
+    ``parts`` are the cells' slices, all of one shape, dtype and device;
+    ``payload`` = (coords (ndim, k) int32 in whole-table coordinates,
+    vals (k,) of the parts' dtype) on that device, shared by the cells
+    (put_coord_payload ships it once); ``starts`` each slice's first
+    coordinate per axis. The plain version for CPU tensors; for CUDA
+    tensors one launch of the coordinate entry points of the
+    delta_scatter source writes every cell (up to 32)."""
+    coords, vals = payload
+    parts = list(parts)
+    if not parts or len(starts) != len(parts):
+        raise ValueError("one start per part, at least one part")
+    p0 = parts[0]
+    if not isinstance(p0, torch.Tensor):
+        raise TypeError("parts must be torch.Tensors")
+    dev, dt, shape = p0.device, p0.dtype, p0.shape
+    for t in parts:
+        if not (isinstance(t, torch.Tensor) and t.device == dev
+                and t.dtype == dt and t.shape == shape
+                and t.is_contiguous()):
+            raise ValueError("the parts must be contiguous tensors of one "
+                             "shape, dtype and device")
+    for name, t in (("coords", coords), ("vals", vals)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
-        if t.device != part.device:
-            raise ValueError(f"{name} is on {t.device}, expected "
-                             f"{part.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    ndim = part.dim()
-    if not 1 <= ndim <= 4 or len(start) != ndim:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+    ndim = len(shape)
+    if not 1 <= ndim <= 4 or any(len(st) != ndim for st in starts):
         raise ValueError("the coordinate scatter takes 1 to 4 axes and "
                          "one start per axis")
-    if coords.dtype != torch.int32 or tuple(coords.shape[:1]) != (ndim,) \
-            or coords.dim() != 2:
+    if coords.dtype != torch.int32 or coords.dim() != 2 \
+            or coords.shape[0] != ndim:
         raise TypeError(f"coords must be ({ndim}, k) int32")
-    if vals.dtype != part.dtype or tuple(vals.shape) != (coords.shape[1],):
-        raise TypeError(f"vals must be ({coords.shape[1]},) {part.dtype}")
-    if part.element_size() not in _BITS:
-        raise TypeError(f"no scatter for {part.element_size()}-byte "
+    if vals.dtype != dt or tuple(vals.shape) != (coords.shape[1],):
+        raise TypeError(f"vals must be ({coords.shape[1]},) {dt}")
+    if p0.element_size() not in _BITS:
+        raise TypeError(f"no scatter for {p0.element_size()}-byte "
                         "elements")
-    if part.numel() >= 1 << 31:
+    if p0.numel() >= 1 << 31:
         raise ValueError("the scatter addresses fewer than 2^31 elements")
-    dev = part.device
     if dev.type == "cpu":
-        return coord_scatter_plain(part, coords, vals, start)
+        return coord_scatter_cells_plain(parts, payload, starts)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    out = torch.empty_like(part, memory_format=torch.contiguous_format)
-    shape4 = list(part.shape) + [1] * (4 - ndim)
-    start4 = [int(x) for x in start] + [0] * (4 - ndim)
-    kernels.COORD_SCATTER.launch(part.dtype, [part, coords, vals, out],
-                                 [ndim, coords.shape[1]] + shape4 + start4)
-    return out
+    n = len(parts)
+    if n > _MAX_CELLS:
+        raise ValueError(f"{n} cells on {dev}: one launch takes at most "
+                         f"{_MAX_CELLS}")
+    outs = [torch.empty_like(t) for t in parts]
+    kernels.COORD_SCATTER.launch(
+        dt, [coords, vals, *parts, *outs],
+        [ndim, coords.shape[1], n, *shape, *[1] * (4 - ndim)]
+        + [int(x) for st in starts for x in (*st, *[0] * (4 - ndim))])
+    return outs
 
 
 # --------------------------------------------------------------------------
@@ -389,6 +418,24 @@ def _stage_payload(idx_p: np.ndarray, vals_p: np.ndarray, pinned: bool):
     h[:n_idx] = np.ascontiguousarray(idx_p, dtype=np.int32).view(np.uint8)
     h[off:] = np.ascontiguousarray(vals_p).reshape(-1).view(np.uint8)
     return host, off
+
+
+def put_coord_payload(coords: np.ndarray, vals: np.ndarray,
+                      device: torch.device) -> tuple:
+    """The coordinate scatter's payload on ``device`` in one host->device
+    copy: (coords (ndim, k) int32, vals (k,)), staged as _stage_payload
+    stages (page-locked for a card). Every cell of a device reads this
+    one copy."""
+    coords = np.ascontiguousarray(coords, dtype=np.int32)
+    vals = np.ascontiguousarray(vals)
+    dt = torch.from_numpy(np.empty(0, dtype=vals.dtype)).dtype
+    host, off = _stage_payload(coords.reshape(-1), vals,
+                               pinned=device.type == "cuda")
+    pay = (host.to(device, non_blocking=True) if device.type == "cuda"
+           else host)
+    n = int(coords.size)
+    return (pay[:4 * n].view(torch.int32).view(coords.shape),
+            pay[off:].view(dt))
 
 
 def _scatter_single(buf, idx_p: np.ndarray, vals_p: np.ndarray):

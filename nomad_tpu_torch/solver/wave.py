@@ -549,7 +549,10 @@ def _fetched(out: tuple, tag: str) -> tuple:
 # --------------------------------------------------------------------------
 # The in-kernel wavefront (binpack.py _solve_wavefront_impl): capacities,
 # fit order and compact table computed on the device from the dense lane
-# tables, then the per-placement step with no spread columns, B = WAVE_B.
+# tables, then the wave step with no spread columns, B = WAVE_B. On the
+# card a penalty-free lane takes the run-block loop and any other the
+# per-placement loop (csrc/wavefront.cu); both give the per-placement
+# step's outputs, which the plain version computes.
 
 # (tree, field) order of the tensor pointers nt_wavefront_* takes
 # (csrc/wavefront.cu unpacks them in this order)
@@ -594,18 +597,11 @@ def _cap_dim(used0, cap, ask):
     return torch.where(ask > 0, q, torch.full_like(q, 2 ** 30))
 
 
-def wavefront_tables(const, init, batch, B: int = WAVE_B):
-    """The device-side precompute of the in-kernel wavefront over E
-    stacked lanes of tensors: (compact (E, P + B, 8), scal_f (E, 3),
-    scal_i (E, 2) int32), the compact table's columns those of
-    wave_compact's [c, used_cpu, used_mem, cpu_cap, mem_cap, placed,
-    affinity, pos]. Rows past a lane's last fit node repeat node N-1's
-    row with c = 0 and pos = N."""
-    dt = const.cpu_cap.dtype
-    E, N = const.cpu_cap.shape
+def wavefront_caps(const, init, batch):
+    """Each node's capacity c for the lane's uniform ask, clip(c, 0, P),
+    (E, N) int32, and the affinity column the compact rows carry (zero
+    where the lane has none): the in-kernel wavefront's per-node work."""
     P = batch.ask_cpu.shape[1]
-    C = P + B
-    dev = const.cpu_cap.device
     ask_cpu, ask_mem = batch.ask_cpu[:, :1], batch.ask_mem[:, :1]
     ask_disk = batch.ask_disk[:, :1]
     n_dyn = batch.n_dyn_ports[:, :1]
@@ -628,6 +624,22 @@ def wavefront_tables(const, init, batch, B: int = WAVE_B):
     c = torch.where(const.feasible, c, zero).clamp(0, P)
     aff = torch.where(const.has_affinity[:, None], const.affinity,
                       torch.zeros_like(const.affinity))
+    return c, aff
+
+
+def wavefront_tables(const, init, batch, B: int = WAVE_B):
+    """The device-side precompute of the in-kernel wavefront over E
+    stacked lanes of tensors: (compact (E, P + B, 8), scal_f (E, 3),
+    scal_i (E, 2) int32), the compact table's columns those of
+    wave_compact's [c, used_cpu, used_mem, cpu_cap, mem_cap, placed,
+    affinity, pos]. Rows past a lane's last fit node repeat node N-1's
+    row with c = 0 and pos = N."""
+    dt = const.cpu_cap.dtype
+    E, N = const.cpu_cap.shape
+    P = batch.ask_cpu.shape[1]
+    C = P + B
+    dev = const.cpu_cap.device
+    c, aff = wavefront_caps(const, init, batch)
 
     # the first C fit nodes of each lane in shuffled order; N = none
     tak = c > 0
@@ -701,7 +713,8 @@ def wavefront(const: NodeConst, init: NodeState, batch: PlacementBatch, *,
     C = P + WAVE_B
     compact = torch.empty((E, C, 8), dtype=dt, device=dev)
     scal_f = torch.empty((E, 3), dtype=dt, device=dev)
-    scal_i = torch.empty((E, 2), dtype=torch.int32, device=dev)
+    # (E, 2) lane scalars (limit, n_active), then each lane's route
+    scal_i = torch.empty(3 * E, dtype=torch.int32, device=dev)
     chosen = torch.empty((E, P), dtype=torch.int64, device=dev)
     scores = torch.empty((E, P), dtype=dt, device=dev)
     n_yielded = torch.empty((E, P), dtype=torch.int64, device=dev)

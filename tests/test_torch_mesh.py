@@ -14,7 +14,10 @@ Over every factorization of 8 cells, GRID:
     reserved cores, ports and penalties;
   * mesh_lpq gives the reference's mesh_lpq_fn's X and mu bit for bit;
   * mesh_delta_scatter_plain equals mesh_delta_scatter_fn byte for byte,
-    with -0.0, NaN payloads and duplicated padding indices;
+    with -0.0, NaN payloads and duplicated padding indices; the grouped
+    mesh_delta_scatter (one payload upload and one coord_scatter_cells
+    call per device) too, on 4 and 8 cells with sharded and replicated
+    specs, updates on every cell's edges and k = 0;
   * the eval-sharded wave and windowed-preemption routes equal the
     unsharded ones;
   * pick_mesh picks the reference's grid over a sweep of (e, n, cells),
@@ -248,17 +251,141 @@ def test_mesh_delta_scatter_matches_reference(e_par, n_par, dtype):
     assert _bytes_equal(sh.cpu().numpy(), base)
 
 
+SCATTER_GRIDS = [(1, 4), (2, 2), (4, 1), (8, 1)]
+SCATTER_SPECS = {"sharded": mesh.EN, "evals_only": ("evals", None),
+                 "replicated": (None, None)}
+
+
+def _edge_updates(rng, shape, e_par, n_par, k):
+    """k flat indices of a (rows, cols) table: the first and last row and
+    column of every cell's slice on a (e_par, n_par) grid, then random
+    ones; distinct."""
+    rows, cols = shape
+    rs = sorted({x for p in range(e_par) for x in (
+        p * rows // e_par, (p + 1) * rows // e_par - 1)})
+    cs = sorted({x for p in range(n_par) for x in (
+        p * cols // n_par, (p + 1) * cols // n_par - 1)})
+    edge = [r * cols + c for r in rs for c in cs]
+    rest = [int(x) for x in rng.permutation(rows * cols) if x not in edge]
+    return np.asarray((edge + rest)[:k], dtype=np.int64)
+
+
+@pytest.mark.parametrize("k", [0, 12, 45])
+@pytest.mark.parametrize("spec_name", sorted(SCATTER_SPECS))
+@pytest.mark.parametrize("e_par,n_par", SCATTER_GRIDS)
+def test_grouped_coord_scatter_matches_reference(e_par, n_par, spec_name,
+                                                 k, monkeypatch):
+    """mesh_delta_scatter groups a grid's cells by device: one payload
+    upload and one coord_scatter_cells call per device (all the cells
+    here are the CPU), and coord_scatter_cells_plain applies
+    coord_scatter_plain cell by cell; both equal the reference's
+    mesh_delta_scatter_fn on the virtual XLA devices byte for byte, with
+    updates on every cell's edges, padded duplicates and k = 0."""
+    _needs_8_devices()
+    from jax.sharding import NamedSharding, PartitionSpec
+    n_cells = e_par * n_par
+    spec = SCATTER_SPECS[spec_name]
+    rng = np.random.default_rng(100 + 10 * n_cells + k)
+    shape = (8, 64)
+    base = (rng.standard_normal(shape) * 50).astype(np.float32)
+    idx = _edge_updates(rng, shape, e_par, n_par, k)
+    vals = base.reshape(-1)[idx] + np.float32(1)
+    if k:
+        idx_p, vals_p, bucket = resident._pad_updates(idx, vals)
+        assert bucket > idx.size                   # padded: duplicates
+    else:
+        idx_p, vals_p = idx.astype(np.int32), vals
+    coords = np.ascontiguousarray(np.stack(np.unravel_index(
+        idx_p.astype(np.int64), shape)).astype(np.int32)).reshape(2, -1)
+    rmesh = ref_mesh.make_mesh(n_cells, eval_parallel=e_par)
+    pspec = PartitionSpec(*spec)
+    with rmesh:
+        buf = jax.device_put(base, NamedSharding(rmesh, pspec))
+        rep = NamedSharding(rmesh, PartitionSpec())
+        want = np.asarray(ref_mesh.mesh_delta_scatter_fn(
+            rmesh, shape, base.dtype.str, int(idx_p.size), pspec)(
+                buf, jax.device_put(coords, rep),
+                jax.device_put(vals_p, rep)))
+    grid = mesh.make_mesh(["cpu"] * n_cells, eval_parallel=e_par)
+    sh = mesh.put_by_spec(base, spec, grid)
+    uploads, calls = [], []
+    put, cells = resident.put_coord_payload, resident.coord_scatter_cells
+
+    def counted_put(c, v, dev):
+        uploads.append(dev)
+        return put(c, v, dev)
+
+    def counted_cells(parts, payload, starts):
+        calls.append(len(parts))
+        return cells(parts, payload, starts)
+
+    monkeypatch.setattr(resident, "put_coord_payload", counted_put)
+    monkeypatch.setattr(resident, "coord_scatter_cells", counted_cells)
+    got = mesh.mesh_delta_scatter(sh, coords, vals_p)
+    assert uploads == [torch.device("cpu")] and calls == [n_cells]
+    assert _bytes_equal(got.cpu().numpy(), want)
+    for part, start in zip(got.parts, (
+            [s.start or 0 for s in ix]
+            for _k, _d, ix in mesh.cuts(shape, spec, grid))):
+        rows = tuple(slice(a, a + n) for a, n in zip(start, part.shape))
+        assert _bytes_equal(part.numpy(), want[rows])
+    plain = mesh.mesh_delta_scatter_plain(sh, coords, vals_p)
+    assert _bytes_equal(plain.cpu().numpy(), want)
+    assert len(uploads) == 2 and calls == [n_cells]
+    assert _bytes_equal(sh.cpu().numpy(), base)    # the base never written
+
+
+def test_coord_scatter_cells_uploads_once_per_device(monkeypatch):
+    """Cells on two devices (torch's "cpu" and "cpu:0" name two devices
+    whose tensors both live in host memory) get one payload upload and
+    one call each; coord_scatter_cells_plain equals coord_scatter_plain
+    on each cell, and the wrapper checks its arguments."""
+    rng = np.random.default_rng(7)
+    shape = (8, 32)
+    base = rng.standard_normal(shape).astype(np.float32)
+    grid = mesh.Grid(["cpu", "cpu", "cpu:0", "cpu:0"], 2, 2)
+    sh = mesh.put_by_spec(base, mesh.EN, grid)
+    idx = _edge_updates(rng, shape, 2, 2, 20)
+    idx_p, vals_p, _ = resident._pad_updates(
+        idx, base.reshape(-1)[idx] - np.float32(3))
+    coords = np.ascontiguousarray(np.stack(np.unravel_index(
+        idx_p.astype(np.int64), shape)).astype(np.int32))
+    uploads = []
+    put = resident.put_coord_payload
+    monkeypatch.setattr(resident, "put_coord_payload",
+                        lambda c, v, d: uploads.append(str(d)) or put(c, v,
+                                                                   d))
+    got = mesh.mesh_delta_scatter(sh, coords, vals_p)
+    assert sorted(uploads) == ["cpu", "cpu:0"]
+    full = base.copy()
+    full.reshape(-1)[idx_p] = vals_p
+    assert _bytes_equal(got.cpu().numpy(), full)
+    parts = [torch.from_numpy(base[:4, :16].copy()),
+             torch.from_numpy(base[4:, 16:].copy())]
+    payload = put(coords, vals_p, torch.device("cpu"))
+    cells = resident.coord_scatter_cells_plain(parts, payload,
+                                               [[0, 0], [4, 16]])
+    for part, st, out in zip(parts, ([0, 0], [4, 16]), cells):
+        assert torch.equal(out, resident.coord_scatter_plain(
+            part, payload[0], payload[1], st))
+    with pytest.raises(ValueError):
+        resident.coord_scatter_cells([parts[0], parts[1][:2]], payload,
+                                     [[0, 0], [4, 16]])
+    with pytest.raises(ValueError):
+        resident.coord_scatter_cells(parts, payload, [[0, 0]])
+
+
 def test_coord_scatter_drops_other_cells_updates():
     part = torch.zeros((2, 4), dtype=torch.float32)
     coords = torch.tensor([[0, 1, 3], [5, 6, 1]], dtype=torch.int32)
     vals = torch.tensor([1.0, 2.0, 3.0])
-    out = resident.coord_scatter(part, coords, vals, [0, 4])
+    (out,) = resident.coord_scatter_cells([part], (coords, vals), [[0, 4]])
     assert out[0, 1] == 1.0 and out[1, 2] == 2.0
     assert float(out.sum()) == 3.0 and float(part.sum()) == 0.0
     with pytest.raises(TypeError):
-        resident.coord_scatter(part, coords.long(), vals, [0, 4])
+        resident.coord_scatter_cells([part], (coords.long(), vals), [[0, 4]])
     with pytest.raises(ValueError):
-        resident.coord_scatter(part, coords, vals, [0])
+        resident.coord_scatter_cells([part], (coords, vals), [[0]])
 
 
 def _uniform_lanes(k, count=6, lo=0):

@@ -42,7 +42,7 @@ from nomad_tpu_torch.solver.scoring import (
 
 torch.set_num_threads(1)
 
-KERNEL_K = 15                          # wave_block.cu kK
+KERNEL_K = 15                          # wave_warp.cuh kRunK
 
 
 def _words(x, B):

@@ -2,8 +2,10 @@
 the plain version of csrc/wavefront.cu) against the JAX program it
 replaces, nomad_tpu.solver.binpack.solve_wavefront (_solve_wavefront_impl),
 on the tests/test_wavefront.py worlds and a numpy-seeded fuzz: several
-lanes per port call (one block per lane on the card), each held against
-the reference's single-lane program. Decisions (chosen, n_yielded) must
+lanes per port call, each held against the reference's single-lane
+program; and a plain model of the card's route (the prep's tiled rank
+walk, then the run-block or per-placement loop by each lane's penalty
+gate) against the same program. Decisions (chosen, n_yielded) must
 match exactly; scores within rtol 1e-12 in float64 and 1e-6 in float32
 (the parity contract: the step evaluates the same IEEE operations in the
 same order as XLA's lowering)."""
@@ -392,3 +394,203 @@ def test_wavefront_bound_counts_flagged_tables_only_with_their_flag():
         c_dh._replace(distinct_job_level=np.asarray(True)), s_dh, b)
     assert torch.equal(tg[0], jl[0])
     assert nb_jl == nb_tg + 4 * (int(tg[0].max()) + 1)
+
+
+# --------------------------------------------------------------------------
+# The card's route (csrc/wavefront.cu), modelled on the CPU: the prep's
+# tiled rank walk builds the compact table, then each lane takes the
+# run-block loop when none of its P penalty entries is set, else the
+# per-placement loop; both held against the reference.
+
+def _row(const, init, c, aff, e, n, cap, pos):
+    return torch.stack([
+        torch.as_tensor(cap, dtype=const.cpu_cap.dtype),
+        init.used_cpu[e, n], init.used_mem[e, n], const.cpu_cap[e, n],
+        const.mem_cap[e, n], init.placed[e, n].to(const.cpu_cap.dtype),
+        aff[e, n], torch.as_tensor(pos, dtype=const.cpu_cap.dtype)])
+
+
+def _tiled_compact(const, init, c, aff, C, tile, cluster):
+    """The prep's walk over each lane's nodes: rounds of ``cluster`` tiles
+    of ``tile`` nodes; each tile's count of fit nodes (c > 0), their
+    exclusive prefix over the round's tiles after the count before the
+    round, and in-tile ranks in node order; fit nodes ranked below C
+    write their rows, a tile whose first rank reaches C writes none, and
+    the walk ends with the round whose running count reaches C. Rows past
+    the last fit node repeat node N-1's row with c = 0 and pos = N.
+    Returns the compact table and the rounds walked per lane."""
+    E, N = c.shape
+    compact = torch.full((E, C, 8), float("nan"),
+                         dtype=const.cpu_cap.dtype)
+    rounds = []
+    for e in range(E):
+        offset = base = walked = 0
+        while base < N and offset < C:
+            tiles = [(lo, c[e, lo:min(lo + tile, N)] > 0)
+                     for lo in range(base, base + cluster * tile, tile)]
+            counts = [int(fit.sum()) for _, fit in tiles]
+            prefix = offset
+            for (lo, fit), cnt in zip(tiles, counts):
+                if prefix < C:
+                    ranks = prefix + torch.cumsum(fit.long(), 0) - 1
+                    for j in torch.nonzero(fit & (ranks < C)).flatten():
+                        n = lo + int(j)
+                        compact[e, int(ranks[j])] = _row(
+                            const, init, c, aff, e, n, int(c[e, n]), n)
+                prefix += cnt
+            offset += sum(counts)
+            base += cluster * tile
+            walked += 1
+        for k in range(offset, C):
+            compact[e, k] = _row(const, init, c, aff, e, N - 1, 0, N)
+        rounds.append(walked)
+    return compact, rounds
+
+
+def _model_route(const, init, batch, tile, cluster, spread_alg=False):
+    """The card's route in plain PyTorch: wavefront_caps, the tiled walk
+    (its table equal to wavefront_tables'), then per lane by the all-P
+    penalty gate wave_block_plain or wave_compact_plain."""
+    E, N = const.cpu_cap.shape
+    P = batch.ask_cpu.shape[1]
+    C = P + bp.WAVE_B
+    dt = const.cpu_cap.dtype
+    c, aff = wave.wavefront_caps(const, init, batch)
+    compact, rounds = _tiled_compact(const, init, c, aff, C, tile, cluster)
+    assert torch.equal(compact, wave.wavefront_tables(const, init,
+                                                      batch)[0])
+    scal_f = torch.stack([batch.ask_cpu[:, 0], batch.ask_mem[:, 0],
+                          batch.count[:, 0].to(dt)], dim=1)
+    scal_i = torch.stack([batch.limit[:, 0].to(torch.int32),
+                          batch.active.sum(dim=1).to(torch.int32)], dim=1)
+    pen = batch.penalty_idx.to(torch.int32)
+    block = (pen < 0).all(dim=1)
+    out, routes = [], []
+    for e in range(E):
+        args = (compact[e:e + 1], scal_f[e:e + 1], scal_i[e:e + 1])
+        if bool(block[e]):
+            out.append(wave.wave_block_plain(*args, spread_alg=spread_alg,
+                                             B=bp.WAVE_B))
+        else:
+            sp = bp.WaveSpread(
+                counts=torch.zeros((1, 0, 1), dtype=torch.int32),
+                desired=torch.zeros((1, 0, 1), dtype=dt),
+                has_targets=torch.zeros((1, 0), dtype=torch.bool),
+                weights=torch.zeros((1, 0), dtype=dt),
+                sum_weights=torch.zeros(1, dtype=dt))
+            out.append(wave.wave_compact_plain(
+                *args, pen[e:e + 1], sp, spread_alg=spread_alg,
+                B=bp.WAVE_B))
+        routes.append("block" if bool(block[e]) else "compact")
+    got = tuple(torch.cat([o[i] for o in out]) for i in range(3))
+    return got, routes, rounds
+
+
+def _check_model(lanes, dtype_name, tile, cluster):
+    """The model over all ``lanes`` (reference tables of one shape) in one
+    group, each lane against the reference's single-lane program."""
+    from nomad_tpu_torch.solver import dense
+    dt = np.dtype(dtype_name)
+    lanes = [tuple(_cast(t, dt) for t in ln) for ln in lanes]
+    trees = tuple(_stack([_port(ln[k], cls) for ln in lanes])
+                  for k, cls in enumerate((bp.NodeConst, bp.NodeState,
+                                           bp.PlacementBatch)))
+    ten, _ = dense.fused_tensors(trees, (dense.lane_casts(dtype_name),) * 3,
+                                 device=torch.device("cpu"))
+    got, routes, rounds = _model_route(*ten, tile, cluster)
+    for e, (c, s, b) in enumerate(lanes):
+        want = [np.asarray(x) for x in ref.solve_wavefront(
+            c, s, b, spread_alg=False, dtype_name=dtype_name)]
+        np.testing.assert_array_equal(got[0][e].numpy(), want[0],
+                                      err_msg=str(e))
+        np.testing.assert_array_equal(got[2][e].numpy(), want[2],
+                                      err_msg=str(e))
+        g = got[1][e].numpy()
+        fin = np.isfinite(want[1])
+        np.testing.assert_array_equal(np.isfinite(g), fin)
+        np.testing.assert_array_equal(g[~fin], want[1][~fin])
+        np.testing.assert_allclose(g[fin], want[1][fin],
+                                   rtol=RTOL[dtype_name])
+    return routes, rounds
+
+
+def _no_penalty(lane):
+    c, s, b = lane
+    return c, s, b._replace(penalty_idx=np.full_like(b.penalty_idx, -1))
+
+
+def _late_penalty(lane, n_active, at):
+    """``lane`` active for its first n_active placements, with one
+    penalty, at placement ``at`` past them."""
+    c, s, b = _no_penalty(lane)
+    act = np.arange(b.active.shape[0]) < n_active
+    pen = np.full_like(b.penalty_idx, -1)
+    pen[at] = 3
+    return c, s, b._replace(active=act, penalty_idx=pen)
+
+
+TILINGS = [(7, 3), (16, 2), (256, 8)]             # (256, 8): the card's
+
+
+@pytest.mark.parametrize("dtype_name", ["float64", "float32"])
+@pytest.mark.parametrize("tile,cluster", TILINGS)
+def test_card_route_mixed_group_matches_jax(tile, cluster, dtype_name):
+    """Penalty-free lanes (run-block), fuzz lanes with penalties and a
+    lane whose only penalty lies past n_active (per-placement: the gate
+    reads all P entries) in one group; tiles that do not divide N."""
+    rng = np.random.default_rng(77)
+    dt = np.dtype(dtype_name)
+    fuzz = [_fuzz_lane(rng, 80, 45, dt) for _ in range(4)]
+    lanes = [_no_penalty(fuzz[0]), _no_penalty(fuzz[1]), fuzz[2], fuzz[3],
+             _late_penalty(fuzz[0], 20, 30)]
+    routes, _ = _check_model(lanes, dtype_name, tile, cluster)
+    assert routes == ["block", "block", "compact", "compact", "compact"]
+
+
+def _edge_world(kind, rng, dt):
+    if kind == "n_below_c":                        # P > N: C = 72 > 25
+        return [_fuzz_lane(rng, 25, 40, dt) for _ in range(3)]
+    lanes = [_fuzz_lane(rng, 40, 30, dt) for _ in range(3)]
+    if kind == "no_fit":
+        return [(c._replace(feasible=np.zeros(40, dtype=bool)), s, b)
+                for c, s, b in lanes]
+    if kind == "all_fit":
+        return [_no_penalty((
+            c._replace(feasible=np.ones(200, dtype=bool),
+                       distinct_hosts=np.asarray(False)),
+            s._replace(used_cpu=np.zeros(200, dtype=dt),
+                       used_mem=np.zeros(200, dtype=dt)),
+            b._replace(n_dyn_ports=np.zeros(30, dtype=np.int32),
+                       has_static=np.zeros(30, dtype=bool))))
+            for c, s, b in (_fuzz_lane(rng, 200, 30, dt) for _ in range(3))]
+    # the saturating cast: (cap - used0) / ask past 2^31 on every third
+    # node, as test_wavefront_saturating_cast_matches_jax builds it
+    out = []
+    for k, (c, s, b) in enumerate(lanes[:2]):
+        big = np.where(np.arange(40) % 3 == k, 1e12, c.cpu_cap)
+        out.append((c._replace(cpu_cap=big.astype(dt),
+                               feasible=np.ones(40, dtype=bool),
+                               distinct_hosts=np.asarray(False)),
+                    s._replace(used_cpu=np.zeros(40, dtype=dt)),
+                    b._replace(ask_cpu=np.full(30, 1e-3, dtype=dt),
+                               n_dyn_ports=np.zeros(30, dtype=np.int32),
+                               has_static=np.zeros(30, dtype=bool))))
+    return out + [_no_penalty(out[0])]
+
+
+@pytest.mark.parametrize("dtype_name", ["float64", "float32"])
+@pytest.mark.parametrize("kind", ["n_below_c", "no_fit", "all_fit",
+                                  "saturating_cast"])
+def test_card_route_edges_match_jax(kind, dtype_name):
+    """The walk's edges: N below C (rows past the fleet), no fit node (the
+    walk covers N, every row a repeat of node N-1), every node fit (200
+    nodes: the walk stops at the round that reaches C = 62) and XLA's
+    saturating cast; tiles of 7 in clusters of 3 (neither divides N)."""
+    rng = np.random.default_rng(31 + len(kind))
+    lanes = _edge_world(kind, rng, np.dtype(dtype_name))
+    routes, rounds = _check_model(lanes, dtype_name, 7, 3)
+    if kind == "all_fit":
+        assert routes == ["block"] * 3
+        assert rounds == [3] * 3                   # 63 fit nodes >= C
+    if kind == "no_fit":
+        assert rounds == [2] * 3                   # 2 x 21 nodes >= N
