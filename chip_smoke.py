@@ -159,7 +159,7 @@ Phases (any failure raises and the script exits nonzero with no result):
                 groups and phase 7's 32 windowed tier-5 lanes, and one
                 LpqBarrier generation of 32 LP lanes, each equal bit for
                 bit to fuse_and_solve plus the cross-lane fixpoint (or
-                solve_queue) called directly; 8 barriers of the 32
+                solve_queue) called directly; 4 barriers of the 32
                 headline lanes at once at depth 1 and at depth 2 (one
                 run each: wall time until every result is in, each lane's
                 wait, the pipeline's prepare stages and most dispatches in
@@ -260,7 +260,7 @@ Phases (any failure raises and the script exits nonzero with no result):
                 eval's trace (all kept) holding broker.wait through
                 plan.commit from more than one thread, the fused
                 dispatch with 32 lanes; the shadow audit replaying a
-                simple job x 100 of the kernels' solves on the host
+                simple job x 40 of the kernels' solves on the host
                 (decision mismatches 0, score drift within 1e-3), and
                 the quality.skew drill latching its alert; a failed
                 acknowledgement's alloc-failure reschedule through
@@ -270,6 +270,23 @@ Phases (any failure raises and the script exits nonzero with no result):
                 waterfall, the saturation report's busy shares, the
                 ledger's fields, transfer fit and residency, and each
                 cost round's wall time and placements/s.
+ 17. sanitizers -- the dispatch sanitizers on the card: jitcheck armed
+                over one warm headline SolveBarrier generation (32 evals
+                x 2,000 on 10,000 nodes, float32) and one warm server
+                round as phase 16's cost round runs it, lockcheck and
+                statecheck over the same round: per site the launches,
+                signatures, builds and late builds, the host syncs
+                (sanctioned by tag, and not), dtype drift and cache
+                mutations; held-across, drift, journal-gap and
+                write-skew counts. Fails on an unsanctioned hot sync, a
+                steady-state rebuild, a cache mutation, a lock cycle, a
+                torn read or an aliasing write, and unless the armed
+                generation and round equal the unarmed ones bit for bit.
+                Then schedcheck: a 4 jobs x 50 on 1,000 nodes server
+                scenario twice under seed 11 on the real kernels, equal
+                decision fingerprints and placements, equal to the
+                unsanitized run. Prints the armed round's wall time
+                beside the unarmed one's.
   Phases 4-16 reset the launch counts just before and read them just
   after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
@@ -657,7 +674,10 @@ def enqueue(torch, fn, repeats):
             host = (time.perf_counter() - t0) * 1e3
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    if any("synchroniz" in str(w.message).lower() for w in caught):
+    # the sync warning itself, not the "prototype feature" notice the
+    # mode's first switch-on in a process gives (read as a sync, it left
+    # the first kernel measured with no device time)
+    if any("called a synchronizing" in str(w.message) for w in caught):
         return None
     return host
 
@@ -1441,11 +1461,14 @@ def dense_slice_phase(np, torch, dense, kernels, svc, batch, tp, world):
         c, s, b = dense.lane_tensors(g.const, g.init, g.batch,
                                      dtype_name=g.dtype_name,
                                      device=torch.device(DEVICE))
+        # the range checks' maxima from the host lanes, as the main path
+        # takes them: the wrapper then reads nothing back
+        imax = dense.index_max(g.const, g.init, g.batch)
 
-        def run(fn):
-            return fn(c, s, b, spread_alg=g.spread_alg)
+        def run(fn, **kw):
+            return fn(c, s, b, spread_alg=g.spread_alg, **kw)
 
-        run(dense.dense_scan)
+        run(dense.dense_scan, imax=imax)
         clusters[f"E={len(g.idxs)} lanes {g.idxs[0]}.."] = C = \
             kernels.DENSE_SCAN.last_cluster()
         assert C > 1, f"dense_scan ran unclustered (C={C})"
@@ -1457,7 +1480,8 @@ def dense_slice_phase(np, torch, dense, kernels, svc, batch, tp, world):
             compare(torch, f"dense slice lane {li}", got,
                     tuple(w[j, :P] for w in want[:3]), "float32")
         if len(g.idxs) == N_EVALS:
-            ms, dms = call_and_device(torch, lambda: run(dense.dense_scan))
+            ms, dms = call_and_device(
+                torch, lambda: run(dense.dense_scan, imax=imax))
             bound_ms, bound_by, nbytes, flops = dense_bound(
                 torch, c, s, b, want, "float32")
             kernel = dict(
@@ -2240,9 +2264,10 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
                                               g.ptab, g.pinit,
                                               dtype_name="float32")
             ten = preempt.wave_preempt_tensors(inp, dev)
+            kw = dict(grp_max=dense._max_of(inp.cand["grp"]))
 
-            def run(fn):
-                return fn(*ten, spread_alg=False, B=inp.B)
+            def run(fn, **kw):
+                return fn(*ten, spread_alg=False, B=inp.B, **kw)
 
             kfn, pfn, name = (preempt.wave_preempt,
                               preempt.wave_preempt_plain, "wave_preempt")
@@ -2252,8 +2277,11 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
                 preempt.preempt_casts("float32"), device=dev,
                 cache_version=g.cache_version, delta_src=g.delta_src)
 
-            def run(fn):
-                return fn(*ten, spread_alg=False)
+            kw = dict(imax=dense.index_max(g.const, g.init, g.batch,
+                                           g.ptab))
+
+            def run(fn, **kw):
+                return fn(*ten, spread_alg=False, **kw)
 
             kfn, pfn, name = (preempt.dense_preempt,
                               preempt.dense_preempt_plain, "dense_preempt")
@@ -2264,7 +2292,7 @@ def preempt_slice_phase(np, torch, preempt, dense, kernels, svc, batch, tp,
                         for x in res[li])
             compare_preempt(torch, f"preempt slice lane {li}", got,
                             tuple(w[j, :P] for w in want[:4]), "float32")
-        ms, dms = call_and_device(torch, lambda: run(kfn))
+        ms, dms = call_and_device(torch, lambda: run(kfn, **kw))
         C = None
         if g.wave:
             check_wave_preempt(torch, preempt, "preempt slice windowed "
@@ -3867,7 +3895,7 @@ def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
 # slice 11: the dispatch layer (the guard's deadline and breaker, the solve
 # barrier and its pipeline)
 
-DISPATCH_BARRIERS = 8               # barriers of N_EVALS lanes (step 3)
+DISPATCH_BARRIERS = 4               # barriers of N_EVALS lanes (step 3)
 DISPATCH_REPEATS = 1                # runs of step 3 at each depth
 DRILL_DEADLINE_S = 0.5              # the fault drill's watchdog deadline
 DRILL_ENV = {"NOMAD_TPU_TORCH_DISPATCH_TIMEOUT": str(DRILL_DEADLINE_S),
@@ -3969,7 +3997,7 @@ def dispatch_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
          lanes, each equal to fuse_and_solve plus the fixpoint called
          directly, bit for bit; one LpqBarrier generation under the
          deadline equal to solve_queue;
-      3. 8 barriers of the 32 headline lanes at once, at depth 1 and at
+      3. 4 barriers of the 32 headline lanes at once, at depth 1 and at
          depth 2, 3 runs each: wall time until every result is in, each
          lane's barrier wait, the prepare stages the pipeline ran, the most
          dispatches in flight, the launches; decisions equal at both
@@ -4059,7 +4087,7 @@ def dispatch_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
         f"{lp_wall_ms:.2f} ms (direct {lp_direct_ms:.2f} ms); launches "
         f"{lp_launches}")
 
-    # 3. pipelining: 8 barriers of the headline lanes at once
+    # 3. pipelining: DISPATCH_BARRIERS barriers of the headline lanes at once
     runs = {1: [], 2: []}
     for _ in range(DISPATCH_REPEATS):
         for depth in (1, 2):
@@ -4073,7 +4101,7 @@ def dispatch_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
                         if k.launches}
             staged = batch.pipeline_state()["staged_total"] - staged0
             outcomes_ok(np, outs, wants["wave headline"],
-                        f"8 barriers depth {depth}")
+                        f"{DISPATCH_BARRIERS} barriers depth {depth}")
             flat = [w for ws in waits for w in ws]
             runs[depth].append(dict(
                 wall_ms=wall_ms, wait_ms_median=statistics.median(flat),
@@ -6205,7 +6233,7 @@ def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
     return report
 
 
-TEL_AUDIT_JOBS, TEL_AUDIT_PLACE = 1, 100    # the audit's simple jobs
+TEL_AUDIT_JOBS, TEL_AUDIT_PLACE = 1, 40     # the audit's simple jobs
 TEL_SKEW_JOBS = 3                    # the skew drill's: the alert's default
                                      # threshold (QUALITY_ALERT_AFTER)
 TEL_COST_ROUNDS = 1                  # measured rounds per switch setting
@@ -6691,6 +6719,333 @@ def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
     for kname in ("wave_block", "wave_compact"):
         assert launches[kname] >= 1, (kname, launches)
     return report
+
+
+SAN_SCHED_SEED = 11                 # the controlled schedule's seed
+SAN_SCHED_JOBS, SAN_SCHED_PLACE, SAN_SCHED_NODES = 4, 50, 1_000
+
+
+def sanitizer_counts(jit, lock, state):
+    """The counts the sanitizer phase prints and gates on."""
+    return dict(
+        launches=jit["launches"], builds=jit["builds"],
+        rebuilds=jit["rebuild_count"], late_builds=jit["late_build_count"],
+        host_syncs=sum(r["count"] for r in jit["host_syncs"]),
+        sanctioned=jit["sanctioned_fetches"],
+        sanctioned_by_tag=jit["sanctioned_by_tag"],
+        cuda_sync_warnings=jit["cuda_sync_warnings"],
+        dtype_drift=jit["x64_leak_count"], mutations=jit["mutation_count"],
+        **({} if lock is None else dict(
+            cycles=lock["cycle_count"],
+            held_across=len(lock["held_across"]),
+            escaped=len(lock["escaped"]), locks=lock["locks"])),
+        **({} if state is None else dict(
+            torn_reads=state["torn_read_count"],
+            aliasing_writes=state["aliasing_write_count"],
+            drifts=state["drift_count"],
+            journal_gaps=state["journal_gap_count"],
+            write_skews=state["write_skew_count"],
+            stale_memos=state["stale_memo_count"], reads=state["reads"])))
+
+
+def sanitizer_gate(jit, lock, state, what):
+    """Fail on an unsanctioned hot sync, a steady-state rebuild, a cache
+    mutation, a lock cycle, a torn read or an aliasing write."""
+    bad = []
+    bad += [f"host sync {r['kind']} at {r['site']} x{r['count']} "
+            f"(dispatch {r['label']!r})" for r in jit["host_syncs"]]
+    bad += [f"rebuild at {r['site']}: {r['signature']} x{r['count']}"
+            for r in jit["rebuilds"]]
+    bad += [f"cache mutation {r['kind']} at {r['site']}"
+            for r in jit["mutations"]]
+    if lock is not None:
+        bad += ["lock cycle " + " -> ".join(c["locks"])
+                for c in lock["cycles"]]
+    if state is not None:
+        bad += [f"torn read {r['kind']} in {r['op']} at {r['site']}"
+                for r in state["torn_reads"]]
+        bad += [f"aliasing write {r['kind']} at {r['site']}"
+                for r in state["aliasing_writes"]]
+    assert not bad, f"{what}: " + "; ".join(bad)
+
+
+def sanitizer_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
+                    card):
+    """The dispatch sanitizers on the card (phase 17), at full width:
+      a. jitcheck armed over one warm headline SolveBarrier generation
+         (10,000 nodes padded to 16,384, N_EVALS mock.job evals x
+         N_PLACE, float32, depth 2) and over one warm server round as
+         phase 16's cost round runs it (a fresh fleet store, N_EVALS
+         jobs x N_PLACE in one write): per site the launches,
+         signatures, builds and late builds, the hot syncs (sanctioned
+         by tag, and not, with sites), dtype drift and cache mutations;
+         fails on an unsanctioned hot sync, a steady-state rebuild or a
+         cache mutation, and unless the generation's results equal the
+         same generation run with the checkers off, bit for bit;
+      b. lockcheck and statecheck armed over the same server round (with
+         jitcheck): fails on a cycle, a torn read or an aliasing write;
+         prints the held-across, drift, journal-gap and write-skew
+         counts; the round's placements equal the unarmed round's;
+      c. schedcheck: one controlled small server scenario
+         (SAN_SCHED_JOBS jobs x SAN_SCHED_PLACE on SAN_SCHED_NODES
+         nodes, one batch worker) twice under seed SAN_SCHED_SEED on the
+         real kernels; fails unless both runs give equal decision
+         fingerprints and equal placements, equal to the scenario run
+         with no checker on;
+      d. the cost: the armed round's wall time beside the unarmed one's
+         (a reading, not a claim).
+    Launch counts of the armed runs are in ``launches``."""
+    from nomad_tpu_torch import jitcheck, lockcheck, schedcheck, statecheck
+    from nomad_tpu_torch import mock as pmock
+    from nomad_tpu_torch import structs as st
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.server import worker as worker_mod
+    from nomad_tpu_torch.state.store import StateStore
+
+    t_phase = time.perf_counter()
+    report = {}
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    g0 = guard.state()
+
+    def count_launches():
+        for k in kernels.KERNELS:
+            launches[k.name] += k.launches
+
+    def disarm():
+        for m in (schedcheck, statecheck, lockcheck, jitcheck):
+            m.disable()
+            m._reset_for_tests()
+
+    # -- a. the headline generation -------------------------------------
+    head = pack_lanes(np, tp, svc, world, "float32", kind="plain",
+                      n_lanes=N_EVALS)
+
+    def barrier():
+        # a fresh barrier a generation: its ledger carries the fixpoint
+        return batch.SolveBarrier(N_EVALS, depth=2, e_pad_hint=N_EVALS,
+                                  device=DEVICE)
+
+    outs, _, off_ms, _ = run_barriers(batch, [barrier()], head)
+    off = outs[0]
+    try:
+        jitcheck.enable()
+        kernels.reset_launches()
+        outs, _, on_ms, _ = run_barriers(batch, [barrier()], head)
+        count_launches()
+        gen = jitcheck.state(sites=True)
+    finally:
+        disarm()
+    outcomes_ok(np, outs, off, "armed generation vs unarmed")
+    report["generation"] = dict(
+        counts=sanitizer_counts(gen, None, None), sites=gen["sites"],
+        host_syncs=gen["host_syncs"], late_builds=gen["late_builds"],
+        dtype_drift=gen["dtype_drift"], wall_ms_off=off_ms,
+        wall_ms_on=on_ms)
+    log(f"sanitizers [{card}]: headline generation ({N_EVALS} lanes x "
+        f"{N_PLACE}) under jitcheck: {report['generation']['counts']}; "
+        f"sites " + "; ".join(
+            f"{r['site']} launches {r['launches']} sigs {r['sigs']} builds "
+            f"{r['builds']} host_setup_repeats {r['host_setup_repeats']}"
+            for r in gen["sites"]) + "; results equal to the unarmed "
+        "generation bit for bit; unsanctioned host syncs "
+        f"{[(r['kind'], r['site'], r['count']) for r in gen['host_syncs']]}")
+    sanitizer_gate(gen, None, None, "headline generation")
+
+    # -- a, b, d. the server round ----------------------------------------
+    nodes = struct_fleet(pmock, N_NODES)
+    cfg = st.SchedulerConfiguration(
+        scheduler_algorithm=st.SCHED_ALG_TPU_BINPACK)
+
+    def round_once(prefix, armed):
+        tp.reset_pack_caches()
+        jobs = []
+        for e in range(N_EVALS):
+            j = pmock.job(id=f"{prefix}-{e:02d}")
+            j.task_groups[0].count = N_PLACE
+            jobs.append(j)
+        if armed:
+            # before the store and the server build their locks
+            lockcheck.enable()
+            statecheck.enable()
+            jitcheck.enable()
+            kernels.reset_launches()
+        store = StateStore()
+        for node in nodes:
+            store.upsert_node(node)
+        store.set_scheduler_config(cfg)
+        for j in jobs:
+            store.upsert_job(j)
+        server = Server(state=store, device=DEVICE,
+                        batch_width=SERVER_WIDTH)
+        try:
+            with ServerRoute(server, worker_mod, batch, lpq) as route:
+                server.start()
+                evals = [sched_eval(st, j, f"{prefix}-eval-{e:016d}")
+                         for e, j in enumerate(jobs)]
+                ids = [ev.id for ev in evals]
+                route.order = {e: k for k, e in enumerate(ids)}
+                route.reset()
+                t0 = time.perf_counter()
+                store.upsert_evals(evals)
+                server.broker.enqueue_all(evals)
+                settle(server, ids, f"sanitizer round ({prefix})",
+                       lambda: sum(len(m) for m in server_allocs(
+                           store, ids).values()) >= N_EVALS * N_PLACE)
+                t1 = (max(route.commit_end) if route.commit_end
+                      else time.perf_counter())
+                got = server_allocs(store, ids)
+        finally:
+            server.shutdown()
+        out = dict(wall_ms=(t1 - t0) * 1e3, placed=got)
+        if armed:
+            count_launches()
+            out["jit"] = jitcheck.state(sites=True)
+            out["lock"] = lockcheck.state()
+            out["state"] = statecheck.state()
+        return out
+
+    unarmed = round_once("san", False)
+    try:
+        armed = round_once("san", True)
+    finally:
+        disarm()
+    assert armed["placed"] == unarmed["placed"], \
+        "the armed round placed differently from the unarmed round"
+    assert sum(len(m) for m in armed["placed"].values()) == \
+        N_EVALS * N_PLACE
+    rnd = sanitizer_counts(armed["jit"], armed["lock"], armed["state"])
+    rnd_syncs = armed["jit"]["host_syncs"]
+    report["round"] = dict(
+        counts=rnd, sites=armed["jit"]["sites"],
+        host_syncs=armed["jit"]["host_syncs"],
+        late_builds=armed["jit"]["late_builds"],
+        dtype_drift=armed["jit"]["dtype_drift"],
+        held_across=[{k: v for k, v in r.items() if k != "stack"}
+                     for r in armed["lock"]["held_across"]],
+        drifts=armed["state"]["drifts"][:8],
+        journal_gaps=[{k: v for k, v in r.items() if k != "stack"}
+                      for r in armed["state"]["journal_gaps"]],
+        write_skews=[{k: v for k, v in r.items() if k != "stack"}
+                     for r in armed["state"]["write_skews"]],
+        wall_ms_off=unarmed["wall_ms"], wall_ms_on=armed["wall_ms"])
+    log(f"sanitizers [{card}]: server round ({N_EVALS} jobs x {N_PLACE} on "
+        f"{N_NODES} nodes) under jitcheck, lockcheck and statecheck: {rnd}; "
+        f"held across: {report['round']['held_across']}; unsanctioned "
+        "host syncs "
+        f"{[(r['kind'], r['site'], r['count']) for r in rnd_syncs]}; "
+        "placements equal to the unarmed round bit for bit")
+    sanitizer_gate(armed["jit"], armed["lock"], armed["state"],
+                   "server round")
+    log(f"sanitizers cost [{card}]: server round wall {unarmed['wall_ms']:.1f}"
+        f" ms unarmed, {armed['wall_ms']:.1f} ms with jitcheck, lockcheck "
+        "and statecheck armed (a reading, not a claim)")
+
+    # -- c. the controlled schedule ----------------------------------------
+    report["schedule"] = sched = schedule_drill(
+        pmock, st, Server, StateStore, schedcheck, lockcheck, statecheck)
+    count_launches()
+    log(f"sanitizers [{card}]: schedcheck seed {SAN_SCHED_SEED} on "
+        f"{SAN_SCHED_JOBS} jobs x {SAN_SCHED_PLACE} on {SAN_SCHED_NODES} "
+        f"nodes: fingerprints {sched['fingerprints']} over "
+        f"{sched['decisions']} decisions ({sched['timeout_wakes']} virtual "
+        f"timeouts, {sched['preemptions']} preemptions); placements equal "
+        "in both runs and to the unsanitized run")
+
+    g1 = guard.state()
+    assert not any(g1["dispatch"][k] - g0["dispatch"][k]
+                   for k in ("timeout", "error"))
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"sanitizers [{card}]: launches {launches}; phase "
+        f"{report['seconds']:.1f} s")
+    return report
+
+
+def schedule_drill(pmock, st, Server, StateStore, schedcheck, lockcheck,
+                   statecheck):
+    """Run the small server scenario with no checker, then twice under
+    schedcheck's seed SAN_SCHED_SEED (lockcheck and statecheck armed:
+    its interposition layer and its witnesses). Job e may run on rack e
+    only (meta.rack, struct_fleet's), so no two lanes meet on a node and
+    the placements do not depend on the order the schedule gives the
+    lanes: the unsanitized run places as the controlled ones must.
+    Returns the fingerprints and the decision counts; raises unless the
+    fingerprints and every run's placements are equal."""
+    from nomad_tpu_torch.solver import batch, resident
+    from nomad_tpu_torch.structs.job import reseed_ids
+    from nomad_tpu_torch.tensor import pack as tp
+    nodes = struct_fleet(pmock, SAN_SCHED_NODES)
+    cfg = st.SchedulerConfiguration(
+        scheduler_algorithm=st.SCHED_ALG_TPU_BINPACK)
+
+    def scenario(controlled):
+        # every run starts alike: the same ids (per-thread streams
+        # restart) and cold pack caches, resident set and arena
+        reseed_ids(SAN_SCHED_SEED)
+        tp.reset_pack_caches()
+        resident.invalidate_all("schedule drill")
+        batch.arena_clear("schedule drill")
+        jobs = []
+        for e in range(SAN_SCHED_JOBS):
+            j = pmock.job(id=f"sched-{e:02d}")
+            j.task_groups[0].count = SAN_SCHED_PLACE
+            j.constraints.append(st.Constraint(
+                l_target="${meta.rack}", r_target=str(e), operand="="))
+            jobs.append(j)
+        if controlled:
+            lockcheck.enable()
+            statecheck.enable()
+            schedcheck.enable()
+            schedcheck.begin_run(SAN_SCHED_SEED)
+        store = StateStore()
+        for node in nodes:
+            store.upsert_node(node)
+        store.set_scheduler_config(cfg)
+        for j in jobs:
+            store.upsert_job(j)
+        server = Server(state=store, device=DEVICE, num_workers=1,
+                        batch_width=SAN_SCHED_JOBS)
+        summary = None
+        try:
+            server.start()
+            evals = [sched_eval(st, j, f"sched-eval-{e:016d}")
+                     for e, j in enumerate(jobs)]
+            ids = [ev.id for ev in evals]
+            store.upsert_evals(evals)
+            server.broker.enqueue_all(evals)
+            settle(server, ids, "schedule drill", lambda: sum(
+                len(m) for m in server_allocs(store, ids).values())
+                >= SAN_SCHED_JOBS * SAN_SCHED_PLACE)
+            got = server_allocs(store, ids)
+            if controlled:
+                summary = schedcheck.end_run()
+                sc = schedcheck.state()
+                lc, stc = lockcheck.state(), statecheck.state()
+        finally:
+            server.shutdown()
+            if controlled:
+                for m in (schedcheck, statecheck, lockcheck):
+                    m.disable()
+                    m._reset_for_tests()
+        if controlled:
+            assert not sc["deadlock_count"], sc["reports"]
+            sanitizer_gate({"host_syncs": [], "rebuilds": [],
+                            "mutations": []}, lc, stc, "schedule drill")
+            return got, summary, sc
+        return got, None, None
+
+    plain, _, _ = scenario(False)
+    runs = [scenario(True) for _ in range(2)]
+    fps = [r[1]["fingerprint"] for r in runs]
+    assert fps[0] == fps[1], f"schedule fingerprints differ: {fps}"
+    for got, _, _ in runs:
+        assert got == plain, "a controlled run placed differently"
+    assert sum(len(m) for m in plain.values()) == \
+        SAN_SCHED_JOBS * SAN_SCHED_PLACE
+    return dict(fingerprints=fps,
+                decisions=[r[1]["decisions"] for r in runs],
+                timeout_wakes=[r[2]["timeout_wakes"] for r in runs],
+                preemptions=[r[2]["preemptions"] for r in runs])
 
 
 def check_capacity_lane(np, lane, chosen, n_places):
@@ -7783,6 +8138,8 @@ def main(argv=None) -> int:
                   kernels, svc, tp, world, card)
     tlres = phase("telemetry", telemetry_phase, np, torch, batch, guard,
                   lpq, kernels, resident, svc, tp, world, card, t_start)
+    snres = phase("sanitizers", sanitizer_phase, np, torch, batch, guard,
+                  lpq, kernels, svc, tp, world, card)
 
     def pick(kname, **kw):
         return next(r for r in kres if r["name"] == kname
@@ -7834,7 +8191,7 @@ def main(argv=None) -> int:
                   wavefront=wpath, mesh_dense=mdres, mesh_wave=mwres,
                   mesh_lp=mlres, mesh_residency=mrres, dispatch=dlres,
                   structs=stres, scheduler=scres, server=svres,
-                  telemetry=tlres,
+                  telemetry=tlres, sanitizers=snres,
                   build_s=info["seconds"], phase_s=phase_s,
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")

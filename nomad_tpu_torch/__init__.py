@@ -64,8 +64,28 @@ instances and ports, and the allocs it preempts.
     carry.py            lane_from_reference, struct_from_reference,
                         store_from_reference: reference lanes, structs
                         and snapshots -> the port's
+    lockcheck.py        the runtime sanitizers, each off by default:
+    jitcheck.py         lock order, dispatch discipline (host syncs in a
+    statecheck.py       dispatch, rebuilds, cache mutation), snapshot
+    schedcheck.py       isolation, and the deterministic schedule explorer
     csrc/               the hand-written CUDA kernels (sm_90a)
 
 Every entry point takes ``device``; left out, it is ``cuda``, and with no
 card that raises rather than running on the CPU.
 """
+
+# The sanitizers install here when their env knob is 1, before any other
+# module of the package builds its locks (lockcheck instruments locks
+# built after it is on); unset or 0 is one env read each.
+from . import lockcheck as _lockcheck  # noqa: E402
+
+_lockcheck.maybe_install_from_env()
+from . import jitcheck as _jitcheck  # noqa: E402
+
+_jitcheck.maybe_install_from_env()
+from . import statecheck as _statecheck  # noqa: E402
+
+_statecheck.maybe_install_from_env()
+from . import schedcheck as _schedcheck  # noqa: E402
+
+_schedcheck.maybe_install_from_env()

@@ -37,7 +37,9 @@ the module is first imported: ``point=action[:delay_s[:count]]`` entries
 separated by commas, e.g.
 ``NOMAD_TPU_TORCH_FAULT_INJECT="solver.dispatch=hang,solver.probe=error"``.
 
-The unarmed path of ``fire`` is one attribute read.
+The unarmed path of ``fire`` is two attribute reads: the registry's
+armed flag and lockcheck's (firing a point that may hang while holding
+a lock is a held-across finding, armed or not).
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ import os
 import threading
 import time
 from typing import Dict, Optional
+
+from . import lockcheck
 
 ACTIONS = ("error", "delay", "hang")
 
@@ -159,6 +163,8 @@ class FaultRegistry:
     def fire(self, point: str) -> None:
         """Called at an injection point: a no-op unless the point is
         armed."""
+        if lockcheck._ACTIVE:
+            lockcheck.note_fire(point)
         if not self._armed:
             return
         with self._lock:

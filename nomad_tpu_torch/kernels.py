@@ -26,6 +26,8 @@ from typing import Dict, Optional
 
 import torch
 
+from . import jitcheck
+
 PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "nomad_tpu_torch"
@@ -64,12 +66,16 @@ class Kernel:
         self._count_lock = threading.Lock()
         self._fns: Dict[torch.dtype, object] = {}
         self._lib = None
+        # (library, dtype) entry points bound since the last bind(): a
+        # second bind of one is a steady-state rebuild (jitcheck)
+        self._bound: set = set()
 
     def bind(self, lib: ctypes.CDLL) -> None:
         """Launch from ``lib`` (a build of another source tree, for A/B
         timing) instead of the package's own build."""
         self._lib = lib
         self._fns = {}
+        self._bound = set()
 
     def lib(self):
         return self._lib if self._lib is not None else load()[self.source]
@@ -84,7 +90,14 @@ class Kernel:
     def _fn(self, dtype: torch.dtype):
         fn = self._fns.get(dtype)
         if fn is None:
-            fn = getattr(self.lib(), self.symbols[dtype])
+            lib = self.lib()
+            if jitcheck._ACTIVE:
+                key = (id(lib), dtype)
+                jitcheck.note_build(f"kernel:{self.name}",
+                                    ("bind", str(dtype)),
+                                    held=key in self._bound)
+                self._bound.add(key)
+            fn = getattr(lib, self.symbols[dtype])
             fn.argtypes = [_P, _I, _P, _I, _P]
             fn.restype = ctypes.c_int
             self._fns[dtype] = fn
@@ -119,6 +132,9 @@ class Kernel:
             raise RuntimeError(f"{self.name}: CUDA launch failed with "
                                f"cudaError_t {rc}")
         self.count_launch()
+        if jitcheck._ACTIVE:
+            jitcheck.note_launch(self.name, dtype, tensors, ints,
+                                 host_setup=self.cluster_symbol is not None)
 
 
 WAVE_COMPACT = Kernel(
@@ -264,6 +280,10 @@ def build() -> Dict[str, object]:
         procs.append((src, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
+    if procs and jitcheck._ACTIVE:
+        # compiling after the process's first launch: a rebuild
+        jitcheck.note_build("kernels.build", out_dir.name,
+                            held=jitcheck.launched())
     log = []
     failed = []
     for src, lib, tmp, proc in procs:
@@ -286,6 +306,10 @@ def load() -> Dict[str, ctypes.CDLL]:
     global _LIBS
     with _LOCK:
         if _LIBS is None:
+            if jitcheck._ACTIVE:
+                # loading after the process's first launch: a rebuild
+                jitcheck.note_build("kernels.load", build_dir().name,
+                                    held=jitcheck.launched())
             build()
             out_dir = build_dir()
             _LIBS = {src.name: ctypes.CDLL(str(out_dir / (src.stem + ".so")))

@@ -50,6 +50,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import jitcheck
 from ..device import resolve_device
 from ..solver import dense, exchange, lpq, resident, xferobs
 
@@ -312,6 +313,7 @@ def mesh_delta_scatter(buf: Sharded, coords: np.ndarray,
     return _scatter_cells(buf, coords, vals, resident.coord_scatter_cells)
 
 
+@jitcheck.plain_version
 def mesh_delta_scatter_plain(buf: Sharded, coords: np.ndarray,
                              vals: np.ndarray) -> Sharded:
     """The plain version of mesh_delta_scatter, on the cells' devices."""
@@ -551,6 +553,9 @@ def mesh_solve(grid: Grid, const, init, batch, *, spread_alg: bool,
     cell order; the trailing state stays on the cells. Raises
     exchange.ExchangeTimeout if a wait of the kernel ran out its
     budget."""
+    # the range checks and round sizing read the host lanes (one bound
+    # for every cell: a cell's own maxima are no larger)
+    imax = dense.index_max(const, init, batch)
     s = shard_solver_inputs(grid, const, init, batch,
                             version=cache_version, delta_src=delta_src)
     cast = dense.lane_casts(dtype_name)
@@ -561,7 +566,7 @@ def mesh_solve(grid: Grid, const, init, batch, *, spread_alg: bool,
         for i in range(grid.e_par):
             o = dense.dense_scan(*(_cell_tree(t, i, 0, cast)
                                    for t in (s.const, s.init, s.batch)),
-                                 spread_alg=spread_alg)
+                                 spread_alg=spread_alg, imax=imax)
             outs.append((o.chosen, o.scores, o.n_yielded))
     else:
         rows = shard_cells(grid, s, cast, spread_alg=spread_alg,
@@ -571,8 +576,10 @@ def mesh_solve(grid: Grid, const, init, batch, *, spread_alg: bool,
         else:
             run_node_sharded(rows)
         outs = [(r[0].chosen, r[0].scores, r[0].n_yielded) for r in rows]
-    res = tuple(np.concatenate([o[k].cpu().numpy() for o in outs])
-                for k in range(3))
+    # the grid's one read-back (the reference's mesh device_get)
+    with jitcheck.sanctioned_fetch("mesh"):
+        res = tuple(np.concatenate([o[k].cpu().numpy() for o in outs])
+                    for k in range(3))
     exchange.check(err)
     return res
 

@@ -25,6 +25,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Set, Tuple
 
+from .. import schedcheck
 from ..faultinject import faults
 from .telemetry import metrics
 from .tracing import tracer
@@ -127,6 +128,9 @@ class EvalBroker:
                     return
                 now = time.time()
                 while self._delayed and self._delayed[0][0] <= now:
+                    if schedcheck._ACTIVE:
+                        # each delayed release is a decision point
+                        schedcheck.yield_point("broker.delayed_pop")
                     _, _, ev = heapq.heappop(self._delayed)
                     self._enqueue_locked(ev)
                 if now - last_failed_retry >= self.nack_timeout / 2:

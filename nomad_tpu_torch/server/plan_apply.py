@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import schedcheck, statecheck
 from ..faultinject import faults
 from .quality import observatory
 from .telemetry import metrics
@@ -185,7 +186,8 @@ class _Pending:
     """One queued plan submission moving through the pipeline."""
 
     __slots__ = ("plan", "eval_updates", "event", "result", "error",
-                 "seq", "trace_ctx", "worker", "conflict_retries")
+                 "seq", "trace_ctx", "worker", "conflict_retries",
+                 "external")
 
     def __init__(self, plan, eval_updates, seq, trace_ctx=None,
                  worker=None):
@@ -203,10 +205,15 @@ class _Pending:
         # _select_group's serialization accounting
         self.worker = worker
         self.conflict_retries = 0
+        self.external = False
 
     def resolve(self, result=None, error=None) -> None:
         self.result = result
         self.error = error
+        if self.external:
+            # the submitter's wait on the applier ends here (schedcheck)
+            self.external = False
+            schedcheck.external_end()
         self.event.set()
 
 
@@ -304,6 +311,10 @@ class Planner:
         SubmitPlan). ``worker`` names the submitting pool worker for
         cross-worker conflict accounting."""
         faults.fire("plan.apply")   # chaos: raise -> eval nack/requeue
+        if schedcheck._ACTIVE:
+            # plan submission is the worker -> applier rendezvous: a
+            # schedule decision point
+            schedcheck.yield_point("plan.submit")
         with self._cv:
             if self._shutdown:
                 raise RuntimeError("planner is shut down")
@@ -313,6 +324,11 @@ class Planner:
             # ad-hoc applier callers
             pending = _Pending(plan, eval_updates, self._seq,
                                trace_ctx=tracer.current(), worker=worker)
+            if schedcheck._ACTIVE:
+                # the applier's work on it is outside a controlled
+                # schedule until resolve
+                pending.external = True
+                schedcheck.external_begin()
             heapq.heappush(self._heap,
                            (-plan.priority, pending.seq, pending))
             if self._expect_n > 0:
@@ -635,7 +651,12 @@ class Planner:
         """Per-node re-verification (reference :633; upstream:
         evaluatePlanPlacements :507). Nodes whose placements no longer
         fit are trimmed from the result (partial commit) unless
-        plan.all_at_once."""
+        plan.all_at_once. Its table reads must all see one version:
+        statecheck's strict scope (an inert context when off)."""
+        with statecheck.strict_scope("plan.verify"):
+            return self._evaluate_plan_scoped(snapshot, plan)
+
+    def _evaluate_plan_scoped(self, snapshot, plan: Plan) -> PlanResult:
         result = PlanResult(
             node_update={k: list(v) for k, v in plan.node_update.items()},
             node_allocation={},

@@ -7,9 +7,11 @@ batch size), ``nomad.worker.*`` (wait_for_index, invoke_scheduler_<type>,
 batch widths), ``nomad.broker.*`` (eval wait, storm / shed deferrals,
 quarantine), ``nomad.solver.*`` (dispatch times and counts by route,
 resident-set hits and misses, dispatch bytes, the guard's outcomes),
-``nomad.lpq.*`` (the LP tier) and ``nomad.scheduler.*`` (placements made
+``nomad.lpq.*`` (the LP tier), ``nomad.scheduler.*`` (placements made
 by the kernels, by the host stack, and by the host stack under a tpu-*
-algorithm).
+algorithm) and the sanitizers' findings, ``nomad.lockcheck.*``,
+``nomad.jitcheck.*``, ``nomad.statecheck.*`` and ``nomad.schedcheck.*``
+(each module's docstring names its series).
 
 A process-global registry of counters and sample series. A series keeps
 a ring buffer of its most recent samples with running count, sum, min

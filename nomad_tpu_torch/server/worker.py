@@ -17,6 +17,7 @@ import logging
 import threading
 from typing import List, Optional, Tuple
 
+from .. import statecheck
 from ..faultinject import InjectedFault, faults
 from ..scheduler.factory import new_scheduler
 from ..structs import Evaluation, Plan, PlanResult, EVAL_STATUS_BLOCKED
@@ -136,9 +137,12 @@ def invoke_scheduler(server, ev: Evaluation, token: str, solve_hook=None,
                 name = sched_factory
                 kwargs["batch"] = sched_type == "batch"
         sched = new_scheduler(name, snapshot, planner, **kwargs)
+        # statecheck's eval scope (an inert context when off): the eval's
+        # table reads are grouped and named by this trace span
         with metrics.measure(
                 f"nomad.worker.invoke_scheduler_{sched_type}"), \
-                tracer.span("worker.invoke", ctx=ctx, sched=sched_type):
+                tracer.span("worker.invoke", ctx=ctx, sched=sched_type), \
+                statecheck.eval_scope(snapshot):
             sched.process(ev)
 
 

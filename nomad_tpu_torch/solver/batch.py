@@ -71,7 +71,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import jitcheck, kernels, schedcheck
 from ..device import DeviceLike, resolve_device
 from ..parallel import mesh
 from ..server.quality import observatory
@@ -256,6 +256,18 @@ def _arena_max_bytes() -> int:
         return 512 * 1024 * 1024
 
 
+_ARENA_SITE = "solver/batch.py:_StackArena"
+
+
+def _arena_note_reuse(ent) -> None:
+    """jitcheck: a checkout thaws the entry's stacks on purpose, and a
+    served checkout makes the arena steady."""
+    for arrs in ent.trees.values():
+        for a in arrs:
+            jitcheck.note_thawed(a)
+    jitcheck.note_served(_ARENA_SITE)
+
+
 class _ArenaEntry:
     __slots__ = ("key", "trees", "nbytes", "pad_valid", "pooled")
 
@@ -313,7 +325,11 @@ class _StackArena:
                         self._in_use += 1
                         self._stats["reuses"] += 1
                         self._set_writeable(ent, True)
+                        if jitcheck._ACTIVE:
+                            _arena_note_reuse(ent)
                         return ent, True
+        if jitcheck._ACTIVE:
+            self._note_build(key, specs)
         trees = {}
         nbytes = 0
         for name, fields in specs.items():
@@ -332,6 +348,18 @@ class _StackArena:
                 ent.pooled = False
         return ent, False
 
+    def _note_build(self, key, specs) -> None:
+        """jitcheck: a fresh stack for (bucket, dtypes) is a rebuild when
+        the free list holds one it could have served."""
+        with self._lock:
+            held = _arena_enabled() and any(
+                e.key == key and self._specs_match(e, specs)
+                for e in self._free.values())
+        sig = (key, tuple((n, tuple((tuple(sh), np.dtype(dt).str)
+                                    for sh, dt in f))
+                          for n, f in sorted(specs.items())))
+        jitcheck.note_build(_ARENA_SITE, sig, held=held)
+
     def release(self, ent, pool: bool = True) -> None:
         """Check ``ent`` back in; ``pool`` False drops it instead of
         keeping it in the free list (the stacking of a failed dispatch:
@@ -343,6 +371,10 @@ class _StackArena:
             if not (pool and _arena_enabled()):
                 return
             self._set_writeable(ent, False)
+            if jitcheck._ACTIVE:
+                for arrs in ent.trees.values():
+                    for a in arrs:
+                        jitcheck.note_frozen(a)
             self._seq += 1
             self._free[self._seq] = ent
             self._free_bytes += ent.nbytes
@@ -906,10 +938,19 @@ class SolveBarrier:
             def _prepare():
                 staged["groups"] = fuse_lanes(lanes, e_pad_hint=e_pad_hint)
 
-            _get_pipeline(self._depth).submit(
-                functools.partial(self._dispatch_job, gen, batch, lanes,
-                                  staged),
-                prepare=_prepare)
+            if schedcheck._ACTIVE:
+                # the waiters wait on the pipeline: work outside a
+                # controlled schedule until _dispatch_job ends
+                schedcheck.external_begin()
+            try:
+                _get_pipeline(self._depth).submit(
+                    functools.partial(self._dispatch_job, gen, batch,
+                                      lanes, staged),
+                    prepare=_prepare)
+            except BaseException:
+                if schedcheck._ACTIVE:
+                    schedcheck.external_end()
+                raise
             return
 
         def solve_batch():
@@ -1027,6 +1068,8 @@ class SolveBarrier:
                 if self._next_complete == gen:
                     self._next_complete = gen + 1
                 self._complete_cv.notify_all()
+            if schedcheck._ACTIVE:
+                schedcheck.external_end()
 
     def _hint_plan_group(self, n: int) -> None:
         hint = self._plan_group_hint

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import jitcheck, kernels
 from ..device import DeviceLike, default_dtype_name, resolve_device
 from . import exchange, resident
 from .binpack import NodeConst, NodeState, PlacementBatch
@@ -48,6 +48,43 @@ class DenseOut(NamedTuple):
     scores: torch.Tensor        # (E, P) best yielded score, -inf if none
     n_yielded: torch.Tensor     # (E, P) int64
     state: NodeState            # the carried usage after the last step
+
+
+class IndexMax(NamedTuple):
+    """The largest entry of a dispatch's index tables and of its limits
+    (-1 for an empty table), taken on the host from the packed numpy
+    lanes before they ship: the kernels' range checks and dense_scan's
+    round sizing read these, never the device tensors (a ``max()`` read
+    back from the card would sync the host inside the dispatch)."""
+    spread_vidx: int
+    dp_vidx: int
+    penalty_idx: int
+    limit: int
+    grp: int = -1               # the preemption tables' group index
+
+
+def _max_of(a) -> int:
+    if isinstance(a, torch.Tensor):
+        return int(a.max()) if a.numel() else -1
+    a = np.asarray(a)
+    return int(a.max()) if a.size else -1
+
+
+def index_max(const, init, batch, ptab=None) -> IndexMax:
+    """IndexMax of stacked lane tables: numpy on the dispatch path (host
+    reads); tensors where a caller holds nothing else (on a card that
+    reads back from it, so the dispatch path never takes this form)."""
+    return IndexMax(_max_of(const.spread_vidx), _max_of(const.dp_vidx),
+                    _max_of(batch.penalty_idx), _max_of(batch.limit),
+                    -1 if ptab is None else _max_of(ptab.grp))
+
+
+def check_index_max(pairs) -> None:
+    """Raise where a table holds an index past its range: ``pairs`` of
+    (name, largest entry, exclusive bound)."""
+    for name, m, hi in pairs:
+        if m >= hi:
+            raise ValueError(f"{name} holds an index >= {hi}")
 
 
 def _dev_terms(const, state, neg_inf):
@@ -256,6 +293,7 @@ def _step_asks(batch, i, has_cores):
                 ask_cores=(batch.ask_cores[:, col] if has_cores else None))
 
 
+@jitcheck.plain_version
 def dense_scan_plain(const: NodeConst, init: NodeState,
                      batch: PlacementBatch, *, spread_alg: bool) -> DenseOut:
     """Plain PyTorch version of the dense greedy scan over E stacked
@@ -374,10 +412,12 @@ def dense_dims(const, init, batch):
 
 
 def dense_scan(const: NodeConst, init: NodeState, batch: PlacementBatch,
-               *, spread_alg: bool) -> DenseOut:
+               *, spread_alg: bool, imax: IndexMax = None) -> DenseOut:
     """Dense greedy scan over E stacked lanes of tensors on one device:
     the plain version for CPU tensors, the dense_scan kernel for CUDA
-    tensors. ``init`` is not modified."""
+    tensors. ``init`` is not modified. ``imax``: the tables' IndexMax,
+    taken on the host before the upload (left out, it is read from the
+    tensors)."""
     dt = const.cpu_cap.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"cpu_cap dtype {dt} is not float32/float64")
@@ -398,12 +438,12 @@ def dense_scan(const: NodeConst, init: NodeState, batch: PlacementBatch,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     # the kernel indexes count tables with these: keep them in range
+    if imax is None:
+        imax = index_max(const, init, batch)
     N, V, Vd = dims[1], dims[4], dims[6]
-    for name, t, hi in (("spread_vidx", const.spread_vidx, V),
-                        ("dp_vidx", const.dp_vidx, Vd),
-                        ("penalty_idx", batch.penalty_idx, N)):
-        if t.numel() and int(t.max()) >= hi:
-            raise ValueError(f"{name} holds an index >= {hi}")
+    check_index_max((("spread_vidx", imax.spread_vidx, V),
+                     ("dp_vidx", imax.dp_vidx, Vd),
+                     ("penalty_idx", imax.penalty_idx, N)))
     E, P = dims[0], dims[2]
     state = NodeState(*(t.clone().contiguous() for t in init))
     trees["state"] = state
@@ -412,7 +452,7 @@ def dense_scan(const: NodeConst, init: NodeState, batch: PlacementBatch,
     n_yielded = torch.empty((E, P), dtype=torch.int64, device=dev)
     ptrs = [getattr(trees[tree], f).contiguous() for tree, f in DENSE_ARGS]
     # the largest limit sizes the kernel's rounds (csrc/dense_scan.cu)
-    l_max = int(batch.limit.max()) if batch.limit.numel() else 0
+    l_max = max(imax.limit, 0)
     kernels.DENSE_SCAN.launch(
         dt, ptrs + [chosen, scores, n_yielded],
         list(dims) + [int(bool(spread_alg)), l_max])
@@ -529,10 +569,11 @@ def solve_placements(const, init, batch, *, spread_alg: bool,
     dev = resolve_device(device)
     dtype_name = default_dtype_name(dev, dtype_name)
     cast = lane_casts(dtype_name)
+    imax = index_max(const, init, batch)
     (c, s, b), _ = fused_tensors((const, init, batch), (cast,) * 3,
                                  device=dev, cache_version=cache_version,
                                  delta_src=delta_src)
-    return dense_scan(c, s, b, spread_alg=spread_alg)
+    return dense_scan(c, s, b, spread_alg=spread_alg, imax=imax)
 
 
 # --------------------------------------------------------------------------
@@ -730,6 +771,7 @@ _SHARD_PLAIN = {SHARD_COUNT: _shard_count_plain,
                 SHARD_COMMIT: _shard_commit_plain}
 
 
+@jitcheck.plain_version
 def shard_steps_plain(cells) -> None:
     """The plain scan over ``cells`` on their device, in step order: each
     step's three phases on every cell, a phase on all cells before the

@@ -29,6 +29,7 @@ from typing import Dict, List, Sequence
 
 import torch
 
+from .. import jitcheck
 from . import resident, xferobs
 
 # mesh_exchange.cuh's constants (tests/test_torch_mesh_exchange.py reads
@@ -126,7 +127,10 @@ def check(err) -> None:
     where the results are read back: the read-back has synchronized."""
     if err is None:
         return
-    code, step, cell, lane = (int(x) for x in err.cpu().tolist())
+    # the error word rides the grid's read-back (mesh.mesh_solve and the
+    # LP's reads have synchronized): no second wait for the card
+    with jitcheck.sanctioned_fetch("mesh"):
+        code, step, cell, lane = (int(x) for x in err.cpu().tolist())
     if code:
         raise ExchangeTimeout(code, step, cell, lane)
 

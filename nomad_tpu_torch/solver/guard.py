@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import jitcheck, lockcheck, schedcheck
 from ..faultinject import faults
 from ..server.telemetry import metrics
 from ..server.tracing import tracer
@@ -163,7 +164,10 @@ def backend_available(timeout_s: float = 0.0, device=None) -> bool:
         _STATE["probe_started_at"] = time.time()
         _STATE["probe_timeout_s"] = timeout
         t.start()
-        ok = done.wait(timeout) and result["n"] > 0
+        # the probe deadline is real time: a schedcheck run must not
+        # expire it virtually, or a healthy card reads as down
+        with schedcheck.real_time():
+            ok = done.wait(timeout) and result["n"] > 0
         _set_flags_locked(True, ok)
         _STATE["probe_timed_out"] = not done.is_set()
     if not ok:
@@ -250,6 +254,13 @@ def run_dispatch(fn, label: str = "solver.dispatch",
     DispatchFailed("error") with the exception as its cause. Outcomes
     feed the breaker: failures count toward a trip, a success resets
     the count."""
+    if lockcheck._ACTIVE:
+        # a dispatch can burn a whole deadline: a lock held across it
+        # starves every peer of that lock as long
+        lockcheck.note_dispatch(label)
+    if schedcheck._ACTIVE:
+        # dispatch entry is a schedule decision point
+        schedcheck.yield_point("guard.run_dispatch")
     timeout = dispatch_deadline_s() if timeout_s is None else timeout_s
     dev = torch.device("cuda" if device is None else device)
     _BREAKER["platform"] = dev.type
@@ -261,6 +272,11 @@ def run_dispatch(fn, label: str = "solver.dispatch",
     eval_tag = ",".join(tracer.current_ids()) or "-"
 
     def runner() -> None:
+        # jitcheck's hot region: host syncs until fn returns are
+        # hot-path syncs (one module-attr read when off)
+        hot = jitcheck._ACTIVE
+        if hot:
+            jitcheck.note_dispatch_begin(label, dev)
         try:
             with tracer.activate(trace_ctx):
                 if dev.type == "cuda" and dev.index is not None:
@@ -273,6 +289,8 @@ def run_dispatch(fn, label: str = "solver.dispatch",
         except BaseException as e:  # noqa: BLE001 -- reported to caller
             box["error"] = e
         finally:
+            if hot:
+                jitcheck.note_dispatch_end()
             done.set()
 
     if timeout <= 0:
@@ -280,7 +298,11 @@ def run_dispatch(fn, label: str = "solver.dispatch",
     else:
         threading.Thread(target=runner, daemon=True,
                          name=f"dispatch-{label}").start()
-        if not done.wait(timeout):
+        # the watchdog deadline is real time: a virtual expiry under a
+        # schedcheck run would fail a healthy card dispatch
+        with schedcheck.real_time():
+            expired = not done.wait(timeout)
+        if expired:
             _count("dispatch_timeout")
             record_dispatch_failure("timeout")
             tracer.mark_degraded("watchdog_timeout", ctx=trace_ctx,

@@ -63,7 +63,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import jitcheck, kernels
 from ..device import DeviceLike
 from ..server.quality import observatory
 from ..server.telemetry import metrics
@@ -341,6 +341,7 @@ def _mu_step(X, pcount, ask, free, cap, mu):
     return torch.where(m > 0, m, zero)
 
 
+@jitcheck.plain_version
 def lp_relax_plain(V, feas, ask, pcount, free, active, temps
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch LP relaxation: V (L, N) float32, feas (L, N) bool,
@@ -503,6 +504,7 @@ def _lp_shard_plain(c: LpShardCell, phase: int, t: int) -> None:
                           live[rs]))
 
 
+@jitcheck.plain_version
 def lp_shard_steps_plain(cells) -> None:
     """The plain anneal over ``cells`` on their device: init, per step
     every cell's rows phase then every cell's nodes phase, then the final
@@ -920,8 +922,10 @@ def _solve_lp_group(lanes: List[PackedLane], ledger: Dict[str, list],
         resident.note_dispatch_bytes(total)
         X_dev, mu_dev = lp_relax(*(torch.from_numpy(a).to(dev)
                                    for a in arrays + (temps,)))
-    X = X_dev[:L].cpu().numpy()
-    mu = mu_dev.cpu().numpy()
+    # the LP's one read-back (the reference's lpq device_get)
+    with jitcheck.sanctioned_fetch("lpq"):
+        X = X_dev[:L].cpu().numpy()
+        mu = mu_dev.cpu().numpy()
     # a mesh dispatch's error word, read where its results came back
     exchange.check(getattr(X_dev, "exchange_error", None))
     xferobs.note_fetch(int(X.nbytes) + int(mu.nbytes), "lpq")

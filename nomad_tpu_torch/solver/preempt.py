@@ -45,7 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import jitcheck, kernels
 from ..device import DeviceLike, default_dtype_name, resolve_device
 from . import dense, resident
 from .binpack import (
@@ -310,6 +310,7 @@ def _preempt_commit(const, state, b, ptab, evicted, counts, step, w, do,
     return row
 
 
+@jitcheck.plain_version
 def dense_preempt_plain(const: NodeConst, init: NodeState,
                         batch: PlacementBatch, ptab: PreemptTables,
                         pinit: PreemptState, *,
@@ -375,6 +376,7 @@ def _shift_out(cur, z, zomb, entry):
     return torch.where(zomb.reshape(E, 1, *extra), sh, cur)
 
 
+@jitcheck.plain_version
 def wave_preempt_plain(compact, cand, scal_f, scal_i, pen, counts0, *,
                        spread_alg: bool, B: int):
     """Plain PyTorch version of the windowed preemption scan
@@ -550,11 +552,6 @@ def _check_a(A):
                          "what the preemption kernels support")
 
 
-def _check_index(name, t, hi):
-    if t.numel() and int(t.max()) >= hi:
-        raise ValueError(f"{name} holds an index >= {hi}")
-
-
 # (field, kind) order of the preemption tables nt_dense_preempt_* takes
 # after dense.DENSE_ARGS (csrc/dense_preempt.cu unpacks them so)
 PREEMPT_ARGS = tuple(("ptab", f) for f in PreemptTables._fields) + (
@@ -563,11 +560,14 @@ PREEMPT_ARGS = tuple(("ptab", f) for f in PreemptTables._fields) + (
 
 def dense_preempt(const: NodeConst, init: NodeState, batch: PlacementBatch,
                   ptab: PreemptTables, pinit: PreemptState, *,
-                  spread_alg: bool) -> DensePreemptOut:
+                  spread_alg: bool,
+                  imax: dense.IndexMax = None) -> DensePreemptOut:
     """Dense greedy placement with eviction over E stacked lanes of
     tensors on one device: the plain version for CPU tensors, the
     dense_preempt kernel for CUDA tensors. ``init`` and ``pinit`` are not
-    modified."""
+    modified. ``imax``: the tables' dense.IndexMax (``grp`` included),
+    taken on the host before the upload (left out, it is read from the
+    tensors)."""
     dt = const.cpu_cap.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"cpu_cap dtype {dt} is not float32/float64")
@@ -597,14 +597,15 @@ def dense_preempt(const: NodeConst, init: NodeState, batch: PlacementBatch,
     _check_tensor("pinit.counts", pinit.counts, torch.int32, (E, G), dev)
     if G < 1:
         raise ValueError("pinit.counts needs at least one group")
-    _check_index("ptab.grp", ptab.grp, G)
+    if imax is None:
+        imax = dense.index_max(const, init, batch, ptab)
+    dense.check_index_max((("ptab.grp", imax.grp, G),))
     if dev.type == "cpu":
         return dense_preempt_plain(const, init, batch, ptab, pinit,
                                    spread_alg=spread_alg)
-    for name, t, hi in (("spread_vidx", const.spread_vidx, dims[4]),
-                        ("dp_vidx", const.dp_vidx, dims[6]),
-                        ("penalty_idx", batch.penalty_idx, N)):
-        _check_index(name, t, hi)
+    dense.check_index_max((("spread_vidx", imax.spread_vidx, dims[4]),
+                           ("dp_vidx", imax.dp_vidx, dims[6]),
+                           ("penalty_idx", imax.penalty_idx, N)))
     P = dims[2]
     state = NodeState(*(t.clone().contiguous() for t in init))
     pstate = PreemptState(pinit.evicted.clone().contiguous(),
@@ -625,11 +626,13 @@ def dense_preempt(const: NodeConst, init: NodeState, batch: PlacementBatch,
 
 
 def wave_preempt(compact, cand, scal_f, scal_i, pen, counts0, *,
-                 spread_alg: bool, B: int):
+                 spread_alg: bool, B: int, grp_max: int = None):
     """Windowed preemption over (E, C, WPC_NCOLS) compact tables and their
     (E, C, A) candidate tables (a dict named as binpack.WPC_CAND).
     Returns (chosen int64, scores, n_yielded int64) (E, C - B) and
-    evict_rows (E, C - B, A) bool."""
+    evict_rows (E, C - B, A) bool. ``grp_max``: the largest group index
+    of the candidates, taken on the host before the upload (left out, it
+    is read from ``cand["grp"]``)."""
     if not isinstance(compact, torch.Tensor) or compact.dim() != 3:
         raise ValueError("compact must be an (E, C, W) tensor")
     dt = compact.dtype
@@ -661,7 +664,9 @@ def wave_preempt(compact, cand, scal_f, scal_i, pen, counts0, *,
     _check_tensor("counts0", counts0, torch.int32, (E, G), dev)
     if G < 1:
         raise ValueError("counts0 needs at least one group")
-    _check_index("cand[grp]", cand["grp"], G)
+    if grp_max is None:
+        grp_max = dense._max_of(cand["grp"])
+    dense.check_index_max((("cand[grp]", grp_max, G),))
     if dev.type == "cpu":
         return wave_preempt_plain(compact, cand, scal_f, scal_i, pen,
                                   counts0, spread_alg=spread_alg, B=B)
@@ -716,7 +721,8 @@ def solve_placements_preempt(const, init, batch, ptab, pinit, *,
     (c, s, b, pt, ps), _ = dense.fused_tensors(
         (const, init, batch, ptab, pinit), preempt_casts(dtype_name),
         device=dev, cache_version=cache_version, delta_src=delta_src)
-    return dense_preempt(c, s, b, pt, ps, spread_alg=spread_alg)
+    return dense_preempt(c, s, b, pt, ps, spread_alg=spread_alg,
+                         imax=dense.index_max(const, init, batch, ptab))
 
 
 class WavePreemptInputs(NamedTuple):
@@ -809,13 +815,15 @@ def solve_lane_wave_preempt(const, init, batch, ptab, pinit, *,
     inp = wave_preempt_inputs(const, init, batch, ptab, pinit,
                               dtype_name=dtype_name)
     P = inp.P
+    # the group range check reads the host lanes, not the card
+    grp_max = dense._max_of(inp.cand["grp"])
     cells = eval_cells(device, inp.compact.shape[0])
     if cells is None:
         dev = resolve_device(first_cell(device))
         outs = [wave_preempt(
             *wave_preempt_tensors(inp, dev, cache_version=cache_version,
                                   delta_src=delta_src),
-            spread_alg=spread_alg, B=inp.B)]
+            spread_alg=spread_alg, B=inp.B, grp_max=grp_max)]
     else:
         from ..parallel import mesh
         keys = sorted(inp.cand)
@@ -825,9 +833,13 @@ def solve_lane_wave_preempt(const, init, batch, ptab, pinit, *,
                                            tag="compact_preempt")
         n = len(keys)
         outs = [wave_preempt(b[0], dict(zip(keys, b[1:1 + n])),
-                             *b[1 + n:], spread_alg=spread_alg, B=inp.B)
+                             *b[1 + n:], spread_alg=spread_alg, B=inp.B,
+                             grp_max=grp_max)
                 for b in per_cell]
-    chosen, scores, n_yielded, evict_rows = (
-        np.concatenate([o[k][:, :P].cpu().numpy() for o in outs])
-        for k in range(4))
+    # the dispatch's one read-back (the reference's wave_preempt
+    # device_get)
+    with jitcheck.sanctioned_fetch("wave_preempt"):
+        chosen, scores, n_yielded, evict_rows = tuple(
+            np.concatenate([o[k][:, :P].cpu().numpy() for o in outs])
+            for k in range(4))
     return chosen, scores, n_yielded, evict_rows

@@ -68,7 +68,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import jitcheck, kernels, statecheck
 from ..device import DeviceLike, resolve_device
 from ..server.telemetry import metrics
 from ..server.tracing import tracer
@@ -237,6 +237,7 @@ def _pad_updates(idx: np.ndarray, vals: np.ndarray
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
+@jitcheck.plain_version
 def delta_scatter_plain(buf: torch.Tensor, idx: torch.Tensor,
                         vals: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: a new tensor equal to ``buf`` with
@@ -287,6 +288,7 @@ def delta_scatter(buf: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+@jitcheck.plain_version
 def coord_scatter_plain(part: torch.Tensor, coords: torch.Tensor,
                         vals: torch.Tensor, start: Sequence[int]
                         ) -> torch.Tensor:
@@ -311,6 +313,7 @@ def coord_scatter_plain(part: torch.Tensor, coords: torch.Tensor,
     return out.view(part.dtype).view(part.shape)
 
 
+@jitcheck.plain_version
 def coord_scatter_cells_plain(parts: Sequence[torch.Tensor], payload,
                               starts: Sequence[Sequence[int]]) -> list:
     """Plain version of coord_scatter_cells: coord_scatter_plain on each
@@ -394,13 +397,39 @@ def _host_tensor(arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr))
 
 
+def _host_buffer(nbytes: int, pinned: bool):
+    """A host byte buffer to stage an upload in: (uint8 tensor, numpy
+    view of it). Page-locked for a card, from PyTorch's host allocator,
+    which hands a block out again only after the asynchronous copies
+    that read the tensor have run; plain numpy memory for the CPU, where
+    a tensor's ``.numpy()`` would read as a fetch from the device to
+    jitcheck."""
+    if not pinned:
+        h = np.empty(nbytes, dtype=np.uint8)
+        # an empty buffer keeps a unit stride (views of it as other
+        # dtypes need one)
+        return (torch.from_numpy(h) if nbytes
+                else torch.empty(0, dtype=torch.uint8)), h
+    buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    return buf, buf.numpy()
+
+
 def _put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Wholesale host->device copy; on the CPU a tensor that owns its own
-    copy (never an alias of a frozen shadow)."""
+    copy (never an alias of a frozen shadow). To a card the bytes are
+    staged in page-locked memory and copied asynchronously: a copy from
+    pageable memory would make the host wait for the card inside the
+    dispatch (the driver stages pageable memory itself, so the host
+    copy is paid either way)."""
     t = _host_tensor(arr)
     if device.type == "cpu":
         return t.clone()
-    return t.to(device)
+    if t.numel() == 0:
+        return torch.empty(t.shape, dtype=t.dtype, device=device)
+    host, h = _host_buffer(t.numel() * t.element_size(), True)
+    h[:] = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return host.to(device, non_blocking=True).view(t.dtype).reshape(
+        t.shape)
 
 
 def _stage_payload(idx_p: np.ndarray, vals_p: np.ndarray, pinned: bool):
@@ -412,9 +441,7 @@ def _stage_payload(idx_p: np.ndarray, vals_p: np.ndarray, pinned: bool):
     so no later call rewrites a payload still in flight."""
     n_idx = int(idx_p.nbytes)
     off = -(-n_idx // 16) * 16
-    host = torch.empty(off + int(vals_p.nbytes), dtype=torch.uint8,
-                       pin_memory=pinned)
-    h = host.numpy()
+    host, h = _host_buffer(off + int(vals_p.nbytes), pinned)
     h[:n_idx] = np.ascontiguousarray(idx_p, dtype=np.int32).view(np.uint8)
     h[off:] = np.ascontiguousarray(vals_p).reshape(-1).view(np.uint8)
     return host, off
@@ -489,6 +516,10 @@ def chain_apply(key: tuple, arr: np.ndarray, store, token: Optional[int],
     shadow = np.array(arr, copy=True) if copy_shadow else arr
     # the shadow is a promise about the resident buffer's content
     shadow.setflags(write=False)
+    if jitcheck._ACTIVE:
+        jitcheck.note_fingerprint(shadow)
+    if statecheck._ACTIVE:
+        statecheck.note_published(shadow, site="resident.chain")
     with _LOCK:
         ce = _CHAIN.pop(key, None)
         if ce is not None:
@@ -612,6 +643,8 @@ def device_put_cached(arrays: Sequence[np.ndarray],
         return _put(a, dev)
 
     arrays = [np.asarray(a) for a in arrays]
+    if jitcheck._ACTIVE:
+        jitcheck.note_tree(arrays)
     if not enabled():
         shipped = sum(a.nbytes for a in arrays)
         for i, a in enumerate(arrays):
@@ -646,6 +679,8 @@ def device_put_cached(arrays: Sequence[np.ndarray],
             if cacheable is None or cacheable[i]:
                 ck = (_fingerprint(arr), where)
                 arr.setflags(write=False)
+                if jitcheck._ACTIVE:
+                    jitcheck.note_fingerprint(arr, ck[0])
                 ent = _CACHE.get(ck)
                 if ent is not None:
                     _CACHE.move_to_end(ck)

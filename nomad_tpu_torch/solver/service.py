@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import jitcheck, statecheck
 from ..device import DeviceLike, default_dtype_name, resolve_device
 from ..scheduler.util import shuffled_order
 from ..structs import (
@@ -457,9 +458,12 @@ def _system_fit(lane: PackedLane, n: int, device) -> Tuple[np.ndarray,
                                      spread_alg=lane.spread_alg,
                                      dtype_name=lane.dtype_name,
                                      device=device)
-    host = out.cpu()
+    # the system dispatch's one read-back (the reference reads its
+    # system fit back once too)
+    with jitcheck.sanctioned_fetch("system"):
+        host = out.cpu()
+        fit, score = (t[0].numpy() for t in packed_views(host, 1, N, dt))
     xferobs.note_fetch(xferobs.tree_nbytes(host), "system")
-    fit, score = (t[0].numpy() for t in packed_views(host, 1, N, dt))
     inv = np.empty(n, dtype=np.int64)
     inv[np.asarray(lane.order, dtype=np.int64)] = np.arange(n)
     chosen = np.where(fit[inv], inv, -1).astype(np.int64)
@@ -1130,6 +1134,11 @@ class TpuPlacementService:
                     if ent[1] == token:
                         base = ent[2]
                         _stat_incr("usage_base_hits")
+                        if statecheck._ACTIVE:
+                            # a hit must serve exactly the snapshot's
+                            # index
+                            statecheck.note_memo_served(
+                                "usage_base", ent[1], token)
                     elif ent[1] < token:
                         base = self._catch_up_usage_base(matrix, store,
                                                          ent, token)
@@ -1196,6 +1205,12 @@ class TpuPlacementService:
         freeze_usage_base(base)
         matrix._usage_base = (store, token, base)
         _stat_incr("usage_base_delta_hits")
+        if statecheck._ACTIVE:
+            # the caught-up base serves the snapshot's index
+            statecheck.note_memo_served("usage_base_delta", token,
+                                        getattr(self.ctx.state,
+                                                "latest_index",
+                                                lambda: token)())
         return base
 
     def _overlay_plan_deltas(self, usage, nodes, tg) -> None:

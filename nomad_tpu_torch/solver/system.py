@@ -17,7 +17,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import jitcheck, kernels
 from ..device import DeviceLike, default_dtype_name, resolve_device
 from . import resident, xferobs
 from .binpack import BINPACK_MAX, NodeConst, NodeState, PlacementBatch
@@ -38,6 +38,7 @@ SYSTEM_ARGS = (
 )
 
 
+@jitcheck.plain_version
 def system_fit_plain(const: NodeConst, init: NodeState,
                      batch: PlacementBatch, *, spread_alg: bool):
     """Plain PyTorch version of the system fit over E stacked lanes.
@@ -219,8 +220,7 @@ def system_tables(const, init, batch, *, dtype_name: str,
         offs.append(size)
         size += a.nbytes
     cuda = device.type == "cuda"
-    host = torch.empty(size, dtype=torch.uint8, pin_memory=cuda)
-    h = host.numpy()
+    host, h = resident._host_buffer(size, cuda)
     for a, off in zip(arrs, offs):
         h[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
     buf = host.to(device, non_blocking=True) if cuda else host

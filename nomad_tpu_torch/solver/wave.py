@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import jitcheck, kernels
 from ..device import DeviceLike, default_dtype_name, resolve_device
 from . import dense, preempt, resident, xferobs
 from .binpack import (
@@ -92,6 +92,7 @@ def _spread_total(slot, counts, sp, wfrac):
     return total
 
 
+@jitcheck.plain_version
 def wave_compact_plain(compact, scal_f, scal_i, pen, sp: WaveSpread, *,
                        spread_alg: bool, B: int):
     """Plain PyTorch version of the per-placement wavefront
@@ -172,6 +173,7 @@ def _block_head(slot, j, ask_cpu, ask_mem, count, L, spread_alg):
     return f0, low, yielded, order, ny
 
 
+@jitcheck.plain_version
 def wave_block_plain(compact, scal_f, scal_i, *, spread_alg: bool, B: int,
                      K: int = WAVE_K):
     """Plain PyTorch version of the run-block wavefront
@@ -494,15 +496,19 @@ def solve_lane_wave(const, init, batch, *, spread_alg: bool,
         chosen, scores, n_yielded = run_wave(
             inp, spread_alg=spread_alg, device=dev,
             cache_version=cache_version, delta_src=delta_src)
-        return (chosen[:, :P].cpu().numpy(), scores[:, :P].cpu().numpy(),
-                n_yielded[:, :P].cpu().numpy())
+        # the dispatch's one read-back (the reference's wave device_get)
+        with jitcheck.sanctioned_fetch("wave"):
+            return (chosen[:, :P].cpu().numpy(),
+                    scores[:, :P].cpu().numpy(),
+                    n_yielded[:, :P].cpu().numpy())
     from ..parallel import mesh
     arrays = [inp.compact, inp.scal_f, inp.scal_i, inp.pen, *inp.sp]
     per_cell, _ = mesh.shard_eval_axis(arrays, cells, tag="compact")
     outs = [_wave_kernel(inp, *b[:4], WaveSpread(*b[4:]),
                          spread_alg=spread_alg) for b in per_cell]
-    return tuple(np.concatenate([o[k][:, :P].cpu().numpy() for o in outs])
-                 for k in range(3))
+    with jitcheck.sanctioned_fetch("wave"):
+        return tuple(np.concatenate([o[k][:, :P].cpu().numpy()
+                                     for o in outs]) for k in range(3))
 
 
 def solve_lane_fused(const, init, batch, ptab=None, pinit=None, *,
@@ -529,15 +535,22 @@ def solve_lane_fused(const, init, batch, ptab=None, pinit=None, *,
         kw["device"] = first_cell(device)
         out = preempt.solve_placements_preempt(
             const, init, batch, ptab, pinit, **kw)
-        return _fetched((out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
-                         out.n_yielded.cpu().numpy(),
-                         out.evict_rows.cpu().numpy()), "fused_preempt")
+        # the dispatch's one read-back (the reference's fused_preempt
+        # device_get)
+        with jitcheck.sanctioned_fetch("fused_preempt"):
+            host = (out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
+                    out.n_yielded.cpu().numpy(),
+                    out.evict_rows.cpu().numpy())
+        return _fetched(host, "fused_preempt")
     if wave:
         return _fetched(solve_lane_wave(const, init, batch, **kw), "wave")
     kw["device"] = first_cell(device)
     out = dense.solve_placements(const, init, batch, **kw)
-    return _fetched((out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
-                     out.n_yielded.cpu().numpy()), "fused")
+    # the dispatch's one read-back (the reference's fused device_get)
+    with jitcheck.sanctioned_fetch("fused"):
+        host = (out.chosen.cpu().numpy(), out.scores.cpu().numpy(),
+                out.n_yielded.cpu().numpy())
+    return _fetched(host, "fused")
 
 
 def _fetched(out: tuple, tag: str) -> tuple:
@@ -663,6 +676,7 @@ def wavefront_tables(const, init, batch, B: int = WAVE_B):
     return compact.contiguous(), scal_f, scal_i
 
 
+@jitcheck.plain_version
 def wavefront_plain(const: NodeConst, init: NodeState,
                     batch: PlacementBatch, *, spread_alg: bool):
     """Plain PyTorch version of the in-kernel wavefront over E stacked
@@ -742,6 +756,7 @@ def solve_wavefront(const, init, batch, *, spread_alg: bool = False,
     (c, s, b), _ = dense.fused_tensors((const, init, batch), (cast,) * 3,
                                        device=dev)
     chosen, scores, n_yielded = wavefront(c, s, b, spread_alg=spread_alg)
-    out = (chosen.to(torch.int32).cpu().numpy(), scores.cpu().numpy(),
-           n_yielded.to(torch.int32).cpu().numpy())
+    with jitcheck.sanctioned_fetch("wave"):
+        out = (chosen.to(torch.int32).cpu().numpy(), scores.cpu().numpy(),
+               n_yielded.to(torch.int32).cpu().numpy())
     return tuple(x[0] for x in out) if single else out

@@ -16,6 +16,11 @@ port columns, the job hashes, ``pack`` / ``count_placed`` and
 ``compact``; the port's packs fold usage their own way
 (tensor/pack.py), so they are left out here.
 
+``version`` counts the table's mutations, as the reference's does:
+every mutator call bumps it, so a reader that sees it move during one
+read, or between two reads of one verify, saw two states (the
+snapshot-isolation sanitizer, statecheck.py, reads it).
+
 Guarded by the owning StateStore's lock: every mutator is called with
 it held.
 """
@@ -35,6 +40,7 @@ class AllocTable:
     """(reference: state/alloc_table.py:48 AllocTable, verify half)"""
 
     def __init__(self, initial_capacity: int = 1024):
+        self.version = 0
         self._row_of: Dict[str, int] = {}
         self._free: list = []
         self.n_rows = 0
@@ -54,6 +60,7 @@ class AllocTable:
     def register_node(self, node) -> int:
         """The node's slot, allocated on its first registration
         (reference :100)."""
+        self.version += 1
         slot = self._slot_of_node.get(node.id)
         if slot is None:
             if self.n_nodes == self._node_cap:
@@ -166,6 +173,7 @@ class AllocTable:
 
     def upsert(self, alloc) -> None:
         """Insert or rewrite the alloc's row (reference :257)."""
+        self.version += 1
         row = self._row_of.get(alloc.id)
         if row is None:
             row = self._take_row(alloc.id)
@@ -189,6 +197,8 @@ class AllocTable:
         :306), leaving the same table as scalar upserts in order. A batch
         under 8 allocs, or one that repeats an alloc id, takes the scalar
         path."""
+        if not len(allocs):
+            return
         if len(allocs) < 8:
             for a in allocs:
                 self.upsert(a)
@@ -217,6 +227,7 @@ class AllocTable:
         n_new = sum(1 for i in ids if i not in self._row_of)
         while self.n_rows + n_new - len(self._free) > self._cap:
             self._grow()
+        self.version += 1
         rows = np.empty(len(allocs), dtype=np.int64)
         existed = np.zeros(len(allocs), dtype=bool)
         for k, a in enumerate(allocs):
@@ -245,6 +256,7 @@ class AllocTable:
         row = self._row_of.pop(alloc_id, None)
         if row is None:
             return
+        self.version += 1
         if self._fold_inc is not None:
             self._fold_inc_row(row, -1)
         self.live_strict[row] = 0

@@ -45,6 +45,7 @@ import time
 from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from .. import schedcheck, statecheck
 from ..faultinject import faults
 from ..server.telemetry import metrics
 from ..structs import Namespace, NodePool, SchedulerConfiguration
@@ -243,6 +244,9 @@ class StateStore:
         """Advance the index for one logical write to ``tables``. An
         allocs write journals ``delta`` (its change pairs), and journals
         a None delta too: readers then know the span is not coverable."""
+        if schedcheck._ACTIVE:
+            # every index bump is a schedule decision point
+            schedcheck.yield_point("store._bump")
         with self._lock:
             self._index += 1
             for t in tables:
@@ -583,6 +587,9 @@ class StateStore:
         each entry's writes; an entry that raises is skipped (the group
         splits around it) and its exception rides the returned outcome
         list (None = committed). Returns (index, outcomes)."""
+        if schedcheck._ACTIVE:
+            # a batch commit is the write-skew decision point
+            schedcheck.yield_point("store.apply_batch")
         with self._lock:
             outcomes: list = []
             merged_all: list = []
@@ -639,7 +646,8 @@ class StateStore:
                 self._allocs_by_node.setdefault(a.node_id, {})[a.id] = None
                 self._allocs_by_job.setdefault(_job_key(a), {})[a.id] = None
             self.alloc_table.upsert_many(_table_rows(allocs))
-            return self._bump("allocs")
+            with statecheck.mark_uncoverable("replace_allocs"):
+                return self._bump("allocs")
 
     # -- reads: the scheduler reads a snapshot --------------------------
     def allocs(self) -> list:

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import jitcheck, statecheck
 from ..structs.resources import (
     DEFAULT_MAX_DYNAMIC_PORT, DEFAULT_MIN_DYNAMIC_PORT)
 
@@ -353,6 +354,11 @@ def pack_nodes_cached(nodes, node_table_index: Optional[int],
                     _NODE_MATRIX_BUILDS.pop(key, None)
                 return matrix
     _stat_incr("matrix_hits")
+    if statecheck._ACTIVE:
+        # the served entry must be the version the caller's snapshot
+        # pins (equal by construction: this guards the keying)
+        statecheck.note_memo_served("node_matrix", key[0],
+                                    node_table_index)
     return hit
 
 
@@ -377,12 +383,25 @@ def _matrix_memo(matrix, key, build):
 
 
 def _freeze(obj) -> None:
+    """Mark a memo's numpy payloads read-only (shared across evals) and
+    register them with the sanitizers while they record."""
     if isinstance(obj, np.ndarray):
         obj.setflags(write=False)
+        _note_frozen(obj)
     elif isinstance(obj, SpreadInfo):
         for arr in (obj.value_index, obj.desired, obj.has_targets,
                     obj.weights, obj.initial_counts):
             arr.setflags(write=False)
+            _note_frozen(arr)
+
+
+def _note_frozen(arr) -> None:
+    """A frozen memo payload: jitcheck's frozen-memo registry, and the
+    published set statecheck re-fingerprints."""
+    if jitcheck._ACTIVE:
+        jitcheck.note_frozen(arr)
+    if statecheck._ACTIVE:
+        statecheck.note_published(arr)
 
 
 def freeze_matrix(matrix: NodeMatrix) -> None:
@@ -392,6 +411,7 @@ def freeze_matrix(matrix: NodeMatrix) -> None:
                 matrix.port_bitmap):
         if isinstance(arr, np.ndarray):
             arr.setflags(write=False)
+            _note_frozen(arr)
 
 
 def freeze_usage_base(base: dict) -> None:
@@ -399,8 +419,10 @@ def freeze_usage_base(base: dict) -> None:
     and copies before it overlays its own plan deltas."""
     for k in ("used_cpu", "used_mem", "used_disk", "dyn_used"):
         base[k].setflags(write=False)
+        _note_frozen(base[k])
     if base.get("ports") is not None:
         base["ports"].setflags(write=False)
+        _note_frozen(base["ports"])
 
 
 def _constraints_fp(constraints) -> tuple:

@@ -45,6 +45,11 @@ from test_torch_arena import (
 from test_torch_preempt_worlds import _pack as pack_preempt
 from test_torch_preempt_worlds import _world as preempt_world
 
+from torch_sanitizers import armed
+
+# the suite runs under the port's sanitizers (tests/torch_sanitizers.py)
+_torch_sanitizers = armed("lockcheck", "jitcheck")
+
 torch.set_num_threads(1)
 
 

@@ -45,6 +45,11 @@ from nomad_tpu_torch.carry import lane_from_reference
 from nomad_tpu_torch.solver import batch, lpq
 from nomad_tpu_torch.tensor.pack import NodeMatrix
 
+from torch_sanitizers import armed
+
+# the suite runs under the port's sanitizers (tests/torch_sanitizers.py)
+_torch_sanitizers = armed("jitcheck", "statecheck")
+
 # One intra-op thread: the port's CPU tensors are small, and the test
 # run already keeps one xdist worker busy per core.
 torch.set_num_threads(1)

@@ -47,6 +47,11 @@ from nomad_tpu_torch.parallel import mesh
 from nomad_tpu_torch.solver import batch, dense, lpq, resident
 from nomad_tpu_torch.solver import binpack as port_bp
 
+from torch_sanitizers import armed
+
+# the suite runs under the port's sanitizers (tests/torch_sanitizers.py)
+_torch_sanitizers = armed("jitcheck")
+
 torch.set_num_threads(1)
 
 GRID = [(8, 1), (4, 2), (2, 4), (1, 8)]

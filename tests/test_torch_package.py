@@ -523,3 +523,61 @@ def test_telemetry_modules_load_no_jax_and_nothing_of_the_reference(
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "nomad_tpu_torch.lockcheck", "nomad_tpu_torch.jitcheck",
+    "nomad_tpu_torch.statecheck", "nomad_tpu_torch.schedcheck"])
+def test_sanitizer_modules_load_no_jax_and_nothing_of_the_reference(
+        module):
+    """The four sanitizers, each loaded alone, pull in torch, numpy and
+    the port only."""
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_importing_the_port_patches_nothing_with_the_knobs_unset():
+    """The sanitizers are off by default: a process that imports every
+    module of the port (no NOMAD_TPU_TORCH_*CHECK set) keeps the stdlib's
+    and torch's entry points as they were."""
+    code = (
+        "import os, queue, sys, threading, time, _thread, warnings\n"
+        "import torch\n"
+        "for k in list(os.environ):\n"
+        "    if k.startswith('NOMAD_TPU_TORCH_') and k.endswith('CHECK'):\n"
+        "        del os.environ[k]\n"
+        "before = (threading.Lock, threading.RLock, threading.Condition,\n"
+        "          threading.Thread.start, threading.Thread.join,\n"
+        "          threading.Event.wait, threading.Event.set, time.sleep,\n"
+        "          queue.Queue.get, queue.Queue.put, warnings.showwarning,\n"
+        "          torch.Tensor.item, torch.Tensor.cpu,\n"
+        "          torch.Tensor.__int__)\n"
+        "import importlib, pkgutil, nomad_tpu_torch\n"
+        "for m in pkgutil.walk_packages(nomad_tpu_torch.__path__,"
+        " 'nomad_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "after = (threading.Lock, threading.RLock, threading.Condition,\n"
+        "         threading.Thread.start, threading.Thread.join,\n"
+        "         threading.Event.wait, threading.Event.set, time.sleep,\n"
+        "         queue.Queue.get, queue.Queue.put, warnings.showwarning,\n"
+        "         torch.Tensor.item, torch.Tensor.cpu,\n"
+        "         torch.Tensor.__int__)\n"
+        "from nomad_tpu_torch import jitcheck, lockcheck, schedcheck,"
+        " statecheck\n"
+        "on = [m.__name__ for m in (jitcheck, lockcheck, schedcheck,"
+        " statecheck) if m.enabled()]\n"
+        "print([i for i, (a, b) in enumerate(zip(before, after))"
+        " if a is not b], on)\n"
+        "sys.exit(1 if on or any(a is not b for a, b in"
+        " zip(before, after)) else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -40,6 +40,11 @@ from nomad_tpu_torch.server import plan_apply as port_plan_apply
 from nomad_tpu_torch.state.alloc_table import AllocTable as PortAllocTable
 from nomad_tpu_torch.state.store import StateStore as PortStateStore
 
+from torch_sanitizers import armed
+
+# the suite runs under the port's sanitizers (tests/torch_sanitizers.py)
+_torch_sanitizers = armed("lockcheck", "statecheck", "schedcheck")
+
 REF = SimpleNamespace(
     mock=ref_mock, st=ref_structs, pa=ref_plan_apply, Store=RefStateStore,
     Table=RefAllocTable, faults=ref_faults, Injected=RefInjectedFault,

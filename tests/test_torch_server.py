@@ -64,6 +64,11 @@ from test_torch_scheduler import (
     PARITY_WORLDS, _shared_digest, _task_digest, parity_world,
     system_world, tier_world)
 
+from torch_sanitizers import armed
+
+# the suite runs under the port's sanitizers (tests/torch_sanitizers.py)
+_torch_sanitizers = armed("statecheck")
+
 torch.set_num_threads(1)
 
 SETTLE_S = 60.0

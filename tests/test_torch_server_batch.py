@@ -45,6 +45,11 @@ from nomad_tpu_torch.tensor import pack as port_pack
 from test_torch_server import (
     InOrderLanes, assert_same, enqueue_both, server_pair, settle_both)
 
+from torch_sanitizers import armed
+
+# the suite runs under the port's sanitizers (tests/torch_sanitizers.py)
+_torch_sanitizers = armed("lockcheck", "schedcheck")
+
 torch.set_num_threads(1)
 
 SERVER_THREADS = ("batch-worker-", "scheduler-worker-", "batch-eval-",

@@ -53,6 +53,11 @@ from nomad_tpu_torch.solver.batch import SolveBarrier, make_solve_hook
 from nomad_tpu_torch.solver.service import TpuPlacementService
 from nomad_tpu_torch.tensor import pack as port_pack
 
+from torch_sanitizers import armed
+
+# the suite runs under the port's sanitizers (tests/torch_sanitizers.py)
+_torch_sanitizers = armed("jitcheck")
+
 # One intra-op thread: the port's CPU tensors are small, and the test
 # run already keeps one xdist worker busy per core.
 torch.set_num_threads(1)
