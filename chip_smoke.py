@@ -179,8 +179,9 @@ Phases (any failure raises and the script exits nonzero with no result):
                 Node structs in a port StateStore and 32 mock.job evals x
                 2,000 on 32 eval threads, two generations (the first's
                 placements written to the store as Allocations between
-                them: the second packs with its usage base caught up
-                through the journal); every struct lane equal bit for bit
+                them: the second packs its usage from the store's alloc
+                table, its fold equal to a fresh one); every struct lane
+                equal bit for bit
                 to pack_lane_arrays' lane from phase 4's arrays (the second
                 generation's usage a fresh pack_usage fold), every
                 placement equal to those array lanes' through a barrier;
@@ -210,8 +211,9 @@ Phases (any failure raises and the script exits nonzero with no result):
                 the SolveBarrier hook or the LP tier's, float32: phase
                 13's fleet with 32 mock.job evals x 2,000, then the same
                 jobs scaled to 2,600 (the reconciler reads 2,000 allocs
-                each and places 600; the usage base caught up through
-                the commits' journal); a system job; a mixed barrier of
+                each and places 600; the usage from the store's alloc
+                table, kept in step by the commits); a system job; a
+                mixed barrier of
                 two-group spread jobs (the second groups promote through
                 the delta scatter), a distinct_property job, a
                 reserved-core job and a reschedule with penalties; a
@@ -287,7 +289,23 @@ Phases (any failure raises and the script exits nonzero with no result):
                 decision fingerprints and placements, equal to the
                 unsanitized run. Prints the armed round's wall time
                 beside the unarmed one's.
-  Phases 4-16 reset the launch counts just before and read them just
+ 18. leader   -- the server's leader duties on the card, through the
+                port's Server with its loops running (phase 13's fleet,
+                32 mock.job jobs x 2,000, float32, width 32): the
+                headline generation with every lane packed both ways
+                before the barrier (the alloc table and the incremental
+                usage base, equal bit for bit; each route's median pack
+                ms); 100 nodes silent past a 12 s heartbeat TTL while the
+                phase heartbeats the other 9,900: exactly those go down,
+                every lost alloc is replaced once on other nodes by the
+                kernels, 0 plans rejected, and a node flapping three
+                times is held down by the quarantine; 20 nodes drained
+                at max_parallel 1 (every alloc migrated, every drain
+                complete); 24 jobs stopped and acknowledged, GC's
+                watermark pass and a table compaction, then 8 evals x
+                2,000 packed both ways again; a worker.crash the
+                supervisor restarts, its eval placed after its lease.
+  Phases 4-16 and 18 reset the launch counts just before and read them just
   after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
   to the plain versions on the same fused inputs. The kernels line's
@@ -299,7 +317,8 @@ Phases (any failure raises and the script exits nonzero with no result):
   phase 15's server runs (the Harness and direct routes its checks
   compare with run outside the count); its ``telemetry_launches`` phase
   16's warm and measured rounds, audit jobs and reschedule (its cost
-  rounds outside the count).
+  rounds outside the count); its ``leader_launches`` phase 18's whole
+  run.
 
 Prints a full JSON report line, the card line, a {"kernels": [...]} line,
 and last the contract line {"ok": true, "device": {...}}.
@@ -4335,16 +4354,35 @@ class StructEval(NamedTuple):
     stops: tuple = ()
 
 
-def drive_struct_evals(batch, mods, service_cls, snap, evals, barrier):
+class _HiddenTable:
+    """A snapshot without its alloc table: the placement service then
+    packs usage through its incremental route, from the snapshot alone.
+    A route compared after its own commits packs so: the table path
+    reads the live store's table, which holds them."""
+
+    def __init__(self, snap):
+        self.__dict__["_snap"] = snap
+
+    def __getattr__(self, name):
+        if name == "alloc_table":
+            raise AttributeError(name)
+        return getattr(self._snap, name)
+
+
+def drive_struct_evals(batch, mods, service_cls, snap, evals, barrier,
+                       hide_table=False):
     """The direct hook route: one thread per eval (``evals``: StructEval),
     in eval order at the barrier, below any scheduler (no breaker check,
     no reconciler). Each thread builds its
     EvalContext and TimedService and calls the solve hook for each task
     group of its job in turn; a group's placements enter the plan as
     allocations before the next group packs (the last group's are left
-    to the caller). Returns ([(service, [placements per group],
-    [allocs])], wall ms)."""
+    to the caller). With ``hide_table`` the evals read ``snap`` without
+    the store's alloc table (_HiddenTable). Returns ([(service,
+    [placements per group], [allocs])], wall ms)."""
     st, ctx_cls, place_cls = mods
+    if hide_table:
+        snap = _HiddenTable(snap)
     ordered = InOrderBarrier(barrier)
     hook = batch.make_solve_hook(ordered)
     ready = snap.ready_nodes_in_pool("default")
@@ -4743,13 +4781,15 @@ def structs_phase(np, torch, batch, guard, kernels, svc, tp, world, card):
             f"materialize {gen['alone']['mat_ms']['median']:.2f}")
         report[f"headline_g{g}"] = gen
         if g == 2:
-            st2 = gen["pack_cache"]
-            assert st2["usage_base_delta_hits"] >= 1, st2
-            base = res[0][0].lanes[0].matrix._usage_base
-            assert base[1] == snap.latest_index()
-            for a, b in zip((base[2]["used_cpu"], base[2]["used_mem"],
-                             base[2]["used_disk"]), used0):
-                assert np.array_equal(a, b), "usage base != fresh fold"
+            # the second generation packed its usage from the store's
+            # alloc table: the fold kept on the matrix is the table's at
+            # its version, equal to a fresh fold of the snapshot
+            fold = res[0][0].lanes[0].matrix.__dict__["_fold_cache"]
+            assert fold[0] is snap.alloc_table
+            assert fold[1] == snap.alloc_table.version
+            for a, b in zip((fold[2]["used_cpu"], fold[2]["used_mem"],
+                             fold[2]["used_disk"]), used0):
+                assert np.array_equal(a, b), "table fold != fresh fold"
             break
         # the first generation's placements become the store's allocs
         t1 = time.perf_counter()
@@ -5444,19 +5484,21 @@ def scheduler_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
                    for ev, j in zip(evals, jobs)]
             res, gen["direct_wall_ms"] = drive_struct_evals(
                 batch, mods, Timed, snap, dev, batch.SolveBarrier(
-                    N_EVALS, e_pad_hint=N_EVALS, device=DEVICE))
+                    N_EVALS, e_pad_hint=N_EVALS, device=DEVICE),
+                hide_table=True)
             same_as_direct(np, route, res, dev, got, f"headline g{g}")
             if g == 2:
-                assert gen["pack_cache"]["usage_base_delta_hits"] >= 1
-                base = route.services[evals[0].id].lanes[0] \
-                    .matrix._usage_base
-                assert base[1] == snap.latest_index()
+                # usage from the store's alloc table, its fold equal to
+                # a fresh fold of the snapshot the evals read
+                fold = route.services[evals[0].id].lanes[0] \
+                    .matrix.__dict__["_fold_cache"]
+                assert fold[0] is snap.alloc_table
                 fresh = struct_usage(np, tp, matrix, snap, nodes)
-                for a, b in zip((base[2]["used_cpu"], base[2]["used_mem"],
-                                 base[2]["used_disk"]),
+                for a, b in zip((fold[2]["used_cpu"], fold[2]["used_mem"],
+                                 fold[2]["used_disk"]),
                                 (fresh.used_cpu, fresh.used_mem,
                                  fresh.used_disk)):
-                    assert np.array_equal(a, b), "usage base != fresh fold"
+                    assert np.array_equal(a, b), "table fold != fresh fold"
             report[f"headline_g{g}"] = gen
         after = struct_usage(np, tp, matrix, store.snapshot(), nodes)
         for cap, used in ((matrix.cpu_cap, after.used_cpu),
@@ -5478,7 +5520,7 @@ def scheduler_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
         got, last = committed(h, [ev.id], rows=True)
         check_complete(last, [ev])
         by_node = {nid: score for _, nid, score in got[ev.id]}
-        ds = Timed(EvalContext(snap, st.Plan(
+        ds = Timed(EvalContext(_HiddenTable(snap), st.Plan(
             eval_id=ev.id, job=sj, priority=sj.priority)), sj, False,
             False, **kw)
         direct = ds.solve_system(stg, snap.ready_nodes_in_pool(
@@ -5578,9 +5620,19 @@ def scheduler_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
         route.reset()
         barrier = batch.SolveBarrier(len(evals), device=DEVICE)
         ordered = route.ordered(barrier)
-        wall_ms = counted(lambda: drive_scheduler(
-            route, mh, "service", evals, ordered,
-            batch.make_solve_hook(ordered)))
+        # the one-group evals commit while the two-group evals pack their
+        # second group; through the store's alloc table (the live table,
+        # as the reference reads it) those packs would see the commits
+        # when they land first, so here every eval packs from its
+        # snapshot alone, as the direct route compared below does
+        real_snapshot = mstore.snapshot
+        mstore.snapshot = lambda: _HiddenTable(real_snapshot())
+        try:
+            wall_ms = counted(lambda: drive_scheduler(
+                route, mh, "service", evals, ordered,
+                batch.make_solve_hook(ordered)))
+        finally:
+            del mstore.snapshot
         ids = [e.id for e in evals]
         got, last = committed(mh, ids)
         check_complete(last, evals)
@@ -5597,7 +5649,7 @@ def scheduler_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
                               stops=failed))
         res, direct_ms = drive_struct_evals(
             batch, mods, Timed, msnap, dev,
-            batch.SolveBarrier(len(dev), device=DEVICE))
+            batch.SolveBarrier(len(dev), device=DEVICE), hide_table=True)
         same_as_direct(np, route, res, dev, got, "mixed")
         mixed_rep = summary("mixed barrier", route, wall_ms, n_placed,
                             evals)
@@ -5644,7 +5696,8 @@ def scheduler_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
                for ev, j in zip(evals, pjobs)]
         res, direct_ms = drive_struct_evals(
             batch, mods, Timed, psnap, dev, batch.SolveBarrier(
-                len(dev), e_pad_hint=len(dev), device=DEVICE))
+                len(dev), e_pad_hint=len(dev), device=DEVICE),
+            hide_table=True)
         same_as_direct(np, route, res, dev, got, "preemption")
         pre = summary("preemption", route, wall_ms, n_placed, evals)
         pre.update(direct_wall_ms=direct_ms, evicted=n_evicted,
@@ -5759,6 +5812,9 @@ class ServerRoute:
         self.per = {k: {} for k in self.PER_EVAL}
         self.groups, self.commit_end = [], []
         self.acks = self.nacks = 0
+        # the eval ids acked and nacked: the leader's own evals (the
+        # deployment watcher's) go through the broker beside the step's
+        self.acked, self.nacked = [], []
         self.counters0 = {k: getattr(self.server.planner, k)
                           for k in self.COUNTERS}
 
@@ -5836,10 +5892,12 @@ class ServerRoute:
 
         def counted_ack(*a):
             self.acks += 1
+            self.acked.append(a[0])
             return ack(*a)
 
         def counted_nack(*a):
             self.nacks += 1
+            self.nacked.append(a[0])
             return nack(*a)
         b.ack, b.nack = counted_ack, counted_nack
         return self
@@ -5863,6 +5921,10 @@ class ServerRoute:
         and nacks, and phase 14's pack and materialize sections."""
         wall_ms = (max(self.commit_end) - t0) * 1e3
         ms, per = self.ms, self.per
+        if self.order:
+            # the step's evals only (not the leader's own)
+            per = {k: {e: v for e, v in d.items() if e in self.order}
+                   for k, d in per.items()}
         sched_ms = [inv - per["wait_for_index"].get(e, 0.0)
                     - per["submit_plan"].get(e, 0.0)
                     for e, inv in per["invoke"].items()]
@@ -5884,6 +5946,8 @@ class ServerRoute:
                        **{k: getattr(planner, k) - self.counters0[k]
                           for k in self.COUNTERS}),
                    acked=self.acks, nacked=self.nacks,
+                   acked_of_step=(sum(e in self.order for e in self.acked)
+                                  if self.order else self.acks),
                    sections=sched.sections())
         a = out["applier"]
         log(f"server {name} [{card}]: {n_evals} evals, {n_placed} "
@@ -6030,7 +6094,8 @@ def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
     sched = SchedRoute(svc, generic, Harness)
     jobs = make_jobs("srv-job", N_EVALS, N_PLACE)
     store = fleet_store(jobs)
-    server = Server(state=store, device=DEVICE, batch_width=SERVER_WIDTH)
+    server = Server(state=store, device=DEVICE, batch_width=SERVER_WIDTH,
+                    heartbeat_ttl=3600.0)
     try:
         # the instruments go in before the workers start: a worker binds
         # its barrier hook when it enters a dequeue
@@ -6052,7 +6117,9 @@ def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
                                            for i in range(N_PLACE)}
             n_placed = sum(len(m) for m in got.values())
             assert n_placed == N_EVALS * N_PLACE, n_placed
-            assert route.nacks == 0 and route.acks == N_EVALS
+            assert route.nacks == 0, route.nacked
+            assert sorted(e for e in route.acked if e in route.order) == \
+                sorted(ids)
             head = route.summary("headline", card, t0, n_placed, N_EVALS,
                                  sched)
             assert head["applier"]["plans_rejected"] == 0
@@ -6116,7 +6183,7 @@ def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
             count_launches()
             sgot = server_allocs(store, [sev.id])[sev.id]
             snap = sched.services[sev.id].ctx.state
-            ds = Timed(EvalContext(snap, st.Plan(
+            ds = Timed(EvalContext(_HiddenTable(snap), st.Plan(
                 eval_id=sev.id, job=sj, priority=sj.priority)), sj, False,
                 False, device=DEVICE)
             direct = ds.solve_system(stg, snap.ready_nodes_in_pool(
@@ -6164,7 +6231,8 @@ def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
     small.node_resources.cpu.cpu_shares = 600
     small.node_resources.memory.memory_mb = 400
     small.compute_class()
-    bserver = Server(state=bstore, device=DEVICE, batch_width=4)
+    bserver = Server(state=bstore, device=DEVICE, batch_width=4,
+                     heartbeat_ttl=3600.0)
     bserver.start()
     try:
         bserver.register_node(small)
@@ -6407,7 +6475,8 @@ def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
         tp.reset_pack_caches()
         warm = make_jobs("tel-warm", N_EVALS, N_PLACE)
         store = fleet_store(warm)
-        server = Server(state=store, device=DEVICE, batch_width=SERVER_WIDTH)
+        server = Server(state=store, device=DEVICE, batch_width=SERVER_WIDTH,
+                        heartbeat_ttl=3600.0)
         try:
             with ServerRoute(server, worker_mod, batch, lpq) as route:
                 server.start()
@@ -6668,7 +6737,7 @@ def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
             jobs = make_jobs("tel-job", N_EVALS, N_PLACE)
             cstore = fleet_store(jobs)
             cserver = Server(state=cstore, device=DEVICE,
-                             batch_width=SERVER_WIDTH)
+                             batch_width=SERVER_WIDTH, heartbeat_ttl=3600.0)
             try:
                 with ServerRoute(cserver, worker_mod, batch, lpq) as route:
                     cserver.start()
@@ -6876,7 +6945,7 @@ def sanitizer_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
         for j in jobs:
             store.upsert_job(j)
         server = Server(state=store, device=DEVICE,
-                        batch_width=SERVER_WIDTH)
+                        batch_width=SERVER_WIDTH, heartbeat_ttl=3600.0)
         try:
             with ServerRoute(server, worker_mod, batch, lpq) as route:
                 server.start()
@@ -7003,8 +7072,13 @@ def schedule_drill(pmock, st, Server, StateStore, schedcheck, lockcheck,
         store.set_scheduler_config(cfg)
         for j in jobs:
             store.upsert_job(j)
-        server = Server(state=store, device=DEVICE, num_workers=1,
-                        batch_width=SAN_SCHED_JOBS)
+        # the dispatch path alone: no leader loop or supervisor thread
+        # joins the controlled schedule
+        with EnvPatch(NOMAD_TPU_TORCH_WORKER_SUPERVISE="0"):
+            server = Server(state=store, device=DEVICE, num_workers=1,
+                            batch_width=SAN_SCHED_JOBS,
+                            heartbeat_ttl=3600.0)
+        server._start_background = lambda: None
         summary = None
         try:
             server.start()
@@ -7046,6 +7120,528 @@ def schedule_drill(pmock, st, Server, StateStore, schedcheck, lockcheck,
                 decisions=[r[1]["decisions"] for r in runs],
                 timeout_wakes=[r[2]["timeout_wakes"] for r in runs],
                 preemptions=[r[2]["preemptions"] for r in runs])
+
+
+LEADER_TTL_S = 12.0                 # the heartbeat step's TTL: a round
+                                    # of 9,900 heartbeats slowed by the
+                                    # fan-out's load stays well inside
+LEADER_PUMP_S = 1.0                 # the phase's heartbeat round
+LEADER_SILENT = 100                 # nodes let go silent
+LEADER_DRAIN = 20                   # nodes drained, max_parallel 1
+LEADER_DONE_JOBS = 24               # jobs whose allocs end complete
+LEADER_GC_KEEP = 1_000              # the GC watermark (terminal kept)
+LEADER_GC_EVALS = 8                 # the generation after the compaction
+LEADER_CRASH_PLACE = 100            # the supervisor drill's job
+LEADER_NACK_S = 2.0                 # the drill's lease
+LEADER_SETTLE_S = 300
+
+
+class PackBothWays:
+    """TpuPlacementService.pack wrapped, while ``active``: each lane is
+    packed through the route _pack_inner takes (the alloc table: its
+    calls of _pack_usage_from_table are counted) and again with the
+    table hidden (the incremental usage base), both timed on the wall
+    clock, and every table of the two lanes compared bit for bit. A
+    difference is recorded, not raised (an eval thread's exception
+    would only nack the eval)."""
+
+    def __init__(self, np, svc):
+        self.np, self.cls = np, svc.TpuPlacementService
+        self.active = False
+        self.lock = threading.Lock()
+        self.reset()
+
+    def reset(self):
+        self.table_ms, self.inc_ms, self.bad = [], [], []
+        self.usage_ms = {"table": [], "incremental": []}
+        self.table_calls = 0
+
+    def __enter__(self):
+        route, np = self, self.np
+        real_pack = self.cls.pack
+        real_table = self.cls._pack_usage_from_table
+        real_inc = self.cls._pack_usage_incremental
+        self._saved = (real_pack, real_table, real_inc)
+
+        def timed_usage(key, fn):
+            def run(service, *a):
+                t0 = time.perf_counter()
+                out = fn(service, *a)
+                if route.active:
+                    with route.lock:
+                        route.usage_ms[key].append(
+                            (time.perf_counter() - t0) * 1e3)
+                        route.table_calls += key == "table"
+                return out
+            return run
+
+        def pack(service, tg, places, nodes, pen=None):
+            t0 = time.perf_counter()
+            lane = real_pack(service, tg, places, nodes, pen)
+            t1 = time.perf_counter()
+            if lane is None or not route.active:
+                return lane
+            state = service.ctx.state
+            service.ctx.state = _HiddenTable(state)
+            try:
+                other = real_pack(service, tg, places, nodes, pen)
+            finally:
+                service.ctx.state = state
+            t2 = time.perf_counter()
+            try:
+                same_lane(np, lane, other, service.ctx.plan.eval_id)
+            except AssertionError as e:
+                with route.lock:
+                    route.bad.append(str(e))
+            with route.lock:
+                route.table_ms.append((t1 - t0) * 1e3)
+                route.inc_ms.append((t2 - t1) * 1e3)
+            return lane
+        self.cls.pack = pack
+        self.cls._pack_usage_from_table = timed_usage("table", real_table)
+        self.cls._pack_usage_incremental = timed_usage("incremental",
+                                                       real_inc)
+        return self
+
+    def __exit__(self, *exc):
+        (self.cls.pack, self.cls._pack_usage_from_table,
+         self.cls._pack_usage_incremental) = self._saved
+
+    def summary(self, what, card, n_lanes):
+        assert not self.bad, (what, self.bad[:3])
+        assert len(self.table_ms) == n_lanes, (what, len(self.table_ms))
+        assert self.table_calls >= n_lanes, (what, self.table_calls)
+        assert len(self.usage_ms["incremental"]) == n_lanes, what
+        out = dict(lanes=len(self.table_ms),
+                   table_pack_ms=ms_stats(self.table_ms),
+                   incremental_pack_ms=ms_stats(self.inc_ms),
+                   table_usage_ms=ms_stats(self.usage_ms["table"]),
+                   incremental_usage_ms=ms_stats(
+                       self.usage_ms["incremental"]),
+                   table_calls=self.table_calls)
+        log(f"leader {what} [{card}]: {n_lanes} lanes packed both ways, "
+            f"equal bit for bit; ms median / max (wall, {n_lanes} eval "
+            f"threads): the pack through the table "
+            f"{out['table_pack_ms']['median']:.1f} / "
+            f"{out['table_pack_ms']['max']:.1f} (first: cold memos), "
+            f"again through the incremental base "
+            f"{out['incremental_pack_ms']['median']:.1f} / "
+            f"{out['incremental_pack_ms']['max']:.1f}; the usage step "
+            f"alone: table {out['table_usage_ms']['median']:.2f} / "
+            f"{out['table_usage_ms']['max']:.2f}, incremental "
+            f"{out['incremental_usage_ms']['median']:.2f} / "
+            f"{out['incremental_usage_ms']['max']:.2f}")
+        return out
+
+
+def leader_settle(server, what, extra=None, timeout=LEADER_SETTLE_S,
+                  poll=0.1, sample=None):
+    """Wait until the broker holds nothing ready, leased or waiting, no
+    eval in the store is pending, and ``extra()`` holds (polled every
+    ``poll`` s: a poll holds the interpreter lock the eval threads
+    want); ``sample()`` runs at every poll."""
+    def done():
+        if sample is not None:
+            sample()
+        st = server.broker.stats()
+        if st["total_ready"] or st["total_unacked"] or st["total_waiting"]:
+            return False
+        if any(e.status == "pending" for e in server.state.evals()):
+            return False
+        return extra is None or extra()
+    deadline = time.monotonic() + timeout
+    while not done():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(poll)
+
+
+def live_by_job(store, job_ids):
+    """Per job id: [(alloc name, node id)] of its live allocs."""
+    out = {j: [] for j in job_ids}
+    for a in store.allocs():
+        if a.job_id in out and not a.terminal_status():
+            out[a.job_id].append((a.name, a.node_id))
+    return out
+
+
+def check_replaced_once(jobs, live, away, what, store=None):
+    """Every job at its count, each name once, none on ``away``. On a
+    failure with ``store``, every alloc of a name that is doubled or
+    missing is logged with the eval that wrote it."""
+    for j in jobs:
+        names = [n for n, _ in live[j.id]]
+        count = j.task_groups[0].count
+        if store is not None and not len(names) == len(set(names)) == count:
+            seen = set(names)
+            odd = {n for n in names if names.count(n) > 1} | {
+                f"{j.id}.{j.task_groups[0].name}[{i}]" for i in range(count)
+                if f"{j.id}.{j.task_groups[0].name}[{i}]" not in seen}
+            for a in sorted(store.allocs_by_job(j.namespace, j.id),
+                            key=lambda a: (a.name, a.create_index)):
+                if a.name in odd:
+                    ev = store.eval_by_id(a.eval_id)
+                    log(f"  {what}: {a.name} {a.id[:8]} on {a.node_id} "
+                        f"desired {a.desired_status} client "
+                        f"{a.client_status} index {a.create_index}/"
+                        f"{a.modify_index} eval {a.eval_id[:8]} "
+                        f"{ev and (ev.triggered_by, ev.node_id, ev.status, ev.create_index, ev.modify_index)} "
+                        f"prev {getattr(a, 'previous_allocation', '')[:8]}")
+        assert len(names) == len(set(names)) == count, \
+            (what, j.id, len(names), len(set(names)))
+        assert not any(node in away for _, node in live[j.id]), (what, j.id)
+
+
+def leader_phase(np, torch, batch, guard, kernels, svc, tp, card):
+    """The leader (phase 18): the port's Server (server/core.py) on the
+    card, float32, tpu-binpack, width 32, phase 13's fleet and 32
+    mock.job service jobs x 2,000 (migrate.max_parallel 1), with its
+    leader loops running:
+      1. the table path: the headline generation's 32 lanes each packed
+         both ways before the barrier (PackBothWays: the alloc table and
+         the incremental base, equal bit for bit; each route's median
+         pack ms); 64,000 placed, 0 rejected, the table's fold equal to
+         a recount (fold_parity_mismatch 0);
+      2. heartbeats: heartbeat_ttl 12 s; the phase heartbeats 9,900
+         nodes every second and lets 100 go silent (none of the 9,900
+         may leave ready meanwhile): exactly those 100 go down,
+         every lost alloc is replaced once on other nodes by the kernels
+         through the node-down fan-out, 0 plans rejected; one of them
+         flaps down twice more (update_node_status, heartbeat) and its
+         third recovery is held by the quarantine; then the TTL goes
+         back to an hour;
+      3. the drainer: 20 nodes drained at once; every alloc on them
+         migrates (at most one of a job in flight at a time), every
+         drain completes, the nodes stay ineligible, 0 rejected;
+      4. GC: 24 jobs deregistered, their stops acknowledged complete and
+         every other live alloc running (update_allocs_from_client);
+         run_gc_once with a
+         watermark of 1,000 deletes the oldest terminal allocs past it
+         and compacts the alloc table (no free row left, the fold equal
+         to a recount); a new generation of 8 evals x 2,000 is packed
+         both ways again, equal, and placed;
+      5. the supervisor: worker.crash armed once; the batch worker that
+         leases the next eval dies, the supervisor restarts its slot,
+         the eval comes back after its 2 s lease and is placed.
+    Launch counts are read around the whole phase (the kernels line's
+    leader_launches); no eval falls back to the host and no dispatch
+    fails."""
+    from nomad_tpu_torch import mock as pmock
+    from nomad_tpu_torch import structs as st
+    from nomad_tpu_torch.faultinject import faults
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.server.telemetry import metrics
+    from nomad_tpu_torch.state.store import StateStore
+
+    st.reseed_ids(SEED + 18)
+    t_phase = time.perf_counter()
+    g0 = guard.state()
+    c0 = dict(metrics.snapshot()["counters"])
+    report = {}
+    nodes = struct_fleet(pmock, N_NODES)
+
+    def make_jobs(prefix, n, count):
+        jobs = []
+        for e in range(n):
+            j = pmock.job(id=f"{prefix}-{e:02d}")
+            j.task_groups[0].count = count
+            j.task_groups[0].migrate = st.MigrateStrategy(max_parallel=1)
+            jobs.append(j)
+        return jobs
+
+    def generation(server, jobs, prefix, what):
+        evals = [sched_eval(st, j, f"{prefix}-{e:016d}")
+                 for e, j in enumerate(jobs)]
+        for j in jobs:
+            server.state.upsert_job(j)
+        t0 = time.perf_counter()
+        server.state.upsert_evals(evals)
+        server.broker.enqueue_all(evals)
+        ids = {j.id for j in jobs}
+        leader_settle(server, what, lambda: sum(
+            len(v) for v in live_by_job(server.state, ids).values())
+            >= sum(j.task_groups[0].count for j in jobs))
+        return (time.perf_counter() - t0) * 1e3
+
+    def counter(name):
+        return metrics.snapshot()["counters"].get(name, 0) - c0.get(name, 0)
+
+    tp.reset_pack_caches()
+    jobs = make_jobs("ldr-job", N_EVALS, N_PLACE)
+    store = StateStore()
+    for node in nodes:
+        store.upsert_node(node)
+    store.set_scheduler_config(st.SchedulerConfiguration(
+        scheduler_algorithm=st.SCHED_ALG_TPU_BINPACK))
+    with EnvPatch(NOMAD_TPU_TORCH_WORKER_CHECK_S="0.1",
+                  NOMAD_TPU_TORCH_WORKER_RESTART_BASE_S="0.1",
+                  NOMAD_TPU_TORCH_WORKER_RESTART_MAX_S="1"):
+        server = Server(state=store, device=DEVICE,
+                        batch_width=SERVER_WIDTH, heartbeat_ttl=3600.0)
+    both = PackBothWays(np, svc)
+    kernels.reset_launches()
+    pump_stop = threading.Event()
+    try:
+        with both:
+            server.start()
+            assert len(server.workers) == 2 and server.supervisor._thread
+            # -- 1. the table path --------------------------------------
+            both.active = True
+            wall = generation(server, jobs, "ldr-eval", "headline")
+            both.active = False
+            live = live_by_job(store, [j.id for j in jobs])
+            check_replaced_once(jobs, live, set(), "headline")
+            assert server.planner.plans_rejected == 0
+            with store._lock:
+                assert store.alloc_table.fold_parity_mismatch() == 0
+            report["table_path"] = dict(
+                both.summary("table path", card, N_EVALS), wall_ms=wall)
+            # -- 2. heartbeats -----------------------------------------
+            step = time.perf_counter()
+            silent = {n.id for n in nodes[::N_NODES // LEADER_SILENT]}
+            assert len(silent) == LEADER_SILENT
+            beating = [n.id for n in nodes if n.id not in silent]
+            before = live
+            lost = sum(1 for v in before.values() for _, node in v
+                       if node in silent)
+            rejected0 = server.planner.plans_rejected
+            server.heartbeat_ttl = LEADER_TTL_S
+            for n in nodes:
+                server.heartbeat(n.id)
+            beats = [0, 0.0]         # rounds, the longest round's s
+
+            def pump():
+                while not pump_stop.wait(LEADER_PUMP_S):
+                    t0 = time.perf_counter()
+                    for nid in beating:
+                        server.heartbeat(nid)
+                    beats[0] += 1
+                    beats[1] = max(beats[1], time.perf_counter() - t0)
+
+            def still_beating():
+                # a beating node that left ready: the rounds fell behind
+                # the TTL (a node-down cascade would follow)
+                gone = [nid for nid in beating[::97]
+                        if store.node_by_id(nid).status != "ready"]
+                assert not gone, ("heartbeat rounds fell behind the TTL",
+                                  gone[:3], beats)
+            pumper = threading.Thread(target=pump, daemon=True,
+                                      name="leader-heartbeats")
+            pumper.start()
+            deadline = time.monotonic() + LEADER_TTL_S + LEADER_SETTLE_S
+            while not all(store.node_by_id(nid).status == "down"
+                          for nid in silent):
+                assert time.monotonic() < deadline, "silent nodes not down"
+                time.sleep(0.05)
+            t_down = time.perf_counter()
+            leader_settle(server, "lost allocs replaced",
+                          sample=still_beating)
+            live = live_by_job(store, [j.id for j in jobs])
+            check_replaced_once(jobs, live, silent, "node-down fan-out",
+                                store)
+            down = {n.id for n in store.nodes() if n.status != "ready"}
+            assert down == silent, (len(down), len(silent))
+            assert server.planner.plans_rejected == rejected0
+            t_replaced = time.perf_counter()
+            flapper = sorted(silent)[0]
+            flaps = []
+            for _ in range(2):
+                server.heartbeat(flapper)
+                flaps.append(store.node_by_id(flapper).status)
+                server.update_node_status(flapper, "down")
+            server.heartbeat(flapper)
+            flaps.append(store.node_by_id(flapper).status)
+            assert flaps == ["ready", "ready", "down"], flaps
+            assert server.flaps.quarantine_remaining(flapper) > 0
+            leader_settle(server, "flap evals")
+            server.heartbeat_ttl = 3600.0
+            for nid in beating:
+                server.heartbeat(nid)
+            pump_stop.set()
+            pumper.join(30.0)
+            assert not pumper.is_alive()
+            hb = dict(silent=LEADER_SILENT, down=len(down), lost=lost,
+                      replaced=lost, heartbeat_rounds=beats[0],
+                      longest_round_s=beats[1],
+                      flaps=flaps,
+                      quarantined=counter("nomad.heartbeat.flap_quarantined"),
+                      deferred=counter("nomad.heartbeat.quarantine_deferred"),
+                      rejected=server.planner.plans_rejected - rejected0,
+                      ttl_to_down_ms=(t_down - step) * 1e3,
+                      down_to_replaced_ms=(t_replaced - t_down) * 1e3,
+                      seconds=time.perf_counter() - step)
+            assert hb["deferred"] >= 1 and hb["quarantined"] >= 1
+            report["heartbeats"] = hb
+            log(f"leader heartbeats [{card}]: {LEADER_SILENT} silent nodes "
+                f"down {hb['ttl_to_down_ms']:.0f} ms after their last beat "
+                f"(TTL {LEADER_TTL_S:.0f} s); {lost} lost allocs replaced "
+                f"once each in {hb['down_to_replaced_ms']:.0f} ms, 0 "
+                f"rejected; flapper {flaps} (quarantined, "
+                f"{hb['deferred']} recovery deferred); {beats[0]} rounds of "
+                f"{len(beating)} heartbeats, the longest {beats[1]:.2f} s; "
+                f"{hb['seconds']:.1f} s")
+            # -- 3. the drainer ----------------------------------------
+            step = time.perf_counter()
+            holders = {node for v in live.values() for _, node in v}
+            drained = [n.id for n in nodes[7::7] if n.id in holders
+                       and n.id not in silent][:LEADER_DRAIN]
+            assert len(drained) == LEADER_DRAIN
+            on_drained = {name for v in live.values() for name, node in v
+                          if node in drained}
+            rejected0 = server.planner.plans_rejected
+            for nid in drained:
+                server.drain_node(nid, st.DrainStrategy(deadline_s=3600.0))
+            in_flight = [0, 0]       # most of a job at once; samples
+
+            def flight():
+                per = {}
+                for a in store.allocs():
+                    if a.desired_transition.migrate and \
+                            not a.terminal_status():
+                        per[a.job_id] = per.get(a.job_id, 0) + 1
+                in_flight[0] = max([in_flight[0]] + list(per.values()))
+                in_flight[1] += 1
+            leader_settle(server, "the drains", lambda: all(
+                not store.node_by_id(nid).drain for nid in drained),
+                poll=0.25, sample=flight)
+            live = live_by_job(store, [j.id for j in jobs])
+            check_replaced_once(jobs, live, silent | set(drained), "drain",
+                                store)
+            for nid in drained:
+                node = store.node_by_id(nid)
+                assert node.scheduling_eligibility == "ineligible", nid
+            assert in_flight[0] <= 1, in_flight[0]
+            assert server.planner.plans_rejected == rejected0
+            report["drain"] = dict(nodes=LEADER_DRAIN,
+                                   migrated=len(on_drained),
+                                   max_in_flight_a_job=in_flight[0],
+                                   in_flight_samples=in_flight[1],
+                                   rejected=0,
+                                   seconds=time.perf_counter() - step)
+            log(f"leader drain [{card}]: {LEADER_DRAIN} nodes, "
+                f"{len(on_drained)} allocs migrated (at most "
+                f"{in_flight[0]} of a job in flight in {in_flight[1]} "
+                f"samples), every drain complete,"
+                f" 0 rejected; {report['drain']['seconds']:.1f} s")
+            # -- 4. GC --------------------------------------------------
+            step = time.perf_counter()
+            done_ids = {j.id for j in jobs[:LEADER_DONE_JOBS]}
+            for j in jobs[:LEADER_DONE_JOBS]:
+                server.deregister_job(j.namespace, j.id)
+            leader_settle(server, "the stops")
+            acks, done = [], []
+            for a in store.allocs():
+                if a.client_terminal_status():
+                    continue
+                u = a.copy_skip_job()
+                if a.job_id in done_ids:
+                    u.client_status = "complete"
+                    done.append(u)
+                elif not a.terminal_status():
+                    u.client_status = "running"
+                    acks.append(u)
+            server.update_allocs_from_client(acks)
+            server.update_allocs_from_client(done)
+            terminal = sum(1 for a in store.allocs() if a.terminal_status())
+            rows_before = store.alloc_table.n_rows
+            t_gc = time.perf_counter()
+            out = server.run_gc_once(terminal_watermark=LEADER_GC_KEEP)
+            gc_ms = (time.perf_counter() - t_gc) * 1e3
+            assert out["watermark_allocs"] == terminal - LEADER_GC_KEEP > 0, \
+                (out, terminal)
+            assert out["compacted"] is not None, out
+            with store._lock:
+                assert store.alloc_table.free_rows == 0
+                assert store.alloc_table.fold_parity_mismatch() == 0
+            gjobs = make_jobs("ldr-gen", LEADER_GC_EVALS, N_PLACE)
+            both.reset()
+            both.active = True
+            gwall = generation(server, gjobs, "ldr-gen-eval",
+                               "the generation after GC")
+            both.active = False
+            check_replaced_once(gjobs, live_by_job(
+                store, [j.id for j in gjobs]), silent | set(drained),
+                "the generation after GC")
+            with store._lock:
+                assert store.alloc_table.fold_parity_mismatch() == 0
+            report["gc"] = dict(
+                acked=len(acks), completed=len(done), terminal=terminal,
+                gc=out, gc_ms=gc_ms, rows_before=rows_before,
+                compactions=counter("nomad.gc.table_compactions"),
+                after=dict(both.summary("after GC", card, LEADER_GC_EVALS),
+                           wall_ms=gwall),
+                seconds=time.perf_counter() - step)
+            log(f"leader gc [{card}]: {LEADER_DONE_JOBS} jobs stopped, "
+                f"{len(done)} stops acknowledged complete, {len(acks)} "
+                f"allocs running, {terminal} terminal; run_gc_once "
+                f"{gc_ms:.0f} ms: {out['watermark_allocs']} past the "
+                f"watermark deleted, table {out['compacted']}; "
+                f"{report['gc']['seconds']:.1f} s")
+            # -- 5. the supervisor -------------------------------------
+            step = time.perf_counter()
+            sup = server.supervisor
+            deaths0, restarts0 = sup.deaths_detected, sup.restarts_total
+            server.broker.nack_timeout = LEADER_NACK_S
+            faults.arm("worker.crash", "error", count=1)
+            try:
+                cjob = pmock.job(id="ldr-crash")
+                cjob.task_groups[0].count = LEADER_CRASH_PLACE
+                cev = server.register_job(cjob)
+                leader_settle(server, "the crashed worker's eval", lambda: (
+                    sup.restarts_total > restarts0
+                    and all(w.is_alive() for w in server.workers)
+                    and len(live_by_job(store, [cjob.id])[cjob.id])
+                    >= LEADER_CRASH_PLACE))
+            finally:
+                faults.disarm_all()
+            assert store.eval_by_id(cev.id).status == "complete"
+            check_replaced_once([cjob], live_by_job(store, [cjob.id]),
+                                set(), "after the crash")
+            report["supervisor"] = dict(
+                deaths=sup.deaths_detected - deaths0,
+                restarts=sup.restarts_total - restarts0,
+                placed=LEADER_CRASH_PLACE,
+                seconds=time.perf_counter() - step)
+            assert report["supervisor"]["deaths"] >= 1
+            log(f"leader supervisor [{card}]: worker.crash: "
+                f"{report['supervisor']['deaths']} death, "
+                f"{report['supervisor']['restarts']} restart, the eval "
+                f"placed after its {LEADER_NACK_S:.0f} s lease; "
+                f"{report['supervisor']['seconds']:.1f} s")
+    finally:
+        pump_stop.set()
+        server.shutdown()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    left = [t.name for t in threading.enumerate() if t.is_alive()
+            and t.name.startswith(("batch-worker-", "batch-eval-", "plan-",
+                                   "eval-broker-", "worker-supervisor-",
+                                   "heartbeat", "core-gc", "periodic",
+                                   "deploy-watch", "drainer",
+                                   "leader-heartbeats"))]
+    assert not left, left
+    g1 = guard.state()
+    report["host_fallbacks"] = (g1["host_fallback_dispatches"]
+                                - g0["host_fallback_dispatches"])
+    report["failed_dispatches"] = {
+        k: g1["dispatch"][k] - g0["dispatch"][k]
+        for k in ("timeout", "error")}
+    assert report["host_fallbacks"] == 0, report["host_fallbacks"]
+    assert not any(report["failed_dispatches"].values()), \
+        report["failed_dispatches"]
+    report["watcher_errors"] = counter("nomad.server.watcher_error")
+    assert report["watcher_errors"] == 0
+    # every placement of the phase made by the kernels
+    report["placements_tpu"] = counter("nomad.scheduler.placements_tpu")
+    report["placements_host_fallback"] = counter(
+        "nomad.scheduler.placements_host_fallback")
+    assert report["placements_host_fallback"] == 0
+    assert report["placements_tpu"] >= (N_EVALS + LEADER_GC_EVALS) * N_PLACE
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"leader [{card}]: launches {launches}; phase "
+        f"{report['seconds']:.1f} s")
+    assert launches["wave_block"] >= 1, launches
+    return report
 
 
 def check_capacity_lane(np, lane, chosen, n_places):
@@ -8140,6 +8736,8 @@ def main(argv=None) -> int:
                   lpq, kernels, resident, svc, tp, world, card, t_start)
     snres = phase("sanitizers", sanitizer_phase, np, torch, batch, guard,
                   lpq, kernels, svc, tp, world, card)
+    ldres = phase("leader", leader_phase, np, torch, batch, guard,
+                  kernels, svc, tp, card)
 
     def pick(kname, **kw):
         return next(r for r in kres if r["name"] == kname
@@ -8175,6 +8773,7 @@ def main(argv=None) -> int:
             scheduler_launches=scres["launches"].get(k.name, 0),
             server_launches=svres["launches"].get(k.name, 0),
             telemetry_launches=tlres["launches"].get(k.name, 0),
+            leader_launches=ldres["launches"].get(k.name, 0),
             max_abs_err=max(x["max_abs_err"] for x in kres
                             if x["name"] == k.name),
             ms=r["ms"], device_ms=r.get("device_ms"),
@@ -8191,7 +8790,7 @@ def main(argv=None) -> int:
                   wavefront=wpath, mesh_dense=mdres, mesh_wave=mwres,
                   mesh_lp=mlres, mesh_residency=mrres, dispatch=dlres,
                   structs=stres, scheduler=scres, server=svres,
-                  telemetry=tlres, sanitizers=snres,
+                  telemetry=tlres, sanitizers=snres, leader=ldres,
                   build_s=info["seconds"], phase_s=phase_s,
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")

@@ -11,8 +11,8 @@ lane's PreemptTables / PreemptState ride along by name.
 lists, dicts, sets and scalars it holds) onto the port struct of the
 same class name, field by field; ``store_from_reference`` builds a port
 StateStore holding a reference snapshot's nodes, jobs, allocations,
-namespaces, node pools and scheduler configuration, at the snapshot's
-index, with the alloc table rebuilt from them.
+namespaces, node pools, job versions and scheduler configuration, at
+the snapshot's index, with the alloc table rebuilt from them.
 
 Everything here reads attributes by name and imports nothing of the
 reference.
@@ -192,6 +192,14 @@ def store_from_reference(snapshot, memo: Optional[dict] = None):
             store._nodes[n.id] = carry(n)
         for j in snapshot.jobs():
             store._jobs[(j.namespace, j.id)] = carry(j)
+        # the stored versions of each job live on the reference's store
+        live = getattr(snapshot, "_store", snapshot)
+        versions = getattr(live, "_job_versions", None)
+        if versions is None:
+            versions = {(j.namespace, j.id, j.version): j
+                        for j in snapshot.jobs()}
+        for key, j in list(versions.items()):
+            store._job_versions[key] = carry(j)
         # a reference snapshot lists its evals only as a table
         evals = (snapshot.evals() if hasattr(snapshot, "evals")
                  else list(getattr(snapshot, "_evals", {}).values()))
@@ -214,7 +222,6 @@ def store_from_reference(snapshot, memo: Optional[dict] = None):
             store._allocs_by_node.setdefault(a.node_id, {}).setdefault(a.id)
             store._allocs_by_job.setdefault(
                 (a.namespace, a.job_id), {}).setdefault(a.id)
-        live = getattr(snapshot, "_store", snapshot)
         for ns in getattr(live, "namespaces", list)():
             store._namespaces[ns.name] = carry(ns)
         for pool in getattr(live, "node_pools", list)():

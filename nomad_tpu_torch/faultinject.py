@@ -26,6 +26,8 @@ Points fired by the port:
   quality.skew      server/quality.py shadow-audit capture -- an armed
                     error skews the captured scores, as solver drift
                     would, so the audit's alert can be drilled
+  heartbeat         server/core.py Server.heartbeat -- stalls or drops a
+                    client's check-in, so its node can be driven down
 
 Actions: ``error`` raises InjectedFault; ``delay`` sleeps ``delay_s``
 then continues; ``hang`` blocks until the fault is disarmed (bounded by
@@ -63,6 +65,7 @@ POINTS = (
     "plan.apply",           # server/plan_apply.py Planner.apply
     "plan.commit",          # state/store.py apply_plan_results_batch
     "quality.skew",         # server/quality.py shadow-audit capture
+    "heartbeat",            # server/core.py Server.heartbeat
 )
 
 _log = logging.getLogger(__name__)

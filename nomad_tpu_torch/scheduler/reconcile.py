@@ -661,6 +661,15 @@ class AllocReconciler:
                       + len(reschedule_now))
         missing = max(0, tg.count - existing_n)
         if missing > 0:
+            # the names the lost and rescheduled allocs' replacements
+            # keep are taken (upstream: reconcile.go builds the name
+            # index over untainted, migrate, rescheduleNow and lost);
+            # the reference's index over the live allocs alone hands
+            # such a name to a missing placement too (ROADMAP Queue 3)
+            for a in lost + reschedule_now:
+                if a in lost and tg.prevent_reschedule_on_lost:
+                    continue
+                name_index.b.add(a.index())
             for name in name_index.next_n(missing):
                 self.result.place.append(AllocPlaceResult(
                     name=name, task_group=tg))

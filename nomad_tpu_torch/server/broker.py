@@ -279,12 +279,20 @@ class EvalBroker:
         """Pop the highest-priority ready eval across the given scheduler
         queues, mint its ack token, and move it to unacked. Shared by
         dequeue() and dequeue_batch(); `exclude_jobs` implements the
-        batched path's distinct-jobs rule."""
+        batched path's distinct-jobs rule. A ready eval whose job has an
+        eval outstanding moves to the job's waiting evals (promoted by
+        that eval's ack): two evals of one job never run at once, also
+        when both were ready before either was leased (upstream:
+        eval_broker.go's per-job pending set covers ready evals too)."""
+        busy = {(e.namespace, e.job_id) for e, _, _ in self._unack.values()}
         best, best_key = None, None
         for sched in schedulers:
             heap = self._ready.get(sched)
-            while heap and heap[0][2].id in self._unack:
-                heapq.heappop(heap)
+            while heap and (heap[0][2].id in self._unack or (
+                    heap[0][2].namespace, heap[0][2].job_id) in busy):
+                _, _, held = heapq.heappop(heap)
+                if held.id not in self._unack:
+                    self._waiting[held.id] = held
             if not heap:
                 continue
             if exclude_jobs is not None and (

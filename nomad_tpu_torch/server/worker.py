@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import List, Optional, Tuple
 
 from .. import statecheck
@@ -158,6 +159,10 @@ class Worker(threading.Thread):
         self.schedulers = schedulers or list(SCHEDULERS)
         self._stop_ev = threading.Event()
         self.evals_processed = 0
+        # the supervisor's progress mark (reference :124): touched every
+        # loop turn, idle dequeues included, so only a thread hung inside
+        # a dequeue or an eval ages past the stall threshold
+        self.last_progress = time.monotonic()
 
     def stop(self) -> None:
         self._stop_ev.set()
@@ -166,6 +171,7 @@ class Worker(threading.Thread):
         # one bad iteration (a dequeue that raises: the broker.dequeue
         # fault point) must not silently kill the worker thread
         while not self._stop_ev.is_set():
+            self.last_progress = time.monotonic()
             try:
                 ev, token = self.server.broker.dequeue(
                     self.schedulers, timeout=0.5)
@@ -209,6 +215,9 @@ class BatchWorker(threading.Thread):
         self._stop_ev = threading.Event()
         self.evals_processed = 0
         self.batches_processed = 0
+        # the supervisor's progress mark (Worker.last_progress), touched
+        # by each finished eval thread too: a long batch shows progress
+        self.last_progress = time.monotonic()
 
     def stop(self) -> None:
         self._stop_ev.set()
@@ -217,6 +226,7 @@ class BatchWorker(threading.Thread):
         # this thread may be the server's only scheduling path: one bad
         # iteration must not halt all scheduling
         while not self._stop_ev.is_set():
+            self.last_progress = time.monotonic()
             try:
                 self._run_batch()
             except Exception:  # noqa: BLE001 -- the loop must survive
@@ -306,4 +316,5 @@ class BatchWorker(threading.Thread):
             _log.exception("eval=%s job=%s batch-eval invoke failed; "
                            "nacked for redelivery", ev.id, ev.job_id)
         finally:
+            self.last_progress = time.monotonic()
             barrier.done()

@@ -33,11 +33,14 @@ from ..scheduler.util import shuffled_order
 from ..structs import (
     AllocatedResources, AllocatedSharedResources, AllocatedTaskResources,
     NetworkIndex, CONSTRAINT_DISTINCT_HOSTS, CONSTRAINT_DISTINCT_PROPERTY)
+from ..state.alloc_table import pack_delta_enabled
 from ..tensor.pack import (
     DeviceInfo, DistinctPropertyInfo, PreemptInfo, UsageState,
     begin_pack_window, end_pack_window, fold_usage_base,
-    freeze_usage_base, pack_affinities_cached, pack_feasibility_cached,
-    pack_nodes_cached, pack_spreads_cached, usage_lock, _stat_incr)
+    freeze_usage_base, pack_affinities, pack_affinities_cached,
+    pack_cache_enabled, pack_feasibility, pack_feasibility_cached,
+    pack_nodes_cached, pack_spreads, pack_spreads_cached, pack_usage,
+    usage_lock, _freeze, _stat_incr)
 from .binpack import (
     MAX_SKIP, WAVE_DEVICE_CAP_STEPS, PlacementBatch, PreemptState,
     PreemptTables, make_node_const, make_node_state, wavefront_buffer_size)
@@ -651,23 +654,47 @@ class TpuPlacementService:
         # every node's proposed allocs: walk them once
         ask_cores_total = sum(t.resources.cores for t in tg.tasks)
         requests = [r for t in tg.tasks for r in t.resources.devices]
+        walk_usage = self.preempt or ask_cores_total > 0
         proposed_by_node = None
-        if self.preempt or ask_cores_total > 0 or requests:
+        if walk_usage or requests:
             proposed_by_node = {
                 node.id: self.ctx.proposed_allocs(node.id) for node in nodes}
-        usage = self._pack_usage_incremental(matrix, nodes, tg)
-        feasible = pack_feasibility_cached(
-            self.ctx, None, tg, nodes, n_pad,
-            alloc_name=places[0].name, matrix=matrix)
+        # usage (reference :481-505): the store's alloc table when it can
+        # fold every row and no walk is needed anyway; else the memoized
+        # incremental base; else (NOMAD_TPU_TORCH_PACK_CACHE=0) the walk
+        cached = pack_cache_enabled()
+        table = getattr(state, "alloc_table", None)
+        if (table is not None and not table.has_port_overflow
+                and not walk_usage):
+            usage = self._pack_usage_from_table(table, matrix, nodes, tg)
+        elif cached:
+            usage = self._pack_usage_incremental(matrix, nodes, tg)
+        else:
+            if proposed_by_node is None:
+                proposed_by_node = {
+                    node.id: self.ctx.proposed_allocs(node.id)
+                    for node in nodes}
+            usage = pack_usage(matrix, proposed_by_node, self.job.id,
+                               tg.name, self.job.namespace, nodes)
+        alloc_name = places[0].name
+        feasible = (pack_feasibility_cached if cached else pack_feasibility)(
+            self.ctx, None, tg, nodes, n_pad, alloc_name=alloc_name,
+            matrix=matrix)
 
         affinities = (list(self.job.affinities) + list(tg.affinities)
                       + [a for t in tg.tasks for a in t.affinities])
         spreads = list(self.job.spreads) + list(tg.spreads)
         existing_counts = self._existing_spread_counts(spreads, tg)
-        affinity = pack_affinities_cached(affinities, self.ctx, nodes,
-                                          n_pad, matrix=matrix)
-        spread_info = pack_spreads_cached(spreads, nodes, n_pad, tg.count,
-                                          existing_counts, matrix=matrix)
+        if cached:
+            affinity = pack_affinities_cached(affinities, self.ctx, nodes,
+                                              n_pad, matrix=matrix)
+            spread_info = pack_spreads_cached(spreads, nodes, n_pad,
+                                              tg.count, existing_counts,
+                                              matrix=matrix)
+        else:
+            affinity = pack_affinities(affinities, self.ctx, nodes, n_pad)
+            spread_info = pack_spreads(spreads, nodes, n_pad, tg.count,
+                                       existing_counts)
 
         distinct_job_level = any(
             c.operand == CONSTRAINT_DISTINCT_HOSTS
@@ -1103,15 +1130,84 @@ class TpuPlacementService:
                                     preempted_allocs=preempted))
         return out
 
+    @staticmethod
+    def _node_slots(table, matrix, nodes, n_pad):
+        """(reference :1034) The table slot of each node of this node
+        order, -1 past them, memoized on the (version-keyed) matrix once
+        every node has a slot: a node registered with the table later is
+        looked up again."""
+        cached = matrix.__dict__.get("_table_slots")
+        if cached is not None and cached[0] is table:
+            return cached[1]
+        slots = np.full(n_pad, -1, dtype=np.int32)
+        slots[:len(nodes)] = np.fromiter(
+            map(table.node_slot_of, (n.id for n in nodes)),
+            dtype=np.int32, count=len(nodes))
+        if len(nodes) == 0 or slots[:len(nodes)].min() >= 0:
+            matrix._table_slots = (table, slots)
+        return slots
+
+    def _pack_usage_from_table(self, table, matrix, nodes,
+                               tg) -> UsageState:
+        """(reference :1052) Usage as the fold of the store's alloc table
+        (AllocTable.pack, count_placed) plus this eval's plan deltas: the
+        fold of ctx.proposed_allocs per node without walking them. The
+        table is the live store's, read under its lock: it may hold
+        commits newer than the snapshot, which the plan applier
+        verifies against. The lanes of one generation pack from one
+        table version against one matrix: a portless fold is kept on the
+        matrix by (table, version), its arrays frozen, and each lane
+        copies what it overlays; a task group with ports folds its own
+        (its port words are refolded rather than kept)."""
+        n_pad = matrix.n_pad
+        store = getattr(self.ctx.state, "_store", None)
+        lock = store._lock if store is not None else usage_lock(matrix)
+        with_ports = bool(tg.networks)
+        with lock:
+            cached = matrix.__dict__.get("_fold_cache")
+            packed = None
+            if not with_ports and cached is not None \
+                    and cached[0] is table and cached[1] == table.version:
+                packed = cached[2]
+                if statecheck._ACTIVE:
+                    # the served fold's version must be the table's
+                    statecheck.note_memo_served(
+                        "fold_cache", cached[1], table.version)
+            if packed is None:
+                slots = self._node_slots(table, matrix, nodes, n_pad)
+                packed = table.pack(n_pad, slots, with_ports,
+                                    port_words_seed=matrix.port_bitmap)
+                if not with_ports:
+                    for key in ("used_cpu", "used_mem", "used_disk",
+                                "dyn_used", "row_slots"):
+                        _freeze(packed[key])
+                    matrix._fold_cache = (table, table.version, packed)
+            placed, placed_job = table.count_placed(
+                n_pad, packed["row_slots"], self.job.namespace, self.job.id,
+                tg.name)
+        if not with_ports:
+            packed = dict(packed, **{
+                key: packed[key].copy() for key in
+                ("used_cpu", "used_mem", "used_disk", "dyn_used")})
+        usage = UsageState(
+            used_cpu=packed["used_cpu"], used_mem=packed["used_mem"],
+            used_disk=packed["used_disk"], placed_jobtg=placed,
+            placed_job=placed_job, dyn_used=packed["dyn_used"],
+            port_bitmap=packed["port_words"])
+        self._overlay_plan_deltas(usage, nodes, tg)
+        return usage
+
     def _pack_usage_incremental(self, matrix, nodes, tg) -> UsageState:
-        """Usage as the fold of ctx.proposed_allocs per node, without the
-        per-eval walk over every alloc: the snapshot's job-independent
-        base fold, this job's placed counts, and this eval's plan deltas
-        on top. A task group that asks for no ports packs no port state
-        (no bitmap, no dynamic ports in use), as the reference's
-        alloc-table path packs it; its base is memoized on the matrix per
-        (store, index) and caught up through the store's journal when
-        the snapshot is newer; the eval threads of a generation wait for
+        """(reference :1120) Usage as the fold of ctx.proposed_allocs per
+        node, without the per-eval walk over every alloc: the snapshot's
+        job-independent base fold, this job's placed counts, and this
+        eval's plan deltas on top; the route when the alloc table cannot
+        serve. A task group that asks for no ports packs no port state
+        (no bitmap, no dynamic ports in use), as the table path packs
+        it; its base is memoized on the matrix per (store, index) and
+        caught up through the store's journal when the snapshot is
+        newer (with NOMAD_TPU_TORCH_PACK_DELTA=0: memoized per snapshot
+        and folded in full); the eval threads of a generation wait for
         one fold or catch-up instead of each doing its own. A task group
         with ports folds its base, port bitmap included, per eval."""
         snap = self.ctx.state
@@ -1124,6 +1220,26 @@ class TpuPlacementService:
         if with_ports:
             base = fold_usage_base(matrix, nodes, live, with_ports=True)
             _stat_incr("usage_base_misses")
+        elif not pack_delta_enabled():
+            # NOMAD_TPU_TORCH_PACK_DELTA=0 (reference :1168-1195): one
+            # base a snapshot, memoized on the snapshot, folded in full
+            token = snap.latest_index()
+            memo = snap.__dict__.setdefault("_usage_base_memo", {})
+            with usage_lock(matrix):
+                ent = memo.get(id(matrix))
+                base = None
+                if ent is not None and ent[0] is matrix and ent[1] == token:
+                    base = ent[2]
+                    _stat_incr("usage_base_hits")
+                    if statecheck._ACTIVE:
+                        statecheck.note_memo_served(
+                            "usage_base", ent[1], token)
+                if base is None:
+                    base = fold_usage_base(matrix, nodes, live,
+                                           with_ports=False)
+                    _stat_incr("usage_base_misses")
+                    freeze_usage_base(base)
+                    memo[id(matrix)] = (matrix, token, base)
         else:
             token = snap.latest_index()
             store = getattr(snap, "_store", snap)

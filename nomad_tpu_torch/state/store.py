@@ -2,15 +2,19 @@
 StateSnapshot): nodes, jobs, evaluations, allocations, deployments,
 namespaces, node pools and the scheduler configuration, point-in-time
 snapshots, the plan-result commits (one plan, or a group of plans as one
-transaction), blocking waits on the index, the alloc-delta journal and
-the plan applier's alloc table (state/alloc_table.py), kept in step with
-every alloc write and node registration.
+transaction), blocking waits on the index, the alloc-delta journal, the
+stored versions of every job, and the alloc table (state/alloc_table.py:
+the scheduler's pack and the plan applier's fold), kept in step with
+every alloc write and node registration and compacted on request
+(compact_alloc_table).
 
 Every logical write advances one raft-style index exactly as the
 reference's ``_bump`` does (``upsert_node`` one, ``upsert_job`` one,
 ``upsert_evals`` one, ``upsert_allocs`` one, ``upsert_deployment`` one,
 ``upsert_plan_results`` one, ``apply_plan_results_batch`` one for the
-whole group, ``set_scheduler_config`` one): the eval's
+whole group, ``set_scheduler_config`` one; the leader's node, job,
+eval, alloc and deployment writes one each, ``upsert_deployment_cas``
+one when it commits): the eval's
 node shuffle is seeded by (eval id, latest_index), so a world written in
 the same order lands on the same index and packs the same permutation.
 
@@ -48,7 +52,9 @@ from typing import Dict, Iterable, List, Optional, Tuple
 from .. import schedcheck, statecheck
 from ..faultinject import faults
 from ..server.telemetry import metrics
-from ..structs import Namespace, NodePool, SchedulerConfiguration
+from ..structs import (
+    DesiredTransition, Namespace, NodePool, SchedulerConfiguration)
+from ..structs.node import NODE_SCHED_ELIGIBLE, NODE_SCHED_INELIGIBLE
 from ..structs.job import JOB_STATUS_DEAD, JOB_STATUS_PENDING
 from .alloc_table import AllocTable
 
@@ -90,8 +96,10 @@ class StateSnapshot:
             self.node_table_index = store._table_index.get("nodes", 1)
             self._nodes = dict(store._nodes)
             self._jobs = dict(store._jobs)
+            self._evals = dict(store._evals)
             self._allocs = dict(store._allocs)
             self._deployments = dict(store._deployments)
+            self._node_pools = dict(store._node_pools)
             self.alloc_table = store.alloc_table
             self._allocs_by_node = {k: dict(v) for k, v in
                                     store._allocs_by_node.items()}
@@ -150,6 +158,13 @@ class StateSnapshot:
     def jobs(self) -> list:
         return list(self._jobs.values())
 
+    def eval_by_id(self, eval_id: str):
+        return self._evals.get(eval_id)
+
+    def evals_by_job(self, namespace: str, job_id: str) -> list:
+        return [e for e in self._evals.values()
+                if e.namespace == namespace and e.job_id == job_id]
+
     def alloc_by_id(self, alloc_id: str):
         return self._allocs.get(alloc_id)
 
@@ -160,14 +175,29 @@ class StateSnapshot:
         return [self._allocs[i] for i in self._allocs_by_node.get(node_id, ())
                 if i in self._allocs]
 
+    def allocs_by_node_terminal(self, node_id: str, terminal: bool) -> list:
+        """(reference :270) The node's allocs whose terminal_status()
+        is ``terminal``."""
+        return [a for a in self.allocs_by_node(node_id)
+                if a.terminal_status() == terminal]
+
     def allocs_by_job(self, namespace: str, job_id: str,
                       anyCreateIndex: bool = True) -> list:
         return [self._allocs[i]
                 for i in self._allocs_by_job.get((namespace, job_id), ())
                 if i in self._allocs]
 
+    def allocs_by_eval(self, eval_id: str) -> list:
+        return [a for a in self._allocs.values() if a.eval_id == eval_id]
+
+    def deployment_by_id(self, deployment_id: str):
+        return self._deployments.get(deployment_id)
+
     def deployments(self) -> list:
         return list(self._deployments.values())
+
+    def node_pool_by_name(self, name: str):
+        return self._node_pools.get(name)
 
     def latest_deployment_by_job(self, namespace: str, job_id: str):
         """The job's deployment with the highest create index."""
@@ -194,6 +224,8 @@ class StateStore:
         self._table_index: Dict[str, int] = {}      # absent = 1
         self._nodes: Dict[str, object] = {}
         self._jobs: Dict[Tuple[str, str], object] = {}
+        # every stored version of every job, by (namespace, id, version)
+        self._job_versions: Dict[Tuple[str, str, int], object] = {}
         self._evals: Dict[str, object] = {}
         self._allocs: Dict[str, object] = {}
         self._deployments: Dict[str, object] = {}
@@ -332,6 +364,43 @@ class StateStore:
             self.alloc_table.register_node(node)
             return self._bump("nodes")
 
+    def delete_node(self, node_id: str) -> int:
+        """(reference :599) Drop the node's record; its table slot
+        stays, as the reference's does."""
+        with self._lock:
+            self._nodes.pop(node_id, None)
+            return self._bump("nodes")
+
+    def _node_write(self, node_id: str, **fields) -> int:
+        """A copy of the stored node with ``fields`` set, in one write.
+        Raises KeyError for an unknown node."""
+        with self._lock:
+            old = self._nodes.get(node_id)
+            if old is None:
+                raise KeyError(f"node {node_id} not found")
+            node = copy.copy(old)
+            for k, v in fields.items():
+                setattr(node, k, v)
+            node.modify_index = self._index + 1
+            self._nodes[node_id] = node
+            return self._bump("nodes")
+
+    def update_node_eligibility(self, node_id: str, eligibility: str) -> int:
+        """(reference :625)"""
+        return self._node_write(node_id, scheduling_eligibility=eligibility)
+
+    def update_node_drain(self, node_id: str, drain_strategy,
+                          mark_eligible: bool = False) -> int:
+        """(reference :640) Set or clear the node's drain: a drain makes
+        the node ineligible; a cleared one makes it eligible again only
+        with ``mark_eligible``."""
+        fields = {"drain_strategy": drain_strategy}
+        if drain_strategy is not None:
+            fields["scheduling_eligibility"] = NODE_SCHED_INELIGIBLE
+        elif mark_eligible:
+            fields["scheduling_eligibility"] = NODE_SCHED_ELIGIBLE
+        return self._node_write(node_id, **fields)
+
     def upsert_job(self, job) -> int:
         """Register or replace a job (keyed by namespace and id): a
         replacement is the next version."""
@@ -349,6 +418,44 @@ class StateStore:
             if job.status != JOB_STATUS_DEAD:
                 job.status = JOB_STATUS_PENDING
             self._jobs[key] = job
+            self._job_versions[(job.namespace, job.id, job.version)] = job
+            return self._bump("jobs", "job_versions")
+
+    def delete_job(self, namespace: str, job_id: str) -> int:
+        """(reference :737) The job and every stored version of it."""
+        with self._lock:
+            self._jobs.pop((namespace, job_id), None)
+            for k in [k for k in self._job_versions
+                      if k[0] == namespace and k[1] == job_id]:
+                del self._job_versions[k]
+            return self._bump("jobs", "job_versions", "scaling_policies")
+
+    def job_version(self, namespace: str, job_id: str, version: int):
+        with self._lock:
+            return self._job_versions.get((namespace, job_id, version))
+
+    def job_versions_by_id(self, namespace: str, job_id: str) -> list:
+        """(reference :754) Every stored version, newest first."""
+        with self._lock:
+            versions = [v for (ns, jid, _), v in self._job_versions.items()
+                        if (ns, jid) == (namespace, job_id)]
+            return sorted(versions, key=lambda j: -j.version)
+
+    def update_job_stability(self, namespace: str, job_id: str,
+                             version: int, stable: bool) -> int:
+        """(reference :762) Mark one version (in place of the current
+        job too, when it is that version) stable or not."""
+        with self._lock:
+            job = self._job_versions.get((namespace, job_id, version))
+            if job is None:
+                return self._index
+            updated = copy.copy(job)
+            updated.stable = stable
+            updated.modify_index = self._index + 1
+            self._job_versions[(namespace, job_id, version)] = updated
+            current = self._jobs.get((namespace, job_id))
+            if current is not None and current.version == version:
+                self._jobs[(namespace, job_id)] = updated
             return self._bump("jobs", "job_versions")
 
     def update_job_status(self, namespace: str, job_id: str,
@@ -362,6 +469,7 @@ class StateStore:
             job.status = status
             job.modify_index = self._index + 1
             self._jobs[(namespace, job_id)] = job
+            self._job_versions[(namespace, job_id, job.version)] = job
             return self._bump("jobs")
 
     def update_node_status(self, node_id: str, status: str,
@@ -408,6 +516,13 @@ class StateStore:
                 ev.modify_index = self._index + 1
                 ev.modify_time = now
                 self._evals[ev.id] = ev
+            return self._bump("evals")
+
+    def delete_evals(self, eval_ids: Iterable[str]) -> int:
+        """(reference :833)"""
+        with self._lock:
+            for eid in eval_ids:
+                self._evals.pop(eid, None)
             return self._bump("evals")
 
     def upsert_allocs(self, allocs: Iterable) -> int:
@@ -475,32 +590,73 @@ class StateStore:
                 self.alloc_table.upsert(alloc)
             return self._bump("allocs", delta=pairs)
 
-    def quality_usage_by_node(self) -> Dict[str, tuple]:
-        """Per-node-id live (cpu, mem, disk) under the scheduler's
-        liveness filter (client-terminal allocs left out), recounted
-        from the allocs under the store lock: an accounting independent
-        of the quality observatory's delta-kept one, for its parity
-        checks. Every node of the alloc table has a row (zeros where
-        nothing lives), as in the reference's fold."""
+    def update_alloc_desired_transition(self, alloc_ids: Iterable[str],
+                                        migrate: bool = True) -> int:
+        """(reference :904) The drainer's migration request: each known
+        alloc gets a DesiredTransition in a new copy, one write. Its
+        liveness does not change, so its table row stays."""
         with self._lock:
-            out: Dict[str, list] = {
-                nid: [0.0, 0.0, 0.0]
-                for nid in self.alloc_table.node_ids()}
-            for a in self._allocs.values():
-                e = out.get(a.node_id)
-                if e is None or not hasattr(a, "allocated_resources") \
-                        or a.client_terminal_status():
+            pairs = []
+            for aid in alloc_ids:
+                existing = self._allocs.get(aid)
+                if existing is None:
                     continue
-                cr = a.allocated_resources.comparable()
-                e[0] += cr.cpu_shares
-                e[1] += cr.memory_mb
-                e[2] += cr.disk_mb
-            return {nid: tuple(v) for nid, v in out.items()}
+                alloc = copy.copy(existing)
+                alloc.desired_transition = DesiredTransition(migrate=migrate)
+                alloc.modify_index = self._index + 1
+                self._allocs[aid] = alloc
+                pairs.append((existing, alloc))
+            return self._bump("allocs", delta=pairs)
+
+    def quality_usage_by_node(self) -> Dict[str, tuple]:
+        """(reference :1559) Per-node-id live (cpu, mem, disk) under the
+        scheduler's liveness filter, from the alloc table's fold columns
+        under the store lock: an accounting independent of the quality
+        observatory's delta-kept one, for its parity checks."""
+        with self._lock:
+            return self.alloc_table.usage_by_node()
+
+    def preallocate_allocs(self, capacity: int) -> None:
+        """(reference :1568) Grow the alloc table to ``capacity`` rows
+        ahead of a large write, under the store lock."""
+        with self._lock:
+            self.alloc_table.preallocate(capacity)
+
+    def compact_alloc_table(self, min_free: int = 4096,
+                            free_ratio: float = 0.5):
+        """(reference :1577) Compact the alloc table once its free rows
+        exceed both ``min_free`` and ``free_ratio`` of its rows. Returns
+        the compaction's stats, or None below that mark."""
+        with self._lock:
+            t = self.alloc_table
+            if t.free_rows < min_free or \
+                    t.free_rows < free_ratio * max(1, t.n_rows):
+                return None
+            return t.compact()
 
     def upsert_deployment(self, deployment) -> int:
         """Insert or replace a deployment (keyed by ``deployment.id``)."""
         with self._lock:
             self._upsert_deployment_locked(deployment)
+            return self._bump("deployments")
+
+    def upsert_deployment_cas(self, deployment,
+                              expected_modify_index: int) -> bool:
+        """(reference :948) Commit only while the stored deployment's
+        modify index is ``expected_modify_index``: the watcher's guard
+        against a plan commit that advanced it meanwhile."""
+        with self._lock:
+            existing = self._deployments.get(deployment.id)
+            if existing is not None and \
+                    existing.modify_index != expected_modify_index:
+                return False
+            self._upsert_deployment_locked(deployment)
+            self._bump("deployments")
+            return True
+
+    def delete_deployment(self, deployment_id: str) -> int:
+        with self._lock:
+            self._deployments.pop(deployment_id, None)
             return self._bump("deployments")
 
     def _upsert_deployment_locked(self, deployment) -> None:
@@ -655,11 +811,30 @@ class StateStore:
             return list(self._allocs.values())
 
     def allocs_by_job(self, namespace: str, job_id: str) -> list:
-        return self.snapshot().allocs_by_job(namespace, job_id)
+        """The job's allocs in the job index's order (the reference reads
+        the live index; a snapshot per call would copy every index
+        whenever the store moved, which the leader's loops call for per
+        deployment and job)."""
+        with self._lock:
+            return [self._allocs[i]
+                    for i in self._allocs_by_job.get((namespace, job_id), ())
+                    if i in self._allocs]
 
     def eval_by_id(self, eval_id: str):
         with self._lock:
             return self._evals.get(eval_id)
+
+    def allocs_by_eval(self, eval_id: str) -> list:
+        with self._lock:
+            return [a for a in self._allocs.values() if a.eval_id == eval_id]
+
+    def allocs_by_node_terminal(self, node_id: str, terminal: bool) -> list:
+        return [a for a in self.allocs_by_node(node_id)
+                if a.terminal_status() == terminal]
+
+    def deployments(self) -> list:
+        with self._lock:
+            return list(self._deployments.values())
 
     def evals(self) -> list:
         with self._lock:

@@ -5,7 +5,8 @@ The port's server runs many eval threads over snapshots of one
 StateStore, a group-commit applier and memos keyed by table versions.
 This checker names violations of the store's discipline:
 
-  * **torn reads** -- the port's AllocTable reads (``fold_verify`` and
+  * **torn reads** -- the AllocTable reads (the scheduler's ``pack``,
+    ``count_placed`` and ``usage_by_node``; ``fold_verify`` and
     ``_fold_verify_all``, the applier's verify fold) re-check the table
     ``version`` on exit: a version that moved during one read means a
     writer raced a reader without the store lock. Per-thread scopes
@@ -14,10 +15,7 @@ This checker names violations of the store's discipline:
     sites; the worker's eval scope (``worker.invoke_scheduler``) is not
     strict -- the packer may read usage newer than the eval's snapshot
     by design, since the applier re-verifies -- so drift there is kept
-    as report-only ``drift``. The reference also instruments the
-    scheduler's table reads (``pack``, ``count_placed``,
-    ``usage_by_node``); the port's table has no scheduler half yet
-    (its packs fold usage in tensor/pack.py), so those are not here.
+    as report-only ``drift``.
   * **aliasing writes** -- (1) published memo arrays (what
     tensor/pack.py freezes, and the resident set's frozen chain
     shadows) register through ``note_published``, and a rotating
@@ -39,7 +37,8 @@ This checker names violations of the store's discipline:
   * **stale memos** -- ``_NODE_MATRIX_CACHE`` and resident content
     entries tagged older than the newest node-table write they were
     told of, and memo hits (``note_memo_served``: the node matrix, the
-    usage base) whose version token differs from the snapshot's.
+    usage base, the table fold) whose version token differs from the
+    snapshot's.
 
 Off by default; ``NOMAD_TPU_TORCH_STATECHECK=0`` or unset is a true
 no-op: the AllocTable and StateStore methods are the originals and no
@@ -417,9 +416,10 @@ def _note_aliasing(kind: str, site: str, detail: str) -> None:
 
 def _row_digest(table, row: int) -> bytes:
     h = hashlib.blake2b(digest_size=16)
-    for col in ("node_slot", "cpu", "mem", "disk", "live_strict",
-                "special"):
+    for col in ("node_slot", "cpu", "mem", "disk", "live",
+                "live_strict", "special", "job_hash", "jobtg_hash"):
         h.update(bytes(getattr(table, col)[row:row + 1].data))
+    h.update(bytes(table.ports[row].data))
     return h.digest()
 
 
@@ -755,8 +755,8 @@ def enabled() -> bool:
     return _ACTIVE
 
 
-_TABLE_READS = ("fold_verify",)
-_MUTATORS = ("upsert", "upsert_many", "remove", "register_node")
+_TABLE_READS = ("pack", "fold_verify", "count_placed", "usage_by_node")
+_MUTATORS = ("upsert", "upsert_many", "remove", "register_node", "compact")
 
 
 def enable() -> None:
@@ -795,6 +795,8 @@ def enable() -> None:
     AllocTable.register_node = _mk_mutator(
         "register_node", _REAL["table.register_node"],
         lambda t, a: True)
+    AllocTable.compact = _mk_mutator(
+        "compact", _REAL["table.compact"], lambda t, a: True)
     StateStore._bump = _patched_bump
     StateStore.apply_plan_results_batch = _patched_apply_batch
     _ACTIVE = True

@@ -14,7 +14,7 @@ from .resources import (  # noqa: F401
 )
 from .job import (  # noqa: F401
     Affinity, Constraint, EphemeralDisk, Job, LogConfig, MigrateStrategy,
-    ReschedulePolicy, RestartPolicy, Service, Spread, SpreadTarget, Task,
+    PeriodicConfig, ReschedulePolicy, RestartPolicy, Service, Spread, SpreadTarget, Task,
     TaskGroup, UpdateStrategy, VolumeRequest, generate_uuid, reseed_ids,
     JOB_TYPE_SERVICE, JOB_TYPE_BATCH, JOB_TYPE_SYSTEM, JOB_TYPE_SYSBATCH,
     JOB_STATUS_PENDING, JOB_STATUS_RUNNING, JOB_STATUS_DEAD,

@@ -1,6 +1,7 @@
 """Job / TaskGroup / Task model plus constraints, affinities, spreads
 (port of nomad_tpu/structs/job.py; upstream: nomad/structs/structs.go).
-Every field the scheduler reads is present; scaling, periodic,
+Every field the scheduler reads is present, and the periodic launch
+spec the server's launcher reads (PeriodicConfig); scaling,
 parameterized and multiregion configuration are not ported (their Job
 fields stay, holding None).
 """
@@ -318,6 +319,19 @@ class TaskGroup:
             out.devices.extend(t.resources.devices)
         out.networks = list(self.networks)
         return out
+
+
+@dataclass
+class PeriodicConfig:
+    """A periodic job's launch spec (reference: structs/job.py:382;
+    upstream: structs.PeriodicConfig). The server's launcher reads
+    ``@every <N>s`` specs."""
+
+    enabled: bool = True
+    spec: str = ""            # cron expression
+    spec_type: str = "cron"
+    prohibit_overlap: bool = False
+    timezone: str = "UTC"
 
 
 @dataclass

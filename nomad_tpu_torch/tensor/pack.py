@@ -14,10 +14,13 @@ feasibility masks, spread tables, affinity columns, and the placement
 service's usage base. A node-table write drops stale matrices
 (note_table_write, called by state/store.py); memoized arrays are frozen
 read-only and every consumer copies before it writes. The uncached
-functions are the definitions the memo forms call.
+functions are the definitions the memo forms call; the kill switch
+``NOMAD_TPU_TORCH_PACK_CACHE=0`` (pack_cache_enabled) has the placement
+service call them directly.
 """
 from __future__ import annotations
 
+import os
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -237,6 +240,14 @@ _PACK_STATS = {
     "invalidations": 0,
 }
 _PACK_STATS_LOCK = threading.Lock()
+def pack_cache_enabled() -> bool:
+    """(reference :138) ``NOMAD_TPU_TORCH_PACK_CACHE=0`` bypasses every
+    memo of the placement service's pack: it packs the usage, the
+    feasibility, the spreads and the affinities uncached, per eval (the
+    reference's oracle path)."""
+    return os.environ.get("NOMAD_TPU_TORCH_PACK_CACHE", "1") != "0"
+
+
 # per-thread hit/miss window: one pack call's cache outcomes on its own
 # thread, whatever other eval threads do meanwhile
 _PACK_TLS = threading.local()

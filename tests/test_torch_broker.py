@@ -36,7 +36,8 @@ REF = SimpleNamespace(mock=ref_mock, st=ref_structs, broker=ref_broker,
 PORT = SimpleNamespace(mock=port_mock, st=port_structs, broker=port_broker,
                        worker=port_worker, reseed=port_structs.reseed_ids,
                        server=lambda: PortServer(num_workers=2,
-                                                 device="cpu"))
+                                                 device="cpu",
+                                                 heartbeat_ttl=60.0))
 
 
 def setenv(monkeypatch, name, value):
@@ -366,3 +367,41 @@ def test_blocked_evals_unblock_by_class():
     assert out[1] == [f"storm-eval-{i:030d}" for i in (1, 2)]
     assert out[2] == [f"storm-eval-{0:030d}"]
     assert out[3]["total_blocked"] == 0 and len(out[4]) == 3
+
+
+def two_dequeues(P):
+    """Two ready evals of one job and one of another, leased by two
+    dequeues (two batch workers) before any ack; the ids each dequeue
+    got, the waiting count, and what a dequeue gets after the first ack."""
+    b = P.broker.EvalBroker()
+    b.set_enabled(True)
+    try:
+        evs = [mk_eval(P, i, job_id=j) for i, j in
+               enumerate(("job-x", "job-x", "job-y"))]
+        b.enqueue_all(evs)
+        first = b.dequeue_batch(["service"], 1, timeout=0.5)
+        second = b.dequeue_batch(["service"], 10, timeout=0.5)
+        waiting = b.stats()["total_waiting"]
+        for ev, token in first:
+            assert b.ack(ev.id, token) is None
+        third = b.dequeue_batch(["service"], 10, timeout=0.5)
+        return ([e.id for e, _ in first], [e.id for e, _ in second],
+                waiting, [e.id for e, _ in third])
+    finally:
+        b.shutdown()
+
+
+def test_one_job_is_never_leased_twice_across_dequeues():
+    """Two evals of one job never run at once, also when both were ready
+    before either was leased: the port's second dequeue leaves the job's
+    second eval waiting until the first is acked (upstream's per-job
+    pending set covers ready evals too). The reference's broker leases
+    it to the second worker (its dedup reads the leased evals at enqueue
+    time only), so a node-down fan-out's two evals of one job can both
+    replace the same lost allocs there (ROADMAP Queue 3)."""
+    first, second, waiting, third = two_dequeues(PORT)
+    assert first == [mk_eval(PORT, 0).id]
+    assert second == [mk_eval(PORT, 2, job_id="job-y").id] and waiting == 1
+    assert third == [mk_eval(PORT, 1, job_id="job-x").id]
+    ref_second = two_dequeues(REF)[1]
+    assert mk_eval(REF, 1, job_id="job-x").id in ref_second

@@ -68,7 +68,7 @@ def ack_pair(n_nodes=6, cpu=4000, mem=8192, **kw):
     try:
         ref.start()
         port = Server(state=store_from_reference(store.snapshot()),
-                      device="cpu", **kw)
+                      device="cpu", heartbeat_ttl=3600.0, **kw)
         port.start()
         yield ref, port
     finally:

@@ -320,7 +320,7 @@ def test_fault_registry_actions_and_env(monkeypatch):
     assert set(faultinject.POINTS) == {
         "solver.dispatch", "solver.probe", "broker.dequeue",
         "worker.invoke", "worker.crash", "plan.apply", "plan.commit",
-        "quality.skew"}
+        "quality.skew", "heartbeat"}
 
 
 # ----------------------------------------------------------------------

@@ -171,7 +171,17 @@ def test_every_port_env_knob_is_documented():
             "NOMAD_TPU_TORCH_QUALITY_AUDIT_SAMPLE",
             "NOMAD_TPU_TORCH_QUALITY_AUDIT_PLACES",
             "NOMAD_TPU_TORCH_QUALITY_DRIFT_TOL",
-            "NOMAD_TPU_TORCH_QUALITY_ALERT_AFTER"} <= knobs
+            "NOMAD_TPU_TORCH_QUALITY_ALERT_AFTER",
+            "NOMAD_TPU_TORCH_PACK_CACHE", "NOMAD_TPU_TORCH_PACK_DELTA",
+            "NOMAD_TPU_TORCH_FLAP", "NOMAD_TPU_TORCH_FLAP_THRESHOLD",
+            "NOMAD_TPU_TORCH_FLAP_WINDOW", "NOMAD_TPU_TORCH_FLAP_BASE_S",
+            "NOMAD_TPU_TORCH_FLAP_MAX_S",
+            "NOMAD_TPU_TORCH_WORKER_SUPERVISE",
+            "NOMAD_TPU_TORCH_WORKER_STALL_S",
+            "NOMAD_TPU_TORCH_WORKER_CHECK_S",
+            "NOMAD_TPU_TORCH_WORKER_RESTART_BASE_S",
+            "NOMAD_TPU_TORCH_WORKER_RESTART_MAX_S",
+            "NOMAD_TPU_TORCH_GC_ALLOC_WATERMARK"} <= knobs
     missing = sorted(k for k in knobs if k not in readme)
     assert not missing, missing
 

@@ -503,6 +503,7 @@ def test_server_round_with_all_four_armed_is_clean_and_places_alike(
     from nomad_tpu_torch.tensor import pack as port_pack
 
     monkeypatch.setattr(RefServer, "_start_background", lambda self: None)
+    monkeypatch.setattr(Server, "_start_background", lambda self: None)
     ref_pack._reset_pack_caches_for_tests()
     port_pack.reset_pack_caches()
     kw = dict(num_workers=1, eval_batching=True, batch_width=SLICE_JOBS)
@@ -520,7 +521,7 @@ def test_server_round_with_all_four_armed_is_clean_and_places_alike(
             schedcheck.begin_run(11)
         memo = {}
         port = Server(state=store_from_reference(snap, memo), device="cpu",
-                      **kw)
+                      heartbeat_ttl=3600.0, **kw)
         port.start()
         try:
             got = _slice_round(port, [struct_from_reference(ev, memo)

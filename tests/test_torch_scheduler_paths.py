@@ -666,3 +666,42 @@ def test_usage_base_catches_up_through_the_plan_commit_journal():
     st = port_pack.pack_cache_stats()
     assert st["usage_base_misses"] == 1
     assert st["usage_base_delta_hits"] == 3
+
+
+@pytest.mark.parametrize("alg", ALGS)
+def test_missing_placement_never_takes_a_lost_allocs_name(alg):
+    """A job one alloc short (web[2] gone) whose web[1] is lost on a down
+    node: the lost alloc's replacement keeps web[1] and the missing
+    placement takes web[2] (upstream: the name index covers lost and
+    rescheduled allocs). The reference's index reads the live allocs
+    only and names both web[1] (ROADMAP Queue 3); every other decision
+    of the eval equals the reference's."""
+    h = _harness(alg)
+    nodes = [mock.node() for _ in range(3)]
+    for n in nodes:
+        h.state.upsert_node(n)
+    job = mock.job()
+    job.task_groups[0].count = 3
+    h.state.upsert_job(job)
+    allocs = []
+    for i in range(2):
+        a = mock.alloc_for(job, nodes[i], index=i)
+        a.client_status = "running"
+        allocs.append(a)
+    h.state.upsert_allocs(allocs)
+    h.state.update_node_status(nodes[1].id, "down", 0.0)
+    ev = make_eval(job, triggered_by="node-update", node_id=nodes[1].id)
+    h.state.upsert_evals([ev])
+    rh, ph, r, p = run_both(h.state, ev, "service", _route(alg))
+    assert r is None and p is None
+    want = [a.name for plan in rh.plans
+            for al in plan.node_allocation.values() for a in al]
+    got = [a.name for plan in ph.plans
+           for al in plan.node_allocation.values() for a in al]
+    assert sorted(got) == [f"{job.id}.web[1]", f"{job.id}.web[2]"]
+    assert sorted(want) == [f"{job.id}.web[1]", f"{job.id}.web[1]"]
+    stops = [(a.id, a.client_status) for plan in ph.plans
+             for al in plan.node_update.values() for a in al]
+    assert stops == [(a.id, a.client_status) for plan in rh.plans
+                     for al in plan.node_update.values() for a in al]
+    assert stops == [(allocs[1].id, "lost")]

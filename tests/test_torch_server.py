@@ -21,9 +21,9 @@ which thread timing would decide; InOrderLanes hands each batch's lanes
 to its barrier in the batch's dequeue order in both packages, so the
 LP worlds run at their natural batch width and compare exactly.
 
-The reference Server's background loops (heartbeats, GC, periodic
-dispatch, the deployment watcher, volumes, the drainer), which the port
-leaves out, are not started. Compared once both servers settle: every
+Neither Server's background loops (heartbeats, GC, periodic dispatch,
+the deployment watcher, the drainer; the reference's volumes) are
+started: tests/test_torch_leader.py drives them. Compared once both servers settle: every
 live alloc (name -> node, its task and shared resources; float64
 normalized scores, rtol 1e-12), every eval's job, type, trigger,
 status, queued allocations and failed task groups, the blocked evals,
@@ -79,11 +79,13 @@ SERVER_THREADS = ("batch-worker-", "scheduler-worker-", "batch-eval-",
 
 @pytest.fixture(autouse=True)
 def fresh_state(monkeypatch):
-    """Both packages' caches and guards start fresh, and the reference
-    Server runs its main path alone: its heartbeat, GC, periodic,
-    deployment, volume and drain loops, which the port's Server leaves
-    out, do not start (the deployment watcher would add evals)."""
+    """Both packages' caches and guards start fresh, and both Servers run
+    their main path alone: their leader loops (heartbeats, GC, periodic,
+    the deployment watcher and the drainer; the reference's volume
+    watcher) do not start (the deployment watcher would add evals at a
+    time of its own). tests/test_torch_leader.py drives those loops."""
     monkeypatch.setattr(RefServer, "_start_background", lambda self: None)
+    monkeypatch.setattr(Server, "_start_background", lambda self: None)
     ref_pack._reset_pack_caches_for_tests()
     port_pack.reset_pack_caches()
     guard._reset_for_tests()
@@ -291,7 +293,7 @@ def server_pair(ref_store, order=None, **server_kw):
         ref.start()
         memo = {}
         port = Server(state=store_from_reference(ref_store.snapshot(), memo),
-                      device="cpu", **kw)
+                      device="cpu", heartbeat_ttl=3600.0, **kw)
         if order is not None:
             order.attach(port)
         port.start()
@@ -515,7 +517,7 @@ def test_register_and_deregister_through_both_servers():
     ref = RefServer(state=store, heartbeat_ttl=3600.0, **kw)
     ref.start()
     port = Server(state=store_from_reference(store.snapshot()),
-                  device="cpu", **kw)
+                  device="cpu", heartbeat_ttl=3600.0, **kw)
     port.start()
     try:
         from nomad_tpu.structs import Service as RefService
@@ -554,7 +556,7 @@ def test_register_and_deregister_through_both_servers():
 
 def test_validation_rejects_what_the_reference_rejects():
     """_validate_job: the same refusals, nothing written."""
-    port = Server(device="cpu")
+    port = Server(device="cpu", heartbeat_ttl=3600.0)
     ref = RefServer(heartbeat_ttl=3600.0)
     try:
         def bad_jobs(m, st):
@@ -622,7 +624,7 @@ def test_blocked_eval_unblocks_on_new_node():
     ref.start()
     memo = {}
     port = Server(state=store_from_reference(store.snapshot(), memo),
-                  device="cpu", **kw)
+                  device="cpu", heartbeat_ttl=3600.0, **kw)
     port.start()
     try:
         pev = struct_from_reference(ev, memo)

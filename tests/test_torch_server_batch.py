@@ -57,12 +57,13 @@ SERVER_THREADS = ("batch-worker-", "scheduler-worker-", "batch-eval-",
 
 PORT = SimpleNamespace(
     mock=port_mock, st=port_structs,
-    server=lambda **kw: Server(device="cpu", **kw))
+    server=lambda **kw: Server(device="cpu", heartbeat_ttl=3600.0, **kw))
 
 
 @pytest.fixture(autouse=True)
 def fresh_state(monkeypatch):
     monkeypatch.setattr(RefServer, "_start_background", lambda self: None)
+    monkeypatch.setattr(Server, "_start_background", lambda self: None)
     ref_pack._reset_pack_caches_for_tests()
     port_pack.reset_pack_caches()
     guard._reset_for_tests()

@@ -50,7 +50,7 @@ from nomad_tpu_torch.carry import store_from_reference, struct_from_reference
 from nomad_tpu_torch.scheduler.context import EvalContext
 from nomad_tpu_torch.solver import guard, lpq
 from nomad_tpu_torch.solver.batch import SolveBarrier, make_solve_hook
-from nomad_tpu_torch.solver.service import TpuPlacementService
+from nomad_tpu_torch.solver.service import TpuPlacementService, dispatch_lane
 from nomad_tpu_torch.tensor import pack as port_pack
 
 from torch_sanitizers import armed
@@ -84,7 +84,8 @@ def fresh_caches(monkeypatch):
 # --------------------------------------------------------------------------
 # field-by-field comparisons
 
-def assert_lanes_equal(ref, port):
+def assert_lanes_equal(ref, port, skip=()):
+    """``skip``: (tree, field) pairs left out of the comparison."""
     if ref is None or port is None:
         assert ref is None and port is None
         return
@@ -98,6 +99,8 @@ def assert_lanes_equal(ref, port):
             continue
         assert type(a)._fields == type(b)._fields, name
         for f in type(a)._fields:
+            if (name, f) in skip:
+                continue
             x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
             assert x.dtype == y.dtype, (name, f, x.dtype, y.dtype)
             assert x.shape == y.shape, (name, f, x.shape, y.shape)
@@ -903,9 +906,9 @@ def _carry_world(snap, ctx, job, nodes):
 
 @pytest.mark.parametrize("ports", [True, False])
 def test_incremental_usage_equals_the_reference_table_path(ports):
-    """The port has no alloc table: its incremental path (base fold +
-    this job's counts + plan deltas) gives the usage the reference's
-    table path gives, port bitmap included."""
+    """The port's incremental path (base fold + this job's counts + plan
+    deltas), the route when the alloc table cannot serve, gives the
+    usage the reference's table path gives, port bitmap included."""
     h, snap, ctx, job, nodes = _ref_world(ports=ports)
     rsvc = ref_service.TpuPlacementService(ctx, job, False, False,
                                            dtype="float64")
@@ -1042,3 +1045,279 @@ def test_breaker_edges_drop_the_pack_caches():
     assert st["matrix_entries"] == 0 and st["invalidations"] == 1
     assert port_pack.pack_nodes_cached(
         ready, snap.node_table_index, snap.nodes_pack_key(ready)) is not m
+
+
+# -- the alloc table's scheduler half -----------------------------------------
+# The worlds of tests/test_verify_fold.py (the table-fold fuzz: prior
+# allocs, plan-committed stops awaiting acks, client-terminal allocs, an
+# in-eval stop), tests/test_pack_cache.py (stored ports, a plan that
+# stops and places) and tests/test_pack_delta.py (mixed churn: batch and
+# scalar writes, client-terminal transitions, deletions), each built in
+# the reference's store and carried to the port's.
+
+def _verify_fold_world(seed):
+    from nomad_tpu.structs import PlanResult as RefPlanResult
+    rng = random.Random(seed * 613 + 3)
+    h = Harness()
+    nodes = []
+    for i in range(20):
+        n = mock.node()
+        n.id = f"up-n{i:03d}"
+        n.node_resources.cpu.cpu_shares = rng.choice([2000, 4000])
+        n.compute_class()
+        h.state.upsert_node(n)
+        nodes.append(n)
+    jobs = []
+    for k in range(3):
+        j = mock.job(id=f"up-j{k}")
+        h.state.upsert_job(j)
+        jobs.append(j)
+    prior = []
+    for _ in range(30):
+        a = mock.alloc_for(rng.choice(jobs), rng.choice(nodes))
+        a.client_status = rng.choice(
+            ["running", "running", "running", "complete"])
+        prior.append(a)
+    h.state.upsert_allocs(prior)
+    live_prior = [a for a in prior if a.client_status == "running"]
+    stop_plan = RefPlan(eval_id="f" * 36, priority=50, job=jobs[0])
+    for a in rng.sample(live_prior, 6):
+        stop_plan.append_stopped_alloc(a, "churn")
+    h.state.upsert_plan_results(
+        RefPlanResult(node_update=stop_plan.node_update,
+                      node_allocation={}, node_preemptions={}), [])
+    job = jobs[1]
+    job.task_groups[0].count = 10
+    plan = RefPlan(eval_id="a" * 36, priority=50, job=job)
+    stopped = {s.id for al in stop_plan.node_update.values() for s in al}
+    victims = [a for a in live_prior if a.id not in stopped]
+    if victims:
+        plan.append_stopped_alloc(rng.choice(victims), "in-eval")
+    return h, job, plan
+
+
+def _pack_cache_world(seed):
+    import copy
+    h = Harness()
+    nodes = []
+    for i in range(8):
+        n = mock.node()
+        n.id = f"pc-node-{i:04d}"
+        n.compute_class()
+        nodes.append(n)
+        h.state.upsert_node(n)
+    for k in range(5):
+        j = mock.job(id=f"pc-filler-{k}")
+        h.state.upsert_job(j)
+        a = mock.alloc_for(j, nodes[k % 8])
+        a.client_status = "running"
+        h.state.upsert_allocs([a])
+    j = mock.job(id="pc-ports")
+    h.state.upsert_job(j)
+    a_ports = mock.alloc_for(j, nodes[2])
+    a_ports.client_status = "running"
+    a_ports.allocated_resources.shared.ports = [
+        ref_structs.AllocatedPortMapping(label="http", value=20123,
+                                         host_ip="10.0.0.2")]
+    h.state.upsert_allocs([a_ports])
+    job = mock.job(id=f"pc-job-{seed}")
+    job.task_groups[0].count = 4
+    if seed % 2:
+        job.task_groups[0].networks = [NetworkResource(
+            dynamic_ports=[Port(label="http")])]
+    h.state.upsert_job(job)
+    snap = h.state.snapshot()
+    plan = RefPlan(eval_id=f"pc-eval-{seed:029d}", priority=50, job=job)
+    stored = [a for a in snap.allocs() if not a.client_terminal_status()][0]
+    stop = copy.copy(stored)
+    stop.desired_status = "stop"
+    plan.node_update.setdefault(stored.node_id, []).append(stop)
+    placed = mock.alloc_for(mock.job(id="pc-placed"), nodes[5])
+    plan.node_allocation.setdefault(nodes[5].id, []).append(placed)
+    return h, job, plan
+
+
+def _pack_delta_world(seed):
+    rng = random.Random(seed + 7)
+    h = Harness()
+    nodes = []
+    for i in range(8):
+        n = mock.node()
+        n.id = f"pd-node-{i:04d}"
+        n.compute_class()
+        h.state.upsert_node(n)
+        nodes.append(n)
+    all_allocs = []
+    for j in range(6):
+        job = mock.job(id=f"pd-job-{j}")
+        h.state.upsert_job(job)
+        allocs = []
+        for _ in range(12):
+            a = mock.alloc_for(job, nodes[rng.randrange(len(nodes))])
+            a.client_status = "running"
+            allocs.append(a)
+        if j % 2:
+            h.state.upsert_allocs(allocs)
+        else:
+            for a in allocs:
+                h.state.upsert_allocs([a])
+        all_allocs.extend(allocs)
+    for a in [a for i, a in enumerate(all_allocs) if i % 3 == 0]:
+        upd = a.copy_skip_job()
+        upd.client_status = "complete"
+        h.state.update_allocs_from_client([upd])
+    h.state.delete_allocs([a.id for i, a in enumerate(all_allocs)
+                           if i % 6 == 1])
+    job = h.state.job_by_id("default", "pd-job-2")
+    job.task_groups[0].count = 6
+    return h, job, RefPlan(eval_id=f"pd-eval-{seed:030d}", priority=50,
+                           job=job)
+
+
+TABLE_WORLDS = ([("verify_fold", s) for s in range(3)]
+                + [("pack_cache", s) for s in range(2)]
+                + [("pack_delta", 0)])
+_TABLE_BUILDERS = {"verify_fold": _verify_fold_world,
+                   "pack_cache": _pack_cache_world,
+                   "pack_delta": _pack_delta_world}
+SWITCHES = {"cached": ("1", "1"), "wholesale": ("1", "0"),
+            "uncached": ("0", "1")}
+
+
+def _set_switches(monkeypatch, name):
+    cache, delta = SWITCHES[name]
+    for prefix in ("NOMAD_TPU_", "NOMAD_TPU_TORCH_"):
+        monkeypatch.setenv(prefix + "PACK_CACHE", cache)
+        monkeypatch.setenv(prefix + "PACK_DELTA", delta)
+
+
+def _usage_fields(u):
+    return {f: getattr(u, f) for f in (
+        "used_cpu", "used_mem", "used_disk", "placed_jobtg", "placed_job",
+        "dyn_used", "port_bitmap")}
+
+
+def assert_usage_equal(want, got):
+    for f, x in _usage_fields(want).items():
+        y = getattr(got, f)
+        if x is None:
+            assert y is None, f
+        else:
+            assert x.dtype == y.dtype and np.array_equal(x, y), f
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("switches", list(SWITCHES))
+@pytest.mark.parametrize("world,seed", TABLE_WORLDS,
+                         ids=[f"{w}-{s}" for w, s in TABLE_WORLDS])
+def test_table_path_lanes_equal_the_reference(world, seed, switches, dtype,
+                                              monkeypatch):
+    """The port's _pack_inner on a carried store takes the reference's
+    usage route (the table, unless PACK_CACHE=0 hides nothing: the table
+    still serves) and packs equal lanes field by field; the table path's
+    usage equals the port's incremental path's and the plain walk's; the
+    lanes solve to the same choices (scores within rtol 1e-12 in
+    float64, 1e-6 in float32) and materialize to equal placements."""
+    _set_switches(monkeypatch, switches)
+    h, job, plan = _TABLE_BUILDERS[world](seed)
+    snap = h.state.snapshot()
+    nodes = snap.ready_nodes_in_pool("default")
+    tg = job.task_groups[0]
+    places = [RefPlace(name=f"{job.id}.{tg.name}[{k}]", task_group=tg)
+              for k in range(tg.count)]
+    rsvc = ref_service.TpuPlacementService(RefContext(snap, plan), job,
+                                           False, False, dtype=dtype)
+    ref_lane = rsvc.pack(tg, places, nodes)
+
+    memo = {}
+    store = store_from_reference(snap, memo)
+    pjob = struct_from_reference(job, memo)
+    pctx = EvalContext(store.snapshot(), struct_from_reference(plan, memo))
+    ptg = pjob.task_groups[0]
+    pplaces = struct_from_reference(places, memo)
+    pnodes = struct_from_reference(nodes, memo)
+    psvc = TpuPlacementService(pctx, pjob, False, False, dtype=dtype,
+                               device="cpu")
+    lane = psvc.pack(ptg, pplaces, pnodes)
+    assert_lanes_equal(ref_lane, lane)
+    assert float(np.asarray(lane.init.used_cpu).sum()) > 0
+
+    # the three routes' usage agree on this snapshot and plan
+    matrix = lane.matrix
+    table = pctx.state.alloc_table
+    via_table = psvc._pack_usage_from_table(table, matrix, pnodes, ptg)
+    via_inc = psvc._pack_usage_incremental(matrix, pnodes, ptg)
+    assert_usage_equal(via_table, via_inc)
+    assert_usage_equal(via_table, psvc._pack_usage_from_table(
+        table, matrix, pnodes, ptg))        # a fold-cache hit, if portless
+    prop = {n.id: pctx.proposed_allocs(n.id) for n in pnodes}
+    plain = port_pack.pack_usage(matrix, prop, pjob.id, ptg.name,
+                                 pjob.namespace, pnodes)
+    for f in ("used_cpu", "used_mem", "used_disk", "placed_jobtg",
+              "placed_job"):
+        assert np.array_equal(getattr(plain, f), getattr(via_table, f)), f
+    assert table.fold_parity_mismatch() == 0
+
+    want = ref_service.dispatch_lane(ref_lane)
+    got = dispatch_lane(lane, device="cpu")
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
+    np.testing.assert_array_equal(np.asarray(got[2]), np.asarray(want[2]))
+    np.testing.assert_allclose(
+        np.asarray(got[1], dtype=np.float64),
+        np.asarray(want[1], dtype=np.float64),
+        rtol=1e-12 if dtype == "float64" else 1e-6)
+    ref_out = rsvc.materialize(ref_lane, *want)
+    port_out = psvc.materialize(lane, *got)
+    assert [(p.place.name, p.node and p.node.id) for p in ref_out] == \
+        [(p.place.name, p.node and p.node.id) for p in port_out]
+
+
+def test_port_overflow_and_walks_skip_the_table(monkeypatch):
+    """An alloc holding more ports than a table row holds sends the pack
+    to the incremental route, in both packages. A portless task group's
+    incremental base packs no port state in the port (as the table path
+    packs it) where the reference's folds the stored allocs' ports: the
+    lanes differ in dyn_avail alone, on the nodes holding ports, which a
+    task group asking no dynamic port never reads -- the solves agree."""
+    h, job, plan = _pack_cache_world(0)
+    nodes = h.state.snapshot().ready_nodes_in_pool("default")
+    j = mock.job(id="pc-overflow")
+    h.state.upsert_job(j)
+    a = mock.alloc_for(j, nodes[3])
+    a.client_status = "running"
+    a.allocated_resources.shared.ports = [
+        ref_structs.AllocatedPortMapping(label=f"p{i}", value=21000 + i)
+        for i in range(10)]
+    h.state.upsert_allocs([a])
+    snap = h.state.snapshot()
+    assert snap.alloc_table.has_port_overflow
+    tg = job.task_groups[0]
+    places = [RefPlace(name=f"{job.id}.{tg.name}[{k}]", task_group=tg)
+              for k in range(tg.count)]
+    rsvc = ref_service.TpuPlacementService(RefContext(snap, plan), job,
+                                           False, False, dtype="float64")
+    memo = {}
+    store = store_from_reference(snap, memo)
+    pctx = EvalContext(store.snapshot(), struct_from_reference(plan, memo))
+    assert pctx.state.alloc_table.has_port_overflow
+    pjob = struct_from_reference(job, memo)
+    psvc = TpuPlacementService(pctx, pjob, False, False, device="cpu")
+    calls = []
+    real = TpuPlacementService._pack_usage_from_table
+    monkeypatch.setattr(TpuPlacementService, "_pack_usage_from_table",
+                        lambda *a: calls.append(1) or real(*a))
+    ref_lane = rsvc.pack(tg, places, nodes)
+    lane = psvc.pack(pjob.task_groups[0], struct_from_reference(places, memo),
+                     struct_from_reference(nodes, memo))
+    assert not calls
+    assert_lanes_equal(ref_lane, lane, skip={("init", "dyn_avail")})
+    differ = np.nonzero(np.asarray(ref_lane.init.dyn_avail)
+                        != np.asarray(lane.init.dyn_avail))[0]
+    port_nodes = {a.node_id for a in snap.allocs()
+                  if a.allocated_resources.all_ports()}
+    order = np.asarray(lane.order)
+    assert differ.size and {nodes[order[i]].id for i in differ} <= port_nodes
+    want = ref_service.dispatch_lane(ref_lane)
+    got = dispatch_lane(lane, device="cpu")
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
