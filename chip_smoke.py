@@ -299,14 +299,36 @@ Phases (any failure raises and the script exits nonzero with no result):
                 phase heartbeats the other 9,900: exactly those go down,
                 every lost alloc is replaced once on other nodes by the
                 kernels, 0 plans rejected, and a node flapping three
-                times is held down by the quarantine; 20 nodes drained
+                times is held down by the quarantine; 6 nodes drained
                 at max_parallel 1 (every alloc migrated, every drain
                 complete); 24 jobs stopped and acknowledged, GC's
-                watermark pass and a table compaction, then 8 evals x
+                watermark pass and a table compaction, then 4 evals x
                 2,000 packed both ways again; a worker.crash the
                 supervisor restarts, its eval placed after its lease.
-  Phases 4-16 and 18 reset the launch counts just before and read them just
-  after; they check every placement made, no node over capacity (cores
+ 19. agent    -- the agent's entry points on the card: the dev agent as a
+                process (python3 -m nomad_tpu_torch.api.devagent --nodes
+                3 --tpu --port 0, on cuda) driven through the CLI (python3
+                -m nomad_tpu_torch.cli): a service job with a spread, a
+                batch job and a system job from HCL, their allocs
+                running, the batch job's complete, its nodes, the guard
+                not degraded with mesh.devices 1, every /v1/agent/self
+                stats block, the Prometheus text's placement counters,
+                SIGTERM to exit 0; the headline through HTTP (an
+                HttpServer over a port Server with the 10,000-node fleet,
+                the broker paused through the API, 32 mock.job jobs x
+                2,000 registered as JSON, the broker resumed, every job's
+                allocs read back through /v1/job/<id>/allocations), equal
+                bit for bit to a port Server fed the same Job structs in
+                process under the same protocol; the card's fingerprint
+                (gpu.count 1, one nvidia/gpu group named as nvidia-smi
+                names the card) registered on the agent through
+                HttpServerConn, an HCL job asking device "nvidia/gpu" on
+                it, the same ask at count 2 one placed and one blocked;
+                the dev agent's /v1/agent/torch-profile around one job
+                through HTTP, its chrome trace naming the wave_block
+                kernel.
+  Phases 4-16, 18 and 19 reset the launch counts just before and read them
+  just after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
   to the plain versions on the same fused inputs. The kernels line's
   ``barrier_launches`` are phase 12's: its depth-2 barrier generation of
@@ -318,7 +340,8 @@ Phases (any failure raises and the script exits nonzero with no result):
   compare with run outside the count); its ``telemetry_launches`` phase
   16's warm and measured rounds, audit jobs and reschedule (its cost
   rounds outside the count); its ``leader_launches`` phase 18's whole
-  run.
+  run; its ``agent_launches`` phase 19's HTTP round (the in-process route
+  it compares with, and the dev agent's own process, outside the count).
 
 Prints a full JSON report line, the card line, a {"kernels": [...]} line,
 and last the contract line {"ok": true, "device": {...}}.
@@ -333,6 +356,7 @@ import threading
 import time
 from typing import NamedTuple, Optional
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
@@ -7127,10 +7151,10 @@ LEADER_TTL_S = 12.0                 # the heartbeat step's TTL: a round
                                     # fan-out's load stays well inside
 LEADER_PUMP_S = 1.0                 # the phase's heartbeat round
 LEADER_SILENT = 100                 # nodes let go silent
-LEADER_DRAIN = 20                   # nodes drained, max_parallel 1
+LEADER_DRAIN = 6                    # nodes drained, max_parallel 1
 LEADER_DONE_JOBS = 24               # jobs whose allocs end complete
 LEADER_GC_KEEP = 1_000              # the GC watermark (terminal kept)
-LEADER_GC_EVALS = 8                 # the generation after the compaction
+LEADER_GC_EVALS = 4                 # the generation after the compaction
 LEADER_CRASH_PLACE = 100            # the supervisor drill's job
 LEADER_NACK_S = 2.0                 # the drill's lease
 LEADER_SETTLE_S = 300
@@ -7310,7 +7334,7 @@ def leader_phase(np, torch, batch, guard, kernels, svc, tp, card):
          flaps down twice more (update_node_status, heartbeat) and its
          third recovery is held by the quarantine; then the TTL goes
          back to an hour;
-      3. the drainer: 20 nodes drained at once; every alloc on them
+      3. the drainer: 6 nodes drained at once; every alloc on them
          migrates (at most one of a job in flight at a time), every
          drain completes, the nodes stay ineligible, 0 rejected;
       4. GC: 24 jobs deregistered, their stops acknowledged complete and
@@ -7318,7 +7342,7 @@ def leader_phase(np, torch, batch, guard, kernels, svc, tp, card):
          run_gc_once with a
          watermark of 1,000 deletes the oldest terminal allocs past it
          and compacts the alloc table (no free row left, the fold equal
-         to a recount); a new generation of 8 evals x 2,000 is packed
+         to a recount); a new generation of 4 evals x 2,000 is packed
          both ways again, equal, and placed;
       5. the supervisor: worker.crash armed once; the batch worker that
          leases the next eval dies, the supervisor restarts its slot,
@@ -7641,6 +7665,583 @@ def leader_phase(np, torch, batch, guard, kernels, svc, tp, card):
     log(f"leader [{card}]: launches {launches}; phase "
         f"{report['seconds']:.1f} s")
     assert launches["wave_block"] >= 1, launches
+    return report
+
+
+AGENT_NODES = 3                     # the dev agent's simulated nodes
+AGENT_BATCH_RUN_FOR = "4s"          # the batch job's mock run time
+AGENT_SETTLE_S = 180
+AGENT_PROFILE_PLACE = 3             # the profiled job's count
+AGENT_READERS = 4                   # read-back requests in flight
+AGENT_SELF_BLOCKS = ("nomad", "solver_guard", "xferobs", "node_flaps",
+                     "worker_pool", "eval_quarantine", "lockcheck",
+                     "jitcheck", "statecheck", "schedcheck")
+
+AGENT_SERVICE_HCL = """
+job "agent-service" {
+  group "web" {
+    count = 3
+    spread {
+      attribute = "${node.unique.id}"
+      weight    = 100
+    }
+    task "t" {
+      driver = "mock"
+      resources { cpu = 200 memory = 128 }
+    }
+  }
+}
+"""
+AGENT_BATCH_HCL = """
+job "agent-batch" {
+  type = "batch"
+  group "g" {
+    count = 3
+    task "t" {
+      driver = "mock"
+      config { run_for = "%s" }
+      resources { cpu = 100 memory = 64 }
+    }
+  }
+}
+""" % AGENT_BATCH_RUN_FOR
+AGENT_PROFILED_HCL = """
+job "agent-profiled" {
+  group "g" {
+    count = %d
+    task "t" {
+      driver = "mock"
+      resources { cpu = 100 memory = 64 }
+    }
+  }
+}
+""" % AGENT_PROFILE_PLACE
+AGENT_SYSTEM_HCL = """
+job "agent-system" {
+  type = "system"
+  group "sys" {
+    task "t" {
+      driver = "mock"
+      resources { cpu = 100 memory = 64 }
+    }
+  }
+}
+"""
+AGENT_GPU_HCL = """
+job "%s" {
+  group "g" {
+    count = %d
+    task "t" {
+      driver = "mock"
+      resources {
+        cpu    = 100
+        memory = 64
+        device "nvidia/gpu" { count = 1 }
+      }
+    }
+  }
+}
+"""
+
+
+class AgentProcess:
+    """``python3 -m nomad_tpu_torch.api.devagent`` as a child process on
+    the card: stdout read line by line on a thread (the ==> line carries
+    the bound address), stderr to a file under ``work``."""
+
+    def __init__(self, args, work):
+        import queue
+        self.err_path = work / "agent.err"
+        err = open(self.err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "nomad_tpu_torch.api.devagent"] + args,
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+        err.close()
+        self.addr = None
+        self._addr_lock = threading.Lock()
+        self.lines = queue.Queue()
+        threading.Thread(target=lambda: [self.lines.put(ln)
+                                         for ln in self.proc.stdout],
+                         daemon=True, name="agent-stdout").start()
+
+    def address(self, timeout):
+        """The agent's address, from its ==> line (read once; the lock
+        keeps two callers from splitting its lines)."""
+        import queue
+        with self._addr_lock:
+            deadline = time.monotonic() + timeout
+            while self.addr is None and time.monotonic() < deadline:
+                try:
+                    line = self.lines.get(timeout=1.0)
+                except queue.Empty:
+                    if self.proc.poll() is not None:
+                        break
+                    continue
+                if line.startswith("==> nomad-tpu dev agent: http"):
+                    self.addr = line.split()[4]
+            if self.addr is None:
+                raise AssertionError("the dev agent printed no address: "
+                                     + self.err_path.read_text()[-4000:])
+            return self.addr
+
+    def stop(self):
+        """SIGTERM; the exit code (the child is killed past 60 s)."""
+        import signal
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def cli_run(addr, *argv):
+    """``python3 -m nomad_tpu_torch.cli -address ADDR ARGV``; its stdout
+    (a non-zero exit raises)."""
+    r = subprocess.run([sys.executable, "-m", "nomad_tpu_torch.cli",
+                        "-address", addr] + list(argv), cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, (argv, r.stdout, r.stderr)
+    return r.stdout
+
+
+def read_allocs(addr, job_ids):
+    """Every job's live allocs through GET /v1/job/<id>/allocations, as
+    {job id: {alloc name: [node id, normalized score]}}, AGENT_READERS
+    requests in flight (phase 19's reader process)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from nomad_tpu_torch.api.client import ApiClient
+    api = ApiClient(addr, timeout=SERVER_SETTLE_S)
+
+    def one(job_id):
+        return job_id, {
+            a["name"]: [a["node_id"], a["metrics"]["scores"][
+                f"{a['node_id']}.normalized-score"]]
+            for a in api.job_allocations(job_id)
+            if a["desired_status"] == "run"
+            and a["client_status"] not in ("complete", "failed", "lost")}
+    with ThreadPoolExecutor(AGENT_READERS) as ex:
+        return dict(ex.map(one, job_ids))
+
+
+def cli_alloc_statuses(addr, job_id):
+    """The Status column of `job status JOB`'s Allocations table."""
+    out = cli_run(addr, "job", "status", job_id)
+    rows = out.split("\nAllocations\n", 1)[1].splitlines()[1:]
+    return sorted(r.split()[-1] for r in rows if r.strip())
+
+
+def agent_settle(server, ids, job_ids, n_allocs, what):
+    """settle()'s condition, polled every 10 ms and counting the jobs'
+    allocs through the store's job index (a poll that walks every alloc
+    of the store, or spins, would take the interpreter from the server it
+    waits for)."""
+    def done():
+        st = server.broker.stats()
+        if st["total_ready"] or st["total_unacked"]:
+            return False
+        if any(server.state.eval_by_id(e).status == "pending" for e in ids):
+            return False
+        return sum(len(server.state.allocs_by_job("default", j))
+                   for j in job_ids) >= n_allocs
+    deadline = time.monotonic() + SERVER_SETTLE_S
+    while not done():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def http_round(api, route, kernels, jobs, to_jsonable):
+    """The paused protocol over HTTP: pause the broker, register
+    ``jobs`` as JSON, resume; the 32 evals reach one batch. Returns
+    (eval ids, t0 of the first registration)."""
+    cfg = "/v1/operator/scheduler/configuration"
+    api.post(cfg, {"scheduler_algorithm": "tpu-binpack",
+                   "pause_eval_broker": True})
+    t0 = time.perf_counter()
+    ids = [api.register_job(to_jsonable(j))["eval_id"] for j in jobs]
+    route.order = {e: k for k, e in enumerate(ids)}
+    route.reset()
+    kernels.reset_launches()
+    api.post(cfg, {"scheduler_algorithm": "tpu-binpack"})
+    return ids, t0
+
+
+def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
+    """The agent's entry points on the card (phase 19):
+      a. the dev agent as a process (python3 -m
+         nomad_tpu_torch.api.devagent --nodes 3 --tpu --port 0, on cuda):
+         three HCL jobs through the CLI's job run (a service job with a
+         spread: row 2; a batch job: row 1; a system job: row 4), their
+         allocs running and the batch job's complete (the mock driver's
+         run_for), node status listing its nodes, operator solver status
+         with the guard not degraded and mesh.devices 1, /v1/agent/self
+         with every stats block, the Prometheus text with the placement
+         counters, SIGTERM ending it with exit 0;
+      b. full width through HTTP: an HttpServer over a port Server
+         (tpu-binpack, batching at width 32, float32 on the card, TTL
+         3,600 s) holding the headline fleet (10,000 nodes, registered
+         in process as the dev agent's clients register), the broker
+         paused through the API, 32 mock.job jobs x 2,000 registered as
+         JSON through ApiClient, the broker resumed; every job's allocs
+         read back through /v1/job/<id>/allocations, placements (node
+         and normalized-score bits per alloc name) equal to a port
+         Server fed the same Job structs in process under the same
+         protocol (register_job from request-named threads: the same
+         eval ids); registration to last commit for both routes;
+      c. the card's fingerprint: FingerprintManager(probe_cuda=True)
+         reports gpu.count 1 and one nvidia/gpu device group named as
+         nvidia-smi names the card; the node registered on agent (a)
+         through HttpServerConn; an HCL job asking device "nvidia/gpu"
+         lands on it; the same ask at count 2 places one and blocks one;
+      d. /v1/agent/torch-profile on agent (a): started as the phase
+         starts (its CUPTI start-up, many seconds, overlaps step b), one
+         job through HTTP, stopped: the chrome trace names the
+         wave_block kernel.
+    The read-back of step b runs in a reader process
+    (``chip_smoke.py --read-allocs``) with AGENT_READERS requests in
+    flight, so its JSON decoding overlaps the handler's encoding.
+    ``launches`` (the kernels line's agent_launches) are (b)'s HTTP
+    round (the dev agent's kernels run in its own process)."""
+    from nomad_tpu_torch import mock as pmock
+    from nomad_tpu_torch import structs as st
+    from nomad_tpu_torch.api.client import ApiClient, HttpServerConn
+    from nomad_tpu_torch.api.http import HttpServer, to_jsonable
+    from nomad_tpu_torch.client import FingerprintManager
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.server import worker as worker_mod
+    from nomad_tpu_torch.state.store import StateStore
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "agent-phase"
+    work.mkdir(parents=True, exist_ok=True)
+    report = {}
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    g0 = guard.state()
+
+    def count_launches():
+        for k in kernels.KERNELS:
+            launches[k.name] += k.launches
+
+    # a. the dev agent starts first: its start-up overlaps step b
+    # no --device: the agent asks for the card (cpu only in a rehearsal)
+    agent = AgentProcess(["--nodes", str(AGENT_NODES), "--tpu", "--port",
+                          "0"] + (["--device", "cpu"] if DEVICE == "cpu"
+                                  else []), work)
+    trace_dir = work / "torch-trace"
+    prof = {}
+
+    def start_profile():
+        # d. the profiler starts as soon as the agent serves
+        try:
+            addr = agent.address(AGENT_SETTLE_S)
+            t0 = time.perf_counter()
+            prof["start"] = ApiClient(addr, timeout=AGENT_SETTLE_S).post(
+                "/v1/agent/torch-profile",
+                {"action": "start", "dir": str(trace_dir)})
+            prof["start_s"] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 -- raised in step d
+            prof["error"] = e
+    profiler = threading.Thread(target=start_profile, daemon=True,
+                                name="agent-profile-start")
+    profiler.start()
+    try:
+        # -- b. full width through HTTP ----------------------------------
+        def fleet_server():
+            store = StateStore()
+            store.set_scheduler_config(st.SchedulerConfiguration(
+                scheduler_algorithm=st.SCHED_ALG_TPU_BINPACK))
+            server = Server(state=store, device=DEVICE,
+                            batch_width=SERVER_WIDTH, heartbeat_ttl=3600.0)
+            return server
+
+        def make_jobs():
+            jobs = []
+            for e in range(N_EVALS):
+                j = pmock.job(id=f"agent-job-{e:02d}")
+                j.task_groups[0].count = N_PLACE
+                jobs.append(j)
+            return jobs
+
+        def register_fleet(server):
+            for node in struct_fleet(pmock, N_NODES):
+                server.register_node(node)
+
+        server = fleet_server()
+        http = None
+        try:
+            with ServerRoute(server, worker_mod, batch, lpq) as route:
+                server.start()
+                register_fleet(server)
+                http = HttpServer(server, port=0)
+                http.start()
+                api = ApiClient(f"http://127.0.0.1:{http.port}",
+                                timeout=300.0)
+                st.reseed_ids(SEED + 19)
+                jobs = make_jobs()
+                ids, t0 = http_round(api, route, kernels, jobs,
+                                     to_jsonable)
+                agent_settle(server, ids, [j.id for j in jobs],
+                             N_EVALS * N_PLACE, "agent http round")
+                count_launches()
+                http_ms = (max(route.commit_end) - t0) * 1e3
+                assert route.nacks == 0, route.nacked
+                t_read = time.perf_counter()
+                r = subprocess.run(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--read-allocs", api.address]
+                    + [j.id for j in jobs], cwd=ROOT, capture_output=True,
+                    text=True, timeout=SERVER_SETTLE_S, check=True)
+                rows = json.loads(r.stdout)
+                got = {eid: {name: (node, struct_score_bits(score), [])
+                             for name, (node, score) in rows[j.id].items()}
+                       for j, eid in zip(jobs, ids)}
+                read_s = time.perf_counter() - t_read
+                assert got == server_allocs(server.state, ids)
+                n_placed = sum(len(m) for m in got.values())
+                assert n_placed == N_EVALS * N_PLACE, n_placed
+                http_sum = route.summary(
+                    "agent http", card, t0, n_placed, N_EVALS,
+                    SimpleNamespace(sections=dict))
+        finally:
+            if http is not None:
+                http.shutdown()
+            server.shutdown()
+
+        # the compared route: the same Job structs in process
+        direct = fleet_server()
+        try:
+            with ServerRoute(direct, worker_mod, batch, lpq) as route:
+                direct.start()
+                register_fleet(direct)
+                pause = st.SchedulerConfiguration(
+                    scheduler_algorithm=st.SCHED_ALG_TPU_BINPACK,
+                    pause_eval_broker=True)
+                direct.apply_scheduler_config(pause)
+                st.reseed_ids(SEED + 19)
+                djobs = make_jobs()
+                t0 = time.perf_counter()
+                dids = []
+                for j in djobs:
+                    out = {}
+                    t = threading.Thread(target=lambda j=j: out.update(
+                        ev=direct.register_job(j)), name="http-request")
+                    t.start()
+                    t.join()
+                    dids.append(out["ev"].id)
+                assert dids == ids, "eval ids differ between the routes"
+                route.order = {e: k for k, e in enumerate(dids)}
+                route.reset()
+                direct.apply_scheduler_config(st.SchedulerConfiguration(
+                    scheduler_algorithm=st.SCHED_ALG_TPU_BINPACK))
+                agent_settle(direct, dids, [j.id for j in djobs],
+                             N_EVALS * N_PLACE, "agent in-process round")
+                direct_ms = (max(route.commit_end) - t0) * 1e3
+                want = server_allocs(direct.state, dids)
+        finally:
+            direct.shutdown()
+        diff = {e: sum(want[e].get(n) != v for n, v in got[e].items())
+                for e in ids}
+        assert got == want, ("HTTP placements != the in-process route's",
+                             {e: d for e, d in diff.items() if d})
+        report["http"] = dict(
+            evals=N_EVALS, placements=n_placed,
+            registration_to_last_commit_ms=http_ms,
+            in_process_ms=direct_ms, read_back_s=read_s,
+            placements_per_s=http_sum["placements_per_s"],
+            per_eval=http_sum["per_eval"], applier=http_sum["applier"])
+        log(f"agent http [{card}]: {n_placed} placements through "
+            f"POST /v1/jobs, registration to last commit {http_ms:.1f} ms "
+            f"(in process {direct_ms:.1f} ms), read back through "
+            f"/v1/job/<id>/allocations in {read_s:.2f} s, equal to the "
+            "in-process route bit for bit")
+
+        # -- d. the profiler around one job through the agent's API -----
+        t_a = time.perf_counter()
+        profiler.join(AGENT_SETTLE_S)
+        assert not profiler.is_alive(), "the profiler did not start"
+        if "error" in prof:
+            raise prof["error"]
+        assert prof["start"]["tracing"] is True, prof
+        addr = agent.address(AGENT_SETTLE_S)
+        aapi = ApiClient(addr, timeout=120.0)
+
+        def poll(cond, what):
+            deadline = time.monotonic() + AGENT_SETTLE_S
+            while not cond():
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"timed out waiting for {what}")
+                time.sleep(0.05)
+
+        def statuses(job_id):
+            return sorted(a["client_status"]
+                          for a in aapi.job_allocations(job_id))
+
+        poll(lambda: len(aapi.nodes()) == AGENT_NODES, "the agent's nodes")
+        tp1 = time.perf_counter()
+        aapi.register_job_hcl(AGENT_PROFILED_HCL)
+        poll(lambda: statuses("agent-profiled") == ["running"]
+             * AGENT_PROFILE_PLACE, "the profiled job running")
+        tp2 = time.perf_counter()
+        reply = aapi.post("/v1/agent/torch-profile",
+                          {"action": "stop", "dir": str(trace_dir)})
+        tp3 = time.perf_counter()
+        trace = json.loads(Path(reply["trace"]).read_text())
+        kernels_ev = [ev for ev in trace.get("traceEvents", [])
+                      if ev.get("cat") == "kernel"]
+        names = sorted({ev.get("name", "") for ev in kernels_ev})
+        assert any("wave_block" in n for n in names), names[:20]
+        kernel_us = sum(ev.get("dur", 0) for ev in kernels_ev)
+        # the job's device window: its first kernel to its last
+        k0 = min(ev["ts"] for ev in kernels_ev)
+        k1 = max(ev["ts"] + ev.get("dur", 0) for ev in kernels_ev)
+        report["profile"] = dict(
+            trace=str(Path(reply["trace"]).relative_to(ROOT)),
+            kernels=names, kernel_events=len(kernels_ev),
+            kernel_us=kernel_us, kernel_window_us=k1 - k0,
+            events=len(trace["traceEvents"]), start_s=prof["start_s"],
+            job_s=tp2 - tp1, stop_s=tp3 - tp2)
+        log(f"agent profile [{card}]: kernels in the trace {names}, "
+            f"{kernel_us:.1f} us of kernel time, {len(kernels_ev)} kernel "
+            f"events over {(k1 - k0) / 1e3:.3f} ms; "
+            f"{len(trace['traceEvents'])} events; start "
+            f"{prof['start_s']:.2f} s (overlapped), the job "
+            f"{tp2 - tp1:.2f} s, stop and export {tp3 - tp2:.2f} s")
+
+        # -- a. the dev agent, through the CLI ---------------------------
+
+        for name, src, n in (("agent-service", AGENT_SERVICE_HCL, 3),
+                             ("agent-batch", AGENT_BATCH_HCL, 3),
+                             ("agent-system", AGENT_SYSTEM_HCL,
+                              AGENT_NODES)):
+            path = work / f"{name}.nomad"
+            path.write_text(src)
+            assert "Evaluation" in cli_run(addr, "job", "run", str(path))
+            poll(lambda name=name, n=n: statuses(name) == ["running"] * n,
+                 f"{name}'s allocs running")
+            assert cli_alloc_statuses(addr, name) == ["running"] * n
+        svc_nodes = {a["node_id"] for a in
+                     aapi.job_allocations("agent-service")}
+        assert len(svc_nodes) == AGENT_NODES, svc_nodes   # the spread
+        poll(lambda: statuses("agent-batch") == ["complete"] * 3,
+             "the agent's batch job complete")
+        assert cli_alloc_statuses(addr, "agent-batch") == ["complete"] * 3
+        out = cli_run(addr, "node", "status")
+        assert out.count("ready") == AGENT_NODES, out
+        out = cli_run(addr, "operator", "solver", "status")
+        lines = {ln.split("=")[0].strip(): ln.split("=", 1)[1].strip()
+                 for ln in out.splitlines() if "=" in ln}
+        assert lines["degraded"] == "False", out
+        if DEVICE == "cuda":
+            # the init probe ran and saw the one card
+            assert lines["ok"] == "True" and lines["checked"] == "True", \
+                out
+            assert lines["mesh.devices"] == "1", out
+        assert int(lines["dispatch.ok"]) >= 3, out
+        self_info = aapi.get("/v1/agent/self")
+        assert set(self_info["stats"]) == set(AGENT_SELF_BLOCKS), \
+            sorted(self_info["stats"])
+        import urllib.request
+        with urllib.request.urlopen(
+                f"{addr}/v1/metrics?format=prometheus", timeout=60) as r:
+            prom = r.read().decode()
+        placed_tpu = [ln for ln in prom.splitlines()
+                      if ln.startswith("nomad_scheduler_placements_tpu ")]
+        assert placed_tpu and float(placed_tpu[0].split()[1]) >= 9, \
+            placed_tpu
+        report["devagent"] = dict(
+            seconds=time.perf_counter() - t_a,
+            placements_tpu=float(placed_tpu[0].split()[1]),
+            dispatch_ok=int(lines["dispatch.ok"]))
+
+        # -- c. the card's fingerprint, registered on the agent ----------
+        smi_name = card.split(",")[0].strip()
+        gnode = FingerprintManager(data_dir=str(work), probe_cuda=True
+                                   ).fingerprint_node(name="agent-gpu-node")
+        assert gnode.attributes["gpu.count"] == "1", gnode.attributes
+        (group,) = gnode.node_resources.devices
+        assert (group.vendor, group.type, group.name) == (
+            "nvidia", "gpu", smi_name), (group, smi_name)
+        assert len(group.instance_ids) == 1
+        # the node agent's driver fingerprint (its mock driver), as a
+        # client agent adds its drivers' before registering
+        gnode.drivers["mock"] = st.DriverInfo(detected=True, healthy=True)
+        gnode.compute_class()
+        conn = HttpServerConn(addr)
+        conn.register_node(gnode)
+        beat = threading.Event()
+
+        def heartbeats():
+            while not beat.wait(1.0):
+                conn.heartbeat(gnode.id)
+        hb = threading.Thread(target=heartbeats, daemon=True,
+                              name="agent-gpu-heartbeat")
+        hb.start()
+        try:
+            one = work / "gpu-one.nomad"
+            one.write_text(AGENT_GPU_HCL % ("gpu-one", 1))
+            cli_run(addr, "job", "run", str(one))
+            poll(lambda: len(aapi.job_allocations("gpu-one")) == 1,
+                 "the device job placed")
+            (a1,) = aapi.job_allocations("gpu-one")
+            assert a1["node_id"] == gnode.id, a1["node_id"]
+            devs = [d for t in a1["allocated_resources"]["tasks"].values()
+                    for d in t["devices"]]
+            assert [d["device_ids"] for d in devs] == \
+                [group.instance_ids], devs
+            # the job stopped, and the node agent reports its alloc
+            # complete: the card is free again
+            cli_run(addr, "job", "stop", "gpu-one")
+            poll(lambda: [a["desired_status"] for a in
+                          aapi.job_allocations("gpu-one")] == ["stop"],
+                 "the device job stopped")
+            allocs, _ = conn.pull_allocs(gnode.id, 0, 5.0)
+            done = [x for x in allocs if x.job_id == "gpu-one"]
+            for x in done:
+                x.client_status = "complete"
+            conn.update_allocs(done)
+            two = work / "gpu-two.nomad"
+            two.write_text(AGENT_GPU_HCL % ("gpu-two", 2))
+            cli_run(addr, "job", "run", str(two))
+            poll(lambda: any(e["status"] == "blocked" for e in
+                             aapi.job_evaluations("gpu-two")),
+                 "the second device alloc blocked")
+            placed = aapi.job_allocations("gpu-two")
+            assert [a["node_id"] for a in placed] == [gnode.id], placed
+            report["fingerprint"] = dict(
+                name=group.name, instance_ids=group.instance_ids,
+                memory_mib=group.attributes["memory_mib"],
+                gpu_count=gnode.attributes["gpu.count"],
+                placed_two=len(placed),
+                blocked=sum(e["status"] == "blocked" for e in
+                            aapi.job_evaluations("gpu-two")))
+        finally:
+            beat.set()
+            hb.join()
+        log(f"agent [{card}]: dev agent at {addr}: service/batch/system "
+            f"through the CLI, solver status not degraded with "
+            f"mesh.devices 1; fingerprint {group.vendor}/{group.type}/"
+            f"{group.name} x{len(group.instance_ids)}, the device job on "
+            "it, the count-2 ask one placed and one blocked")
+    finally:
+        rc = agent.stop()
+    assert rc == 0, ("the dev agent's exit code", rc,
+                     agent.err_path.read_text()[-4000:])
+    report["devagent"]["exit"] = rc
+
+    g1 = guard.state()
+    report["host_fallbacks"] = (g1["host_fallback_dispatches"]
+                                - g0["host_fallback_dispatches"])
+    assert report["host_fallbacks"] == 0, report["host_fallbacks"]
+    assert not any(g1["dispatch"][k] - g0["dispatch"][k]
+                   for k in ("timeout", "error"))
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"agent [{card}]: launches {launches}; phase "
+        f"{report['seconds']:.1f} s")
+    assert launches["wave_block"] >= 2, launches
     return report
 
 
@@ -8624,11 +9225,21 @@ def main(argv=None) -> int:
                     metavar="NAME,...",
                     help="A/B mode: the kernels to time (default all of "
                     + ", ".join(AB_SOURCES) + ")")
+    ap.add_argument("--read-allocs", nargs="+", default=None,
+                    metavar="ADDR JOB",
+                    help="print the live allocs of each JOB of the agent "
+                    "at ADDR as JSON (phase 19's reader process)")
     ap.add_argument("--ab-max-spreads", type=int, default=None,
                     metavar="S",
                     help="A/B mode: only the cases with at most S spreads "
                     "(a tree whose kernel takes fewer)")
     args = ap.parse_args(argv)
+    if args.read_allocs:
+        # a client of an agent another process serves: no card needed
+        sys.path.insert(0, str(ROOT))
+        print(json.dumps(read_allocs(args.read_allocs[0],
+                                     args.read_allocs[1:])))
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -8738,6 +9349,8 @@ def main(argv=None) -> int:
                   lpq, kernels, svc, tp, world, card)
     ldres = phase("leader", leader_phase, np, torch, batch, guard,
                   kernels, svc, tp, card)
+    agres = phase("agent", agent_phase, np, torch, batch, guard, lpq,
+                  kernels, svc, tp, card)
 
     def pick(kname, **kw):
         return next(r for r in kres if r["name"] == kname
@@ -8774,6 +9387,7 @@ def main(argv=None) -> int:
             server_launches=svres["launches"].get(k.name, 0),
             telemetry_launches=tlres["launches"].get(k.name, 0),
             leader_launches=ldres["launches"].get(k.name, 0),
+            agent_launches=agres["launches"].get(k.name, 0),
             max_abs_err=max(x["max_abs_err"] for x in kres
                             if x["name"] == k.name),
             ms=r["ms"], device_ms=r.get("device_ms"),
@@ -8791,6 +9405,7 @@ def main(argv=None) -> int:
                   mesh_lp=mlres, mesh_residency=mrres, dispatch=dlres,
                   structs=stres, scheduler=scres, server=svres,
                   telemetry=tlres, sanitizers=snres, leader=ldres,
+                  agent=agres,
                   build_s=info["seconds"], phase_s=phase_s,
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")

@@ -79,8 +79,6 @@ import warnings
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
-import torch
-
 from . import schedcheck as _seam
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -276,6 +274,7 @@ def note_launch(name: str, dtype, tensors, ints,
     launcher that exports its cluster size (``host_setup``)."""
     if not _ACTIVE:
         return
+    import torch
     shapes = tuple(tuple(t.shape) for t in tensors if type(t) is not int)
     sig = (str(dtype).replace("torch.", ""), shapes,
            tuple(int(v) for v in ints))
@@ -333,6 +332,7 @@ def note_dispatch_begin(label: str = "", device=None) -> None:
     """guard.run_dispatch's runner entry (on the runner thread): host
     syncs until note_dispatch_end are hot-path syncs. ``device`` is the
     dispatch's device: fetches of tensors on it are the syncs."""
+    import torch
     if not _ACTIVE:
         return
     st = _tls_state()
@@ -351,6 +351,7 @@ def note_dispatch_begin(label: str = "", device=None) -> None:
 
 
 def note_dispatch_end() -> None:
+    import torch
     if not _ACTIVE:
         return
     st = _tls_state()
@@ -442,6 +443,7 @@ def _note_sync(kind: str, st: dict) -> None:
 
 def _cpu_target(args, kwargs) -> bool:
     """Whether a ``Tensor.to`` call moves the tensor onto the CPU."""
+    import torch
     cands = list(args[:1]) + [kwargs.get("device")]
     for c in cands:
         if isinstance(c, torch.Tensor):
@@ -630,6 +632,7 @@ def enabled() -> bool:
 
 
 def _patch_keys():
+    import torch
     return ([(torch.Tensor, n) for n in _FETCH_FORMS]
             + [(warnings, "showwarning")])
 
@@ -637,6 +640,7 @@ def _patch_keys():
 def enable() -> None:
     """Patch the Tensor fetch forms and the warnings hook (refused when
     another owner's patch is on them) and start recording."""
+    import torch
     global _ACTIVE, _stack_depth, _max_reports, _rehash_n
     with _slock:
         if _ACTIVE:
@@ -664,6 +668,7 @@ def enable() -> None:
 
 def disable() -> None:
     """Restore the originals."""
+    import torch
     global _ACTIVE
     if not _ACTIVE:
         return

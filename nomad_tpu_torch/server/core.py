@@ -516,14 +516,19 @@ class Server:
         ``reblock`` False a blocked eval is enqueued instead (it blocks
         again if capacity still lacks): a broker resumed after a pause
         may have dropped capacity events meanwhile."""
+        ready = []
         for ev in self.state.evals():
             if ev.status == EVAL_STATUS_BLOCKED:
                 if reblock:
                     self.blocked_evals.block(ev)
                 else:
-                    self.broker.enqueue(ev)
+                    ready.append(ev)
             elif ev.should_enqueue():
-                self.broker.enqueue(ev)
+                ready.append(ev)
+        # one call: a batch worker takes the restored burst whole, as it
+        # takes any burst enqueued at once (the reference enqueues one
+        # eval at a time, so a worker may split it)
+        self.broker.enqueue_all(ready)
 
     def _initialize_heartbeat_timers(self) -> None:
         """(reference :545; upstream: heartbeat.go:59) A new leader owns

@@ -177,6 +177,16 @@ def backend_available(timeout_s: float = 0.0, device=None) -> bool:
     return ok
 
 
+def cards_seen() -> int:
+    """The card count the init probe reported, 0 before it ran or when
+    it found none. A flag read: it never touches CUDA itself."""
+    checked, ok = _FLAGS
+    result = _PROBE["result"]
+    if not (checked and ok) or result is None:
+        return 0
+    return int(result["n"])
+
+
 def dispatch_allowed(device=None) -> bool:
     """Should an eval dispatch to ``device`` now? False while init is
     down or the breaker is not closed (half-open included: recovery is
@@ -614,9 +624,12 @@ def reprobe(timeout_s: Optional[float] = None) -> dict:
 
 def state() -> dict:
     """The guard's snapshot: init flags, breaker, dispatch counters, the
-    dispatch pipeline, the resident set and the stack arena. ``degraded``
+    dispatch pipeline, the resident set, the pack caches, the stack
+    arena, the pack's time and memo counts, and the mesh route
+    (``service.mesh_status``). ``degraded``
     is True whenever init is down or the breaker is not closed."""
-    from . import batch, resident
+    from ..tensor.pack import pack_cache_stats
+    from . import batch, resident, service
     with _LOCK:
         snap = {k: _STATE[k] for k in
                 ("checked", "ok", "probe_started_at", "probe_timeout_s",
@@ -629,12 +642,21 @@ def state() -> dict:
     snap["placements_host_fallback"] = counts["placements_host_fallback"]
     snap["recovered_total"] = counts["backend_recovered"]
     snap["breaker"] = breaker
+    msnap = metrics.snapshot()
+    series = msnap.get("counters", {})
     snap["dispatch"] = {"ok": counts["dispatch_ok"],
                         "timeout": counts["dispatch_timeout"],
                         "error": counts["dispatch_error"]}
     snap["resident"] = resident.stats()
     snap["dispatch_pipeline"] = batch.pipeline_state()
+    snap["pack_cache"] = pack_cache_stats()
     snap["pack_arena"] = batch.arena_state()
+    snap["pack"] = {
+        "ms": msnap.get("samples", {}).get("nomad.solver.pack_ms", {}),
+        "cache_hit": series.get("nomad.solver.pack_cache_hit", 0),
+        "cache_miss": series.get("nomad.solver.pack_cache_miss", 0),
+    }
+    snap["mesh"] = service.mesh_status()
     snap["degraded"] = bool(
         (snap["checked"] and not snap["ok"])
         or breaker["state"] != BREAKER_CLOSED)

@@ -521,6 +521,32 @@ def tg_solver_eligible(tg, job=None, preempt: bool = False) -> bool:
     return True
 
 
+def mesh_status() -> dict:
+    """The mesh route at a glance (reference :250), for guard.state():
+    the NOMAD_TPU_TORCH_MESH switch, the card count, the (evals, nodes)
+    grid ``pick_mesh`` would give a dense 8-lane batch over 256 nodes on
+    those cards, and the mesh dispatch counters of the dense and LP
+    routes. The count is the guard's probe result: this never starts a
+    CUDA init, so before the first dispatch it reads 0 and no grid."""
+    from ..parallel.mesh import mesh_enabled, pick_mesh
+    from . import guard
+
+    counters = metrics.snapshot().get("counters", {})
+    out = {
+        "enabled": mesh_enabled(),
+        "devices": guard.cards_seen(),
+        "grid": None,
+        "dispatches": counters.get("nomad.solver.mesh_dispatches", 0),
+        "lpq_dispatches": counters.get("nomad.lpq.mesh_dispatches", 0),
+    }
+    if out["enabled"] and out["devices"] > 1:
+        grid = pick_mesh(8, 256, [f"cuda:{i}"
+                                  for i in range(out["devices"])])
+        if grid is not None:
+            out["grid"] = list(grid.shape)
+    return out
+
+
 def _pos_index(matrix) -> Dict[str, int]:
     """node id -> original position, memoized on the matrix."""
     pos_of = matrix.__dict__.get("_pos_index")

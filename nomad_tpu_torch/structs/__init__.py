@@ -4,6 +4,7 @@ jobs, allocations, evaluations, deployments, plans, plan results, the
 scheduler configuration and namespaces. Class and field names equal the
 reference's, so carry.struct_from_reference can map a reference struct
 onto its port class by name."""
+from . import codec  # noqa: F401
 from .resources import (  # noqa: F401
     AllocatedDeviceResource, AllocatedPortMapping, AllocatedResources,
     AllocatedSharedResources, AllocatedTaskResources, ComparableResources,
@@ -14,7 +15,7 @@ from .resources import (  # noqa: F401
 )
 from .job import (  # noqa: F401
     Affinity, Constraint, EphemeralDisk, Job, LogConfig, MigrateStrategy,
-    PeriodicConfig, ReschedulePolicy, RestartPolicy, Service, Spread, SpreadTarget, Task,
+    ParameterizedJobConfig, PeriodicConfig, ReschedulePolicy, RestartPolicy, Service, Spread, SpreadTarget, Task,
     TaskGroup, UpdateStrategy, VolumeRequest, generate_uuid, reseed_ids,
     JOB_TYPE_SERVICE, JOB_TYPE_BATCH, JOB_TYPE_SYSTEM, JOB_TYPE_SYSBATCH,
     JOB_STATUS_PENDING, JOB_STATUS_RUNNING, JOB_STATUS_DEAD,

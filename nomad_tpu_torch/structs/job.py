@@ -335,6 +335,17 @@ class PeriodicConfig:
 
 
 @dataclass
+class ParameterizedJobConfig:
+    """A parameterized job's dispatch contract (reference:
+    structs/job.py:391; upstream: structs.ParameterizedJobConfig). The
+    jobspec parses it; dispatching is not part of the port's server."""
+
+    payload: str = "optional"     # optional | required | forbidden
+    meta_required: List[str] = field(default_factory=list)
+    meta_optional: List[str] = field(default_factory=list)
+
+
+@dataclass
 class Job:
     """The unit of submission (reference: structs.Job)."""
 
@@ -352,8 +363,8 @@ class Job:
     spreads: List[Spread] = field(default_factory=list)
     task_groups: List[TaskGroup] = field(default_factory=list)
     update: Optional[UpdateStrategy] = None
-    periodic: Optional[object] = None
-    parameterized: Optional[object] = None
+    periodic: Optional[PeriodicConfig] = None
+    parameterized: Optional[ParameterizedJobConfig] = None
     multiregion: Optional[object] = None
     payload: bytes = b""
     meta: Dict[str, str] = field(default_factory=dict)

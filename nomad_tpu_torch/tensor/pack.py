@@ -279,6 +279,7 @@ def pack_cache_stats() -> dict:
         out = dict(_PACK_STATS)
     with _NODE_MATRIX_LOCK:
         out["matrix_entries"] = len(_NODE_MATRIX_CACHE)
+    out["enabled"] = pack_cache_enabled()
     return out
 
 

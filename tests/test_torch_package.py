@@ -98,6 +98,36 @@ def test_dispatch_layer_modules_load_no_jax_and_nothing_of_the_reference(
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["nomad_tpu_torch.api",
+                                    "nomad_tpu_torch.api.client",
+                                    "nomad_tpu_torch.api.config",
+                                    "nomad_tpu_torch.api.devagent",
+                                    "nomad_tpu_torch.api.http",
+                                    "nomad_tpu_torch.cli",
+                                    "nomad_tpu_torch.client",
+                                    "nomad_tpu_torch.client.agent",
+                                    "nomad_tpu_torch.client.fingerprint",
+                                    "nomad_tpu_torch.client.numalib",
+                                    "nomad_tpu_torch.jobspec",
+                                    "nomad_tpu_torch.tlsutil",
+                                    "nomad_tpu_torch.structs.codec"])
+def test_agent_modules_load_no_jax_and_nothing_of_the_reference(module):
+    """The agent's entry points (the API, the CLI, the jobspec, the node
+    side) stand alone too, and none of them starts CUDA at import."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.cuda.init = lambda: sys.exit('CUDA initialized')\n"
+        f"import {module}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad or torch.cuda.is_initialized() else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 @pytest.mark.parametrize("module", ["nomad_tpu_torch.structs",
                                     "nomad_tpu_torch.mock",
                                     "nomad_tpu_torch.carry",
