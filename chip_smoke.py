@@ -266,9 +266,9 @@ Phases (any failure raises and the script exits nonzero with no result):
                 (decision mismatches 0, score drift within 1e-3), and
                 the quality.skew drill latching its alert; a failed
                 acknowledgement's alloc-failure reschedule through
-                wave_compact; the measured round again on fresh stores
-                with the three kill switches off and on in turn, the
-                placements equal bit for bit. Prints the slowest eval's
+                wave_compact; a round of 8 evals x 2,000 on fresh
+                stores with the three kill switches off and on in turn,
+                the placements equal bit for bit. Prints the slowest eval's
                 waterfall, the saturation report's busy shares, the
                 ledger's fields, transfer fit and residency, and each
                 cost round's wall time and placements/s.
@@ -299,12 +299,21 @@ Phases (any failure raises and the script exits nonzero with no result):
                 phase heartbeats the other 9,900: exactly those go down,
                 every lost alloc is replaced once on other nodes by the
                 kernels, 0 plans rejected, and a node flapping three
-                times is held down by the quarantine; 6 nodes drained
+                times is held down by the quarantine; 3 nodes drained
                 at max_parallel 1 (every alloc migrated, every drain
                 complete); 24 jobs stopped and acknowledged, GC's
                 watermark pass and a table compaction, then 4 evals x
                 2,000 packed both ways again; a worker.crash the
-                supervisor restarts, its eval placed after its lease.
+                supervisor restarts, its eval placed after its lease;
+                then the job operations through the HTTP API on that
+                loaded server (10,000 nodes, ~24,000 live allocs): a job
+                plan of 2,000 (a dry run of the scheduler and the kernels
+                on a copy of the state, the live store unchanged) and of
+                an ask no node holds (the exhausted dimension named), the
+                planned job run, scaled to 2,500, refused at 3,000 and
+                scaled to 1,000 (no launch), and a parameterized job
+                dispatched (2,000 on the card; the idempotency token; a
+                missing meta key refused).
  19. agent    -- the agent's entry points on the card: the dev agent as a
                 process (python3 -m nomad_tpu_torch.api.devagent --nodes
                 3 --tpu --port 0, on cuda) driven through the CLI (python3
@@ -326,7 +335,8 @@ Phases (any failure raises and the script exits nonzero with no result):
                 it, the same ask at count 2 one placed and one blocked;
                 the dev agent's /v1/agent/torch-profile around one job
                 through HTTP, its chrome trace naming the wave_block
-                kernel.
+                kernel; operator snapshot save and restore of the dev
+                agent through the CLI, then a job placed by its kernels.
   Phases 4-16, 18 and 19 reset the launch counts just before and read them
   just after; they check every placement made, no node over capacity (cores
   never below zero, the distinct_property limit held), and results equal
@@ -339,8 +349,9 @@ Phases (any failure raises and the script exits nonzero with no result):
   phase 15's server runs (the Harness and direct routes its checks
   compare with run outside the count); its ``telemetry_launches`` phase
   16's warm and measured rounds, audit jobs and reschedule (its cost
-  rounds outside the count); its ``leader_launches`` phase 18's whole
-  run; its ``agent_launches`` phase 19's HTTP round (the in-process route
+  rounds outside the count); its ``leader_launches`` phase 18's steps
+  1-5; its ``job_ops_launches`` phase 18's step 6 (the job operations);
+  its ``agent_launches`` phase 19's HTTP round (the in-process route
   it compares with, and the dev agent's own process, outside the count).
 
 Prints a full JSON report line, the card line, a {"kernels": [...]} line,
@@ -6326,9 +6337,11 @@ def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
 
 
 TEL_AUDIT_JOBS, TEL_AUDIT_PLACE = 1, 40     # the audit's simple jobs
-TEL_SKEW_JOBS = 3                    # the skew drill's: the alert's default
+TEL_SKEW_JOBS = 1                    # the skew drill's (and its alert's
+                                     # threshold, ALERT_AFTER: default 3)
                                      # threshold (QUALITY_ALERT_AFTER)
 TEL_COST_ROUNDS = 1                  # measured rounds per switch setting
+TEL_COST_EVALS = 8                   # a cost round's evals (x N_PLACE)
 TEL_SPANS = ("broker.wait", "worker.wait_for_index", "worker.invoke",
              "solver.pack", "solver.barrier", "solver.fuse_dispatch",
              "solver.materialize", "plan.submit", "plan.evaluate",
@@ -6394,15 +6407,16 @@ def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
          = 1 and TEL_AUDIT_JOBS simple jobs x TEL_AUDIT_PLACE: every
          kernel solve replayed on the host, decision mismatches 0 and
          score drift within the tolerance (1e-3); then quality.skew armed
-         and TEL_SKEW_JOBS jobs: the alert latches after ALERT_AFTER
-         (3) violating audits;
+         and TEL_SKEW_JOBS jobs with NOMAD_TPU_TORCH_QUALITY_ALERT_AFTER
+         set to their number: the alert latches after that many
+         violating audits;
       3. a failed acknowledgement: one audit alloc acknowledged failed
          (its job reschedules at once) enqueues an alloc-failure eval,
          whose lane carries the penalty and launches wave_compact;
-      4. the cost: the measured round alone on a fresh fleet store, with
-         the three kill switches off and on in turn (TEL_COST_ROUNDS of
-         each), placements and normalized-score bits equal in
-         every round; wall ms (evals written to the last commit) and
+      4. the cost: a round of TEL_COST_EVALS evals x N_PLACE alone on a
+         fresh fleet store, with the three kill switches off and on in
+         turn (TEL_COST_ROUNDS of each), placements and normalized-score
+         bits equal in every round; wall ms (evals written to the last commit) and
          placements/s printed for each, and the difference of the means.
     Prints the slowest measured eval's waterfall, the saturation report's
     busy shares, the ledger's bench fields, its transfer fit and the
@@ -6635,7 +6649,9 @@ def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
             # an idle worker re-binds its barrier hook once a dequeue
             # times out (0.5 s): after 1 s none holds the route's
             time.sleep(1.0)
-            with EnvPatch(NOMAD_TPU_TORCH_QUALITY_AUDIT_SAMPLE="1"):
+            with EnvPatch(NOMAD_TPU_TORCH_QUALITY_AUDIT_SAMPLE="1",
+                          NOMAD_TPU_TORCH_QUALITY_ALERT_AFTER=str(
+                              TEL_SKEW_JOBS)):
                 ajobs = make_jobs("tel-audit", TEL_AUDIT_JOBS,
                                   TEL_AUDIT_PLACE, now=True)
                 register_each(server, ajobs, "audit jobs")
@@ -6665,6 +6681,7 @@ def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
                 drill = observatory.audit.report()
                 assert drill["alert"] is not None, drill
                 assert drill["alert"]["reason"] == "score_drift", drill
+                assert drill["alert_after"] == TEL_SKEW_JOBS, drill
                 assert drill["alert"]["at_audit"] == audit["audited"] + \
                     drill["alert_after"], drill
                 report["skew_drill"] = dict(alert=drill["alert"],
@@ -6758,7 +6775,7 @@ def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
         with EnvPatch(**env):
             telemetry_reset(metrics, tracer, xferobs, observatory)
             tp.reset_pack_caches()
-            jobs = make_jobs("tel-job", N_EVALS, N_PLACE)
+            jobs = make_jobs("tel-job", TEL_COST_EVALS, N_PLACE)
             cstore = fleet_store(jobs)
             cserver = Server(state=cstore, device=DEVICE,
                              batch_width=SERVER_WIDTH, heartbeat_ttl=3600.0)
@@ -6769,7 +6786,8 @@ def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
                         (setting == "off")
                     evals = [sched_eval(st, j, f"tel-eval-{e:016d}")
                              for e, j in enumerate(jobs)]
-                    t0, t1 = run(route, cserver, evals, N_EVALS * N_PLACE,
+                    t0, t1 = run(route, cserver, evals,
+                                 TEL_COST_EVALS * N_PLACE,
                                  f"cost round ({setting})")
                     got = server_allocs(cstore, [ev.id for ev in evals])
                     if setting == "off":
@@ -6782,10 +6800,10 @@ def telemetry_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
             assert observatory.audit.wait_idle(timeout=600.0)
         wall = (t1 - t0) * 1e3
         cost[setting].append(dict(wall_ms=wall, placements_per_s=(
-            N_EVALS * N_PLACE) / (wall / 1e3)))
+            TEL_COST_EVALS * N_PLACE) / (wall / 1e3)))
         placed.append(got)
         log(f"telemetry cost round [{card}]: switches {setting}, wall "
-            f"{wall:.1f} ms, {N_EVALS * N_PLACE / (wall / 1e3):.0f} "
+            f"{wall:.1f} ms, {TEL_COST_EVALS * N_PLACE / (wall / 1e3):.0f} "
             "placements/s")
     assert all(p == placed[0] for p in placed[1:]), \
         "placements differ between kill-switch settings"
@@ -7151,13 +7169,18 @@ LEADER_TTL_S = 12.0                 # the heartbeat step's TTL: a round
                                     # fan-out's load stays well inside
 LEADER_PUMP_S = 1.0                 # the phase's heartbeat round
 LEADER_SILENT = 100                 # nodes let go silent
-LEADER_DRAIN = 6                    # nodes drained, max_parallel 1
+LEADER_DRAIN = 3                    # nodes drained, max_parallel 1
 LEADER_DONE_JOBS = 24               # jobs whose allocs end complete
 LEADER_GC_KEEP = 1_000              # the GC watermark (terminal kept)
 LEADER_GC_EVALS = 4                 # the generation after the compaction
 LEADER_CRASH_PLACE = 100            # the supervisor drill's job
 LEADER_NACK_S = 2.0                 # the drill's lease
 LEADER_SETTLE_S = 300
+JOBOPS_PLACE = 2_000                # the planned job's and the child's count
+JOBOPS_MAX = 2_500                  # the planned job's scaling max
+JOBOPS_DOWN = 1_000                 # the scale-down's count
+JOBOPS_BIG_CPU = 16_000             # an ask no node holds (MHz)
+JOBOPS_LOCK_WAIT_MS = 500.0         # the live store's lock, held by a plan
 
 
 class PackBothWays:
@@ -7316,6 +7339,278 @@ def check_replaced_once(jobs, live, away, what, store=None):
         assert not any(node in away for _, node in live[j.id]), (what, j.id)
 
 
+def launch_counts(kernels):
+    return {k.name: k.launches for k in kernels.KERNELS}
+
+
+def launch_delta(kernels, before):
+    return {k.name: k.launches - before[k.name] for k in kernels.KERNELS}
+
+
+def sample_total_ms(snap, name):
+    """The sum of a metrics series' samples (mean x count)."""
+    ser = snap["samples"].get(name)
+    return ser["mean_ms"] * ser["count"] if ser else 0.0
+
+
+def job_ops_step(server, store, kernels, pmock, st, card, away):
+    """Step 6 of phase 18: the job operations through an HttpServer on
+    the loaded leader and ApiClient (every request through the API):
+      a. job plan of a fresh job of JOBOPS_PLACE with a scaling block (min
+         0, max JOBOPS_MAX): every placement predicted, nothing failed,
+         diff Added; the live store's index, live allocs, alloc-table
+         version and fold unchanged; the dry run launched wave_block. Then
+         an ask no node holds, solved on the card: the group named with
+         the exhausted dimension, every ready node evaluated and each one
+         filtered or exhausted (counted from the solved lane's tables);
+      b. the planned job registered: exactly the planned placements
+         committed, no node over capacity, 0 plans rejected;
+      c. scale to JOBOPS_MAX (the new placements through the batch worker
+         and the kernels; status and one event with the eval id), to
+         JOBOPS_MAX + 500 (400: out of bounds; no eval, no event), to
+         JOBOPS_DOWN (stops only: no kernel launch); the job's policy
+         listed;
+      d. a parameterized batch job of JOBOPS_PLACE (meta_required input):
+         no eval; a dispatch with input placed on the card; the same
+         idempotency token again: the same child, no eval; a dispatch
+         without input: 400.
+    Returns the step's report; its ``launches`` are the kernels line's
+    job_ops_launches."""
+    from nomad_tpu_torch.api.client import ApiClient, ApiError
+    from nomad_tpu_torch.api.http import HttpServer, to_jsonable
+    from nomad_tpu_torch.server.telemetry import metrics
+
+    t_step = time.perf_counter()
+    k0 = launch_counts(kernels)
+    out = {}
+    rejected0 = server.planner.plans_rejected
+    http = HttpServer(server, port=0)
+    http.start()
+    try:
+        api = ApiClient(f"http://127.0.0.1:{http.port}",
+                        timeout=LEADER_SETTLE_S)
+
+        def live(job_id):
+            return [a for a in store.allocs_by_job("default", job_id)
+                    if not a.terminal_status()]
+
+        def settle_count(job_id, n, what):
+            leader_settle(server, what, lambda: len(live(job_id)) == n)
+
+        def quiet(hold_s=1.0, timeout=30.0):
+            # the leader's loops (the deployment watcher's counts) may
+            # still write after the last step settled: wait until the
+            # index holds for hold_s
+            deadline = time.monotonic() + timeout
+            idx, since = store.latest_index(), time.monotonic()
+            while time.monotonic() - since < hold_s:
+                assert time.monotonic() < deadline, "the store never quiet"
+                time.sleep(0.1)
+                if store.latest_index() != idx:
+                    idx, since = store.latest_index(), time.monotonic()
+
+        def table_state():
+            with store._lock:
+                return (store.latest_index(), store.alloc_table.version,
+                        sum(1 for a in store.allocs()
+                            if not a.terminal_status()),
+                        store.alloc_table.usage_by_node())
+
+        # -- a. plan -------------------------------------------------------
+        job = pmock.job(id="ops-web")
+        job.task_groups[0].count = JOBOPS_PLACE
+        job.task_groups[0].scaling = {"min": 0, "max": JOBOPS_MAX}
+        body = to_jsonable(job)
+        quiet()
+        before = table_state()
+        m0 = metrics.snapshot()
+        kp = launch_counts(kernels)
+        # what a writer of the live store waits for while the plan runs:
+        # the dump copies the tables under the lock and encodes outside
+        waits, planning = [], threading.Event()
+
+        def probe_lock():
+            while not planning.is_set():
+                t = time.perf_counter()
+                with store._lock:
+                    waits.append((time.perf_counter() - t) * 1e3)
+                time.sleep(0.005)
+        prober = threading.Thread(target=probe_lock, name="lock-probe")
+        prober.start()
+        t0 = time.perf_counter()
+        try:
+            plan = api.plan_job(job.id, job=body)
+        finally:
+            plan_ms = (time.perf_counter() - t0) * 1e3
+            planning.set()
+            prober.join()
+        plan_launches = launch_delta(kernels, kp)
+        m1 = metrics.snapshot()
+        after = table_state()
+        assert plan["placed"] == JOBOPS_PLACE, plan
+        assert plan["annotations"]["desired_tg_updates"]["web"]["place"] \
+            == JOBOPS_PLACE, plan["annotations"]
+        assert plan["failed_tg_allocs"] == {}, plan["failed_tg_allocs"]
+        assert plan["diff_type"] == "Added", plan
+        assert after == before, "the dry run changed the live store"
+        assert plan_launches["wave_block"] >= 1, plan_launches
+        split = {k: sample_total_ms(m1, f"nomad.job.plan.{k}")
+                 - sample_total_ms(m0, f"nomad.job.plan.{k}")
+                 for k in ("dump", "restore", "schedule")}
+        copied = m1["gauges"]["nomad.job.plan.allocs_copied"]["max"]
+        lock_wait = max(waits)
+        assert lock_wait < JOBOPS_LOCK_WAIT_MS, (lock_wait, split)
+        out["plan"] = dict(ms=plan_ms, split_ms=split, live_allocs=before[2],
+                           allocs_copied=copied, launches={
+                               k: v for k, v in plan_launches.items() if v},
+                           lock_wait_max_ms=lock_wait,
+                           lock_probes=len(waits))
+        log(f"job ops plan [{card}]: {JOBOPS_PLACE} placements predicted "
+            f"in {plan_ms:.0f} ms (dump {split['dump']:.0f}, restore "
+            f"{split['restore']:.0f}, scheduler {split['schedule']:.0f} "
+            f"ms) over a copy of {copied:.0f} allocs ({before[2]} live); "
+            f"the live store unchanged, its lock waited for at most "
+            f"{lock_wait:.1f} ms over {len(waits)} probes; dry-run launches "
+            f"{out['plan']['launches']}")
+        big = pmock.job(id="ops-big")
+        big.task_groups[0].count = 1
+        big.task_groups[0].tasks[0].resources.cpu = JOBOPS_BIG_CPU
+        quiet()
+        before = table_state()
+        kp = launch_counts(kernels)
+        t0 = time.perf_counter()
+        nofit = api.plan_job(big.id, job=to_jsonable(big))
+        nofit_ms = (time.perf_counter() - t0) * 1e3
+        nofit_launches = launch_delta(kernels, kp)
+        ready = sum(1 for n in store.nodes() if n.ready())
+        failed = nofit["failed_tg_allocs"]["web"]
+        assert nofit["placed"] == 0, nofit
+        # the card solved the lane and its tables explain every node:
+        # each one filtered or exhausted, cpu among the dimensions
+        assert sum(nofit_launches.values()) >= 1, nofit_launches
+        assert failed["dimension_exhausted"].get("cpu", 0) >= 1, failed
+        assert failed["nodes_evaluated"] == ready, (failed, ready)
+        assert failed["nodes_filtered"] + sum(
+            failed["dimension_exhausted"].values()) == ready, failed
+        assert table_state() == before
+        out["plan_no_fit"] = dict(ms=nofit_ms, failed=failed,
+                                  ready_nodes=ready, launches={
+                                      k: v for k, v in
+                                      nofit_launches.items() if v})
+        log(f"job ops plan [{card}]: an ask of {JOBOPS_BIG_CPU} MHz: group "
+            f"web fails, {failed['nodes_evaluated']} nodes evaluated "
+            f"(ready {ready}), exhausted {failed['dimension_exhausted']}; "
+            f"{nofit_ms:.0f} ms; launches {out['plan_no_fit']['launches']}")
+
+        # -- b. run what was planned ----------------------------------------
+        t0 = time.perf_counter()
+        reg = api.register_job(body)
+        settle_count(job.id, JOBOPS_PLACE, "the planned job")
+        run_ms = (time.perf_counter() - t0) * 1e3
+        placed = live(job.id)
+        assert len(placed) == plan["placed"]
+        assert server.planner.plans_rejected == rejected0
+        check_replaced_once([store.job_by_id("default", job.id)],
+                            live_by_job(store, [job.id]), away,
+                            "the planned job")
+        check_node_capacity(store)
+        out["run"] = dict(eval_id=reg["eval_id"], placed=len(placed),
+                          register_to_placed_ms=run_ms)
+
+        # -- c. scale --------------------------------------------------------
+        t0 = time.perf_counter()
+        up = api.scale_job(job.id, "web", JOBOPS_MAX, message="up")
+        settle_count(job.id, JOBOPS_MAX, "the scale-up")
+        up_ms = (time.perf_counter() - t0) * 1e3
+        status = api.job_scale_status(job.id)["task_groups"]["web"]
+        assert status["desired"] == status["placed"] == JOBOPS_MAX, status
+        assert [(e["previous_count"], e["count"], e["eval_id"])
+                for e in status["events"]] == \
+            [(JOBOPS_PLACE, JOBOPS_MAX, up["eval_id"])], status["events"]
+        evals0 = len(store.evals_by_job("default", job.id))
+        try:
+            api.scale_job(job.id, "web", JOBOPS_MAX + 500)
+            raise AssertionError("a scale outside the bounds was taken")
+        except ApiError as e:
+            assert e.status == 400, e
+        assert len(store.evals_by_job("default", job.id)) == evals0
+        assert len(api.job_scale_status(job.id)["task_groups"]["web"][
+            "events"]) == 1
+        kd = launch_counts(kernels)
+        t0 = time.perf_counter()
+        api.scale_job(job.id, "web", JOBOPS_DOWN, message="down")
+        settle_count(job.id, JOBOPS_DOWN, "the scale-down")
+        down_ms = (time.perf_counter() - t0) * 1e3
+        down_launches = launch_delta(kernels, kd)
+        assert not any(down_launches.values()), down_launches
+        pols = api.scaling_policies(job=job.id)
+        assert [(p["job_id"], p["min"], p["max"]) for p in pols] == \
+            [(job.id, 0, JOBOPS_MAX)], pols
+        assert server.planner.plans_rejected == rejected0
+        check_node_capacity(store)
+        out["scale"] = dict(up_to_placed_ms=up_ms, down_to_stopped_ms=down_ms,
+                            events=2)
+        log(f"job ops scale [{card}]: {JOBOPS_PLACE} -> {JOBOPS_MAX} placed "
+            f"in {up_ms:.0f} ms; {JOBOPS_MAX + 500} refused (400); "
+            f"-> {JOBOPS_DOWN} stopped in {down_ms:.0f} ms with no "
+            "launch; one policy listed")
+
+        # -- d. dispatch -----------------------------------------------------
+        param = pmock.job(id="ops-param")
+        param.type = "batch"
+        param.task_groups[0].count = JOBOPS_PLACE
+        param.parameterized = st.ParameterizedJobConfig(
+            meta_required=["input"])
+        assert api.register_job(to_jsonable(param))["eval_id"] == ""
+        t0 = time.perf_counter()
+        first = api.dispatch_job(param.id, b"", {"input": "s3://in"},
+                                 idempotency_token="ops-1")
+        child = first["dispatched_job_id"]
+        assert child.startswith(f"{param.id}/dispatch-") and \
+            first["eval_id"], first
+        settle_count(child, JOBOPS_PLACE, "the dispatched child")
+        dispatch_ms = (time.perf_counter() - t0) * 1e3
+        again = api.dispatch_job(param.id, b"", {"input": "s3://in"},
+                                 idempotency_token="ops-1")
+        assert again == {"dispatched_job_id": child, "eval_id": ""}, again
+        try:
+            api.dispatch_job(param.id, b"", {})
+            raise AssertionError("a dispatch without its meta was taken")
+        except ApiError as e:
+            assert e.status == 400, e
+        assert server.planner.plans_rejected == rejected0
+        check_node_capacity(store)
+        out["dispatch"] = dict(child=child, placed=len(live(child)),
+                               dispatch_to_placed_ms=dispatch_ms)
+        log(f"job ops dispatch [{card}]: child {child} placed "
+            f"{JOBOPS_PLACE} in {dispatch_ms:.0f} ms; the token again: "
+            "the same child, no eval; a missing meta key refused (400)")
+    finally:
+        http.shutdown()
+    out["launches"] = launch_delta(kernels, k0)
+    out["seconds"] = time.perf_counter() - t_step
+    log(f"job ops [{card}]: launches "
+        f"{ {k: v for k, v in out['launches'].items() if v} }; step "
+        f"{out['seconds']:.1f} s")
+    assert out["launches"]["wave_block"] >= 4, out["launches"]
+    return out
+
+
+def check_node_capacity(store):
+    """No node's live usage (the alloc table's fold) above its
+    capacity."""
+    with store._lock:
+        usage = store.alloc_table.usage_by_node()
+    for nid, (cpu, mem, disk) in usage.items():
+        node = store.node_by_id(nid)
+        if node is None:
+            continue
+        res = node.node_resources
+        assert cpu <= res.cpu.cpu_shares and \
+            mem <= res.memory.memory_mb and \
+            disk <= res.disk.disk_mb, (nid, cpu, mem, disk)
+
+
 def leader_phase(np, torch, batch, guard, kernels, svc, tp, card):
     """The leader (phase 18): the port's Server (server/core.py) on the
     card, float32, tpu-binpack, width 32, phase 13's fleet and 32
@@ -7334,7 +7629,7 @@ def leader_phase(np, torch, batch, guard, kernels, svc, tp, card):
          flaps down twice more (update_node_status, heartbeat) and its
          third recovery is held by the quarantine; then the TTL goes
          back to an hour;
-      3. the drainer: 6 nodes drained at once; every alloc on them
+      3. the drainer: 3 nodes drained at once; every alloc on them
          migrates (at most one of a job in flight at a time), every
          drain completes, the nodes stay ineligible, 0 rejected;
       4. GC: 24 jobs deregistered, their stops acknowledged complete and
@@ -7346,10 +7641,14 @@ def leader_phase(np, torch, batch, guard, kernels, svc, tp, card):
          both ways again, equal, and placed;
       5. the supervisor: worker.crash armed once; the batch worker that
          leases the next eval dies, the supervisor restarts its slot,
-         the eval comes back after its 2 s lease and is placed.
-    Launch counts are read around the whole phase (the kernels line's
-    leader_launches); no eval falls back to the host and no dispatch
-    fails."""
+         the eval comes back after its 2 s lease and is placed;
+      6. the job operations through the HTTP API (job_ops_step): a plan
+         (a dry run on a copy of the loaded state), the planned job
+         registered, scaled up, refused past its bounds and scaled down,
+         and a parameterized job dispatched.
+    Launch counts are read around steps 1-5 (the kernels line's
+    leader_launches) and around step 6 apart (job_ops_launches); no eval
+    falls back to the host and no dispatch fails."""
     from nomad_tpu_torch import mock as pmock
     from nomad_tpu_torch import structs as st
     from nomad_tpu_torch.faultinject import faults
@@ -7632,10 +7931,14 @@ def leader_phase(np, torch, batch, guard, kernels, svc, tp, card):
                 f"{report['supervisor']['restarts']} restart, the eval "
                 f"placed after its {LEADER_NACK_S:.0f} s lease; "
                 f"{report['supervisor']['seconds']:.1f} s")
+            launches = launch_counts(kernels)
+            # -- 6. the job operations ---------------------------------
+            report["job_ops"] = job_ops_step(
+                server, store, kernels, pmock, st, card,
+                silent | set(drained))
     finally:
         pump_stop.set()
         server.shutdown()
-    launches = {k.name: k.launches for k in kernels.KERNELS}
     left = [t.name for t in threading.enumerate() if t.is_alive()
             and t.name.startswith(("batch-worker-", "batch-eval-", "plan-",
                                    "eval-broker-", "worker-supervisor-",
@@ -7661,6 +7964,7 @@ def leader_phase(np, torch, batch, guard, kernels, svc, tp, card):
     assert report["placements_host_fallback"] == 0
     assert report["placements_tpu"] >= (N_EVALS + LEADER_GC_EVALS) * N_PLACE
     report["launches"] = launches
+    report["job_ops_launches"] = report["job_ops"]["launches"]
     report["seconds"] = time.perf_counter() - t_phase
     log(f"leader [{card}]: launches {launches}; phase "
         f"{report['seconds']:.1f} s")
@@ -7826,6 +8130,17 @@ def read_allocs(addr, job_ids):
         return dict(ex.map(one, job_ids))
 
 
+def prom_counter(addr, name):
+    """A counter of the agent's Prometheus text (0 when absent)."""
+    import urllib.request
+    with urllib.request.urlopen(f"{addr}/v1/metrics?format=prometheus",
+                                timeout=60) as r:
+        for ln in r.read().decode().splitlines():
+            if ln.startswith(name + " "):
+                return float(ln.split()[1])
+    return 0.0
+
+
 def cli_alloc_statuses(addr, job_id):
     """The Status column of `job status JOB`'s Allocations table."""
     out = cli_run(addr, "job", "status", job_id)
@@ -7899,7 +8214,10 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
       d. /v1/agent/torch-profile on agent (a): started as the phase
          starts (its CUPTI start-up, many seconds, overlaps step b), one
          job through HTTP, stopped: the chrome trace names the
-         wave_block kernel.
+         wave_block kernel;
+      e. operator snapshot save and restore of agent (a) through the
+         CLI, every job kept, then a job through job run placed by the
+         agent's kernels (its placements_tpu counter).
     The read-back of step b runs in a reader process
     (``chip_smoke.py --read-allocs``) with AGENT_READERS requests in
     flight, so its JSON decoding overlaps the handler's encoding.
@@ -8225,6 +8543,33 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
             f"mesh.devices 1; fingerprint {group.vendor}/{group.type}/"
             f"{group.name} x{len(group.instance_ids)}, the device job on "
             "it, the count-2 ask one placed and one blocked")
+
+        # -- e. an operator snapshot saved and restored ------------------
+        t_e = time.perf_counter()
+        snap = work / "agent.snap"
+        out = cli_run(addr, "operator", "snapshot", "save", str(snap))
+        assert out.startswith(f"Snapshot written to {snap} ("), out
+        jobs_before = sorted(j["id"] for j in aapi.jobs())
+        out = cli_run(addr, "operator", "snapshot", "restore", str(snap))
+        assert out.startswith("Snapshot restored (index "), out
+        assert sorted(j["id"] for j in aapi.jobs()) == jobs_before
+        tpu0 = prom_counter(addr, "nomad_scheduler_placements_tpu")
+        after = work / "agent-after-restore.nomad"
+        after.write_text(AGENT_PROFILED_HCL.replace(
+            '"agent-profiled"', '"agent-after-restore"'))
+        assert "Evaluation" in cli_run(addr, "job", "run", str(after))
+        poll(lambda: statuses("agent-after-restore") == ["running"]
+             * AGENT_PROFILE_PLACE, "the job after the restore running")
+        tpu1 = prom_counter(addr, "nomad_scheduler_placements_tpu")
+        assert tpu1 - tpu0 >= AGENT_PROFILE_PLACE, (tpu0, tpu1)
+        report["snapshot"] = dict(bytes=snap.stat().st_size,
+                                  placed_after=AGENT_PROFILE_PLACE,
+                                  seconds=time.perf_counter() - t_e)
+        log(f"agent snapshot [{card}]: operator snapshot save "
+            f"({report['snapshot']['bytes']} bytes) and restore through "
+            f"the CLI, every job kept; a job of {AGENT_PROFILE_PLACE} then "
+            f"placed by the agent's kernels; "
+            f"{report['snapshot']['seconds']:.1f} s")
     finally:
         rc = agent.stop()
     assert rc == 0, ("the dev agent's exit code", rc,
@@ -9387,6 +9732,7 @@ def main(argv=None) -> int:
             server_launches=svres["launches"].get(k.name, 0),
             telemetry_launches=tlres["launches"].get(k.name, 0),
             leader_launches=ldres["launches"].get(k.name, 0),
+            job_ops_launches=ldres["job_ops_launches"].get(k.name, 0),
             agent_launches=agres["launches"].get(k.name, 0),
             max_abs_err=max(x["max_abs_err"] for x in kres
                             if x["name"] == k.name),

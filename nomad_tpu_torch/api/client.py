@@ -1,7 +1,7 @@
 """Python client of the /v1/* HTTP API (port of nomad_tpu/api/client.py;
 upstream: the api/ Go module, api.go Client with a file per resource:
-jobs.go, allocations.go, nodes.go, evaluations.go, operator.go,
-event_stream.go), for the routes the port's agent serves
+jobs.go, allocations.go, nodes.go, evaluations.go, scaling.go,
+operator.go, event_stream.go), for the routes the port's agent serves
 (api/http.py). ``HttpServerConn`` is the node agent's transport over the
 API: register, heartbeat, pull allocs, update allocs, get an alloc.
 """
@@ -109,6 +109,18 @@ class ApiClient:
         return self.post("/v1/jobs/parse", {"job_hcl": hcl,
                                             "variables": variables or {}})
 
+    def plan_job(self, job_id: str, job: Optional[dict] = None,
+                 hcl: Optional[str] = None,
+                 variables: Optional[dict] = None) -> dict:
+        """A dry run of a JSON job, or of HCL the server parses."""
+        body: Dict[str, Any] = {}
+        if hcl is not None:
+            body["job_hcl"] = hcl
+            body["variables"] = variables or {}
+        else:
+            body["job"] = job or {}
+        return self.post(f"/v1/job/{job_id}/plan", body)
+
     def deregister_job(self, job_id: str, purge: bool = False) -> dict:
         return self.delete(f"/v1/job/{job_id}",
                            purge="true" if purge else "false")
@@ -135,6 +147,30 @@ class ApiClient:
                       stable: bool = True) -> dict:
         return self.post(f"/v1/job/{job_id}/stable",
                          {"job_version": version, "stable": stable})
+
+    def dispatch_job(self, job_id: str, payload: bytes = b"",
+                     meta: Optional[dict] = None,
+                     idempotency_token: str = "") -> dict:
+        import base64
+        return self.post(f"/v1/job/{job_id}/dispatch", {
+            "payload": base64.b64encode(payload).decode(),
+            "meta": meta or {}, "idempotency_token": idempotency_token})
+
+    def scale_job(self, job_id: str, group: str, count: int,
+                  message: str = "") -> dict:
+        return self.post(f"/v1/job/{job_id}/scale", {
+            "count": count, "target": {"Group": group}, "message": message})
+
+    def job_scale_status(self, job_id: str) -> dict:
+        return self.get(f"/v1/job/{job_id}/scale")
+
+    # -- scaling policies (upstream: api/scaling.go) -------------------
+    def scaling_policies(self, job: Optional[str] = None) -> List[dict]:
+        params = {"job": job} if job else {}
+        return self.get("/v1/scaling/policies", **params)
+
+    def scaling_policy(self, policy_id: str) -> dict:
+        return self.get(f"/v1/scaling/policy/{policy_id}")
 
     # -- nodes (upstream: api/nodes.go) -------------------------------
     def nodes(self) -> List[dict]:
@@ -209,6 +245,28 @@ class ApiClient:
 
     def events(self, index: int = 0) -> List[dict]:
         return self.get("/v1/event/stream", index=index, poll="true")
+
+    def request_raw(self, method: str, path: str,
+                    data: Optional[bytes] = None,
+                    content_type: str = "application/octet-stream"
+                    ) -> bytes:
+        """request() with a binary body and a binary reply."""
+        req = urllib.request.Request(
+            f"{self.address}{path}", method=method, data=data,
+            headers={**({"Content-Type": content_type}
+                        if data is not None else {}),
+                     **({"X-Nomad-Token": self.token}
+                        if self.token else {})})
+        return self._do(req)
+
+    def snapshot_save(self) -> bytes:
+        """(upstream: api/operator.go SnapshotSave) The archive's bytes."""
+        return self.request_raw("GET", "/v1/operator/snapshot")
+
+    def snapshot_restore(self, data: bytes) -> dict:
+        return json.loads(
+            self.request_raw("POST", "/v1/operator/snapshot", data)
+            or b"null")
 
 
 class HttpServerConn:

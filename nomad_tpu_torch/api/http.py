@@ -6,8 +6,10 @@ contract (nomad/rpc.go:852).
 
 Routes:
   GET    /v1/jobs[?prefix=]                    POST /v1/jobs, /v1/jobs/parse
-  GET    /v1/job/<id>[/allocations|evaluations|summary|versions|deployment]
-  POST   /v1/job/<id>/revert|stable|periodic/force
+  GET    /v1/job/<id>[/allocations|evaluations|summary|versions|deployment
+                          |scale]
+  POST   /v1/job/<id>/revert|stable|periodic/force|plan|dispatch|scale
+  GET    /v1/scaling/policies[?job=], /v1/scaling/policy/<id>
   DELETE /v1/job/<id>[?purge=true]
   GET    /v1/evaluations[?prefix=], /v1/evaluation/<id>[/allocations]
   GET    /v1/allocations[?prefix=], /v1/allocation/<id>
@@ -19,15 +21,19 @@ Routes:
   GET    /v1/event/stream[?poll=true]      POST /v1/system/gc
   GET    /v1/operator/scheduler/configuration (and POST)
   POST   /v1/operator/solver/reprobe, /v1/operator/quarantine
+  GET    /v1/operator/snapshot (the archive, application/octet-stream);
+         PUT or POST /v1/operator/snapshot restores one
   GET    /v1/operator/faults (and POST), /v1/operator/quality
   GET    /v1/agent/self, /v1/agent/health, /v1/agent/trace[/<eval id>]
   POST   /v1/agent/torch-profile
   GET    /v1/metrics[?format=prometheus], /v1/status/leader
 
 Any other path answers 404. The port's Server has no ACLs, CSI,
-variables, keyring, service catalog, search, snapshots, federation, raft,
-scaling, dispatch or plan dry-runs, so their routes are not here; the web
-UI, the agent monitor and the client fs/exec/logs routes are not either.
+variables, keyring, service catalog, search, federation or raft, so their
+routes are not here; the web UI, the agent monitor and the client
+fs/exec/logs routes are not either. With no ACLs, the routes the
+reference guards with a token (scale, dispatch, plan, the scaling
+policies, the snapshots) are open, as every route here is.
 """
 from __future__ import annotations
 
@@ -285,6 +291,17 @@ class ApiHandler(BaseHTTPRequestHandler):
     def _error(self, code: int, msg: str) -> None:
         self._send(code, {"error": msg})
 
+    def _send_bytes(self, data: bytes) -> None:
+        self.send_response(200)
+        self.send_header("Content-Type", "application/octet-stream")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _raw_body(self) -> bytes:
+        length = int(self.headers.get("Content-Length", 0) or 0)
+        return self.rfile.read(length) if length else b""
+
     def _body(self):
         length = int(self.headers.get("Content-Length", 0) or 0)
         if not length:
@@ -377,6 +394,20 @@ class ApiHandler(BaseHTTPRequestHandler):
                                  "index": index}, index)
             elif parts == ["v1", "deployments"]:
                 self._send(200, state.deployments(), index)
+            elif parts == ["v1", "scaling", "policies"]:
+                job_filter = q.get("job", [None])[0]
+                pols = state.scaling_policies(None if ns == "*" else ns)
+                if job_filter:
+                    pols = [p for p in pols if p.job_id == job_filter]
+                self._send(200, pols, index)
+            elif parts[:3] == ["v1", "scaling", "policy"] and \
+                    len(parts) == 4:
+                pol = state.scaling_policy_by_id(parts[3])
+                if pol is None:
+                    return self._error(404, "policy not found")
+                self._send(200, pol, index)
+            elif parts == ["v1", "operator", "snapshot"]:
+                self._send_bytes(self.nomad.snapshot_save())
             elif parts == ["v1", "event", "stream"]:
                 since = int(q.get("index", ["0"])[0])
                 self._send(200, self.nomad.events_since(since), index)
@@ -455,6 +486,11 @@ class ApiHandler(BaseHTTPRequestHandler):
             if not versions:
                 return self._error(404, "job not found")
             self._send(200, {"versions": versions}, index)
+        elif sub == "scale":
+            status = self.nomad.job_scale_status(ns, job_id)
+            if status is None:
+                return self._error(404, "job not found")
+            self._send(200, status, index)
         else:
             self._error(404, f"unknown path {path}")
 
@@ -568,6 +604,15 @@ class ApiHandler(BaseHTTPRequestHandler):
                 except ValueError as e:
                     return self._error(400, str(e))
                 self._send(200, {"dispatched_job_id": child})
+            elif parts[:2] == ["v1", "job"] and len(parts) == 4 and \
+                    parts[3] in ("plan", "dispatch", "scale"):
+                self._post_job_op(ns, parts[2], parts[3])
+            elif parts == ["v1", "operator", "snapshot"]:
+                try:
+                    meta = self.nomad.snapshot_restore(self._raw_body())
+                except ValueError as e:
+                    return self._error(400, str(e))
+                self._send(200, {"restored": True, "index": meta["index"]})
             elif parts == ["v1", "node", "register"]:
                 from ..structs import Node, codec
                 node = codec.decode(Node, self._body().get("node", {}))
@@ -637,6 +682,39 @@ class ApiHandler(BaseHTTPRequestHandler):
                 self._error(404, f"unknown path {url.path}")
         except Exception as e:  # noqa: BLE001 -- a handler answers 500
             self._error(500, f"{type(e).__name__}: {e}")
+
+    def _post_job_op(self, ns: str, job_id: str, op: str) -> None:
+        """(upstream: job_endpoint.go Plan, Dispatch, Scale) A dry run of
+        a JSON or HCL job; a dispatch with a base64 payload; a scale of
+        the group named by ``target.Group``. A refusal answers 400."""
+        import base64
+        body = self._body()
+        # a jobspec that does not parse answers 500, as the reference's
+        job = self._job_from_body(body) if op == "plan" else None
+        try:
+            if op == "plan":
+                reply = self.nomad.plan_job(job)
+            elif op == "dispatch":
+                payload = base64.b64decode(body.get("payload", "") or "")
+                child, ev = self.nomad.dispatch_job(
+                    ns, job_id, payload, body.get("meta") or {},
+                    body.get("idempotency_token", ""))
+                reply = {"dispatched_job_id": child.id,
+                         "eval_id": ev.id if ev else ""}
+            else:
+                target = body.get("target") or {}
+                group = target.get("Group", target.get("group", ""))
+                ev = self.nomad.scale_job(
+                    ns, job_id, group,
+                    count=(int(body["count"])
+                           if body.get("count") is not None else None),
+                    message=body.get("message", ""),
+                    error=bool(body.get("error", False)),
+                    meta=body.get("meta"))
+                reply = {"eval_id": ev.id if ev else ""}
+        except ValueError as e:     # binascii.Error is one
+            return self._error(400, str(e))
+        self._send(200, reply)
 
     def _post_node(self, node_id: str, op: str, path: str) -> None:
         if op == "heartbeat":

@@ -11,8 +11,9 @@ lane's PreemptTables / PreemptState ride along by name.
 lists, dicts, sets and scalars it holds) onto the port struct of the
 same class name, field by field; ``store_from_reference`` builds a port
 StateStore holding a reference snapshot's nodes, jobs, allocations,
-namespaces, node pools, job versions and scheduler configuration, at
-the snapshot's index, with the alloc table rebuilt from them.
+namespaces, node pools, job versions, scheduler configuration, scaling
+policies and scaling events, at the snapshot's index, with the alloc
+table rebuilt from them.
 
 Everything here reads attributes by name and imports nothing of the
 reference.
@@ -167,9 +168,10 @@ def store_from_reference(snapshot, memo: Optional[dict] = None):
     """A port StateStore holding what a reference snapshot (or live
     store) holds: its nodes, jobs, evaluations, allocations and
     deployments in the snapshot's order (each node's and each job's
-    allocations in the order the snapshot lists them), its namespaces
-    and node pools (a snapshot's are read from its live store), and its
-    scheduler configuration; at the snapshot's latest_index() and
+    allocations in the order the snapshot lists them), its namespaces,
+    node pools, scaling policies and scaling events (a snapshot's are
+    read from its live store), and its scheduler configuration; at the
+    snapshot's latest_index() and
     node-table index, with an empty journal and the alloc table rebuilt
     (nodes registered in the snapshot's order, then the allocations).
     ``memo`` is struct_from_reference's."""
@@ -226,6 +228,10 @@ def store_from_reference(snapshot, memo: Optional[dict] = None):
             store._namespaces[ns.name] = carry(ns)
         for pool in getattr(live, "node_pools", list)():
             store._node_pools[pool.name] = carry(pool)
+        for pid, pol in getattr(live, "_scaling_policies", {}).items():
+            store._scaling_policies[pid] = carry(pol)
+        for key, events in getattr(live, "_scaling_events", {}).items():
+            store._scaling_events[key] = [carry(e) for e in events]
         for n in store._nodes.values():
             store.alloc_table.register_node(n)
         store.alloc_table.upsert_many(list(store._allocs.values()))
@@ -234,5 +240,7 @@ def store_from_reference(snapshot, memo: Optional[dict] = None):
         store._table_index = {"nodes": int(node_index), "allocs": index,
                               "jobs": index, "evals": index,
                               "deployments": index,
-                              "scheduler_config": index}
+                              "scheduler_config": index,
+                              "scaling_policies": index,
+                              "scaling_events": index}
     return store

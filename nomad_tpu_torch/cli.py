@@ -3,16 +3,17 @@ of nomad_tpu/cli.py; upstream: command/, main.go:26). It talks to the
 agent's HTTP API through api/client.py ApiClient, as upstream's CLI rides
 its api/ module.
 
-Commands: agent; job run|status|stop|inspect|history|revert; node
-status|drain|eligibility|purge; alloc status|stop; eval; deployment
-[list|promote|pause|resume|fail]; operator scheduler; operator solver
-status|reprobe; operator node flaps; operator workers; operator evals
-quarantine; operator lockcheck|jitcheck|statecheck|schedcheck|
-sanitizers; operator transfers|trace|quality; system gc; metrics;
-version. ``schedcheck --replay`` / ``--explore`` run the port's own
-scenarios locally. The reference's commands over layers the port's
-server lacks (job plan, dispatch and scale, variables, ACLs, namespaces,
-node pools, services, CSI, snapshots, keyring, raft, members, monitor,
+Commands: agent; job run|plan|status|stop|inspect|history|revert|
+dispatch|scale; node status|drain|eligibility|purge; alloc status|stop;
+eval; deployment [list|promote|pause|resume|fail]; operator scheduler;
+operator snapshot save|restore; operator solver status|reprobe; operator
+node flaps; operator workers; operator evals quarantine; operator
+lockcheck|jitcheck|statecheck|schedcheck|sanitizers; operator
+transfers|trace|quality; system gc; metrics; version. ``job plan``
+exits 1 when a group would fail placement. ``schedcheck --replay`` /
+``--explore`` run the port's own scenarios locally. The reference's
+commands over layers the port's server lacks (variables, ACLs,
+namespaces, node pools, services, CSI, keyring, raft, members, monitor,
 debug bundles, alloc fs/logs/exec, the prefix search of ``status``) are
 not here.
 """
@@ -78,6 +79,44 @@ def cmd_job_run(args) -> int:
     return 0
 
 
+def cmd_job_plan(args) -> int:
+    """(reference :72) The dry run's placements, stops and failed
+    groups; exit 1 when a group would fail placement."""
+    api = _client(args)
+    with open(args.file, encoding="utf-8") as fh:
+        src = fh.read()
+    if args.file.endswith(".json"):
+        job = json.loads(src)
+        job = job.get("job", job)       # the wrapped shape too
+        job_id = str(job.get("id", ""))
+        if not job_id:
+            print("Error: job spec has no 'id'", file=sys.stderr)
+            return 1
+        reply = api.plan_job(job_id, job=job)
+    else:
+        # the HCL itself: the server parses it with the full jobspec
+        # mapper (devices, spreads and volumes survive it)
+        job = api.parse_job(src, _parse_vars(args.var))
+        job_id = job["id"]
+        reply = api.plan_job(job_id, hcl=src,
+                             variables=_parse_vars(args.var))
+    print(f"+/- Job: {job_id!r} ({reply.get('diff_type')})")
+    print(f"    placed: {reply.get('placed')}  "
+          f"stopped: {reply.get('stopped')}")
+    failed = reply.get("failed_tg_allocs") or {}
+    for tg, metric in failed.items():
+        print(f"    WARNING: group {tg!r} would fail placement: "
+              f"{metric.get('nodes_evaluated', 0)} nodes evaluated, "
+              f"{metric.get('nodes_filtered', 0)} filtered, "
+              f"exhausted: {metric.get('dimension_exhausted', {})}")
+    for tg, counts in (reply.get("annotations") or {}).get(
+            "desired_tg_updates", {}).items():
+        shown = {k: v for k, v in counts.items() if v}
+        print(f"    group {tg!r}: {shown}")
+    print(f"    job modify index: {reply.get('job_modify_index')}")
+    return 1 if failed else 0
+
+
 def cmd_job_status(args) -> int:
     api = _client(args)
     if not args.id:
@@ -126,6 +165,28 @@ def cmd_job_history(args) -> int:
 
 def cmd_job_revert(args) -> int:
     reply = _client(args).revert_job(args.id, args.version)
+    print(f"==> Evaluation {reply.get('eval_id', '')!r} submitted")
+    return 0
+
+
+def cmd_job_dispatch(args) -> int:
+    """(reference :161)"""
+    payload = b""
+    if args.payload_file:
+        with open(args.payload_file, "rb") as f:
+            payload = f.read()
+    meta = dict(kv.split("=", 1) for kv in (args.meta or []))
+    reply = _client(args).dispatch_job(args.id, payload, meta,
+                                       args.idempotency_token)
+    print(f"Dispatched Job ID = {reply.get('dispatched_job_id', '')}")
+    print(f"Evaluation ID     = {reply.get('eval_id', '')}")
+    return 0
+
+
+def cmd_job_scale(args) -> int:
+    """(reference :174)"""
+    reply = _client(args).scale_job(args.id, args.group, args.count,
+                                    message=args.message)
     print(f"==> Evaluation {reply.get('eval_id', '')!r} submitted")
     return 0
 
@@ -247,6 +308,21 @@ def cmd_operator_scheduler(args) -> int:
         print(f"Scheduler algorithm set to {args.algorithm!r}")
     cfg = api.scheduler_config()
     print(json.dumps(cfg, indent=2, default=str))
+    return 0
+
+
+def cmd_operator_snapshot(args) -> int:
+    """(reference :1515) Save the state into FILE, or restore it."""
+    api = _client(args)
+    if args.sub2 == "save":
+        data = api.snapshot_save()
+        with open(args.file, "wb") as f:
+            f.write(data)
+        print(f"Snapshot written to {args.file} ({len(data)} bytes)")
+    else:
+        with open(args.file, "rb") as f:
+            reply = api.snapshot_restore(f.read())
+        print(f"Snapshot restored (index {reply.get('index')})")
     return 0
 
 
@@ -962,6 +1038,10 @@ def build_parser() -> argparse.ArgumentParser:
     jr.add_argument("file")
     jr.add_argument("-var", action="append", default=[])
     jr.set_defaults(fn=cmd_job_run)
+    jp = job.add_parser("plan")
+    jp.add_argument("file")
+    jp.add_argument("-var", action="append", default=[])
+    jp.set_defaults(fn=cmd_job_plan)
     js = job.add_parser("status")
     js.add_argument("id", nargs="?", default="")
     js.set_defaults(fn=cmd_job_status)
@@ -979,6 +1059,19 @@ def build_parser() -> argparse.ArgumentParser:
     jrev.add_argument("id")
     jrev.add_argument("version", type=int)
     jrev.set_defaults(fn=cmd_job_revert)
+    jd = job.add_parser("dispatch")
+    jd.add_argument("id")
+    jd.add_argument("payload_file", nargs="?", default="")
+    jd.add_argument("-meta", action="append", default=[])
+    jd.add_argument("-idempotency-token", dest="idempotency_token",
+                    default="")
+    jd.set_defaults(fn=cmd_job_dispatch)
+    jsc = job.add_parser("scale")
+    jsc.add_argument("id")
+    jsc.add_argument("group")
+    jsc.add_argument("count", type=int)
+    jsc.add_argument("-message", default="")
+    jsc.set_defaults(fn=cmd_job_scale)
 
     node = sub.add_parser("node", help="node commands").add_subparsers(
         dest="sub", required=True)
@@ -1035,6 +1128,12 @@ def build_parser() -> argparse.ArgumentParser:
     osch.add_argument("-memory-oversubscription", dest="memory_oversub",
                       action="store_true")
     osch.set_defaults(fn=cmd_operator_scheduler)
+    osn = op.add_parser("snapshot").add_subparsers(dest="sub2",
+                                                   required=True)
+    for name in ("save", "restore"):
+        osnx = osn.add_parser(name)
+        osnx.add_argument("file")
+        osnx.set_defaults(fn=cmd_operator_snapshot)
     osol = op.add_parser("solver").add_subparsers(dest="sub2",
                                                   required=True)
     osol.add_parser("status").set_defaults(fn=cmd_operator_solver)

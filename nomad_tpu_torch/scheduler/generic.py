@@ -433,8 +433,14 @@ class GenericScheduler:
             n_solved = 0
             for sp in solved:
                 if sp.node is None:
-                    m = self.ctx.metrics.copy()
-                    m.nodes_evaluated = sp.n_yielded
+                    if (self.eval.annotate_plan and sp.failure is not None
+                            and tg.name not in self.failed_tg_allocs):
+                        # a plan's answer says why; a registration's
+                        # eval keeps the reference's bare metric
+                        m = sp.explain(self.ctx.metrics)
+                    else:
+                        m = self.ctx.metrics.copy()
+                        m.nodes_evaluated = sp.n_yielded
                     self._note_failed(tg.name, m)
                     continue
                 self._append_solved_alloc(sp, deployment_id)

@@ -38,9 +38,20 @@ carries what the leader and the endpoints did.
 
 ``device`` is where every scheduler's placement service and every
 barrier dispatches: ``cuda`` unless the caller names another, resolved
-at ``start``, which raises without a card. The volume watcher and CSI,
-the service catalog, plan dry-runs, parameterized dispatch, scaling,
-ACLs, the keyring, variables, search, snapshots and federation are not
+at ``start``, which raises without a card.
+
+The job operations (upstream: job_endpoint.go Plan, Dispatch, Scale,
+ScaleStatus): ``plan_job`` runs the whole scheduler, on the server's
+device, over a copy of the state (state/restore.py dump_state into a
+fresh store, restore_state) and reports what ``register_job`` would
+place and stop, committing nothing to the live store; ``dispatch_job``
+registers a parameterized job's child; ``scale_job`` registers a new
+count within the group's scaling bounds and records a scaling event.
+``snapshot_save`` / ``snapshot_restore`` are the operator's archives
+(server/snapshot.py): a restore revokes leadership, replaces every
+table, and establishes leadership again, so the restored pending evals
+are enqueued as one burst. The volume watcher and CSI, the service
+catalog, ACLs, the keyring, variables, search and federation are not
 part of this module.
 
 Knobs (read when a Server is built):
@@ -75,8 +86,9 @@ from ..faultinject import faults
 from ..state.store import StateStore
 from ..structs import (
     Allocation, Deployment, DesiredTransition, Evaluation, Job, Node,
-    NodePool, Plan, PlanResult, generate_uuid,
-    ALLOC_CLIENT_FAILED, DEPLOYMENT_STATUS_FAILED, DEPLOYMENT_STATUS_PAUSED,
+    NodePool, Plan, PlanResult, ScalingEvent, generate_uuid,
+    ALLOC_CLIENT_FAILED, ALLOC_CLIENT_RUNNING, DEPLOYMENT_STATUS_FAILED,
+    DEPLOYMENT_STATUS_PAUSED,
     DEPLOYMENT_STATUS_RUNNING, DEPLOYMENT_STATUS_SUCCESSFUL,
     EVAL_STATUS_BLOCKED, EVAL_STATUS_COMPLETE, EVAL_STATUS_PENDING,
     JOB_STATUS_DEAD, JOB_STATUS_RUNNING, JOB_TYPE_SYSTEM,
@@ -357,6 +369,21 @@ class EventSubscription:
             return self._q.get(timeout=timeout)
         except queue.Empty:
             return None
+
+
+def _failed_metrics(evals) -> Dict[str, dict]:
+    """Each failed task group's metrics over ``evals`` (the last eval
+    naming a group wins), as a plan answer reports them."""
+    failed = {}
+    for pe in evals:
+        for tg_name, metric in (pe.failed_tg_allocs or {}).items():
+            failed[tg_name] = {
+                "nodes_evaluated": metric.nodes_evaluated,
+                "nodes_filtered": metric.nodes_filtered,
+                "constraint_filtered": dict(metric.constraint_filtered),
+                "dimension_exhausted": dict(metric.dimension_exhausted),
+            }
+    return failed
 
 
 class Server:
@@ -720,6 +747,258 @@ class Server:
         if self.state.job_version(namespace, job_id, version) is None:
             raise ValueError(f"job {job_id} version {version} not found")
         self.state.update_job_stability(namespace, job_id, version, stable)
+
+    def plan_job(self, job: Job) -> dict:
+        """(reference :862; upstream: job_endpoint.go Plan) A dry run:
+        the job, admitted as ``register_job`` admits it, is stored with
+        an annotate_plan eval in a fresh store holding a copy of the
+        state, and the scheduler runs there through a Harness on the
+        server's device. Returns the placements and stops the plans
+        would commit, per task group (place, stop, migrate,
+        preemptions), the groups that would fail with their metrics,
+        the stored job's job_modify_index and the diff type. The live
+        store is only read.
+
+        The reference admits the plan with ``_validate_job`` alone, so
+        for a Connect job it plans without the injected sidecar task and
+        port that its registration adds. Here the admission hooks run
+        too, on a copy of the job: the plan predicts ``job run``.
+
+        A group the device path fails carries no explanation in the
+        reference's answer (no node evaluated, no dimension exhausted).
+        Here the plan's eval has the scheduler count it from the solved
+        lane's own tables (solver/service.py failure_metric): the nodes
+        evaluated and filtered, the constraints, and the dimension each
+        node ran out of, as the host stack counts them.
+
+        Times go to ``nomad.job.plan.dump`` / ``.restore`` /
+        ``.schedule`` (ms) and the allocs copied to the gauge
+        ``nomad.job.plan.allocs_copied``."""
+        from ..scheduler.harness import Harness
+        from ..state.restore import dump_state, restore_state
+
+        self._validate_job(job)
+        job, _warnings = AdmissionPipeline(self).apply(copy.deepcopy(job))
+        t0 = time.perf_counter()
+        blob = dump_state(self.state)
+        t1 = time.perf_counter()
+        temp = StateStore()
+        restore_state(temp, blob)
+        t2 = time.perf_counter()
+        h = Harness(temp)
+        temp.upsert_job(job)
+        ev = Evaluation(
+            id=generate_uuid(), namespace=job.namespace,
+            priority=job.priority, type=job.type,
+            triggered_by=TRIGGER_JOB_REGISTER, job_id=job.id,
+            status=EVAL_STATUS_PENDING, annotate_plan=True)
+        temp.upsert_evals([ev])
+        sched_type = (job.type if job.type in
+                      ("service", "batch", "system", "sysbatch")
+                      else "service")
+        h.process(sched_type, ev, device=self.device)
+        t3 = time.perf_counter()
+        metrics.sample_ms("nomad.job.plan.dump", (t1 - t0) * 1e3)
+        metrics.sample_ms("nomad.job.plan.restore", (t2 - t1) * 1e3)
+        metrics.sample_ms("nomad.job.plan.schedule", (t3 - t2) * 1e3)
+        metrics.sample("nomad.job.plan.allocs_copied", len(blob["allocs"]))
+        placed = stopped = 0
+        tg_updates: Dict[str, Dict[str, int]] = {}
+
+        def bump(tg_name: str, key: str) -> None:
+            tg_updates.setdefault(tg_name, {
+                "place": 0, "stop": 0, "migrate": 0,
+                "preemptions": 0})[key] += 1
+
+        for plan in h.plans:
+            for allocs in plan.node_allocation.values():
+                placed += len(allocs)
+                for alloc in allocs:
+                    bump(alloc.task_group, "place")
+            for allocs in plan.node_update.values():
+                stopped += len(allocs)
+                for alloc in allocs:
+                    bump(alloc.task_group,
+                         "migrate" if (alloc.desired_transition and
+                                       alloc.desired_transition.migrate)
+                         else "stop")
+            for allocs in plan.node_preemptions.values():
+                for alloc in allocs:
+                    bump(alloc.task_group, "preemptions")
+        failed = _failed_metrics(h.evals)
+        existing = self.state.job_by_id(job.namespace, job.id)
+        return {
+            "placed": placed, "stopped": stopped,
+            "annotations": ({"desired_tg_updates": tg_updates}
+                            if tg_updates else None),
+            "failed_tg_allocs": failed,
+            "job_modify_index":
+                existing.job_modify_index if existing else 0,
+            "diff_type": "Edited" if existing is not None else "Added",
+        }
+
+    def dispatch_job(self, namespace: str, job_id: str,
+                     payload: bytes = b"",
+                     meta: Optional[Dict[str, str]] = None,
+                     idempotency_token: str = ""):
+        """(reference :974; upstream: job_endpoint.go Dispatch and
+        validateDispatchRequest) Register a parameterized job's child,
+        ``<parent>/dispatch-<unix time>-<8 hex>``, with the payload (16
+        KiB at most, as the parent's payload rule allows) and the
+        parent's meta overlaid with ``meta`` (every required key, no key
+        the parent does not name). A token already used by a child of
+        the parent in its namespace returns that child and no eval.
+        Returns (child, eval or None); raises ValueError on a refusal."""
+        meta = dict(meta or {})
+        parent = self.state.job_by_id(namespace, job_id)
+        if parent is None:
+            raise ValueError(f"job {job_id} not found")
+        cfg = parent.parameterized
+        if cfg is None or parent.dispatched:
+            raise ValueError(f"job {job_id} is not parameterized")
+        if parent.stop:
+            raise ValueError(f"job {job_id} is stopped")
+        if cfg.payload == "required" and not payload:
+            raise ValueError("payload is required")
+        if cfg.payload == "forbidden" and payload:
+            raise ValueError("payload is forbidden")
+        if len(payload) > 16 * 1024:
+            raise ValueError("payload exceeds 16KiB limit")
+        required = set(cfg.meta_required or [])
+        allowed = required | set(cfg.meta_optional or [])
+        missing = required - set(meta)
+        if missing:
+            raise ValueError(f"missing required meta: {sorted(missing)}")
+        extra = set(meta) - allowed
+        if extra:
+            raise ValueError(f"unpermitted meta keys: {sorted(extra)}")
+        if idempotency_token:
+            for j in self.state.jobs():
+                if j.namespace == parent.namespace and \
+                        j.parent_id == parent.id and \
+                        j.dispatch_idempotency_token == idempotency_token:
+                    return j, None
+        child = copy.deepcopy(parent)
+        child.id = (f"{parent.id}/dispatch-{int(time.time())}-"
+                    f"{generate_uuid()[:8]}")
+        child.name = child.id
+        child.parent_id = parent.id
+        child.dispatched = True
+        child.payload = payload
+        child.dispatch_idempotency_token = idempotency_token
+        child.meta = {**(parent.meta or {}), **meta}
+        ev = self.register_job(child)
+        self.publish_event("JobDispatched",
+                           {"job_id": parent.id, "dispatched_id": child.id})
+        return child, ev
+
+    def scale_job(self, namespace: str, job_id: str, group: str,
+                  count: Optional[int] = None, message: str = "",
+                  error: bool = False, meta: Optional[dict] = None):
+        """(reference :1024; upstream: job_endpoint.go Scale) Register the
+        job with ``group`` at ``count``, which must lie within the
+        group's scaling bounds (min, max: the block's, max defaulting to
+        the count asked), and record one ScalingEvent with the eval's id.
+        With ``error`` or no ``count`` only the event is recorded.
+        Returns the eval or None; raises ValueError on a refusal (and
+        records nothing)."""
+        job = self.state.job_by_id(namespace, job_id)
+        if job is None:
+            raise ValueError(f"job {job_id} not found")
+        tg = job.lookup_task_group(group)
+        if tg is None:
+            raise ValueError(f"group {group} not found in job {job_id}")
+        prev_count = tg.count
+        ev = None
+        if count is not None and not error:
+            if count < 0:
+                raise ValueError("count must be >= 0")
+            if tg.scaling:
+                lo = int(tg.scaling.get("min", 0) or 0)
+                hi = int(tg.scaling.get("max", count))
+                if count < lo or count > hi:
+                    raise ValueError(
+                        f"count {count} outside scaling bounds "
+                        f"[{lo}, {hi}]")
+            if job.stop:
+                raise ValueError(f"job {job_id} is stopped")
+            updated = copy.deepcopy(job)
+            updated.lookup_task_group(group).count = count
+            ev = self.register_job(updated)
+        self.state.upsert_scaling_event(
+            namespace, job_id,
+            ScalingEvent(
+                time=time.time(), task_group=group, count=count,
+                previous_count=prev_count, message=message, error=error,
+                meta=dict(meta or {}), eval_id=ev.id if ev else ""))
+        return ev
+
+    def job_scale_status(self, namespace: str, job_id: str
+                         ) -> Optional[dict]:
+        """(reference :1063; upstream: job_endpoint.go ScaleStatus) Per
+        task group: the desired count, the allocs placed (not terminal),
+        running, healthy and unhealthy, and the group's scaling events.
+        None for an unknown job."""
+        job = self.state.job_by_id(namespace, job_id)
+        if job is None:
+            return None
+        allocs = self.state.allocs_by_job(namespace, job_id)
+        all_events = self.state.scaling_events_by_job(namespace, job_id)
+        groups = {}
+        for tg in job.task_groups:
+            tg_allocs = [a for a in allocs if a.task_group == tg.name]
+            groups[tg.name] = {
+                "desired": tg.count,
+                "placed": len([a for a in tg_allocs
+                               if not a.terminal_status()]),
+                "running": len([a for a in tg_allocs
+                                if a.client_status == ALLOC_CLIENT_RUNNING]),
+                "healthy": len([a for a in tg_allocs
+                                if a.deployment_status is not None
+                                and a.deployment_status.is_healthy()]),
+                "unhealthy": len([a for a in tg_allocs
+                                  if a.deployment_status is not None
+                                  and a.deployment_status.is_unhealthy()]),
+                "events": [
+                    {"time": e.time, "count": e.count,
+                     "previous_count": e.previous_count,
+                     "message": e.message, "error": e.error,
+                     "eval_id": e.eval_id}
+                    for e in all_events if e.task_group == tg.name],
+            }
+        return {"job_id": job_id, "namespace": namespace,
+                "job_stopped": job.stop, "task_groups": groups}
+
+    # ------------------------------------------------------------------
+    # operator snapshots (upstream: operator_endpoint.go SnapshotSave,
+    # SnapshotRestore; helper/snapshot/)
+    def snapshot_save(self) -> bytes:
+        """(reference :1646) The whole state as a checksummed archive."""
+        from ..state.restore import dump_state
+        from .snapshot import save_archive
+        blob = dump_state(self.state)
+        return save_archive(blob, blob.get("index", 0))
+
+    def snapshot_restore(self, data: bytes) -> dict:
+        """(reference :1653) Verify an archive, then, as the leader
+        restoring a raft snapshot: revoke leadership, replace every
+        table (StateStore.restore_from_snapshot), and establish
+        leadership again (the restored evals go to the broker in one
+        burst, every node gets a full TTL). Returns the archive's meta;
+        raises ValueError, with nothing changed, for an archive that
+        does not verify or decode."""
+        from .snapshot import load_archive
+        meta, blob = load_archive(data)
+        was_leader = self.is_leader()
+        if was_leader:
+            self.revoke_leadership()
+        try:
+            self.state.restore_from_snapshot(blob)
+        finally:
+            if was_leader:
+                self.establish_leadership()
+        self.publish_event("SnapshotRestored", {"index": meta["index"]})
+        return meta
 
     # ------------------------------------------------------------------
     # nodes (upstream: nomad/node_endpoint.go)

@@ -513,6 +513,12 @@ class Planner:
         in-flight tuple. The caller already reduced ``items`` to a
         pairwise-disjoint group."""
         metrics.sample("nomad.plan.batch_size", float(len(items)))
+        if inflight is not None and inflight[0].done():
+            # the previous commit ended before this snapshot: the
+            # snapshot holds what landed, and an overlay of it would
+            # count allocs a later write removed (a snapshot restore,
+            # GC) as still in flight
+            inflight = None
         snapshot = self.state.snapshot()
         overlaid = (_OverlaySnapshot(snapshot, inflight[1])
                     if inflight is not None else snapshot)

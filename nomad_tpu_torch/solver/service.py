@@ -31,8 +31,9 @@ from .. import jitcheck, statecheck
 from ..device import DeviceLike, default_dtype_name, resolve_device
 from ..scheduler.util import shuffled_order
 from ..structs import (
-    AllocatedResources, AllocatedSharedResources, AllocatedTaskResources,
-    NetworkIndex, CONSTRAINT_DISTINCT_HOSTS, CONSTRAINT_DISTINCT_PROPERTY)
+    AllocMetric, AllocatedResources, AllocatedSharedResources,
+    AllocatedTaskResources, NetworkIndex, CONSTRAINT_DISTINCT_HOSTS,
+    CONSTRAINT_DISTINCT_PROPERTY)
 from ..state.alloc_table import pack_delta_enabled
 from ..tensor.pack import (
     DeviceInfo, DistinctPropertyInfo, PreemptInfo, UsageState,
@@ -391,6 +392,137 @@ def evictions(lane: PackedLane, chosen, evict_rows
             for k, n in enumerate(idx.tolist())]
 
 
+def failure_metric(lane: PackedLane, chosen, pi: int, base):
+    """Why placement ``pi`` of a solved lane (one packed by
+    TpuPlacementService.pack) found no node, counted from the lane's own
+    tables as the host stack counts a select that finds none (upstream:
+    feasible.go, rank.go BinPackIterator): every node of the lane
+    evaluated, each explained once, in the host's order of checks, as
+    it stands after the lane's placements before ``pi``:
+      * refused by the feasibility mask: filtered. For the group's
+        first placement the checkers that built the mask name the
+        refusing constraint once per node class (per node where a
+        constraint reads a unique attribute), as the host's class cache
+        names it once; after it the cache holds each class's verdict,
+        and the host names none but a unique attribute's;
+      * holding the job (distinct_hosts) or a property value at its
+        limit (distinct_property): filtered under that constraint;
+      * else exhausted on its first short dimension: the static ports
+        (named by the group's first reserved port), the dynamic ports,
+        a device request, reserved cores, cpu, memory, disk.
+    Returns a copy of ``base`` (the eval's metric) with those counts in
+    place of its filter and exhaustion counts."""
+    from ..tensor.pack import feasibility_checkers
+
+    const, init, batch = lane.const, lane.init, lane.batch
+    nodes, order, tg = lane.nodes, lane.order, lane.tg
+    n = len(nodes)
+    m = base.copy()
+    m.nodes_evaluated = n
+    m.nodes_filtered = m.nodes_exhausted = 0
+    m.class_filtered, m.constraint_filtered = {}, {}
+    m.class_exhausted, m.dimension_exhausted = {}, {}
+
+    taken = np.asarray(chosen[:pi], dtype=np.int64)
+    taken = taken[(taken >= 0) & (taken < n)]
+    hits = np.bincount(taken, minlength=n)[:n]
+    left = np.ones(n, dtype=bool)          # nodes not yet explained
+
+    # the feasibility mask, its reasons from the checkers that built it
+    refused = left & ~np.asarray(const.feasible[:n], dtype=bool)
+    if refused.any():
+        ctx = lane.service.ctx
+        verdict, vol_check, escaped = feasibility_checkers(
+            ctx, tg, lane.places[pi].name)
+        # where the host names no constraint, a class is checked
+        # against a metric nobody reads
+        first = m if pi == 0 or escaped else AllocMetric()
+        saved = ctx.metrics
+        try:
+            class_ok: Dict[str, bool] = {}
+            for pos in np.nonzero(refused)[0]:
+                node = nodes[order[pos]]
+                key = node.id if escaped else node.computed_class
+                before = m.nodes_filtered
+                if key not in class_ok:
+                    ctx.metrics = first
+                    class_ok[key] = verdict(node)
+                if class_ok[key] and vol_check is not None:
+                    ctx.metrics = m         # checked per node, as the host
+                    vol_check.feasible(node)
+                if m.nodes_filtered == before:
+                    m.filter_node(node.computed_class, "")
+        finally:
+            ctx.metrics = saved
+        left &= ~refused
+
+    def filtered(mask, constraint):
+        for pos in np.nonzero(left & mask)[0]:
+            m.filter_node(nodes[order[pos]].computed_class, constraint)
+        left[mask] = False
+
+    if bool(const.distinct_hosts):
+        placed = (init.placed_job if bool(const.distinct_job_level)
+                  else init.placed)[:n] + hits
+        filtered(placed > 0, CONSTRAINT_DISTINCT_HOSTS)
+    if const.dp_vidx.size:
+        vidx = np.asarray(const.dp_vidx)[:, :n]
+        counts = np.array(init.dp_counts, dtype=np.int64)
+        for d in range(vidx.shape[0]):
+            v = vidx[d, taken]
+            np.add.at(counts[d], v[v >= 0], 1)
+        full = np.zeros(n, dtype=bool)
+        for d in range(vidx.shape[0]):
+            v = vidx[d]
+            full |= (v < 0) | (counts[d, np.maximum(v, 0)]
+                               >= int(const.dp_limit[d]))
+        filtered(full, CONSTRAINT_DISTINCT_PROPERTY)
+
+    def exhausted(mask, dim):
+        for pos in np.nonzero(left & mask)[0]:
+            node = nodes[order[pos]]
+            m.exhausted_node(node.id, node.computed_class, dim)
+        left[mask] = False
+
+    if bool(batch.has_static[pi]):
+        port = tg.networks[0].reserved_ports[0]
+        exhausted(~np.asarray(init.static_free[:n], dtype=bool) | (hits > 0),
+                  f"network: reserved port collision "
+                  f"{port.label}={port.value}")
+    n_dyn = int(batch.n_dyn_ports[pi])
+    if n_dyn:
+        exhausted(init.dyn_avail[:n] - hits * n_dyn < n_dyn,
+                  "network: dynamic port selection failed")
+    if init.dev_free.size:
+        # the earlier placements' instances, taken as the kernel takes
+        # them: per request, the first group of highest affinity with room
+        free = np.array(init.dev_free[:, :, :n], dtype=np.int64)
+        need = np.asarray(const.dev_count, dtype=np.int64)
+        aff = np.asarray(const.dev_aff, dtype=np.float64)[:, :, :n]
+        for q in taken:
+            for r in range(free.shape[0]):
+                room = free[r, :, q] >= need[r]
+                if room.any():
+                    g = int(np.argmax(np.where(room, aff[r, :, q], -np.inf)))
+                    free[r, g, q] -= need[r]
+        exhausted(~(free >= need[:, None, None]).any(axis=1).all(axis=0),
+                  "devices: no devices match request")
+    ask_cpu = np.full(n, float(batch.ask_cpu[pi]))
+    if batch.ask_cores.size and int(batch.ask_cores[pi]):
+        cores = int(batch.ask_cores[pi])
+        exhausted(init.cores_free[:n] - hits * cores < cores, "cores")
+        ask_cpu = ask_cpu + np.asarray(const.mhz_per_core[:n]) * cores
+    for dim, cap, used, ask in (
+            ("cpu", const.cpu_cap, init.used_cpu, ask_cpu),
+            ("memory", const.mem_cap, init.used_mem,
+             float(batch.ask_mem[pi])),
+            ("disk", const.disk_cap, init.used_disk,
+             float(batch.ask_disk[pi]))):
+        use = np.asarray(used[:n], dtype=np.float64) + (hits + 1) * ask
+        exhausted(use > np.asarray(cap[:n], dtype=np.float64), dim)
+    return m
+
+
 def dispatch_lane(lane: PackedLane, device: DeviceLike = None):
     """Solve ONE lane in its own dispatch (reference service.py
     dispatch_lane): through wave.solve_lane_fused on ``device`` (default
@@ -481,7 +613,7 @@ class TpuPlacement:
 
     __slots__ = ("place", "node", "task_resources", "alloc_resources",
                  "score", "n_yielded", "preempted_allocs",
-                 "resources_prebuilt")
+                 "resources_prebuilt", "failure")
 
     def __init__(self, place, node, task_resources, alloc_resources, score,
                  n_yielded, preempted_allocs=None,
@@ -496,6 +628,15 @@ class TpuPlacement:
         # uniform simple lanes share ONE AllocatedResources across all
         # their placements (committed allocs are replaced, never mutated)
         self.resources_prebuilt = resources_prebuilt
+        # a failed placement of a solved service or batch lane: (lane,
+        # chosen, its index)
+        self.failure = None
+
+    def explain(self, base):
+        """A failed placement's metric: ``base`` with the lane's count
+        of why no node took it (failure_metric)."""
+        lane, chosen, pi = self.failure
+        return failure_metric(lane, chosen, pi, base)
 
 
 def tg_solver_eligible(tg, job=None, preempt: bool = False) -> bool:
@@ -1154,6 +1295,9 @@ class TpuPlacementService:
                                     alloc_resources, float(scores[pi]),
                                     int(n_yielded[pi]),
                                     preempted_allocs=preempted))
+        for pi, tp in enumerate(out):
+            if tp.node is None:
+                tp.failure = (lane, chosen, pi)
         return out
 
     @staticmethod

@@ -3,18 +3,21 @@ StateSnapshot): nodes, jobs, evaluations, allocations, deployments,
 namespaces, node pools and the scheduler configuration, point-in-time
 snapshots, the plan-result commits (one plan, or a group of plans as one
 transaction), blocking waits on the index, the alloc-delta journal, the
-stored versions of every job, and the alloc table (state/alloc_table.py:
-the scheduler's pack and the plan applier's fold), kept in step with
-every alloc write and node registration and compacted on request
-(compact_alloc_table).
+stored versions of every job, the scaling policies derived from each
+job's groups and each job's scaling events, and the alloc table
+(state/alloc_table.py: the scheduler's pack and the plan applier's
+fold), kept in step with every alloc write and node registration and
+compacted on request (compact_alloc_table). ``restore_from_snapshot``
+replaces every table with a blob of state/restore.py ``dump_state``.
 
 Every logical write advances one raft-style index exactly as the
 reference's ``_bump`` does (``upsert_node`` one, ``upsert_job`` one,
 ``upsert_evals`` one, ``upsert_allocs`` one, ``upsert_deployment`` one,
 ``upsert_plan_results`` one, ``apply_plan_results_batch`` one for the
-whole group, ``set_scheduler_config`` one; the leader's node, job,
-eval, alloc and deployment writes one each, ``upsert_deployment_cas``
-one when it commits): the eval's
+whole group, ``set_scheduler_config`` one, ``upsert_scaling_event`` one,
+``restore_from_snapshot`` one; the leader's node, job, eval, alloc and
+deployment writes one each, ``upsert_deployment_cas`` one when it
+commits): the eval's
 node shuffle is seeded by (eval id, latest_index), so a world written in
 the same order lands on the same index and packs the same permutation.
 
@@ -42,6 +45,7 @@ Knob (read when a store is built):
 from __future__ import annotations
 
 import copy
+import hashlib
 import os
 import sys
 import threading
@@ -53,10 +57,20 @@ from .. import schedcheck, statecheck
 from ..faultinject import faults
 from ..server.telemetry import metrics
 from ..structs import (
-    DesiredTransition, Namespace, NodePool, SchedulerConfiguration)
+    DesiredTransition, Namespace, NodePool, ScalingEvent, ScalingPolicy,
+    SchedulerConfiguration)
 from ..structs.node import NODE_SCHED_ELIGIBLE, NODE_SCHED_INELIGIBLE
 from ..structs.job import JOB_STATUS_DEAD, JOB_STATUS_PENDING
 from .alloc_table import AllocTable
+
+# every table the port's store keeps (reference :28 TABLES, less the
+# tables of layers the port has not: ACLs, the keyring, variables, CSI
+# and the service catalog)
+TABLES = ("nodes", "jobs", "evals", "allocs", "deployments", "node_pools",
+          "scheduler_config", "job_versions", "scaling_policies",
+          "scaling_events", "namespaces")
+# scaling events kept a job (upstream: structs.JobTrackedScalingEvents)
+SCALING_EVENTS_KEPT = 20
 
 
 def _delta_journal_cap() -> int:
@@ -237,6 +251,8 @@ class StateStore:
         self._allocs_by_node: Dict[str, Dict[str, None]] = {}
         self._allocs_by_job: Dict[Tuple[str, str], Dict[str, None]] = {}
         self._scheduler_config = SchedulerConfiguration()
+        self._scaling_policies: Dict[str, ScalingPolicy] = {}
+        self._scaling_events: Dict[Tuple[str, str], List[ScalingEvent]] = {}
         self._snap_cache: Optional[StateSnapshot] = None
         # (index, pairs | None) per alloc-table write, oldest first
         self._alloc_deltas: deque = deque(maxlen=_delta_journal_cap())
@@ -403,7 +419,8 @@ class StateStore:
 
     def upsert_job(self, job) -> int:
         """Register or replace a job (keyed by namespace and id): a
-        replacement is the next version."""
+        replacement is the next version. The job's scaling policies are
+        derived again from its groups' scaling blocks."""
         with self._lock:
             key = (job.namespace, job.id)
             existing = self._jobs.get(key)
@@ -419,15 +436,57 @@ class StateStore:
                 job.status = JOB_STATUS_PENDING
             self._jobs[key] = job
             self._job_versions[(job.namespace, job.id, job.version)] = job
+            self._update_job_scaling_policies_locked(job)
             return self._bump("jobs", "job_versions")
 
+    def _update_job_scaling_policies_locked(self, job) -> None:
+        """(reference :678) One policy a group with a scaling block, its
+        id a hash of (namespace, job, group); the job's other policies
+        go. A block whose bounds are not integers is skipped (admission
+        refuses it before a write)."""
+        keep = set()
+        for tg in job.task_groups:
+            if not tg.scaling or not isinstance(tg.scaling, dict):
+                continue
+            pid = hashlib.sha1(
+                f"{job.namespace}\x1f{job.id}\x1f{tg.name}".encode()
+            ).hexdigest()[:36]
+            keep.add(pid)
+            existing = self._scaling_policies.get(pid)
+            try:
+                lo = int(tg.scaling.get("min", 0) or 0)
+                hi = int(tg.scaling.get("max", tg.count))
+            except (TypeError, ValueError):
+                continue
+            self._scaling_policies[pid] = ScalingPolicy(
+                id=pid, namespace=job.namespace, job_id=job.id,
+                type=str(tg.scaling.get("type", "horizontal")),
+                target={"Namespace": job.namespace, "Job": job.id,
+                        "Group": tg.name},
+                min=lo, max=hi,
+                policy=dict(tg.scaling.get("policy") or {}),
+                enabled=bool(tg.scaling.get("enabled", True)),
+                create_index=(existing.create_index if existing
+                              else self._index + 1),
+                modify_index=self._index + 1)
+        for pid, pol in list(self._scaling_policies.items()):
+            if (pol.namespace, pol.job_id) == (job.namespace, job.id) and \
+                    pid not in keep:
+                del self._scaling_policies[pid]
+        self._table_index["scaling_policies"] = self._index + 1
+
     def delete_job(self, namespace: str, job_id: str) -> int:
-        """(reference :737) The job and every stored version of it."""
+        """(reference :737) The job, every stored version of it, its
+        scaling policies and its scaling events."""
         with self._lock:
             self._jobs.pop((namespace, job_id), None)
             for k in [k for k in self._job_versions
                       if k[0] == namespace and k[1] == job_id]:
                 del self._job_versions[k]
+            for pid, pol in list(self._scaling_policies.items()):
+                if (pol.namespace, pol.job_id) == (namespace, job_id):
+                    del self._scaling_policies[pid]
+            self._scaling_events.pop((namespace, job_id), None)
             return self._bump("jobs", "job_versions", "scaling_policies")
 
     def job_version(self, namespace: str, job_id: str, version: int):
@@ -471,6 +530,53 @@ class StateStore:
             self._jobs[(namespace, job_id)] = job
             self._job_versions[(namespace, job_id, job.version)] = job
             return self._bump("jobs")
+
+    # -- scaling (reference :779-818) -----------------------------------
+    def scaling_policies(self, namespace: Optional[str] = None) -> list:
+        """Every policy, or a namespace's (None: every namespace)."""
+        with self._lock:
+            return [p for p in self._scaling_policies.values()
+                    if namespace is None or p.namespace == namespace]
+
+    def scaling_policy_by_id(self, policy_id: str):
+        with self._lock:
+            return self._scaling_policies.get(policy_id)
+
+    def scaling_policies_by_job(self, namespace: str, job_id: str) -> list:
+        with self._lock:
+            return [p for p in self._scaling_policies.values()
+                    if (p.namespace, p.job_id) == (namespace, job_id)]
+
+    def upsert_scaling_event(self, namespace: str, job_id: str,
+                             event: ScalingEvent) -> int:
+        """Append to the job's scaling events, keeping the newest
+        SCALING_EVENTS_KEPT."""
+        with self._lock:
+            events = self._scaling_events.setdefault((namespace, job_id), [])
+            events.append(event)
+            if len(events) > SCALING_EVENTS_KEPT:
+                del events[:-SCALING_EVENTS_KEPT]
+            return self._bump("scaling_events")
+
+    def scaling_events_by_job(self, namespace: str, job_id: str) -> list:
+        with self._lock:
+            return list(self._scaling_events.get((namespace, job_id), []))
+
+    def restore_from_snapshot(self, blob: dict) -> int:
+        """(reference :1171) Replace every table with a dump_state blob
+        in one write. The index becomes max(restored, prior), so it never
+        goes back, and every table is bumped: the node-matrix cache
+        (keyed by the node table's index) rebuilds, and the write's
+        journal entry carries no delta, so a usage base or a resident
+        chain across the restore refolds. A blob that does not decode
+        raises before any table changes."""
+        from .restore import restore_state
+        with self._lock:
+            prior = self._index
+            restore_state(self, blob)
+            self._index = max(self._index, prior)
+            with statecheck.mark_uncoverable("snapshot restore"):
+                return self._bump(*TABLES)
 
     def update_node_status(self, node_id: str, status: str,
                            updated_at: float = 0.0) -> int:

@@ -1,9 +1,11 @@
 """Job / TaskGroup / Task model plus constraints, affinities, spreads
 (port of nomad_tpu/structs/job.py; upstream: nomad/structs/structs.go).
 Every field the scheduler reads is present, and the periodic launch
-spec the server's launcher reads (PeriodicConfig); scaling,
-parameterized and multiregion configuration are not ported (their Job
-fields stay, holding None).
+spec the server's launcher reads (PeriodicConfig), the dispatch contract
+of a parameterized job (ParameterizedJobConfig), and the scaling policy
+and scaling event records the store derives and keeps (ScalingPolicy,
+ScalingEvent); multiregion configuration is not ported (its Job field
+stays, holding None).
 """
 from __future__ import annotations
 
@@ -337,8 +339,8 @@ class PeriodicConfig:
 @dataclass
 class ParameterizedJobConfig:
     """A parameterized job's dispatch contract (reference:
-    structs/job.py:391; upstream: structs.ParameterizedJobConfig). The
-    jobspec parses it; dispatching is not part of the port's server."""
+    structs/job.py:391; upstream: structs.ParameterizedJobConfig): what
+    Server.dispatch_job checks a dispatch request against."""
 
     payload: str = "optional"     # optional | required | forbidden
     meta_required: List[str] = field(default_factory=list)
@@ -399,3 +401,40 @@ class Job:
 
     def ns_id(self):
         return (self.namespace, self.id)
+
+
+@dataclass
+class ScalingPolicy:
+    """A task group's horizontal scaling policy, derived from the group's
+    ``scaling`` block when the job is stored (reference: structs/job.py:460;
+    upstream: structs.ScalingPolicy and the state store's
+    updateJobScalingPolicies)."""
+
+    id: str = ""
+    namespace: str = DEFAULT_NAMESPACE
+    job_id: str = ""
+    type: str = "horizontal"
+    # what the policy scales: {"Namespace": ns, "Job": id, "Group": group}
+    target: Dict[str, str] = field(default_factory=dict)
+    min: int = 0
+    max: int = 0
+    policy: Dict[str, object] = field(default_factory=dict)
+    enabled: bool = True
+    create_index: int = 0
+    modify_index: int = 0
+
+
+@dataclass
+class ScalingEvent:
+    """One entry of a job's scaling audit trail (reference:
+    structs/job.py:482; upstream: structs.ScalingEvent, recorded by
+    Job.Scale)."""
+
+    time: float = 0.0
+    task_group: str = ""
+    count: Optional[int] = None
+    previous_count: int = 0
+    message: str = ""
+    error: bool = False
+    meta: Dict[str, object] = field(default_factory=dict)
+    eval_id: str = ""

@@ -603,12 +603,14 @@ def fold_usage_base(matrix: NodeMatrix, nodes, allocs_of,
             "used_disk": used_disk, "ports": ports, "dyn_used": dyn_used}
 
 
-def pack_feasibility(ctx, stack_like, tg, nodes, n_pad: int,
-                     alloc_name: str = "", matrix=None) -> np.ndarray:
-    """The feasibility mask: the job, driver, task-group, device and
-    network checkers once per computed node class (broadcast through
-    the matrix's class codes where no constraint reads a unique
-    attribute), host volumes per node."""
+def feasibility_checkers(ctx, tg, alloc_name: str = ""):
+    """The checkers pack_feasibility applies, as (class_verdict,
+    vol_check, escaped): ``class_verdict(node)`` runs the job, driver,
+    task-group, device and network checkers in the host stack's order
+    (each records the node it refuses in ``ctx.metrics``),
+    ``vol_check`` is the per-node host-volume checker (None without
+    volumes), and ``escaped`` says a constraint reads a unique
+    attribute, so no verdict holds for a whole node class."""
     from ..scheduler.feasible import (
         ConstraintChecker, DeviceChecker, DriverChecker, HostVolumeChecker,
         NetworkChecker)
@@ -626,8 +628,6 @@ def pack_feasibility(ctx, stack_like, tg, nodes, n_pad: int,
     net_check = NetworkChecker(ctx)
     if tg.networks:
         net_check.set_network(tg.networks[0])
-
-    out = np.zeros(n_pad, dtype=bool)
     escaped = any("unique." in (c.l_target + c.r_target)
                   for c in (job.constraints if job else []) + constraints)
 
@@ -637,6 +637,18 @@ def pack_feasibility(ctx, stack_like, tg, nodes, n_pad: int,
                 and dev_check.feasible(node)
                 and net_check.feasible(node))
 
+    return class_verdict, (vol_check if vol_check.volumes else None), escaped
+
+
+def pack_feasibility(ctx, stack_like, tg, nodes, n_pad: int,
+                     alloc_name: str = "", matrix=None) -> np.ndarray:
+    """The feasibility mask: the job, driver, task-group, device and
+    network checkers once per computed node class (broadcast through
+    the matrix's class codes where no constraint reads a unique
+    attribute), host volumes per node."""
+    class_verdict, vol_check, escaped = feasibility_checkers(
+        ctx, tg, alloc_name)
+    out = np.zeros(n_pad, dtype=bool)
     codes = matrix.class_codes if matrix is not None else None
     if (not escaped and codes is not None
             and matrix.n_real == len(nodes)
@@ -647,14 +659,14 @@ def pack_feasibility(ctx, stack_like, tg, nodes, n_pad: int,
             dtype=bool, count=len(matrix.class_reps))
         n = len(nodes)
         out[:n] = verdicts[codes[:n]] if len(verdicts) else False
-        if vol_check.volumes:
+        if vol_check is not None:
             for i, node in enumerate(nodes):
                 if out[i]:
                     out[i] = vol_check.feasible(node)
         return out
 
     class_cache: Dict[str, bool] = {}
-    check_vols = bool(vol_check.volumes)
+    check_vols = vol_check is not None
     for i, node in enumerate(nodes):
         cls = node.computed_class
         if not escaped and cls in class_cache:

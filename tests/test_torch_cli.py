@@ -9,7 +9,9 @@ test_cli_operator_solver_status_and_reprobe, then the rest of the port's
 commands: job inspect / history / revert, node drain / eligibility /
 purge, alloc stop, deployment, eval, system gc, metrics and the operator
 reports (node flaps, workers, evals quarantine, the sanitizers,
-transfers, trace, quality). Tolerance: exact, but for the lines the
+transfers, trace, quality), and job plan (exit 1 when a group would
+fail), job scale, job dispatch and operator snapshot save / restore.
+Tolerance: exact, but for the lines the
 port's own layers print differently (the resident set where the
 reference prints its const cache; the jitcheck counters of a kernel
 library instead of XLA's traces), which are checked for their keys,
@@ -31,7 +33,7 @@ from nomad_tpu_torch import structs as pst
 from nomad_tpu_torch.solver import guard
 
 from test_jobspec_cli import MINI_SPEC
-from test_torch_http import agents, id_names, settled
+from test_torch_http import N_NODES, agents, id_names, settled
 from test_torch_server import fresh_state, wait_until  # noqa: F401
 from test_torch_telemetry import reset_globals
 
@@ -270,7 +272,7 @@ def test_schedcheck_replay_runs_the_ports_scenario(capsys):
 
 def test_unported_commands_are_not_registered(capsys):
     for argv in (["var", "list"], ["acl", "bootstrap"],
-                 ["job", "plan", "x.hcl"], ["server", "members"],
+                 ["namespace", "list"], ["server", "members"],
                  ["status", "x"], ["operator", "keyring", "list"]):
         with pytest.raises(SystemExit) as e:
             cli.main(argv)
@@ -288,3 +290,109 @@ def test_agent_command_runs_the_dev_agent(monkeypatch):
               "cpu"])
     assert seen["argv"] == ["--nodes", "2", "--port", "0", "--workers", "2",
                             "--tpu", "--device", "cpu"]
+
+
+SCALY_SPEC = """
+job "scaly" {
+  group "web" {
+    count = 2
+    scaling {
+      min = 1
+      max = 5
+    }
+    task "t" {
+      driver = "mock"
+      resources { cpu = 100 memory = 64 }
+    }
+  }
+}
+"""
+PARAM_SPEC = """
+job "batcher" {
+  type = "batch"
+  parameterized {
+    meta_required = ["k"]
+  }
+  group "g" {
+    count = 2
+    task "t" {
+      driver = "mock"
+      resources { cpu = 100 memory = 64 }
+    }
+  }
+}
+"""
+
+
+def test_job_plan_scale_dispatch_and_snapshot_commands(monkeypatch, capsys,
+                                                       tmp_path):
+    """job plan (exit 1 when a group would fail), job scale, job
+    dispatch and operator snapshot save / restore through both CLIs."""
+    from nomad_tpu.server import core as ref_core
+    from nomad_tpu_torch.server import core as port_core
+    from test_torch_http import _PinnedTime
+    clock = _PinnedTime(1_700_000_000.0)
+    monkeypatch.setattr(ref_core, "time", clock)
+    monkeypatch.setattr(port_core, "time", clock)
+    files = {}
+    for name, src in (("mini", MINI_SPEC), ("scaly", SCALY_SPEC),
+                      ("batcher", PARAM_SPEC),
+                      ("big", MINI_SPEC.replace("cpu    = 100",
+                                                "cpu    = 90000"))):
+        files[name] = tmp_path / f"{name}.hcl"
+        files[name].write_text(src)
+    noid = tmp_path / "noid.json"
+    noid.write_text(json.dumps({"job": {"type": "service"}}))
+    with agents(monkeypatch) as (ref, port):
+        reseed(301)
+        got = same_out(capsys, ref, port, ["job", "plan",
+                                           str(files["mini"])])
+        assert "(Added)" in got and "placed: 2" in got
+        assert port[0].state.job_by_id("default", "mini") is None
+        # a group no node holds: exit 1 in both; the port names the
+        # exhausted dimension
+        reseed(302)
+        got, want = run_both(capsys, ref, port,
+                             ["job", "plan", str(files["big"])], rc=1)
+        assert "WARNING: group 'g' would fail placement" in want
+        assert f"{N_NODES} nodes evaluated" in got
+        assert "exhausted: {'cpu': %d}" % N_NODES in got
+        same_out(capsys, ref, port, ["job", "plan", str(noid)], rc=1)
+        # scale within and outside the bounds
+        reseed(303)
+        same_out(capsys, ref, port, ["job", "run", str(files["scaly"])])
+        settle_all(ref, port)
+        reseed(304)
+        same_out(capsys, ref, port, ["job", "scale", "scaly", "web", "4",
+                                     "-message", "more"])
+        settle_all(ref, port)
+        same_out(capsys, ref, port, ["job", "scale", "scaly", "web", "9"],
+                 rc=1)
+        assert len(port[1].job_allocations("scaly")) == 4
+        # dispatch
+        reseed(305)
+        same_out(capsys, ref, port, ["job", "run", str(files["batcher"])])
+        reseed(306)
+        got = same_out(capsys, ref, port, ["job", "dispatch", "batcher",
+                                           "-meta", "k=v"])
+        assert "batcher/dispatch-1700000000-" in got
+        same_out(capsys, ref, port, ["job", "dispatch", "batcher"], rc=1)
+        settle_all(ref, port)
+        same_out(capsys, ref, port, ["job", "status"])
+        # operator snapshot save, a job purged, restore
+        outs = []
+        for name, ((server, api), main) in (("ref", (ref, ref_cli.main)),
+                                            ("port", (port, cli.main))):
+            path = tmp_path / f"{name}.snap"
+            assert main(["-address", api.address, "operator", "snapshot",
+                         "save", str(path)]) == 0
+            out = capsys.readouterr().out
+            assert out.startswith(f"Snapshot written to {path} (")
+            server.state.delete_job("default", "scaly")
+            assert main(["-address", api.address, "operator", "snapshot",
+                         "restore", str(path)]) == 0
+            outs.append(capsys.readouterr().out)
+            assert server.state.job_by_id("default", "scaly") is not None
+        assert outs[0] == outs[1] and outs[1].startswith(
+            "Snapshot restored (index ")
+        same_out(capsys, ref, port, ["job", "status", "scaly"])

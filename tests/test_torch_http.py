@@ -21,7 +21,13 @@ query on /v1/node/<id>/allocations; a node agent's round trip through
 HttpServerConn; guard reprobe, fault arming, the quarantine, the
 Prometheus text's names for the deterministic counters, /v1/agent/self's
 blocks, and the 404 of a route the port does not serve (the profiler
-endpoint: tests/test_torch_agent.py). Every wait has a
+endpoint: tests/test_torch_agent.py). The job operations through both
+agents (plans of JSON and HCL jobs, a refused plan, an ask no node holds,
+the scaling policies, scale within and outside the bounds and its
+status, a dispatch with a base64 payload, its idempotency token and its
+refusals; both clocks pinned to one second, which a child's id reads),
+and the operator snapshot routes (save, restore, junk refused, each
+package's archive restored by the other's agent). Every wait has a
 deadline; every server is shut down.
 """
 import contextlib
@@ -355,9 +361,9 @@ def test_operator_routes_equal_the_reference(monkeypatch):
                              ("GET", "/v1/namespaces"),
                              ("GET", "/v1/vars"),
                              ("POST", "/v1/search"),
-                             ("POST", "/v1/job/web/plan"),
+                             ("GET", "/v1/services"),
                              ("GET", "/v1/agent/members"),
-                             ("GET", "/v1/operator/snapshot"),
+                             ("GET", "/v1/regions"),
                              ("POST", "/v1/agent/jax-profile")):
             status, reply = ask(port, method, path, {})
             assert status == 404, (path, status)
@@ -682,3 +688,176 @@ def test_guard_state_blocks_equal_the_reference(monkeypatch):
     for k in ("enabled", "dispatches", "lpq_dispatches"):
         assert got["mesh"][k] == want["mesh"][k], k
     assert got["mesh"]["devices"] == 0 and got["mesh"]["grid"] is None
+
+
+# --------------------------------------------------------------------------
+# the job operations and the snapshots (the reference's
+# tests/test_job_lifecycle.py::test_http_versions_revert_scale_dispatch,
+# tests/test_jobspec_cli.py::test_api_client_hcl_register_and_plan and
+# ::test_plan_reports_infeasible, tests/test_snapshot_events.py::
+# test_http_snapshot_endpoints)
+
+class _PinnedTime:
+    """The time module with time() pinned: a dispatched child's id (and
+    a scaling event's time) read one second in both servers."""
+
+    def __init__(self, now):
+        self.now = now
+
+    def time(self):
+        return self.now
+
+    def __getattr__(self, name):
+        import time as _time
+        return getattr(_time, name)
+
+
+def check_seeded(ref, port, seed, method, path, body=None, **params):
+    """check() with both id streams reseeded alike before each side."""
+    out = []
+    for pair, reseed in ((ref, ref_reseed_ids), (port, pst.reseed_ids)):
+        reseed(seed)
+        status, reply = ask(pair, method, path, body, **params)
+        out.append((status, norm(reply, id_names(pair[0]))))
+    same(out[1], out[0])
+    return out[1]
+
+
+def settle_every_eval(*pairs):
+    for server, _ in pairs:
+        wait_until(lambda s=server: settled(
+            s, [e.id for e in s.state.evals()]), msg="settled")
+
+
+def test_job_op_routes_equal_the_reference(monkeypatch):
+    from nomad_tpu.server import core as ref_core
+    from nomad_tpu_torch.server import core as port_core
+    clock = _PinnedTime(1_700_000_000.0)
+    monkeypatch.setattr(ref_core, "time", clock)
+    monkeypatch.setattr(port_core, "time", clock)
+    with agents(monkeypatch) as (ref, port):
+        # plans: a JSON job, HCL (nothing committed), a refused one
+        got = check_seeded(ref, port, 201, "POST", "/v1/job/web-p/plan",
+                           {"job": json_job("web-p", count=4)})
+        assert got[1]["placed"] == 4 and got[1]["diff_type"] == "Added"
+        got = check_seeded(ref, port, 202, "POST", "/v1/job/mini/plan",
+                           {"job_hcl": MINI_SPEC})
+        assert got[1]["placed"] == 2 and not got[1]["failed_tg_allocs"]
+        bad = json_job("web-x")
+        bad["namespace"] = "nowhere"
+        assert check_seeded(ref, port, 203, "POST", "/v1/job/web-x/plan",
+                            {"job": bad})[0] == 400
+        check(ref, port, "GET", "/v1/jobs")
+        # an ask no node holds: equal but for the failed group's metrics,
+        # which the port counts from the solved lane's tables
+        out = []
+        for pair, reseed in ((ref, ref_reseed_ids), (port, pst.reseed_ids)):
+            reseed(204)
+            out.append(ask(pair, "POST", "/v1/job/big/plan",
+                           {"job": json_job("big", cpu=9000)}))
+        (rs, rplan), (ps, pplan) = out
+        assert rs == ps == 200 and rplan["placed"] == pplan["placed"] == 0
+        assert rplan["failed_tg_allocs"]["web"]["nodes_evaluated"] == 0
+        assert pplan["failed_tg_allocs"]["web"]["nodes_evaluated"] == \
+            N_NODES
+        assert pplan["failed_tg_allocs"]["web"]["dimension_exhausted"] == \
+            {"cpu": N_NODES}
+        # scale: a job with a scaling block, its policy, a scale within
+        # and outside the bounds, the status with its event
+        scaly = json_job("scaly", count=2)
+        scaly["task_groups"][0]["scaling"] = {"min": 1, "max": 5}
+        register_both(ref, port, {"job": scaly}, 205)
+        pols = check(ref, port, "GET", "/v1/scaling/policies", job="scaly")
+        assert len(pols[1]) == 1 and pols[1][0]["max"] == 5
+        check(ref, port, "GET", "/v1/scaling/policies")
+        check(ref, port, "GET", f"/v1/scaling/policy/{pols[1][0]['id']}")
+        check(ref, port, "GET", "/v1/scaling/policy/nope")
+        check_seeded(ref, port, 206, "POST", "/v1/job/scaly/scale",
+                     {"count": 4, "target": {"Group": "web"},
+                      "message": "more"})
+        settle_every_eval(ref, port)
+        for body in ({"count": 9, "target": {"Group": "web"}},
+                     {"count": 3, "target": {"Group": "nope"}},
+                     {"count": "x", "target": {"Group": "web"}}):
+            assert check_seeded(ref, port, 207, "POST",
+                                "/v1/job/scaly/scale", body)[0] == 400
+        got = check(ref, port, "GET", "/v1/job/scaly/scale")
+        web = got[1]["task_groups"]["web"]
+        assert web["desired"] == web["placed"] == 4
+        assert [e["message"] for e in web["events"]] == ["more"]
+        check(ref, port, "GET", "/v1/job/nope/scale")
+        check(ref, port, "GET", "/v1/job/scaly/allocations")
+        # dispatch: a parameterized batch job, a child with its payload,
+        # the same token again, a missing required key
+        batcher = json_job("batcher", count=2)
+        batcher["type"] = "batch"
+        batcher["parameterized"] = {"meta_required": ["k"]}
+        register_both_no_eval(ref, port, {"job": batcher}, 208)
+        import base64
+        body = {"payload": base64.b64encode(b"payload").decode(),
+                "meta": {"k": "v"}, "idempotency_token": "t-1"}
+        got = check_seeded(ref, port, 209, "POST",
+                           "/v1/job/batcher/dispatch", body)
+        child = got[1]["dispatched_job_id"]
+        assert child.startswith("batcher/dispatch-1700000000-")
+        again = check_seeded(ref, port, 210, "POST",
+                             "/v1/job/batcher/dispatch", body)
+        assert again[1]["dispatched_job_id"] == child
+        assert again[1]["eval_id"] == ""
+        assert check_seeded(ref, port, 211, "POST",
+                            "/v1/job/batcher/dispatch",
+                            {"payload": "", "meta": {}})[0] == 400
+        assert check_seeded(ref, port, 212, "POST",
+                            "/v1/job/batcher/dispatch",
+                            {"payload": "abc", "meta": {"k": "v"}})[0] == 400
+        settle_every_eval(ref, port)
+        check(ref, port, "GET", f"/v1/job/{child}/allocations")
+        assert port[0].state.job_by_id("default", child).payload == \
+            b"payload"
+        check(ref, port, "GET", "/v1/jobs")
+        assert_same(ref[0], port[0])
+
+
+def register_both_no_eval(ref, port, body, seed):
+    """Register a job that gets no eval (parameterized, periodic) in both."""
+    for pair, reseed in ((ref, ref_reseed_ids), (port, pst.reseed_ids)):
+        reseed(seed)
+        status, reply = ask(pair, "POST", "/v1/jobs", body)
+        assert status == 200 and reply["eval_id"] == "", reply
+
+
+def test_snapshot_routes_on_both_agents(monkeypatch):
+    """GET /v1/operator/snapshot answers an archive; a job deleted, then
+    the archive PUT back, restores it; junk answers 400. Each agent
+    restores the other package's archive too."""
+    from nomad_tpu.server.snapshot import load_archive as ref_load
+    from nomad_tpu_torch.server.snapshot import load_archive
+    with agents(monkeypatch) as (ref, port):
+        register_both(ref, port, {"job": json_job("httpjob")}, 220)
+        archives = {}
+        for name, (server, api), load in (("ref", ref, ref_load),
+                                          ("port", port, load_archive)):
+            data = api.snapshot_save()
+            assert len(data) > 100
+            meta, blob = load(data)
+            assert meta["index"] == server.state.latest_index()
+            archives[name] = data
+            server.state.delete_job("default", "httpjob")
+            assert server.state.job_by_id("default", "httpjob") is None
+        replies = [api.snapshot_restore(archives[name])
+                   for name, (_, api) in (("ref", ref), ("port", port))]
+        assert replies[0] == replies[1]
+        assert replies[1]["restored"] is True
+        for server, _ in (ref, port):
+            assert server.state.job_by_id("default", "httpjob") is not None
+        for pair in (ref, port):
+            server, api = pair
+            with pytest.raises(Exception) as err:
+                api.snapshot_restore(b"junk")
+            assert err.value.status == 400
+        # each package's archive restores in the other's agent
+        port[1].snapshot_restore(archives["ref"])
+        ref[1].snapshot_restore(archives["port"])
+        check(ref, port, "GET", "/v1/jobs")
+        check(ref, port, "GET", "/v1/job/httpjob/allocations")
+        assert port[0].is_leader()

@@ -507,6 +507,46 @@ def test_server_modules_load_no_jax_and_nothing_of_the_reference(module):
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["nomad_tpu_torch.state.restore",
+                                    "nomad_tpu_torch.server.snapshot"])
+def test_job_op_modules_load_no_jax_nothing_of_the_reference_no_cuda(
+        module):
+    """The state dump / restore and the snapshot archives stand alone,
+    and neither starts CUDA at import."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.cuda.init = lambda: sys.exit('CUDA initialized')\n"
+        f"import {module}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad or torch.cuda.is_initialized() else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_plan_job_dry_run_asks_for_the_card_by_default():
+    """A dry run schedules on the server's device: an unstarted Server
+    (device None: cuda) raises without a card, and its store is left
+    as it was."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.state.restore import dump_state
+    from nomad_tpu_torch.structs import SchedulerConfiguration
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    server = Server()
+    server.state.set_scheduler_config(SchedulerConfiguration(
+        scheduler_algorithm="tpu-binpack"))
+    server.state.upsert_node(mock.node())
+    before = dump_state(server.state)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        server.plan_job(mock.job(id="planned"))
+    assert dump_state(server.state) == before
+
+
 def _server_threads(before):
     """The live server threads not in ``before`` (an earlier test file
     may leave its own behind)."""
