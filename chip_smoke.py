@@ -159,7 +159,7 @@ Phases (any failure raises and the script exits nonzero with no result):
                 groups and phase 7's 32 windowed tier-5 lanes, and one
                 LpqBarrier generation of 32 LP lanes, each equal bit for
                 bit to fuse_and_solve plus the cross-lane fixpoint (or
-                solve_queue) called directly; 4 barriers of the 32
+                solve_queue) called directly; 2 barriers of the 32
                 headline lanes at once at depth 1 and at depth 2 (one
                 run each: wall time until every result is in, each lane's
                 wait, the pipeline's prepare stages and most dispatches in
@@ -243,12 +243,17 @@ Phases (any failure raises and the script exits nonzero with no result):
                 through register_job, equal to solve_system on the
                 scheduler's snapshot; the blocked drill (one node with
                 room for one alloc, two jobs in one batch, the loser
-                blocked until register_node adds a node). Prints each
-                step's wall time (evals written to the last plan
-                committed), placements per second, per eval the wait for
-                the index, the scheduler and submit_plan, the applier's
-                verify and commit ms, group sizes, rejections and
-                cross-worker serializations, acks and nacks.
+                blocked until register_node adds a node); the headline
+                round again on a fresh Server with the native control
+                plane off (NOMAD_TPU_TORCH_NATIVE_CP=0): placements equal
+                to the first round's bit for bit, the nomad.native.*
+                counters of both rounds. Prints each step's wall time
+                (evals written to the last plan committed), placements
+                per second, per eval the wait for the index, the
+                scheduler and submit_plan, the applier's verify and
+                commit ms, group sizes, rejections and cross-worker
+                serializations, acks and nacks, and both rounds' verify
+                ms a plan and snapshot build ms.
  16. telemetry -- the metrics registry, the eval-scoped tracer, the
                 transfer ledger and the quality observatory on the card,
                 through the port's Server and phase 13's fleet: a warm
@@ -3949,7 +3954,7 @@ def mesh_residency_phase(np, torch, batch, mesh, kernels, resident,
 # slice 11: the dispatch layer (the guard's deadline and breaker, the solve
 # barrier and its pipeline)
 
-DISPATCH_BARRIERS = 4               # barriers of N_EVALS lanes (step 3)
+DISPATCH_BARRIERS = 2               # barriers of N_EVALS lanes (step 3)
 DISPATCH_REPEATS = 1                # runs of step 3 at each depth
 DRILL_DEADLINE_S = 0.5              # the fault drill's watchdog deadline
 DRILL_ENV = {"NOMAD_TPU_TORCH_DISPATCH_TIMEOUT": str(DRILL_DEADLINE_S),
@@ -4051,8 +4056,8 @@ def dispatch_phase(np, torch, batch, guard, lpq, kernels, resident, svc,
          lanes, each equal to fuse_and_solve plus the fixpoint called
          directly, bit for bit; one LpqBarrier generation under the
          deadline equal to solve_queue;
-      3. 4 barriers of the 32 headline lanes at once, at depth 1 and at
-         depth 2, 3 runs each: wall time until every result is in, each
+      3. DISPATCH_BARRIERS (2) barriers of the 32 headline lanes at
+         once, at depth 1 and at depth 2, DISPATCH_REPEATS runs each: wall time until every result is in, each
          lane's barrier wait, the prepare stages the pipeline ran, the most
          dispatches in flight, the launches; decisions equal at both
          depths and to the direct solve;
@@ -6004,6 +6009,41 @@ class ServerRoute:
         return out
 
 
+class SnapshotTimer:
+    """Times every StateSnapshot built while entered (its alloc map
+    advanced by the journal or copied whole), on the host clock: ``ms``
+    a snapshot."""
+
+    def __init__(self, store_mod):
+        self.mod, self.ms = store_mod, []
+
+    def __enter__(self):
+        cls = self.mod.StateSnapshot
+        self.saved = cls.__init__
+        timer = self
+
+        def init(snap, store):
+            t0 = time.perf_counter()
+            timer.saved(snap, store)
+            timer.ms.append((time.perf_counter() - t0) * 1e3)
+        cls.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.StateSnapshot.__init__ = self.saved
+
+
+NATIVE_SERIES = ("nomad.native.verify_hits", "nomad.native.snapshot_hits",
+                 "nomad.native.snapshot_fallbacks",
+                 "nomad.native.materialize_hits",
+                 "nomad.native.materialize_fallbacks")
+
+
+def native_counts(metrics):
+    c = metrics.snapshot()["counters"]
+    return {k: c.get(k, 0) for k in NATIVE_SERIES}
+
+
 def server_allocs(store, eval_ids):
     """Per eval id: {alloc name: (node id, normalized-score bits, [])} of
     the store's live allocs (committed()'s form)."""
@@ -6055,7 +6095,15 @@ def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
       4. the blocked drill: a one-node store with room for one alloc,
          two jobs in one batch: one placed, the other's eval blocked;
          register_node adds a node, BlockedEvals.unblock releases the
-         eval and it is placed; no node over capacity.
+         eval and it is placed; no node over capacity;
+      5. the native control plane: step 1's round ran with it on (the
+         default); the headline round again on a fresh Server and store
+         built by the same writes with NOMAD_TPU_TORCH_NATIVE_CP=0:
+         placements equal to step 1's bit for bit, the nomad.native.*
+         counters 0 there and, in step 1, verify, snapshot and
+         materialize hits above 0 (one materialize hit a placement, no
+         fallback); the verify ms a plan and snapshot build ms of both
+         runs, and the library's build seconds.
     A generation's lanes reach its barrier in eval order (ServerRoute),
     so the fixpoint breaks ties as the compared route does. Launch
     counts are read around the server's runs alone (``launches``: the
@@ -6063,12 +6111,15 @@ def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
     no dispatch fails."""
     import copy
     from nomad_tpu_torch import mock as pmock
+    from nomad_tpu_torch import native
     from nomad_tpu_torch import structs as st
     from nomad_tpu_torch.scheduler import generic
     from nomad_tpu_torch.scheduler.context import EvalContext
     from nomad_tpu_torch.scheduler.harness import Harness
     from nomad_tpu_torch.server import Server
     from nomad_tpu_torch.server import worker as worker_mod
+    from nomad_tpu_torch.server.telemetry import metrics
+    from nomad_tpu_torch.state import store as store_mod
     from nomad_tpu_torch.state.store import StateStore
 
     st.reseed_ids(SEED + 15)
@@ -6142,7 +6193,13 @@ def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
                      for e, j in enumerate(jobs)]
             ids = [ev.id for ev in evals]
             sched.reset()
-            t0 = run(route, server, evals, N_EVALS * N_PLACE, "headline")
+            assert native.native_cp_enabled()
+            c0 = native_counts(metrics)
+            with SnapshotTimer(store_mod) as snaps_on:
+                t0 = run(route, server, evals, N_EVALS * N_PLACE,
+                         "headline")
+            c1 = native_counts(metrics)
+            native_on = {k: c1[k] - c0[k] for k in NATIVE_SERIES}
             got = server_allocs(store, ids)
             for ev, j in zip(evals, jobs):
                 upd = store.eval_by_id(ev.id)
@@ -6313,6 +6370,71 @@ def server_phase(np, torch, batch, guard, lpq, kernels, svc, tp, world,
             f"{blocked_ms:.1f} ms to both placed")
     finally:
         bserver.shutdown()
+
+    # -- 5. the native control plane off: the headline round again -------
+    ojobs = make_jobs("srv-job", N_EVALS, N_PLACE)
+    ostore = fleet_store(ojobs)
+    oserver = Server(state=ostore, device=DEVICE, batch_width=SERVER_WIDTH,
+                     heartbeat_ttl=3600.0)
+    try:
+        with EnvPatch(NOMAD_TPU_TORCH_NATIVE_CP="0"), sched, \
+                ServerRoute(oserver, worker_mod, batch, lpq) as oroute:
+            oserver.start()
+            oevals = [sched_eval(st, j, ev.id)
+                      for ev, j in zip(evals, ojobs)]
+            sched.reset()
+            c0 = native_counts(metrics)
+            with SnapshotTimer(store_mod) as snaps_off:
+                t0 = run(oroute, oserver, oevals, N_EVALS * N_PLACE,
+                         "headline, native control plane off")
+            c1 = native_counts(metrics)
+            native_off = {k: c1[k] - c0[k] for k in NATIVE_SERIES}
+            ogot = server_allocs(ostore, ids)
+            off = oroute.summary("headline native off", card, t0,
+                                 sum(len(m) for m in ogot.values()),
+                                 N_EVALS, sched)
+    finally:
+        oserver.shutdown()
+    diff = {e: sum(ogot[e].get(n) != v for n, v in got[e].items())
+            for e in ids}
+    assert ogot == got, ("placements differ with the native control "
+                         "plane off", {e: d for e, d in diff.items() if d})
+    assert not any(native_off.values()), native_off
+    for k in ("nomad.native.verify_hits", "nomad.native.snapshot_hits",
+              "nomad.native.materialize_hits"):
+        assert native_on[k] > 0, (k, native_on)
+    assert native_on["nomad.native.materialize_hits"] == \
+        N_EVALS * N_PLACE, native_on
+    assert native_on["nomad.native.materialize_fallbacks"] == 0, native_on
+
+    def side(counts, summ, snaps):
+        vpp = summ["applier"]["verify_per_plan"]
+        return dict(counters=counts, verify_ms_per_plan=vpp,
+                    verify_ms=summ["applier"]["verify_ms"],
+                    snapshot_ms=ms_stats(snaps.ms) if snaps.ms else None,
+                    snapshot_ms_sum=sum(snaps.ms), wall_ms=summ["wall_ms"])
+    report["native_cp"] = dict(
+        placements_equal=True, build_s=native.build_seconds,
+        on=side(native_on, head, snaps_on), off=side(native_off, off,
+                                                      snaps_off))
+    nc = report["native_cp"]
+    log(f"server native control plane [{card}]: the headline's "
+        f"{N_EVALS * N_PLACE} placements equal bit for bit with "
+        f"NOMAD_TPU_TORCH_NATIVE_CP on and off; counters on {native_on}, "
+        f"off {native_off}; verify ms a plan (median / max) on "
+        f"{nc['on']['verify_ms_per_plan']['median']:.2f} / "
+        f"{nc['on']['verify_ms_per_plan']['max']:.2f}, off "
+        f"{nc['off']['verify_ms_per_plan']['median']:.2f} / "
+        f"{nc['off']['verify_ms_per_plan']['max']:.2f}; snapshot build ms "
+        f"(median / max / n) on {nc['on']['snapshot_ms']['median']:.3f} / "
+        f"{nc['on']['snapshot_ms']['max']:.3f} / "
+        f"{nc['on']['snapshot_ms']['n']}, off "
+        f"{nc['off']['snapshot_ms']['median']:.3f} / "
+        f"{nc['off']['snapshot_ms']['max']:.3f} / "
+        f"{nc['off']['snapshot_ms']['n']}; wall on "
+        f"{nc['on']['wall_ms']:.1f} ms, off {nc['off']['wall_ms']:.1f} ms; "
+        f"library built in {native.build_seconds:.2f} s")
+
     left = [t.name for t in threading.enumerate() if t.is_alive()
             and t.name.startswith(("batch-worker-", "batch-eval-",
                                    "lpq-eval-", "plan-", "eval-broker-"))]
@@ -9621,6 +9743,10 @@ def main(argv=None) -> int:
     info = kernels.build()
     log(f"build: {info['seconds']:.1f} s, built {info['built']} "
         f"into {info['dir']}")
+    from nomad_tpu_torch import native
+    native.load()
+    log(f"native control plane: {native.SOURCE.name} built in "
+        f"{native.build_seconds:.2f} s into {native.library_path().parent}")
     for line in info["log"].splitlines():
         if ("registers" in line or line.startswith("==")
                 or "Compiling entry function" in line):
@@ -9753,6 +9879,7 @@ def main(argv=None) -> int:
                   telemetry=tlres, sanitizers=snres, leader=ldres,
                   agent=agres,
                   build_s=info["seconds"], phase_s=phase_s,
+                  native_build_s=native.build_seconds,
                   total_s=time.perf_counter() - t_start)
     log(f"total {report['total_s']:.1f} s")
     print("report: " + json.dumps(report), flush=True)

@@ -92,6 +92,11 @@ def to_jsonable(obj, _seen=None):
                 out[name] = v if type(v) in _PLAIN else to_jsonable(v, _seen)
             _seen[id(obj)] = out
         return out
+    hydrate = getattr(t, "__nomad_hydrate__", None)
+    if hydrate is not None:
+        # a lazy struct (structs.alloc.LazyAllocMetric): an API read is a
+        # first access, so the hydrated record is rendered (reference :74)
+        return to_jsonable(hydrate(obj), _seen)
     if isinstance(obj, dict):
         return {str(k): v if type(v) in _PLAIN else to_jsonable(v, _seen)
                 for k, v in obj.items()}
@@ -187,6 +192,12 @@ def job_from_json(data: dict) -> Job:
     return job
 
 
+# bounds on the profiler session's start (CUPTI's first start can take
+# tens of seconds) and on its stop and trace export
+PROFILE_START_TIMEOUT_S = 120.0
+PROFILE_STOP_TIMEOUT_S = 300.0
+
+
 class TorchProfile:
     """The agent's torch.profiler session for /v1/agent/torch-profile
     (reference :1301, the JAX profiler's counterpart): ``start`` opens a
@@ -212,7 +223,12 @@ class TorchProfile:
             t = threading.Thread(target=self._run, args=(sess, cuda),
                                  daemon=True, name="torch-profile")
             t.start()
-            sess["started"].wait()
+            if not sess["started"].wait(PROFILE_START_TIMEOUT_S):
+                # a late start stops at once
+                sess["stop"].set()
+                raise RuntimeError(
+                    "torch profiler: the session thread did not start "
+                    f"the profiler within {PROFILE_START_TIMEOUT_S:.0f} s")
             if sess["error"] is not None:
                 raise RuntimeError(f"torch profiler: {sess['error']}")
             self._session = sess
@@ -224,7 +240,11 @@ class TorchProfile:
                 raise RuntimeError("torch profiler not running")
             self._session = None
         sess["stop"].set()
-        sess["done"].wait()
+        if not sess["done"].wait(PROFILE_STOP_TIMEOUT_S):
+            raise RuntimeError(
+                "torch profiler: the session thread did not stop the "
+                f"profiler and write its trace within "
+                f"{PROFILE_STOP_TIMEOUT_S:.0f} s")
         if sess["error"] is not None:
             raise RuntimeError(f"torch profiler: {sess['error']}")
         return sess["path"]
@@ -1014,7 +1034,9 @@ class HttpServer:
         self._thread.start()
 
     def shutdown(self) -> None:
-        self.httpd.shutdown()
+        if self._thread is not None:
+            # stops serve_forever; waits for it forever if it never ran
+            self.httpd.shutdown()
         # close the listener too: a bound port would queue connections
         # in its backlog instead of refusing them
         self.httpd.server_close()

@@ -12,12 +12,22 @@ host iterator stack one placement at a time. The device is ``device``
 carries on on the CPU unless the caller names it. On a card, a dispatch
 that fails or is refused (init down, breaker open) raises DispatchFailed
 out of ``process``: the eval is not placed by the host stack.
+
+A solved placement's AllocMetric is built lazily (structs
+LazyAllocMetric, counted in ``nomad.native.materialize_hits``) unless
+NOMAD_TPU_TORCH_NATIVE_CP=0 builds it at once.
+
+Knob (read at each use):
+  NOMAD_TPU_TORCH_LEAN_ALLOC_METRICS=1   a lean metric per solved
+                                         placement (_lean_alloc_metrics)
 """
 from __future__ import annotations
 
+import os
 import time as _time
 from typing import Dict, List, Optional, Set
 
+from .. import native
 from ..device import DeviceLike, resolve_device
 from ..server.telemetry import metrics as _tm
 from ..server.tracing import tracer
@@ -26,7 +36,8 @@ from ..solver.guard import (
     note_host_placements, refuse_dispatch)
 from ..structs import (
     AllocatedResources, AllocatedSharedResources, AllocDeploymentStatus,
-    Allocation, Evaluation, Job, Plan, PlanResult, RescheduleEvent,
+    AllocMetric, Allocation, Evaluation, Job, LazyAllocMetric, Plan,
+    PlanResult, RescheduleEvent,
     RescheduleTracker, generate_uuid,
     ALLOC_DESIRED_RUN, EVAL_STATUS_BLOCKED, EVAL_STATUS_COMPLETE,
     EVAL_STATUS_FAILED, JOB_TYPE_BATCH, JOB_TYPE_SERVICE,
@@ -53,6 +64,14 @@ _OK_TRIGGERS = frozenset((
     TRIGGER_MAX_DISCONNECT_TIMEOUT, TRIGGER_RECONNECT,
     TRIGGER_PERIODIC_JOB, TRIGGER_SCALING,
 ))
+
+
+def _lean_alloc_metrics() -> bool:
+    """NOMAD_TPU_TORCH_LEAN_ALLOC_METRICS=1 (reference
+    NOMAD_TPU_LEAN_ALLOC_METRICS): each solved placement carries a lean
+    AllocMetric (n_yielded, the pool size, its scores) instead of the
+    eval's whole record, for fleets with millions of live allocs."""
+    return os.environ.get("NOMAD_TPU_TORCH_LEAN_ALLOC_METRICS", "") == "1"
 
 
 class SetStatusError(Exception):
@@ -448,12 +467,23 @@ class GenericScheduler:
             if n_solved:
                 # one bump per task group, not per placement
                 _tm.incr("nomad.scheduler.placements_tpu", n_solved)
+                if native.native_cp_enabled():
+                    # lean stubs take the lazy path's place: counted as
+                    # its fallbacks (reference :467)
+                    _tm.incr("nomad.native.materialize_fallbacks"
+                             if _lean_alloc_metrics() else
+                             "nomad.native.materialize_hits", n_solved)
         return fallback
 
     def _append_solved_alloc(self, sp, deployment_id: str) -> None:
-        """One solved placement as an allocation. Its metrics are the
-        eval's base metric copied for the alloc, with the placement's
-        n_yielded and scores."""
+        """One solved placement as an allocation (reference :487). Its
+        metrics are the eval's base metric copied for the alloc with the
+        placement's n_yielded and scores: a LazyAllocMetric that builds
+        the copy on first access, by default; the copy itself with
+        NOMAD_TPU_TORCH_NATIVE_CP=0; with
+        NOMAD_TPU_TORCH_LEAN_ALLOC_METRICS=1 a lean record of the
+        n_yielded and the pool size alone (placements are the same
+        either way: metrics only explain them)."""
         place = sp.place
         resources = sp.resources_prebuilt
         if resources is None:
@@ -463,15 +493,24 @@ class GenericScheduler:
                 if sp.alloc_resources is not None
                 else AllocatedSharedResources(
                     disk_mb=place.task_group.ephemeral_disk.size_mb))
-        metrics = self.ctx.metrics.copy_for_alloc()
-        metrics.nodes_evaluated = sp.n_yielded
-        metrics.score_node(sp.node.id, "normalized-score", sp.score)
-        if sp.preempted_allocs:
-            # the component the host records (rank.py
-            # PreemptionScoringIterator)
-            metrics.score_node(
-                sp.node.id, "preemption",
-                preemption_score(net_priority(sp.preempted_allocs)))
+        preempt = (preemption_score(net_priority(sp.preempted_allocs))
+                   if sp.preempted_allocs else None)
+        if _lean_alloc_metrics():
+            metrics = AllocMetric(nodes_evaluated=sp.n_yielded,
+                                  nodes_in_pool=self.ctx.metrics
+                                  .nodes_in_pool)
+        elif native.native_cp_enabled():
+            metrics = LazyAllocMetric(self.ctx.metrics, sp.node.id,
+                                      sp.score, sp.n_yielded, preempt)
+        else:
+            metrics = self.ctx.metrics.copy_for_alloc()
+            metrics.nodes_evaluated = sp.n_yielded
+        if not isinstance(metrics, LazyAllocMetric):
+            metrics.score_node(sp.node.id, "normalized-score", sp.score)
+            if preempt is not None:
+                # the component the host records (rank.py
+                # PreemptionScoringIterator)
+                metrics.score_node(sp.node.id, "preemption", preempt)
         self._append_alloc(place, sp.node, resources, metrics,
                            deployment_id, sp.preempted_allocs)
 

@@ -7,10 +7,14 @@ Scheduler workers race against snapshots; every plan is verified here
 against the LATEST state before it commits, and a partial commit hands
 back a refresh index so the scheduler retries against fresher state.
 
-The verify pre-pass is the reference's Python pre-pass (``_fast_check``):
-the alloc table's per-node fold, the plan's deltas subtracted at most
-once per alloc, the in-flight overlay, then ``verify_fit``. The
-reference's default native pre-pass is decision-identical to it.
+The verify pre-pass (``_fast_check``) reads the alloc table's per-node
+fold, takes the plan's deltas off at most once per alloc, adds the
+in-flight overlay, then compares against the caps. By default it runs
+in the native control plane (``_fast_check_native``: the plan's entries
+gathered under the store lock, then one C call, native.py
+``verify_plan``, with the interpreter lock released; counted in
+``nomad.native.verify_hits``); with ``NOMAD_TPU_TORCH_NATIVE_CP=0`` it is
+the reference's Python pre-pass, decision-identical to it.
 
 Knobs (read at each use):
   NOMAD_TPU_TORCH_PLAN_BATCH               0 turns group commit off: one
@@ -29,7 +33,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .. import schedcheck, statecheck
+from .. import native, schedcheck, statecheck
 from ..faultinject import faults
 from .quality import observatory
 from .telemetry import metrics
@@ -38,16 +42,6 @@ from ..structs import (
     Allocation, Evaluation, Plan, PlanResult, allocs_fit,
     NODE_STATUS_DISCONNECTED, NODE_STATUS_DOWN, NODE_STATUS_READY,
 )
-
-
-def verify_fit(cpu_cap, mem_cap, disk_cap, used_cpu, used_mem, used_disk,
-               ask_cpu, ask_mem, ask_disk) -> np.ndarray:
-    """Node-axis fit check: the failing dimension per node (0 fits, 1
-    cpu, 2 memory, 3 disk; reference native.py:301, its numpy form)."""
-    out = np.where(used_cpu + ask_cpu > cpu_cap, 1,
-                   np.where(used_mem + ask_mem > mem_cap, 2,
-                            np.where(used_disk + ask_disk > disk_cap, 3, 0)))
-    return out.astype(np.int32)
 
 
 def _batch_enabled() -> bool:
@@ -340,9 +334,12 @@ class Planner:
             self._cv.notify()
         # bounded re-check: the dispatcher resolves every pending entry,
         # success or failure, but a wedged commit should park us
-        # re-checkably, not forever
+        # re-checkably, and a dispatcher that is gone ends the wait
         while not pending.event.wait(5.0):
-            pass
+            if not self._dispatcher.is_alive() and not pending.event.is_set():
+                raise RuntimeError(
+                    f"plan applier stopped before plan of eval "
+                    f"{plan.eval_id} was resolved")
         if pending.error is not None:
             raise pending.error
         return pending.result
@@ -776,6 +773,11 @@ class Planner:
             if fc[3]:
                 plain_nodes[k] = False
 
+        if native.native_cp_enabled():
+            return self._fast_check_native(
+                plan, node_ids, table, store, caps, valid, plain_nodes,
+                pos_of, overlay_removed, inflight)
+
         with store._lock:
             used_c, used_m, used_d, spec_any, _found = \
                 table.fold_verify(node_ids)
@@ -851,14 +853,115 @@ class Planner:
                         if plain_nodes[k] and self._alloc_special(a):
                             plain_nodes[k] = False
 
-        plain = plain_nodes & ~spec_any
-        dims = verify_fit(*caps, used_c, used_m, used_d, *asks)
+        dims = native.verify_fit_plain(*caps, used_c, used_m, used_d, *asks)
+        return self._fast_verdicts(node_ids, dims, valid,
+                                   plain_nodes & ~spec_any)
+
+    @staticmethod
+    def _fast_verdicts(node_ids, dims, valid, plain
+                       ) -> Tuple[Dict[str, str], set]:
         names = {1: "cpu", 2: "memory", 3: "disk"}
+        n = len(node_ids)
         rejects = {node_ids[k]: names[int(dims[k])]
                    for k in range(n) if valid[k] and dims[k] != 0}
         fit = {node_ids[k] for k in range(n)
                if valid[k] and dims[k] == 0 and plain[k]}
         return rejects, fit
+
+    def _fast_check_native(self, plan: Plan, node_ids, table, store, caps,
+                           valid, plain_nodes, pos_of, overlay_removed,
+                           inflight) -> Tuple[Dict[str, str], set]:
+        """The native pre-pass (reference :855): the plan group's deltas
+        gathered as plan-sized entry arrays under the store lock (dict
+        lookups only, no float arithmetic), then ONE nt_verify_plan call
+        applies them against the table's columns and compares every
+        node with the interpreter lock released. Decision-identical to
+        the Python pre-pass: entries apply in its traversal order, the
+        C loop skips dead rows where subtract_row does, and the compare
+        is verify_fit's. The store lock is held across the call, so the
+        columns it reads cannot be rewritten meanwhile."""
+        d_row: list = []
+        d_pos: list = []
+        a_pos: list = []
+        a_cpu: list = []
+        a_mem: list = []
+        a_disk: list = []
+        a_iu: list = []
+        with store._lock:
+            used_c, used_m, used_d, spec_any, _found = \
+                table.fold_verify(node_ids)
+            row_of = table._row_of
+            subtracted: set = set()
+
+            def subtract_row(alloc_id: str, k: int) -> None:
+                # at most once per alloc id, as the Python path; the C
+                # loop checks liveness (a dead row adds nothing either way)
+                if alloc_id in subtracted:
+                    return
+                row = row_of.get(alloc_id)
+                if row is None:
+                    return
+                subtracted.add(alloc_id)
+                d_row.append(row)
+                d_pos.append(k)
+
+            def add_ask(a, k: int, into_used: int) -> None:
+                cr = a.allocated_resources.comparable()
+                a_pos.append(k)
+                a_cpu.append(cr.cpu_shares)
+                a_mem.append(cr.memory_mb)
+                a_disk.append(cr.disk_mb)
+                a_iu.append(into_used)
+                if plain_nodes[k] and self._alloc_special(a):
+                    plain_nodes[k] = False
+
+            for group in (plan.node_update, plan.node_preemptions):
+                for nid, allocs in group.items():
+                    k = pos_of.get(nid)
+                    if k is not None:
+                        for a in allocs:
+                            subtract_row(a.id, k)
+            for nid, allocs in plan.node_allocation.items():
+                k = pos_of.get(nid)
+                if k is None:
+                    continue
+                for a in allocs:
+                    # in-place update: the existing row is REPLACED
+                    subtract_row(a.id, k)
+                    add_ask(a, k, 0)
+            if overlay_removed:
+                slot_to_k = {table.node_slot_of(nid): k
+                             for nid, k in pos_of.items()}
+                for aid in overlay_removed:
+                    row = row_of.get(aid)
+                    if row is not None and table.live_strict[row]:
+                        k = slot_to_k.get(int(table.node_slot[row]))
+                        if k is not None:
+                            subtract_row(aid, k)
+            if inflight is not None:
+                # the pipelined previous plan: counts only while its row
+                # has not landed in the table (see the Python path)
+                for nid, allocs in inflight.node_allocation.items():
+                    k = pos_of.get(nid)
+                    if k is None:
+                        continue
+                    for a in allocs:
+                        if a.id not in row_of:
+                            add_ask(a, k, 1)
+            dims = native.verify_plan_native(
+                table.cpu, table.mem, table.disk, table.live_strict,
+                np.asarray(d_row, dtype=np.int64),
+                np.asarray(d_pos, dtype=np.int32),
+                np.full(len(d_row), -1, dtype=np.int8),
+                np.asarray(a_pos, dtype=np.int32),
+                np.asarray(a_cpu, dtype=np.float64),
+                np.asarray(a_mem, dtype=np.float64),
+                np.asarray(a_disk, dtype=np.float64),
+                np.asarray(a_iu, dtype=np.int8),
+                caps[0], caps[1], caps[2], used_c, used_m, used_d)
+        metrics.incr("nomad.native.verify_hits")
+        return self._fast_verdicts(node_ids, dims, valid,
+                                   plain_nodes & ~spec_any)
 
     def _evaluate_node_plan(self, snapshot, plan: Plan, node_id: str,
                             skip_fit: bool = False) -> Tuple[bool, str]:

@@ -9,7 +9,12 @@ quarantine), ``nomad.solver.*`` (dispatch times and counts by route,
 resident-set hits and misses, dispatch bytes, the guard's outcomes),
 ``nomad.lpq.*`` (the LP tier), ``nomad.scheduler.*`` (placements made
 by the kernels, by the host stack, and by the host stack under a tpu-*
-algorithm) and the sanitizers' findings, ``nomad.lockcheck.*``,
+algorithm), ``nomad.native.*`` (the native control plane, native.py:
+``verify_hits`` the applier's native pre-passes, ``snapshot_hits`` and
+``snapshot_fallbacks`` snapshots whose alloc map was advanced by the
+journal or copied whole, ``materialize_hits`` and
+``materialize_fallbacks`` solved placements given a lazy or a lean
+AllocMetric) and the sanitizers' findings, ``nomad.lockcheck.*``,
 ``nomad.jitcheck.*``, ``nomad.statecheck.*`` and ``nomad.schedcheck.*``
 (each module's docstring names its series).
 

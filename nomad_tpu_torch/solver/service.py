@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .. import jitcheck, statecheck
+from .. import jitcheck, native, statecheck
 from ..device import DeviceLike, default_dtype_name, resolve_device
 from ..scheduler.util import shuffled_order
 from ..structs import (
@@ -882,10 +882,10 @@ class TpuPlacementService:
         if static_ports:
             static_free = np.ones(n_pad, dtype=bool)
             if usage.port_bitmap is not None:
-                for p in static_ports:
-                    if 0 <= p < 65536:
-                        static_free &= (usage.port_bitmap[:, p >> 5]
-                                        & np.uint32(1 << (p & 31))) == 0
+                # the native control plane's check (reference :547)
+                static_free = native.static_ports_free(
+                    usage.port_bitmap,
+                    np.asarray(static_ports, dtype=np.int32))
 
         dtype = np.dtype(self.dtype).type
         ask = tg.total_resources()

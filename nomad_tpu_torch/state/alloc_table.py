@@ -17,10 +17,10 @@ node-axis usage (``pack``, ``count_placed``: solver/service.py
 _pack_usage_from_table) instead of walking every node's allocations;
 the plan applier reads a node's committed usage (``fold_verify``).
 ``compact`` repacks the rows densely once GC has freed many
-(state/store.py compact_alloc_table). The reference's folds run in a C
-library where it is built; here they are numpy, the reference's own
-fallback forms (``pack_usage``, ``count_placed`` below), folding rows in
-row order.
+(state/store.py compact_alloc_table). The folds run in the native
+control plane's C library (native.py ``pack_usage``, ``count_placed``),
+as the reference's do, folding rows in row order; with
+``NOMAD_TPU_TORCH_NATIVE_CP=0`` they run in its numpy forms.
 
 ``version`` counts the table's mutations, as the reference's does:
 every mutator call bumps it, so a reader that sees it move during one
@@ -41,12 +41,14 @@ from __future__ import annotations
 import hashlib
 import os
 from functools import lru_cache
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 
-MAX_PORTS = 8
-PORT_WORDS = 2048
+from .. import native
+
+MAX_PORTS = native.MAX_PORTS_PER_ALLOC
+PORT_WORDS = native.PORT_WORDS
 
 _ROW_COLUMNS = (("node_slot", np.int32, -1), ("cpu", np.float64, 0),
                 ("mem", np.float64, 0), ("disk", np.float64, 0),
@@ -71,66 +73,6 @@ def stable_hash(*parts: str) -> int:
         h.update(p.encode())
         h.update(b"\0")
     return int.from_bytes(h.digest(), "little")
-
-
-def pack_usage(node_slot: np.ndarray, cpu: np.ndarray, mem: np.ndarray,
-               disk: np.ndarray, live: np.ndarray,
-               ports: Optional[np.ndarray], dyn_lo: np.ndarray,
-               dyn_hi: np.ndarray, n_pad: int,
-               port_words_seed: Optional[np.ndarray] = None
-               ) -> Tuple[np.ndarray, ...]:
-    """(reference native.py:178, its numpy form) Fold the rows into
-    node-axis usage: ``node_slot`` holds each row's position (-1: none).
-    ``ports`` is (rows, MAX_PORTS) int32 (-1 empty) or None to fold no
-    port state. Returns (used_cpu, used_mem, used_disk, dyn_used,
-    port_words); port_words is None when no port state exists."""
-    n_rows = len(node_slot)
-    used_cpu = np.zeros(n_pad, dtype=np.float64)
-    used_mem = np.zeros(n_pad, dtype=np.float64)
-    used_disk = np.zeros(n_pad, dtype=np.float64)
-    dyn_used = np.zeros(n_pad, dtype=np.int32)
-    has_ports = (ports is not None and n_rows
-                 and bool((ports[:, 0] >= 0).any()))
-    if port_words_seed is None and not has_ports:
-        port_words = None
-    else:
-        port_words = (port_words_seed.copy() if port_words_seed is not None
-                      else np.zeros((n_pad, PORT_WORDS), dtype=np.uint32))
-    mask = (live != 0) & (node_slot >= 0) & (node_slot < n_pad)
-    slots = node_slot[mask]
-    np.add.at(used_cpu, slots, cpu[mask])
-    np.add.at(used_mem, slots, mem[mask])
-    np.add.at(used_disk, slots, disk[mask])
-    if port_words is not None and ports is not None:
-        for i in np.nonzero(mask)[0]:
-            slot = node_slot[i]
-            for p in ports[i]:
-                if p < 0:
-                    break
-                if p >= 65536:
-                    continue
-                word, bit = p >> 5, np.uint32(1 << (p & 31))
-                if not port_words[slot, word] & bit:
-                    port_words[slot, word] |= bit
-                    if dyn_lo[slot] <= p <= dyn_hi[slot]:
-                        dyn_used[slot] += 1
-    return used_cpu, used_mem, used_disk, dyn_used, port_words
-
-
-def count_placed(node_slot: np.ndarray, job_hash: np.ndarray,
-                 jobtg_hash: np.ndarray, live: np.ndarray, want_job: int,
-                 want_jobtg: int, n_pad: int
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """(reference native.py:250, its numpy form) Per position: the live
-    rows of the task group, and of the job."""
-    placed = np.zeros(n_pad, dtype=np.int32)
-    placed_job = np.zeros(n_pad, dtype=np.int32)
-    mask = (live != 0) & (node_slot >= 0) & (node_slot < n_pad) & \
-        (job_hash == np.uint64(want_job))
-    np.add.at(placed_job, node_slot[mask], 1)
-    mask_tg = mask & (jobtg_hash == np.uint64(want_jobtg))
-    np.add.at(placed, node_slot[mask_tg], 1)
-    return placed, placed_job
 
 
 class AllocTable:
@@ -505,7 +447,8 @@ class AllocTable:
         dyn_hi = np.full(n_pad, 32000, dtype=np.int32)
         dyn_lo[valid] = self.dyn_lo[node_slots_for_pad[valid]]
         dyn_hi[valid] = self.dyn_hi[node_slots_for_pad[valid]]
-        used_cpu, used_mem, used_disk, dyn_used, port_words = pack_usage(
+        used_cpu, used_mem, used_disk, dyn_used, port_words = \
+            native.pack_usage(
             mapped.astype(np.int32), self.cpu[:n], self.mem[:n],
             self.disk[:n], self.live[:n],
             self.ports[:n] if use_ports else None, dyn_lo, dyn_hi, n_pad,
@@ -519,7 +462,7 @@ class AllocTable:
         """(reference :596) Per position: (the task group's live rows,
         the job's live rows); ``mapped_slots`` is pack's row_slots."""
         n = self.n_rows
-        return count_placed(
+        return native.count_placed(
             mapped_slots.astype(np.int32), self.job_hash[:n],
             self.jobtg_hash[:n], self.live[:n],
             stable_hash(namespace, job_id),

@@ -176,6 +176,7 @@ def restore_state(store: "StateStore", blob: dict) -> None:
             store._allocs_by_job.setdefault(
                 (a.namespace, a.job_id), {})[a.id] = None
         store._snap_cache = None
+        store._snap_alloc_prev = None
         store._scaling_policies = scaling_policies
         store._scaling_events = scaling_events
         store._namespaces = namespaces

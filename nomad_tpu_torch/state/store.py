@@ -53,7 +53,7 @@ import time
 from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
 
-from .. import schedcheck, statecheck
+from .. import native, schedcheck, statecheck
 from ..faultinject import faults
 from ..server.telemetry import metrics
 from ..structs import (
@@ -97,6 +97,104 @@ def _job_key(alloc) -> Tuple[str, str]:
             getattr(alloc, "job_id", ""))
 
 
+class _DeltaAllocs:
+    """A snapshot's alloc map advanced by the alloc-delta journal
+    (reference :50): the previous snapshot's map patched copy-on-write
+    by the journaled span instead of a whole ``dict(store._allocs)``
+    copy a snapshot.
+
+    ``base`` is a plain dict shared with an earlier snapshot and is
+    NEVER mutated. ``over`` holds new values of base keys still in
+    place, ``dead`` the base keys deleted since, and ``tail`` (ordered)
+    the keys inserted since: new ones, and deleted ones inserted again.
+    Iteration yields base order (a replaced alloc keeps its place), then
+    ``tail`` in insertion order: the order of the store's own dict, so
+    every reader sees what the whole copy would show, in the same order.
+    Each advance copies the small overlay, so a chain never deepens past
+    one level; the store flattens back to a dict once the overlay
+    outgrows its budget (StateStore._snapshot_allocs_locked)."""
+
+    __slots__ = ("_base", "_over", "_dead", "_tail")
+
+    def __init__(self, base: dict, over: dict, dead: set, tail: dict):
+        self._base = base
+        self._over = over
+        self._dead = dead
+        self._tail = tail
+
+    @classmethod
+    def advanced(cls, prev, pairs) -> "_DeltaAllocs":
+        """``prev`` (a dict or a view) advanced by journal pairs."""
+        if isinstance(prev, cls):
+            base, over = prev._base, dict(prev._over)
+            dead, tail = set(prev._dead), dict(prev._tail)
+        else:
+            base, over, dead, tail = prev, {}, set(), {}
+        for old, new in pairs:
+            if new is not None:
+                k = new.id
+                if k in tail or k not in base or k in dead:
+                    tail[k] = new       # a tail key keeps its place
+                else:
+                    over[k] = new
+            elif old is not None:
+                k = old.id
+                if k in tail:
+                    del tail[k]
+                elif k in base and k not in dead:
+                    dead.add(k)
+                    over.pop(k, None)
+        return cls(base, over, dead, tail)
+
+    def overlay_size(self) -> int:
+        """The reference's measure of the overlay: a deleted key
+        inserted again counts once."""
+        return (len(self._over) + len(self._tail)
+                + len(self._dead.difference(self._tail)))
+
+    def get(self, key, default=None):
+        v = self._tail.get(key)
+        if v is not None:
+            return v
+        if key in self._dead:
+            return default
+        v = self._over.get(key)
+        return v if v is not None else self._base.get(key, default)
+
+    def __getitem__(self, key):
+        v = self.get(key)
+        if v is None:
+            raise KeyError(key)
+        return v
+
+    def __contains__(self, key) -> bool:
+        return key in self._tail or (key not in self._dead
+                                     and key in self._base)
+
+    def __len__(self) -> int:
+        return len(self._base) - len(self._dead) + len(self._tail)
+
+    def __iter__(self):
+        dead = self._dead
+        for k in self._base:
+            if k not in dead:
+                yield k
+        yield from self._tail
+
+    def keys(self) -> list:
+        return list(self)
+
+    def items(self) -> list:
+        over, dead = self._over, self._dead
+        out = [(k, over.get(k, v)) for k, v in self._base.items()
+               if k not in dead]
+        out.extend(self._tail.items())
+        return out
+
+    def values(self) -> list:
+        return [v for _, v in self.items()]
+
+
 class StateSnapshot:
     """An immutable point-in-time view (reference: StateSnapshot). It
     shares the store's objects and exposes the store as ``_store`` (the
@@ -111,7 +209,7 @@ class StateSnapshot:
             self._nodes = dict(store._nodes)
             self._jobs = dict(store._jobs)
             self._evals = dict(store._evals)
-            self._allocs = dict(store._allocs)
+            self._allocs = store._snapshot_allocs_locked()
             self._deployments = dict(store._deployments)
             self._node_pools = dict(store._node_pools)
             self.alloc_table = store.alloc_table
@@ -254,6 +352,9 @@ class StateStore:
         self._scaling_policies: Dict[str, ScalingPolicy] = {}
         self._scaling_events: Dict[Tuple[str, str], List[ScalingEvent]] = {}
         self._snap_cache: Optional[StateSnapshot] = None
+        # (allocs table index, alloc map) of the last snapshot built: the
+        # base the next one advances by the journal
+        self._snap_alloc_prev: Optional[tuple] = None
         # (index, pairs | None) per alloc-table write, oldest first
         self._alloc_deltas: deque = deque(maxlen=_delta_journal_cap())
         self.delta_journal_overflow = 0
@@ -347,6 +448,38 @@ class StateStore:
                     return False, []
                 pairs.extend(delta)
             return True, pairs
+
+    def _snapshot_allocs_locked(self):
+        """The alloc map of a snapshot under construction (reference
+        :505; the caller holds the lock). By default the previous
+        snapshot's map advanced by the journal's span (_DeltaAllocs):
+        O(changed allocs) instead of a whole copy. The whole copy stays
+        for a journal gap or overflow, an overlay past its budget, and
+        the NOMAD_TPU_TORCH_NATIVE_CP=0 path."""
+        if not native.native_cp_enabled():
+            return dict(self._allocs)
+        idx = self._table_index.get("allocs", 1)
+        prev = self._snap_alloc_prev
+        if prev is not None:
+            prev_idx, prev_map = prev
+            if prev_idx == idx:
+                # a write to another table: the frozen map still holds
+                metrics.incr("nomad.native.snapshot_hits")
+                return prev_map
+            covered, pairs = self.alloc_deltas_since(prev_idx, upto=idx)
+            if covered:
+                view = _DeltaAllocs.advanced(prev_map, pairs)
+                # flatten once the overlay outgrows its budget: reads
+                # scale with it, and the churn that built it makes the
+                # next whole copy cheap beside it
+                if view.overlay_size() <= max(1024, len(view._base) // 8):
+                    self._snap_alloc_prev = (idx, view)
+                    metrics.incr("nomad.native.snapshot_hits")
+                    return view
+        allocs = dict(self._allocs)
+        self._snap_alloc_prev = (idx, allocs)
+        metrics.incr("nomad.native.snapshot_fallbacks")
+        return allocs
 
     def snapshot(self) -> StateSnapshot:
         """One snapshot per index: any write starts a new one."""

@@ -36,7 +36,7 @@ from .node import (  # noqa: F401
 from .alloc import (  # noqa: F401
     AllocDeploymentStatus, AllocMetric, Allocation, Deployment,
     DeploymentState, DeploymentStatusUpdate, DesiredTransition, Evaluation,
-    NetworkStatus, Plan, RescheduleEvent, RescheduleTracker,
+    LazyAllocMetric, NetworkStatus, Plan, RescheduleEvent, RescheduleTracker,
     ALLOC_DESIRED_RUN, ALLOC_DESIRED_STOP, ALLOC_DESIRED_EVICT,
     ALLOC_CLIENT_PENDING, ALLOC_CLIENT_RUNNING, ALLOC_CLIENT_COMPLETE,
     ALLOC_CLIENT_FAILED, ALLOC_CLIENT_LOST, ALLOC_CLIENT_UNKNOWN,

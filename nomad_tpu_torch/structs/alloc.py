@@ -5,6 +5,8 @@ DesiredTransition).
 """
 from __future__ import annotations
 
+import copy
+import threading
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional
 
@@ -174,6 +176,73 @@ class AllocMetric:
             score_meta=self.score_meta,
             allocation_time_ns=self.allocation_time_ns,
             coalesced_failures=self.coalesced_failures)
+
+
+# makes a stub's first hydration win on every thread
+_HYDRATE_LOCK = threading.Lock()
+
+
+class LazyAllocMetric:
+    """A placement's AllocMetric built on first access (reference :189):
+    the device path attaches this stub instead of a copy_for_alloc per
+    placement, and the record is hydrated from the eval's base metric
+    when something reads it (an API read, a dump, the quality audit).
+
+    Any attribute access forwards to the hydrated record, ``deepcopy``
+    hydrates first, and the codec, the HTTP encoder and the carry
+    hydrate through ``__nomad_hydrate__``. The base's containers are
+    the ones copy_for_alloc shares; its scalar fields, which later
+    selects of the eval keep changing, are captured at construction, the
+    values the eager copy would have taken. Hydration is idempotent
+    under a race: the first record built is the one every reader gets."""
+
+    __slots__ = ("_base", "_node_id", "_score", "_n_yielded",
+                 "_preempt_score", "_scalars", "_real")
+
+    def __init__(self, base: AllocMetric, node_id: str, score: float,
+                 n_yielded: int, preempt_score: Optional[float] = None):
+        self._base = base
+        self._node_id = node_id
+        self._score = score
+        self._n_yielded = n_yielded
+        self._preempt_score = preempt_score
+        self._scalars = (base.nodes_filtered, base.nodes_in_pool,
+                         base.nodes_exhausted, base.allocation_time_ns,
+                         base.coalesced_failures)
+        self._real = None
+
+    def _hydrate(self) -> AllocMetric:
+        real = self._real
+        if real is not None:
+            return real
+        real = self._base.copy_for_alloc()
+        (real.nodes_filtered, real.nodes_in_pool, real.nodes_exhausted,
+         real.allocation_time_ns, real.coalesced_failures) = self._scalars
+        real.nodes_evaluated = self._n_yielded
+        real.score_node(self._node_id, "normalized-score", self._score)
+        if self._preempt_score is not None:
+            real.score_node(self._node_id, "preemption", self._preempt_score)
+        with _HYDRATE_LOCK:
+            if self._real is None:
+                self._real = real
+            return self._real
+
+    def __nomad_hydrate__(self) -> AllocMetric:
+        return self._hydrate()
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            # an unset slot (a copy under construction), or a protocol
+            # probe: never a field of the record
+            raise AttributeError(name)
+        return getattr(self._hydrate(), name)
+
+    def __deepcopy__(self, memo):
+        return copy.deepcopy(self._hydrate(), memo)
+
+    def __repr__(self) -> str:
+        state = "hydrated" if self._real is not None else "lazy"
+        return f"<LazyAllocMetric {state} node={self._node_id}>"
 
 
 @dataclass

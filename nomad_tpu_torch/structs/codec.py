@@ -48,6 +48,11 @@ def encode(obj: Any) -> Any:
             v = getattr(obj, name)
             out[name] = v if type(v) in _PLAIN else encode(v)
         return out
+    hydrate = getattr(t, "__nomad_hydrate__", None)
+    if hydrate is not None:
+        # a lazy struct (alloc.LazyAllocMetric): encoding is a first
+        # access, so the hydrated record is encoded (reference :25)
+        return encode(hydrate(obj))
     if isinstance(obj, dict):
         return {_encode_key(k): v if type(v) in _PLAIN else encode(v)
                 for k, v in obj.items()}

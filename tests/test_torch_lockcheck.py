@@ -16,6 +16,13 @@ from nomad_tpu import lockcheck as ref_lockcheck
 from nomad_tpu_torch import lockcheck
 
 HERE = __file__
+# every thread a test starts is joined within this bound
+JOIN_TIMEOUT_S = 60.0
+
+
+def join_or_fail(t, what):
+    t.join(timeout=JOIN_TIMEOUT_S)
+    assert not t.is_alive(), f"{what} did not end in {JOIN_TIMEOUT_S:.0f} s"
 
 
 @pytest.fixture(autouse=True)
@@ -94,7 +101,7 @@ def _order_ab_ba(lock_a, lock_b):
     for fn in (order_ab, order_ba):
         t = threading.Thread(target=fn)
         t.start()
-        t.join()
+        join_or_fail(t, fn.__name__)
 
 
 def test_seeded_ab_ba_cycle_both_witness_stacks():
@@ -129,7 +136,7 @@ def test_consistent_order_and_reentry_are_clean():
     for _ in range(2):
         t = threading.Thread(target=order_ab)
         t.start()
-        t.join()
+        join_or_fail(t, "order_ab")
     with lock_a:
         with lock_b:
             pass
@@ -219,7 +226,7 @@ def test_escaped_frame_bare_acquire():
                    for e in st["escaped"]), st["escaped"]
     finally:
         release.set()
-        t.join()
+        join_or_fail(t, "the leaking worker")
     # a bare acquire still inside its frame is not an escape
     lockcheck._reset_for_tests()
     lk2 = threading.Lock()
@@ -271,7 +278,7 @@ def _scenario_escape(mods):
 
     t = threading.Thread(target=worker)
     t.start()
-    t.join()
+    join_or_fail(t, "the leaking worker")
     return box["st"]
 
 

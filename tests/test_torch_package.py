@@ -150,6 +150,38 @@ def test_struct_modules_load_no_jax_and_nothing_of_the_reference(module):
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["nomad_tpu_torch.native",
+                                    "nomad_tpu_torch.scheduler.native_oracle",
+                                    "nomad_tpu_torch.state.store",
+                                    "nomad_tpu_torch.structs.alloc"])
+def test_native_control_plane_modules_stand_alone(module):
+    """The native control plane's modules load no jax, nothing of the
+    reference and no CUDA, and build nothing at import; native.py loads
+    no torch at all (the CLI imports the structs)."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.cuda.init = lambda: sys.exit('CUDA initialized')\n"
+        "import subprocess\n"
+        "subprocess.Popen.__init__ = lambda *a, **k: sys.exit('ran ' + "
+        "repr(a[1:2]))\n"
+        f"import {module}\n"
+        "from nomad_tpu_torch import native\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'nomad_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad or torch.cuda.is_initialized()"
+        " or native._LIB is not None else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    alone = subprocess.run(
+        [sys.executable, "-c", "import sys, nomad_tpu_torch.native; "
+         "sys.exit('torch' in sys.modules)"], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert alone.returncode == 0, alone.stdout + alone.stderr
+
+
 def test_placement_service_defaults_to_cuda():
     """TpuPlacementService resolves its device when built: with no card
     the default (cuda) raises, and nothing falls back to the CPU."""
@@ -211,7 +243,9 @@ def test_every_port_env_knob_is_documented():
             "NOMAD_TPU_TORCH_WORKER_CHECK_S",
             "NOMAD_TPU_TORCH_WORKER_RESTART_BASE_S",
             "NOMAD_TPU_TORCH_WORKER_RESTART_MAX_S",
-            "NOMAD_TPU_TORCH_GC_ALLOC_WATERMARK"} <= knobs
+            "NOMAD_TPU_TORCH_GC_ALLOC_WATERMARK",
+            "NOMAD_TPU_TORCH_NATIVE_CP",
+            "NOMAD_TPU_TORCH_LEAN_ALLOC_METRICS"} <= knobs
     missing = sorted(k for k in knobs if k not in readme)
     assert not missing, missing
 

@@ -21,6 +21,19 @@ from nomad_tpu import statecheck as ref_statecheck
 from nomad_tpu_torch import jitcheck, lockcheck, schedcheck, statecheck
 
 HERE = __file__
+# every thread a test starts is joined within this bound
+JOIN_TIMEOUT_S = 60.0
+
+
+def join_or_fail(t, what):
+    """Join ``t`` in steps (a join under schedcheck may return at a
+    schedule point while the thread still runs), failing after
+    JOIN_TIMEOUT_S."""
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    while t.is_alive():
+        assert time.monotonic() < deadline, \
+            f"{what} did not end in {JOIN_TIMEOUT_S:.0f} s"
+        t.join(timeout=5.0)
 
 
 @pytest.fixture(autouse=True)
@@ -237,8 +250,8 @@ def _scenario_event_deadlock():
     for t in threads:
         t.start()
     for t in threads:
-        while t.is_alive():
-            t.join(timeout=5.0)
+        join_or_fail(t, f"{t.name} (schedcheck did not break the planted "
+                        "event deadlock)")
 
 
 def test_deadlock_manifested_and_replayable():
@@ -324,7 +337,7 @@ def _draws_in_thread(name, n):
 
     t = threading.Thread(target=run, name=name, daemon=True)
     t.start()
-    t.join()
+    join_or_fail(t, f"{name} drawing {n} ids")
     return out
 
 

@@ -27,17 +27,19 @@ from nomad_tpu_torch.solver import batch as port_batch
 from nomad_tpu_torch.solver import resident as port_resident
 from nomad_tpu_torch.solver import xferobs as port_xferobs
 
-from test_torch_server import fresh_state, run_servers  # noqa: F401
+from test_torch_native import ensure_reference_native
+from test_torch_server import (  # noqa: F401
+    enqueue_both, fresh_state, run_servers, server_pair, settle_both)
 from test_torch_scheduler import parity_world, tier_world
 
 PKGS = [pytest.param(ref_tel, id="ref"), pytest.param(port_tel, id="port")]
 
-# counters compared only for presence: the reference's native pre-pass
-# (nomad.native.*, left out of the port) and the pack caches, whose misses
-# that pre-pass changes; the wall-time ones (a dispatch over 1 s, a trace
-# kept for being slow)
-NOT_DETERMINISTIC = ("nomad.native.", "nomad.solver.pack_cache_",
-                     "nomad.solver.dispatch_slow", "nomad.trace.")
+# counters compared only for presence: the wall-time ones (a dispatch
+# over 1 s, a trace kept for being slow). The native control plane's
+# (nomad.native.*) and the pack caches' (whose misses the reference's
+# native snapshot path changed) are compared with the reference's
+# library loaded.
+NOT_DETERMINISTIC = ("nomad.solver.dispatch_slow", "nomad.trace.")
 
 
 def reset_globals():
@@ -61,6 +63,7 @@ def reset_globals():
 
 @pytest.fixture(autouse=True)
 def fresh_telemetry():
+    ensure_reference_native()
     reset_globals()
     yield
     reset_globals()
@@ -241,6 +244,11 @@ def test_statsd_sink_emits_the_same_deltas():
     assert got == _statsd_lines(ref_tel)
 
 
+def native_counters(tel):
+    return {k: v for k, v in tel.metrics.snapshot()["counters"].items()
+            if k.startswith("nomad.native.")}
+
+
 def deterministic(counters):
     return {k: v for k, v in counters.items()
             if not k.startswith(NOT_DETERMINISTIC)}
@@ -271,9 +279,19 @@ def test_scheduler_series_emitted_end_to_end(kind, arg):
     misses, dispatch bytes, the guard's outcomes, the ledger's
     dispatches -- has the reference's value."""
     store, ev = _world(kind, arg)
-    run_servers(store, [ev])
+    with server_pair(store) as (ref, port, memo):
+        # the native control plane's counters from here on, each store
+        # holding a snapshot to advance from: the carry took the
+        # reference's, and the port's carried store takes one here
+        port.state.snapshot()
+        native_at_start = [native_counters(t) for t in (ref_tel, port_tel)]
+        enqueue_both(ref, port, [ev], memo)
+        settle_both(ref, port, [ev.id])
     want = ref_tel.metrics.snapshot()
     got = port_tel.metrics.snapshot()
+    for snap, start in zip((want, got), native_at_start):
+        for k, v in start.items():
+            snap["counters"][k] -= v
     assert sorted(got["samples"]) == sorted(want["samples"])
     assert sorted(got["gauges"]) == sorted(want["gauges"])
     for name in ("nomad.plan.evaluate", "nomad.plan.submit",
@@ -284,3 +302,5 @@ def test_scheduler_series_emitted_end_to_end(kind, arg):
     assert got["gauges"]["nomad.plan.queue_depth"]["count"] >= 1
     assert deterministic(got["counters"]) == deterministic(want["counters"])
     assert got["counters"]["nomad.scheduler.placements_tpu"] >= 1
+    assert got["counters"]["nomad.native.materialize_hits"] >= 1
+    assert got["counters"]["nomad.native.snapshot_hits"] >= 1
