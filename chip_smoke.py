@@ -7649,13 +7649,18 @@ def job_ops_step(server, store, kernels, pmock, st, card, away):
         assert [(e["previous_count"], e["count"], e["eval_id"])
                 for e in status["events"]] == \
             [(JOBOPS_PLACE, JOBOPS_MAX, up["eval_id"])], status["events"]
-        evals0 = len(store.evals_by_job("default", job.id))
+        def registrations():
+            # the job's registration evals: the deployment watcher may
+            # add evals of its own to the job meanwhile
+            return sum(e.triggered_by == st.TRIGGER_JOB_REGISTER
+                       for e in store.evals_by_job("default", job.id))
+        evals0 = registrations()
         try:
             api.scale_job(job.id, "web", JOBOPS_MAX + 500)
             raise AssertionError("a scale outside the bounds was taken")
         except ApiError as e:
             assert e.status == 400, e
-        assert len(store.evals_by_job("default", job.id)) == evals0
+        assert registrations() == evals0
         assert len(api.job_scale_status(job.id)["task_groups"]["web"][
             "events"]) == 1
         kd = launch_counts(kernels)
@@ -8153,6 +8158,27 @@ job "agent-system" {
   }
 }
 """
+AGENT_TEAM_POLICY = """
+namespace "team-a" { capabilities = ["submit-job", "read-job"] }
+"""
+AGENT_TEAM_PLACE = 3                # step f's job's count
+AGENT_TEAM_HCL = """
+job "team-a-web" {
+  namespace = "%s"
+  group "web" {
+    count = %d
+    service {
+      name     = "team-a-web"
+      provider = "nomad"
+      tags     = ["team-a", "web"]
+    }
+    task "t" {
+      driver = "mock"
+      resources { cpu = 100 memory = 64 }
+    }
+  }
+}
+"""
 AGENT_GPU_HCL = """
 job "%s" {
   group "g" {
@@ -8223,14 +8249,25 @@ class AgentProcess:
                 self.proc.wait()
 
 
-def cli_run(addr, *argv):
-    """``python3 -m nomad_tpu_torch.cli -address ADDR ARGV``; its stdout
-    (a non-zero exit raises)."""
+def cli_run(addr, *argv, token=None, rc=0):
+    """``python3 -m nomad_tpu_torch.cli -address ADDR [-token TOKEN]
+    ARGV`` without $NOMAD_TOKEN (no ``token``: an anonymous call); its
+    stdout (an exit code other than ``rc`` raises), or its stderr where
+    ``rc`` is not 0."""
     r = subprocess.run([sys.executable, "-m", "nomad_tpu_torch.cli",
-                        "-address", addr] + list(argv), cwd=ROOT,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, (argv, r.stdout, r.stderr)
-    return r.stdout
+                        "-address", addr]
+                       + (["-token", token] if token else []) + list(argv),
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=300, env={k: v for k, v in os.environ.items()
+                                         if k != "NOMAD_TOKEN"})
+    assert r.returncode == rc, (argv, r.returncode, r.stdout, r.stderr)
+    return r.stdout if rc == 0 else r.stderr
+
+
+def cli_secret(out):
+    """The Secret ID of `acl bootstrap` / `acl token create` output."""
+    return next(ln.split("=", 1)[1].strip() for ln in out.splitlines()
+                if ln.startswith("Secret ID"))
 
 
 def read_allocs(addr, job_ids):
@@ -8252,20 +8289,21 @@ def read_allocs(addr, job_ids):
         return dict(ex.map(one, job_ids))
 
 
-def prom_counter(addr, name):
+def prom_counter(addr, name, token):
     """A counter of the agent's Prometheus text (0 when absent)."""
     import urllib.request
-    with urllib.request.urlopen(f"{addr}/v1/metrics?format=prometheus",
-                                timeout=60) as r:
+    req = urllib.request.Request(f"{addr}/v1/metrics?format=prometheus",
+                                 headers={"X-Nomad-Token": token})
+    with urllib.request.urlopen(req, timeout=60) as r:
         for ln in r.read().decode().splitlines():
             if ln.startswith(name + " "):
                 return float(ln.split()[1])
     return 0.0
 
 
-def cli_alloc_statuses(addr, job_id):
+def cli_alloc_statuses(addr, job_id, token):
     """The Status column of `job status JOB`'s Allocations table."""
-    out = cli_run(addr, "job", "status", job_id)
+    out = cli_run(addr, "job", "status", job_id, token=token)
     rows = out.split("\nAllocations\n", 1)[1].splitlines()[1:]
     return sorted(r.split()[-1] for r in rows if r.strip())
 
@@ -8306,6 +8344,174 @@ def http_round(api, route, kernels, jobs, to_jsonable):
     return ids, t0
 
 
+def agent_acl_round(kernels, batch, lpq, card, quiet=None):
+    """Phase 19's step g: one mock.job x N_PLACE in namespace team-a
+    (default pool pool-a: the even nodes of the headline fleet), posted
+    as JSON with a client token scoped to team-a to an HttpServer over a
+    Server with ACLs on, then the same Job struct registered in process
+    on a Server with ACLs off over the same fleet, pools, namespace and
+    ACL writes; placements equal bit for bit, every one on pool-a.
+    Returns the two routes' registration to last commit (ms) and each
+    kernel's launches in each. Each measured round waits for ``quiet``
+    (an Event; None: no wait) first."""
+    from nomad_tpu_torch import mock as pmock
+    from nomad_tpu_torch import structs as st
+    from nomad_tpu_torch.api.client import ApiClient
+    from nomad_tpu_torch.api.http import HttpServer, to_jsonable
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.server import worker as worker_mod
+    from nomad_tpu_torch.state.store import StateStore
+
+    t_g = time.perf_counter()
+    pool_of = {f"bench-node-{i:06d}": ("pool-a" if i % 2 == 0
+                                       else "default")
+               for i in range(N_NODES)}
+
+    def team_server(acl):
+        store = StateStore()
+        store.set_scheduler_config(st.SchedulerConfiguration(
+            scheduler_algorithm=st.SCHED_ALG_TPU_BINPACK))
+        return Server(state=store, device=DEVICE, batch_width=SERVER_WIDTH,
+                      heartbeat_ttl=3600.0, acl_enabled=acl)
+
+    def team_world(server):
+        """The pools, the namespace, the fleet, then the ACL writes
+        (bootstrap, the team's policy): the same index on both routes."""
+        server.upsert_node_pool(st.NodePool(name="pool-a"))
+        server.upsert_namespace(st.Namespace(
+            name="team-a", node_pool_configuration=(
+                st.NamespaceNodePoolConfiguration(default="pool-a"))))
+        for node in struct_fleet(pmock, N_NODES):
+            node.node_pool = pool_of[node.id]
+            node.compute_class()
+            server.register_node(node)
+        boot = server.bootstrap_acl()
+        server.state.upsert_acl_policies([st.ACLPolicy(
+            name="team-a-jobs", rules=AGENT_TEAM_POLICY)])
+        return boot
+
+    def team_job():
+        j = pmock.job(id="agent-team-a")
+        j.namespace = "team-a"
+        j.task_groups[0].count = N_PLACE
+        return j
+
+    def settled(server, eid):
+        def done():
+            b = server.broker.stats()
+            if b["total_ready"] or b["total_unacked"]:
+                return False
+            if server.state.eval_by_id(eid).status == "pending":
+                return False
+            return len(server.state.allocs_by_job(
+                "team-a", "agent-team-a")) >= N_PLACE
+        wait_until(done, SERVER_SETTLE_S, "the team-a round")
+
+    def counts():
+        return {k.name: k.launches for k in kernels.KERNELS}
+
+    def paused(server, on):
+        server.apply_scheduler_config(st.SchedulerConfiguration(
+            scheduler_algorithm=st.SCHED_ALG_TPU_BINPACK,
+            pause_eval_broker=on))
+
+    out = {}
+    # the ACL route: the team's token through POST /v1/jobs
+    server = team_server(True)
+    http = None
+    try:
+        with ServerRoute(server, worker_mod, batch, lpq) as route:
+            server.start()
+            boot = team_world(server)
+            http = HttpServer(server, port=0)
+            http.start()
+            addr = f"http://127.0.0.1:{http.port}"
+            token = ApiClient(addr, token=boot.secret_id).acl_token_create(
+                name="team-a", policies=["team-a-jobs"])
+            tapi = ApiClient(addr, namespace="team-a", timeout=300.0,
+                             token=token["secret_id"])
+            anon = ApiClient(addr, namespace="team-a", timeout=300.0)
+            try:
+                anon.register_job(to_jsonable(team_job()))
+                raise AssertionError("an anonymous job was admitted")
+            except Exception as e:  # noqa: BLE001 -- its ApiError
+                assert getattr(e, "status", None) == 403, e
+            if quiet is not None:
+                assert quiet.wait(SERVER_SETTLE_S), "never quiet"
+            # the broker paused around the registration, as step b's,
+            # so the route's ordered hook knows the eval
+            paused(server, True)
+            st.reseed_ids(SEED + 23)
+            job = team_job()
+            route.reset()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            eid = tapi.register_job(to_jsonable(job))["eval_id"]
+            route.order = {eid: 0}
+            paused(server, False)
+            settled(server, eid)
+            out["launches"] = counts()
+            out["registration_to_last_commit_ms"] = \
+                (max(route.commit_end) - t0) * 1e3
+            assert route.nacks == 0, route.nacked
+            got = server_allocs(server.state, [eid])
+            nodes = {a.node_id for a in server.state.allocs_by_job(
+                "team-a", "agent-team-a")}
+    finally:
+        if http is not None:
+            http.shutdown()
+        server.shutdown()
+    n_placed = len(got[eid])
+    assert n_placed == N_PLACE, n_placed
+    assert {pool_of[n] for n in nodes} == {"pool-a"}, \
+        "a team-a placement left pool-a"
+
+    # the compared route: ACLs off, the same Job struct in process
+    direct = team_server(False)
+    try:
+        with ServerRoute(direct, worker_mod, batch, lpq) as route:
+            direct.start()
+            team_world(direct)
+            direct.state.upsert_acl_tokens([st.ACLToken.new(
+                name="team-a", policies=["team-a-jobs"])])
+            if quiet is not None:
+                assert quiet.wait(SERVER_SETTLE_S), "never quiet"
+            paused(direct, True)
+            st.reseed_ids(SEED + 23)
+            djob = team_job()
+            route.reset()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = {}
+            t = threading.Thread(target=lambda: res.update(
+                ev=direct.register_job(djob)), name="http-request")
+            t.start()
+            t.join()
+            assert res["ev"].id == eid, "eval ids differ between routes"
+            route.order = {eid: 0}
+            paused(direct, False)
+            settled(direct, eid)
+            out["in_process_launches"] = counts()
+            out["in_process_ms"] = (max(route.commit_end) - t0) * 1e3
+            want = server_allocs(direct.state, [eid])
+    finally:
+        direct.shutdown()
+    assert got == want, ("the ACL route's placements != ACLs off",
+                         sum(want[eid].get(n) != v
+                             for n, v in got[eid].items()))
+    assert out["launches"]["wave_block"] >= 1, out["launches"]
+    out.update(placements=n_placed, pool_a_nodes=len(nodes),
+               seconds=time.perf_counter() - t_g)
+    log(f"agent acl round [{card}]: {n_placed} placements of a team-a "
+        f"job (token scoped to team-a, POST /v1/jobs, ACLs on) on "
+        f"{len(nodes)} pool-a nodes, registration to last commit "
+        f"{out['registration_to_last_commit_ms']:.1f} ms (ACLs off in "
+        f"process {out['in_process_ms']:.1f} ms), equal bit for bit; "
+        f"launches {out['launches']} (in process "
+        f"{out['in_process_launches']}); {out['seconds']:.1f} s")
+    return out
+
+
 def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
     """The agent's entry points on the card (phase 19):
       a. the dev agent as a process (python3 -m
@@ -8339,12 +8545,42 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
          wave_block kernel;
       e. operator snapshot save and restore of agent (a) through the
          CLI, every job kept, then a job through job run placed by the
-         agent's kernels (its placements_tpu counter).
+         agent's kernels (its placements_tpu counter);
+      f. namespaces, ACLs, the service catalog and search on agent (a),
+         through the CLI: namespace team-a, a policy granting submit-job
+         and read-job there only, a client token carrying it; with that
+         token an HCL job in team-a with a provider "nomad" service,
+         placed by the agent's kernels (placements_tpu rises); the same
+         job in default refused with 403 and no eval created; an
+         anonymous job status refused; service list showing the job's
+         registrations, which leave the catalog after job stop; status
+         <prefix> finding the job; namespace delete team-a refused while
+         the job is stored;
+      g. full width with ACLs on, in process: an HttpServer over a port
+         Server(acl_enabled=True) holding the headline fleet, even nodes
+         in node pool pool-a and odd ones in default, namespace team-a
+         defaulting to pool-a; one mock.job x 2,000 in team-a posted as
+         JSON through ApiClient with a client token scoped to team-a,
+         placed by row 1, every placement on a pool-a node, equal (node
+         and normalized-score bits per alloc name) to a port Server with
+         ACLs off fed the same Job struct in process over the same
+         fleet, pools, namespace and ACL writes (the same index);
+         registration to last commit and each kernel's launches for
+         both routes.
+    Agent (a) runs with --acl: its first CLI call is acl bootstrap (as
+    the profiler starts, step d), and every later request of steps a and
+    c-f carries a token.
     The read-back of step b runs in a reader process
     (``chip_smoke.py --read-allocs``) with AGENT_READERS requests in
-    flight, so its JSON decoding overlaps the handler's encoding.
+    flight, so its JSON decoding overlaps the handler's encoding; it
+    runs beside steps d, a, c, e and f, which wait on the dev agent's
+    and the CLI's processes, and so does step g, on a thread of its own
+    from the end of step b, its measured rounds held until the
+    read-back ends (the dev agent's kernels launch in its own process,
+    outside g's counts).
     ``launches`` (the kernels line's agent_launches) are (b)'s HTTP
-    round (the dev agent's kernels run in its own process)."""
+    round (the dev agent's kernels run in its own process), and
+    ``acl_launches`` (agent_acl_launches) (g)'s ACL route."""
     from nomad_tpu_torch import mock as pmock
     from nomad_tpu_torch import structs as st
     from nomad_tpu_torch.api.client import ApiClient, HttpServerConn
@@ -8367,18 +8603,22 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
 
     # a. the dev agent starts first: its start-up overlaps step b
     # no --device: the agent asks for the card (cpu only in a rehearsal)
-    agent = AgentProcess(["--nodes", str(AGENT_NODES), "--tpu", "--port",
-                          "0"] + (["--device", "cpu"] if DEVICE == "cpu"
-                                  else []), work)
+    agent = AgentProcess(["--nodes", str(AGENT_NODES), "--tpu", "--acl",
+                          "--port", "0"]
+                         + (["--device", "cpu"] if DEVICE == "cpu"
+                            else []), work)
     trace_dir = work / "torch-trace"
     prof = {}
 
     def start_profile():
-        # d. the profiler starts as soon as the agent serves
+        # a. the management token first; d. the profiler starts as soon
+        # as the agent serves
         try:
             addr = agent.address(AGENT_SETTLE_S)
+            prof["token"] = cli_secret(cli_run(addr, "acl", "bootstrap"))
             t0 = time.perf_counter()
-            prof["start"] = ApiClient(addr, timeout=AGENT_SETTLE_S).post(
+            prof["start"] = ApiClient(
+                addr, timeout=AGENT_SETTLE_S, token=prof["token"]).post(
                 "/v1/agent/torch-profile",
                 {"action": "start", "dir": str(trace_dir)})
             prof["start_s"] = time.perf_counter() - t0
@@ -8387,6 +8627,23 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
     profiler = threading.Thread(target=start_profile, daemon=True,
                                 name="agent-profile-start")
     profiler.start()
+    # b's read-back runs in a reader process beside steps d, a, c, e and
+    # f; step g on a thread of its own from the end of b, its measured
+    # rounds held until the read-back ends (``quiet``)
+    quiet = threading.Event()
+    read_back = {}
+    acl_round = {}
+
+    def run_acl_round():
+        try:
+            acl_round["out"] = agent_acl_round(kernels, batch, lpq, card,
+                                               quiet)
+        except BaseException as e:  # noqa: BLE001 -- raised after join
+            acl_round["error"] = e
+    g_thread = threading.Thread(target=run_acl_round, daemon=True,
+                                name="agent-acl-round")
+    reader = None
+    server = http = None
     try:
         # -- b. full width through HTTP ----------------------------------
         def fleet_server():
@@ -8410,47 +8667,31 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
                 server.register_node(node)
 
         server = fleet_server()
-        http = None
-        try:
-            with ServerRoute(server, worker_mod, batch, lpq) as route:
-                server.start()
-                register_fleet(server)
-                http = HttpServer(server, port=0)
-                http.start()
-                api = ApiClient(f"http://127.0.0.1:{http.port}",
-                                timeout=300.0)
-                st.reseed_ids(SEED + 19)
-                jobs = make_jobs()
-                ids, t0 = http_round(api, route, kernels, jobs,
-                                     to_jsonable)
-                agent_settle(server, ids, [j.id for j in jobs],
-                             N_EVALS * N_PLACE, "agent http round")
-                count_launches()
-                http_ms = (max(route.commit_end) - t0) * 1e3
-                assert route.nacks == 0, route.nacked
-                t_read = time.perf_counter()
-                r = subprocess.run(
-                    [sys.executable, str(ROOT / "chip_smoke.py"),
-                     "--read-allocs", api.address]
-                    + [j.id for j in jobs], cwd=ROOT, capture_output=True,
-                    text=True, timeout=SERVER_SETTLE_S, check=True)
-                rows = json.loads(r.stdout)
-                got = {eid: {name: (node, struct_score_bits(score), [])
-                             for name, (node, score) in rows[j.id].items()}
-                       for j, eid in zip(jobs, ids)}
-                read_s = time.perf_counter() - t_read
-                assert got == server_allocs(server.state, ids)
-                n_placed = sum(len(m) for m in got.values())
-                assert n_placed == N_EVALS * N_PLACE, n_placed
-                http_sum = route.summary(
-                    "agent http", card, t0, n_placed, N_EVALS,
-                    SimpleNamespace(sections=dict))
-        finally:
-            if http is not None:
-                http.shutdown()
-            server.shutdown()
+        with ServerRoute(server, worker_mod, batch, lpq) as route:
+            server.start()
+            register_fleet(server)
+            http = HttpServer(server, port=0)
+            http.start()
+            api = ApiClient(f"http://127.0.0.1:{http.port}",
+                            timeout=300.0)
+            st.reseed_ids(SEED + 19)
+            jobs = make_jobs()
+            ids, t0 = http_round(api, route, kernels, jobs,
+                                 to_jsonable)
+            agent_settle(server, ids, [j.id for j in jobs],
+                         N_EVALS * N_PLACE, "agent http round")
+            count_launches()
+            http_ms = (max(route.commit_end) - t0) * 1e3
+            assert route.nacks == 0, route.nacked
+            stored = server_allocs(server.state, ids)
+            n_placed = sum(len(m) for m in stored.values())
+            assert n_placed == N_EVALS * N_PLACE, n_placed
+            http_sum = route.summary(
+                "agent http", card, t0, n_placed, N_EVALS,
+                SimpleNamespace(sections=dict))
 
-        # the compared route: the same Job structs in process
+        # the compared route: the same Job structs in process (b's server
+        # idle, still serving the read-back below)
         direct = fleet_server()
         try:
             with ServerRoute(direct, worker_mod, batch, lpq) as route:
@@ -8482,21 +8723,36 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
                 want = server_allocs(direct.state, dids)
         finally:
             direct.shutdown()
-        diff = {e: sum(want[e].get(n) != v for n, v in got[e].items())
+        diff = {e: sum(want[e].get(n) != v for n, v in stored[e].items())
                 for e in ids}
-        assert got == want, ("HTTP placements != the in-process route's",
-                             {e: d for e, d in diff.items() if d})
-        report["http"] = dict(
-            evals=N_EVALS, placements=n_placed,
-            registration_to_last_commit_ms=http_ms,
-            in_process_ms=direct_ms, read_back_s=read_s,
-            placements_per_s=http_sum["placements_per_s"],
-            per_eval=http_sum["per_eval"], applier=http_sum["applier"])
+        assert stored == want, ("HTTP placements != the in-process "
+                                "route's",
+                                {e: d for e, d in diff.items() if d})
         log(f"agent http [{card}]: {n_placed} placements through "
             f"POST /v1/jobs, registration to last commit {http_ms:.1f} ms "
-            f"(in process {direct_ms:.1f} ms), read back through "
-            f"/v1/job/<id>/allocations in {read_s:.2f} s, equal to the "
-            "in-process route bit for bit")
+            f"(in process {direct_ms:.1f} ms), equal to the in-process "
+            "route bit for bit")
+
+        # the read-back of b's allocs through /v1/job/<id>/allocations
+        t_read = time.perf_counter()
+        reader = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--read-allocs",
+             api.address] + [j.id for j in jobs], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        def wait_reader():
+            try:
+                read_back["out"] = reader.communicate(
+                    timeout=SERVER_SETTLE_S)
+                read_back["s"] = time.perf_counter() - t_read
+            except BaseException as e:  # noqa: BLE001 -- raised below
+                read_back["error"] = e
+            finally:
+                quiet.set()
+        read_thread = threading.Thread(target=wait_reader, daemon=True,
+                                       name="agent-read-back")
+        read_thread.start()
+        g_thread.start()
 
         # -- d. the profiler around one job through the agent's API -----
         t_a = time.perf_counter()
@@ -8506,7 +8762,8 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
             raise prof["error"]
         assert prof["start"]["tracing"] is True, prof
         addr = agent.address(AGENT_SETTLE_S)
-        aapi = ApiClient(addr, timeout=120.0)
+        mgmt = prof["token"]
+        aapi = ApiClient(addr, timeout=120.0, token=mgmt)
 
         def poll(cond, what):
             deadline = time.monotonic() + AGENT_SETTLE_S
@@ -8558,19 +8815,21 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
                               AGENT_NODES)):
             path = work / f"{name}.nomad"
             path.write_text(src)
-            assert "Evaluation" in cli_run(addr, "job", "run", str(path))
+            assert "Evaluation" in cli_run(addr, "job", "run", str(path),
+                                           token=mgmt)
             poll(lambda name=name, n=n: statuses(name) == ["running"] * n,
                  f"{name}'s allocs running")
-            assert cli_alloc_statuses(addr, name) == ["running"] * n
+            assert cli_alloc_statuses(addr, name, mgmt) == ["running"] * n
         svc_nodes = {a["node_id"] for a in
                      aapi.job_allocations("agent-service")}
         assert len(svc_nodes) == AGENT_NODES, svc_nodes   # the spread
         poll(lambda: statuses("agent-batch") == ["complete"] * 3,
              "the agent's batch job complete")
-        assert cli_alloc_statuses(addr, "agent-batch") == ["complete"] * 3
-        out = cli_run(addr, "node", "status")
+        assert cli_alloc_statuses(addr, "agent-batch", mgmt) == \
+            ["complete"] * 3
+        out = cli_run(addr, "node", "status", token=mgmt)
         assert out.count("ready") == AGENT_NODES, out
-        out = cli_run(addr, "operator", "solver", "status")
+        out = cli_run(addr, "operator", "solver", "status", token=mgmt)
         lines = {ln.split("=")[0].strip(): ln.split("=", 1)[1].strip()
                  for ln in out.splitlines() if "=" in ln}
         assert lines["degraded"] == "False", out
@@ -8584,8 +8843,9 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
         assert set(self_info["stats"]) == set(AGENT_SELF_BLOCKS), \
             sorted(self_info["stats"])
         import urllib.request
-        with urllib.request.urlopen(
-                f"{addr}/v1/metrics?format=prometheus", timeout=60) as r:
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{addr}/v1/metrics?format=prometheus",
+                headers={"X-Nomad-Token": mgmt}), timeout=60) as r:
             prom = r.read().decode()
         placed_tpu = [ln for ln in prom.splitlines()
                       if ln.startswith("nomad_scheduler_placements_tpu ")]
@@ -8609,7 +8869,7 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
         # client agent adds its drivers' before registering
         gnode.drivers["mock"] = st.DriverInfo(detected=True, healthy=True)
         gnode.compute_class()
-        conn = HttpServerConn(addr)
+        conn = HttpServerConn(addr, token=mgmt)
         conn.register_node(gnode)
         beat = threading.Event()
 
@@ -8622,7 +8882,7 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
         try:
             one = work / "gpu-one.nomad"
             one.write_text(AGENT_GPU_HCL % ("gpu-one", 1))
-            cli_run(addr, "job", "run", str(one))
+            cli_run(addr, "job", "run", str(one), token=mgmt)
             poll(lambda: len(aapi.job_allocations("gpu-one")) == 1,
                  "the device job placed")
             (a1,) = aapi.job_allocations("gpu-one")
@@ -8633,7 +8893,7 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
                 [group.instance_ids], devs
             # the job stopped, and the node agent reports its alloc
             # complete: the card is free again
-            cli_run(addr, "job", "stop", "gpu-one")
+            cli_run(addr, "job", "stop", "gpu-one", token=mgmt)
             poll(lambda: [a["desired_status"] for a in
                           aapi.job_allocations("gpu-one")] == ["stop"],
                  "the device job stopped")
@@ -8644,7 +8904,7 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
             conn.update_allocs(done)
             two = work / "gpu-two.nomad"
             two.write_text(AGENT_GPU_HCL % ("gpu-two", 2))
-            cli_run(addr, "job", "run", str(two))
+            cli_run(addr, "job", "run", str(two), token=mgmt)
             poll(lambda: any(e["status"] == "blocked" for e in
                              aapi.job_evaluations("gpu-two")),
                  "the second device alloc blocked")
@@ -8669,20 +8929,23 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
         # -- e. an operator snapshot saved and restored ------------------
         t_e = time.perf_counter()
         snap = work / "agent.snap"
-        out = cli_run(addr, "operator", "snapshot", "save", str(snap))
+        out = cli_run(addr, "operator", "snapshot", "save", str(snap),
+                      token=mgmt)
         assert out.startswith(f"Snapshot written to {snap} ("), out
         jobs_before = sorted(j["id"] for j in aapi.jobs())
-        out = cli_run(addr, "operator", "snapshot", "restore", str(snap))
+        out = cli_run(addr, "operator", "snapshot", "restore", str(snap),
+                      token=mgmt)
         assert out.startswith("Snapshot restored (index "), out
         assert sorted(j["id"] for j in aapi.jobs()) == jobs_before
-        tpu0 = prom_counter(addr, "nomad_scheduler_placements_tpu")
+        tpu0 = prom_counter(addr, "nomad_scheduler_placements_tpu", mgmt)
         after = work / "agent-after-restore.nomad"
         after.write_text(AGENT_PROFILED_HCL.replace(
             '"agent-profiled"', '"agent-after-restore"'))
-        assert "Evaluation" in cli_run(addr, "job", "run", str(after))
+        assert "Evaluation" in cli_run(addr, "job", "run", str(after),
+                                       token=mgmt)
         poll(lambda: statuses("agent-after-restore") == ["running"]
              * AGENT_PROFILE_PLACE, "the job after the restore running")
-        tpu1 = prom_counter(addr, "nomad_scheduler_placements_tpu")
+        tpu1 = prom_counter(addr, "nomad_scheduler_placements_tpu", mgmt)
         assert tpu1 - tpu0 >= AGENT_PROFILE_PLACE, (tpu0, tpu1)
         report["snapshot"] = dict(bytes=snap.stat().st_size,
                                   placed_after=AGENT_PROFILE_PLACE,
@@ -8692,11 +8955,117 @@ def agent_phase(np, torch, batch, guard, lpq, kernels, svc, tp, card):
             f"the CLI, every job kept; a job of {AGENT_PROFILE_PLACE} then "
             f"placed by the agent's kernels; "
             f"{report['snapshot']['seconds']:.1f} s")
+
+        # -- f. namespaces, ACLs, the catalog and search, through the CLI
+        t_f = time.perf_counter()
+        cli_run(addr, "namespace", "apply", "team-a", "-description",
+                "team a", token=mgmt)
+        pol = work / "team-a.hcl"
+        pol.write_text(AGENT_TEAM_POLICY)
+        cli_run(addr, "acl", "policy", "apply", "team-a-jobs", str(pol),
+                token=mgmt)
+        team = cli_secret(cli_run(addr, "acl", "token", "create", "-name",
+                                  "team-a", "-policy", "team-a-jobs",
+                                  token=mgmt))
+        tapi = ApiClient(addr, namespace="team-a", timeout=120.0,
+                         token=mgmt)
+        tpu0 = prom_counter(addr, "nomad_scheduler_placements_tpu", mgmt)
+        team_job = work / "team-a-web.nomad"
+        team_job.write_text(AGENT_TEAM_HCL % ("team-a", AGENT_TEAM_PLACE))
+        assert "Evaluation" in cli_run(addr, "-namespace", "team-a", "job",
+                                       "run", str(team_job), token=team)
+        poll(lambda: sorted(a["client_status"] for a in
+                            tapi.job_allocations("team-a-web"))
+             == ["running"] * AGENT_TEAM_PLACE, "team-a-web running")
+        tpu1 = prom_counter(addr, "nomad_scheduler_placements_tpu", mgmt)
+        assert tpu1 - tpu0 >= AGENT_TEAM_PLACE, (tpu0, tpu1)
+        # the same job in default with the team's token: refused, and no
+        # eval made
+        n_evals = len(aapi.get("/v1/evaluations", namespace="*"))
+        default_job = work / "team-a-web-default.nomad"
+        default_job.write_text(AGENT_TEAM_HCL % ("default",
+                                                 AGENT_TEAM_PLACE))
+        err = cli_run(addr, "job", "run", str(default_job), token=team,
+                      rc=1)
+        assert "HTTP 403: Permission denied" in err, err
+        assert len(aapi.get("/v1/evaluations", namespace="*")) == n_evals
+        err = cli_run(addr, "-namespace", "team-a", "job", "status",
+                      "team-a-web", rc=1)
+        assert "HTTP 403: Permission denied" in err, err
+        # the catalog holds the job's registrations, one an alloc
+        out = cli_run(addr, "-namespace", "team-a", "service", "list",
+                      token=team)
+        assert "team-a-web  team-a,web" in out, out
+        regs = tapi.service("team-a-web")
+        live = {a["id"]: a["node_id"]
+                for a in tapi.job_allocations("team-a-web")}
+        assert {r["alloc_id"]: r["node_id"] for r in regs} == live, regs
+        out = cli_run(addr, "-namespace", "team-a", "status", "team-a-w",
+                      token=team)
+        assert out.splitlines()[1].split() == ["jobs", "team-a-web"], out
+        cli_run(addr, "-namespace", "team-a", "job", "stop", "team-a-web",
+                token=team)
+        poll(lambda: tapi.service("team-a-web") == [],
+             "the stopped job's registrations gone")
+        out = cli_run(addr, "-namespace", "team-a", "service", "list",
+                      token=team)
+        assert "team-a-web" not in out, out
+        err = cli_run(addr, "namespace", "delete", "team-a", token=mgmt,
+                      rc=1)
+        assert "namespace 'team-a' has 1 non-purged jobs" in err, err
+        report["acl_agent"] = dict(
+            placed=AGENT_TEAM_PLACE, placements_tpu=tpu1 - tpu0,
+            registrations=len(regs), seconds=time.perf_counter() - t_f)
+        log(f"agent acl [{card}]: --acl agent: namespace team-a, a "
+            f"team-a token; its job of {AGENT_TEAM_PLACE} placed by the "
+            f"agent's kernels ({tpu1 - tpu0:.0f} placements_tpu), "
+            f"{len(regs)} registrations in the catalog and gone after job "
+            "stop; the job in default and an anonymous job status 403; "
+            "status <prefix> found it; namespace delete refused; "
+            f"{report['acl_agent']['seconds']:.1f} s")
     finally:
         rc = agent.stop()
+        if reader is not None:
+            if reader.poll() is None:
+                quiet.wait(SERVER_SETTLE_S)
+            if reader.poll() is None:
+                reader.kill()
+                reader.wait()
+        if http is not None:
+            http.shutdown()
+        if server is not None:
+            server.shutdown()
     assert rc == 0, ("the dev agent's exit code", rc,
                      agent.err_path.read_text()[-4000:])
     report["devagent"]["exit"] = rc
+
+    # b's read-back: every alloc as the store holds it
+    if "error" in read_back:
+        raise read_back["error"]
+    out, err = read_back["out"]
+    assert reader.returncode == 0, (reader.returncode, err[-4000:])
+    rows = json.loads(out)
+    got = {eid: {name: (node, struct_score_bits(score), [])
+                 for name, (node, score) in rows[j.id].items()}
+           for j, eid in zip(jobs, ids)}
+    assert got == stored, "the API's allocs != the store's"
+    report["http"] = dict(
+        evals=N_EVALS, placements=n_placed,
+        registration_to_last_commit_ms=http_ms,
+        in_process_ms=direct_ms, read_back_s=read_back["s"],
+        placements_per_s=http_sum["placements_per_s"],
+        per_eval=http_sum["per_eval"], applier=http_sum["applier"])
+    log(f"agent read-back [{card}]: {n_placed} allocs read back through "
+        f"/v1/job/<id>/allocations in {read_back['s']:.2f} s (beside steps "
+        "d-f), equal to the store's")
+
+    # -- g. full width with ACLs on, in a namespace and its node pool ----
+    g_thread.join(SERVER_SETTLE_S)
+    assert not g_thread.is_alive(), "step g did not end"
+    if "error" in acl_round:
+        raise acl_round["error"]
+    report["acl"] = acl_round["out"]
+    report["acl_launches"] = report["acl"]["launches"]
 
     g1 = guard.state()
     report["host_fallbacks"] = (g1["host_fallback_dispatches"]
@@ -9724,6 +10093,19 @@ def main(argv=None) -> int:
         return ab_main(args, torch, np)
 
     from nomad_tpu_torch import kernels
+    t_start = time.perf_counter()
+    # the nvcc builds (one process a source) run while the rest starts:
+    # the modules' imports, the card's CUDA context, the native control
+    # plane's build and the headline world
+    built = {}
+
+    def build_kernels():
+        try:
+            built["info"] = kernels.build()
+        except BaseException as e:  # noqa: BLE001 -- raised after join
+            built["error"] = e
+    nvcc_thread = threading.Thread(target=build_kernels, name="nvcc-build")
+    nvcc_thread.start()
     from nomad_tpu_torch.solver import batch, dense, service as svc, system
     from nomad_tpu_torch.solver import guard
     from nomad_tpu_torch.solver import binpack as bp, lpq, preempt, wave
@@ -9732,7 +10114,6 @@ def main(argv=None) -> int:
     from nomad_tpu_torch.state.store import StateStore
     from nomad_tpu_torch.tensor import pack as tp
 
-    t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}"
@@ -9740,19 +10121,22 @@ def main(argv=None) -> int:
     # matrix products stay full float32 (the port makes none; stated)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    info = kernels.build()
-    log(f"build: {info['seconds']:.1f} s, built {info['built']} "
-        f"into {info['dir']}")
     from nomad_tpu_torch import native
     native.load()
     log(f"native control plane: {native.SOURCE.name} built in "
         f"{native.build_seconds:.2f} s into {native.library_path().parent}")
+    world = headline_world(np, tp)
+    nvcc_thread.join()
+    if "error" in built:
+        raise built["error"]
+    info = built["info"]
+    log(f"build: {info['seconds']:.1f} s, built {info['built']} "
+        f"into {info['dir']}")
     for line in info["log"].splitlines():
         if ("registers" in line or line.startswith("==")
                 or "Compiling entry function" in line):
             log("  " + line.strip())
 
-    world = headline_world(np, tp)
     phase_s = {}
 
     def phase(name, fn, *a):
@@ -9860,6 +10244,7 @@ def main(argv=None) -> int:
             leader_launches=ldres["launches"].get(k.name, 0),
             job_ops_launches=ldres["job_ops_launches"].get(k.name, 0),
             agent_launches=agres["launches"].get(k.name, 0),
+            agent_acl_launches=agres["acl_launches"].get(k.name, 0),
             max_abs_err=max(x["max_abs_err"] for x in kres
                             if x["name"] == k.name),
             ms=r["ms"], device_ms=r.get("device_ms"),

@@ -2,8 +2,11 @@
 upstream: the api/ Go module, api.go Client with a file per resource:
 jobs.go, allocations.go, nodes.go, evaluations.go, scaling.go,
 operator.go, event_stream.go), for the routes the port's agent serves
-(api/http.py). ``HttpServerConn`` is the node agent's transport over the
-API: register, heartbeat, pull allocs, update allocs, get an alloc.
+(api/http.py), namespaces, node pools, the service catalog, search and
+ACLs included; a client made with a ``token`` sends it as X-Nomad-Token
+on every request. ``HttpServerConn`` is the node agent's transport over
+the API: register, heartbeat, pull allocs, update allocs, register
+services, get an alloc.
 """
 from __future__ import annotations
 
@@ -172,6 +175,85 @@ class ApiClient:
     def scaling_policy(self, policy_id: str) -> dict:
         return self.get(f"/v1/scaling/policy/{policy_id}")
 
+    # -- namespaces and node pools (upstream: api/namespace.go,
+    #    api/node_pools.go) -------------------------------------------
+    def namespaces(self) -> List[dict]:
+        return self.get("/v1/namespaces")
+
+    def get_namespace(self, name: str) -> dict:
+        # (get_*: .namespace is the client's query namespace)
+        return self.get(f"/v1/namespace/{name}")
+
+    def upsert_namespace(self, name: str, **fields) -> dict:
+        return self.post(f"/v1/namespace/{name}",
+                         {"name": name, **fields})
+
+    def delete_namespace(self, name: str) -> dict:
+        return self.delete(f"/v1/namespace/{name}")
+
+    def node_pools(self) -> List[dict]:
+        return self.get("/v1/node/pools")
+
+    def node_pool(self, name: str) -> dict:
+        return self.get(f"/v1/node/pool/{name}")
+
+    def node_pool_nodes(self, name: str) -> List[dict]:
+        return self.get(f"/v1/node/pool/{name}/nodes")
+
+    def upsert_node_pool(self, name: str, **fields) -> dict:
+        return self.post(f"/v1/node/pool/{name}", {"name": name, **fields})
+
+    def delete_node_pool(self, name: str) -> dict:
+        return self.delete(f"/v1/node/pool/{name}")
+
+    # -- the native service catalog (upstream: api/services.go) --------
+    def services(self) -> List[dict]:
+        return self.get("/v1/services")
+
+    def service(self, name: str) -> List[dict]:
+        return self.get(f"/v1/service/{name}")
+
+    def delete_service_registration(self, name: str, reg_id: str) -> dict:
+        return self.delete(f"/v1/service/{name}/{reg_id}")
+
+    # -- search (upstream: api/search.go) ------------------------------
+    def search(self, prefix: str, context: str = "all") -> dict:
+        return self.post("/v1/search",
+                         {"prefix": prefix, "context": context})
+
+    def fuzzy_search(self, text: str, context: str = "all") -> dict:
+        return self.post("/v1/search/fuzzy",
+                         {"text": text, "context": context})
+
+    # -- ACLs (upstream: api/acl.go) -----------------------------------
+    def acl_bootstrap(self) -> dict:
+        return self.post("/v1/acl/bootstrap")
+
+    def acl_policy_apply(self, name: str, rules: str,
+                         description: str = "") -> dict:
+        return self.post(f"/v1/acl/policy/{name}",
+                         {"rules": rules, "description": description})
+
+    def acl_policies(self) -> List[dict]:
+        return self.get("/v1/acl/policies")
+
+    def acl_token_create(self, name: str = "", type: str = "client",
+                         policies: Optional[List[str]] = None,
+                         roles: Optional[List[str]] = None,
+                         ttl_s: Optional[float] = None) -> dict:
+        body: Dict[str, Any] = {"name": name, "type": type,
+                                "policies": policies or [],
+                                "roles": roles or []}
+        if ttl_s is not None:
+            body["ttl_s"] = ttl_s
+        return self.post("/v1/acl/token", body)
+
+    def acl_token_self(self) -> dict:
+        return self.get("/v1/acl/token/self")
+
+    def acl_tokens(self) -> List[dict]:
+        return self.get("/v1/acl/tokens")
+
     # -- nodes (upstream: api/nodes.go) -------------------------------
     def nodes(self) -> List[dict]:
         return self.get("/v1/nodes")
@@ -273,8 +355,8 @@ class HttpServerConn:
     """Node-agent transport over the HTTP API (the remote deployment
     shape; upstream: client->server msgpack RPC, nomad/client_rpc.go).
     Its calls are the node agent's side of the server: register,
-    heartbeat, pull allocs (a blocking query), update allocs, get an
-    alloc."""
+    heartbeat, pull allocs (a blocking query), update allocs, register
+    services, get an alloc. With ACLs on its token needs node:write."""
 
     def __init__(self, address: str = "http://127.0.0.1:4646",
                  timeout: float = 10.0, token: str = ""):
@@ -309,6 +391,10 @@ class HttpServerConn:
     def update_allocs(self, updates: List[Allocation]) -> None:
         self.api.post("/v1/node/allocs-update",
                       {"allocs": [codec.encode(a) for a in updates]})
+
+    def register_services(self, regs) -> None:
+        self.api.post("/v1/node/services-register",
+                      {"services": [codec.encode(r) for r in regs]})
 
     def get_alloc(self, alloc_id: str) -> Optional[Allocation]:
         try:

@@ -9,16 +9,16 @@ The surface:
     datacenter   = "dc1"
     ports        { http = 4646 }
     server       { enabled = true  workers = 4  eval_batching = true
-                   batch_width = 8  scheduler_algorithm = "tpu-binpack" }
+                   batch_width = 8  acl_enabled = false
+                   scheduler_algorithm = "tpu-binpack" }
     client       { enabled = true  simulated_nodes = 3 }
     tls          { http = true  ca_file = "..."
                    cert_file = "..."  key_file = "..." }
     telemetry    { statsd_address = "127.0.0.1:8125"  interval = 1 }
 
-(/v1/metrics?format=prometheus needs no config.) The port's server has
-no ACLs and the dev agent runs simulated clients only, so the
-reference's ``acl_enabled``, ``real_clients`` and ``data_dir`` keys are
-not read.
+(/v1/metrics?format=prometheus needs no config.) The dev agent runs
+simulated clients only, so the reference's ``real_clients`` and
+``data_dir`` keys are not read.
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ class ServerConfig:
     workers: int = 2
     eval_batching: bool = False
     batch_width: int = 0
+    acl_enabled: bool = False
     scheduler_algorithm: str = ""
 
 
@@ -90,6 +91,7 @@ def parse_agent_config(src: str) -> AgentConfig:
         _apply(cfg.server, a, {
             "enabled": "enabled", "workers": "workers",
             "eval_batching": "eval_batching", "batch_width": "batch_width",
+            "acl_enabled": "acl_enabled",
             "scheduler_algorithm": "scheduler_algorithm"})
         cfg.server.workers = int(cfg.server.workers)
         cfg.server.batch_width = int(cfg.server.batch_width)

@@ -3,14 +3,18 @@ the HTTP API (port of nomad_tpu/api/devagent.py; upstream: `nomad agent
 -dev`, command/agent/command.go:775).
 
 Run: python -m nomad_tpu_torch.api.devagent [--nodes N] [--port P]
-     [--tpu] [--device cuda|cpu] [--config FILE]
+     [--tpu] [--acl] [--device cuda|cpu] [--config FILE]
 
 ``--device`` (default ``cuda``) is where the scheduler's placement
 service and barriers dispatch; without a card the agent exits non-zero
 with the reason. ``--device cpu`` runs the kernels' plain versions.
 ``--tpu`` selects the tpu-binpack algorithm (the kernels' path);
 ``--port 0`` binds a free port, printed in the ``==> nomad-tpu dev
-agent: <address>`` line. SIGTERM or SIGINT ends the agent with exit 0.
+agent: <address>`` line. ``--acl`` turns ACL enforcement on: bootstrap
+the management token with ``POST /v1/acl/bootstrap`` (CLI ``acl
+bootstrap``), then pass tokens as X-Nomad-Token (CLI ``-token`` or
+$NOMAD_TOKEN); the simulated clients run in process and need none.
+SIGTERM or SIGINT ends the agent with exit 0.
 """
 from __future__ import annotations
 
@@ -28,6 +32,9 @@ def main(argv=None) -> int:
     parser.add_argument("--workers", type=int, default=2)
     parser.add_argument("--tpu", action="store_true",
                         help="select the tpu-binpack scheduler algorithm")
+    parser.add_argument("--acl", action="store_true",
+                        help="enable ACL enforcement (bootstrap through "
+                             "POST /v1/acl/bootstrap)")
     parser.add_argument("--device", default="cuda",
                         help="where placements dispatch: cuda (default) "
                              "or cpu (the plain versions)")
@@ -53,6 +60,7 @@ def main(argv=None) -> int:
             datacenter=file_cfg.datacenter,
             port=file_cfg.http_port,
             workers=file_cfg.server.workers,
+            acl=file_cfg.server.acl_enabled,
             eval_batching=file_cfg.server.eval_batching,
             batch_width=file_cfg.server.batch_width,
             nodes=(file_cfg.client.simulated_nodes
@@ -77,7 +85,8 @@ def main(argv=None) -> int:
         return 1
     server = Server(num_workers=args.workers,
                     eval_batching=args.eval_batching,
-                    batch_width=args.batch_width or None, device=device)
+                    batch_width=args.batch_width or None, device=device,
+                    acl_enabled=args.acl)
     server.region = args.region
     if args.tpu:
         server.state.set_scheduler_config(SchedulerConfiguration(

@@ -16,7 +16,18 @@ Routes:
   POST   /v1/allocation/<id>/stop
   GET    /v1/nodes, /v1/node/<id>, /v1/node/<id>/allocations (blocking)
   POST   /v1/node/register, /v1/node/allocs-update,
+         /v1/node/services-register,
          /v1/node/<id>/heartbeat|drain|eligibility|purge
+  GET    /v1/node/pools, /v1/node/pool/<name>[/nodes]
+  POST   /v1/node/pools, /v1/node/pool/<name>   DELETE /v1/node/pool/<name>
+  GET    /v1/namespaces, /v1/namespace/<name>
+  POST   /v1/namespace[/<name>]                 DELETE /v1/namespace/<name>
+  GET    /v1/services, /v1/service/<name>       DELETE /v1/service/<name>/<id>
+  POST   /v1/search, /v1/search/fuzzy
+  GET    /v1/acl/policies|roles|tokens, /v1/acl/policy|role|token/<x>,
+         /v1/acl/token/self
+  POST   /v1/acl/bootstrap, /v1/acl/policy/<name>, /v1/acl/role/<name>,
+         /v1/acl/token             DELETE /v1/acl/policy|role|token/<x>
   GET    /v1/deployments             POST /v1/deployment/pause|fail|promote/<id>
   GET    /v1/event/stream[?poll=true]      POST /v1/system/gc
   GET    /v1/operator/scheduler/configuration (and POST)
@@ -28,12 +39,17 @@ Routes:
   POST   /v1/agent/torch-profile
   GET    /v1/metrics[?format=prometheus], /v1/status/leader
 
-Any other path answers 404. The port's Server has no ACLs, CSI,
-variables, keyring, service catalog, search, federation or raft, so their
-routes are not here; the web UI, the agent monitor and the client
-fs/exec/logs routes are not either. With no ACLs, the routes the
-reference guards with a token (scale, dispatch, plan, the scaling
-policies, the snapshots) are open, as every route here is.
+Any other path answers 404. A request's token is its X-Nomad-Token
+header (or ?token=). With the Server's ACLs on, every route checks the
+capabilities the reference's checks, in the same place: before any
+blocking wait and any write, in the query's namespace (any namespace
+for ``namespace=*``) and, for a single namespaced object, again in the
+object's namespace once it is read; list routes drop the rows of
+namespaces the token may not read, and a refusal answers 403
+"Permission denied". With ACLs off every request holds the management
+ACL. The port's Server has no CSI, variables, keyring, federation or
+raft, so their routes are not here; the web UI, the agent monitor and
+the client fs/exec/logs routes are not either.
 """
 from __future__ import annotations
 
@@ -46,6 +62,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
+from ..acl import (
+    CAP_ALLOC_LIFECYCLE, CAP_DISPATCH_JOB, CAP_LIST_JOBS,
+    CAP_LIST_SCALING_POLICIES, CAP_PARSE_JOB, CAP_READ_JOB,
+    CAP_READ_SCALING_POLICY, CAP_SCALE_JOB, CAP_SUBMIT_JOB,
+)
 from ..structs import (
     Affinity, Constraint, EphemeralDisk, Job, NetworkResource,
     ParameterizedJobConfig, PeriodicConfig, Port, ReschedulePolicy,
@@ -356,16 +377,64 @@ class ApiHandler(BaseHTTPRequestHandler):
                       else ())
             q = parse_qs(url.query)
             ns = q.get("namespace", ["default"])[0]
-            if parts == ["v1", "event", "stream"] and \
-                    q.get("poll", ["false"])[0] != "true":
-                # a live stream: ?index is the replay point, not a
-                # blocking-query parameter
-                return self._stream_events(q, int(q.get("index", ["0"])[0]))
+            acl = self._acl()
+            # every check that can refuse runs before the blocking wait,
+            # so a refused request cannot hold a thread for ?wait; a
+            # single namespaced object is checked again in ITS namespace
+            # once read (reference :398-467)
+            if parts[:2] == ["v1", "acl"]:
+                # management only, but a token's own record
+                if parts != ["v1", "acl", "token", "self"] and \
+                        not self._check(acl.is_management()):
+                    return
+                index = self._blocking(url.query, tables)
+                return self._acl_get(parts, acl, index)
+            if parts[1:2] == ["operator"]:
+                if not self._check(acl.allow_operator_read()):
+                    return
+            elif parts[:2] in (["v1", "nodes"], ["v1", "node"]):
+                if not self._check(acl.allow_node_read()):
+                    return
+            elif parts[:2] == ["v1", "job"]:
+                if not self._check(acl.allow_namespace_op(ns, CAP_READ_JOB)):
+                    return
+            elif parts[:2] in (["v1", "jobs"], ["v1", "evaluations"],
+                               ["v1", "allocations"], ["v1", "deployments"]):
+                # a list: refused without access to the asked namespace
+                # (any namespace for "*"), its rows filtered below
+                cap = CAP_LIST_JOBS if parts[1] == "jobs" else CAP_READ_JOB
+                if not self._check(self._ns_allowed(acl, ns, cap)):
+                    return
+            elif parts[:2] in (["v1", "evaluation"], ["v1", "allocation"]):
+                if not self._check(acl.allow_any_namespace(CAP_READ_JOB)):
+                    return
+            elif parts[:2] in (["v1", "services"], ["v1", "service"]):
+                if not self._check(self._ns_allowed(acl, ns, CAP_READ_JOB)):
+                    return
+            elif parts[:2] == ["v1", "scaling"]:
+                if not self._check(self._ns_allowed(
+                        acl, ns, CAP_LIST_SCALING_POLICIES)):
+                    return
+            elif parts == ["v1", "event", "stream"]:
+                if not self._check(acl.allow_any_namespace(CAP_READ_JOB)):
+                    return
+                if q.get("poll", ["false"])[0] != "true":
+                    # a live stream: ?index is the replay point, not a
+                    # blocking-query parameter
+                    return self._stream_events(
+                        q, int(q.get("index", ["0"])[0]))
+            elif parts[:2] == ["v1", "agent"] and parts[2:3] != ["health"]:
+                if not self._check(acl.allow_agent_read()):
+                    return
+            elif parts == ["v1", "metrics"]:
+                if not self._check(acl.allow_agent_read()):
+                    return
             index = self._blocking(url.query, tables)
             if parts == ["v1", "jobs"]:
                 prefix = q.get("prefix", [""])[0]
-                self._send(200, [self._job_stub(j) for j in state.jobs()
-                                 if j.id.startswith(prefix)], index)
+                self._send(200, [self._job_stub(j) for j in self._visible(
+                    acl, state.jobs(), CAP_LIST_JOBS)
+                    if j.id.startswith(prefix)], index)
             elif parts[:2] == ["v1", "job"] and len(parts) == 3:
                 job = state.job_by_id(ns, parts[2])
                 if job is None:
@@ -375,36 +444,60 @@ class ApiHandler(BaseHTTPRequestHandler):
                 self._get_job_sub(ns, parts[2], parts[3], url.path, index)
             elif parts == ["v1", "evaluations"]:
                 prefix = q.get("prefix", [""])[0]
-                self._send(200, [e for e in state.evals()
-                                 if e.id.startswith(prefix)], index)
+                self._send(200, [e for e in self._visible(
+                    acl, state.evals(), CAP_READ_JOB)
+                    if e.id.startswith(prefix)], index)
             elif parts[:2] == ["v1", "evaluation"] and len(parts) == 3:
                 ev = state.eval_by_id(parts[2])
                 if ev is None:
                     return self._error(404, "eval not found")
+                if not self._check(acl.allow_namespace_op(ev.namespace,
+                                                          CAP_READ_JOB)):
+                    return
                 self._send(200, ev, index)
             elif parts[:2] == ["v1", "evaluation"] and len(parts) == 4 \
                     and parts[3] == "allocations":
-                if state.eval_by_id(parts[2]) is None:
+                ev = state.eval_by_id(parts[2])
+                if ev is None:
                     return self._error(404, "eval not found")
+                if not self._check(acl.allow_namespace_op(ev.namespace,
+                                                          CAP_READ_JOB)):
+                    return
                 self._send(200, [a for a in state.allocs()
                                  if a.eval_id == parts[2]], index)
             elif parts == ["v1", "allocations"]:
                 prefix = q.get("prefix", [""])[0]
-                self._send(200, [a for a in state.allocs()
-                                 if a.id.startswith(prefix)], index)
+                self._send(200, [a for a in self._visible(
+                    acl, state.allocs(), CAP_READ_JOB)
+                    if a.id.startswith(prefix)], index)
             elif parts[:2] == ["v1", "allocation"] and len(parts) == 3:
                 a = state.alloc_by_id(parts[2])
                 if a is None:
                     return self._error(404, "alloc not found")
+                if not self._check(acl.allow_namespace_op(a.namespace,
+                                                          CAP_READ_JOB)):
+                    return
                 self._send(200, a, index)
             elif parts == ["v1", "nodes"]:
                 self._send(200, [self._node_stub(n) for n in state.nodes()],
                            index)
-            elif parts[:2] == ["v1", "node"] and len(parts) == 3:
+            elif parts[:2] == ["v1", "node"] and len(parts) == 3 and \
+                    parts[2] not in ("pools", "pool"):
                 n = state.node_by_id(parts[2])
                 if n is None:
                     return self._error(404, "node not found")
                 self._send(200, n, index)
+            elif parts == ["v1", "node", "pools"]:
+                self._send(200, state.node_pools(), index)
+            elif parts[:3] == ["v1", "node", "pool"] and len(parts) == 4:
+                p = state.node_pool_by_name(parts[3])
+                if p is None:
+                    return self._error(404, "node pool not found")
+                self._send(200, p, index)
+            elif parts[:3] == ["v1", "node", "pool"] and len(parts) == 5 \
+                    and parts[4] == "nodes":
+                self._send(200, [self._node_stub(n) for n in state.nodes()
+                                 if n.node_pool == parts[3]], index)
             elif parts[:2] == ["v1", "node"] and len(parts) == 4 and \
                     parts[3] == "allocations":
                 from ..structs import codec
@@ -413,7 +506,31 @@ class ApiHandler(BaseHTTPRequestHandler):
                                             for a in allocs],
                                  "index": index}, index)
             elif parts == ["v1", "deployments"]:
-                self._send(200, state.deployments(), index)
+                self._send(200, self._visible(acl, state.deployments(),
+                                              CAP_READ_JOB), index)
+            elif parts == ["v1", "services"]:
+                names = self.nomad.service_names(None if ns == "*" else ns)
+                self._send(200, [n for n in names
+                                 if acl.allow_namespace_op(
+                                     n["namespace"], CAP_READ_JOB)], index)
+            elif parts[:2] == ["v1", "service"] and len(parts) == 3:
+                if ns == "*":
+                    regs = [r for r in state.service_registrations(None)
+                            if r.service_name == parts[2]]
+                    return self._send(200, self._visible(
+                        acl, regs, CAP_READ_JOB), index)
+                self._send(200, state.services_by_name(ns, parts[2]), index)
+            elif parts == ["v1", "namespaces"]:
+                self._send(200, [n for n in state.namespaces()
+                                 if acl.allow_namespace(n.name)], index)
+            elif parts[:2] == ["v1", "namespace"] and len(parts) == 3:
+                # the ACL first: a 403 and a 404 would tell existence
+                if not self._check(acl.allow_namespace(parts[2])):
+                    return
+                n = state.namespace_by_name(parts[2])
+                if n is None:
+                    return self._error(404, "namespace not found")
+                self._send(200, n, index)
             elif parts == ["v1", "scaling", "policies"]:
                 job_filter = q.get("job", [None])[0]
                 pols = state.scaling_policies(None if ns == "*" else ns)
@@ -425,8 +542,15 @@ class ApiHandler(BaseHTTPRequestHandler):
                 pol = state.scaling_policy_by_id(parts[3])
                 if pol is None:
                     return self._error(404, "policy not found")
+                # checked in the POLICY's namespace: ids can be guessed
+                if not self._check(acl.allow_namespace_op(
+                        pol.namespace, CAP_READ_SCALING_POLICY)):
+                    return
                 self._send(200, pol, index)
             elif parts == ["v1", "operator", "snapshot"]:
+                # the archive holds ACL secrets: management only
+                if not self._check(acl.is_management()):
+                    return
                 self._send_bytes(self.nomad.snapshot_save())
             elif parts == ["v1", "event", "stream"]:
                 since = int(q.get("index", ["0"])[0])
@@ -580,6 +704,25 @@ class ApiHandler(BaseHTTPRequestHandler):
         try:
             q = parse_qs(url.query)
             ns = q.get("namespace", ["default"])[0]
+            acl = self._acl()
+            if parts[:2] == ["v1", "acl"]:
+                return self._acl_post(parts, acl)
+            # the blanket checks before the body is read (reference
+            # :1112-1125): the node agent's paths and the node
+            # operations need node:write, the operator's and the
+            # system's operator:write
+            if parts == ["v1", "jobs", "parse"]:
+                if not self._check(acl.allow_namespace_op(ns,
+                                                          CAP_PARSE_JOB)):
+                    return
+            elif parts[1:2] == ["node"]:
+                if not self._check(acl.allow_node_write()):
+                    return
+            elif parts[1:2] in (["operator"], ["system"]):
+                if not self._check(acl.allow_operator_write()):
+                    return
+            if parts[:2] == ["v1", "search"]:
+                return self._search(parts, acl, ns)
             if parts == ["v1", "jobs", "parse"]:
                 # (upstream: /v1/jobs/parse, HCL -> api.Job JSON)
                 from ..jobspec import parse as parse_jobspec
@@ -590,6 +733,10 @@ class ApiHandler(BaseHTTPRequestHandler):
                 job = self._job_from_body(self._body())
                 if not job.id:
                     return self._error(400, "job id required")
+                # checked in the JOB's namespace, not the query's
+                if not self._check(acl.allow_namespace_op(job.namespace,
+                                                          CAP_SUBMIT_JOB)):
+                    return
                 try:
                     ev = self.nomad.register_job(job)
                 except ValueError as e:
@@ -598,6 +745,9 @@ class ApiHandler(BaseHTTPRequestHandler):
                                  "job_modify_index": job.job_modify_index})
             elif parts[:2] == ["v1", "job"] and len(parts) == 4 and \
                     parts[3] == "revert":
+                if not self._check(acl.allow_namespace_op(ns,
+                                                          CAP_SUBMIT_JOB)):
+                    return
                 body = self._body()
                 try:
                     ev = self.nomad.revert_job(
@@ -608,6 +758,9 @@ class ApiHandler(BaseHTTPRequestHandler):
                 self._send(200, {"eval_id": ev.id if ev else ""})
             elif parts[:2] == ["v1", "job"] and len(parts) == 4 and \
                     parts[3] == "stable":
+                if not self._check(acl.allow_namespace_op(ns,
+                                                          CAP_SUBMIT_JOB)):
+                    return
                 body = self._body()
                 try:
                     self.nomad.set_job_stability(
@@ -619,6 +772,9 @@ class ApiHandler(BaseHTTPRequestHandler):
             elif parts[:2] == ["v1", "job"] and len(parts) == 5 and \
                     parts[3] == "periodic" and parts[4] == "force":
                 # (upstream: periodic_endpoint.go Force)
+                if not self._check(acl.allow_namespace_op(ns,
+                                                          CAP_SUBMIT_JOB)):
+                    return
                 try:
                     child = self.nomad.periodic_force(ns, parts[2])
                 except ValueError as e:
@@ -626,8 +782,11 @@ class ApiHandler(BaseHTTPRequestHandler):
                 self._send(200, {"dispatched_job_id": child})
             elif parts[:2] == ["v1", "job"] and len(parts) == 4 and \
                     parts[3] in ("plan", "dispatch", "scale"):
-                self._post_job_op(ns, parts[2], parts[3])
+                self._post_job_op(acl, ns, parts[2], parts[3])
             elif parts == ["v1", "operator", "snapshot"]:
+                # a restore installs any ACL state: management only
+                if not self._check(acl.is_management()):
+                    return
                 try:
                     meta = self.nomad.snapshot_restore(self._raw_body())
                 except ValueError as e:
@@ -640,6 +799,13 @@ class ApiHandler(BaseHTTPRequestHandler):
                 self._send(200, {"node_id": node.id,
                                  "heartbeat_ttl":
                                      self.nomad.heartbeat_ttl})
+            elif parts == ["v1", "node", "services-register"]:
+                from typing import List
+                from ..structs import ServiceRegistration, codec
+                regs = codec.decode(List[ServiceRegistration],
+                                    self._body().get("services", []))
+                self.nomad.upsert_services(regs)
+                self._send(200, {"registered": len(regs)})
             elif parts == ["v1", "node", "allocs-update"]:
                 from typing import List
                 from ..structs import Allocation, codec
@@ -647,17 +813,35 @@ class ApiHandler(BaseHTTPRequestHandler):
                                       self._body().get("allocs", []))
                 self.nomad.update_allocs_from_client(allocs)
                 self._send(200, {"updated": len(allocs)})
+            elif parts == ["v1", "namespace"] or (
+                    parts[:2] == ["v1", "namespace"] and len(parts) == 3):
+                # (upstream: namespace_endpoint.go UpsertNamespaces, a
+                # management operation)
+                if not self._check(acl.is_management()):
+                    return
+                self._post_namespace(parts)
+            elif parts == ["v1", "node", "pools"] or (
+                    parts[:3] == ["v1", "node", "pool"] and len(parts) == 4
+                    and parts[3] != "heartbeat"):
+                self._post_node_pool(parts)
             elif parts[:2] == ["v1", "node"] and len(parts) == 4:
                 self._post_node(parts[2], parts[3], url.path)
             elif parts[:2] == ["v1", "deployment"] and len(parts) == 4:
-                self._post_deployment(parts[2], parts[3], url.path)
+                self._post_deployment(acl, parts[2], parts[3], url.path)
             elif parts[:2] == ["v1", "allocation"] and len(parts) == 4 \
                     and parts[3] == "stop":
                 # (upstream: alloc_endpoint.go Stop)
-                if self.nomad.state.alloc_by_id(parts[2]) is None:
+                alloc = self.nomad.state.alloc_by_id(parts[2])
+                if alloc is None:
                     return self._error(404, "alloc not found")
+                if not self._check(acl.allow_namespace_op(
+                        alloc.namespace, CAP_ALLOC_LIFECYCLE)):
+                    return
                 self._send(200, {"eval_id": self.nomad.stop_alloc(parts[2])})
             elif parts == ["v1", "agent", "torch-profile"]:
+                # it writes where the caller says: agent:write
+                if not self._check(acl.allow_agent_write()):
+                    return
                 self._torch_profile()
             elif parts == ["v1", "system", "gc"]:
                 self._send(200, self.nomad.run_gc_once())
@@ -703,14 +887,26 @@ class ApiHandler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 -- a handler answers 500
             self._error(500, f"{type(e).__name__}: {e}")
 
-    def _post_job_op(self, ns: str, job_id: str, op: str) -> None:
+    def _post_job_op(self, acl, ns: str, job_id: str, op: str) -> None:
         """(upstream: job_endpoint.go Plan, Dispatch, Scale) A dry run of
-        a JSON or HCL job; a dispatch with a base64 payload; a scale of
-        the group named by ``target.Group``. A refusal answers 400."""
+        a JSON or HCL job, checked in the job's namespace; a dispatch
+        with a base64 payload; a scale of the group named by
+        ``target.Group``. A refusal answers 400."""
         import base64
+        cap = {"plan": None, "dispatch": CAP_DISPATCH_JOB,
+               "scale": CAP_SCALE_JOB}[op]
+        if cap is not None and \
+                not self._check(acl.allow_namespace_op(ns, cap)):
+            return
         body = self._body()
-        # a jobspec that does not parse answers 500, as the reference's
-        job = self._job_from_body(body) if op == "plan" else None
+        job = None
+        if op == "plan":
+            # a jobspec that does not parse answers 500, as the
+            # reference's
+            job = self._job_from_body(body)
+            if not self._check(acl.allow_namespace_op(job.namespace,
+                                                      CAP_SUBMIT_JOB)):
+                return
         try:
             if op == "plan":
                 reply = self.nomad.plan_job(job)
@@ -735,6 +931,43 @@ class ApiHandler(BaseHTTPRequestHandler):
         except ValueError as e:     # binascii.Error is one
             return self._error(400, str(e))
         self._send(200, reply)
+
+    def _post_namespace(self, parts) -> None:
+        """(reference :1366) An upsert from the body, named by the body
+        or the path."""
+        from ..structs import Namespace, NamespaceNodePoolConfiguration
+        body = self._body()
+        npc = body.get("node_pool_configuration") or {}
+        namespace = Namespace(
+            name=body.get("name", parts[2] if len(parts) == 3 else ""),
+            description=body.get("description", ""),
+            quota=body.get("quota", ""),
+            meta=body.get("meta") or {},
+            node_pool_configuration=NamespaceNodePoolConfiguration(
+                default=npc.get("default", ""),
+                allowed=npc.get("allowed") or [],
+                denied=npc.get("denied") or []))
+        try:
+            self.nomad.upsert_namespace(namespace)
+        except ValueError as e:
+            return self._error(400, str(e))
+        self._send(200, {"updated": True})
+
+    def _post_node_pool(self, parts) -> None:
+        """(reference :1391) An upsert from the body, named by the body
+        or the path."""
+        from ..structs import NodePool
+        body = self._body()
+        pool = NodePool(
+            name=body.get("name", parts[3] if len(parts) == 4 else ""),
+            description=body.get("description", ""),
+            meta=body.get("meta") or {},
+            scheduler_algorithm=body.get("scheduler_algorithm", ""))
+        try:
+            self.nomad.upsert_node_pool(pool)
+        except ValueError as e:
+            return self._error(400, str(e))
+        self._send(200, {"updated": True})
 
     def _post_node(self, node_id: str, op: str, path: str) -> None:
         if op == "heartbeat":
@@ -768,12 +1001,18 @@ class ApiHandler(BaseHTTPRequestHandler):
         else:
             self._error(404, f"unknown path {path}")
 
-    def _post_deployment(self, op: str, dep_id: str, path: str) -> None:
-        """(upstream: deployment_endpoint.go Pause, Fail, Promote)"""
+    def _post_deployment(self, acl, op: str, dep_id: str,
+                         path: str) -> None:
+        """(upstream: deployment_endpoint.go Pause, Fail, Promote),
+        checked in the deployment's namespace."""
         if op not in ("pause", "fail", "promote"):
             return self._error(404, f"unknown path {path}")
-        if self.nomad.state.deployment_by_id(dep_id) is None:
+        d = self.nomad.state.deployment_by_id(dep_id)
+        if d is None:
             return self._error(404, "unknown deployment")
+        if not self._check(acl.allow_namespace_op(d.namespace,
+                                                  CAP_SUBMIT_JOB)):
+            return
         body = self._body()
         try:
             if op == "pause":
@@ -842,15 +1081,239 @@ class ApiHandler(BaseHTTPRequestHandler):
             q = parse_qs(url.query)
             ns = q.get("namespace", ["default"])[0]
             purge = q.get("purge", ["false"])[0] == "true"
+            acl = self._acl()
+            state = self.nomad.state
             if parts[:2] == ["v1", "job"] and len(parts) == 3:
+                if not self._check(acl.allow_namespace_op(ns,
+                                                          CAP_SUBMIT_JOB)):
+                    return
                 ev = self.nomad.deregister_job(ns, parts[2], purge=purge)
                 if ev is None:
                     return self._error(404, "job not found")
                 self._send(200, {"eval_id": ev.id})
+            elif parts[:2] == ["v1", "acl"] and len(parts) == 4 and \
+                    parts[2] in ("policy", "role", "token"):
+                if not self._check(acl.is_management()):
+                    return
+                {"policy": state.delete_acl_policies,
+                 "role": state.delete_acl_roles,
+                 "token": state.delete_acl_tokens}[parts[2]]([parts[3]])
+                self._send(200, {"deleted": True})
+            elif parts[:2] == ["v1", "service"] and len(parts) == 4:
+                # checked in the REGISTRATION's namespace once found (ids
+                # can be guessed), else in the query's
+                reg = next((r for r in state.service_registrations(None)
+                            if r.id == parts[3]), None)
+                if reg is None or reg.service_name != parts[2]:
+                    if not self._check(acl.allow_namespace_op(
+                            ns, CAP_SUBMIT_JOB)):
+                        return
+                    return self._error(404, "registration not found")
+                if not self._check(acl.allow_namespace_op(reg.namespace,
+                                                          CAP_SUBMIT_JOB)):
+                    return
+                state.delete_service_registrations([parts[3]])
+                self._send(200, {"deleted": True})
+            elif parts[:2] == ["v1", "namespace"] and len(parts) == 3:
+                if not self._check(acl.is_management()):
+                    return
+                try:
+                    self.nomad.delete_namespace(parts[2])
+                except ValueError as e:
+                    return self._error(400, str(e))
+                self._send(200, {"deleted": True})
+            elif parts[:3] == ["v1", "node", "pool"] and len(parts) == 4:
+                if not self._check(acl.allow_node_write()):
+                    return
+                try:
+                    self.nomad.delete_node_pool(parts[3])
+                except ValueError as e:
+                    return self._error(400, str(e))
+                self._send(200, {"deleted": True})
             else:
                 self._error(404, f"unknown path {url.path}")
         except Exception as e:  # noqa: BLE001 -- a handler answers 500
             self._error(500, f"{type(e).__name__}: {e}")
+
+    # ------------------------------------------------------------------
+    # ACL enforcement (upstream: command/agent/http.go wrap() reads the
+    # token; each endpoint checks its capabilities)
+    def _acl(self):
+        """The request's compiled ACL: its X-Nomad-Token, else ?token=."""
+        secret = self.headers.get("X-Nomad-Token", "")
+        if not secret:
+            q = parse_qs(urlparse(self.path).query)
+            if "token" in q:
+                secret = q["token"][0]
+        compiled, _token = self.nomad.resolve_token(secret or None)
+        return compiled
+
+    def _check(self, allowed: bool) -> bool:
+        """False, with the 403 sent, when the request is refused."""
+        if allowed:
+            return True
+        self._error(403, "Permission denied")
+        return False
+
+    @staticmethod
+    def _ns_allowed(acl, ns: str, cap: str) -> bool:
+        """``cap`` in namespace ``ns``; in any namespace for "*"."""
+        return (acl.allow_any_namespace(cap) if ns == "*"
+                else acl.allow_namespace_op(ns, cap))
+
+    @staticmethod
+    def _visible(acl, rows, cap: str) -> list:
+        """The rows (with a ``namespace``) whose namespace grants
+        ``cap``; all of them under the management ACL."""
+        if acl.is_management():
+            return rows
+        return [r for r in rows if acl.allow_namespace_op(r.namespace, cap)]
+
+    # -- /v1/acl (upstream: nomad/acl_endpoint.go,
+    #    command/agent/acl_endpoint.go) ----------------------------------
+    @staticmethod
+    def _token_stub(t) -> dict:
+        return {"accessor_id": t.accessor_id, "name": t.name,
+                "type": t.type, "policies": t.policies,
+                "global": t.global_token, "create_time": t.create_time,
+                "modify_index": t.modify_index}
+
+    def _acl_get(self, parts, acl, index) -> None:
+        """(reference :1850) Every read is management only but
+        token/self, which any token reads (its own record)."""
+        state = self.nomad.state
+        if parts == ["v1", "acl", "policies"]:
+            self._send(200, [{"name": p.name, "description": p.description,
+                              "modify_index": p.modify_index}
+                             for p in state.acl_policies()], index)
+        elif parts[:3] == ["v1", "acl", "policy"] and len(parts) == 4:
+            p = state.acl_policy_by_name(parts[3])
+            if p is None:
+                return self._error(404, "policy not found")
+            self._send(200, p, index)
+        elif parts == ["v1", "acl", "roles"]:
+            self._send(200, state.acl_roles(), index)
+        elif parts[:3] == ["v1", "acl", "role"] and len(parts) == 4:
+            r = state.acl_role_by_name(parts[3])
+            if r is None:
+                return self._error(404, "role not found")
+            self._send(200, r, index)
+        elif parts == ["v1", "acl", "tokens"]:
+            self._send(200, [self._token_stub(t)
+                             for t in state.acl_tokens()], index)
+        elif parts == ["v1", "acl", "token", "self"]:
+            secret = self.headers.get("X-Nomad-Token", "")
+            if not secret:
+                q = parse_qs(urlparse(self.path).query)
+                secret = q.get("token", [""])[0]
+            # resolved through the server, so an expired token is refused
+            _compiled, token = self.nomad.resolve_token(secret or None)
+            if token is None:
+                return self._error(404, "token not found")
+            self._send(200, token, index)
+        elif parts[:3] == ["v1", "acl", "token"] and len(parts) == 4:
+            t = state.acl_token_by_accessor(parts[3])
+            if t is None:
+                return self._error(404, "token not found")
+            self._send(200, t, index)
+        else:
+            self._error(404, "unknown acl path")
+
+    def _acl_post(self, parts, acl) -> None:
+        """(reference :1901) bootstrap (open until done), and the
+        management writes of policies, tokens and roles."""
+        from ..acl import parse_policy
+        from ..structs import ACLPolicy, ACLRole, ACLToken
+        state = self.nomad.state
+        if parts == ["v1", "acl", "bootstrap"]:
+            token = self.nomad.bootstrap_acl()
+            if token is None:
+                return self._error(400, "ACL already bootstrapped")
+            return self._send(200, token)
+        if not (parts[:3] in (["v1", "acl", "policy"],
+                              ["v1", "acl", "role"]) and len(parts) == 4
+                or parts == ["v1", "acl", "token"]):
+            return self._error(404, "unknown acl path")
+        if not self._check(acl.is_management()):
+            return
+        body = self._body()
+        if parts[2] == "policy":
+            rules = body.get("rules", "")
+            try:
+                parse_policy(parts[3], rules)   # refused before stored
+            except Exception as e:  # noqa: BLE001 -- any parse error
+                return self._error(400, f"invalid policy: {e}")
+            state.upsert_acl_policies([ACLPolicy(
+                name=parts[3], description=body.get("description", ""),
+                rules=rules)])
+            self._send(200, {"updated": True})
+        elif parts[2] == "token":
+            token = ACLToken.new(
+                name=body.get("name", ""),
+                type=body.get("type", "client"),
+                policies=body.get("policies", []),
+                roles=body.get("roles", []),
+                ttl_s=body.get("ttl_s"))
+            state.upsert_acl_tokens([token])
+            self._send(200, token)
+        else:
+            # (upstream: acl_endpoint.go UpsertRoles)
+            policies = [str(p) for p in body.get("policies", [])]
+            for p in policies:
+                if state.acl_policy_by_name(p) is None:
+                    return self._error(
+                        400, f"role links unknown policy {p!r}")
+            state.upsert_acl_roles([ACLRole(
+                name=parts[3], description=body.get("description", ""),
+                policies=policies)])
+            self._send(200, {"updated": True})
+
+    # -- /v1/search (upstream: command/agent/search_endpoint.go) ---------
+    def _search(self, parts, acl, ns: str) -> None:
+        """Prefix or fuzzy search over the contexts the token may read
+        (upstream: filteredSearchContexts), objects filtered by the
+        token's read-job in their namespace."""
+        body = self._body()
+        allowed = self._allowed_search_contexts(acl, ns)
+        ns_allowed = (None if acl.is_management()
+                      else (lambda n: acl.allow_namespace_op(
+                          n, CAP_READ_JOB)))
+        if parts == ["v1", "search"]:
+            reply = self.nomad.search(
+                body.get("prefix", ""), body.get("context", "all") or "all",
+                ns, allowed_contexts=allowed, ns_allowed=ns_allowed)
+        elif parts == ["v1", "search", "fuzzy"]:
+            reply = self.nomad.fuzzy_search(
+                body.get("text", ""), body.get("context", "all") or "all",
+                ns, allowed_contexts=allowed, ns_allowed=ns_allowed)
+        else:
+            return self._error(404, "unknown search path")
+        self._send(200, reply)
+
+    def _allowed_search_contexts(self, acl, ns: str):
+        """The contexts the token may search (reference :2099; upstream:
+        search_endpoint.go sufficientSearchPerms); None, unfiltered, for
+        management."""
+        if acl.is_management():
+            return None
+        from ..server.search import (
+            CONTEXT_ALLOCS, CONTEXT_DEPLOYMENTS, CONTEXT_EVALS,
+            CONTEXT_JOBS, CONTEXT_NAMESPACES, CONTEXT_NODE_POOLS,
+            CONTEXT_NODES, CONTEXT_PLUGINS, CONTEXT_SCALING_POLICIES,
+            CONTEXT_VARIABLES, CONTEXT_VOLUMES)
+        allowed = []
+        if self._ns_allowed(acl, ns, CAP_READ_JOB) or \
+                self._ns_allowed(acl, ns, CAP_LIST_JOBS):
+            allowed += [CONTEXT_JOBS, CONTEXT_EVALS, CONTEXT_ALLOCS,
+                        CONTEXT_DEPLOYMENTS, CONTEXT_VOLUMES,
+                        CONTEXT_PLUGINS, CONTEXT_NAMESPACES]
+        if acl.allow_node_read():
+            allowed += [CONTEXT_NODES, CONTEXT_NODE_POOLS]
+        if self._ns_allowed(acl, ns, CAP_LIST_SCALING_POLICIES):
+            allowed += [CONTEXT_SCALING_POLICIES]
+        if acl.allow_variable_op(ns if ns != "*" else "default", "", "list"):
+            allowed += [CONTEXT_VARIABLES]
+        return allowed
 
     # ------------------------------------------------------------------
     def _write_chunk(self, payload: bytes) -> None:

@@ -169,8 +169,9 @@ def store_from_reference(snapshot, memo: Optional[dict] = None):
     store) holds: its nodes, jobs, evaluations, allocations and
     deployments in the snapshot's order (each node's and each job's
     allocations in the order the snapshot lists them), its namespaces,
-    node pools, scaling policies and scaling events (a snapshot's are
-    read from its live store), and its scheduler configuration; at the
+    node pools, scaling policies and scaling events, service catalog and
+    ACL tables (a snapshot's are read from its live store), and its
+    scheduler configuration; at the
     snapshot's latest_index() and
     node-table index, with an empty journal and the alloc table rebuilt
     (nodes registered in the snapshot's order, then the allocations).
@@ -232,6 +233,17 @@ def store_from_reference(snapshot, memo: Optional[dict] = None):
             store._scaling_policies[pid] = carry(pol)
         for key, events in getattr(live, "_scaling_events", {}).items():
             store._scaling_events[key] = [carry(e) for e in events]
+        for rid, reg in getattr(live, "_services", {}).items():
+            store._services[rid] = carry(reg)
+        for name, pol in getattr(live, "_acl_policies", {}).items():
+            store._acl_policies[name] = carry(pol)
+        for name, role in getattr(live, "_acl_roles", {}).items():
+            store._acl_roles[name] = carry(role)
+        for acc, tok in getattr(live, "_acl_tokens", {}).items():
+            store._acl_tokens[acc] = carry(tok)
+            store._acl_tokens_by_secret[tok.secret_id] = acc
+        store._acl_bootstrapped = bool(getattr(live, "_acl_bootstrapped",
+                                               False))
         for n in store._nodes.values():
             store.alloc_table.register_node(n)
         store.alloc_table.upsert_many(list(store._allocs.values()))
@@ -243,4 +255,9 @@ def store_from_reference(snapshot, memo: Optional[dict] = None):
                               "scheduler_config": index,
                               "scaling_policies": index,
                               "scaling_events": index}
+        live_index = getattr(live, "_table_index", {})
+        for t in ("namespaces", "node_pools", "services", "acl_policies",
+                  "acl_roles", "acl_tokens"):
+            if t in live_index:
+                store._table_index[t] = min(int(live_index[t]), index)
     return store

@@ -9,13 +9,16 @@ eval; deployment [list|promote|pause|resume|fail]; operator scheduler;
 operator snapshot save|restore; operator solver status|reprobe; operator
 node flaps; operator workers; operator evals quarantine; operator
 lockcheck|jitcheck|statecheck|schedcheck|sanitizers; operator
-transfers|trace|quality; system gc; metrics; version. ``job plan``
-exits 1 when a group would fail placement. ``schedcheck --replay`` /
-``--explore`` run the port's own scenarios locally. The reference's
-commands over layers the port's server lacks (variables, ACLs,
-namespaces, node pools, services, CSI, keyring, raft, members, monitor,
-debug bundles, alloc fs/logs/exec, the prefix search of ``status``) are
-not here.
+transfers|trace|quality; system gc; metrics; acl bootstrap|policy
+apply|token create|role apply|list|delete; namespace list|apply|delete;
+node-pool list|apply|delete|nodes; service list|info; status <prefix>
+(a search across every object; exit 1 when nothing matches); version.
+``job plan`` exits 1 when a group would fail placement. ``schedcheck
+--replay`` / ``--explore`` run the port's own scenarios locally. Every
+request carries the ACL token given by ``-token``, else $NOMAD_TOKEN.
+The reference's commands over layers the port's server lacks
+(variables, CSI, keyring, raft, members, monitor, debug bundles, alloc
+fs/logs/exec) are not here.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ def _client(args) -> ApiClient:
     addr = args.address or os.environ.get("NOMAD_ADDR",
                                           "http://127.0.0.1:4646")
     return ApiClient(addr, namespace=args.namespace,
-                     token=os.environ.get("NOMAD_TOKEN", ""))
+                     token=args.token or os.environ.get("NOMAD_TOKEN", ""))
 
 
 def _parse_vars(pairs: List[str]) -> dict:
@@ -1011,6 +1014,123 @@ def cmd_operator_quality(args) -> int:
     return 0
 
 
+def cmd_acl_bootstrap(args) -> int:
+    out = _client(args).acl_bootstrap()
+    print(f"Accessor ID = {out['accessor_id']}\n"
+          f"Secret ID   = {out['secret_id']}\n"
+          f"Type        = {out['type']}")
+    return 0
+
+
+def cmd_acl_policy_apply(args) -> int:
+    with open(args.file, encoding="utf-8") as fh:
+        rules = fh.read()
+    _client(args).acl_policy_apply(args.name, rules,
+                                   args.description or "")
+    print(f"Applied policy {args.name}")
+    return 0
+
+
+def cmd_acl_token_create(args) -> int:
+    out = _client(args).acl_token_create(
+        name=args.name or "", type=args.type, policies=args.policy or [],
+        roles=args.role or [])
+    print(f"Accessor ID = {out['accessor_id']}\n"
+          f"Secret ID   = {out['secret_id']}\n"
+          f"Policies    = {out['policies']}\n"
+          f"Roles       = {out.get('roles', [])}")
+    return 0
+
+
+def cmd_acl_role(args) -> int:
+    """(upstream: command/acl_role_*.go)"""
+    api = _client(args)
+    if args.sub2 == "apply":
+        api.post(f"/v1/acl/role/{args.name}",
+                 {"policies": args.policy or [],
+                  "description": args.description or ""})
+        print(f"Applied role {args.name}")
+    elif args.sub2 == "delete":
+        api.delete(f"/v1/acl/role/{args.name}")
+        print(f"Deleted role {args.name}")
+    else:
+        roles = api.get("/v1/acl/roles")
+        print(_fmt_table(
+            [[r["name"], ", ".join(r["policies"]),
+              r.get("description", "")] for r in roles],
+            ["Name", "Policies", "Description"]))
+    return 0
+
+
+def cmd_namespace(args) -> int:
+    api = _client(args)
+    if args.sub2 == "list":
+        print(_fmt_table([[n["name"], n.get("description", "")]
+                          for n in api.namespaces()],
+                         ["Name", "Description"]))
+    elif args.sub2 == "apply":
+        api.upsert_namespace(args.name, description=args.description)
+        print(f"Namespace {args.name!r} applied")
+    elif args.sub2 == "delete":
+        api.delete_namespace(args.name)
+        print(f"Namespace {args.name!r} deleted")
+    return 0
+
+
+def cmd_node_pool(args) -> int:
+    api = _client(args)
+    if args.sub2 == "list":
+        print(_fmt_table(
+            [[p["name"], p.get("scheduler_algorithm") or "(global)",
+              p.get("description", "")]
+             for p in api.node_pools()],
+            ["Name", "SchedulerAlgorithm", "Description"]))
+    elif args.sub2 == "apply":
+        api.upsert_node_pool(args.name, description=args.description,
+                             scheduler_algorithm=args.scheduler_algorithm)
+        print(f"Node pool {args.name!r} applied")
+    elif args.sub2 == "delete":
+        api.delete_node_pool(args.name)
+        print(f"Node pool {args.name!r} deleted")
+    elif args.sub2 == "nodes":
+        print(_fmt_table(
+            [[n["id"][:8], n["name"], n["status"]]
+             for n in api.node_pool_nodes(args.name)],
+            ["ID", "Name", "Status"]))
+    return 0
+
+
+def cmd_service(args) -> int:
+    api = _client(args)
+    if args.sub2 == "list":
+        print(_fmt_table(
+            [[s["service_name"], ",".join(s["tags"]) or "-"]
+             for s in api.services()],
+            ["Service", "Tags"]))
+    elif args.sub2 == "info":
+        regs = api.service(args.name)
+        print(_fmt_table(
+            [[r["id"][:24], f'{r["address"]}:{r["port"]}',
+              r["alloc_id"][:8], r["node_id"][:8]] for r in regs],
+            ["ID", "Address", "Alloc", "Node"]))
+    return 0
+
+
+def cmd_status(args) -> int:
+    """A prefix search across every kind of object, as `nomad status
+    <prefix>`; exit 1 when nothing matches."""
+    reply = _client(args).search(args.prefix)
+    rows = []
+    for ctx, ids in sorted(reply.get("matches", {}).items()):
+        for i in ids:
+            rows.append([ctx, i])
+    if not rows:
+        print(f"No matches for {args.prefix!r}")
+        return 1
+    print(_fmt_table(rows, ["Type", "ID"]))
+    return 0
+
+
 def cmd_version(args) -> int:
     from .client.fingerprint import VERSION
     print(f"nomad-tpu v{VERSION} (tpu-native cluster scheduler)")
@@ -1021,6 +1141,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="nomad-tpu-torch")
     p.add_argument("-address", dest="address", default="")
     p.add_argument("-namespace", dest="namespace", default="default")
+    p.add_argument("-token", dest="token", default="",
+                   help="the ACL token's secret (default: $NOMAD_TOKEN)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     ag = sub.add_parser("agent", help="run the dev agent")
@@ -1227,6 +1349,75 @@ def build_parser() -> argparse.ArgumentParser:
 
     mt = sub.add_parser("metrics")
     mt.set_defaults(fn=cmd_metrics)
+
+    aclp = sub.add_parser("acl", help="ACL management").add_subparsers(
+        dest="sub", required=True)
+    aclp.add_parser("bootstrap").set_defaults(fn=cmd_acl_bootstrap)
+    apol = aclp.add_parser("policy").add_subparsers(dest="sub2",
+                                                    required=True)
+    apa = apol.add_parser("apply")
+    apa.add_argument("name")
+    apa.add_argument("file")
+    apa.add_argument("-description", default="")
+    apa.set_defaults(fn=cmd_acl_policy_apply)
+    atok = aclp.add_parser("token").add_subparsers(dest="sub2",
+                                                   required=True)
+    atc = atok.add_parser("create")
+    atc.add_argument("-name", default="")
+    atc.add_argument("-type", default="client",
+                     choices=["client", "management"])
+    atc.add_argument("-policy", action="append")
+    atc.add_argument("-role", action="append")
+    atc.set_defaults(fn=cmd_acl_token_create)
+    arole = aclp.add_parser("role").add_subparsers(dest="sub2",
+                                                   required=True)
+    ara = arole.add_parser("apply")
+    ara.add_argument("name")
+    ara.add_argument("-policy", action="append")
+    ara.add_argument("-description", default="")
+    ara.set_defaults(fn=cmd_acl_role)
+    arole.add_parser("list").set_defaults(fn=cmd_acl_role)
+    ard = arole.add_parser("delete")
+    ard.add_argument("name")
+    ard.set_defaults(fn=cmd_acl_role)
+
+    nsp = sub.add_parser("namespace").add_subparsers(dest="sub2",
+                                                     required=True)
+    nsp.add_parser("list").set_defaults(fn=cmd_namespace)
+    nsa = nsp.add_parser("apply")
+    nsa.add_argument("name")
+    nsa.add_argument("-description", default="")
+    nsa.set_defaults(fn=cmd_namespace)
+    nsd = nsp.add_parser("delete")
+    nsd.add_argument("name")
+    nsd.set_defaults(fn=cmd_namespace)
+
+    npp = sub.add_parser("node-pool").add_subparsers(dest="sub2",
+                                                     required=True)
+    npp.add_parser("list").set_defaults(fn=cmd_node_pool)
+    npa = npp.add_parser("apply")
+    npa.add_argument("name")
+    npa.add_argument("-description", default="")
+    npa.add_argument("-scheduler-algorithm", dest="scheduler_algorithm",
+                     default="")
+    npa.set_defaults(fn=cmd_node_pool)
+    npd = npp.add_parser("delete")
+    npd.add_argument("name")
+    npd.set_defaults(fn=cmd_node_pool)
+    npn = npp.add_parser("nodes")
+    npn.add_argument("name")
+    npn.set_defaults(fn=cmd_node_pool)
+
+    svc = sub.add_parser("service").add_subparsers(dest="sub2",
+                                                   required=True)
+    svc.add_parser("list").set_defaults(fn=cmd_service)
+    svi = svc.add_parser("info")
+    svi.add_argument("name")
+    svi.set_defaults(fn=cmd_service)
+
+    st = sub.add_parser("status", help="prefix search across objects")
+    st.add_argument("prefix")
+    st.set_defaults(fn=cmd_status)
 
     vr = sub.add_parser("version")
     vr.set_defaults(fn=cmd_version)

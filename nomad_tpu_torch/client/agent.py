@@ -4,8 +4,10 @@ registerAndHeartbeat :1734, watchAllocations :2280, runAllocs :2538, and
 the scriptable mock driver, drivers/mock/driver.go:117: run_for /
 exit_code / start_error). It runs in process beside the server, as the
 dev agent does; a node on another host speaks the same calls over the
-HTTP API (api/client.py HttpServerConn). The port's server has no
-service catalog, so a started alloc registers no services.
+HTTP API (api/client.py HttpServerConn). A started alloc registers its
+provider "nomad" services in the server's catalog
+(serviceregistration.py); the server removes them when the alloc turns
+terminal or its node goes down.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from .serviceregistration import build_registrations
 from ..structs import (
     AllocDeploymentStatus, Allocation, Node,
     ALLOC_CLIENT_COMPLETE, ALLOC_CLIENT_FAILED, ALLOC_CLIENT_PENDING,
@@ -137,6 +140,11 @@ class SimClient(threading.Thread):
         will_fail = int(cfg.get("exit_code", 0) or 0) != 0
         self._tasks[alloc.id] = _TaskState(now, run_for, will_fail,
                                            min_healthy)
+        # the workload's services enter the catalog as it starts
+        # (upstream: client/serviceregistration)
+        regs = build_registrations(alloc, self.node)
+        if regs:
+            self.server.upsert_services(regs)
         return [self._mk_update(alloc, ALLOC_CLIENT_RUNNING)]
 
     def _advance_task(self, alloc: Allocation,

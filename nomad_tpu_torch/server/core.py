@@ -50,9 +50,17 @@ count within the group's scaling bounds and records a scaling event.
 ``snapshot_save`` / ``snapshot_restore`` are the operator's archives
 (server/snapshot.py): a restore revokes leadership, replaces every
 table, and establishes leadership again, so the restored pending evals
-are enqueued as one burst. The volume watcher and CSI, the service
-catalog, ACLs, the keyring, variables, search and federation are not
-part of this module.
+are enqueued as one burst.
+
+The cluster tables: namespaces and node pools (their writes and deletes,
+with the reference's refusals), the native service catalog (written by
+the clients as workloads start; a node going down and allocs turning
+terminal remove their registrations), search over the store
+(server/search.py), and ACLs: ``acl_enabled`` turns enforcement on,
+``bootstrap_acl`` mints the first management token, and
+``resolve_token`` turns a request's secret into a compiled ACL
+(acl/Resolver). The volume watcher and CSI, the keyring, variables,
+workload identities and federation are not part of this module.
 
 Knobs (read when a Server is built):
   NOMAD_TPU_TORCH_FLAP=0                 immediate down->ready transitions
@@ -81,10 +89,12 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from ..acl import ANONYMOUS_ACL, MANAGEMENT_ACL, Resolver
 from ..device import DeviceLike, resolve_device
 from ..faultinject import faults
 from ..state.store import StateStore
 from ..structs import (
+    ACL_TOKEN_TYPE_MANAGEMENT, ACLToken,
     Allocation, Deployment, DesiredTransition, Evaluation, Job, Node,
     NodePool, Plan, PlanResult, ScalingEvent, generate_uuid,
     ALLOC_CLIENT_FAILED, ALLOC_CLIENT_RUNNING, DEPLOYMENT_STATUS_FAILED,
@@ -393,9 +403,14 @@ class Server:
                  eval_batching: bool = True,
                  batch_width: Optional[int] = None,
                  device: DeviceLike = None,
-                 heartbeat_ttl: float = DEFAULT_HEARTBEAT_TTL):
+                 heartbeat_ttl: float = DEFAULT_HEARTBEAT_TTL,
+                 acl_enabled: bool = False):
         self.state = state if state is not None else StateStore()
         self.device = device
+        # ACL enforcement (reference :349-365): off, every request
+        # resolves to the management ACL
+        self.acl_enabled = acl_enabled
+        self.acl_resolver = Resolver(self.state)
         self.broker = EvalBroker()
         self.blocked_evals = BlockedEvals(self.broker)
         self.planner = Planner(self.state)
@@ -623,6 +638,33 @@ class Server:
             self.broker.set_enabled(not cfg.pause_eval_broker)
             if not was and not cfg.pause_eval_broker:
                 self._restore_evals(reblock=False)
+
+    # ------------------------------------------------------------------
+    # ACLs (upstream: nomad/acl_endpoint.go, nomad/auth/auth.go)
+    def bootstrap_acl(self) -> Optional[ACLToken]:
+        """(reference :594; upstream: acl_endpoint.go Bootstrap) The
+        one-time management token; None once bootstrapped."""
+        token = ACLToken.new(name="Bootstrap Token",
+                             type=ACL_TOKEN_TYPE_MANAGEMENT)
+        token.global_token = True
+        if not self.state.bootstrap_acl_token(token):
+            return None
+        return token
+
+    def resolve_token(self, secret_id: Optional[str]):
+        """(reference :626) -> (ACL, token). ACLs off: the management ACL
+        for every request; on: no secret, or one that names no live
+        token, is the deny-all anonymous ACL. A secret shaped as a JWT
+        resolves through the token table as any other: the workload
+        identity branch (reference :640-643) comes with the keyring."""
+        if not self.acl_enabled:
+            return MANAGEMENT_ACL, None
+        if not secret_id:
+            return ANONYMOUS_ACL, None
+        compiled, token = self.acl_resolver.resolve_secret(secret_id)
+        if compiled is None:
+            return ANONYMOUS_ACL, None
+        return compiled, token
 
     # ------------------------------------------------------------------
     # jobs (upstream: nomad/job_endpoint.go)
@@ -1054,6 +1096,10 @@ class Server:
             with self._hb_lock:
                 self._heartbeat_deadlines.pop(node_id, None)
             self._create_node_evals(node_id)
+            # a dead node's services leave the catalog in one write
+            # (reference :1159)
+            if status == NODE_STATUS_DOWN:
+                self.state.delete_services_by_node(node_id)
         self.publish_event("NodeStatusUpdate",
                            {"node_id": node_id, "status": status})
 
@@ -1201,9 +1247,12 @@ class Server:
         stopped alloc held frees only here, when its client says it is
         terminal), the jobs' statuses are refreshed, and a failed alloc
         of a live job enqueues one ``alloc-failure`` eval for its job,
-        whose reschedule places with the node penalty. The port's store
-        keeps no service catalog, so there is none to clear."""
+        whose reschedule places with the node penalty. Terminal allocs'
+        services leave the catalog in one write (reference :1317)."""
         self.state.update_allocs_from_client(allocs)
+        terminal = [a.id for a in allocs if a.client_terminal_status()]
+        if terminal:
+            self.state.delete_services_by_allocs(terminal)
         for key in {(a.namespace, a.job_id) for a in allocs}:
             self._refresh_job_status(*key)
         evals = []
@@ -1304,6 +1353,91 @@ class Server:
                 status = JOB_STATUS_DEAD
         if status != job.status:
             self.state.update_job_status(namespace, job_id, status)
+
+    # ------------------------------------------------------------------
+    # namespaces and node pools (reference :1408-1446; upstream:
+    # nomad/namespace_endpoint.go, nomad/node_pool_endpoint.go)
+    def upsert_namespace(self, namespace) -> None:
+        if not namespace.name or "/" in namespace.name:
+            raise ValueError(f"invalid namespace name {namespace.name!r}")
+        self.state.upsert_namespace(namespace)
+        self.publish_event("NamespaceUpserted", {"name": namespace.name})
+
+    def delete_namespace(self, name: str) -> None:
+        if name == "default":
+            raise ValueError("default namespace cannot be deleted")
+        if self.state.namespace_by_name(name) is None:
+            raise ValueError(f"namespace {name!r} not found")
+        in_use = [j.id for j in self.state.jobs() if j.namespace == name]
+        if in_use:
+            raise ValueError(
+                f"namespace {name!r} has {len(in_use)} non-purged jobs")
+        if self.state.variables(name):
+            raise ValueError(f"namespace {name!r} has variables")
+        self.state.delete_namespace(name)
+        self.publish_event("NamespaceDeleted", {"name": name})
+
+    def upsert_node_pool(self, pool) -> None:
+        if not pool.name or pool.name == "all":
+            raise ValueError(f"invalid node pool name {pool.name!r}")
+        self.state.upsert_node_pool(pool)
+        self.publish_event("NodePoolUpserted", {"name": pool.name})
+
+    def delete_node_pool(self, name: str) -> None:
+        if name in ("default", "all"):
+            raise ValueError(f"built-in node pool {name!r} is undeletable")
+        if self.state.node_pool_by_name(name) is None:
+            raise ValueError(f"node pool {name!r} not found")
+        nodes = [n.id for n in self.state.nodes() if n.node_pool == name]
+        if nodes:
+            raise ValueError(f"node pool {name!r} has {len(nodes)} nodes")
+        jobs = [j.id for j in self.state.jobs() if j.node_pool == name]
+        if jobs:
+            raise ValueError(f"node pool {name!r} used by {len(jobs)} jobs")
+        self.state.delete_node_pool(name)
+        self.publish_event("NodePoolDeleted", {"name": name})
+
+    # ------------------------------------------------------------------
+    # the native service catalog (reference :1451-1469; upstream:
+    # nomad/service_registration_endpoint.go)
+    def upsert_services(self, regs) -> None:
+        """Store the registrations of provider "nomad" that name a
+        service; the others are not the catalog's."""
+        regs = [r for r in regs if r.provider == "nomad" and r.service_name]
+        if regs:
+            self.state.upsert_service_registrations(regs)
+
+    def service_names(self, namespace: Optional[str] = None) -> List[dict]:
+        """One row a (namespace, service name): the union of its
+        registrations' tags (upstream: ServiceRegistration.List)."""
+        byname: Dict[tuple, dict] = {}
+        for reg in self.state.service_registrations(namespace):
+            entry = byname.setdefault(
+                (reg.namespace, reg.service_name),
+                {"namespace": reg.namespace,
+                 "service_name": reg.service_name, "tags": []})
+            for t in reg.tags:
+                if t not in entry["tags"]:
+                    entry["tags"].append(t)
+        return list(byname.values())
+
+    # ------------------------------------------------------------------
+    # search (reference :1509; upstream: nomad/search_endpoint.go)
+    def search(self, prefix: str, context: str = "all",
+               namespace: Optional[str] = None,
+               allowed_contexts: Optional[List[str]] = None,
+               ns_allowed=None) -> dict:
+        from .search import Searcher
+        return Searcher(self.state, ns_allowed).prefix_search(
+            prefix, context, namespace, allowed_contexts)
+
+    def fuzzy_search(self, text: str, context: str = "all",
+                     namespace: Optional[str] = None,
+                     allowed_contexts: Optional[List[str]] = None,
+                     ns_allowed=None) -> dict:
+        from .search import Searcher
+        return Searcher(self.state, ns_allowed).fuzzy_search(
+            text, context, namespace, allowed_contexts)
 
     # ------------------------------------------------------------------
     # the event stream (upstream: nomad/stream/event_broker.go)

@@ -5,8 +5,10 @@ write).
 
 ``dump_state(store)`` is a JSON-able blob of every table the port's
 store keeps: nodes, jobs, job versions, evals, allocs, deployments, node
-pools, namespaces, the scheduler configuration, scaling policies and
-scaling events, with the index and each table's index. Keys and layout
+pools, namespaces, the scheduler configuration, the ACL policies, roles
+and tokens and whether ACLs were bootstrapped, scaling policies and
+scaling events, and the service catalog, with the index and each
+table's index. Keys and layout
 are the reference's (structs through structs/codec.py, tuple keys joined
 by ``\\x1f``), so a blob the reference dumps restores here and a blob
 dumped here restores in the reference (which reads its other tables as
@@ -30,8 +32,9 @@ import dataclasses
 from typing import TYPE_CHECKING
 
 from ..structs import (
-    Allocation, Deployment, Evaluation, Job, Namespace, Node, NodePool,
-    ScalingEvent, ScalingPolicy, SchedulerConfiguration, codec)
+    ACLPolicy, ACLRole, ACLToken, Allocation, Deployment, Evaluation, Job,
+    Namespace, Node, NodePool, ScalingEvent, ScalingPolicy,
+    SchedulerConfiguration, ServiceRegistration, codec)
 from .alloc_table import AllocTable
 from .store import TABLES
 
@@ -81,6 +84,11 @@ def dump_state(store: "StateStore") -> dict:
         events = [(k, list(evs))
                   for k, evs in store._scaling_events.items()]
         namespaces = list(store._namespaces.values())
+        acl_policies = list(store._acl_policies.values())
+        acl_roles = list(store._acl_roles.values())
+        acl_tokens = list(store._acl_tokens.values())
+        acl_bootstrapped = store._acl_bootstrapped
+        services = list(store._services.values())
     job_encodings: dict = {}
     return {
         "index": index,
@@ -94,11 +102,16 @@ def dump_state(store: "StateStore") -> dict:
         "deployments": [codec.encode(d) for d in deployments],
         "node_pools": [codec.encode(p) for p in pools],
         "scheduler_config": codec.encode(sched_cfg),
+        "acl_policies": [codec.encode(p) for p in acl_policies],
+        "acl_roles": [codec.encode(r) for r in acl_roles],
+        "acl_tokens": [codec.encode(t) for t in acl_tokens],
+        "acl_bootstrapped": acl_bootstrapped,
         "scaling_policies": [codec.encode(p) for p in policies],
         "scaling_events": {codec._encode_key(k): [codec.encode(e)
                                                   for e in evs]
                            for k, evs in events},
         "namespaces": [codec.encode(n) for n in namespaces],
+        "services": [codec.encode(r) for r in services],
     }
 
 
@@ -152,6 +165,15 @@ def restore_state(store: "StateStore", blob: dict) -> None:
                   (codec.decode(Namespace, raw)
                    for raw in blob.get("namespaces", []))}
     namespaces.setdefault("default", Namespace(name="default"))
+    acl_policies = [codec.decode(ACLPolicy, p)
+                    for p in blob.get("acl_policies", [])]
+    acl_roles = [codec.decode(ACLRole, r)
+                 for r in blob.get("acl_roles", [])]
+    acl_tokens = [codec.decode(ACLToken, t)
+                  for t in blob.get("acl_tokens", [])]
+    services = {r.id: r for r in
+                (codec.decode(ServiceRegistration, raw)
+                 for raw in blob.get("services", []))}
     table = AllocTable()
     for n in nodes:
         table.register_node(n)
@@ -180,6 +202,13 @@ def restore_state(store: "StateStore", blob: dict) -> None:
         store._scaling_policies = scaling_policies
         store._scaling_events = scaling_events
         store._namespaces = namespaces
+        store._acl_policies = {p.name: p for p in acl_policies}
+        store._acl_roles = {r.name: r for r in acl_roles}
+        store._acl_tokens = {t.accessor_id: t for t in acl_tokens}
+        store._acl_tokens_by_secret = {t.secret_id: t.accessor_id
+                                       for t in acl_tokens}
+        store._acl_bootstrapped = blob.get("acl_bootstrapped", False)
+        store._services = services
         store._index = index
         store._table_index = {t: table_index.get(t, index) for t in TABLES}
         store.alloc_table = table

@@ -1,6 +1,7 @@
 """The state store (port of nomad_tpu/state/store.py StateStore and
 StateSnapshot): nodes, jobs, evaluations, allocations, deployments,
-namespaces, node pools and the scheduler configuration, point-in-time
+namespaces, node pools, the scheduler configuration, the native service
+catalog and the ACL policies, roles and tokens, point-in-time
 snapshots, the plan-result commits (one plan, or a group of plans as one
 transaction), blocking waits on the index, the alloc-delta journal, the
 stored versions of every job, the scaling policies derived from each
@@ -57,18 +58,19 @@ from .. import native, schedcheck, statecheck
 from ..faultinject import faults
 from ..server.telemetry import metrics
 from ..structs import (
+    ACL_TOKEN_TYPE_MANAGEMENT, ACLPolicy, ACLRole, ACLToken,
     DesiredTransition, Namespace, NodePool, ScalingEvent, ScalingPolicy,
-    SchedulerConfiguration)
+    SchedulerConfiguration, ServiceRegistration)
 from ..structs.node import NODE_SCHED_ELIGIBLE, NODE_SCHED_INELIGIBLE
 from ..structs.job import JOB_STATUS_DEAD, JOB_STATUS_PENDING
 from .alloc_table import AllocTable
 
 # every table the port's store keeps (reference :28 TABLES, less the
-# tables of layers the port has not: ACLs, the keyring, variables, CSI
-# and the service catalog)
+# tables of layers the port has not: the keyring, variables and CSI)
 TABLES = ("nodes", "jobs", "evals", "allocs", "deployments", "node_pools",
-          "scheduler_config", "job_versions", "scaling_policies",
-          "scaling_events", "namespaces")
+          "scheduler_config", "job_versions", "acl_policies", "acl_tokens",
+          "acl_roles", "scaling_policies", "scaling_events", "namespaces",
+          "services")
 # scaling events kept a job (upstream: structs.JobTrackedScalingEvents)
 SCALING_EVENTS_KEPT = 20
 
@@ -351,6 +353,13 @@ class StateStore:
         self._scheduler_config = SchedulerConfiguration()
         self._scaling_policies: Dict[str, ScalingPolicy] = {}
         self._scaling_events: Dict[Tuple[str, str], List[ScalingEvent]] = {}
+        # the native service catalog, by registration id
+        self._services: Dict[str, ServiceRegistration] = {}
+        self._acl_policies: Dict[str, ACLPolicy] = {}
+        self._acl_roles: Dict[str, ACLRole] = {}
+        self._acl_tokens: Dict[str, ACLToken] = {}      # by accessor id
+        self._acl_tokens_by_secret: Dict[str, str] = {}
+        self._acl_bootstrapped = False
         self._snap_cache: Optional[StateSnapshot] = None
         # (allocs table index, alloc map) of the last snapshot built: the
         # base the next one advances by the journal
@@ -733,6 +742,217 @@ class StateStore:
             pool.modify_index = self._index + 1
             self._node_pools[pool.name] = pool
             return self._bump("node_pools")
+
+    def delete_node_pool(self, name: str) -> int:
+        """(reference :985) The built-in pools stay (no write); the
+        caller checks that the pool is empty."""
+        with self._lock:
+            if name in ("default", "all"):
+                return self._index
+            self._node_pools.pop(name, None)
+            return self._bump("node_pools")
+
+    def node_pools(self) -> List[NodePool]:
+        with self._lock:
+            return sorted(self._node_pools.values(), key=lambda p: p.name)
+
+    def upsert_namespace(self, namespace: Namespace) -> int:
+        """(reference :999)"""
+        with self._lock:
+            existing = self._namespaces.get(namespace.name)
+            namespace.create_index = (existing.create_index if existing
+                                      else self._index + 1)
+            namespace.modify_index = self._index + 1
+            self._namespaces[namespace.name] = namespace
+            return self._bump("namespaces")
+
+    def delete_namespace(self, name: str) -> int:
+        """The default namespace stays (no write)."""
+        with self._lock:
+            if name == "default":
+                return self._index
+            self._namespaces.pop(name, None)
+            return self._bump("namespaces")
+
+    def namespaces(self) -> List[Namespace]:
+        with self._lock:
+            return sorted(self._namespaces.values(), key=lambda n: n.name)
+
+    def variables(self, namespace: Optional[str] = None,
+                  prefix: str = "") -> list:
+        """The variables of a namespace: none, until the keyring and the
+        variables table are ported (the reference's :1288 reads its
+        table; delete_namespace and the search read this)."""
+        return []
+
+    # -- the native service catalog (reference :1139-1220; upstream:
+    #    state_store.go UpsertServiceRegistrations and the
+    #    DeleteServiceRegistrationBy* sweeps) ---------------------------
+    def upsert_service_registrations(
+            self, regs: List[ServiceRegistration]) -> int:
+        with self._lock:
+            for reg in regs:
+                existing = self._services.get(reg.id)
+                reg.create_index = (existing.create_index if existing
+                                    else self._index + 1)
+                reg.modify_index = self._index + 1
+                self._services[reg.id] = reg
+            return self._bump("services")
+
+    def delete_service_registrations(self, reg_ids: List[str]) -> int:
+        with self._lock:
+            for rid in reg_ids:
+                self._services.pop(rid, None)
+            return self._bump("services")
+
+    def delete_services_by_alloc(self, alloc_id: str) -> int:
+        return self.delete_services_by_allocs([alloc_id])
+
+    def delete_services_by_allocs(self, alloc_ids: List[str]) -> int:
+        """Every registration of the allocs in one write; none (and no
+        index) when the allocs have none."""
+        with self._lock:
+            if not self._services:
+                return self._index
+            ids = set(alloc_ids)
+            gone = [rid for rid, r in self._services.items()
+                    if r.alloc_id in ids]
+            for rid in gone:
+                del self._services[rid]
+            return self._bump("services") if gone else self._index
+
+    def delete_services_by_node(self, node_id: str) -> int:
+        """A dead node's registrations in one write (none: no index)."""
+        with self._lock:
+            gone = [rid for rid, r in self._services.items()
+                    if r.node_id == node_id]
+            for rid in gone:
+                del self._services[rid]
+            return self._bump("services") if gone else self._index
+
+    def service_registrations(self, namespace: Optional[str] = None
+                              ) -> List[ServiceRegistration]:
+        """By (namespace, service name, id); namespace None or "*": all."""
+        with self._lock:
+            return sorted(
+                (r for r in self._services.values()
+                 if namespace in (None, "*", r.namespace)),
+                key=lambda r: (r.namespace, r.service_name, r.id))
+
+    def services_by_name(self, namespace: str, name: str
+                         ) -> List[ServiceRegistration]:
+        with self._lock:
+            return sorted(
+                (r for r in self._services.values()
+                 if r.namespace == namespace and r.service_name == name),
+                key=lambda r: r.id)
+
+    # -- ACL tables (reference :1297-1398; upstream: state_store.go
+    #    UpsertACLPolicies, UpsertACLTokens, BootstrapACLTokens) ---------
+    def upsert_acl_policies(self, policies: List[ACLPolicy]) -> int:
+        with self._lock:
+            for p in policies:
+                existing = self._acl_policies.get(p.name)
+                p.create_index = (existing.create_index if existing
+                                  else self._index + 1)
+                p.modify_index = self._index + 1
+                self._acl_policies[p.name] = p
+            return self._bump("acl_policies")
+
+    def delete_acl_policies(self, names: List[str]) -> int:
+        with self._lock:
+            for name in names:
+                self._acl_policies.pop(name, None)
+            return self._bump("acl_policies")
+
+    def acl_policy_by_name(self, name: str) -> Optional[ACLPolicy]:
+        with self._lock:
+            return self._acl_policies.get(name)
+
+    def acl_policies(self) -> List[ACLPolicy]:
+        with self._lock:
+            return list(self._acl_policies.values())
+
+    def upsert_acl_roles(self, roles: List[ACLRole]) -> int:
+        with self._lock:
+            for r in roles:
+                existing = self._acl_roles.get(r.name)
+                r.create_index = (existing.create_index if existing
+                                  else self._index + 1)
+                r.modify_index = self._index + 1
+                self._acl_roles[r.name] = r
+            return self._bump("acl_roles")
+
+    def delete_acl_roles(self, names: List[str]) -> int:
+        with self._lock:
+            for name in names:
+                self._acl_roles.pop(name, None)
+            return self._bump("acl_roles")
+
+    def acl_role_by_name(self, name: str) -> Optional[ACLRole]:
+        with self._lock:
+            return self._acl_roles.get(name)
+
+    def acl_roles(self) -> List[ACLRole]:
+        with self._lock:
+            return list(self._acl_roles.values())
+
+    def upsert_acl_tokens(self, tokens: List[ACLToken]) -> int:
+        with self._lock:
+            for t in tokens:
+                existing = self._acl_tokens.get(t.accessor_id)
+                t.create_index = (existing.create_index if existing
+                                  else self._index + 1)
+                t.modify_index = self._index + 1
+                if existing is not None:
+                    self._acl_tokens_by_secret.pop(existing.secret_id, None)
+                self._acl_tokens[t.accessor_id] = t
+                self._acl_tokens_by_secret[t.secret_id] = t.accessor_id
+            return self._bump("acl_tokens")
+
+    def delete_acl_tokens(self, accessor_ids: List[str]) -> int:
+        with self._lock:
+            for acc in accessor_ids:
+                t = self._acl_tokens.pop(acc, None)
+                if t is not None:
+                    self._acl_tokens_by_secret.pop(t.secret_id, None)
+            return self._bump("acl_tokens")
+
+    def acl_token_by_accessor(self, accessor_id: str) -> Optional[ACLToken]:
+        with self._lock:
+            return self._acl_tokens.get(accessor_id)
+
+    def acl_token_by_secret(self, secret_id: str) -> Optional[ACLToken]:
+        with self._lock:
+            acc = self._acl_tokens_by_secret.get(secret_id)
+            return self._acl_tokens.get(acc) if acc else None
+
+    def acl_tokens(self) -> List[ACLToken]:
+        with self._lock:
+            return list(self._acl_tokens.values())
+
+    def bootstrap_acl_token(self, token: ACLToken) -> bool:
+        """The one-time management token (upstream: BootstrapACLTokens,
+        guarded by the bootstrap index): False once bootstrapped while
+        an unexpired management token exists, so deleting every
+        management token opens bootstrap again."""
+        with self._lock:
+            have_mgmt = any(t.type == ACL_TOKEN_TYPE_MANAGEMENT
+                            and not t.is_expired()
+                            for t in self._acl_tokens.values())
+            if self._acl_bootstrapped and have_mgmt:
+                return False
+            self._acl_bootstrapped = True
+            token.create_index = self._index + 1
+            token.modify_index = self._index + 1
+            self._acl_tokens[token.accessor_id] = token
+            self._acl_tokens_by_secret[token.secret_id] = token.accessor_id
+            self._bump("acl_tokens")
+            return True
+
+    def acl_bootstrapped(self) -> bool:
+        with self._lock:
+            return self._acl_bootstrapped
 
     def set_scheduler_config(self, cfg: SchedulerConfiguration) -> int:
         with self._lock:

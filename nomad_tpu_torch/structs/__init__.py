@@ -1,7 +1,8 @@
 """The data model the scheduler and the placement service read (port of
 the scheduling half of nomad_tpu/structs/): resources, ports, nodes,
 jobs, allocations, evaluations, deployments, plans, plan results, the
-scheduler configuration, namespaces, and scaling policies and events.
+scheduler configuration, namespaces, scaling policies and events, the
+service catalog's registrations, and the ACL policies, roles and tokens.
 Class and field names equal the reference's, so
 carry.struct_from_reference can map a reference struct onto its port
 class by name."""
@@ -17,7 +18,8 @@ from .resources import (  # noqa: F401
 from .job import (  # noqa: F401
     Affinity, Constraint, EphemeralDisk, Job, LogConfig, MigrateStrategy,
     ParameterizedJobConfig, PeriodicConfig, ReschedulePolicy, RestartPolicy,
-    ScalingEvent, ScalingPolicy, Service, Spread, SpreadTarget, Task,
+    ScalingEvent, ScalingPolicy, Service, ServiceRegistration, Spread,
+    SpreadTarget, Task,
     TaskGroup, UpdateStrategy, VolumeRequest, generate_uuid, reseed_ids,
     JOB_TYPE_SERVICE, JOB_TYPE_BATCH, JOB_TYPE_SYSTEM, JOB_TYPE_SYSBATCH,
     JOB_STATUS_PENDING, JOB_STATUS_RUNNING, JOB_STATUS_DEAD,
@@ -51,6 +53,10 @@ from .alloc import (  # noqa: F401
     DEPLOYMENT_STATUS_RUNNING, DEPLOYMENT_STATUS_PAUSED,
     DEPLOYMENT_STATUS_FAILED, DEPLOYMENT_STATUS_SUCCESSFUL,
     DEPLOYMENT_STATUS_CANCELLED, PlanResult,
+)
+from .acl import (  # noqa: F401
+    ACLPolicy, ACLRole, ACLToken, ACL_TOKEN_TYPE_CLIENT,
+    ACL_TOKEN_TYPE_MANAGEMENT, ANONYMOUS_TOKEN_ACCESSOR,
 )
 from .network import NetworkIndex, PortBitmap, AssignedPorts  # noqa: F401
 from .funcs import (  # noqa: F401

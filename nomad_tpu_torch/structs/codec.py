@@ -2,9 +2,10 @@
 (port of nomad_tpu/structs/codec.py). ``encode`` walks a value
 structurally; ``decode(cls, data)`` rebuilds the typed object graph from
 the class's field hints. The HTTP API's node and alloc endpoints carry
-structs in this form (register, pull allocs, allocs-update), and so do
-state/restore.py's dumps (a job plan's copy of the state, the operator
-snapshots).
+structs in this form (register, pull allocs, allocs-update, the service
+registrations of services-register), and so do state/restore.py's dumps
+(a job plan's copy of the state, the operator snapshots), ACL policies,
+roles and tokens and the service catalog included.
 
 Both walks are the reference's, made cheap for the tens of thousands
 of structs a dump holds: ``encode`` reads each dataclass type's field

@@ -4,7 +4,8 @@ Every field the scheduler reads is present, and the periodic launch
 spec the server's launcher reads (PeriodicConfig), the dispatch contract
 of a parameterized job (ParameterizedJobConfig), and the scaling policy
 and scaling event records the store derives and keeps (ScalingPolicy,
-ScalingEvent); multiregion configuration is not ported (its Job field
+ScalingEvent), and the native service catalog's entries
+(ServiceRegistration); multiregion configuration is not ported (its Job field
 stays, holding None).
 """
 from __future__ import annotations
@@ -242,6 +243,30 @@ class Service:
     # Admission injects the sidecar proxy task + its public port
     # (server/admission.py ConnectHook).
     connect: Optional[dict] = None
+
+
+@dataclass
+class ServiceRegistration:
+    """One group or task service instance in the native service catalog
+    (upstream: nomad/structs/service_registration.go
+    ServiceRegistration): written as a workload starts, read through
+    /v1/services, removed with its alloc or its node."""
+
+    id: str = ""
+    service_name: str = ""
+    namespace: str = DEFAULT_NAMESPACE
+    node_id: str = ""
+    datacenter: str = ""
+    job_id: str = ""
+    alloc_id: str = ""
+    provider: str = "nomad"
+    tags: List[str] = field(default_factory=list)
+    address: str = ""
+    port: int = 0
+    # simplified check health: pending | passing | failing
+    status: str = "passing"
+    create_index: int = 0
+    modify_index: int = 0
 
 
 @dataclass

@@ -10,7 +10,10 @@ commands: job inspect / history / revert, node drain / eligibility /
 purge, alloc stop, deployment, eval, system gc, metrics and the operator
 reports (node flaps, workers, evals quarantine, the sanitizers,
 transfers, trace, quality), and job plan (exit 1 when a group would
-fail), job scale, job dispatch and operator snapshot save / restore.
+fail), job scale, job dispatch and operator snapshot save / restore;
+with ACLs on, acl bootstrap / policy apply / token create / role,
+namespace, node-pool, service and status <prefix>, as the management
+token and as one that is refused.
 Tolerance: exact, but for the lines the
 port's own layers print differently (the resident set where the
 reference prints its const cache; the jitcheck counters of a kernel
@@ -271,9 +274,9 @@ def test_schedcheck_replay_runs_the_ports_scenario(capsys):
 
 
 def test_unported_commands_are_not_registered(capsys):
-    for argv in (["var", "list"], ["acl", "bootstrap"],
-                 ["namespace", "list"], ["server", "members"],
-                 ["status", "x"], ["operator", "keyring", "list"]):
+    for argv in (["var", "list"], ["volume", "status"],
+                 ["plugin", "status"], ["server", "members"],
+                 ["monitor"], ["operator", "keyring", "list"]):
         with pytest.raises(SystemExit) as e:
             cli.main(argv)
         assert e.value.code == 2, argv
@@ -396,3 +399,91 @@ def test_job_plan_scale_dispatch_and_snapshot_commands(monkeypatch, capsys,
         assert outs[0] == outs[1] and outs[1].startswith(
             "Snapshot restored (index ")
         same_out(capsys, ref, port, ["job", "status", "scaly"])
+
+
+def _no_uuids(text):
+    return re.sub(r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-"
+                  r"[0-9a-f]{12}", "<uuid>", text)
+
+
+def test_acl_bootstrap_through_both_clis(monkeypatch, capsys):
+    """`acl bootstrap` on agents with ACLs on: the token printed (its
+    random ids aside), then refused, alike."""
+    with agents(monkeypatch, acl=True) as (ref, port):
+        got, want = run_both(capsys, ref, port, ["acl", "bootstrap"])
+        assert _no_uuids(got) == _no_uuids(want)
+        assert "Type        = management" in got
+        for (server, api), main in ((ref, ref_cli.main), (port, cli.main)):
+            assert main(["-address", api.address, "acl", "bootstrap"]) == 1
+            assert "already bootstrapped" in capsys.readouterr().err
+
+
+def test_cluster_table_and_acl_commands_equal_the_reference(
+        monkeypatch, capsys, tmp_path):
+    """The new commands through both CLIs on agents with ACLs on, as the
+    management token ($NOMAD_TOKEN, as the reference's CLI reads it):
+    acl policy apply / token create / role, namespace, node-pool,
+    service and status <prefix>; then as a token that may not, refused
+    alike; the port's -token flag wins over $NOMAD_TOKEN."""
+    from test_torch_http import acl_world, service_regs
+    store, secrets, _ = acl_world()
+    pol = tmp_path / "team.hcl"
+    pol.write_text('namespace "team-a" { policy = "read" }\n')
+    spec_file = tmp_path / "mini.hcl"
+    spec_file.write_text(MINI_SPEC)
+    with agents(monkeypatch, store=store, acl=True) as (ref, port):
+        monkeypatch.setenv("NOMAD_TOKEN", secrets["management"])
+        for (server, api) in (ref, port):
+            api.token = secrets["management"]
+            api.post("/v1/node/services-register",
+                     {"services": service_regs()})
+        reseed(131)
+        same_out(capsys, ref, port, ["job", "run", str(spec_file)])
+        settle_all(ref, port)
+        for argv, rc in (
+                (["acl", "policy", "apply", "team", str(pol),
+                  "-description", "t"], 0),
+                (["acl", "role", "apply", "ops", "-policy", "team",
+                  "-policy", "ro"], 0),
+                (["acl", "role", "apply", "bad", "-policy", "nope"], 1),
+                (["acl", "role", "list"], 0),
+                (["acl", "role", "delete", "ops"], 0),
+                (["namespace", "apply", "team-c", "-description", "c"], 0),
+                (["namespace", "list"], 0),
+                (["namespace", "delete", "team-c"], 0),
+                (["namespace", "delete", "default"], 1),
+                (["node-pool", "apply", "pool-c", "-description", "c",
+                  "-scheduler-algorithm", "spread"], 0),
+                (["node-pool", "list"], 0),
+                (["node-pool", "nodes", "default"], 0),
+                (["node-pool", "delete", "pool-c"], 0),
+                (["node-pool", "delete", "default"], 1),
+                (["service", "list"], 0),
+                (["service", "info", "web-svc"], 0),
+                (["-namespace", "team-a", "service", "info", "web-svc"], 0),
+                (["status", "mini"], 0),
+                (["status", "zz"], 1),
+                (["-namespace", "*", "status", ""], 0)):
+            got = same_out(capsys, ref, port, argv, rc=rc)
+            if rc == 0:
+                assert got.strip(), argv
+        got, want = run_both(capsys, ref, port, [
+            "acl", "token", "create", "-name", "t", "-policy", "team"])
+        assert _no_uuids(got) == _no_uuids(want)
+        assert "Policies    = ['team']" in got
+        # a read-only token: refused alike
+        monkeypatch.setenv("NOMAD_TOKEN", secrets["read"])
+        for argv in (["namespace", "apply", "x"], ["acl", "role", "list"],
+                     ["node-pool", "apply", "x"]):
+            same_out(capsys, ref, port, argv, rc=1)
+        same_out(capsys, ref, port, ["namespace", "list"])
+        same_out(capsys, ref, port, ["-namespace", "*", "status", ""])
+        # -token wins over $NOMAD_TOKEN (the port's flag)
+        assert cli.main(["-address", port[1].address, "-token",
+                         secrets["management"], "namespace", "apply",
+                         "x"]) == 0
+        assert "Namespace 'x' applied" in capsys.readouterr().out
+        monkeypatch.delenv("NOMAD_TOKEN")
+        assert cli.main(["-address", port[1].address, "namespace",
+                         "apply", "y"]) == 1
+        assert "Permission denied" in capsys.readouterr().err

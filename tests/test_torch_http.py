@@ -27,8 +27,13 @@ the scaling policies, scale within and outside the bounds and its
 status, a dispatch with a base64 payload, its idempotency token and its
 refusals; both clocks pinned to one second, which a child's id reads),
 and the operator snapshot routes (save, restore, junk refused, each
-package's archive restored by the other's agent). Every wait has a
-deadline; every server is shut down.
+package's archive restored by the other's agent). With ACLs on in
+both (policies and tokens carried from the reference's store, never
+minted apart): every route the port serves, GET, POST, PUT and DELETE,
+as each of four tokens (anonymous, read-only in one namespace, write in
+another, management), answers the same status and reply, list rows
+filtered alike, and leaves the same state. Every wait has a deadline;
+every server is shut down.
 """
 import contextlib
 import itertools
@@ -49,6 +54,7 @@ from nomad_tpu.faultinject import faults as ref_faults
 from nomad_tpu.server import Server as RefServer
 from nomad_tpu.state import StateStore as RefStateStore
 from nomad_tpu.structs import SchedulerConfiguration
+from nomad_tpu.structs import codec as ref_codec
 from nomad_tpu.structs.job import reseed_ids as ref_reseed_ids
 
 from nomad_tpu_torch import mock as pmock
@@ -110,14 +116,15 @@ def ref_world(seed=3, n=N_NODES):
 
 
 @contextlib.contextmanager
-def agents(monkeypatch, store=None, width=WIDTH, order=None):
+def agents(monkeypatch, store=None, width=WIDTH, order=None, acl=False):
     """(ref, port): each a (Server, ApiClient) pair behind its own
-    HttpServer, on one world at one index; shut down on exit."""
+    HttpServer, on one world at one index (``acl``: both Servers with
+    ACLs on); shut down on exit."""
     monkeypatch.setattr(ref_http.ApiHandler, "handle",
                         _named_request(ref_http.ApiHandler.handle))
     store = store if store is not None else ref_world()
     kw = dict(num_workers=2, eval_batching=True, batch_width=width,
-              heartbeat_ttl=3600.0)
+              heartbeat_ttl=3600.0, acl_enabled=acl)
     ref = RefServer(state=store, **kw)
     port = rhttp = phttp = None
     try:
@@ -372,11 +379,9 @@ def test_operator_routes_equal_the_reference(monkeypatch):
               {"release_all": True})
         check(ref, port, "POST", "/v1/operator/quarantine", {})
         # routes the port does not serve answer as unknown paths
-        for method, path in (("GET", "/v1/acl/policies"),
-                             ("GET", "/v1/namespaces"),
-                             ("GET", "/v1/vars"),
-                             ("POST", "/v1/search"),
-                             ("GET", "/v1/services"),
+        for method, path in (("GET", "/v1/vars"),
+                             ("GET", "/v1/volumes"),
+                             ("GET", "/v1/operator/keyring/keys"),
                              ("GET", "/v1/agent/members"),
                              ("GET", "/v1/regions"),
                              ("POST", "/v1/agent/jax-profile")):
@@ -887,3 +892,359 @@ def test_http_server_shutdown_without_start_returns():
     t.join(timeout=10.0)
     assert not t.is_alive(), \
         "HttpServer.shutdown waited for a serve_forever that never ran"
+
+
+# -- ACLs on: every route x four tokens ----------------------------------
+
+RO_RULES = """
+namespace "default" { policy = "read" }
+node     { policy = "read" }
+agent    { policy = "read" }
+operator { policy = "read" }
+"""
+RW_RULES = """
+namespace "team-a" { policy = "write" }
+node { policy = "write" }
+"""
+TOKENS = ("anonymous", "read", "write", "management")
+
+
+def acl_world():
+    """ref_world with namespaces team-a and team-b, node pool pool-a,
+    policies "ro" (read in default; node, agent and operator read) and
+    "rw" (write in team-a; node write), the bootstrap management token,
+    a client token of each policy and one to delete; ``secrets`` maps
+    the four roles of TOKENS to their secrets (None: anonymous)."""
+    from nomad_tpu.structs import (
+        ACLPolicy, ACLToken, Namespace, NodePool)
+    store = ref_world()
+    store.upsert_namespace(Namespace(name="team-a", description="a"))
+    store.upsert_namespace(Namespace(name="team-b"))
+    store.upsert_node_pool(NodePool(name="pool-a"))
+    store.upsert_acl_policies([ACLPolicy(name="ro", rules=RO_RULES),
+                               ACLPolicy(name="rw", rules=RW_RULES)])
+    boot = ACLToken.new(name="Bootstrap Token", type="management")
+    assert store.bootstrap_acl_token(boot)
+    ro = ACLToken.new(name="ro", policies=["ro"])
+    rw = ACLToken.new(name="rw", policies=["rw"])
+    doomed = ACLToken.new(name="doomed", policies=["ro"])
+    store.upsert_acl_tokens([ro, rw, doomed])
+    secrets = {"anonymous": None, "read": ro.secret_id,
+               "write": rw.secret_id, "management": boot.secret_id}
+    return store, secrets, doomed.accessor_id
+
+
+def ask_as(pair, secret, method, path, body=None, raw=False, **params):
+    """ask() with a token (None: anonymous); ``raw``: a binary reply,
+    (status, its length)."""
+    server, api = pair
+    client = ApiClient(api.address, token=secret or "", timeout=120.0)
+    try:
+        if raw:
+            data = client.request_raw(
+                method, path, None if body is None else body)
+            return 200, len(data)
+        return 200, client.request(method, path, body=body, params=params)
+    except Exception as e:  # noqa: BLE001 -- both clients' ApiError
+        return e.status, str(e)
+
+
+def shape(reply):
+    """A reply compared by its shape only: its keys, or its type."""
+    if isinstance(reply, dict):
+        return sorted(reply)
+    return type(reply).__name__
+
+
+def matrix(ref, port, secrets, requests, seed):
+    """Every request of ``requests`` as each token of TOKENS, to both
+    agents, both id streams reseeded alike before each side and every
+    eval settled after it; the status and the normalized reply equal
+    (``mode`` "shape": a 200's keys only; "status": its status only;
+    "raw": a binary reply, its length ignored). A request is
+    (method, path, body, params, mode, tokens), ``path`` a string or a
+    function of the Server. Returns {(k, token): status}."""
+    statuses = {}
+    for k, (method, path, body, params, mode, tokens) in \
+            enumerate(requests):
+        for t, role in enumerate(TOKENS):
+            if role not in tokens:
+                continue
+            out = []
+            for pair, reseed in ((ref, ref_reseed_ids),
+                                 (port, pst.reseed_ids)):
+                reseed(seed + 16 * k + t)
+                p = path(pair[0]) if callable(path) else path
+                status, reply = ask_as(pair, secrets[role], method, p,
+                                       body, raw=(mode == "raw"),
+                                       **params)
+                settle_every_eval(pair)
+                if mode in ("shape", "raw") and status == 200:
+                    reply = shape(reply)
+                elif mode == "status" and status == 200:
+                    reply = None
+                out.append((status, norm(reply, id_names(pair[0]))))
+            assert out[1][0] == out[0][0], (method, path, params, role,
+                                            out[1], out[0])
+            same(out[1], out[0], f"{method} {path} {params} as {role}")
+            statuses[(k, role)] = out[1][0]
+    return statuses
+
+
+def req(method, path, body=None, mode="full", tokens=TOKENS, **params):
+    return (method, path, body, params, mode, tokens)
+
+
+def alloc_of(name):
+    return lambda server: "/v1/allocation/" + next(
+        a.id for a in server.state.allocs() if a.name == name)
+
+
+def deployment_of(job_id, op):
+    return lambda server: f"/v1/deployment/{op}/" + \
+        server.state.latest_deployment_by_job(
+            "team-a" if job_id == "web-t" else "default", job_id).id
+
+
+def policy_of(job_id):
+    return lambda server: "/v1/scaling/policy/" + next(
+        p.id for p in server.state.scaling_policies(None)
+        if p.job_id == job_id)
+
+
+def service_regs():
+    from nomad_tpu.structs import ServiceRegistration
+    return [ref_http.to_jsonable(ServiceRegistration(
+        id=f"_nomad-group-{ns}-{k}-web-svc", service_name="web-svc",
+        namespace=ns, node_id="n", alloc_id=f"{ns}-{k}", tags=[ns],
+        address="10.0.0.1", port=8000 + k))
+        for ns in ("default", "team-a") for k in range(2)]
+
+
+@contextlib.contextmanager
+def acl_agents(monkeypatch):
+    """Both agents with ACLs on over acl_world, with a job in default
+    (web-d) and one in team-a (web-t, with a scaling block) placed, and
+    services registered in both namespaces; yields (ref, port, secrets,
+    doomed accessor, web-t's eval id)."""
+    for g in (guard, ref_guard):
+        monkeypatch.setattr(g, "_subprocess_probe", lambda timeout: {
+            "timed_out": False, "rc": 0, "devices": 1})
+    store, secrets, doomed = acl_world()
+    with agents(monkeypatch, store=store, acl=True) as (ref, port):
+        mgmt = ("management",)
+        job_t = json_job("web-t", count=2)
+        job_t["namespace"] = "team-a"
+        job_t["task_groups"][0]["scaling"] = {"min": 1, "max": 3}
+        setup = [req("POST", "/v1/jobs", {"job": json_job("web-d")},
+                     tokens=mgmt),
+                 req("POST", "/v1/jobs", {"job": job_t}, tokens=mgmt),
+                 req("POST", "/v1/node/services-register",
+                     {"services": service_regs()}, tokens=mgmt)]
+        matrix(ref, port, secrets, setup, 300)
+        eid = next(e.id for e in port[0].state.evals()
+                   if e.job_id == "web-t")
+        yield ref, port, secrets, doomed, eid
+        assert_same(ref[0], port[0])
+
+
+def test_acl_reads_equal_the_reference_for_every_token(monkeypatch):
+    """Every GET route the port serves, as each of four tokens
+    (anonymous, read-only in default, write in team-a, management):
+    the same status and the same rows, the list routes filtered
+    alike."""
+    with acl_agents(monkeypatch) as (ref, port, secrets, doomed, eid):
+        node_id = port[0].state.nodes()[0].id
+        reads = [req("GET", p) for p in (
+            "/v1/acl/policies", "/v1/acl/policy/ro", "/v1/acl/policy/nope",
+            "/v1/acl/roles", "/v1/acl/role/nope", "/v1/acl/tokens",
+            "/v1/acl/token/self", f"/v1/acl/token/{doomed}",
+            "/v1/acl/token/nope", "/v1/acl/bogus")]
+        reads.append(req("GET", "/v1/acl/token/self",
+                         token=secrets["read"]))
+        for ns in ("default", "team-a", "*", "team-b"):
+            reads += [req("GET", p, namespace=ns) for p in (
+                "/v1/jobs", "/v1/evaluations", "/v1/allocations",
+                "/v1/deployments", "/v1/services", "/v1/service/web-svc",
+                "/v1/scaling/policies")]
+        for job_id, ns in (("web-d", "default"), ("web-t", "team-a"),
+                           ("web-t", "default")):
+            reads.append(req("GET", f"/v1/job/{job_id}", namespace=ns))
+            reads += [req("GET", f"/v1/job/{job_id}/{sub}", namespace=ns)
+                      for sub in ("allocations", "evaluations", "summary",
+                                  "versions", "deployment", "scale")]
+        reads += [
+            req("GET", f"/v1/evaluation/{eid}"),
+            req("GET", f"/v1/evaluation/{eid}/allocations"),
+            req("GET", "/v1/evaluation/nope"),
+            req("GET", alloc_of("web-t.web[0]")),
+            req("GET", alloc_of("web-d.web[0]")),
+            req("GET", "/v1/allocation/nope"),
+            req("GET", policy_of("web-t")),
+            req("GET", "/v1/scaling/policy/nope"),
+            req("GET", "/v1/jobs", prefix="web-"),
+            req("GET", "/v1/nodes"), req("GET", f"/v1/node/{node_id}"),
+            req("GET", f"/v1/node/{node_id}/allocations"),
+            req("GET", "/v1/node/nope"),
+            req("GET", "/v1/node/pools"), req("GET", "/v1/node/pool/pool-a"),
+            req("GET", "/v1/node/pool/nope"),
+            req("GET", "/v1/node/pool/default/nodes"),
+            req("GET", "/v1/namespaces"),
+            req("GET", "/v1/namespace/team-a"),
+            req("GET", "/v1/namespace/default"),
+            req("GET", "/v1/namespace/nope"),
+            req("GET", "/v1/operator/snapshot", mode="raw"),
+            req("GET", "/v1/event/stream", poll="true", index=0),
+            req("GET", "/v1/event/stream", tokens=("anonymous",)),
+            req("GET", "/v1/operator/scheduler/configuration"),
+            req("GET", "/v1/operator/faults"),
+            req("GET", "/v1/operator/quality", mode="shape"),
+            req("GET", "/v1/agent/self", mode="shape"),
+            req("GET", "/v1/agent/trace", mode="shape"),
+            req("GET", "/v1/agent/trace/nope"),
+            req("GET", "/v1/agent/health"),
+            req("GET", "/v1/metrics", mode="shape"),
+            req("GET", "/v1/status/leader"),
+            req("GET", "/v1/nope"),
+        ]
+        got = matrix(ref, port, secrets, reads, 400)
+        assert len(got) == 4 * len(reads) - 3
+        codes = {}
+        for (k, role), status in got.items():
+            codes.setdefault(role, set()).add(status)
+        assert codes["management"] >= {200, 404}
+        assert codes["anonymous"] >= {403}
+        assert {200, 403} <= codes["read"] and {200, 403} <= codes["write"]
+
+
+def test_acl_writes_equal_the_reference_for_every_token(monkeypatch):
+    """Every POST, PUT and DELETE route the port serves, as each of the
+    four tokens: the same status and reply, and the same state after
+    (the permitted writes done in both)."""
+    with acl_agents(monkeypatch) as (ref, port, secrets, doomed, _):
+        node_id = port[0].state.nodes()[1].id
+        new_node = ref_codec.encode(mock.node(name="joined"))
+        job_new_t = json_job("web-new", count=1)
+        job_new_t["namespace"] = "team-a"
+        plan_t = json_job("web-t", count=3)
+        plan_t["namespace"] = "team-a"
+        # (search terms that match no worker-minted id: their sorted
+        # order would differ between the packages' uuids)
+        searches = [
+            req("POST", f"/v1/search{kind}", {key: term, "context": ctx},
+                namespace=ns)
+            for kind, key in (("", "prefix"), ("/fuzzy", "text"))
+            for term, ctx in (("web", "all"), ("web", "jobs"),
+                              ("team", "namespaces"), ("pool", "all"),
+                              ("node", "nodes"), ("zz", "all"))
+            for ns in ("default", "team-a", "*")]
+        writes = searches + [
+            req("POST", "/v1/jobs/parse", {"job_hcl": MINI_SPEC}),
+            req("POST", "/v1/jobs/parse", {"job_hcl": MINI_SPEC},
+                namespace="team-a"),
+            req("POST", "/v1/jobs", {"job": job_new_t}),
+            req("POST", "/v1/jobs", {"job": json_job("web-new-d", 1)}),
+            req("POST", "/v1/jobs", {"job": {}}),
+            req("POST", "/v1/job/web-t/revert", {"job_version": 9},
+                namespace="team-a"),
+            req("POST", "/v1/job/web-t/stable", {"job_version": 0},
+                namespace="team-a"),
+            req("POST", "/v1/job/web-t/periodic/force", namespace="team-a"),
+            req("POST", "/v1/job/web-t/plan", {"job": plan_t},
+                namespace="team-a"),
+            req("POST", "/v1/job/web-d/plan", {"job": json_job("web-d")}),
+            req("POST", "/v1/job/web-t/dispatch", {}, namespace="team-a"),
+            req("POST", "/v1/job/web-t/scale",
+                {"count": 9, "target": {"Group": "web"}},
+                namespace="team-a"),
+            req("POST", "/v1/job/web-d/scale",
+                {"count": 9, "target": {"Group": "web"}}),
+            req("POST", deployment_of("web-t", "pause"), {"pause": True}),
+            req("POST", deployment_of("web-d", "pause"), {"pause": True}),
+            req("POST", "/v1/deployment/pause/nope", {}),
+            req("POST", deployment_of("web-t", "promote"), {}),
+            req("POST", "/v1/deployment/fail/nope"),
+            req("POST", lambda s: alloc_of("web-t.web[1]")(s) + "/stop"),
+            req("POST", "/v1/allocation/nope/stop"),
+            # the port's profiler route stands where the reference's
+            # JAX profiler route is (agent:write in both)
+            req("POST", lambda s: "/v1/agent/torch-profile"
+                if isinstance(s, Server) else "/v1/agent/jax-profile",
+                {"action": "bogus"}),
+            req("POST", "/v1/system/gc"),
+            # (its reply's blocks: test_guard_reprobe_equals_the_reference)
+            req("POST", "/v1/operator/solver/reprobe", mode="status"),
+            req("POST", "/v1/operator/faults", {"disarm_all": True}),
+            req("POST", "/v1/operator/quarantine", {}),
+            req("POST", "/v1/operator/scheduler/configuration",
+                {"scheduler_algorithm": "tpu-binpack"}),
+            req("PUT", "/v1/operator/snapshot", b"junk", mode="raw"),
+            req("POST", "/v1/node/register", {"node": new_node}),
+            req("POST", f"/v1/node/{node_id}/heartbeat"),
+            req("POST", f"/v1/node/{node_id}/eligibility",
+                {"eligibility": "eligible"}),
+            req("POST", f"/v1/node/{node_id}/drain", {"drain_spec": None}),
+            req("POST", "/v1/node/nope/purge"),
+            req("POST", "/v1/node/allocs-update", {"allocs": []}),
+            req("POST", "/v1/node/services-register",
+                {"services": service_regs()[:1]}),
+            req("POST", "/v1/node/pools", {"name": "pool-x"}),
+            req("POST", "/v1/node/pool/pool-y", {"description": "y"}),
+            req("POST", "/v1/node/pool/all", {}),
+            req("POST", "/v1/namespace/team-c", {"description": "c"}),
+            req("POST", "/v1/namespace", {"name": "a/b"}),
+            req("POST", "/v1/acl/bootstrap"),
+            req("POST", "/v1/acl/policy/new-pol",
+                {"rules": RO_RULES, "description": "n"}),
+            req("POST", "/v1/acl/policy/bad-pol",
+                {"rules": 'node { policy = "sudo" }'}),
+            req("POST", "/v1/acl/role/new-role", {"policies": ["ro"]}),
+            req("POST", "/v1/acl/role/bad-role", {"policies": ["nope"]}),
+            req("POST", "/v1/acl/token", {"name": "x", "policies": ["ro"]},
+                mode="shape"),
+            req("POST", "/v1/acl/nope", {}),
+            req("POST", "/v1/nope", {}),
+            req("POST", "/v1/search/nope", {}),
+            req("DELETE", "/v1/job/nope", namespace="team-a"),
+            req("DELETE", "/v1/job/web-new-d"),
+            req("DELETE", "/v1/service/web-svc/_nomad-group-team-a-1-web-svc",
+                namespace="team-a"),
+            req("DELETE", "/v1/service/web-svc/_nomad-group-default-1-web-svc"),
+            req("DELETE", "/v1/service/web-svc/nope", namespace="team-a"),
+            req("DELETE", "/v1/acl/role/new-role"),
+            req("DELETE", "/v1/acl/policy/new-pol"),
+            req("DELETE", f"/v1/acl/token/{doomed}"),
+            req("DELETE", "/v1/namespace/team-c"),
+            req("DELETE", "/v1/namespace/team-a"),
+            req("DELETE", "/v1/node/pool/pool-x"),
+            req("DELETE", "/v1/node/pool/default"),
+            req("DELETE", "/v1/nope"),
+        ]
+        got = matrix(ref, port, secrets, writes, 600)
+        assert len(got) == 4 * len(writes)
+        mgmt = [s for (k, r), s in got.items() if r == "management"]
+        assert mgmt.count(200) > len(writes) // 2
+        assert port[0].state.acl_token_by_accessor(doomed) is None
+        assert port[0].state.job_by_id("team-a", "web-new") is not None
+        # the catalog, the namespaces, pools and ACL tables agree
+        for get in ("/v1/services", "/v1/namespaces", "/v1/node/pools",
+                    "/v1/acl/policies", "/v1/acl/roles"):
+            matrix(ref, port, secrets, [req("GET", get, namespace="*",
+                                            tokens=("management",))], 900)
+
+
+def test_event_stream_shows_every_namespace_to_any_reader(monkeypatch):
+    """A reference fault the port mirrors (ROADMAP Queue 3): the event
+    stream asks for read-job in any namespace, then serves every
+    namespace's events; a token that may read team-a only sees a
+    default job's registration, in both packages (upstream filters
+    each event by the token's namespaces)."""
+    with acl_agents(monkeypatch) as (ref, port, secrets, _, _eid):
+        for pair in (ref, port):
+            got = ask_as(pair, secrets["write"], "GET", "/v1/event/stream",
+                         poll="true", index=0)
+            assert got[0] == 200
+            assert {"topic": "JobRegistered", "key": "web-d"} in [
+                {"topic": e["topic"], "key": e["key"]} for e in got[1]]
+            assert ask_as(pair, secrets["write"], "GET", "/v1/job/web-d",
+                          namespace="default")[0] == 403

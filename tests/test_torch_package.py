@@ -110,7 +110,14 @@ def test_dispatch_layer_modules_load_no_jax_and_nothing_of_the_reference(
                                     "nomad_tpu_torch.client.numalib",
                                     "nomad_tpu_torch.jobspec",
                                     "nomad_tpu_torch.tlsutil",
-                                    "nomad_tpu_torch.structs.codec"])
+                                    "nomad_tpu_torch.structs.codec",
+                                    "nomad_tpu_torch.acl",
+                                    "nomad_tpu_torch.acl.acl",
+                                    "nomad_tpu_torch.acl.policy",
+                                    "nomad_tpu_torch.structs.acl",
+                                    "nomad_tpu_torch.server.search",
+                                    "nomad_tpu_torch.client."
+                                    "serviceregistration"])
 def test_agent_modules_load_no_jax_and_nothing_of_the_reference(module):
     """The agent's entry points (the API, the CLI, the jobspec, the node
     side) stand alone too, and none of them starts CUDA at import."""

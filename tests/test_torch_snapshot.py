@@ -6,6 +6,8 @@ CPU.
   * dump_state of a port store equals the reference's, table by table
     (and each table's index), after the same writes into both stores;
     each package's blob restores in the other to the same dump.
+  * The ACL tables (policies, roles, tokens, the bootstrap flag) and
+    the service catalog cross both ways, tokens found by their secrets.
   * A reference blob restored in the port, then one more job placed:
     the placements equal the reference server's, node for node.
   * The archive cases of tests/test_snapshot_events.py:25-96, 202, 256:
@@ -175,6 +177,76 @@ def test_each_package_restores_the_others_blob(monkeypatch, source):
     assert pfresh.scaling_policies_by_job("default", "scaly")
     assert [e.message for e in
             pfresh.scaling_events_by_job("default", "scaly")] == ["down"]
+
+
+def acl_and_catalog_stores(monkeypatch):
+    """both_stores with the same ACL tables (policies, a role, client
+    tokens and the bootstrap token, carried from the reference's, never
+    minted apart) and service registrations written into both."""
+    from nomad_tpu.structs import (
+        ACLPolicy, ACLRole, ACLToken, ServiceRegistration)
+    ref, port = both_stores(monkeypatch)
+    memo = {}
+    pols = [ACLPolicy(name="ro", rules='namespace "default" '
+                      '{ policy = "read" }'),
+            ACLPolicy(name="ops", rules='node { policy = "write" }')]
+    roles = [ACLRole(name="r", policies=["ops"])]
+    toks = [ACLToken.new(name="t1", policies=["ro"]),
+            ACLToken.new(name="t2", roles=["r"], ttl_s=60.0)]
+    boot = ACLToken.new(name="Bootstrap Token", type="management")
+    node_id = ref.nodes()[0].id
+    regs = [ServiceRegistration(id=f"_nomad-group-a{k}-web",
+                                service_name="web", node_id=node_id,
+                                alloc_id=f"a{k}", tags=["x"], port=80 + k)
+            for k in range(3)]
+    for store, carry in ((ref, lambda x: x),
+                         (port, lambda x: struct_from_reference(x, memo))):
+        store.upsert_acl_policies([carry(p) for p in pols])
+        store.upsert_acl_roles([carry(r) for r in roles])
+        store.upsert_acl_tokens([carry(t) for t in toks])
+        assert store.bootstrap_acl_token(carry(boot))
+        store.upsert_service_registrations([carry(r) for r in regs])
+    return ref, port
+
+
+@pytest.mark.parametrize("source", ["reference", "port"])
+def test_acl_and_catalog_tables_cross_both_ways(monkeypatch, source):
+    """The ACL tables, the bootstrap flag and the service catalog: the
+    dumps agree, and each package's blob, saved as its operator archive
+    and read by the other's, restores in both to the same tables, with
+    each token found by its secret."""
+    ref, port = acl_and_catalog_stores(monkeypatch)
+    got, want = dump_state(port), ref_dump_state(ref)
+    for key in ("acl_policies", "acl_roles", "acl_tokens",
+                "acl_bootstrapped", "services", "index"):
+        assert got[key] == want[key], key
+    assert got["table_index"] == {t: want["table_index"][t] for t in TABLES}
+    assert len(got["acl_tokens"]) == 3 and len(got["services"]) == 3
+    # through each package's operator archive: saved by the source's,
+    # read by the other's
+    save, load = ((save_archive, ref_load_archive) if source == "port"
+                  else (ref_save_archive, load_archive))
+    src = got if source == "port" else want
+    _meta, blob = load(save(src, src["index"]))
+    pfresh, rfresh = StateStore(), RefStateStore()
+    restore_state(pfresh, blob)
+    ref_restore_state(rfresh, blob)
+    again, want = dump_state(pfresh), ref_dump_state(rfresh)
+    for key in again:
+        if key != "table_index":
+            assert again[key] == want[key], key
+    assert pfresh.acl_bootstrapped() and rfresh.acl_bootstrapped()
+    for t in rfresh.acl_tokens():
+        mine = pfresh.acl_token_by_secret(t.secret_id)
+        assert mine is not None and mine.accessor_id == t.accessor_id
+    assert [r.id for r in pfresh.services_by_name("default", "web")] == \
+        [r.id for r in rfresh.services_by_name("default", "web")]
+    # the port's restore is one write past the prior index, as the
+    # reference's, every table bumped
+    idx = port.restore_from_snapshot(blob)
+    assert idx == ref.restore_from_snapshot(blob)
+    assert port.table_index("acl_tokens") == port.table_index("services") \
+        == idx
 
 
 def test_restore_decodes_everything_before_it_writes(monkeypatch):
